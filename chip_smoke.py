@@ -1,0 +1,396 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (dalle_pytorch_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases, each of which raises on failure (exit code non-zero, no result
+line):
+
+1. device: a CUDA card is required; its name and power limit are printed.
+2. build: every CUDA kernel of the port is compiled with nvcc (sm_90a).
+3. kernels: each kernel's wrapper at the serving path's shapes against its
+   plain PyTorch version (float32 and bfloat16, stated tolerances), all
+   outputs finite; times with CUDA events (L2 flushed before each call)
+   beside the plain version, one library call as a yardstick, and the
+   bound from bytes and operations.
+4. path check: a small float32 DALLE with the same weights on the card
+   (kernel) and on the CPU (plain version) through mixed ragged
+   iterations; logits agree.
+5. engine: the flagship DALLE (depth 12, dim 1024, 16 heads of 64, 256
+   text + 32x32 image tokens, bf16, seeded random weights) served by the
+   fused engine (max_batch 8, prefill chunk 16): 10 requests of 1024 image
+   tokens each. Every outcome COMPLETED with 1024 tokens in range, and the
+   ragged kernel launched depth x dispatched iterations times.
+6. pixels: the flagship DiscreteVAE decodes those tokens to finite
+   (10, 256, 256, 3) images.
+7. profile: torch.profiler over 30 iterations of a fresh mixed batch:
+   wall and device-busy time per iteration, launches per iteration, the
+   largest device-time kernels (after the counted run).
+
+The second-to-last line is the card's ``nvidia-smi`` name and power
+limit; the line before it the kernels' JSON; the last line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
+# and float32 (non-tensor) operations/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+L2_FLUSH_BYTES = 256 << 20  # well past the 50 MB L2
+
+FLAGSHIP = dict(dim=1024, depth=12, heads=16, dim_head=64,
+                num_text_tokens=10000, text_seq_len=256,
+                num_image_tokens=8192, image_fmap_size=32)
+FLAGSHIP_VAE = dict(image_size=256, num_tokens=8192, codebook_dim=512,
+                    num_layers=3, num_resnet_blocks=2, hidden_dim=256)
+MAX_BATCH, CHUNK, PAGE = 8, 16, 128
+N_REQUESTS, MAX_NEW = 10, 1024
+# kernel vs plain on valid columns: float32 max abs error; bfloat16 the
+# error's L2 norm over a query column's h*d outputs relative to the plain
+# column's norm (two bf16 roundings of the output are ~0.4%; a page missed
+# or attended twice moves a column by 10% or more)
+F32_ATOL, BF16_RTOL = 1e-5, 1e-2
+RAGGED_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:116"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, warmup: int = 3, iters: int = 50, cold: bool = True) -> float:
+    """Mean device ms of ``fn`` after warm-up. ``cold``: a buffer larger
+    than the card's 50 MB L2 is overwritten before each call and each call
+    is timed alone, so its inputs come from HBM, as in the engine, where
+    every layer has K/V pools of its own. Otherwise one event pair spans
+    back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    event = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    if not cold:
+        begin, end = event(), event()
+        begin.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return begin.elapsed_time(end) / iters
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        begin, end = event(), event()
+        begin.record()
+        fn()
+        end.record()
+        pairs.append((begin, end))
+    torch.cuda.synchronize()
+    return sum(b.elapsed_time(e) for b, e in pairs) / iters
+
+
+# ------------------------------------------------------------- kernels
+
+
+def ragged_inputs(dtype, permuted: bool, seed: int = 0):
+    """Ragged attention inputs at the flagship serving shapes: B=8 rows of
+    W=16 query columns, 16 heads of 64, pages of 128, 11 pages per row
+    (1281 positions). Descriptors: decode rows at scattered positions and
+    on both sides of a page boundary, full-width prefill chunks (one
+    crossing a page boundary), a prompt's final 1-token chunk, and an idle
+    row at start 0, as the engine issues it. ``permuted`` scatters every
+    page across all rows' storage."""
+    from dalle_pytorch_tpu_torch.ops import paged_kv
+
+    h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+    n_p = paged_kv.num_pages(FLAGSHIP["text_seq_len"] + 1 + 1024, PAGE)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    q = (torch.randn(MAX_BATCH, CHUNK, h, d, generator=g, device=dev) * 0.3).to(dtype)
+    k = paged_kv.alloc(MAX_BATCH, n_p, PAGE, h * d, dtype, dev)
+    v = paged_kv.alloc(MAX_BATCH, n_p, PAGE, h * d, dtype, dev)
+    k[:-1] = (torch.randn(k[:-1].shape, generator=g, device=dev) * 0.3).to(dtype)
+    v[:-1] = (torch.randn(v[:-1].shape, generator=g, device=dev) * 0.3).to(dtype)
+    table = paged_kv.identity_table(MAX_BATCH, n_p, dev)
+    if permuted:
+        perm = torch.randperm(MAX_BATCH * n_p, generator=g, device=dev)
+        k[perm], v[perm] = k[:-1].clone(), v[:-1].clone()
+        table = perm[table.long()].to(torch.int32)
+    start = torch.tensor([300, 639, 640, 1279, 0, 112, 256, 0],
+                         dtype=torch.int32, device=dev)
+    length = torch.tensor([1, 1, 1, 1, 16, 16, 1, 0],
+                          dtype=torch.int32, device=dev)
+    return q, k, v, table, start, length
+
+
+def ragged_bound(q, start, length, dtype):
+    """(bound_ms, bound_by) of the work the caller keeps: bytes = K and V
+    at positions 0 .. start + length - 1 of each active row once, q and
+    the output of valid columns once, the table entries of those pages and
+    the descriptors (an idle row's output is discarded, so it needs
+    nothing); operations = 2 * 2 * h*d per (valid query, visible key)
+    pair."""
+    b, n, h, d = q.shape
+    item = q.element_size()
+    s, ln = start.cpu().numpy(), length.cpu().numpy()
+    active = ln > 0
+    frontier = (s + ln)[active]  # positions 0 .. start + length - 1
+    nbytes = int(frontier.sum()) * h * d * 2 * item + 2 * int(ln.sum()) * h * d * item
+    nbytes += 4 * (int((-(-frontier // PAGE)).sum()) + 2 * b)
+    keys = sum(int(s[r]) + i + 1 for r in range(b) for i in range(int(ln[r])))
+    ops = 4 * keys * h * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ragged_attention() -> dict:
+    from dalle_pytorch_tpu_torch.ops import paged_kv
+    from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
+
+    errs, rel_errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for permuted in (False, True):
+            q, k, v, table, start, length = ragged_inputs(dtype, permuted)
+            got = ra.kernel_attend(q, k, v, table, start, length)
+            plain = ra.reference_attend(q, k, v, table, start)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"ragged kernel: non-finite output ({dtype})")
+            valid = (torch.arange(CHUNK, device="cuda")[None] < length[:, None])
+            diff = (got.float() - plain.float())[valid].flatten(1)
+            err = diff.abs().max().item()
+            rel = (diff.norm(dim=1) / plain.float()[valid].flatten(1).norm(dim=1)).max().item()
+            ok = err <= F32_ATOL if dtype == torch.float32 else rel <= BF16_RTOL
+            log(f"ragged_attention {dtype} permuted={permuted}: on valid columns "
+                f"max |kernel - plain| = {err:.3e}, max column-relative L2 error "
+                f"= {rel:.3e} (tolerance: " + (f"abs {F32_ATOL:.0e})" if dtype == torch.float32
+                                               else f"column-relative {BF16_RTOL:.0e})"))
+            if not ok:
+                raise AssertionError(f"ragged kernel disagrees with plain: {err}, {rel}")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            rel_errs[dtype] = max(rel_errs.get(dtype, 0.0), rel)
+
+    dtype = torch.bfloat16  # the serving path's type
+    q, k, v, table, start, length = ragged_inputs(dtype, permuted=False)
+    kernel_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length))
+    warm_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length),
+                           cold=False)
+    plain_ms = cuda_time_ms(lambda: ra.reference_attend(q, k, v, table, start))
+    # yardstick: one library call over the already gathered view, same mask
+    b, n, h, d = q.shape
+    kc = paged_kv.gather(k, table).view(b, -1, h, d).transpose(1, 2)
+    vc = paged_kv.gather(v, table).view(b, -1, h, d).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    pos = start.long()[:, None] + torch.arange(n, device="cuda")
+    mask = (torch.arange(kc.shape[2], device="cuda")[None, None] <= pos[..., None])[:, None]
+    library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kc, vc, attn_mask=mask, scale=1.0))
+    bound_ms, bound_by = ragged_bound(q, start, length, dtype)
+    log(f"ragged_attention bf16 timing, cold L2: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); kernel back to back (warm L2) {warm_ms:.4f} ms")
+    return {
+        "name": "ragged_attention", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/ragged_attention.cu",
+        "replaces": RAGGED_TPU_KERNEL, "max_abs_err": errs[torch.bfloat16],
+        "max_rel_err": rel_errs[torch.bfloat16],
+        "max_abs_err_f32": errs[torch.float32],
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+# ------------------------------------------------------------ path check
+
+
+def check_path_against_plain() -> None:
+    """Small float32 DALLE with identical weights on the card and the CPU
+    through mixed ragged iterations: the card runs the kernel, the CPU the
+    plain version; logits of active rows agree to 1e-3."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache
+
+    cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
+               text_seq_len=8, num_image_tokens=40, image_fmap_size=4)
+    gpu = DALLE(**cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(3))
+    cpu = DALLE(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    caches = {m: init_decode_cache(m, 3, page_size=4) for m in (gpu, cpu)}
+    rng = np.random.RandomState(4)
+    # (start, length) per row, width 4, prompt of 9 positions
+    steps = [([0, 0, 2], [4, 4, 0]), ([4, 4, 0], [4, 4, 4]), ([8, 8, 4], [1, 1, 4]),
+             ([9, 9, 8], [1, 1, 1]), ([10, 7, 9], [1, 0, 1]), ([11, 10, 10], [1, 1, 1])]
+    worst = 0.0
+    for start, length in steps:
+        tokens = rng.randint(0, 40, size=(3, 4))
+        args = [np.asarray(a, np.int32) for a in (tokens, start, length)]
+        out = {}
+        for m in (gpu, cpu):
+            t = [torch.from_numpy(a).to(m.device) for a in args]
+            final = torch.zeros(3, dtype=torch.bool, device=m.device)
+            out[m] = m.fused_step(*t, final, caches[m]).cpu()
+        active = torch.from_numpy(args[2] > 0)
+        worst = max(worst, (out[gpu] - out[cpu]).abs()[active].max().item())
+    log(f"path check: card (kernel) vs CPU (plain) fused_step logits, max abs diff {worst:.3e}")
+    if not worst <= 1e-3:
+        raise AssertionError(f"card path disagrees with the plain path: {worst}")
+
+
+# --------------------------------------------------------------- engine
+
+
+def serve_flagship():
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.types import Outcome, Request
+
+    t0 = time.perf_counter()
+    model = DALLE(**FLAGSHIP, device="cuda", dtype=torch.bfloat16).init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+    engine = Engine(model, EngineConfig(
+        max_batch=MAX_BATCH, prefill_chunk=CHUNK,
+    ), device="cuda")
+    prompts = np.random.RandomState(0).randint(
+        1, FLAGSHIP["num_text_tokens"], size=(N_REQUESTS, FLAGSHIP["text_seq_len"]))
+    for i in range(N_REQUESTS):
+        assert engine.submit(Request(f"r{i}", prompts[i], MAX_NEW, seed=i)) is None
+    torch.cuda.synchronize()
+    log(f"engine: flagship model built in {time.perf_counter() - t0:.1f} s")
+
+    ra.kernel_attend.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ra.kernel_attend.launches
+
+    tokens = []
+    for i in range(N_REQUESTS):
+        r = results[f"r{i}"]
+        if r.outcome is not Outcome.COMPLETED or len(r.tokens) != MAX_NEW:
+            raise AssertionError(f"request r{i}: {r.outcome}, {None if r.tokens is None else len(r.tokens)} tokens")
+        if not ((r.tokens >= 0) & (r.tokens < FLAGSHIP["num_image_tokens"])).all():
+            raise AssertionError(f"request r{i}: token out of the image vocab")
+        tokens.append(r.tokens)
+    expected = FLAGSHIP["depth"] * engine.dispatches
+    log(f"engine: {N_REQUESTS} requests, {engine.iterations} iterations, "
+        f"{engine.dispatches} dispatches, {wall:.2f} s wall, "
+        f"{N_REQUESTS * MAX_NEW / wall:.1f} generated tokens/s, "
+        f"ragged launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"ragged kernel launched {launches} times, expected {expected}")
+    return np.stack(tokens), launches, model
+
+
+def profile_iterations(model, warmup: int = 10, window: int = 30) -> None:
+    """Where an engine iteration's time goes: torch.profiler over a window
+    of a fresh mixed prefill/decode batch (8 requests at once, so one row
+    decodes while the others prefill chunk by chunk). Prints wall time and
+    device-busy time per iteration, launches per iteration, and the
+    largest device-time kernels. Runs after the counted main path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.types import Request
+
+    engine = Engine(model, EngineConfig(
+        max_batch=MAX_BATCH, prefill_chunk=CHUNK,
+    ), device="cuda")
+    prompts = np.random.RandomState(1).randint(
+        1, FLAGSHIP["num_text_tokens"], size=(MAX_BATCH, FLAGSHIP["text_seq_len"]))
+    for i in range(MAX_BATCH):
+        engine.submit(Request(f"p{i}", prompts[i], MAX_NEW, seed=100 + i))
+    for _ in range(warmup):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / window
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / window
+    launches = sum(e.count for e in device) / window
+    log(f"profile: {window} mixed iterations, {wall_ms:.3f} ms/iteration wall, "
+        f"device busy {busy_ms:.3f} ms/iteration "
+        f"({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device "
+        "launches/iteration")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"profile:   {e.self_device_time_total / 1e3 / window:.4f} ms/iteration "
+            f"x{e.count // window} {e.key[:90]}")
+
+
+def decode_pixels(tokens: np.ndarray) -> None:
+    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE, denormalize
+
+    t0 = time.perf_counter()
+    vae = DiscreteVAE(**FLAGSHIP_VAE, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(1))
+    with torch.no_grad():
+        pixels = vae.decode(torch.as_tensor(tokens, dtype=torch.long, device="cuda"))
+    torch.cuda.synchronize()
+    if tuple(pixels.shape) != (N_REQUESTS, 256, 256, 3):
+        raise AssertionError(f"VAE decode shape {tuple(pixels.shape)}")
+    if not torch.isfinite(pixels).all():
+        raise AssertionError("VAE decode produced non-finite pixels")
+    images = denormalize(pixels)
+    if not (images.min() >= 0 and images.max() <= 1):
+        raise AssertionError("denormalized pixels outside [0, 1]")
+    log(f"pixels: {tuple(images.shape)} finite, decoded in {time.perf_counter() - t0:.2f} s")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    cuda_build.build()
+    log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
+
+    kernel = check_ragged_attention()
+    check_path_against_plain()
+    tokens, launches, model = serve_flagship()
+    kernel["launches"] = launches
+    decode_pixels(tokens)
+    profile_iterations(model)
+
+    print(json.dumps({"kernels": [kernel]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

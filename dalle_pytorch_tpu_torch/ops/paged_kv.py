@@ -1,0 +1,104 @@
+"""Block-paged KV storage (counterpart of ``dalle_pytorch_tpu/ops/paged_kv.py``).
+
+K/V live in fixed-size pages of ``page`` rows, reached through a
+per-sequence page table of GLOBAL page ids: entry (b, l) names page ``g``
+of the flat pool, ``g = row * n_pages + l`` for the identity mapping, so
+a table entry may point into another row's storage.
+
+Storage layout. A pool is kept FLAT, ``(rows * n_pages + 1, page, feat)``:
+the global id space the tables index plus one SINK page (id
+``rows * n_pages``) that no table ever names. Masked writes (columns past
+a row's ``limit``, positions past capacity) are redirected to the sink,
+the counterpart of the reference's scatter ``mode="drop"``; that keeps
+``append_`` free of data-dependent shapes, so it never synchronises the
+host with the device. ``pool_view`` gives the reference's
+``(rows, n_pages, page, feat)`` view of the real pages.
+
+Functions ending in ``_`` update their first argument in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .kv_policy import DEFAULT_PAGE_SIZE
+
+
+def num_pages(length: int, page_size: int = DEFAULT_PAGE_SIZE) -> int:
+    """Pages needed to hold ``length`` tokens (ceil division)."""
+    assert page_size > 0, page_size
+    return -(-length // page_size)
+
+
+def alloc(rows: int, n_pages: int, page_size: int, feat: int,
+          dtype: torch.dtype, device) -> torch.Tensor:
+    """A zeroed flat pool of ``rows * n_pages`` pages plus the sink page."""
+    return torch.zeros(
+        (rows * n_pages + 1, page_size, feat), dtype=dtype, device=device
+    )
+
+
+def pool_view(flat: torch.Tensor, rows: int) -> torch.Tensor:
+    """The (rows, n_pages, page, feat) view of a flat pool's real pages."""
+    n_real, page, feat = flat.shape[0] - 1, flat.shape[1], flat.shape[2]
+    return flat[:n_real].view(rows, n_real // rows, page, feat)
+
+
+def identity_table(batch: int, n_pages: int, device) -> torch.Tensor:
+    """(batch, n_pages) int32 table mapping logical page i of row r to
+    global page ``r * n_pages + i``."""
+    r = torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+    return r * n_pages + torch.arange(n_pages, dtype=torch.int32, device=device)
+
+
+def append_(
+    flat: torch.Tensor,
+    table: torch.Tensor,
+    index: torch.Tensor,
+    rows: torch.Tensor,
+    limit: Optional[torch.Tensor] = None,
+) -> None:
+    """Write ``rows`` (b, n, feat) at per-sequence positions
+    ``index[b] .. index[b] + n`` through ``table`` (b, n_pages) of global
+    ids. Row j of sequence b lands in page ``pos // page`` at offset
+    ``pos % page``. Out-of-capacity positions, and (with ``limit`` (b,))
+    columns j >= limit[b], are dropped into the sink page: a decode row
+    commits one position, a prefill chunk its width, an idle row none."""
+    page = flat.shape[1]
+    sink = flat.shape[0] - 1
+    l_pages = table.shape[1]
+    n = rows.shape[1]
+    j = torch.arange(n, device=flat.device)
+    pos = index.long()[:, None] + j[None]
+    logical = pos // page
+    off = pos % page
+    phys = table.long().gather(1, logical.clamp(max=l_pages - 1))
+    valid = logical < l_pages
+    if limit is not None:
+        valid = valid & (j[None] < limit.long()[:, None])
+    phys = torch.where(valid, phys, sink)
+    flat[phys, off] = rows.to(flat.dtype)
+
+
+def gather(flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The logical cache view (b, n_pages * page, feat) assembled through
+    a global-id table."""
+    b, l_pages = table.shape
+    g = flat[table.long()]  # (b, l_pages, page, feat)
+    return g.reshape(b, l_pages * flat.shape[1], flat.shape[2])
+
+
+def reset_rows_(flat: torch.Tensor, n_pages: int, row: int) -> None:
+    """Zero storage row ``row``'s native pages (the eviction reset: stale
+    K/V must not reach the slot's next tenant)."""
+    flat[row * n_pages:(row + 1) * n_pages].zero_()
+
+
+def reset_table_rows_(table: torch.Tensor, row: int) -> None:
+    """Restore the identity mapping for one batch row of a page table."""
+    n_p = table.shape[1]
+    table[row] = row * n_p + torch.arange(
+        n_p, dtype=table.dtype, device=table.device
+    )

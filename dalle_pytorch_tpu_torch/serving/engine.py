@@ -1,0 +1,429 @@
+"""Continuous-batching serving engine, fused ragged iteration (counterpart
+of ``dalle_pytorch_tpu/serving/engine.py`` with
+``EngineConfig(fused_iteration=True, prefill_chunk=c)``; here the fused
+iteration is the only mode).
+
+Request lifecycle: submit -> [rejected] | queued -> admitted (slot and
+prompt pages claimed) -> prefilling (one chunk per iteration under the
+``TokenBudget``) -> decoding (one token per iteration) -> completed |
+deadline_exceeded | cancelled.
+
+The engine owns ONE batched paged decode cache of ``max_batch`` slots.
+Each iteration is a single ragged block through ``DALLE.fused_step``:
+every cache row gets a (start, length, final) descriptor padded to the
+chunk width, prefilling rows write their chunk directly into their row of
+the batched cache (chunks are gathered on the device from a prompts
+buffer), decoding rows ride the same block, and every layer's attention
+runs the ragged paged-attention kernel over all rows at once.
+
+One-step lookahead (``decode_lookahead``): iteration N+1 is dispatched
+before iteration N's samples are read back; a decode row's input token is
+the previous iteration's still-on-device sample. Completion is
+count-based, so the host needs no token values to schedule; cancellation
+and deadlines take effect at readback (a sample in flight for a
+terminated request is dropped).
+
+Sampling contract: the token at internal position p of a request is a
+pure function of (seed, p) and the logits (``models.sampling.sample``),
+so a request's tokens do not depend on the batch around it.
+
+Not ported in this slice: the split prefill/decode path, speculative
+decoding, the prefix cache, int8 KV pages, post-decode stages, the
+journal, vitals and the controller, fault injection, telemetry and
+watermark degradation (``EngineConfig`` has no field for them, so asking
+for one is a ``TypeError``), and any page budget small enough to need
+preemption (raises ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.dalle import DALLE, top_k_filter
+from ..models.sampling import init_decode_cache, sample
+from ..ops import kv_policy
+from .scheduler import Entry, PagePool, Scheduler, TokenBudget, pages_for
+from .types import Clock, Outcome, RejectReason, Request, RequestResult
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Operator knobs of the fused ragged iteration."""
+
+    max_batch: int = 4
+    # logical page budget; None = full physical capacity (B * pages/slot)
+    page_budget: Optional[int] = None
+    queue_limit: int = 64
+    filter_thres: float = 0.9
+    temperature: float = 1.0
+    # prompt tokens per chunk = the fused block width (>= 2)
+    prefill_chunk: int = 16
+    # tokens per iteration shared by decode and prefill chunks;
+    # None = max_batch + prefill_chunk
+    token_budget: Optional[int] = None
+    decode_lookahead: bool = True
+    # KV page rows; None = kv_policy.DEFAULT_PAGE_SIZE
+    page_size: Optional[int] = None
+
+
+_PREFILL = "prefill"
+_DECODE = "decode"
+
+
+class _Slot:
+    """A running request bound to one cache row. Phase ``prefill``:
+    ``filled`` prompt positions written so far. Phase ``decode``: ``tok``
+    is the last sampled token (not yet cached) at position ``pos``;
+    ``tok_on_device`` means it is still only in the in-flight samples."""
+
+    def __init__(self, entry: Entry, index: int, admit_seq: int):
+        self.entry = entry
+        self.index = index
+        self.admit_seq = admit_seq
+        self.phase = _PREFILL
+        self.filled = 0
+        self.pos = 0
+        self.tok = -1
+        self.tok_on_device = False
+
+
+class Engine:
+    """See the module docstring. Host-side state machine + one device cache."""
+
+    def __init__(self, dalle: DALLE, config: EngineConfig = EngineConfig(),
+                 clock: Optional[Clock] = None, device="cuda"):
+        if config.prefill_chunk < 2:
+            raise ValueError(
+                f"the fused iteration needs prefill_chunk >= 2 (the block "
+                f"width), got {config.prefill_chunk}"
+            )
+        self.device = torch.device(device)
+        if dalle.device.type != self.device.type:
+            raise ValueError(
+                f"the model lives on {dalle.device}, the engine was asked "
+                f"for {self.device}"
+            )
+        self.dalle = dalle
+        self.config = config
+        self.clock = clock or Clock()
+
+        B = config.max_batch
+        self.page = kv_policy.page_size(config.page_size)
+        self.T = dalle.text_len_internal
+        self.n_pages_slot = pages_for(self.T + dalle.image_seq_len, self.page)
+        full = B * self.n_pages_slot
+        budget = full if config.page_budget is None else config.page_budget
+        if budget < full:
+            raise NotImplementedError(
+                f"page_budget {budget} < {full} (every slot's full sequence) "
+                "needs preemption, which is not ported yet"
+            )
+        self.pool = PagePool(budget)
+        self.sched = Scheduler(config.queue_limit)
+        self.budget = TokenBudget(
+            budget=(config.token_budget if config.token_budget is not None
+                    else B + config.prefill_chunk),
+            chunk=config.prefill_chunk,
+        )
+        self.cache = init_decode_cache(dalle, B, page_size=self.page)
+        self._W = config.prefill_chunk
+        self._prompts = torch.zeros((B, self.T), dtype=torch.int32,
+                                    device=self.device)
+        self._zero_tok = torch.zeros((B,), dtype=torch.int32,
+                                     device=self.device)
+        # top-k count from the FULL vocab, applied to image-only logits
+        self.k_img = max(int((1 - config.filter_thres) * dalle.total_tokens), 1)
+
+        self.slots: List[Optional[_Slot]] = [None] * B
+        self.results: Dict[str, RequestResult] = {}
+        self._live: set = set()
+        self._cancel_requested: set = set()
+        self._seq = 0
+        self._admit_seq = 0
+        # in-flight iteration awaiting readback: (device samples,
+        # [(slot, kind)]); read back one iteration late with lookahead
+        self._pending: Optional[Tuple[torch.Tensor, list]] = None
+        self.dispatches = 0
+        self.iterations = 0
+
+    # ------------------------------------------------------------ public
+
+    def submit(self, request: Request) -> Optional[RequestResult]:
+        """Queue a request; returns the result at once on a typed reject,
+        else None (the result lands in ``self.results``)."""
+        if not (0 < request.max_new_tokens <= self.dalle.image_seq_len):
+            raise ValueError(
+                f"max_new_tokens must be in [1, {self.dalle.image_seq_len}], "
+                f"got {request.max_new_tokens}"
+            )
+        if request.request_id in self.results or request.request_id in self._live:
+            raise ValueError(f"duplicate request_id {request.request_id!r}")
+        entry = Entry(request=request, submit_time=self.clock.now(),
+                      seq=self._seq)
+        self._seq += 1
+        if self._worst_case_pages(request.max_new_tokens) > self.pool.total:
+            return self._reject(entry, RejectReason.DEMAND_EXCEEDS_POOL)
+        if not self.sched.submit(entry):
+            return self._reject(entry, RejectReason.QUEUE_FULL)
+        self._live.add(request.request_id)
+        return None
+
+    def cancel(self, request_id: str) -> None:
+        """Request cancellation; takes effect at the next iteration."""
+        self._cancel_requested.add(request_id)
+
+    def step(self) -> bool:
+        """One iteration: terminations -> admission -> one fused dispatch
+        (plus the previous one's readback). False when fully idle."""
+        self._sweep_terminations()
+        self._admit()
+        worked = self._fused_iteration()
+        if worked:
+            self.iterations += 1
+        self.clock.tick()
+        return worked or bool(self.sched) or any(self.slots)
+
+    def run(self, max_steps: Optional[int] = None) -> Dict[str, RequestResult]:
+        """Drive until idle; ``max_steps`` is a safety valve that raises."""
+        steps = 0
+        while self.step():
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"engine made no terminal progress in {max_steps} steps"
+                )
+        return self.results
+
+    # ------------------------------------------------------ terminations
+
+    def _sweep_terminations(self) -> None:
+        now = self.clock.now()
+        for rid in list(self._cancel_requested):
+            entry = self.sched.remove(rid)
+            if entry is not None:
+                self._cancel_requested.discard(rid)
+                self._finish(entry, Outcome.CANCELLED, tokens=None)
+        for slot in list(self.slots):
+            if slot and slot.entry.request_id in self._cancel_requested:
+                self._cancel_requested.discard(slot.entry.request_id)
+                self._release_slot(slot)
+                self._finish(slot.entry, Outcome.CANCELLED,
+                             tokens=self._partial_tokens(slot))
+        self._cancel_requested &= self._live
+        for entry in self.sched.expired(now):
+            self._finish(entry, Outcome.DEADLINE_EXCEEDED, tokens=None)
+        for slot in list(self.slots):
+            d = slot.entry.request.deadline if slot else None
+            if slot and d is not None and now > d:
+                self._release_slot(slot)
+                self._finish(slot.entry, Outcome.DEADLINE_EXCEEDED,
+                             tokens=self._partial_tokens(slot))
+
+    @staticmethod
+    def _partial_tokens(slot: _Slot) -> Optional[np.ndarray]:
+        if slot.phase == _PREFILL:
+            return None
+        return np.asarray(slot.entry.generated, np.int32)
+
+    # --------------------------------------------------------- admission
+
+    def _admit(self) -> None:
+        while True:
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            entry = self.sched.peek()
+            if not free or entry is None:
+                return
+            # strict head-of-line on the worst-case page demand
+            if self._worst_case_pages(entry.request.max_new_tokens) > self.pool.free:
+                return
+            entry = self.sched.pop()
+            ok = self.pool.alloc(entry.request_id, pages_for(self.T, self.page))
+            assert ok, "admission checked worst-case > prompt pages"
+            idx = free[0]
+            entry.admit_time = self.clock.now()
+            prompt = torch.as_tensor(np.asarray(entry.request.prompt),
+                                     dtype=torch.int32)[None]
+            self._prompts[idx] = self._to_device(
+                self.dalle.remap_text(prompt)[0].numpy()
+            )
+            self.slots[idx] = _Slot(entry, idx, self._admit_seq)
+            self._admit_seq += 1
+
+    def _worst_case_pages(self, max_new: int) -> int:
+        # positions written: the prompt plus every generated token but
+        # the last (a sampled token is cached when the next step consumes it)
+        return pages_for(self.T + max_new - 1, self.page)
+
+    # --------------------------------------------------- fused iteration
+
+    def _next_chunk(self, filled: int) -> int:
+        return min(self.config.prefill_chunk, self.T - filled)
+
+    def _plan_fused_prefills(self, decode_tokens: int) -> List[Tuple[_Slot, int]]:
+        pre = [
+            s for s in self.slots
+            if s and s.phase == _PREFILL and s.filled < self.T
+        ]
+        pre.sort(key=lambda s: (-s.entry.request.priority, s.admit_seq))
+        grants = self.budget.plan_iteration(
+            decode_tokens, [self._next_chunk(s.filled) for s in pre]
+        )
+        return [(s, self._next_chunk(s.filled))
+                for s, take in zip(pre, grants) if take]
+
+    def _fused_iteration(self) -> bool:
+        pending = self._pending
+        in_flight = set() if pending is None else {id(s) for s, _ in pending[1]}
+        # a slot whose in-flight sample completes it is not dispatched again
+        dispatchable = [
+            s for s in self.slots
+            if s and s.phase == _DECODE
+            and len(s.entry.generated) + (id(s) in in_flight)
+            < s.entry.request.max_new_tokens
+        ]
+        for s in dispatchable:
+            # pages covering [0, pos]; the budget covers every slot's full
+            # sequence, so growth cannot fail
+            deficit = s.pos // self.page + 1 - self.pool.held(s.entry.request_id)
+            if deficit > 0:
+                ok = self.pool.alloc(s.entry.request_id, deficit)
+                assert ok, "page budget below physical capacity"
+        chunks = self._plan_fused_prefills(len(dispatchable))
+
+        worked = False
+        new_pending = None
+        if dispatchable or chunks:
+            worked = True
+            new_pending = self._dispatch_fused(dispatchable, chunks, pending)
+        if self.config.decode_lookahead:
+            prev, self._pending = pending, new_pending
+        else:
+            prev, self._pending = new_pending, None
+        if prev is not None:
+            worked = True
+            self._fused_readback(prev)
+        return worked
+
+    def _dispatch_fused(self, dispatchable: List[_Slot],
+                        chunks: List[Tuple[_Slot, int]], pending):
+        """Assemble descriptors on the host, copy them in one transfer, and
+        run the iteration. Rows: 0 start, 1 length, 2 final, 3 seed,
+        4 draw position, 5 host token, 6 host-token flag."""
+        B = self.config.max_batch
+        desc = np.zeros((7, B), np.int64)
+        entries = []
+        for s in dispatchable:
+            desc[:5, s.index] = (s.pos, 1, 0, s.entry.request.seed, s.pos + 1)
+            if pending is None or not s.tok_on_device:
+                desc[5:, s.index] = (s.tok, 1)
+            entries.append((s, _DECODE))
+        for s, c in chunks:
+            desc[:2, s.index] = (s.filled, c)
+            if s.filled + c >= self.T:
+                desc[2:5, s.index] = (1, s.entry.request.seed, self.T)
+                entries.append((s, _PREFILL))
+        d = self._to_device(desc)
+        start, length = d[0].to(torch.int32), d[1].to(torch.int32)
+        final = d[2].bool()
+        prev_tok = pending[0] if pending is not None else self._zero_tok
+        tok = torch.where(d[6].bool(), d[5].to(torch.int32), prev_tok)
+        samples = self._iteration(tok, start, length, final, d[3], d[4],
+                                  any_final=bool(desc[2].any()))
+        self.dispatches += 1
+
+        for s in self.slots:
+            if s is not None and s.phase == _DECODE:
+                s.tok_on_device = False
+        for s in dispatchable:
+            s.pos += 1
+            s.tok_on_device = True
+        for s, c in chunks:
+            s.filled += c
+            if s.filled >= self.T:
+                # the row's cache is complete and its first image token is
+                # in the in-flight samples: it decodes from next iteration
+                s.phase, s.pos, s.tok_on_device = _DECODE, self.T, True
+        return samples, entries
+
+    def _iteration(self, tok, start, length, final, seeds, draw_pos,
+                   any_final: bool) -> torch.Tensor:
+        """One whole iteration on the device: per-row token blocks (decode
+        rows take ``tok``, prefill rows gather their chunk from the prompts
+        buffer), ``DALLE.fused_step``, image-only top-k, and the
+        (seed, position) draw. Returns (B,) int32 samples."""
+        T, W = self.T, self._W
+        j = torch.arange(W, device=self.device)[None]
+        chunk = self._prompts.gather(1, (start.long()[:, None] + j).clamp(max=T - 1))
+        dec_tok = F.pad(tok[:, None], (0, W - 1))
+        tokens = torch.where((start >= T)[:, None], dec_tok, chunk)
+        logits = self.dalle.fused_step(tokens, start, length, final,
+                                       self.cache, rowwise_head=any_final)
+        filtered = top_k_filter(logits, k=self.k_img) / self.config.temperature
+        return sample(filtered, seeds, draw_pos)
+
+    def _fused_readback(self, prev) -> None:
+        """Record one iteration's tokens (dropping rows terminated since
+        dispatch) and complete slots that reached their budget."""
+        samples, entries = prev
+        samples = samples.cpu().numpy()
+        for s, kind in entries:
+            if self.slots[s.index] is not s:
+                continue
+            s.tok = int(samples[s.index])
+            if kind == _DECODE:
+                s.entry.generated.append(s.tok)
+            else:
+                s.entry.generated = [s.tok]
+                s.entry.ttft_s = self.clock.now() - s.entry.submit_time
+            if len(s.entry.generated) >= s.entry.request.max_new_tokens:
+                self._complete(s)
+
+    # ---------------------------------------------------------- plumbing
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without synchronising the host:
+        through pinned memory with a non-blocking copy on CUDA."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _release_slot(self, slot: _Slot) -> None:
+        """Return the slot's pages and reset its cache row to pristine."""
+        self.pool.free_all(slot.entry.request_id)
+        self.cache.reset_row_(slot.index)
+        self.slots[slot.index] = None
+
+    def _complete(self, slot: _Slot) -> None:
+        self._release_slot(slot)
+        self._finish(slot.entry, Outcome.COMPLETED,
+                     tokens=np.asarray(slot.entry.generated, np.int32))
+
+    def _reject(self, entry: Entry, reason: RejectReason) -> RequestResult:
+        result = RequestResult(
+            request_id=entry.request_id, outcome=Outcome.REJECTED,
+            reject_reason=reason, total_latency_s=0.0,
+        )
+        self.results[entry.request_id] = result
+        return result
+
+    def _finish(self, entry: Entry, outcome: Outcome,
+                tokens: Optional[np.ndarray]) -> None:
+        now = self.clock.now()
+        self._live.discard(entry.request_id)
+        self.results[entry.request_id] = RequestResult(
+            request_id=entry.request_id,
+            outcome=outcome,
+            tokens=tokens,
+            queue_latency_s=(
+                None if entry.admit_time is None
+                else entry.admit_time - entry.submit_time
+            ),
+            ttft_s=entry.ttft_s,
+            total_latency_s=now - entry.submit_time,
+        )

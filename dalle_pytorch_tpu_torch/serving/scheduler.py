@@ -1,0 +1,149 @@
+"""Admission, page accounting and the priority queue (counterpart of
+``dalle_pytorch_tpu/serving/scheduler.py``). Host-only bookkeeping.
+
+``PagePool`` is the logical page budget over the per-slot physical pools.
+Admission charges a request's WORST-CASE demand against free pages; pages
+are allocated lazily (prompt pages at admission, one more when decode
+crosses a page boundary). Admission is strict head-of-line.
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+from .types import Request
+
+
+def pages_for(n_positions: int, page_size: int) -> int:
+    """Pages covering ``n_positions`` written cache rows (ceil; 0 -> 0)."""
+    assert page_size > 0, page_size
+    return -(-max(0, n_positions) // page_size)
+
+
+@dataclass(frozen=True)
+class TokenBudget:
+    """Per-iteration token budget shared between decode tokens and prefill
+    chunks. Decode is charged first (one token per active slot); the rest
+    goes to in-progress prefills head-of-line in scheduling order, one
+    chunk per prefilling row per iteration. The head prefill is always
+    granted (forward progress); granting stops at the first chunk that
+    does not fit. ``budget=None`` grants every prefill."""
+
+    budget: Optional[int]
+    chunk: int
+
+    def __post_init__(self):
+        assert self.chunk >= 1, self.chunk
+        assert self.budget is None or self.budget >= 1, self.budget
+
+    def plan_iteration(self, decode_tokens: int,
+                       next_chunks: Sequence[int]) -> List[bool]:
+        """Which in-progress prefills run their next chunk this iteration.
+        ``next_chunks``: width of each prefill's next chunk, in
+        scheduling order."""
+        take = [False] * len(next_chunks)
+        if not next_chunks:
+            return take
+        if self.budget is None:
+            return [True] * len(next_chunks)
+        left = self.budget - decode_tokens
+        for i, c in enumerate(next_chunks):
+            if i > 0 and left < c:
+                break
+            take[i] = True
+            left -= c
+        return take
+
+
+class PagePool:
+    """Logical page budget with per-request ownership; ``alloc`` is
+    all-or-nothing, ``free_all`` returns everything a request holds."""
+
+    def __init__(self, total_pages: int):
+        assert total_pages > 0, total_pages
+        self.total = int(total_pages)
+        self._held: Dict[str, int] = {}
+
+    @property
+    def used(self) -> int:
+        return sum(self._held.values())
+
+    @property
+    def free(self) -> int:
+        return self.total - self.used
+
+    def held(self, request_id: str) -> int:
+        return self._held.get(request_id, 0)
+
+    def alloc(self, request_id: str, n: int) -> bool:
+        assert n >= 0, n
+        if n > self.free:
+            return False
+        self._held[request_id] = self._held.get(request_id, 0) + n
+        return True
+
+    def free_all(self, request_id: str) -> int:
+        return self._held.pop(request_id, 0)
+
+
+@dataclass
+class Entry:
+    """A request plus its scheduling state, from submit to terminal outcome."""
+
+    request: Request
+    submit_time: float
+    seq: int                      # submission order; FIFO tiebreak
+    admit_time: Optional[float] = None
+    ttft_s: Optional[float] = None
+    generated: List[int] = field(default_factory=list)
+
+    @property
+    def request_id(self) -> str:
+        return self.request.request_id
+
+
+class Scheduler:
+    """Bounded priority queue: highest priority first, FIFO within one."""
+
+    def __init__(self, queue_limit: int):
+        assert queue_limit >= 0
+        self.queue_limit = queue_limit
+        self._heap: List[tuple] = []
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+    def submit(self, entry: Entry) -> bool:
+        """Queue a new submission; False when the queue is full."""
+        if len(self._heap) >= self.queue_limit:
+            return False
+        heapq.heappush(self._heap, (-entry.request.priority, entry.seq, entry))
+        return True
+
+    def peek(self) -> Optional[Entry]:
+        return self._heap[0][2] if self._heap else None
+
+    def pop(self) -> Entry:
+        return heapq.heappop(self._heap)[2]
+
+    def remove(self, request_id: str) -> Optional[Entry]:
+        """Pull a queued entry out by id (cancellation / deadline sweep)."""
+        for i, (_, _, entry) in enumerate(self._heap):
+            if entry.request_id == request_id:
+                self._heap[i] = self._heap[-1]
+                self._heap.pop()
+                heapq.heapify(self._heap)
+                return entry
+        return None
+
+    def expired(self, now: float) -> List[Entry]:
+        """Remove and return every queued entry whose deadline has passed."""
+        out = [
+            e for (_, _, e) in self._heap
+            if e.request.deadline is not None and now > e.request.deadline
+        ]
+        for e in out:
+            self.remove(e.request_id)
+        return out

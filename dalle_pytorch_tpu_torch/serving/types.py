@@ -1,0 +1,87 @@
+"""Serving request/response vocabulary (counterpart of
+``dalle_pytorch_tpu/serving/types.py``).
+
+Every submitted request ends in exactly ONE ``RequestResult`` whose
+``outcome`` is an ``Outcome``: overload and failure are values, not
+exceptions. The clock is injectable so deadlines are deterministic in
+tests: the engine calls ``tick()`` once per iteration.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from enum import Enum
+from typing import Optional
+
+import numpy as np
+
+
+class Outcome(str, Enum):
+    """Terminal state of a submitted request (the outcomes this port's
+    engine can produce)."""
+
+    COMPLETED = "completed"
+    REJECTED = "rejected"
+    DEADLINE_EXCEEDED = "deadline_exceeded"
+    CANCELLED = "cancelled"
+
+
+class RejectReason(str, Enum):
+    DEMAND_EXCEEDS_POOL = "demand_exceeds_pool"  # can never fit, even idle
+    QUEUE_FULL = "queue_full"                    # bounded admission queue
+
+
+@dataclass(frozen=True)
+class Request:
+    """One generation request. ``prompt`` is the RAW text-token row
+    ((text_seq_len,) int, 0-padded); the engine remaps it and prepends
+    <bos>. ``deadline`` is absolute on the engine's clock. ``priority``:
+    higher runs first. ``seed`` keys the request's private sampling
+    stream: the token at internal position p depends only on (seed, p)."""
+
+    request_id: str
+    prompt: np.ndarray
+    max_new_tokens: int
+    deadline: Optional[float] = None
+    priority: int = 0
+    seed: int = 0
+
+
+@dataclass
+class RequestResult:
+    request_id: str
+    outcome: Outcome
+    # generated image-token ids: complete for COMPLETED, the read-back
+    # prefix for deadline/cancel terminations, None if never prefilled
+    tokens: Optional[np.ndarray] = None
+    reject_reason: Optional[RejectReason] = None
+    queue_latency_s: Optional[float] = None
+    # submit -> the first image token read back
+    ttft_s: Optional[float] = None
+    total_latency_s: Optional[float] = None
+
+
+class Clock:
+    """Engine time source: ``now()`` is monotonic, ``tick()`` is called
+    once per engine iteration."""
+
+    def now(self) -> float:
+        return time.monotonic()
+
+    def tick(self) -> None:
+        pass
+
+
+@dataclass
+class FakeClock(Clock):
+    """Deterministic virtual clock: every iteration costs ``step_dt``."""
+
+    t: float = 0.0
+    step_dt: float = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+    def tick(self) -> None:
+        self.t += self.step_dt
