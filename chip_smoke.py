@@ -7,22 +7,32 @@ Phases, each of which raises on failure (exit code non-zero, no result
 line):
 
 1. device: a CUDA card is required; its name and power limit are printed.
-2. build: every CUDA kernel of the port is compiled with nvcc (sm_90a).
+   Float32 matrix products and convolutions run without TF32.
+2. build: every CUDA kernel of the port is compiled with nvcc (sm_90a),
+   one nvcc per source, all started together.
 3. kernels: each kernel's wrapper at the serving path's shapes against its
    plain PyTorch version (float32 and bfloat16, stated tolerances), all
    outputs finite; times with CUDA events (L2 flushed before each call)
    beside the plain version, one library call as a yardstick, and the
-   bound from bytes and operations.
-4. path check: a small float32 DALLE with the same weights on the card
-   (kernel) and on the CPU (plain version) through mixed ragged
-   iterations; logits agree.
+   bound from bytes and operations. The packed-qkv kernel is held at
+   CLIP's text shape (the rerank stage's) and at DALL-E's causal rotary
+   shape, with and without a pattern mask.
+4. path check: a small float32 DALLE, and a small float32 CLIP whose text
+   length takes the packed-qkv kernel, each with the same weights on the
+   card (kernels) and on the CPU (plain versions); logits and
+   similarities agree.
 5. engine: the flagship DALLE (depth 12, dim 1024, 16 heads of 64, 256
    text + 32x32 image tokens, bf16, seeded random weights) served by the
-   fused engine (max_batch 8, prefill chunk 16): 10 requests of 1024 image
-   tokens each. Every outcome COMPLETED with 1024 tokens in range, and the
-   ragged kernel launched depth x dispatched iterations times.
-6. pixels: the flagship DiscreteVAE decodes those tokens to finite
-   (10, 256, 256, 3) images.
+   fused engine (max_batch 8, prefill chunk 16) with post-decode stages:
+   the flagship DiscreteVAE, then CLIP at the reference's widths (text
+   and visual depth 6, dim 512, 8 heads of 64, 256 text tokens, 256-pixel
+   images in 32-pixel patches), stage batch 8. 10 requests of 1024 image
+   tokens each. Every outcome COMPLETED with 1024 tokens in range, a
+   finite (256, 256, 3) image and a finite rerank score; the ragged kernel
+   launched depth x dispatched iterations times and the packed-qkv kernel
+   text depth x rerank dispatches times.
+6. pixels: the results' images, denormalized, lie in [0, 1]; their order
+   by rerank score is printed.
 7. profile: torch.profiler over 30 iterations of a fresh mixed batch:
    wall and device-busy time per iteration, launches per iteration, the
    largest device-time kernels (after the counted run).
@@ -56,14 +66,25 @@ FLAGSHIP = dict(dim=1024, depth=12, heads=16, dim_head=64,
                 num_image_tokens=8192, image_fmap_size=32)
 FLAGSHIP_VAE = dict(image_size=256, num_tokens=8192, codebook_dim=512,
                     num_layers=3, num_resnet_blocks=2, hidden_dim=256)
+# train_clip.py's defaults; the SimpleTokenizer vocabulary
+FLAGSHIP_CLIP = dict(dim_text=512, dim_image=512, dim_latent=512,
+                     num_text_tokens=49408, text_enc_depth=6, text_seq_len=256,
+                     text_heads=8, text_dim_head=64, visual_enc_depth=6,
+                     visual_heads=8, visual_dim_head=64, visual_image_size=256,
+                     visual_patch_size=32)
 MAX_BATCH, CHUNK, PAGE = 8, 16, 128
 N_REQUESTS, MAX_NEW = 10, 1024
+STAGE_BATCH = 8
 # kernel vs plain on valid columns: float32 max abs error; bfloat16 the
 # error's L2 norm over a query column's h*d outputs relative to the plain
 # column's norm (two bf16 roundings of the output are ~0.4%; a page missed
 # or attended twice moves a column by 10% or more)
 F32_ATOL, BF16_RTOL = 1e-5, 1e-2
 RAGGED_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:116"
+FUSED_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:784"
+# the rerank stage's text key mask: valid prompt lengths of the 8 rows
+# (one fully masked row: its output must be exactly 0, its lse -1e30)
+CLIP_TEXT_LENGTHS = (256, 200, 131, 64, 17, 1, 0, 240)
 
 
 def log(msg: str) -> None:
@@ -218,6 +239,141 @@ def check_ragged_attention() -> dict:
     }
 
 
+def fused_inputs(case: str, dtype, seed: int = 0):
+    """(qkv, heads, dim_head, options) of the packed-qkv kernel. "clip":
+    the rerank stage's text encoder, b = 8, n = 256, 8 heads of 64,
+    non-causal, the key mask of CLIP_TEXT_LENGTHS. "dalle": b = 2,
+    n = 1280, 16 heads of 64, causal with the DALL-E rotary table;
+    "dalle_pattern" adds the static axial-row pattern mask."""
+    from dalle_pytorch_tpu_torch.ops import masks
+    from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if case == "clip":
+        b, n, h, d = STAGE_BATCH, FLAGSHIP_CLIP["text_seq_len"], 8, 64
+        lengths = torch.tensor(CLIP_TEXT_LENGTHS, device="cuda")
+        opts = dict(key_mask=torch.arange(n, device="cuda")[None] < lengths[:, None],
+                    causal=False)
+    else:
+        b, n, h, d = 2, 1280, FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+        text_len = FLAGSHIP["text_seq_len"] + 1
+        table = dalle_rotary_table(d, text_len, FLAGSHIP["image_fmap_size"])
+        opts = dict(causal=True, rot=rot_tables(torch.from_numpy(table).cuda(), n, d, dtype))
+        if case == "dalle_pattern":
+            pattern = masks.axial_mask(text_len, FLAGSHIP["image_fmap_size"], 0)[:n, :n]
+            opts["pattern_mask"] = torch.from_numpy(pattern).cuda()
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device="cuda").to(dtype)
+    return qkv, h, d, opts
+
+
+def fused_bound(qkv, h, d, opts):
+    """(bound_ms, bound_by) of the work these inputs need. A query row with
+    no allowed key outputs 0 whatever q is, and a key no query may attend
+    is never read, so bytes = q of the query rows that attend at least one
+    key and K and V of the keys some query attends (per batch row), o
+    written in full, the (b, h, 1, n) float32 lse, and the key mask and
+    pattern mask as passed and the rotary cos/sin tables (n, d) each;
+    operations = 2 * 2 * d per allowed (query, key) pair and head."""
+    from dalle_pytorch_tpu_torch.ops.flash_attention import may_attend
+
+    b, n, _ = qkv.shape
+    item = qkv.element_size()
+    key_mask, pattern = opts.get("key_mask"), opts.get("pattern_mask")
+    allowed = may_attend(n, qkv.device, key_mask, opts.get("causal", True),
+                         pattern)[:, 0].expand(b, n, n)
+    q_rows = int(allowed.any(dim=2).sum())
+    kv_keys = int(allowed.any(dim=1).sum())
+    pairs = int(allowed.sum())
+    nbytes = (q_rows + 2 * kv_keys) * h * d * item + b * n * h * d * item + 4 * b * h * n
+    for t in (key_mask, pattern, *(opts.get("rot") or ())):
+        if t is not None:
+            nbytes += t.numel() * t.element_size()
+    ops = 4 * pairs * h * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[qkv.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_args(qkv, h, d, opts):
+    """q, k, v (b, h, n, d) split and rotated, and the same mask, for one
+    ``scaled_dot_product_attention`` call (the yardstick)."""
+    from dalle_pytorch_tpu_torch.ops.rotary import rotate_half
+
+    b, n, _ = qkv.shape
+    q, k, v = (t.reshape(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    if opts.get("rot") is not None:
+        cos, sin = (t[:, None] for t in opts["rot"])
+        q, k, v = (t * cos + rotate_half(t) * sin for t in (q, k, v))
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(scale=d**-0.5)
+    if opts.get("key_mask") is not None:
+        kw["attn_mask"] = opts["key_mask"][:, None, None, :]
+    else:
+        kw["is_causal"] = True
+    return (q, k, v), kw
+
+
+def check_fused_qkv() -> dict:
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    errs, rel_errs = {}, {}
+    for case in ("clip", "dalle", "dalle_pattern"):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, h, d, opts = fused_inputs(case, dtype)
+            o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
+            plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, d, **opts)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+                raise AssertionError(f"fused_qkv kernel: non-finite output ({case}, {dtype})")
+            rows = torch.ones(qkv.shape[0], dtype=torch.bool, device="cuda")
+            if case == "clip":
+                empty = CLIP_TEXT_LENGTHS.index(0)
+                if not ((o[empty] == 0).all() and (lse[empty] == fa.NEG_INF).all()):
+                    raise AssertionError("fused_qkv kernel: a fully masked row is not 0 / -1e30")
+                rows[empty] = False
+            b, n, _ = qkv.shape
+            diff = (o.float() - plain_o.float())[rows]
+            err = max(diff.abs().max().item(),
+                      (lse - plain_lse)[rows].abs().max().item())
+            per_row = diff.reshape(-1, n, h * d).norm(dim=-1)
+            ref_norm = plain_o.float()[rows].reshape(-1, n, h * d).norm(dim=-1)
+            rel = (per_row / ref_norm).max().item()
+            lse_err = (lse - plain_lse)[rows].abs().max().item()
+            ok = (err <= F32_ATOL if dtype == torch.float32
+                  else rel <= BF16_RTOL and lse_err <= BF16_RTOL)
+            log(f"fused_qkv {case} {dtype}: max |kernel - plain| over o and lse "
+                f"= {err:.3e}, max row-relative L2 error of o = {rel:.3e}, "
+                f"lse {lse_err:.3e} (tolerance: " + (
+                    f"abs {F32_ATOL:.0e})" if dtype == torch.float32 else
+                    f"row-relative {BF16_RTOL:.0e} on o, abs {BF16_RTOL:.0e} on lse)"))
+            if not ok:
+                raise AssertionError(f"fused_qkv kernel disagrees with plain: {err}, {rel}")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            rel_errs[dtype] = max(rel_errs.get(dtype, 0.0), rel)
+
+    timings = {}
+    for case in ("clip", "dalle"):
+        qkv, h, d, opts = fused_inputs(case, torch.bfloat16)
+        (q, k, v), sdpa_kw = sdpa_args(qkv, h, d, opts)
+        timings[case] = dict(
+            ms=cuda_time_ms(lambda: fa.fused_qkv_attention(qkv, h, d, **opts)),
+            plain_ms=cuda_time_ms(lambda: fa.reference_fused_qkv(qkv, h, d, **opts)),
+            library_ms=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, **sdpa_kw)),
+        )
+        timings[case]["bound_ms"], timings[case]["bound_by"] = fused_bound(qkv, h, d, opts)
+        t = timings[case]
+        log(f"fused_qkv {case} bf16 timing, cold L2: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {
+        "name": "fused_qkv_attention", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention.cu",
+        "replaces": FUSED_TPU_KERNEL, "max_abs_err": errs[torch.bfloat16],
+        "max_rel_err": rel_errs[torch.bfloat16],
+        "max_abs_err_f32": errs[torch.float32], **timings["clip"],
+    }
+
+
 # ------------------------------------------------------------ path check
 
 
@@ -255,51 +411,104 @@ def check_path_against_plain() -> None:
         raise AssertionError(f"card path disagrees with the plain path: {worst}")
 
 
+def check_clip_against_plain() -> None:
+    """Small float32 CLIP whose text length takes the packed-qkv kernel
+    (128 tokens, 2 heads of 64), identical weights on the card and the
+    CPU, zero-padded prompts: similarities agree to 1e-4, and the card's
+    text encoder launched the kernel once per layer."""
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    cfg = dict(dim_text=128, dim_image=64, dim_latent=32, num_text_tokens=100,
+               text_enc_depth=2, text_seq_len=128, text_heads=2, text_dim_head=64,
+               visual_enc_depth=1, visual_heads=2, visual_dim_head=32,
+               visual_image_size=32, visual_patch_size=8)
+    gpu = CLIP(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(5))
+    cpu = CLIP(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    rng = np.random.RandomState(6)
+    text = rng.randint(1, 100, size=(4, 128))
+    for i, n in enumerate((128, 90, 33, 1)):
+        text[i, n:] = 0
+    image = rng.rand(4, 32, 32, 3).astype(np.float32)
+    sims = {}
+    before = fa.fused_qkv_attention.launches
+    for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        t = torch.from_numpy(text).to(dev)
+        with torch.no_grad():
+            sims[dev] = m(t, torch.from_numpy(image).to(dev), text_mask=t != 0).cpu()
+    launched = fa.fused_qkv_attention.launches - before
+    worst = (sims["cuda"] - sims["cpu"]).abs().max().item()
+    log(f"path check: card (kernel) vs CPU (plain) CLIP similarity, max abs diff "
+        f"{worst:.3e}, packed-qkv launches {launched}")
+    if not worst <= 1e-4 or launched != cfg["text_enc_depth"]:
+        raise AssertionError(f"CLIP card path disagrees with the plain path: {worst}, {launched}")
+
+
 # --------------------------------------------------------------- engine
 
 
 def serve_flagship():
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
     from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
     from dalle_pytorch_tpu_torch.serving.types import Outcome, Request
 
     t0 = time.perf_counter()
-    model = DALLE(**FLAGSHIP, device="cuda", dtype=torch.bfloat16).init_weights(
-        torch.Generator(device="cuda").manual_seed(0))
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    model = DALLE(**FLAGSHIP, **bf16).init_weights(gen(0))
+    vae = DiscreteVAE(**FLAGSHIP_VAE, **bf16).init_weights(gen(1))
+    clip = CLIP(**FLAGSHIP_CLIP, **bf16).init_weights(gen(2))
     engine = Engine(model, EngineConfig(
         max_batch=MAX_BATCH, prefill_chunk=CHUNK,
-    ), device="cuda")
+    ), device="cuda", stages=StageSpec(vae, clip, config=StageConfig(
+        batch=STAGE_BATCH, queue_limit=N_REQUESTS)))
     prompts = np.random.RandomState(0).randint(
         1, FLAGSHIP["num_text_tokens"], size=(N_REQUESTS, FLAGSHIP["text_seq_len"]))
     for i in range(N_REQUESTS):
+        prompts[i, FLAGSHIP["text_seq_len"] - 23 * i:] = 0  # ragged prompt lengths
         assert engine.submit(Request(f"r{i}", prompts[i], MAX_NEW, seed=i)) is None
     torch.cuda.synchronize()
-    log(f"engine: flagship model built in {time.perf_counter() - t0:.1f} s")
+    log(f"engine: flagship DALLE, VAE and CLIP built in {time.perf_counter() - t0:.1f} s")
 
     ra.kernel_attend.launches = 0
+    fa.fused_qkv_attention.launches = 0
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ra.kernel_attend.launches
+    launches = {"ragged_attention": ra.kernel_attend.launches,
+                "fused_qkv_attention": fa.fused_qkv_attention.launches}
 
-    tokens = []
     for i in range(N_REQUESTS):
         r = results[f"r{i}"]
         if r.outcome is not Outcome.COMPLETED or len(r.tokens) != MAX_NEW:
-            raise AssertionError(f"request r{i}: {r.outcome}, {None if r.tokens is None else len(r.tokens)} tokens")
+            raise AssertionError(f"request r{i}: {r.outcome} {r.detail!r}, "
+                                 f"{None if r.tokens is None else len(r.tokens)} tokens")
         if not ((r.tokens >= 0) & (r.tokens < FLAGSHIP["num_image_tokens"])).all():
             raise AssertionError(f"request r{i}: token out of the image vocab")
-        tokens.append(r.tokens)
-    expected = FLAGSHIP["depth"] * engine.dispatches
+        if r.image is None or r.image.shape != (256, 256, 3) or not np.isfinite(r.image).all():
+            raise AssertionError(f"request r{i}: no finite (256, 256, 3) image")
+        if r.rerank_score is None or not np.isfinite(r.rerank_score):
+            raise AssertionError(f"request r{i}: rerank score {r.rerank_score}")
+    pipe = engine.postdecode
+    rerank_dispatches = pipe.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
+    expected = {"ragged_attention": FLAGSHIP["depth"] * engine.dispatches,
+                "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
+    stage_s = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(pipe.seconds.items()))
     log(f"engine: {N_REQUESTS} requests, {engine.iterations} iterations, "
-        f"{engine.dispatches} dispatches, {wall:.2f} s wall, "
-        f"{N_REQUESTS * MAX_NEW / wall:.1f} generated tokens/s, "
-        f"ragged launches {launches} (expected {expected})")
+        f"{engine.dispatches} dispatches, {wall:.2f} s wall (stages included), "
+        f"{N_REQUESTS * MAX_NEW / wall:.1f} generated tokens/s; stage seconds: "
+        f"{stage_s}; counters {dict(sorted(pipe.counters.items()))}")
+    log(f"engine: launches {launches} (expected {expected})")
     if launches != expected:
-        raise AssertionError(f"ragged kernel launched {launches} times, expected {expected}")
-    return np.stack(tokens), launches, model
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    return results, launches, model
 
 
 def profile_iterations(model, warmup: int = 10, window: int = 30) -> None:
@@ -342,23 +551,19 @@ def profile_iterations(model, warmup: int = 10, window: int = 30) -> None:
             f"x{e.count // window} {e.key[:90]}")
 
 
-def decode_pixels(tokens: np.ndarray) -> None:
-    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE, denormalize
+def check_pixels(results) -> None:
+    """The engine's images, denormalized for display, in [0, 1]; printed
+    best-first by rerank score, the order the generate CLI saves them in."""
+    from dalle_pytorch_tpu_torch.models.vae import denormalize
 
-    t0 = time.perf_counter()
-    vae = DiscreteVAE(**FLAGSHIP_VAE, device="cuda").init_weights(
-        torch.Generator(device="cuda").manual_seed(1))
-    with torch.no_grad():
-        pixels = vae.decode(torch.as_tensor(tokens, dtype=torch.long, device="cuda"))
-    torch.cuda.synchronize()
-    if tuple(pixels.shape) != (N_REQUESTS, 256, 256, 3):
-        raise AssertionError(f"VAE decode shape {tuple(pixels.shape)}")
-    if not torch.isfinite(pixels).all():
-        raise AssertionError("VAE decode produced non-finite pixels")
-    images = denormalize(pixels)
+    ids = [f"r{i}" for i in range(N_REQUESTS)]
+    images = denormalize(torch.from_numpy(np.stack([results[r].image for r in ids])))
     if not (images.min() >= 0 and images.max() <= 1):
         raise AssertionError("denormalized pixels outside [0, 1]")
-    log(f"pixels: {tuple(images.shape)} finite, decoded in {time.perf_counter() - t0:.2f} s")
+    scores = np.array([results[r].rerank_score for r in ids])
+    order = [ids[i] for i in np.argsort(-scores)]
+    log(f"pixels: {tuple(images.shape)} in [0, 1]; best-first by rerank score: "
+        + ", ".join(f"{r} {results[r].rerank_score:.4f}" for r in order))
 
 
 def main() -> int:
@@ -369,21 +574,26 @@ def main() -> int:
     from dalle_pytorch_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"TF32 cuDNN {torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
 
-    kernel = check_ragged_attention()
+    kernels = [check_ragged_attention(), check_fused_qkv()]
     check_path_against_plain()
-    tokens, launches, model = serve_flagship()
-    kernel["launches"] = launches
-    decode_pixels(tokens)
+    check_clip_against_plain()
+    results, launches, model = serve_flagship()
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    check_pixels(results)
     profile_iterations(model)
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 Input is a nested dict of numpy arrays (the JAX package's ``params``
 collection after ``jax.device_get``); output is a ``state_dict`` for
-``models.dalle.DALLE`` or ``models.vae.DiscreteVAE``. Rules:
+``models.dalle.DALLE``, ``models.vae.DiscreteVAE`` or ``models.clip.CLIP``.
+Rules:
 
 - Dense kernels are (in, out); ``nn.Linear.weight`` is (out, in).
 - The attention ``to_qkv`` columns are ``[q | k | v]``, each (h, d)-major,
@@ -45,13 +46,17 @@ def dalle_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     }
     _norm(params["final_norm"], "final_norm", out)
     _dense(params["to_logits"], "to_logits", out)
-    tr = params["transformer"]
+    _transformer(params["transformer"], "transformer", out)
+    return out
+
+
+def _transformer(tr: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
     depth = sum(1 for k in tr if k.startswith("attn_"))
     for i in range(depth):
         for kind, names in (("attn", ("to_qkv", "to_out")),
                             ("ff", ("Dense_0", "Dense_1"))):
             block = tr[f"{kind}_{i}"]
-            pre = f"transformer.{kind}_blocks.{i}"
+            pre = f"{prefix}.{kind}_blocks.{i}"
             out[f"{pre}.scale"] = _t(block["scale"])
             _norm(block["fn"]["LayerNorm_0"], f"{pre}.fn.norm", out)
             inner = block["fn"]["fn"]
@@ -63,6 +68,19 @@ def dalle_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             )
             for name, tname in zip(names, torch_names):
                 _dense(inner[name], f"{pre}.fn.fn{shift}.{tname}", out)
+
+
+def clip_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``CLIP`` from the JAX ``CLIP``'s params."""
+    out: Dict[str, torch.Tensor] = {
+        f"{name}.weight": _t(params[name]["embedding"])
+        for name in ("text_emb", "text_pos_emb", "visual_pos_emb")
+    }
+    for name in ("to_visual_embedding", "to_text_latent", "to_visual_latent"):
+        _dense(params[name], name, out)
+    for name in ("text_transformer", "visual_transformer"):
+        _transformer(params[name], name, out)
+    out["temperature"] = _t(params["temperature"])
     return out
 
 

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.layers import LayerNorm32
+from ..ops.layers import LayerNorm32, seeded_init_
 from .transformer import Transformer
 
 
@@ -104,16 +104,9 @@ class DALLE(nn.Module):
 
     # ------------------------------------------------------------ helpers
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "DALLE":
-        """Seeded random weights: linear and embedding weights
-        N(0, 0.02), biases 0; LayerNorm and LayerScale keep their init.
-        ``generator`` must live on the model's device."""
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
-                nn.init.normal_(m.weight, std=0.02, generator=generator)
-                if getattr(m, "bias", None) is not None:
-                    nn.init.zeros_(m.bias)
+        """Seeded random weights (``layers.seeded_init_``)."""
+        seeded_init_(self, generator)
         return self
 
     def remap_text(self, text: torch.Tensor) -> torch.Tensor:

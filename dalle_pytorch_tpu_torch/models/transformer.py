@@ -1,12 +1,18 @@
-"""Sequential transformer stack, decode form (counterpart of
+"""Sequential transformer stack (counterpart of
 ``dalle_pytorch_tpu/models/transformer.py``).
 
 Each layer is LayerScale(PreNorm([PreShiftToken](attention))) then the
-same around the GEGLU feed-forward, with the DALL-E rotary table. Only
-what the fused serving iteration runs is ported: causal "full" layers in
-sequential execution over a paged decode cache. Reversible and remat
-execution, pipeline and sequence parallelism, MoE, gMLP and the other
-attention patterns raise.
+same around the GEGLU feed-forward. Two forms are ported, both "full"
+attention in sequential execution:
+
+- the DALL-E decode form (``image_fmap_size`` set, the DALL-E rotary
+  table): one ragged block over a paged decode cache;
+- the full-sequence form (``forward(x, mask=...)`` with no cache), which
+  CLIP's encoders run (``image_fmap_size=None``, no rotary, non-causal).
+
+Reversible and remat execution, pipeline and sequence parallelism, MoE,
+gMLP, the other attention patterns, the 1-D rotary table (rotary without
+an image grid) and token shift over a whole sequence raise.
 """
 
 from __future__ import annotations
@@ -18,19 +24,19 @@ from torch import nn
 
 from ..ops.attention import Attention
 from ..ops.layers import FeedForward, LayerScale, PreNorm, PreShiftToken
-from ..ops.rotary import dalle_rotary_table
+from ..ops.rotary import dalle_rotary_table, rot_tables
 
 
 class Transformer(nn.Module):
-    """``seq_len`` is the model sequence length (text + image); the
-    attention pattern covers ``seq_len + 1`` positions (<bos> included).
-    Only the DALL-E form (an image grid of ``image_fmap_size``) is
-    ported."""
+    """``seq_len`` is the model sequence length: text + image for DALL-E
+    (an image grid of ``image_fmap_size``), whose attention pattern covers
+    ``seq_len + 1`` positions (<bos> included); the encoder length for
+    CLIP (``image_fmap_size=None``)."""
 
     def __init__(self, *, dim: int, depth: int, seq_len: int, heads: int = 8,
                  dim_head: int = 64, ff_mult: float = 4,
                  attn_types: Optional[Tuple[str, ...]] = None,
-                 image_fmap_size: int, causal: bool = True,
+                 image_fmap_size: Optional[int] = None, causal: bool = True,
                  shift_tokens: bool = False, rotary_emb: bool = True,
                  reversible: bool = False, remat: bool = False,
                  sp_axis=None, pp_axis=None, ff_experts: int = 0,
@@ -51,9 +57,16 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 f"only 'full' attention layers are ported, got {types}"
             )
+        if rotary_emb and image_fmap_size is None:
+            raise NotImplementedError(
+                "the 1-D rotary table (rotary without an image grid) is not ported"
+            )
+        if shift_tokens and image_fmap_size is None:
+            raise ValueError("token shift needs an image grid (image_fmap_size)")
         self.depth = depth
+        self.dim_head = dim_head
         self.shift_tokens = shift_tokens
-        self.attn_seq_len = seq_len + 1
+        self.attn_seq_len = seq_len + (image_fmap_size is not None)
 
         table = None
         if rotary_emb:
@@ -81,9 +94,24 @@ class Transformer(nn.Module):
         self.attn_blocks = nn.ModuleList(attn_blocks)
         self.ff_blocks = nn.ModuleList(ff_blocks)
 
-    def forward(self, x, cache, block_len, block_start):
-        """One ragged block through every layer against ``cache``
-        (``models.sampling.DecodeCache``), updated in place."""
+    def forward(self, x, cache=None, block_len=None, block_start=None,
+                mask=None):
+        """With ``cache`` (``models.sampling.DecodeCache``): one ragged
+        block through every layer, the cache updated in place. Without:
+        the whole sequence x (b, n, dim), ``mask`` the optional (b, n) key
+        mask; the rotary cos/sin tables are built once for all layers."""
+        if cache is None:
+            if self.shift_tokens:
+                raise NotImplementedError(
+                    "token shift over a whole sequence is not ported"
+                )
+            rot = None
+            if self.rotary is not None:
+                rot = rot_tables(self.rotary, x.shape[1], self.dim_head, x.dtype)
+            for ind in range(self.depth):
+                x = x + self.attn_blocks[ind](x, rotary=rot, mask=mask)
+                x = x + self.ff_blocks[ind](x)
+            return x
         for ind in range(self.depth):
             akw = dict(kv=cache.kv[ind], rotary=self.rotary)
             fkw = {}

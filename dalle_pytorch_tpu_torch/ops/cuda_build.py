@@ -26,11 +26,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported entry point: (argtypes, restype)
 SIGNATURES = {
     "ragged_attention": {
         "ragged_attention_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
+    },
+    "fused_qkv_attention": {
+        "fused_qkv_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
     },
 }
 

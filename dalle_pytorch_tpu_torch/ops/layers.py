@@ -18,6 +18,19 @@ from torch import nn
 LN_EPS = 1e-6
 
 
+@torch.no_grad()
+def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights for a model built without a checkpoint:
+    every linear and embedding weight N(0, 0.02), biases 0; LayerNorm,
+    LayerScale and other parameters keep their init. ``generator`` lives
+    on the model's device."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            nn.init.normal_(m.weight, std=0.02, generator=generator)
+            if getattr(m, "bias", None) is not None:
+                nn.init.zeros_(m.bias)
+
+
 def layer_scale_init(depth: int) -> float:
     """Depth-dependent LayerScale init: 0.1 up to depth 18, 1e-5 to 24,
     1e-6 beyond."""

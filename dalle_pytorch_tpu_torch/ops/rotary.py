@@ -6,7 +6,9 @@ rotary angles and image positions 2-D axial angles, each modality pinned
 to a far-away constant position in the other's coordinates (image at 8192
 in the text part, text at -10 in the axial part), and the trailing
 position dropped because the model never feeds its final token. Rotation
-applies to q, k AND v.
+applies to q, k AND v. ``rot_tables`` gives the packed-qkv path its
+cos/sin operands; the kernel there rotates each channel with its pair
+partner directly, so JAX's signed-permutation matrix is not needed.
 """
 
 from __future__ import annotations
@@ -48,6 +50,28 @@ def apply_rotary_emb(angle_table: torch.Tensor, t: torch.Tensor) -> torch.Tensor
     t_rot, t_pass = t[..., :rot_dim], t[..., rot_dim:]
     t_rot = t_rot * angle_table.cos() + rotate_half(t_rot) * angle_table.sin()
     return torch.cat((t_rot, t_pass), dim=-1)
+
+
+def rot_tables(table: torch.Tensor, n: int, d: int, dtype):
+    """cos/sin (n, d) in the compute dtype for the packed-qkv path: the
+    angle table's first n rows, zero-padded to the head dim (zero angle =
+    identity rotation), cast to ``dtype`` BEFORE cos/sin as
+    ``apply_rotary_emb`` does. The table must be pair-constant (equal
+    angles within each (2i, 2i+1) channel pair, as every table ``angles``
+    builds is): the packed backward's inverse rotation relies on it.
+    The check reads the table, a host sync when it lies on the card."""
+    if table.shape[0] < n or table.shape[1] > d:
+        raise ValueError(f"angle table {tuple(table.shape)} does not cover n={n}, d={d}")
+    table = table[:n].float()
+    if table.shape[1] < d:
+        table = torch.nn.functional.pad(table, (0, d - table.shape[1]))
+    if not torch.equal(table[:, 0::2], table[:, 1::2]):
+        raise ValueError(
+            "fused rotary requires a pair-constant angle table "
+            "(table[:, 0::2] == table[:, 1::2]); see rotary.angles"
+        )
+    ang = table.to(dtype)
+    return ang.cos(), ang.sin()
 
 
 def dalle_rotary_table(

@@ -6,7 +6,11 @@ iteration is the only mode).
 Request lifecycle: submit -> [rejected] | queued -> admitted (slot and
 prompt pages claimed) -> prefilling (one chunk per iteration under the
 ``TokenBudget``) -> decoding (one token per iteration) -> completed |
-deadline_exceeded | cancelled.
+deadline_exceeded | cancelled. With ``stages`` (``postdecode.StageSpec``)
+a request whose tokens complete releases its slot and pages and moves
+through the post-decode stages (VAE decode, then CLIP rerank) before it
+ends COMPLETED with an image and a score, or typed-degraded
+(``Outcome.COMPLETED_TOKENS_ONLY`` / ``COMPLETED_UNRANKED``).
 
 The engine owns ONE batched paged decode cache of ``max_batch`` slots.
 Each iteration is a single ragged block through ``DALLE.fused_step``:
@@ -27,12 +31,12 @@ Sampling contract: the token at internal position p of a request is a
 pure function of (seed, p) and the logits (``models.sampling.sample``),
 so a request's tokens do not depend on the batch around it.
 
-Not ported in this slice: the split prefill/decode path, speculative
-decoding, the prefix cache, int8 KV pages, post-decode stages, the
-journal, vitals and the controller, fault injection, telemetry and
-watermark degradation (``EngineConfig`` has no field for them, so asking
-for one is a ``TypeError``), and any page budget small enough to need
-preemption (raises ``NotImplementedError``).
+Not ported yet: the split prefill/decode path, speculative decoding, the
+prefix cache, int8 KV pages, the journal, vitals and the controller,
+fault injection, telemetry and the token path's watermark degradation
+(``EngineConfig`` has no field for them, so asking for one is a
+``TypeError``), and any page budget small enough to need preemption
+(raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch.nn.functional as F
 from ..models.dalle import DALLE, top_k_filter
 from ..models.sampling import init_decode_cache, sample
 from ..ops import kv_policy
+from .postdecode import PostDecodePipeline, StageSpec
 from .scheduler import Entry, PagePool, Scheduler, TokenBudget, pages_for
 from .types import Clock, Outcome, RejectReason, Request, RequestResult
 
@@ -96,7 +101,8 @@ class Engine:
     """See the module docstring. Host-side state machine + one device cache."""
 
     def __init__(self, dalle: DALLE, config: EngineConfig = EngineConfig(),
-                 clock: Optional[Clock] = None, device="cuda"):
+                 clock: Optional[Clock] = None, device="cuda",
+                 stages: Optional[StageSpec] = None):
         if config.prefill_chunk < 2:
             raise ValueError(
                 f"the fused iteration needs prefill_chunk >= 2 (the block "
@@ -150,6 +156,14 @@ class Engine:
         self._pending: Optional[Tuple[torch.Tensor, list]] = None
         self.dispatches = 0
         self.iterations = 0
+        # post-decode stages: completed token work enters the pipeline
+        # (holding no slot or pages) and stays live until a stage outcome
+        self.postdecode: Optional[PostDecodePipeline] = None
+        if stages is not None:
+            self.postdecode = PostDecodePipeline(
+                stages, self.clock, self._finish,
+                occupancy=lambda: self.pool.occupancy,
+            )
 
     # ------------------------------------------------------------ public
 
@@ -179,14 +193,18 @@ class Engine:
 
     def step(self) -> bool:
         """One iteration: terminations -> admission -> one fused dispatch
-        (plus the previous one's readback). False when fully idle."""
+        (plus the previous one's readback) -> budgeted stage work. False
+        when fully idle."""
         self._sweep_terminations()
         self._admit()
         worked = self._fused_iteration()
+        if self.postdecode is not None:
+            worked = self.postdecode.step() or worked
         if worked:
             self.iterations += 1
         self.clock.tick()
-        return worked or bool(self.sched) or any(self.slots)
+        return (worked or bool(self.sched) or any(self.slots)
+                or bool(self.postdecode))
 
     def run(self, max_steps: Optional[int] = None) -> Dict[str, RequestResult]:
         """Drive until idle; ``max_steps`` is a safety valve that raises."""
@@ -214,6 +232,9 @@ class Engine:
                 self._release_slot(slot)
                 self._finish(slot.entry, Outcome.CANCELLED,
                              tokens=self._partial_tokens(slot))
+        if self.postdecode is not None:
+            for rid in self.postdecode.sweep(self._cancel_requested, now):
+                self._cancel_requested.discard(rid)
         self._cancel_requested &= self._live
         for entry in self.sched.expired(now):
             self._finish(entry, Outcome.DEADLINE_EXCEEDED, tokens=None)
@@ -401,8 +422,11 @@ class Engine:
 
     def _complete(self, slot: _Slot) -> None:
         self._release_slot(slot)
-        self._finish(slot.entry, Outcome.COMPLETED,
-                     tokens=np.asarray(slot.entry.generated, np.int32))
+        tokens = np.asarray(slot.entry.generated, np.int32)
+        if self.postdecode is not None:
+            self.postdecode.enqueue(slot.entry, tokens)
+        else:
+            self._finish(slot.entry, Outcome.COMPLETED, tokens=tokens)
 
     def _reject(self, entry: Entry, reason: RejectReason) -> RequestResult:
         result = RequestResult(
@@ -413,7 +437,8 @@ class Engine:
         return result
 
     def _finish(self, entry: Entry, outcome: Outcome,
-                tokens: Optional[np.ndarray]) -> None:
+                tokens: Optional[np.ndarray], image=None,
+                rerank_score: Optional[float] = None, detail: str = "") -> None:
         now = self.clock.now()
         self._live.discard(entry.request_id)
         self.results[entry.request_id] = RequestResult(
@@ -426,4 +451,7 @@ class Engine:
             ),
             ttft_s=entry.ttft_s,
             total_latency_s=now - entry.submit_time,
+            image=image,
+            rerank_score=rerank_score,
+            detail=detail,
         )

@@ -42,7 +42,8 @@ class TokenBudget:
                        next_chunks: Sequence[int]) -> List[bool]:
         """Which in-progress prefills run their next chunk this iteration.
         ``next_chunks``: width of each prefill's next chunk, in
-        scheduling order."""
+        scheduling order. The post-decode pipeline meters its stages with
+        it too, over width-1 items (one per staged image)."""
         take = [False] * len(next_chunks)
         if not next_chunks:
             return take
@@ -73,6 +74,10 @@ class PagePool:
     @property
     def free(self) -> int:
         return self.total - self.used
+
+    @property
+    def occupancy(self) -> float:
+        return self.used / self.total
 
     def held(self, request_id: str) -> int:
         return self._held.get(request_id, 0)

@@ -25,6 +25,12 @@ class Outcome(str, Enum):
     REJECTED = "rejected"
     DEADLINE_EXCEEDED = "deadline_exceeded"
     CANCELLED = "cancelled"
+    # typed-degraded completions from the post-decode pipeline
+    # (serving/postdecode.py): the token work succeeded but a stage was
+    # shed by retry exhaustion, backlog or occupancy past the stage
+    # watermark; the tokens (and for UNRANKED the image) are complete
+    COMPLETED_TOKENS_ONLY = "completed_tokens_only"  # image never decoded
+    COMPLETED_UNRANKED = "completed_unranked"        # image, no CLIP score
 
 
 class RejectReason(str, Enum):
@@ -60,6 +66,14 @@ class RequestResult:
     # submit -> the first image token read back
     ttft_s: Optional[float] = None
     total_latency_s: Optional[float] = None
+    # post-decode pipeline results: the decoded image (H, W, C float32,
+    # the VAE's normalized space; ``models.vae.denormalize`` for display)
+    # on COMPLETED and COMPLETED_UNRANKED (and on a mid-stage cancel or
+    # deadline once the VAE had run), and the CLIP rerank score on
+    # reranked COMPLETED requests. Both None without stages.
+    image: Optional[np.ndarray] = None
+    rerank_score: Optional[float] = None
+    detail: str = ""
 
 
 class Clock:

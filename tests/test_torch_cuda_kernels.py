@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 from dalle_pytorch_tpu_torch.ops import paged_kv
 from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
+from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 
 
 @pytest.fixture
@@ -68,3 +70,77 @@ def test_ragged_kernel_rejects_what_it_cannot_take(cuda):
         ra.kernel_attend(q, flat, flat, i32([0]), i32(0), i32(1))
     with pytest.raises(TypeError):
         ra.kernel_attend(q.half(), flat.half(), flat.half(), i32([0]), i32(0), i32(1))
+
+
+def _column_rel_err(got, plain):
+    """Max over query rows of |got - plain| / |plain| in L2 over h*d."""
+    diff = (got - plain).flatten(2).norm(dim=-1)
+    return (diff / plain.flatten(2).norm(dim=-1).clamp(min=1e-30)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["causal_rotary", "key_mask"])
+def test_fused_qkv_kernel_matches_plain(cuda, dtype, dim_head, mode):
+    """n = 200 (a ragged last tile of 64), 2 batch rows of 4 heads.
+    causal_rotary: causal with the DALL-E angle table; key_mask:
+    non-causal with a ragged key mask whose second row masks everything
+    (o exactly 0, lse -1e30 there). Against the plain version on the same
+    inputs: o and lse within abs 1e-5 in float32; in bfloat16 each query
+    row's o error norm over h*d within 1% of the plain row's norm and lse
+    within 1e-2; one launch per call."""
+    b, n, h = 2, 200, 4
+    rng = np.random.RandomState(dim_head)
+    qkv = torch.from_numpy(rng.randn(b, n, 3 * h * dim_head).astype(np.float32)).to(dtype)
+    kw = dict(causal=mode == "causal_rotary")
+    if mode == "causal_rotary":
+        kw["rot"] = rot_tables(torch.from_numpy(dalle_rotary_table(dim_head, n - 15, 4)),
+                               n, dim_head, dtype)
+    else:
+        km = torch.from_numpy(rng.rand(b, n) > 0.3)
+        km[1] = False
+        kw["key_mask"] = km
+    plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, dim_head, **kw)
+    before = fa.fused_qkv_attention.launches
+    on_card = {k: (v.to(cuda) if torch.is_tensor(v) else v) for k, v in kw.items()}
+    if "rot" in kw:
+        on_card["rot"] = tuple(t.to(cuda) for t in kw["rot"])
+    got_o, got_lse = fa.fused_qkv_attention(qkv.to(cuda), h, dim_head, **on_card)
+    torch.cuda.synchronize()
+    assert fa.fused_qkv_attention.launches == before + 1
+    got_o, got_lse = got_o.float().cpu(), got_lse.cpu()
+    plain_o = plain_o.float()
+    assert torch.isfinite(got_o).all() and torch.isfinite(got_lse).all()
+    if mode == "key_mask":
+        assert (got_o[1] == 0).all() and (got_lse[1] == fa.NEG_INF).all()
+        got_o, plain_o, got_lse, plain_lse = got_o[:1], plain_o[:1], got_lse[:1], plain_lse[:1]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got_o, plain_o, atol=1e-5, rtol=0)
+        torch.testing.assert_close(got_lse, plain_lse, atol=1e-5, rtol=0)
+    else:
+        got_o = got_o.reshape(got_o.shape[0], n, h, dim_head)
+        plain_o = plain_o.reshape(got_o.shape)
+        assert _column_rel_err(got_o, plain_o) <= 1e-2
+        torch.testing.assert_close(got_lse, plain_lse, atol=1e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_fused_qkv_kernel_rejects_what_it_cannot_take(cuda):
+    qkv = torch.zeros(1, 128, 3 * 2 * 64, device=cuda)
+    with pytest.raises(ValueError):  # width is not 3 * h * d
+        fa.fused_qkv_attention(qkv[..., :-64].contiguous(), 2, 64)
+    with pytest.raises(ValueError):  # not contiguous
+        wide = torch.zeros(1, 128, 2 * 3 * 2 * 64, device=cuda)
+        fa.fused_qkv_attention(wide[..., :3 * 2 * 64], 2, 64)
+    with pytest.raises(ValueError):  # key mask of the wrong shape
+        fa.fused_qkv_attention(qkv, 2, 64, key_mask=torch.ones(1, 64, device=cuda))
+    with pytest.raises(ValueError):  # pattern mask of the wrong shape
+        fa.fused_qkv_attention(qkv, 2, 64, pattern_mask=torch.ones(64, 64, device=cuda))
+    with pytest.raises(ValueError):  # rotary tables of another dtype than qkv's
+        bf16_table = torch.ones(128, 64, dtype=torch.bfloat16, device=cuda)
+        fa.fused_qkv_attention(qkv, 2, 64, rot=(bf16_table, bf16_table))
+    with pytest.raises(ValueError):  # no instance for dim_head 48
+        fa.fused_qkv_attention(torch.zeros(1, 128, 3 * 2 * 48, device=cuda), 2, 48)
+    with pytest.raises(TypeError):
+        fa.fused_qkv_attention(qkv.half(), 2, 64)

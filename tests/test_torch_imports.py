@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of dalle_pytorch_tpu_torch/
 and nothing in chip_smoke.py imports jax, flax, optax or the JAX package
-(an AST walk), and the port's engine imports and runs a CPU fused_step in
-a process where importing jax fails."""
+(an AST walk), and the port's engine, post-decode stages and CLIP import
+and run (a CPU fused_step, a CLIP similarity) in a process where
+importing jax fails."""
 
 import ast
 import subprocess
@@ -47,6 +48,15 @@ i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
 logits = model.fused_step(i32([1, 2], [3, 0]), i32(0, 0), i32(2, 1),
                           torch.tensor([False, False]), cache)
 assert logits.shape == (2, 12) and torch.isfinite(logits).all()
+from dalle_pytorch_tpu_torch.models.clip import CLIP
+from dalle_pytorch_tpu_torch.serving.postdecode import PostDecodePipeline, StageSpec
+clip = CLIP(dim_text=16, dim_image=16, dim_latent=8, num_text_tokens=16,
+            text_enc_depth=1, text_seq_len=4, text_heads=2, text_dim_head=8,
+            visual_enc_depth=1, visual_heads=2, visual_dim_head=8,
+            visual_image_size=4, visual_patch_size=2, device="cpu")
+text = i32(1, 2, 0, 0)[None].long()
+sim = clip(text, torch.zeros(1, 4, 4, 3), text_mask=text != 0)
+assert sim.shape == (1,) and torch.isfinite(sim).all()
 print("ok")
 """
     out = subprocess.run(
