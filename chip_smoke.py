@@ -15,8 +15,9 @@ line):
    outputs finite; times with CUDA events (L2 flushed before each call)
    beside the plain version, one library call as a yardstick, and the
    bound from bytes and operations. The packed-qkv kernel is held at
-   CLIP's text shape (the rerank stage's) and at DALL-E's causal rotary
-   shape, with and without a pattern mask.
+   CLIP's text shape (the rerank stage's), at DALL-E's causal rotary
+   shape, with and without a pattern mask, and at the training shape
+   (batch 4).
 4. path check: a small float32 DALLE, and a small float32 CLIP whose text
    length takes the packed-qkv kernel, each with the same weights on the
    card (kernels) and on the CPU (plain versions); logits and
@@ -36,6 +37,22 @@ line):
 7. profile: torch.profiler over 30 iterations of a fresh mixed batch:
    wall and device-busy time per iteration, launches per iteration, the
    largest device-time kernels (after the counted run).
+8. train: the flagship DALLE in float32 (train_dalle.py's defaults: batch
+   4, lr 3e-4, clip_grad_norm 0.5, loss_img_weight 7) trained by
+   ``DalleTrainer`` for 10 steps on one batch: 4 seeded 256x256 images
+   encoded to 32x32 tokens by the flagship VAE, seeded captions with zero
+   tails. Every loss finite, the last below the first, the packed-qkv
+   forward and backward kernels launched depth x (steps + retries) times
+   each. Then one step with the NaN injected: every parameter and Adam
+   moment bit-identical, skipped 1. Step wall time, training tokens/s and
+   peak memory are printed.
+9. train profile: torch.profiler over 3 more steps: device-busy share,
+   launches per step, the largest device-time kernels.
+
+Phase 3 also holds the packed-qkv backward kernel against its plain
+version (float32 and bfloat16) at the flagship training shape, CLIP's
+text shape and DALL-E's shape with a pattern mask, and phase 4 a small
+float32 DALLE's loss and every parameter gradient, card against CPU.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power
 limit; the line before it the kernels' JSON; the last line
@@ -80,8 +97,12 @@ STAGE_BATCH = 8
 # column's norm (two bf16 roundings of the output are ~0.4%; a page missed
 # or attended twice moves a column by 10% or more)
 F32_ATOL, BF16_RTOL = 1e-5, 1e-2
+# the packed-qkv backward's tolerances and metric are
+# dalle_pytorch_tpu_torch.testing's (BWD_F32_REL, BWD_BF16_ROW_REL)
 RAGGED_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:116"
 FUSED_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:784"
+FUSED_BWD_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:813"
+TRAIN_BATCH, TRAIN_STEPS = 4, 10
 # the rerank stage's text key mask: valid prompt lengths of the 8 rows
 # (one fully masked row: its output must be exactly 0, its lse -1e30)
 CLIP_TEXT_LENGTHS = (256, 200, 131, 64, 17, 1, 0, 240)
@@ -244,7 +265,8 @@ def fused_inputs(case: str, dtype, seed: int = 0):
     the rerank stage's text encoder, b = 8, n = 256, 8 heads of 64,
     non-causal, the key mask of CLIP_TEXT_LENGTHS. "dalle": b = 2,
     n = 1280, 16 heads of 64, causal with the DALL-E rotary table;
-    "dalle_pattern" adds the static axial-row pattern mask."""
+    "dalle_pattern" adds the static axial-row pattern mask; "train" is
+    "dalle" at the training batch of 4."""
     from dalle_pytorch_tpu_torch.ops import masks
     from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 
@@ -255,7 +277,8 @@ def fused_inputs(case: str, dtype, seed: int = 0):
         opts = dict(key_mask=torch.arange(n, device="cuda")[None] < lengths[:, None],
                     causal=False)
     else:
-        b, n, h, d = 2, 1280, FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+        b = TRAIN_BATCH if case == "train" else 2
+        n, h, d = 1280, FLAGSHIP["heads"], FLAGSHIP["dim_head"]
         text_len = FLAGSHIP["text_seq_len"] + 1
         table = dalle_rotary_table(d, text_len, FLAGSHIP["image_fmap_size"])
         opts = dict(causal=True, rot=rot_tables(torch.from_numpy(table).cuda(), n, d, dtype))
@@ -315,8 +338,8 @@ def sdpa_args(qkv, h, d, opts):
 def check_fused_qkv() -> dict:
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
-    errs, rel_errs = {}, {}
-    for case in ("clip", "dalle", "dalle_pattern"):
+    errs, rel_errs, train_errs = {}, {}, {}
+    for case in ("clip", "dalle", "dalle_pattern", "train"):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, h, d, opts = fused_inputs(case, dtype)
             o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
@@ -349,10 +372,14 @@ def check_fused_qkv() -> dict:
                 raise AssertionError(f"fused_qkv kernel disagrees with plain: {err}, {rel}")
             errs[dtype] = max(errs.get(dtype, 0.0), err)
             rel_errs[dtype] = max(rel_errs.get(dtype, 0.0), rel)
+            if case == "train":
+                train_errs[dtype] = (err, rel)
 
     timings = {}
-    for case in ("clip", "dalle"):
-        qkv, h, d, opts = fused_inputs(case, torch.bfloat16)
+    # bf16 at the serving shapes; float32 at the training shape
+    for case, dtype in (("clip", torch.bfloat16), ("dalle", torch.bfloat16),
+                        ("train", torch.float32)):
+        qkv, h, d, opts = fused_inputs(case, dtype)
         (q, k, v), sdpa_kw = sdpa_args(qkv, h, d, opts)
         timings[case] = dict(
             ms=cuda_time_ms(lambda: fa.fused_qkv_attention(qkv, h, d, **opts)),
@@ -362,7 +389,7 @@ def check_fused_qkv() -> dict:
         )
         timings[case]["bound_ms"], timings[case]["bound_by"] = fused_bound(qkv, h, d, opts)
         t = timings[case]
-        log(f"fused_qkv {case} bf16 timing, cold L2: kernel {t['ms']:.4f} ms, plain "
+        log(f"fused_qkv {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return {
@@ -371,6 +398,115 @@ def check_fused_qkv() -> dict:
         "replaces": FUSED_TPU_KERNEL, "max_abs_err": errs[torch.bfloat16],
         "max_rel_err": rel_errs[torch.bfloat16],
         "max_abs_err_f32": errs[torch.float32], **timings["clip"],
+        **{f"train_{k}": v for k, v in timings["train"].items()},
+        "train_max_abs_err_f32": train_errs[torch.float32][0],
+        "train_max_rel_err_bf16": train_errs[torch.bfloat16][1],
+    }
+
+
+def fused_bwd_bound(qkv, h, d, opts):
+    """(bound_ms, bound_by) of the backward on these inputs: bytes = q, o
+    and do of the query rows that attend a key, K and V of the keys some
+    query attends, the lse, dqkv written in full, the masks and tables;
+    operations = five (query, key, d) products, 2 * 5 * d per allowed
+    pair and head (s, dp, dv, dq, dk)."""
+    from dalle_pytorch_tpu_torch.ops.flash_attention import may_attend
+
+    b, n, _ = qkv.shape
+    item = qkv.element_size()
+    key_mask, pattern = opts.get("key_mask"), opts.get("pattern_mask")
+    allowed = may_attend(n, qkv.device, key_mask, opts.get("causal", True),
+                         pattern)[:, 0].expand(b, n, n)
+    q_rows = int(allowed.any(dim=2).sum())
+    kv_keys = int(allowed.any(dim=1).sum())
+    pairs = int(allowed.sum())
+    nbytes = (3 * q_rows + 2 * kv_keys + 3 * b * n) * h * d * item + 4 * b * h * n
+    for t in (key_mask, pattern, *(opts.get("rot") or ())):
+        if t is not None:
+            nbytes += t.numel() * t.element_size()
+    ops = 10 * pairs * h * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[qkv.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_backward(qkv, h, d, opts, do):
+    """A function that runs the backward of one
+    ``scaled_dot_product_attention`` on split, rotated heads (the
+    yardstick), from a graph built once."""
+    (q, k, v), kw = sdpa_args(qkv, h, d, opts)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw)
+    grad = do.reshape(out.shape[0], out.shape[2], h, d).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+
+
+def check_fused_qkv_bwd() -> dict:
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.testing import BWD_BF16_ROW_REL, BWD_F32_REL, bwd_errors
+
+    worst_rel = worst_row = 0.0
+    for case in ("train", "clip", "dalle_pattern"):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, generator=g,
+                             device="cuda").to(dtype)
+            o, lse = fa.reference_fused_qkv(qkv, h, d, **opts)
+            got = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+            again = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+            plain = fa.reference_fused_qkv_bwd(qkv, o, lse, do, h, d, **opts)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"fused_qkv_bwd kernel: non-finite output ({case}, {dtype})")
+            rel, row_rel, zeros_exact = bwd_errors(got, plain, h, d, opts)
+            abs_err = (got.float() - plain.float()).abs().max().item()
+            differ = int((got != plain).sum())
+            same = torch.equal(got, again)
+            if case == "clip":
+                zeros_exact &= bool((got[CLIP_TEXT_LENGTHS.index(0)] == 0).all())
+            ok = (rel <= BWD_F32_REL if dtype == torch.float32
+                  else row_rel <= BWD_BF16_ROW_REL)
+            log(f"fused_qkv_bwd {case} {dtype}: relative L2 error {rel:.3e}, floored "
+                f"row-relative {row_rel:.3e}, max abs {abs_err:.3e}, {differ} of "
+                f"{got.numel()} elements differ, masked rows exactly 0 "
+                f"{zeros_exact}, two runs identical {same} (tolerance: "
+                + (f"relative {BWD_F32_REL:.0e})" if dtype == torch.float32
+                   else f"row-relative {BWD_BF16_ROW_REL:.0e})"))
+            if not (ok and zeros_exact and same):
+                raise AssertionError(f"fused_qkv_bwd kernel disagrees with plain: {case} {dtype}")
+            if dtype == torch.float32:
+                worst_rel = max(worst_rel, rel)
+                if case == "train":
+                    train_abs = abs_err
+            else:
+                worst_row = max(worst_row, row_rel)
+
+    timings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv, h, d, opts = fused_inputs("train", dtype, seed=1)
+        do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, device="cuda").to(dtype)
+        o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
+        t = dict(
+            ms=cuda_time_ms(lambda: fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts),
+                            iters=20),
+            plain_ms=cuda_time_ms(lambda: fa.reference_fused_qkv_bwd(qkv, o, lse, do, h, d,
+                                                                     **opts), iters=10),
+            library_ms=cuda_time_ms(sdpa_backward(qkv, h, d, opts, do), iters=20),
+        )
+        t["bound_ms"], t["bound_by"] = fused_bwd_bound(qkv, h, d, opts)
+        timings[dtype] = t
+        log(f"fused_qkv_bwd train {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    t = timings[torch.float32]  # the training path's type
+    return {
+        "name": "fused_qkv_attention_bwd", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
+        "replaces": FUSED_BWD_TPU_KERNEL, "max_abs_err": train_abs,
+        "max_rel_err_f32": worst_rel, "max_row_rel_err_bf16": worst_row,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "ms_bf16": timings[torch.bfloat16]["ms"],
     }
 
 
@@ -443,6 +579,44 @@ def check_clip_against_plain() -> None:
         f"{worst:.3e}, packed-qkv launches {launched}")
     if not worst <= 1e-4 or launched != cfg["text_enc_depth"]:
         raise AssertionError(f"CLIP card path disagrees with the plain path: {worst}, {launched}")
+
+
+def check_train_against_plain() -> None:
+    """Small float32 DALLE whose n takes the packed-qkv path (depth 2, 2
+    heads of 64, text 64 + an 8 x 8 grid: n 128; token shift, rotary),
+    identical weights on the card (both kernels) and the CPU (plain
+    versions): the loss to relative 1e-5 and every parameter's gradient to
+    1e-4 of its largest entry, each kernel launched once per layer."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
+               text_seq_len=64, num_image_tokens=40, image_fmap_size=8)
+    gpu = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(7))
+    cpu = DALLE(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    rng = np.random.RandomState(8)
+    text = rng.randint(1, 50, size=(2, 64))
+    text[0, 40:], text[1, 9:] = 0, 0
+    image = rng.randint(0, 40, size=(2, 64))
+    losses, grads = {}, {}
+    before = fa.fused_qkv_attention.launches, fa.fused_qkv_attention_bwd.launches
+    for m in (gpu, cpu):
+        t, i = (torch.from_numpy(a).to(m.device) for a in (text, image))
+        loss = m(t, i, return_loss=True)
+        loss.backward()
+        losses[m] = loss.item()
+        grads[m] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    launched = (fa.fused_qkv_attention.launches - before[0],
+                fa.fused_qkv_attention_bwd.launches - before[1])
+    loss_rel = abs(losses[gpu] - losses[cpu]) / abs(losses[cpu])
+    worst = max((grads[gpu][k] - g).abs().max().item() / g.abs().max().item()
+                for k, g in grads[cpu].items())
+    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss, relative "
+        f"{loss_rel:.3e}; worst gradient error {worst:.3e} of its largest entry; "
+        f"packed-qkv launches forward/backward {launched}")
+    if not (loss_rel <= 1e-5 and worst <= 1e-4 and launched == (cfg["depth"],) * 2):
+        raise AssertionError(f"training path disagrees: {loss_rel}, {worst}, {launched}")
 
 
 # --------------------------------------------------------------- engine
@@ -566,6 +740,106 @@ def check_pixels(results) -> None:
         + ", ".join(f"{r} {results[r].rerank_score:.4f}" for r in order))
 
 
+# ---------------------------------------------------------------- train
+
+
+def train_flagship():
+    """The flagship DALLE trained in float32 by ``DalleTrainer``: the
+    counted run, then the NaN-injected step. Returns (trainer, (text,
+    images), launches of the counted run)."""
+    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.parallel.step import make_train_step
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer, dalle_loss
+
+    t0 = time.perf_counter()
+    vae = DiscreteVAE(**FLAGSHIP_VAE, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(11))
+    images = torch.rand(TRAIN_BATCH, 256, 256, 3, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(12))
+    text = np.random.RandomState(13).randint(
+        1, FLAGSHIP["num_text_tokens"], size=(TRAIN_BATCH, FLAGSHIP["text_seq_len"]))
+    for i in range(TRAIN_BATCH):
+        text[i, FLAGSHIP["text_seq_len"] - 40 * (i + 1):] = 0  # zero tails
+    text = torch.from_numpy(text).cuda()
+    tokens = vae.get_codebook_indices(images)
+    if tokens.shape != (TRAIN_BATCH, 1024) or not ((tokens >= 0) & (tokens < 8192)).all():
+        raise AssertionError(f"VAE encode: tokens {tuple(tokens.shape)} out of range")
+    trainer = DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0,
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
+        shift_tokens=True, rotary_emb=True)
+    n_params = sum(p.numel() for p in trainer.dalle.parameters())
+    torch.cuda.synchronize()
+    log(f"train: flagship DALLE ({n_params:,} parameters, float32) and VAE built, "
+        f"images encoded to {tuple(tokens.shape)} tokens in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.fused_qkv_attention.launches = 0
+    fa.fused_qkv_attention_bwd.launches = 0
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(text, images))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {"fused_qkv_attention": fa.fused_qkv_attention.launches,
+                "fused_qkv_attention_bwd": fa.fused_qkv_attention_bwd.launches}
+    expected = FLAGSHIP["depth"] * (trainer.steps + trainer.retries)
+    steady = float(np.median(walls[1:]))
+    tokens_per_step = TRAIN_BATCH * (FLAGSHIP["text_seq_len"] + 1024)
+    log(f"train: {trainer.steps} steps, {trainer.retries} retries, losses "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"train: step wall first {walls[0]:.3f} s, median of the rest {steady:.4f} s "
+        f"(all: {', '.join(f'{w:.4f}' for w in walls)}); {tokens_per_step / steady:.1f} "
+        f"training tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"train: launches {launches} (expected {expected} each)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}")
+    if set(launches.values()) != {expected}:
+        raise AssertionError(f"train: kernel launches {launches}, expected {expected}")
+
+    state = trainer.state
+    snapshot = [t.clone() for part in (state.params, state.opt_state.mu, state.opt_state.nu)
+                for t in part.values()]
+    inject = make_train_step(dalle_loss, 0.5, nan_inject_step=int(state.step))
+    new, loss = inject(state, trainer.dalle, {"text": text, "image": tokens}, trainer.lr)
+    after = [t for part in (new.params, new.opt_state.mu, new.opt_state.nu) for t in part.values()]
+    identical = all(torch.equal(a, b) for a, b in zip(snapshot, after))
+    log(f"train: NaN injected at step {int(state.step)}: loss {loss.item()}, skipped "
+        f"{int(new.skipped)}, every parameter and Adam moment bit-identical {identical}")
+    if not (torch.isnan(loss) and int(new.skipped) == 1 and identical
+            and int(new.opt_state.count) == int(state.opt_state.count)):
+        raise AssertionError("train: the NaN guard changed the state")
+    trainer.state = new
+    return trainer, (text, images), launches
+
+
+def profile_train(trainer, batch, steps: int = 3) -> None:
+    """Where a flagship train step's time goes: torch.profiler over a few
+    steps after the counted run: wall and device-busy time per step,
+    launches per step, the largest device-time kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
+    launches = sum(e.count for e in device) / steps
+    log(f"train profile: {steps} steps, {wall_ms:.2f} ms/step wall, device busy "
+        f"{busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} "
+        "device launches/step")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"train profile:   {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
+            f"x{e.count // steps} {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -584,14 +858,23 @@ def main() -> int:
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
 
-    kernels = [check_ragged_attention(), check_fused_qkv()]
+    kernels = [check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd()]
     check_path_against_plain()
     check_clip_against_plain()
-    results, launches, model = serve_flagship()
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    check_train_against_plain()
+    results, serve_launches, model = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
+    del model, results
+    torch.cuda.empty_cache()
+    trainer, batch, train_launches = train_flagship()
+    profile_train(trainer, batch)
+    for k in kernels:
+        by_path = {path: counts[k["name"]] for path, counts in
+                   (("serve", serve_launches), ("train", train_launches))
+                   if k["name"] in counts}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
 
     print(json.dumps({"kernels": kernels}))
     print(card)

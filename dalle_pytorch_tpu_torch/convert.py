@@ -96,21 +96,27 @@ def _conv_transpose(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> No
 
 
 def vae_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for the decode-side ``DiscreteVAE`` from the JAX
-    ``DiscreteVAE``'s params (encoder params are ignored)."""
+    """State dict for ``DiscreteVAE`` from the JAX ``DiscreteVAE``'s
+    params: the codebook, the encoder and the decoder. A tree initialised
+    for decoding only (``init(..., method="decode")``) has no encoder, and
+    its state dict then has no ``enc_*`` entries."""
     out: Dict[str, torch.Tensor] = {
         "codebook.weight": _t(params["codebook"]["embedding"]),
     }
-    if "dec_in" in params:
-        _conv(params["dec_in"], "dec_in", out)
-    i = 0
-    while f"dec_res_{i}" in params:
-        for j in range(3):
-            _conv(params[f"dec_res_{i}"][f"Conv_{j}"], f"dec_res.{i}.conv{j}", out)
-        i += 1
-    i = 0
-    while f"dec_convs_{i}" in params:
-        _conv_transpose(params[f"dec_convs_{i}"], f"dec_convs.{i}", out)
-        i += 1
-    _conv(params["dec_out"], "dec_out", out)
+    kinds = ("enc", "dec") if "enc_out" in params else ("dec",)
+    for kind in kinds:
+        if f"{kind}_in" in params:
+            _conv(params[f"{kind}_in"], f"{kind}_in", out)
+        i = 0
+        while f"{kind}_res_{i}" in params:
+            for j in range(3):
+                _conv(params[f"{kind}_res_{i}"][f"Conv_{j}"],
+                      f"{kind}_res.{i}.conv{j}", out)
+            i += 1
+        i = 0
+        convert = _conv if kind == "enc" else _conv_transpose
+        while f"{kind}_convs_{i}" in params:
+            convert(params[f"{kind}_convs_{i}"], f"{kind}_convs.{i}", out)
+            i += 1
+        _conv(params[f"{kind}_out"], f"{kind}_out", out)
     return out

@@ -1,12 +1,16 @@
-"""DALL-E text->image transformer, serving form (counterpart of
+"""DALL-E text->image transformer (counterpart of
 ``dalle_pytorch_tpu/models/dalle.py``).
 
 The vocabulary is [text | per-position text pads | image]: ``remap_text``
 gives each padding-0 text position its own id and prepends <bos> = 0.
-``fused_step`` runs one ragged block of a mixed prefill+decode serving
-iteration through the cached transformer and returns image-only logits
-at each row's last valid column. Only the rotary, causal "full" decode
-path is ported; the training forward and loss come in a later slice.
+Two forms, both rotary, causal "full" attention:
+
+- ``forward`` (training): the whole [<bos>, text, image] sequence minus
+  its trailing token through the transformer; the float32 logits with
+  the block-diagonal logits mask, or the weighted split cross-entropy.
+- ``fused_step`` (serving): one ragged block of a mixed prefill+decode
+  iteration through the cached transformer; image-only logits at each
+  row's last valid column.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from torch import nn
 
 from ..ops.layers import LayerNorm32, seeded_init_
 from .transformer import Transformer
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def top_k_filter(logits: torch.Tensor, thres: float = 0.5,
@@ -47,9 +53,10 @@ class DALLE(nn.Module):
                  dim_head: int = 64,
                  attn_types: Optional[Tuple[str, ...]] = None,
                  shift_tokens: bool = True, rotary_emb: bool = True,
-                 stable: bool = False, reversible: bool = False,
-                 remat: bool = False, serve_quant: bool = False,
-                 device="cuda", dtype=torch.float32):
+                 loss_img_weight: float = 7.0, stable: bool = False,
+                 reversible: bool = False, remat: bool = False,
+                 serve_quant: bool = False, device="cuda",
+                 dtype=torch.float32):
         super().__init__()
         for name, value in (("stable", stable), ("serve_quant", serve_quant),
                             ("rotary_emb=False", not rotary_emb)):
@@ -61,6 +68,7 @@ class DALLE(nn.Module):
         self.text_seq_len = text_seq_len
         self.num_image_tokens = num_image_tokens
         self.image_fmap_size = image_fmap_size
+        self.loss_img_weight = loss_img_weight
         self.device, self.dtype = torch.device(device), dtype
 
         self.text_emb = nn.Embedding(self.num_text_tokens_ext, dim,
@@ -127,6 +135,75 @@ class DALLE(nn.Module):
             normed, self.to_logits.weight[ext:], self.to_logits.bias[ext:]
         )
         return logits.float()
+
+    def logits_mask(self, n: int) -> torch.Tensor:
+        """(n, total_tokens) bool, True = forbidden: text positions may
+        only predict text tokens, image positions image tokens."""
+        seq = torch.arange(n, device=self.device)[:, None]
+        logit = torch.arange(self.total_tokens, device=self.device)[None]
+        ext, tl = self.num_text_tokens_ext, self.text_seq_len
+        return ((seq >= tl) & (logit < ext)) | ((seq < tl) & (logit >= ext))
+
+    def _full_key_mask(self, mask: Optional[torch.Tensor], n: int):
+        """Text padding mask (b, text_seq_len) -> (b, n) key mask over the
+        internal [<bos>, text, image] sequence."""
+        if mask is None:
+            return None
+        b = mask.shape[0]
+        ones = mask.new_ones
+        return torch.cat((ones(b, 1), mask, ones(b, self.image_seq_len)), dim=1)[:, :n]
+
+    # ------------------------------------------------------------ training
+
+    def forward(self, text: torch.Tensor, image: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                return_loss: bool = False) -> torch.Tensor:
+        """text (b, text_seq_len) raw ids; image (b, <= image_seq_len)
+        token ids; mask the optional (b, text_seq_len) text key mask.
+        Returns the float32 logits (b, n, total_tokens) with the logits
+        mask set to NEG_INF, or with ``return_loss`` (the full image
+        sequence needed) the weighted split cross-entropy."""
+        if text.shape[-1] != self.text_seq_len:
+            raise ValueError(f"text length {text.shape[-1]} != text_seq_len "
+                             f"{self.text_seq_len}")
+        text = self.remap_text(text)
+        tokens = self.text_emb(text)
+        if image is not None and image.shape[1] > 0:
+            tokens = torch.cat((tokens, self.image_emb(image)), dim=1)
+        tokens = tokens[:, :self.total_seq_len]  # the last token predicts nothing
+        n = tokens.shape[1]
+        out = self.transformer(tokens.to(self.dtype),
+                               mask=self._full_key_mask(mask, n))
+        normed = self.final_norm(out)
+        if not return_loss:
+            logits = self.to_logits(normed.to(self.dtype)).float()
+            return logits.masked_fill(self.logits_mask(n), NEG_INF)
+        if image is None or image.shape[1] != self.image_seq_len:
+            raise ValueError("the loss needs the full image sequence of "
+                             f"{self.image_seq_len} tokens")
+        return self._split_head_loss(normed, text, image)
+
+    def _split_head_loss(self, normed, text, image) -> torch.Tensor:
+        """Weighted split cross-entropy over the two live blocks of the
+        block-diagonal head (the masked logits have probability 0, so this
+        is the masked cross-entropy exactly): text positions predict
+        ``text[:, 1:]`` over the ``[:ext]`` rows of ``to_logits``, image
+        positions ``image`` over ``[ext:]``; logsumexp in float32; the two
+        means weighted (text + loss_img_weight * image) / (1 + weight)."""
+        ext, tl = self.num_text_tokens_ext, self.text_seq_len
+        h = normed.to(self.dtype)
+        w, bias = self.to_logits.weight, self.to_logits.bias
+
+        def segment_ll(hidden, rows, labels):
+            logits = nn.functional.linear(hidden, w[rows], bias[rows])
+            lse = torch.logsumexp(logits.float(), dim=-1)
+            picked = logits.gather(-1, labels[..., None].long())[..., 0]
+            return picked.float() - lse
+
+        loss_text = -segment_ll(h[:, :tl], slice(None, ext), text[:, 1:]).mean()
+        loss_img = -segment_ll(h[:, tl:], slice(ext, None), image).mean()
+        weight = self.loss_img_weight
+        return (loss_text + weight * loss_img) / (weight + 1)
 
     # ------------------------------------------------------------ decode
 

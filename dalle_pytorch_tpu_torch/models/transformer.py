@@ -7,12 +7,15 @@ attention in sequential execution:
 
 - the DALL-E decode form (``image_fmap_size`` set, the DALL-E rotary
   table): one ragged block over a paged decode cache;
-- the full-sequence form (``forward(x, mask=...)`` with no cache), which
-  CLIP's encoders run (``image_fmap_size=None``, no rotary, non-causal).
+- the full-sequence form (``forward(x, mask=...)`` with no cache): the
+  DALL-E training forward (causal, rotary, token shift over the whole
+  sequence) and CLIP's encoders (``image_fmap_size=None``, no rotary,
+  non-causal).
 
 Reversible and remat execution, pipeline and sequence parallelism, MoE,
-gMLP, the other attention patterns, the 1-D rotary table (rotary without
-an image grid) and token shift over a whole sequence raise.
+gMLP, the other attention patterns and the 1-D rotary table (rotary
+without an image grid) raise; dropout is not ported (the attention and
+feed-forward layers raise for a rate above 0).
 """
 
 from __future__ import annotations
@@ -101,10 +104,6 @@ class Transformer(nn.Module):
         the whole sequence x (b, n, dim), ``mask`` the optional (b, n) key
         mask; the rotary cos/sin tables are built once for all layers."""
         if cache is None:
-            if self.shift_tokens:
-                raise NotImplementedError(
-                    "token shift over a whole sequence is not ported"
-                )
             rot = None
             if self.rotary is not None:
                 rot = rot_tables(self.rotary, x.shape[1], self.dim_head, x.dtype)

@@ -1,10 +1,14 @@
-"""Discrete VAE, decode side (counterpart of ``dalle_pytorch_tpu/models/vae.py``).
+"""Discrete VAE, encoder and decoder (counterpart of
+``dalle_pytorch_tpu/models/vae.py``).
 
-Token ids -> codebook features -> [1x1 conv + ResBlocks] -> ``num_layers``
-stride-2 transposed convs + ReLU -> 1x1 conv to pixels. The public
-functions keep the reference's NHWC layout; the convolutions run NCHW
-inside. The encoder, Gumbel relaxation and loss come with training in a
-later slice.
+Encode: pixels in [0, 1] -> channel normalization -> ``num_layers``
+stride-2 4x4 convs (padding 1, flax's ``padding=1``) + ReLU ->
+[ResBlocks] -> 1x1 conv to ``num_tokens`` logits -> argmax token ids.
+Decode: token ids -> codebook features -> [1x1 conv + ResBlocks] ->
+``num_layers`` stride-2 transposed convs + ReLU -> 1x1 conv to pixels.
+The public functions keep the reference's NHWC layout; the convolutions
+run NCHW inside. The Gumbel relaxation and the VAE loss come with the
+VAE trainer.
 
 The reference's flax ``ConvTranspose(4, strides=2, padding="SAME")`` is a
 correlation of the stride-dilated input, padded by 2 on each side, with
@@ -22,8 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def denormalize(images: torch.Tensor,
-                normalization=((0.5,) * 3, (0.5,) * 3)) -> torch.Tensor:
+# the reference's channel (means, stds)
+NORMALIZATION = ((0.5,) * 3, (0.5,) * 3)
+
+
+def denormalize(images: torch.Tensor, normalization=NORMALIZATION) -> torch.Tensor:
     """Invert the VAE's channel normalization for display: x * std + mean
     over NHWC channels, clipped to [0, 1]."""
     means, stds = (torch.tensor(t, dtype=images.dtype, device=images.device)
@@ -48,7 +55,8 @@ class ResBlock(nn.Module):
 
 
 class DiscreteVAE(nn.Module):
-    """Decoder of the Gumbel-softmax discrete VAE over NHWC images."""
+    """The Gumbel-softmax discrete VAE over NHWC images: the hard-argmax
+    encoder that DALL-E training feeds on, and the decoder."""
 
     def __init__(self, *, image_size: int = 256, num_tokens: int = 512,
                  codebook_dim: int = 512, num_layers: int = 3,
@@ -61,8 +69,18 @@ class DiscreteVAE(nn.Module):
             raise ValueError(f"number of layers must be >= 1, got {num_layers}")
         kw = dict(device=device, dtype=dtype)
         self.image_size, self.num_layers = image_size, num_layers
+        self.num_tokens = num_tokens
         self.codebook_dim = codebook_dim
         self.codebook = nn.Embedding(num_tokens, codebook_dim, **kw)
+        self.enc_convs = nn.ModuleList(
+            nn.Conv2d(channels if i == 0 else hidden_dim, hidden_dim, 4,
+                      stride=2, padding=1, **kw)
+            for i in range(num_layers)
+        )
+        self.enc_res = nn.ModuleList(
+            ResBlock(hidden_dim, **kw) for _ in range(num_resnet_blocks)
+        )
+        self.enc_out = nn.Conv2d(hidden_dim, num_tokens, 1, **kw)
         self.dec_in = (
             nn.Conv2d(codebook_dim, hidden_dim, 1, **kw)
             if num_resnet_blocks > 0 else None
@@ -97,6 +115,28 @@ class DiscreteVAE(nn.Module):
                 nn.init.zeros_(m.bias)
         nn.init.normal_(self.codebook.weight, generator=generator)
         return self
+
+    def norm(self, images: torch.Tensor) -> torch.Tensor:
+        """Channelwise (x - mean) / std over NHWC channels."""
+        means, stds = (torch.tensor(t, dtype=images.dtype, device=images.device)
+                       for t in NORMALIZATION)
+        return (images - means) / stds
+
+    def encode_logits(self, img: torch.Tensor) -> torch.Tensor:
+        """img (b, h, w, c) in [0, 1] -> (b, f, f, num_tokens) logits."""
+        x = self.norm(img).to(self.enc_out.weight.dtype).permute(0, 3, 1, 2)
+        for conv in self.enc_convs:
+            x = F.relu(conv(x))
+        for block in self.enc_res:
+            x = block(x)
+        return self.enc_out(x).permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def get_codebook_indices(self, img: torch.Tensor) -> torch.Tensor:
+        """Hard-argmax token ids (b, f*f) of images (b, h, w, c) in [0, 1]:
+        the no-grad encode that feeds DALL-E training."""
+        logits = self.encode_logits(img)
+        return logits.argmax(dim=-1).reshape(logits.shape[0], -1)
 
     def decode(self, img_seq: torch.Tensor) -> torch.Tensor:
         """Token ids (b, n) -> pixels (b, h, w, c), normalized space."""

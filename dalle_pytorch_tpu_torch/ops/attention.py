@@ -7,10 +7,12 @@ forms:
   ``_paged_caches`` + ``_decode_attend_paged``);
 - full sequence (the non-decode branch): causal or not, with an optional
   (b, n) key mask and rotary table. Shapes JAX runs through its packed
-  kernel (``_flash_block(n) == n`` and ``fused_qkv_supported``) run
-  ``flash_attention.fused_qkv_attention``; shapes with no flash block run
-  the dense masked softmax; the shapes between, which JAX sends to its
-  tiled ``flash_attention``, raise (not ported).
+  kernel (``_flash_block(n) == n`` and ``fused_qkv_supported``) run the
+  ``FusedQKVAttention`` autograd function: the packed forward kernel,
+  and the packed backward kernel when autograd records (under
+  ``no_grad`` it is the forward alone); shapes with no flash block
+  run the dense masked softmax; the shapes between, which JAX sends to
+  its tiled ``flash_attention``, raise (not ported).
 
 The other patterns, the flat/4-D caches, key masks in decode and int8
 pages raise.
@@ -25,7 +27,11 @@ import torch
 from torch import nn
 
 from . import paged_kv, ragged_attention
-from .flash_attention import fused_qkv_attention, fused_qkv_supported, may_attend
+from .flash_attention import (
+    FusedQKVAttention,
+    fused_qkv_supported,
+    may_attend,
+)
 from .rotary import apply_rotary_emb, rotate_half
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -81,8 +87,8 @@ def full_attend(qkv, heads: int, dim_head: int, mask=None,
     h, d = heads, dim_head
     key_mask = None if mask is None else mask[:, :n]
     if flash_block(n) == n and fused_qkv_supported(n, h, d):
-        o, _ = fused_qkv_attention(qkv.contiguous(), h, d, key_mask, causal,
-                                   None, rotary, d**-0.5)
+        o, _ = FusedQKVAttention.apply(qkv.contiguous(), key_mask, h, d,
+                                       causal, None, rotary, d**-0.5)
         return o
     if flash_block(n) > 0:
         raise NotImplementedError(
@@ -110,8 +116,11 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, seq_len: int, heads: int = 8,
                  dim_head: int = 64, attn_type: str = "full",
-                 causal: bool = True, device=None, dtype=torch.float32):
+                 causal: bool = True, dropout: float = 0.0, device=None,
+                 dtype=torch.float32):
         super().__init__()
+        if dropout > 0:
+            raise NotImplementedError(f"attention dropout {dropout} is not ported")
         if attn_type != "full":
             raise NotImplementedError(
                 f"only 'full' attention is ported, got attn_type={attn_type!r}"

@@ -35,6 +35,9 @@ SIGNATURES = {
     "fused_qkv_attention": {
         "fused_qkv_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
     },
+    "fused_qkv_attention_bwd": {
+        "fused_qkv_attention_bwd": ([_P] * 11 + [_I] * 5 + [_F, _I, _P], _I),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

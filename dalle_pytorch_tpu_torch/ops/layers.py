@@ -1,7 +1,7 @@
 """Transformer building blocks (counterpart of ``dalle_pytorch_tpu/ops/layers.py``).
 
 LayerScale, PreNorm, the GEGLU feed-forward, and the token-shift wrapper
-with its decode ring. Numerics follow the reference: LayerNorm runs in
+in both forms: over a whole sequence and the decode ring. Numerics follow the reference: LayerNorm runs in
 float32 with eps 1e-6 (flax's default, not torch's 1e-5); the GEGLU gate
 is the tanh-approximated gelu (flax ``nn.gelu``).
 """
@@ -82,9 +82,11 @@ class PreNorm(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU: one projection to 2 * mult * dim, x * gelu_tanh(gates), back."""
 
-    def __init__(self, dim: int, mult: float = 4.0, device=None,
-                 dtype=torch.float32):
+    def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0,
+                 device=None, dtype=torch.float32):
         super().__init__()
+        if dropout > 0:
+            raise NotImplementedError(f"feed-forward dropout {dropout} is not ported")
         hidden = int(dim * mult)
         self.proj_in = nn.Linear(dim, hidden * 2, device=device, dtype=dtype)
         self.proj_out = nn.Linear(hidden, dim, device=device, dtype=dtype)
@@ -103,6 +105,29 @@ class ShiftRing:
 
     hist: torch.Tensor
     index: torch.Tensor
+
+
+def shift_tokens(x: torch.Tensor, text_len: int, image_size: int) -> torch.Tensor:
+    """Token shift over a whole mixed text + image sequence x (b, n, d).
+    Text positions (the first ``text_len``, <bos> included) take their
+    first half of channels from the previous token (zero at position 0).
+    The image part is zero-padded to a full image_size x image_size grid,
+    where each position takes its first quarter of channels from the
+    token one row up and its second quarter from the token one column
+    left (zero across the grid's edge), and is cut back to its length."""
+    b, n, d = x.shape
+    padding = text_len + image_size**2 - n
+    x_text, x_img = x[:, :text_len], x[:, text_len:]
+    x_img = F.pad(x_img, (0, 0, 0, padding)).reshape(b, image_size, image_size, d)
+
+    half, q = d // 2, d // 4
+    x_text = torch.cat((F.pad(x_text[..., :half], (0, 0, 1, 0))[:, :-1],
+                        x_text[..., half:]), dim=-1)
+    top = F.pad(x_img[..., :q], (0, 0, 0, 0, 1, 0))[:, :-1]
+    left = F.pad(x_img[..., q:2 * q], (0, 0, 1, 0))[:, :, :-1]
+    x_img = torch.cat((top, left, x_img[..., 2 * q:]), dim=-1)
+    x_img = x_img.reshape(b, image_size**2, d)[:, :image_size**2 - padding]
+    return torch.cat((x_text, x_img), dim=1)
 
 
 def shift_tokens_decode(x, pos, prev_token, row_above_token,
@@ -131,11 +156,13 @@ def shift_tokens_decode(x, pos, prev_token, row_above_token,
 
 
 class PreShiftToken(nn.Module):
-    """Token shift, then ``fn``: the ragged-block decode form only (the
-    fused serving iteration). ``pass_block`` forwards ``block_len`` and
-    ``block_start`` to ``fn`` (attention needs them, the feed-forward not).
+    """Token shift, then ``fn``. Without a ring it shifts a whole sequence
+    (``shift_tokens``; the training forward). With one it is the
+    ragged-block decode form (the fused serving iteration), and
+    ``pass_block`` forwards ``block_len`` and ``block_start`` to ``fn``
+    (attention needs them, the feed-forward not).
 
-    Row b's valid tokens are columns [0, block_len[b]) at positions
+    In decode, row b's valid tokens are columns [0, block_len[b]) at positions
     anchor[b] + j, where the anchor is ``block_start`` (the descriptor).
     ``cat = [ring | x]`` maps position anchor + t to column R + t, so the
     previous token is column R + j - 1 and the row-above token column
@@ -153,8 +180,10 @@ class PreShiftToken(nn.Module):
         self.ring_rows = image_size + 1
         self.pass_block = pass_block
 
-    def forward(self, x, ring: ShiftRing, block_len, block_start,
-                **kwargs):
+    def forward(self, x, ring: Optional[ShiftRing] = None, block_len=None,
+                block_start=None, **kwargs):
+        if ring is None:
+            return self.fn(shift_tokens(x, self.text_len, self.image_size), **kwargs)
         b, n, d = x.shape
         R, f = self.ring_rows, self.image_size
         dev = x.device

@@ -14,6 +14,12 @@ from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 from dalle_pytorch_tpu_torch.ops import paged_kv
 from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
 from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
+from dalle_pytorch_tpu_torch.testing import (
+    BWD_BF16_ROW_REL,
+    BWD_F32_REL,
+    bwd_errors,
+    bwd_inputs,
+)
 
 
 @pytest.fixture
@@ -144,3 +150,68 @@ def test_fused_qkv_kernel_rejects_what_it_cannot_take(cuda):
         fa.fused_qkv_attention(torch.zeros(1, 128, 3 * 2 * 48, device=cuda), 2, 48)
     with pytest.raises(TypeError):
         fa.fused_qkv_attention(qkv.half(), 2, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["train", "clip", "pattern", "d32", "d64", "d128"])
+def test_fused_qkv_bwd_kernel_matches_plain(cuda, dtype, case):
+    """dqkv of the kernel against the plain backward on the same inputs, on
+    the card, by ``dalle_pytorch_tpu_torch.testing``'s metric: float32
+    relative L2 error of dq, dk and dv each within 1e-5; bfloat16 each row's (h*d) error norm within
+    2% of the plain row's norm, floored at 1e-3 of the median row (ds and p
+    are rounded to bf16 before two products, so one bf16 ulp of a lone
+    term is 0.4-0.8% of a row; a row whose exact gradient is 0 holds only
+    rounding noise); rows the masks force to 0 exactly 0 (the fully
+    masked CLIP row whole); one launch per call."""
+    qkv, o, lse, do, h, d, opts = bwd_inputs(case, dtype, cuda)
+    plain = fa.reference_fused_qkv_bwd(qkv, o, lse, do, h, d, **opts)
+    before = fa.fused_qkv_attention_bwd.launches
+    got = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+    torch.cuda.synchronize()
+    assert fa.fused_qkv_attention_bwd.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    rel, row_rel, zeros_exact = bwd_errors(got, plain, h, d, opts)
+    assert zeros_exact
+    if case == "clip":
+        assert (got[6] == 0).all()
+    if dtype == torch.float32:
+        assert rel <= BWD_F32_REL, rel
+    else:
+        assert row_rel <= BWD_BF16_ROW_REL, row_rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["train", "clip"])
+def test_fused_qkv_bwd_kernel_is_deterministic(cuda, case):
+    """No float atomics: two runs give bit-identical gradients."""
+    qkv, o, lse, do, h, d, opts = bwd_inputs(case, torch.float32, cuda)
+    first = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+    second = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_fused_qkv_function_gradients_on_card(cuda):
+    """FusedQKVAttention on the card (both kernels) against torch autograd
+    of the plain forward on the same float32 inputs: relative L2 error of
+    dqkv within 1e-5."""
+    qkv, _, _, do, h, d, opts = bwd_inputs("d64", torch.float32, cuda)
+    x = qkv.clone().requires_grad_()
+    o, _ = fa.FusedQKVAttention.apply(x, None, h, d, True, None, opts["rot"], None)
+    (got,) = torch.autograd.grad(o, x, do)
+    y = qkv.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(fa.reference_fused_qkv(y, h, d, **opts)[0], y, do)
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_fused_qkv_bwd_kernel_rejects_what_it_cannot_take(cuda):
+    qkv = torch.zeros(1, 128, 3 * 2 * 64, device=cuda)
+    o, lse = fa.fused_qkv_attention(qkv, 2, 64)
+    with pytest.raises(ValueError):  # do of the wrong width
+        fa.fused_qkv_attention_bwd(qkv, o, lse, torch.zeros(1, 128, 64, device=cuda), 2, 64)
+    with pytest.raises(ValueError):  # lse of the wrong dtype
+        fa.fused_qkv_attention_bwd(qkv, o, lse.double(), o, 2, 64)
+    with pytest.raises(TypeError):
+        fa.fused_qkv_attention_bwd(qkv.half(), o.half(), lse, o.half(), 2, 64)

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of dalle_pytorch_tpu_torch/
 and nothing in chip_smoke.py imports jax, flax, optax or the JAX package
-(an AST walk), and the port's engine, post-decode stages and CLIP import
-and run (a CPU fused_step, a CLIP similarity) in a process where
-importing jax fails."""
+(an AST walk), and the port's engine, post-decode stages, CLIP and
+trainer import and run (a CPU fused_step, a CLIP similarity, a train
+step) in a process where importing jax fails."""
 
 import ast
 import subprocess
@@ -57,6 +57,16 @@ clip = CLIP(dim_text=16, dim_image=16, dim_latent=8, num_text_tokens=16,
 text = i32(1, 2, 0, 0)[None].long()
 sim = clip(text, torch.zeros(1, 4, 4, 3), text_mask=text != 0)
 assert sim.shape == (1,) and torch.isfinite(sim).all()
+from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+from dalle_pytorch_tpu_torch.utils.schedules import ReduceLROnPlateau
+vae = DiscreteVAE(image_size=8, num_layers=1, hidden_dim=4, num_tokens=12,
+                  codebook_dim=4, device="cpu")
+trainer = DalleTrainer(vae, num_text_tokens=16, device="cpu", dim=32, depth=1,
+                       heads=2, dim_head=16, text_seq_len=4, shift_tokens=True,
+                       rotary_emb=True, batch_size=2)
+loss = trainer.train_step(i32([1, 2, 0, 0], [3, 0, 0, 0]).long(), torch.rand(2, 8, 8, 3))
+assert loss == loss and trainer.steps == 1
 print("ok")
 """
     out = subprocess.run(

@@ -1,8 +1,9 @@
 """The port's building blocks against the JAX package on the CPU: the
 rotary table (exactly equal), rotation of q/k/v, LayerScale(PreNorm(GEGLU
 FeedForward)) on converted weights, the PreShiftToken decode ring over a
-sequence of ragged blocks with idle rows, and paged append (with a row
-limit) and gather. float32; tolerances per test."""
+sequence of ragged blocks with idle rows, token shift over a whole
+sequence (padded image grid included; exactly equal), and paged append
+(with a row limit) and gather. float32; tolerances per test."""
 
 import flax.linen as fnn
 import jax
@@ -137,3 +138,34 @@ def test_paged_append_with_limit_and_gather():
         paged_kv.gather(flat, torch.from_numpy(perm)).numpy(),
         np.asarray(jpaged.gather(jnp.asarray(pool), jnp.asarray(perm))),
     )
+
+
+@pytest.mark.parametrize("text_len,fmap,n", [(257, 32, 1280), (9, 4, 24), (9, 4, 25), (5, 3, 10)],
+                         ids=["flagship_padded", "padded", "full_grid", "short"])
+def test_shift_tokens_full_sequence_matches_reference(text_len, fmap, n):
+    """Token shift over a whole sequence, the image part zero-padded to a
+    full grid and cut back where n falls short of it (the flagship's
+    257 + 1024 - 1280 = 1 position): exactly equal."""
+    x = np.random.RandomState(5).randn(2, n, 8).astype(np.float32)
+    ref = np.asarray(jlayers.shift_tokens(jnp.asarray(x), text_len, fmap))
+    np.testing.assert_array_equal(layers.shift_tokens(torch.from_numpy(x), text_len, fmap).numpy(), ref)
+
+
+def test_preshift_full_sequence_form_matches_reference():
+    """PreShiftToken without a ring (the training forward) equals the JAX
+    module's non-decode branch."""
+    fmap, seq_len = 3, 4 + 9
+    x = np.random.RandomState(6).randn(2, seq_len, 8).astype(np.float32)
+    jmod = jlayers.PreShiftToken(fn=_Identity(), image_size=fmap, seq_len=seq_len)
+    ref = np.asarray(jmod.apply({}, jnp.asarray(x)))
+    got = layers.PreShiftToken(torch.nn.Identity(), fmap, seq_len)(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_dropout_raises():
+    from dalle_pytorch_tpu_torch.ops.attention import Attention
+
+    with pytest.raises(NotImplementedError):
+        layers.FeedForward(8, dropout=0.1)
+    with pytest.raises(NotImplementedError):
+        Attention(8, 4, heads=2, dim_head=4, dropout=0.1)

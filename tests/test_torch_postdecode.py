@@ -61,7 +61,10 @@ def models():
     dalle = DALLE(**CANON_MODEL, device="cpu")
     dalle.load_state_dict(dalle_state_dict(jax.device_get(params)))
     vae = DiscreteVAE(**CANON_VAE, device="cpu")
-    vae.load_state_dict(vae_state_dict(jax.device_get(jstages.vae_params)))
+    # the stage's VAE tree is initialised for decoding only: no encoder
+    missing, unexpected = vae.load_state_dict(
+        vae_state_dict(jax.device_get(jstages.vae_params)), strict=False)
+    assert not unexpected and missing and all(k.startswith("enc_") for k in missing)
     clip = CLIP(**CANON_CLIP, device="cpu")
     clip.load_state_dict(clip_state_dict(jax.device_get(jstages.clip_params)))
     return jdalle, params, jstages, dalle, vae, clip
