@@ -48,11 +48,24 @@ line):
    peak memory are printed.
 9. train profile: torch.profiler over 3 more steps: device-busy share,
    launches per step, the largest device-time kernels.
+10. train sparse: the flagship DALLE with its layers cycling "full",
+   "axial_row", "axial_col", "conv_like" (BASELINE.json configs[2] at
+   the flagship width), otherwise as phase 8: 10 steps on one batch,
+   every loss finite and the last below the first, the block-sparse
+   forward, dq and dk/dv kernels (axial_row and conv_like layers) and the
+   packed-qkv forward and backward (full and axial_col layers) launched
+   depth / 2 x (steps + retries) times each; then profiled as phase 9.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
-text shape and DALL-E's shape with a pattern mask, and phase 4 a small
-float32 DALLE's loss and every parameter gradient, card against CPU.
+text shape and DALL-E's shape with the axial-row and axial-column
+pattern masks, and the three block-sparse kernels (forward, dq, dk/dv)
+at the flagship training shape with the axial_row and conv_like layouts
+and at a ragged n with a key mask that kills whole rows (dim_head 32,
+64, 128), each timed beside its plain version, the packed kernel with
+the same pattern, and ``scaled_dot_product_attention``. Phase 4 also
+checks a small float32 DALLE's loss and every parameter gradient, card
+against CPU, for the full model and for the four-type sparse cycle.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power
 limit; the line before it the kernels' JSON; the last line
@@ -102,6 +115,12 @@ F32_ATOL, BF16_RTOL = 1e-5, 1e-2
 RAGGED_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:116"
 FUSED_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:784"
 FUSED_BWD_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:813"
+BS_TPU_KERNELS = {  # block_sparse_attention's kernel bodies
+    "block_sparse_attention": "dalle_pytorch_tpu/ops/block_sparse_attention.py:252",
+    "block_sparse_dq": "dalle_pytorch_tpu/ops/block_sparse_attention.py:287",
+    "block_sparse_dkdv": "dalle_pytorch_tpu/ops/block_sparse_attention.py:315",
+}
+SPARSE_TYPES = "full,axial_row,axial_col,conv_like"
 TRAIN_BATCH, TRAIN_STEPS = 4, 10
 # the rerank stage's text key mask: valid prompt lengths of the 8 rows
 # (one fully masked row: its output must be exactly 0, its lse -1e30)
@@ -265,8 +284,10 @@ def fused_inputs(case: str, dtype, seed: int = 0):
     the rerank stage's text encoder, b = 8, n = 256, 8 heads of 64,
     non-causal, the key mask of CLIP_TEXT_LENGTHS. "dalle": b = 2,
     n = 1280, 16 heads of 64, causal with the DALL-E rotary table;
-    "dalle_pattern" adds the static axial-row pattern mask; "train" is
-    "dalle" at the training batch of 4."""
+    "dalle_pattern" adds the static axial-row pattern mask and
+    "dalle_axial_col" the axial-column one (the mask the sparse
+    configuration's axial_col layers give this kernel); "train" is "dalle"
+    at the training batch of 4."""
     from dalle_pytorch_tpu_torch.ops import masks
     from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 
@@ -282,8 +303,9 @@ def fused_inputs(case: str, dtype, seed: int = 0):
         text_len = FLAGSHIP["text_seq_len"] + 1
         table = dalle_rotary_table(d, text_len, FLAGSHIP["image_fmap_size"])
         opts = dict(causal=True, rot=rot_tables(torch.from_numpy(table).cuda(), n, d, dtype))
-        if case == "dalle_pattern":
-            pattern = masks.axial_mask(text_len, FLAGSHIP["image_fmap_size"], 0)[:n, :n]
+        if case in ("dalle_pattern", "dalle_axial_col"):
+            axis = int(case == "dalle_axial_col")
+            pattern = masks.axial_mask(text_len, FLAGSHIP["image_fmap_size"], axis)[:n, :n]
             opts["pattern_mask"] = torch.from_numpy(pattern).cuda()
     qkv = torch.randn(b, n, 3 * h * d, generator=g, device="cuda").to(dtype)
     return qkv, h, d, opts
@@ -339,7 +361,7 @@ def check_fused_qkv() -> dict:
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     errs, rel_errs, train_errs = {}, {}, {}
-    for case in ("clip", "dalle", "dalle_pattern", "train"):
+    for case in ("clip", "dalle", "dalle_pattern", "dalle_axial_col", "train"):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, h, d, opts = fused_inputs(case, dtype)
             o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
@@ -445,7 +467,7 @@ def check_fused_qkv_bwd() -> dict:
     from dalle_pytorch_tpu_torch.testing import BWD_BF16_ROW_REL, BWD_F32_REL, bwd_errors
 
     worst_rel = worst_row = 0.0
-    for case in ("train", "clip", "dalle_pattern"):
+    for case in ("train", "clip", "dalle_pattern", "dalle_axial_col"):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
             g = torch.Generator(device="cuda").manual_seed(2)
@@ -508,6 +530,174 @@ def check_fused_qkv_bwd() -> dict:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "ms_bf16": timings[torch.bfloat16]["ms"],
     }
+
+
+def bs_bounds(q, layout, key_mask):
+    """{kernel: (bound_ms, bound_by)} of the three block-sparse kernels on
+    these inputs. Bytes: each input once, counting only what the work
+    needs (q, o, do, lse and delta at query rows that attend a key, K and
+    V at keys some query attends), each output written in full, the key
+    mask, and the layout's mask, table and offsets as passed. Operations:
+    2 * d per allowed (query, key) pair and head for each product: the
+    forward 2 (s, p.v), dq 3 (s, dp, ds.k), dk/dv 4 (s, dp, p^T.do,
+    ds^T.q)."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+
+    b, h, n, d = q.shape
+    item = q.element_size()
+    allowed = bs.may_attend(layout, n, q.device, key_mask)[:, 0].expand(b, n, n)
+    rows = int(allowed.any(dim=2).sum()) * h   # query rows that attend a key
+    keys = int(allowed.any(dim=1).sum()) * h   # keys some query attends
+    pairs = int(allowed.sum()) * h
+    full = b * h * n
+    dl = bs.device_layout(layout, q.device)
+    extra = sum(t.numel() * t.element_size() for t in dl) + (0 if key_mask is None else b * n)
+    work = {
+        # name: (bytes, products)
+        "block_sparse_attention": (rows * d * item + 2 * keys * d * item
+                                   + full * d * item + 4 * full, 2),
+        "block_sparse_dq": ((3 * rows * d * item + 4 * rows) + 2 * keys * d * item
+                            + full * d * item + 4 * full, 3),
+        "block_sparse_dkdv": ((2 * rows * d * item + 8 * rows) + 2 * keys * d * item
+                              + 2 * full * d * item, 4),
+    }
+    out = {}
+    for name, (nbytes, products) in work.items():
+        t_bytes = (nbytes + extra) / HBM_BYTES_PER_S
+        t_ops = 2 * products * d * pairs / PEAK_OPS[q.dtype]
+        out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_block_sparse() -> list:
+    """The three block-sparse kernels against their plain versions on
+    ``testing.bs_inputs`` (flagship training shape with the axial_row and
+    conv_like layouts; ragged n 300 with a key mask that kills whole rows
+    at dim_head 32/64/128; a layout with synthetic pairs), float32 and
+    bfloat16, at ``testing``'s tolerances; dead rows exactly 0; two runs
+    bit-identical. Then timings (cold L2) at the training shape in
+    float32: each kernel, its plain version, the bound, the packed-qkv
+    kernels with the same pattern operand on the packed projection (the
+    alternative path), and ``scaled_dot_product_attention`` forward and
+    backward with the boolean pattern mask on the same split heads."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
+    from dalle_pytorch_tpu_torch.testing import (
+        BS_BF16_ROW_REL, BS_F32_ATOL, BWD_BF16_ROW_REL, BWD_F32_REL, bs_bwd_errors,
+        bs_fwd_errors, bs_inputs)
+
+    def run(q, k, v, do, layout, km):
+        o, lse = bs.block_sparse_attention(q, k, v, layout, km)
+        dq, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout, km)
+        dk, dv = bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout, km)
+        return o, lse, dq, delta, dk, dv
+
+    worst = {}  # name -> max abs error at the training shape, float32
+    for case in ("axial_row", "conv_like", "d32", "d64", "d128", "synthetic"):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, layout, km = bs_inputs(case, dtype, "cuda")
+            got = run(q, k, v, do, layout, km)
+            again = run(q, k, v, do, layout, km)
+            po, plse = bs.reference_block_sparse(q, k, v, layout, km)
+            pdq, pdelta = bs.reference_block_sparse_dq(q, k, v, po, plse, do, layout, km)
+            pdk, pdv = bs.reference_block_sparse_dkdv(q, k, v, do, plse, pdelta, layout, km)
+            torch.cuda.synchronize()
+            o, lse, dq, delta, dk, dv = got
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"block-sparse kernels: non-finite output ({case}, {dtype})")
+            err, row_rel, lse_err, dead_exact = bs_fwd_errors(o, lse, po, plse, layout, km)
+            rel, grad_row_rel, zeros_exact = bs_bwd_errors((dq, dk, dv), (pdq, pdk, pdv),
+                                                           layout, km)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if dtype == torch.float32:
+                ok = err <= BS_F32_ATOL and rel <= BWD_F32_REL
+                tol = f"abs {BS_F32_ATOL:.0e} forward, relative {BWD_F32_REL:.0e} backward"
+            else:
+                ok = (row_rel <= BS_BF16_ROW_REL and lse_err <= BS_BF16_ROW_REL
+                      and grad_row_rel <= BWD_BF16_ROW_REL)
+                tol = (f"row-relative {BS_BF16_ROW_REL:.0e} and lse abs {BS_BF16_ROW_REL:.0e} "
+                       f"forward, floored row-relative {BWD_BF16_ROW_REL:.0e} backward")
+            log(f"block_sparse {case} {dtype} (n {layout.n}, {layout.n_pairs} of "
+                f"{layout.dense_pairs} causal block pairs): forward max abs {err:.3e}, row "
+                f"{row_rel:.3e}; gradients relative L2 {rel:.3e}, floored row {grad_row_rel:.3e}; "
+                f"dead rows exactly 0 {dead_exact and zeros_exact}; two runs identical {same} "
+                f"(tolerance: {tol})")
+            if not (ok and dead_exact and zeros_exact and same):
+                raise AssertionError(f"block-sparse kernels disagree with plain: {case} {dtype}")
+            if case in ("axial_row", "conv_like") and dtype == torch.float32:
+                for name, g, p in (("block_sparse_attention", o, po),
+                                   ("block_sparse_dq", dq, pdq),
+                                   ("block_sparse_dkdv", torch.cat((dk, dv)), torch.cat((pdk, pdv)))):
+                    e = (g - p).abs().max().item()
+                    if name == "block_sparse_attention":
+                        e = max(e, (lse - plse).abs().max().item())
+                    worst[name] = max(worst.get(name, 0.0), e)
+
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": "dalle_pytorch_tpu_torch/csrc/block_sparse_attention.cu",
+                   "replaces": BS_TPU_KERNELS[name], "max_abs_err": worst[name]}
+            for name in BS_TPU_KERNELS}
+    for case in ("axial_row", "conv_like"):  # the training path's type
+        q, k, v, do, layout, km = bs_inputs(case, torch.float32, "cuda", seed=1)
+        o, lse = bs.block_sparse_attention(q, k, v, layout)
+        dq, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout)
+        t = {
+            "block_sparse_attention": (
+                lambda: bs.block_sparse_attention(q, k, v, layout),
+                lambda: bs.reference_block_sparse(q, k, v, layout)),
+            "block_sparse_dq": (
+                lambda: bs.block_sparse_dq(q, k, v, o, lse, do, layout),
+                lambda: bs.reference_block_sparse_dq(q, k, v, o, lse, do, layout)),
+            "block_sparse_dkdv": (
+                lambda: bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout),
+                lambda: bs.reference_block_sparse_dkdv(q, k, v, do, lse, delta, layout)),
+        }
+        bounds = bs_bounds(q, layout, None)
+        times = {name: (cuda_time_ms(kernel, iters=20), cuda_time_ms(plain, iters=5))
+                 for name, (kernel, plain) in t.items()}
+        # yardsticks: sdpa with the boolean pattern mask on the same heads
+        allowed = bs.may_attend(layout, layout.n, q.device)  # (1, 1, n, n)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=allowed)
+        sdpa_ms = cuda_time_ms(sdpa, iters=20)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+        sdpa_bwd_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=20)
+        # the alternative path: the packed kernels with the same pattern
+        # operand, rotary in-kernel, on the packed projection
+        b, h, n, d = q.shape
+        qkv = torch.cat([x.transpose(1, 2).reshape(b, n, h * d) for x in (q, k, v)], -1)
+        table = dalle_rotary_table(d, FLAGSHIP["text_seq_len"] + 1, FLAGSHIP["image_fmap_size"])
+        popts = dict(pattern_mask=allowed[0, 0], rot=rot_tables(torch.from_numpy(table).cuda(),
+                                                                n, d, torch.float32))
+        po, plse = fa.fused_qkv_attention(qkv, h, d, **popts)
+        pdo = do.transpose(1, 2).reshape(b, n, h * d).contiguous()
+        packed_ms = cuda_time_ms(lambda: fa.fused_qkv_attention(qkv, h, d, **popts), iters=20)
+        packed_bwd_ms = cuda_time_ms(
+            lambda: fa.fused_qkv_attention_bwd(qkv, po, plse, pdo, h, d, **popts), iters=20)
+        fwd = times["block_sparse_attention"][0]
+        bwd = times["block_sparse_dq"][0] + times["block_sparse_dkdv"][0]
+        log(f"block_sparse {case} float32 timing, cold L2 (b {b}, {h} x {d}, n {n}, "
+            f"{layout.n_pairs} block pairs): " + "; ".join(
+                f"{name} {times[name][0]:.4f} ms (plain {times[name][1]:.4f}, bound "
+                f"{bounds[name][0]:.4f} {bounds[name][1]})" for name in t)
+            + f"; sdpa with the mask forward {sdpa_ms:.4f} / backward {sdpa_bwd_ms:.4f} ms; "
+            f"packed-qkv with the pattern forward {packed_ms:.4f} / backward "
+            f"{packed_bwd_ms:.4f} ms against the pair grid's {fwd:.4f} / {bwd:.4f} ms")
+        for name in t:
+            row = rows[name]
+            prefix = "" if case == "axial_row" else "conv_like_"
+            row.update({f"{prefix}ms": times[name][0], f"{prefix}plain_ms": times[name][1],
+                        f"{prefix}bound_ms": bounds[name][0],
+                        f"{prefix}bound_by": bounds[name][1]})
+            if case == "axial_row":
+                row["library_ms"] = sdpa_ms if name == "block_sparse_attention" else None
+                row["sdpa_backward_ms"] = sdpa_bwd_ms
+                row["packed_pattern_ms"] = (packed_ms if name == "block_sparse_attention"
+                                            else packed_bwd_ms)
+    return [rows[name] for name in BS_TPU_KERNELS]
 
 
 # ------------------------------------------------------------ path check
@@ -581,41 +771,77 @@ def check_clip_against_plain() -> None:
         raise AssertionError(f"CLIP card path disagrees with the plain path: {worst}, {launched}")
 
 
-def check_train_against_plain() -> None:
-    """Small float32 DALLE whose n takes the packed-qkv path (depth 2, 2
-    heads of 64, text 64 + an 8 x 8 grid: n 128; token shift, rotary),
-    identical weights on the card (both kernels) and the CPU (plain
-    versions): the loss to relative 1e-5 and every parameter's gradient to
-    1e-4 of its largest entry, each kernel launched once per layer."""
-    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+def kernel_counters():
+    """{name: wrapper} of every kernel wrapper that counts its launches."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
+
+    return {"ragged_attention": ra.kernel_attend,
+            "fused_qkv_attention": fa.fused_qkv_attention,
+            "fused_qkv_attention_bwd": fa.fused_qkv_attention_bwd,
+            "block_sparse_attention": bs.block_sparse_attention,
+            "block_sparse_dq": bs.block_sparse_dq,
+            "block_sparse_dkdv": bs.block_sparse_dkdv}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts(names) -> dict:
+    counters = kernel_counters()
+    return {name: counters[name].launches for name in names}
+
+
+PACKED = ("fused_qkv_attention", "fused_qkv_attention_bwd")
+PAIR_GRID = ("block_sparse_attention", "block_sparse_dq", "block_sparse_dkdv")
+
+
+def check_train_against_plain(sparse: bool = False) -> None:
+    """Small float32 DALLE, identical weights on the card (kernels) and the
+    CPU (plain versions): the loss to relative 1e-5 and every parameter's
+    gradient to 1e-4 of its largest entry. Dense: depth 2, 2 heads of 64,
+    text 64 + an 8 x 8 grid (n 128; token shift, rotary), each packed
+    kernel launched once per layer. ``sparse``: depth 4 cycling the four
+    types, text 64 + a 24 x 24 grid (n 640, where the axial_row and
+    conv_like layouts visit 12 of 15 block pairs and engage): the three
+    block-sparse kernels launched once per axial_row and conv_like layer,
+    the packed ones once per full and axial_col layer."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
 
     cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
                text_seq_len=64, num_image_tokens=40, image_fmap_size=8)
+    if sparse:
+        cfg.update(depth=4, image_fmap_size=24, attn_types=tuple(SPARSE_TYPES.split(",")))
     gpu = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(7))
     cpu = DALLE(**cfg, device="cpu")
     cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
     rng = np.random.RandomState(8)
     text = rng.randint(1, 50, size=(2, 64))
     text[0, 40:], text[1, 9:] = 0, 0
-    image = rng.randint(0, 40, size=(2, 64))
+    image = rng.randint(0, 40, size=(2, cfg["image_fmap_size"] ** 2))
     losses, grads = {}, {}
-    before = fa.fused_qkv_attention.launches, fa.fused_qkv_attention_bwd.launches
+    names = PACKED + PAIR_GRID
     for m in (gpu, cpu):
+        zero_counts()
         t, i = (torch.from_numpy(a).to(m.device) for a in (text, image))
         loss = m(t, i, return_loss=True)
         loss.backward()
         losses[m] = loss.item()
         grads[m] = {k: p.grad.cpu() for k, p in m.named_parameters()}
-    launched = (fa.fused_qkv_attention.launches - before[0],
-                fa.fused_qkv_attention_bwd.launches - before[1])
+        if m is gpu:
+            launched = read_counts(names)
     loss_rel = abs(losses[gpu] - losses[cpu]) / abs(losses[cpu])
     worst = max((grads[gpu][k] - g).abs().max().item() / g.abs().max().item()
                 for k, g in grads[cpu].items())
-    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss, relative "
-        f"{loss_rel:.3e}; worst gradient error {worst:.3e} of its largest entry; "
-        f"packed-qkv launches forward/backward {launched}")
-    if not (loss_rel <= 1e-5 and worst <= 1e-4 and launched == (cfg["depth"],) * 2):
+    per_kind = cfg["depth"] // 2 if sparse else cfg["depth"]
+    expected = {n: per_kind if (sparse or n in PACKED) else 0 for n in names}
+    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss"
+        f"{' (sparse cycle, n 640)' if sparse else ''}, relative {loss_rel:.3e}; worst "
+        f"gradient error {worst:.3e} of its largest entry; launches {launched}")
+    if not (loss_rel <= 1e-5 and worst <= 1e-4 and launched == expected):
         raise AssertionError(f"training path disagrees: {loss_rel}, {worst}, {launched}")
 
 
@@ -626,8 +852,6 @@ def serve_flagship():
     from dalle_pytorch_tpu_torch.models.clip import CLIP
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
     from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
-    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
-    from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
     from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
     from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
     from dalle_pytorch_tpu_torch.serving.types import Outcome, Request
@@ -650,14 +874,12 @@ def serve_flagship():
     torch.cuda.synchronize()
     log(f"engine: flagship DALLE, VAE and CLIP built in {time.perf_counter() - t0:.1f} s")
 
-    ra.kernel_attend.launches = 0
-    fa.fused_qkv_attention.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ragged_attention": ra.kernel_attend.launches,
-                "fused_qkv_attention": fa.fused_qkv_attention.launches}
+    launches = read_counts(("ragged_attention", "fused_qkv_attention"))
 
     for i in range(N_REQUESTS):
         r = results[f"r{i}"]
@@ -743,12 +965,44 @@ def check_pixels(results) -> None:
 # ---------------------------------------------------------------- train
 
 
+def train_run(trainer, text, images, label: str, expected: dict) -> dict:
+    """The counted run: ``TRAIN_STEPS`` steps of ``trainer`` on one batch,
+    kernel counts set to 0 just before and read just after. Every loss
+    finite, the last below the first, each kernel of ``expected``
+    launched its count x (steps + retries) times. Prints the step wall
+    median over steps 2-10, training tokens/s and peak memory; returns
+    the launches."""
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(text, images))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = read_counts(PACKED + PAIR_GRID)
+    dispatched = trainer.steps + trainer.retries
+    want = {name: expected.get(name, 0) * dispatched for name in launches}
+    steady = float(np.median(walls[1:]))
+    tokens_per_step = TRAIN_BATCH * (FLAGSHIP["text_seq_len"] + 1024)
+    log(f"{label}: {trainer.steps} steps, {trainer.retries} retries, losses "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"{label}: step wall first {walls[0]:.3f} s, median of the rest {steady:.4f} s "
+        f"(all: {', '.join(f'{w:.4f}' for w in walls)}); {tokens_per_step / steady:.1f} "
+        f"training tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{label}: launches {launches} (expected {want})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
+    return {name: n for name, n in launches.items() if want[name]}
+
+
 def train_flagship():
     """The flagship DALLE trained in float32 by ``DalleTrainer``: the
     counted run, then the NaN-injected step. Returns (trainer, (text,
     images), launches of the counted run)."""
     from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
-    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.parallel.step import make_train_step
     from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer, dalle_loss
 
@@ -774,31 +1028,8 @@ def train_flagship():
     torch.cuda.synchronize()
     log(f"train: flagship DALLE ({n_params:,} parameters, float32) and VAE built, "
         f"images encoded to {tuple(tokens.shape)} tokens in {time.perf_counter() - t0:.1f} s")
-
-    torch.cuda.reset_peak_memory_stats()
-    fa.fused_qkv_attention.launches = 0
-    fa.fused_qkv_attention_bwd.launches = 0
-    losses, walls = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(trainer.train_step(text, images))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    launches = {"fused_qkv_attention": fa.fused_qkv_attention.launches,
-                "fused_qkv_attention_bwd": fa.fused_qkv_attention_bwd.launches}
-    expected = FLAGSHIP["depth"] * (trainer.steps + trainer.retries)
-    steady = float(np.median(walls[1:]))
-    tokens_per_step = TRAIN_BATCH * (FLAGSHIP["text_seq_len"] + 1024)
-    log(f"train: {trainer.steps} steps, {trainer.retries} retries, losses "
-        + ", ".join(f"{x:.4f}" for x in losses))
-    log(f"train: step wall first {walls[0]:.3f} s, median of the rest {steady:.4f} s "
-        f"(all: {', '.join(f'{w:.4f}' for w in walls)}); {tokens_per_step / steady:.1f} "
-        f"training tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"train: launches {launches} (expected {expected} each)")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: losses {losses}")
-    if set(launches.values()) != {expected}:
-        raise AssertionError(f"train: kernel launches {launches}, expected {expected}")
+    launches = train_run(trainer, text, images, "train",
+                         {name: FLAGSHIP["depth"] for name in PACKED})
 
     state = trainer.state
     snapshot = [t.clone() for part in (state.params, state.opt_state.mu, state.opt_state.nu)
@@ -816,7 +1047,29 @@ def train_flagship():
     return trainer, (text, images), launches
 
 
-def profile_train(trainer, batch, steps: int = 3) -> None:
+def train_sparse(vae, batch):
+    """The sparse configuration (BASELINE.json configs[2] at the flagship
+    width: layers cycling full, axial_row, axial_col, conv_like) trained
+    in float32 by ``DalleTrainer`` on the flagship batch: the counted run.
+    Returns (trainer, launches of the counted run)."""
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+
+    t0 = time.perf_counter()
+    trainer = DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0,
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
+        shift_tokens=True, rotary_emb=True, attn_types=SPARSE_TYPES)
+    types = trainer.dalle.transformer.attn_types
+    torch.cuda.synchronize()
+    log(f"train sparse: layers {types}, built in {time.perf_counter() - t0:.1f} s")
+    per_kind = FLAGSHIP["depth"] // 2  # full + axial_col / axial_row + conv_like
+    launches = train_run(trainer, *batch, "train sparse",
+                         {name: per_kind for name in PACKED + PAIR_GRID})
+    return trainer, launches
+
+
+def profile_train(trainer, batch, steps: int = 3, label: str = "train profile") -> None:
     """Where a flagship train step's time goes: torch.profiler over a few
     steps after the counted run: wall and device-busy time per step,
     launches per step, the largest device-time kernels."""
@@ -832,11 +1085,11 @@ def profile_train(trainer, batch, steps: int = 3) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
     launches = sum(e.count for e in device) / steps
-    log(f"train profile: {steps} steps, {wall_ms:.2f} ms/step wall, device busy "
+    log(f"{label}: {steps} steps, {wall_ms:.2f} ms/step wall, device busy "
         f"{busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} "
         "device launches/step")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"train profile:   {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:16]:
+        log(f"{label}:   {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
             f"x{e.count // steps} {e.key[:90]}")
 
 
@@ -858,10 +1111,12 @@ def main() -> int:
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
 
-    kernels = [check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd()]
+    kernels = [check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
+               *check_block_sparse()]
     check_path_against_plain()
     check_clip_against_plain()
     check_train_against_plain()
+    check_train_against_plain(sparse=True)
     results, serve_launches, model = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
@@ -869,10 +1124,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer, batch, train_launches = train_flagship()
     profile_train(trainer, batch)
+    vae = trainer.vae
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, sparse_launches = train_sparse(vae, batch)
+    profile_train(trainer, batch, label="train sparse profile")
+    paths = (("serve", serve_launches), ("train", train_launches),
+             ("train_sparse", sparse_launches))
     for k in kernels:
-        by_path = {path: counts[k["name"]] for path, counts in
-                   (("serve", serve_launches), ("train", train_launches))
-                   if k["name"] in counts}
+        by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
 

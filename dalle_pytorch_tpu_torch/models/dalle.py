@@ -3,14 +3,17 @@
 
 The vocabulary is [text | per-position text pads | image]: ``remap_text``
 gives each padding-0 text position its own id and prepends <bos> = 0.
-Two forms, both rotary, causal "full" attention:
+Two forms, both rotary and causal:
 
 - ``forward`` (training): the whole [<bos>, text, image] sequence minus
-  its trailing token through the transformer; the float32 logits with
-  the block-diagonal logits mask, or the weighted split cross-entropy.
+  its trailing token through the transformer, whose layers cycle
+  ``attn_types`` ("full", "axial_row", "axial_col", "conv_like",
+  "sparse"); the float32 logits with the block-diagonal logits mask, or
+  the weighted split cross-entropy.
 - ``fused_step`` (serving): one ragged block of a mixed prefill+decode
   iteration through the cached transformer; image-only logits at each
-  row's last valid column.
+  row's last valid column. Only "full" layers decode: a model with other
+  types raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ class DALLE(nn.Module):
                  shift_tokens: bool = True, rotary_emb: bool = True,
                  loss_img_weight: float = 7.0, stable: bool = False,
                  reversible: bool = False, remat: bool = False,
+                 sparse_layout_seed: int = 0,
                  serve_quant: bool = False, device="cuda",
                  dtype=torch.float32):
         super().__init__()
@@ -80,7 +84,7 @@ class DALLE(nn.Module):
             dim_head=dim_head, attn_types=attn_types,
             image_fmap_size=image_fmap_size, shift_tokens=shift_tokens,
             rotary_emb=rotary_emb, reversible=reversible, remat=remat,
-            device=device, dtype=dtype,
+            sparse_layout_seed=sparse_layout_seed, device=device, dtype=dtype,
         )
         self.final_norm = LayerNorm32(dim, device=device)
         self.to_logits = nn.Linear(dim, self.total_tokens, device=device,
@@ -135,6 +139,16 @@ class DALLE(nn.Module):
             normed, self.to_logits.weight[ext:], self.to_logits.bias[ext:]
         )
         return logits.float()
+
+    def check_decodable(self) -> None:
+        """Raise ``NotImplementedError`` naming the layer types that the
+        paged decode form does not take (every type but "full")."""
+        other = sorted(set(self.transformer.attn_types) - {"full"})
+        if other:
+            raise NotImplementedError(
+                f"decoding a DALLE with {other} attention layers is not ported; "
+                "only 'full' layers decode"
+            )
 
     def logits_mask(self, n: int) -> torch.Tensor:
         """(n, total_tokens) bool, True = forbidden: text positions may
@@ -223,6 +237,7 @@ class DALLE(nn.Module):
         ``rowwise_head`` those rows take their logits from a per-row
         M=1 head (the reference's split-prefill head shape), the others
         from the batched head."""
+        self.check_decodable()
         b, n = tokens.shape
         pos = start.long()[:, None] + torch.arange(n, device=tokens.device)
         is_text = pos < self.text_len_internal

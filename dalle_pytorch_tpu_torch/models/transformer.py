@@ -2,20 +2,22 @@
 ``dalle_pytorch_tpu/models/transformer.py``).
 
 Each layer is LayerScale(PreNorm([PreShiftToken](attention))) then the
-same around the GEGLU feed-forward. Two forms are ported, both "full"
-attention in sequential execution:
+same around the GEGLU feed-forward; layer i's attention has the type
+``attn_types[i % len(attn_types)]`` and the layout seed
+``sparse_layout_seed + i``, as in JAX. Two forms are ported, in
+sequential execution:
 
 - the DALL-E decode form (``image_fmap_size`` set, the DALL-E rotary
-  table): one ragged block over a paged decode cache;
-- the full-sequence form (``forward(x, mask=...)`` with no cache): the
-  DALL-E training forward (causal, rotary, token shift over the whole
-  sequence) and CLIP's encoders (``image_fmap_size=None``, no rotary,
-  non-causal).
+  table, "full" layers only): one ragged block over a paged decode cache;
+- the full-sequence form (``forward(x, mask=...)`` with no cache), every
+  attention type but gMLP: the DALL-E training forward (causal, rotary,
+  token shift over the whole sequence) and CLIP's encoders
+  (``image_fmap_size=None``, no rotary, non-causal, "full").
 
 Reversible and remat execution, pipeline and sequence parallelism, MoE,
-gMLP, the other attention patterns and the 1-D rotary table (rotary
-without an image grid) raise; dropout is not ported (the attention and
-feed-forward layers raise for a rate above 0).
+gMLP ("mlp" layers) and the 1-D rotary table (rotary without an image
+grid) raise; dropout is not ported (the attention and feed-forward
+layers raise for a rate above 0).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class Transformer(nn.Module):
                  image_fmap_size: Optional[int] = None, causal: bool = True,
                  shift_tokens: bool = False, rotary_emb: bool = True,
                  reversible: bool = False, remat: bool = False,
+                 sparse_layout_seed: int = 0,
                  sp_axis=None, pp_axis=None, ff_experts: int = 0,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -56,10 +59,8 @@ class Transformer(nn.Module):
                     "sequential execution is"
                 )
         types = tuple(attn_types or ("full",))
-        if set(types) != {"full"}:
-            raise NotImplementedError(
-                f"only 'full' attention layers are ported, got {types}"
-            )
+        if "mlp" in types:
+            raise NotImplementedError(f"gMLP ('mlp') layers are not ported, got {types}")
         if rotary_emb and image_fmap_size is None:
             raise NotImplementedError(
                 "the 1-D rotary table (rotary without an image grid) is not ported"
@@ -68,6 +69,7 @@ class Transformer(nn.Module):
             raise ValueError("token shift needs an image grid (image_fmap_size)")
         self.depth = depth
         self.dim_head = dim_head
+        self.attn_types = tuple(types[i % len(types)] for i in range(depth))
         self.shift_tokens = shift_tokens
         self.attn_seq_len = seq_len + (image_fmap_size is not None)
 
@@ -82,7 +84,10 @@ class Transformer(nn.Module):
         attn_blocks, ff_blocks = [], []
         for ind in range(depth):
             attn = Attention(dim, self.attn_seq_len, heads, dim_head,
-                             causal=causal, device=device, dtype=dtype)
+                             attn_type=self.attn_types[ind], causal=causal,
+                             image_fmap_size=image_fmap_size,
+                             layout_seed=sparse_layout_seed + ind,
+                             device=device, dtype=dtype)
             ff = FeedForward(dim, ff_mult, device=device, dtype=dtype)
             if shift_tokens:
                 attn = PreShiftToken(attn, image_fmap_size, seq_len,

@@ -1,21 +1,31 @@
-"""Attention for the "full" pattern (counterpart of
-``dalle_pytorch_tpu/ops/attention.py``'s ``PatternAttention``), in two
-forms:
+"""Attention (counterpart of ``dalle_pytorch_tpu/ops/attention.py``'s
+``PatternAttention``) for the patterns "full", "axial_row", "axial_col",
+"conv_like" and "sparse", each defined by a static may-attend mask
+(``Attention.pattern_mask``, built from ``ops/masks.py``), in two forms:
 
-- decode: causal attention over the block-paged cache for the fused
-  serving iteration (``decode=True`` with ``block_len`` set, i.e.
-  ``_paged_caches`` + ``_decode_attend_paged``);
-- full sequence (the non-decode branch): causal or not, with an optional
-  (b, n) key mask and rotary table. Shapes JAX runs through its packed
-  kernel (``_flash_block(n) == n`` and ``fused_qkv_supported``) run the
-  ``FusedQKVAttention`` autograd function: the packed forward kernel,
-  and the packed backward kernel when autograd records (under
-  ``no_grad`` it is the forward alone); shapes with no flash block
-  run the dense masked softmax; the shapes between, which JAX sends to
-  its tiled ``flash_attention``, raise (not ported).
+- decode ("full" only): causal attention over the block-paged cache for
+  the fused serving iteration (``decode=True`` with ``block_len`` set,
+  i.e. ``_paged_caches`` + ``_decode_attend_paged``);
+- full sequence (the non-decode branch), with an optional (b, n) key
+  mask and rotary table, dispatched as JAX dispatches on the TPU, the
+  same on the CPU and on the card:
+  1. a non-"full" pattern whose 128-block layout visits at most
+     ``ENGAGE_FRAC`` of the dense-causal block pairs (``sparse_block(n)``
+     > 0) runs ``BlockSparseAttention`` on split, rotated heads;
+  2. otherwise, shapes JAX runs through its packed kernel
+     (``flash_block(n) == n`` and ``fused_qkv_supported``) run
+     ``FusedQKVAttention`` with the pattern as its mask operand (none for
+     "full");
+  3. shapes with no flash block run the dense masked softmax over the
+     pattern and the key mask; the shapes between, which JAX sends to its
+     tiled ``flash_attention``, raise (not ported).
+  On a CUDA tensor the autograd functions launch the kernels, on a CPU
+  tensor their plain versions. JAX's grouped axial/conv forms compute the
+  dense form's function with fewer operations; the port uses the dense
+  form where JAX would take them.
 
-The other patterns, the flat/4-D caches, key masks in decode and int8
-pages raise.
+The flat/4-D caches, non-"full" patterns and key masks in decode, and
+int8 pages raise.
 """
 
 from __future__ import annotations
@@ -23,10 +33,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from . import masks as masks_lib
 from . import paged_kv, ragged_attention
+from .block_sparse_attention import (
+    ENGAGE_FRAC,
+    BlockLayout,
+    BlockSparseAttention,
+    compile_block_layout,
+)
 from .flash_attention import (
     FusedQKVAttention,
     fused_qkv_supported,
@@ -35,6 +53,21 @@ from .flash_attention import (
 from .rotary import apply_rotary_emb, rotate_half
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+ATTN_TYPES = ("full", "axial_row", "axial_col", "conv_like", "sparse")
+
+# JAX PatternAttention's pattern fields at their defaults, which its
+# Transformer never overrides
+CONV_KERNEL_SIZE = 5
+CONV_DILATION = 1
+SPARSE_BLOCK_SIZE = 16
+SPARSE_RANDOM_BLOCKS = None  # masks.block_sparse_mask's seq_len // block // 4
+
+# One entry per (pattern config, n), shared by every layer of that config
+# (JAX's _cached_flash_mask / _cached_block_layout): pattern tensors (also
+# keyed by device) and compiled BlockLayouts, which copy themselves to a
+# device once (block_sparse_attention.device_layout).
+_PATTERN_CACHE: dict = {}
+_LAYOUT_CACHE: dict = {}
 
 
 def flash_block(n: int) -> int:
@@ -44,6 +77,12 @@ def flash_block(n: int) -> int:
         if n % b == 0:
             return b
     return 0
+
+
+def sparse_block(n: int) -> int:
+    """JAX's pair-grid block for a sequence of n: 128 when n is a
+    multiple of 128 with at least two blocks, else 0."""
+    return 128 if n % 128 == 0 and n >= 256 else 0
 
 
 @dataclass
@@ -75,20 +114,22 @@ def cache_block_attend(q, k_cache, v_cache, allowed):
 
 
 def full_attend(qkv, heads: int, dim_head: int, mask=None,
-                causal: bool = True, rotary=None):
+                causal: bool = True, rotary=None, pattern=None):
     """Attention over a whole sequence from the packed projection qkv
     (b, n, 3*h*d); ``mask`` (b, >= n) bool key mask, ``rotary`` the
     (cos, sin) pair of ``rotary.rot_tables`` (>= n rows, zero angles past
-    the table rotate nothing). Returns (b, n, h*d). The packed kernel takes the
-    unscaled q with ``sm_scale = d**-0.5`` (a fully masked row gives 0);
-    the dense path pre-scales q and runs a plain softmax (a fully masked
-    row is uniform over its keys), as JAX's two paths do."""
+    the table rotate nothing), ``pattern`` an optional (n, n) may-attend
+    mask on qkv's device that replaces the causal rule. Returns
+    (b, n, h*d). The packed kernel takes the unscaled q with
+    ``sm_scale = d**-0.5`` (a fully masked row gives 0); the dense path
+    pre-scales q and runs a plain softmax (a fully masked row is uniform
+    over its keys), as JAX's two paths do."""
     b, n, _ = qkv.shape
     h, d = heads, dim_head
     key_mask = None if mask is None else mask[:, :n]
     if flash_block(n) == n and fused_qkv_supported(n, h, d):
         o, _ = FusedQKVAttention.apply(qkv.contiguous(), key_mask, h, d,
-                                       causal, None, rotary, d**-0.5)
+                                       causal, pattern, rotary, d**-0.5)
         return o
     if flash_block(n) > 0:
         raise NotImplementedError(
@@ -99,39 +140,109 @@ def full_attend(qkv, heads: int, dim_head: int, mask=None,
     if rotary is not None:
         cos, sin = (t[:n, None] for t in rotary)  # (n, 1, d) over (b, n, h, d)
         q, k, v = (t * cos + rotate_half(t) * sin for t in (q, k, v))
-    allowed = may_attend(n, qkv.device, key_mask, causal)[:, 0].expand(b, n, n)
+    allowed = may_attend(n, qkv.device, key_mask, causal, pattern)[:, 0].expand(b, n, n)
     out = cache_block_attend(q * d**-0.5, k.reshape(b, n, h * d),
                              v.reshape(b, n, h * d), allowed)
     return out.reshape(b, n, h * d)
 
 
+def block_sparse_attend(qkv, heads: int, dim_head: int, layout: BlockLayout,
+                        mask=None, rotary=None):
+    """The pair-grid path: qkv (b, n, 3*h*d) split into (b, h, n, d)
+    heads, rotated with torch ops (``rotary`` as in ``full_attend``), then
+    ``BlockSparseAttention`` with ``sm_scale = d**-0.5``. Returns
+    (b, n, h*d); a row with every key masked gives 0."""
+    b, n, _ = qkv.shape
+    h, d = heads, dim_head
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    if rotary is not None:
+        cos, sin = (t[:n] for t in rotary)  # (n, d) over (b, h, n, d)
+        q, k, v = (t * cos + rotate_half(t) * sin for t in (q, k, v))
+    key_mask = None if mask is None else mask[:, :n]
+    o, _ = BlockSparseAttention.apply(q, k, v, key_mask, layout, d**-0.5)
+    return o.transpose(1, 2).reshape(b, n, h * d)
+
+
 class Attention(nn.Module):
-    """Multi-head "full" attention: the qkv projection (columns
-    ``[q | k | v]``, each (h, d)-major), the attention core, and the
-    output projection. With a paged cache (``kv``) it is the causal decode
-    form: rotary on q, k and v at each token's position, the q * d**-0.5
-    pre-scale, the masked page append, and the ragged attention core
-    (``ragged_attention.kernel_attend``). Without one it attends over the
-    whole sequence (``full_attend``)."""
+    """Multi-head attention with a static pattern: the qkv projection
+    (columns ``[q | k | v]``, each (h, d)-major), the attention core, and
+    the output projection. ``seq_len`` is the length L the pattern is
+    defined over (text with <bos> plus the image grid for DALL-E); the
+    pattern fields ``image_fmap_size`` and ``layout_seed`` (read by
+    "sparse" only) are JAX's ``PatternAttention``'s, the others its
+    defaults (``CONV_*``, ``SPARSE_*``). With a paged cache (``kv``) it is the causal
+    "full" decode form: rotary on q, k and v at each token's position, the
+    q * d**-0.5 pre-scale, the masked page append, and the ragged attention
+    core (``ragged_attention.kernel_attend``). Without one it attends over
+    the whole sequence (the module docstring's dispatch)."""
 
     def __init__(self, dim: int, seq_len: int, heads: int = 8,
                  dim_head: int = 64, attn_type: str = "full",
-                 causal: bool = True, dropout: float = 0.0, device=None,
-                 dtype=torch.float32):
+                 causal: bool = True, dropout: float = 0.0,
+                 image_fmap_size: Optional[int] = None, layout_seed: int = 0,
+                 device=None, dtype=torch.float32):
         super().__init__()
         if dropout > 0:
             raise NotImplementedError(f"attention dropout {dropout} is not ported")
-        if attn_type != "full":
-            raise NotImplementedError(
-                f"only 'full' attention is ported, got attn_type={attn_type!r}"
-            )
+        if attn_type not in ATTN_TYPES:
+            raise ValueError(f"attention type {attn_type!r} is not one of {ATTN_TYPES}")
+        if attn_type != "full" and image_fmap_size is None:
+            raise ValueError(f"attn_type {attn_type!r} needs an image grid (image_fmap_size)")
         self.seq_len = seq_len
+        self.attn_type = attn_type
         self.causal = causal
         self.heads, self.dim_head = heads, dim_head
+        self.image_fmap_size = image_fmap_size
+        self.layout_seed = layout_seed
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False, device=device,
                                 dtype=dtype)
         self.to_out = nn.Linear(inner, dim, device=device, dtype=dtype)
+
+    def pattern_mask(self) -> np.ndarray:
+        """The static (L, L) may-attend matrix defining this layer."""
+        L, fmap = self.seq_len, self.image_fmap_size
+        if self.attn_type == "full":
+            return masks_lib.causal_mask(L) if self.causal else np.ones((L, L), dtype=bool)
+        text_len = L - fmap**2
+        if self.attn_type in ("axial_row", "axial_col"):
+            return masks_lib.axial_mask(text_len, fmap, axis=int(self.attn_type == "axial_col"))
+        if self.attn_type == "conv_like":
+            return masks_lib.conv_mask(text_len, fmap, CONV_KERNEL_SIZE, CONV_DILATION)
+        return masks_lib.block_sparse_mask(
+            L, block_size=SPARSE_BLOCK_SIZE, text_seq_len=text_len - 1,
+            num_random_blocks=SPARSE_RANDOM_BLOCKS, causal=self.causal,
+            seed=self.layout_seed)
+
+    def _pattern_key(self, n: int) -> tuple:
+        """The fields ``pattern_mask()`` reads, and n."""
+        seed = self.layout_seed if self.attn_type == "sparse" else None
+        return (self.attn_type, self.seq_len, self.causal, self.image_fmap_size, seed, n)
+
+    def pattern(self, n: int, device) -> torch.Tensor:
+        """``pattern_mask()[:n, :n]`` as a bool tensor on ``device``."""
+        key = self._pattern_key(n) + (torch.device(device),)
+        cached = _PATTERN_CACHE.get(key)
+        if cached is None:
+            cached = _PATTERN_CACHE[key] = torch.from_numpy(
+                np.ascontiguousarray(self.pattern_mask()[:n, :n])).to(device)
+        return cached
+
+    def block_layout(self, n: int) -> BlockLayout:
+        """The compiled 128-block layout of ``pattern_mask()[:n, :n]``."""
+        key = self._pattern_key(n)
+        cached = _LAYOUT_CACHE.get(key)
+        if cached is None:
+            block = sparse_block(n)
+            cached = _LAYOUT_CACHE[key] = compile_block_layout(
+                self.pattern_mask()[:n, :n], block, block)
+        return cached
+
+    def uses_block_sparse(self, n: int) -> bool:
+        """JAX's TPU routing: a non-"full" pattern at a pair-grid n whose
+        layout visits at most ENGAGE_FRAC of the dense-causal pairs."""
+        return (self.attn_type != "full" and sparse_block(n) > 0
+                and self.block_layout(n).visited_block_frac <= ENGAGE_FRAC)
 
     def forward(self, x, kv: Optional[PagedKV] = None, rotary=None,
                 block_len=None, block_start=None, mask=None):
@@ -144,8 +255,17 @@ class Attention(nn.Module):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         if kv is None:
-            out = full_attend(self.to_qkv(x), h, d, mask, self.causal, rotary)
+            qkv = self.to_qkv(x)
+            if self.uses_block_sparse(n):
+                out = block_sparse_attend(qkv, h, d, self.block_layout(n), mask, rotary)
+            else:
+                pattern = None if self.attn_type == "full" else self.pattern(n, x.device)
+                out = full_attend(qkv, h, d, mask, self.causal, rotary, pattern)
             return self.to_out(out)
+        if self.attn_type != "full":
+            raise NotImplementedError(
+                f"the paged decode form of {self.attn_type!r} attention is not ported"
+            )
         if not self.causal or mask is not None:
             raise NotImplementedError(
                 "the paged decode form is causal and takes no key mask"

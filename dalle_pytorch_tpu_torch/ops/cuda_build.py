@@ -38,6 +38,11 @@ SIGNATURES = {
     "fused_qkv_attention_bwd": {
         "fused_qkv_attention_bwd": ([_P] * 11 + [_I] * 5 + [_F, _I, _P], _I),
     },
+    "block_sparse_attention": {
+        "block_sparse_attention_fwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _P], _I),
+        "block_sparse_attention_dq": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
+        "block_sparse_attention_dkdv": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -35,8 +35,9 @@ Not ported yet: the split prefill/decode path, speculative decoding, the
 prefix cache, int8 KV pages, the journal, vitals and the controller,
 fault injection, telemetry and the token path's watermark degradation
 (``EngineConfig`` has no field for them, so asking for one is a
-``TypeError``), and any page budget small enough to need preemption
-(raises ``NotImplementedError``).
+``TypeError``), any page budget small enough to need preemption, and
+a model with other attention layers than "full" (both raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -108,6 +109,7 @@ class Engine:
                 f"the fused iteration needs prefill_chunk >= 2 (the block "
                 f"width), got {config.prefill_chunk}"
             )
+        dalle.check_decodable()
         self.device = torch.device(device)
         if dalle.device.type != self.device.type:
             raise ValueError(

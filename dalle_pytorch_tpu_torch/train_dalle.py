@@ -14,7 +14,8 @@ are in ``FLAGS``; passing any other flag of ``train_dalle.py`` raises
 ``NotImplementedError``: data loading, the tokenizer, checkpoints and
 resume, telemetry, profiling, mixed precision, dropout, gradient
 accumulation, reversible and remat execution, MoE and the mesh are not
-ported, and neither is the command line.
+ported, and neither is the command line. ``attn_types`` takes every type
+but "mlp" (gMLP), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,6 +78,10 @@ class DalleTrainer:
         if unknown:
             raise TypeError(f"train_dalle.py has no flags {unknown}")
         args = {**FLAGS, **flags}
+        attn_types = tuple(args["attn_types"].split(","))
+        if "mlp" in attn_types:
+            raise NotImplementedError(
+                f"attn_types {args['attn_types']!r}: gMLP ('mlp') layers are not ported")
         if dalle is None:
             dalle = DALLE(
                 dim=args["dim"], depth=args["depth"],
@@ -84,7 +89,7 @@ class DalleTrainer:
                 text_seq_len=args["text_seq_len"],
                 num_image_tokens=vae.num_tokens, image_fmap_size=vae.fmap_size,
                 heads=args["heads"], dim_head=args["dim_head"],
-                attn_types=tuple(args["attn_types"].split(",")),
+                attn_types=attn_types,
                 loss_img_weight=args["loss_img_weight"],
                 shift_tokens=args["shift_tokens"],
                 rotary_emb=args["rotary_emb"], device=device,

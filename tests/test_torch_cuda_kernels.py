@@ -10,13 +10,19 @@ import numpy as np
 import pytest
 import torch
 
+from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
 from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 from dalle_pytorch_tpu_torch.ops import paged_kv
 from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
 from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 from dalle_pytorch_tpu_torch.testing import (
+    BS_BF16_ROW_REL,
+    BS_F32_ATOL,
     BWD_BF16_ROW_REL,
     BWD_F32_REL,
+    bs_bwd_errors,
+    bs_fwd_errors,
+    bs_inputs,
     bwd_errors,
     bwd_inputs,
 )
@@ -154,7 +160,8 @@ def test_fused_qkv_kernel_rejects_what_it_cannot_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", ["train", "clip", "pattern", "d32", "d64", "d128"])
+@pytest.mark.parametrize("case", ["train", "clip", "pattern", "pattern_col", "d32", "d64",
+                                  "d128"])
 def test_fused_qkv_bwd_kernel_matches_plain(cuda, dtype, case):
     """dqkv of the kernel against the plain backward on the same inputs, on
     the card, by ``dalle_pytorch_tpu_torch.testing``'s metric: float32
@@ -215,3 +222,110 @@ def test_fused_qkv_bwd_kernel_rejects_what_it_cannot_take(cuda):
         fa.fused_qkv_attention_bwd(qkv, o, lse.double(), o, 2, 64)
     with pytest.raises(TypeError):
         fa.fused_qkv_attention_bwd(qkv.half(), o.half(), lse, o.half(), 2, 64)
+
+
+BS_CASES = ["axial_row", "conv_like", "d32", "d64", "d128", "synthetic"]
+
+
+def _bs_run(q, k, v, do, layout, km):
+    """The three kernels, dk/dv on the kernel's own delta: (o, lse, dq,
+    dk, dv)."""
+    o, lse = bs.block_sparse_attention(q, k, v, layout, km)
+    dq, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout, km)
+    dk, dv = bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout, km)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BS_CASES)
+def test_block_sparse_kernels_match_plain(cuda, dtype, case):
+    """``dalle_pytorch_tpu_torch.testing.bs_inputs``: the flagship training
+    shape with the axial_row and conv_like layouts, a ragged n 300 at
+    dim_head 32/64/128 with a key mask that kills whole rows, and a layout
+    with synthetic pairs in both tables. Forward: float32 o and lse within
+    abs 1e-5; bfloat16 each row's o error within 1% of the plain row and
+    lse within 1e-2. Backward (dq on the plain o and lse, dk/dv on the
+    plain delta): float32 each part within relative L2 1e-5; bfloat16 the
+    floored row metric within 2%. Rows with no allowed key (and keys no
+    query may attend) exactly 0, lse -1e30 there; one launch per kernel
+    and call."""
+    q, k, v, do, layout, km = bs_inputs(case, dtype, cuda)
+    counts = [f.launches for f in (bs.block_sparse_attention, bs.block_sparse_dq,
+                                   bs.block_sparse_dkdv)]
+    o, lse = bs.block_sparse_attention(q, k, v, layout, km)
+    plain_o, plain_lse = bs.reference_block_sparse(q, k, v, layout, km)
+    dq, delta = bs.block_sparse_dq(q, k, v, plain_o, plain_lse, do, layout, km)
+    plain_dq, plain_delta = bs.reference_block_sparse_dq(q, k, v, plain_o, plain_lse, do,
+                                                         layout, km)
+    dk, dv = bs.block_sparse_dkdv(q, k, v, do, plain_lse, plain_delta, layout, km)
+    plain_dk, plain_dv = bs.reference_block_sparse_dkdv(q, k, v, do, plain_lse, plain_delta,
+                                                        layout, km)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (bs.block_sparse_attention, bs.block_sparse_dq,
+                                 bs.block_sparse_dkdv)] == [c + 1 for c in counts]
+    for t in (o, lse, dq, delta, dk, dv):
+        assert torch.isfinite(t).all()
+    err, row_rel, lse_err, dead_exact = bs_fwd_errors(o, lse, plain_o, plain_lse, layout, km)
+    rel, grad_row_rel, zeros_exact = bs_bwd_errors((dq, dk, dv), (plain_dq, plain_dk, plain_dv),
+                                                   layout, km)
+    assert dead_exact and zeros_exact
+    assert (delta - plain_delta).abs().max().item() <= 1e-4 * plain_delta.abs().max().item()
+    if dtype == torch.float32:
+        assert err <= BS_F32_ATOL, err
+        assert rel <= BWD_F32_REL, rel
+    else:
+        assert row_rel <= BS_BF16_ROW_REL and lse_err <= BS_BF16_ROW_REL, (row_rel, lse_err)
+        assert grad_row_rel <= BWD_BF16_ROW_REL, grad_row_rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["axial_row", "d64"])
+def test_block_sparse_kernels_are_deterministic(cuda, case):
+    """No float atomics: two runs give bit-identical outputs and gradients."""
+    inputs = bs_inputs(case, torch.float32, cuda)
+    first, second = _bs_run(*inputs), _bs_run(*inputs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_block_sparse_function_gradients_on_card(cuda):
+    """BlockSparseAttention on the card (three kernels) against torch
+    autograd of the plain forward on the same float32 inputs: each of dq,
+    dk, dv within relative L2 1e-5."""
+    q, k, v, do, layout, km = bs_inputs("d64", torch.float32, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, _ = bs.BlockSparseAttention.apply(*leaves, km, layout, None)
+    got = torch.autograd.grad(o, leaves, do)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(bs.reference_block_sparse(*leaves, layout, km)[0], leaves, do)
+    for g, r in zip(got, ref):
+        assert ((g - r).norm() / r.norm()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_block_sparse_kernels_reject_what_they_cannot_take(cuda):
+    from dalle_pytorch_tpu_torch.ops import masks
+
+    layout = bs.compile_block_layout(masks.causal_mask(256))
+    q = torch.zeros(1, 2, 256, 64, device=cuda)
+    with pytest.raises(ValueError):  # a block other than 128
+        bs.block_sparse_attention(q, q, q, bs.compile_block_layout(masks.causal_mask(256), 64, 64))
+    with pytest.raises(ValueError):  # the layout is for another n
+        bs.block_sparse_attention(q[:, :, :200], q[:, :, :200], q[:, :, :200], layout)
+    with pytest.raises(ValueError):  # no instance for dim_head 48
+        z = torch.zeros(1, 2, 256, 48, device=cuda)
+        bs.block_sparse_attention(z, z, z, layout)
+    with pytest.raises(ValueError):  # k on another device
+        bs.block_sparse_attention(q, q.cpu(), q, layout)
+    with pytest.raises(ValueError):  # key mask on another device
+        bs.block_sparse_attention(q, q, q, layout, torch.ones(1, 256, dtype=torch.bool))
+    with pytest.raises(ValueError):  # operands of two dtypes
+        bs.block_sparse_attention(q, q.bfloat16(), q, layout)
+    with pytest.raises(TypeError):
+        bs.block_sparse_attention(q.half(), q.half(), q.half(), layout)
+    o, lse = bs.block_sparse_attention(q, q, q, layout)
+    with pytest.raises(ValueError):  # lse of the wrong dtype
+        bs.block_sparse_dq(q, q, q, o, lse.double(), o, layout)
+    with pytest.raises(ValueError):  # delta of the wrong shape
+        bs.block_sparse_dkdv(q, q, q, o, lse, lse[:, :1], layout)

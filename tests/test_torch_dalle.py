@@ -133,7 +133,7 @@ def test_remap_text_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(reversible=True), dict(remat=True), dict(attn_types=("axial_row",)),
+    dict(reversible=True), dict(remat=True), dict(attn_types=("mlp",)),
     dict(stable=True), dict(rotary_emb=False),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kwargs):
