@@ -14,14 +14,21 @@ line):
    plain PyTorch version (float32 and bfloat16, stated tolerances), all
    outputs finite; times with CUDA events (L2 flushed before each call)
    beside the plain version, one library call as a yardstick, and the
-   bound from bytes and operations. The packed-qkv kernel is held at
-   CLIP's text shape (the rerank stage's), at DALL-E's causal rotary
-   shape, with and without a pattern mask, and at the training shape
-   (batch 4).
-4. path check: a small float32 DALLE, and a small float32 CLIP whose text
-   length takes the packed-qkv kernel, each with the same weights on the
-   card (kernels) and on the CPU (plain versions); logits and
-   similarities agree.
+   bound from bytes and operations. The ragged kernel's two instances
+   (unquantized pages; int8 pages with their scale pages, at dim_head
+   32/64/128) at the serving shape (8 rows of 16 columns, 11 pages of
+   128), identity and permuted tables, timed in bf16 side by side. The
+   packed-qkv kernel is held at CLIP's text shape (the rerank stage's),
+   at DALL-E's causal rotary shape, with and without a pattern mask, and
+   at the training shape (batch 4).
+4. path check: a small float32 DALLE (dense and the four-type sparse
+   cycle, each with unquantized and with int8 pages), and a small float32
+   CLIP whose text length takes the packed-qkv kernel, each with the same
+   weights on the card (kernels) and on the CPU (plain versions); logits
+   and similarities agree. Preemption on the card: a small DALLE under a
+   page budget below its batch's demand (unquantized and int8) preempts,
+   completes every request and replays tokens bit-identical to the
+   unpressured run.
 5. engine: the flagship DALLE (depth 12, dim 1024, 16 heads of 64, 256
    text + 32x32 image tokens, bf16, seeded random weights) served by the
    fused engine (max_batch 8, prefill chunk 16) with post-decode stages:
@@ -37,6 +44,19 @@ line):
 7. profile: torch.profiler over 30 iterations of a fresh mixed batch:
    wall and device-busy time per iteration, launches per iteration, the
    largest device-time kernels (after the counted run).
+5b. serve int8: the flagship of phase 5 with int8 KV pages, 8 of its
+   requests, no stages: every outcome COMPLETED with 1024 tokens in
+   range, the int8 ragged instance launched depth x dispatched iterations
+   times and the unquantized one never, KV bytes per slot exactly 68/128
+   of the bf16 engine's; token agreement with phase 5 printed. Then the
+   teacher-forced flagship logits through int8 against bf16 pages within
+   ``testing.INT8_LOGITS_REL``, and profiles of 30 iterations as in
+   phase 7, int8, int8, then bf16 again (phase 7's came first), each with
+   the host's time by operator.
+5c. serve sparse: the sparse configuration (phase 10's layers) at the
+   flagship width, bf16, int8 pages, 4 requests of 256 tokens: every
+   outcome COMPLETED, the int8 ragged instance launched depth / 4 x
+   dispatched iterations times (the full layers).
 8. train: the flagship DALLE in float32 (train_dalle.py's defaults: batch
    4, lr 3e-4, clip_grad_norm 0.5, loss_img_weight 7) trained by
    ``DalleTrainer`` for 10 steps on one batch: 4 seeded 256x256 images
@@ -74,6 +94,7 @@ limit; the line before it the kernels' JSON; the last line
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -105,14 +126,14 @@ FLAGSHIP_CLIP = dict(dim_text=512, dim_image=512, dim_latent=512,
 MAX_BATCH, CHUNK, PAGE = 8, 16, 128
 N_REQUESTS, MAX_NEW = 10, 1024
 STAGE_BATCH = 8
-# kernel vs plain on valid columns: float32 max abs error; bfloat16 the
-# error's L2 norm over a query column's h*d outputs relative to the plain
-# column's norm (two bf16 roundings of the output are ~0.4%; a page missed
-# or attended twice moves a column by 10% or more)
+# packed-qkv forward vs plain: float32 max abs error over o and lse;
+# bfloat16 each row's o error norm over h*d relative to the plain row's
+# (two bf16 roundings of the output are ~0.4%), lse absolute. The ragged
+# kernel's, the packed-qkv backward's and the block-sparse kernels'
+# tolerances and metrics are dalle_pytorch_tpu_torch.testing's.
 F32_ATOL, BF16_RTOL = 1e-5, 1e-2
-# the packed-qkv backward's tolerances and metric are
-# dalle_pytorch_tpu_torch.testing's (BWD_F32_REL, BWD_BF16_ROW_REL)
 RAGGED_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:116"
+RAGGED_INT8_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:140"  # quant=True
 FUSED_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:784"
 FUSED_BWD_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:813"
 BS_TPU_KERNELS = {  # block_sparse_attention's kernel bodies
@@ -171,112 +192,121 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 50, cold: bool = True) -> flo
 # ------------------------------------------------------------- kernels
 
 
-def ragged_inputs(dtype, permuted: bool, seed: int = 0):
-    """Ragged attention inputs at the flagship serving shapes: B=8 rows of
-    W=16 query columns, 16 heads of 64, pages of 128, 11 pages per row
-    (1281 positions). Descriptors: decode rows at scattered positions and
-    on both sides of a page boundary, full-width prefill chunks (one
-    crossing a page boundary), a prompt's final 1-token chunk, and an idle
-    row at start 0, as the engine issues it. ``permuted`` scatters every
-    page across all rows' storage."""
-    from dalle_pytorch_tpu_torch.ops import paged_kv
-
-    h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
-    n_p = paged_kv.num_pages(FLAGSHIP["text_seq_len"] + 1 + 1024, PAGE)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
-    q = (torch.randn(MAX_BATCH, CHUNK, h, d, generator=g, device=dev) * 0.3).to(dtype)
-    k = paged_kv.alloc(MAX_BATCH, n_p, PAGE, h * d, dtype, dev)
-    v = paged_kv.alloc(MAX_BATCH, n_p, PAGE, h * d, dtype, dev)
-    k[:-1] = (torch.randn(k[:-1].shape, generator=g, device=dev) * 0.3).to(dtype)
-    v[:-1] = (torch.randn(v[:-1].shape, generator=g, device=dev) * 0.3).to(dtype)
-    table = paged_kv.identity_table(MAX_BATCH, n_p, dev)
-    if permuted:
-        perm = torch.randperm(MAX_BATCH * n_p, generator=g, device=dev)
-        k[perm], v[perm] = k[:-1].clone(), v[:-1].clone()
-        table = perm[table.long()].to(torch.int32)
-    start = torch.tensor([300, 639, 640, 1279, 0, 112, 256, 0],
-                         dtype=torch.int32, device=dev)
-    length = torch.tensor([1, 1, 1, 1, 16, 16, 1, 0],
-                          dtype=torch.int32, device=dev)
-    return q, k, v, table, start, length
-
-
-def ragged_bound(q, start, length, dtype):
-    """(bound_ms, bound_by) of the work the caller keeps: bytes = K and V
-    at positions 0 .. start + length - 1 of each active row once, q and
-    the output of valid columns once, the table entries of those pages and
-    the descriptors (an idle row's output is discarded, so it needs
-    nothing); operations = 2 * 2 * h*d per (valid query, visible key)
-    pair."""
+def ragged_bound(q, start, length, kv_bytes_per_pos):
+    """(bound_ms, bound_by) of the work the caller keeps: bytes = the K and
+    V pages (``kv_bytes_per_pos`` per position: content, plus the scales
+    of int8 pages) at positions 0 .. start + length - 1 of each active row
+    once, q and the output of valid columns once, the table entries of
+    those pages and the descriptors (an idle row's output is discarded, so
+    it needs nothing); operations = 2 * 2 * h*d per (valid query, visible
+    key) pair."""
     b, n, h, d = q.shape
     item = q.element_size()
     s, ln = start.cpu().numpy(), length.cpu().numpy()
     active = ln > 0
     frontier = (s + ln)[active]  # positions 0 .. start + length - 1
-    nbytes = int(frontier.sum()) * h * d * 2 * item + 2 * int(ln.sum()) * h * d * item
+    nbytes = int(frontier.sum()) * kv_bytes_per_pos + 2 * int(ln.sum()) * h * d * item
     nbytes += 4 * (int((-(-frontier // PAGE)).sum()) + 2 * b)
     keys = sum(int(s[r]) + i + 1 for r in range(b) for i in range(int(ln[r])))
     ops = 4 * keys * h * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[q.dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_ragged_attention() -> dict:
-    from dalle_pytorch_tpu_torch.ops import paged_kv
+def hold_ragged(label: str, int8: bool, dims=(64,)) -> dict:
+    """One instance of the ragged kernel against its plain version on
+    ``testing.ragged_inputs("serve")`` (identity and permuted tables,
+    float32 and bfloat16, each dim_head of ``dims``; the permuted table
+    only at dim_head 32 and 128), at ``testing``'s tolerances; two runs
+    bit-identical. Returns the worst errors."""
     from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
+    from dalle_pytorch_tpu_torch.testing import (
+        RAGGED_BF16_RTOL, RAGGED_F32_ATOL, ragged_errors, ragged_inputs, ragged_ok)
 
     errs, rel_errs = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for permuted in (False, True):
-            q, k, v, table, start, length = ragged_inputs(dtype, permuted)
-            got = ra.kernel_attend(q, k, v, table, start, length)
-            plain = ra.reference_attend(q, k, v, table, start)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"ragged kernel: non-finite output ({dtype})")
-            valid = (torch.arange(CHUNK, device="cuda")[None] < length[:, None])
-            diff = (got.float() - plain.float())[valid].flatten(1)
-            err = diff.abs().max().item()
-            rel = (diff.norm(dim=1) / plain.float()[valid].flatten(1).norm(dim=1)).max().item()
-            ok = err <= F32_ATOL if dtype == torch.float32 else rel <= BF16_RTOL
-            log(f"ragged_attention {dtype} permuted={permuted}: on valid columns "
-                f"max |kernel - plain| = {err:.3e}, max column-relative L2 error "
-                f"= {rel:.3e} (tolerance: " + (f"abs {F32_ATOL:.0e})" if dtype == torch.float32
-                                               else f"column-relative {BF16_RTOL:.0e})"))
-            if not ok:
-                raise AssertionError(f"ragged kernel disagrees with plain: {err}, {rel}")
-            errs[dtype] = max(errs.get(dtype, 0.0), err)
-            rel_errs[dtype] = max(rel_errs.get(dtype, 0.0), rel)
+    for d in dims:
+        for dtype in (torch.float32, torch.bfloat16):
+            for permuted in (False, True) if d == 64 else (True,):
+                q, k, v, ks, vs, table, start, length = ragged_inputs(
+                    "serve", dtype, "cuda", int8=int8, dim_head=d, permuted=permuted)
+                got = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
+                again = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
+                plain = ra.reference_attend(q, k, v, table, start, ks, vs)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{label}: non-finite output ({dtype}, d {d})")
+                err, rel = ragged_errors(got, plain, length)
+                same = torch.equal(got, again)
+                log(f"{label} {dtype} d {d} permuted={permuted}: on valid columns max "
+                    f"|kernel - plain| = {err:.3e}, max column-relative L2 error = {rel:.3e}, "
+                    f"two runs identical {same} (tolerance: " + (
+                        f"abs {RAGGED_F32_ATOL:.0e})" if dtype == torch.float32
+                        else f"column-relative {RAGGED_BF16_RTOL:.0e})"))
+                if not (ragged_ok(dtype, err, rel) and same):
+                    raise AssertionError(f"{label} disagrees with plain: {err}, {rel}, {same}")
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+                rel_errs[dtype] = max(rel_errs.get(dtype, 0.0), rel)
+    return {"max_abs_err": errs[torch.bfloat16], "max_rel_err": rel_errs[torch.bfloat16],
+            "max_abs_err_f32": errs[torch.float32]}
 
-    dtype = torch.bfloat16  # the serving path's type
-    q, k, v, table, start, length = ragged_inputs(dtype, permuted=False)
-    kernel_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length))
-    warm_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length),
+
+def time_ragged(int8: bool) -> dict:
+    """Times (cold L2) of one instance at the serving shape in bf16, the
+    serving path's type: the kernel, its plain version, and one library
+    call (``scaled_dot_product_attention`` over the already gathered and,
+    for int8, dequantized view, same mask) as a yardstick; the bound."""
+    from dalle_pytorch_tpu_torch.ops import paged_kv
+    from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
+    from dalle_pytorch_tpu_torch.testing import ragged_inputs
+
+    q, k, v, ks, vs, table, start, length = ragged_inputs(
+        "serve", torch.bfloat16, "cuda", int8=int8, permuted=False)
+    kernel_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length, ks, vs))
+    warm_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length, ks, vs),
                            cold=False)
-    plain_ms = cuda_time_ms(lambda: ra.reference_attend(q, k, v, table, start))
-    # yardstick: one library call over the already gathered view, same mask
+    plain_ms = cuda_time_ms(lambda: ra.reference_attend(q, k, v, table, start, ks, vs))
     b, n, h, d = q.shape
-    kc = paged_kv.gather(k, table).view(b, -1, h, d).transpose(1, 2)
-    vc = paged_kv.gather(v, table).view(b, -1, h, d).transpose(1, 2)
+    kc, vc = (paged_kv.read(t, table, sc, q.dtype).view(b, -1, h, d).transpose(1, 2)
+              for t, sc in ((k, ks), (v, vs)))
     qt = q.transpose(1, 2)
     pos = start.long()[:, None] + torch.arange(n, device="cuda")
     mask = (torch.arange(kc.shape[2], device="cuda")[None, None] <= pos[..., None])[:, None]
     library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kc, vc, attn_mask=mask, scale=1.0))
-    bound_ms, bound_by = ragged_bound(q, start, length, dtype)
-    log(f"ragged_attention bf16 timing, cold L2: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}); kernel back to back (warm L2) {warm_ms:.4f} ms")
-    return {
-        "name": "ragged_attention", "route": "cuda",
-        "source": "dalle_pytorch_tpu_torch/csrc/ragged_attention.cu",
-        "replaces": RAGGED_TPU_KERNEL, "max_abs_err": errs[torch.bfloat16],
-        "max_rel_err": rel_errs[torch.bfloat16],
-        "max_abs_err_f32": errs[torch.float32],
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+    per_pos = 2 * (h * d * k.element_size() + (h * 4 if int8 else 0))
+    bound_ms, bound_by = ragged_bound(q, start, length, per_pos)
+    return {"ms": kernel_ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def check_ragged_attention() -> list:
+    """The ragged kernel's two instances: unquantized pages at dim_head 64
+    and int8 pages (with their scale pages, through the same permuted
+    table) at dim_head 32, 64 and 128, each held against its plain
+    version; then both timed in bf16 at the serving shape in one pass,
+    unquantized, int8, int8, unquantized."""
+    rows = {
+        "ragged_attention": {"name": "ragged_attention", "replaces": RAGGED_TPU_KERNEL,
+                             **hold_ragged("ragged_attention", int8=False)},
+        "ragged_attention_int8": {"name": "ragged_attention_int8",
+                                  "replaces": RAGGED_INT8_TPU_KERNEL,
+                                  **hold_ragged("ragged_attention_int8", int8=True,
+                                                dims=(32, 64, 128))},
     }
+    runs = {name: [] for name in rows}
+    for name in ("ragged_attention", "ragged_attention_int8", "ragged_attention_int8",
+                 "ragged_attention"):
+        runs[name].append(time_ragged(int8=name.endswith("int8")))
+    for name, row in rows.items():
+        t = {key: float(np.mean([r[key] for r in runs[name]])) for key in
+             ("ms", "warm_ms", "plain_ms", "library_ms", "bound_ms")}
+        t["bound_by"] = runs[name][0]["bound_by"]
+        log(f"{name} bf16 timing, cold L2 (mean of 2 passes: " + ", ".join(
+            f"{r['ms']:.4f}" for r in runs[name]) + f"): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}); kernel back to back (warm L2) {t['warm_ms']:.4f} ms")
+        row.update(route="cuda", source="dalle_pytorch_tpu_torch/csrc/ragged_attention.cu", **t)
+    return list(rows.values())
 
 
 def fused_inputs(case: str, dtype, seed: int = 0):
@@ -703,25 +733,36 @@ def check_block_sparse() -> list:
 # ------------------------------------------------------------ path check
 
 
-def check_path_against_plain() -> None:
+def check_path_against_plain(kv_quant=None, attn_types=None) -> None:
     """Small float32 DALLE with identical weights on the card and the CPU
-    through mixed ragged iterations: the card runs the kernel, the CPU the
-    plain version; logits of active rows agree to 1e-3."""
+    through mixed ragged iterations (prefill chunks, a prompt's final
+    chunk, decode rows across page boundaries, idle rows): the card runs
+    the kernels, the CPU the plain versions; logits of active rows agree
+    to 1e-3 (int8 pages: 5e-3, since a K/V entry that the card and the CPU
+    compute a rounding apart can land one int8 level apart). ``kv_quant``
+    "int8": int8 pages, every full layer's ragged attention through the
+    int8 instance; ``attn_types``: the layers' type cycle (non-"full"
+    layers attend over the gathered view, no kernel). The ragged instance
+    of the pages' format launches once per full layer and step, the
+    other never."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
     from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache
 
     cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
                text_seq_len=8, num_image_tokens=40, image_fmap_size=4)
+    if attn_types:
+        cfg.update(depth=4, attn_types=attn_types)
     gpu = DALLE(**cfg, device="cuda").init_weights(
         torch.Generator(device="cuda").manual_seed(3))
     cpu = DALLE(**cfg, device="cpu")
     cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
-    caches = {m: init_decode_cache(m, 3, page_size=4) for m in (gpu, cpu)}
+    caches = {m: init_decode_cache(m, 3, page_size=4, kv_quant=kv_quant) for m in (gpu, cpu)}
     rng = np.random.RandomState(4)
     # (start, length) per row, width 4, prompt of 9 positions
     steps = [([0, 0, 2], [4, 4, 0]), ([4, 4, 0], [4, 4, 4]), ([8, 8, 4], [1, 1, 4]),
              ([9, 9, 8], [1, 1, 1]), ([10, 7, 9], [1, 0, 1]), ([11, 10, 10], [1, 1, 1])]
     worst = 0.0
+    zero_counts()
     for start, length in steps:
         tokens = rng.randint(0, 40, size=(3, 4))
         args = [np.asarray(a, np.int32) for a in (tokens, start, length)]
@@ -732,9 +773,54 @@ def check_path_against_plain() -> None:
             out[m] = m.fused_step(*t, final, caches[m]).cpu()
         active = torch.from_numpy(args[2] > 0)
         worst = max(worst, (out[gpu] - out[cpu]).abs()[active].max().item())
-    log(f"path check: card (kernel) vs CPU (plain) fused_step logits, max abs diff {worst:.3e}")
-    if not worst <= 1e-3:
-        raise AssertionError(f"card path disagrees with the plain path: {worst}")
+    launched = read_counts(RAGGED)
+    full = sum(t == "full" for t in gpu.transformer.attn_types) * len(steps)
+    expected = {n: full if n.endswith("int8") == (kv_quant == "int8") else 0 for n in RAGGED}
+    tol = 5e-3 if kv_quant == "int8" else 1e-3
+    log(f"path check: card (kernel) vs CPU (plain) fused_step logits, pages "
+        f"{kv_quant or 'none'}, layers {gpu.transformer.attn_types}: max abs diff "
+        f"{worst:.3e} (tolerance {tol:.0e}); launches {launched}")
+    if not (worst <= tol and launched == expected):
+        raise AssertionError(f"card path disagrees with the plain path: {worst}, {launched}")
+
+
+def check_preemption_on_card() -> None:
+    """Page pressure on the card: a small float32 DALLE (prompt 9, 16
+    image tokens, page 4: 6 pages of worst-case demand) serving 4
+    requests at max_batch 3 under a budget of 12 pages, whose growth
+    wants 18; unquantized and int8. At least one preemption, every
+    outcome COMPLETED, every page back in the pool, and tokens
+    bit-identical to the same requests served without pressure on the
+    card (top-k sampling with the seeded noise)."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.types import Outcome, Request
+
+    cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
+               text_seq_len=8, num_image_tokens=40, image_fmap_size=4)
+    model = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(9))
+    prompts = np.random.RandomState(10).randint(1, 50, size=(4, 8))
+    for kv_quant in (None, "int8"):
+        runs = {}
+        for budget in (None, 12):
+            engine = Engine(model, EngineConfig(max_batch=3, prefill_chunk=4, page_size=4,
+                                                page_budget=budget, kv_quant=kv_quant,
+                                                filter_thres=0.5), device="cuda")
+            for i in range(4):
+                assert engine.submit(Request(f"q{i}", prompts[i], 16, seed=20 + i)) is None
+            runs[budget] = engine.run(max_steps=2000)
+            if engine.pool.used != 0 or any(engine.slots):
+                raise AssertionError(f"preemption ({kv_quant}): pages left in use")
+        pressured = runs[12]
+        preempted = {r: x.preempt_count for r, x in pressured.items()}
+        same = all(np.array_equal(x.tokens, runs[None][r].tokens) for r, x in pressured.items())
+        done = all(x.outcome is Outcome.COMPLETED and len(x.tokens) == 16
+                   for run in runs.values() for x in run.values())
+        log(f"preemption on the card, pages {kv_quant or 'none'}: preempt counts {preempted}, "
+            f"every outcome COMPLETED {done}, tokens bit-identical to the unpressured run "
+            f"{same}")
+        if not (done and same and sum(preempted.values()) >= 1):
+            raise AssertionError(f"preemption on the card ({kv_quant}) failed")
 
 
 def check_clip_against_plain() -> None:
@@ -778,6 +864,7 @@ def kernel_counters():
     from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
 
     return {"ragged_attention": ra.kernel_attend,
+            "ragged_attention_int8": ra.kernel_attend_int8,
             "fused_qkv_attention": fa.fused_qkv_attention,
             "fused_qkv_attention_bwd": fa.fused_qkv_attention_bwd,
             "block_sparse_attention": bs.block_sparse_attention,
@@ -795,6 +882,7 @@ def read_counts(names) -> dict:
     return {name: counters[name].launches for name in names}
 
 
+RAGGED = ("ragged_attention", "ragged_attention_int8")
 PACKED = ("fused_qkv_attention", "fused_qkv_attention_bwd")
 PAIR_GRID = ("block_sparse_attention", "block_sparse_dq", "block_sparse_dkdv")
 
@@ -854,7 +942,7 @@ def serve_flagship():
     from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
     from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
     from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
-    from dalle_pytorch_tpu_torch.serving.types import Outcome, Request
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
 
     t0 = time.perf_counter()
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
@@ -866,11 +954,8 @@ def serve_flagship():
         max_batch=MAX_BATCH, prefill_chunk=CHUNK,
     ), device="cuda", stages=StageSpec(vae, clip, config=StageConfig(
         batch=STAGE_BATCH, queue_limit=N_REQUESTS)))
-    prompts = np.random.RandomState(0).randint(
-        1, FLAGSHIP["num_text_tokens"], size=(N_REQUESTS, FLAGSHIP["text_seq_len"]))
-    for i in range(N_REQUESTS):
-        prompts[i, FLAGSHIP["text_seq_len"] - 23 * i:] = 0  # ragged prompt lengths
-        assert engine.submit(Request(f"r{i}", prompts[i], MAX_NEW, seed=i)) is None
+    for request in serve_requests(N_REQUESTS, MAX_NEW):
+        assert engine.submit(request) is None
     torch.cuda.synchronize()
     log(f"engine: flagship DALLE, VAE and CLIP built in {time.perf_counter() - t0:.1f} s")
 
@@ -879,7 +964,7 @@ def serve_flagship():
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts(("ragged_attention", "fused_qkv_attention"))
+    launches = read_counts((*RAGGED, "fused_qkv_attention"))
 
     for i in range(N_REQUESTS):
         r = results[f"r{i}"]
@@ -895,6 +980,7 @@ def serve_flagship():
     pipe = engine.postdecode
     rerank_dispatches = pipe.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
     expected = {"ragged_attention": FLAGSHIP["depth"] * engine.dispatches,
+                "ragged_attention_int8": 0,
                 "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
     stage_s = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(pipe.seconds.items()))
     log(f"engine: {N_REQUESTS} requests, {engine.iterations} iterations, "
@@ -904,23 +990,144 @@ def serve_flagship():
     log(f"engine: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
-    return results, launches, model
+    return results, launches, model, engine
 
 
-def profile_iterations(model, warmup: int = 10, window: int = 30) -> None:
+def serve_requests(n: int, max_new: int, seed: int = 0):
+    """The serve phases' requests: seeded prompts with ragged lengths
+    (request i keeps 256 - 23 i tokens), request i drawing with seed i;
+    the first n of one fixed set, so phases with fewer requests serve the
+    same ones."""
+    from dalle_pytorch_tpu_torch.serving.types import Request
+
+    prompts = np.random.RandomState(seed).randint(
+        1, FLAGSHIP["num_text_tokens"], size=(N_REQUESTS, FLAGSHIP["text_seq_len"]))
+    for i in range(N_REQUESTS):
+        prompts[i, FLAGSHIP["text_seq_len"] - 23 * i:] = 0  # ragged prompt lengths
+    return [Request(f"r{i}", prompts[i], max_new, seed=i) for i in range(n)]
+
+
+def pool_bytes(engine) -> int:
+    """Bytes of every K/V pool of the engine's cache, sink pages and scale
+    pools included."""
+    return sum(pool.numel() * pool.element_size()
+               for kv in engine.cache.kv for pool in kv.pools())
+
+
+def serve_counted(model, label: str, n: int, max_new: int, expected_per_dispatch: dict,
+                  **config):
+    """A counted serve run without stages: ``n`` of ``serve_requests``
+    through a fresh engine (max_batch 8, chunk 16, ``config``), counts set
+    to 0 just before and read just after. Every outcome COMPLETED with
+    ``max_new`` tokens in the image vocab; each ragged instance launched
+    ``expected_per_dispatch`` x dispatched iterations times. Prints
+    tokens/s and peak memory; returns (engine, results, launches)."""
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK, **config),
+                    device="cuda")
+    for request in serve_requests(n, max_new):
+        assert engine.submit(request) is None
+    zero_counts()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(RAGGED)
+    for rid, r in results.items():
+        if r.outcome is not Outcome.COMPLETED or len(r.tokens) != max_new:
+            raise AssertionError(f"{label}: request {rid}: {r.outcome} {r.detail!r}")
+        if not ((r.tokens >= 0) & (r.tokens < FLAGSHIP["num_image_tokens"])).all():
+            raise AssertionError(f"{label}: request {rid}: token out of the image vocab")
+    expected = {k: expected_per_dispatch.get(k, 0) * engine.dispatches for k in RAGGED}
+    log(f"{label}: {n} requests of {max_new} tokens, {engine.iterations} iterations, "
+        f"{engine.dispatches} dispatches, {wall:.2f} s wall, {n * max_new / wall:.1f} "
+        f"generated tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    return engine, results, launches
+
+
+def serve_int8(model, bf16_results, bf16_engine) -> dict:
+    """Phase 5b: the flagship served with int8 pages, 8 of phase 5's
+    requests without stages; every layer's ragged attention through the
+    int8 instance, the unquantized one never. KV bytes per slot exactly
+    (1024 + 16 x 4) / 2048 = 68/128 of the bf16 engine's; position-wise
+    token agreement with the bf16 engine printed, not asserted (random
+    weights diverge after the first near-tie). Returns the launches."""
+    depth = FLAGSHIP["depth"]
+    engine, results, launches = serve_counted(
+        model, "serve int8", MAX_BATCH, MAX_NEW, {"ragged_attention_int8": depth},
+        kv_quant="int8")
+    int8_b, bf16_b = engine.kv_bytes_per_slot, bf16_engine.kv_bytes_per_slot
+    agree = [float(np.mean(results[r].tokens == bf16_results[r].tokens)) for r in results]
+    log(f"serve int8: KV bytes per slot {int8_b:,} against bf16's {bf16_b:,} (ratio "
+        f"{int8_b / bf16_b:.5f}); KV pools {pool_bytes(engine) / 1e6:.1f} MB against "
+        f"{pool_bytes(bf16_engine) / 1e6:.1f} MB; position-wise token agreement with the "
+        f"bf16 engine per request " + ", ".join(f"{a:.4f}" for a in agree))
+    if int8_b * 128 != bf16_b * 68:
+        raise AssertionError(f"serve int8: KV bytes per slot {int8_b} is not 68/128 of {bf16_b}")
+    return launches
+
+
+def check_int8_logits(model) -> None:
+    """Teacher-forced image logits of the flagship through int8 pages
+    against bf16 pages, same model: a 256-token prompt in 16-token chunks,
+    then 64 decode steps on the same image tokens, 2 rows; relative L2
+    error within ``testing.INT8_LOGITS_REL``."""
+    from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache
+    from dalle_pytorch_tpu_torch.testing import INT8_LOGITS_REL, rel_l2, teacher_forced_logits
+
+    rng = np.random.RandomState(5)
+    text = torch.from_numpy(rng.randint(1, FLAGSHIP["num_text_tokens"],
+                                        size=(2, FLAGSHIP["text_seq_len"])))
+    image = torch.from_numpy(rng.randint(0, FLAGSHIP["num_image_tokens"], size=(2, 64)))
+    out = {q: teacher_forced_logits(model, init_decode_cache(model, 2, kv_quant=q), text,
+                                    image, CHUNK) for q in ("none", "int8")}
+    rel = rel_l2(out["int8"], out["none"])
+    top1 = (out["int8"].argmax(-1) == out["none"].argmax(-1)).float().mean().item()
+    log(f"int8 logits: teacher-forced flagship (prompt 256, 64 decode steps, 2 rows), int8 "
+        f"against bf16 pages: relative L2 error {rel:.4e} (tolerance {INT8_LOGITS_REL:.0e}), "
+        f"argmax agreement {top1:.4f}")
+    if not (torch.isfinite(out["int8"]).all() and rel <= INT8_LOGITS_REL):
+        raise AssertionError(f"int8 logits: relative error {rel}")
+
+
+def serve_sparse_int8() -> dict:
+    """Phase 5c: the sparse configuration (layers cycling full, axial_row,
+    axial_col, conv_like) at the flagship width, bf16, int8 pages, 4
+    requests of 256 tokens: the 3 full layers through the int8 ragged
+    instance, the others over the gathered view. Returns the launches."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+
+    types = tuple(SPARSE_TYPES.split(","))
+    model = DALLE(**FLAGSHIP, attn_types=types, device="cuda", dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(4))
+    full = sum(t == "full" for t in model.transformer.attn_types)
+    _, _, launches = serve_counted(model, "serve sparse int8", 4, 256,
+                                   {"ragged_attention_int8": full}, kv_quant="int8")
+    return launches
+
+
+def profile_iterations(model, warmup: int = 10, window: int = 30, kv_quant=None) -> None:
     """Where an engine iteration's time goes: torch.profiler over a window
     of a fresh mixed prefill/decode batch (8 requests at once, so one row
-    decodes while the others prefill chunk by chunk). Prints wall time and
-    device-busy time per iteration, launches per iteration, and the
-    largest device-time kernels. Runs after the counted main path."""
+    decodes while the others prefill chunk by chunk), with ``kv_quant``
+    pages. Prints wall time and device-busy time per iteration, launches
+    per iteration, and the largest device-time kernels. Runs after the
+    counted main path."""
     from torch.profiler import ProfilerActivity, profile
 
     from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
     from dalle_pytorch_tpu_torch.serving.types import Request
 
     engine = Engine(model, EngineConfig(
-        max_batch=MAX_BATCH, prefill_chunk=CHUNK,
+        max_batch=MAX_BATCH, prefill_chunk=CHUNK, kv_quant=kv_quant,
     ), device="cuda")
+    label = "profile" if kv_quant is None else f"profile {kv_quant}"
     prompts = np.random.RandomState(1).randint(
         1, FLAGSHIP["num_text_tokens"], size=(MAX_BATCH, FLAGSHIP["text_seq_len"]))
     for i in range(MAX_BATCH):
@@ -938,13 +1145,17 @@ def profile_iterations(model, warmup: int = 10, window: int = 30) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / window
     launches = sum(e.count for e in device) / window
-    log(f"profile: {window} mixed iterations, {wall_ms:.3f} ms/iteration wall, "
+    log(f"{label}: {window} mixed iterations, {wall_ms:.3f} ms/iteration wall, "
         f"device busy {busy_ms:.3f} ms/iteration "
         f"({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device "
         "launches/iteration")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"profile:   {e.self_device_time_total / 1e3 / window:.4f} ms/iteration "
+        log(f"{label}:   {e.self_device_time_total / 1e3 / window:.4f} ms/iteration "
             f"x{e.count // window} {e.key[:90]}")
+    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    log(f"{label}: host time by operator (self, ms/iteration, calls/iteration): " + "; ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3 / window:.3f} x{e.count // window}"
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]))
 
 
 def check_pixels(results) -> None:
@@ -963,6 +1174,14 @@ def check_pixels(results) -> None:
 
 
 # ---------------------------------------------------------------- train
+
+
+def release_memory() -> None:
+    """Free what earlier phases left: collect reference cycles, then
+    return the allocator's cached blocks; prints what stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated after release")
 
 
 def train_run(trainer, text, images, label: str, expected: dict) -> dict:
@@ -1097,6 +1316,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from dalle_pytorch_tpu_torch.ops import cuda_build
 
@@ -1111,31 +1331,45 @@ def main() -> int:
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
 
-    kernels = [check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
+    kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
                *check_block_sparse()]
-    check_path_against_plain()
+    sparse_types = tuple(SPARSE_TYPES.split(","))
+    for kv_quant, attn_types in ((None, None), ("int8", None), (None, sparse_types),
+                                 ("int8", sparse_types)):
+        check_path_against_plain(kv_quant, attn_types)
+    check_preemption_on_card()
     check_clip_against_plain()
     check_train_against_plain()
     check_train_against_plain(sparse=True)
-    results, serve_launches, model = serve_flagship()
+    results, serve_launches, model, engine = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
-    del model, results
-    torch.cuda.empty_cache()
+    int8_launches = serve_int8(model, results, engine)
+    check_int8_logits(model)
+    for kv_quant in ("int8", "int8", None):  # phase 7's bf16 profile came first
+        profile_iterations(model, kv_quant=kv_quant)
+    # the staged engine and its pipeline refer to each other: only the
+    # cyclic collector frees their pools before the next phase's peak
+    del model, results, engine
+    release_memory()
+    sparse_serve_launches = serve_sparse_int8()
+    release_memory()
     trainer, batch, train_launches = train_flagship()
     profile_train(trainer, batch)
     vae = trainer.vae
     del trainer
-    torch.cuda.empty_cache()
+    release_memory()
     trainer, sparse_launches = train_sparse(vae, batch)
     profile_train(trainer, batch, label="train sparse profile")
-    paths = (("serve", serve_launches), ("train", train_launches),
+    paths = (("serve", serve_launches), ("serve_int8", int8_launches),
+             ("serve_sparse_int8", sparse_serve_launches), ("train", train_launches),
              ("train_sparse", sparse_launches))
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
 
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 // Ragged paged attention for Hopper (sm_90a), forward only.
 //
 // Replaces the Pallas TPU kernel `_ragged_kernel` behind `kernel_attend`
-// in dalle_pytorch_tpu/ops/ragged_attention.py (unquantized pages; the
-// int8 branch is not ported yet). Python wrapper:
-// dalle_pytorch_tpu_torch/ops/ragged_attention.py:kernel_attend.
+// in dalle_pytorch_tpu/ops/ragged_attention.py, both of its branches:
+// unquantized pages (`ragged_attention_fwd`) and int8 pages with
+// per-(token, head) float32 scale pages (`quant=True`,
+// `ragged_attention_fwd_int8`). Python wrappers:
+// dalle_pytorch_tpu_torch/ops/ragged_attention.py:kernel_attend and
+// kernel_attend_int8.
 //
 // What it computes. q (B, W, h*d) pre-scaled; K/V pools viewed flat as
 // (pages, page, h*d); table (B, n_pages) int32 GLOBAL page ids; start,
@@ -16,13 +19,23 @@
 // (which callers discard) stays finite; the engine issues them at start 0,
 // where that costs one key row. A row whose denominator is 0 writes 0.
 // NEG_INF = -1e30 and p = 0 where s <= 0.5 * NEG_INF, as on the TPU.
-// Probabilities are rounded to the storage type before the value
+// Probabilities are rounded to the compute type before the value
 // product, as the TPU kernel's p.astype(v.dtype) does.
 //
+// Int8 pages. The scale pools are (pages, page, h) float32 and a page's
+// scales are reached through the SAME table entry as its bytes. Each
+// element is dequantized as it is staged: float(int8) * scale[token,
+// head] in float32, then rounded to the compute type T — exactly
+// paged_kv.dequant, whose final cast matters at bf16 (an uncast float32
+// product would differ from the plain version in low bits). The rest of
+// the kernel is the unquantized one: the staging tiles were float32
+// already, so only the page load changes.
+//
 // What bounds it. Bytes: a row reads its frontier's K and V once (at the
-// serving shapes up to 1281 positions x 1024 channels x 2 tensors) and
-// does about 2 * valid_queries * frontier * h*d * 2 flops, far below the
-// ~295 flops per byte at which H100's tensor cores would become the
+// serving shapes up to 1281 positions x 1024 channels x 2 tensors; int8
+// halves that at bf16 and adds 4 bytes per (position, head) of scales)
+// and does about 2 * valid_queries * frontier * h*d * 2 flops, far below
+// the ~295 flops per byte at which H100's tensor cores would become the
 // limit. The design therefore spends nothing on tensor cores: CUDA-core
 // float32 FMAs from shared memory, and it reads only what the frontier
 // needs — pages past it are never loaded (the TPU kernel still streams
@@ -74,10 +87,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+// One staged element of a page: a value of the compute type T as is, or
+// an int8 value dequantized with its (token, head) scale and rounded to T.
+template <typename T>
+__device__ __forceinline__ float load_elem(const T* p, int64_t i, const float*, int64_t) {
+  return to_f32<T>(p[i]);
+}
+template <typename T>
+__device__ __forceinline__ float load_elem(const int8_t* p, int64_t i, const float* scale,
+                                           int64_t si) {
+  return round_to<T>(static_cast<float>(p[i]) * scale[si]);
+}
+
+// S: the pools' storage type, T or int8_t (then k_scale / v_scale are the
+// float32 scale pools; unused otherwise).
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(THREADS) ragged_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int32_t* __restrict__ table,
+    const T* __restrict__ q, const S* __restrict__ k_pool,
+    const S* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ table,
     const int32_t* __restrict__ start, const int32_t* __restrict__ length,
     T* __restrict__ out, int width, int heads, int page, int n_pages) {
   extern __shared__ float smem[];
@@ -119,12 +147,14 @@ __global__ void __launch_bounds__(THREADS) ragged_kernel(
     const int64_t g = table[(int64_t)b * n_pages + j];
     const int kn = min(page, last_pos - j * page + 1);  // rows to load
     __syncthreads();  // the previous page's tiles are no longer read
-    const T* kp = k_pool + g * page * hd + (int64_t)h * D;
-    const T* vp = v_pool + g * page * hd + (int64_t)h * D;
+    const S* kp = k_pool + g * page * hd + (int64_t)h * D;
+    const S* vp = v_pool + g * page * hd + (int64_t)h * D;
+    const int64_t s0 = g * page * heads + h;  // scale of the page's row 0, this head
     for (int x = tid; x < kn * D; x += THREADS) {
       const int r = x / D, c = x % D;
-      ks[r * DP + c] = to_f32<T>(kp[(int64_t)r * hd + c]);
-      vs[r * DP + c] = to_f32<T>(vp[(int64_t)r * hd + c]);
+      const int64_t si = s0 + (int64_t)r * heads;
+      ks[r * DP + c] = load_elem<T>(kp, (int64_t)r * hd + c, k_scale, si);
+      vs[r * DP + c] = load_elem<T>(vp, (int64_t)r * hd + c, v_scale, si);
     }
     __syncthreads();
 
@@ -198,10 +228,11 @@ int smem_bytes(int width, int d, int page) {
   return 4 * (2 * page * (d + 1) + width * d + width * page + 3 * width);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* table,
-           const void* start, const void* length, void* out, int batch,
-           int width, int heads, int page, int n_pages, cudaStream_t stream) {
+template <typename T, typename S, int D>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* table, const void* start,
+           const void* length, void* out, int batch, int width, int heads,
+           int page, int n_pages, cudaStream_t stream) {
   const int smem = smem_bytes(width, D, page);
   int device = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -210,35 +241,37 @@ int launch(const void* q, const void* k, const void* v, const void* table,
   if (err != cudaSuccess) return (int)err;
   if (smem > smem_max) return -1;
   err = cudaFuncSetAttribute(
-      ragged_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ragged_kernel<T, S, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  ragged_kernel<T, D><<<dim3(heads, batch), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int32_t*)table,
-      (const int32_t*)start, (const int32_t*)length, (T*)out, width, heads,
-      page, n_pages);
+  ragged_kernel<T, S, D><<<dim3(heads, batch), THREADS, smem, stream>>>(
+      (const T*)q, (const S*)k, (const S*)v, (const float*)k_scale,
+      (const float*)v_scale, (const int32_t*)table, (const int32_t*)start,
+      (const int32_t*)length, (T*)out, width, heads, page, n_pages);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// S = T for the unquantized pools, int8_t for int8 ones.
+template <typename T, typename S>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const void* table, const void* start, const void* length,
-               void* out, int batch, int width, int heads, int page,
-               int n_pages, cudaStream_t stream) {
+               const void* k_scale, const void* v_scale, const void* table,
+               const void* start, const void* length, void* out, int batch,
+               int width, int heads, int page, int n_pages, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, table, start, length, out, batch, width, heads, page, n_pages, stream);
-    case 64: return launch<T, 64>(q, k, v, table, start, length, out, batch, width, heads, page, n_pages, stream);
-    case 128: return launch<T, 128>(q, k, v, table, start, length, out, batch, width, heads, page, n_pages, stream);
+    case 32: return launch<T, S, 32>(q, k, v, k_scale, v_scale, table, start, length, out, batch, width, heads, page, n_pages, stream);
+    case 64: return launch<T, S, 64>(q, k, v, k_scale, v_scale, table, start, length, out, batch, width, heads, page, n_pages, stream);
+    case 128: return launch<T, S, 128>(q, k, v, k_scale, v_scale, table, start, length, out, batch, width, heads, page, n_pages, stream);
     default: return -1;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success), or -1 for a shape the kernel cannot take: a
-// dim_head other than 32/64/128, a dtype code other than 0/1, a width
-// over MAX_W, or a (width, dim_head, page) whose tiles exceed the card's
-// shared memory per block.
+// dtype: 0 = float32, 1 = bfloat16 (q, the output and, unquantized, the
+// pools). Returns cudaGetLastError() after the launch (0 on success), or
+// -1 for a shape the kernel cannot take: a dim_head other than
+// 32/64/128, a dtype code other than 0/1, a width over MAX_W, or a
+// (width, dim_head, page) whose tiles exceed the card's shared memory
+// per block.
 extern "C" int ragged_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* start, const void* length, void* out, int batch, int width,
@@ -246,8 +279,24 @@ extern "C" int ragged_attention_fwd(
   if (width < 1 || width > MAX_W || batch < 1 || heads < 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_d<float>(dim_head, q, k_pool, v_pool, table, start, length, out, batch, width, heads, page, n_pages, s);
+    return dispatch_d<float, float>(dim_head, q, k_pool, v_pool, nullptr, nullptr, table, start, length, out, batch, width, heads, page, n_pages, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(dim_head, q, k_pool, v_pool, table, start, length, out, batch, width, heads, page, n_pages, s);
+    return dispatch_d<__nv_bfloat16, __nv_bfloat16>(dim_head, q, k_pool, v_pool, nullptr, nullptr, table, start, length, out, batch, width, heads, page, n_pages, s);
+  return -1;
+}
+
+// Int8 pools with float32 scale pools (pages, page, heads); dtype is the
+// compute type of q and the output, as above. Same returns.
+extern "C" int ragged_attention_fwd_int8(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, const void* start,
+    const void* length, void* out, int batch, int width, int heads,
+    int dim_head, int page, int n_pages, int dtype, void* stream) {
+  if (width < 1 || width > MAX_W || batch < 1 || heads < 1) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dispatch_d<float, int8_t>(dim_head, q, k_pool, v_pool, k_scale, v_scale, table, start, length, out, batch, width, heads, page, n_pages, s);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, int8_t>(dim_head, q, k_pool, v_pool, k_scale, v_scale, table, start, length, out, batch, width, heads, page, n_pages, s);
   return -1;
 }

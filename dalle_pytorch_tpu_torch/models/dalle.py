@@ -12,8 +12,8 @@ Two forms, both rotary and causal:
   the weighted split cross-entropy.
 - ``fused_step`` (serving): one ragged block of a mixed prefill+decode
   iteration through the cached transformer; image-only logits at each
-  row's last valid column. Only "full" layers decode: a model with other
-  types raises ``NotImplementedError`` here.
+  row's last valid column. Every layer type decodes ("full" through the
+  ragged kernel, the others through the gathered cache view).
 """
 
 from __future__ import annotations
@@ -140,16 +140,6 @@ class DALLE(nn.Module):
         )
         return logits.float()
 
-    def check_decodable(self) -> None:
-        """Raise ``NotImplementedError`` naming the layer types that the
-        paged decode form does not take (every type but "full")."""
-        other = sorted(set(self.transformer.attn_types) - {"full"})
-        if other:
-            raise NotImplementedError(
-                f"decoding a DALLE with {other} attention layers is not ported; "
-                "only 'full' layers decode"
-            )
-
     def logits_mask(self, n: int) -> torch.Tensor:
         """(n, total_tokens) bool, True = forbidden: text positions may
         only predict text tokens, image positions image tokens."""
@@ -237,7 +227,6 @@ class DALLE(nn.Module):
         ``rowwise_head`` those rows take their logits from a per-row
         M=1 head (the reference's split-prefill head shape), the others
         from the batched head."""
-        self.check_decodable()
         b, n = tokens.shape
         pos = start.long()[:, None] + torch.arange(n, device=tokens.device)
         is_text = pos < self.text_len_internal

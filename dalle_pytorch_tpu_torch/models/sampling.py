@@ -3,7 +3,8 @@
 serving engine).
 
 The cache is explicit per-layer state: each attention layer's paged K/V
-pools, page table and write index (``ops.attention.PagedKV``), and, with
+pools (int8 with their scale pools under ``kv_quant="int8"``), page
+table and write index (``ops.attention.PagedKV``), and, with
 token shift, the attention- and feed-forward-side shift rings with their
 indices (``ops.layers.ShiftRing``). Every index is per row from the
 start (the reference's ``set_decode_offsets`` has nothing to convert),
@@ -39,11 +40,11 @@ class DecodeCache:
     n_pages: int
 
     def reset_row_(self, row: int) -> None:
-        """Return one row to pristine: pools zeroed, table to identity,
-        indices and rings zeroed."""
+        """Return one row to pristine: pools (scale pools included)
+        zeroed, table to identity, indices and rings zeroed."""
         for kv in self.kv:
-            paged_kv.reset_rows_(kv.k, self.n_pages, row)
-            paged_kv.reset_rows_(kv.v, self.n_pages, row)
+            for pool in kv.pools():
+                paged_kv.reset_rows_(pool, self.n_pages, row)
             paged_kv.reset_table_rows_(kv.table, row)
             kv.index[row] = 0
         for ring in (self.attn_rings or []) + (self.ff_rings or []):
@@ -51,11 +52,14 @@ class DecodeCache:
             ring.index[row] = 0
 
 
-def init_decode_cache(dalle, batch_size: int,
-                      page_size: Optional[int] = None) -> DecodeCache:
+def init_decode_cache(dalle, batch_size: int, page_size: Optional[int] = None,
+                      kv_quant: Optional[str] = None) -> DecodeCache:
     """Zeroed paged decode cache for ``batch_size`` rows on the model's
-    device, every row at position 0 (identity tables)."""
+    device, every row at position 0 (identity tables). ``kv_quant``
+    (``kv_policy.QUANTS``; None = "none"): "int8" allocates int8 K/V pools
+    and their float32 (rows * n_pages + 1, page, heads) scale pools."""
     page = kv_policy.page_size(page_size)
+    int8 = kv_policy.resolve_quant(kv_quant) == "int8"
     tr = dalle.transformer
     device, dtype = dalle.device, dalle.dtype
     n_p = paged_kv.num_pages(tr.attn_seq_len, page)
@@ -64,12 +68,20 @@ def init_decode_cache(dalle, batch_size: int,
     def zeros_index():
         return torch.zeros((batch_size,), dtype=torch.int32, device=device)
 
+    def pool(feat, pool_dtype):
+        return paged_kv.alloc(batch_size, n_p, page, feat, pool_dtype, device)
+
+    def scales():
+        return pool(dalle.heads, paged_kv.SCALE_DTYPE) if int8 else None
+
     kv = [
         PagedKV(
-            k=paged_kv.alloc(batch_size, n_p, page, hd, dtype, device),
-            v=paged_kv.alloc(batch_size, n_p, page, hd, dtype, device),
+            k=pool(hd, torch.int8 if int8 else dtype),
+            v=pool(hd, torch.int8 if int8 else dtype),
             table=paged_kv.identity_table(batch_size, n_p, device),
             index=zeros_index(),
+            k_scale=scales(),
+            v_scale=scales(),
         )
         for _ in range(dalle.depth)
     ]

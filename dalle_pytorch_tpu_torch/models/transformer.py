@@ -8,7 +8,8 @@ same around the GEGLU feed-forward; layer i's attention has the type
 sequential execution:
 
 - the DALL-E decode form (``image_fmap_size`` set, the DALL-E rotary
-  table, "full" layers only): one ragged block over a paged decode cache;
+  table, every layer by its type): one ragged block over a paged decode
+  cache;
 - the full-sequence form (``forward(x, mask=...)`` with no cache), every
   attention type but gMLP: the DALL-E training forward (causal, rotary,
   token shift over the whole sequence) and CLIP's encoders

@@ -3,9 +3,15 @@
 "conv_like" and "sparse", each defined by a static may-attend mask
 (``Attention.pattern_mask``, built from ``ops/masks.py``), in two forms:
 
-- decode ("full" only): causal attention over the block-paged cache for
-  the fused serving iteration (``decode=True`` with ``block_len`` set,
-  i.e. ``_paged_caches`` + ``_decode_attend_paged``);
+- decode: one ragged block over the block-paged cache for the fused
+  serving iteration (``decode=True`` with ``block_len`` set, i.e.
+  ``_paged_caches`` + ``_decode_attend_paged``), K/V appended in the
+  compute dtype or quantized to int8 pages with per-(token, head) scales.
+  A causal "full" layer without a key mask runs the ragged kernel
+  (``ragged_attention.kernel_attend``, its int8 instance for int8
+  pages); every other layer attends over the gathered (and dequantized)
+  cache view with the pattern's rows at each query position and the key
+  mask (``Attention._gathered_attend``);
 - full sequence (the non-decode branch), with an optional (b, n) key
   mask and rotary table, dispatched as JAX dispatches on the TPU, the
   same on the CPU and on the card:
@@ -24,8 +30,7 @@
   dense form's function with fewer operations; the port uses the dense
   form where JAX would take them.
 
-The flat/4-D caches, non-"full" patterns and key masks in decode, and
-int8 pages raise.
+The flat/4-D caches are not ported.
 """
 
 from __future__ import annotations
@@ -90,12 +95,19 @@ class PagedKV:
     """One attention layer's paged cache: flat K/V pools
     (rows * n_pages + 1, page, h*d) (see ``paged_kv``), the (b, n_pages)
     int32 page table of global ids, and the per-sequence (b,) int32 write
-    index."""
+    index. Int8 pools come with their float32 scale pools
+    (rows * n_pages + 1, page, h); both are None when unquantized."""
 
     k: torch.Tensor
     v: torch.Tensor
     table: torch.Tensor
     index: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    def pools(self):
+        """Every pool of the layer: content, then scales when int8."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
 
 
 def cache_block_attend(q, k_cache, v_cache, allowed):
@@ -170,11 +182,11 @@ class Attention(nn.Module):
     defined over (text with <bos> plus the image grid for DALL-E); the
     pattern fields ``image_fmap_size`` and ``layout_seed`` (read by
     "sparse" only) are JAX's ``PatternAttention``'s, the others its
-    defaults (``CONV_*``, ``SPARSE_*``). With a paged cache (``kv``) it is the causal
-    "full" decode form: rotary on q, k and v at each token's position, the
-    q * d**-0.5 pre-scale, the masked page append, and the ragged attention
-    core (``ragged_attention.kernel_attend``). Without one it attends over
-    the whole sequence (the module docstring's dispatch)."""
+    defaults (``CONV_*``, ``SPARSE_*``). With a paged cache (``kv``) it is the
+    decode form: rotary on q, k and v at each token's position, the
+    q * d**-0.5 pre-scale, the masked page append (quantized for int8
+    pages), and the attention core of the module docstring. Without one it
+    attends over the whole sequence (the module docstring's dispatch)."""
 
     def __init__(self, dim: int, seq_len: int, heads: int = 8,
                  dim_head: int = 64, attn_type: str = "full",
@@ -228,6 +240,19 @@ class Attention(nn.Module):
                 np.ascontiguousarray(self.pattern_mask()[:n, :n])).to(device)
         return cached
 
+    def decode_rows(self, width: int, device) -> torch.Tensor:
+        """``pattern_mask()`` (L, L) with its columns cut or padded with
+        False to a cache view of ``width`` rows, as a bool tensor on
+        ``device``: row p is what the query at position p may attend."""
+        key = ("decode",) + self._pattern_key(width) + (torch.device(device),)
+        cached = _PATTERN_CACHE.get(key)
+        if cached is None:
+            pm = self.pattern_mask()
+            L = pm.shape[0]
+            pm = pm[:, :width] if width <= L else np.pad(pm, ((0, 0), (0, width - L)))
+            cached = _PATTERN_CACHE[key] = torch.from_numpy(np.ascontiguousarray(pm)).to(device)
+        return cached
+
     def block_layout(self, n: int) -> BlockLayout:
         """The compiled 128-block layout of ``pattern_mask()[:n, :n]``."""
         key = self._pattern_key(n)
@@ -262,30 +287,47 @@ class Attention(nn.Module):
                 pattern = None if self.attn_type == "full" else self.pattern(n, x.device)
                 out = full_attend(qkv, h, d, mask, self.causal, rotary, pattern)
             return self.to_out(out)
-        if self.attn_type != "full":
-            raise NotImplementedError(
-                f"the paged decode form of {self.attn_type!r} attention is not ported"
-            )
-        if not self.causal or mask is not None:
-            raise NotImplementedError(
-                "the paged decode form is causal and takes no key mask"
-            )
         q, k, v = (
             t.reshape(b, n, h, d) for t in self.to_qkv(x).chunk(3, dim=-1)
         )
         idx = block_start
+        pos = idx.long()[:, None] + torch.arange(n, device=x.device)
         if rotary is not None:
-            pos = idx.long()[:, None] + torch.arange(n, device=x.device)
             rows = rotary[pos.clamp(max=rotary.shape[0] - 1)][:, :, None]
             q, k, v = (apply_rotary_emb(rows, t) for t in (q, k, v))
         q = q * d**-0.5
 
-        paged_kv.append_(kv.k, kv.table, idx, k.reshape(b, n, h * d),
-                         limit=block_len)
-        paged_kv.append_(kv.v, kv.table, idx, v.reshape(b, n, h * d),
-                         limit=block_len)
+        rows = [k.reshape(b, n, h * d), v.reshape(b, n, h * d)]
+        if kv.k_scale is not None:
+            # int8 pages: K and V quantized at append (together: one
+            # quantization of the stacked rows), their scales written
+            # through the same slots, so a replay or an overwrite rewrites
+            # bytes and scales alike
+            q8, scales = paged_kv.quantize_rows(torch.cat(rows), h)
+            rows = [*q8.split(b), *scales.split(b)]
+        # ``pools()`` order: K, V, then their scales
+        paged_kv.append_(kv.pools(), kv.table, idx, rows, limit=block_len)
         kv.index = torch.where(block_len > 0, idx + block_len, kv.index)
-        out = ragged_attention.kernel_attend(
-            q.contiguous(), kv.k, kv.v, kv.table, idx, block_len
-        )
+        if self.attn_type == "full" and self.causal and mask is None:
+            out = ragged_attention.kernel_attend(
+                q.contiguous(), kv.k, kv.v, kv.table, idx, block_len,
+                kv.k_scale, kv.v_scale,
+            )
+        else:
+            out = self._gathered_attend(q, kv, pos, mask)
         return self.to_out(out.reshape(b, n, h * d))
+
+    def _gathered_attend(self, q, kv: PagedKV, pos, mask):
+        """The decode form of every layer but the causal "full" one without
+        a key mask: the gathered (and, for int8 pages, dequantized) cache
+        view, the pattern's rows at each query position ``pos`` (b, n),
+        ANDed with the key mask, then ``cache_block_attend``."""
+        k_cache = paged_kv.read(kv.k, kv.table, kv.k_scale, q.dtype)
+        v_cache = paged_kv.read(kv.v, kv.table, kv.v_scale, q.dtype)
+        W = k_cache.shape[1]
+        rows = self.decode_rows(W, q.device)
+        allowed = rows[pos.clamp(max=rows.shape[0] - 1)]  # (b, n, W)
+        if mask is not None:
+            km = mask[:, :W]
+            allowed = allowed & nn.functional.pad(km, (0, W - km.shape[1]))[:, None]
+        return cache_block_attend(q, k_cache, v_cache, allowed)

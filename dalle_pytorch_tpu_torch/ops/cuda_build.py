@@ -31,6 +31,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ragged_attention": {
         "ragged_attention_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        "ragged_attention_fwd_int8": ([_P] * 9 + [_I] * 7 + [_P], _I),
     },
     "fused_qkv_attention": {
         "fused_qkv_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),

@@ -1,10 +1,19 @@
-"""KV-cache page size (counterpart of ``dalle_pytorch_tpu/ops/kv_policy.py``).
+"""KV-cache page size and storage quantization (counterpart of
+``dalle_pytorch_tpu/ops/kv_policy.py``).
 
-Only the paged format with unquantized pools is ported, so the one policy
-left is the page row count. It is an explicit argument here (the engine's
-``EngineConfig.page_size``, ``init_decode_cache(page_size=...)``) rather
-than an environment override: tests shrink it to exercise page-boundary
+The port keeps the paged format only, so two policies remain: the page
+row count and the storage quantization (``QUANTS``: "none" stores K/V in
+the compute dtype, "int8" stores int8 pools with parallel per-(token,
+head) float32 scale pools, ``paged_kv.quantize_rows``). Both are explicit
+arguments here (``EngineConfig.page_size`` / ``kv_quant``,
+``init_decode_cache(page_size=..., kv_quant=...)``) rather than
+environment overrides: tests shrink the page to exercise page-boundary
 arithmetic on tiny models.
+
+Parity tiers under int8: quantized against quantized is bitwise (a
+replayed request re-quantizes the same rows to the same bytes and
+scales); quantized against unquantized is the token-agreement floor
+``KV_QUANT_TOKEN_AGREEMENT_MIN``, never a bitwise claim.
 """
 
 from __future__ import annotations
@@ -12,6 +21,26 @@ from __future__ import annotations
 from typing import Optional
 
 DEFAULT_PAGE_SIZE = 128
+
+QUANTS = ("none", "int8")
+
+# fraction of generated positions whose token matches the unquantized
+# run's (same seeds): a guard against a broken quantizer, far below the
+# ~1.0 a tiny float32 model shows (position-wise agreement is chance
+# level after the first near-tie flip)
+KV_QUANT_TOKEN_AGREEMENT_MIN = 0.5
+
+
+class InvalidKVFormatError(ValueError):
+    """An unknown KV storage format, raised where the policy is resolved
+    (``EngineConfig``/``Engine``, ``init_decode_cache``), naming the valid
+    values, not as a dtype error deep inside cache init."""
+
+    def __init__(self, source: str, got: object, valid: tuple = QUANTS):
+        super().__init__(f"{source} must be one of {valid}, got {got!r}")
+        self.source = source
+        self.got = got
+        self.valid = valid
 
 
 def page_size(override: Optional[int] = None) -> int:
@@ -21,3 +50,13 @@ def page_size(override: Optional[int] = None) -> int:
     if int(override) <= 0:
         raise ValueError(f"page_size must be > 0, got {override!r}")
     return int(override)
+
+
+def resolve_quant(kv_quant: Optional[str]) -> str:
+    """The storage quantization: ``None`` means "none"; a value outside
+    ``QUANTS`` raises ``InvalidKVFormatError``."""
+    if kv_quant is None:
+        return "none"
+    if kv_quant not in QUANTS:
+        raise InvalidKVFormatError("kv_quant", kv_quant)
+    return kv_quant

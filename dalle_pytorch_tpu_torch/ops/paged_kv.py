@@ -14,16 +14,27 @@ the counterpart of the reference's scatter ``mode="drop"``; that keeps
 host with the device. ``pool_view`` gives the reference's
 ``(rows, n_pages, page, feat)`` view of the real pages.
 
+Int8 storage (``kv_policy`` "int8"): content pools hold int8 rows and a
+parallel SCALE pool per content pool holds one float32 scale per (token,
+head), ``(rows * n_pages + 1, page, heads)``. A scale pool is an ordinary
+flat pool with ``feat = heads``, written through the same table, index
+and limit as its content pool (one ``append_`` writes them all), so
+every function here serves it unchanged and a page's scales always
+travel with its bytes.
+
 Functions ending in ``_`` update their first argument in place.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .kv_policy import DEFAULT_PAGE_SIZE
+
+# dtype of the per-(token, head) scales
+SCALE_DTYPE = torch.float32
 
 
 def num_pages(length: int, page_size: int = DEFAULT_PAGE_SIZE) -> int:
@@ -54,23 +65,25 @@ def identity_table(batch: int, n_pages: int, device) -> torch.Tensor:
 
 
 def append_(
-    flat: torch.Tensor,
+    pools: Sequence[torch.Tensor],
     table: torch.Tensor,
     index: torch.Tensor,
-    rows: torch.Tensor,
+    rows: Sequence[torch.Tensor],
     limit: Optional[torch.Tensor] = None,
 ) -> None:
-    """Write ``rows`` (b, n, feat) at per-sequence positions
-    ``index[b] .. index[b] + n`` through ``table`` (b, n_pages) of global
-    ids. Row j of sequence b lands in page ``pos // page`` at offset
+    """Write ``rows[i]`` (b, n, feat_i) into ``pools[i]`` at per-sequence
+    positions ``index[b] .. index[b] + n`` through ``table`` (b, n_pages)
+    of global ids. The pools share one page geometry (a layer's K, V and
+    their scale pools), so the slots are computed once for all of them.
+    Row j of sequence b lands in page ``pos // page`` at offset
     ``pos % page``. Out-of-capacity positions, and (with ``limit`` (b,))
     columns j >= limit[b], are dropped into the sink page: a decode row
     commits one position, a prefill chunk its width, an idle row none."""
-    page = flat.shape[1]
-    sink = flat.shape[0] - 1
+    page = pools[0].shape[1]
+    sink = pools[0].shape[0] - 1
     l_pages = table.shape[1]
-    n = rows.shape[1]
-    j = torch.arange(n, device=flat.device)
+    n = rows[0].shape[1]
+    j = torch.arange(n, device=table.device)
     pos = index.long()[:, None] + j[None]
     logical = pos // page
     off = pos % page
@@ -79,7 +92,8 @@ def append_(
     if limit is not None:
         valid = valid & (j[None] < limit.long()[:, None])
     phys = torch.where(valid, phys, sink)
-    flat[phys, off] = rows.to(flat.dtype)
+    for flat, r in zip(pools, rows, strict=True):
+        flat[phys, off] = r.to(flat.dtype)
 
 
 def gather(flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -88,6 +102,41 @@ def gather(flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     b, l_pages = table.shape
     g = flat[table.long()]  # (b, l_pages, page, feat)
     return g.reshape(b, l_pages * flat.shape[1], flat.shape[2])
+
+
+def read(flat: torch.Tensor, table: torch.Tensor, scales: Optional[torch.Tensor] = None,
+         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The logical cache view of one pool (``gather``), dequantized to
+    ``dtype`` through its scale pool when it is int8."""
+    view = gather(flat, table)
+    return view if scales is None else dequant(view, gather(scales, table), dtype)
+
+
+def quantize_rows(rows: torch.Tensor, heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of K/V rows at append: ``rows``
+    (b, n, heads*d) -> (int8 rows (b, n, heads*d), float32 scales
+    (b, n, heads)). Each (token, head) owns its scale amax/127 (an
+    all-zero one gets 1); values round half to even and clip to +-127.
+    Re-appending the same rows (a preempted request's replay) writes the
+    same bytes and scales."""
+    b, n, hd = rows.shape
+    d = hd // heads
+    assert heads * d == hd, (rows.shape, heads)
+    r = rows.float().reshape(b, n, heads, d)
+    amax = r.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).to(SCALE_DTYPE)
+    q = torch.round(r / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q.reshape(b, n, hd), scale
+
+
+def dequant(view: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """THE dequantization formula, which the int8 ragged kernel applies
+    per page: an int8 (b, W, h*d) view widened to float32, times its
+    float32 (b, W, h) scales, then cast to the compute ``dtype``."""
+    b, W, hd = view.shape
+    h = scales.shape[-1]
+    x = view.float().reshape(b, W, h, hd // h) * scales.float()[..., None]
+    return x.reshape(b, W, hd).to(dtype)
 
 
 def reset_rows_(flat: torch.Tensor, n_pages: int, row: int) -> None:

@@ -6,7 +6,8 @@ iteration is the only mode).
 Request lifecycle: submit -> [rejected] | queued -> admitted (slot and
 prompt pages claimed) -> prefilling (one chunk per iteration under the
 ``TokenBudget``) -> decoding (one token per iteration) -> completed |
-deadline_exceeded | cancelled. With ``stages`` (``postdecode.StageSpec``)
+deadline_exceeded | cancelled | preempt_cap, with preempted -> queued
+again on the way. With ``stages`` (``postdecode.StageSpec``)
 a request whose tokens complete releases its slot and pages and moves
 through the post-decode stages (VAE decode, then CLIP rerank) before it
 ends COMPLETED with an image and a score, or typed-degraded
@@ -31,13 +32,32 @@ Sampling contract: the token at internal position p of a request is a
 pure function of (seed, p) and the logits (``models.sampling.sample``),
 so a request's tokens do not depend on the batch around it.
 
+Page pressure (``page_budget`` below every slot's full sequence).
+Admission is optimistic: a request is admitted when the worst-case pages
+of the budget it would receive fit the free pages at that moment, and
+pages are claimed lazily, so decode growth can still find the pool
+empty. Growth then preempts (``_alloc_or_preempt``): the running slot of
+lowest effective priority, youngest admission first, releases its pages
+and zeroes its cache row; its request is requeued with its tokens
+discarded and aged by ``preempt_priority_boost``, and its replay
+reproduces them bit-identically by the sampling contract. Past
+``max_preemptions`` evictions it ends ``Outcome.PREEMPT_CAP``. Watermark
+degradation: a request admitted while the pool's occupancy is above
+``high_watermark`` has its budget clamped to ``degraded_max_new_tokens``
+(reported as ``RequestResult.clamped_max_new_tokens``).
+
+KV storage (``kv_quant``): "none" keeps K/V pages in the model's dtype,
+"int8" stores int8 pages with per-(token, head) float32 scale pages,
+about half the bytes per slot (``kv_bytes_per_slot``); every layer's
+"full" attention then runs the ragged kernel's int8 instance.
+
+The model may have any of the ported attention types; non-"full" layers
+decode through the gathered cache view (``ops/attention.py``).
+
 Not ported yet: the split prefill/decode path, speculative decoding, the
-prefix cache, int8 KV pages, the journal, vitals and the controller,
-fault injection, telemetry and the token path's watermark degradation
-(``EngineConfig`` has no field for them, so asking for one is a
-``TypeError``), any page budget small enough to need preemption, and
-a model with other attention layers than "full" (both raise
-``NotImplementedError``).
+prefix cache, the journal, vitals and the controller, fault injection,
+prefill retries and telemetry (``EngineConfig`` has no field for them,
+so asking for one is a ``TypeError``).
 """
 
 from __future__ import annotations
@@ -75,6 +95,16 @@ class EngineConfig:
     decode_lookahead: bool = True
     # KV page rows; None = kv_policy.DEFAULT_PAGE_SIZE
     page_size: Optional[int] = None
+    # KV page storage (kv_policy.QUANTS); None = "none"
+    kv_quant: Optional[str] = None
+    # pool occupancy above which newly admitted requests are clamped to
+    # degraded_max_new_tokens (None: no clamp)
+    high_watermark: float = 0.85
+    degraded_max_new_tokens: Optional[int] = None
+    # evictions a request survives; one more ends it PREEMPT_CAP
+    max_preemptions: int = 3
+    # effective-priority gain per eviction (preemption aging)
+    preempt_priority_boost: int = 1
 
 
 _PREFILL = "prefill"
@@ -109,7 +139,7 @@ class Engine:
                 f"the fused iteration needs prefill_chunk >= 2 (the block "
                 f"width), got {config.prefill_chunk}"
             )
-        dalle.check_decodable()
+        self.kv_quant = kv_policy.resolve_quant(config.kv_quant)
         self.device = torch.device(device)
         if dalle.device.type != self.device.type:
             raise ValueError(
@@ -125,20 +155,21 @@ class Engine:
         self.T = dalle.text_len_internal
         self.n_pages_slot = pages_for(self.T + dalle.image_seq_len, self.page)
         full = B * self.n_pages_slot
-        budget = full if config.page_budget is None else config.page_budget
-        if budget < full:
-            raise NotImplementedError(
-                f"page_budget {budget} < {full} (every slot's full sequence) "
-                "needs preemption, which is not ported yet"
-            )
-        self.pool = PagePool(budget)
-        self.sched = Scheduler(config.queue_limit)
+        self.pool = PagePool(full if config.page_budget is None else config.page_budget)
+        self.sched = Scheduler(config.queue_limit, config.preempt_priority_boost)
         self.budget = TokenBudget(
             budget=(config.token_budget if config.token_budget is not None
                     else B + config.prefill_chunk),
             chunk=config.prefill_chunk,
         )
-        self.cache = init_decode_cache(dalle, B, page_size=self.page)
+        self.cache = init_decode_cache(dalle, B, page_size=self.page,
+                                       kv_quant=self.kv_quant)
+        # bytes of K/V storage (content and scale pools) per slot row, from
+        # the pool tensors themselves (the sink page excluded)
+        self.kv_bytes_per_slot = sum(
+            self.n_pages_slot * pool[0].numel() * pool.element_size()
+            for kv in self.cache.kv for pool in kv.pools()
+        )
         self._W = config.prefill_chunk
         self._prompts = torch.zeros((B, self.T), dtype=torch.int32,
                                     device=self.device)
@@ -261,10 +292,13 @@ class Engine:
             entry = self.sched.peek()
             if not free or entry is None:
                 return
-            # strict head-of-line on the worst-case page demand
-            if self._worst_case_pages(entry.request.max_new_tokens) > self.pool.free:
+            # strict head-of-line on the worst-case page demand of the
+            # budget the request would actually receive
+            eff_max_new, clamped = self._clamped_budget(entry.request.max_new_tokens)
+            if self._worst_case_pages(eff_max_new) > self.pool.free:
                 return
             entry = self.sched.pop()
+            entry.effective_max_new, entry.clamped = eff_max_new, clamped
             ok = self.pool.alloc(entry.request_id, pages_for(self.T, self.page))
             assert ok, "admission checked worst-case > prompt pages"
             idx = free[0]
@@ -276,6 +310,17 @@ class Engine:
             )
             self.slots[idx] = _Slot(entry, idx, self._admit_seq)
             self._admit_seq += 1
+
+    def _clamped_budget(self, want: int) -> Tuple[int, bool]:
+        """(effective max_new_tokens, clamped?) under watermark
+        degradation: clamped while the pool's occupancy is above
+        ``high_watermark``."""
+        cfg = self.config
+        if (cfg.degraded_max_new_tokens is not None
+                and self.pool.occupancy > cfg.high_watermark
+                and want > cfg.degraded_max_new_tokens):
+            return cfg.degraded_max_new_tokens, True
+        return want, False
 
     def _worst_case_pages(self, max_new: int) -> int:
         # positions written: the prompt plus every generated token but
@@ -292,7 +337,7 @@ class Engine:
             s for s in self.slots
             if s and s.phase == _PREFILL and s.filled < self.T
         ]
-        pre.sort(key=lambda s: (-s.entry.request.priority, s.admit_seq))
+        pre.sort(key=lambda s: (-self.sched.effective_priority(s.entry), s.admit_seq))
         grants = self.budget.plan_iteration(
             decode_tokens, [self._next_chunk(s.filled) for s in pre]
         )
@@ -307,15 +352,17 @@ class Engine:
             s for s in self.slots
             if s and s.phase == _DECODE
             and len(s.entry.generated) + (id(s) in in_flight)
-            < s.entry.request.max_new_tokens
+            < s.entry.effective_max_new
         ]
-        for s in dispatchable:
-            # pages covering [0, pos]; the budget covers every slot's full
-            # sequence, so growth cannot fail
+        # page growth, highest effective priority first: pages covering
+        # [0, pos], preempting when the pool runs short
+        for s in sorted(dispatchable, key=lambda s: -self.sched.effective_priority(s.entry)):
+            if self.slots[s.index] is not s:
+                continue  # preempted by an earlier slot's growth
             deficit = s.pos // self.page + 1 - self.pool.held(s.entry.request_id)
             if deficit > 0:
-                ok = self.pool.alloc(s.entry.request_id, deficit)
-                assert ok, "page budget below physical capacity"
+                self._alloc_or_preempt(s, deficit)
+        dispatchable = [s for s in dispatchable if self.slots[s.index] is s]
         chunks = self._plan_fused_prefills(len(dispatchable))
 
         worked = False
@@ -390,8 +437,10 @@ class Engine:
         return sample(filtered, seeds, draw_pos)
 
     def _fused_readback(self, prev) -> None:
-        """Record one iteration's tokens (dropping rows terminated since
-        dispatch) and complete slots that reached their budget."""
+        """Record one iteration's tokens (dropping rows terminated or
+        preempted since dispatch) and complete slots that reached their
+        budget. The first token's time is kept across preemption: the
+        client saw the first production, the replay regenerates it."""
         samples, entries = prev
         samples = samples.cpu().numpy()
         for s, kind in entries:
@@ -402,9 +451,48 @@ class Engine:
                 s.entry.generated.append(s.tok)
             else:
                 s.entry.generated = [s.tok]
-                s.entry.ttft_s = self.clock.now() - s.entry.submit_time
-            if len(s.entry.generated) >= s.entry.request.max_new_tokens:
+                if s.entry.ttft_s is None:
+                    s.entry.ttft_s = self.clock.now() - s.entry.submit_time
+            if len(s.entry.generated) >= s.entry.effective_max_new:
                 self._complete(s)
+
+    # -------------------------------------------------------- preemption
+
+    def _alloc_or_preempt(self, slot: _Slot, n: int) -> None:
+        """Allocate ``n`` pages for ``slot``, preempting victims until they
+        fit or the slot itself was the victim."""
+        while not self.pool.alloc(slot.entry.request_id, n):
+            victim = self._pick_victim()
+            self._preempt(victim)
+            if victim is slot:
+                return
+
+    def _pick_victim(self) -> _Slot:
+        """Lowest effective priority first; within one, the youngest
+        admission (least work lost, shortest replay). Prefilling slots are
+        victims like any other."""
+        return min(
+            (s for s in self.slots if s),
+            key=lambda s: (self.sched.effective_priority(s.entry), -s.admit_seq),
+        )
+
+    def _preempt(self, slot: _Slot) -> None:
+        """Release the slot (pages back, cache row zeroed, scale pools
+        included) and requeue its request from scratch, or end it
+        PREEMPT_CAP past ``max_preemptions``. A sample of it still in
+        flight is dropped at readback."""
+        self._release_slot(slot)
+        entry = slot.entry
+        entry.preempt_count += 1
+        if entry.preempt_count > self.config.max_preemptions:
+            self._finish(entry, Outcome.PREEMPT_CAP,
+                         tokens=np.asarray(entry.generated, np.int32),
+                         detail=f"evicted {entry.preempt_count} times "
+                                f"(cap {self.config.max_preemptions})")
+            return
+        entry.generated = []
+        entry.admit_time = None
+        self.sched.requeue(entry)
 
     # ---------------------------------------------------------- plumbing
 
@@ -447,6 +535,8 @@ class Engine:
             request_id=entry.request_id,
             outcome=outcome,
             tokens=tokens,
+            preempt_count=entry.preempt_count,
+            clamped_max_new_tokens=entry.effective_max_new if entry.clamped else None,
             queue_latency_s=(
                 None if entry.admit_time is None
                 else entry.admit_time - entry.submit_time

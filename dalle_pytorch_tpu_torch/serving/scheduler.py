@@ -4,7 +4,9 @@
 ``PagePool`` is the logical page budget over the per-slot physical pools.
 Admission charges a request's WORST-CASE demand against free pages; pages
 are allocated lazily (prompt pages at admission, one more when decode
-crosses a page boundary). Admission is strict head-of-line.
+crosses a page boundary), so admitted requests can still exhaust a budget
+below full capacity as they grow: the engine then preempts one and
+requeues it here. Admission is strict head-of-line.
 """
 
 from __future__ import annotations
@@ -100,9 +102,17 @@ class Entry:
     request: Request
     submit_time: float
     seq: int                      # submission order; FIFO tiebreak
+    preempt_count: int = 0
+    # set at admission: the budget this residency generates, clamped by
+    # watermark degradation
+    effective_max_new: int = 0
+    clamped: bool = False
     admit_time: Optional[float] = None
     ttft_s: Optional[float] = None
     generated: List[int] = field(default_factory=list)
+    # whether this queue residency counts against the queue bound (True
+    # for fresh submissions, False for preemption requeues)
+    counted: bool = True
 
     @property
     def request_id(self) -> str:
@@ -110,28 +120,52 @@ class Entry:
 
 
 class Scheduler:
-    """Bounded priority queue: highest priority first, FIFO within one."""
+    """Bounded priority queue with preemption aging: highest effective
+    priority first, FIFO within one. The effective priority is the
+    request's own plus ``preempt_count * preempt_priority_boost``, so every
+    eviction ages a request upward and a stream of higher-priority
+    arrivals cannot evict it forever (``EngineConfig.max_preemptions`` is
+    the backstop)."""
 
-    def __init__(self, queue_limit: int):
+    def __init__(self, queue_limit: int, preempt_priority_boost: int = 1):
         assert queue_limit >= 0
         self.queue_limit = queue_limit
+        self.preempt_priority_boost = preempt_priority_boost
         self._heap: List[tuple] = []
+        self._size = 0  # entries counted against queue_limit
 
     def __len__(self) -> int:
         return len(self._heap)
 
+    def effective_priority(self, entry: Entry) -> int:
+        return entry.request.priority + entry.preempt_count * self.preempt_priority_boost
+
+    def _push(self, entry: Entry) -> None:
+        heapq.heappush(self._heap, (-self.effective_priority(entry), entry.seq, entry))
+
     def submit(self, entry: Entry) -> bool:
         """Queue a new submission; False when the queue is full."""
-        if len(self._heap) >= self.queue_limit:
+        if self._size >= self.queue_limit:
             return False
-        heapq.heappush(self._heap, (-entry.request.priority, entry.seq, entry))
+        entry.counted = True
+        self._size += 1
+        self._push(entry)
         return True
+
+    def requeue(self, entry: Entry) -> None:
+        """Re-queue a preempted request, outside the queue bound: it won
+        admission once, and an internal eviction must not turn into a
+        client-visible reject."""
+        entry.counted = False
+        self._push(entry)
 
     def peek(self) -> Optional[Entry]:
         return self._heap[0][2] if self._heap else None
 
     def pop(self) -> Entry:
-        return heapq.heappop(self._heap)[2]
+        entry = heapq.heappop(self._heap)[2]
+        self._size -= entry.counted
+        return entry
 
     def remove(self, request_id: str) -> Optional[Entry]:
         """Pull a queued entry out by id (cancellation / deadline sweep)."""
@@ -140,6 +174,7 @@ class Scheduler:
                 self._heap[i] = self._heap[-1]
                 self._heap.pop()
                 heapq.heapify(self._heap)
+                self._size -= entry.counted
                 return entry
         return None
 

@@ -25,6 +25,9 @@ class Outcome(str, Enum):
     REJECTED = "rejected"
     DEADLINE_EXCEEDED = "deadline_exceeded"
     CANCELLED = "cancelled"
+    # evicted under page pressure more than EngineConfig.max_preemptions
+    # times
+    PREEMPT_CAP = "preempt_cap"
     # typed-degraded completions from the post-decode pipeline
     # (serving/postdecode.py): the token work succeeded but a stage was
     # shed by retry exhaustion, backlog or occupancy past the stage
@@ -43,8 +46,10 @@ class Request:
     """One generation request. ``prompt`` is the RAW text-token row
     ((text_seq_len,) int, 0-padded); the engine remaps it and prepends
     <bos>. ``deadline`` is absolute on the engine's clock. ``priority``:
-    higher runs first. ``seed`` keys the request's private sampling
-    stream: the token at internal position p depends only on (seed, p)."""
+    higher runs first and is evicted last. ``seed`` keys the request's
+    private sampling stream: the token at internal position p depends only
+    on (seed, p), which is what makes a preempted request's replay
+    reproduce its tokens bit-identically."""
 
     request_id: str
     prompt: np.ndarray
@@ -59,11 +64,17 @@ class RequestResult:
     request_id: str
     outcome: Outcome
     # generated image-token ids: complete for COMPLETED, the read-back
-    # prefix for deadline/cancel terminations, None if never prefilled
+    # prefix for deadline/cancel/preempt-cap terminations, None if never
+    # prefilled
     tokens: Optional[np.ndarray] = None
     reject_reason: Optional[RejectReason] = None
+    preempt_count: int = 0
+    # set when watermark degradation clamped the request's budget: the
+    # response carries the clamp instead of silently generating less
+    clamped_max_new_tokens: Optional[int] = None
     queue_latency_s: Optional[float] = None
-    # submit -> the first image token read back
+    # submit -> the first image token read back; a preempted request
+    # keeps its first production's (the replay regenerates the token)
     ttft_s: Optional[float] = None
     total_latency_s: Optional[float] = None
     # post-decode pipeline results: the decoded image (H, W, C float32,

@@ -10,6 +10,12 @@ products, so one bf16 ulp of a lone term is 0.4-0.8% of a row; a row whose
 exact gradient is 0 holds only rounding noise). Rows the masks force to 0
 must be exactly 0.
 
+The ragged kernel's two instances (unquantized and int8 pages) are held
+on valid columns at ``RAGGED_F32_ATOL`` / ``RAGGED_BF16_RTOL`` over the
+inputs of ``ragged_inputs``. Int8 pages against unquantized ones are a
+different function: their teacher-forced logits are held within
+``INT8_LOGITS_REL`` (``teacher_forced_logits``, ``rel_l2``).
+
 The block-sparse kernels (forward, dq, dk/dv) are held the same way:
 float32 o and lse within abs ``BS_F32_ATOL`` and each gradient part within
 ``BWD_F32_REL``; bfloat16 each query row's o error within
@@ -24,14 +30,30 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .ops import block_sparse_attention as bs
 from .ops import flash_attention as fa
-from .ops import masks
+from .ops import masks, paged_kv
 from .ops.rotary import dalle_rotary_table, rot_tables
 
 BWD_F32_REL, BWD_BF16_ROW_REL = 1e-5, 2e-2
 BS_F32_ATOL, BS_BF16_ROW_REL = 1e-5, 1e-2
+# the ragged kernel (both instances) against its plain version on valid
+# columns: float32 max abs error; bfloat16 the error's L2 norm over a
+# query column's h*d outputs relative to the plain column's norm (two
+# bf16 roundings of the output are ~0.4%; a page missed or attended twice
+# moves a column by 10% or more). The int8 instance's plain version
+# applies the same dequant formula, so quantization error does not enter.
+RAGGED_F32_ATOL, RAGGED_BF16_RTOL = 1e-5, 1e-2
+# teacher-forced image logits through int8 pages against the same model's
+# unquantized pages, relative L2 error over every logit (``rel_l2``).
+# Measured on the CPU (``teacher_forced_logits``, 16-token chunks, seeded
+# ``init_weights``): float32 dim 64-256, depth 4: 2.5e-4 to 8.1e-4; bf16
+# dim 256, depth 4 (dense or the four-type cycle): 5.6e-3 to 5.7e-3; bf16
+# at the flagship width (dim 1024, depth 12, 16 x 64) with text 64 + an
+# 8 x 8 grid: 2.35e-2. A wrong scale or page moves logits by far more.
+INT8_LOGITS_REL = 5e-2
 
 
 def _part_errors(got_parts, plain_parts, dead):
@@ -153,3 +175,101 @@ def bwd_inputs(case: str, dtype, device, seed: int = 0):
     do = torch.from_numpy(rng.randn(b, n, h * d).astype(np.float32)).to(device, dtype)
     o, lse = fa.reference_fused_qkv(qkv, h, d, **opts)
     return qkv, o, lse, do, h, d, opts
+
+
+def teacher_forced_logits(dalle, cache, text, image, chunk: int) -> torch.Tensor:
+    """``DALLE.fused_step`` driven teacher-forced through ``cache``: the
+    remapped prompt of ``text`` (b, text_seq_len) in chunks of ``chunk``
+    columns, then one decode step per column of ``image`` (b, m) at the
+    positions after it. Returns (b, 1 + m, num_image_tokens) float32: the
+    image logits after the prompt, then after each image token."""
+    dev = dalle.device
+    prompt = dalle.remap_text(text.to(dev)).to(torch.int32)
+    image = image.to(dev, torch.int32)
+    b, T = prompt.shape
+    final = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    def step(tokens, start, length):
+        full = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)  # noqa: E731
+        return dalle.fused_step(F.pad(tokens, (0, chunk - tokens.shape[1])), full(start),
+                                full(length), final, cache)
+
+    for s in range(0, T, chunk):
+        logits = step(prompt[:, s:s + chunk], s, min(chunk, T - s))
+    out = [logits]
+    for j in range(image.shape[1]):
+        out.append(step(image[:, j:j + 1], T + j, 1))
+    return torch.stack(out, 1)
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref|| / ||ref|| over every entry, in float32."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+# (batch, width, heads, dim_head, page, pages per row, start, length) of
+# ``ragged_inputs``' cases
+_RAGGED_CASES = {
+    # the flagship serving iteration: decode rows at scattered positions
+    # and on both sides of a page boundary, a row at the sequence's end,
+    # full-width prefill chunks (one crossing a page boundary) and an idle
+    # row at start 0, as the engine issues it
+    "serve": (8, 16, 16, None, 128, 11,
+              (300, 639, 640, 1279, 0, 120, 256, 0), (1, 1, 1, 1, 16, 16, 1, 0)),
+    # decode rows on and past a page boundary, a full-width chunk across
+    # one, a short chunk, a row near the end, an idle row
+    "small": (6, 8, 2, None, 128, 4, (127, 128, 124, 250, 509, 3), (1, 1, 8, 3, 1, 0)),
+}
+
+
+def ragged_inputs(case: str, dtype, device, int8: bool = False, dim_head: int = 64,
+                  permuted: bool = True, seed: int = 0):
+    """(q, k, v, k_scales, v_scales, table, start, length) of the ragged
+    kernel, made with numpy from ``seed``: q and the K/V rows standard
+    normal x 0.3, q in ``dtype``; pools flat (rows * n_pages + 1, page,
+    h*d) in ``dtype``, or with ``int8`` quantized by
+    ``paged_kv.quantize_rows`` beside their float32 scale pools (else the
+    scales are None). ``permuted``: every page moved to a random slot of
+    the storage and the table permuted with it, so rows stream pages (and
+    scales) from other rows' storage; else the identity table. ``case``:
+    "serve" (the flagship: 8 rows of 16 columns, 16 heads of ``dim_head``,
+    pages of 128, 11 per row) or "small" (6 rows of 8, 2 heads of
+    ``dim_head``, 4 pages)."""
+    b, n, h, d, page, n_p, start, length = _RAGGED_CASES[case]
+    d = d or dim_head
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, n, h, d).astype(np.float32) * 0.3).to(device, dtype)
+    perm = rng.permutation(b * n_p) if permuted else np.arange(b * n_p)
+
+    def flat(t):
+        out = paged_kv.alloc(b, n_p, page, t.shape[-1], t.dtype, "cpu")
+        out[perm] = t.reshape(b * n_p, page, -1)
+        return out.to(device)
+
+    kv, scales = [], []
+    for _ in range(2):
+        rows = torch.from_numpy(rng.randn(1, b * n_p * page, h * d).astype(np.float32) * 0.3)
+        if int8:
+            rows, sc = paged_kv.quantize_rows(rows, h)
+            scales.append(flat(sc))
+        else:
+            scales.append(None)
+        kv.append(flat(rows.to(torch.int8 if int8 else dtype)))
+    ident = paged_kv.identity_table(b, n_p, "cpu")
+    table = torch.from_numpy(perm).to(torch.int32)[ident.long()].to(device)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)  # noqa: E731
+    return (q, *kv, *scales, table, i32(start), i32(length))
+
+
+def ragged_errors(got, plain, length):
+    """(max abs error, max column-relative L2 error over h*d) of the
+    ragged kernel against its plain version on valid columns."""
+    valid = torch.arange(got.shape[1], device=got.device)[None] < length[:, None]
+    diff = (got.float() - plain.float())[valid].flatten(1)
+    ref = plain.float()[valid].flatten(1).norm(dim=1)
+    return diff.abs().max().item(), (diff.norm(dim=1) / ref).max().item()
+
+
+def ragged_ok(dtype, err: float, rel: float) -> bool:
+    return err <= RAGGED_F32_ATOL if dtype == torch.float32 else rel <= RAGGED_BF16_RTOL

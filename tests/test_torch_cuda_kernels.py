@@ -12,7 +12,6 @@ import torch
 
 from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
 from dalle_pytorch_tpu_torch.ops import flash_attention as fa
-from dalle_pytorch_tpu_torch.ops import paged_kv
 from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
 from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 from dalle_pytorch_tpu_torch.testing import (
@@ -25,6 +24,9 @@ from dalle_pytorch_tpu_torch.testing import (
     bs_inputs,
     bwd_errors,
     bwd_inputs,
+    ragged_errors,
+    ragged_inputs,
+    ragged_ok,
 )
 
 
@@ -39,38 +41,20 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("dim_head", [32, 64, 128])
 def test_ragged_kernel_matches_plain(cuda, dtype, dim_head):
-    """Decode rows on and past page boundaries, a full-width and a short
-    chunk, an idle row, through a permuted global-id table; valid columns
-    agree (float32: abs 1e-5; bfloat16: each query column's error norm
-    over h*d within 1% of the plain column's norm, where two bf16
-    roundings of the output give ~0.4%), every output is finite, and each
-    call counts one launch."""
-    b, n, h, page, n_p = 6, 8, 2, 128, 4
-    rng = np.random.RandomState(dim_head)
-    q = torch.from_numpy(rng.randn(b, n, h, dim_head).astype(np.float32) * 0.3)
-    k = paged_kv.alloc(b, n_p, page, h * dim_head, torch.float32, "cpu")
-    v = paged_kv.alloc(b, n_p, page, h * dim_head, torch.float32, "cpu")
-    k[:-1] = torch.from_numpy(rng.randn(*k[:-1].shape).astype(np.float32) * 0.3)
-    v[:-1] = torch.from_numpy(rng.randn(*v[:-1].shape).astype(np.float32) * 0.3)
-    perm = torch.from_numpy(rng.permutation(b * n_p))
-    k[perm], v[perm] = k[:-1].clone(), v[:-1].clone()
-    table = perm[paged_kv.identity_table(b, n_p, "cpu").long()].to(torch.int32)
-    start = torch.tensor([127, 128, 0, 250, 509, 3], dtype=torch.int32)
-    length = torch.tensor([1, 1, 8, 3, 1, 0], dtype=torch.int32)
-    args = [q.to(dtype), k.to(dtype), v.to(dtype), table, start, length]
-    plain = ra.reference_attend(*args[:5]).float()
+    """``testing.ragged_inputs("small")``: decode rows on and past page
+    boundaries, a full-width chunk across one and a short chunk, an idle
+    row, through a permuted global-id table; valid columns agree at
+    ``RAGGED_F32_ATOL`` / ``RAGGED_BF16_RTOL``, every output is finite,
+    and each call counts one launch."""
+    q, k, v, _, _, table, start, length = ragged_inputs("small", dtype, "cpu", dim_head=dim_head)
+    plain = ra.reference_attend(q, k, v, table, start)
     before = ra.kernel_attend.launches
-    got = ra.kernel_attend(*(a.to(cuda) for a in args))
+    got = ra.kernel_attend(*(t.to(cuda) for t in (q, k, v, table, start, length)))
     torch.cuda.synchronize()
     assert ra.kernel_attend.launches == before + 1
-    got = got.float().cpu()
     assert torch.isfinite(got).all()
-    valid = torch.arange(n)[None] < length[:, None]
-    if dtype == torch.float32:
-        torch.testing.assert_close(got[valid], plain[valid], atol=1e-5, rtol=0)
-    else:
-        diff = (got[valid] - plain[valid]).flatten(1).norm(dim=1)
-        assert (diff <= 1e-2 * plain[valid].flatten(1).norm(dim=1)).all(), diff
+    err, rel = ragged_errors(got.cpu(), plain, length)
+    assert ragged_ok(dtype, err, rel), (err, rel)
 
 
 @pytest.mark.gpu
@@ -82,6 +66,45 @@ def test_ragged_kernel_rejects_what_it_cannot_take(cuda):
         ra.kernel_attend(q, flat, flat, i32([0]), i32(0), i32(1))
     with pytest.raises(TypeError):
         ra.kernel_attend(q.half(), flat.half(), flat.half(), i32([0]), i32(0), i32(1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+def test_ragged_int8_kernel_matches_plain(cuda, dtype, dim_head):
+    """The int8 instance on int8 pools and their scale pools, permuted
+    together: valid columns agree with ``reference_attend`` (the same
+    dequant formula) at the unquantized kernel's tolerances; the call
+    counts one int8 launch and no unquantized one; two runs are
+    bit-identical."""
+    args = ragged_inputs("small", dtype, cuda, int8=True, dim_head=dim_head)
+    q, k, v, ks, vs, table, start, length = args
+    plain = ra.reference_attend(q, k, v, table, start, ks, vs)
+    before = (ra.kernel_attend.launches, ra.kernel_attend_int8.launches)
+    got = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
+    again = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
+    torch.cuda.synchronize()
+    assert (ra.kernel_attend.launches, ra.kernel_attend_int8.launches) == (before[0], before[1] + 2)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    err, rel = ragged_errors(got, plain, length)
+    assert ragged_ok(dtype, err, rel), (err, rel)
+
+
+@pytest.mark.gpu
+def test_ragged_int8_kernel_rejects_what_it_cannot_take(cuda):
+    q, k, v, ks, vs, table, start, length = ragged_inputs("small", torch.float32, cuda, int8=True)
+    with pytest.raises(TypeError):  # scale pools beside float pools
+        ra.kernel_attend(q, k.float(), v.float(), table, start, length, ks, vs)
+    with pytest.raises(TypeError):  # scales of another dtype
+        ra.kernel_attend(q, k, v, table, start, length, ks.half(), vs.half())
+    with pytest.raises(ValueError):  # a scale pool of the wrong width
+        ra.kernel_attend(q, k, v, table, start, length, ks[..., :1].contiguous(), vs)
+    with pytest.raises(TypeError):  # q of a type the kernel has no instance for
+        ra.kernel_attend(q.half(), k, v, table, start, length, ks, vs)
+    q, k, v, ks, vs, table, start, length = ragged_inputs(
+        "small", torch.float32, cuda, int8=True, dim_head=48)
+    with pytest.raises(ValueError):  # dim_head 48: no instance
+        ra.kernel_attend(q, k, v, table, start, length, ks, vs)
 
 
 def _column_rel_err(got, plain):

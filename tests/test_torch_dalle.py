@@ -28,10 +28,11 @@ CONFIG = dict(dim=64, depth=2, num_text_tokens=16, text_seq_len=6,
               num_image_tokens=20, image_fmap_size=4, heads=2, dim_head=32)
 
 
-def tiny_models(seed=0):
+def tiny_models(seed=0, **config):
     """(JAX DALLE, its params with every leaf perturbed, the converted port
-    model on the CPU in float32)."""
-    jmodel = JDALLE(**CONFIG)
+    model on the CPU in float32); ``config`` overrides ``CONFIG``."""
+    config = {**CONFIG, **config}
+    jmodel = JDALLE(**config)
     params = jmodel.init(
         jax.random.key(seed), jnp.ones((1, 6), jnp.int32), jnp.zeros((1, 16), jnp.int32)
     )["params"]
@@ -43,7 +44,7 @@ def tiny_models(seed=0):
         + 0.02 * rng.randn(*a.shape).astype(np.float32),
         params,
     )
-    model = DALLE(**CONFIG, device="cpu", dtype=torch.float32)
+    model = DALLE(**config, device="cpu", dtype=torch.float32)
     model.load_state_dict(dalle_state_dict(params))
     return jmodel, params, model
 

@@ -5,9 +5,10 @@ requests with different budgets (one queues behind the other two). With
 ``filter_thres`` set so that top-k keeps one logit, sampling is greedy and
 no longer depends on either framework's random bits, so the token lists
 must be IDENTICAL. Port-only checks: the same seeds replay the same
-tokens, deadlines and cancellation end typed, and the options this slice
-does not port fail: the JAX engine's options that have no field here are a
-TypeError, a page budget that would need preemption NotImplementedError."""
+tokens, deadlines and cancellation end typed, and the JAX engine's options
+that have no field here are a TypeError. Int8 pages, page pressure and
+the sparse configuration are held by test_torch_kv_quant.py,
+test_torch_preemption.py and test_torch_sparse_serve.py."""
 
 import numpy as np
 import pytest
@@ -99,10 +100,8 @@ def test_deadline_and_cancel_end_typed():
 
 @pytest.mark.parametrize("kwargs,error", [
     (dict(fused_iteration=False), TypeError), (dict(spec_decode=True), TypeError),
-    (dict(prefix_cache=True), TypeError), (dict(kv_quant="int8"), TypeError),
-    (dict(vitals=True), TypeError), (dict(page_budget=3), NotImplementedError),
-], ids=["fused_iteration", "spec_decode", "prefix_cache", "kv_quant", "vitals",
-        "page_budget"])
+    (dict(prefix_cache=True), TypeError), (dict(vitals=True), TypeError),
+], ids=["fused_iteration", "spec_decode", "prefix_cache", "vitals"])
 def test_unported_engine_options_raise(kwargs, error):
     _, _, model = tiny_models()
     with pytest.raises(error):

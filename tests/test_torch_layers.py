@@ -131,8 +131,8 @@ def test_paged_append_with_limit_and_gather():
             jnp.asarray(pool), jnp.asarray(perm), jnp.asarray(index, jnp.int32),
             jnp.asarray(rows), limit=jnp.asarray(limit, jnp.int32),
         ))
-        paged_kv.append_(flat, torch.from_numpy(perm), torch.tensor(index, dtype=torch.int32),
-                         torch.from_numpy(rows), limit=torch.tensor(limit, dtype=torch.int32))
+        paged_kv.append_([flat], torch.from_numpy(perm), torch.tensor(index, dtype=torch.int32),
+                         [torch.from_numpy(rows)], limit=torch.tensor(limit, dtype=torch.int32))
         np.testing.assert_array_equal(paged_kv.pool_view(flat, b).numpy(), pool)
     np.testing.assert_array_equal(
         paged_kv.gather(flat, torch.from_numpy(perm)).numpy(),

@@ -118,13 +118,16 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 def test_scale_pools_are_refused():
-    """Int8 pages are the next piece of this kernel; until then the
-    wrapper refuses scale pools instead of ignoring them."""
+    """Scale pools belong to int8 pools, both or neither: one scale pool
+    alone, or scale pools beside pools of the compute dtype, is refused
+    instead of ignored."""
     q, k, v = _inputs()
     i32 = lambda a: torch.as_tensor(a, dtype=torch.int32)  # noqa: E731
     scales = torch.ones(B * NP + 1, PAGE, H)
-    with pytest.raises(NotImplementedError):
-        ra.kernel_attend(torch.from_numpy(q), _flat(k), _flat(v),
-                         i32(np.array(jpaged.identity_table(B, NP))),
-                         i32([0] * B), i32([1] * B), k_scales=scales,
-                         v_scales=scales)
+    args = (torch.from_numpy(q), _flat(k), _flat(v),
+            i32(np.array(jpaged.identity_table(B, NP))), i32([0] * B), i32([1] * B))
+    with pytest.raises(TypeError):
+        ra.kernel_attend(*args, k_scales=scales, v_scales=scales)
+    int8 = [a.to(torch.int8) for a in args[1:3]]
+    with pytest.raises(ValueError):
+        ra.kernel_attend(args[0], *int8, *args[3:], k_scales=scales)

@@ -15,8 +15,8 @@ JAX-initialised, every leaf perturbed, and converted. At
   1e-3 and each moment's within 1e-5, losses to rtol 1e-5.
 
 Also: layer i's attention type, layout seed and pattern are JAX's;
-``DalleTrainer`` builds and trains the four-type cycle; the slice's typed
-refusals (gMLP layers, serving a model with non-"full" layers).
+``DalleTrainer`` builds and trains the four-type cycle and refuses gMLP
+layers. Serving this configuration is held by test_torch_sparse_serve.py.
 """
 
 import math
@@ -36,11 +36,9 @@ from dalle_pytorch_tpu.parallel import make_train_step as j_make_step
 from dalle_pytorch_tpu_torch import train_dalle
 from dalle_pytorch_tpu_torch.convert import dalle_state_dict, vae_state_dict
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
-from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache
 from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
 from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
 from dalle_pytorch_tpu_torch.parallel.step import create_train_state, make_train_step
-from dalle_pytorch_tpu_torch.serving.engine import Engine
 
 torch.set_num_threads(2)
 
@@ -239,18 +237,3 @@ def test_trainer_trains_the_four_type_cycle():
 def test_trainer_refuses_gmlp_layers():
     with pytest.raises(NotImplementedError, match="mlp"):
         train_dalle.DalleTrainer(_vae(), device="cpu", attn_types="full,mlp")
-
-
-def test_serving_a_sparse_model_is_refused(jax_model):
-    """The paged decode form takes "full" layers only: the engine refuses
-    the model at construction and ``fused_step`` refuses it too, naming
-    the other types."""
-    model = _port(jax_model[1])
-    with pytest.raises(NotImplementedError, match="axial_col.*axial_row.*conv_like"):
-        Engine(model, device="cpu")
-    cache = init_decode_cache(DALLE(**{**CONFIG, "attn_types": None}, device="cpu"), 1,
-                              page_size=4)
-    z = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="conv_like"):
-        model.fused_step(torch.zeros(1, 2, dtype=torch.int32), z, z + 1,
-                         torch.zeros(1, dtype=torch.bool), cache)
