@@ -75,6 +75,13 @@ line):
    forward, dq and dk/dv kernels (axial_row and conv_like layers) and the
    packed-qkv forward and backward (full and axial_col layers) launched
    depth / 2 x (steps + retries) times each; then profiled as phase 9.
+11. train 512: the flagship DALLE at 512 px (a 64 x 64 image grid, n
+   4,352 positions; the flagship VAE with image_size 512 encodes 4 seeded
+   512 px images to (4, 4096) tokens), float32, otherwise as phase 8: 10
+   steps on one batch, every loss finite and the last below the first,
+   the tiled flash forward, dq and dk/dv kernels launched depth x (steps
+   + retries) times each and no other attention kernel; then profiled as
+   phase 9.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -83,9 +90,18 @@ pattern masks, and the three block-sparse kernels (forward, dq, dk/dv)
 at the flagship training shape with the axial_row and conv_like layouts
 and at a ragged n with a key mask that kills whole rows (dim_head 32,
 64, 128), each timed beside its plain version, the packed kernel with
-the same pattern, and ``scaled_dot_product_attention``. Phase 4 also
-checks a small float32 DALLE's loss and every parameter gradient, card
-against CPU, for the full model and for the four-type sparse cycle.
+the same pattern, and ``scaled_dot_product_attention``; and the four
+tiled flash kernels (forward, dq, dk/dv, single-block backward) on
+``testing.flash_inputs``: the 512 px training shape (b 4, 16 heads of
+64, n 4352, causal), its axial_col pattern, a key mask with fully masked
+rows at dim_head 32/64/96/128, non-causal, a pattern at a small n, and
+one flash block of 1280 at 3 heads, float32 and bfloat16, each timed at
+its main path's shape beside its plain version and
+``scaled_dot_product_attention``. Phase 4 also checks a small float32
+DALLE's loss and every parameter gradient, card against CPU, for the
+full model, for the four-type sparse cycle, at n 1152 (the tiled
+kernels, dq then dk/dv) and at n 384 with 3 heads (one flash block: the
+single-block backward), with exact launch counts.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power
 limit; the line before it the kernels' JSON; the last line
@@ -141,7 +157,15 @@ BS_TPU_KERNELS = {  # block_sparse_attention's kernel bodies
     "block_sparse_dq": "dalle_pytorch_tpu/ops/block_sparse_attention.py:287",
     "block_sparse_dkdv": "dalle_pytorch_tpu/ops/block_sparse_attention.py:315",
 }
+FLASH_TPU_KERNELS = {  # flash_attention's kernel bodies
+    "flash_attention_fwd": "dalle_pytorch_tpu/ops/flash_attention.py:145",
+    "flash_attention_dq": "dalle_pytorch_tpu/ops/flash_attention.py:186",
+    "flash_attention_dkdv": "dalle_pytorch_tpu/ops/flash_attention.py:277",
+    "flash_attention_bwd_fused": "dalle_pytorch_tpu/ops/flash_attention.py:229",
+}
 SPARSE_TYPES = "full,axial_row,axial_col,conv_like"
+# 512 px: three downsamples of the flagship VAE give a 64 x 64 grid
+VAE_512 = dict(FLAGSHIP_VAE, image_size=512)
 TRAIN_BATCH, TRAIN_STEPS = 4, 10
 # the rerank stage's text key mask: valid prompt lengths of the 8 rows
 # (one fully masked row: its output must be exactly 0, its lse -1e30)
@@ -562,41 +586,49 @@ def check_fused_qkv_bwd() -> dict:
     }
 
 
-def bs_bounds(q, layout, key_mask):
-    """{kernel: (bound_ms, bound_by)} of the three block-sparse kernels on
-    these inputs. Bytes: each input once, counting only what the work
-    needs (q, o, do, lse and delta at query rows that attend a key, K and
-    V at keys some query attends), each output written in full, the key
-    mask, and the layout's mask, table and offsets as passed. Operations:
-    2 * d per allowed (query, key) pair and head for each product: the
-    forward 2 (s, p.v), dq 3 (s, dp, ds.k), dk/dv 4 (s, dp, p^T.do,
+def pair_bounds(q, allowed, extra_bytes: int) -> dict:
+    """{pass: (bound_ms, bound_by)} of the attention passes over q, k, v
+    (b, h, n, d) where ``allowed`` (b or 1, 1, n, n) may attend, plus
+    ``extra_bytes`` of masks and tables read once. Bytes: each input once,
+    counting only what the work needs (q, o, do, lse and delta at query
+    rows that attend a key, K and V at keys some query attends), each
+    output written in full. Operations: 2 * d per allowed (query, key) pair
+    and head for each product: "fwd" 2 (s, p.v), "dq" 3 (s, dp, ds.k),
+    "dkdv" 4 (s, dp, p^T.do, ds^T.q), "fused" 5 (s, dp, ds.k, p^T.do,
     ds^T.q)."""
-    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
-
     b, h, n, d = q.shape
     item = q.element_size()
-    allowed = bs.may_attend(layout, n, q.device, key_mask)[:, 0].expand(b, n, n)
+    allowed = allowed[:, 0].expand(b, n, n)
     rows = int(allowed.any(dim=2).sum()) * h   # query rows that attend a key
     keys = int(allowed.any(dim=1).sum()) * h   # keys some query attends
     pairs = int(allowed.sum()) * h
     full = b * h * n
-    dl = bs.device_layout(layout, q.device)
-    extra = sum(t.numel() * t.element_size() for t in dl) + (0 if key_mask is None else b * n)
-    work = {
-        # name: (bytes, products)
-        "block_sparse_attention": (rows * d * item + 2 * keys * d * item
-                                   + full * d * item + 4 * full, 2),
-        "block_sparse_dq": ((3 * rows * d * item + 4 * rows) + 2 * keys * d * item
-                            + full * d * item + 4 * full, 3),
-        "block_sparse_dkdv": ((2 * rows * d * item + 8 * rows) + 2 * keys * d * item
-                              + 2 * full * d * item, 4),
+    row_d, key_d, full_d = rows * d * item, keys * d * item, full * d * item
+    work = {  # pass: (bytes, products)
+        "fwd": (row_d + 2 * key_d + full_d + 4 * full, 2),
+        "dq": (3 * row_d + 4 * rows + 2 * key_d + full_d + 4 * full, 3),
+        "dkdv": (2 * row_d + 8 * rows + 2 * key_d + 2 * full_d, 4),
+        "fused": (3 * row_d + 4 * rows + 2 * key_d + 3 * full_d, 5),
     }
     out = {}
     for name, (nbytes, products) in work.items():
-        t_bytes = (nbytes + extra) / HBM_BYTES_PER_S
+        t_bytes = (nbytes + extra_bytes) / HBM_BYTES_PER_S
         t_ops = 2 * products * d * pairs / PEAK_OPS[q.dtype]
         out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def bs_bounds(q, layout, key_mask):
+    """``pair_bounds`` of the three block-sparse kernels on these inputs,
+    the layout's mask, table and offsets and the key mask as passed."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+
+    b, _, n, _ = q.shape
+    dl = bs.device_layout(layout, q.device)
+    extra = sum(t.numel() * t.element_size() for t in dl) + (0 if key_mask is None else b * n)
+    bounds = pair_bounds(q, bs.may_attend(layout, n, q.device, key_mask), extra)
+    return {"block_sparse_attention": bounds["fwd"], "block_sparse_dq": bounds["dq"],
+            "block_sparse_dkdv": bounds["dkdv"]}
 
 
 def check_block_sparse() -> list:
@@ -728,6 +760,177 @@ def check_block_sparse() -> list:
                 row["packed_pattern_ms"] = (packed_ms if name == "block_sparse_attention"
                                             else packed_bwd_ms)
     return [rows[name] for name in BS_TPU_KERNELS]
+
+
+def flash_bounds(q, opts) -> dict:
+    """{kernel: (bound_ms, bound_by)} of the four tiled flash kernels on
+    these inputs (``pair_bounds``), the key mask, pattern and visit map as
+    passed."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    b, _, n, _ = q.shape
+    km, pattern = opts["key_mask"], opts["pattern"]
+    extra = (n // fa.TILE) ** 2 + (0 if km is None else b * n) + (0 if pattern is None else n * n)
+    bounds = pair_bounds(q, fa.may_attend(n, q.device, km, opts["causal"], pattern), extra)
+    return {name: bounds[role] for name, role in zip(FLASH_TPU_KERNELS,
+                                                     ("fwd", "dq", "dkdv", "fused"))}
+
+
+def run_flash(q, k, v, do, opts):
+    """The four tiled kernels, dk/dv on dq's delta: (o, lse, dq, delta,
+    dk, dv, and the single-block kernel's dq, dk, dv)."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    dq, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+    dk, dv = fa.flash_attention_dkdv(q, k, v, do, lse, delta, **opts)
+    return (o, lse, dq, delta, dk, dv, *fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts))
+
+
+def sdpa_flash_backward(q, k, v, do, opts):
+    """A function that runs the backward of one
+    ``scaled_dot_product_attention`` on the same heads and mask (the
+    yardstick: dq, dk and dv together), from a graph built once."""
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, **sdpa_flash_kw(q, opts))
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def sdpa_flash_kw(q, opts) -> dict:
+    """The keyword arguments that give ``scaled_dot_product_attention``
+    the tiled kernels' mask and scale."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(scale=q.shape[-1] ** -0.5)
+    if opts["key_mask"] is None and opts["pattern"] is None:
+        kw["is_causal"] = opts["causal"]
+    else:
+        kw["attn_mask"] = fa.may_attend(q.shape[2], q.device, opts["key_mask"], opts["causal"],
+                                        opts["pattern"])
+    return kw
+
+
+def check_flash_attention() -> list:
+    """The four tiled flash kernels against their plain versions on
+    ``testing.flash_inputs`` (the 512 px training shape, its axial_col
+    pattern, a pattern, non-causal and dim_head 32/64/96/128 at small n
+    with a key mask that kills whole rows, n 1152, one flash block of
+    1280), float32 and bfloat16, each kernel chain against the plain one,
+    at ``testing``'s tolerances; dead rows exactly 0 and lse -1e30; two
+    runs bit-identical. Then timings (cold L2) at each kernel's main-path
+    shape in float32 (the forward, dq and dk/dv at the 512 px training
+    shape, the single-block backward at one block of 1280): the kernel,
+    its plain version, the bound, and ``scaled_dot_product_attention``
+    forward (the forward's yardstick) and backward (dq, dk and dv
+    together: the backward kernels' yardstick) on the same heads."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.testing import (
+        BWD_BF16_ROW_REL, BWD_F32_REL, FLASH_BF16_ROW_REL, FLASH_F32_ATOL, flash_bwd_errors,
+        flash_fwd_errors, flash_inputs)
+
+    worst = {}  # name -> max abs error at its main path's shape, float32
+    for case in ("train", "axial_col", "pattern", "noncausal", "d32", "d64", "d96", "d128",
+                 "tiled", "one_block"):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, opts = flash_inputs(case, dtype, "cuda")
+            got = run_flash(q, k, v, do, opts)
+            again = run_flash(q, k, v, do, opts)
+            po, plse = fa.reference_flash_attention(q, k, v, **opts)
+            plain = fa.reference_flash_attention_bwd(q, k, v, po, plse, do, **opts)
+            torch.cuda.synchronize()
+            o, lse, dq, delta, dk, dv, fdq, fdk, fdv = got
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"tiled flash kernels: non-finite output ({case}, {dtype})")
+            err, row_rel, lse_err, dead_exact = flash_fwd_errors(o, lse, po, plse, **opts)
+            rel, grad_row_rel, zeros_exact = flash_bwd_errors((dq, dk, dv), plain, **opts)
+            frel, fgrad_row_rel, fzeros_exact = flash_bwd_errors((fdq, fdk, fdv), plain, **opts)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if dtype == torch.float32:
+                ok = err <= FLASH_F32_ATOL and max(rel, frel) <= BWD_F32_REL
+                tol = f"abs {FLASH_F32_ATOL:.0e} forward, relative {BWD_F32_REL:.0e} backward"
+            else:
+                ok = (row_rel <= FLASH_BF16_ROW_REL and lse_err <= FLASH_BF16_ROW_REL
+                      and max(grad_row_rel, fgrad_row_rel) <= BWD_BF16_ROW_REL)
+                tol = (f"row-relative {FLASH_BF16_ROW_REL:.0e} and lse abs "
+                       f"{FLASH_BF16_ROW_REL:.0e} forward, floored row-relative "
+                       f"{BWD_BF16_ROW_REL:.0e} backward")
+            log(f"flash {case} {dtype} {tuple(q.shape)}: forward max abs {err:.3e}, row "
+                f"{row_rel:.3e}; dq + dk/dv relative L2 {rel:.3e}, floored row "
+                f"{grad_row_rel:.3e}; single-block relative L2 {frel:.3e}, floored row "
+                f"{fgrad_row_rel:.3e}; dead rows exactly 0 "
+                f"{dead_exact and zeros_exact and fzeros_exact}; two runs identical {same} "
+                f"(tolerance: {tol})")
+            if not (ok and dead_exact and zeros_exact and fzeros_exact and same):
+                raise AssertionError(f"tiled flash kernels disagree with plain: {case} {dtype}")
+            if dtype == torch.float32 and case in ("train", "one_block"):
+                pdq, pdk, pdv = plain
+                errors = {
+                    "flash_attention_fwd": max((o - po).abs().max().item(),
+                                               (lse - plse).abs().max().item()),
+                    "flash_attention_dq": (dq - pdq).abs().max().item(),
+                    "flash_attention_dkdv": max((dk - pdk).abs().max().item(),
+                                                (dv - pdv).abs().max().item()),
+                    "flash_attention_bwd_fused": max((a - b).abs().max().item() for a, b in
+                                                     ((fdq, pdq), (fdk, pdk), (fdv, pdv))),
+                }
+                keep = ("flash_attention_bwd_fused",) if case == "one_block" else tuple(
+                    FLASH_TPU_KERNELS)[:3]
+                worst.update({name: errors[name] for name in keep})
+            del got, again, plain, po, plse
+
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+                   "replaces": FLASH_TPU_KERNELS[name], "max_abs_err": worst[name]}
+            for name in FLASH_TPU_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, opts = flash_inputs("train", dtype, "cuda", seed=1)
+        o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        dq, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+        t = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd(q, k, v, **opts),
+                lambda: fa.reference_flash_attention(q, k, v, **opts)),
+            "flash_attention_dq": (
+                lambda: fa.flash_attention_dq(q, k, v, o, lse, do, **opts),
+                lambda: fa.reference_flash_attention_dq(q, k, v, o, lse, do, **opts)),
+            "flash_attention_dkdv": (
+                lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta, **opts),
+                lambda: fa.reference_flash_attention_dkdv(q, k, v, do, lse, delta, **opts)),
+        }
+        if dtype == torch.bfloat16:  # the kernels alone, beside the float32 path
+            for name, (kernel, _) in t.items():
+                rows[name]["ms_bf16"] = cuda_time_ms(kernel, iters=10)
+            continue
+        bounds = flash_bounds(q, opts)
+        sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, **sdpa_flash_kw(q, opts)), iters=10)
+        sdpa_bwd_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
+        for name, (kernel, plain) in t.items():
+            rows[name].update(ms=cuda_time_ms(kernel, iters=10),
+                              plain_ms=cuda_time_ms(plain, warmup=1, iters=3),
+                              bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                              library_ms=sdpa_ms if name == "flash_attention_fwd"
+                              else sdpa_bwd_ms)
+    q, k, v, do, opts = flash_inputs("one_block", torch.float32, "cuda", seed=1)
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    name = "flash_attention_bwd_fused"
+    bound_ms, bound_by = flash_bounds(q, opts)[name]
+    rows[name].update(
+        ms=cuda_time_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts),
+                        iters=20),
+        plain_ms=cuda_time_ms(lambda: fa.reference_flash_attention_bwd(q, k, v, o, lse, do,
+                                                                       **opts), iters=5),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=20))
+    for name, row in rows.items():
+        shape = "b 2, 3 x 64, n 1280" if name == "flash_attention_bwd_fused" else \
+            "b 4, 16 x 64, n 4352"
+        sdpa = "forward" if name == "flash_attention_fwd" else "backward"
+        log(f"{name} float32 timing, cold L2 ({shape}, causal): kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, sdpa {sdpa} {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+            + (f"; bf16 kernel {row['ms_bf16']:.4f} ms" if "ms_bf16" in row else ""))
+    return [rows[name] for name in FLASH_TPU_KERNELS]
 
 
 # ------------------------------------------------------------ path check
@@ -869,7 +1072,11 @@ def kernel_counters():
             "fused_qkv_attention_bwd": fa.fused_qkv_attention_bwd,
             "block_sparse_attention": bs.block_sparse_attention,
             "block_sparse_dq": bs.block_sparse_dq,
-            "block_sparse_dkdv": bs.block_sparse_dkdv}
+            "block_sparse_dkdv": bs.block_sparse_dkdv,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkdv": fa.flash_attention_dkdv,
+            "flash_attention_bwd_fused": fa.flash_attention_bwd_fused}
 
 
 def zero_counts() -> None:
@@ -885,33 +1092,49 @@ def read_counts(names) -> dict:
 RAGGED = ("ragged_attention", "ragged_attention_int8")
 PACKED = ("fused_qkv_attention", "fused_qkv_attention_bwd")
 PAIR_GRID = ("block_sparse_attention", "block_sparse_dq", "block_sparse_dkdv")
+TILED = tuple(FLASH_TPU_KERNELS)  # forward, dq, dk/dv, single-block backward
+TILED_SPLIT = TILED[:3]
 
 
-def check_train_against_plain(sparse: bool = False) -> None:
+def check_train_against_plain(variant: str = "dense") -> dict:
     """Small float32 DALLE, identical weights on the card (kernels) and the
     CPU (plain versions): the loss to relative 1e-5 and every parameter's
-    gradient to 1e-4 of its largest entry. Dense: depth 2, 2 heads of 64,
-    text 64 + an 8 x 8 grid (n 128; token shift, rotary), each packed
-    kernel launched once per layer. ``sparse``: depth 4 cycling the four
-    types, text 64 + a 24 x 24 grid (n 640, where the axial_row and
-    conv_like layouts visit 12 of 15 block pairs and engage): the three
-    block-sparse kernels launched once per axial_row and conv_like layer,
-    the packed ones once per full and axial_col layer."""
+    gradient to 1e-4 of its largest entry, and each kernel launched
+    exactly as the variant's attention path says (every other kernel
+    never). "dense": depth 2, 2 heads of 64, text 64 + an 8 x 8 grid (n
+    128; token shift, rotary), each packed kernel once per layer.
+    "sparse": depth 4 cycling the four types, text 64 + a 24 x 24 grid (n
+    640, where the axial_row and conv_like layouts visit 12 of 15 block
+    pairs and engage): the three block-sparse kernels once per axial_row
+    and conv_like layer, the packed ones once per full and axial_col
+    layer. "tiled": text 128 + a 32 x 32 grid (n 1152, 3 x 3 flash blocks
+    of 384): the tiled forward, dq and dk/dv once per layer. "one_block":
+    3 heads, text 128 + a 16 x 16 grid (n 384, one flash block the packed
+    kernel refuses): the tiled forward and the single-block backward once
+    per layer. Returns the card run's launches."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
 
     cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
                text_seq_len=64, num_image_tokens=40, image_fmap_size=8)
-    if sparse:
+    per_layer = {name: 1 for name in PACKED}
+    if variant == "sparse":
         cfg.update(depth=4, image_fmap_size=24, attn_types=tuple(SPARSE_TYPES.split(",")))
+        per_layer = {name: 0.5 for name in PACKED + PAIR_GRID}
+    elif variant == "tiled":
+        cfg.update(text_seq_len=128, image_fmap_size=32)
+        per_layer = {name: 1 for name in TILED_SPLIT}
+    elif variant == "one_block":
+        cfg.update(heads=3, text_seq_len=128, image_fmap_size=16)
+        per_layer = {"flash_attention_fwd": 1, "flash_attention_bwd_fused": 1}
     gpu = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(7))
     cpu = DALLE(**cfg, device="cpu")
     cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
     rng = np.random.RandomState(8)
-    text = rng.randint(1, 50, size=(2, 64))
+    text = rng.randint(1, 50, size=(2, cfg["text_seq_len"]))
     text[0, 40:], text[1, 9:] = 0, 0
     image = rng.randint(0, 40, size=(2, cfg["image_fmap_size"] ** 2))
     losses, grads = {}, {}
-    names = PACKED + PAIR_GRID
+    names = tuple(kernel_counters())
     for m in (gpu, cpu):
         zero_counts()
         t, i = (torch.from_numpy(a).to(m.device) for a in (text, image))
@@ -924,13 +1147,15 @@ def check_train_against_plain(sparse: bool = False) -> None:
     loss_rel = abs(losses[gpu] - losses[cpu]) / abs(losses[cpu])
     worst = max((grads[gpu][k] - g).abs().max().item() / g.abs().max().item()
                 for k, g in grads[cpu].items())
-    per_kind = cfg["depth"] // 2 if sparse else cfg["depth"]
-    expected = {n: per_kind if (sparse or n in PACKED) else 0 for n in names}
-    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss"
-        f"{' (sparse cycle, n 640)' if sparse else ''}, relative {loss_rel:.3e}; worst "
-        f"gradient error {worst:.3e} of its largest entry; launches {launched}")
+    expected = {n: int(per_layer.get(n, 0) * cfg["depth"]) for n in names}
+    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss ({variant}, n "
+        f"{gpu.total_seq_len}, {cfg['heads']} heads), relative {loss_rel:.3e}; worst gradient "
+        f"error {worst:.3e} of its largest entry; launches "
+        f"{ {n: c for n, c in launched.items() if c or expected[n]} }")
     if not (loss_rel <= 1e-5 and worst <= 1e-4 and launched == expected):
-        raise AssertionError(f"training path disagrees: {loss_rel}, {worst}, {launched}")
+        raise AssertionError(f"training path disagrees: {loss_rel}, {worst}, {launched}, "
+                             f"expected {expected}")
+    return {name: n for name, n in launched.items() if n}
 
 
 # --------------------------------------------------------------- engine
@@ -1188,9 +1413,10 @@ def train_run(trainer, text, images, label: str, expected: dict) -> dict:
     """The counted run: ``TRAIN_STEPS`` steps of ``trainer`` on one batch,
     kernel counts set to 0 just before and read just after. Every loss
     finite, the last below the first, each kernel of ``expected``
-    launched its count x (steps + retries) times. Prints the step wall
-    median over steps 2-10, training tokens/s and peak memory; returns
-    the launches."""
+    launched its count x (steps + retries) times and every other kernel
+    never. Prints the step wall median over steps 2-10, training tokens/s
+    (batch x the model's positions a step) and peak memory; returns the
+    launches."""
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     losses, walls = [], []
@@ -1199,22 +1425,23 @@ def train_run(trainer, text, images, label: str, expected: dict) -> dict:
         losses.append(trainer.train_step(text, images))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = read_counts(PACKED + PAIR_GRID)
+    counts = read_counts(tuple(kernel_counters()))
     dispatched = trainer.steps + trainer.retries
-    want = {name: expected.get(name, 0) * dispatched for name in launches}
+    want = {name: n * dispatched for name, n in expected.items()}
+    launches = {name: n for name, n in counts.items() if n or name in want}
     steady = float(np.median(walls[1:]))
-    tokens_per_step = TRAIN_BATCH * (FLAGSHIP["text_seq_len"] + 1024)
+    tokens_per_step = TRAIN_BATCH * trainer.dalle.total_seq_len
     log(f"{label}: {trainer.steps} steps, {trainer.retries} retries, losses "
         + ", ".join(f"{x:.4f}" for x in losses))
     log(f"{label}: step wall first {walls[0]:.3f} s, median of the rest {steady:.4f} s "
         f"(all: {', '.join(f'{w:.4f}' for w in walls)}); {tokens_per_step / steady:.1f} "
         f"training tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"{label}: launches {launches} (expected {want})")
+    log(f"{label}: launches {launches} (expected {want}; every other kernel 0)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: losses {losses}")
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
-    return {name: n for name, n in launches.items() if want[name]}
+    return launches
 
 
 def train_flagship():
@@ -1288,6 +1515,43 @@ def train_sparse(vae, batch):
     return trainer, launches
 
 
+def train_512(text):
+    """The flagship DALLE at 512 px trained in float32 by ``DalleTrainer``:
+    the flagship VAE at image_size 512 encodes 4 seeded 512 px images to a
+    64 x 64 grid (n = 256 + 4096 = 4352 positions, 17 x 17 flash blocks of
+    256), the flagship captions ``text``; the counted run, every layer
+    through the tiled forward, dq and dk/dv kernels. Returns (trainer,
+    (text, images), launches of the counted run)."""
+    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+
+    t0 = time.perf_counter()
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    size, grid = VAE_512["image_size"], VAE_512["image_size"] >> VAE_512["num_layers"]
+    vae = DiscreteVAE(**VAE_512, device="cuda").init_weights(gen(14))
+    images = torch.rand(TRAIN_BATCH, size, size, 3, device="cuda", generator=gen(15))
+    tokens = vae.get_codebook_indices(images)
+    if (tokens.shape != (TRAIN_BATCH, grid**2)
+            or not ((tokens >= 0) & (tokens < VAE_512["num_tokens"])).all()):
+        raise AssertionError(f"VAE encode at {size} px: tokens {tuple(tokens.shape)} out of range")
+    trainer = DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0,
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
+        shift_tokens=True, rotary_emb=True)
+    n = trainer.dalle.total_seq_len
+    torch.cuda.synchronize()
+    log(f"train 512: flagship DALLE at a {vae.fmap_size} x {vae.fmap_size} grid (n {n}) and "
+        f"the 512 px VAE built, images encoded to {tuple(tokens.shape)} tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n != FLAGSHIP["text_seq_len"] + grid**2:
+        raise AssertionError(f"train 512: {n} positions, expected "
+                             f"{FLAGSHIP['text_seq_len']} + {grid}**2")
+    launches = train_run(trainer, text, images, "train 512",
+                         {name: FLAGSHIP["depth"] for name in TILED_SPLIT})
+    return trainer, (text, images), launches
+
+
 def profile_train(trainer, batch, steps: int = 3, label: str = "train profile") -> None:
     """Where a flagship train step's time goes: torch.profiler over a few
     steps after the counted run: wall and device-busy time per step,
@@ -1332,15 +1596,18 @@ def main() -> int:
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
-               *check_block_sparse()]
+               *check_block_sparse(), *check_flash_attention()]
+    release_memory()
     sparse_types = tuple(SPARSE_TYPES.split(","))
     for kv_quant, attn_types in ((None, None), ("int8", None), (None, sparse_types),
                                  ("int8", sparse_types)):
         check_path_against_plain(kv_quant, attn_types)
     check_preemption_on_card()
     check_clip_against_plain()
-    check_train_against_plain()
-    check_train_against_plain(sparse=True)
+    for variant in ("dense", "sparse", "tiled"):
+        check_train_against_plain(variant)
+    # the one-block path: the only one that runs the single-block backward
+    one_block_launches = check_train_against_plain("one_block")
     results, serve_launches, model, engine = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
@@ -1361,9 +1628,14 @@ def main() -> int:
     release_memory()
     trainer, sparse_launches = train_sparse(vae, batch)
     profile_train(trainer, batch, label="train sparse profile")
+    del trainer, vae
+    release_memory()
+    trainer, batch, launches_512 = train_512(batch[0])
+    profile_train(trainer, batch, label="train 512 profile")
     paths = (("serve", serve_launches), ("serve_int8", int8_launches),
              ("serve_sparse_int8", sparse_serve_launches), ("train", train_launches),
-             ("train_sparse", sparse_launches))
+             ("train_sparse", sparse_launches), ("train_512", launches_512),
+             ("train_one_block", one_block_launches))
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())

@@ -46,92 +46,15 @@
 // buffering are the known next steps.
 //
 // Layout: one block of 256 threads per (64-row half of a 128-block, b*h):
-// the forward and dq walk the q block's run, dk/dv the k block's. Tiles
-// are 64 x d floats in shared memory with a padded row stride of d + 1;
-// thread (ty, tx), 16 x 16, owns rows ty + 16*a and columns tx + 16*j of
-// a 64 x 64 score tile and rows ty + 16*a, channels tx + 16*c of its
-// accumulators; a row's 16 owners share a half-warp, so the forward's row
-// max and sum reduce with shuffles.
+// the forward and dq walk the q block's run, dk/dv the k block's, in the
+// tiles of attention_tiles.cuh, shared with flash_attention.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int BLOCK = 128;        // the layout's block edge
-constexpr int TILE = 64;          // query rows / keys per sub-tile
 constexpr int SUB = BLOCK / TILE; // sub-tiles per block edge
-constexpr int SP = TILE + 1;      // padded stride of the (TILE, TILE) p and ds tiles
-constexpr int THREADS = 256;
-constexpr int MASK_BYTES = TILE * TILE;
-static_assert(THREADS == TILE * 4, "one 16-byte mask chunk per thread");
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// round a float32 to the storage type and back
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
-// rows row0 .. row0 + TILE - 1 of one head's contiguous (n, D) rows into a
-// (TILE, D + 1) float tile; rows past the sequence end are 0
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src, int row0,
-                                          int n) {
-  constexpr int DP = D + 1;
-  for (int x = threadIdx.x; x < TILE * D; x += THREADS) {
-    const int r = x / D, e = x % D;
-    const int row = row0 + r;
-    dst[r * DP + e] = row < n ? to_f32<T>(src[(int64_t)row * D + e]) : 0.f;
-  }
-}
-
-// keys k0 .. k0 + TILE - 1 that exist and pass the key mask (kmask_b is
-// the batch row's mask or NULL), into kok; true on every thread when any
-// does
-__device__ __forceinline__ bool load_key_flags(float* __restrict__ kok,
-                                               const uint8_t* __restrict__ kmask_b,
-                                               int k0, int n) {
-  int any_key = 0;
-  for (int c = threadIdx.x; c < TILE; c += THREADS) {
-    const int col = k0 + c;
-    kok[c] = (col < n && (kmask_b == nullptr || kmask_b[col] != 0)) ? 1.f : 0.f;
-    any_key |= kok[c] != 0.f;
-  }
-  return __syncthreads_or(any_key) != 0;
-}
-
-// the (TILE, TILE) block of the (n_pad, n_pad) mask at (q0, k0) into
-// shared bytes, 16 bytes a thread; true on every thread when any is set
-__device__ __forceinline__ bool load_mask_tile(uint8_t* __restrict__ msk,
-                                               const int8_t* __restrict__ mask,
-                                               int q0, int k0, int n_pad) {
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-  const int4 bits = *reinterpret_cast<const int4*>(
-      mask + (int64_t)(q0 + r) * n_pad + k0 + part * 16);
-  *reinterpret_cast<int4*>(msk + r * TILE + part * 16) = bits;
-  return __syncthreads_or((bits.x | bits.y | bits.z | bits.w) != 0) != 0;
-}
-
-// whether query row r (of the tile at q0) may attend key column c
-__device__ __forceinline__ bool allowed(const float* __restrict__ kok,
-                                        const uint8_t* __restrict__ msk,
-                                        bool dense, int r, int c, int q0, int n) {
-  return kok[c] != 0.f && q0 + r < n && (dense || msk[r * TILE + c] != 0);
-}
 
 // lse and delta of query rows q0 .. q0 + TILE - 1 into shared memory
 __device__ __forceinline__ void load_row_stats(float* __restrict__ lse_s,
@@ -146,94 +69,6 @@ __device__ __forceinline__ void load_row_stats(float* __restrict__ lse_s,
   }
 }
 
-// Scores s and dp = do . v^T of the thread's 4 x 4 (query, key) pairs of
-// the current tiles, then p and ds into the shared (TILE, SP) tiles: p
-// rounded to the storage type into p_out (when given), ds rounded to the
-// storage type into ds_out.
-template <typename T, int D>
-__device__ __forceinline__ void scores_to_p_ds(
-    const float* __restrict__ qs, const float* __restrict__ ks,
-    const float* __restrict__ vs, const float* __restrict__ dos,
-    const float* __restrict__ lse_s, const float* __restrict__ del_s,
-    const float* __restrict__ kok, const uint8_t* __restrict__ msk, bool dense,
-    float* __restrict__ p_out, float* __restrict__ ds_out, int q0, int n,
-    float scale) {
-  constexpr int DP = D + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int e = 0; e < D; ++e) {
-    float qv[4], kv[4], dov[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = qs[(ty + 16 * i) * DP + e];
-      dov[i] = dos[(ty + 16 * i) * DP + e];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = ks[(tx + 16 * j) * DP + e];
-      vv[j] = vs[(tx + 16 * j) * DP + e];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const float sv = allowed(kok, msk, dense, r, c, q0, n) ? s[i][j] * scale : NEG_INF;
-      const float p = sv > 0.5f * NEG_INF ? expf(sv - lse_s[r]) : 0.f;
-      if (p_out != nullptr) p_out[r * SP + c] = round_to<T>(p);
-      ds_out[r * SP + c] = round_to<T>(p * (dp[i][j] - del_s[r]) * scale);
-    }
-  }
-}
-
-// the thread's accumulator rows (4 x D/16 channels tx + 16*c) into rows
-// row0 + ty + 16*a of a contiguous (n, D) head, rows past n skipped
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(float (&acc)[4][D / 16],
-                                           T* __restrict__ dst, int row0, int n) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = row0 + ty + 16 * a;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      dst[(int64_t)row * D + tx + 16 * c] = from_f32<T>(acc[a][c]);
-  }
-}
-
-template <int D>
-__host__ __device__ constexpr int tile_floats() { return TILE * (D + 1); }
-
-template <int D>
-__host__ __device__ constexpr int fwd_smem_bytes() {
-  return MASK_BYTES + 4 * (3 * tile_floats<D>() + TILE * SP + TILE);
-}
-
-template <int D>
-__host__ __device__ constexpr int dq_smem_bytes() {
-  return MASK_BYTES + 4 * (4 * tile_floats<D>() + TILE * SP + 3 * TILE);
-}
-
-template <int D>
-__host__ __device__ constexpr int dkdv_smem_bytes() {
-  return MASK_BYTES + 4 * (4 * tile_floats<D>() + 2 * TILE * SP + 3 * TILE);
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) bs_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -242,7 +77,7 @@ __global__ void __launch_bounds__(THREADS) bs_fwd_kernel(
     T* __restrict__ out, float* __restrict__ lse, int heads, int n, int n_pad,
     int n_pairs, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int DP = D + 1, CJ = D / 16;
+  constexpr int CJ = D / 16;
   uint8_t* msk = smem_raw;                                   // (TILE, TILE)
   float* qs = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
   float* ks = qs + tile_floats<D>();                         // (TILE, DP)
@@ -253,7 +88,6 @@ __global__ void __launch_bounds__(THREADS) bs_fwd_kernel(
   const int q0 = blockIdx.x * TILE, bh = blockIdx.y;
   if (q0 >= n) return;  // padding rows only
   const int qb = q0 / BLOCK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t head = (int64_t)bh * n * D;
   const uint8_t* km = kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n;
 
@@ -287,79 +121,10 @@ __global__ void __launch_bounds__(THREADS) bs_fwd_kernel(
       load_tile<T, D>(ks, k + head, k0, n);
       load_tile<T, D>(vs, v + head, k0, n);
       __syncthreads();
-
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * DP + e];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * DP + e];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          s[i][j] = allowed(kok, msk, cls == 2, r, c, q0, n) ? s[i][j] * scale : NEG_INF;
-          mx = fmaxf(mx, s[i][j]);
-        }
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_new = fmaxf(m[i], mx);
-        const float corr = expf(m[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float pv = s[i][j] > 0.5f * NEG_INF ? expf(s[i][j] - m_new) : 0.f;
-          sum += pv;
-          ps[r * SP + tx + 16 * j] = round_to<T>(pv);
-        }
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        l[i] = l[i] * corr + sum;
-        m[i] = m_new;
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) acc[i][c] *= corr;
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int kk = 0; kk < TILE; ++kk) {
-        float pv[4], vv[CJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * SP + kk];
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) vv[c] = vs[kk * DP + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < CJ; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-      }
+      fwd_step<T, D>(qs, ks, vs, ps, kok, msk, true, cls, q0, k0, n, scale, acc, m, l);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] /= l_safe;
-    if (tx == 0 && row < n) lse[(int64_t)bh * n + row] = m[i] + logf(l_safe);
-  }
-  store_rows<T, D>(acc, out + head, q0, n);
+  fwd_finish<T, D>(acc, m, l, out + head, lse + (int64_t)bh * n, q0, n);
 }
 
 template <typename T, int D>
@@ -372,7 +137,7 @@ __global__ void __launch_bounds__(THREADS) bs_dq_kernel(
     float* __restrict__ delta, int heads, int n, int n_pad, int n_pairs,
     float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int DP = D + 1, CJ = D / 16;
+  constexpr int CJ = D / 16;
   uint8_t* msk = smem_raw;                                   // (TILE, TILE)
   float* qs = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
   float* dos = qs + tile_floats<D>();                        // (TILE, DP)
@@ -386,7 +151,6 @@ __global__ void __launch_bounds__(THREADS) bs_dq_kernel(
   const int q0 = blockIdx.x * TILE, bh = blockIdx.y;
   if (q0 >= n) return;
   const int qb = q0 / BLOCK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t head = (int64_t)bh * n * D;
   const uint8_t* km = kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n;
 
@@ -436,21 +200,10 @@ __global__ void __launch_bounds__(THREADS) bs_dq_kernel(
       load_tile<T, D>(ks, k + head, k0, n);
       load_tile<T, D>(vs, v + head, k0, n);
       __syncthreads();
-      scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, cls == 2,
-                           nullptr, dss, q0, n, scale);
+      scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, true, cls, nullptr,
+                           dss, q0, k0, n, scale);
       __syncthreads();
-#pragma unroll 4
-      for (int j = 0; j < TILE; ++j) {
-        float dsv[4], kv[CJ];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) dsv[a] = dss[(ty + 16 * a) * SP + j];
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) kv[c] = ks[j * DP + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < CJ; ++c) acc[a][c] = fmaf(dsv[a], kv[c], acc[a][c]);
-      }
+      dq_step<D>(dss, ks, acc);
     }
   }
   store_rows<T, D>(acc, dq + head, q0, n);
@@ -465,7 +218,7 @@ __global__ void __launch_bounds__(THREADS) bs_dkdv_kernel(
     const int* __restrict__ offsets, T* __restrict__ dk, T* __restrict__ dv,
     int heads, int n, int n_pad, int n_pairs, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int DP = D + 1, CJ = D / 16;
+  constexpr int CJ = D / 16;
   uint8_t* msk = smem_raw;                                   // (TILE, TILE)
   float* ks = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
   float* vs = ks + tile_floats<D>();                         // (TILE, DP)
@@ -480,7 +233,6 @@ __global__ void __launch_bounds__(THREADS) bs_dkdv_kernel(
   const int k0 = blockIdx.x * TILE, bh = blockIdx.y;
   if (k0 >= n) return;
   const int kb = k0 / BLOCK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t head = (int64_t)bh * n * D;
   const uint8_t* km = kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n;
 
@@ -508,48 +260,15 @@ __global__ void __launch_bounds__(THREADS) bs_dkdv_kernel(
         load_tile<T, D>(dos, dout + head, q0, n);
         load_row_stats(lse_s, del_s, lse + (int64_t)bh * n, delta + (int64_t)bh * n, q0, n);
         __syncthreads();
-        scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, cls == 2,
-                             ps, dss, q0, n, scale);
+        scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, true, cls, ps, dss,
+                             q0, k0, n, scale);
         __syncthreads();
-#pragma unroll 4
-        for (int i = 0; i < TILE; ++i) {
-          float pv[4], dsv[4], dov[CJ], qv[CJ];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            pv[a] = ps[i * SP + ty + 16 * a];
-            dsv[a] = dss[i * SP + ty + 16 * a];
-          }
-#pragma unroll
-          for (int c = 0; c < CJ; ++c) {
-            dov[c] = dos[i * DP + tx + 16 * c];
-            qv[c] = qs[i * DP + tx + 16 * c];
-          }
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < CJ; ++c) {
-              dv_acc[a][c] = fmaf(pv[a], dov[c], dv_acc[a][c]);
-              dk_acc[a][c] = fmaf(dsv[a], qv[c], dk_acc[a][c]);
-            }
-        }
+        dkdv_step<D>(ps, dss, dos, qs, dk_acc, dv_acc);
       }
     }
   }
   store_rows<T, D>(dk_acc, dk + head, k0, n);
   store_rows<T, D>(dv_acc, dv + head, k0, n);
-}
-
-// 0 when the device can give `smem` bytes of shared memory to `kernel`,
-// -1 when it cannot, else the CUDA error
-template <typename K>
-int allow_smem(K kernel, int smem) {
-  int device = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > smem_max) return -1;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // shapes every entry point refuses (-1): an empty shape, a block other

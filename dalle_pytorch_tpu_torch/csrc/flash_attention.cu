@@ -1,0 +1,422 @@
+// Tiled flash attention for Hopper (sm_90a): forward, dq, dk/dv and the
+// single-block backward.
+//
+// Replaces the Pallas TPU kernels `_fwd_kernel`, `_bwd_dq_kernel`,
+// `_bwd_dkv_kernel` and `_bwd_fused_kernel` behind `flash_attention` in
+// dalle_pytorch_tpu/ops/flash_attention.py. Python wrappers:
+// dalle_pytorch_tpu_torch/ops/flash_attention.py (flash_attention_fwd,
+// flash_attention_dq, flash_attention_dkdv, flash_attention_bwd_fused).
+//
+// What it computes. q, k, v, o, do contiguous (b, h, n, d), n a multiple
+// of TILE; an int8 (n / TILE, n / TILE) visit map of JAX's classes at
+// this kernel's tile (0 skip, 1 masked, 2 dense); an optional int8
+// (n, n) pattern (nonzero = attend) and an optional (b, n) uint8 key
+// mask. Scores q.k^T accumulate in float32 and are scaled afterwards. A
+// class 2 tile attends every pair; a class 1 tile applies the pattern,
+// or the causal rule row >= col when there is none; the key mask applies
+// on top. Disallowed scores are NEG_INF = -1e30 and p = exp(s - m) only
+// where s > 0.5 * NEG_INF, else 0.
+//   forward: online softmax over the row's live tiles (float32 max,
+//     denominator and accumulator), p rounded to the storage type before
+//     the value product; o = acc / l (l = 1 where l == 0, so a row with
+//     no allowed key writes exactly 0), lse = m + log(l), (b, h, n)
+//     float32;
+//   dq: delta = rowsum(do * o) in float32, written for the dk/dv pass;
+//     p = exp(s - lse), dp = do . v^T, ds = p * (dp - delta) * scale
+//     rounded to the storage type, dq = ds . k;
+//   dk/dv: dv = p (rounded to the storage type)^T . do, dk = ds^T . q on
+//     the dq pass's delta;
+//   single-block backward: one launch of both roles, query-tile blocks
+//     computing dq and key-tile blocks dk and dv, each deriving delta
+//     from its own rows of do and o; delta is never written.
+// Every product accumulates in float32.
+//
+// What bounds it. At the 512 px training shape (b 4, 16 heads of 64,
+// n 4352, causal, float32) the products (2 per allowed pair forward, 3
+// dq, 4 dk/dv, 2*d operations each) take ~2.3, ~3.5 and ~4.6 ms at the
+// card's 67 TFLOP/s float32 rate, against ~0.1 ms of bytes (q, k, v, o,
+// do and the gradients once each): operations bound it. The design keeps
+// every score on chip and, unlike the TPU kernel, neither loads nor
+// computes a class 0 tile; a tile whose keys the key mask drops entirely
+// is skipped too (it would add p = 0 and leave every sum as it is). The
+// query tiles of the causal forward and dq are launched longest row
+// first. There are no float atomics: dq accumulates over key tiles
+// inside one block and dk/dv over query tiles inside one block, so two
+// runs give bit-identical results. The products run as float32 FMAs on
+// the CUDA cores from shared memory; tensor-core tiles (mma.sync /
+// wgmma) and cp.async/TMA double buffering are the known next steps.
+//
+// Layout: one block of 256 threads per (TILE-row tile, b*h), in the tiles
+// of attention_tiles.cuh, shared with block_sparse_attention.cu.
+
+#include "attention_tiles.cuh"
+
+namespace {
+
+// The operands of every entry point (unused ones NULL).
+template <typename T>
+struct Operands {
+  const T *q, *k, *v, *o, *dout;
+  const float *lse, *delta_in;
+  const uint8_t* kmask;   // (b, n) or NULL
+  const int8_t* pattern;  // (n, n) or NULL
+  const int8_t* visit;    // (n / TILE, n / TILE)
+  T *out, *dq, *dk, *dv;
+  float *lse_out, *delta_out;
+  int heads, n;
+  float scale;
+};
+
+// Prepares the tile at (q0, k0) of class cls: the key flags and, for a
+// class 1 tile with a pattern, its bits. False (on every thread) when no
+// pair of the tile may attend, so the caller skips it.
+__device__ __forceinline__ bool load_tile_masks(float* __restrict__ kok,
+                                                uint8_t* __restrict__ msk,
+                                                const uint8_t* __restrict__ kmask_b,
+                                                const int8_t* __restrict__ pattern,
+                                                int cls, int q0, int k0, int n) {
+  if (!load_key_flags(kok, kmask_b, k0, n)) return false;
+  if (cls == 1 && pattern != nullptr) return load_mask_tile(msk, pattern, q0, k0, n);
+  return true;
+}
+
+// delta = rowsum(do * o) in float32 of rows q0 .. q0 + TILE - 1 into del_s,
+// one warp a row, and their lse into lse_s; with delta_out also into it
+template <typename T, int D>
+__device__ __forceinline__ void row_stats_from_o(float* __restrict__ lse_s,
+                                                 float* __restrict__ del_s,
+                                                 const Operands<T>& a, int64_t head,
+                                                 int64_t row_base, int q0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < TILE; r += THREADS / 32) {
+    const int64_t row = q0 + r;
+    float sum = 0.f;
+    for (int e = lane; e < D; e += 32)
+      sum += to_f32<T>(a.o[head + row * D + e]) * to_f32<T>(a.dout[head + row * D + e]);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, s);
+    if (lane == 0) {
+      del_s[r] = sum;
+      lse_s[r] = a.lse[row_base + row];
+      if (a.delta_out != nullptr) a.delta_out[row_base + row] = sum;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Operands<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int CJ = D / 16;
+  uint8_t* msk = smem_raw;                                     // (TILE, TILE)
+  float* qs = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
+  float* ks = qs + tile_floats<D>();                           // (TILE, DP)
+  float* vs = ks + tile_floats<D>();                           // (TILE, DP)
+  float* ps = vs + tile_floats<D>();                           // (TILE, SP)
+  float* kok = ps + TILE * SP;                                 // (TILE)
+
+  const int n = a.n, nt = n / TILE, bh = blockIdx.y;
+  const int qt = nt - 1 - (int)blockIdx.x;  // longest causal rows first
+  const int q0 = qt * TILE;
+  const int64_t head = (int64_t)bh * n * D;
+  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
+
+  float acc[4][CJ], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
+  }
+
+  bool q_loaded = false;
+  for (int kt = 0; kt < nt; ++kt) {
+    const int cls = a.visit[qt * nt + kt];
+    if (cls == 0) continue;  // no pair of the tile may attend: not loaded
+    const int k0 = kt * TILE;
+    __syncthreads();  // the previous tiles are no longer read
+    // a tile with no allowed pair adds p = 0 and leaves m, l and acc
+    // exactly as they are: it is skipped
+    if (!load_tile_masks(kok, msk, km, a.pattern, cls, q0, k0, n)) continue;
+    if (!q_loaded) {
+      load_tile<T, D>(qs, a.q + head, q0, n);
+      q_loaded = true;
+    }
+    load_tile<T, D>(ks, a.k + head, k0, n);
+    load_tile<T, D>(vs, a.v + head, k0, n);
+    __syncthreads();
+    fwd_step<T, D>(qs, ks, vs, ps, kok, msk, a.pattern != nullptr, cls, q0, k0, n, a.scale,
+                   acc, m, l);
+  }
+  fwd_finish<T, D>(acc, m, l, a.out + head, a.lse_out + (int64_t)bh * n, q0, n);
+}
+
+// dq of query tile qt of head bh, over its live key tiles; delta from do
+// and o (written to a.delta_out when it is not NULL)
+template <typename T, int D>
+__device__ __forceinline__ void dq_tile(const Operands<T>& a, unsigned char* smem_raw,
+                                        int qt, int bh) {
+  constexpr int CJ = D / 16;
+  uint8_t* msk = smem_raw;                                     // (TILE, TILE)
+  float* qs = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
+  float* dos = qs + tile_floats<D>();                          // (TILE, DP)
+  float* ks = dos + tile_floats<D>();                          // (TILE, DP)
+  float* vs = ks + tile_floats<D>();                           // (TILE, DP)
+  float* dss = vs + tile_floats<D>();                          // (TILE, SP)
+  float* lse_s = dss + TILE * SP;                              // (TILE)
+  float* del_s = lse_s + TILE;                                 // (TILE)
+  float* kok = del_s + TILE;                                   // (TILE)
+
+  const int n = a.n, nt = n / TILE, q0 = qt * TILE;
+  const int64_t head = (int64_t)bh * n * D;
+  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
+
+  row_stats_from_o<T, D>(lse_s, del_s, a, head, (int64_t)bh * n, q0);
+
+  float acc[4][CJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
+
+  bool q_loaded = false;
+  for (int kt = 0; kt < nt; ++kt) {
+    const int cls = a.visit[qt * nt + kt];
+    if (cls == 0) continue;
+    const int k0 = kt * TILE;
+    __syncthreads();  // the previous tiles are no longer read
+    if (!load_tile_masks(kok, msk, km, a.pattern, cls, q0, k0, n)) continue;
+    if (!q_loaded) {
+      load_tile<T, D>(qs, a.q + head, q0, n);
+      load_tile<T, D>(dos, a.dout + head, q0, n);
+      q_loaded = true;
+    }
+    load_tile<T, D>(ks, a.k + head, k0, n);
+    load_tile<T, D>(vs, a.v + head, k0, n);
+    __syncthreads();
+    scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, a.pattern != nullptr, cls,
+                         nullptr, dss, q0, k0, n, a.scale);
+    __syncthreads();
+    dq_step<D>(dss, ks, acc);
+  }
+  store_rows<T, D>(acc, a.dq + head, q0, n);
+}
+
+// dk and dv of key tile kt of head bh, over its live query tiles; delta
+// from a.delta_in, or from do and o when that is NULL
+template <typename T, int D>
+__device__ __forceinline__ void dkdv_tile(const Operands<T>& a, unsigned char* smem_raw,
+                                          int kt, int bh) {
+  constexpr int CJ = D / 16;
+  uint8_t* msk = smem_raw;                                     // (TILE, TILE)
+  float* ks = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
+  float* vs = ks + tile_floats<D>();                           // (TILE, DP)
+  float* qs = vs + tile_floats<D>();                           // (TILE, DP)
+  float* dos = qs + tile_floats<D>();                          // (TILE, DP)
+  float* ps = dos + tile_floats<D>();                          // (TILE, SP)
+  float* dss = ps + TILE * SP;                                 // (TILE, SP)
+  float* lse_s = dss + TILE * SP;                              // (TILE)
+  float* del_s = lse_s + TILE;                                 // (TILE)
+  float* kok = del_s + TILE;                                   // (TILE)
+
+  const int n = a.n, nt = n / TILE, k0 = kt * TILE;
+  const int64_t head = (int64_t)bh * n * D, row_base = (int64_t)bh * n;
+  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
+  const bool has_pattern = a.pattern != nullptr;
+
+  float dk_acc[4][CJ], dv_acc[4][CJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  // keys that are all masked have p = 0 for every query: dk = dv = 0
+  if (load_key_flags(kok, km, k0, n)) {
+    load_tile<T, D>(ks, a.k + head, k0, n);
+    load_tile<T, D>(vs, a.v + head, k0, n);
+    for (int qt = 0; qt < nt; ++qt) {
+      const int cls = a.visit[qt * nt + kt];
+      if (cls == 0) continue;
+      const int q0 = qt * TILE;
+      __syncthreads();  // the previous query tile is no longer read
+      if (cls == 1 && has_pattern && !load_mask_tile(msk, a.pattern, q0, k0, n)) continue;
+      load_tile<T, D>(qs, a.q + head, q0, n);
+      load_tile<T, D>(dos, a.dout + head, q0, n);
+      if (a.delta_in != nullptr) {
+        for (int r = threadIdx.x; r < TILE; r += THREADS) {
+          lse_s[r] = a.lse[row_base + q0 + r];
+          del_s[r] = a.delta_in[row_base + q0 + r];
+        }
+      } else {
+        row_stats_from_o<T, D>(lse_s, del_s, a, head, row_base, q0);
+      }
+      __syncthreads();
+      scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, has_pattern, cls, ps,
+                           dss, q0, k0, n, a.scale);
+      __syncthreads();
+      dkdv_step<D>(ps, dss, dos, qs, dk_acc, dv_acc);
+    }
+  }
+  store_rows<T, D>(dk_acc, a.dk + head, k0, n);
+  store_rows<T, D>(dv_acc, a.dv + head, k0, n);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_dq_kernel(const Operands<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  dq_tile<T, D>(a, smem_raw, a.n / TILE - 1 - (int)blockIdx.x, blockIdx.y);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_dkdv_kernel(const Operands<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  dkdv_tile<T, D>(a, smem_raw, blockIdx.x, blockIdx.y);
+}
+
+// blocks 0 .. nt - 1 compute dq (longest causal rows first), blocks
+// nt .. 2 nt - 1 dk and dv (longest causal columns first)
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_bwd_fused_kernel(const Operands<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = a.n / TILE;
+  if ((int)blockIdx.x < nt)
+    dq_tile<T, D>(a, smem_raw, nt - 1 - (int)blockIdx.x, blockIdx.y);
+  else
+    dkdv_tile<T, D>(a, smem_raw, (int)blockIdx.x - nt, blockIdx.y);
+}
+
+// shapes every entry point refuses (-1): an empty shape, n not a multiple
+// of TILE, more (batch, head) pairs than a grid dimension holds
+bool refused(int batch, int heads, int n) {
+  return batch < 1 || heads < 1 || n < TILE || n % TILE != 0 ||
+         (int64_t)batch * heads > 65535;
+}
+
+enum class Pass { kFwd, kDq, kDkdv, kFused };
+
+template <typename T, int D>
+int launch(Pass pass, const Operands<T>& a, int batch, cudaStream_t stream) {
+  static_assert(dkdv_smem_bytes<D>() >= dq_smem_bytes<D>(), "the fused launch sizes for dk/dv");
+  const int nt = a.n / TILE;
+  const dim3 grid(pass == Pass::kFused ? 2 * nt : nt, batch * a.heads);
+  int smem = 0, err = 0;
+  switch (pass) {
+    case Pass::kFwd:
+      smem = fwd_smem_bytes<D>();
+      if ((err = allow_smem(flash_fwd_kernel<T, D>, smem)) != 0) return err;
+      flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      break;
+    case Pass::kDq:
+      smem = dq_smem_bytes<D>();
+      if ((err = allow_smem(flash_dq_kernel<T, D>, smem)) != 0) return err;
+      flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      break;
+    case Pass::kDkdv:
+      smem = dkdv_smem_bytes<D>();
+      if ((err = allow_smem(flash_dkdv_kernel<T, D>, smem)) != 0) return err;
+      flash_dkdv_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      break;
+    case Pass::kFused:
+      smem = dkdv_smem_bytes<D>();  // the larger of the two roles
+      if ((err = allow_smem(flash_bwd_fused_kernel<T, D>, smem)) != 0) return err;
+      flash_bwd_fused_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      break;
+  }
+  return (int)cudaGetLastError();
+}
+
+struct Pointers {
+  const void *q, *k, *v, *o, *dout, *lse, *delta_in, *kmask, *pattern, *visit;
+  void *out, *dq, *dk, *dv, *lse_out, *delta_out;
+};
+
+template <typename T, int D>
+int run(Pass pass, const Pointers& p, int batch, int heads, int n, float scale,
+        cudaStream_t stream) {
+  const Operands<T> a{(const T*)p.q,         (const T*)p.k,        (const T*)p.v,
+                      (const T*)p.o,         (const T*)p.dout,     (const float*)p.lse,
+                      (const float*)p.delta_in, (const uint8_t*)p.kmask,
+                      (const int8_t*)p.pattern, (const int8_t*)p.visit,
+                      (T*)p.out,             (T*)p.dq,             (T*)p.dk,
+                      (T*)p.dv,              (float*)p.lse_out,    (float*)p.delta_out,
+                      heads,                 n,                    scale};
+  return launch<T, D>(pass, a, batch, stream);
+}
+
+// Instances: dtype 0 = float32, 1 = bfloat16; dim_head 32, 64, 96, 128.
+int dispatch(Pass pass, const Pointers& p, int batch, int heads, int n, int dim_head,
+             float scale, int dtype, void* stream) {
+  if (refused(batch, heads, n)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype * 1000 + dim_head) {
+    case 32: return run<float, 32>(pass, p, batch, heads, n, scale, s);
+    case 64: return run<float, 64>(pass, p, batch, heads, n, scale, s);
+    case 96: return run<float, 96>(pass, p, batch, heads, n, scale, s);
+    case 128: return run<float, 128>(pass, p, batch, heads, n, scale, s);
+    case 1032: return run<__nv_bfloat16, 32>(pass, p, batch, heads, n, scale, s);
+    case 1064: return run<__nv_bfloat16, 64>(pass, p, batch, heads, n, scale, s);
+    case 1096: return run<__nv_bfloat16, 96>(pass, p, batch, heads, n, scale, s);
+    case 1128: return run<__nv_bfloat16, 128>(pass, p, batch, heads, n, scale, s);
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+// Every entry point: q, k, v (and o, do, dq, dk, dv) contiguous
+// (b, h, n, dim_head) of one type; lse and delta (b, h, n) float32; kmask
+// (b, n) uint8 or NULL; pattern (n, n) int8 or NULL; visit
+// (n / 64, n / 64) int8. One launch on `stream`. Returns
+// cudaGetLastError() after it (0 on success), or -1 for what the kernels
+// cannot take: a dim_head other than 32/64/96/128, a dtype code other
+// than 0/1, n not a positive multiple of 64, or more (batch, head) pairs
+// than a grid dimension holds.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   const void* kmask, const void* pattern,
+                                   const void* visit, void* out, void* lse, int batch,
+                                   int heads, int n, int dim_head, float scale, int dtype,
+                                   void* stream) {
+  Pointers p{};
+  p.q = q, p.k = k, p.v = v, p.kmask = kmask, p.pattern = pattern, p.visit = visit;
+  p.out = out, p.lse_out = lse;
+  return dispatch(Pass::kFwd, p, batch, heads, n, dim_head, scale, dtype, stream);
+}
+
+// delta is written here (rowsum(do * o) per row and head) for
+// flash_attention_dkdv.
+extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
+                                  const void* o, const void* dout, const void* lse,
+                                  const void* kmask, const void* pattern,
+                                  const void* visit, void* dq, void* delta, int batch,
+                                  int heads, int n, int dim_head, float scale, int dtype,
+                                  void* stream) {
+  Pointers p{};
+  p.q = q, p.k = k, p.v = v, p.o = o, p.dout = dout, p.lse = lse, p.kmask = kmask;
+  p.pattern = pattern, p.visit = visit, p.dq = dq, p.delta_out = delta;
+  return dispatch(Pass::kDq, p, batch, heads, n, dim_head, scale, dtype, stream);
+}
+
+extern "C" int flash_attention_dkdv(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    const void* kmask, const void* pattern,
+                                    const void* visit, void* dk, void* dv, int batch,
+                                    int heads, int n, int dim_head, float scale,
+                                    int dtype, void* stream) {
+  Pointers p{};
+  p.q = q, p.k = k, p.v = v, p.dout = dout, p.lse = lse, p.delta_in = delta;
+  p.kmask = kmask, p.pattern = pattern, p.visit = visit, p.dk = dk, p.dv = dv;
+  return dispatch(Pass::kDkdv, p, batch, heads, n, dim_head, scale, dtype, stream);
+}
+
+// dq, dk and dv from one launch; delta is derived per block, never stored.
+extern "C" int flash_attention_bwd_fused(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout, const void* lse,
+                                         const void* kmask, const void* pattern,
+                                         const void* visit, void* dq, void* dk, void* dv,
+                                         int batch, int heads, int n, int dim_head,
+                                         float scale, int dtype, void* stream) {
+  Pointers p{};
+  p.q = q, p.k = k, p.v = v, p.o = o, p.dout = dout, p.lse = lse, p.kmask = kmask;
+  p.pattern = pattern, p.visit = visit, p.dq = dq, p.dk = dk, p.dv = dv;
+  return dispatch(Pass::kFused, p, batch, heads, n, dim_head, scale, dtype, stream);
+}

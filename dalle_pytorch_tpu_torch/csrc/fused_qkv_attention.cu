@@ -1,8 +1,9 @@
-// Fused packed-qkv attention for Hopper (sm_90a), forward only.
+// Fused packed-qkv attention for Hopper (sm_90a), the forward.
 //
 // Replaces the Pallas TPU kernel `_fused_qkv_fwd_kernel` behind
 // `fused_qkv_attention` in dalle_pytorch_tpu/ops/flash_attention.py (the
-// backward, `_fused_qkv_bwd_kernel`, is not ported yet). Python wrapper:
+// backward, `_fused_qkv_bwd_kernel`, is fused_qkv_attention_bwd.cu).
+// Python wrapper:
 // dalle_pytorch_tpu_torch/ops/flash_attention.py:fused_qkv_attention.
 //
 // What it computes. qkv (b, n, 3*h*d) in the projection's layout: head j

@@ -22,9 +22,14 @@
      (``flash_block(n) == n`` and ``fused_qkv_supported``) run
      ``FusedQKVAttention`` with the pattern as its mask operand (none for
      "full");
-  3. shapes with no flash block run the dense masked softmax over the
-     pattern and the key mask; the shapes between, which JAX sends to its
-     tiled ``flash_attention``, raise (not ported).
+  3. every other shape with a flash block (``flash_block(n) > 0``), which
+     JAX sends to its tiled ``flash_attention``, runs ``FlashAttention``
+     on split, rotated heads with the pattern as its mask operand: a
+     one-block grid (``flash_block(n) == n``, heads the packed kernel
+     refuses) backward through the single-block kernel, a tiled grid
+     through dq then dk/dv (``full_route`` names the choice);
+  4. shapes with no flash block run the dense masked softmax over the
+     pattern and the key mask.
   On a CUDA tensor the autograd functions launch the kernels, on a CPU
   tensor their plain versions. JAX's grouped axial/conv forms compute the
   dense form's function with fewer operations; the port uses the dense
@@ -51,7 +56,9 @@ from .block_sparse_attention import (
     compile_block_layout,
 )
 from .flash_attention import (
+    FlashAttention,
     FusedQKVAttention,
+    flash_block,
     fused_qkv_supported,
     may_attend,
 )
@@ -73,15 +80,6 @@ SPARSE_RANDOM_BLOCKS = None  # masks.block_sparse_mask's seq_len // block // 4
 # device once (block_sparse_attention.device_layout).
 _PATTERN_CACHE: dict = {}
 _LAYOUT_CACHE: dict = {}
-
-
-def flash_block(n: int) -> int:
-    """JAX's flash block for a sequence of n: the largest of 1280, 1024,
-    640, 512, 384, 256, 128 that divides n, else 0."""
-    for b in (1280, 1024, 640, 512, 384, 256, 128):
-        if n % b == 0:
-            return b
-    return 0
 
 
 def sparse_block(n: int) -> int:
@@ -125,6 +123,31 @@ def cache_block_attend(q, k_cache, v_cache, allowed):
     return torch.einsum("bhnl,blhd->bnhd", attn.to(v.dtype), v)
 
 
+def full_route(n: int, heads: int, dim_head: int) -> str:
+    """The full-sequence path JAX takes for a sequence of n (after the pair
+    grid declines): "packed" (``flash_block(n) == n`` and
+    ``fused_qkv_supported``), "tiled_one_block" (a one-block grid the
+    packed kernel refuses), "tiled" (a grid of several flash blocks) or
+    "dense" (no flash block)."""
+    block = flash_block(n)
+    if block == n:
+        return "packed" if fused_qkv_supported(n, heads, dim_head) else "tiled_one_block"
+    return "tiled" if block > 0 else "dense"
+
+
+def _split_heads(qkv, heads: int, dim_head: int, rotary=None):
+    """q, k, v (b, h, n, d) from the packed projection (b, n, 3*h*d),
+    rotated with torch ops when ``rotary`` (the (cos, sin) pair of
+    ``rotary.rot_tables``) is given."""
+    b, n, _ = qkv.shape
+    q, k, v = (t.reshape(b, n, heads, dim_head).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    if rotary is not None:
+        cos, sin = (t[:n] for t in rotary)  # (n, d) over (b, h, n, d)
+        q, k, v = (t * cos + rotate_half(t) * sin for t in (q, k, v))
+    return q, k, v
+
+
 def full_attend(qkv, heads: int, dim_head: int, mask=None,
                 causal: bool = True, rotary=None, pattern=None):
     """Attention over a whole sequence from the packed projection qkv
@@ -132,30 +155,39 @@ def full_attend(qkv, heads: int, dim_head: int, mask=None,
     (cos, sin) pair of ``rotary.rot_tables`` (>= n rows, zero angles past
     the table rotate nothing), ``pattern`` an optional (n, n) may-attend
     mask on qkv's device that replaces the causal rule. Returns
-    (b, n, h*d). The packed kernel takes the unscaled q with
-    ``sm_scale = d**-0.5`` (a fully masked row gives 0); the dense path
-    pre-scales q and runs a plain softmax (a fully masked row is uniform
-    over its keys), as JAX's two paths do."""
+    (b, n, h*d), by ``full_route``'s path. The packed and tiled kernels
+    take the unscaled q with ``sm_scale = d**-0.5`` (a fully masked row
+    gives 0); the dense path pre-scales q and runs a plain softmax (a
+    fully masked row is uniform over its keys), as JAX's paths do."""
     b, n, _ = qkv.shape
     h, d = heads, dim_head
     key_mask = None if mask is None else mask[:, :n]
-    if flash_block(n) == n and fused_qkv_supported(n, h, d):
+    route = full_route(n, h, d)
+    if route == "packed":
         o, _ = FusedQKVAttention.apply(qkv.contiguous(), key_mask, h, d,
                                        causal, pattern, rotary, d**-0.5)
         return o
-    if flash_block(n) > 0:
-        raise NotImplementedError(
-            f"n={n}, heads={h}, dim_head={d} takes JAX's tiled flash "
-            "attention, which is not ported"
-        )
-    q, k, v = (t.reshape(b, n, h, d) for t in qkv.chunk(3, dim=-1))
-    if rotary is not None:
-        cos, sin = (t[:n, None] for t in rotary)  # (n, 1, d) over (b, n, h, d)
-        q, k, v = (t * cos + rotate_half(t) * sin for t in (q, k, v))
+    if route != "dense":
+        return flash_attend(qkv, h, d, mask, causal, rotary, pattern)
+    q, k, v = (t.transpose(1, 2) for t in _split_heads(qkv, h, d, rotary))
     allowed = may_attend(n, qkv.device, key_mask, causal, pattern)[:, 0].expand(b, n, n)
     out = cache_block_attend(q * d**-0.5, k.reshape(b, n, h * d),
                              v.reshape(b, n, h * d), allowed)
     return out.reshape(b, n, h * d)
+
+
+def flash_attend(qkv, heads: int, dim_head: int, mask=None,
+                 causal: bool = True, rotary=None, pattern=None):
+    """The tiled path (JAX's ``_flash_attend``): qkv (b, n, 3*h*d) split
+    into (b, h, n, d) heads, rotated with torch ops, then
+    ``FlashAttention`` with ``sm_scale = d**-0.5``; arguments as
+    ``full_attend``. Returns (b, n, h*d); a row with every key masked
+    gives 0."""
+    b, n, _ = qkv.shape
+    q, k, v = _split_heads(qkv, heads, dim_head, rotary)
+    key_mask = None if mask is None else mask[:, :n]
+    o, _ = FlashAttention.apply(q, k, v, key_mask, causal, pattern, dim_head**-0.5)
+    return o.transpose(1, 2).reshape(b, n, heads * dim_head)
 
 
 def block_sparse_attend(qkv, heads: int, dim_head: int, layout: BlockLayout,
@@ -165,14 +197,10 @@ def block_sparse_attend(qkv, heads: int, dim_head: int, layout: BlockLayout,
     ``BlockSparseAttention`` with ``sm_scale = d**-0.5``. Returns
     (b, n, h*d); a row with every key masked gives 0."""
     b, n, _ = qkv.shape
-    h, d = heads, dim_head
-    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    if rotary is not None:
-        cos, sin = (t[:n] for t in rotary)  # (n, d) over (b, h, n, d)
-        q, k, v = (t * cos + rotate_half(t) * sin for t in (q, k, v))
+    q, k, v = _split_heads(qkv, heads, dim_head, rotary)
     key_mask = None if mask is None else mask[:, :n]
-    o, _ = BlockSparseAttention.apply(q, k, v, key_mask, layout, d**-0.5)
-    return o.transpose(1, 2).reshape(b, n, h * d)
+    o, _ = BlockSparseAttention.apply(q, k, v, key_mask, layout, dim_head**-0.5)
+    return o.transpose(1, 2).reshape(b, n, heads * dim_head)
 
 
 class Attention(nn.Module):

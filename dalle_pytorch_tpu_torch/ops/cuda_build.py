@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/torch_kernels/
-lib<name>-<hash>.so`` at the repository root (the hash is the source's
-content hash, so an edited source rebuilds), and bound with ctypes. The
-build happens at first use, never at import. ``build()`` starts one
-``nvcc`` per source, all together, and waits for them.
+lib<name>-<hash>.so`` at the repository root (the hash is the content
+hash of the source and of every ``csrc/*.cuh`` header, so an edited
+source or header rebuilds), and bound with ctypes. The build happens at
+first use, never at import. ``build()`` starts one ``nvcc`` per source,
+all together, and waits for them.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ SIGNATURES = {
         "block_sparse_attention_dq": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
         "block_sparse_attention_dkdv": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
     },
+    "flash_attention": {
+        "flash_attention_fwd": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
+        "flash_attention_dq": ([_P] * 11 + [_I] * 4 + [_F, _I, _P], _I),
+        "flash_attention_dkdv": ([_P] * 11 + [_I] * 4 + [_F, _I, _P], _I),
+        "flash_attention_bwd_fused": ([_P] * 12 + [_I] * 4 + [_F, _I, _P], _I),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -57,9 +64,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

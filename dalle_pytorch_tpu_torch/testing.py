@@ -24,6 +24,12 @@ absolute, the gradients by the floored row metric above. A row is one
 position's h*d values; rows that the layout and the key mask leave with
 no allowed key (query rows for o and dq, key rows for dk and dv) must be
 exactly 0, with lse -1e30.
+
+The tiled flash kernels (forward, dq, dk/dv and the single-block
+backward) compute the pair grid's arithmetic over a visit map instead of
+a layout, and are held the same way (``FLASH_F32_ATOL``,
+``FLASH_BF16_ROW_REL``, ``BWD_F32_REL``, ``BWD_BF16_ROW_REL``;
+``flash_fwd_errors``, ``flash_bwd_errors``) on ``flash_inputs``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from .ops.rotary import dalle_rotary_table, rot_tables
 
 BWD_F32_REL, BWD_BF16_ROW_REL = 1e-5, 2e-2
 BS_F32_ATOL, BS_BF16_ROW_REL = 1e-5, 1e-2
+FLASH_F32_ATOL, FLASH_BF16_ROW_REL = BS_F32_ATOL, BS_BF16_ROW_REL
 # the ragged kernel (both instances) against its plain version on valid
 # columns: float32 max abs error; bfloat16 the error's L2 norm over a
 # query column's h*d outputs relative to the plain column's norm (two
@@ -86,12 +93,13 @@ def _rows(t):
     return t.transpose(1, 2).reshape(b, n, h * d)
 
 
-def bs_fwd_errors(o, lse, plain_o, plain_lse, layout, key_mask=None):
+def _fwd_errors(o, lse, plain_o, plain_lse, allowed):
     """(max abs error over live rows of o and lse, worst row-relative L2
     error of o over live rows, lse abs error, dead rows exactly 0 with
-    lse -1e30) of the block-sparse forward against its plain version."""
+    lse -1e30) of a forward against its plain version; ``allowed``
+    (b or 1, 1, n, n) the pairs that may attend."""
     b, h, n, _ = o.shape
-    live = bs.may_attend(layout, n, o.device, key_mask)[:, 0].any(dim=2).expand(b, n)
+    live = allowed[:, 0].any(dim=2).expand(b, n)
     g, p = _rows(o.float()), _rows(plain_o.float())
     diff = (g - p)[live]
     lse_err = (lse - plain_lse).transpose(1, 2)[live].abs().max().item()
@@ -101,13 +109,77 @@ def bs_fwd_errors(o, lse, plain_o, plain_lse, layout, key_mask=None):
     return max(diff.abs().max().item(), lse_err), rel, lse_err, dead_exact
 
 
-def bs_bwd_errors(got, plain, layout, key_mask=None):
-    """``_part_errors`` of the block-sparse gradients (dq, dk, dv), each
-    (b, h, n, d), against the plain ones."""
+def _bwd_errors(got, plain, allowed):
+    """``_part_errors`` of gradients (dq, dk, dv), each (b, h, n, d),
+    against the plain ones; ``allowed`` as in ``_fwd_errors``."""
     b, h, n, _ = got[0].shape
-    allowed = bs.may_attend(layout, n, got[0].device, key_mask)[:, 0].expand(b, n, n)
+    allowed = allowed[:, 0].expand(b, n, n)
     dead = (~allowed.any(dim=2), ~allowed.any(dim=1), ~allowed.any(dim=1))
     return _part_errors([_rows(t) for t in got], [_rows(t) for t in plain], dead)
+
+
+def bs_fwd_errors(o, lse, plain_o, plain_lse, layout, key_mask=None):
+    """``_fwd_errors`` of the block-sparse forward."""
+    allowed = bs.may_attend(layout, o.shape[2], o.device, key_mask)
+    return _fwd_errors(o, lse, plain_o, plain_lse, allowed)
+
+
+def bs_bwd_errors(got, plain, layout, key_mask=None):
+    """``_bwd_errors`` of the block-sparse gradients (dq, dk, dv)."""
+    allowed = bs.may_attend(layout, got[0].shape[2], got[0].device, key_mask)
+    return _bwd_errors(got, plain, allowed)
+
+
+def flash_fwd_errors(o, lse, plain_o, plain_lse, key_mask=None, causal=True,
+                     pattern=None):
+    """``_fwd_errors`` of the tiled flash forward."""
+    allowed = fa.may_attend(o.shape[2], o.device, key_mask, causal, pattern)
+    return _fwd_errors(o, lse, plain_o, plain_lse, allowed)
+
+
+def flash_bwd_errors(got, plain, key_mask=None, causal=True, pattern=None):
+    """``_bwd_errors`` of the tiled flash gradients (dq, dk, dv)."""
+    allowed = fa.may_attend(got[0].shape[2], got[0].device, key_mask, causal, pattern)
+    return _bwd_errors(got, plain, allowed)
+
+
+def flash_inputs(case: str, dtype, device, seed: int = 0):
+    """(q, k, v, do, options) of the tiled flash kernels, q, k, v and do
+    (b, h, n, d) standard normal; options the keyword arguments key_mask,
+    causal and pattern. "train": the 512 px training shape (b 4, 16 heads
+    of 64, n 4352 = 256 text + 64 x 64 image positions), causal.
+    "axial_col": b 2 of the same with the axial-column pattern of DALL-E's
+    257 + 64 x 64 sequence. "one_block": b 2, 3 heads of 64, n 1280
+    (one flash block the packed kernel refuses), causal. Small shapes, b 2
+    and 2 heads at n 384 (one flash block): "pattern" (the axial-row
+    pattern of 129 + 16 x 16), "noncausal", and "d32" / "d64" / "d96" /
+    "d128", causal with a key mask that drops a fifth of row 0's keys and
+    key 0 (text row 0 then attends nothing) and every key of row 1 (all
+    its rows dead); "tiled" is "d64" at n 1152 (3 x 3 flash blocks)."""
+    rng = np.random.RandomState(seed)
+    opts = dict(key_mask=None, causal=True, pattern=None)
+    if case in ("train", "axial_col"):
+        b, h, n, d = (4 if case == "train" else 2), 16, 4352, 64
+        if case == "axial_col":
+            opts["pattern"] = torch.from_numpy(
+                masks.pattern_mask("axial_col", 257, 64)[:n, :n]).to(device)
+    elif case == "one_block":
+        b, h, n, d = 2, 3, 1280, 64
+    else:
+        b, h, n = 2, 2, 1152 if case == "tiled" else 384
+        d = int(case[1:]) if case.startswith("d") else 64
+        if case == "pattern":
+            opts["pattern"] = torch.from_numpy(
+                masks.pattern_mask("axial_row", 129, 16)[:n, :n]).to(device)
+        elif case == "noncausal":
+            opts["causal"] = False
+        else:
+            km = rng.rand(b, n) > 0.2
+            km[0, 0], km[1] = False, False
+            opts["key_mask"] = torch.from_numpy(km).to(device)
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, n, d).astype(np.float32)).to(device, dtype)
+                   for _ in range(4))
+    return q, k, v, do, opts
 
 
 def bs_inputs(case: str, dtype, device, seed: int = 0):

@@ -19,11 +19,16 @@ from dalle_pytorch_tpu_torch.testing import (
     BS_F32_ATOL,
     BWD_BF16_ROW_REL,
     BWD_F32_REL,
+    FLASH_BF16_ROW_REL,
+    FLASH_F32_ATOL,
     bs_bwd_errors,
     bs_fwd_errors,
     bs_inputs,
     bwd_errors,
     bwd_inputs,
+    flash_bwd_errors,
+    flash_fwd_errors,
+    flash_inputs,
     ragged_errors,
     ragged_inputs,
     ragged_ok,
@@ -352,3 +357,118 @@ def test_block_sparse_kernels_reject_what_they_cannot_take(cuda):
         bs.block_sparse_dq(q, q, q, o, lse.double(), o, layout)
     with pytest.raises(ValueError):  # delta of the wrong shape
         bs.block_sparse_dkdv(q, q, q, o, lse, lse[:, :1], layout)
+
+
+FLASH_CASES = ["pattern", "noncausal", "d32", "d64", "d96", "d128", "tiled", "one_block"]
+FLASH_KERNELS = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkdv,
+                 fa.flash_attention_bwd_fused)
+
+
+def _flash_run(q, k, v, do, opts):
+    """The four tiled kernels, dk/dv on the kernel's own delta: (o, lse,
+    dq, delta, dk, dv, and the single-block kernel's dq, dk, dv)."""
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    dq, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+    dk, dv = fa.flash_attention_dkdv(q, k, v, do, lse, delta, **opts)
+    return (o, lse, dq, delta, dk, dv, *fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, case):
+    """``dalle_pytorch_tpu_torch.testing.flash_inputs``: the axial_row
+    pattern, non-causal, dim_head 32/64/96/128 with a key mask that kills
+    whole rows (n 384, six 64-tiles), the same at n 1152, and one flash
+    block of 1280 at 3 heads. Forward: float32 o and lse within abs 1e-5; bfloat16 each row's
+    o error within 1% of the plain row and lse within 1e-2. Backward, each
+    kernel on the plain forward's o and lse (dk/dv on the plain delta):
+    float32 each of dq, dk, dv within relative L2 1e-5; bfloat16 the
+    floored row metric within 2%. Rows with no allowed key (and keys no
+    query may attend) exactly 0, lse -1e30 there; one launch per kernel
+    and call."""
+    q, k, v, do, opts = flash_inputs(case, dtype, cuda)
+    counts = [f.launches for f in FLASH_KERNELS]
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    po, plse = fa.reference_flash_attention(q, k, v, **opts)
+    pdelta = (do.float() * po.float()).sum(-1)
+    dq, delta = fa.flash_attention_dq(q, k, v, po, plse, do, **opts)
+    dk, dv = fa.flash_attention_dkdv(q, k, v, do, plse, pdelta, **opts)
+    fused = fa.flash_attention_bwd_fused(q, k, v, po, plse, do, **opts)
+    plain = fa.reference_flash_attention_bwd(q, k, v, po, plse, do, **opts)
+    torch.cuda.synchronize()
+    assert [f.launches for f in FLASH_KERNELS] == [c + 1 for c in counts]
+    for t in (o, lse, dq, delta, dk, dv, *fused):
+        assert torch.isfinite(t).all()
+    err, row_rel, lse_err, dead_exact = flash_fwd_errors(o, lse, po, plse, **opts)
+    assert dead_exact
+    assert (delta - pdelta).abs().max().item() <= 1e-4 * pdelta.abs().max().item()
+    for got in ((dq, dk, dv), fused):
+        rel, grad_row_rel, zeros_exact = flash_bwd_errors(got, plain, **opts)
+        assert zeros_exact
+        if dtype == torch.float32:
+            assert rel <= BWD_F32_REL, rel
+        else:
+            assert grad_row_rel <= BWD_BF16_ROW_REL, grad_row_rel
+    if dtype == torch.float32:
+        assert err <= FLASH_F32_ATOL, err
+    else:
+        assert row_rel <= FLASH_BF16_ROW_REL and lse_err <= FLASH_BF16_ROW_REL, (row_rel, lse_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["pattern", "d64", "one_block"])
+def test_flash_kernels_are_deterministic(cuda, case):
+    """No float atomics: two runs give bit-identical outputs and gradients."""
+    q, k, v, do, opts = flash_inputs(case, torch.float32, cuda)
+    first, second = _flash_run(q, k, v, do, opts), _flash_run(q, k, v, do, opts)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,kernels", [("tiled", (0, 1, 1, 0)), ("d64", (0, 0, 0, 1)),
+                                          ("one_block", (0, 0, 0, 1))])
+def test_flash_function_gradients_on_card(cuda, case, kernels):
+    """FlashAttention on the card against torch autograd of the plain
+    forward on the same float32 inputs: each of dq, dk, dv within relative
+    L2 1e-5. n 1152 (three flash blocks) runs dq then dk/dv, n 384 and
+    n 1280 (one flash block each) the single-block kernel."""
+    q, k, v, do, opts = flash_inputs(case, torch.float32, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, _ = fa.FlashAttention.apply(*leaves, opts["key_mask"], opts["causal"], opts["pattern"],
+                                   None)
+    counts = [f.launches for f in FLASH_KERNELS]
+    got = torch.autograd.grad(o, leaves, do)
+    assert [f.launches - c for f, c in zip(FLASH_KERNELS, counts)] == list(kernels)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.reference_flash_attention(*leaves, **opts)[0], leaves, do)
+    for g, r in zip(got, ref):
+        assert ((g - r).norm() / r.norm()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_flash_kernels_reject_what_they_cannot_take(cuda):
+    q = torch.zeros(1, 2, 256, 64, device=cuda)
+    with pytest.raises(ValueError):  # n not a multiple of the tile
+        fa.flash_attention_fwd(q[:, :, :200], q[:, :, :200], q[:, :, :200])
+    with pytest.raises(ValueError):  # no instance for dim_head 48
+        z = torch.zeros(1, 2, 256, 48, device=cuda)
+        fa.flash_attention_fwd(z, z, z)
+    with pytest.raises(ValueError):  # k on another device
+        fa.flash_attention_fwd(q, q.cpu(), q)
+    with pytest.raises(ValueError):  # key mask on another device
+        fa.flash_attention_fwd(q, q, q, torch.ones(1, 256, dtype=torch.bool))
+    with pytest.raises(ValueError):  # a pattern of another n
+        fa.flash_attention_fwd(q, q, q, pattern=torch.ones(128, 128, dtype=torch.bool,
+                                                            device=cuda))
+    with pytest.raises(ValueError):  # operands of two dtypes
+        fa.flash_attention_fwd(q, q.bfloat16(), q)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), q.half(), q.half())
+    o, lse = fa.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError):  # lse of the wrong dtype
+        fa.flash_attention_dq(q, q, q, o, lse.double(), o)
+    with pytest.raises(ValueError):  # delta of the wrong shape
+        fa.flash_attention_dkdv(q, q, q, o, lse, lse[:, :1])
+    with pytest.raises(ValueError):  # o of the wrong shape
+        fa.flash_attention_bwd_fused(q, q, q, o[:, :1], lse, o)
