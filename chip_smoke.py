@@ -17,15 +17,27 @@ line):
    bound from bytes and operations. The ragged kernel's two instances
    (unquantized pages; int8 pages with their scale pages, at dim_head
    32/64/128) at the serving shape (8 rows of 16 columns, 11 pages of
-   128), identity and permuted tables, timed in bf16 side by side. The
+   128), identity and permuted tables, timed in bf16 side by side; the
+   unquantized instance also at generation's paged prompt block (4 rows
+   of 257 columns, five query tiles, short, late and idle rows). The
    packed-qkv kernel is held at CLIP's text shape (the rerank stage's),
    at DALL-E's causal rotary shape, with and without a pattern mask, and
-   at the training shape (batch 4).
+   at the training shape (batch 4). The fused decode kernel is held at
+   the flagship's decode shapes (b 1 and 8, 16 heads of 64, L 1281,
+   positions 0 to 1279, rotary and key mask on and off, a masked own
+   key, dim_head 32 and 128; its k/v rows bitwise) and timed at b 1 and
+   8.
 4. path check: a small float32 DALLE (dense and the four-type sparse
    cycle, each with unquantized and with int8 pages), and a small float32
    CLIP whose text length takes the packed-qkv kernel, each with the same
    weights on the card (kernels) and on the CPU (plain versions); logits
-   and similarities agree. Preemption on the card: a small DALLE under a
+   and similarities agree. A small float32 DALLE (2 heads of 64)
+   generating with ``fused_decode``: ``decode_step`` logits on the "4d"
+   and "flat" caches and greedy tokens agree, card against CPU, with the
+   decode kernel launched once per layer and step; on the "paged" cache
+   an 81-column prompt block (two query tiles of the ragged kernel) and
+   the decode steps after it agree, card against CPU; a 4 x 16-head
+   model never launches the decode kernel. Preemption on the card: a small DALLE under a
    page budget below its batch's demand (unquantized and int8) preempts,
    completes every request and replays tokens bit-identical to the
    unpressured run.
@@ -41,7 +53,7 @@ line):
    text depth x rerank dispatches times.
 6. pixels: the results' images, denormalized, lie in [0, 1]; their order
    by rerank score is printed.
-7. profile: torch.profiler over 30 iterations of a fresh mixed batch:
+7. profile: torch.profiler over 15 iterations of a fresh mixed batch:
    wall and device-busy time per iteration, launches per iteration, the
    largest device-time kernels (after the counted run).
 5b. serve int8: the flagship of phase 5 with int8 KV pages, 8 of its
@@ -50,13 +62,27 @@ line):
    times and the unquantized one never, KV bytes per slot exactly 68/128
    of the bf16 engine's; token agreement with phase 5 printed. Then the
    teacher-forced flagship logits through int8 against bf16 pages within
-   ``testing.INT8_LOGITS_REL``, and profiles of 30 iterations as in
+   ``testing.INT8_LOGITS_REL``, and profiles of 15 iterations as in
    phase 7, int8, int8, then bf16 again (phase 7's came first), each with
    the host's time by operator.
 5c. serve sparse: the sparse configuration (phase 10's layers) at the
    flagship width, bf16, int8 pages, 4 requests of 256 tokens: every
    outcome COMPLETED, the int8 ragged instance launched depth / 4 x
    dispatched iterations times (the full layers).
+5d. generate: the flagship of phase 5 generating outside the engine
+   (``models/sampling.py``), each run counted: (a) batch 1 on the "4d"
+   cache with ``fused_decode=True`` and ``window_seg=0``, 1024 tokens in
+   range, the decode kernel launched exactly 12 x 1023 times; (b) the
+   same caption on the unfused chain with the default window, token
+   agreement printed, and (a)'s tokens teacher-forced through both paths
+   (the prompt and 256 decode steps), image logits within
+   ``testing.DECODE_LOGITS_REL``; (c) batch 8 on the
+   "flat" cache, ``generate_images`` with phase 5's VAE and CLIP, 8
+   finite images and scores, the decode kernel 12 x 1023 times; (d)
+   batch 4 on pages with default arguments, the ragged kernel 12 x 1024
+   times (its prompt block of 257 columns included), the decode kernel
+   never. Each prints wall seconds, ms per token and tokens/s; then
+   torch.profiler over 20 decode steps of (a).
 8. train: the flagship DALLE in float32 (train_dalle.py's defaults: batch
    4, lr 3e-4, clip_grad_norm 0.5, loss_img_weight 7) trained by
    ``DalleTrainer`` for 10 steps on one batch: 4 seeded 256x256 images
@@ -106,10 +132,21 @@ single-block backward), with exact launch counts.
 The second-to-last line is the card's ``nvidia-smi`` name and power
 limit; the line before it the kernels' JSON; the last line
 ``{"ok": true, "device": {...}}``.
+
+Paired comparisons, one card, none of the phases above:
+
+    python3 chip_smoke.py --ragged-source OTHER/ragged_attention.cu
+    python3 chip_smoke.py --generate-pairs 3
+
+the first times this checkout's ragged kernel against the same file of
+another commit, alternating in one process, with the cold timer's spin
+and without it; the second times generation (a) against (b) in
+alternating pairs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import subprocess
@@ -127,6 +164,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_FLUSH_BYTES = 256 << 20  # well past the 50 MB L2
+# ~0.5 ms of a spinning card (at ~2 GHz) before each cold timed call:
+# longer than the host takes to issue one wrapper's launches
+HOST_COVER_CYCLES = 1_000_000
 
 FLAGSHIP = dict(dim=1024, depth=12, heads=16, dim_head=64,
                 num_text_tokens=10000, text_seq_len=256,
@@ -163,17 +203,26 @@ FLASH_TPU_KERNELS = {  # flash_attention's kernel bodies
     "flash_attention_dkdv": "dalle_pytorch_tpu/ops/flash_attention.py:277",
     "flash_attention_bwd_fused": "dalle_pytorch_tpu/ops/flash_attention.py:229",
 }
+DECODE_TPU_KERNEL = "dalle_pytorch_tpu/ops/decode_attention.py:73"  # _kernel
 SPARSE_TYPES = "full,axial_row,axial_col,conv_like"
 # 512 px: three downsamples of the flagship VAE give a 64 x 64 grid
 VAE_512 = dict(FLAGSHIP_VAE, image_size=512)
 TRAIN_BATCH, TRAIN_STEPS = 4, 10
+# generation's teacher-forced check, kernel against the unfused chain:
+# decode steps after the prompt (a quarter of the image, for the script's
+# time; the kernel phase holds the kernel at every sweep length)
+TEACHER_FORCED_STEPS = 256
 # the rerank stage's text key mask: valid prompt lengths of the 8 rows
 # (one fully masked row: its output must be exactly 0, its lse -1e30)
 CLIP_TEXT_LENGTHS = (256, 200, 131, 64, 17, 1, 0, 240)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -187,7 +236,10 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 50, cold: bool = True) -> flo
     """Mean device ms of ``fn`` after warm-up. ``cold``: a buffer larger
     than the card's 50 MB L2 is overwritten before each call and each call
     is timed alone, so its inputs come from HBM, as in the engine, where
-    every layer has K/V pools of its own. Otherwise one event pair spans
+    every layer has K/V pools of its own; the card then spins for
+    ``HOST_COVER_CYCLES`` so that it is still busy while the host issues
+    the begin event and ``fn``'s launches, and the events time the device
+    work, not the host's launch latency. Otherwise one event pair spans
     back-to-back calls."""
     for _ in range(warmup):
         fn()
@@ -204,6 +256,8 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 50, cold: bool = True) -> flo
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        if HOST_COVER_CYCLES:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         begin, end = event(), event()
         begin.record()
         fn()
@@ -237,9 +291,9 @@ def ragged_bound(q, start, length, kv_bytes_per_pos):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def hold_ragged(label: str, int8: bool, dims=(64,)) -> dict:
+def hold_ragged(label: str, int8: bool, dims=(64,), case: str = "serve") -> dict:
     """One instance of the ragged kernel against its plain version on
-    ``testing.ragged_inputs("serve")`` (identity and permuted tables,
+    ``testing.ragged_inputs(case)`` (identity and permuted tables,
     float32 and bfloat16, each dim_head of ``dims``; the permuted table
     only at dim_head 32 and 128), at ``testing``'s tolerances; two runs
     bit-identical. Returns the worst errors."""
@@ -252,7 +306,7 @@ def hold_ragged(label: str, int8: bool, dims=(64,)) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for permuted in (False, True) if d == 64 else (True,):
                 q, k, v, ks, vs, table, start, length = ragged_inputs(
-                    "serve", dtype, "cuda", int8=int8, dim_head=d, permuted=permuted)
+                    case, dtype, "cuda", int8=int8, dim_head=d, permuted=permuted)
                 got = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
                 again = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
                 plain = ra.reference_attend(q, k, v, table, start, ks, vs)
@@ -304,14 +358,18 @@ def time_ragged(int8: bool) -> dict:
 
 
 def check_ragged_attention() -> list:
-    """The ragged kernel's two instances: unquantized pages at dim_head 64
-    and int8 pages (with their scale pages, through the same permuted
+    """The ragged kernel's two instances: unquantized pages at dim_head 64,
+    at the serving shape and at generate (d)'s prompt block
+    (``ragged_inputs("prompt")``: 4 rows of 257 columns, five query
+    tiles), and int8 pages (with their scale pages, through the same permuted
     table) at dim_head 32, 64 and 128, each held against its plain
     version; then both timed in bf16 at the serving shape in one pass,
     unquantized, int8, int8, unquantized."""
+    serve = hold_ragged("ragged_attention", int8=False)
+    prompt = hold_ragged("ragged_attention prompt block", int8=False, case="prompt")
     rows = {
         "ragged_attention": {"name": "ragged_attention", "replaces": RAGGED_TPU_KERNEL,
-                             **hold_ragged("ragged_attention", int8=False)},
+                             **{k: max(serve[k], prompt[k]) for k in serve}},
         "ragged_attention_int8": {"name": "ragged_attention_int8",
                                   "replaces": RAGGED_INT8_TPU_KERNEL,
                                   **hold_ragged("ragged_attention_int8", int8=True,
@@ -933,6 +991,106 @@ def check_flash_attention() -> list:
     return [rows[name] for name in FLASH_TPU_KERNELS]
 
 
+def decode_bound(b: int, L: int, h: int, d: int, idx: int, dtype, masked: bool = False):
+    """(bound_ms, bound_by) of one fused decode step: bytes = the K and V
+    rows [0, idx) of every head, the qkv row, one cos and one sin row, the
+    key mask's rows [0, idx] when given, and out, k_row and v_row, each
+    once; operations = 2 * 2 * d per (head, live key) of the idx + 1 keys
+    (scores and value products)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    hd = h * d
+    nbytes = (2 * idx * hd + 3 * hd + 3 * hd) * b * item + 2 * d * item
+    nbytes += 4 * b * (idx + 1) if masked else 0
+    ops = 4 * b * h * (idx + 1) * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_decode_attention() -> dict:
+    """The fused decode kernel against its plain version on
+    ``testing.decode_inputs`` at the flagship's shapes (16 heads of 64, L
+    1281, b 1 and b 8, idx 0, 1, 256, 700 and 1279, rotary on and off,
+    key mask on and off), the masked own key with an extreme score, and
+    dim_head 32 / 128 (b 8, idx 700, rotary, key mask), float32 and
+    bfloat16, at ``testing``'s tolerances: k_row and v_row bitwise, rows
+    with no live key exactly 0, two runs identical. Then times (cold L2)
+    at b 1 and b 8, idx 768, bf16, rotary, no key mask (the generate
+    path's): the kernel, its plain version, the bound, and
+    ``scaled_dot_product_attention`` over the written cache view (b, h,
+    idx + 1, d) as a yardstick (attention alone, no rotary)."""
+    from dalle_pytorch_tpu_torch.ops import decode_attention as da
+    from dalle_pytorch_tpu_torch.testing import (
+        DECODE_BF16_ROW_REL, DECODE_F32_ATOL, decode_errors, decode_inputs, decode_ok)
+
+    L, h = 1281, 16
+    cases = [(b, 64, idx, rot, masked, False) for b in (1, 8) for idx in (0, 1, 256, 700, 1279)
+             for rot in (True, False) for masked in (False, True)]
+    cases += [(8, 64, 700, True, False, True), (1, 64, 256, False, False, True)]
+    cases += [(8, d, 700, True, True, False) for d in (32, 128)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    groups = {}  # (b, d, own) -> [f32 max abs, bf16 row-relative, cases]
+    made = {}  # inputs with rotary and a key mask, one set per (b, d, dtype)
+    for b, d, idx, rot, masked, own in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            if own:
+                x = decode_inputs(b, L, h, d, idx, dtype, "cuda", rotary=rot, own_masked=True)
+            else:
+                if (b, d, dtype) not in made:
+                    made[b, d, dtype] = decode_inputs(b, L, h, d, 0, dtype, "cuda",
+                                                      masked=True)
+                x = made[b, d, dtype]
+                x = (*x[:3], *(x[3:5] if rot else (None, None)), x[5] if masked else None)
+            args = (x[0], x[1], x[2], idx, x[3], x[4], x[5])
+            got = da.fused_decode_attention(*args, heads=h)
+            again = da.fused_decode_attention(*args, heads=h)
+            plain = da.reference_fused_decode(*args, h)
+            torch.cuda.synchronize()
+            err, rel, rows_equal, dead_zero = decode_errors(got, plain, x[5], idx)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            finite = all(torch.isfinite(t).all() for t in got)
+            if not (decode_ok(dtype, err, rel, rows_equal, dead_zero) and same and finite):
+                raise AssertionError(
+                    f"decode kernel disagrees with plain: b {b} d {d} idx {idx} rotary {rot} "
+                    f"mask {masked} own key masked {own} {dtype}: max abs {err:.3e}, "
+                    f"row-relative {rel:.3e}, k/v rows bitwise {rows_equal}, dead rows 0 "
+                    f"{dead_zero}, two runs identical {same}, finite {finite}")
+            g = groups.setdefault((b, d, own), [0.0, 0.0, 0])
+            g[0 if dtype == torch.float32 else 1] = max(
+                g[0 if dtype == torch.float32 else 1], err if dtype == torch.float32 else rel)
+            g[2] += 1
+            if d == 64:
+                worst[dtype] = max(worst[dtype], err if dtype == torch.float32 else rel)
+    for (b, d, own), (f32, bf16, n) in groups.items():
+        log(f"decode kernel vs plain, b {b}, 16 x {d}, L {L}{', own key masked' if own else ''}"
+            f" ({n} cases: idx, rotary, key mask, float32 and bf16): float32 max abs {f32:.3e} "
+            f"(tolerance {DECODE_F32_ATOL:.0e}), bf16 row-relative {bf16:.3e} (tolerance "
+            f"{DECODE_BF16_ROW_REL:.0e}); k/v rows bitwise, rows with no live key 0, two runs "
+            "identical")
+    row = {"name": "fused_decode_attention", "route": "cuda",
+           "source": "dalle_pytorch_tpu_torch/csrc/decode_attention.cu",
+           "replaces": DECODE_TPU_KERNEL, "max_abs_err": worst[torch.float32],
+           "max_rel_err_bf16": worst[torch.bfloat16]}
+    idx = 768
+    for b in (1, 8):
+        qkv, kc, vc, cos, sin, _ = decode_inputs(b, L, h, 64, idx, torch.bfloat16, "cuda",
+                                                 seed=1)
+        args = (qkv, kc, vc, idx, cos, sin, None)
+        kernel_ms = cuda_time_ms(lambda: da.fused_decode_attention(*args, heads=h))
+        plain_ms = cuda_time_ms(lambda: da.reference_fused_decode(*args, h))
+        q = qkv[..., :h * 64].view(b, 1, h, 64).transpose(1, 2)
+        kv = [t.view(b, L, h, 64)[:, :idx + 1].transpose(1, 2) for t in (kc, vc)]
+        library_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, *kv))
+        bound_ms, bound_by = decode_bound(b, L, h, 64, idx, torch.bfloat16)
+        log(f"fused_decode_attention bf16 timing, cold L2 (b {b}, 16 x 64, idx {idx}, L {L}, "
+            f"rotary): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        timing = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+        row.update(timing if b == 1 else {f"{k}_b8": v for k, v in timing.items()})
+    return row
+
+
 # ------------------------------------------------------------ path check
 
 
@@ -1060,9 +1218,121 @@ def check_clip_against_plain() -> None:
         raise AssertionError(f"CLIP card path disagrees with the plain path: {worst}, {launched}")
 
 
+def check_decode_against_plain() -> None:
+    """Small float32 DALLEs, identical weights on the card (kernels) and
+    the CPU (plain versions), generation outside the engine with
+    ``fused_decode``: depth 2, 2 heads of 64, text 8 + a 4 x 4 grid (L
+    25), batch 2. ``decode_step`` logits at every position (teacher-forced,
+    a text key mask) agree to 1e-4 on the "4d" and "flat" caches, the
+    decode kernel launched exactly depth x positions times; on the
+    "paged" cache, with text 80 and no key mask (an 81-column prompt
+    block, two query tiles of the ragged kernel), ``prefill_step`` then ``decode_step``
+    logits agree to 1e-4, the ragged kernel launched depth x (1 + decode
+    steps) times and the decode kernel never; greedy
+    ``generate_image_tokens`` ("4d", ``window_seg=0``) tokens equal on the card
+    and the CPU, the kernel launched depth x decode steps times; a model
+    with 4 heads of 16 (outside ``fused_decode_supported``) never launches
+    it."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.sampling import generate_image_tokens, init_decode_cache
+
+    cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50, text_seq_len=8,
+               num_image_tokens=40, image_fmap_size=4)
+    gpu = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(11))
+    cpu = DALLE(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    rng = np.random.RandomState(12)
+    text = rng.randint(1, 50, size=(2, 8))
+    text[1, 5:] = 0
+    ids = np.concatenate((gpu.remap_text(torch.from_numpy(text)).numpy(),
+                          rng.randint(0, 40, size=(2, 16))), 1)[:, :gpu.total_seq_len]
+    n = ids.shape[1]
+    for fmt in ("4d", "flat"):
+        logits = {}
+        for m in (gpu, cpu):
+            zero_counts()
+            cache = init_decode_cache(m, 2, fmt)
+            mask = torch.from_numpy(text != 0).to(m.device)
+            logits[m] = torch.stack([
+                m.decode_step(torch.from_numpy(ids[:, i]).to(m.device), i, cache, mask,
+                              fused_decode=True) for i in range(n)], 1).cpu()
+            if m is gpu:
+                launched = read_counts(DECODE)["fused_decode_attention"]
+        worst = (logits[gpu] - logits[cpu]).abs().max().item()
+        log(f"path check: card (kernel) vs CPU (plain) decode_step logits, cache {fmt}, every "
+            f"position with a text key mask: max abs diff {worst:.3e} (tolerance 1e-4); decode "
+            f"kernel launches {launched} (expected {cfg['depth'] * n})")
+        if not (worst <= 1e-4 and launched == cfg["depth"] * n):
+            raise AssertionError(f"decode path disagrees: {fmt} {worst} {launched}")
+    check_paged_prompt_against_plain(cfg)
+    tokens = {}
+    for m in (gpu, cpu):
+        zero_counts()
+        tokens[m] = generate_image_tokens(m, torch.from_numpy(text).to(m.device), 0,
+                                          filter_thres=1.0, cache_format="4d",
+                                          fused_decode=True, window_seg=0).cpu()
+        if m is gpu:
+            launched = read_counts(DECODE)["fused_decode_attention"]
+    steps = gpu.image_seq_len - 1
+    same = torch.equal(tokens[gpu], tokens[cpu])
+    small = DALLE(**dict(cfg, dim=64, heads=4, dim_head=16), device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(13))
+    zero_counts()
+    generate_image_tokens(small, torch.from_numpy(text).cuda(), 0, cache_format="4d",
+                          fused_decode=True, window_seg=0)
+    small_launched = read_counts(DECODE)["fused_decode_attention"]
+    log(f"path check: greedy generate_image_tokens card vs CPU, batch 2, cache 4d, "
+        f"fused_decode, window 0: tokens equal {same}; "
+        f"decode kernel launches {launched} (expected {cfg['depth'] * steps}); 4 heads of 16: "
+        f"{small_launched} launches (expected 0)")
+    if not (same and launched == cfg["depth"] * steps and small_launched == 0):
+        raise AssertionError(f"generation path disagrees: {same}, {launched}, {small_launched}")
+
+
+def check_paged_prompt_against_plain(cfg: dict) -> None:
+    """``check_decode_against_plain``'s paged case: ``cfg`` with 80 text
+    positions, so ``prefill_step`` sends the ragged kernel one block of 81
+    columns (two query tiles), then a ``decode_step`` for each image
+    position, with no key mask (a masked layer decodes through the gathered
+    view, not the kernel); card (kernels) against CPU (plain versions),
+    logits to 1e-4, exact launch counts."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache
+
+    cfg = dict(cfg, text_seq_len=80)
+    gpu = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(14))
+    cpu = DALLE(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    rng = np.random.RandomState(15)
+    text = rng.randint(1, 50, size=(2, 80))
+    text[1, 30:] = 0
+    ids = torch.from_numpy(np.concatenate((gpu.remap_text(torch.from_numpy(text)).numpy(),
+                                           rng.randint(0, 40, size=(2, 16))), 1))
+    T, n = gpu.text_len_internal, gpu.total_seq_len
+    logits = {}
+    for m in (gpu, cpu):
+        zero_counts()
+        cache = init_decode_cache(m, 2, "paged")
+        x = ids.to(m.device)
+        out = [m.prefill_step(x[:, :T], cache)]
+        out += [m.decode_step(x[:, i], i, cache, fused_decode=True) for i in range(T, n)]
+        logits[m] = torch.stack(out, 1).cpu()
+        if m is gpu:
+            launched = read_counts(RAGGED + DECODE)
+    want = {"ragged_attention": cfg["depth"] * (1 + n - T), "ragged_attention_int8": 0,
+            "fused_decode_attention": 0}
+    worst = (logits[gpu] - logits[cpu]).abs().max().item()
+    log(f"path check: card vs CPU, cache paged, prompt block of {T} columns then {n - T} "
+        f"decode steps: max abs logit diff {worst:.3e} (tolerance 1e-4); "
+        f"launches {launched} (expected {want})")
+    if not (worst <= 1e-4 and launched == want):
+        raise AssertionError(f"paged prompt path disagrees: {worst} {launched}")
+
+
 def kernel_counters():
     """{name: wrapper} of every kernel wrapper that counts its launches."""
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+    from dalle_pytorch_tpu_torch.ops import decode_attention as da
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
 
@@ -1076,7 +1346,8 @@ def kernel_counters():
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_dq": fa.flash_attention_dq,
             "flash_attention_dkdv": fa.flash_attention_dkdv,
-            "flash_attention_bwd_fused": fa.flash_attention_bwd_fused}
+            "flash_attention_bwd_fused": fa.flash_attention_bwd_fused,
+            "fused_decode_attention": da.fused_decode_attention}
 
 
 def zero_counts() -> None:
@@ -1094,6 +1365,7 @@ PACKED = ("fused_qkv_attention", "fused_qkv_attention_bwd")
 PAIR_GRID = ("block_sparse_attention", "block_sparse_dq", "block_sparse_dkdv")
 TILED = tuple(FLASH_TPU_KERNELS)  # forward, dq, dk/dv, single-block backward
 TILED_SPLIT = TILED[:3]
+DECODE = ("fused_decode_attention",)
 
 
 def check_train_against_plain(variant: str = "dense") -> dict:
@@ -1337,7 +1609,23 @@ def serve_sparse_int8() -> dict:
     return launches
 
 
-def profile_iterations(model, warmup: int = 10, window: int = 30, kv_quant=None) -> None:
+def log_device_profile(averages, label: str, what: str, unit: str, count: int,
+                       wall_ms: float, top: int) -> None:
+    """Print a profiled window of ``count`` ``unit``s from its
+    ``key_averages()``: wall and device-busy ms per ``unit``, device
+    launches per ``unit``, and the ``top`` kernels by device time."""
+    device = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / count
+    launches = sum(e.count for e in device) / count
+    log(f"{label}: {count} {what}, {wall_ms:.3f} ms/{unit} wall, device busy {busy_ms:.3f} "
+        f"ms/{unit} ({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device "
+        f"launches/{unit}")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"{label}:   {e.self_device_time_total / 1e3 / count:.4f} ms/{unit} "
+            f"x{e.count // count} {e.key[:90]}")
+
+
+def profile_iterations(model, warmup: int = 10, window: int = 15, kv_quant=None) -> None:
     """Where an engine iteration's time goes: torch.profiler over a window
     of a fresh mixed prefill/decode batch (8 requests at once, so one row
     decodes while the others prefill chunk by chunk), with ``kv_quant``
@@ -1366,18 +1654,9 @@ def profile_iterations(model, warmup: int = 10, window: int = 30, kv_quant=None)
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / window
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / window
-    launches = sum(e.count for e in device) / window
-    log(f"{label}: {window} mixed iterations, {wall_ms:.3f} ms/iteration wall, "
-        f"device busy {busy_ms:.3f} ms/iteration "
-        f"({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device "
-        "launches/iteration")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"{label}:   {e.self_device_time_total / 1e3 / window:.4f} ms/iteration "
-            f"x{e.count // window} {e.key[:90]}")
-    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    averages = prof.key_averages()  # the slow part of a profile: aggregate once
+    log_device_profile(averages, label, "mixed iterations", "iteration", window, wall_ms, 6)
+    host = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU]
     log(f"{label}: host time by operator (self, ms/iteration, calls/iteration): " + "; ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3 / window:.3f} x{e.count // window}"
         for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]))
@@ -1396,6 +1675,160 @@ def check_pixels(results) -> None:
     order = [ids[i] for i in np.argsort(-scores)]
     log(f"pixels: {tuple(images.shape)} in [0, 1]; best-first by rerank score: "
         + ", ".join(f"{r} {results[r].rerank_score:.4f}" for r in order))
+
+
+# ------------------------------------------------------------- generate
+
+
+def generate_counted(label: str, fn, expected: dict, tokens: int):
+    """``fn()`` with every kernel count set to 0 just before and read just
+    after: each kernel of ``expected`` launched its count, every other
+    never. Prints wall seconds, ms per generated token and tokens/s;
+    returns (result, launches)."""
+    names = tuple(kernel_counters())
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = read_counts(names)
+    want = {n: expected.get(n, 0) for n in names}
+    log(f"{label}: {wall:.2f} s wall, {1e3 * wall / tokens:.3f} ms per generated token, "
+        f"{tokens / wall:.1f} generated tokens/s; launches "
+        f"{ {n: c for n, c in launched.items() if c or want[n]} } (expected "
+        f"{ {n: c for n, c in want.items() if c} })")
+    if launched != want:
+        raise AssertionError(f"{label}: kernel launches {launched}, expected {want}")
+    return out, {n: c for n, c in launched.items() if c}
+
+
+def check_image_tokens(label: str, tokens, b: int) -> None:
+    if tokens.shape != (b, MAX_NEW) or not (
+            (tokens >= 0) & (tokens < FLAGSHIP["num_image_tokens"])).all():
+        raise AssertionError(f"{label}: {tuple(tokens.shape)} tokens, or one out of range")
+
+
+def generate_flagship() -> dict:
+    """Generation outside the engine at the flagship (bf16, seeded random
+    weights; ``models/sampling.py``), each run counted:
+    (a) batch 1 (the policy's "4d" cache), ``fused_decode=True``,
+        ``window_seg=0``: ``generate_image_tokens`` of one seeded caption,
+        1024 tokens in range, the decode kernel launched exactly 12 x 1023
+        times (the 257-position prompt is one prefill block, then 1023
+        decode steps) and no other kernel;
+    (b) the same caption with ``fused_decode=False`` and the default
+        window (the unfused chain, no kernel); token agreement with (a)
+        printed; then (a)'s tokens teacher-forced through both (the
+        prompt, then ``TEACHER_FORCED_STEPS`` decode steps: the sweep
+        reaches position 512), the image logits of the kernel path within
+        ``testing.DECODE_LOGITS_REL`` (relative L2) of the unfused chain's;
+    (c) batch 8 (the policy's "flat" cache), ``fused_decode=True``,
+        ``window_seg=0``: ``generate_images`` with the serve phase's VAE
+        and CLIP, 8 finite (256, 256, 3) images and 8 finite scores, the
+        decode kernel launched 12 x 1023 times and CLIP's text encoder the
+        packed-qkv kernel once a layer;
+    (d) batch 4 (the policy's "paged" cache), default arguments: the ragged
+        kernel launched 12 x 1024 times (the prompt block, then every
+        decode step), the decode kernel never.
+    Then torch.profiler over 20 decode steps of (a). Returns the launches
+    of each run."""
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.sampling import (
+        generate_image_tokens, generate_images, init_decode_cache)
+    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.testing import DECODE_LOGITS_REL, rel_l2
+
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    model = DALLE(**FLAGSHIP, **bf16).init_weights(gen(0))
+    depth, T = FLAGSHIP["depth"], model.text_len_internal
+    steps = MAX_NEW - 1
+    captions = torch.from_numpy(np.random.RandomState(13).randint(
+        1, FLAGSHIP["num_text_tokens"], size=(8, FLAGSHIP["text_seq_len"]))).cuda()
+    captions[1::2, 200:] = 0  # every other caption with a zero tail
+    text = captions[:1]
+    launches = {}
+
+    tokens_a, launches["generate_b1"] = generate_counted(
+        "generate (a) batch 1, cache 4d, fused decode kernel, window 0",
+        lambda: generate_image_tokens(model, text, 0, fused_decode=True, window_seg=0),
+        {"fused_decode_attention": depth * steps}, MAX_NEW)
+    check_image_tokens("generate (a)", tokens_a, 1)
+    tokens_b, _ = generate_counted(
+        "generate (b) batch 1, cache 4d, unfused chain, default window",
+        lambda: generate_image_tokens(model, text, 0), {}, MAX_NEW)
+    check_image_tokens("generate (b)", tokens_b, 1)
+    agree = (tokens_a == tokens_b).float().mean().item()
+
+    caches = {fused: init_decode_cache(model, 1, "4d") for fused in (True, False)}
+    ids = torch.cat((model.remap_text(text), tokens_a), 1).to(torch.int32)
+    logits = {}
+    for fused, cache in caches.items():
+        out = [model.prefill_step(ids[:, :T], cache, image_only=True)]
+        out += [model.decode_step(ids[:, i], i, cache, image_only=True, fused_decode=fused)
+                for i in range(T, T + TEACHER_FORCED_STEPS)]
+        logits[fused] = torch.stack(out, 1)
+    rel = rel_l2(logits[True], logits[False])
+    top1 = (logits[True].argmax(-1) == logits[False].argmax(-1)).float().mean().item()
+    log(f"generate (b): token agreement with (a) {agree:.4f} (printed, not asserted: random "
+        f"weights diverge after the first near-tie); (a)'s tokens teacher-forced (prompt, then "
+        f"{TEACHER_FORCED_STEPS} decode steps), image logits through the decode kernel against "
+        f"the unfused chain: relative L2 {rel:.4e} (tolerance {DECODE_LOGITS_REL:.0e}), argmax "
+        f"agreement {top1:.4f}")
+    if not (torch.isfinite(logits[True]).all() and rel <= DECODE_LOGITS_REL):
+        raise AssertionError(f"generate (b): kernel logits off the unfused chain by {rel}")
+    del caches, logits
+
+    vae = DiscreteVAE(**FLAGSHIP_VAE, **bf16).init_weights(gen(1))
+    clip = CLIP(**FLAGSHIP_CLIP, **bf16).init_weights(gen(2))
+    (images, scores), launches["generate_b8"] = generate_counted(
+        "generate (c) batch 8, cache flat, fused decode kernel, window 0, VAE and CLIP",
+        lambda: generate_images(model, vae, captions, 0, clip=clip, fused_decode=True,
+                                window_seg=0),
+        {"fused_decode_attention": depth * steps,
+         "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"]}, 8 * MAX_NEW)
+    size = FLAGSHIP_VAE["image_size"]
+    if images.shape != (8, size, size, 3) or not torch.isfinite(images).all() or (
+            scores.shape != (8,) or not torch.isfinite(scores).all()):
+        raise AssertionError(f"generate (c): images {tuple(images.shape)}, scores {scores}")
+    log(f"generate (c): 8 finite {tuple(images.shape[1:])} images, CLIP scores "
+        + ", ".join(f"{x:.4f}" for x in scores.float().tolist()))
+    tokens_d, launches["generate_b4_paged"] = generate_counted(
+        "generate (d) batch 4, cache paged, default arguments",
+        lambda: generate_image_tokens(model, captions[:4], 0),
+        {"ragged_attention": depth * MAX_NEW}, 4 * MAX_NEW)
+    check_image_tokens("generate (d)", tokens_d, 4)
+    profile_decode(model, text)
+    return launches
+
+
+def profile_decode(model, text, window: int = 20) -> None:
+    """Where a decode step of generation (a) goes: torch.profiler over 20
+    ``decode_step`` calls at batch 1 on the "4d" cache with the decode
+    kernel, after the prompt's prefill and 10 warm-up steps: wall and
+    device-busy time per step, launches per step, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache
+
+    cache = init_decode_cache(model, 1, "4d")
+    ids = model.remap_text(text).to(torch.int32)
+    model.prefill_step(ids, cache, image_only=True)
+    T = model.text_len_internal
+    tok = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for i in range(T, T + 10):
+        model.decode_step(tok, i, cache, image_only=True, fused_decode=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(T + 10, T + 10 + window):
+            model.decode_step(tok, i, cache, image_only=True, fused_decode=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / window
+    log_device_profile(prof.key_averages(), "generate profile", "decode steps at batch 1",
+                       "step", window, wall_ms, 8)
 
 
 # ---------------------------------------------------------------- train
@@ -1564,16 +1997,7 @@ def profile_train(trainer, batch, steps: int = 3, label: str = "train profile") 
             trainer.train_step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
-    launches = sum(e.count for e in device) / steps
-    log(f"{label}: {steps} steps, {wall_ms:.2f} ms/step wall, device busy "
-        f"{busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} "
-        "device launches/step")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:16]:
-        log(f"{label}:   {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
-            f"x{e.count // steps} {e.key[:90]}")
+    log_device_profile(prof.key_averages(), label, "steps", "step", steps, wall_ms, 16)
 
 
 def main() -> int:
@@ -1596,7 +2020,7 @@ def main() -> int:
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
-               *check_block_sparse(), *check_flash_attention()]
+               *check_block_sparse(), *check_flash_attention(), check_decode_attention()]
     release_memory()
     sparse_types = tuple(SPARSE_TYPES.split(","))
     for kv_quant, attn_types in ((None, None), ("int8", None), (None, sparse_types),
@@ -1604,6 +2028,7 @@ def main() -> int:
         check_path_against_plain(kv_quant, attn_types)
     check_preemption_on_card()
     check_clip_against_plain()
+    check_decode_against_plain()
     for variant in ("dense", "sparse", "tiled"):
         check_train_against_plain(variant)
     # the one-block path: the only one that runs the single-block backward
@@ -1621,6 +2046,8 @@ def main() -> int:
     release_memory()
     sparse_serve_launches = serve_sparse_int8()
     release_memory()
+    generate_launches = generate_flagship()
+    release_memory()
     trainer, batch, train_launches = train_flagship()
     profile_train(trainer, batch)
     vae = trainer.vae
@@ -1635,7 +2062,7 @@ def main() -> int:
     paths = (("serve", serve_launches), ("serve_int8", int8_launches),
              ("serve_sparse_int8", sparse_serve_launches), ("train", train_launches),
              ("train_sparse", sparse_launches), ("train_512", launches_512),
-             ("train_one_block", one_block_launches))
+             ("train_one_block", one_block_launches), *generate_launches.items())
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())
@@ -1651,5 +2078,105 @@ def main() -> int:
     return 0
 
 
+# ------------------------------------------------- paired comparisons
+
+
+def compare_ragged_sources(other: str, rounds: int = 2) -> None:
+    """The ragged kernel of this checkout against the one built from
+    ``other`` (the same file of another commit), both bf16 instances timed
+    by ``time_ragged`` at the serving shape in one process, in the order
+    other, this, this, other, ``rounds`` times, with the cold timer as it
+    is (``HOST_COVER_CYCLES``) and without its spin (0: the begin event
+    may then run while the host still issues the launch)."""
+    global HOST_COVER_CYCLES
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+
+    lib_path = cuda_build.BUILD_DIR / "compare" / "libragged_attention-other.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path),
+                             other], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    this = cuda_build.load_library("ragged_attention")
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {other}:\n{out}")
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (argtypes, restype) in cuda_build.SIGNATURES["ragged_attention"].items():
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+    libs = {"other": lib, "this": this}
+    cover = HOST_COVER_CYCLES
+    for cycles in (cover, 0):
+        HOST_COVER_CYCLES = cycles
+        ms = {(src, int8): [] for src in libs for int8 in (False, True)}
+        for _ in range(rounds):
+            for src in ("other", "this", "this", "other"):
+                # the wrappers load their library through this cache
+                cuda_build._LOADED["ragged_attention"] = libs[src]
+                for int8 in (False, True):
+                    ms[src, int8].append(time_ragged(int8)["ms"])
+        for int8 in (False, True):
+            name = "ragged_attention" + ("_int8" if int8 else "")
+            log(f"compare {name} bf16, serving shape, cold L2, spin {cycles} cycles: "
+                + "; ".join(f"{src} " + ", ".join(f"{t:.4f}" for t in ms[src, int8])
+                            + f" (mean {np.mean(ms[src, int8]):.4f} ms)" for src in libs)
+                + f"; this / other {np.mean(ms['this', int8]) / np.mean(ms['other', int8]):.4f}")
+    HOST_COVER_CYCLES = cover
+    cuda_build._LOADED["ragged_attention"] = this
+
+
+def compare_generate(pairs: int = 3) -> None:
+    """Generation (a) against (b) of ``generate_flagship`` (batch 1, the
+    same caption: the decode kernel with ``window_seg=0``, then the
+    unfused chain with the default window) in ``pairs`` pairs, alternating
+    a b, b a, ...; after one 64-step warm-up of each. Prints every run's
+    wall ms per token and each pair's ratio b / a."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.sampling import decode_tokens, generate_image_tokens
+
+    model = DALLE(**FLAGSHIP, device="cuda", dtype=torch.bfloat16).init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+    text = torch.from_numpy(np.random.RandomState(13).randint(
+        1, FLAGSHIP["num_text_tokens"], size=(8, FLAGSHIP["text_seq_len"])))[:1].cuda()
+    runs = {"a": dict(fused_decode=True, window_seg=0), "b": {}}
+    T = model.text_len_internal
+    for kw in runs.values():
+        tokens = torch.zeros((1, T + model.image_seq_len), dtype=torch.int32, device="cuda")
+        tokens[:, :T] = model.remap_text(text)
+        decode_tokens(model, tokens, T, 0, prefill_len=T, num_steps=T - 1 + 64, **kw)
+    ms = {"a": [], "b": []}
+    for p in range(pairs):
+        for label in ("ab" if p % 2 == 0 else "ba"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate_image_tokens(model, text, 0, **runs[label])
+            torch.cuda.synchronize()
+            ms[label].append(1e3 * (time.perf_counter() - t0) / MAX_NEW)
+    ratios = [b / a for a, b in zip(ms["a"], ms["b"])]
+    log("compare generate batch 1, ms per token: (a) kernel " + ", ".join(
+        f"{t:.3f}" for t in ms["a"]) + "; (b) unfused chain " + ", ".join(
+        f"{t:.3f}" for t in ms["b"]) + "; pair ratios b / a " + ", ".join(
+        f"{r:.4f}" for r in ratios) + f" (min {min(ratios):.4f}, max {max(ratios):.4f})")
+
+
+def compare(argv) -> int:
+    """``chip_smoke.py --ragged-source PATH`` and/or ``--generate-pairs N``:
+    only the paired comparisons, on one card."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=compare.__doc__)
+    parser.add_argument("--ragged-source", help="ragged_attention.cu of another commit")
+    parser.add_argument("--generate-pairs", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.ragged_source:
+        compare_ragged_sources(args.ragged_source)
+    if args.generate_pairs:
+        compare_generate(args.generate_pairs)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(compare(sys.argv[1:]) if len(sys.argv) > 1 else main())

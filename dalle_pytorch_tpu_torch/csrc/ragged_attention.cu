@@ -43,7 +43,12 @@
 // the max(length, 1) valid query columns are computed; columns past them
 // are written as zeros (callers discard them).
 //
-// Layout: one block of 128 threads per (head, row); the K/V page tile is
+// Wide blocks (a whole prompt in one step, up to the sequence length) are
+// cut into tiles of MAX_W query columns: the grid's third axis, each block
+// one (head, row, tile) that walks the row's pages up to its own tile's
+// frontier; a tile past a row's valid columns writes zeros.
+//
+// Layout: one block of 128 threads per (head, row, tile); the K/V page tile is
 // staged in shared memory as float32 with rows padded to d + 1 so that
 // thread-per-key dot products are bank-conflict free. Single-buffered:
 // overlapping the next page's load with this page's math (cp.async or
@@ -116,19 +121,30 @@ __global__ void __launch_bounds__(THREADS) ragged_kernel(
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int64_t hd = (int64_t)heads * D;
-  const int st = start[b];
-  const int nq = min(max(length[b], 1), width);
-  const int last_pos = st + max(length[b], 1) - 1;
+  const int t0 = blockIdx.z * MAX_W;          // the tile's first column
+  const int tw = min(width - t0, MAX_W);      // its columns
+  const int wt = min(width, MAX_W);           // tile width of the smem layout
+  const int st = start[b] + t0;               // position of the tile's column 0
+  const int nq = min(max(length[b], 1) - t0, tw);  // valid columns of the tile
+  const int last_pos = st + nq - 1;
+  const int64_t row0 = (int64_t)b * width * hd + (int64_t)t0 * hd + (int64_t)h * D;
+
+  if (nq <= 0) {  // the whole tile lies past the row's valid columns
+    for (int x = tid; x < tw * D; x += THREADS) {
+      out[row0 + (int64_t)(x / D) * hd + x % D] = from_f32<T>(0.f);
+    }
+    return;
+  }
 
   float* ks = smem;                   // (page, DP)
   float* vs = ks + page * DP;         // (page, DP)
-  float* qs = vs + page * DP;         // (width, D)
-  float* ps = qs + width * D;         // (width, page) scores, then probs
-  float* m_s = ps + width * page;     // (width) running max
-  float* l_s = m_s + width;           // (width) running denominator
-  float* c_s = l_s + width;           // (width) this page's correction
+  float* qs = vs + page * DP;         // (wt, D)
+  float* ps = qs + wt * D;            // (wt, page) scores, then probs
+  float* m_s = ps + wt * page;        // (wt) running max
+  float* l_s = m_s + wt;              // (wt) running denominator
+  float* c_s = l_s + wt;              // (wt) this page's correction
 
-  const T* q_row = q + (int64_t)b * width * hd + (int64_t)h * D;
+  const T* q_row = q + row0;
   for (int x = tid; x < nq * D; x += THREADS) {
     qs[x] = to_f32<T>(q_row[(int64_t)(x / D) * hd + x % D]);
   }
@@ -209,11 +225,11 @@ __global__ void __launch_bounds__(THREADS) ragged_kernel(
     }
   }
 
-  T* o_row = out + (int64_t)b * width * hd + (int64_t)h * D + kc;
+  T* o_row = out + row0 + kc;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = rg + r * G;
-    if (i < width) {
+    if (i < tw) {
       float o = 0.f;
       if (i < nq) {
         const float l = l_s[i];
@@ -225,7 +241,8 @@ __global__ void __launch_bounds__(THREADS) ragged_kernel(
 }
 
 int smem_bytes(int width, int d, int page) {
-  return 4 * (2 * page * (d + 1) + width * d + width * page + 3 * width);
+  const int wt = width < MAX_W ? width : MAX_W;
+  return 4 * (2 * page * (d + 1) + wt * d + wt * page + 3 * wt);
 }
 
 template <typename T, typename S, int D>
@@ -243,7 +260,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   err = cudaFuncSetAttribute(
       ragged_kernel<T, S, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  ragged_kernel<T, S, D><<<dim3(heads, batch), THREADS, smem, stream>>>(
+  const int tiles = (width + MAX_W - 1) / MAX_W;
+  ragged_kernel<T, S, D><<<dim3(heads, batch, tiles), THREADS, smem, stream>>>(
       (const T*)q, (const S*)k, (const S*)v, (const float*)k_scale,
       (const float*)v_scale, (const int32_t*)table, (const int32_t*)start,
       (const int32_t*)length, (T*)out, width, heads, page, n_pages);
@@ -269,14 +287,13 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16 (q, the output and, unquantized, the
 // pools). Returns cudaGetLastError() after the launch (0 on success), or
 // -1 for a shape the kernel cannot take: a dim_head other than
-// 32/64/128, a dtype code other than 0/1, a width over MAX_W, or a
-// (width, dim_head, page) whose tiles exceed the card's shared memory
-// per block.
+// 32/64/128, a dtype code other than 0/1, or a (dim_head, page) whose
+// tiles exceed the card's shared memory per block.
 extern "C" int ragged_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* start, const void* length, void* out, int batch, int width,
     int heads, int dim_head, int page, int n_pages, int dtype, void* stream) {
-  if (width < 1 || width > MAX_W || batch < 1 || heads < 1) return -1;
+  if (width < 1 || batch < 1 || heads < 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d<float, float>(dim_head, q, k_pool, v_pool, nullptr, nullptr, table, start, length, out, batch, width, heads, page, n_pages, s);
@@ -292,7 +309,7 @@ extern "C" int ragged_attention_fwd_int8(
     const void* v_scale, const void* table, const void* start,
     const void* length, void* out, int batch, int width, int heads,
     int dim_head, int page, int n_pages, int dtype, void* stream) {
-  if (width < 1 || width > MAX_W || batch < 1 || heads < 1) return -1;
+  if (width < 1 || batch < 1 || heads < 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d<float, int8_t>(dim_head, q, k_pool, v_pool, k_scale, v_scale, table, start, length, out, batch, width, heads, page, n_pages, s);

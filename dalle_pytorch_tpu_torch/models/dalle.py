@@ -14,6 +14,11 @@ Two forms, both rotary and causal:
   iteration through the cached transformer; image-only logits at each
   row's last valid column. Every layer type decodes ("full" through the
   ragged kernel, the others through the gathered cache view).
+- ``prefill_step`` / ``decode_step`` (generation outside the engine,
+  ``models/sampling.py``): the first T text positions in one parallel
+  pass, then one position at a time for the whole batch, over a paged or
+  dense decode cache; logits with the logits mask's row, or the
+  image-vocab head alone.
 """
 
 from __future__ import annotations
@@ -140,6 +145,20 @@ class DALLE(nn.Module):
         )
         return logits.float()
 
+    def _head(self, out: torch.Tensor) -> torch.Tensor:
+        """The full-vocab head on the final-normed hidden states; float32
+        logits."""
+        return self.to_logits(self.final_norm(out).to(self.dtype)).float()
+
+    def logits_mask_row(self, pos: int) -> torch.Tensor:
+        """``logits_mask``'s row at position ``pos`` (clipped to the last
+        one), (total_tokens,) bool."""
+        ext = self.num_text_tokens_ext
+        logit = torch.arange(self.total_tokens, device=self.device)
+        if min(pos, self.total_seq_len - 1) >= self.text_seq_len:
+            return logit < ext
+        return logit >= ext
+
     def logits_mask(self, n: int) -> torch.Tensor:
         """(n, total_tokens) bool, True = forbidden: text positions may
         only predict text tokens, image positions image tokens."""
@@ -246,3 +265,59 @@ class DALLE(nn.Module):
             [self._head_image(h_last[i:i + 1]) for i in range(b)]
         )[:, 0]
         return torch.where(final[:, None], rowwise, batched)
+
+    def _decode_block(self, emb, pos: int, cache, mask, fused_decode: bool = False):
+        """emb (b, n, dim): n tokens at positions pos + j for the whole
+        batch through the cached transformer (the cache's key mask is
+        ``mask`` widened to every position)."""
+        b, n, _ = emb.shape
+        full = lambda v: torch.full((b,), v, dtype=torch.int32, device=emb.device)  # noqa: E731
+        return self.transformer(
+            emb.to(self.dtype), cache, block_len=full(n), block_start=full(pos),
+            mask=self._full_key_mask(mask, self.transformer.attn_seq_len),
+            fused_decode=fused_decode)
+
+    @torch.no_grad()
+    def prefill_step(self, tokens, cache, mask=None, image_only: bool = False) -> torch.Tensor:
+        """The first T text positions in one parallel pass: tokens (b, T)
+        remapped text ids (<bos> included), T <= text_len_internal, through
+        ``cache`` (filled in place, every layer at position 0); ``mask``
+        the optional (b, text_seq_len) text key mask. Returns the float32
+        logits predicting position T: (b, total_tokens) with the logits
+        mask's row T - 1, or with ``image_only`` (T must be the whole
+        prompt, so position T is the first image position) the
+        (b, num_image_tokens) image-vocab head. Equal to T ``decode_step``
+        calls."""
+        b, T = tokens.shape
+        if T > self.text_len_internal:
+            raise ValueError(f"prefill covers text positions only, got {T} > "
+                             f"{self.text_len_internal}")
+        out = self._decode_block(self.text_emb(tokens), 0, cache, mask)
+        if image_only:
+            if T != self.text_len_internal:
+                raise ValueError("image_only prefill needs the whole prompt: position T "
+                                 "must be the first image position")
+            return self._head_image(out[:, -1:])[:, 0]
+        logits = self._head(out[:, -1:])[:, 0]
+        return logits.masked_fill(self.logits_mask_row(T - 1), NEG_INF)
+
+    @torch.no_grad()
+    def decode_step(self, token, pos: int, cache, mask=None, image_only: bool = False,
+                    fused_decode: bool = False) -> torch.Tensor:
+        """One cached decode step for the whole batch: token (b,) the id
+        at internal position ``pos`` (a Python int), a remapped text id
+        below text_len_internal, else an image id; the embedding is chosen
+        by the position. Returns the float32 logits predicting pos + 1:
+        (b, total_tokens) with the logits mask's row ``pos``, or with
+        ``image_only`` (pos + 1 an image position) the image-vocab head.
+        ``fused_decode`` lets the dense cache's causal "full" layers take
+        the fused decode kernel."""
+        if pos < self.text_len_internal:
+            emb = self.text_emb(token.clamp(0, self.num_text_tokens_ext - 1))
+        else:
+            emb = self.image_emb(token.clamp(0, self.num_image_tokens - 1))
+        out = self._decode_block(emb[:, None], pos, cache, mask, fused_decode)
+        if image_only:
+            return self._head_image(out)[:, 0]
+        logits = self._head(out)[:, 0]
+        return logits.masked_fill(self.logits_mask_row(pos), NEG_INF)

@@ -1,14 +1,24 @@
-"""Decode cache and token sampling (counterpart of the cache part of
+"""Decode cache, token sampling and generation (counterpart of
 ``dalle_pytorch_tpu/models/sampling.py`` and the sampling ops of the
 serving engine).
 
-The cache is explicit per-layer state: each attention layer's paged K/V
-pools (int8 with their scale pools under ``kv_quant="int8"``), page
-table and write index (``ops.attention.PagedKV``), and, with
-token shift, the attention- and feed-forward-side shift rings with their
-indices (``ops.layers.ShiftRing``). Every index is per row from the
-start (the reference's ``set_decode_offsets`` has nothing to convert),
-so rows at different positions share one step.
+The cache is explicit per-layer state in one of three formats
+(``ops/kv_policy.py``): "paged", each attention layer's paged K/V pools
+(int8 with their scale pools under ``kv_quant="int8"``), page table and
+per-row write index (``ops.attention.PagedKV``); "flat" or "4d", each
+layer's contiguous K/V buffers with one scalar write index
+(``ops.attention.DenseKV``). With token shift the cache also holds the
+attention- and feed-forward-side shift rings with their per-row indices
+(``ops.layers.ShiftRing``). The paged indices are per row from the start
+(the reference's ``set_decode_offsets`` has nothing to convert), so rows
+at different positions share one engine step.
+
+Generation outside the engine: ``decode_tokens`` runs ``DALLE.prefill_step``
+over a prompt block, then one ``DALLE.decode_step`` per position,
+teacher-forced below ``known_len``, segmented by cache window as JAX's
+scan is; ``generate_image_tokens``, ``generate_images`` (VAE decode and
+optional CLIP scores) and ``generate_texts`` (tokens only: no tokenizer)
+build on it.
 
 Sampling keeps the reference's (seed, position) contract within the port:
 the token a request draws at internal position p depends only on its
@@ -23,21 +33,38 @@ k = 1), which is how the tests pin tokens.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
 from ..ops import kv_policy, paged_kv
-from ..ops.attention import PagedKV
+from ..ops.attention import DenseKV, PagedKV
 from ..ops.layers import ShiftRing
+from .dalle import top_k_filter
+
+# the segmented decode's window growth (JAX's default for every
+# configuration the port takes; 0 disables segmentation)
+DEFAULT_WINDOW_SEG = 512
 
 
 @dataclass
 class DecodeCache:
-    kv: List[PagedKV]
+    """``kv`` one entry per layer, ``PagedKV`` for the "paged" format
+    (``n_pages`` pages a row) or ``DenseKV`` for "flat" / "4d"
+    (``n_pages`` 0)."""
+
+    kv: List[Union[PagedKV, DenseKV]]
     attn_rings: Optional[List[ShiftRing]]
     ff_rings: Optional[List[ShiftRing]]
     n_pages: int
+
+    def set_window(self, width: int) -> None:
+        """Sweep extent of every dense layer (the segmented decode's
+        window); the paged format's kernel already stops at each row's
+        frontier, so it has none."""
+        for kv in self.kv:
+            if isinstance(kv, DenseKV):
+                kv.width = width
 
     def reset_row_(self, row: int) -> None:
         """Return one row to pristine: pools (scale pools included)
@@ -52,21 +79,56 @@ class DecodeCache:
             ring.index[row] = 0
 
 
-def init_decode_cache(dalle, batch_size: int, page_size: Optional[int] = None,
-                      kv_quant: Optional[str] = None) -> DecodeCache:
-    """Zeroed paged decode cache for ``batch_size`` rows on the model's
-    device, every row at position 0 (identity tables). ``kv_quant``
+def init_decode_cache(dalle, batch_size: int, cache_format: Optional[str] = None,
+                      kv_quant: Optional[str] = None,
+                      page_size: Optional[int] = None) -> DecodeCache:
+    """Zeroed decode cache for ``batch_size`` rows on the model's device,
+    every row at position 0. ``cache_format`` (``kv_policy.FORMATS``;
+    None = ``kv_policy.choose_cache_format(batch_size)``): "paged" pools
+    with identity tables, or the "flat" / "4d" dense buffers. ``kv_quant``
     (``kv_policy.QUANTS``; None = "none"): "int8" allocates int8 K/V pools
-    and their float32 (rows * n_pages + 1, page, heads) scale pools."""
-    page = kv_policy.page_size(page_size)
+    and their float32 (rows * n_pages + 1, page, heads) scale pools; paged
+    only. ``page_size`` (paged only): rows a page."""
     int8 = kv_policy.resolve_quant(kv_quant) == "int8"
+    fmt = kv_policy.resolve_format(cache_format, batch_size)
+    if int8 and fmt != "paged":
+        raise ValueError(f"int8 KV storage needs the paged format, not {fmt!r}")
     tr = dalle.transformer
     device, dtype = dalle.device, dalle.dtype
-    n_p = paged_kv.num_pages(tr.attn_seq_len, page)
     hd = dalle.heads * dalle.dim_head
+    if fmt == "paged":
+        kv, n_p = _paged_layers(dalle, batch_size, int8, kv_policy.page_size(page_size))
+    else:
+        shape = (batch_size, tr.attn_seq_len, hd)
+        kv, n_p = [DenseKV(torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(shape, dtype=dtype, device=device), fmt, dalle.heads)
+                   for _ in range(dalle.depth)], 0
+    rings = None, None
+    if tr.shift_tokens:
+        R = dalle.image_fmap_size + 1
+        rings = tuple(
+            [
+                ShiftRing(
+                    hist=torch.zeros((batch_size, R, dalle.dim), dtype=dtype,
+                                     device=device),
+                    index=_zeros_index(batch_size, device),
+                )
+                for _ in range(dalle.depth)
+            ]
+            for _ in range(2)
+        )
+    return DecodeCache(kv, rings[0], rings[1], n_p)
 
-    def zeros_index():
-        return torch.zeros((batch_size,), dtype=torch.int32, device=device)
+
+def _zeros_index(batch_size: int, device) -> torch.Tensor:
+    return torch.zeros((batch_size,), dtype=torch.int32, device=device)
+
+
+def _paged_layers(dalle, batch_size: int, int8: bool, page: int):
+    """(every layer's zeroed ``PagedKV``, pages a row)."""
+    device, dtype = dalle.device, dalle.dtype
+    n_p = paged_kv.num_pages(dalle.transformer.attn_seq_len, page)
+    hd = dalle.heads * dalle.dim_head
 
     def pool(feat, pool_dtype):
         return paged_kv.alloc(batch_size, n_p, page, feat, pool_dtype, device)
@@ -79,27 +141,13 @@ def init_decode_cache(dalle, batch_size: int, page_size: Optional[int] = None,
             k=pool(hd, torch.int8 if int8 else dtype),
             v=pool(hd, torch.int8 if int8 else dtype),
             table=paged_kv.identity_table(batch_size, n_p, device),
-            index=zeros_index(),
+            index=_zeros_index(batch_size, device),
             k_scale=scales(),
             v_scale=scales(),
         )
         for _ in range(dalle.depth)
     ]
-    rings = None, None
-    if tr.shift_tokens:
-        R = dalle.image_fmap_size + 1
-        rings = tuple(
-            [
-                ShiftRing(
-                    hist=torch.zeros((batch_size, R, dalle.dim), dtype=dtype,
-                                     device=device),
-                    index=zeros_index(),
-                )
-                for _ in range(dalle.depth)
-            ]
-            for _ in range(2)
-        )
-    return DecodeCache(kv, rings[0], rings[1], n_p)
+    return kv, n_p
 
 
 _M32 = 0xFFFFFFFF
@@ -133,3 +181,147 @@ def sample(logits: torch.Tensor, seeds: torch.Tensor,
     (b,) int32."""
     noise = gumbel_noise(seeds, positions, logits.shape[-1])
     return (logits.float() + noise).argmax(dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def decode_tokens(dalle, tokens: torch.Tensor, known_len: int, seed: int,
+                  filter_thres: float = 0.5, temperature: float = 1.0, mask=None,
+                  num_steps: Optional[int] = None, prefill_len: int = 0,
+                  window_seg: Optional[int] = None, cache_format: Optional[str] = None,
+                  fused_decode: bool = False, kv_quant: Optional[str] = None,
+                  page_size: Optional[int] = None) -> torch.Tensor:
+    """Fill the internal token buffer: tokens (b, n_internal) int32 on the
+    model's device, position 0 <bos>; the first ``known_len`` positions
+    are given (teacher-forced), the rest are drawn. Consumes ``num_steps``
+    (default n_internal - 1) positions and returns the completed buffer (a
+    copy). Text positions hold remapped text ids, image positions image
+    ids.
+
+    ``prefill_len`` > 1: that many leading positions (given ones, at most
+    text_len_internal) in one ``DALLE.prefill_step``; at text_len_internal
+    every later draw is an image token, so the head is the image vocab's
+    and top-k keeps the full vocabulary's k. Each draw: ``top_k_filter``,
+    / temperature, then ``sample`` with row r's seed ``seed + r`` at the
+    drawn token's position (the serving engine's (seed, position) draw).
+
+    ``window_seg`` (default ``DEFAULT_WINDOW_SEG``; 0 = off): the steps
+    run in segments ending at multiples of it, each over a dense cache's
+    rows [0, min(L, ceil128(end))) (``DecodeCache.set_window``) as JAX's
+    segmented scan resizes its caches. The fused decode kernel
+    (``fused_decode``) runs only where that extent is the whole cache, as
+    in JAX. ``cache_format``, ``kv_quant``, ``page_size``: as in
+    ``init_decode_cache``."""
+    b, n_internal = tokens.shape
+    steps = n_internal - 1 if num_steps is None else num_steps
+    seg = DEFAULT_WINDOW_SEG if window_seg is None else window_seg
+    if seg < 0:
+        raise ValueError(f"window_seg must be >= 0 (0 disables segmentation), got {seg}")
+    T, ext = dalle.text_len_internal, dalle.num_text_tokens_ext
+    if not 0 <= prefill_len <= min(known_len, T):
+        raise ValueError(f"prefill_len {prefill_len} must cover given text positions only "
+                         f"(known_len {known_len}, text_len_internal {T})")
+    tokens = tokens.clone()
+    dev = tokens.device
+    cache = init_decode_cache(dalle, b, cache_format, kv_quant, page_size)
+    image_only = prefill_len == T
+    k_full = max(int((1 - filter_thres) * dalle.total_tokens), 1)
+    seeds = seed + torch.arange(b, device=dev)
+
+    def draw(logits, i: int) -> None:
+        """The token at position i + 1 from position i's logits, unless
+        it is given."""
+        nxt = i + 1
+        if nxt < known_len:
+            return
+        filtered = (top_k_filter(logits, k=k_full) if image_only
+                    else top_k_filter(logits, thres=filter_thres))
+        token = sample(filtered / temperature, seeds, torch.full((b,), nxt, device=dev))
+        if not image_only and nxt >= T:
+            token = token - ext
+        tokens[:, nxt] = token
+
+    start = 0
+    if prefill_len > 1:
+        draw(dalle.prefill_step(tokens[:, :prefill_len], cache, mask, image_only=image_only),
+             prefill_len - 1)
+        start = prefill_len
+    n_cache = dalle.transformer.attn_seq_len
+    s = start
+    while s < steps:
+        e = min(steps, (s // seg + 1) * seg) if seg else steps
+        if seg:
+            cache.set_window(min(n_cache, -(-e // 128) * 128))
+        for i in range(s, e):
+            draw(dalle.decode_step(tokens[:, i], i, cache, mask, image_only=image_only,
+                                   fused_decode=fused_decode), i)
+        s = e
+    return tokens
+
+
+def generate_image_tokens(dalle, text: torch.Tensor, seed: int, *, filter_thres: float = 0.5,
+                          temperature: float = 1.0, prime_tokens=None, mask=None,
+                          **decode_kw) -> torch.Tensor:
+    """text (b, text_seq_len) raw ids -> drawn image token ids
+    (b, image_seq_len) int32: the whole prompt prefilled, then one decode
+    step a position. ``prime_tokens`` (b, p < image_seq_len): the image's
+    first p tokens, given. ``decode_kw``: ``decode_tokens``' window_seg,
+    cache_format, fused_decode, kv_quant, page_size."""
+    dev = dalle.device
+    b = text.shape[0]
+    T = dalle.text_len_internal
+    tokens = torch.zeros((b, T + dalle.image_seq_len), dtype=torch.int32, device=dev)
+    tokens[:, :T] = dalle.remap_text(text[:, :dalle.text_seq_len].to(dev))
+    known_len = T
+    if prime_tokens is not None:
+        p = prime_tokens.shape[1]
+        if p >= dalle.image_seq_len:
+            raise ValueError(f"number of priming image tokens ({p}) must be < image_seq_len")
+        tokens[:, T:T + p] = prime_tokens.to(dev)
+        known_len += p
+    tokens = decode_tokens(dalle, tokens, known_len, seed, filter_thres, temperature, mask,
+                           prefill_len=T, **decode_kw)
+    return tokens[:, T:]
+
+
+@torch.no_grad()
+def generate_images(dalle, vae, text: torch.Tensor, seed: int, *, clip=None, mask=None,
+                    filter_thres: float = 0.5, temperature: float = 1.0, img=None,
+                    num_init_img_tokens: Optional[int] = None, **decode_kw):
+    """Text -> pixels (the reference's generate_images): with ``img``
+    (b, H, W, C) the VAE's first ``int(0.4375 * image_seq_len)`` tokens
+    (or ``num_init_img_tokens``) prime the image, then
+    ``generate_image_tokens``, then the VAE decode to (b, H, W, C) pixels
+    in the VAE's normalized space; with ``clip`` also the CLIP scores of
+    (text, images), returned as (images, scores)."""
+    text = text[:, :dalle.text_seq_len]
+    prime = None
+    if img is not None:
+        indices = vae.get_codebook_indices(img)
+        n_prime = (int(0.4375 * dalle.image_seq_len) if num_init_img_tokens is None
+                   else num_init_img_tokens)
+        prime = indices[:, :n_prime]
+    image_tokens = generate_image_tokens(dalle, text, seed, filter_thres=filter_thres,
+                                         temperature=temperature, prime_tokens=prime,
+                                         mask=mask, **decode_kw)
+    images = vae.decode(image_tokens)
+    if clip is None:
+        return images
+    return images, clip(text.to(images.device), images)
+
+
+def generate_texts(dalle, seed: int, prompt_tokens=None, *, filter_thres: float = 0.5,
+                   temperature: float = 1.0, **decode_kw) -> torch.Tensor:
+    """Text completion (the reference's generate_texts, without its
+    tokenizer): from <bos> (or ``prompt_tokens`` (b, p), remapped ids with
+    <bos> first) out to text_seq_len tokens. Returns (b, text_seq_len)
+    int32 ids."""
+    dev = dalle.device
+    if prompt_tokens is None:
+        prompt_tokens = torch.zeros((1, 1), dtype=torch.int32)
+    b, p = prompt_tokens.shape
+    tokens = torch.zeros((b, dalle.text_len_internal + dalle.image_seq_len),
+                         dtype=torch.int32, device=dev)
+    tokens[:, :p] = prompt_tokens.to(dev)
+    tokens = decode_tokens(dalle, tokens, p, seed, filter_thres, temperature,
+                           num_steps=dalle.text_seq_len - 1, **decode_kw)
+    return tokens[:, :dalle.text_seq_len]

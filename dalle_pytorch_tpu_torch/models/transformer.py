@@ -8,8 +8,11 @@ same around the GEGLU feed-forward; layer i's attention has the type
 sequential execution:
 
 - the DALL-E decode form (``image_fmap_size`` set, the DALL-E rotary
-  table, every layer by its type): one ragged block over a paged decode
-  cache;
+  table, every layer by its type): one block over a decode cache, either
+  ragged over the paged format (``PagedKV`` layers) or the whole batch at
+  one position over the dense "flat" / "4d" format (``DenseKV`` layers,
+  where ``fused_decode`` lets the causal "full" layers take the fused
+  decode kernel under JAX's gate, ``Attention.fused_decode_gate``);
 - the full-sequence form (``forward(x, mask=...)`` with no cache), every
   attention type but gMLP: the DALL-E training forward (causal, rotary,
   token shift over the whole sequence) and CLIP's encoders
@@ -81,6 +84,7 @@ class Transformer(nn.Module):
                 dalle_rotary_table(dim_head, text_len, image_fmap_size)
             ).to(device)
         self.register_buffer("rotary", table, persistent=False)
+        self._decode_cs = {}  # (dtype, device) -> the fused decode's (cos, sin)
 
         attn_blocks, ff_blocks = [], []
         for ind in range(depth):
@@ -103,12 +107,25 @@ class Transformer(nn.Module):
         self.attn_blocks = nn.ModuleList(attn_blocks)
         self.ff_blocks = nn.ModuleList(ff_blocks)
 
+    def decode_tables(self, dtype):
+        """(cos, sin) of the whole angle table in ``dtype`` for the fused
+        decode kernel, built once per dtype and device (``rot_tables``
+        reads the table: a host sync)."""
+        key = (dtype, self.rotary.device)
+        if key not in self._decode_cs:
+            self._decode_cs[key] = rot_tables(self.rotary, self.rotary.shape[0],
+                                              self.dim_head, dtype)
+        return self._decode_cs[key]
+
     def forward(self, x, cache=None, block_len=None, block_start=None,
-                mask=None):
-        """With ``cache`` (``models.sampling.DecodeCache``): one ragged
-        block through every layer, the cache updated in place. Without:
-        the whole sequence x (b, n, dim), ``mask`` the optional (b, n) key
-        mask; the rotary cos/sin tables are built once for all layers."""
+                mask=None, fused_decode: bool = False):
+        """With ``cache`` (``models.sampling.DecodeCache``): one block
+        through every layer (row b's tokens at positions block_start[b] +
+        j, the valid ones [0, block_len[b])), the cache updated in place;
+        ``mask`` the optional (b, L) key mask; ``fused_decode`` lets dense
+        layers take the fused decode kernel. Without: the whole sequence
+        x (b, n, dim), ``mask`` the optional (b, n) key mask; the rotary
+        cos/sin tables are built once for all layers."""
         if cache is None:
             rot = None
             if self.rotary is not None:
@@ -117,8 +134,12 @@ class Transformer(nn.Module):
                 x = x + self.attn_blocks[ind](x, rotary=rot, mask=mask)
                 x = x + self.ff_blocks[ind](x)
             return x
+        rotary_cs = None
+        if fused_decode and self.rotary is not None:
+            rotary_cs = self.decode_tables(x.dtype)
         for ind in range(self.depth):
-            akw = dict(kv=cache.kv[ind], rotary=self.rotary)
+            akw = dict(kv=cache.kv[ind], rotary=self.rotary, mask=mask,
+                       fused_decode=fused_decode, rotary_cs=rotary_cs)
             fkw = {}
             if self.shift_tokens:
                 akw.update(ring=cache.attn_rings[ind], block_len=block_len,

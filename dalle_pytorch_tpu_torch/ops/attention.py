@@ -3,15 +3,26 @@
 "conv_like" and "sparse", each defined by a static may-attend mask
 (``Attention.pattern_mask``, built from ``ops/masks.py``), in two forms:
 
-- decode: one ragged block over the block-paged cache for the fused
-  serving iteration (``decode=True`` with ``block_len`` set, i.e.
-  ``_paged_caches`` + ``_decode_attend_paged``), K/V appended in the
-  compute dtype or quantized to int8 pages with per-(token, head) scales.
-  A causal "full" layer without a key mask runs the ragged kernel
+- decode over the block-paged cache (``PagedKV``): one ragged block,
+  row b's tokens at its own positions (the fused serving iteration, and
+  generation on the "paged" format), K/V appended in the compute dtype
+  or quantized to int8 pages with per-(token, head) scales. A causal
+  "full" layer without a key mask runs the ragged kernel
   (``ragged_attention.kernel_attend``, its int8 instance for int8
   pages); every other layer attends over the gathered (and dequantized)
   cache view with the pattern's rows at each query position and the key
   mask (``Attention._gathered_attend``);
+- decode over the dense cache (``DenseKV``, the "flat" and "4d"
+  formats): a block of n >= 1 tokens, the whole batch at one position
+  (``Attention._decode_dense``, JAX's ``_decode_attend``): rotary rows at
+  the write index, the q * d**-0.5 pre-scale, the rows written, the
+  pattern's rows over the sweep extent W ANDed with the key mask, then
+  ``cache_block_attend``. With ``fused_decode`` set it takes JAX's fused
+  path (``_decode_attend_fused``) under JAX's gate: one token, a causal
+  "full" layer, ``decode_attention.fused_decode_supported`` heads, and a
+  sweep extent of the whole cache (no window); there the kernel
+  (``decode_attention.fused_decode_attention``) attends and returns the
+  rotated k/v rows, which are written at the index after the call;
 - full sequence (the non-decode branch), with an optional (b, n) key
   mask and rotary table, dispatched as JAX dispatches on the TPU, the
   same on the CPU and on the card:
@@ -34,8 +45,6 @@
   tensor their plain versions. JAX's grouped axial/conv forms compute the
   dense form's function with fewer operations; the port uses the dense
   form where JAX would take them.
-
-The flat/4-D caches are not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from .block_sparse_attention import (
     BlockSparseAttention,
     compile_block_layout,
 )
+from .decode_attention import fused_decode_attention, fused_decode_supported
 from .flash_attention import (
     FlashAttention,
     FusedQKVAttention,
@@ -106,6 +116,30 @@ class PagedKV:
     def pools(self):
         """Every pool of the layer: content, then scales when int8."""
         return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
+
+
+@dataclass
+class DenseKV:
+    """One attention layer's dense decode cache: K and V each one
+    contiguous (b, L, h*d) buffer, updated in place; ``fmt`` the format
+    ("flat", or "4d": the same memory as its (b, L, h, d) view, see
+    ``tagged``); ``index`` the scalar write index, a Python int (the whole
+    batch sits at one position); ``width`` the sweep extent W <= L that
+    attention reads (the segmented decode's window; L when unwindowed)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    fmt: str
+    heads: int
+    index: int = 0
+    width: int = 0
+
+    def __post_init__(self):
+        self.width = self.width or self.k.shape[1]
+
+    def tagged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (self.k or self.v) in the format's shape."""
+        return t.view(*t.shape[:2], self.heads, -1) if self.fmt == "4d" else t
 
 
 def cache_block_attend(q, k_cache, v_cache, allowed):
@@ -297,16 +331,24 @@ class Attention(nn.Module):
         return (self.attn_type != "full" and sparse_block(n) > 0
                 and self.block_layout(n).visited_block_frac <= ENGAGE_FRAC)
 
-    def forward(self, x, kv: Optional[PagedKV] = None, rotary=None,
-                block_len=None, block_start=None, mask=None):
-        """Decode form (``kv`` given): x (b, n, dim), row b's valid tokens
-        are columns [0, block_len[b]) at positions block_start[b] + j;
-        writes their K/V into ``kv`` and advances its index for rows with
-        block_len > 0; ``rotary`` is the angle table. Full-sequence form
-        (no ``kv``): ``mask`` is the optional (b, n) key mask, ``rotary``
-        the (cos, sin) pair of ``rotary.rot_tables``."""
+    def forward(self, x, kv=None, rotary=None, block_len=None, block_start=None,
+                mask=None, fused_decode: bool = False, rotary_cs=None):
+        """Decode form (``kv`` a ``PagedKV``): x (b, n, dim), row b's valid
+        tokens are columns [0, block_len[b]) at positions block_start[b] +
+        j; writes their K/V into ``kv`` and advances its index for rows
+        with block_len > 0; ``rotary`` is the angle table, ``mask`` the
+        optional (b, L) key mask. Decode form over a ``DenseKV``: x's n
+        tokens at positions kv.index + j (``_decode_dense``), with
+        ``fused_decode`` and ``rotary_cs`` (the (cos, sin) pair of
+        ``rotary.rot_tables`` over the whole angle table) for the fused
+        path. Full-sequence form (no ``kv``): ``mask`` is the optional
+        (b, n) key mask, ``rotary`` the (cos, sin) pair of
+        ``rotary.rot_tables``."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
+        if isinstance(kv, DenseKV):
+            out = self._decode_dense(self.to_qkv(x), kv, rotary, mask, fused_decode, rotary_cs)
+            return self.to_out(out)
         if kv is None:
             qkv = self.to_qkv(x)
             if self.uses_block_sparse(n):
@@ -344,6 +386,47 @@ class Attention(nn.Module):
         else:
             out = self._gathered_attend(q, kv, pos, mask)
         return self.to_out(out.reshape(b, n, h * d))
+
+    def fused_decode_gate(self, n: int, kv: DenseKV) -> bool:
+        """JAX's gate for the fused decode kernel (given ``fused_decode``):
+        one token, a causal "full" layer, supported heads, and a sweep
+        extent of the whole cache (JAX's ``_has_windowed_cache`` false)."""
+        return (n == 1 and self.attn_type == "full" and self.causal
+                and fused_decode_supported(self.heads, self.dim_head)
+                and kv.width == kv.k.shape[1])
+
+    def _decode_dense(self, qkv, kv: DenseKV, rotary, mask, fused_decode: bool,
+                      rotary_cs):
+        """Decode over the dense cache: qkv (b, n, 3*h*d) of n tokens at
+        positions kv.index + j. The fused path (``fused_decode`` and
+        ``fused_decode_gate``): the kernel, then its k/v rows written at
+        the index. Otherwise JAX's ``_decode_attend``. Advances kv.index by
+        n; returns (b, n, h*d)."""
+        b, n, _ = qkv.shape
+        h, d = self.heads, self.dim_head
+        idx, W = kv.index, kv.width
+        if fused_decode and self.fused_decode_gate(n, kv):
+            cos, sin = rotary_cs if rotary is not None else (None, None)
+            key_mask = None if mask is None else mask.to(torch.int32)
+            out, k_row, v_row = fused_decode_attention(
+                qkv, kv.k, kv.v, idx, cos, sin, key_mask, heads=h)
+            kv.k[:, idx] = k_row[:, 0]
+            kv.v[:, idx] = v_row[:, 0]
+            kv.index = idx + 1
+            return out
+        q, k, v = (t.reshape(b, n, h, d) for t in qkv.chunk(3, dim=-1))
+        if rotary is not None:
+            rows = rotary[idx:idx + n][None, :, None]  # over (b, n, h, d)
+            q, k, v = (apply_rotary_emb(rows, t) for t in (q, k, v))
+        q = q * d**-0.5
+        kv.k[:, idx:idx + n] = k.reshape(b, n, h * d)
+        kv.v[:, idx:idx + n] = v.reshape(b, n, h * d)
+        kv.index = idx + n
+        allowed = self.decode_rows(W, qkv.device)[idx:idx + n][None]  # (1, n, W)
+        if mask is not None:
+            allowed = allowed & mask[:, None, :W]
+        out = cache_block_attend(q, kv.k[:, :W], kv.v[:, :W], allowed.expand(b, n, W))
+        return out.reshape(b, n, h * d)
 
     def _gathered_attend(self, q, kv: PagedKV, pos, mask):
         """The decode form of every layer but the causal "full" one without

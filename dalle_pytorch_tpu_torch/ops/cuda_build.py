@@ -45,6 +45,9 @@ SIGNATURES = {
         "block_sparse_attention_dq": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
         "block_sparse_attention_dkdv": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
     },
+    "decode_attention": {
+        "decode_attention_fwd": ([_P] * 9 + [_I] * 5 + [_F, _I, _P], _I),
+    },
     "flash_attention": {
         "flash_attention_fwd": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
         "flash_attention_dq": ([_P] * 11 + [_I] * 4 + [_F, _I, _P], _I),

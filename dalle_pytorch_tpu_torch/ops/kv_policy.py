@@ -1,14 +1,27 @@
-"""KV-cache page size and storage quantization (counterpart of
+"""KV-cache format, page size and storage quantization (counterpart of
 ``dalle_pytorch_tpu/ops/kv_policy.py``).
 
-The port keeps the paged format only, so two policies remain: the page
-row count and the storage quantization (``QUANTS``: "none" stores K/V in
-the compute dtype, "int8" stores int8 pools with parallel per-(token,
-head) float32 scale pools, ``paged_kv.quantize_rows``). Both are explicit
-arguments here (``EngineConfig.page_size`` / ``kv_quant``,
-``init_decode_cache(page_size=..., kv_quant=...)``) rather than
-environment overrides: tests shrink the page to exercise page-boundary
-arithmetic on tiny models.
+Three policies:
+
+- the decode cache's format (``FORMATS``): "paged" (block-paged pools
+  behind a per-row page table and per-row write index, the only format
+  with ragged per-row positions, hence the serving engine's), "flat"
+  (one contiguous (b, L, h*d) K and V buffer per layer with one scalar
+  write index) and "4d" (the same buffer tagged as its (b, L, h, d)
+  view). ``choose_cache_format`` is JAX's default policy without its
+  environment overrides: "4d" at batch 1, "flat" at batch 8, "paged"
+  otherwise; ``resolve_format`` lets an explicit ``cache_format``
+  argument win;
+- the page row count;
+- the storage quantization (``QUANTS``: "none" stores K/V in the compute
+  dtype, "int8" stores int8 pools with parallel per-(token, head)
+  float32 scale pools, ``paged_kv.quantize_rows``), paged pools only.
+
+All are explicit arguments here (``EngineConfig.page_size`` /
+``kv_quant``, ``init_decode_cache(cache_format=..., page_size=...,
+kv_quant=...)``, ``sampling.decode_tokens(cache_format=...)``) rather
+than environment overrides: tests shrink the page to exercise
+page-boundary arithmetic on tiny models.
 
 Parity tiers under int8: quantized against quantized is bitwise (a
 replayed request re-quantizes the same rows to the same bytes and
@@ -19,6 +32,8 @@ scales); quantized against unquantized is the token-agreement floor
 from __future__ import annotations
 
 from typing import Optional
+
+FORMATS = ("paged", "flat", "4d")
 
 DEFAULT_PAGE_SIZE = 128
 
@@ -32,9 +47,10 @@ KV_QUANT_TOKEN_AGREEMENT_MIN = 0.5
 
 
 class InvalidKVFormatError(ValueError):
-    """An unknown KV storage format, raised where the policy is resolved
-    (``EngineConfig``/``Engine``, ``init_decode_cache``), naming the valid
-    values, not as a dtype error deep inside cache init."""
+    """An unknown KV cache format or storage quantization, raised where the
+    policy is resolved (``EngineConfig``/``Engine``, ``init_decode_cache``,
+    ``decode_tokens``), naming the valid values, not as a shape or dtype
+    error deep inside cache init."""
 
     def __init__(self, source: str, got: object, valid: tuple = QUANTS):
         super().__init__(f"{source} must be one of {valid}, got {got!r}")
@@ -60,3 +76,24 @@ def resolve_quant(kv_quant: Optional[str]) -> str:
     if kv_quant not in QUANTS:
         raise InvalidKVFormatError("kv_quant", kv_quant)
     return kv_quant
+
+
+def choose_cache_format(batch: int) -> str:
+    """The default decode cache format for a batch: "4d" at batch 1,
+    "flat" at batch 8, "paged" otherwise (JAX's policy)."""
+    if batch == 1:
+        return "4d"
+    if batch == 8:
+        return "flat"
+    return "paged"
+
+
+def resolve_format(cache_format: Optional[str], batch: int) -> str:
+    """An explicit ``cache_format`` wins; ``None`` defers to
+    ``choose_cache_format``. A value outside ``FORMATS`` raises
+    ``InvalidKVFormatError``."""
+    if cache_format is None:
+        return choose_cache_format(batch)
+    if cache_format not in FORMATS:
+        raise InvalidKVFormatError("cache_format", cache_format, valid=FORMATS)
+    return cache_format

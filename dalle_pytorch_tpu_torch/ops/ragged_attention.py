@@ -116,7 +116,7 @@ def _run(entry: str, q, pools, table, start, length):
     if err == -1:
         raise ValueError(
             f"the ragged kernel cannot take width {n}, dim_head {d}, page "
-            f"{page}: it has instances for dim_head 32/64/128 and a width "
+            f"{page}: it has instances for dim_head 32/64/128 and a page "
             "whose tiles fit the card's shared memory per block (see "
             "csrc/ragged_attention.cu)"
         )

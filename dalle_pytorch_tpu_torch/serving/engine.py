@@ -162,8 +162,8 @@ class Engine:
                     else B + config.prefill_chunk),
             chunk=config.prefill_chunk,
         )
-        self.cache = init_decode_cache(dalle, B, page_size=self.page,
-                                       kv_quant=self.kv_quant)
+        self.cache = init_decode_cache(dalle, B, "paged", kv_quant=self.kv_quant,
+                                       page_size=self.page)
         # bytes of K/V storage (content and scale pools) per slot row, from
         # the pool tensors themselves (the sink page excluded)
         self.kv_bytes_per_slot = sum(

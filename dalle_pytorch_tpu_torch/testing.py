@@ -30,6 +30,13 @@ backward) compute the pair grid's arithmetic over a visit map instead of
 a layout, and are held the same way (``FLASH_F32_ATOL``,
 ``FLASH_BF16_ROW_REL``, ``BWD_F32_REL``, ``BWD_BF16_ROW_REL``;
 ``flash_fwd_errors``, ``flash_bwd_errors``) on ``flash_inputs``.
+
+The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
+float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
+within ``DECODE_BF16_ROW_REL`` of the plain row, the returned k/v rows
+bitwise, and a row with no live key exactly 0. Generation through it
+against the unfused chain is a different rounding of the same function:
+teacher-forced logits within ``DECODE_LOGITS_REL``.
 """
 
 from __future__ import annotations
@@ -61,6 +68,16 @@ RAGGED_F32_ATOL, RAGGED_BF16_RTOL = 1e-5, 1e-2
 # at the flagship width (dim 1024, depth 12, 16 x 64) with text 64 + an
 # 8 x 8 grid: 2.35e-2. A wrong scale or page moves logits by far more.
 INT8_LOGITS_REL = 5e-2
+# the fused decode kernel against its plain version: float32 max abs error
+# of out; bfloat16 the error norm of each batch row's h*d outputs relative
+# to the plain row's norm (one bf16 rounding of the output is ~0.4%; a row
+# of the cache missed or read twice moves the output by far more).
+DECODE_F32_ATOL, DECODE_BF16_ROW_REL = 1e-5, 1e-2
+# teacher-forced logits of a generation through the fused decode kernel
+# against the same model's unfused decode chain (relative L2 over every
+# logit, ``rel_l2``): in bf16 the chain rounds the rotated q and the
+# probabilities to bf16 where the kernel keeps float32.
+DECODE_LOGITS_REL = 5e-2
 
 
 def _part_errors(got_parts, plain_parts, dead):
@@ -292,6 +309,15 @@ _RAGGED_CASES = {
     # decode rows on and past a page boundary, a full-width chunk across
     # one, a short chunk, a row near the end, an idle row
     "small": (6, 8, 2, None, 128, 4, (127, 128, 124, 250, 509, 3), (1, 1, 8, 3, 1, 0)),
+    # a whole prompt in one block (generation's prefill on the paged
+    # format): 257 columns, five query tiles of the kernel, one row from
+    # position 20 and an idle row
+    "prefill": (3, 257, 4, None, 128, 3, (0, 20, 0), (257, 200, 0)),
+    # the same at generation's paged shape (batch 4, 16 heads, the
+    # flagship's 11 pages): a whole prompt, a short one (tiles past its
+    # valid columns write zeros), one from position 1000 (its tiles'
+    # frontiers deep in the row's pages) and an idle row
+    "prompt": (4, 257, 16, None, 128, 11, (0, 0, 1000, 0), (257, 100, 257, 0)),
 }
 
 
@@ -306,8 +332,9 @@ def ragged_inputs(case: str, dtype, device, int8: bool = False, dim_head: int = 
     the storage and the table permuted with it, so rows stream pages (and
     scales) from other rows' storage; else the identity table. ``case``:
     "serve" (the flagship: 8 rows of 16 columns, 16 heads of ``dim_head``,
-    pages of 128, 11 per row) or "small" (6 rows of 8, 2 heads of
-    ``dim_head``, 4 pages)."""
+    pages of 128, 11 per row), "small" (6 rows of 8, 2 heads of
+    ``dim_head``, 4 pages), "prefill" (3 rows of 257, 4 heads, 3
+    pages) or "prompt" (4 rows of 257, 16 heads, 11 pages)."""
     b, n, h, d, page, n_p, start, length = _RAGGED_CASES[case]
     d = d or dim_head
     rng = np.random.RandomState(seed)
@@ -345,3 +372,63 @@ def ragged_errors(got, plain, length):
 
 def ragged_ok(dtype, err: float, rel: float) -> bool:
     return err <= RAGGED_F32_ATOL if dtype == torch.float32 else rel <= RAGGED_BF16_RTOL
+
+
+def decode_inputs(b: int, L: int, h: int, d: int, idx: int, dtype, device,
+                  rotary: bool = True, masked: bool = False, own_masked: bool = False,
+                  seed: int = 0):
+    """(qkv, k_cache, v_cache, cos, sin, key_mask) of the fused decode
+    kernel, made with numpy from ``seed``: qkv (b, 1, 3*h*d) standard
+    normal, the caches (b, L, h*d) standard normal x 0.5, all in
+    ``dtype``; with ``rotary`` cos/sin from ``rot_tables`` of the DALL-E
+    angle table of an L-position sequence (a 32 x 32 grid when L > 1024,
+    else 4 x 4), else None. ``masked``: an int32 (b, L) key mask dropping
+    a third of the keys (key 0 kept), and at b > 1 every key of the last
+    row (its output must be 0). ``own_masked``: q and k of the fresh
+    token aligned and large (a self-score far above every other), and the
+    fresh key masked out."""
+    rng = np.random.RandomState(seed)
+    qkv = rng.randn(b, 1, 3 * h * d).astype(np.float32)
+    if own_masked:
+        qkv[..., :2 * h * d] = 30.0
+    kc, vc = (rng.randn(b, L, h * d).astype(np.float32) * 0.5 for _ in range(2))
+    qkv, kc, vc = (torch.from_numpy(a).to(device, dtype) for a in (qkv, kc, vc))
+    cos = sin = key_mask = None
+    if rotary:
+        f = 32 if L > 1024 else 4
+        table = torch.from_numpy(dalle_rotary_table(d, L - f * f, f)).to(device)
+        cos, sin = rot_tables(table, L - 1, d, dtype)
+    if masked or own_masked:
+        km = np.ones((b, L), np.int32)
+        if masked:
+            km = (rng.rand(b, L) > 1 / 3).astype(np.int32)
+            km[:, 0] = 1
+            if b > 1:
+                km[-1] = 0
+        if own_masked:
+            km[:, idx] = 0
+        key_mask = torch.from_numpy(km).to(device)
+    return qkv, kc, vc, cos, sin, key_mask
+
+
+def decode_errors(got, plain, key_mask=None, idx: int = 0):
+    """(max abs error of out, worst row-relative error of out over rows
+    with a live key, k/v rows bitwise equal, rows with no live key exactly
+    0) of the fused decode kernel's (out, k_row, v_row) against its plain
+    version's."""
+    out, k_row, v_row = (t.float().cpu() for t in got)
+    p_out, p_k, p_v = (t.float().cpu() for t in plain)
+    b = out.shape[0]
+    live = torch.ones(b, dtype=torch.bool)
+    if key_mask is not None:
+        live = (key_mask[:, :idx + 1] > 0).any(dim=1).cpu()
+    diff = (out - p_out).flatten(1)
+    rel = max((diff[live].norm(dim=1) / p_out.flatten(1)[live].norm(dim=1)).tolist(),
+              default=0.0)
+    rows_equal = torch.equal(k_row, p_k) and torch.equal(v_row, p_v)
+    return diff.abs().max().item(), rel, rows_equal, bool((out[~live] == 0).all())
+
+
+def decode_ok(dtype, err: float, rel: float, rows_equal: bool, dead_zero: bool) -> bool:
+    tol_ok = err <= DECODE_F32_ATOL if dtype == torch.float32 else rel <= DECODE_BF16_ROW_REL
+    return tol_ok and rows_equal and dead_zero

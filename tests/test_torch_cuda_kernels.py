@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+from dalle_pytorch_tpu_torch.ops import decode_attention as da
 from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
 from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
@@ -26,6 +27,9 @@ from dalle_pytorch_tpu_torch.testing import (
     bs_inputs,
     bwd_errors,
     bwd_inputs,
+    decode_errors,
+    decode_inputs,
+    decode_ok,
     flash_bwd_errors,
     flash_fwd_errors,
     flash_inputs,
@@ -52,6 +56,27 @@ def test_ragged_kernel_matches_plain(cuda, dtype, dim_head):
     ``RAGGED_F32_ATOL`` / ``RAGGED_BF16_RTOL``, every output is finite,
     and each call counts one launch."""
     q, k, v, _, _, table, start, length = ragged_inputs("small", dtype, "cpu", dim_head=dim_head)
+    plain = ra.reference_attend(q, k, v, table, start)
+    before = ra.kernel_attend.launches
+    got = ra.kernel_attend(*(t.to(cuda) for t in (q, k, v, table, start, length)))
+    torch.cuda.synchronize()
+    assert ra.kernel_attend.launches == before + 1
+    assert torch.isfinite(got).all()
+    err, rel = ragged_errors(got.cpu(), plain, length)
+    assert ragged_ok(dtype, err, rel), (err, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+@pytest.mark.parametrize("case", ["prefill", "prompt"])
+def test_ragged_kernel_wide_block_matches_plain(cuda, dtype, dim_head, case):
+    """``testing.ragged_inputs("prefill")`` and ``("prompt")`` (generation's
+    paged shape): 257 query columns in one call (five query tiles), rows
+    from later positions, short rows and an idle row; valid columns agree
+    at the ragged tolerances, one launch."""
+    q, k, v, _, _, table, start, length = ragged_inputs(case, dtype, "cpu",
+                                                        dim_head=dim_head)
     plain = ra.reference_attend(q, k, v, table, start)
     before = ra.kernel_attend.launches
     got = ra.kernel_attend(*(t.to(cuda) for t in (q, k, v, table, start, length)))
@@ -472,3 +497,94 @@ def test_flash_kernels_reject_what_they_cannot_take(cuda):
         fa.flash_attention_dkdv(q, q, q, o, lse, lse[:, :1])
     with pytest.raises(ValueError):  # o of the wrong shape
         fa.flash_attention_bwd_fused(q, q, q, o[:, :1], lse, o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dim_head", [2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("mode", ["rotary", "masked", "plain", "own_masked"])
+@pytest.mark.parametrize("idx", [0, 5, 46])
+def test_decode_kernel_matches_plain(cuda, dtype, dim_head, mode, idx):
+    """``testing.decode_inputs`` at b 3, L 48, 4 heads: rotary without a
+    key mask, rotary with one (the last row's keys all masked: output 0),
+    neither, and the masked own key with an extreme score; out within
+    ``testing``'s tolerances, k/v rows bitwise, one launch a call."""
+    rot = mode in ("rotary", "masked")
+    x = decode_inputs(3, 48, 4, dim_head, idx, dtype, "cpu", rotary=rot,
+                      masked=mode == "masked", own_masked=mode == "own_masked")
+    plain = da.reference_fused_decode(x[0], x[1], x[2], idx, x[3], x[4], x[5], 4)
+    before = da.fused_decode_attention.launches
+    on_card = [None if t is None else t.to(cuda) for t in x]
+    got = da.fused_decode_attention(on_card[0], on_card[1], on_card[2], idx, *on_card[3:],
+                                    heads=4)
+    torch.cuda.synchronize()
+    assert da.fused_decode_attention.launches == before + 1
+    assert all(torch.isfinite(t).all() for t in got)
+    assert decode_ok(dtype, *decode_errors(got, plain, x[5], idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["plain", "own_masked"])
+def test_decode_kernel_one_channel_heads(cuda, dtype, mode):
+    """dim_head 1, which JAX's predicate admits (at heads a multiple of
+    128) and rotary cannot take: the kernel's one-lane, 2- or 4-byte rows
+    against the plain version."""
+    x = decode_inputs(2, 48, 128, 1, 30, dtype, "cpu", rotary=False,
+                      own_masked=mode == "own_masked")
+    plain = da.reference_fused_decode(x[0], x[1], x[2], 30, None, None, x[5], 128)
+    on_card = [None if t is None else t.to(cuda) for t in x]
+    got = da.fused_decode_attention(on_card[0], on_card[1], on_card[2], 30, *on_card[3:],
+                                    heads=128)
+    assert decode_ok(dtype, *decode_errors(got, plain, x[5], 30))
+
+
+@pytest.mark.gpu
+def test_dalle_with_eight_channel_heads_decodes_on_the_kernel(cuda):
+    """A DALLE of 16 heads of 8 (inside ``fused_decode_supported``):
+    ``decode_step`` with ``fused_decode`` on the "4d" cache takes the
+    kernel in every layer and step, and its logits match the same model's
+    on the CPU (plain versions) to 1e-4."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache
+
+    cfg = dict(dim=64, depth=2, heads=16, dim_head=8, num_text_tokens=50, text_seq_len=8,
+               num_image_tokens=40, image_fmap_size=4)
+    card = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(3))
+    cpu = DALLE(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    rng = np.random.RandomState(4)
+    ids = np.concatenate((card.remap_text(torch.from_numpy(rng.randint(1, 50, (2, 8)))).numpy(),
+                          rng.randint(0, 40, (2, 16))), 1)[:, :card.total_seq_len]
+    n = ids.shape[1]
+    logits = {}
+    for m in (card, cpu):
+        cache = init_decode_cache(m, 2, "4d")
+        before = da.fused_decode_attention.launches
+        logits[m] = torch.stack([
+            m.decode_step(torch.from_numpy(ids[:, i]).to(m.device), i, cache, fused_decode=True)
+            for i in range(n)], 1).cpu()
+        if m is card:
+            assert da.fused_decode_attention.launches - before == cfg["depth"] * n
+    assert (logits[card] - logits[cpu]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_decode_kernel_rejects_what_it_cannot_take(cuda):
+    x = decode_inputs(2, 48, 4, 64, 5, torch.float32, cuda)
+    qkv, kc, vc, cos, sin, _ = x
+    with pytest.raises(ValueError):  # idx past the cache
+        da.fused_decode_attention(qkv, kc, vc, 48, cos, sin, heads=4)
+    with pytest.raises(ValueError):  # rotary tables that end before idx
+        da.fused_decode_attention(qkv, kc, vc, 5, cos[:5], sin[:5], heads=4)
+    with pytest.raises(TypeError):  # caches of another dtype
+        da.fused_decode_attention(qkv, kc.bfloat16(), vc.bfloat16(), 5, heads=4)
+    with pytest.raises(TypeError):  # a bool key mask
+        da.fused_decode_attention(qkv, kc, vc, 5, key_mask=torch.ones(2, 48, dtype=torch.bool,
+                                                                       device=cuda), heads=4)
+    with pytest.raises(ValueError):  # a cache on the CPU
+        da.fused_decode_attention(qkv, kc.cpu(), vc, 5, heads=4)
+    z = torch.zeros(2, 1, 3 * 4 * 48, device=cuda)
+    with pytest.raises(ValueError):  # dim_head 48: no instance
+        da.fused_decode_attention(z, torch.zeros(2, 48, 4 * 48, device=cuda),
+                                  torch.zeros(2, 48, 4 * 48, device=cuda), 5, heads=4)
