@@ -22,7 +22,9 @@ line):
    of 257 columns, five query tiles, short, late and idle rows). The
    packed-qkv kernel is held at CLIP's text shape (the rerank stage's),
    at DALL-E's causal rotary shape, with and without a pattern mask, and
-   at the training shape (batch 4). The fused decode kernel is held at
+   at the training shape (batch 4), and timed in bf16 (its tensor-core
+   instance) at CLIP's and DALL-E's shapes and in float32 at the
+   training shape. The fused decode kernel is held at
    the flagship's decode shapes (b 1 and 8, 16 heads of 64, L 1281,
    positions 0 to 1279, rotary and key mask on and off, a masked own
    key, dim_head 32 and 128; its k/v rows bitwise) and timed at b 1 and
@@ -112,8 +114,9 @@ line):
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
 text shape and DALL-E's shape with the axial-row and axial-column
-pattern masks, and the three block-sparse kernels (forward, dq, dk/dv)
-at the flagship training shape with the axial_row and conv_like layouts
+pattern masks (timed at the training shape in both types), and the
+three block-sparse kernels (forward, dq, dk/dv) at the flagship training
+shape with the axial_row and conv_like layouts
 and at a ragged n with a key mask that kills whole rows (dim_head 32,
 64, 128), each timed beside its plain version, the packed kernel with
 the same pattern, and ``scaled_dot_product_attention``; and the four
@@ -133,15 +136,23 @@ The second-to-last line is the card's ``nvidia-smi`` name and power
 limit; the line before it the kernels' JSON; the last line
 ``{"ok": true, "device": {...}}``.
 
+Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
+spills) for the packed-qkv kernels' bf16 tensor-core instances.
+
 Paired comparisons, one card, none of the phases above:
 
     python3 chip_smoke.py --ragged-source OTHER/ragged_attention.cu
+    python3 chip_smoke.py --packed-source OTHER/csrc
     python3 chip_smoke.py --generate-pairs 3
 
 the first times this checkout's ragged kernel against the same file of
 another commit, alternating in one process, with the cold timer's spin
-and without it; the second times generation (a) against (b) in
-alternating pairs.
+and without it; the second builds another commit's packed-qkv forward
+and backward under other library names, checks that their float32
+outputs equal this checkout's bitwise, and times both trees alternating
+(bf16 forward at DALL-E's b 2 and CLIP's shape, bf16 backward and both
+float32 kernels at the training shape); the third times generation (a)
+against (b) in alternating pairs.
 """
 
 from __future__ import annotations
@@ -532,6 +543,7 @@ def check_fused_qkv() -> dict:
         "replaces": FUSED_TPU_KERNEL, "max_abs_err": errs[torch.bfloat16],
         "max_rel_err": rel_errs[torch.bfloat16],
         "max_abs_err_f32": errs[torch.float32], **timings["clip"],
+        **{f"dalle_{k}": v for k, v in timings["dalle"].items()},
         **{f"train_{k}": v for k, v in timings["train"].items()},
         "train_max_abs_err_f32": train_errs[torch.float32][0],
         "train_max_rel_err_bf16": train_errs[torch.bfloat16][1],
@@ -632,15 +644,13 @@ def check_fused_qkv_bwd() -> dict:
         log(f"fused_qkv_bwd train {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-    t = timings[torch.float32]  # the training path's type
     return {
         "name": "fused_qkv_attention_bwd", "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
         "replaces": FUSED_BWD_TPU_KERNEL, "max_abs_err": train_abs,
         "max_rel_err_f32": worst_rel, "max_row_rel_err_bf16": worst_row,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "ms_bf16": timings[torch.bfloat16]["ms"],
+        **timings[torch.float32],  # the training path's type
+        **{f"bf16_{k}": v for k, v in timings[torch.bfloat16].items()},
     }
 
 
@@ -1327,6 +1337,37 @@ def check_paged_prompt_against_plain(cfg: dict) -> None:
         f"launches {launched} (expected {want})")
     if not (worst <= 1e-4 and launched == want):
         raise AssertionError(f"paged prompt path disagrees: {worst} {launched}")
+
+
+def start_ptxas_report(names) -> dict:
+    """One ``nvcc -Xptxas -v`` compile (object only) per kernel source of
+    ``names``, started now; ``log_ptxas_report`` reads them."""
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return {name: subprocess.Popen(
+        [cuda_build.nvcc(), *flags, "-c", "-Xptxas", "-v", "-o", str(out_dir / f"{name}.o"),
+         str(cuda_build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in names}
+
+
+def log_ptxas_report(procs: dict, marker: str) -> None:
+    """Registers, shared memory and spills that ptxas reports for each
+    entry function whose mangled name holds ``marker``; raises if a
+    compile failed."""
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{out}")
+        lines = out.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and marker in line:
+                fn = line.split("'")[1]
+                about = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                         if "spill" in x or "registers" in x]
+                log(f"ptxas {name}.cu {fn}: " + "; ".join(about))
 
 
 def kernel_counters():
@@ -2016,8 +2057,10 @@ def main() -> int:
         f"TF32 cuDNN {torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report(PACKED)
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
+    log_ptxas_report(ptxas, "_tc_kernel")
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
                *check_block_sparse(), *check_flash_attention(), check_decode_attention()]
@@ -2123,6 +2166,103 @@ def compare_ragged_sources(other: str, rounds: int = 2) -> None:
     cuda_build._LOADED["ragged_attention"] = this
 
 
+PACKED_COMPARE_CASES = (("dalle", torch.bfloat16, "fwd"), ("clip", torch.bfloat16, "fwd"),
+                         ("train", torch.bfloat16, "bwd"), ("train", torch.float32, "fwd"),
+                         ("train", torch.float32, "bwd"))
+
+
+def packed_case(case: str, dtype, direction: str):
+    """(kernel call, sdpa call, bound_ms, bound_by) of one packed-qkv
+    instance: the forward on ``fused_inputs(case)``, or the backward on
+    them (seed 1) with a seeded do and the plain forward's o and lse."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    if direction == "fwd":
+        qkv, h, d, opts = fused_inputs(case, dtype)
+        (q, k, v), kw = sdpa_args(qkv, h, d, opts)
+        return (lambda: fa.fused_qkv_attention(qkv, h, d, **opts),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw),
+                *fused_bound(qkv, h, d, opts))
+    qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, generator=g, device="cuda").to(dtype)
+    o, lse = fa.reference_fused_qkv(qkv, h, d, **opts)
+    return (lambda: fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts),
+            sdpa_backward(qkv, h, d, opts, do), *fused_bwd_bound(qkv, h, d, opts))
+
+
+def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
+    """The packed-qkv forward and backward of this checkout against
+    ``fused_qkv_attention.cu`` and ``fused_qkv_attention_bwd.cu`` of
+    ``other_dir`` (another commit's csrc), built under other library
+    names, in one process with one timer (cold L2): bf16 forward at
+    DALL-E's b 2 and at CLIP's text shape, the bf16 backward at the
+    training shape, and both float32 training-shape kernels, in the order
+    other, this, this, other, ``rounds`` times; each case's sdpa time and
+    bound beside. Raises unless the float32 outputs of the two trees are
+    bitwise equal (training and CLIP shapes, forward and backward)."""
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    out_dir = cuda_build.BUILD_DIR / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}-other.so"),
+         str(Path(other_dir) / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in PACKED}
+    libs = {"this": {name: cuda_build.load_library(name) for name in PACKED}, "other": {}}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {other_dir}/{name}.cu:\n{out}")
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}-other.so"))
+        for fn, (argtypes, restype) in cuda_build.SIGNATURES[name].items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+        libs["other"][name] = lib
+
+    def use(src: str) -> None:  # the wrappers load their library through this cache
+        cuda_build._LOADED.update(libs[src])
+
+    for case in ("train", "clip"):
+        outs = {}
+        for src in libs:
+            use(src)
+            qkv, h, d, opts = fused_inputs(case, torch.float32, seed=1)
+            do = torch.randn(qkv.shape[0], qkv.shape[1], h * d,
+                             generator=torch.Generator(device="cuda").manual_seed(2),
+                             device="cuda")
+            o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
+            plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, d, **opts)
+            outs[src] = (o, lse, fa.fused_qkv_attention_bwd(qkv, plain_o, plain_lse, do, h, d,
+                                                             **opts))
+        same = [torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])]
+        log(f"compare packed float32 {case}: o, lse, dqkv bitwise equal to the other "
+            f"tree's: {same}")
+        if not all(same):
+            raise AssertionError(f"packed float32 {case} outputs differ from the other tree's")
+
+    calls = {}
+    for case, dtype, direction in PACKED_COMPARE_CASES:
+        calls[case, dtype, direction] = packed_case(case, dtype, direction)
+    ms = {(key, src): [] for key in calls for src in libs}
+    for _ in range(rounds):
+        for src in ("other", "this", "this", "other"):
+            use(src)
+            for key, (fn, *_) in calls.items():
+                ms[key, src].append(cuda_time_ms(fn, iters=20))
+    use("this")
+    for key, (_, sdpa, bound_ms, bound_by) in calls.items():
+        case, dtype, direction = key
+        this, other = ms[key, "this"], ms[key, "other"]
+        # adjacent pairs of the order other, this, this, other
+        faster = all(t < o for t, o in zip(this, other))
+        log(f"compare packed {direction} {case} {dtype}, cold L2: other " + ", ".join(
+            f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} ms); this " + ", ".join(
+            f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} ms); this / other "
+            f"{np.mean(this) / np.mean(other):.4f}; this faster in every pair {faster}; sdpa "
+            f"{cuda_time_ms(sdpa, iters=20):.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+
+
 def compare_generate(pairs: int = 3) -> None:
     """Generation (a) against (b) of ``generate_flagship`` (batch 1, the
     same caption: the decode kernel with ``window_seg=0``, then the
@@ -2158,12 +2298,14 @@ def compare_generate(pairs: int = 3) -> None:
 
 
 def compare(argv) -> int:
-    """``chip_smoke.py --ragged-source PATH`` and/or ``--generate-pairs N``:
-    only the paired comparisons, on one card."""
+    """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR`` and/or
+    ``--generate-pairs N``: only the paired comparisons, on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
     parser.add_argument("--ragged-source", help="ragged_attention.cu of another commit")
+    parser.add_argument("--packed-source",
+                        help="csrc directory of another commit (its fused_qkv_attention*.cu)")
     parser.add_argument("--generate-pairs", type=int, default=0)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2173,6 +2315,8 @@ def compare(argv) -> int:
     log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.ragged_source:
         compare_ragged_sources(args.ragged_source)
+    if args.packed_source:
+        compare_packed_sources(args.packed_source)
     if args.generate_pairs:
         compare_generate(args.generate_pairs)
     return 0

@@ -20,36 +20,46 @@
 // the value product. o = acc / l (l = 1 where l == 0, so a fully masked
 // row writes exactly 0), lse = m + log(l) as (b, h, 1, n) float32.
 //
-// What bounds it. At CLIP's text shapes (b = 8, n = 256, 8 heads of 64,
-// bf16, zero-padded prompts) the card needs to read q of the batch rows
-// that attend any key, K and V at the unmasked keys only, and write o and
-// the lse once: with chip_smoke.py's key mask (909 of 2048 keys valid, one
-// row fully masked) ~5.9 MB, ~1.75 us at 3.35 TB/s, against ~0.5 us for
-// the 4*d operations per valid (query, key) pair and head at the tensor
-// cores' bf16 rate: bytes bound it, and nothing but q, k, v, the masks
-// and o touches device memory. The design keeps every (n, n)
-// intermediate on chip, reads each q/k/v element once per block that
-// needs it (rotating it on load) and skips key tiles the key mask wholly
-// masks (and q, when that is every tile), and writes o straight into the
-// projection's layout, so no split, transpose or rotary pass goes through
-// device memory. It does not reach that bound: the products run on
-// CUDA-core float32 FMAs from shared memory, not on the tensor cores.
-// wgmma/mma.sync bf16 tiles, vectorised 16-byte loads and cp.async/TMA
-// double buffering of the K/V tiles are the known next steps.
+// What bounds it. bf16, at DALL-E's shape (b 2, n 1280, 16 heads of 64,
+// causal, rotary): 4*d operations per allowed (query, key) pair and head,
+// ~6.7e9, 6.8 us at the tensor cores' 989 TFLOP/s, against ~2.6 us of
+// bytes (q, k, v, o, lse and the tables once): operations bound it. At
+// CLIP's text shape (b 8, n 256, 8 heads of 64, a key mask) bytes bound
+// it (~1.75 us), and launch latency and the masked-row path dominate.
+// float32, at the training shape (b 4): the same products at the card's
+// 67 TFLOP/s CUDA-core rate, 0.2 ms.
 //
-// Layout: one block of 256 threads per (64-row q tile, head, batch row).
-// The q tile is rotated once into shared memory, transposed (d, 64 + 1),
-// before the first key tile that has a valid key; each 64-key K tile
-// (transposed) and V tile (row-major) is rotated on load; tiles wholly
-// above the diagonal are skipped when causal without a pattern, and so
-// are tiles of masked keys. Thread (ty, tx), 16 x 16, owns query rows
-// ty + 16*i and key columns tx + 16*j (i, j < 4) of a score tile and
-// output columns tx + 16*c (c < d / 16); a row's 16 owners share one
-// half-warp, so its max and sum reduce with shuffles.
+// The bf16 instance (fused_qkv_fwd_tc_kernel) runs both products on the
+// tensor cores: bf16 mma.sync tiles with float32 accumulation, q's
+// fragments held in registers, K/V tiles through a 2-stage cp.async ring
+// so the loads of tile kt + 1 overlap the products of tile kt, rotary
+// once per tile in shared memory, p rounded to bf16 in registers where
+// the plain version rounds it, and the heaviest causal query tiles
+// scheduled first. The float32 instance (fused_qkv_fwd_kernel) keeps the
+// CUDA-core design below, bit for bit: its products are float32, and the
+// tensor cores would take them only as TF32 or split 3xTF32, which
+// changes what the float32 trainer is held to. Both keep every (n, n)
+// intermediate on chip, read q/k/v in place from the projection's layout
+// (no split, transpose or rotary pass through device memory), skip key
+// tiles the key mask wholly masks (and q, when that is every tile), and
+// write o straight into the projection's layout. Next, where the kernel
+// table shows the bf16 instance below half its bound: wgmma and TMA.
+//
+// float32 layout: one block of 256 threads per (64-row q tile, head,
+// batch row). The q tile is rotated once into shared memory, transposed
+// (d, 64 + 1), before the first key tile that has a valid key; each
+// 64-key K tile (transposed) and V tile (row-major) is rotated on load;
+// tiles wholly above the diagonal are skipped when causal without a
+// pattern, and so are tiles of masked keys. Thread (ty, tx), 16 x 16,
+// owns query rows ty + 16*i and key columns tx + 16*j (i, j < 4) of a
+// score tile and output columns tx + 16*c (c < d / 16); a row's 16 owners
+// share one half-warp, so its max and sum reduce with shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -61,15 +71,9 @@ constexpr int THREADS = 256;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // round a float32 to the storage type and back
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -237,6 +241,262 @@ __global__ void __launch_bounds__(THREADS) fused_qkv_fwd_kernel(
   }
 }
 
+// ------------------------------------------- bf16: the tensor-core design
+//
+// One block of 4 warps per (64-row query tile, head, batch row); warp w
+// owns query rows 16w .. 16w + 15 of the tile. Per live 64-key tile:
+// S = Q.K^T and O += P.V as bf16 mma.sync.m16n8k16 with float32
+// accumulation, Q's A fragments in registers for the whole key loop
+// (rotated there, once), K by ldmatrix, V by ldmatrix.trans; the scale,
+// the masks and the online softmax on the S accumulators, row max and
+// sum over the 4 lanes of a quad; p rounded to bf16 straight into P.V's A
+// fragments. K/V tiles (with the cos/sin rows of their positions, and a
+// pattern mask's int8 tile) come through a 2-stage cp.async ring, so tile
+// kt + 1 is in flight while tile kt computes; K and V are rotated in
+// shared memory once per tile, after the tile lands. The kernel is bound
+// by latency more than by any one unit (4 warps a block, one dependent
+// chain of loads, products and softmax a warp), so its register budget is
+// capped where three blocks fit on an SM: at d 32 and 64 that is faster
+// than wider tiles (two 16-row blocks a warp) or a fourth block, both of
+// which spill or lose occupancy.
+
+constexpr int fwd_tc_smem_bytes(int d, bool rot, bool pattern) {
+  // Q, two stages of K and V, two of key bits, two of the pattern tile,
+  // the cos/sin rows of one key tile
+  return 2 * 5 * tc::ROWS * (d + 8) + 2 * 2 * 4 + (pattern ? 2 * tc::ROWS * tc::ROWS : 0) +
+         (rot ? 2 * 2 * tc::ROWS * d : 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1) fused_qkv_fwd_tc_kernel(
+    const tc::bf16* __restrict__ qkv, const uint8_t* __restrict__ kmask,
+    const int8_t* __restrict__ pmask, const tc::bf16* __restrict__ cos_t,
+    const tc::bf16* __restrict__ sin_t, tc::bf16* __restrict__ out,
+    float* __restrict__ lse, int n, int heads, int causal, float scale) {
+  using tc::bf16;
+  constexpr int TE = tc::tile_elems<D>(), DS = tc::stride<D>(), KS = D / 16;
+  constexpr int PM = tc::ROWS * tc::ROWS;  // bytes of a pattern tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (64, DS)
+  bf16* kv = qs + TE;  // stage s: K at kv + 2s * TE, V at kv + (2s + 1) * TE
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(kv + 4 * TE);  // 2 stages of 2 words
+  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 64)
+  // cos/sin rows of the key tile being loaded (after the pattern tiles,
+  // which take no room without a pattern)
+  bf16* cs = reinterpret_cast<bf16*>(pms + (pmask != nullptr ? 2 * PM : 0));
+
+  // causal without a pattern: the heaviest query tiles (the last) first
+  const bool tri = causal && pmask == nullptr;
+  const int qt = tri ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * tc::ROWS, h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t stride = 3LL * heads * D;
+  const bf16* base = qkv + (int64_t)b * n * stride;
+  const bf16* ksrc = base + (int64_t)(heads + h) * D;
+  const bf16* vsrc = base + (int64_t)(2 * heads + h) * D;
+  const uint8_t* kmask_b = kmask == nullptr ? nullptr : kmask + (int64_t)b * n;
+
+  int n_tiles = (n + tc::ROWS - 1) / tc::ROWS;
+  if (tri) n_tiles = min(n_tiles, qt + 1);
+  // The first tile at or after kt with a key that exists and passes the
+  // key mask (its bits into stage st), or n_tiles. A tile of masked keys
+  // gives p = 0 everywhere and leaves m, l and o as they are, so it is not
+  // loaded; nor is q while every tile so far was such a tile (a fully
+  // masked batch row reads no q, k or v).
+  auto next_live = [&](int kt, int st) {
+    if (kmask_b != nullptr)
+      while (kt < n_tiles && !tc::tile_keys(kmask_b, kt * tc::ROWS, n, kbits + 2 * st)) ++kt;
+    return kt;
+  };
+  // K and V of tile kt (with the cos/sin of its rows, and the pattern
+  // tile) into stage st
+  auto issue = [&](int kt, int st) {
+    tc::load_tile_async<D>(kv + 2 * st * TE, ksrc, stride, kt * tc::ROWS, n);
+    tc::load_tile_async<D>(kv + (2 * st + 1) * TE, vsrc, stride, kt * tc::ROWS, n);
+    if (cos_t != nullptr) tc::load_rot_rows_async<D>(cs, cos_t, sin_t, kt * tc::ROWS, n);
+    if (pmask != nullptr) tc::load_mask_tile(pms + st * PM, pmask, q0, kt * tc::ROWS, n);
+  };
+
+  // the thread's rows: q0 + 16w + g + 8r, r < 2
+  float o[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  uint32_t qf[KS][4];
+
+  int kt = next_live(0, 0), st = 0;
+  if (kt < n_tiles) {
+    tc::load_tile_async<D>(qs, base + (int64_t)h * D, stride, q0, n);
+    issue(kt, 0);
+  }
+  tc::cp_async_commit();
+  bool first = true;
+  while (kt < n_tiles) {
+    tc::cp_async_wait<0>();  // tile kt (and q on the first) has landed
+    __syncthreads();         // ... for every thread; stage st ^ 1 is no longer read
+    const int k0 = kt * tc::ROWS;
+    const bf16* kt_s = kv + 2 * st * TE;
+    const bf16* vt_s = kt_s + TE;
+    if (cos_t != nullptr) {
+      tc::rotate_tiles<D>(kv + 2 * st * TE, kv + (2 * st + 1) * TE, k0, n, cs);
+      __syncthreads();  // the tiles are rotated; cs and stage st ^ 1 are free
+    }
+    // the next live tile is in flight while this one computes
+    const int nxt = next_live(kt + 1, st ^ 1);
+    if (nxt < n_tiles) issue(nxt, st ^ 1);
+    tc::cp_async_commit();
+    if (first) {
+      // q's fragments, rotated in registers: a fragment register holds a
+      // channel pair 2c, 2c + 1 of one row
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        tc::load_a<D>(qf[kk], qs, 16 * warp, 16 * kk);
+        if (cos_t != nullptr)
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int row = q0 + 16 * warp + g + 8 * (a & 1);
+            const int col = 16 * kk + 8 * (a >> 1) + 2 * t;
+            if (row < n)
+              qf[kk][a] = tc::rotate2(qf[kk][a], cos_t + (int64_t)row * D + col,
+                                      sin_t + (int64_t)row * D + col);
+          }
+      }
+      first = false;
+    }
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        tc::load_b_rows<D>(kb, kt_s, 16 * np, 16 * kk);
+        tc::mma(s[2 * np], qf[kk], kb[0], kb[1]);
+        tc::mma(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // scale and mask: element e of n-block j is row r0 + 8 * (e / 2), key
+    // column 8j + 2t + e % 2 of the tile
+    const uint64_t bits = tc::key_bits(kmask_b != nullptr, kbits + 2 * st, k0, n);
+    const bool need_mask = bits != ~0ull || pmask != nullptr || (causal && k0 == q0);
+    const int r0 = q0 + 16 * warp + g;
+    const int8_t* pm_t = pms + st * PM;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[j][e] * scale;
+        if (need_mask) {
+          const int row = r0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          bool ok = (bits >> c) & 1;
+          if (pmask != nullptr) {
+            ok = ok && pm_t[(row - q0) * tc::ROWS + c] != 0;
+          } else if (causal) {
+            ok = ok && row >= k0 + c;
+          }
+          if (!ok) v = NEG_INF;
+        }
+        s[j][e] = v;
+      }
+
+    // online softmax over the quad's 64 columns of rows r0 and r0 + 8
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float m2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float corr = expf(m[r] - m_new);
+      m[r] = m_new;
+      m2[r] = m_new * tc::LOG2E;
+      l[r] *= corr;  // the thread's part of the row sum, reduced at the end
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][2 * r] *= corr;
+        o[j][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = s[j][e];
+        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, m2[e >> 1]) : 0.f;
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+
+    // O += P.V over the tile's 64 keys, 16 at a time
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      tc::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        tc::load_b_cols<D>(vb, vt_s, 16 * kk, 16 * dp);
+        tc::mma(o[2 * dp], pa, vb[0], vb[1]);
+        tc::mma(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+    kt = nxt;
+    st ^= 1;
+  }
+
+  // o / l (l = 1 where l == 0: a fully masked row writes exactly 0) into
+  // the warp's own rows of the q tile, then 16-byte stores
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+  }
+  bf16* ow = qs + 16 * warp * DS;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8 * r) * DS + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(o[j][2 * r] / l_safe[r], o[j][2 * r + 1] / l_safe[r]);
+  __syncwarp();
+  const int64_t hd = (int64_t)heads * D;
+  tc::store_rows<D>(out + (int64_t)b * n * hd + (int64_t)h * D, hd, ow, q0 + 16 * warp, n);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row < n) lse[((int64_t)b * heads + h) * n + row] = m[r] + logf(l_safe[r]);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* qkv, const void* kmask, const void* pmask, const void* cos_t,
+              const void* sin_t, void* out, void* lse, int batch, int n, int heads,
+              int causal, float scale, cudaStream_t stream) {
+  const int n_qt = (n + tc::ROWS - 1) / tc::ROWS;
+  if (n_qt > 65535 || !tc::aligned16({qkv, cos_t, sin_t, out})) return -1;
+  const int smem = fwd_tc_smem_bytes(D, cos_t != nullptr, pmask != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_qkv_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(heads, batch, n_qt);
+  fused_qkv_fwd_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(
+      (const tc::bf16*)qkv, (const uint8_t*)kmask, (const int8_t*)pmask,
+      (const tc::bf16*)cos_t, (const tc::bf16*)sin_t, (tc::bf16*)out, (float*)lse, n,
+      heads, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 constexpr int smem_bytes(int d) {
   return 4 * (2 * d * TP + BK * d + BK * TP + BK);
 }
@@ -293,7 +553,13 @@ extern "C" int fused_qkv_attention_fwd(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d<float>(dim_head, qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(dim_head, qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
+  if (dtype == 1) {
+    switch (dim_head) {
+      case 32: return launch_tc<32>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
+      case 64: return launch_tc<64>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
+      case 128: return launch_tc<128>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
+      default: return -1;
+    }
+  }
   return -1;
 }

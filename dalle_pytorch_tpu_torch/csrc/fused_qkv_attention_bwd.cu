@@ -26,36 +26,49 @@
 //   contributes exactly 0 to every gradient.
 //
 // What bounds it. At the training shape (b 4, n 1280, 16 heads of 64,
-// causal, float32) the five (n, n, d) products over the causal pairs are
-// ~3.4e10 operations, 0.5 ms at the card's 67 TFLOP/s float32 rate,
-// against ~0.3 ms of bytes (qkv, o, do, dqkv, lse, tables once each):
-// operations bound it. The design keeps every (n, n) intermediate on
-// chip and tiles FA-2 style, with no float atomics so that gradients are
-// the same from run to run:
+// causal) the five (n, n, d) products over the causal pairs are ~3.4e10
+// operations: 34 us at the tensor cores' bf16 rate, 0.5 ms at the
+// CUDA cores' float32 rate, against ~0.3 ms of bytes in float32 (qkv, o,
+// do, dqkv, lse, tables once each) and half that in bf16: operations
+// bound it. The design keeps every (n, n) intermediate on chip and tiles
+// FA-2 style, with no float atomics so that gradients are the same from
+// run to run:
 //   1. rotate_kernel rotates q, k and v once into a scratch copy of qkv
 //      (skipped without tables), so no pass re-rotates a tile per visit;
 //      delta_kernel computes delta once per (row, head);
-//   2. dkdv_kernel: one block per (64-key tile, head, batch row) holds
-//      its K and V tiles and walks the query tiles that may attend them
-//      (from the diagonal down when causal), recomputing p from the lse,
-//      and accumulates dk and dv in registers;
-//   3. dq_kernel: one block per (64-row query tile, head, batch row)
-//      walks the key tiles up to the diagonal and accumulates dq.
-// Key tiles whose keys are all masked are skipped in both passes. The
-// products run as float32 FMAs on the CUDA cores from shared memory; the
-// tensor cores (mma.sync / wgmma bf16 tiles), cp.async/TMA double
-// buffering and one fused pass are the known next steps.
+//   2. dk/dv: one block per (64-key tile, head, batch row) holds its K
+//      and V tiles and walks the query tiles that may attend them (from
+//      the diagonal down when causal), recomputing p from the lse, and
+//      accumulates dk and dv in registers;
+//   3. dq: one block per (64-row query tile, head, batch row) walks the
+//      key tiles up to the diagonal and accumulates dq.
+// Key tiles whose keys are all masked are skipped in both passes.
 //
-// Tiles are 64 x d floats in shared memory with a padded row stride of
-// d + 1, so a half-warp reading 16 different rows at one column hits 16
-// banks. Thread (ty, tx), 16 x 16, owns rows ty + 16*a and columns
-// tx + 16*b of a 64 x 64 score tile, and rows ty + 16*a, channels
+// The bf16 instance (dkdv_tc_kernel, dq_tc_kernel) runs every product on
+// the tensor cores: bf16 mma.sync tiles with float32 accumulation, the
+// streamed Q/dO (dk/dv) or K/V (dq) tiles through 2-stage cp.async rings,
+// the dk/dv pass key-major (S^T = K.Q^T) so that p^T and ds^T leave the
+// accumulators as the A fragments of dV += P^T.dO and dK += dS^T.Q, p and
+// ds rounded to bf16 in registers where the plain version rounds them,
+// the inverse rotation in float32 on the accumulators (a channel pair
+// lies in one thread) and 16-byte stores. The float32 instance
+// (dkdv_kernel, dq_kernel) keeps the CUDA-core design below, bit for bit
+// (tensor cores in float32 mean TF32 or 3xTF32: a decision ahead). Next:
+// one fused pass, and wgmma/TMA where the bf16 instance stays below half
+// its bound.
+//
+// float32 layout: tiles are 64 x d floats in shared memory with a padded
+// row stride of d + 1, so a half-warp reading 16 different rows at one
+// column hits 16 banks. Thread (ty, tx), 16 x 16, owns rows ty + 16*a and
+// columns tx + 16*b of a 64 x 64 score tile, and rows ty + 16*a, channels
 // tx + 16*c of the accumulators; channel pairs (2i, 2i+1) sit on lanes
 // l and l ^ 1, so the inverse rotation exchanges partners by shuffle.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -67,15 +80,9 @@ constexpr int THREADS = 256;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // round a float32 to the storage type and back
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -420,6 +427,481 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(
   store_inverse_rotated<T, D>(dq, out, stride, q0, n, cos_t, sin_t);
 }
 
+// ------------------------------------------- bf16: the tensor-core design
+//
+// Both passes read the rotated copy of qkv (rotate_tc_kernel) and delta
+// (delta_tc_kernel). Blocks of 4 warps, each warp 16 rows of the block's
+// tile; every product is a bf16 mma.sync.m16n8k16 with float32
+// accumulation, operands by ldmatrix (.trans where the product runs over
+// a tile's rows) from tiles that come through 2-stage cp.async rings. p
+// and ds are rounded to bf16 where the plain version rounds them,
+// straight from the accumulators into the A fragments of the next
+// product. Per-thread element e of C n-block j is row 16w + g + 8 * (e /
+// 2), column 8j + 2t + e % 2 of a warp's 16-row block. The streamed
+// 64-row tile is taken in two halves of 32, so only 16 x 32 scores and
+// their gradients are live at once: like the forward, the passes are
+// bound by latency more than by any one unit, and the registers this
+// saves let three (dk/dv) or four (dq) blocks share an SM at d 32 and 64.
+
+// qkv rows (of `width` = 3*h*D) -> the same with q, k and v rotated as
+// the forward rotates them, 8 channels a thread (tc::rotate8, 16-byte
+// loads and stores)
+template <int D>
+__global__ void __launch_bounds__(THREADS) rotate_tc_kernel(
+    const tc::bf16* __restrict__ qkv, const tc::bf16* __restrict__ cos_t,
+    const tc::bf16* __restrict__ sin_t, tc::bf16* __restrict__ out, int64_t chunks, int n,
+    int width) {
+  const int per_row = width / 8;
+  for (int64_t x = (int64_t)blockIdx.x * THREADS + threadIdx.x; x < chunks;
+       x += (int64_t)gridDim.x * THREADS) {
+    const int64_t row_g = x / per_row;
+    const int col = (int)(x % per_row) * 8;
+    const int64_t rot = (row_g % n) * D + col % D;
+    const int64_t at = row_g * width + col;
+    *reinterpret_cast<uint4*>(out + at) = tc::rotate8(
+        *reinterpret_cast<const uint4*>(qkv + at),
+        __ldg(reinterpret_cast<const uint4*>(cos_t + rot)),
+        __ldg(reinterpret_cast<const uint4*>(sin_t + rot)));
+  }
+}
+
+// delta (b, h, n) = rowsum over a head's D channels of do * o in float32,
+// 8 channels a thread (16-byte loads), D / 8 neighbouring lanes per
+// (batch row, position, head) reducing by shuffles
+template <int D>
+__global__ void __launch_bounds__(THREADS) delta_tc_kernel(
+    const tc::bf16* __restrict__ o, const tc::bf16* __restrict__ dout,
+    float* __restrict__ delta, int64_t chunks, int n, int heads) {
+  constexpr int CH = D / 8;
+  const int64_t x = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  float acc = 0.f;
+  if (x < chunks) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + 8 * x);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + 8 * x);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]), c = __bfloat1622float2(d2[i]);
+      acc = fmaf(a.x, c.x, fmaf(a.y, c.y, acc));
+    }
+  }
+#pragma unroll
+  for (int s = CH / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (x < chunks && x % CH == 0) {
+    const int64_t w = x / CH;  // (b * n + row) * heads + h
+    const int h = (int)(w % heads);
+    const int64_t bn = w / heads;
+    delta[(bn / n * heads + h) * n + bn % n] = acc;
+  }
+}
+
+constexpr int dkdv_tc_smem_bytes(int d, bool pattern) {
+  // K, V, two stages of Q and dO, two of lse and delta, two of the pattern
+  return 2 * 6 * tc::ROWS * (d + 8) + 2 * 2 * tc::ROWS * 4 +
+         (pattern ? 2 * tc::ROWS * tc::ROWS : 0);
+}
+
+constexpr int dq_tc_smem_bytes(int d, bool pattern) {
+  // Q, dO, two stages of K and V, two of key bits, two of the pattern
+  return 2 * 6 * tc::ROWS * (d + 8) + 2 * 2 * 4 + (pattern ? 2 * tc::ROWS * tc::ROWS : 0);
+}
+
+// The inverse rotation t*cos - rotate_half(t)*sin in float32 (as
+// store_inverse_rotated) of a warp's 16 x D accumulator rows (row0 + r,
+// C layout: a channel pair 2i, 2i+1 lies in one thread), rounded to bf16
+// into the warp's padded shared rows `tile`, then stored to global rows
+// row0 + r < n, `row_stride` elements apart.
+template <int D>
+__device__ __forceinline__ void store_inverse_rotated_tc(
+    const float (&acc)[D / 8][4], tc::bf16* __restrict__ tile, tc::bf16* __restrict__ dst,
+    int64_t row_stride, int row0, int n, const tc::bf16* __restrict__ cos_t,
+    const tc::bf16* __restrict__ sin_t) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i, row = row0 + r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int e = 8 * j + 2 * t;
+      float t0 = acc[j][2 * i], t1 = acc[j][2 * i + 1];
+      if (cos_t != nullptr && row < n) {
+        const float2 cs = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(cos_t + (int64_t)row * D + e));
+        const float2 sn = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sin_t + (int64_t)row * D + e));
+        // rotate_half(t) is (-t1, t0) on the pair
+        const float r0 = __fsub_rn(__fmul_rn(t0, cs.x), __fmul_rn(-t1, sn.x));
+        const float r1 = __fsub_rn(__fmul_rn(t1, cs.y), __fmul_rn(t0, sn.y));
+        t0 = r0;
+        t1 = r1;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(tile + r * tc::stride<D>() + e) =
+          __floats2bfloat162_rn(t0, t1);
+    }
+  }
+  __syncwarp();
+  tc::store_rows<D>(dst, row_stride, tile, row0, n);
+}
+
+// dk/dv: one block per (64-key tile, head, batch row); warp w owns keys
+// 16w .. 16w + 15. K and V stay in shared memory; the query tiles that
+// may attend them (from the diagonal down when causal without a pattern)
+// stream Q and dO through the ring. Key-major: S^T = K.Q^T and
+// dP^T = V.dO^T come out with a key per row, so P^T and dS^T feed
+// dV += P^T.dO and dK += dS^T.Q from registers.
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1) dkdv_tc_kernel(
+    const tc::bf16* __restrict__ qkv, const tc::bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ kmask, const int8_t* __restrict__ pmask,
+    const tc::bf16* __restrict__ cos_t, const tc::bf16* __restrict__ sin_t,
+    tc::bf16* __restrict__ dqkv, int n, int heads, int causal, float scale) {
+  using tc::bf16;
+  constexpr int TE = tc::tile_elems<D>(), KS = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // (64, DS)
+  bf16* vs = ks + TE;                            // (64, DS)
+  bf16* qs = vs + TE;                            // 2 stages of (64, DS)
+  bf16* dos = qs + 2 * TE;                       // 2 stages of (64, DS)
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * TE);  // 2 stages of 64
+  float* del_s = lse_s + 2 * tc::ROWS;                    // 2 stages of 64
+  int8_t* pms = reinterpret_cast<int8_t*>(del_s + 2 * tc::ROWS);  // 2 stages of (64, 64)
+  __shared__ uint32_t kbits[2];
+
+  const int kt = blockIdx.z, k0 = kt * tc::ROWS, h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t stride = 3LL * heads * D, hd = (int64_t)heads * D;
+  const bf16* base = qkv + (int64_t)b * n * stride;
+  const bf16* dobase = dout + (int64_t)b * n * hd + (int64_t)h * D;
+  const float* lse_bh = lse + ((int64_t)b * heads + h) * n;
+  const float* del_bh = delta + ((int64_t)b * heads + h) * n;
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // a tile of masked keys has p = 0 for every query: dk = dv = 0
+  if (kmask == nullptr || tc::tile_keys(kmask + (int64_t)b * n, k0, n, kbits)) {
+    const uint64_t bits = tc::key_bits(kmask != nullptr, kbits, k0, n);
+    const int key0 = 16 * warp + g;  // the thread's keys key0, key0 + 8 of the tile
+    const bool kok[2] = {((bits >> key0) & 1) != 0, ((bits >> (key0 + 8)) & 1) != 0};
+    const int n_qt = (n + tc::ROWS - 1) / tc::ROWS;
+    const bool tri = causal && pmask == nullptr;
+    int qt = tri ? kt : 0;
+    auto issue = [&](int q_t, int st) {
+      const int q0 = q_t * tc::ROWS;
+      tc::load_tile_async<D>(qs + st * TE, base + (int64_t)h * D, stride, q0, n);
+      tc::load_tile_async<D>(dos + st * TE, dobase, hd, q0, n);
+      if (pmask != nullptr) tc::load_mask_tile(pms + st * 4096, pmask, q0, k0, n);
+    };
+    // lse (times log2(e), for exp_diff) of query q0 + r by threads r < 64,
+    // delta by threads 64 + r: loaded a tile ahead, stored after the
+    // products so that the load's latency hides behind them
+    const int r = threadIdx.x % tc::ROWS;
+    auto row_stat = [&](int q_t) {
+      const int row = q_t * tc::ROWS + r;
+      if (row >= n) return 0.f;
+      return threadIdx.x < tc::ROWS ? lse_bh[row] * tc::LOG2E : del_bh[row];
+    };
+    float* stat_s = threadIdx.x < tc::ROWS ? lse_s : del_s;
+    tc::load_tile_async<D>(ks, base + (int64_t)(heads + h) * D, stride, k0, n);
+    tc::load_tile_async<D>(vs, base + (int64_t)(2 * heads + h) * D, stride, k0, n);
+    issue(qt, 0);
+    tc::cp_async_commit();
+    stat_s[r] = row_stat(qt);
+    for (int st = 0; qt < n_qt; ++qt, st ^= 1) {
+      const float next_stat = qt + 1 < n_qt ? row_stat(qt + 1) : 0.f;
+      if (qt + 1 < n_qt) issue(qt + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+      __syncthreads();
+      const int q0 = qt * tc::ROWS;
+      const bf16* q_s = qs + st * TE;
+      const bf16* do_s = dos + st * TE;
+
+      const bool need_mask = bits != ~0ull || pmask != nullptr || (causal && q0 == k0) ||
+                             q0 + tc::ROWS > n;
+      const int8_t* pm_t = pms + st * 4096;
+      // the tile's queries in two halves of 32 (fewer live accumulators)
+#pragma unroll
+      for (int hq = 0; hq < 2; ++hq) {
+        float sT[4][4], dpT[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t ka[4], va[4];
+          tc::load_a<D>(ka, ks, 16 * warp, 16 * kk);
+          tc::load_a<D>(va, vs, 16 * warp, 16 * kk);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t qb[4], db[4];
+            tc::load_b_rows<D>(qb, q_s, 32 * hq + 16 * np, 16 * kk);
+            tc::load_b_rows<D>(db, do_s, 32 * hq + 16 * np, 16 * kk);
+            tc::mma(sT[2 * np], ka, qb[0], qb[1]);
+            tc::mma(sT[2 * np + 1], ka, qb[2], qb[3]);
+            tc::mma(dpT[2 * np], va, db[0], db[1]);
+            tc::mma(dpT[2 * np + 1], va, db[2], db[3]);
+          }
+        }
+
+        // p^T into sT, ds^T into dpT
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 8 * (e >> 1), c = 32 * hq + 8 * j + 2 * t + (e & 1);
+            bool ok = true;
+            if (need_mask) {
+              ok = kok[e >> 1] && q0 + c < n;
+              if (pmask != nullptr) {
+                ok = ok && pm_t[c * tc::ROWS + key] != 0;
+              } else if (causal) {
+                ok = ok && q0 + c >= k0 + key;
+              }
+            }
+            const float sv = ok ? sT[j][e] * scale : NEG_INF;
+            const float p =
+                sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_s[st * tc::ROWS + c]) : 0.f;
+            sT[j][e] = p;
+            dpT[j][e] = p * (dpT[j][e] - del_s[st * tc::ROWS + c]) * scale;
+          }
+
+        // dV += P^T.dO and dK += dS^T.Q over the half's 32 queries
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t pa[4], da[4];
+          tc::c_to_a(pa, sT[2 * kk], sT[2 * kk + 1]);
+          tc::c_to_a(da, dpT[2 * kk], dpT[2 * kk + 1]);
+#pragma unroll
+          for (int dp = 0; dp < D / 16; ++dp) {
+            uint32_t db[4], qb[4];
+            tc::load_b_cols<D>(db, do_s, 32 * hq + 16 * kk, 16 * dp);
+            tc::load_b_cols<D>(qb, q_s, 32 * hq + 16 * kk, 16 * dp);
+            tc::mma(dv[2 * dp], pa, db[0], db[1]);
+            tc::mma(dv[2 * dp + 1], pa, db[2], db[3]);
+            tc::mma(dk[2 * dp], da, qb[0], qb[1]);
+            tc::mma(dk[2 * dp + 1], da, qb[2], qb[3]);
+          }
+        }
+      }
+      stat_s[(st ^ 1) * tc::ROWS + r] = next_stat;
+      __syncthreads();  // stage st is no longer read
+    }
+  }
+
+  // each warp's own rows of the K and V tiles hold its dk and dv
+  bf16* out = dqkv + (int64_t)b * n * stride;
+  store_inverse_rotated_tc<D>(dk, ks + 16 * warp * tc::stride<D>(),
+                              out + (int64_t)(heads + h) * D, stride, k0 + 16 * warp, n,
+                              cos_t, sin_t);
+  store_inverse_rotated_tc<D>(dv, vs + 16 * warp * tc::stride<D>(),
+                              out + (int64_t)(2 * heads + h) * D, stride, k0 + 16 * warp, n,
+                              cos_t, sin_t);
+}
+
+// dq: one block per (64-row query tile, head, batch row); warp w owns
+// query rows 16w .. 16w + 15. Q and dO stay in shared memory; the key
+// tiles up to the diagonal (when causal without a pattern) stream K and V
+// through the ring, tiles of masked keys skipped. S = Q.K^T and
+// dP = dO.V^T, ds rounded to bf16 into A fragments, dQ += dS.K.
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 4 : 1) dq_tc_kernel(
+    const tc::bf16* __restrict__ qkv, const tc::bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const uint8_t* __restrict__ kmask, const int8_t* __restrict__ pmask,
+    const tc::bf16* __restrict__ cos_t, const tc::bf16* __restrict__ sin_t,
+    tc::bf16* __restrict__ dqkv, int n, int heads, int causal, float scale) {
+  using tc::bf16;
+  constexpr int TE = tc::tile_elems<D>(), KS = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (64, DS)
+  bf16* dos = qs + TE;                           // (64, DS)
+  bf16* ks = dos + TE;                           // 2 stages of (64, DS)
+  bf16* vs = ks + 2 * TE;                        // 2 stages of (64, DS)
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(vs + 2 * TE);  // 2 stages of 2 words
+  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 64)
+
+  const bool tri = causal && pmask == nullptr;
+  const int qt = tri ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * tc::ROWS, h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t stride = 3LL * heads * D, hd = (int64_t)heads * D;
+  const bf16* base = qkv + (int64_t)b * n * stride;
+  const bf16* ksrc = base + (int64_t)(heads + h) * D;
+  const bf16* vsrc = base + (int64_t)(2 * heads + h) * D;
+  const uint8_t* kmask_b = kmask == nullptr ? nullptr : kmask + (int64_t)b * n;
+
+  // lse (times log2(e), for exp_diff) and delta of the thread's rows r0
+  // and r0 + 8
+  const int r0 = q0 + 16 * warp + g;
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    lse_r[i] = row < n ? lse[((int64_t)b * heads + h) * n + row] * tc::LOG2E : 0.f;
+    del_r[i] = row < n ? delta[((int64_t)b * heads + h) * n + row] : 0.f;
+  }
+
+  int n_tiles = (n + tc::ROWS - 1) / tc::ROWS;
+  if (tri) n_tiles = min(n_tiles, qt + 1);
+  auto next_live = [&](int kt, int st) {
+    if (kmask_b != nullptr)
+      while (kt < n_tiles && !tc::tile_keys(kmask_b, kt * tc::ROWS, n, kbits + 2 * st)) ++kt;
+    return kt;
+  };
+  auto issue = [&](int kt, int st) {
+    tc::load_tile_async<D>(ks + st * TE, ksrc, stride, kt * tc::ROWS, n);
+    tc::load_tile_async<D>(vs + st * TE, vsrc, stride, kt * tc::ROWS, n);
+    if (pmask != nullptr) tc::load_mask_tile(pms + st * 4096, pmask, q0, kt * tc::ROWS, n);
+  };
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  int kt = next_live(0, 0), st = 0;
+  if (kt < n_tiles) {
+    tc::load_tile_async<D>(qs, base + (int64_t)h * D, stride, q0, n);
+    tc::load_tile_async<D>(dos, dout + (int64_t)b * n * hd + (int64_t)h * D, hd, q0, n);
+    issue(kt, 0);
+  }
+  tc::cp_async_commit();
+  while (kt < n_tiles) {
+    const int nxt = next_live(kt + 1, st ^ 1);
+    if (nxt < n_tiles) issue(nxt, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = kt * tc::ROWS;
+    const bf16* k_s = ks + st * TE;
+    const bf16* v_s = vs + st * TE;
+
+    const uint64_t bits = tc::key_bits(kmask_b != nullptr, kbits + 2 * st, k0, n);
+    const bool need_mask = bits != ~0ull || pmask != nullptr || (causal && k0 == q0);
+    const int8_t* pm_t = pms + st * 4096;
+    // the tile's keys in two halves of 32 (fewer live accumulators)
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk) {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4], da[4];
+        tc::load_a<D>(qa, qs, 16 * warp, 16 * kk);
+        tc::load_a<D>(da, dos, 16 * warp, 16 * kk);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t kb[4], vb[4];
+          tc::load_b_rows<D>(kb, k_s, 32 * hk + 16 * np, 16 * kk);
+          tc::load_b_rows<D>(vb, v_s, 32 * hk + 16 * np, 16 * kk);
+          tc::mma(s[2 * np], qa, kb[0], kb[1]);
+          tc::mma(s[2 * np + 1], qa, kb[2], kb[3]);
+          tc::mma(dp[2 * np], da, vb[0], vb[1]);
+          tc::mma(dp[2 * np + 1], da, vb[2], vb[3]);
+        }
+      }
+
+      // ds into s
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, row = r0 + 8 * i, c = 32 * hk + 8 * j + 2 * t + (e & 1);
+          bool ok = true;
+          if (need_mask) {
+            ok = ((bits >> c) & 1) && row < n;
+            if (pmask != nullptr) {
+              ok = ok && pm_t[(row - q0) * tc::ROWS + c] != 0;
+            } else if (causal) {
+              ok = ok && row >= k0 + c;
+            }
+          }
+          const float sv = ok ? s[j][e] * scale : NEG_INF;
+          const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_r[i]) : 0.f;
+          s[j][e] = p * (dp[j][e] - del_r[i]) * scale;
+        }
+
+      // dQ += dS.K over the half's 32 keys
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t da[4];
+        tc::c_to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          uint32_t kb[4];
+          tc::load_b_cols<D>(kb, k_s, 32 * hk + 16 * kk, 16 * dp2);
+          tc::mma(dq[2 * dp2], da, kb[0], kb[1]);
+          tc::mma(dq[2 * dp2 + 1], da, kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage st is no longer read
+    kt = nxt;
+    st ^= 1;
+  }
+
+  store_inverse_rotated_tc<D>(dq, qs + 16 * warp * tc::stride<D>(),
+                              dqkv + (int64_t)b * n * stride + (int64_t)h * D, stride,
+                              q0 + 16 * warp, n, cos_t, sin_t);
+}
+
+template <int D>
+int launch_tc(const void* qkv, const void* o, const void* lse, const void* dout,
+              const void* kmask, const void* pmask, const void* cos_t, const void* sin_t,
+              void* rot_scratch, void* delta, void* dqkv, int batch, int n, int heads,
+              int causal, float scale, cudaStream_t stream) {
+  typedef __nv_bfloat16 T;
+  const int n_t = (n + tc::ROWS - 1) / tc::ROWS;
+  if (n_t > 65535 || !tc::aligned16({qkv, o, dout, cos_t, sin_t, rot_scratch, dqkv})) return -1;
+  const bool pattern = pmask != nullptr;
+  const int smem_kv = dkdv_tc_smem_bytes(D, pattern), smem_q = dq_tc_smem_bytes(D, pattern);
+  cudaError_t err = cudaFuncSetAttribute(dkdv_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_q);
+  if (err != cudaSuccess) return (int)err;
+
+  const int width = 3 * heads * D;
+  const T* src = (const T*)qkv;
+  if (cos_t != nullptr) {
+    const int64_t chunks = (int64_t)batch * n * width / 8;
+    const int64_t blocks = (chunks + THREADS - 1) / THREADS;
+    rotate_tc_kernel<D><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0, stream>>>(
+        (const T*)qkv, (const T*)cos_t, (const T*)sin_t, (T*)rot_scratch, chunks, n, width);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = (const T*)rot_scratch;
+  }
+  const int64_t chunks = (int64_t)batch * n * heads * D / 8;
+  delta_tc_kernel<D><<<(unsigned)((chunks + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      (const T*)o, (const T*)dout, (float*)delta, chunks, n, heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const dim3 grid(heads, batch, n_t);
+  dkdv_tc_kernel<D><<<grid, tc::THREADS, smem_kv, stream>>>(
+      src, (const T*)dout, (const float*)lse, (const float*)delta, (const uint8_t*)kmask,
+      (const int8_t*)pmask, (const T*)cos_t, (const T*)sin_t, (T*)dqkv, n, heads, causal,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dq_tc_kernel<D><<<grid, tc::THREADS, smem_q, stream>>>(
+      src, (const T*)dout, (const float*)lse, (const float*)delta, (const uint8_t*)kmask,
+      (const int8_t*)pmask, (const T*)cos_t, (const T*)sin_t, (T*)dqkv, n, heads, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const void* qkv, const void* o, const void* lse, const void* dout,
            const void* kmask, const void* pmask, const void* cos_t,
@@ -507,7 +989,13 @@ extern "C" int fused_qkv_attention_bwd(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d<float>(dim_head, qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(dim_head, qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
+  if (dtype == 1) {
+    switch (dim_head) {
+      case 32: return launch_tc<32>(qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
+      case 64: return launch_tc<64>(qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
+      case 128: return launch_tc<128>(qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
+      default: return -1;
+    }
+  }
   return -1;
 }

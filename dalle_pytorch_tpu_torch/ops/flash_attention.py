@@ -244,7 +244,8 @@ def fused_qkv_attention(qkv, heads: int, dim_head: int, key_mask=None,
     (b, h, 1, n) float32; arguments as ``reference_fused_qkv``. CPU
     tensors run ``reference_fused_qkv``; CUDA tensors launch the kernel,
     which takes contiguous float32 or bfloat16 qkv, dim_head 32/64/128
-    and any n."""
+    and any n (bfloat16 runs on the tensor cores and needs qkv and the
+    rotary tables 16-byte aligned)."""
     if not qkv.is_cuda:
         return reference_fused_qkv(qkv, heads, dim_head, key_mask, causal,
                                    pattern_mask, rot, sm_scale)

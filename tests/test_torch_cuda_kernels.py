@@ -13,6 +13,7 @@ import torch
 from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
 from dalle_pytorch_tpu_torch.ops import decode_attention as da
 from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+from dalle_pytorch_tpu_torch.ops import masks
 from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
 from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 from dalle_pytorch_tpu_torch.testing import (
@@ -275,6 +276,100 @@ def test_fused_qkv_bwd_kernel_rejects_what_it_cannot_take(cuda):
         fa.fused_qkv_attention_bwd(qkv, o, lse.double(), o, 2, 64)
     with pytest.raises(TypeError):
         fa.fused_qkv_attention_bwd(qkv.half(), o.half(), lse, o.half(), 2, 64)
+
+
+PACKED_BF16_MODES = ["causal_rotary", "key_mask", "pattern_row", "pattern_col"]
+
+
+def _packed_bf16_inputs(n, d, mode, device, seed=0):
+    """(qkv, do, heads, options) at n and dim_head d, 2 batch rows of 2
+    heads, bfloat16: causal with the DALL-E rotary table; non-causal with
+    a key mask whose second row masks every key and whose first row
+    masks the whole key tile 64-127 (where n reaches it); or causal with
+    the rotary table and the axial-row / axial-column pattern mask."""
+    b, h = 2, 2
+    rng = np.random.RandomState(seed)
+    text_len, fmap = (257, 32) if n == 1280 else (n - 15, 4)
+    opts = dict(causal=mode != "key_mask")
+    if mode == "key_mask":
+        km = torch.from_numpy(rng.rand(b, n) > 0.3)
+        km[1] = False
+        km[0, 64:128] = False
+        opts["key_mask"] = km.to(device)
+    else:
+        table = torch.from_numpy(dalle_rotary_table(d, max(text_len, 2), fmap)).to(device)
+        opts["rot"] = rot_tables(table, n, d, torch.bfloat16)
+    if mode.startswith("pattern"):
+        pattern = masks.axial_mask(max(text_len, 2), fmap, int(mode == "pattern_col"))[:n, :n]
+        opts["pattern_mask"] = torch.from_numpy(pattern).to(device)
+    qkv = torch.from_numpy(rng.randn(b, n, 3 * h * d).astype(np.float32)).to(device,
+                                                                             torch.bfloat16)
+    do = torch.from_numpy(rng.randn(b, n, h * d).astype(np.float32)).to(device, torch.bfloat16)
+    return qkv, do, h, opts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", PACKED_BF16_MODES)
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+@pytest.mark.parametrize("n", [17, 64, 200, 1280])
+def test_fused_qkv_bf16_tensor_core_kernels_match_plain(cuda, n, dim_head, mode):
+    """The bf16 instances (tensor-core tiles) of the packed forward and
+    backward against their plain versions on the same inputs, at n 17
+    (one ragged tile), 64, 200 (a ragged last tile) and 1280: each query
+    row's o error norm over h*d within 1% of the plain row's and lse
+    within 1e-2; dqkv by the floored row metric within
+    ``BWD_BF16_ROW_REL``; rows the masks leave without a key exactly 0
+    (o, dq) with lse -1e30, keys no query attends exactly 0 (dk, dv), the
+    fully masked batch row's gradient exactly 0; one launch each."""
+    qkv, do, h, opts = _packed_bf16_inputs(n, dim_head, mode, cuda)
+    plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, dim_head, **opts)
+    before = (fa.fused_qkv_attention.launches, fa.fused_qkv_attention_bwd.launches)
+    o, lse = fa.fused_qkv_attention(qkv, h, dim_head, **opts)
+    got = fa.fused_qkv_attention_bwd(qkv, plain_o, plain_lse, do, h, dim_head, **opts)
+    plain = fa.reference_fused_qkv_bwd(qkv, plain_o, plain_lse, do, h, dim_head, **opts)
+    torch.cuda.synchronize()
+    assert (fa.fused_qkv_attention.launches, fa.fused_qkv_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all() and torch.isfinite(got).all()
+    allowed = fa.may_attend(n, cuda, opts.get("key_mask"), opts["causal"],
+                            opts.get("pattern_mask"))[:, 0].expand(2, n, n)
+    live = allowed.any(dim=2)
+    assert (o[~live] == 0).all() and (lse[:, :, 0].transpose(1, 2)[~live] == fa.NEG_INF).all()
+    o4, p4 = (t.float().reshape(2, n, h, dim_head) for t in (o, plain_o))
+    assert _column_rel_err(o4[live][:, None], p4[live][:, None]) <= 1e-2
+    lse_diff = (lse - plain_lse)[:, :, 0].transpose(1, 2)[live]
+    assert lse_diff.abs().max().item() <= 1e-2
+    _, row_rel, zeros_exact = bwd_errors(got, plain, h, dim_head, opts)
+    assert zeros_exact and row_rel <= BWD_BF16_ROW_REL, row_rel
+    if mode == "key_mask":
+        assert (got[1] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["train", "clip", "pattern"])
+def test_fused_qkv_bwd_bf16_kernel_is_deterministic(cuda, case):
+    """No float atomics in the bf16 instance either: two runs give
+    bit-identical gradients."""
+    qkv, o, lse, do, h, d, opts = bwd_inputs(case, torch.bfloat16, cuda)
+    first = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+    second = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_fused_qkv_function_bf16_gradients_on_card(cuda):
+    """FusedQKVAttention in bf16 on the card (both tensor-core kernels)
+    against torch autograd of the plain forward on the same inputs: dqkv
+    by the floored row metric within ``BWD_BF16_ROW_REL``, masked rows
+    exactly 0."""
+    qkv, _, _, do, h, d, opts = bwd_inputs("d64", torch.bfloat16, cuda)
+    x = qkv.clone().requires_grad_()
+    o, _ = fa.FusedQKVAttention.apply(x, None, h, d, True, None, opts["rot"], None)
+    (got,) = torch.autograd.grad(o, x, do)
+    y = qkv.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(fa.reference_fused_qkv(y, h, d, **opts)[0], y, do)
+    _, row_rel, zeros_exact = bwd_errors(got, ref, h, d, opts)
+    assert zeros_exact and row_rel <= BWD_BF16_ROW_REL, row_rel
 
 
 BS_CASES = ["axial_row", "conv_like", "d32", "d64", "d128", "synthetic"]
