@@ -18,11 +18,11 @@ line):
    (unquantized pages; int8 pages with their scale pages, at dim_head
    32/64/128) at the serving shape (8 rows of 16 columns, 11 pages of
    128), identity and permuted tables, timed in bf16 side by side; the
-   unquantized instance also at generation's paged prompt block (4 rows
-   of 257 columns, five query tiles, short, late and idle rows). The
-   packed-qkv kernel is held at CLIP's text shape (the rerank stage's),
-   at DALL-E's causal rotary shape, with and without a pattern mask, and
-   at the training shape (batch 4), and timed in bf16 (its tensor-core
+   unquantized instance also held and timed at generation's paged prompt
+   block (4 rows of 257 columns, five query tiles, short, late and idle
+   rows). The packed-qkv kernel is held at CLIP's text shape (the rerank
+   stage's), at DALL-E's causal rotary shape, with and without a pattern
+   mask, and at the training shape (batch 4), and timed in bf16 (its tensor-core
    instance) at CLIP's and DALL-E's shapes and in float32 at the
    training shape. The fused decode kernel is held at
    the flagship's decode shapes (b 1 and 8, 16 heads of 64, L 1281,
@@ -137,7 +137,8 @@ limit; the line before it the kernels' JSON; the last line
 ``{"ok": true, "device": {...}}``.
 
 Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
-spills) for the packed-qkv kernels' bf16 tensor-core instances.
+spills) for the packed-qkv kernels' bf16 tensor-core instances and for
+every instance of the ragged kernel.
 
 Paired comparisons, one card, none of the phases above:
 
@@ -146,8 +147,10 @@ Paired comparisons, one card, none of the phases above:
     python3 chip_smoke.py --generate-pairs 3
 
 the first times this checkout's ragged kernel against the same file of
-another commit, alternating in one process, with the cold timer's spin
-and without it; the second builds another commit's packed-qkv forward
+another commit (or of each of several, the flag repeated), alternating
+in one process, with the cold timer's spin and without it (both bf16
+instances at the serving shape, the unquantized one at generate (d)'s
+prompt block); the second builds another commit's packed-qkv forward
 and backward under other library names, checks that their float32
 outputs equal this checkout's bitwise, and times both trees alternating
 (bf16 forward at DALL-E's b 2 and CLIP's shape, bf16 backward and both
@@ -339,17 +342,19 @@ def hold_ragged(label: str, int8: bool, dims=(64,), case: str = "serve") -> dict
             "max_abs_err_f32": errs[torch.float32]}
 
 
-def time_ragged(int8: bool) -> dict:
-    """Times (cold L2) of one instance at the serving shape in bf16, the
-    serving path's type: the kernel, its plain version, and one library
-    call (``scaled_dot_product_attention`` over the already gathered and,
-    for int8, dequantized view, same mask) as a yardstick; the bound."""
+def time_ragged(int8: bool, case: str = "serve") -> dict:
+    """Times (cold L2) of one instance on ``testing.ragged_inputs(case)``
+    ("serve": the serving iteration; "prompt": generate (d)'s 257-column
+    prompt block) in bf16, the main paths' type: the kernel, its plain
+    version, and one library call (``scaled_dot_product_attention`` over
+    the already gathered and, for int8, dequantized view, same mask) as a
+    yardstick; the bound."""
     from dalle_pytorch_tpu_torch.ops import paged_kv
     from dalle_pytorch_tpu_torch.ops import ragged_attention as ra
     from dalle_pytorch_tpu_torch.testing import ragged_inputs
 
     q, k, v, ks, vs, table, start, length = ragged_inputs(
-        "serve", torch.bfloat16, "cuda", int8=int8, permuted=False)
+        case, torch.bfloat16, "cuda", int8=int8, permuted=False)
     kernel_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length, ks, vs))
     warm_ms = cuda_time_ms(lambda: ra.kernel_attend(q, k, v, table, start, length, ks, vs),
                            cold=False)
@@ -375,7 +380,8 @@ def check_ragged_attention() -> list:
     tiles), and int8 pages (with their scale pages, through the same permuted
     table) at dim_head 32, 64 and 128, each held against its plain
     version; then both timed in bf16 at the serving shape in one pass,
-    unquantized, int8, int8, unquantized."""
+    unquantized, int8, int8, unquantized, and the unquantized instance
+    twice at the prompt block (its row's "prompt" entry)."""
     serve = hold_ragged("ragged_attention", int8=False)
     prompt = hold_ragged("ragged_attention prompt block", int8=False, case="prompt")
     rows = {
@@ -390,15 +396,22 @@ def check_ragged_attention() -> list:
     for name in ("ragged_attention", "ragged_attention_int8", "ragged_attention_int8",
                  "ragged_attention"):
         runs[name].append(time_ragged(int8=name.endswith("int8")))
-    for name, row in rows.items():
-        t = {key: float(np.mean([r[key] for r in runs[name]])) for key in
+    runs["prompt"] = [time_ragged(int8=False, case="prompt") for _ in range(2)]
+
+    def mean_of(run: str, name: str, shape: str) -> dict:
+        t = {key: float(np.mean([r[key] for r in runs[run]])) for key in
              ("ms", "warm_ms", "plain_ms", "library_ms", "bound_ms")}
-        t["bound_by"] = runs[name][0]["bound_by"]
-        log(f"{name} bf16 timing, cold L2 (mean of 2 passes: " + ", ".join(
-            f"{r['ms']:.4f}" for r in runs[name]) + f"): kernel {t['ms']:.4f} ms, plain "
+        t["bound_by"] = runs[run][0]["bound_by"]
+        log(f"{name} bf16 timing, {shape}, cold L2 (mean of 2 passes: " + ", ".join(
+            f"{r['ms']:.4f}" for r in runs[run]) + f"): kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
             f"ms ({t['bound_by']}); kernel back to back (warm L2) {t['warm_ms']:.4f} ms")
-        row.update(route="cuda", source="dalle_pytorch_tpu_torch/csrc/ragged_attention.cu", **t)
+        return t
+
+    for name, row in rows.items():
+        row.update(route="cuda", source="dalle_pytorch_tpu_torch/csrc/ragged_attention.cu",
+                   **mean_of(name, name, "serving shape"))
+    rows["ragged_attention"]["prompt"] = mean_of("prompt", "ragged_attention", "prompt block")
     return list(rows.values())
 
 
@@ -1353,17 +1366,17 @@ def start_ptxas_report(names) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in names}
 
 
-def log_ptxas_report(procs: dict, marker: str) -> None:
+def log_ptxas_report(procs: dict, markers) -> None:
     """Registers, shared memory and spills that ptxas reports for each
-    entry function whose mangled name holds ``marker``; raises if a
-    compile failed."""
+    entry function whose mangled name holds one of ``markers``; raises if
+    a compile failed."""
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{out}")
         lines = out.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and marker in line:
+            if "Compiling entry function" in line and any(m in line for m in markers):
                 fn = line.split("'")[1]
                 about = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                          if "spill" in x or "registers" in x]
@@ -1651,19 +1664,23 @@ def serve_sparse_int8() -> dict:
 
 
 def log_device_profile(averages, label: str, what: str, unit: str, count: int,
-                       wall_ms: float, top: int) -> None:
+                       wall_ms: float, top: int, watch=()) -> None:
     """Print a profiled window of ``count`` ``unit``s from its
     ``key_averages()``: wall and device-busy ms per ``unit``, device
-    launches per ``unit``, and the ``top`` kernels by device time."""
+    launches per ``unit``, and the ``top`` kernels by device time, then
+    any other kernel whose name holds a string of ``watch``, with its
+    rank."""
     device = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / count
     launches = sum(e.count for e in device) / count
     log(f"{label}: {count} {what}, {wall_ms:.3f} ms/{unit} wall, device busy {busy_ms:.3f} "
         f"ms/{unit} ({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device "
         f"launches/{unit}")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"{label}:   {e.self_device_time_total / 1e3 / count:.4f} ms/{unit} "
-            f"x{e.count // count} {e.key[:90]}")
+    ranked = sorted(device, key=lambda e: -e.self_device_time_total)
+    for rank, e in enumerate(ranked, 1):
+        if rank <= top or any(w in e.key for w in watch):
+            log(f"{label}:   {e.self_device_time_total / 1e3 / count:.4f} ms/{unit} "
+                f"x{e.count // count} (#{rank}) {e.key[:90]}")
 
 
 def profile_iterations(model, warmup: int = 10, window: int = 15, kv_quant=None) -> None:
@@ -1671,8 +1688,8 @@ def profile_iterations(model, warmup: int = 10, window: int = 15, kv_quant=None)
     of a fresh mixed prefill/decode batch (8 requests at once, so one row
     decodes while the others prefill chunk by chunk), with ``kv_quant``
     pages. Prints wall time and device-busy time per iteration, launches
-    per iteration, and the largest device-time kernels. Runs after the
-    counted main path."""
+    per iteration, the largest device-time kernels and the ragged
+    kernel's. Runs after the counted main path."""
     from torch.profiler import ProfilerActivity, profile
 
     from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
@@ -1696,7 +1713,8 @@ def profile_iterations(model, warmup: int = 10, window: int = 15, kv_quant=None)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / window
     averages = prof.key_averages()  # the slow part of a profile: aggregate once
-    log_device_profile(averages, label, "mixed iterations", "iteration", window, wall_ms, 6)
+    log_device_profile(averages, label, "mixed iterations", "iteration", window, wall_ms, 6,
+                       watch=("ragged",))
     host = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU]
     log(f"{label}: host time by operator (self, ms/iteration, calls/iteration): " + "; ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3 / window:.3f} x{e.count // window}"
@@ -2057,10 +2075,10 @@ def main() -> int:
         f"TF32 cuDNN {torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report(PACKED)
+    ptxas = start_ptxas_report(PACKED + ("ragged_attention",))
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
-    log_ptxas_report(ptxas, "_tc_kernel")
+    log_ptxas_report(ptxas, ("_tc_kernel", "ragged_f32_kernel"))
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
                *check_block_sparse(), *check_flash_attention(), check_decode_attention()]
@@ -2124,20 +2142,28 @@ def main() -> int:
 # ------------------------------------------------- paired comparisons
 
 
+RAGGED_COMPARE_CASES = (("serve", False), ("serve", True), ("prompt", False))
+
+
 def compare_ragged_sources(other: str, rounds: int = 2) -> None:
     """The ragged kernel of this checkout against the one built from
-    ``other`` (the same file of another commit), both bf16 instances timed
-    by ``time_ragged`` at the serving shape in one process, in the order
-    other, this, this, other, ``rounds`` times, with the cold timer as it
-    is (``HOST_COVER_CYCLES``) and without its spin (0: the begin event
-    may then run while the host still issues the launch)."""
+    ``other`` (the same file of another commit; this checkout's csrc on
+    the include path after the file's own directory, for its headers),
+    in one process: both bf16 instances at the serving shape and the
+    unquantized one at generate (d)'s prompt block, timed by
+    ``time_ragged`` in the order other, this, this, other, ``rounds``
+    times, with the cold timer as it is (``HOST_COVER_CYCLES``) and
+    without its spin (0: the begin event may then run while the host
+    still issues the launch); and whether this checkout's is faster in
+    every adjacent pair."""
     global HOST_COVER_CYCLES
     from dalle_pytorch_tpu_torch.ops import cuda_build
 
-    lib_path = cuda_build.BUILD_DIR / "compare" / "libragged_attention-other.so"
+    lib_path = cuda_build.BUILD_DIR / "compare" / f"libragged_attention-{Path(other).stem}.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.Popen([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path),
-                             other], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+                             "-o", str(lib_path), other],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     this = cuda_build.load_library("ragged_attention")
     out, _ = proc.communicate()
     if proc.returncode != 0:
@@ -2149,19 +2175,22 @@ def compare_ragged_sources(other: str, rounds: int = 2) -> None:
     cover = HOST_COVER_CYCLES
     for cycles in (cover, 0):
         HOST_COVER_CYCLES = cycles
-        ms = {(src, int8): [] for src in libs for int8 in (False, True)}
+        ms = {(src, key): [] for src in libs for key in RAGGED_COMPARE_CASES}
         for _ in range(rounds):
             for src in ("other", "this", "this", "other"):
                 # the wrappers load their library through this cache
                 cuda_build._LOADED["ragged_attention"] = libs[src]
-                for int8 in (False, True):
-                    ms[src, int8].append(time_ragged(int8)["ms"])
-        for int8 in (False, True):
-            name = "ragged_attention" + ("_int8" if int8 else "")
-            log(f"compare {name} bf16, serving shape, cold L2, spin {cycles} cycles: "
-                + "; ".join(f"{src} " + ", ".join(f"{t:.4f}" for t in ms[src, int8])
-                            + f" (mean {np.mean(ms[src, int8]):.4f} ms)" for src in libs)
-                + f"; this / other {np.mean(ms['this', int8]) / np.mean(ms['other', int8]):.4f}")
+                for case, int8 in RAGGED_COMPARE_CASES:
+                    ms[src, (case, int8)].append(time_ragged(int8, case)["ms"])
+        for key in RAGGED_COMPARE_CASES:
+            case, int8 = key
+            mine, theirs = ms["this", key], ms["other", key]
+            faster = all(t < o for t, o in zip(mine, theirs))
+            log(f"compare ragged_attention{'_int8' if int8 else ''} bf16, {case} shape, cold L2, "
+                f"spin {cycles} cycles: other ({other}) " + ", ".join(f"{t:.4f}" for t in theirs)
+                + f" (mean {np.mean(theirs):.4f} ms); this " + ", ".join(
+                    f"{t:.4f}" for t in mine) + f" (mean {np.mean(mine):.4f} ms); this / other "
+                f"{np.mean(mine) / np.mean(theirs):.4f}; this faster in every pair {faster}")
     HOST_COVER_CYCLES = cover
     cuda_build._LOADED["ragged_attention"] = this
 
@@ -2303,7 +2332,9 @@ def compare(argv) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
-    parser.add_argument("--ragged-source", help="ragged_attention.cu of another commit")
+    parser.add_argument("--ragged-source", action="append", default=[],
+                        help="ragged_attention.cu of another commit or a variant (repeatable: "
+                             "each is compared with this checkout's in turn)")
     parser.add_argument("--packed-source",
                         help="csrc directory of another commit (its fused_qkv_attention*.cu)")
     parser.add_argument("--generate-pairs", type=int, default=0)
@@ -2313,8 +2344,8 @@ def compare(argv) -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if args.ragged_source:
-        compare_ragged_sources(args.ragged_source)
+    for other in args.ragged_source:
+        compare_ragged_sources(other)
     if args.packed_source:
         compare_packed_sources(args.packed_source)
     if args.generate_pairs:

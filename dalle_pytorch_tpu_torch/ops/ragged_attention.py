@@ -12,18 +12,20 @@ p <= start + i.
   ``paged_kv.dequant`` for int8 pools) and ``attention.cache_block_attend``
   runs the masked block attention.
 - ``kernel_attend`` is the wrapper of the hand-written CUDA kernel
-  (``csrc/ragged_attention.cu``), which walks each row's pages only up to
-  its frontier with an online softmax. Int8 pools (given with their scale
-  pools) go to ``kernel_attend_int8``, the kernel's int8 instance, which
-  dequantizes each page as it stages it. The tensor's device decides: a
-  CUDA tensor launches the kernel or raises, a CPU tensor runs the plain
-  version. ``kernel_attend.launches`` and ``kernel_attend_int8.launches``
-  count kernel launches.
+  (``csrc/ragged_attention.cu``), which reads each row's keys only up to
+  its frontier, split over the blocks of a thread-block cluster (bf16 on
+  the tensor cores, float32 on CUDA-core FMAs) and merged in a fixed
+  order, so a column's output does not depend on the other rows. Int8
+  pools (given with their scale pools) go to ``kernel_attend_int8``, the
+  kernel's int8 instance, which dequantizes each key tile as it stages
+  it. The tensor's device decides: a CUDA tensor launches the kernel or
+  raises, a CPU tensor runs the plain version. ``kernel_attend.launches``
+  and ``kernel_attend_int8.launches`` count kernel launches.
 
 The kernel agrees with the plain version on VALID columns (allclose: the
-online softmax reassociates the sum); invalid columns and idle rows are
-garbage that every caller discards (the kernel writes zeros past a row's
-first max(length, 1) columns).
+online softmax and the split reassociate the sum); invalid columns and
+idle rows are garbage that every caller discards (the kernel writes
+zeros past a row's first max(length, 1) columns).
 """
 
 from __future__ import annotations
@@ -116,8 +118,9 @@ def _run(entry: str, q, pools, table, start, length):
     if err == -1:
         raise ValueError(
             f"the ragged kernel cannot take width {n}, dim_head {d}, page "
-            f"{page}: it has instances for dim_head 32/64/128 and a page "
-            "whose tiles fit the card's shared memory per block (see "
+            f"{page}, {n_pages} pages a row: it has instances for dim_head "
+            "32/64/128, bf16 tensors 16-byte aligned, and tiles (float32: "
+            "pages) that fit the card's shared memory per block (see "
             "csrc/ragged_attention.cu)"
         )
     if err != 0:

@@ -336,7 +336,15 @@ def ragged_inputs(case: str, dtype, device, int8: bool = False, dim_head: int = 
     ``dim_head``, 4 pages), "prefill" (3 rows of 257, 4 heads, 3
     pages) or "prompt" (4 rows of 257, 16 heads, 11 pages)."""
     b, n, h, d, page, n_p, start, length = _RAGGED_CASES[case]
-    d = d or dim_head
+    return ragged_block(b, n, h, d or dim_head, page, n_p, start, length, dtype, device,
+                        int8=int8, permuted=permuted, seed=seed)
+
+
+def ragged_block(b: int, n: int, h: int, d: int, page: int, n_p: int, start, length, dtype,
+                 device, int8: bool = False, permuted: bool = True, seed: int = 0):
+    """``ragged_inputs`` of any shape: ``b`` rows of ``n`` columns, ``h``
+    heads of ``d``, ``n_p`` pages of ``page`` positions a row, the
+    descriptors ``start`` and ``length`` (sequences of ``b`` ints)."""
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(b, n, h, d).astype(np.float32) * 0.3).to(device, dtype)
     perm = rng.permutation(b * n_p) if permuted else np.arange(b * n_p)

@@ -34,6 +34,7 @@ from dalle_pytorch_tpu_torch.testing import (
     flash_bwd_errors,
     flash_fwd_errors,
     flash_inputs,
+    ragged_block,
     ragged_errors,
     ragged_inputs,
     ragged_ok,
@@ -137,6 +138,94 @@ def test_ragged_int8_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):  # dim_head 48: no instance
         ra.kernel_attend(q, k, v, table, start, length, ks, vs)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+@pytest.mark.parametrize("case", ["prefill", "prompt"])
+def test_ragged_int8_kernel_wide_block_matches_plain(cuda, dtype, dim_head, case):
+    """The int8 instance on the 257-column blocks of
+    ``test_ragged_kernel_wide_block_matches_plain`` (five query tiles),
+    pools and scales through a permuted table: valid columns agree with
+    ``reference_attend`` at the ragged tolerances, one int8 launch."""
+    q, k, v, ks, vs, table, start, length = ragged_inputs(case, dtype, cuda, int8=True,
+                                                          dim_head=dim_head)
+    plain = ra.reference_attend(q, k, v, table, start, ks, vs)
+    before = ra.kernel_attend_int8.launches
+    got = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
+    torch.cuda.synchronize()
+    assert ra.kernel_attend_int8.launches == before + 1
+    assert torch.isfinite(got).all()
+    err, rel = ragged_errors(got, plain, length)
+    assert ragged_ok(dtype, err, rel), (err, rel)
+
+
+def _i32(values, device):
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["unquantized", "int8"])
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+@pytest.mark.parametrize("page", [4, 16, 128])
+def test_ragged_kernel_frontiers_on_boundaries(cuda, dtype, int8, dim_head, page):
+    """Frontiers that end exactly on boundaries, through a permuted table
+    (a 64-key tile then spans sixteen pages of 4 from scattered storage,
+    and a page of 128 two tiles): decode rows whose last key is the last
+    and the first of a page, of a 64-key tile and of a round of the
+    cluster split (4 tiles, 256 keys: 511 and 512), a 16-column chunk
+    ending on a round, an idle row. Valid columns agree with ``reference_attend`` at
+    the ragged tolerances; the columns past them are exactly 0."""
+    starts = (3 * page - 1, 3 * page, 63, 64, 511, 512, 1008, 0)
+    lengths = (1, 1, 1, 1, 1, 1, 16, 0)
+    q, k, v, ks, vs, table, start, length = ragged_block(
+        8, 16, 2, dim_head, page, -(-1040 // page), starts, lengths, dtype, cuda, int8=int8)
+    got = ra.kernel_attend(q, k, v, table, start, length, ks, vs)
+    plain = ra.reference_attend(q, k, v, table, start, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err, rel = ragged_errors(got, plain, length)
+    assert ragged_ok(dtype, err, rel), (err, rel)
+    past = torch.arange(16, device=cuda)[None] >= length.clamp(min=1)[:, None]
+    assert (got[past] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["unquantized", "int8"])
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+@pytest.mark.parametrize("width", [16, 80])
+def test_ragged_kernel_rows_are_bitwise_independent(cuda, dtype, int8, dim_head, width):
+    """Row 0's output (a prefill of ``width`` columns from position 300;
+    16 columns is the narrow query tile, 80 two wide ones) is bitwise the
+    same run after run, with the other rows' starts, lengths and tables
+    changed, and with the batch cut to row 0 alone; and each of its
+    columns is bitwise the one-column row at the same position (a
+    preempted request re-prefills its positions at other columns beside
+    other rows, and must replay the same tokens)."""
+    q, k, v, ks, vs, table, start, length = ragged_block(
+        4, width, 2, dim_head, 16, 40, (300, 17, 0, 590), (width, 5, 0, 1), dtype, cuda,
+        int8=int8)
+
+    def run(q, table, start, length):
+        return ra.kernel_attend(q, k, v, table, start, length, ks, vs)
+
+    base = run(q, table, start, length)
+    assert torch.equal(base, run(q, table, start, length))
+    others = table.clone()
+    others[1:] = table[1:].roll(1, dims=1)
+    moved = run(q, others, _i32((300, 600, 33, 0), cuda), _i32((width, 16, 1, 0), cuda))
+    assert torch.equal(moved[0], base[0])
+    alone = run(q[:1].contiguous(), table[:1].contiguous(), start[:1], length[:1])
+    assert torch.equal(alone[0], base[0])
+    one = _i32((1,), cuda)
+    for c in (0, 5, 15, width - 1):
+        q_c = torch.zeros_like(q[:1])
+        q_c[0, 0] = q[0, c]
+        col = run(q_c, table[:1].contiguous(), start[:1] + c, one)
+        assert torch.equal(col[0, 0], base[0, c]), c
 
 def _column_rel_err(got, plain):
     """Max over query rows of |got - plain| / |plain| in L2 over h*d."""
