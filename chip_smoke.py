@@ -22,9 +22,10 @@ line):
    block (4 rows of 257 columns, five query tiles, short, late and idle
    rows). The packed-qkv kernel is held at CLIP's text shape (the rerank
    stage's), at DALL-E's causal rotary shape, with and without a pattern
-   mask, and at the training shape (batch 4), and timed in bf16 (its tensor-core
-   instance) at CLIP's and DALL-E's shapes and in float32 at the
-   training shape. The fused decode kernel is held at
+   mask, and at the training shape (batch 4), and timed in bf16 at
+   CLIP's and DALL-E's shapes and in float32 at the training shape (both
+   instances on the tensor cores; float32's bound at the split-3xTF32
+   rate, its CUDA-core bound beside). The fused decode kernel is held at
    the flagship's decode shapes (b 1 and 8, 16 heads of 64, L 1281,
    positions 0 to 1279, rotary and key mask on and off, a masked own
    key, dim_head 32 and 128; its k/v rows bitwise) and timed at b 1 and
@@ -137,8 +138,11 @@ limit; the line before it the kernels' JSON; the last line
 ``{"ok": true, "device": {...}}``.
 
 Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
-spills) for the packed-qkv kernels' bf16 tensor-core instances and for
-every instance of the ragged kernel.
+spills) for the packed-qkv kernels' tensor-core instances (bf16, and
+float32 as split 3xTF32) and for every instance of the ragged kernel,
+and counts the HMMA instructions of each packed instance in the built
+libraries (``cuobjdump -sass``), failing unless every float32 instance
+holds TF32 HMMA.
 
 Paired comparisons, one card, none of the phases above:
 
@@ -151,11 +155,12 @@ another commit (or of each of several, the flag repeated), alternating
 in one process, with the cold timer's spin and without it (both bf16
 instances at the serving shape, the unquantized one at generate (d)'s
 prompt block); the second builds another commit's packed-qkv forward
-and backward under other library names, checks that their float32
-outputs equal this checkout's bitwise, and times both trees alternating
-(bf16 forward at DALL-E's b 2 and CLIP's shape, bf16 backward and both
-float32 kernels at the training shape); the third times generation (a)
-against (b) in alternating pairs.
+and backward under other library names, holds each tree's float32
+outputs against the plain versions (printing max |this - other|),
+checks that the two trees' bf16 outputs are bitwise equal, and times
+both trees alternating (bf16 forward at DALL-E's b 2 and CLIP's shape,
+bf16 backward and both float32 kernels at the training shape); the third
+times generation (a) against (b) in alternating pairs.
 """
 
 from __future__ import annotations
@@ -174,9 +179,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
-# and float32 (non-tensor) operations/s
+# and float32 (non-tensor) operations/s, dense TF32 tensor-core
+# operations/s (the packed kernels run float32 products as split 3xTF32:
+# three TF32 products each)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_PEAK_OPS = 495e12
 L2_FLUSH_BYTES = 256 << 20  # well past the 50 MB L2
 # ~0.5 ms of a spinning card (at ~2 GHz) before each cold timed call:
 # longer than the host takes to issue one wrapper's launches
@@ -196,12 +204,12 @@ FLAGSHIP_CLIP = dict(dim_text=512, dim_image=512, dim_latent=512,
 MAX_BATCH, CHUNK, PAGE = 8, 16, 128
 N_REQUESTS, MAX_NEW = 10, 1024
 STAGE_BATCH = 8
-# packed-qkv forward vs plain: float32 max abs error over o and lse;
-# bfloat16 each row's o error norm over h*d relative to the plain row's
-# (two bf16 roundings of the output are ~0.4%), lse absolute. The ragged
-# kernel's, the packed-qkv backward's and the block-sparse kernels'
-# tolerances and metrics are dalle_pytorch_tpu_torch.testing's.
-F32_ATOL, BF16_RTOL = 1e-5, 1e-2
+# packed-qkv forward vs plain in bfloat16: each row's o error norm over
+# h*d relative to the plain row's (two bf16 roundings of the output are
+# ~0.4%), lse absolute. Its float32 tolerance (testing.F32_ATOL) and the
+# ragged kernel's, the packed-qkv backward's and the block-sparse
+# kernels' tolerances and metrics are dalle_pytorch_tpu_torch.testing's.
+BF16_RTOL = 1e-2
 RAGGED_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:116"
 RAGGED_INT8_TPU_KERNEL = "dalle_pytorch_tpu/ops/ragged_attention.py:140"  # quant=True
 FUSED_TPU_KERNEL = "dalle_pytorch_tpu/ops/flash_attention.py:784"
@@ -448,7 +456,7 @@ def fused_inputs(case: str, dtype, seed: int = 0):
 
 
 def fused_bound(qkv, h, d, opts):
-    """(bound_ms, bound_by) of the work these inputs need. A query row with
+    """``packed_bounds`` of the work these inputs need. A query row with
     no allowed key outputs 0 whatever q is, and a key no query may attend
     is never read, so bytes = q of the query rows that attend at least one
     key and K and V of the keys some query attends (per batch row), o
@@ -469,9 +477,31 @@ def fused_bound(qkv, h, d, opts):
     for t in (key_mask, pattern, *(opts.get("rot") or ())):
         if t is not None:
             nbytes += t.numel() * t.element_size()
-    ops = 4 * pairs * h * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[qkv.dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return packed_bounds(nbytes, 4 * pairs * h * d, qkv.dtype)
+
+
+def packed_bounds(nbytes: int, ops: int, dtype) -> dict:
+    """``bound_ms`` and ``bound_by`` of the packed kernels' work of
+    ``nbytes`` and ``ops`` in ``dtype``. float32 products run as split
+    3xTF32 on the tensor cores, three TF32 products each, so their
+    operations count at TF32_PEAK_OPS / 3; ``bound_cuda_core_ms`` beside
+    is the bound at the CUDA cores' float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    rate = TF32_PEAK_OPS / 3 if dtype == torch.float32 else PEAK_OPS[dtype]
+    t_ops = ops / rate
+    out = dict(bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if dtype == torch.float32:
+        out["bound_cuda_core_ms"] = 1e3 * max(t_bytes, ops / PEAK_OPS[dtype])
+    return out
+
+
+def bound_text(t: dict) -> str:
+    """A bounds dict (``packed_bounds``) as a log phrase."""
+    text = f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+    if "bound_cuda_core_ms" in t:
+        text += f", CUDA-core float32 bound {t['bound_cuda_core_ms']:.4f} ms"
+    return text
 
 
 def sdpa_args(qkv, h, d, opts):
@@ -495,6 +525,7 @@ def sdpa_args(qkv, h, d, opts):
 
 def check_fused_qkv() -> dict:
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.testing import F32_ATOL
 
     errs, rel_errs, train_errs = {}, {}, {}
     for case in ("clip", "dalle", "dalle_pattern", "dalle_axial_col", "train"):
@@ -545,11 +576,10 @@ def check_fused_qkv() -> dict:
             library_ms=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, **sdpa_kw)),
         )
-        timings[case]["bound_ms"], timings[case]["bound_by"] = fused_bound(qkv, h, d, opts)
+        timings[case].update(fused_bound(qkv, h, d, opts))
         t = timings[case]
         log(f"fused_qkv {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, {bound_text(t)}")
     return {
         "name": "fused_qkv_attention", "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention.cu",
@@ -564,7 +594,7 @@ def check_fused_qkv() -> dict:
 
 
 def fused_bwd_bound(qkv, h, d, opts):
-    """(bound_ms, bound_by) of the backward on these inputs: bytes = q, o
+    """``packed_bounds`` of the backward on these inputs: bytes = q, o
     and do of the query rows that attend a key, K and V of the keys some
     query attends, the lse, dqkv written in full, the masks and tables;
     operations = five (query, key, d) products, 2 * 5 * d per allowed
@@ -583,9 +613,7 @@ def fused_bwd_bound(qkv, h, d, opts):
     for t in (key_mask, pattern, *(opts.get("rot") or ())):
         if t is not None:
             nbytes += t.numel() * t.element_size()
-    ops = 10 * pairs * h * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[qkv.dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return packed_bounds(nbytes, 10 * pairs * h * d, qkv.dtype)
 
 
 def sdpa_backward(qkv, h, d, opts, do):
@@ -652,11 +680,10 @@ def check_fused_qkv_bwd() -> dict:
                                                                      **opts), iters=10),
             library_ms=cuda_time_ms(sdpa_backward(qkv, h, d, opts, do), iters=20),
         )
-        t["bound_ms"], t["bound_by"] = fused_bwd_bound(qkv, h, d, opts)
+        t.update(fused_bwd_bound(qkv, h, d, opts))
         timings[dtype] = t
         log(f"fused_qkv_bwd train {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, {bound_text(t)}")
     return {
         "name": "fused_qkv_attention_bwd", "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
@@ -1383,6 +1410,38 @@ def log_ptxas_report(procs: dict, markers) -> None:
                 log(f"ptxas {name}.cu {fn}: " + "; ".join(about))
 
 
+def log_sass_report(names) -> None:
+    """Tensor-core instructions in the built libraries of ``names``, from
+    ``cuobjdump -sass``: per entry function whose name holds
+    "_tc_kernel" or "_tf32_kernel", the count of HMMA instructions by
+    mnemonic. Raises unless every "_tf32_kernel" function (the packed
+    kernels' float32 instances) holds TF32 HMMA."""
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+
+    cuobjdump = Path(cuda_build.nvcc()).parent / "cuobjdump"
+    missing = []
+    for name in names:
+        out = subprocess.run([str(cuobjdump), "-sass", str(cuda_build.library_path(name))],
+                             check=True, capture_output=True, text=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in out.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = {}
+            elif fn is not None and "HMMA" in line:
+                op = next(w for w in line.split() if w.startswith("HMMA"))
+                counts[fn][op] = counts[fn].get(op, 0) + 1
+        for fn, ops in counts.items():
+            if "_tc_kernel" not in fn and "_tf32_kernel" not in fn:
+                continue
+            log(f"sass {name} {fn}: " + (", ".join(f"{op} x{c}" for op, c in sorted(ops.items()))
+                                         or "no HMMA"))
+            if "_tf32_kernel" in fn and not any("TF32" in op for op in ops):
+                missing.append(fn)
+    if missing:
+        raise AssertionError(f"float32 instances without TF32 HMMA: {missing}")
+
+
 def kernel_counters():
     """{name: wrapper} of every kernel wrapper that counts its launches."""
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
@@ -2078,7 +2137,8 @@ def main() -> int:
     ptxas = start_ptxas_report(PACKED + ("ragged_attention",))
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
-    log_ptxas_report(ptxas, ("_tc_kernel", "ragged_f32_kernel"))
+    log_ptxas_report(ptxas, ("_tc_kernel", "_tf32_kernel", "ragged_f32_kernel"))
+    log_sass_report(PACKED)
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
                *check_block_sparse(), *check_flash_attention(), check_decode_attention()]
@@ -2201,9 +2261,10 @@ PACKED_COMPARE_CASES = (("dalle", torch.bfloat16, "fwd"), ("clip", torch.bfloat1
 
 
 def packed_case(case: str, dtype, direction: str):
-    """(kernel call, sdpa call, bound_ms, bound_by) of one packed-qkv
-    instance: the forward on ``fused_inputs(case)``, or the backward on
-    them (seed 1) with a seeded do and the plain forward's o and lse."""
+    """(kernel call, sdpa call, bounds) of one packed-qkv instance: the
+    forward on ``fused_inputs(case)``, or the backward on them (seed 1)
+    with a seeded do and the plain forward's o and lse; bounds as
+    ``packed_bounds`` gives them."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     if direction == "fwd":
@@ -2211,13 +2272,23 @@ def packed_case(case: str, dtype, direction: str):
         (q, k, v), kw = sdpa_args(qkv, h, d, opts)
         return (lambda: fa.fused_qkv_attention(qkv, h, d, **opts),
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **kw),
-                *fused_bound(qkv, h, d, opts))
+                fused_bound(qkv, h, d, opts))
+    qkv, h, d, opts, do, o, lse = packed_bwd_case(case, dtype)
+    return (lambda: fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts),
+            sdpa_backward(qkv, h, d, opts, do), fused_bwd_bound(qkv, h, d, opts))
+
+
+def packed_bwd_case(case: str, dtype):
+    """(qkv, h, d, opts, do, o, lse) of the packed backward's paired
+    cases: ``fused_inputs(case)`` at seed 1, do seeded, o and lse from the
+    plain forward."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
     qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
     g = torch.Generator(device="cuda").manual_seed(2)
     do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, generator=g, device="cuda").to(dtype)
     o, lse = fa.reference_fused_qkv(qkv, h, d, **opts)
-    return (lambda: fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts),
-            sdpa_backward(qkv, h, d, opts, do), *fused_bwd_bound(qkv, h, d, opts))
+    return qkv, h, d, opts, do, o, lse
 
 
 def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
@@ -2228,10 +2299,14 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
     DALL-E's b 2 and at CLIP's text shape, the bf16 backward at the
     training shape, and both float32 training-shape kernels, in the order
     other, this, this, other, ``rounds`` times; each case's sdpa time and
-    bound beside. Raises unless the float32 outputs of the two trees are
-    bitwise equal (training and CLIP shapes, forward and backward)."""
+    bounds beside. First, at the training and CLIP shapes, forward and
+    backward: each tree's float32 outputs are held against the plain
+    versions (o and lse within abs ``testing.F32_ATOL``, each part of dqkv
+    within ``testing.BWD_F32_REL``) and max |this - other| is printed, and the
+    two trees' bf16 outputs must be bitwise equal; raises otherwise."""
     from dalle_pytorch_tpu_torch.ops import cuda_build
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.testing import BWD_F32_REL, F32_ATOL, bwd_errors
 
     out_dir = cuda_build.BUILD_DIR / "compare"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2253,22 +2328,36 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
         cuda_build._LOADED.update(libs[src])
 
     for case in ("train", "clip"):
-        outs = {}
-        for src in libs:
-            use(src)
-            qkv, h, d, opts = fused_inputs(case, torch.float32, seed=1)
-            do = torch.randn(qkv.shape[0], qkv.shape[1], h * d,
-                             generator=torch.Generator(device="cuda").manual_seed(2),
-                             device="cuda")
-            o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
-            plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, d, **opts)
-            outs[src] = (o, lse, fa.fused_qkv_attention_bwd(qkv, plain_o, plain_lse, do, h, d,
-                                                             **opts))
-        same = [torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])]
-        log(f"compare packed float32 {case}: o, lse, dqkv bitwise equal to the other "
-            f"tree's: {same}")
-        if not all(same):
-            raise AssertionError(f"packed float32 {case} outputs differ from the other tree's")
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, h, d, opts, do, plain_o, plain_lse = packed_bwd_case(case, dtype)
+            outs = {}
+            for src in libs:
+                use(src)
+                outs[src] = (*fa.fused_qkv_attention(qkv, h, d, **opts),
+                             fa.fused_qkv_attention_bwd(qkv, plain_o, plain_lse, do, h, d, **opts))
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                same = [torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])]
+                log(f"compare packed bf16 {case}: o, lse, dqkv bitwise equal to the other "
+                    f"tree's: {same}")
+                if not all(same):
+                    raise AssertionError(f"packed bf16 {case} outputs differ from the other tree's")
+                continue
+            plain = fa.reference_fused_qkv_bwd(qkv, plain_o, plain_lse, do, h, d, **opts)
+            ok = True
+            for src, (o, lse, dqkv) in outs.items():
+                err = max((o - plain_o).abs().max().item(), (lse - plain_lse).abs().max().item())
+                rel = bwd_errors(dqkv, plain, h, d, opts)[0]
+                ok &= err <= F32_ATOL and rel <= BWD_F32_REL
+                log(f"compare packed float32 {case}, {src}: max |kernel - plain| over o and lse "
+                    f"{err:.3e} (tolerance {F32_ATOL:.0e}), dqkv relative L2 {rel:.3e} "
+                    f"(tolerance {BWD_F32_REL:.0e})")
+            diffs = [(a - b).abs().max().item() for a, b in zip(outs["this"], outs["other"])]
+            log(f"compare packed float32 {case}: max |this - other| o {diffs[0]:.3e}, lse "
+                f"{diffs[1]:.3e}, dqkv {diffs[2]:.3e}")
+            if not ok:
+                raise AssertionError(f"packed float32 {case}: a tree misses the plain version's "
+                                     "tolerances")
 
     calls = {}
     for case, dtype, direction in PACKED_COMPARE_CASES:
@@ -2280,7 +2369,7 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
             for key, (fn, *_) in calls.items():
                 ms[key, src].append(cuda_time_ms(fn, iters=20))
     use("this")
-    for key, (_, sdpa, bound_ms, bound_by) in calls.items():
+    for key, (_, sdpa, bounds) in calls.items():
         case, dtype, direction = key
         this, other = ms[key, "this"], ms[key, "other"]
         # adjacent pairs of the order other, this, this, other
@@ -2289,7 +2378,7 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
             f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} ms); this " + ", ".join(
             f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} ms); this / other "
             f"{np.mean(this) / np.mean(other):.4f}; this faster in every pair {faster}; sdpa "
-            f"{cuda_time_ms(sdpa, iters=20):.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+            f"{cuda_time_ms(sdpa, iters=20):.4f} ms; {bound_text(bounds)}")
 
 
 def compare_generate(pairs: int = 3) -> None:

@@ -26,220 +26,44 @@
 // bytes (q, k, v, o, lse and the tables once): operations bound it. At
 // CLIP's text shape (b 8, n 256, 8 heads of 64, a key mask) bytes bound
 // it (~1.75 us), and launch latency and the masked-row path dominate.
-// float32, at the training shape (b 4): the same products at the card's
-// 67 TFLOP/s CUDA-core rate, 0.2 ms.
+// float32, at the training shape (b 4): ~1.3e10 operations, run as split
+// 3xTF32 (three TF32 products per float32 product): 0.081 ms at the
+// tensor cores' 495 / 3 = 165 TFLOP/s, against ~0.2 ms at the CUDA
+// cores' 67 TFLOP/s float32 rate and ~0.03 ms of bytes: operations bound
+// it. In practice the float32 instance runs at ~5x that bound, held by
+// shared memory bandwidth (each fragment of the streamed tiles read as
+// two TF32 parts for 16 rows a warp) and then latency at two blocks an
+// SM (tf32_tiles.cuh).
 //
-// The bf16 instance (fused_qkv_fwd_tc_kernel) runs both products on the
-// tensor cores: bf16 mma.sync tiles with float32 accumulation, q's
-// fragments held in registers, K/V tiles through a 2-stage cp.async ring
-// so the loads of tile kt + 1 overlap the products of tile kt, rotary
-// once per tile in shared memory, p rounded to bf16 in registers where
-// the plain version rounds it, and the heaviest causal query tiles
-// scheduled first. The float32 instance (fused_qkv_fwd_kernel) keeps the
-// CUDA-core design below, bit for bit: its products are float32, and the
-// tensor cores would take them only as TF32 or split 3xTF32, which
-// changes what the float32 trainer is held to. Both keep every (n, n)
+// Both instances run both products on the tensor cores, one block of 4
+// warps per (64-row query tile, head, batch row), warp w owning query
+// rows 16w .. 16w + 15, with float32 accumulation: bf16 as bf16
+// mma.sync.m16n8k16 (fused_qkv_fwd_tc_kernel), float32 as split 3xTF32
+// mma.sync.m16n8k8 (fused_qkv_fwd_tf32_kernel, csrc/tf32_tiles.cuh). K/V
+// tiles come through a 2-stage cp.async ring so the loads of tile kt + 1
+// overlap the products of tile kt; rotary is applied once per tile in
+// shared memory; the scale, the masks and the online softmax run on the
+// score accumulators (row max and sum over the 4 lanes of a quad), and
+// the probabilities feed the value product from registers; the heaviest
+// causal query tiles are scheduled first. Both keep every (n, n)
 // intermediate on chip, read q/k/v in place from the projection's layout
 // (no split, transpose or rotary pass through device memory), skip key
 // tiles the key mask wholly masks (and q, when that is every tile), and
 // write o straight into the projection's layout. Next, where the kernel
-// table shows the bf16 instance below half its bound: wgmma and TMA.
-//
-// float32 layout: one block of 256 threads per (64-row q tile, head,
-// batch row). The q tile is rotated once into shared memory, transposed
-// (d, 64 + 1), before the first key tile that has a valid key; each
-// 64-key K tile (transposed) and V tile (row-major) is rotated on load;
-// tiles wholly above the diagonal are skipped when causal without a
-// pattern, and so are tiles of masked keys. Thread (ty, tx), 16 x 16,
-// owns query rows ty + 16*i and key columns tx + 16*j (i, j < 4) of a
-// score tile and output columns tx + 16*c (c < d / 16); a row's 16 owners
-// share one half-warp, so its max and sum reduce with shuffles.
+// table shows an instance below half its bound: wgmma and TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_tiles.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int TP = BQ + 1;   // padded stride of the transposed tiles
-constexpr int THREADS = 256;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// round a float32 to the storage type and back
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
-// element e of row `row` (global) of one head's q, k or v, rotated when
-// cos_t is given; 0 past the sequence end
-template <typename T, int D>
-__device__ __forceinline__ float load_rotated(
-    const T* __restrict__ src, int64_t stride, int row, int e, int n,
-    const T* __restrict__ cos_t, const T* __restrict__ sin_t) {
-  if (row >= n) return 0.f;
-  const T* r = src + (int64_t)row * stride;
-  const float t = to_f32<T>(r[e]);
-  if (cos_t == nullptr) return t;
-  const float partner = to_f32<T>(r[e ^ 1]);
-  const float half = (e & 1) ? partner : -partner;  // rotate_half(t)[e]
-  const float c = to_f32<T>(cos_t[(int64_t)row * D + e]);
-  const float s = to_f32<T>(sin_t[(int64_t)row * D + e]);
-  const float a = round_to<T>(__fmul_rn(t, c));
-  const float b = round_to<T>(__fmul_rn(half, s));
-  return round_to<T>(__fadd_rn(a, b));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) fused_qkv_fwd_kernel(
-    const T* __restrict__ qkv, const uint8_t* __restrict__ kmask,
-    const int8_t* __restrict__ pmask, const T* __restrict__ cos_t,
-    const T* __restrict__ sin_t, T* __restrict__ out, float* __restrict__ lse,
-    int n, int heads, int causal, float scale) {
-  extern __shared__ float smem[];
-  constexpr int CJ = D / 16;  // output columns per thread
-  float* qT = smem;           // (D, TP): q tile, transposed
-  float* kT = qT + D * TP;    // (D, TP): key tile, transposed
-  float* vs = kT + D * TP;    // (BK, D): value tile
-  float* pT = vs + BK * D;    // (BK, TP): probabilities, key-major
-  float* kok = pT + BK * TP;  // (BK): key exists and passes the key mask
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int64_t stride = 3LL * heads * D;
-  const T* base = qkv + (int64_t)b * n * stride;
-  const T* qsrc = base + (int64_t)h * D;
-  const T* ksrc = base + (int64_t)(heads + h) * D;
-  const T* vsrc = base + (int64_t)(2 * heads + h) * D;
-
-  float acc[4][CJ], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_tiles = (n + BK - 1) / BK;
-  if (causal && pmask == nullptr) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
-  bool q_loaded = false;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is no longer read
-    int any_key = 0;
-    for (int c = tid; c < BK; c += THREADS) {
-      const int col = k0 + c;
-      kok[c] = (col < n && (kmask == nullptr || kmask[(int64_t)b * n + col] != 0)) ? 1.f : 0.f;
-      any_key |= kok[c] != 0.f;
-    }
-    // A tile of masked keys gives p = 0 everywhere and leaves m, l and acc
-    // exactly as they are, so it is not loaded; nor is q while every tile
-    // so far was such a tile (a fully masked batch row reads no q, k or v).
-    if (!__syncthreads_or(any_key)) continue;
-    if (!q_loaded) {
-      for (int x = tid; x < BQ * D; x += THREADS) {
-        const int r = x / D, e = x % D;
-        qT[e * TP + r] = load_rotated<T, D>(qsrc, stride, q0 + r, e, n, cos_t, sin_t);
-      }
-      q_loaded = true;
-    }
-    for (int x = tid; x < BK * D; x += THREADS) {
-      const int r = x / D, e = x % D;
-      kT[e * TP + r] = load_rotated<T, D>(ksrc, stride, k0 + r, e, n, cos_t, sin_t);
-      vs[r * D + e] = load_rotated<T, D>(vsrc, stride, k0 + r, e, n, cos_t, sin_t);
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < D; ++e) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qT[e * TP + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kT[e * TP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        bool ok = kok[tx + 16 * j] != 0.f && row < n;
-        if (pmask != nullptr) {
-          ok = ok && pmask[(int64_t)row * n + col] != 0;
-        } else if (causal) {
-          ok = ok && row >= col;
-        }
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] > 0.5f * NEG_INF ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        pT[(tx + 16 * j) * TP + ty + 16 * i] = round_to<T>(p);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float pv[4], vv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = pT[k * TP + ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) vv[c] = vs[k * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-  const int64_t hd = (int64_t)heads * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= n) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* o_row = out + ((int64_t)b * n + row) * hd + (int64_t)h * D;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) o_row[tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);
-    if (tx == 0) lse[((int64_t)b * heads + h) * n + row] = m[i] + logf(l_safe);
-  }
-}
 
 // ------------------------------------------- bf16: the tensor-core design
 //
@@ -479,56 +303,254 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1) fused_qkv_fwd_tc
   }
 }
 
+// ------------------------------------ float32: the split-3xTF32 design
+//
+// The bf16 design's block (4 warps, 16 query rows each, 64-row query
+// tiles), ring and schedule, with float32 tiles (rows of d floats padded
+// to d + 4) and every product as split 3xTF32 mma.sync.m16n8k8
+// (csrc/tf32_tiles.cuh). Three choices differ from bf16's:
+//  - key tiles of 32 (tf32::SROWS), each rotated and split once when it
+//    lands (tf32::split_tiles): a block holds Q, two stages of K and V,
+//    the small parts of one K and V tile and the cos/sin rows of one key
+//    tile, 84-88 KB at d 64, so two blocks share an SM;
+//  - Q stays in shared memory (rotated there with the first live key
+//    tile), its A fragments loaded and split per key tile: split in
+//    registers for the whole loop they would take 2 * d of them;
+//  - O += P.V runs channel block by channel block, each block's partial
+//    over the tile's 32 keys fresh in registers (the P fragments, split,
+//    held across blocks) and folded into O with one rounded FMA that also
+//    applies the softmax's rescaling (tf32::fold_product).
+// S = Q.K^T takes K's B fragments by ldmatrix; P.V takes p straight
+// from the S accumulators (k permuted) and V's two values a fragment by
+// 32-bit shared loads at rows 2t, 2t + 1. p stays float32 (split, not
+// rounded), computed as tc::exp_diff (ex2.approx, ~1e-6 relative to
+// expf; the float32 tolerances hold).
+
+constexpr int fwd_tf32_smem_bytes(int d, bool rot, bool pattern) {
+  // Q, two stages of K and V, the small parts of one K and V tile, the
+  // cos/sin rows of one key tile, two stages of key bits (16 bytes,
+  // keeping what follows aligned), two of the (64, 32) pattern tile
+  return 4 * (tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4) +
+              (rot ? 2 * tf32::SROWS * d : 0)) +
+         16 + (pattern ? 2 * tf32::ROWS * tf32::SROWS : 0);
+}
+
 template <int D>
-int launch_tc(const void* qkv, const void* kmask, const void* pmask, const void* cos_t,
-              const void* sin_t, void* out, void* lse, int batch, int n, int heads,
-              int causal, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 3 : (D <= 64 ? 2 : 1))
+    fused_qkv_fwd_tf32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ kmask,
+                              const int8_t* __restrict__ pmask, const float* __restrict__ cos_t,
+                              const float* __restrict__ sin_t, float* __restrict__ out,
+                              float* __restrict__ lse, int n, int heads, int causal,
+                              float scale) {
+  using tf32::ROWS;
+  using tf32::SROWS;
+  constexpr int TS = tf32::tile_floats<D, SROWS>(), DS = tf32::stride<D>();
+  constexpr int PM = ROWS * SROWS;  // bytes of a pattern tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // (64, DS)
+  float* kv = qs + tf32::tile_floats<D>();  // stage s: K at kv + 2s * TS, V at kv + (2s + 1) * TS
+  float* k_lo = kv + 4 * TS;  // the small parts of the current K tile
+  float* v_lo = k_lo + TS;    // ... and of its V tile
+  float* cs = v_lo + TS;  // cos/sin rows of the key tile being loaded (none without tables)
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(cs + (cos_t != nullptr ? 2 * SROWS * D : 0));
+  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);  // 2 stages of (64, 32)
+
+  // causal without a pattern: the heaviest query tiles (the last) first
+  const bool tri = causal && pmask == nullptr;
+  const int qt = tri ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * ROWS, h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t stride = 3LL * heads * D;
+  const float* base = qkv + (int64_t)b * n * stride;
+  const float* ksrc = base + (int64_t)(heads + h) * D;
+  const float* vsrc = base + (int64_t)(2 * heads + h) * D;
+  const uint8_t* kmask_b = kmask == nullptr ? nullptr : kmask + (int64_t)b * n;
+
+  int n_tiles = (n + SROWS - 1) / SROWS;
+  if (tri) n_tiles = min(n_tiles, (q0 + ROWS - 1) / SROWS + 1);
+  // as the bf16 kernel: the first live key tile at or after kt (its key
+  // bits into stage st), or n_tiles
+  auto next_live = [&](int kt, int st) {
+    if (kmask_b != nullptr)
+      while (kt < n_tiles && !tc::tile_keys<SROWS>(kmask_b, kt * SROWS, n, kbits + st))
+        ++kt;
+    return kt;
+  };
+  auto issue = [&](int kt, int st) {
+    tf32::load_tile_async<D, SROWS>(kv + 2 * st * TS, ksrc, stride, kt * SROWS, n);
+    tf32::load_tile_async<D, SROWS>(kv + (2 * st + 1) * TS, vsrc, stride, kt * SROWS, n);
+    if (cos_t != nullptr) tf32::load_rot_rows_async<D, SROWS>(cs, cos_t, sin_t, kt * SROWS, n);
+    if (pmask != nullptr)
+      tc::load_mask_tile<ROWS, SROWS>(pms + st * PM, pmask, q0, kt * SROWS, n);
+  };
+
+  // the thread's rows: q0 + 16w + g + 8r, r < 2
+  float o[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  int kt = next_live(0, 0), st = 0;
+  if (kt < n_tiles) {
+    tf32::load_tile_async<D>(qs, base + (int64_t)h * D, stride, q0, n);
+    issue(kt, 0);
+  }
+  tc::cp_async_commit();
+  bool first = true;
+  while (kt < n_tiles) {
+    tc::cp_async_wait<0>();  // tile kt (and q on the first) has landed
+    __syncthreads();         // ... for every thread; stage st ^ 1 is no longer read
+    const int k0 = kt * SROWS;
+    float* k_s = kv + 2 * st * TS;
+    float* v_s = k_s + TS;
+    // K and V rotated and split (big in place), once for every warp
+    tf32::split_tiles<D, SROWS>(k_s, k_lo, v_s, v_lo, k0, n, cos_t == nullptr ? nullptr : cs,
+                                cs + SROWS * D);
+    if (first && cos_t != nullptr)
+      tf32::rotate_tile<D, ROWS>(qs, q0, n, cos_t + (int64_t)q0 * D, sin_t + (int64_t)q0 * D);
+    first = false;
+    __syncthreads();  // the tiles are ready; cs is free
+    // the next live tile is in flight while this one computes
+    const int nxt = next_live(kt + 1, st ^ 1);
+    if (nxt < n_tiles) issue(nxt, st ^ 1);
+    tc::cp_async_commit();
+
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      tf32::FragA qa;
+      tf32::load_a<D>(qa, qs, 16 * warp, 8 * kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        tf32::FragB kb[2];
+        tf32::load_b_rows<D>(kb, k_s, k_lo, 16 * np, 8 * kk);
+        tf32::mma3(s[2 * np], qa, kb[0]);
+        tf32::mma3(s[2 * np + 1], qa, kb[1]);
+      }
+    }
+
+    // scale and mask: element e of n-block j is row r0 + 8 * (e / 2), key
+    // column 8j + 2t + e % 2 of the tile
+    const uint64_t bits = tc::key_bits<SROWS>(kmask_b != nullptr, kbits + st, k0, n);
+    const bool need_mask = bits != tc::all_keys<SROWS>() || pmask != nullptr ||
+                           (causal && k0 + SROWS > q0 + 1);
+    const int r0 = q0 + 16 * warp + g;
+    const int8_t* pm_t = pms + st * PM;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[j][e] * scale;
+        if (need_mask) {
+          const int row = r0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          bool ok = (bits >> c) & 1;
+          if (pmask != nullptr) {
+            ok = ok && pm_t[(row - q0) * SROWS + c] != 0;
+          } else if (causal) {
+            ok = ok && row >= k0 + c;
+          }
+          if (!ok) v = NEG_INF;
+        }
+        s[j][e] = v;
+      }
+
+    // online softmax over the quad's 32 columns of rows r0 and r0 + 8
+    float mx[2] = {NEG_INF, NEG_INF}, corr[2], m2[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      m2[r] = m_new * tc::LOG2E;
+      l[r] *= corr[r];  // the thread's part of the row sum, reduced at the end
+    }
+    tf32::FragA pa[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = s[j][e];
+        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, m2[e >> 1]) : 0.f;
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+      tf32::c_to_a(pa[j], s[j]);
+    }
+
+    // O = O * corr + P.V over the tile's 32 keys
+    tf32::fold_product<D>(o, pa, v_s, v_lo, corr);
+    kt = nxt;
+    st ^= 1;
+  }
+
+  // o / l (l = 1 where l == 0: a fully masked row writes exactly 0) into
+  // the warp's own rows of the q tile, then 16-byte stores
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+  }
+  float* ow = qs + 16 * warp * DS;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(ow + (g + 8 * r) * DS + 8 * j + 2 * t) =
+          make_float2(o[j][2 * r] / l_safe[r], o[j][2 * r + 1] / l_safe[r]);
+  __syncwarp();
+  const int64_t hd = (int64_t)heads * D;
+  tf32::store_rows<D>(out + (int64_t)b * n * hd + (int64_t)h * D, hd, ow, q0 + 16 * warp, n);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row < n) lse[((int64_t)b * heads + h) * n + row] = m[r] + logf(l_safe[r]);
+    }
+  }
+}
+
+// T = float: the split-3xTF32 kernel; T = bf16: the bf16 one. Both need
+// qkv, the tables and out 16-byte aligned (cp.async, vector stores).
+template <typename T, int D>
+int launch(const void* qkv, const void* kmask, const void* pmask, const void* cos_t,
+           const void* sin_t, void* out, void* lse, int batch, int n, int heads, int causal,
+           float scale, cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   const int n_qt = (n + tc::ROWS - 1) / tc::ROWS;
   if (n_qt > 65535 || !tc::aligned16({qkv, cos_t, sin_t, out})) return -1;
-  const int smem = fwd_tc_smem_bytes(D, cos_t != nullptr, pmask != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_qkv_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = f32 ? fwd_tf32_smem_bytes(D, cos_t != nullptr, pmask != nullptr)
+                       : fwd_tc_smem_bytes(D, cos_t != nullptr, pmask != nullptr);
+  void (*kernel)(const T*, const uint8_t*, const int8_t*, const T*, const T*, T*, float*, int,
+                 int, int, float);
+  if constexpr (f32) {
+    kernel = fused_qkv_fwd_tf32_kernel<D>;
+  } else {
+    kernel = fused_qkv_fwd_tc_kernel<D>;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(heads, batch, n_qt);
-  fused_qkv_fwd_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(
-      (const tc::bf16*)qkv, (const uint8_t*)kmask, (const int8_t*)pmask,
-      (const tc::bf16*)cos_t, (const tc::bf16*)sin_t, (tc::bf16*)out, (float*)lse, n,
-      heads, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-constexpr int smem_bytes(int d) {
-  return 4 * (2 * d * TP + BK * d + BK * TP + BK);
-}
-
-template <typename T, int D>
-int launch(const void* qkv, const void* kmask, const void* pmask,
-           const void* cos_t, const void* sin_t, void* out, void* lse,
-           int batch, int n, int heads, int causal, float scale,
-           cudaStream_t stream) {
-  constexpr int smem = smem_bytes(D);
-  int device = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > smem_max) return -1;
-  err = cudaFuncSetAttribute(
-      fused_qkv_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + BQ - 1) / BQ, heads, batch);
-  fused_qkv_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)qkv, (const uint8_t*)kmask, (const int8_t*)pmask,
-      (const T*)cos_t, (const T*)sin_t, (T*)out, (float*)lse, n, heads,
-      causal, scale);
+  kernel<<<grid, tc::THREADS, smem, stream>>>(
+      (const T*)qkv, (const uint8_t*)kmask, (const int8_t*)pmask, (const T*)cos_t,
+      (const T*)sin_t, (T*)out, (float*)lse, n, heads, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(int d, const void* qkv, const void* kmask, const void* pmask,
-               const void* cos_t, const void* sin_t, void* out, void* lse,
-               int batch, int n, int heads, int causal, float scale,
-               cudaStream_t stream) {
+int dispatch_d(int d, const void* qkv, const void* kmask, const void* pmask, const void* cos_t,
+               const void* sin_t, void* out, void* lse, int batch, int n, int heads,
+               int causal, float scale, cudaStream_t stream) {
   switch (d) {
     case 32: return launch<T, 32>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, stream);
     case 64: return launch<T, 64>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, stream);
@@ -543,8 +565,8 @@ int dispatch_d(int d, const void* qkv, const void* kmask, const void* pmask,
 // int8, cos/sin (n, d) of qkv's type: each may be NULL. Returns
 // cudaGetLastError() after the launch (0 on success), or -1 for what the
 // kernel cannot take: a dim_head other than 32/64/128, a dtype code
-// other than 0/1, an empty shape, or more heads or batch rows than a grid
-// dimension holds.
+// other than 0/1, an empty shape, more heads or batch rows than a grid
+// dimension holds, or qkv, a table or out not 16-byte aligned.
 extern "C" int fused_qkv_attention_fwd(
     const void* qkv, const void* kmask, const void* pmask, const void* cos_t,
     const void* sin_t, void* out, void* lse, int batch, int n, int heads,
@@ -553,13 +575,7 @@ extern "C" int fused_qkv_attention_fwd(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d<float>(dim_head, qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
-  if (dtype == 1) {
-    switch (dim_head) {
-      case 32: return launch_tc<32>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
-      case 64: return launch_tc<64>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
-      case 128: return launch_tc<128>(qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
-      default: return -1;
-    }
-  }
+  if (dtype == 1)
+    return dispatch_d<tc::bf16>(dim_head, qkv, kmask, pmask, cos_t, sin_t, out, lse, batch, n, heads, causal, scale, s);
   return -1;
 }

@@ -27,12 +27,15 @@
 //
 // What bounds it. At the training shape (b 4, n 1280, 16 heads of 64,
 // causal) the five (n, n, d) products over the causal pairs are ~3.4e10
-// operations: 34 us at the tensor cores' bf16 rate, 0.5 ms at the
-// CUDA cores' float32 rate, against ~0.3 ms of bytes in float32 (qkv, o,
+// operations: 34 us at the tensor cores' bf16 rate; in float32, run as
+// split 3xTF32 (three TF32 products per float32 product), 0.20 ms at the
+// tensor cores' 495 / 3 = 165 TFLOP/s (0.5 ms at the CUDA cores' 67
+// TFLOP/s float32 rate), against ~0.05 ms of bytes in float32 (qkv, o,
 // do, dqkv, lse, tables once each) and half that in bf16: operations
-// bound it. The design keeps every (n, n) intermediate on chip and tiles
-// FA-2 style, with no float atomics so that gradients are the same from
-// run to run:
+// bound it. The float32 passes run at ~5x that bound, held by shared
+// memory bandwidth and latency (tf32_tiles.cuh). The design keeps every
+// (n, n) intermediate on chip and tiles FA-2 style, with no float
+// atomics so that gradients are the same from run to run:
 //   1. rotate_kernel rotates q, k and v once into a scratch copy of qkv
 //      (skipped without tables), so no pass re-rotates a tile per visit;
 //      delta_kernel computes delta once per (row, head);
@@ -44,39 +47,32 @@
 //      key tiles up to the diagonal and accumulates dq.
 // Key tiles whose keys are all masked are skipped in both passes.
 //
-// The bf16 instance (dkdv_tc_kernel, dq_tc_kernel) runs every product on
-// the tensor cores: bf16 mma.sync tiles with float32 accumulation, the
-// streamed Q/dO (dk/dv) or K/V (dq) tiles through 2-stage cp.async rings,
-// the dk/dv pass key-major (S^T = K.Q^T) so that p^T and ds^T leave the
-// accumulators as the A fragments of dV += P^T.dO and dK += dS^T.Q, p and
-// ds rounded to bf16 in registers where the plain version rounds them,
-// the inverse rotation in float32 on the accumulators (a channel pair
-// lies in one thread) and 16-byte stores. The float32 instance
-// (dkdv_kernel, dq_kernel) keeps the CUDA-core design below, bit for bit
-// (tensor cores in float32 mean TF32 or 3xTF32: a decision ahead). Next:
-// one fused pass, and wgmma/TMA where the bf16 instance stays below half
-// its bound.
-//
-// float32 layout: tiles are 64 x d floats in shared memory with a padded
-// row stride of d + 1, so a half-warp reading 16 different rows at one
-// column hits 16 banks. Thread (ty, tx), 16 x 16, owns rows ty + 16*a and
-// columns tx + 16*b of a 64 x 64 score tile, and rows ty + 16*a, channels
-// tx + 16*c of the accumulators; channel pairs (2i, 2i+1) sit on lanes
-// l and l ^ 1, so the inverse rotation exchanges partners by shuffle.
+// Both instances run every product on the tensor cores with float32
+// accumulation: bf16 as bf16 mma.sync.m16n8k16 (dkdv_tc_kernel,
+// dq_tc_kernel, csrc/mma_tiles.cuh), float32 as split 3xTF32
+// mma.sync.m16n8k8 (dkdv_tf32_kernel, dq_tf32_kernel,
+// csrc/tf32_tiles.cuh), which holds float32's accuracy. Blocks of 4
+// warps, each warp 16 rows of the block's tile; the streamed Q/dO (dk/dv)
+// or K/V (dq) tiles come through 2-stage cp.async rings; the dk/dv pass is
+// key-major (S^T = K.Q^T) so that p^T and ds^T leave the accumulators as
+// the A fragments of dV += P^T.dO and dK += dS^T.Q; the inverse rotation
+// runs in float32 on the accumulators (a channel pair lies in one
+// thread), and the gradients leave by 16-byte stores. Next: one fused
+// pass, and wgmma/TMA where an instance stays below half its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_tiles.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int SP = BK + 1;    // padded stride of the (BQ, BK) p and ds tiles
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // of the rotate and delta kernels
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -89,9 +85,10 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
-// qkv (rows of `width` = 3*h*d) -> the same with q, k and v rotated:
-// t*cos + rotate_half(t)*sin, rotate_half(t)[2i] = -t[2i+1],
-// [2i+1] = t[2i], rounded as the forward kernel rounds.
+// The float32 instance's first two launches. qkv (rows of `width` =
+// 3*h*d) -> the same with q, k and v rotated: t*cos + rotate_half(t)*sin,
+// rotate_half(t)[2i] = -t[2i+1], [2i+1] = t[2i], rounded as the forward
+// kernel rounds.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) rotate_kernel(
     const T* __restrict__ qkv, const T* __restrict__ cos_t,
@@ -136,295 +133,6 @@ __global__ void __launch_bounds__(THREADS) delta_kernel(
     const int64_t b = bn / n, row = bn % n;
     delta[(b * heads + h) * n + row] = acc;
   }
-}
-
-// 64 rows of one head's d channels, from rows of `stride` elements, into
-// a (64, D + 1) float tile; rows past the sequence end are 0
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src,
-                                          int64_t stride, int row0, int n) {
-  constexpr int DP = D + 1;
-  for (int x = threadIdx.x; x < 64 * D; x += THREADS) {
-    const int r = x / D, e = x % D;
-    const int row = row0 + r;
-    dst[r * DP + e] = row < n ? to_f32<T>(src[(int64_t)row * stride + e]) : 0.f;
-  }
-}
-
-// keys k0 .. k0 + BK - 1 that exist and pass the key mask, into kok;
-// true (on every thread) when any does
-__device__ __forceinline__ bool load_key_flags(float* __restrict__ kok,
-                                               const uint8_t* __restrict__ kmask,
-                                               int b, int k0, int n) {
-  int any_key = 0;
-  for (int c = threadIdx.x; c < BK; c += THREADS) {
-    const int col = k0 + c;
-    kok[c] = (col < n && (kmask == nullptr || kmask[(int64_t)b * n + col] != 0)) ? 1.f : 0.f;
-    any_key |= kok[c] != 0.f;
-  }
-  return __syncthreads_or(any_key) != 0;
-}
-
-// Scores s and dp = do . v^T of the thread's 4 x 4 (query, key) pairs of
-// the current tiles, then p and ds into the shared (BQ, SP) tiles: p
-// rounded to the storage type into p_out (when given), ds rounded to the
-// storage type into ds_out.
-template <typename T, int D>
-__device__ __forceinline__ void scores_to_p_ds(
-    const float* __restrict__ qs, const float* __restrict__ ks,
-    const float* __restrict__ vs, const float* __restrict__ dos,
-    const float* __restrict__ lse_s, const float* __restrict__ del_s,
-    const float* __restrict__ kok, const int8_t* __restrict__ pmask,
-    float* __restrict__ p_out, float* __restrict__ ds_out, int q0, int k0,
-    int n, int causal, float scale) {
-  constexpr int DP = D + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int e = 0; e < D; ++e) {
-    float qv[4], kv[4], dov[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = qs[(ty + 16 * i) * DP + e];
-      dov[i] = dos[(ty + 16 * i) * DP + e];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = ks[(tx + 16 * j) * DP + e];
-      vv[j] = vs[(tx + 16 * j) * DP + e];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, col = k0 + c;
-      bool ok = kok[c] != 0.f && row < n;
-      if (pmask != nullptr) {
-        ok = ok && pmask[(int64_t)row * n + col] != 0;
-      } else if (causal) {
-        ok = ok && row >= col;
-      }
-      const float sv = ok ? s[i][j] * scale : NEG_INF;
-      const float p = sv > 0.5f * NEG_INF ? expf(sv - lse_s[r]) : 0.f;
-      if (p_out != nullptr) p_out[r * SP + c] = round_to<T>(p);
-      ds_out[r * SP + c] = round_to<T>(p * (dp[i][j] - del_s[r]) * scale);
-    }
-  }
-}
-
-// The thread's accumulator rows (4 x CJ channels tx + 16*c) through the
-// inverse rotation (when cos_t is given) into dst rows row0 + ty + 16*a,
-// each of `stride` elements, cast to the storage type.
-template <typename T, int D>
-__device__ __forceinline__ void store_inverse_rotated(
-    float (&acc)[4][D / 16], T* __restrict__ dst, int64_t stride, int row0,
-    int n, const T* __restrict__ cos_t, const T* __restrict__ sin_t) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = row0 + ty + 16 * a;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const int e = tx + 16 * c;
-      float t = acc[a][c];
-      // channel e ^ 1 is held by lane ^ 1 (tx ^ 1, same ty and c); every
-      // lane takes part in the shuffle, rows past the end included
-      const float partner = __shfl_xor_sync(0xffffffffu, t, 1);
-      if (row >= n) continue;
-      if (cos_t != nullptr) {
-        const float half = (e & 1) ? partner : -partner;
-        const float cs = to_f32<T>(cos_t[(int64_t)row * D + e]);
-        const float sn = to_f32<T>(sin_t[(int64_t)row * D + e]);
-        t = __fsub_rn(__fmul_rn(t, cs), __fmul_rn(half, sn));
-      }
-      dst[(int64_t)row * stride + e] = from_f32<T>(t);
-    }
-  }
-}
-
-// lse and delta of query rows q0 .. q0 + BQ - 1 into shared memory
-__device__ __forceinline__ void load_row_stats(float* __restrict__ lse_s,
-                                               float* __restrict__ del_s,
-                                               const float* __restrict__ lse,
-                                               const float* __restrict__ delta,
-                                               int q0, int n) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const int row = q0 + r;
-    lse_s[r] = row < n ? lse[row] : 0.f;
-    del_s[r] = row < n ? delta[row] : 0.f;
-  }
-}
-
-template <int D>
-__host__ __device__ constexpr int tile_floats() { return 64 * (D + 1); }
-
-template <int D>
-__host__ __device__ constexpr int dkdv_smem_bytes() {
-  return 4 * (4 * tile_floats<D>() + 2 * BQ * SP + 2 * BQ + BK);
-}
-
-template <int D>
-__host__ __device__ constexpr int dq_smem_bytes() {
-  return 4 * (4 * tile_floats<D>() + BQ * SP + 2 * BQ + BK);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dkdv_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const uint8_t* __restrict__ kmask, const int8_t* __restrict__ pmask,
-    const T* __restrict__ cos_t, const T* __restrict__ sin_t,
-    T* __restrict__ dqkv, int n, int heads, int causal, float scale) {
-  extern __shared__ float smem[];
-  constexpr int DP = D + 1, CJ = D / 16;
-  float* ks = smem;                     // (BK, DP)
-  float* vs = ks + tile_floats<D>();    // (BK, DP)
-  float* qs = vs + tile_floats<D>();    // (BQ, DP)
-  float* dos = qs + tile_floats<D>();   // (BQ, DP)
-  float* ps = dos + tile_floats<D>();   // (BQ, SP)
-  float* dss = ps + BQ * SP;            // (BQ, SP)
-  float* lse_s = dss + BQ * SP;         // (BQ)
-  float* del_s = lse_s + BQ;            // (BQ)
-  float* kok = del_s + BQ;              // (BK)
-
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t stride = 3LL * heads * D, hd = (int64_t)heads * D;
-  const T* base = qkv + (int64_t)b * n * stride;
-  const T* dobase = dout + (int64_t)b * n * hd + (int64_t)h * D;
-  const float* lse_bh = lse + ((int64_t)b * heads + h) * n;
-  const float* del_bh = delta + ((int64_t)b * heads + h) * n;
-
-  float dk[4][CJ], dv[4][CJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) dk[a][c] = dv[a][c] = 0.f;
-
-  // a tile of masked keys has p = 0 for every query: dk = dv = 0
-  if (load_key_flags(kok, kmask, b, k0, n)) {
-    load_tile<T, D>(ks, base + (int64_t)(heads + h) * D, stride, k0, n);
-    load_tile<T, D>(vs, base + (int64_t)(2 * heads + h) * D, stride, k0, n);
-    const int n_qt = (n + BQ - 1) / BQ;
-    const int qt0 = (causal && pmask == nullptr) ? k0 / BQ : 0;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous query tile is no longer read
-      load_tile<T, D>(qs, base + (int64_t)h * D, stride, q0, n);
-      load_tile<T, D>(dos, dobase, hd, q0, n);
-      load_row_stats(lse_s, del_s, lse_bh, del_bh, q0, n);
-      __syncthreads();
-      scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, pmask, ps, dss,
-                           q0, k0, n, causal, scale);
-      __syncthreads();
-#pragma unroll 4
-      for (int i = 0; i < BQ; ++i) {
-        float pv[4], dsv[4], dov[CJ], qv[CJ];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pv[a] = ps[i * SP + ty + 16 * a];
-          dsv[a] = dss[i * SP + ty + 16 * a];
-        }
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) {
-          dov[c] = dos[i * DP + tx + 16 * c];
-          qv[c] = qs[i * DP + tx + 16 * c];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < CJ; ++c) {
-            dv[a][c] = fmaf(pv[a], dov[c], dv[a][c]);
-            dk[a][c] = fmaf(dsv[a], qv[c], dk[a][c]);
-          }
-      }
-    }
-  }
-
-  T* out = dqkv + (int64_t)b * n * stride;
-  store_inverse_rotated<T, D>(dk, out + (int64_t)(heads + h) * D, stride, k0, n, cos_t, sin_t);
-  store_inverse_rotated<T, D>(dv, out + (int64_t)(2 * heads + h) * D, stride, k0, n, cos_t, sin_t);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dq_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const uint8_t* __restrict__ kmask, const int8_t* __restrict__ pmask,
-    const T* __restrict__ cos_t, const T* __restrict__ sin_t,
-    T* __restrict__ dqkv, int n, int heads, int causal, float scale) {
-  extern __shared__ float smem[];
-  constexpr int DP = D + 1, CJ = D / 16;
-  float* qs = smem;                     // (BQ, DP)
-  float* dos = qs + tile_floats<D>();   // (BQ, DP)
-  float* ks = dos + tile_floats<D>();   // (BK, DP)
-  float* vs = ks + tile_floats<D>();    // (BK, DP)
-  float* dss = vs + tile_floats<D>();   // (BQ, SP)
-  float* lse_s = dss + BQ * SP;         // (BQ)
-  float* del_s = lse_s + BQ;            // (BQ)
-  float* kok = del_s + BQ;              // (BK)
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t stride = 3LL * heads * D, hd = (int64_t)heads * D;
-  const T* base = qkv + (int64_t)b * n * stride;
-
-  float dq[4][CJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) dq[a][c] = 0.f;
-
-  int n_tiles = (n + BK - 1) / BK;
-  if (causal && pmask == nullptr) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
-  bool q_loaded = false;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous key tile is no longer read
-    if (!load_key_flags(kok, kmask, b, k0, n)) continue;
-    if (!q_loaded) {
-      load_tile<T, D>(qs, base + (int64_t)h * D, stride, q0, n);
-      load_tile<T, D>(dos, dout + (int64_t)b * n * hd + (int64_t)h * D, hd, q0, n);
-      load_row_stats(lse_s, del_s, lse + ((int64_t)b * heads + h) * n,
-                     delta + ((int64_t)b * heads + h) * n, q0, n);
-      q_loaded = true;
-    }
-    load_tile<T, D>(ks, base + (int64_t)(heads + h) * D, stride, k0, n);
-    load_tile<T, D>(vs, base + (int64_t)(2 * heads + h) * D, stride, k0, n);
-    __syncthreads();
-    scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, pmask, nullptr,
-                         dss, q0, k0, n, causal, scale);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float dsv[4], kv[CJ];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dsv[a] = dss[(ty + 16 * a) * SP + j];
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) kv[c] = ks[j * DP + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) dq[a][c] = fmaf(dsv[a], kv[c], dq[a][c]);
-    }
-  }
-
-  T* out = dqkv + (int64_t)b * n * stride + (int64_t)h * D;
-  store_inverse_rotated<T, D>(dq, out, stride, q0, n, cos_t, sin_t);
 }
 
 // ------------------------------------------- bf16: the tensor-core design
@@ -854,111 +562,416 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 4 : 1) dq_tc_kernel(
                               q0 + 16 * warp, n, cos_t, sin_t);
 }
 
+
+// ------------------------------------ float32: the split-3xTF32 design
+//
+// The bf16 passes' blocks (4 warps, 16 rows of the resident 64-row tile
+// each), rings and schedule, on the rotated copy of qkv (rotate_kernel)
+// and delta (delta_kernel), with float32 tiles (rows of d floats padded
+// to d + 4) and every product as split 3xTF32 mma.sync.m16n8k8
+// (csrc/tf32_tiles.cuh): A fragments of the resident tile by ldmatrix,
+// split in registers; the streamed tiles, 32 rows (tf32::SROWS, the bf16
+// passes' halves), split once when they land (tf32::split_tiles), their
+// B fragments by ldmatrix where the product runs over channels and by
+// 32-bit shared loads (rows 2t, 2t + 1) where it runs over the tile's
+// rows; p^T, ds^T and ds feed the next product from the accumulators,
+// split, not rounded; p = tc::exp_diff(s, lse * log2(e)). A block holds
+// 86-90 KB at d 64, so two blocks share an SM. Sums over keys or queries
+// fold a fresh partial per streamed tile and 8-channel block in with
+// rounded adds (tf32::fold_product).
+
+constexpr int dkdv_tf32_smem_bytes(int d, bool pattern) {
+  // K, V, two stages of Q and dO, the small parts of one Q and dO tile,
+  // two stages of lse and delta, two of the (32, 64) pattern tile
+  return 4 * (2 * tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4) + 4 * tf32::SROWS) +
+         (pattern ? 2 * tf32::SROWS * tf32::ROWS : 0);
+}
+
+constexpr int dq_tf32_smem_bytes(int d, bool pattern) {
+  // Q, dO, two stages of K and V, the small parts of one K and V tile,
+  // two stages of key bits (16 bytes), two of the (64, 32) pattern tile
+  return 4 * (2 * tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4)) + 16 +
+         (pattern ? 2 * tf32::ROWS * tf32::SROWS : 0);
+}
+
+// dk/dv: one block per (64-key tile, head, batch row); warp w owns keys
+// 16w .. 16w + 15, as dkdv_tc_kernel, over streamed tiles of 32 queries.
 template <int D>
-int launch_tc(const void* qkv, const void* o, const void* lse, const void* dout,
-              const void* kmask, const void* pmask, const void* cos_t, const void* sin_t,
-              void* rot_scratch, void* delta, void* dqkv, int batch, int n, int heads,
-              int causal, float scale, cudaStream_t stream) {
-  typedef __nv_bfloat16 T;
+__global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 3 : (D <= 64 ? 2 : 1))
+    dkdv_tf32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const uint8_t* __restrict__ kmask, const int8_t* __restrict__ pmask,
+                     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                     float* __restrict__ dqkv, int n, int heads, int causal, float scale) {
+  using tf32::ROWS;
+  using tf32::SROWS;
+  constexpr int TF = tf32::tile_floats<D>(), TS = tf32::tile_floats<D, SROWS>();
+  constexpr int PM = SROWS * ROWS;  // bytes of a pattern tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // (64, DS)
+  float* vs = ks + TF;                             // (64, DS)
+  float* qs = vs + TF;                             // 2 stages of (32, DS)
+  float* dos = qs + 2 * TS;                        // 2 stages of (32, DS)
+  float* q_lo = dos + 2 * TS;                      // the small parts of the current Q tile
+  float* do_lo = q_lo + TS;                        // ... and of its dO tile
+  float* lse_s = do_lo + TS;                       // 2 stages of 32
+  float* del_s = lse_s + 2 * SROWS;                // 2 stages of 32
+  int8_t* pms = reinterpret_cast<int8_t*>(del_s + 2 * SROWS);  // 2 stages of (32, 64)
+  __shared__ uint32_t kbits[2];
+
+  const int kt = blockIdx.z, k0 = kt * ROWS, h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t stride = 3LL * heads * D, hd = (int64_t)heads * D;
+  const float* base = qkv + (int64_t)b * n * stride;
+  const float* dobase = dout + (int64_t)b * n * hd + (int64_t)h * D;
+  const float* lse_bh = lse + ((int64_t)b * heads + h) * n;
+  const float* del_bh = delta + ((int64_t)b * heads + h) * n;
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // a tile of masked keys has p = 0 for every query: dk = dv = 0
+  if (kmask == nullptr || tc::tile_keys(kmask + (int64_t)b * n, k0, n, kbits)) {
+    const uint64_t bits = tc::key_bits(kmask != nullptr, kbits, k0, n);
+    const int key0 = 16 * warp + g;  // the thread's keys key0, key0 + 8 of the tile
+    const bool kok[2] = {((bits >> key0) & 1) != 0, ((bits >> (key0 + 8)) & 1) != 0};
+    const int n_qt = (n + SROWS - 1) / SROWS;
+    const bool tri = causal && pmask == nullptr;
+    int qt = tri ? k0 / SROWS : 0;
+    auto issue = [&](int q_t, int st) {
+      const int q0 = q_t * SROWS;
+      tf32::load_tile_async<D, SROWS>(qs + st * TS, base + (int64_t)h * D, stride, q0, n);
+      tf32::load_tile_async<D, SROWS>(dos + st * TS, dobase, hd, q0, n);
+      if (pmask != nullptr) tc::load_mask_tile<SROWS, ROWS>(pms + st * PM, pmask, q0, k0, n);
+    };
+    // lse (times log2(e), for exp_diff) of query q0 + r by threads r < 32,
+    // delta by threads 32 + r: loaded a tile ahead, stored after the
+    // products so that the load's latency hides behind them
+    const int r = threadIdx.x % SROWS;
+    const bool stat_thread = threadIdx.x < 2 * SROWS;
+    auto row_stat = [&](int q_t) {
+      const int row = q_t * SROWS + r;
+      if (!stat_thread || row >= n) return 0.f;
+      return threadIdx.x < SROWS ? lse_bh[row] * tc::LOG2E : del_bh[row];
+    };
+    float* stat_s = threadIdx.x < SROWS ? lse_s : del_s;
+    tf32::load_tile_async<D>(ks, base + (int64_t)(heads + h) * D, stride, k0, n);
+    tf32::load_tile_async<D>(vs, base + (int64_t)(2 * heads + h) * D, stride, k0, n);
+    issue(qt, 0);
+    tc::cp_async_commit();
+    if (stat_thread) stat_s[r] = row_stat(qt);
+    for (int st = 0; qt < n_qt; ++qt, st ^= 1) {
+      const float next_stat = qt + 1 < n_qt ? row_stat(qt + 1) : 0.f;
+      if (qt + 1 < n_qt) issue(qt + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+      __syncthreads();
+      const int q0 = qt * SROWS;
+      float* q_s = qs + st * TS;
+      float* do_s = dos + st * TS;
+      tf32::split_tiles<D, SROWS>(q_s, q_lo, do_s, do_lo, 0, n, nullptr, nullptr);
+      __syncthreads();  // the tiles are split, once for every warp
+
+      const bool need_mask = bits != ~0ull || pmask != nullptr ||
+                             (causal && q0 < k0 + ROWS) || q0 + SROWS > n;
+      const int8_t* pm_t = pms + st * PM;
+      float sT[4][4], dpT[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        tf32::FragA ka, va;
+        tf32::load_a<D>(ka, ks, 16 * warp, 8 * kk);
+        tf32::load_a<D>(va, vs, 16 * warp, 8 * kk);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          tf32::FragB qb[2], db[2];
+          tf32::load_b_rows<D>(qb, q_s, q_lo, 16 * np, 8 * kk);
+          tf32::load_b_rows<D>(db, do_s, do_lo, 16 * np, 8 * kk);
+          tf32::mma3(sT[2 * np], ka, qb[0]);
+          tf32::mma3(sT[2 * np + 1], ka, qb[1]);
+          tf32::mma3(dpT[2 * np], va, db[0]);
+          tf32::mma3(dpT[2 * np + 1], va, db[1]);
+        }
+      }
+
+      // p^T into sT, ds^T into dpT
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          bool ok = true;
+          if (need_mask) {
+            ok = kok[e >> 1] && q0 + c < n;
+            if (pmask != nullptr) {
+              ok = ok && pm_t[c * ROWS + key] != 0;
+            } else if (causal) {
+              ok = ok && q0 + c >= k0 + key;
+            }
+          }
+          const float sv = ok ? sT[j][e] * scale : NEG_INF;
+          const float p =
+              sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_s[st * SROWS + c]) : 0.f;
+          sT[j][e] = p;
+          dpT[j][e] = p * (dpT[j][e] - del_s[st * SROWS + c]) * scale;
+        }
+
+      // dV += P^T.dO, then dK += dS^T.Q, over the tile's 32 queries
+      const float one[2] = {1.f, 1.f};
+      tf32::FragA fa[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tf32::c_to_a(fa[kk], sT[kk]);
+      tf32::fold_product<D>(dv, fa, do_s, do_lo, one);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tf32::c_to_a(fa[kk], dpT[kk]);
+      tf32::fold_product<D>(dk, fa, q_s, q_lo, one);
+      if (stat_thread) stat_s[(st ^ 1) * SROWS + r] = next_stat;
+      __syncthreads();  // stage st is no longer read
+    }
+  }
+
+  // each warp's own rows of the K and V tiles hold its dk and dv
+  float* out = dqkv + (int64_t)b * n * stride;
+  tf32::store_inverse_rotated<D>(dk, ks + 16 * warp * tf32::stride<D>(),
+                                 out + (int64_t)(heads + h) * D, stride, k0 + 16 * warp, n,
+                                 cos_t, sin_t);
+  tf32::store_inverse_rotated<D>(dv, vs + 16 * warp * tf32::stride<D>(),
+                                 out + (int64_t)(2 * heads + h) * D, stride, k0 + 16 * warp,
+                                 n, cos_t, sin_t);
+}
+
+// dq: one block per (64-row query tile, head, batch row); warp w owns
+// query rows 16w .. 16w + 15, as dq_tc_kernel, over streamed tiles of 32
+// keys.
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 3 : (D <= 64 ? 2 : 1))
+    dq_tf32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   const uint8_t* __restrict__ kmask, const int8_t* __restrict__ pmask,
+                   const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                   float* __restrict__ dqkv, int n, int heads, int causal, float scale) {
+  using tf32::ROWS;
+  using tf32::SROWS;
+  constexpr int TF = tf32::tile_floats<D>(), TS = tf32::tile_floats<D, SROWS>();
+  constexpr int PM = ROWS * SROWS;  // bytes of a pattern tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // (64, DS)
+  float* dos = qs + TF;                            // (64, DS)
+  float* ks = dos + TF;                            // 2 stages of (32, DS)
+  float* vs = ks + 2 * TS;                         // 2 stages of (32, DS)
+  float* k_lo = vs + 2 * TS;                       // the small parts of the current K tile
+  float* v_lo = k_lo + TS;                         // ... and of its V tile
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(v_lo + TS);  // 2 stages of 1 word (+ 2)
+  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 32)
+
+  const bool tri = causal && pmask == nullptr;
+  const int qt = tri ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * ROWS, h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t stride = 3LL * heads * D, hd = (int64_t)heads * D;
+  const float* base = qkv + (int64_t)b * n * stride;
+  const float* ksrc = base + (int64_t)(heads + h) * D;
+  const float* vsrc = base + (int64_t)(2 * heads + h) * D;
+  const uint8_t* kmask_b = kmask == nullptr ? nullptr : kmask + (int64_t)b * n;
+
+  // lse (times log2(e), for exp_diff) and delta of the thread's rows r0
+  // and r0 + 8
+  const int r0 = q0 + 16 * warp + g;
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    lse_r[i] = row < n ? lse[((int64_t)b * heads + h) * n + row] * tc::LOG2E : 0.f;
+    del_r[i] = row < n ? delta[((int64_t)b * heads + h) * n + row] : 0.f;
+  }
+
+  int n_tiles = (n + SROWS - 1) / SROWS;
+  if (tri) n_tiles = min(n_tiles, (q0 + ROWS - 1) / SROWS + 1);
+  auto next_live = [&](int kt, int st) {
+    if (kmask_b != nullptr)
+      while (kt < n_tiles && !tc::tile_keys<SROWS>(kmask_b, kt * SROWS, n, kbits + st))
+        ++kt;
+    return kt;
+  };
+  auto issue = [&](int kt, int st) {
+    tf32::load_tile_async<D, SROWS>(ks + st * TS, ksrc, stride, kt * SROWS, n);
+    tf32::load_tile_async<D, SROWS>(vs + st * TS, vsrc, stride, kt * SROWS, n);
+    if (pmask != nullptr)
+      tc::load_mask_tile<ROWS, SROWS>(pms + st * PM, pmask, q0, kt * SROWS, n);
+  };
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  int kt = next_live(0, 0), st = 0;
+  if (kt < n_tiles) {
+    tf32::load_tile_async<D>(qs, base + (int64_t)h * D, stride, q0, n);
+    tf32::load_tile_async<D>(dos, dout + (int64_t)b * n * hd + (int64_t)h * D, hd, q0, n);
+    issue(kt, 0);
+  }
+  tc::cp_async_commit();
+  while (kt < n_tiles) {
+    const int nxt = next_live(kt + 1, st ^ 1);
+    if (nxt < n_tiles) issue(nxt, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = kt * SROWS;
+    float* k_s = ks + st * TS;
+    float* v_s = vs + st * TS;
+    tf32::split_tiles<D, SROWS>(k_s, k_lo, v_s, v_lo, 0, n, nullptr, nullptr);
+    __syncthreads();  // the tiles are split, once for every warp
+
+    const uint64_t bits = tc::key_bits<SROWS>(kmask_b != nullptr, kbits + st, k0, n);
+    const bool need_mask = bits != tc::all_keys<SROWS>() || pmask != nullptr ||
+                           (causal && k0 + SROWS > q0 + 1);
+    const int8_t* pm_t = pms + st * PM;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      tf32::FragA qa, da;
+      tf32::load_a<D>(qa, qs, 16 * warp, 8 * kk);
+      tf32::load_a<D>(da, dos, 16 * warp, 8 * kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        tf32::FragB kb[2], vb[2];
+        tf32::load_b_rows<D>(kb, k_s, k_lo, 16 * np, 8 * kk);
+        tf32::load_b_rows<D>(vb, v_s, v_lo, 16 * np, 8 * kk);
+        tf32::mma3(s[2 * np], qa, kb[0]);
+        tf32::mma3(s[2 * np + 1], qa, kb[1]);
+        tf32::mma3(dp[2 * np], da, vb[0]);
+        tf32::mma3(dp[2 * np + 1], da, vb[1]);
+      }
+    }
+
+    // ds, split into the A fragments of dS.K
+    tf32::FragA dsa[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, row = r0 + 8 * i, c = 8 * j + 2 * t + (e & 1);
+        bool ok = true;
+        if (need_mask) {
+          ok = ((bits >> c) & 1) && row < n;
+          if (pmask != nullptr) {
+            ok = ok && pm_t[(row - q0) * SROWS + c] != 0;
+          } else if (causal) {
+            ok = ok && row >= k0 + c;
+          }
+        }
+        const float sv = ok ? s[j][e] * scale : NEG_INF;
+        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_r[i]) : 0.f;
+        s[j][e] = p * (dp[j][e] - del_r[i]) * scale;
+      }
+      tf32::c_to_a(dsa[j], s[j]);
+    }
+
+    // dQ += dS.K over the tile's 32 keys
+    const float one[2] = {1.f, 1.f};
+    tf32::fold_product<D>(dq, dsa, k_s, k_lo, one);
+    __syncthreads();  // stage st is no longer read
+    kt = nxt;
+    st ^= 1;
+  }
+
+  tf32::store_inverse_rotated<D>(dq, qs + 16 * warp * tf32::stride<D>(),
+                                 dqkv + (int64_t)b * n * stride + (int64_t)h * D, stride,
+                                 q0 + 16 * warp, n, cos_t, sin_t);
+}
+
+// The four launches of one backward: rotate (when tables are given),
+// delta, dk/dv, dq. T = float: the split-3xTF32 passes; T = bf16: the
+// bf16 ones. Every operand of T and the scratch must be 16-byte aligned
+// (cp.async, vector accesses).
+template <typename T, int D>
+int launch(const void* qkv, const void* o, const void* lse, const void* dout,
+           const void* kmask, const void* pmask, const void* cos_t, const void* sin_t,
+           void* rot_scratch, void* delta, void* dqkv, int batch, int n, int heads,
+           int causal, float scale, cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   const int n_t = (n + tc::ROWS - 1) / tc::ROWS;
   if (n_t > 65535 || !tc::aligned16({qkv, o, dout, cos_t, sin_t, rot_scratch, dqkv})) return -1;
   const bool pattern = pmask != nullptr;
-  const int smem_kv = dkdv_tc_smem_bytes(D, pattern), smem_q = dq_tc_smem_bytes(D, pattern);
-  cudaError_t err = cudaFuncSetAttribute(dkdv_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  const int smem_kv = f32 ? dkdv_tf32_smem_bytes(D, pattern) : dkdv_tc_smem_bytes(D, pattern);
+  const int smem_q = f32 ? dq_tf32_smem_bytes(D, pattern) : dq_tc_smem_bytes(D, pattern);
+  void (*dkdv)(const T*, const T*, const float*, const float*, const uint8_t*, const int8_t*,
+               const T*, const T*, T*, int, int, int, float);
+  void (*dq)(const T*, const T*, const float*, const float*, const uint8_t*, const int8_t*,
+             const T*, const T*, T*, int, int, int, float);
+  if constexpr (f32) {
+    dkdv = dkdv_tf32_kernel<D>;
+    dq = dq_tf32_kernel<D>;
+  } else {
+    dkdv = dkdv_tc_kernel<D>;
+    dq = dq_tc_kernel<D>;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_q);
+  err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err != cudaSuccess) return (int)err;
 
   const int width = 3 * heads * D;
   const T* src = (const T*)qkv;
   if (cos_t != nullptr) {
-    const int64_t chunks = (int64_t)batch * n * width / 8;
-    const int64_t blocks = (chunks + THREADS - 1) / THREADS;
-    rotate_tc_kernel<D><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0, stream>>>(
-        (const T*)qkv, (const T*)cos_t, (const T*)sin_t, (T*)rot_scratch, chunks, n, width);
+    if constexpr (f32) {
+      const int64_t total = (int64_t)batch * n * width;
+      const int64_t blocks = (total + THREADS - 1) / THREADS;
+      rotate_kernel<float, D><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0, stream>>>(
+          (const T*)qkv, (const T*)cos_t, (const T*)sin_t, (T*)rot_scratch, total, n, width);
+    } else {
+      const int64_t chunks = (int64_t)batch * n * width / 8;
+      const int64_t blocks = (chunks + THREADS - 1) / THREADS;
+      rotate_tc_kernel<D><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0, stream>>>(
+          (const T*)qkv, (const T*)cos_t, (const T*)sin_t, (T*)rot_scratch, chunks, n, width);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     src = (const T*)rot_scratch;
   }
-  const int64_t chunks = (int64_t)batch * n * heads * D / 8;
-  delta_tc_kernel<D><<<(unsigned)((chunks + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      (const T*)o, (const T*)dout, (float*)delta, chunks, n, heads);
+  if constexpr (f32) {
+    const int64_t warps = (int64_t)batch * n * heads;
+    delta_kernel<float, D><<<(unsigned)((warps * 32 + THREADS - 1) / THREADS), THREADS, 0,
+                             stream>>>((const T*)o, (const T*)dout, (float*)delta, warps, n,
+                                       heads);
+  } else {
+    const int64_t chunks = (int64_t)batch * n * heads * D / 8;
+    delta_tc_kernel<D><<<(unsigned)((chunks + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+        (const T*)o, (const T*)dout, (float*)delta, chunks, n, heads);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid(heads, batch, n_t);
-  dkdv_tc_kernel<D><<<grid, tc::THREADS, smem_kv, stream>>>(
+  dkdv<<<grid, tc::THREADS, smem_kv, stream>>>(
       src, (const T*)dout, (const float*)lse, (const float*)delta, (const uint8_t*)kmask,
       (const int8_t*)pmask, (const T*)cos_t, (const T*)sin_t, (T*)dqkv, n, heads, causal,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_tc_kernel<D><<<grid, tc::THREADS, smem_q, stream>>>(
+  dq<<<grid, tc::THREADS, smem_q, stream>>>(
       src, (const T*)dout, (const float*)lse, (const float*)delta, (const uint8_t*)kmask,
       (const int8_t*)pmask, (const T*)cos_t, (const T*)sin_t, (T*)dqkv, n, heads, causal,
       scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch(const void* qkv, const void* o, const void* lse, const void* dout,
-           const void* kmask, const void* pmask, const void* cos_t,
-           const void* sin_t, void* rot_scratch, void* delta, void* dqkv,
-           int batch, int n, int heads, int causal, float scale,
-           cudaStream_t stream) {
-  constexpr int smem_kv = dkdv_smem_bytes<D>();
-  constexpr int smem_q = dq_smem_bytes<D>();
-  int device = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  if (smem_kv > smem_max || smem_q > smem_max) return -1;
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
-  if (err != cudaSuccess) return (int)err;
-
-  const int width = 3 * heads * D;
-  const T* src = (const T*)qkv;
-  if (cos_t != nullptr) {
-    const int64_t total = (int64_t)batch * n * width;
-    const int64_t blocks = (total + THREADS - 1) / THREADS;
-    rotate_kernel<T, D><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0, stream>>>(
-        (const T*)qkv, (const T*)cos_t, (const T*)sin_t, (T*)rot_scratch, total, n, width);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    src = (const T*)rot_scratch;
-  }
-  const int64_t warps = (int64_t)batch * n * heads;
-  delta_kernel<T, D><<<(unsigned)((warps * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      (const T*)o, (const T*)dout, (float*)delta, warps, n, heads);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 grid((n + 63) / 64, heads, batch);
-  dkdv_kernel<T, D><<<grid, THREADS, smem_kv, stream>>>(
-      src, (const T*)dout, (const float*)lse, (const float*)delta,
-      (const uint8_t*)kmask, (const int8_t*)pmask, (const T*)cos_t,
-      (const T*)sin_t, (T*)dqkv, n, heads, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dq_kernel<T, D><<<grid, THREADS, smem_q, stream>>>(
-      src, (const T*)dout, (const float*)lse, (const float*)delta,
-      (const uint8_t*)kmask, (const int8_t*)pmask, (const T*)cos_t,
-      (const T*)sin_t, (T*)dqkv, n, heads, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(int d, const void* qkv, const void* o, const void* lse,
-               const void* dout, const void* kmask, const void* pmask,
-               const void* cos_t, const void* sin_t, void* rot_scratch,
-               void* delta, void* dqkv, int batch, int n, int heads,
+int dispatch_d(int d, const void* qkv, const void* o, const void* lse, const void* dout,
+               const void* kmask, const void* pmask, const void* cos_t, const void* sin_t,
+               void* rot_scratch, void* delta, void* dqkv, int batch, int n, int heads,
                int causal, float scale, cudaStream_t stream) {
   switch (d) {
     case 32: return launch<T, 32>(qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, stream);
@@ -977,8 +990,9 @@ int dispatch_d(int d, const void* qkv, const void* o, const void* lse,
 // needed only with cos/sin. Four launches on `stream` (rotate when tables
 // are given, delta, dk/dv, dq). Returns cudaGetLastError() after them (0
 // on success), or -1 for what the kernels cannot take: a dim_head other
-// than 32/64/128, a dtype code other than 0/1, an empty shape, or more
-// heads or batch rows than a grid dimension holds.
+// than 32/64/128, a dtype code other than 0/1, an empty shape, more
+// heads or batch rows than a grid dimension holds, or an operand of
+// qkv's type (or the scratch) not 16-byte aligned.
 extern "C" int fused_qkv_attention_bwd(
     const void* qkv, const void* o, const void* lse, const void* dout,
     const void* kmask, const void* pmask, const void* cos_t, const void* sin_t,
@@ -989,13 +1003,7 @@ extern "C" int fused_qkv_attention_bwd(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d<float>(dim_head, qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
-  if (dtype == 1) {
-    switch (dim_head) {
-      case 32: return launch_tc<32>(qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
-      case 64: return launch_tc<64>(qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
-      case 128: return launch_tc<128>(qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
-      default: return -1;
-    }
-  }
+  if (dtype == 1)
+    return dispatch_d<tc::bf16>(dim_head, qkv, o, lse, dout, kmask, pmask, cos_t, sin_t, rot_scratch, delta, dqkv, batch, n, heads, causal, scale, s);
   return -1;
 }

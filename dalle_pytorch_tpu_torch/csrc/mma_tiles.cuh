@@ -2,7 +2,9 @@
 // kernels (fused_qkv_attention.cu, fused_qkv_attention_bwd.cu): 16-byte
 // cp.async copies with zero fill, ldmatrix (plain and transposed), the
 // bf16 mma.sync.m16n8k16 with float32 accumulation, and the in-place
-// rotary of a tile in shared memory.
+// rotary of a tile in shared memory. The copies, ldmatrix and the
+// pattern / key-mask tiles serve the float32 instances too
+// (tf32_tiles.cuh).
 //
 // Tiles are ROWS = 64 rows of d bf16 channels in shared memory, each row
 // padded by 16 bytes (a stride of d + 8 elements, an odd number of 16-byte
@@ -79,37 +81,41 @@ __device__ __forceinline__ void load_tile_async(bf16* __restrict__ dst,
   }
 }
 
-// the (ROWS, ROWS) block at (row0, col0) of a row-major (n, n) int8 mask
-// into shared bytes, rows and columns past n zero; by 16-byte cp.async
-// when n is a multiple of 16 (every row 16-byte aligned), else by bytes
+// the (R, C) block at (row0, col0) of a row-major (n, n) int8 mask into
+// shared bytes (rows C apart), rows and columns past n zero; by 16-byte
+// cp.async when n is a multiple of 16 (every row 16-byte aligned), else
+// by bytes
+template <int R = ROWS, int C = ROWS>
 __device__ __forceinline__ void load_mask_tile(int8_t* __restrict__ dst,
                                                const int8_t* __restrict__ mask,
                                                int row0, int col0, int n) {
   if (n % 16 == 0) {
-    for (int x = threadIdx.x; x < ROWS * ROWS / 16; x += THREADS) {
-      const int r = x / 4, c = (x % 4) * 16;
+    constexpr int CC = C / 16;  // 16-byte chunks per row
+    for (int x = threadIdx.x; x < R * CC; x += THREADS) {
+      const int r = x / CC, c = (x % CC) * 16;
       const bool ok = row0 + r < n && col0 + c < n;
-      cp_async16(dst + r * ROWS + c,
+      cp_async16(dst + r * C + c,
                  mask + (ok ? (int64_t)(row0 + r) * n + col0 + c : 0), ok);
     }
   } else {
-    for (int x = threadIdx.x; x < ROWS * ROWS; x += THREADS) {
-      const int r = x / ROWS, c = x % ROWS;
+    for (int x = threadIdx.x; x < R * C; x += THREADS) {
+      const int r = x / C, c = x % C;
       const bool ok = row0 + r < n && col0 + c < n;
       dst[x] = ok ? mask[(int64_t)(row0 + r) * n + col0 + c] : 0;
     }
   }
 }
 
-// The 64 keys k0 .. k0 + 63 that pass the key mask (kmask_b, the batch
-// row's (n) mask), as bits into bits[0] (keys 0-31) and bits[1] (32-63),
-// written by warps 0 and 1; true on every thread when any does. A
-// barrier: call it uniformly.
+// The K (64 or 32) keys k0 .. k0 + K - 1 that pass the key mask
+// (kmask_b, the batch row's (n) mask), as bits into bits[0] (keys 0-31)
+// and bits[1] (32-63), written by warps 0 and 1; true on every thread
+// when any does. A barrier: call it uniformly.
+template <int K = ROWS>
 __device__ __forceinline__ bool tile_keys(const uint8_t* __restrict__ kmask_b, int k0,
                                           int n, uint32_t* __restrict__ bits) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   bool ok = false;
-  if (w < 2) {
+  if (w < K / 32) {
     const int col = k0 + 32 * w + lane;
     ok = col < n && kmask_b[col] != 0;
     const uint32_t ballot = __ballot_sync(0xffffffffu, ok);
@@ -118,12 +124,18 @@ __device__ __forceinline__ bool tile_keys(const uint8_t* __restrict__ kmask_b, i
   return __syncthreads_or(ok) != 0;
 }
 
-// The bits of the keys k0 .. k0 + 63 that may be attended: those of
+// Every bit of a tile of K keys
+template <int K = ROWS> __device__ __forceinline__ constexpr uint64_t all_keys() {
+  return K == 64 ? ~0ull : (1ull << K) - 1;
+}
+
+// The bits of the K keys k0 .. k0 + K - 1 that may be attended: those of
 // tile_keys (bits, with a key mask) or those that exist (without one)
+template <int K = ROWS>
 __device__ __forceinline__ uint64_t key_bits(bool masked, const uint32_t* bits, int k0,
                                              int n) {
-  if (masked) return bits[0] | ((uint64_t)bits[1] << 32);
-  return n - k0 >= ROWS ? ~0ull : (1ull << (n - k0)) - 1;
+  if (masked) return K == 64 ? bits[0] | ((uint64_t)bits[1] << 32) : bits[0];
+  return n - k0 >= K ? all_keys<K>() : (1ull << (n - k0)) - 1;
 }
 
 // four 8 x 8 b16 matrices; lane i gives the row address of matrix i / 8

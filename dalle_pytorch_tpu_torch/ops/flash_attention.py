@@ -17,7 +17,9 @@ applied to q, k AND v, the reference's quirk, from cos/sin tables that
   hand-written CUDA kernels (``csrc/fused_qkv_attention.cu``,
   ``csrc/fused_qkv_attention_bwd.cu``). The tensor's device decides: a
   CUDA tensor launches the kernel or raises, a CPU tensor runs the plain
-  version. Each wrapper's ``launches`` counts its kernel launches.
+  version. Each wrapper's ``launches`` counts its kernel launches. Both
+  types run on the tensor cores: bfloat16 as bf16 tiles, float32 as
+  split 3xTF32 tiles, which hold float32's accuracy.
 - ``FusedQKVAttention`` is the ``torch.autograd.Function`` over the two:
   it saves qkv, o and the lse, whose own gradient is not defined; the key
   mask gets none.
@@ -231,7 +233,8 @@ def _ptr(t) -> ctypes.c_void_p:
 
 def _check(err: int, name: str, n: int, h: int, d: int) -> None:
     if err == -1:
-        raise ValueError(f"the {name} kernel cannot take n={n}, heads={h}, dim_head={d}")
+        raise ValueError(f"the {name} kernel cannot take n={n}, heads={h}, dim_head={d}, "
+                         "or an operand that is not 16-byte aligned")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
 
@@ -244,8 +247,8 @@ def fused_qkv_attention(qkv, heads: int, dim_head: int, key_mask=None,
     (b, h, 1, n) float32; arguments as ``reference_fused_qkv``. CPU
     tensors run ``reference_fused_qkv``; CUDA tensors launch the kernel,
     which takes contiguous float32 or bfloat16 qkv, dim_head 32/64/128
-    and any n (bfloat16 runs on the tensor cores and needs qkv and the
-    rotary tables 16-byte aligned)."""
+    and any n, with qkv and the rotary tables 16-byte aligned (both types
+    run on the tensor cores and load tiles by 16-byte ``cp.async``)."""
     if not qkv.is_cuda:
         return reference_fused_qkv(qkv, heads, dim_head, key_mask, causal,
                                    pattern_mask, rot, sm_scale)
@@ -279,7 +282,8 @@ def fused_qkv_attention_bwd(qkv, o, lse, do, heads: int, dim_head: int,
     (b, n, 3*h*d); arguments as ``reference_fused_qkv_bwd``. CPU tensors
     run ``reference_fused_qkv_bwd``; CUDA tensors launch the kernel, which
     takes what the forward kernel takes, with o and do contiguous
-    (b, n, h*d) of qkv's dtype and lse contiguous (b, h, 1, n) float32."""
+    (b, n, h*d) of qkv's dtype and 16-byte aligned, and lse contiguous
+    (b, h, 1, n) float32."""
     if not qkv.is_cuda:
         return reference_fused_qkv_bwd(qkv, o, lse, do, heads, dim_head,
                                        key_mask, causal, pattern_mask, rot,

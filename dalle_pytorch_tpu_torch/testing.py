@@ -31,6 +31,14 @@ a layout, and are held the same way (``FLASH_F32_ATOL``,
 ``FLASH_BF16_ROW_REL``, ``BWD_F32_REL``, ``BWD_BF16_ROW_REL``;
 ``flash_fwd_errors``, ``flash_bwd_errors``) on ``flash_inputs``.
 
+The packed-qkv kernels' float32 instances run every product as split
+3xTF32 on the tensor cores. ``tf32_round``, ``split_tf32`` and
+``matmul_3xtf32`` emulate that arithmetic in plain PyTorch, and
+``emulated_fused_qkv`` runs the packed attention, forward and backward,
+with its products so emulated (or as single-pass TF32, ``matmul_tf32``),
+so that the CPU tests can show that the split holds float32's
+tolerances and that one TF32 pass does not.
+
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
 within ``DECODE_BF16_ROW_REL`` of the plain row, the returned k/v rows
@@ -48,9 +56,12 @@ import torch.nn.functional as F
 from .ops import block_sparse_attention as bs
 from .ops import flash_attention as fa
 from .ops import masks, paged_kv
-from .ops.rotary import dalle_rotary_table, rot_tables
+from .ops.rotary import dalle_rotary_table, rot_tables, rotate_half
 
 BWD_F32_REL, BWD_BF16_ROW_REL = 1e-5, 2e-2
+# the packed-qkv forward in float32 against its plain version: max abs
+# error over o and lse
+F32_ATOL = 1e-5
 BS_F32_ATOL, BS_BF16_ROW_REL = 1e-5, 1e-2
 FLASH_F32_ATOL, FLASH_BF16_ROW_REL = BS_F32_ATOL, BS_BF16_ROW_REL
 # the ragged kernel (both instances) against its plain version on valid
@@ -264,6 +275,78 @@ def bwd_inputs(case: str, dtype, device, seed: int = 0):
     do = torch.from_numpy(rng.randn(b, n, h * d).astype(np.float32)).to(device, dtype)
     o, lse = fa.reference_fused_qkv(qkv, h, d, **opts)
     return qkv, o, lse, do, h, d, opts
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to
+    the nearest value with 10 explicit mantissa bits, ties away from
+    zero, the low 13 bits zero. Infinities and NaNs pass unchanged."""
+    x = x.float().contiguous()
+    bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF  # unsigned
+    r = (bits + 0x1000) & 0xFFFFE000  # the magnitude rounds, the sign stays
+    r = torch.where(r >= 2**31, r - 2**32, r).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def split_tf32(x: torch.Tensor):
+    """(big, small), both TF32: big = ``tf32_round(x)``, small =
+    ``tf32_round(x - big)``; big + small is x within 2^-22 relative."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the float32 kernels compute it on the tensor cores: each
+    operand split into TF32 parts, small . big + big . small + big . big,
+    accumulated in float32 (each TF32 product is exact in float32)."""
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass: both operands rounded to TF32."""
+    return tf32_round(a) @ tf32_round(b)
+
+
+def emulated_fused_qkv(qkv, o, lse, do, heads: int, dim_head: int, matmul, key_mask=None,
+                       causal: bool = True, pattern_mask=None, rot=None):
+    """The packed attention on float32 ``qkv`` (b, n, 3*h*d) with every
+    (n, n, d) product computed by ``matmul`` (``matmul_3xtf32`` or
+    ``matmul_tf32``), otherwise the arithmetic of
+    ``reference_fused_qkv`` and ``reference_fused_qkv_bwd`` step by step.
+    Returns (o (b, n, h*d), lse (b, h, 1, n), dqkv (b, n, 3*h*d)); the
+    backward runs on the ``o`` and ``lse`` given (the plain forward's, as
+    the kernels' checks give them)."""
+    b, n, _ = qkv.shape
+    h, d = heads, dim_head
+    scale = d**-0.5
+    q, k, v = (t.reshape(b, n, h, d) for t in qkv.float().split(h * d, dim=-1))
+    if rot is not None:
+        cos, sin = (t[:n, None].float() for t in rot)
+        q, k, v = (t * cos + rotate_half(t) * sin for t in (q, k, v))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, n, d)
+    allowed = fa.may_attend(n, qkv.device, key_mask, causal, pattern_mask)
+    s = (matmul(q, k.transpose(-1, -2)) * scale).masked_fill(~allowed, fa.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - m), 0.0)
+    l_safe = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l_safe == 0, 1.0, l_safe)
+    own_o = (matmul(p, v) / l_safe).transpose(1, 2).reshape(b, n, h * d)
+    own_lse = (m + torch.log(l_safe)).transpose(-1, -2)
+    p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - lse.transpose(-1, -2)), 0.0)
+    do4 = do.float().reshape(b, n, h, d).transpose(1, 2)
+    dv = matmul(p.transpose(-1, -2), do4)
+    dp = matmul(do4, v.transpose(-1, -2))
+    delta = (do4 * o.float().reshape(b, n, h, d).transpose(1, 2)).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = matmul(ds, k)
+    dk = matmul(ds.transpose(-1, -2), q)
+    grads = [t.transpose(1, 2) for t in (dq, dk, dv)]  # (b, n, h, d)
+    if rot is not None:
+        grads = [t * cos - rotate_half(t) * sin for t in grads]
+    dqkv = torch.cat([t.reshape(b, n, h * d) for t in grads], dim=-1)
+    return own_o, own_lse, dqkv
 
 
 def teacher_forced_logits(dalle, cache, text, image, chunk: int) -> torch.Tensor:

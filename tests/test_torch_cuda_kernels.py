@@ -21,6 +21,7 @@ from dalle_pytorch_tpu_torch.testing import (
     BS_F32_ATOL,
     BWD_BF16_ROW_REL,
     BWD_F32_REL,
+    F32_ATOL,
     FLASH_BF16_ROW_REL,
     FLASH_F32_ATOL,
     bs_bwd_errors,
@@ -370,10 +371,10 @@ def test_fused_qkv_bwd_kernel_rejects_what_it_cannot_take(cuda):
 PACKED_BF16_MODES = ["causal_rotary", "key_mask", "pattern_row", "pattern_col"]
 
 
-def _packed_bf16_inputs(n, d, mode, device, seed=0):
+def _packed_inputs(n, d, mode, device, dtype=torch.bfloat16, seed=0):
     """(qkv, do, heads, options) at n and dim_head d, 2 batch rows of 2
-    heads, bfloat16: causal with the DALL-E rotary table; non-causal with
-    a key mask whose second row masks every key and whose first row
+    heads, in ``dtype``: causal with the DALL-E rotary table; non-causal
+    with a key mask whose second row masks every key and whose first row
     masks the whole key tile 64-127 (where n reaches it); or causal with
     the rotary table and the axial-row / axial-column pattern mask."""
     b, h = 2, 2
@@ -387,13 +388,12 @@ def _packed_bf16_inputs(n, d, mode, device, seed=0):
         opts["key_mask"] = km.to(device)
     else:
         table = torch.from_numpy(dalle_rotary_table(d, max(text_len, 2), fmap)).to(device)
-        opts["rot"] = rot_tables(table, n, d, torch.bfloat16)
+        opts["rot"] = rot_tables(table, n, d, dtype)
     if mode.startswith("pattern"):
         pattern = masks.axial_mask(max(text_len, 2), fmap, int(mode == "pattern_col"))[:n, :n]
         opts["pattern_mask"] = torch.from_numpy(pattern).to(device)
-    qkv = torch.from_numpy(rng.randn(b, n, 3 * h * d).astype(np.float32)).to(device,
-                                                                             torch.bfloat16)
-    do = torch.from_numpy(rng.randn(b, n, h * d).astype(np.float32)).to(device, torch.bfloat16)
+    qkv = torch.from_numpy(rng.randn(b, n, 3 * h * d).astype(np.float32)).to(device, dtype)
+    do = torch.from_numpy(rng.randn(b, n, h * d).astype(np.float32)).to(device, dtype)
     return qkv, do, h, opts
 
 
@@ -410,7 +410,7 @@ def test_fused_qkv_bf16_tensor_core_kernels_match_plain(cuda, n, dim_head, mode)
     ``BWD_BF16_ROW_REL``; rows the masks leave without a key exactly 0
     (o, dq) with lse -1e30, keys no query attends exactly 0 (dk, dv), the
     fully masked batch row's gradient exactly 0; one launch each."""
-    qkv, do, h, opts = _packed_bf16_inputs(n, dim_head, mode, cuda)
+    qkv, do, h, opts = _packed_inputs(n, dim_head, mode, cuda)
     plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, dim_head, **opts)
     before = (fa.fused_qkv_attention.launches, fa.fused_qkv_attention_bwd.launches)
     o, lse = fa.fused_qkv_attention(qkv, h, dim_head, **opts)
@@ -432,6 +432,54 @@ def test_fused_qkv_bf16_tensor_core_kernels_match_plain(cuda, n, dim_head, mode)
     assert zeros_exact and row_rel <= BWD_BF16_ROW_REL, row_rel
     if mode == "key_mask":
         assert (got[1] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", PACKED_BF16_MODES)
+@pytest.mark.parametrize("dim_head", [32, 64, 128])
+@pytest.mark.parametrize("n", [17, 64, 200, 1280])
+def test_fused_qkv_f32_tensor_core_kernels_match_plain(cuda, n, dim_head, mode):
+    """The float32 instances (split-3xTF32 tensor-core tiles) of the packed
+    forward and backward against their plain versions on the same inputs
+    as the bf16 test, in float32: o and lse within abs ``F32_ATOL`` on
+    rows with an allowed key, dq, dk and dv each within relative L2
+    ``BWD_F32_REL``; rows the masks leave without a key exactly 0 (o, dq)
+    with lse -1e30, keys no query attends exactly 0 (dk, dv), the fully
+    masked batch row's gradient exactly 0; one launch each."""
+    qkv, do, h, opts = _packed_inputs(n, dim_head, mode, cuda, torch.float32)
+    plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, dim_head, **opts)
+    before = (fa.fused_qkv_attention.launches, fa.fused_qkv_attention_bwd.launches)
+    o, lse = fa.fused_qkv_attention(qkv, h, dim_head, **opts)
+    got = fa.fused_qkv_attention_bwd(qkv, plain_o, plain_lse, do, h, dim_head, **opts)
+    plain = fa.reference_fused_qkv_bwd(qkv, plain_o, plain_lse, do, h, dim_head, **opts)
+    torch.cuda.synchronize()
+    assert (fa.fused_qkv_attention.launches, fa.fused_qkv_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all() and torch.isfinite(got).all()
+    allowed = fa.may_attend(n, cuda, opts.get("key_mask"), opts["causal"],
+                            opts.get("pattern_mask"))[:, 0].expand(2, n, n)
+    live = allowed.any(dim=2)
+    assert (o[~live] == 0).all() and (lse[:, :, 0].transpose(1, 2)[~live] == fa.NEG_INF).all()
+    err = max((o - plain_o)[live].abs().max().item(),
+              (lse - plain_lse)[:, :, 0].transpose(1, 2)[live].abs().max().item())
+    assert err <= F32_ATOL, err
+    rel, _, zeros_exact = bwd_errors(got, plain, h, dim_head, opts)
+    assert zeros_exact and rel <= BWD_F32_REL, rel
+    if mode == "key_mask":
+        assert (got[1] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", PACKED_BF16_MODES)
+def test_fused_qkv_f32_tensor_core_kernels_are_deterministic(cuda, mode):
+    """No float atomics in the split-3xTF32 instances: at a ragged n (200)
+    two runs of the forward and of the backward are bit-identical."""
+    qkv, do, h, opts = _packed_inputs(200, 64, mode, cuda, torch.float32)
+    o, lse = fa.fused_qkv_attention(qkv, h, 64, **opts)
+    o2, lse2 = fa.fused_qkv_attention(qkv, h, 64, **opts)
+    first = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, 64, **opts)
+    second = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, 64, **opts)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(first, second)
 
 
 @pytest.mark.gpu
