@@ -127,7 +127,9 @@ tiled flash kernels (forward, dq, dk/dv, single-block backward) on
 rows at dim_head 32/64/96/128, non-causal, a pattern at a small n, and
 one flash block of 1280 at 3 heads, float32 and bfloat16, each timed at
 its main path's shape beside its plain version and
-``scaled_dot_product_attention``. Phase 4 also checks a small float32
+``scaled_dot_product_attention`` (float32 dq and dk/dv on split-3xTF32
+tensor-core tiles, their bounds, like every float32 tiled bound, at the
+3xTF32 rate with the CUDA-core bound beside). Phase 4 also checks a small float32
 DALLE's loss and every parameter gradient, card against CPU, for the
 full model, for the four-type sparse cycle, at n 1152 (the tiled
 kernels, dq then dk/dv) and at n 384 with 3 heads (one flash block: the
@@ -139,15 +141,17 @@ limit; the line before it the kernels' JSON; the last line
 
 Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
 spills) for the packed-qkv kernels' tensor-core instances (bf16, and
-float32 as split 3xTF32) and for every instance of the ragged kernel,
-and counts the HMMA instructions of each packed instance in the built
-libraries (``cuobjdump -sass``), failing unless every float32 instance
-holds TF32 HMMA.
+float32 as split 3xTF32), for the tiled flash float32 dq and dk/dv
+(split 3xTF32) and for every instance of the ragged kernel, and counts
+the HMMA instructions of each packed instance and each tiled float32 dq
+and dk/dv instance in the built libraries (``cuobjdump -sass``), failing
+unless every float32 instance holds ``HMMA.1688.F32.TF32``.
 
 Paired comparisons, one card, none of the phases above:
 
     python3 chip_smoke.py --ragged-source OTHER/ragged_attention.cu
     python3 chip_smoke.py --packed-source OTHER/csrc
+    python3 chip_smoke.py --tiled-source OTHER/csrc
     python3 chip_smoke.py --generate-pairs 3
 
 the first times this checkout's ragged kernel against the same file of
@@ -160,7 +164,14 @@ outputs against the plain versions (printing max |this - other|),
 checks that the two trees' bf16 outputs are bitwise equal, and times
 both trees alternating (bf16 forward at DALL-E's b 2 and CLIP's shape,
 bf16 backward and both float32 kernels at the training shape); the third
-times generation (a) against (b) in alternating pairs.
+builds another commit's ``flash_attention.cu`` with this checkout's
+headers, holds each tree's float32 dq, delta, dk and dv against the plain
+versions at the 512 px training shape and its axial_col pattern
+(printing max |this - other|), checks that the forward, the single-block
+backward and every bf16 output are bitwise equal across the trees, and
+times both trees' float32 dq and dk/dv at the 512 px shape alternating,
+sdpa backward and both bounds beside; the fourth times generation (a)
+against (b) in alternating pairs.
 """
 
 from __future__ import annotations
@@ -481,11 +492,11 @@ def fused_bound(qkv, h, d, opts):
 
 
 def packed_bounds(nbytes: int, ops: int, dtype) -> dict:
-    """``bound_ms`` and ``bound_by`` of the packed kernels' work of
-    ``nbytes`` and ``ops`` in ``dtype``. float32 products run as split
-    3xTF32 on the tensor cores, three TF32 products each, so their
-    operations count at TF32_PEAK_OPS / 3; ``bound_cuda_core_ms`` beside
-    is the bound at the CUDA cores' float32 rate."""
+    """``bound_ms`` and ``bound_by`` of attention work of ``nbytes`` and
+    ``ops`` in ``dtype`` (the packed and tiled kernels). float32 products
+    run as split 3xTF32 on the tensor cores, three TF32 products each, so
+    their operations count at TF32_PEAK_OPS / 3; ``bound_cuda_core_ms``
+    beside is the bound at the CUDA cores' float32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     rate = TF32_PEAK_OPS / 3 if dtype == torch.float32 else PEAK_OPS[dtype]
     t_ops = ops / rate
@@ -694,8 +705,8 @@ def check_fused_qkv_bwd() -> dict:
     }
 
 
-def pair_bounds(q, allowed, extra_bytes: int) -> dict:
-    """{pass: (bound_ms, bound_by)} of the attention passes over q, k, v
+def pair_work(q, allowed, extra_bytes: int) -> dict:
+    """{pass: (bytes, operations)} of the attention passes over q, k, v
     (b, h, n, d) where ``allowed`` (b or 1, 1, n, n) may attend, plus
     ``extra_bytes`` of masks and tables read once. Bytes: each input once,
     counting only what the work needs (q, o, do, lse and delta at query
@@ -718,10 +729,16 @@ def pair_bounds(q, allowed, extra_bytes: int) -> dict:
         "dkdv": (2 * row_d + 8 * rows + 2 * key_d + 2 * full_d, 4),
         "fused": (3 * row_d + 4 * rows + 2 * key_d + 3 * full_d, 5),
     }
+    return {name: (nbytes + extra_bytes, 2 * products * d * pairs)
+            for name, (nbytes, products) in work.items()}
+
+
+def pair_bounds(q, allowed, extra_bytes: int) -> dict:
+    """{pass: (bound_ms, bound_by)} of ``pair_work`` at the rates of q's
+    dtype outside the tensor cores for float32 (``PEAK_OPS``)."""
     out = {}
-    for name, (nbytes, products) in work.items():
-        t_bytes = (nbytes + extra_bytes) / HBM_BYTES_PER_S
-        t_ops = 2 * products * d * pairs / PEAK_OPS[q.dtype]
+    for name, (nbytes, ops) in pair_work(q, allowed, extra_bytes).items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[q.dtype]
         out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return out
 
@@ -871,17 +888,17 @@ def check_block_sparse() -> list:
 
 
 def flash_bounds(q, opts) -> dict:
-    """{kernel: (bound_ms, bound_by)} of the four tiled flash kernels on
-    these inputs (``pair_bounds``), the key mask, pattern and visit map as
-    passed."""
+    """{kernel: ``packed_bounds``} of the four tiled flash kernels on these
+    inputs (``pair_work``), the key mask, pattern and visit map as passed:
+    float32 at the split-3xTF32 rate with the CUDA-core bound beside."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
 
     b, _, n, _ = q.shape
     km, pattern = opts["key_mask"], opts["pattern"]
     extra = (n // fa.TILE) ** 2 + (0 if km is None else b * n) + (0 if pattern is None else n * n)
-    bounds = pair_bounds(q, fa.may_attend(n, q.device, km, opts["causal"], pattern), extra)
-    return {name: bounds[role] for name, role in zip(FLASH_TPU_KERNELS,
-                                                     ("fwd", "dq", "dkdv", "fused"))}
+    work = pair_work(q, fa.may_attend(n, q.device, km, opts["causal"], pattern), extra)
+    return {name: packed_bounds(*work[role], q.dtype)
+            for name, role in zip(FLASH_TPU_KERNELS, ("fwd", "dq", "dkdv", "fused"))}
 
 
 def run_flash(q, k, v, do, opts):
@@ -1015,28 +1032,26 @@ def check_flash_attention() -> list:
         sdpa_bwd_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
         for name, (kernel, plain) in t.items():
             rows[name].update(ms=cuda_time_ms(kernel, iters=10),
-                              plain_ms=cuda_time_ms(plain, warmup=1, iters=3),
-                              bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                              plain_ms=cuda_time_ms(plain, warmup=1, iters=3), **bounds[name],
                               library_ms=sdpa_ms if name == "flash_attention_fwd"
                               else sdpa_bwd_ms)
     q, k, v, do, opts = flash_inputs("one_block", torch.float32, "cuda", seed=1)
     o, lse = fa.flash_attention_fwd(q, k, v, **opts)
     name = "flash_attention_bwd_fused"
-    bound_ms, bound_by = flash_bounds(q, opts)[name]
     rows[name].update(
         ms=cuda_time_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts),
                         iters=20),
         plain_ms=cuda_time_ms(lambda: fa.reference_flash_attention_bwd(q, k, v, o, lse, do,
                                                                        **opts), iters=5),
-        bound_ms=bound_ms, bound_by=bound_by,
+        **flash_bounds(q, opts)[name],
         library_ms=cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=20))
     for name, row in rows.items():
         shape = "b 2, 3 x 64, n 1280" if name == "flash_attention_bwd_fused" else \
             "b 4, 16 x 64, n 4352"
         sdpa = "forward" if name == "flash_attention_fwd" else "backward"
         log(f"{name} float32 timing, cold L2 ({shape}, causal): kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, sdpa {sdpa} {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"plain {row['plain_ms']:.4f} ms, sdpa {sdpa} {row['library_ms']:.4f} ms, "
+            f"{bound_text(row)}"
             + (f"; bf16 kernel {row['ms_bf16']:.4f} ms" if "ms_bf16" in row else ""))
     return [rows[name] for name in FLASH_TPU_KERNELS]
 
@@ -1410,12 +1425,20 @@ def log_ptxas_report(procs: dict, markers) -> None:
                 log(f"ptxas {name}.cu {fn}: " + "; ".join(about))
 
 
+# entry functions of the split-3xTF32 float32 instances in each library
+# (``log_sass_report``): packed forward at dim_head 32/64/128, packed dq
+# and dk/dv at the same, tiled dq and dk/dv at 32/64/96/128
+TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash_attention": 8}
+TF32_HMMA = "HMMA.1688.F32.TF32"
+
+
 def log_sass_report(names) -> None:
     """Tensor-core instructions in the built libraries of ``names``, from
     ``cuobjdump -sass``: per entry function whose name holds
     "_tc_kernel" or "_tf32_kernel", the count of HMMA instructions by
-    mnemonic. Raises unless every "_tf32_kernel" function (the packed
-    kernels' float32 instances) holds TF32 HMMA."""
+    mnemonic. Raises unless each library has its ``TF32_INSTANCES``
+    "_tf32_kernel" functions (the float32 instances) and every one holds
+    ``TF32_HMMA``."""
     from dalle_pytorch_tpu_torch.ops import cuda_build
 
     cuobjdump = Path(cuda_build.nvcc()).parent / "cuobjdump"
@@ -1431,15 +1454,21 @@ def log_sass_report(names) -> None:
             elif fn is not None and "HMMA" in line:
                 op = next(w for w in line.split() if w.startswith("HMMA"))
                 counts[fn][op] = counts[fn].get(op, 0) + 1
+        tf32_fns = 0
         for fn, ops in counts.items():
             if "_tc_kernel" not in fn and "_tf32_kernel" not in fn:
                 continue
             log(f"sass {name} {fn}: " + (", ".join(f"{op} x{c}" for op, c in sorted(ops.items()))
                                          or "no HMMA"))
-            if "_tf32_kernel" in fn and not any("TF32" in op for op in ops):
-                missing.append(fn)
+            if "_tf32_kernel" in fn:
+                tf32_fns += 1
+                if TF32_HMMA not in ops:
+                    missing.append(fn)
+        if tf32_fns != TF32_INSTANCES.get(name, 0):
+            missing.append(f"{name}: {tf32_fns} float32 instances, expected "
+                           f"{TF32_INSTANCES.get(name, 0)}")
     if missing:
-        raise AssertionError(f"float32 instances without TF32 HMMA: {missing}")
+        raise AssertionError(f"float32 instances without {TF32_HMMA}: {missing}")
 
 
 def kernel_counters():
@@ -2134,11 +2163,11 @@ def main() -> int:
         f"TF32 cuDNN {torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report(PACKED + ("ragged_attention",))
+    ptxas = start_ptxas_report(PACKED + ("ragged_attention", "flash_attention"))
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas_report(ptxas, ("_tc_kernel", "_tf32_kernel", "ragged_f32_kernel"))
-    log_sass_report(PACKED)
+    log_sass_report(PACKED + ("flash_attention",))
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
                *check_block_sparse(), *check_flash_attention(), check_decode_attention()]
@@ -2381,6 +2410,132 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
             f"{cuda_time_ms(sdpa, iters=20):.4f} ms; {bound_text(bounds)}")
 
 
+def build_other_library(name: str, source: Path, label: str) -> ctypes.CDLL:
+    """``source`` (another commit's ``<name>.cu``) built alone under
+    another library name, with this checkout's csrc headers (the file is
+    copied to a directory of its own first, so that its neighbours are not
+    on the include path), and bound with ``cuda_build.SIGNATURES[name]``."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "compare" / label
+    out_dir.mkdir(parents=True, exist_ok=True)
+    copy = out_dir / f"{name}.cu"
+    shutil.copyfile(source, copy)
+    lib_path = out_dir / f"lib{name}-{label}.so"
+    proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+                           "-o", str(lib_path), str(copy)],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (argtypes, restype) in cuda_build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+    return lib
+
+
+def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
+    """The tiled flash kernels of this checkout against
+    ``flash_attention.cu`` of ``other_dir`` (another commit's csrc, built
+    by ``build_other_library``), in one process with one timer (cold L2).
+    First, at ``testing.flash_inputs``' "train" and "axial_col" cases, on
+    the plain forward's o and lse: each tree's float32 dq, delta, dk and
+    dv (dk/dv on the tree's own delta) held against the plain versions
+    (each gradient within ``testing.BWD_F32_REL`` relative L2, rows with
+    no allowed key exactly 0, delta within 1e-4 of the plain delta's
+    largest magnitude), with max |this - other| printed; the forward and
+    the single-block backward (float32 and bfloat16) and every bfloat16
+    output must be bitwise equal across the trees. Then float32 dq and
+    dk/dv at the 512 px training shape (``flash_inputs("train")``, seed
+    1) timed in the order other, this, this, other, ``rounds`` times, with
+    sdpa backward and both bounds beside; raises on a failed check."""
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.testing import BWD_F32_REL, flash_bwd_errors, flash_inputs
+
+    name = "flash_attention"
+    libs = {"this": cuda_build.load_library(name),
+            "other": build_other_library(name, Path(other_dir) / f"{name}.cu", "tiled_other")}
+
+    def use(src: str) -> None:  # the wrappers load their library through this cache
+        cuda_build._LOADED[name] = libs[src]
+
+    for case in ("train", "axial_col"):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, opts = flash_inputs(case, dtype, "cuda")
+            po, plse = fa.reference_flash_attention(q, k, v, **opts)
+            outs = {}
+            for src in libs:
+                use(src)
+                dq, delta = fa.flash_attention_dq(q, k, v, po, plse, do, **opts)
+                outs[src] = (dq, delta, *fa.flash_attention_dkdv(q, k, v, do, plse, delta, **opts),
+                             *fa.flash_attention_fwd(q, k, v, **opts),
+                             *fa.flash_attention_bwd_fused(q, k, v, po, plse, do, **opts))
+            use("this")
+            torch.cuda.synchronize()
+            pairs = list(zip(outs["this"], outs["other"]))
+            same = [torch.equal(a, b) for a, b in pairs]
+            label = f"compare tiled {case} {dtype}"
+            if dtype == torch.bfloat16:
+                log(f"{label}: dq, delta, dk, dv, o, lse, single-block dq, dk, dv bitwise equal "
+                    f"to the other tree's: {same}")
+                if not all(same):
+                    raise AssertionError(f"{label}: outputs differ from the other tree's")
+                continue
+            log(f"{label}: o, lse, single-block dq, dk, dv bitwise equal to the other tree's: "
+                f"{same[4:]}")
+            if not all(same[4:]):
+                raise AssertionError(f"{label}: forward or single-block outputs differ")
+            pdelta = (do.float() * po.float()).sum(-1)
+            plain = fa.reference_flash_attention_bwd(q, k, v, po, plse, do, **opts)
+            ok = True
+            for src, (dq, delta, dk, dv, *_) in outs.items():
+                rel, _, zeros_exact = flash_bwd_errors((dq, dk, dv), plain, **opts)
+                delta_err = (delta - pdelta).abs().max().item() / pdelta.abs().max().item()
+                ok &= rel <= BWD_F32_REL and zeros_exact and delta_err <= 1e-4
+                log(f"{label}, {src}: dq, dk, dv relative L2 {rel:.3e} (tolerance "
+                    f"{BWD_F32_REL:.0e}), dead rows exactly 0 {zeros_exact}, delta error "
+                    f"{delta_err:.3e} of its largest magnitude (tolerance 1e-4)")
+            diffs = [(a - b).abs().max().item() for a, b in pairs[:4]]
+            log(f"{label}: max |this - other| dq {diffs[0]:.3e}, delta {diffs[1]:.3e}, dk "
+                f"{diffs[2]:.3e}, dv {diffs[3]:.3e}")
+            if not ok:
+                raise AssertionError(f"{label}: a tree misses the plain version's tolerances")
+            del plain, outs, pairs
+
+    q, k, v, do, opts = flash_inputs("train", torch.float32, "cuda", seed=1)
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+    calls = {"flash_attention_dq": lambda: fa.flash_attention_dq(q, k, v, o, lse, do, **opts),
+             "flash_attention_dkdv": lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta,
+                                                                     **opts)}
+    ms = {(key, src): [] for key in calls for src in libs}
+    for _ in range(rounds):
+        for src in ("other", "this", "this", "other"):
+            use(src)
+            for key, fn in calls.items():
+                ms[key, src].append(cuda_time_ms(fn, iters=10))
+    use("this")
+    sdpa_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
+    bounds = flash_bounds(q, opts)
+    for key in calls:
+        this, other = ms[key, "this"], ms[key, "other"]
+        # adjacent pairs of the order other, this, this, other
+        faster = all(t < o for t, o in zip(this, other))
+        log(f"compare {key} float32, 512 px training shape (b 4, 16 x 64, n 4352, causal), cold "
+            f"L2: other " + ", ".join(f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} "
+            f"ms); this " + ", ".join(f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} "
+            f"ms); this / other {np.mean(this) / np.mean(other):.4f}; this faster in every pair "
+            f"{faster}; {bound_text(bounds[key])}")
+    this = [a + b for a, b in zip(*(ms[key, "this"] for key in calls))]
+    other = [a + b for a, b in zip(*(ms[key, "other"] for key in calls))]
+    log(f"compare tiled dq + dk/dv float32: other mean {np.mean(other):.4f} ms, this mean "
+        f"{np.mean(this):.4f} ms, this / other {np.mean(this) / np.mean(other):.4f}; this faster "
+        f"in every pair {all(t < o for t, o in zip(this, other))}; sdpa backward {sdpa_ms:.4f} "
+        f"ms; this below sdpa backward {np.mean(this) < sdpa_ms}")
+
+
 def compare_generate(pairs: int = 3) -> None:
     """Generation (a) against (b) of ``generate_flagship`` (batch 1, the
     same caption: the decode kernel with ``window_seg=0``, then the
@@ -2416,8 +2571,9 @@ def compare_generate(pairs: int = 3) -> None:
 
 
 def compare(argv) -> int:
-    """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR`` and/or
-    ``--generate-pairs N``: only the paired comparisons, on one card."""
+    """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR``,
+    ``--tiled-source DIR`` and/or ``--generate-pairs N``: only the paired
+    comparisons, on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -2426,6 +2582,8 @@ def compare(argv) -> int:
                              "each is compared with this checkout's in turn)")
     parser.add_argument("--packed-source",
                         help="csrc directory of another commit (its fused_qkv_attention*.cu)")
+    parser.add_argument("--tiled-source",
+                        help="csrc directory of another commit (its flash_attention.cu)")
     parser.add_argument("--generate-pairs", type=int, default=0)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2437,6 +2595,8 @@ def compare(argv) -> int:
         compare_ragged_sources(other)
     if args.packed_source:
         compare_packed_sources(args.packed_source)
+    if args.tiled_source:
+        compare_tiled_sources(args.tiled_source)
     if args.generate_pairs:
         compare_generate(args.generate_pairs)
     return 0

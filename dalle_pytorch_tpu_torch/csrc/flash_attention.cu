@@ -33,23 +33,38 @@
 //
 // What bounds it. At the 512 px training shape (b 4, 16 heads of 64,
 // n 4352, causal, float32) the products (2 per allowed pair forward, 3
-// dq, 4 dk/dv, 2*d operations each) take ~2.3, ~3.5 and ~4.6 ms at the
-// card's 67 TFLOP/s float32 rate, against ~0.1 ms of bytes (q, k, v, o,
-// do and the gradients once each): operations bound it. The design keeps
-// every score on chip and, unlike the TPU kernel, neither loads nor
-// computes a class 0 tile; a tile whose keys the key mask drops entirely
-// is skipped too (it would add p = 0 and leave every sum as it is). The
-// query tiles of the causal forward and dq are launched longest row
-// first. There are no float atomics: dq accumulates over key tiles
-// inside one block and dk/dv over query tiles inside one block, so two
-// runs give bit-identical results. The products run as float32 FMAs on
-// the CUDA cores from shared memory; tensor-core tiles (mma.sync /
-// wgmma) and cp.async/TMA double buffering are the known next steps.
+// dq, 4 dk/dv, 2*d operations each) take ~2.3, ~3.5 and ~4.6 ms at an
+// H100 SXM's 67 TFLOP/s float32 rate on the CUDA cores, ~0.9, ~1.4 and
+// ~1.9 ms at its tensor cores' 495 / 3 TFLOP/s as split 3xTF32 (data
+// sheet rates, 700 W), against ~0.1 ms of bytes at its 3.35 TB/s (q, k,
+// v, o, do and the gradients once each): operations bound it. The design keeps every score on chip and, unlike the TPU
+// kernel, neither loads nor computes a class 0 tile; a tile whose keys
+// the key mask drops entirely is skipped too (it would add p = 0 and
+// leave every sum as it is). The query tiles of the causal forward and
+// dq are launched longest row first. There are no float atomics: dq
+// accumulates over key tiles inside one block and dk/dv over query tiles
+// inside one block, so two runs give bit-identical results.
 //
-// Layout: one block of 256 threads per (TILE-row tile, b*h), in the tiles
-// of attention_tiles.cuh, shared with block_sparse_attention.cu.
+// Two designs. The forward, the single-block backward and the bfloat16
+// dq and dk/dv run float32 FMAs on the CUDA cores from shared memory:
+// one block of 256 threads per (TILE-row tile, b*h), in the tiles of
+// attention_tiles.cuh, shared with block_sparse_attention.cu. The
+// float32 dq and dk/dv (flash_dq_tf32_kernel, flash_dkdv_tf32_kernel)
+// run every product as split 3xTF32 mma.sync.m16n8k8 on the tensor
+// cores (csrc/tf32_tiles.cuh, whose numerics keep float32's tolerances):
+// blocks of 4 warps, each warp 16 rows of a resident 64-row tile (Q and
+// dO for dq, K and V for dk/dv), the other operands streamed in 32-row
+// tiles through a 2-stage cp.async ring and split into TF32 big and
+// small parts once when they land; the dk/dv pass is key-major (S^T =
+// K.Q^T, dP^T = V.dO^T) so that P^T and dS^T feed dV += P^T.dO and dK +=
+// dS^T.Q from registers; the sums over keys (dq) and queries (dk/dv)
+// fold a fresh partial per streamed tile in with rounded FMAs, since the
+// tensor cores truncate as they accumulate (tf32::fold_product).
+
+#include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
@@ -285,6 +300,366 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_fused_kernel(const Operands
     dkdv_tile<T, D>(a, smem_raw, (int)blockIdx.x - nt, blockIdx.y);
 }
 
+enum class Pass { kFwd, kDq, kDkdv, kFused };
+
+// ------------------------------------------- float32 dq and dk/dv: 3xTF32
+//
+// The query or key tile a block owns is resident (tf32::ROWS = TILE rows,
+// warp w rows 16w .. 16w + 15); the other side streams in halves of a
+// TILE (tf32::SROWS = 32 rows), each half of the class of its 64-tile in
+// the visit map. Float32 tiles are rows of d floats padded to d + 4; A
+// fragments of the resident tile come by ldmatrix and are split in
+// registers, the streamed tiles are split in shared memory once (big in
+// place, small beside), p = tc::exp_diff(s, lse * log2(e)). A block holds
+// 87-91 KB of shared memory at d 64, so two share an H100 SM (228 KB).
+
+static_assert(TILE == tf32::ROWS, "the visit map's tile is the resident tile");
+
+constexpr int dq_tf32_smem_bytes(int d, bool pattern) {
+  // Q, dO, two stages of K and V, the small parts of one K and V tile,
+  // two stages of key bits (16 bytes), two of the (64, 32) pattern tile
+  return 4 * (2 * tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4)) + 16 +
+         (pattern ? 2 * tf32::ROWS * tf32::SROWS : 0);
+}
+
+constexpr int dkdv_tf32_smem_bytes(int d, bool pattern) {
+  // K, V, two stages of Q and dO, the small parts of one Q and dO tile,
+  // two stages of lse and delta, two of the (32, 64) pattern tile
+  return 4 * (2 * tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4) + 4 * tf32::SROWS) +
+         (pattern ? 2 * tf32::SROWS * tf32::ROWS : 0);
+}
+
+// The first half tile h in [from, end) whose 64-tile is visited (class
+// v[(h / 2) * step] not 0), or end: 32 candidates a warp at a time, the
+// same answer on every warp
+__device__ __forceinline__ int first_visited(const int8_t* __restrict__ v, int64_t step,
+                                             int from, int end) {
+  const int lane = threadIdx.x % 32;
+  for (; from < end; from += 32) {
+    const int h = from + lane;
+    const unsigned live = __ballot_sync(0xffffffffu, h < end && v[(h >> 1) * step] != 0);
+    if (live != 0) return from + __ffs(live) - 1;
+  }
+  return end;
+}
+
+// dq of query tile nt - 1 - blockIdx.y (longest causal rows first) of
+// head blockIdx.x, over its visited key halves; delta from do and o,
+// written to a.delta_out
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
+    flash_dq_tf32_kernel(const Operands<float> a) {
+  using tf32::ROWS;
+  using tf32::SROWS;
+  constexpr int TF = tf32::tile_floats<D>(), TS = tf32::tile_floats<D, SROWS>();
+  constexpr int PM = ROWS * SROWS;  // bytes of a pattern tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // (64, D + 4)
+  float* dos = qs + TF;                            // (64, D + 4)
+  float* ks = dos + TF;                            // 2 stages of (32, D + 4)
+  float* vs = ks + 2 * TS;                         // 2 stages of (32, D + 4)
+  float* k_lo = vs + 2 * TS;                       // the small parts of the current K tile
+  float* v_lo = k_lo + TS;                         // ... and of its V tile
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(v_lo + TS);  // 2 stages of 1 word (+ 2)
+  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 32)
+
+  const int n = a.n, nt = n / ROWS, halves = 2 * nt, bh = blockIdx.x;
+  const int qt = nt - 1 - (int)blockIdx.y, q0 = qt * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t head = (int64_t)bh * n * D, row_base = (int64_t)bh * n;
+  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
+  const int8_t* vrow = a.visit + (int64_t)qt * nt;  // key half h: vrow[h / 2]
+  const int r0 = q0 + 16 * warp + g;                 // the thread's rows r0, r0 + 8
+
+  // delta = rowsum(do * o) of the warp's 16 rows, summed as the CUDA-core
+  // kernels sum it (lane-strided partial sums, then a shuffle tree) and
+  // written for the dk/dv pass; delta and lse (times log2(e), for
+  // exp_diff) of the thread's rows kept in registers
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int64_t row = q0 + 16 * warp + i;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c)
+      sum += a.o[head + row * D + lane + 32 * c] * a.dout[head + row * D + lane + 32 * c];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, s);
+    if (lane == 0) a.delta_out[row_base + row] = sum;
+    if (g == (i & 7)) del_r[i >> 3] = sum;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lse_r[i] = a.lse[row_base + r0 + 8 * i] * tc::LOG2E;
+
+  // the next visited key half at or after h with a key the key mask
+  // keeps (its bits into kbits[st]); a barrier with a key mask
+  auto next_live = [&](int h, int st) {
+    for (;; ++h) {
+      h = first_visited(vrow, 1, h, halves);
+      if (h >= halves || km == nullptr ||
+          tc::tile_keys<SROWS>(km, h * SROWS, n, kbits + st))
+        return h;
+    }
+  };
+  auto issue = [&](int h, int st) {
+    const int k0 = h * SROWS;
+    tf32::load_tile_async<D, SROWS>(ks + st * TS, a.k + head, D, k0, n);
+    tf32::load_tile_async<D, SROWS>(vs + st * TS, a.v + head, D, k0, n);
+    if (a.pattern != nullptr && vrow[h >> 1] == 1)
+      tc::load_mask_tile<ROWS, SROWS>(pms + st * PM, a.pattern, q0, k0, n);
+  };
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  int h = next_live(0, 0), st = 0;
+  if (h < halves) {
+    tf32::load_tile_async<D>(qs, a.q + head, D, q0, n);
+    tf32::load_tile_async<D>(dos, a.dout + head, D, q0, n);
+    issue(h, 0);
+  }
+  tc::cp_async_commit();
+  while (h < halves) {
+    const int nxt = next_live(h + 1, st ^ 1);
+    if (nxt < halves) issue(nxt, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = h * SROWS, cls = vrow[h >> 1];
+    float* k_s = ks + st * TS;
+    float* v_s = vs + st * TS;
+    tf32::split_tiles<D, SROWS>(k_s, k_lo, v_s, v_lo, 0, n, nullptr, nullptr);
+    __syncthreads();  // the tiles are split, once for every warp
+
+    const uint64_t bits = tc::key_bits<SROWS>(km != nullptr, kbits + st, k0, n);
+    const bool need_mask = cls == 1 || bits != tc::all_keys<SROWS>();
+    const bool use_pattern = cls == 1 && a.pattern != nullptr;
+    const int8_t* pm_t = pms + st * PM;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      tf32::FragA qa, da;
+      tf32::load_a<D>(qa, qs, 16 * warp, 8 * kk);
+      tf32::load_a<D>(da, dos, 16 * warp, 8 * kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        tf32::FragB kb[2], vb[2];
+        tf32::load_b_rows<D>(kb, k_s, k_lo, 16 * np, 8 * kk);
+        tf32::load_b_rows<D>(vb, v_s, v_lo, 16 * np, 8 * kk);
+        tf32::mma3(s[2 * np], qa, kb[0]);
+        tf32::mma3(s[2 * np + 1], qa, kb[1]);
+        tf32::mma3(dp[2 * np], da, vb[0]);
+        tf32::mma3(dp[2 * np + 1], da, vb[1]);
+      }
+    }
+
+    // ds, split into the A fragments of dS.K
+    tf32::FragA dsa[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, row = r0 + 8 * i, c = 8 * j + 2 * t + (e & 1);
+        bool ok = true;
+        if (need_mask) {
+          ok = ((bits >> c) & 1) != 0;
+          if (cls == 1)
+            ok = ok && (use_pattern ? pm_t[(row - q0) * SROWS + c] != 0 : row >= k0 + c);
+        }
+        const float sv = ok ? s[j][e] * a.scale : NEG_INF;
+        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_r[i]) : 0.f;
+        s[j][e] = p * (dp[j][e] - del_r[i]) * a.scale;
+      }
+      tf32::c_to_a(dsa[j], s[j]);
+    }
+
+    // dQ += dS.K over the half's 32 keys
+    const float one[2] = {1.f, 1.f};
+    tf32::fold_product<D>(dq, dsa, k_s, k_lo, one);
+    __syncthreads();  // stage st is no longer read
+    h = nxt;
+    st ^= 1;
+  }
+
+  tf32::store_inverse_rotated<D>(dq, qs + 16 * warp * tf32::stride<D>(), a.dq + head, D,
+                                 q0 + 16 * warp, n, nullptr, nullptr);
+}
+
+// dk and dv of key tile blockIdx.y (longest causal columns first) of
+// head blockIdx.x, over its visited query halves, on a.delta_in
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
+    flash_dkdv_tf32_kernel(const Operands<float> a) {
+  using tf32::ROWS;
+  using tf32::SROWS;
+  constexpr int TF = tf32::tile_floats<D>(), TS = tf32::tile_floats<D, SROWS>();
+  constexpr int PM = SROWS * ROWS;  // bytes of a pattern tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // (64, D + 4)
+  float* vs = ks + TF;                             // (64, D + 4)
+  float* qs = vs + TF;                             // 2 stages of (32, D + 4)
+  float* dos = qs + 2 * TS;                        // 2 stages of (32, D + 4)
+  float* q_lo = dos + 2 * TS;                      // the small parts of the current Q tile
+  float* do_lo = q_lo + TS;                        // ... and of its dO tile
+  float* lse_s = do_lo + TS;                       // 2 stages of 32
+  float* del_s = lse_s + 2 * SROWS;                // 2 stages of 32
+  int8_t* pms = reinterpret_cast<int8_t*>(del_s + 2 * SROWS);  // 2 stages of (32, 64)
+  __shared__ uint32_t kbits[2];
+
+  const int n = a.n, nt = n / ROWS, halves = 2 * nt, bh = blockIdx.x;
+  const int kt = blockIdx.y, k0 = kt * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t head = (int64_t)bh * n * D, row_base = (int64_t)bh * n;
+  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
+  const int8_t* vcol = a.visit + kt;  // query half h: vcol[(h / 2) * nt]
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // a tile of masked keys has p = 0 for every query: dk = dv = 0
+  if (km == nullptr || tc::tile_keys(km, k0, n, kbits)) {
+    const uint64_t bits = tc::key_bits(km != nullptr, kbits, k0, n);
+    const int key0 = 16 * warp + g;  // the thread's keys key0, key0 + 8 of the tile
+    const bool kok[2] = {((bits >> key0) & 1) != 0, ((bits >> (key0 + 8)) & 1) != 0};
+    auto issue = [&](int h, int st) {
+      const int q0 = h * SROWS;
+      tf32::load_tile_async<D, SROWS>(qs + st * TS, a.q + head, D, q0, n);
+      tf32::load_tile_async<D, SROWS>(dos + st * TS, a.dout + head, D, q0, n);
+      if (a.pattern != nullptr && vcol[(int64_t)(h >> 1) * nt] == 1)
+        tc::load_mask_tile<SROWS, ROWS>(pms + st * PM, a.pattern, q0, k0, n);
+    };
+    // lse (times log2(e), for exp_diff) of query q0 + r by threads r < 32,
+    // delta by threads 32 + r: loaded a half ahead, stored after the
+    // products so that the load's latency hides behind them
+    const int r = threadIdx.x % SROWS;
+    const bool stat_thread = threadIdx.x < 2 * SROWS;
+    auto row_stat = [&](int h) {
+      const int64_t row = row_base + h * SROWS + r;
+      return threadIdx.x < SROWS ? a.lse[row] * tc::LOG2E : a.delta_in[row];
+    };
+    float* stat_s = threadIdx.x < SROWS ? lse_s : del_s;
+
+    int h = first_visited(vcol, nt, 0, halves);
+    if (h < halves) {
+      tf32::load_tile_async<D>(ks, a.k + head, D, k0, n);
+      tf32::load_tile_async<D>(vs, a.v + head, D, k0, n);
+      issue(h, 0);
+      if (stat_thread) stat_s[r] = row_stat(h);
+    }
+    tc::cp_async_commit();
+    for (int st = 0; h < halves; st ^= 1) {
+      const int nxt = first_visited(vcol, nt, h + 1, halves);
+      const float next_stat = stat_thread && nxt < halves ? row_stat(nxt) : 0.f;
+      if (nxt < halves) issue(nxt, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+      __syncthreads();
+      const int q0 = h * SROWS, cls = vcol[(int64_t)(h >> 1) * nt];
+      float* q_s = qs + st * TS;
+      float* do_s = dos + st * TS;
+      tf32::split_tiles<D, SROWS>(q_s, q_lo, do_s, do_lo, 0, n, nullptr, nullptr);
+      __syncthreads();  // the tiles are split, once for every warp
+
+      const bool need_mask = cls == 1 || bits != ~0ull;
+      const bool use_pattern = cls == 1 && a.pattern != nullptr;
+      const int8_t* pm_t = pms + st * PM;
+      float sT[4][4], dpT[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        tf32::FragA ka, va;
+        tf32::load_a<D>(ka, ks, 16 * warp, 8 * kk);
+        tf32::load_a<D>(va, vs, 16 * warp, 8 * kk);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          tf32::FragB qb[2], db[2];
+          tf32::load_b_rows<D>(qb, q_s, q_lo, 16 * np, 8 * kk);
+          tf32::load_b_rows<D>(db, do_s, do_lo, 16 * np, 8 * kk);
+          tf32::mma3(sT[2 * np], ka, qb[0]);
+          tf32::mma3(sT[2 * np + 1], ka, qb[1]);
+          tf32::mma3(dpT[2 * np], va, db[0]);
+          tf32::mma3(dpT[2 * np + 1], va, db[1]);
+        }
+      }
+
+      // p^T into sT, ds^T into dpT
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          bool ok = true;
+          if (need_mask) {
+            ok = kok[e >> 1];
+            if (cls == 1)
+              ok = ok && (use_pattern ? pm_t[c * ROWS + key] != 0 : q0 + c >= k0 + key);
+          }
+          const float sv = ok ? sT[j][e] * a.scale : NEG_INF;
+          const float p =
+              sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_s[st * SROWS + c]) : 0.f;
+          sT[j][e] = p;
+          dpT[j][e] = p * (dpT[j][e] - del_s[st * SROWS + c]) * a.scale;
+        }
+
+      // dV += P^T.dO, then dK += dS^T.Q, over the half's 32 queries
+      const float one[2] = {1.f, 1.f};
+      tf32::FragA fa[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tf32::c_to_a(fa[kk], sT[kk]);
+      tf32::fold_product<D>(dv, fa, do_s, do_lo, one);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tf32::c_to_a(fa[kk], dpT[kk]);
+      tf32::fold_product<D>(dk, fa, q_s, q_lo, one);
+      if (stat_thread) stat_s[(st ^ 1) * SROWS + r] = next_stat;
+      __syncthreads();  // stage st is no longer read
+      h = nxt;
+    }
+  }
+
+  // each warp's own rows of the K and V tiles hold its dk and dv (tiles
+  // that were loaded have landed: the last wait left only an empty group)
+  tf32::store_inverse_rotated<D>(dk, ks + 16 * warp * tf32::stride<D>(), a.dk + head, D,
+                                 k0 + 16 * warp, n, nullptr, nullptr);
+  tf32::store_inverse_rotated<D>(dv, vs + 16 * warp * tf32::stride<D>(), a.dv + head, D,
+                                 k0 + 16 * warp, n, nullptr, nullptr);
+}
+
+// The float32 dq and dk/dv launches: grid (b*h, n / TILE), so that the
+// scheduler starts every head's longest tiles first. -1 for more tiles
+// than a grid dimension holds or an operand not 16-byte aligned
+// (cp.async, vector stores).
+template <int D>
+int launch_tf32(Pass pass, const Operands<float>& a, int batch, cudaStream_t stream) {
+  const int nt = a.n / TILE;
+  if (nt > 65535 ||
+      !tc::aligned16({a.q, a.k, a.v, a.o, a.dout, a.pattern, a.dq, a.dk, a.dv}))
+    return -1;
+  const dim3 grid(batch * a.heads, nt);
+  const bool pattern = a.pattern != nullptr;
+  int err = 0;
+  if (pass == Pass::kDq) {
+    const int smem = dq_tf32_smem_bytes(D, pattern);
+    if ((err = allow_smem(flash_dq_tf32_kernel<D>, smem)) != 0) return err;
+    flash_dq_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
+  } else {
+    const int smem = dkdv_tf32_smem_bytes(D, pattern);
+    if ((err = allow_smem(flash_dkdv_tf32_kernel<D>, smem)) != 0) return err;
+    flash_dkdv_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
 // shapes every entry point refuses (-1): an empty shape, n not a multiple
 // of TILE, more (batch, head) pairs than a grid dimension holds
 bool refused(int batch, int heads, int n) {
@@ -292,11 +667,10 @@ bool refused(int batch, int heads, int n) {
          (int64_t)batch * heads > 65535;
 }
 
-enum class Pass { kFwd, kDq, kDkdv, kFused };
-
 template <typename T, int D>
 int launch(Pass pass, const Operands<T>& a, int batch, cudaStream_t stream) {
   static_assert(dkdv_smem_bytes<D>() >= dq_smem_bytes<D>(), "the fused launch sizes for dk/dv");
+  constexpr bool f32 = std::is_same<T, float>::value;
   const int nt = a.n / TILE;
   const dim3 grid(pass == Pass::kFused ? 2 * nt : nt, batch * a.heads);
   int smem = 0, err = 0;
@@ -306,15 +680,23 @@ int launch(Pass pass, const Operands<T>& a, int batch, cudaStream_t stream) {
       if ((err = allow_smem(flash_fwd_kernel<T, D>, smem)) != 0) return err;
       flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
       break;
-    case Pass::kDq:
-      smem = dq_smem_bytes<D>();
-      if ((err = allow_smem(flash_dq_kernel<T, D>, smem)) != 0) return err;
-      flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+    case Pass::kDq:  // float32: the 3xTF32 kernel
+      if constexpr (f32) {
+        return launch_tf32<D>(pass, a, batch, stream);
+      } else {
+        smem = dq_smem_bytes<D>();
+        if ((err = allow_smem(flash_dq_kernel<T, D>, smem)) != 0) return err;
+        flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      }
       break;
     case Pass::kDkdv:
-      smem = dkdv_smem_bytes<D>();
-      if ((err = allow_smem(flash_dkdv_kernel<T, D>, smem)) != 0) return err;
-      flash_dkdv_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      if constexpr (f32) {
+        return launch_tf32<D>(pass, a, batch, stream);
+      } else {
+        smem = dkdv_smem_bytes<D>();
+        if ((err = allow_smem(flash_dkdv_kernel<T, D>, smem)) != 0) return err;
+        flash_dkdv_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      }
       break;
     case Pass::kFused:
       smem = dkdv_smem_bytes<D>();  // the larger of the two roles
@@ -369,8 +751,9 @@ int dispatch(Pass pass, const Pointers& p, int batch, int heads, int n, int dim_
 // (n / 64, n / 64) int8. One launch on `stream`. Returns
 // cudaGetLastError() after it (0 on success), or -1 for what the kernels
 // cannot take: a dim_head other than 32/64/96/128, a dtype code other
-// than 0/1, n not a positive multiple of 64, or more (batch, head) pairs
-// than a grid dimension holds.
+// than 0/1, n not a positive multiple of 64, more (batch, head) pairs
+// than a grid dimension holds, or (float32 dq and dk/dv) more than 65535
+// tiles or an operand not 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kmask, const void* pattern,
                                    const void* visit, void* out, void* lse, int batch,

@@ -37,7 +37,11 @@ The packed-qkv kernels' float32 instances run every product as split
 ``emulated_fused_qkv`` runs the packed attention, forward and backward,
 with its products so emulated (or as single-pass TF32, ``matmul_tf32``),
 so that the CPU tests can show that the split holds float32's
-tolerances and that one TF32 pass does not.
+tolerances and that one TF32 pass does not. ``emulated_flash_bwd`` does
+the same for the tiled flash backward, and ``matmul_3xtf32_card``
+accumulates as the tensor cores do (each mma's result truncated toward
+zero to float32), with the long sums straight or folded in fresh
+partials as the kernels fold them.
 
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
@@ -183,14 +187,25 @@ def flash_inputs(case: str, dtype, device, seed: int = 0):
     pattern of 129 + 16 x 16), "noncausal", and "d32" / "d64" / "d96" /
     "d128", causal with a key mask that drops a fifth of row 0's keys and
     key 0 (text row 0 then attends nothing) and every key of row 1 (all
-    its rows dead); "tiled" is "d64" at n 1152 (3 x 3 flash blocks)."""
+    its rows dead); "tiled" is "d64" at n 1152 (3 x 3 flash blocks). At
+    the 512 px length n 4352 with a small batch: "long" (b 1, 2 heads of
+    64, causal), "long_axial_col" (the same with the axial_col pattern)
+    and "long_d96" / "long_d128" (b 2, 2 heads, causal, the key mask of
+    the "d" cases)."""
     rng = np.random.RandomState(seed)
     opts = dict(key_mask=None, causal=True, pattern=None)
-    if case in ("train", "axial_col"):
-        b, h, n, d = (4 if case == "train" else 2), 16, 4352, 64
-        if case == "axial_col":
+    if case in ("train", "axial_col", "long", "long_axial_col"):
+        b, h, n, d = {"train": 4, "axial_col": 2}.get(case, 1), 16, 4352, 64
+        if case.startswith("long"):
+            h = 2
+        if case.endswith("axial_col"):
             opts["pattern"] = torch.from_numpy(
                 masks.pattern_mask("axial_col", 257, 64)[:n, :n]).to(device)
+    elif case in ("long_d96", "long_d128"):
+        b, h, n, d = 2, 2, 4352, int(case[6:])
+        km = rng.rand(b, n) > 0.2
+        km[0, 0], km[1] = False, False
+        opts["key_mask"] = torch.from_numpy(km).to(device)
     elif case == "one_block":
         b, h, n, d = 2, 3, 1280, 64
     else:
@@ -347,6 +362,70 @@ def emulated_fused_qkv(qkv, o, lse, do, heads: int, dim_head: int, matmul, key_m
         grads = [t * cos - rotate_half(t) * sin for t in grads]
     dqkv = torch.cat([t.reshape(b, n, h * d) for t in grads], dim=-1)
     return own_o, own_lse, dqkv
+
+
+def truncate_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` rounded toward zero to float32."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_steps(c, a_parts, b_parts):
+    """float32 ``c`` after the mma k-steps of 8 over the split operands
+    ((big, small) of a (..., M, K) and of b (..., K, N)): per k-step the
+    three TF32 products (small.big, big.small, big.big), each added to c
+    exactly and the result truncated toward zero to float32."""
+    (a_big, a_small), (b_big, b_small) = a_parts, b_parts
+    for k0 in range(0, a_big.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            c = truncate_f32(c.double() + x[..., ks].double() @ y[..., ks, :].double())
+    return c
+
+
+def matmul_3xtf32_card(a: torch.Tensor, b: torch.Tensor, fold=None) -> torch.Tensor:
+    """a @ b (K a multiple of 8) in split 3xTF32 with the accumulation of
+    the card's tensor cores: an mma adds its products to the accumulator
+    and truncates the sum toward zero to float32 (``_mma_steps``; the
+    truncation measured on the card for the packed kernels, PERF.md, which
+    ``matmul_3xtf32``, rounding to nearest, does not show). ``fold`` None:
+    every mma into one running sum. ``fold`` F (a multiple of 8 dividing
+    K): a fresh partial per F rows of k, added to the running sum by a
+    float32 add rounded to nearest, as ``tf32::fold_product`` folds (F =
+    32, the kernels' streamed tiles)."""
+    a_parts, b_parts = split_tf32(a), split_tf32(b)
+    zero = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    if fold is None:
+        return _mma_steps(zero, a_parts, b_parts)
+    acc = zero
+    for k0 in range(0, a.shape[-1], fold):
+        ks = slice(k0, k0 + fold)
+        acc = acc + _mma_steps(zero, [t[..., ks] for t in a_parts],
+                               [t[..., ks, :] for t in b_parts])
+    return acc
+
+
+def emulated_flash_bwd(q, k, v, o, lse, do, matmul, long_matmul=None, key_mask=None,
+                       causal: bool = True, pattern=None):
+    """The tiled flash backward (the dq and dk/dv passes) on q, k, v, o,
+    do (b, h, n, d) and lse (b, h, n), the arithmetic of
+    ``reference_flash_attention_bwd`` step by step in the inputs' dtype,
+    with the products over channels (s = q.k^T, dp = do.v^T) computed by
+    ``matmul`` and the sums over keys and queries (dq = ds.k, dk =
+    ds^T.q, dv = p^T.do) by ``long_matmul`` (default ``matmul``). Returns
+    (dq, dk, dv)."""
+    long_matmul = long_matmul or matmul
+    n, d = q.shape[-2:]
+    scale = d**-0.5
+    allowed = fa.may_attend(n, q.device, key_mask, causal, pattern)
+    s = (matmul(q, k.transpose(-1, -2)) * scale).masked_fill(~allowed, fa.NEG_INF)
+    p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - lse[..., None]), 0.0)
+    del s
+    dp = matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (do * o).sum(-1, keepdim=True)) * scale
+    del dp
+    return (long_matmul(ds, k), long_matmul(ds.transpose(-1, -2), q),
+            long_matmul(p.transpose(-1, -2), do))
 
 
 def teacher_forced_logits(dalle, cache, text, image, chunk: int) -> torch.Tensor:

@@ -616,7 +616,8 @@ def test_block_sparse_kernels_reject_what_they_cannot_take(cuda):
         bs.block_sparse_dkdv(q, q, q, o, lse, lse[:, :1], layout)
 
 
-FLASH_CASES = ["pattern", "noncausal", "d32", "d64", "d96", "d128", "tiled", "one_block"]
+FLASH_CASES = ["pattern", "noncausal", "d32", "d64", "d96", "d128", "tiled", "one_block",
+               "long", "long_axial_col", "long_d96", "long_d128"]
 FLASH_KERNELS = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkdv,
                  fa.flash_attention_bwd_fused)
 
@@ -636,9 +637,12 @@ def _flash_run(q, k, v, do, opts):
 def test_flash_kernels_match_plain(cuda, dtype, case):
     """``dalle_pytorch_tpu_torch.testing.flash_inputs``: the axial_row
     pattern, non-causal, dim_head 32/64/96/128 with a key mask that kills
-    whole rows (n 384, six 64-tiles), the same at n 1152, and one flash
-    block of 1280 at 3 heads. Forward: float32 o and lse within abs 1e-5; bfloat16 each row's
-    o error within 1% of the plain row and lse within 1e-2. Backward, each
+    whole rows (n 384, six 64-tiles), the same at n 1152, one flash
+    block of 1280 at 3 heads, and the 512 px length (n 4352) at a small
+    batch: causal and with the axial_col pattern at 2 heads of 64, and
+    dim_head 96 and 128 with the key mask. Forward: float32 o and lse
+    within abs 1e-5; bfloat16 each row's o error within 1% of the plain
+    row and lse within 1e-2. Backward, each
     kernel on the plain forward's o and lse (dk/dv on the plain delta):
     float32 each of dq, dk, dv within relative L2 1e-5; bfloat16 the
     floored row metric within 2%. Rows with no allowed key (and keys no
@@ -674,7 +678,7 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["pattern", "d64", "one_block"])
+@pytest.mark.parametrize("case", ["pattern", "d64", "one_block", "long", "long_axial_col"])
 def test_flash_kernels_are_deterministic(cuda, case):
     """No float atomics: two runs give bit-identical outputs and gradients."""
     q, k, v, do, opts = flash_inputs(case, torch.float32, cuda)
