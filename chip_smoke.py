@@ -76,7 +76,8 @@ line):
    (``models/sampling.py``), each run counted: (a) batch 1 on the "4d"
    cache with ``fused_decode=True`` and ``window_seg=0``, 1024 tokens in
    range, the decode kernel launched exactly 12 x 1023 times; (b) the
-   same caption on the unfused chain with the default window, token
+   same caption with ``fused_decode=False`` (the unfused chain) and the
+   default window, token
    agreement printed, and (a)'s tokens teacher-forced through both paths
    (the prompt and 256 decode steps), image logits within
    ``testing.DECODE_LOGITS_REL``; (c) batch 8 on the
@@ -127,9 +128,11 @@ tiled flash kernels (forward, dq, dk/dv, single-block backward) on
 rows at dim_head 32/64/96/128, non-causal, a pattern at a small n, and
 one flash block of 1280 at 3 heads, float32 and bfloat16, each timed at
 its main path's shape beside its plain version and
-``scaled_dot_product_attention`` (float32 dq and dk/dv on split-3xTF32
-tensor-core tiles, their bounds, like every float32 tiled bound, at the
-3xTF32 rate with the CUDA-core bound beside). Phase 4 also checks a small float32
+``scaled_dot_product_attention`` (float32 forward, dq and dk/dv on
+split-3xTF32 tensor-core tiles, their bounds, like every float32 tiled
+bound, at the 3xTF32 rate with the CUDA-core bound beside; the bf16
+forward, dq and dk/dv beside bf16 sdpa and their bf16 bounds). Phase 4
+also checks a small float32
 DALLE's loss and every parameter gradient, card against CPU, for the
 full model, for the four-type sparse cycle, at n 1152 (the tiled
 kernels, dq then dk/dv) and at n 384 with 3 heads (one flash block: the
@@ -141,17 +144,19 @@ limit; the line before it the kernels' JSON; the last line
 
 Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
 spills) for the packed-qkv kernels' tensor-core instances (bf16, and
-float32 as split 3xTF32), for the tiled flash float32 dq and dk/dv
-(split 3xTF32) and for every instance of the ragged kernel, and counts
-the HMMA instructions of each packed instance and each tiled float32 dq
-and dk/dv instance in the built libraries (``cuobjdump -sass``), failing
-unless every float32 instance holds ``HMMA.1688.F32.TF32``.
+float32 as split 3xTF32), for the tiled flash float32 forward, dq and
+dk/dv (split 3xTF32), for every instance of the ragged kernel and of the
+decode kernel, and counts the HMMA instructions of each packed instance
+and each tiled float32 instance in the built libraries (``cuobjdump
+-sass``), failing unless every float32 instance (3 + 6 + 12) holds
+``HMMA.1688.F32.TF32``.
 
 Paired comparisons, one card, none of the phases above:
 
     python3 chip_smoke.py --ragged-source OTHER/ragged_attention.cu
     python3 chip_smoke.py --packed-source OTHER/csrc
     python3 chip_smoke.py --tiled-source OTHER/csrc
+    python3 chip_smoke.py --decode-source OTHER/csrc
     python3 chip_smoke.py --generate-pairs 3
 
 the first times this checkout's ragged kernel against the same file of
@@ -165,13 +170,16 @@ checks that the two trees' bf16 outputs are bitwise equal, and times
 both trees alternating (bf16 forward at DALL-E's b 2 and CLIP's shape,
 bf16 backward and both float32 kernels at the training shape); the third
 builds another commit's ``flash_attention.cu`` with this checkout's
-headers, holds each tree's float32 dq, delta, dk and dv against the plain
-versions at the 512 px training shape and its axial_col pattern
-(printing max |this - other|), checks that the forward, the single-block
-backward and every bf16 output are bitwise equal across the trees, and
-times both trees' float32 dq and dk/dv at the 512 px shape alternating,
-sdpa backward and both bounds beside; the fourth times generation (a)
-against (b) in alternating pairs.
+headers, holds each tree's float32 forward against the plain version at
+the 512 px training shape and its axial_col pattern (printing max |this
+- other|), checks that every other output (the bf16 forward, dq, delta,
+dk, dv and the single-block backward in both types) is bitwise equal
+across the trees, and times both trees' float32 forward, dq and dk/dv at
+the 512 px shape alternating, sdpa and the bounds beside; the fourth
+builds another commit's ``decode_attention.cu``, holds each tree's out
+against the plain version at the generate shape (b 1 and 8), checks the
+k/v rows bitwise equal across the trees, and times both alternating;
+the fifth times generation (a) against (b) in alternating pairs.
 """
 
 from __future__ import annotations
@@ -947,7 +955,9 @@ def check_flash_attention() -> list:
     shape, the single-block backward at one block of 1280): the kernel,
     its plain version, the bound, and ``scaled_dot_product_attention``
     forward (the forward's yardstick) and backward (dq, dk and dv
-    together: the backward kernels' yardstick) on the same heads."""
+    together: the backward kernels' yardstick) on the same heads; and in
+    bf16 the forward, dq and dk/dv at the 512 px shape beside bf16 sdpa
+    forward and backward and the bf16 bounds."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.testing import (
         BWD_BF16_ROW_REL, BWD_F32_REL, FLASH_BF16_ROW_REL, FLASH_F32_ATOL, flash_bwd_errors,
@@ -1022,14 +1032,18 @@ def check_flash_attention() -> list:
                 lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta, **opts),
                 lambda: fa.reference_flash_attention_dkdv(q, k, v, do, lse, delta, **opts)),
         }
-        if dtype == torch.bfloat16:  # the kernels alone, beside the float32 path
-            for name, (kernel, _) in t.items():
-                rows[name]["ms_bf16"] = cuda_time_ms(kernel, iters=10)
-            continue
         bounds = flash_bounds(q, opts)
         sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, **sdpa_flash_kw(q, opts)), iters=10)
         sdpa_bwd_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
+        if dtype == torch.bfloat16:  # the kernels alone, beside the float32 path
+            for name, (kernel, _) in t.items():
+                rows[name].update(
+                    ms_bf16=cuda_time_ms(kernel, iters=10),
+                    bound_ms_bf16=bounds[name]["bound_ms"],
+                    bound_by_bf16=bounds[name]["bound_by"],
+                    library_ms_bf16=sdpa_ms if name == "flash_attention_fwd" else sdpa_bwd_ms)
+            continue
         for name, (kernel, plain) in t.items():
             rows[name].update(ms=cuda_time_ms(kernel, iters=10),
                               plain_ms=cuda_time_ms(plain, warmup=1, iters=3), **bounds[name],
@@ -1052,7 +1066,9 @@ def check_flash_attention() -> list:
         log(f"{name} float32 timing, cold L2 ({shape}, causal): kernel {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, sdpa {sdpa} {row['library_ms']:.4f} ms, "
             f"{bound_text(row)}"
-            + (f"; bf16 kernel {row['ms_bf16']:.4f} ms" if "ms_bf16" in row else ""))
+            + (f"; bf16 kernel {row['ms_bf16']:.4f} ms, sdpa {sdpa} "
+               f"{row['library_ms_bf16']:.4f} ms, bound {row['bound_ms_bf16']:.4f} ms "
+               f"({row['bound_by_bf16']})" if "ms_bf16" in row else ""))
     return [rows[name] for name in FLASH_TPU_KERNELS]
 
 
@@ -1074,15 +1090,19 @@ def decode_bound(b: int, L: int, h: int, d: int, idx: int, dtype, masked: bool =
 def check_decode_attention() -> dict:
     """The fused decode kernel against its plain version on
     ``testing.decode_inputs`` at the flagship's shapes (16 heads of 64, L
-    1281, b 1 and b 8, idx 0, 1, 256, 700 and 1279, rotary on and off,
-    key mask on and off), the masked own key with an extreme score, and
-    dim_head 32 / 128 (b 8, idx 700, rotary, key mask), float32 and
-    bfloat16, at ``testing``'s tolerances: k_row and v_row bitwise, rows
-    with no live key exactly 0, two runs identical. Then times (cold L2)
-    at b 1 and b 8, idx 768, bf16, rotary, no key mask (the generate
-    path's): the kernel, its plain version, the bound, and
+    1281, b 1 and b 8, idx 0, 1, 256, 700 and 1279, rotary and key mask
+    on and off; 127 / 128 and 255 / 256, where the split S changes at b
+    1, and 511 / 512, rotary with and without a key mask), a key
+    mask that kills one whole slice of the split (``decode_slices``) at
+    idx 767, the masked own key with an extreme score, and dim_head 32 /
+    128 (b 8, idx 700, rotary, key mask), float32 and bfloat16, at
+    ``testing``'s tolerances: k_row and v_row bitwise, rows with no live
+    key exactly 0, two runs identical. Then times (cold L2) at b 1 and b
+    8, idx 768, bf16, rotary, no key mask (the generate path's): the
+    kernel at ``decode_splits``' S, its plain version, the bound, and
     ``scaled_dot_product_attention`` over the written cache view (b, h,
-    idx + 1, d) as a yardstick (attention alone, no rotary)."""
+    idx + 1, d) as a yardstick (attention alone, no rotary); and the
+    kernel at every S beside it."""
     from dalle_pytorch_tpu_torch.ops import decode_attention as da
     from dalle_pytorch_tpu_torch.testing import (
         DECODE_BF16_ROW_REL, DECODE_F32_ATOL, decode_errors, decode_inputs, decode_ok)
@@ -1090,6 +1110,9 @@ def check_decode_attention() -> dict:
     L, h = 1281, 16
     cases = [(b, 64, idx, rot, masked, False) for b in (1, 8) for idx in (0, 1, 256, 700, 1279)
              for rot in (True, False) for masked in (False, True)]
+    cases += [(b, 64, idx, True, masked, False) for b in (1, 8)
+              for idx in (127, 128, 255, 511, 512) for masked in (False, True)]
+    cases += [(b, 64, 767, True, "slice", False) for b in (1, 8)]
     cases += [(8, 64, 700, True, False, True), (1, 64, 256, False, False, True)]
     cases += [(8, d, 700, True, True, False) for d in (32, 128)]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -1104,7 +1127,13 @@ def check_decode_attention() -> dict:
                     made[b, d, dtype] = decode_inputs(b, L, h, d, 0, dtype, "cuda",
                                                       masked=True)
                 x = made[b, d, dtype]
-                x = (*x[:3], *(x[3:5] if rot else (None, None)), x[5] if masked else None)
+                km = x[5] if masked is True else None
+                if masked == "slice":  # every key of the middle slice masked
+                    splits = da.decode_splits(b * h, idx)
+                    lo, hi = da.decode_slices(idx, splits)[splits // 2]
+                    km = torch.ones(b, L, dtype=torch.int32, device="cuda")
+                    km[:, lo:hi] = 0
+                x = (*x[:3], *(x[3:5] if rot else (None, None)), km)
             args = (x[0], x[1], x[2], idx, x[3], x[4], x[5])
             got = da.fused_decode_attention(*args, heads=h)
             again = da.fused_decode_attention(*args, heads=h)
@@ -1127,10 +1156,10 @@ def check_decode_attention() -> dict:
                 worst[dtype] = max(worst[dtype], err if dtype == torch.float32 else rel)
     for (b, d, own), (f32, bf16, n) in groups.items():
         log(f"decode kernel vs plain, b {b}, 16 x {d}, L {L}{', own key masked' if own else ''}"
-            f" ({n} cases: idx, rotary, key mask, float32 and bf16): float32 max abs {f32:.3e} "
-            f"(tolerance {DECODE_F32_ATOL:.0e}), bf16 row-relative {bf16:.3e} (tolerance "
-            f"{DECODE_BF16_ROW_REL:.0e}); k/v rows bitwise, rows with no live key 0, two runs "
-            "identical")
+            f" ({n} cases: idx, rotary, key mask, a dead slice, float32 and bf16): float32 max "
+            f"abs {f32:.3e} (tolerance {DECODE_F32_ATOL:.0e}), bf16 row-relative {bf16:.3e} "
+            f"(tolerance {DECODE_BF16_ROW_REL:.0e}); k/v rows bitwise, rows with no live key "
+            "0, two runs identical")
     row = {"name": "fused_decode_attention", "route": "cuda",
            "source": "dalle_pytorch_tpu_torch/csrc/decode_attention.cu",
            "replaces": DECODE_TPU_KERNEL, "max_abs_err": worst[torch.float32],
@@ -1140,6 +1169,7 @@ def check_decode_attention() -> dict:
         qkv, kc, vc, cos, sin, _ = decode_inputs(b, L, h, 64, idx, torch.bfloat16, "cuda",
                                                  seed=1)
         args = (qkv, kc, vc, idx, cos, sin, None)
+        splits = da.decode_splits(b * h, idx)
         kernel_ms = cuda_time_ms(lambda: da.fused_decode_attention(*args, heads=h))
         plain_ms = cuda_time_ms(lambda: da.reference_fused_decode(*args, h))
         q = qkv[..., :h * 64].view(b, 1, h, 64).transpose(1, 2)
@@ -1147,11 +1177,14 @@ def check_decode_attention() -> dict:
         library_ms = cuda_time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(q, *kv))
         bound_ms, bound_by = decode_bound(b, L, h, 64, idx, torch.bfloat16)
+        by_split = {s: cuda_time_ms(lambda: da.fused_decode_attention(*args, heads=h, splits=s))
+                    for s in da.DECODE_SPLITS}
         log(f"fused_decode_attention bf16 timing, cold L2 (b {b}, 16 x 64, idx {idx}, L {L}, "
-            f"rotary): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"rotary): kernel {kernel_ms:.4f} ms at S {splits}, plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel by S "
+            + ", ".join(f"{s}: {t:.4f}" for s, t in by_split.items()))
         timing = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by}
+                  "bound_ms": bound_ms, "bound_by": bound_by, "splits": splits}
         row.update(timing if b == 1 else {f"{k}_b8": v for k, v in timing.items()})
     return row
 
@@ -1427,8 +1460,8 @@ def log_ptxas_report(procs: dict, markers) -> None:
 
 # entry functions of the split-3xTF32 float32 instances in each library
 # (``log_sass_report``): packed forward at dim_head 32/64/128, packed dq
-# and dk/dv at the same, tiled dq and dk/dv at 32/64/96/128
-TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash_attention": 8}
+# and dk/dv at the same, tiled forward, dq and dk/dv at 32/64/96/128
+TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash_attention": 12}
 TF32_HMMA = "HMMA.1688.F32.TF32"
 
 
@@ -1877,7 +1910,11 @@ def generate_flagship() -> dict:
         packed-qkv kernel once a layer;
     (d) batch 4 (the policy's "paged" cache), default arguments: the ragged
         kernel launched 12 x 1024 times (the prompt block, then every
-        decode step), the decode kernel never.
+        decode step), the decode kernel never;
+    (e) batch 1 with default arguments (the "4d" cache, the default
+        window, ``fused_decode=None``: the card's route), the decode kernel
+        launched exactly 12 x 1023 times, ms a token printed beside (a)'s
+        and (b)'s.
     Then torch.profiler over 20 decode steps of (a). Returns the launches
     of each run."""
     from dalle_pytorch_tpu_torch.models.clip import CLIP
@@ -1898,14 +1935,19 @@ def generate_flagship() -> dict:
     text = captions[:1]
     launches = {}
 
+    walls = {}
+    t0 = time.perf_counter()
     tokens_a, launches["generate_b1"] = generate_counted(
         "generate (a) batch 1, cache 4d, fused decode kernel, window 0",
         lambda: generate_image_tokens(model, text, 0, fused_decode=True, window_seg=0),
         {"fused_decode_attention": depth * steps}, MAX_NEW)
+    walls["a"] = time.perf_counter() - t0
     check_image_tokens("generate (a)", tokens_a, 1)
+    t0 = time.perf_counter()
     tokens_b, _ = generate_counted(
         "generate (b) batch 1, cache 4d, unfused chain, default window",
-        lambda: generate_image_tokens(model, text, 0), {}, MAX_NEW)
+        lambda: generate_image_tokens(model, text, 0, fused_decode=False), {}, MAX_NEW)
+    walls["b"] = time.perf_counter() - t0
     check_image_tokens("generate (b)", tokens_b, 1)
     agree = (tokens_a == tokens_b).float().mean().item()
 
@@ -1947,6 +1989,17 @@ def generate_flagship() -> dict:
         lambda: generate_image_tokens(model, captions[:4], 0),
         {"ragged_attention": depth * MAX_NEW}, 4 * MAX_NEW)
     check_image_tokens("generate (d)", tokens_d, 4)
+    t0 = time.perf_counter()
+    tokens_e, launches["generate_b1_default"] = generate_counted(
+        "generate (e) batch 1, default arguments (cache 4d, default window, the card's route)",
+        lambda: generate_image_tokens(model, text, 0),
+        {"fused_decode_attention": depth * steps}, MAX_NEW)
+    walls["e"] = time.perf_counter() - t0
+    check_image_tokens("generate (e)", tokens_e, 1)
+    log("generate batch 1, ms per generated token (wall, this call): " + ", ".join(
+        f"({k}) {1e3 * w / MAX_NEW:.3f}" for k, w in walls.items())
+        + f"; (e) tokens equal to (a)'s {torch.equal(tokens_e, tokens_a)} (expected: the "
+        "window changes no arithmetic on the kernel path; printed, not asserted)")
     profile_decode(model, text)
     return launches
 
@@ -2163,10 +2216,12 @@ def main() -> int:
         f"TF32 cuDNN {torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report(PACKED + ("ragged_attention", "flash_attention"))
+    ptxas = start_ptxas_report(PACKED + ("ragged_attention", "flash_attention",
+                                         "decode_attention"))
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
-    log_ptxas_report(ptxas, ("_tc_kernel", "_tf32_kernel", "ragged_f32_kernel"))
+    log_ptxas_report(ptxas, ("_tc_kernel", "_tf32_kernel", "ragged_f32_kernel",
+                             "decode_kernel"))
     log_sass_report(PACKED + ("flash_attention",))
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
@@ -2410,11 +2465,12 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
             f"{cuda_time_ms(sdpa, iters=20):.4f} ms; {bound_text(bounds)}")
 
 
-def build_other_library(name: str, source: Path, label: str) -> ctypes.CDLL:
+def build_other_library(name: str, source: Path, label: str, signatures=None) -> ctypes.CDLL:
     """``source`` (another commit's ``<name>.cu``) built alone under
     another library name, with this checkout's csrc headers (the file is
     copied to a directory of its own first, so that its neighbours are not
-    on the include path), and bound with ``cuda_build.SIGNATURES[name]``."""
+    on the include path), and bound with ``signatures`` (default
+    ``cuda_build.SIGNATURES[name]``)."""
     import shutil
 
     from dalle_pytorch_tpu_torch.ops import cuda_build
@@ -2430,7 +2486,7 @@ def build_other_library(name: str, source: Path, label: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
-    for fn, (argtypes, restype) in cuda_build.SIGNATURES[name].items():
+    for fn, (argtypes, restype) in (signatures or cuda_build.SIGNATURES[name]).items():
         getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
     return lib
 
@@ -2439,20 +2495,20 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
     """The tiled flash kernels of this checkout against
     ``flash_attention.cu`` of ``other_dir`` (another commit's csrc, built
     by ``build_other_library``), in one process with one timer (cold L2).
-    First, at ``testing.flash_inputs``' "train" and "axial_col" cases, on
-    the plain forward's o and lse: each tree's float32 dq, delta, dk and
-    dv (dk/dv on the tree's own delta) held against the plain versions
-    (each gradient within ``testing.BWD_F32_REL`` relative L2, rows with
-    no allowed key exactly 0, delta within 1e-4 of the plain delta's
-    largest magnitude), with max |this - other| printed; the forward and
-    the single-block backward (float32 and bfloat16) and every bfloat16
-    output must be bitwise equal across the trees. Then float32 dq and
-    dk/dv at the 512 px training shape (``flash_inputs("train")``, seed
-    1) timed in the order other, this, this, other, ``rounds`` times, with
-    sdpa backward and both bounds beside; raises on a failed check."""
+    First, at ``testing.flash_inputs``' "train" and "axial_col" cases:
+    each tree's float32 forward held against the plain version (o and lse
+    within ``testing.FLASH_F32_ATOL``, rows with no allowed key exactly 0
+    with lse -1e30), with max |this - other| printed; every other output
+    (the bfloat16 forward; dq, delta, dk and dv on the plain forward's o
+    and lse, and the single-block backward, in both types) must be
+    bitwise equal across the trees. Then the float32 forward, dq and dk/dv
+    at the 512 px training shape (``flash_inputs("train")``, seed 1)
+    timed in the order other, this, this, other, ``rounds`` times, with
+    sdpa forward / backward and the bounds beside; raises on a failed
+    check."""
     from dalle_pytorch_tpu_torch.ops import cuda_build
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
-    from dalle_pytorch_tpu_torch.testing import BWD_F32_REL, flash_bwd_errors, flash_inputs
+    from dalle_pytorch_tpu_torch.testing import FLASH_F32_ATOL, flash_fwd_errors, flash_inputs
 
     name = "flash_attention"
     libs = {"this": cuda_build.load_library(name),
@@ -2469,8 +2525,8 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
             for src in libs:
                 use(src)
                 dq, delta = fa.flash_attention_dq(q, k, v, po, plse, do, **opts)
-                outs[src] = (dq, delta, *fa.flash_attention_dkdv(q, k, v, do, plse, delta, **opts),
-                             *fa.flash_attention_fwd(q, k, v, **opts),
+                outs[src] = (*fa.flash_attention_fwd(q, k, v, **opts), dq, delta,
+                             *fa.flash_attention_dkdv(q, k, v, do, plse, delta, **opts),
                              *fa.flash_attention_bwd_fused(q, k, v, po, plse, do, **opts))
             use("this")
             torch.cuda.synchronize()
@@ -2478,36 +2534,32 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
             same = [torch.equal(a, b) for a, b in pairs]
             label = f"compare tiled {case} {dtype}"
             if dtype == torch.bfloat16:
-                log(f"{label}: dq, delta, dk, dv, o, lse, single-block dq, dk, dv bitwise equal "
+                log(f"{label}: o, lse, dq, delta, dk, dv, single-block dq, dk, dv bitwise equal "
                     f"to the other tree's: {same}")
                 if not all(same):
                     raise AssertionError(f"{label}: outputs differ from the other tree's")
                 continue
-            log(f"{label}: o, lse, single-block dq, dk, dv bitwise equal to the other tree's: "
-                f"{same[4:]}")
-            if not all(same[4:]):
-                raise AssertionError(f"{label}: forward or single-block outputs differ")
-            pdelta = (do.float() * po.float()).sum(-1)
-            plain = fa.reference_flash_attention_bwd(q, k, v, po, plse, do, **opts)
+            log(f"{label}: dq, delta, dk, dv, single-block dq, dk, dv bitwise equal to the "
+                f"other tree's: {same[2:]}")
+            if not all(same[2:]):
+                raise AssertionError(f"{label}: backward outputs differ from the other tree's")
             ok = True
-            for src, (dq, delta, dk, dv, *_) in outs.items():
-                rel, _, zeros_exact = flash_bwd_errors((dq, dk, dv), plain, **opts)
-                delta_err = (delta - pdelta).abs().max().item() / pdelta.abs().max().item()
-                ok &= rel <= BWD_F32_REL and zeros_exact and delta_err <= 1e-4
-                log(f"{label}, {src}: dq, dk, dv relative L2 {rel:.3e} (tolerance "
-                    f"{BWD_F32_REL:.0e}), dead rows exactly 0 {zeros_exact}, delta error "
-                    f"{delta_err:.3e} of its largest magnitude (tolerance 1e-4)")
-            diffs = [(a - b).abs().max().item() for a, b in pairs[:4]]
-            log(f"{label}: max |this - other| dq {diffs[0]:.3e}, delta {diffs[1]:.3e}, dk "
-                f"{diffs[2]:.3e}, dv {diffs[3]:.3e}")
+            for src, (o, lse, *_) in outs.items():
+                err, _, _, dead_exact = flash_fwd_errors(o, lse, po, plse, **opts)
+                ok &= err <= FLASH_F32_ATOL and dead_exact
+                log(f"{label}, {src}: forward max abs (o, lse) {err:.3e} (tolerance "
+                    f"{FLASH_F32_ATOL:.0e}), dead rows exactly 0 {dead_exact}")
+            log(f"{label}: max |this - other| o {(pairs[0][0] - pairs[0][1]).abs().max():.3e}, "
+                f"lse {(pairs[1][0] - pairs[1][1]).abs().max():.3e}")
             if not ok:
-                raise AssertionError(f"{label}: a tree misses the plain version's tolerances")
-            del plain, outs, pairs
+                raise AssertionError(f"{label}: a tree's forward misses the plain version")
+            del outs, pairs
 
     q, k, v, do, opts = flash_inputs("train", torch.float32, "cuda", seed=1)
     o, lse = fa.flash_attention_fwd(q, k, v, **opts)
     _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
-    calls = {"flash_attention_dq": lambda: fa.flash_attention_dq(q, k, v, o, lse, do, **opts),
+    calls = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v, **opts),
+             "flash_attention_dq": lambda: fa.flash_attention_dq(q, k, v, o, lse, do, **opts),
              "flash_attention_dkdv": lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta,
                                                                      **opts)}
     ms = {(key, src): [] for key in calls for src in libs}
@@ -2517,23 +2569,108 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
             for key, fn in calls.items():
                 ms[key, src].append(cuda_time_ms(fn, iters=10))
     use("this")
-    sdpa_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
+    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, **sdpa_flash_kw(q, opts)), iters=10)
+    sdpa_bwd_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
     bounds = flash_bounds(q, opts)
     for key in calls:
         this, other = ms[key, "this"], ms[key, "other"]
         # adjacent pairs of the order other, this, this, other
         faster = all(t < o for t, o in zip(this, other))
+        sdpa = (f"sdpa forward {sdpa_ms:.4f}" if key == "flash_attention_fwd"
+                else f"sdpa backward {sdpa_bwd_ms:.4f}")
         log(f"compare {key} float32, 512 px training shape (b 4, 16 x 64, n 4352, causal), cold "
             f"L2: other " + ", ".join(f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} "
             f"ms); this " + ", ".join(f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} "
             f"ms); this / other {np.mean(this) / np.mean(other):.4f}; this faster in every pair "
-            f"{faster}; {bound_text(bounds[key])}")
-    this = [a + b for a, b in zip(*(ms[key, "this"] for key in calls))]
-    other = [a + b for a, b in zip(*(ms[key, "other"] for key in calls))]
-    log(f"compare tiled dq + dk/dv float32: other mean {np.mean(other):.4f} ms, this mean "
-        f"{np.mean(this):.4f} ms, this / other {np.mean(this) / np.mean(other):.4f}; this faster "
-        f"in every pair {all(t < o for t, o in zip(this, other))}; sdpa backward {sdpa_ms:.4f} "
-        f"ms; this below sdpa backward {np.mean(this) < sdpa_ms}")
+            f"{faster}; {sdpa} ms; {bound_text(bounds[key])}")
+
+
+def compare_decode_sources(other_dir: str, rounds: int = 2) -> None:
+    """The fused decode kernel of this checkout against
+    ``decode_attention.cu`` of ``other_dir`` (another commit's csrc,
+    built by ``build_other_library``; a source whose entry point takes no
+    split runs one block a head), in one process with one timer (cold
+    L2), at the generate path's shape (16 heads of 64, L 1281, idx 768,
+    rotary, no key mask) at b 1 and b 8: each tree's out held against the
+    plain version (float32 and bf16, ``testing``'s tolerances), k_row and
+    v_row bitwise equal across the trees, max |this - other| of out
+    printed; then bf16 timed in the order other, this, this, other,
+    ``rounds`` times, with this tree's S, sdpa and the bound beside;
+    raises on a failed check."""
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+    from dalle_pytorch_tpu_torch.ops import decode_attention as da
+    from dalle_pytorch_tpu_torch.testing import decode_errors, decode_inputs, decode_ok
+
+    name = "decode_attention"
+    source = Path(other_dir) / f"{name}.cu"
+    split_arg = "int splits" in source.read_text()
+    argtypes, restype = cuda_build.SIGNATURES[name]["decode_attention_fwd"]
+    if not split_arg:
+        argtypes = argtypes[:15] + argtypes[16:]
+    other = build_other_library(name, source, "decode_other",
+                                {"decode_attention_fwd": (argtypes, restype)})
+
+    def run_other(qkv, kc, vc, idx, cos, sin, km, heads):
+        b = qkv.shape[0]
+        L, hd = kc.shape[1:]
+        d = hd // heads
+        out = torch.empty((b, 1, hd), dtype=qkv.dtype, device=qkv.device)
+        k_row, v_row = torch.empty_like(out), torch.empty_like(out)
+        p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+        extra = (da.decode_splits(b * heads, idx),) if split_arg else ()
+        err = other.decode_attention_fwd(
+            *(p(t) for t in (qkv, kc, vc, cos, sin, km, out, k_row, v_row)), b, heads, d, L,
+            idx, d**-0.5, *extra, 0 if qkv.dtype == torch.float32 else 1,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"the other tree's decode kernel failed: error {err}")
+        return out, k_row, v_row
+
+    L, h, idx = 1281, 16, 768
+    for b in (1, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, kc, vc, cos, sin, _ = decode_inputs(b, L, h, 64, idx, dtype, "cuda", seed=1)
+            args = (qkv, kc, vc, idx, cos, sin, None)
+            outs = {"this": da.fused_decode_attention(*args, heads=h),
+                    "other": run_other(*args, h)}
+            plain = da.reference_fused_decode(*args, h)
+            torch.cuda.synchronize()
+            label = f"compare decode b {b} {dtype}"
+            ok = True
+            for src, got in outs.items():
+                err, rel, rows_equal, dead_zero = decode_errors(got, plain, None, idx)
+                ok &= decode_ok(dtype, err, rel, rows_equal, dead_zero)
+                log(f"{label}, {src}: out max abs {err:.3e}, row-relative {rel:.3e}, k/v rows "
+                    f"bitwise the plain version's {rows_equal}")
+            rows_same = all(torch.equal(a, c) for a, c in zip(outs["this"][1:], outs["other"][1:]))
+            diff = (outs["this"][0].float() - outs["other"][0].float()).abs().max()
+            log(f"{label}: k_row, v_row bitwise equal across the trees {rows_same}; max |this - "
+                f"other| out {diff:.3e}")
+            if not (ok and rows_same):
+                raise AssertionError(f"{label}: a tree misses the plain version, or rows differ")
+
+    for b in (1, 8):
+        qkv, kc, vc, cos, sin, _ = decode_inputs(b, L, h, 64, idx, torch.bfloat16, "cuda", seed=1)
+        args = (qkv, kc, vc, idx, cos, sin, None)
+        fns = {"this": lambda: da.fused_decode_attention(*args, heads=h),
+               "other": lambda: run_other(*args, h)}
+        ms = {"this": [], "other": []}
+        for _ in range(rounds):
+            for src in ("other", "this", "this", "other"):
+                ms[src].append(cuda_time_ms(fns[src]))
+        q = qkv[..., :h * 64].view(b, 1, h, 64).transpose(1, 2)
+        kv = [t.view(b, L, h, 64)[:, :idx + 1].transpose(1, 2) for t in (kc, vc)]
+        sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, *kv))
+        bound_ms, bound_by = decode_bound(b, L, h, 64, idx, torch.bfloat16)
+        this, oth = ms["this"], ms["other"]
+        log(f"compare fused_decode_attention bf16 (b {b}, 16 x 64, idx {idx}, L {L}, rotary), "
+            f"cold L2: other " + ", ".join(f"{t:.4f}" for t in oth) + f" (mean "
+            f"{np.mean(oth):.4f} ms); this at S {da.decode_splits(b * h, idx)} " + ", ".join(
+                f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} ms); this / other "
+            f"{np.mean(this) / np.mean(oth):.4f}; this faster in every pair "
+            f"{all(t < o for t, o in zip(this, oth))}; sdpa {sdpa_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
 
 
 def compare_generate(pairs: int = 3) -> None:
@@ -2549,7 +2686,7 @@ def compare_generate(pairs: int = 3) -> None:
         torch.Generator(device="cuda").manual_seed(0))
     text = torch.from_numpy(np.random.RandomState(13).randint(
         1, FLAGSHIP["num_text_tokens"], size=(8, FLAGSHIP["text_seq_len"])))[:1].cuda()
-    runs = {"a": dict(fused_decode=True, window_seg=0), "b": {}}
+    runs = {"a": dict(fused_decode=True, window_seg=0), "b": dict(fused_decode=False)}
     T = model.text_len_internal
     for kw in runs.values():
         tokens = torch.zeros((1, T + model.image_seq_len), dtype=torch.int32, device="cuda")
@@ -2572,8 +2709,8 @@ def compare_generate(pairs: int = 3) -> None:
 
 def compare(argv) -> int:
     """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR``,
-    ``--tiled-source DIR`` and/or ``--generate-pairs N``: only the paired
-    comparisons, on one card."""
+    ``--tiled-source DIR``, ``--decode-source DIR`` and/or
+    ``--generate-pairs N``: only the paired comparisons, on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -2584,6 +2721,8 @@ def compare(argv) -> int:
                         help="csrc directory of another commit (its fused_qkv_attention*.cu)")
     parser.add_argument("--tiled-source",
                         help="csrc directory of another commit (its flash_attention.cu)")
+    parser.add_argument("--decode-source",
+                        help="csrc directory of another commit (its decode_attention.cu)")
     parser.add_argument("--generate-pairs", type=int, default=0)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2597,6 +2736,8 @@ def compare(argv) -> int:
         compare_packed_sources(args.packed_source)
     if args.tiled_source:
         compare_tiled_sources(args.tiled_source)
+    if args.decode_source:
+        compare_decode_sources(args.decode_source)
     if args.generate_pairs:
         compare_generate(args.generate_pairs)
     return 0

@@ -266,7 +266,7 @@ class DALLE(nn.Module):
         )[:, 0]
         return torch.where(final[:, None], rowwise, batched)
 
-    def _decode_block(self, emb, pos: int, cache, mask, fused_decode: bool = False):
+    def _decode_block(self, emb, pos: int, cache, mask, fused_decode: Optional[bool] = None):
         """emb (b, n, dim): n tokens at positions pos + j for the whole
         batch through the cached transformer (the cache's key mask is
         ``mask`` widened to every position)."""
@@ -303,15 +303,17 @@ class DALLE(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, token, pos: int, cache, mask=None, image_only: bool = False,
-                    fused_decode: bool = False) -> torch.Tensor:
+                    fused_decode: Optional[bool] = None) -> torch.Tensor:
         """One cached decode step for the whole batch: token (b,) the id
         at internal position ``pos`` (a Python int), a remapped text id
         below text_len_internal, else an image id; the embedding is chosen
         by the position. Returns the float32 logits predicting pos + 1:
         (b, total_tokens) with the logits mask's row ``pos``, or with
         ``image_only`` (pos + 1 an image position) the image-vocab head.
-        ``fused_decode`` lets the dense cache's causal "full" layers take
-        the fused decode kernel."""
+        ``fused_decode`` chooses the dense cache's causal "full" layers'
+        route: None (default) the fused decode kernel on the card and the
+        unfused chain on the CPU, True the kernel (on the CPU under JAX's
+        gate), False the unfused chain (``Attention.uses_decode_kernel``)."""
         if pos < self.text_len_internal:
             emb = self.text_emb(token.clamp(0, self.num_text_tokens_ext - 1))
         else:

@@ -188,7 +188,7 @@ def decode_tokens(dalle, tokens: torch.Tensor, known_len: int, seed: int,
                   filter_thres: float = 0.5, temperature: float = 1.0, mask=None,
                   num_steps: Optional[int] = None, prefill_len: int = 0,
                   window_seg: Optional[int] = None, cache_format: Optional[str] = None,
-                  fused_decode: bool = False, kv_quant: Optional[str] = None,
+                  fused_decode: Optional[bool] = None, kv_quant: Optional[str] = None,
                   page_size: Optional[int] = None) -> torch.Tensor:
     """Fill the internal token buffer: tokens (b, n_internal) int32 on the
     model's device, position 0 <bos>; the first ``known_len`` positions
@@ -207,10 +207,12 @@ def decode_tokens(dalle, tokens: torch.Tensor, known_len: int, seed: int,
     ``window_seg`` (default ``DEFAULT_WINDOW_SEG``; 0 = off): the steps
     run in segments ending at multiples of it, each over a dense cache's
     rows [0, min(L, ceil128(end))) (``DecodeCache.set_window``) as JAX's
-    segmented scan resizes its caches. The fused decode kernel
-    (``fused_decode``) runs only where that extent is the whole cache, as
-    in JAX. ``cache_format``, ``kv_quant``, ``page_size``: as in
-    ``init_decode_cache``."""
+    segmented scan resizes its caches. ``fused_decode`` chooses the dense
+    caches' decode route (``DALLE.decode_step``): by default the fused
+    decode kernel on the card, at any window, and the unfused chain on
+    the CPU; True on the CPU takes the kernel only where the extent is
+    the whole cache, as in JAX. ``cache_format``, ``kv_quant``,
+    ``page_size``: as in ``init_decode_cache``."""
     b, n_internal = tokens.shape
     steps = n_internal - 1 if num_steps is None else num_steps
     seg = DEFAULT_WINDOW_SEG if window_seg is None else window_seg

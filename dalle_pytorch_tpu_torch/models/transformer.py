@@ -11,8 +11,9 @@ sequential execution:
   table, every layer by its type): one block over a decode cache, either
   ragged over the paged format (``PagedKV`` layers) or the whole batch at
   one position over the dense "flat" / "4d" format (``DenseKV`` layers,
-  where ``fused_decode`` lets the causal "full" layers take the fused
-  decode kernel under JAX's gate, ``Attention.fused_decode_gate``);
+  where ``fused_decode`` chooses the causal "full" layers' route:
+  ``Attention.uses_decode_kernel``, the fused decode kernel by default
+  on the card, the unfused chain by default on the CPU);
 - the full-sequence form (``forward(x, mask=...)`` with no cache), every
   attention type but gMLP: the DALL-E training forward (causal, rotary,
   token shift over the whole sequence) and CLIP's encoders
@@ -118,12 +119,13 @@ class Transformer(nn.Module):
         return self._decode_cs[key]
 
     def forward(self, x, cache=None, block_len=None, block_start=None,
-                mask=None, fused_decode: bool = False):
+                mask=None, fused_decode: Optional[bool] = None):
         """With ``cache`` (``models.sampling.DecodeCache``): one block
         through every layer (row b's tokens at positions block_start[b] +
         j, the valid ones [0, block_len[b])), the cache updated in place;
-        ``mask`` the optional (b, L) key mask; ``fused_decode`` lets dense
-        layers take the fused decode kernel. Without: the whole sequence
+        ``mask`` the optional (b, L) key mask; ``fused_decode`` (None,
+        True or False) chooses the dense layers' decode route
+        (``Attention.uses_decode_kernel``). Without: the whole sequence
         x (b, n, dim), ``mask`` the optional (b, n) key mask; the rotary
         cos/sin tables are built once for all layers."""
         if cache is None:
@@ -135,7 +137,7 @@ class Transformer(nn.Module):
                 x = x + self.ff_blocks[ind](x)
             return x
         rotary_cs = None
-        if fused_decode and self.rotary is not None:
+        if self.rotary is not None and (fused_decode or (fused_decode is None and x.is_cuda)):
             rotary_cs = self.decode_tables(x.dtype)
         for ind in range(self.depth):
             akw = dict(kv=cache.kv[ind], rotary=self.rotary, mask=mask,

@@ -17,12 +17,17 @@
   (``Attention._decode_dense``, JAX's ``_decode_attend``): rotary rows at
   the write index, the q * d**-0.5 pre-scale, the rows written, the
   pattern's rows over the sweep extent W ANDed with the key mask, then
-  ``cache_block_attend``. With ``fused_decode`` set it takes JAX's fused
-  path (``_decode_attend_fused``) under JAX's gate: one token, a causal
-  "full" layer, ``decode_attention.fused_decode_supported`` heads, and a
-  sweep extent of the whole cache (no window); there the kernel
-  (``decode_attention.fused_decode_attention``) attends and returns the
-  rotated k/v rows, which are written at the index after the call;
+  ``cache_block_attend``. The fused path (JAX's ``_decode_attend_fused``)
+  is the kernel (``decode_attention.fused_decode_attention``), which
+  attends and returns the rotated k/v rows, written at the index after
+  the call. ``fused_decode`` chooses between the two: False the unfused
+  chain; None (the default) the kernel on a CUDA device, the unfused
+  chain on the CPU (JAX's default); True or None on the card the
+  kernel wherever ``decode_kernel_route`` allows it (one token, a causal
+  "full" layer, ``fused_decode_supported`` heads; any window, since the
+  kernel reads only the rows [0, idx)); True on the CPU JAX's gate
+  (``Attention.fused_decode_gate``: the same, and a sweep extent of the
+  whole cache), so the CPU parity tests keep JAX's route;
 - full sequence (the non-decode branch), with an optional (b, n) key
   mask and rotary table, dispatched as JAX dispatches on the TPU, the
   same on the CPU and on the card:
@@ -116,6 +121,16 @@ class PagedKV:
     def pools(self):
         """Every pool of the layer: content, then scales when int8."""
         return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
+
+
+def decode_kernel_route(device, n: int, attn_type: str, causal: bool, heads: int,
+                        dim_head: int) -> bool:
+    """The card's route for a dense decode step (``fused_decode`` None or
+    True on a CUDA device): the fused decode kernel for one token of a
+    causal "full" layer with heads the kernel takes, at any window;
+    never off the card."""
+    return (torch.device(device).type == "cuda" and n == 1 and attn_type == "full"
+            and causal and fused_decode_supported(heads, dim_head))
 
 
 @dataclass
@@ -332,18 +347,18 @@ class Attention(nn.Module):
                 and self.block_layout(n).visited_block_frac <= ENGAGE_FRAC)
 
     def forward(self, x, kv=None, rotary=None, block_len=None, block_start=None,
-                mask=None, fused_decode: bool = False, rotary_cs=None):
+                mask=None, fused_decode: Optional[bool] = None, rotary_cs=None):
         """Decode form (``kv`` a ``PagedKV``): x (b, n, dim), row b's valid
         tokens are columns [0, block_len[b]) at positions block_start[b] +
         j; writes their K/V into ``kv`` and advances its index for rows
         with block_len > 0; ``rotary`` is the angle table, ``mask`` the
         optional (b, L) key mask. Decode form over a ``DenseKV``: x's n
         tokens at positions kv.index + j (``_decode_dense``), with
-        ``fused_decode`` and ``rotary_cs`` (the (cos, sin) pair of
-        ``rotary.rot_tables`` over the whole angle table) for the fused
-        path. Full-sequence form (no ``kv``): ``mask`` is the optional
-        (b, n) key mask, ``rotary`` the (cos, sin) pair of
-        ``rotary.rot_tables``."""
+        ``fused_decode`` (None, True or False: the module docstring) and
+        ``rotary_cs`` (the (cos, sin) pair of ``rotary.rot_tables`` over
+        the whole angle table) for the fused path. Full-sequence form (no
+        ``kv``): ``mask`` is the optional (b, n) key mask, ``rotary`` the
+        (cos, sin) pair of ``rotary.rot_tables``."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         if isinstance(kv, DenseKV):
@@ -388,24 +403,38 @@ class Attention(nn.Module):
         return self.to_out(out.reshape(b, n, h * d))
 
     def fused_decode_gate(self, n: int, kv: DenseKV) -> bool:
-        """JAX's gate for the fused decode kernel (given ``fused_decode``):
-        one token, a causal "full" layer, supported heads, and a sweep
-        extent of the whole cache (JAX's ``_has_windowed_cache`` false)."""
+        """JAX's gate for the fused decode kernel (given ``fused_decode``),
+        the route of ``fused_decode=True`` on the CPU: one token, a causal
+        "full" layer, supported heads, and a sweep extent of the whole
+        cache (JAX's ``_has_windowed_cache`` false)."""
         return (n == 1 and self.attn_type == "full" and self.causal
                 and fused_decode_supported(self.heads, self.dim_head)
                 and kv.width == kv.k.shape[1])
 
-    def _decode_dense(self, qkv, kv: DenseKV, rotary, mask, fused_decode: bool,
+    def uses_decode_kernel(self, n: int, kv: DenseKV, device,
+                           fused_decode: Optional[bool]) -> bool:
+        """Whether a dense decode step of n tokens takes the fused kernel:
+        never with ``fused_decode=False``; on a CUDA device
+        ``decode_kernel_route`` (None or True); on the CPU JAX's gate
+        with True, the unfused chain with None."""
+        if fused_decode is False:
+            return False
+        if torch.device(device).type == "cuda":
+            return decode_kernel_route(device, n, self.attn_type, self.causal, self.heads,
+                                       self.dim_head)
+        return bool(fused_decode) and self.fused_decode_gate(n, kv)
+
+    def _decode_dense(self, qkv, kv: DenseKV, rotary, mask, fused_decode: Optional[bool],
                       rotary_cs):
         """Decode over the dense cache: qkv (b, n, 3*h*d) of n tokens at
-        positions kv.index + j. The fused path (``fused_decode`` and
-        ``fused_decode_gate``): the kernel, then its k/v rows written at
-        the index. Otherwise JAX's ``_decode_attend``. Advances kv.index by
-        n; returns (b, n, h*d)."""
+        positions kv.index + j. The fused path (``uses_decode_kernel``):
+        the kernel, then its k/v rows written at the index. Otherwise
+        JAX's ``_decode_attend``. Advances kv.index by n; returns
+        (b, n, h*d)."""
         b, n, _ = qkv.shape
         h, d = self.heads, self.dim_head
         idx, W = kv.index, kv.width
-        if fused_decode and self.fused_decode_gate(n, kv):
+        if self.uses_decode_kernel(n, kv, qkv.device, fused_decode):
             cos, sin = rotary_cs if rotary is not None else (None, None)
             key_mask = None if mask is None else mask.to(torch.int32)
             out, k_row, v_row = fused_decode_attention(

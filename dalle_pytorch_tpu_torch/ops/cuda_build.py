@@ -46,7 +46,7 @@ SIGNATURES = {
         "block_sparse_attention_dkdv": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
     },
     "decode_attention": {
-        "decode_attention_fwd": ([_P] * 9 + [_I] * 5 + [_F, _I, _P], _I),
+        "decode_attention_fwd": ([_P] * 9 + [_I] * 5 + [_F, _I, _I, _P], _I),
     },
     "flash_attention": {
         "flash_attention_fwd": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),

@@ -21,8 +21,11 @@ cache, from the packed projection row to the attention output:
 is the wrapper of the hand-written CUDA kernel
 (``csrc/decode_attention.cu``): a CUDA tensor launches the kernel or
 raises, a CPU tensor runs the plain version; ``.launches`` counts kernel
-launches. ``fused_decode_supported`` is JAX's head-group predicate, which
-the dispatch in ``ops/attention.py`` uses as JAX's does.
+launches. The kernel splits each (head, batch row) over a cluster of S
+blocks, each sweeping one slice of the cache rows (``decode_slices``),
+and merges their partial softmaxes in rank order; ``decode_splits``
+chooses S from the shape alone. ``fused_decode_supported`` is JAX's
+head-group predicate, which the dispatch in ``ops/attention.py`` uses.
 """
 
 from __future__ import annotations
@@ -36,6 +39,35 @@ from .rotary import rotate_half
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# the kernel's splits: a cluster of at most 8 blocks (the largest portable
+# cluster) of 8 warps, at most 64 blocks in all and never fewer than 64
+# cache rows a block. Timed on an H100: at batch 1 (16 pairs) S 4 beat
+# S 8 and S 2 from idx 512 to 1279; at batch 8 (128 pairs) S 1 matched
+# S 2 and beat S 4 (the merge and its barriers cost more as S grows, and
+# 128 blocks of 8 warps already cover the card).
+DECODE_SPLITS = (1, 2, 4, 8)
+DECODE_TARGET_BLOCKS = 64
+DECODE_MIN_ROWS = 64
+
+
+def decode_splits(pairs: int, idx: int) -> int:
+    """S, the blocks the kernel splits each of ``pairs`` (batch x heads)
+    (head, batch row) pairs over at position ``idx``: the largest of
+    ``DECODE_SPLITS`` with pairs * S <= ``DECODE_TARGET_BLOCKS`` and idx
+    >= S * ``DECODE_MIN_ROWS``, else 1 (so idx 0 gives 1)."""
+    fits = [s for s in DECODE_SPLITS
+            if pairs * s <= DECODE_TARGET_BLOCKS and idx >= s * DECODE_MIN_ROWS]
+    return max(fits, default=1)
+
+
+def decode_slices(idx: int, splits: int):
+    """The cache rows [lo, hi) that block ``rank`` of a split sweeps, for
+    rank 0 .. splits - 1: contiguous, in rank order, covering [0, idx),
+    sizes differing by at most one (so a slice is empty only when idx <
+    splits)."""
+    return [(r * idx // splits, (r + 1) * idx // splits) for r in range(splits)]
 
 
 def fused_decode_supported(heads: int, dim_head: int) -> bool:
@@ -112,16 +144,18 @@ def _check(qkv, k_cache, v_cache, idx, cos, sin, key_mask, heads):
 
 
 def fused_decode_attention(qkv, k_cache, v_cache, idx: int, cos=None, sin=None,
-                           key_mask: Optional[torch.Tensor] = None, *, heads: int):
+                           key_mask: Optional[torch.Tensor] = None, *, heads: int,
+                           splits: Optional[int] = None):
     """One decode step: qkv (b, 1, 3*h*d) float32 or bfloat16; k_cache,
     v_cache (b, L, h*d) (or their (b, L, h, d) view) of qkv's dtype, read
     only; ``idx`` the step's position, a Python int in [0, L); cos, sin
     (> idx rows, d) in qkv's dtype from ``rotary.rot_tables``, or None
-    for no rotary; key_mask (b, L) int32 (> 0 live) or None. Returns
-    (out, k_row, v_row), each (b, 1, h*d): out in qkv's dtype, the rotated
-    k and v in the caches' dtype, for the caller to write at ``idx``.
-    CPU tensors run ``reference_fused_decode``; CUDA tensors launch the
-    kernel, never falling back."""
+    for no rotary; key_mask (b, L) int32 (> 0 live) or None; ``splits``
+    the kernel's S (one of ``DECODE_SPLITS``; default ``decode_splits``).
+    Returns (out, k_row, v_row), each (b, 1, h*d): out in qkv's dtype, the
+    rotated k and v in the caches' dtype, for the caller to write at
+    ``idx``. CPU tensors run ``reference_fused_decode``; CUDA tensors
+    launch the kernel, never falling back."""
     if not qkv.is_cuda:
         return reference_fused_decode(qkv, k_cache, v_cache, idx, cos, sin, key_mask, heads)
     from .cuda_build import load_library
@@ -129,6 +163,10 @@ def fused_decode_attention(qkv, k_cache, v_cache, idx: int, cos=None, sin=None,
     b = qkv.shape[0]
     k_cache, v_cache = (t.reshape(b, t.shape[1], -1) for t in (k_cache, v_cache))
     _check(qkv, k_cache, v_cache, idx, cos, sin, key_mask, heads)
+    if splits is None:
+        splits = decode_splits(b * heads, idx)
+    if splits not in DECODE_SPLITS:
+        raise ValueError(f"splits must be one of {DECODE_SPLITS}, got {splits}")
     L, hd = k_cache.shape[1:]
     d = hd // heads
     out = torch.empty((b, 1, hd), dtype=qkv.dtype, device=qkv.device)
@@ -136,12 +174,13 @@ def fused_decode_attention(qkv, k_cache, v_cache, idx: int, cos=None, sin=None,
     p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     err = load_library("decode_attention").decode_attention_fwd(
         *(p(t) for t in (qkv, k_cache, v_cache, cos, sin, key_mask, out, k_row, v_row)),
-        b, heads, d, L, idx, d**-0.5, _DTYPE_CODE[qkv.dtype],
+        b, heads, d, L, idx, d**-0.5, splits, _DTYPE_CODE[qkv.dtype],
         ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream),
     )
     if err == -1:
-        raise ValueError(f"the decode kernel cannot take dim_head {d}: it has instances for "
-                         "every dim_head that divides 128 (see csrc/decode_attention.cu)")
+        raise ValueError(f"the decode kernel cannot take dim_head {d} at batch {b}: it has "
+                         "instances for every dim_head that divides 128 and at most 65535 "
+                         "batch rows (see csrc/decode_attention.cu)")
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: error {err}")
     fused_decode_attention.launches += 1

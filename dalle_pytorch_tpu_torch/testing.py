@@ -37,18 +37,21 @@ The packed-qkv kernels' float32 instances run every product as split
 ``emulated_fused_qkv`` runs the packed attention, forward and backward,
 with its products so emulated (or as single-pass TF32, ``matmul_tf32``),
 so that the CPU tests can show that the split holds float32's
-tolerances and that one TF32 pass does not. ``emulated_flash_bwd`` does
-the same for the tiled flash backward, and ``matmul_3xtf32_card``
-accumulates as the tensor cores do (each mma's result truncated toward
-zero to float32), with the long sums straight or folded in fresh
-partials as the kernels fold them.
+tolerances and that one TF32 pass does not. ``emulated_flash_bwd`` and
+``emulated_flash_fwd`` do the same for the tiled flash backward and
+forward, and ``matmul_3xtf32_card`` accumulates as the tensor cores do
+(each mma's result truncated toward zero to float32), with the long
+sums straight or folded in fresh partials as the kernels fold them.
 
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
 within ``DECODE_BF16_ROW_REL`` of the plain row, the returned k/v rows
-bitwise, and a row with no live key exactly 0. Generation through it
-against the unfused chain is a different rounding of the same function:
-teacher-forced logits within ``DECODE_LOGITS_REL``.
+bitwise, and a row with no live key exactly 0. ``emulated_split_decode``
+runs the kernel's split in plain PyTorch: the rows [0, idx) cut into the
+slices of ``decode_attention.decode_slices``, a partial softmax each,
+merged in rank order with the fresh token. Generation through the
+kernel against the unfused chain is a different rounding of the same
+function: teacher-forced logits within ``DECODE_LOGITS_REL``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops import block_sparse_attention as bs
+from .ops import decode_attention as da
 from .ops import flash_attention as fa
 from .ops import masks, paged_kv
 from .ops.rotary import dalle_rotary_table, rot_tables, rotate_half
@@ -426,6 +430,92 @@ def emulated_flash_bwd(q, k, v, o, lse, do, matmul, long_matmul=None, key_mask=N
     del dp
     return (long_matmul(ds, k), long_matmul(ds.transpose(-1, -2), q),
             long_matmul(p.transpose(-1, -2), do))
+
+
+def emulated_flash_fwd(q, k, v, matmul, long_fold: bool = True, key_mask=None,
+                       causal: bool = True, pattern=None):
+    """The tiled flash forward as ``flash_fwd_tf32_kernel`` runs it, on
+    float32 q, k, v (b, h, n, d): the online softmax over the kernel's
+    32-key halves (running max, denominator rescaled by corr = exp(m -
+    m_new)), s = q.k^T by ``matmul`` (e.g. ``matmul_3xtf32``), and the
+    value product on the tensor cores' truncating accumulation
+    (``_mma_steps``): with ``long_fold`` a fresh partial per half folded
+    in as o * corr + partial, one rounding (``tf32::fold_product``'s FMA);
+    without, o rescaled by corr and the half's mmas added straight into
+    it. Returns (o, lse (b, h, n)) as the plain forward's."""
+    n, d = q.shape[-2:]
+    scale = d**-0.5
+    allowed = fa.may_attend(n, q.device, key_mask, causal, pattern)
+    m = torch.full(q.shape[:-1] + (1,), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, n, 32):
+        ks = slice(k0, k0 + 32)
+        s = (matmul(q, k[..., ks, :].transpose(-1, -2)) * scale).masked_fill(
+            ~allowed[..., ks], fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        parts = split_tf32(p), split_tf32(v[..., ks, :])
+        if long_fold:
+            partial = _mma_steps(torch.zeros_like(o), *parts)
+            o = (o.double() * corr.double() + partial.double()).float()
+        else:
+            o = _mma_steps(o * corr, *parts)
+        m = m_new
+    l_safe = torch.where(l == 0, 1.0, l)
+    return o / l_safe, (m + torch.log(l_safe))[..., 0]
+
+
+def emulated_split_decode(qkv, k_cache, v_cache, idx: int, cos, sin, key_mask, heads: int,
+                          splits: int):
+    """The fused decode kernel's split in plain PyTorch, float32, same
+    arguments and results as ``reference_fused_decode``: the cache rows
+    [0, idx) cut into ``decode_attention.decode_slices(idx, splits)``,
+    each slice's partial softmax (m, l, acc) over its live keys (an empty
+    or wholly masked slice: l = 0, weight 0), then the partials merged in
+    rank order with the fresh token: M = the max of the live fresh score
+    and every m with l > 0, out = (p_new v + sum_r w_r acc_r) / (p_new +
+    sum_r w_r l_r), w_r = exp(m_r - M) (0 where l_r = 0), a denominator
+    of 0 taken as 1."""
+    b, _, width = qkv.shape
+    h = heads
+    d = width // (3 * h)
+    L = k_cache.shape[1]
+    q, k, v = qkv.float().reshape(b, 3, h, d).unbind(1)
+    if cos is not None:
+        c, sn = cos[idx].float(), sin[idx].float()
+        q, k, v = (t * c + rotate_half(t) * sn for t in (q, k, v))
+    k_row, v_row = k.to(k_cache.dtype), v.to(v_cache.dtype)
+    qs = q * d**-0.5
+    keys = k_cache.reshape(b, L, h, d).float()
+    values = v_cache.reshape(b, L, h, d).float()
+    live = (torch.ones((b, L), dtype=torch.bool) if key_mask is None
+            else key_mask.cpu() > 0).to(qkv.device)
+    minus_inf = torch.tensor(float("-inf"))
+    parts = []
+    for lo, hi in da.decode_slices(idx, splits):
+        s = torch.einsum("bhd,blhd->bhl", qs, keys[:, lo:hi])
+        ok = live[:, None, lo:hi].expand_as(s)
+        s = s.masked_fill(~ok, float("-inf"))
+        m = s.amax(-1, keepdim=True) if hi > lo else torch.full((b, h, 1), float("-inf"))
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.where(ok, torch.exp(s - m_safe), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhl,blhd->bhd", p, values[:, lo:hi])))
+    s_new = (k_row.float() * qs).sum(-1, keepdim=True)
+    new_live = live[:, idx, None, None].expand_as(s_new)
+    M = torch.where(new_live, s_new, minus_inf)
+    for m, l, _ in parts:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    p_new = torch.where(new_live, torch.exp(s_new - torch.where(new_live, M, 0.0)), 0.0)
+    num, den = p_new * v_row.float(), p_new
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - torch.where(l > 0, M, 0.0)), 0.0)
+        num, den = num + w * acc, den + w * l
+    out = (num / torch.where(den == 0, 1.0, den)).to(qkv.dtype)
+    return tuple(t.reshape(b, 1, h * d) for t in (out, k_row, v_row))
 
 
 def teacher_forced_logits(dalle, cache, text, image, chunk: int) -> torch.Tensor:

@@ -708,6 +708,29 @@ def test_flash_function_gradients_on_card(cuda, case, kernels):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["long", "long_axial_col", "long_d96", "long_d128", "d32",
+                                  "d64", "d96", "d128"])
+def test_flash_f32_forward_matches_plain(cuda, case):
+    """The float32 forward on split-3xTF32 tiles (``flash_fwd_tf32_kernel``)
+    at the 512 px length (n 4352: causal and axial_col at 2 heads of 64,
+    dim_head 96 and 128 with a key mask that kills whole rows) and at n
+    384 with that key mask at dim_head 32/64/96/128: o and lse within
+    ``FLASH_F32_ATOL``, rows with no allowed key exactly 0 with lse -1e30,
+    one launch a call, two runs bitwise."""
+    q, k, v, _, opts = flash_inputs(case, torch.float32, cuda)
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, **opts)
+    po, plse = fa.reference_flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 2
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    err, _, _, dead_exact = flash_fwd_errors(o, lse, po, plse, **opts)
+    assert err <= FLASH_F32_ATOL and dead_exact, err
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.gpu
 def test_flash_kernels_reject_what_they_cannot_take(cuda):
     q = torch.zeros(1, 2, 256, 64, device=cuda)
     with pytest.raises(ValueError):  # n not a multiple of the tile
@@ -757,6 +780,67 @@ def test_decode_kernel_matches_plain(cuda, dtype, dim_head, mode, idx):
     assert da.fused_decode_attention.launches == before + 1
     assert all(torch.isfinite(t).all() for t in got)
     assert decode_ok(dtype, *decode_errors(got, plain, x[5], idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("idx", [1, 63, 64, 127, 128, 255, 256, 511, 512, 767, 1279])
+def test_decode_kernel_split_boundaries(cuda, dtype, b, idx):
+    """The flagship's decode shape (16 heads of 64, L 1281, rotary and a
+    key mask) at the positions where ``decode_splits`` changes S at batch
+    1 (128 and 256) and around them, at S as chosen: out within
+    ``testing``'s tolerances, k/v rows bitwise, rows with no live key 0,
+    two runs bitwise."""
+    x = decode_inputs(b, 1281, 16, 64, idx, dtype, cuda, masked=True)
+    args = (x[0], x[1], x[2], idx, x[3], x[4], x[5])
+    got = da.fused_decode_attention(*args, heads=16)
+    again = da.fused_decode_attention(*args, heads=16)
+    plain = da.reference_fused_decode(*args, 16)
+    torch.cuda.synchronize()
+    assert decode_ok(dtype, *decode_errors(got, plain, x[5], idx))
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("idx", [0, 1, 7, 8, 9, 767])
+def test_decode_kernel_every_split(cuda, dtype, splits, idx):
+    """Each S forced at batch 1 (16 heads of 64, rotary), from idx 0 and
+    slices of 0 or 1 rows up to 767: against the plain version, k/v rows
+    bitwise."""
+    x = decode_inputs(1, 1281, 16, 64, idx, dtype, cuda)
+    args = (x[0], x[1], x[2], idx, x[3], x[4], None)
+    got = da.fused_decode_attention(*args, heads=16, splits=splits)
+    plain = da.reference_fused_decode(*args, 16)
+    assert decode_ok(dtype, *decode_errors(got, plain, None, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("splits", [None, 8], ids=["chosen", "s8"])
+@pytest.mark.parametrize("dead", ["first", "middle", "all_but_first"])
+def test_decode_kernel_dead_slices(cuda, dtype, splits, dead):
+    """Batch 1, idx 767, at ``decode_splits``' S (4) and at S 8, a key
+    mask that kills every key of some slices (``decode_slices``): those
+    blocks' partials weigh 0; the output matches the plain version, two
+    runs bitwise."""
+    idx = 767
+    s = splits or da.decode_splits(16, idx)
+    x = decode_inputs(1, 1281, 16, 64, idx, dtype, cuda)
+    km = torch.ones(1, 1281, dtype=torch.int32, device=cuda)
+    ranks = {"first": [0], "middle": [s // 2], "all_but_first": range(1, s)}[dead]
+    for r in ranks:
+        lo, hi = da.decode_slices(idx, s)[r]
+        km[:, lo:hi] = 0
+    args = (x[0], x[1], x[2], idx, x[3], x[4], km)
+    got = da.fused_decode_attention(*args, heads=16, splits=splits)
+    again = da.fused_decode_attention(*args, heads=16, splits=splits)
+    plain = da.reference_fused_decode(*args, 16)
+    assert all(torch.isfinite(t).all() for t in got)
+    assert decode_ok(dtype, *decode_errors(got, plain, km, idx))
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.gpu
@@ -820,6 +904,8 @@ def test_decode_kernel_rejects_what_it_cannot_take(cuda):
                                                                        device=cuda), heads=4)
     with pytest.raises(ValueError):  # a cache on the CPU
         da.fused_decode_attention(qkv, kc.cpu(), vc, 5, heads=4)
+    with pytest.raises(ValueError):  # a split the kernel has no cluster for
+        da.fused_decode_attention(qkv, kc, vc, 5, cos, sin, heads=4, splits=3)
     z = torch.zeros(2, 1, 3 * 4 * 48, device=cuda)
     with pytest.raises(ValueError):  # dim_head 48: no instance
         da.fused_decode_attention(z, torch.zeros(2, 48, 4 * 48, device=cuda),

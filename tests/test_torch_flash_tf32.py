@@ -8,16 +8,26 @@ every such sum in fresh partials folded in by rounded adds
 (``tf32::fold_product``), since one running sum already misses the
 float32 tolerance at n 1,280, as measured on the card for the packed
 kernels. Each emulation is held against float64, one batch row with one
-head of 64, causal."""
+head of 64, causal.
+
+The float32 forward (``flash_fwd_tf32_kernel``) runs the same way: its
+online softmax over 32-key halves with both products as split 3xTF32 and
+the value product folded per half (``testing.emulated_flash_fwd``); o
+and lse hold ``FLASH_F32_ATOL`` against float64 at n 4,352, causal and
+with the axial_col pattern, and one running value sum is shown beside
+it."""
 
 import numpy as np
 import pytest
 import torch
 
 from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+from dalle_pytorch_tpu_torch.ops import masks
 from dalle_pytorch_tpu_torch.testing import (
     BWD_F32_REL,
+    FLASH_F32_ATOL,
     emulated_flash_bwd,
+    emulated_flash_fwd,
     matmul_3xtf32,
     matmul_3xtf32_card,
     matmul_tf32,
@@ -132,3 +142,52 @@ def test_folded_sums_hold_float32_tolerance(request, n, fold):
     room to spare (the straight sum's error at 1,280 is ~40x this)."""
     rel = _rel(request.getfixturevalue(f"case_{n}"), matmul_3xtf32, _card(fold))
     assert rel <= BWD_F32_REL / 4, rel
+
+
+def _fwd_case(n: int, pattern_name=None, seed: int = 0):
+    """((q, k, v) float32 (1, 1, n, 64), the pattern or None, (o, lse) of
+    the float64 forward)."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(1, 1, n, 64).astype(np.float32)) for _ in range(3))
+    pattern = None if pattern_name is None else torch.from_numpy(
+        masks.pattern_mask(pattern_name, 257, 64)[:n, :n])
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    s = (q64 @ k64.transpose(-1, -2) * 64**-0.5).masked_fill(
+        ~fa.may_attend(n, q.device, None, True, pattern), fa.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - m), 0.0)
+    l_safe = p.sum(dim=-1, keepdim=True)
+    return (q, k, v), pattern, ((p @ v64) / l_safe, (m + torch.log(l_safe))[..., 0])
+
+
+@pytest.fixture(scope="module", params=[None, "axial_col"], ids=["causal", "axial_col"])
+def fwd_4352(request):
+    return _fwd_case(4352, request.param)
+
+
+def _fwd_err(case, long_fold: bool):
+    """Max abs error of o and of lse of the emulated forward against
+    float64."""
+    (q, k, v), pattern, (o, lse) = case
+    got_o, got_lse = emulated_flash_fwd(q, k, v, matmul_3xtf32, long_fold, pattern=pattern)
+    return (got_o.double() - o).abs().max().item(), (got_lse.double() - lse).abs().max().item()
+
+
+def test_tiled_forward_folded_holds_float32_tolerance_at_4352(fwd_4352):
+    """The forward as the kernel runs it (the value sum folded per 32-key
+    half): o and lse within ``FLASH_F32_ATOL`` of float64 at the 512 px
+    length, with room to spare."""
+    o_err, lse_err = _fwd_err(fwd_4352, True)
+    assert max(o_err, lse_err) <= FLASH_F32_ATOL / 4, (o_err, lse_err)
+
+
+def test_tiled_forward_one_running_value_sum_at_4352(fwd_4352):
+    """One running value sum (each half's mmas added straight into the
+    rescaled o): the truncation costs o several times the folded error
+    (5.1-5.4x here, ~5e-6, half the tolerance on one head; the card's
+    512 px shape holds 64 heads' rows), so the kernel folds; lse, summed
+    on the CUDA cores, does not move."""
+    folded, _ = _fwd_err(fwd_4352, True)
+    straight, lse_err = _fwd_err(fwd_4352, False)
+    assert straight >= 4 * folded and straight > FLASH_F32_ATOL / 4, (straight, folded)
+    assert lse_err <= FLASH_F32_ATOL / 4
