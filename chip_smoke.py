@@ -117,21 +117,26 @@ Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
 text shape and DALL-E's shape with the axial-row and axial-column
 pattern masks (timed at the training shape in both types), and the
-three block-sparse kernels (forward, dq, dk/dv) at the flagship training
-shape with the axial_row and conv_like layouts
-and at a ragged n with a key mask that kills whole rows (dim_head 32,
-64, 128), each timed beside its plain version, the packed kernel with
-the same pattern, and ``scaled_dot_product_attention``; and the four
+three block-sparse kernels (forward, dq, dk/dv; the float32 dk/dv on
+split-3xTF32 tensor-core tiles) at the flagship training shape with the
+axial_row and conv_like layouts and at a ragged n with a key mask that
+kills whole rows (dim_head 32, 64, 128), each timed beside its plain
+version, its bound (at the 3xTF32 rate, the CUDA-core bound beside), the
+packed kernel with the same pattern, and ``scaled_dot_product_attention``;
+and the four
 tiled flash kernels (forward, dq, dk/dv, single-block backward) on
 ``testing.flash_inputs``: the 512 px training shape (b 4, 16 heads of
 64, n 4352, causal), its axial_col pattern, a key mask with fully masked
 rows at dim_head 32/64/96/128, non-causal, a pattern at a small n, and
-one flash block of 1280 at 3 heads, float32 and bfloat16, each timed at
-its main path's shape beside its plain version and
-``scaled_dot_product_attention`` (float32 forward, dq and dk/dv on
-split-3xTF32 tensor-core tiles, their bounds, like every float32 tiled
-bound, at the 3xTF32 rate with the CUDA-core bound beside; the bf16
-forward, dq and dk/dv beside bf16 sdpa and their bf16 bounds). Phase 4
+one flash block of 1280 at 3 heads of 64 and at 16 heads of 32, float32
+and bfloat16 (the float32 single-block backward bitwise the dq + dk/dv
+chain's), each timed at its main path's shape beside its plain version
+and ``scaled_dot_product_attention`` (float32 forward, dq, dk/dv and
+single-block backward on split-3xTF32 tensor-core tiles, their bounds,
+like every float32 tiled bound, at the 3xTF32 rate with the CUDA-core
+bound beside; the single-block backward at both one-block shapes with
+the split chain's time beside; the bf16 forward, dq and dk/dv beside bf16
+sdpa and their bf16 bounds). Phase 4
 also checks a small float32
 DALLE's loss and every parameter gradient, card against CPU, for the
 full model, for the four-type sparse cycle, at n 1152 (the tiled
@@ -144,11 +149,12 @@ limit; the line before it the kernels' JSON; the last line
 
 Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
 spills) for the packed-qkv kernels' tensor-core instances (bf16, and
-float32 as split 3xTF32), for the tiled flash float32 forward, dq and
-dk/dv (split 3xTF32), for every instance of the ragged kernel and of the
-decode kernel, and counts the HMMA instructions of each packed instance
-and each tiled float32 instance in the built libraries (``cuobjdump
--sass``), failing unless every float32 instance (3 + 6 + 12) holds
+float32 as split 3xTF32), for the tiled flash float32 forward, dq, dk/dv
+and single-block backward and the pair grid's float32 dk/dv (split
+3xTF32), for every instance of the ragged kernel and of the decode
+kernel, and counts the HMMA instructions of each packed, tiled and
+pair-grid float32 instance in the built libraries (``cuobjdump -sass``),
+failing unless every float32 instance (3 + 6 + 16 + 3) holds
 ``HMMA.1688.F32.TF32``.
 
 Paired comparisons, one card, none of the phases above:
@@ -156,6 +162,7 @@ Paired comparisons, one card, none of the phases above:
     python3 chip_smoke.py --ragged-source OTHER/ragged_attention.cu
     python3 chip_smoke.py --packed-source OTHER/csrc
     python3 chip_smoke.py --tiled-source OTHER/csrc
+    python3 chip_smoke.py --sparse-source OTHER/csrc
     python3 chip_smoke.py --decode-source OTHER/csrc
     python3 chip_smoke.py --generate-pairs 3
 
@@ -170,16 +177,23 @@ checks that the two trees' bf16 outputs are bitwise equal, and times
 both trees alternating (bf16 forward at DALL-E's b 2 and CLIP's shape,
 bf16 backward and both float32 kernels at the training shape); the third
 builds another commit's ``flash_attention.cu`` with this checkout's
-headers, holds each tree's float32 forward against the plain version at
-the 512 px training shape and its axial_col pattern (printing max |this
-- other|), checks that every other output (the bf16 forward, dq, delta,
-dk, dv and the single-block backward in both types) is bitwise equal
-across the trees, and times both trees' float32 forward, dq and dk/dv at
-the 512 px shape alternating, sdpa and the bounds beside; the fourth
-builds another commit's ``decode_attention.cu``, holds each tree's out
-against the plain version at the generate shape (b 1 and 8), checks the
-k/v rows bitwise equal across the trees, and times both alternating;
-the fifth times generation (a) against (b) in alternating pairs.
+headers, holds each tree's float32 forward and single-block backward
+against the plain versions at the 512 px training shape, its axial_col
+pattern and one flash block of 1280 (printing max |this - other|),
+checks that every other output (the bf16 forward and single-block
+backward, and dq, delta, dk, dv in both types) is bitwise equal across
+the trees, and times both trees' float32 forward, dq and dk/dv at the 512
+px shape and the single-block backward at one block of 1280
+alternating, sdpa and the bounds beside; the fourth does the same for
+another commit's ``block_sparse_attention.cu``: the forward, dq and delta
+in both types and the bf16 dk/dv bitwise equal across the trees, each
+tree's float32 dk/dv held against the plain version, then the float32
+dk/dv timed alternating at the axial_row and conv_like layouts beside
+sdpa backward with the mask; the fifth builds another commit's
+``decode_attention.cu``, holds each tree's out against the plain version
+at the generate shape (b 1 and 8), checks the k/v rows bitwise equal
+across the trees, and times both alternating; the sixth times generation
+(a) against (b) in alternating pairs.
 """
 
 from __future__ import annotations
@@ -741,27 +755,19 @@ def pair_work(q, allowed, extra_bytes: int) -> dict:
             for name, (nbytes, products) in work.items()}
 
 
-def pair_bounds(q, allowed, extra_bytes: int) -> dict:
-    """{pass: (bound_ms, bound_by)} of ``pair_work`` at the rates of q's
-    dtype outside the tensor cores for float32 (``PEAK_OPS``)."""
-    out = {}
-    for name, (nbytes, ops) in pair_work(q, allowed, extra_bytes).items():
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[q.dtype]
-        out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    return out
-
-
 def bs_bounds(q, layout, key_mask):
-    """``pair_bounds`` of the three block-sparse kernels on these inputs,
-    the layout's mask, table and offsets and the key mask as passed."""
+    """{kernel: ``packed_bounds``} of the three block-sparse kernels on
+    these inputs (``pair_work``), the layout's mask, table and offsets and
+    the key mask as passed: float32 at the split-3xTF32 rate with the
+    CUDA-core bound beside."""
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
 
     b, _, n, _ = q.shape
     dl = bs.device_layout(layout, q.device)
     extra = sum(t.numel() * t.element_size() for t in dl) + (0 if key_mask is None else b * n)
-    bounds = pair_bounds(q, bs.may_attend(layout, n, q.device, key_mask), extra)
-    return {"block_sparse_attention": bounds["fwd"], "block_sparse_dq": bounds["dq"],
-            "block_sparse_dkdv": bounds["dkdv"]}
+    work = pair_work(q, bs.may_attend(layout, n, q.device, key_mask), extra)
+    return {name: packed_bounds(*work[role], q.dtype)
+            for name, role in zip(BS_TPU_KERNELS, ("fwd", "dq", "dkdv"))}
 
 
 def check_block_sparse() -> list:
@@ -876,8 +882,8 @@ def check_block_sparse() -> list:
         bwd = times["block_sparse_dq"][0] + times["block_sparse_dkdv"][0]
         log(f"block_sparse {case} float32 timing, cold L2 (b {b}, {h} x {d}, n {n}, "
             f"{layout.n_pairs} block pairs): " + "; ".join(
-                f"{name} {times[name][0]:.4f} ms (plain {times[name][1]:.4f}, bound "
-                f"{bounds[name][0]:.4f} {bounds[name][1]})" for name in t)
+                f"{name} {times[name][0]:.4f} ms (plain {times[name][1]:.4f}, "
+                f"{bound_text(bounds[name])})" for name in t)
             + f"; sdpa with the mask forward {sdpa_ms:.4f} / backward {sdpa_bwd_ms:.4f} ms; "
             f"packed-qkv with the pattern forward {packed_ms:.4f} / backward "
             f"{packed_bwd_ms:.4f} ms against the pair grid's {fwd:.4f} / {bwd:.4f} ms")
@@ -885,8 +891,7 @@ def check_block_sparse() -> list:
             row = rows[name]
             prefix = "" if case == "axial_row" else "conv_like_"
             row.update({f"{prefix}ms": times[name][0], f"{prefix}plain_ms": times[name][1],
-                        f"{prefix}bound_ms": bounds[name][0],
-                        f"{prefix}bound_by": bounds[name][1]})
+                        **{prefix + key: value for key, value in bounds[name].items()}})
             if case == "axial_row":
                 row["library_ms"] = sdpa_ms if name == "block_sparse_attention" else None
                 row["sdpa_backward_ms"] = sdpa_bwd_ms
@@ -965,7 +970,7 @@ def check_flash_attention() -> list:
 
     worst = {}  # name -> max abs error at its main path's shape, float32
     for case in ("train", "axial_col", "pattern", "noncausal", "d32", "d64", "d96", "d128",
-                 "tiled", "one_block"):
+                 "tiled", "one_block", "one_block_d32"):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, opts = flash_inputs(case, dtype, "cuda")
             got = run_flash(q, k, v, do, opts)
@@ -980,8 +985,13 @@ def check_flash_attention() -> list:
             rel, grad_row_rel, zeros_exact = flash_bwd_errors((dq, dk, dv), plain, **opts)
             frel, fgrad_row_rel, fzeros_exact = flash_bwd_errors((fdq, fdk, fdv), plain, **opts)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
+            chain = ""
             if dtype == torch.float32:
-                ok = err <= FLASH_F32_ATOL and max(rel, frel) <= BWD_F32_REL
+                # the single-block kernel runs the dq and dk/dv sweeps with
+                # delta summed in the dq pass's order: the chain's bits
+                same_bits = all(torch.equal(a, b) for a, b in zip(got[6:], (dq, dk, dv)))
+                chain = f", bitwise the dq + dk/dv chain's {same_bits}"
+                ok = err <= FLASH_F32_ATOL and max(rel, frel) <= BWD_F32_REL and same_bits
                 tol = f"abs {FLASH_F32_ATOL:.0e} forward, relative {BWD_F32_REL:.0e} backward"
             else:
                 ok = (row_rel <= FLASH_BF16_ROW_REL and lse_err <= FLASH_BF16_ROW_REL
@@ -992,7 +1002,7 @@ def check_flash_attention() -> list:
             log(f"flash {case} {dtype} {tuple(q.shape)}: forward max abs {err:.3e}, row "
                 f"{row_rel:.3e}; dq + dk/dv relative L2 {rel:.3e}, floored row "
                 f"{grad_row_rel:.3e}; single-block relative L2 {frel:.3e}, floored row "
-                f"{fgrad_row_rel:.3e}; dead rows exactly 0 "
+                f"{fgrad_row_rel:.3e}{chain}; dead rows exactly 0 "
                 f"{dead_exact and zeros_exact and fzeros_exact}; two runs identical {same} "
                 f"(tolerance: {tol})")
             if not (ok and dead_exact and zeros_exact and fzeros_exact and same):
@@ -1049,26 +1059,37 @@ def check_flash_attention() -> list:
                               plain_ms=cuda_time_ms(plain, warmup=1, iters=3), **bounds[name],
                               library_ms=sdpa_ms if name == "flash_attention_fwd"
                               else sdpa_bwd_ms)
-    q, k, v, do, opts = flash_inputs("one_block", torch.float32, "cuda", seed=1)
-    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
     name = "flash_attention_bwd_fused"
-    rows[name].update(
-        ms=cuda_time_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts),
-                        iters=20),
-        plain_ms=cuda_time_ms(lambda: fa.reference_flash_attention_bwd(q, k, v, o, lse, do,
-                                                                       **opts), iters=5),
-        **flash_bounds(q, opts)[name],
-        library_ms=cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=20))
+    for case, prefix in (("one_block", ""), ("one_block_d32", "d32_")):
+        q, k, v, do, opts = flash_inputs(case, torch.float32, "cuda", seed=1)
+        o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+        t = dict(ms=cuda_time_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts),
+                                 iters=20),
+                 plain_ms=cuda_time_ms(lambda: fa.reference_flash_attention_bwd(
+                     q, k, v, o, lse, do, **opts), iters=5),
+                 **flash_bounds(q, opts)[name],
+                 library_ms=cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=20),
+                 # the yardstick of the same tiles: the split chain's two launches
+                 split_chain_ms=cuda_time_ms(lambda: fa.flash_attention_dkdv(
+                     q, k, v, do, lse, fa.flash_attention_dq(q, k, v, o, lse, do, **opts)[1],
+                     **opts), iters=20))
+        rows[name].update({prefix + key: value for key, value in t.items()})
     for name, row in rows.items():
-        shape = "b 2, 3 x 64, n 1280" if name == "flash_attention_bwd_fused" else \
-            "b 4, 16 x 64, n 4352"
         sdpa = "forward" if name == "flash_attention_fwd" else "backward"
-        log(f"{name} float32 timing, cold L2 ({shape}, causal): kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, sdpa {sdpa} {row['library_ms']:.4f} ms, "
-            f"{bound_text(row)}"
-            + (f"; bf16 kernel {row['ms_bf16']:.4f} ms, sdpa {sdpa} "
-               f"{row['library_ms_bf16']:.4f} ms, bound {row['bound_ms_bf16']:.4f} ms "
-               f"({row['bound_by_bf16']})" if "ms_bf16" in row else ""))
+        shapes = (("b 4, 16 x 64, n 4352", ""),)
+        if name == "flash_attention_bwd_fused":
+            shapes = (("b 2, 3 x 64, n 1280", ""), ("b 4, 16 x 32, n 1280", "d32_"))
+        for shape, p in shapes:
+            log(f"{name} float32 timing, cold L2 ({shape}, causal): kernel {row[p + 'ms']:.4f} "
+                f"ms, plain {row[p + 'plain_ms']:.4f} ms, sdpa {sdpa} "
+                f"{row[p + 'library_ms']:.4f} ms, "
+                + bound_text({k: row[p + k] for k in ("bound_ms", "bound_by", "bound_cuda_core_ms")})
+                + (f"; the split chain (dq then dk/dv) {row[p + 'split_chain_ms']:.4f} ms"
+                   if p + "split_chain_ms" in row else "")
+                + (f"; bf16 kernel {row['ms_bf16']:.4f} ms, sdpa {sdpa} "
+                   f"{row['library_ms_bf16']:.4f} ms, bound {row['bound_ms_bf16']:.4f} ms "
+                   f"({row['bound_by_bf16']})" if "ms_bf16" in row else ""))
     return [rows[name] for name in FLASH_TPU_KERNELS]
 
 
@@ -1460,8 +1481,10 @@ def log_ptxas_report(procs: dict, markers) -> None:
 
 # entry functions of the split-3xTF32 float32 instances in each library
 # (``log_sass_report``): packed forward at dim_head 32/64/128, packed dq
-# and dk/dv at the same, tiled forward, dq and dk/dv at 32/64/96/128
-TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash_attention": 12}
+# and dk/dv at the same, tiled forward, dq, dk/dv and single-block
+# backward at 32/64/96/128, the pair grid's dk/dv at 32/64/128
+TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash_attention": 16,
+                  "block_sparse_attention": 3}
 TF32_HMMA = "HMMA.1688.F32.TF32"
 
 
@@ -2217,12 +2240,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ptxas = start_ptxas_report(PACKED + ("ragged_attention", "flash_attention",
-                                         "decode_attention"))
+                                         "block_sparse_attention", "decode_attention"))
     cuda_build.build()
     log(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas_report(ptxas, ("_tc_kernel", "_tf32_kernel", "ragged_f32_kernel",
                              "decode_kernel"))
-    log_sass_report(PACKED + ("flash_attention",))
+    log_sass_report(PACKED + ("flash_attention", "block_sparse_attention"))
 
     kernels = [*check_ragged_attention(), check_fused_qkv(), check_fused_qkv_bwd(),
                *check_block_sparse(), *check_flash_attention(), check_decode_attention()]
@@ -2339,6 +2362,30 @@ def compare_ragged_sources(other: str, rounds: int = 2) -> None:
     cuda_build._LOADED["ragged_attention"] = this
 
 
+def alternate(calls: dict, use, rounds: int, iters: int) -> dict:
+    """{(key, src): [ms, ...]} of each call of ``calls`` timed (cold L2)
+    under ``use("other")`` and ``use("this")`` in the order other, this,
+    this, other, ``rounds`` times; ``use("this")`` at the end."""
+    ms = {(key, src): [] for key in calls for src in ("this", "other")}
+    for _ in range(rounds):
+        for src in ("other", "this", "this", "other"):
+            use(src)
+            for key, fn in calls.items():
+                ms[key, src].append(cuda_time_ms(fn, iters=iters))
+    use("this")
+    return ms
+
+
+def pair_text(this, other) -> str:
+    """Two trees' alternating times as a log phrase, with whether this
+    tree is faster in every adjacent pair of the order other, this, this,
+    other."""
+    return ("other " + ", ".join(f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} "
+            f"ms); this " + ", ".join(f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} "
+            f"ms); this / other {np.mean(this) / np.mean(other):.4f}; this faster in every pair "
+            f"{all(t < o for t, o in zip(this, other))}")
+
+
 PACKED_COMPARE_CASES = (("dalle", torch.bfloat16, "fwd"), ("clip", torch.bfloat16, "fwd"),
                          ("train", torch.bfloat16, "bwd"), ("train", torch.float32, "fwd"),
                          ("train", torch.float32, "bwd"))
@@ -2443,25 +2490,12 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
                 raise AssertionError(f"packed float32 {case}: a tree misses the plain version's "
                                      "tolerances")
 
-    calls = {}
-    for case, dtype, direction in PACKED_COMPARE_CASES:
-        calls[case, dtype, direction] = packed_case(case, dtype, direction)
-    ms = {(key, src): [] for key in calls for src in libs}
-    for _ in range(rounds):
-        for src in ("other", "this", "this", "other"):
-            use(src)
-            for key, (fn, *_) in calls.items():
-                ms[key, src].append(cuda_time_ms(fn, iters=20))
-    use("this")
+    calls = {key: packed_case(*key) for key in PACKED_COMPARE_CASES}
+    ms = alternate({key: fn for key, (fn, *_) in calls.items()}, use, rounds, iters=20)
     for key, (_, sdpa, bounds) in calls.items():
         case, dtype, direction = key
-        this, other = ms[key, "this"], ms[key, "other"]
-        # adjacent pairs of the order other, this, this, other
-        faster = all(t < o for t, o in zip(this, other))
-        log(f"compare packed {direction} {case} {dtype}, cold L2: other " + ", ".join(
-            f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} ms); this " + ", ".join(
-            f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} ms); this / other "
-            f"{np.mean(this) / np.mean(other):.4f}; this faster in every pair {faster}; sdpa "
+        log(f"compare packed {direction} {case} {dtype}, cold L2: "
+            f"{pair_text(ms[key, 'this'], ms[key, 'other'])}; sdpa "
             f"{cuda_time_ms(sdpa, iters=20):.4f} ms; {bound_text(bounds)}")
 
 
@@ -2495,20 +2529,24 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
     """The tiled flash kernels of this checkout against
     ``flash_attention.cu`` of ``other_dir`` (another commit's csrc, built
     by ``build_other_library``), in one process with one timer (cold L2).
-    First, at ``testing.flash_inputs``' "train" and "axial_col" cases:
-    each tree's float32 forward held against the plain version (o and lse
-    within ``testing.FLASH_F32_ATOL``, rows with no allowed key exactly 0
-    with lse -1e30), with max |this - other| printed; every other output
-    (the bfloat16 forward; dq, delta, dk and dv on the plain forward's o
-    and lse, and the single-block backward, in both types) must be
-    bitwise equal across the trees. Then the float32 forward, dq and dk/dv
-    at the 512 px training shape (``flash_inputs("train")``, seed 1)
-    timed in the order other, this, this, other, ``rounds`` times, with
-    sdpa forward / backward and the bounds beside; raises on a failed
-    check."""
+    First, at ``testing.flash_inputs``' "train", "axial_col" and
+    "one_block" cases: each tree's float32 forward held against the plain
+    version (o and lse within ``testing.FLASH_F32_ATOL``, rows with no
+    allowed key exactly 0 with lse -1e30) and its float32 single-block
+    backward on the plain forward's o and lse (each of dq, dk, dv within
+    ``testing.BWD_F32_REL``, dead rows exactly 0), with max |this - other|
+    printed; every other output (the bfloat16 forward and single-block
+    backward; dq, delta, dk and dv on the plain forward's o and lse, in
+    both types) must be bitwise equal across the trees. Then the float32
+    forward, dq and dk/dv at the 512 px training shape
+    (``flash_inputs("train")``, seed 1) and the single-block backward at
+    ``flash_inputs("one_block")`` timed in the order other, this, this,
+    other, ``rounds`` times, with sdpa forward / backward and the bounds
+    beside; raises on a failed check."""
     from dalle_pytorch_tpu_torch.ops import cuda_build
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
-    from dalle_pytorch_tpu_torch.testing import FLASH_F32_ATOL, flash_fwd_errors, flash_inputs
+    from dalle_pytorch_tpu_torch.testing import (
+        BWD_F32_REL, FLASH_F32_ATOL, flash_bwd_errors, flash_fwd_errors, flash_inputs)
 
     name = "flash_attention"
     libs = {"this": cuda_build.load_library(name),
@@ -2517,7 +2555,7 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
     def use(src: str) -> None:  # the wrappers load their library through this cache
         cuda_build._LOADED[name] = libs[src]
 
-    for case in ("train", "axial_col"):
+    for case in ("train", "axial_col", "one_block"):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, opts = flash_inputs(case, dtype, "cuda")
             po, plse = fa.reference_flash_attention(q, k, v, **opts)
@@ -2539,51 +2577,137 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
                 if not all(same):
                     raise AssertionError(f"{label}: outputs differ from the other tree's")
                 continue
-            log(f"{label}: dq, delta, dk, dv, single-block dq, dk, dv bitwise equal to the "
-                f"other tree's: {same[2:]}")
-            if not all(same[2:]):
+            log(f"{label}: dq, delta, dk, dv bitwise equal to the other tree's: {same[2:6]}")
+            if not all(same[2:6]):
                 raise AssertionError(f"{label}: backward outputs differ from the other tree's")
+            plain = fa.reference_flash_attention_bwd(q, k, v, po, plse, do, **opts)
             ok = True
-            for src, (o, lse, *_) in outs.items():
+            for src, (o, lse, *_, fdq, fdk, fdv) in outs.items():
                 err, _, _, dead_exact = flash_fwd_errors(o, lse, po, plse, **opts)
-                ok &= err <= FLASH_F32_ATOL and dead_exact
+                rel, _, zeros_exact = flash_bwd_errors((fdq, fdk, fdv), plain, **opts)
+                ok &= err <= FLASH_F32_ATOL and dead_exact and rel <= BWD_F32_REL and zeros_exact
                 log(f"{label}, {src}: forward max abs (o, lse) {err:.3e} (tolerance "
-                    f"{FLASH_F32_ATOL:.0e}), dead rows exactly 0 {dead_exact}")
-            log(f"{label}: max |this - other| o {(pairs[0][0] - pairs[0][1]).abs().max():.3e}, "
-                f"lse {(pairs[1][0] - pairs[1][1]).abs().max():.3e}")
+                    f"{FLASH_F32_ATOL:.0e}), dead rows exactly 0 {dead_exact}; single-block "
+                    f"relative L2 {rel:.3e} (tolerance {BWD_F32_REL:.0e}), dead rows exactly 0 "
+                    f"{zeros_exact}")
+            diff = [(a - b).abs().max().item() for a, b in pairs]
+            log(f"{label}: max |this - other| o {diff[0]:.3e}, lse {diff[1]:.3e}, single-block "
+                f"dq {diff[6]:.3e}, dk {diff[7]:.3e}, dv {diff[8]:.3e}")
             if not ok:
-                raise AssertionError(f"{label}: a tree's forward misses the plain version")
-            del outs, pairs
+                raise AssertionError(f"{label}: a tree's forward or single-block backward misses "
+                                     "the plain version")
+            del outs, pairs, plain
 
     q, k, v, do, opts = flash_inputs("train", torch.float32, "cuda", seed=1)
     o, lse = fa.flash_attention_fwd(q, k, v, **opts)
     _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+    b1 = flash_inputs("one_block", torch.float32, "cuda", seed=1)
+    b1_o, b1_lse = fa.flash_attention_fwd(*b1[:3], **b1[4])
     calls = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v, **opts),
              "flash_attention_dq": lambda: fa.flash_attention_dq(q, k, v, o, lse, do, **opts),
              "flash_attention_dkdv": lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta,
-                                                                     **opts)}
-    ms = {(key, src): [] for key in calls for src in libs}
-    for _ in range(rounds):
-        for src in ("other", "this", "this", "other"):
-            use(src)
-            for key, fn in calls.items():
-                ms[key, src].append(cuda_time_ms(fn, iters=10))
-    use("this")
+                                                                     **opts),
+             "flash_attention_bwd_fused": lambda: fa.flash_attention_bwd_fused(
+                 *b1[:3], b1_o, b1_lse, b1[3], **b1[4])}
+    ms = alternate(calls, use, rounds, iters=10)
     sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, **sdpa_flash_kw(q, opts)), iters=10)
     sdpa_bwd_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
+    b1_sdpa_bwd_ms = cuda_time_ms(sdpa_flash_backward(*b1[:4], b1[4]), iters=10)
     bounds = flash_bounds(q, opts)
+    bounds["flash_attention_bwd_fused"] = flash_bounds(b1[0], b1[4])["flash_attention_bwd_fused"]
     for key in calls:
-        this, other = ms[key, "this"], ms[key, "other"]
-        # adjacent pairs of the order other, this, this, other
-        faster = all(t < o for t, o in zip(this, other))
-        sdpa = (f"sdpa forward {sdpa_ms:.4f}" if key == "flash_attention_fwd"
-                else f"sdpa backward {sdpa_bwd_ms:.4f}")
-        log(f"compare {key} float32, 512 px training shape (b 4, 16 x 64, n 4352, causal), cold "
-            f"L2: other " + ", ".join(f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} "
-            f"ms); this " + ", ".join(f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} "
-            f"ms); this / other {np.mean(this) / np.mean(other):.4f}; this faster in every pair "
-            f"{faster}; {sdpa} ms; {bound_text(bounds[key])}")
+        shape = "b 4, 16 x 64, n 4352"
+        sdpa = f"sdpa backward {sdpa_bwd_ms:.4f}"
+        if key == "flash_attention_fwd":
+            sdpa = f"sdpa forward {sdpa_ms:.4f}"
+        elif key == "flash_attention_bwd_fused":
+            shape, sdpa = "b 2, 3 x 64, n 1280", f"sdpa backward {b1_sdpa_bwd_ms:.4f}"
+        log(f"compare {key} float32 ({shape}, causal), cold L2: "
+            f"{pair_text(ms[key, 'this'], ms[key, 'other'])}; {sdpa} ms; "
+            f"{bound_text(bounds[key])}")
+
+
+def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
+    """The pair-grid kernels of this checkout against
+    ``block_sparse_attention.cu`` of ``other_dir`` (another commit's csrc,
+    built by ``build_other_library``), in one process with one timer
+    (cold L2). First, on ``testing.bs_inputs``' "axial_row", "conv_like",
+    "d64" (n 300, a ragged last block, a key mask that kills whole rows)
+    and "synthetic" cases, each kernel on the plain forward's o and lse
+    and the plain delta: the forward, dq and delta in both types and the
+    bfloat16 dk/dv must be bitwise equal across the trees; each tree's
+    float32 dk/dv is held against the plain version (each of dk, dv within
+    ``testing.BWD_F32_REL``, keys no query attends exactly 0), with max
+    |this - other| printed. Then the float32 dk/dv at the flagship
+    training shape with the axial_row and conv_like layouts
+    (``bs_inputs``, seed 1) timed in the order other, this, this, other,
+    ``rounds`` times, with sdpa backward with the boolean mask and the
+    bounds beside; raises on a failed check."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+    from dalle_pytorch_tpu_torch.testing import BWD_F32_REL, bs_bwd_errors, bs_inputs
+
+    name = "block_sparse_attention"
+    libs = {"this": cuda_build.load_library(name),
+            "other": build_other_library(name, Path(other_dir) / f"{name}.cu", "sparse_other")}
+
+    def use(src: str) -> None:  # the wrappers load their library through this cache
+        cuda_build._LOADED[name] = libs[src]
+
+    for case in ("axial_row", "conv_like", "d64", "synthetic"):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, layout, km = bs_inputs(case, dtype, "cuda")
+            po, plse = bs.reference_block_sparse(q, k, v, layout, km)
+            pdq, pdelta = bs.reference_block_sparse_dq(q, k, v, po, plse, do, layout, km)
+            outs = {}
+            for src in libs:
+                use(src)
+                outs[src] = (*bs.block_sparse_attention(q, k, v, layout, km),
+                             *bs.block_sparse_dq(q, k, v, po, plse, do, layout, km),
+                             *bs.block_sparse_dkdv(q, k, v, do, plse, pdelta, layout, km))
+            use("this")
+            torch.cuda.synchronize()
+            pairs = list(zip(outs["this"], outs["other"]))
+            same = [torch.equal(a, b) for a, b in pairs]
+            label = f"compare sparse {case} {dtype}"
+            kept = same if dtype == torch.bfloat16 else same[:4]
+            log(f"{label}: o, lse, dq, delta" + (", dk, dv" if dtype == torch.bfloat16 else "")
+                + f" bitwise equal to the other tree's: {kept}")
+            if not all(kept):
+                raise AssertionError(f"{label}: outputs differ from the other tree's")
+            if dtype == torch.bfloat16:
+                continue
+            pdk, pdv = bs.reference_block_sparse_dkdv(q, k, v, do, plse, pdelta, layout, km)
+            ok = True
+            for src, (*_, dk, dv) in outs.items():
+                rel, _, zeros_exact = bs_bwd_errors((pdq, dk, dv), (pdq, pdk, pdv), layout, km)
+                ok &= rel <= BWD_F32_REL and zeros_exact
+                log(f"{label}, {src}: dk/dv relative L2 {rel:.3e} (tolerance "
+                    f"{BWD_F32_REL:.0e}), dead rows exactly 0 {zeros_exact}")
+            log(f"{label}: max |this - other| dk {(pairs[4][0] - pairs[4][1]).abs().max():.3e}, "
+                f"dv {(pairs[5][0] - pairs[5][1]).abs().max():.3e}")
+            if not ok:
+                raise AssertionError(f"{label}: a tree's dk/dv misses the plain version")
+            del outs, pairs
+
+    for case in ("axial_row", "conv_like"):
+        q, k, v, do, layout, _ = bs_inputs(case, torch.float32, "cuda", seed=1)
+        o, lse = bs.block_sparse_attention(q, k, v, layout)
+        _, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout)
+        calls = {"block_sparse_dkdv": lambda: bs.block_sparse_dkdv(q, k, v, do, lse, delta,
+                                                                   layout)}
+        ms = alternate(calls, use, rounds, iters=20)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=bs.may_attend(layout, layout.n, q.device))
+        sdpa_bwd_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=20)
+        log(f"compare block_sparse_dkdv float32 {case} (b 4, 16 x 64, n 1280, "
+            f"{layout.n_pairs} block pairs), cold L2: "
+            f"{pair_text(ms['block_sparse_dkdv', 'this'], ms['block_sparse_dkdv', 'other'])}; "
+            f"sdpa backward with the mask {sdpa_bwd_ms:.4f} ms; "
+            f"{bound_text(bs_bounds(q, layout, None)['block_sparse_dkdv'])}")
 
 
 def compare_decode_sources(other_dir: str, rounds: int = 2) -> None:
@@ -2709,8 +2833,9 @@ def compare_generate(pairs: int = 3) -> None:
 
 def compare(argv) -> int:
     """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR``,
-    ``--tiled-source DIR``, ``--decode-source DIR`` and/or
-    ``--generate-pairs N``: only the paired comparisons, on one card."""
+    ``--tiled-source DIR``, ``--sparse-source DIR``, ``--decode-source DIR``
+    and/or ``--generate-pairs N``: only the paired comparisons, on one
+    card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -2721,6 +2846,8 @@ def compare(argv) -> int:
                         help="csrc directory of another commit (its fused_qkv_attention*.cu)")
     parser.add_argument("--tiled-source",
                         help="csrc directory of another commit (its flash_attention.cu)")
+    parser.add_argument("--sparse-source",
+                        help="csrc directory of another commit (its block_sparse_attention.cu)")
     parser.add_argument("--decode-source",
                         help="csrc directory of another commit (its decode_attention.cu)")
     parser.add_argument("--generate-pairs", type=int, default=0)
@@ -2736,6 +2863,8 @@ def compare(argv) -> int:
         compare_packed_sources(args.packed_source)
     if args.tiled_source:
         compare_tiled_sources(args.tiled_source)
+    if args.sparse_source:
+        compare_sparse_sources(args.sparse_source)
     if args.decode_source:
         compare_decode_sources(args.decode_source)
     if args.generate_pairs:

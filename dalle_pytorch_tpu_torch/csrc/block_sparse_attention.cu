@@ -32,24 +32,35 @@
 // What bounds it. At the flagship training shape (b 4, 16 heads of 64,
 // n 1280, float32) the axial_row and conv_like masks allow ~0.4 of the
 // causal (query, key) pairs: the operations (2 products a pair forward,
-// 5 backward, 2*d each) take ~0.08 ms forward and ~0.2 ms backward at the
-// card's 67 TFLOP/s float32 rate, against ~0.03-0.05 ms of bytes (q, k,
-// v, o, do and the gradients once each): operations bound it. The design
-// keeps every score on chip and walks only the live block pairs, in
-// 64 x 64 sub-tiles; a sub-tile whose keys are all masked, or whose
-// mask block is empty, is skipped (it would add p = 0 and leave every
-// sum as it is), so the work follows the mask, not the 128-block grid.
-// There are no float atomics: the dk/dv pass owns its key rows and walks
-// the k-major table, so two runs give bit-identical gradients. The
-// products run as float32 FMAs on the CUDA cores from shared memory; the
-// tensor cores (mma.sync / wgmma bf16 tiles) and cp.async/TMA double
-// buffering are the known next steps.
+// 3 dq, 4 dk/dv, 2*d each) take ~0.08, ~0.11 and ~0.15 ms at the card's 67
+// TFLOP/s float32 rate on the CUDA cores, ~0.03, ~0.05 and ~0.06 ms at its
+// tensor cores' 495 / 3 TFLOP/s as split 3xTF32, against ~0.03-0.05 ms of
+// bytes (q, k, v, o, do and the gradients once each): operations bound
+// it. The design keeps every score on chip and walks only the live block
+// pairs; a sub-tile whose keys are all masked, or whose mask tile is
+// empty, is skipped (it would add p = 0 and leave every sum as it is), so
+// the work follows the mask, not the 128-block grid. There are no float
+// atomics: the dk/dv pass owns its key rows and walks the k-major table,
+// so two runs give bit-identical gradients.
 //
-// Layout: one block of 256 threads per (64-row half of a 128-block, b*h):
-// the forward and dq walk the q block's run, dk/dv the k block's, in the
-// tiles of attention_tiles.cuh, shared with flash_attention.cu.
+// Two designs. The forward, dq and the bfloat16 dk/dv run float32 FMAs
+// on the CUDA cores from shared memory: one block of 256 threads per
+// (64-row half of a 128-block, b*h), the forward and dq walking the q
+// block's run, dk/dv the k block's, in 64 x 64 sub-tiles of
+// attention_tiles.cuh, shared with flash_attention.cu. The float32 dk/dv
+// (bs_dkdv_tf32_kernel) is the key-major split-3xTF32 sweep of
+// tf32_sweeps.cuh that the tiled flash dk/dv runs: blocks of 4 warps, the
+// 64-key half of a 128-key block resident (K and V), the 32-row query
+// halves of its k-major pair run streamed through a 2-stage cp.async ring
+// (rows past n zero-filled, nothing read), each class 1 half's (32, 64)
+// tile of the int8 mask loaded and tested before its half is issued, dV
+// += P^T.dO and dK += dS^T.Q folded per half (tf32::fold_product); grid
+// (b*h, n_pad / 64).
+
+#include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "tf32_sweeps.cuh"
 
 namespace {
 
@@ -271,6 +282,33 @@ __global__ void __launch_bounds__(THREADS) bs_dkdv_kernel(
   store_rows<T, D>(dv_acc, dv + head, k0, n);
 }
 
+// dk and dv in float32 of the 64-key half blockIdx.y of a 128-key block
+// of head blockIdx.x: tf32::dkdv_sweep over the block's k-major pair run,
+// each q block's 32-row halves below n whose mask tile is not empty, on
+// the dq pass's lse and delta
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1) bs_dkdv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const uint8_t* __restrict__ kmask,
+    const int8_t* __restrict__ mask, const int* __restrict__ table,
+    const int* __restrict__ offsets, float* __restrict__ dk, float* __restrict__ dv,
+    int heads, int n, int n_pad, int n_pairs, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bh = blockIdx.x, k0 = blockIdx.y * TILE;
+  if (k0 >= n) return;  // padding keys only
+  const int kb = k0 / BLOCK;
+  const int64_t head = (int64_t)bh * n * D, rows = (int64_t)bh * n;
+  const tf32::Head a{q + head,    k + head,     v + head,  nullptr, dout + head,
+                     lse + rows,  delta + rows,
+                     kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n,
+                     nullptr,     dk + head,    dv + head, nullptr, n,
+                     scale};
+  const tf32::PairRun walk{table, mask, n_pairs, n, n_pad, k0, 4 * offsets[kb],
+                           4 * offsets[kb + 1]};
+  tf32::dkdv_sweep<D, false>(a, walk, k0, smem_raw);
+}
+
 // shapes every entry point refuses (-1): an empty shape, a block other
 // than 128, n_pad that is not ceil(n / 128) * 128, more rows of b*h than
 // a grid dimension holds
@@ -316,20 +354,35 @@ int dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// float32: the split-3xTF32 kernel, grid (b*h, n_pad / TILE) as the
+// tiled kernels'; -1 for an operand not 16-byte aligned
 template <typename T, int D>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, const void* kmask, const void* mask,
          const void* table, const void* offsets, void* dk, void* dv, int batch,
          int heads, int n, int n_pad, int n_pairs, float scale,
          cudaStream_t stream) {
-  constexpr int smem = dkdv_smem_bytes<D>();
-  int err = allow_smem(bs_dkdv_kernel<T, D>, smem);
-  if (err != 0) return err;
-  bs_dkdv_kernel<T, D><<<grid_of(batch, heads, n_pad), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (const uint8_t*)kmask, (const int8_t*)mask,
-      (const int*)table, (const int*)offsets, (T*)dk, (T*)dv, heads, n,
-      n_pad, n_pairs, scale);
+  if constexpr (std::is_same<T, float>::value) {
+    static_assert(TILE == tf32::ROWS && BLOCK == tf32::PairRun::BLOCK, "the sweep's tiles");
+    if (!tc::aligned16({q, k, v, dout, mask, dk, dv})) return -1;
+    constexpr int smem = tf32::dkdv_sweep_smem_bytes(D, true, false);
+    int err = allow_smem(bs_dkdv_tf32_kernel<D>, smem);
+    if (err != 0) return err;
+    bs_dkdv_tf32_kernel<D><<<dim3(batch * heads, n_pad / TILE), tc::THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+        (const float*)lse, (const float*)delta, (const uint8_t*)kmask, (const int8_t*)mask,
+        (const int*)table, (const int*)offsets, (float*)dk, (float*)dv, heads, n, n_pad,
+        n_pairs, scale);
+  } else {
+    constexpr int smem = dkdv_smem_bytes<D>();
+    int err = allow_smem(bs_dkdv_kernel<T, D>, smem);
+    if (err != 0) return err;
+    bs_dkdv_kernel<T, D><<<grid_of(batch, heads, n_pad), THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+        (const float*)delta, (const uint8_t*)kmask, (const int8_t*)mask,
+        (const int*)table, (const int*)offsets, (T*)dk, (T*)dv, heads, n,
+        n_pad, n_pairs, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -354,8 +407,8 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 // nk + 1 for dkdv). One launch on `stream`. Returns cudaGetLastError()
 // after it (0 on success), or -1 for what the kernels cannot take: a
 // dim_head other than 32/64/128, a dtype code other than 0/1, a block
-// other than 128, an empty shape, or more (batch, head) pairs than a grid
-// dimension holds.
+// other than 128, an empty shape, more (batch, head) pairs than a grid
+// dimension holds, or (float32 dk/dv) an operand not 16-byte aligned.
 extern "C" int block_sparse_attention_fwd(
     const void* q, const void* k, const void* v, const void* kmask,
     const void* mask, const void* table, const void* offsets, void* out,

@@ -43,16 +43,21 @@
 // leave every sum as it is). The query tiles of the causal forward and
 // dq are launched longest row first. There are no float atomics: dq
 // accumulates over key tiles inside one block and dk/dv over query tiles
-// inside one block, so two runs give bit-identical results.
+// inside one block, so two runs give bit-identical results. The
+// single-block backward's main path (b 2, 3 heads of 64, n 1280, causal)
+// has ~0.02 ms of 3xTF32 operations spread over one wave of 240 blocks
+// whose longest streams 40 halves against the shortest's 2: latency and
+// that imbalance bound it, not the rate.
 //
-// Two designs. The bfloat16 forward, dq and dk/dv and the single-block
-// backward run float32 FMAs on the CUDA cores from shared memory: one
-// block of 256 threads per (TILE-row tile, b*h), in the tiles of
-// attention_tiles.cuh, shared with block_sparse_attention.cu. The float32
-// forward, dq and dk/dv (flash_fwd_tf32_kernel, flash_dq_tf32_kernel,
-// flash_dkdv_tf32_kernel) run every product as split 3xTF32
-// mma.sync.m16n8k8 on the tensor cores (csrc/tf32_tiles.cuh, whose
-// numerics keep float32's tolerances): blocks of 4 warps, each warp 16
+// Two designs. The bfloat16 forward, dq, dk/dv and single-block backward
+// run float32 FMAs on the CUDA cores from shared memory: one block of 256
+// threads per (TILE-row tile, b*h), in the tiles of attention_tiles.cuh
+// (dq_tile and dkdv_tile serve only these bf16 instances), shared with
+// block_sparse_attention.cu. The float32 forward, dq, dk/dv and
+// single-block backward (flash_fwd_tf32_kernel, flash_dq_tf32_kernel,
+// flash_dkdv_tf32_kernel, flash_bwd_fused_tf32_kernel) run every product
+// as split 3xTF32 mma.sync.m16n8k8 on the tensor cores (csrc/tf32_tiles.cuh,
+// whose numerics keep float32's tolerances): blocks of 4 warps, each warp 16
 // rows of a resident 64-row tile (Q for the forward, Q and dO for dq, K
 // and V for dk/dv), the other operands streamed in 32-row tiles through a
 // 2-stage cp.async ring and split into TF32 big and small parts once when
@@ -61,12 +66,17 @@
 // K.Q^T, dP^T = V.dO^T) so that P^T and dS^T feed dV += P^T.dO and dK +=
 // dS^T.Q from registers; the sums over keys (o, dq) and queries (dk/dv)
 // fold a fresh partial per streamed tile in with rounded FMAs, since the
-// tensor cores truncate as they accumulate (tf32::fold_product).
+// tensor cores truncate as they accumulate (tf32::fold_product). The dq
+// and dk/dv bodies are csrc/tf32_sweeps.cuh's, which the pair grid's dk/dv
+// shares; the single-block backward runs both in one launch, its key
+// blocks deriving each streamed half's delta from O and dO rows streamed
+// with it, so its gradients are the dq + dk/dv chain's bit for bit.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "attention_tiles.cuh"
-#include "tf32_tiles.cuh"
+#include "tf32_sweeps.cuh"
 
 namespace {
 
@@ -304,7 +314,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_fused_kernel(const Operands
 
 enum class Pass { kFwd, kDq, kDkdv, kFused };
 
-// ---------------------------------- float32 forward, dq and dk/dv: 3xTF32
+// ------------ float32 forward, dq, dk/dv and single-block backward: 3xTF32
 //
 // The query or key tile a block owns is resident (tf32::ROWS = TILE rows,
 // warp w rows 16w .. 16w + 15); the other side streams in halves of a
@@ -313,9 +323,11 @@ enum class Pass { kFwd, kDq, kDkdv, kFused };
 // fragments of the resident tile come by ldmatrix and are split in
 // registers, the streamed tiles are split in shared memory once (big in
 // place, small beside), p = tc::exp_diff(s, m * log2(e)) forward and
-// exp_diff(s, lse * log2(e)) backward. At d 64 a forward block holds
-// 70-74 KB of shared memory (three fit an H100 SM's 228 KB), a dq or
-// dk/dv block 87-91 KB (two fit).
+// exp_diff(s, lse * log2(e)) backward. The dq and dk/dv bodies are the
+// sweeps of tf32_sweeps.cuh, shared with the pair grid's dk/dv. At d 64 a
+// forward block holds 70-74 KB of shared memory (three fit an H100 SM's
+// 228 KB), a dq or dk/dv block 87-91 KB and a single-block backward block
+// 105-109 KB (two fit).
 
 static_assert(TILE == tf32::ROWS, "the visit map's tile is the resident tile");
 
@@ -324,48 +336,6 @@ constexpr int fwd_tf32_smem_bytes(int d, bool pattern) {
   // stages of key bits (16 bytes), two of the (64, 32) pattern tile
   return 4 * (tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4)) + 16 +
          (pattern ? 2 * tf32::ROWS * tf32::SROWS : 0);
-}
-
-constexpr int dq_tf32_smem_bytes(int d, bool pattern) {
-  // Q, dO, two stages of K and V, the small parts of one K and V tile,
-  // two stages of key bits (16 bytes), two of the (64, 32) pattern tile
-  return 4 * (2 * tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4)) + 16 +
-         (pattern ? 2 * tf32::ROWS * tf32::SROWS : 0);
-}
-
-constexpr int dkdv_tf32_smem_bytes(int d, bool pattern) {
-  // K, V, two stages of Q and dO, the small parts of one Q and dO tile,
-  // two stages of lse and delta, two of the (32, 64) pattern tile
-  return 4 * (2 * tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4) + 4 * tf32::SROWS) +
-         (pattern ? 2 * tf32::SROWS * tf32::ROWS : 0);
-}
-
-// The first half tile h in [from, end) whose 64-tile is visited (class
-// v[(h / 2) * step] not 0), or end: 32 candidates a warp at a time, the
-// same answer on every warp
-__device__ __forceinline__ int first_visited(const int8_t* __restrict__ v, int64_t step,
-                                             int from, int end) {
-  const int lane = threadIdx.x % 32;
-  for (; from < end; from += 32) {
-    const int h = from + lane;
-    const unsigned live = __ballot_sync(0xffffffffu, h < end && v[(h >> 1) * step] != 0);
-    if (live != 0) return from + __ffs(live) - 1;
-  }
-  return end;
-}
-
-// The first visited key half at or after h of the query tile whose
-// visit-map row is vrow, with a key the key mask keeps (its bits into
-// kbits[st]), or `halves`; a barrier with a key mask
-__device__ __forceinline__ int next_live_half(const int8_t* __restrict__ vrow,
-                                              const uint8_t* __restrict__ km, uint32_t* kbits,
-                                              int h, int st, int halves, int n) {
-  for (;; ++h) {
-    h = first_visited(vrow, 1, h, halves);
-    if (h >= halves || km == nullptr ||
-        tc::tile_keys<tf32::SROWS>(km, h * tf32::SROWS, n, kbits + st))
-      return h;
-  }
 }
 
 // o and lse of query tile nt - 1 - blockIdx.y (longest causal rows
@@ -414,7 +384,7 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
 
   // a half of masked keys adds p = 0 and leaves m, l and o as they are:
   // not loaded, nor is q while every half so far was such a half
-  int h = next_live_half(vrow, km, kbits, 0, 0, halves, n), st = 0;
+  int h = tf32::next_live_half(vrow, km, kbits, 0, 0, halves, n), st = 0;
   if (h < halves) {
     tf32::load_tile_async<D>(qs, a.q + head, D, q0, n);
     issue(h, 0);
@@ -422,7 +392,7 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
   tc::cp_async_commit();
   while (h < halves) {
     // the next live half is in flight while this one computes
-    const int nxt = next_live_half(vrow, km, kbits, h + 1, st ^ 1, halves, n);
+    const int nxt = tf32::next_live_half(vrow, km, kbits, h + 1, st ^ 1, halves, n);
     if (nxt < halves) issue(nxt, st ^ 1);
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
@@ -536,141 +506,33 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
   }
 }
 
+// One head's operands of the entry point's (b*h, n, d) tensors
+template <int D>
+__device__ __forceinline__ tf32::Head head_of(const Operands<float>& a, int bh) {
+  const int64_t head = (int64_t)bh * a.n * D, rows = (int64_t)bh * a.n;
+  auto at = [](auto* p, int64_t off) { return p == nullptr ? nullptr : p + off; };
+  return {at(a.q, head),       at(a.k, head),       at(a.v, head),
+          at(a.o, head),       at(a.dout, head),    at(a.lse, rows),
+          at(a.delta_in, rows),
+          a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * a.n,
+          at(a.dq, head),      at(a.dk, head),      at(a.dv, head),
+          at(a.delta_out, rows), a.n,               a.scale};
+}
+
+// The key halves of visit-map column kt
+__device__ __forceinline__ tf32::VisitColumn column_of(const Operands<float>& a, int kt) {
+  return {a.visit + kt, a.pattern, a.n / TILE, a.n, kt * TILE};
+}
+
 // dq of query tile nt - 1 - blockIdx.y (longest causal rows first) of
 // head blockIdx.x, over its visited key halves; delta from do and o,
 // written to a.delta_out
 template <int D>
 __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
     flash_dq_tf32_kernel(const Operands<float> a) {
-  using tf32::ROWS;
-  using tf32::SROWS;
-  constexpr int TF = tf32::tile_floats<D>(), TS = tf32::tile_floats<D, SROWS>();
-  constexpr int PM = ROWS * SROWS;  // bytes of a pattern tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // (64, D + 4)
-  float* dos = qs + TF;                            // (64, D + 4)
-  float* ks = dos + TF;                            // 2 stages of (32, D + 4)
-  float* vs = ks + 2 * TS;                         // 2 stages of (32, D + 4)
-  float* k_lo = vs + 2 * TS;                       // the small parts of the current K tile
-  float* v_lo = k_lo + TS;                         // ... and of its V tile
-  uint32_t* kbits = reinterpret_cast<uint32_t*>(v_lo + TS);  // 2 stages of 1 word (+ 2)
-  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 32)
-
-  const int n = a.n, nt = n / ROWS, halves = 2 * nt, bh = blockIdx.x;
-  const int qt = nt - 1 - (int)blockIdx.y, q0 = qt * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int64_t head = (int64_t)bh * n * D, row_base = (int64_t)bh * n;
-  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
-  const int8_t* vrow = a.visit + (int64_t)qt * nt;  // key half h: vrow[h / 2]
-  const int r0 = q0 + 16 * warp + g;                 // the thread's rows r0, r0 + 8
-
-  // delta = rowsum(do * o) of the warp's 16 rows, summed as the CUDA-core
-  // kernels sum it (lane-strided partial sums, then a shuffle tree) and
-  // written for the dk/dv pass; delta and lse (times log2(e), for
-  // exp_diff) of the thread's rows kept in registers
-  float lse_r[2], del_r[2];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int64_t row = q0 + 16 * warp + i;
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c)
-      sum += a.o[head + row * D + lane + 32 * c] * a.dout[head + row * D + lane + 32 * c];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, s);
-    if (lane == 0) a.delta_out[row_base + row] = sum;
-    if (g == (i & 7)) del_r[i >> 3] = sum;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) lse_r[i] = a.lse[row_base + r0 + 8 * i] * tc::LOG2E;
-
-  auto issue = [&](int h, int st) {
-    const int k0 = h * SROWS;
-    tf32::load_tile_async<D, SROWS>(ks + st * TS, a.k + head, D, k0, n);
-    tf32::load_tile_async<D, SROWS>(vs + st * TS, a.v + head, D, k0, n);
-    if (a.pattern != nullptr && vrow[h >> 1] == 1)
-      tc::load_mask_tile<ROWS, SROWS>(pms + st * PM, a.pattern, q0, k0, n);
-  };
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-  int h = next_live_half(vrow, km, kbits, 0, 0, halves, n), st = 0;
-  if (h < halves) {
-    tf32::load_tile_async<D>(qs, a.q + head, D, q0, n);
-    tf32::load_tile_async<D>(dos, a.dout + head, D, q0, n);
-    issue(h, 0);
-  }
-  tc::cp_async_commit();
-  while (h < halves) {
-    const int nxt = next_live_half(vrow, km, kbits, h + 1, st ^ 1, halves, n);
-    if (nxt < halves) issue(nxt, st ^ 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    const int k0 = h * SROWS, cls = vrow[h >> 1];
-    float* k_s = ks + st * TS;
-    float* v_s = vs + st * TS;
-    tf32::split_tiles<D, SROWS>(k_s, k_lo, v_s, v_lo, 0, n, nullptr, nullptr);
-    __syncthreads();  // the tiles are split, once for every warp
-
-    const uint64_t bits = tc::key_bits<SROWS>(km != nullptr, kbits + st, k0, n);
-    const bool need_mask = cls == 1 || bits != tc::all_keys<SROWS>();
-    const bool use_pattern = cls == 1 && a.pattern != nullptr;
-    const int8_t* pm_t = pms + st * PM;
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      tf32::FragA qa, da;
-      tf32::load_a<D>(qa, qs, 16 * warp, 8 * kk);
-      tf32::load_a<D>(da, dos, 16 * warp, 8 * kk);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        tf32::FragB kb[2], vb[2];
-        tf32::load_b_rows<D>(kb, k_s, k_lo, 16 * np, 8 * kk);
-        tf32::load_b_rows<D>(vb, v_s, v_lo, 16 * np, 8 * kk);
-        tf32::mma3(s[2 * np], qa, kb[0]);
-        tf32::mma3(s[2 * np + 1], qa, kb[1]);
-        tf32::mma3(dp[2 * np], da, vb[0]);
-        tf32::mma3(dp[2 * np + 1], da, vb[1]);
-      }
-    }
-
-    // ds, split into the A fragments of dS.K
-    tf32::FragA dsa[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, row = r0 + 8 * i, c = 8 * j + 2 * t + (e & 1);
-        bool ok = true;
-        if (need_mask) {
-          ok = ((bits >> c) & 1) != 0;
-          if (cls == 1)
-            ok = ok && (use_pattern ? pm_t[(row - q0) * SROWS + c] != 0 : row >= k0 + c);
-        }
-        const float sv = ok ? s[j][e] * a.scale : NEG_INF;
-        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_r[i]) : 0.f;
-        s[j][e] = p * (dp[j][e] - del_r[i]) * a.scale;
-      }
-      tf32::c_to_a(dsa[j], s[j]);
-    }
-
-    // dQ += dS.K over the half's 32 keys
-    const float one[2] = {1.f, 1.f};
-    tf32::fold_product<D>(dq, dsa, k_s, k_lo, one);
-    __syncthreads();  // stage st is no longer read
-    h = nxt;
-    st ^= 1;
-  }
-
-  tf32::store_inverse_rotated<D>(dq, qs + 16 * warp * tf32::stride<D>(), a.dq + head, D,
-                                 q0 + 16 * warp, n, nullptr, nullptr);
+  tf32::dq_sweep<D>(head_of<D>(a, blockIdx.x), a.visit, a.pattern,
+                    a.n / TILE - 1 - (int)blockIdx.y, smem_raw);
 }
 
 // dk and dv of key tile blockIdx.y (longest causal columns first) of
@@ -678,157 +540,46 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
 template <int D>
 __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
     flash_dkdv_tf32_kernel(const Operands<float> a) {
-  using tf32::ROWS;
-  using tf32::SROWS;
-  constexpr int TF = tf32::tile_floats<D>(), TS = tf32::tile_floats<D, SROWS>();
-  constexpr int PM = SROWS * ROWS;  // bytes of a pattern tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);  // (64, D + 4)
-  float* vs = ks + TF;                             // (64, D + 4)
-  float* qs = vs + TF;                             // 2 stages of (32, D + 4)
-  float* dos = qs + 2 * TS;                        // 2 stages of (32, D + 4)
-  float* q_lo = dos + 2 * TS;                      // the small parts of the current Q tile
-  float* do_lo = q_lo + TS;                        // ... and of its dO tile
-  float* lse_s = do_lo + TS;                       // 2 stages of 32
-  float* del_s = lse_s + 2 * SROWS;                // 2 stages of 32
-  int8_t* pms = reinterpret_cast<int8_t*>(del_s + 2 * SROWS);  // 2 stages of (32, 64)
-  __shared__ uint32_t kbits[2];
-
-  const int n = a.n, nt = n / ROWS, halves = 2 * nt, bh = blockIdx.x;
-  const int kt = blockIdx.y, k0 = kt * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int64_t head = (int64_t)bh * n * D, row_base = (int64_t)bh * n;
-  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
-  const int8_t* vcol = a.visit + kt;  // query half h: vcol[(h / 2) * nt]
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  // a tile of masked keys has p = 0 for every query: dk = dv = 0
-  if (km == nullptr || tc::tile_keys(km, k0, n, kbits)) {
-    const uint64_t bits = tc::key_bits(km != nullptr, kbits, k0, n);
-    const int key0 = 16 * warp + g;  // the thread's keys key0, key0 + 8 of the tile
-    const bool kok[2] = {((bits >> key0) & 1) != 0, ((bits >> (key0 + 8)) & 1) != 0};
-    auto issue = [&](int h, int st) {
-      const int q0 = h * SROWS;
-      tf32::load_tile_async<D, SROWS>(qs + st * TS, a.q + head, D, q0, n);
-      tf32::load_tile_async<D, SROWS>(dos + st * TS, a.dout + head, D, q0, n);
-      if (a.pattern != nullptr && vcol[(int64_t)(h >> 1) * nt] == 1)
-        tc::load_mask_tile<SROWS, ROWS>(pms + st * PM, a.pattern, q0, k0, n);
-    };
-    // lse (times log2(e), for exp_diff) of query q0 + r by threads r < 32,
-    // delta by threads 32 + r: loaded a half ahead, stored after the
-    // products so that the load's latency hides behind them
-    const int r = threadIdx.x % SROWS;
-    const bool stat_thread = threadIdx.x < 2 * SROWS;
-    auto row_stat = [&](int h) {
-      const int64_t row = row_base + h * SROWS + r;
-      return threadIdx.x < SROWS ? a.lse[row] * tc::LOG2E : a.delta_in[row];
-    };
-    float* stat_s = threadIdx.x < SROWS ? lse_s : del_s;
-
-    int h = first_visited(vcol, nt, 0, halves);
-    if (h < halves) {
-      tf32::load_tile_async<D>(ks, a.k + head, D, k0, n);
-      tf32::load_tile_async<D>(vs, a.v + head, D, k0, n);
-      issue(h, 0);
-      if (stat_thread) stat_s[r] = row_stat(h);
-    }
-    tc::cp_async_commit();
-    for (int st = 0; h < halves; st ^= 1) {
-      const int nxt = first_visited(vcol, nt, h + 1, halves);
-      const float next_stat = stat_thread && nxt < halves ? row_stat(nxt) : 0.f;
-      if (nxt < halves) issue(nxt, st ^ 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-      __syncthreads();
-      const int q0 = h * SROWS, cls = vcol[(int64_t)(h >> 1) * nt];
-      float* q_s = qs + st * TS;
-      float* do_s = dos + st * TS;
-      tf32::split_tiles<D, SROWS>(q_s, q_lo, do_s, do_lo, 0, n, nullptr, nullptr);
-      __syncthreads();  // the tiles are split, once for every warp
-
-      const bool need_mask = cls == 1 || bits != ~0ull;
-      const bool use_pattern = cls == 1 && a.pattern != nullptr;
-      const int8_t* pm_t = pms + st * PM;
-      float sT[4][4], dpT[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        tf32::FragA ka, va;
-        tf32::load_a<D>(ka, ks, 16 * warp, 8 * kk);
-        tf32::load_a<D>(va, vs, 16 * warp, 8 * kk);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          tf32::FragB qb[2], db[2];
-          tf32::load_b_rows<D>(qb, q_s, q_lo, 16 * np, 8 * kk);
-          tf32::load_b_rows<D>(db, do_s, do_lo, 16 * np, 8 * kk);
-          tf32::mma3(sT[2 * np], ka, qb[0]);
-          tf32::mma3(sT[2 * np + 1], ka, qb[1]);
-          tf32::mma3(dpT[2 * np], va, db[0]);
-          tf32::mma3(dpT[2 * np + 1], va, db[1]);
-        }
-      }
-
-      // p^T into sT, ds^T into dpT
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-          bool ok = true;
-          if (need_mask) {
-            ok = kok[e >> 1];
-            if (cls == 1)
-              ok = ok && (use_pattern ? pm_t[c * ROWS + key] != 0 : q0 + c >= k0 + key);
-          }
-          const float sv = ok ? sT[j][e] * a.scale : NEG_INF;
-          const float p =
-              sv > 0.5f * NEG_INF ? tc::exp_diff(sv, lse_s[st * SROWS + c]) : 0.f;
-          sT[j][e] = p;
-          dpT[j][e] = p * (dpT[j][e] - del_s[st * SROWS + c]) * a.scale;
-        }
-
-      // dV += P^T.dO, then dK += dS^T.Q, over the half's 32 queries
-      const float one[2] = {1.f, 1.f};
-      tf32::FragA fa[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) tf32::c_to_a(fa[kk], sT[kk]);
-      tf32::fold_product<D>(dv, fa, do_s, do_lo, one);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) tf32::c_to_a(fa[kk], dpT[kk]);
-      tf32::fold_product<D>(dk, fa, q_s, q_lo, one);
-      if (stat_thread) stat_s[(st ^ 1) * SROWS + r] = next_stat;
-      __syncthreads();  // stage st is no longer read
-      h = nxt;
-    }
-  }
-
-  // each warp's own rows of the K and V tiles hold its dk and dv (tiles
-  // that were loaded have landed: the last wait left only an empty group)
-  tf32::store_inverse_rotated<D>(dk, ks + 16 * warp * tf32::stride<D>(), a.dk + head, D,
-                                 k0 + 16 * warp, n, nullptr, nullptr);
-  tf32::store_inverse_rotated<D>(dv, vs + 16 * warp * tf32::stride<D>(), a.dv + head, D,
-                                 k0 + 16 * warp, n, nullptr, nullptr);
+  const int kt = blockIdx.y;
+  tf32::dkdv_sweep<D, false>(head_of<D>(a, blockIdx.x), column_of(a, kt), kt * TILE, smem_raw);
 }
 
-// The float32 forward, dq and dk/dv launches: grid (b*h, n / TILE), so
-// that the scheduler starts every head's longest tiles first. -1 for more
-// tiles than a grid dimension holds or an operand not 16-byte aligned
-// (cp.async, vector stores).
+// The single-block backward of head blockIdx.x in one launch: even
+// blocks y compute dq of query tile nt - 1 - y / 2 (longest causal rows
+// first) as flash_dq_tf32_kernel, odd blocks dk and dv of key tile y / 2
+// (longest causal columns first) as flash_dkdv_tf32_kernel, deriving each
+// half's delta from its O and dO rows in the dq pass's order; delta is
+// never written. So dq, dk and dv are those of the two-launch chain bit
+// for bit. Interleaved, both roles' longest tiles start in the first wave
+// (timed faster than the dq role's blocks all first); at d 32 three
+// blocks share an SM (registers capped for it, no spills), which timed
+// faster than two.
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 3 : D <= 64 ? 2 : 1)
+    flash_bwd_fused_tf32_kernel(const Operands<float> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = a.n / TILE, y = blockIdx.y;
+  const tf32::Head head = head_of<D>(a, blockIdx.x);
+  if ((y & 1) == 0) {
+    tf32::dq_sweep<D>(head, a.visit, a.pattern, nt - 1 - (y >> 1), smem_raw);
+  } else {
+    const int kt = y >> 1;
+    tf32::dkdv_sweep<D, true>(head, column_of(a, kt), kt * TILE, smem_raw);
+  }
+}
+
+// The float32 launches: grid (b*h, n / TILE), or (b*h, 2 n / TILE) for the
+// single-block backward, so that the scheduler starts every head's longest
+// tiles first. -1 for more tiles than a grid dimension holds or an operand
+// not 16-byte aligned (cp.async, vector stores).
 template <int D>
 int launch_tf32(Pass pass, const Operands<float>& a, int batch, cudaStream_t stream) {
-  const int nt = a.n / TILE;
-  if (nt > 65535 ||
+  const int nt = a.n / TILE, tiles = pass == Pass::kFused ? 2 * nt : nt;
+  if (tiles > 65535 ||
       !tc::aligned16({a.q, a.k, a.v, a.o, a.dout, a.pattern, a.out, a.dq, a.dk, a.dv}))
     return -1;
-  const dim3 grid(batch * a.heads, nt);
+  const dim3 grid(batch * a.heads, tiles);
   const bool pattern = a.pattern != nullptr;
   int err = 0;
   if (pass == Pass::kFwd) {
@@ -836,13 +587,18 @@ int launch_tf32(Pass pass, const Operands<float>& a, int batch, cudaStream_t str
     if ((err = allow_smem(flash_fwd_tf32_kernel<D>, smem)) != 0) return err;
     flash_fwd_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
   } else if (pass == Pass::kDq) {
-    const int smem = dq_tf32_smem_bytes(D, pattern);
+    const int smem = tf32::dq_sweep_smem_bytes(D, pattern);
     if ((err = allow_smem(flash_dq_tf32_kernel<D>, smem)) != 0) return err;
     flash_dq_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
-  } else {
-    const int smem = dkdv_tf32_smem_bytes(D, pattern);
+  } else if (pass == Pass::kDkdv) {
+    const int smem = tf32::dkdv_sweep_smem_bytes(D, pattern, false);
     if ((err = allow_smem(flash_dkdv_tf32_kernel<D>, smem)) != 0) return err;
     flash_dkdv_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
+  } else {  // the larger of the two roles
+    const int smem = std::max(tf32::dq_sweep_smem_bytes(D, pattern),
+                              tf32::dkdv_sweep_smem_bytes(D, pattern, true));
+    if ((err = allow_smem(flash_bwd_fused_tf32_kernel<D>, smem)) != 0) return err;
+    flash_bwd_fused_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -890,9 +646,13 @@ int launch(Pass pass, const Operands<T>& a, int batch, cudaStream_t stream) {
       }
       break;
     case Pass::kFused:
-      smem = dkdv_smem_bytes<D>();  // the larger of the two roles
-      if ((err = allow_smem(flash_bwd_fused_kernel<T, D>, smem)) != 0) return err;
-      flash_bwd_fused_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      if constexpr (f32) {
+        return launch_tf32<D>(pass, a, batch, stream);
+      } else {
+        smem = dkdv_smem_bytes<D>();  // the larger of the two roles
+        if ((err = allow_smem(flash_bwd_fused_kernel<T, D>, smem)) != 0) return err;
+        flash_bwd_fused_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+      }
       break;
   }
   return (int)cudaGetLastError();
@@ -943,8 +703,8 @@ int dispatch(Pass pass, const Pointers& p, int batch, int heads, int n, int dim_
 // cudaGetLastError() after it (0 on success), or -1 for what the kernels
 // cannot take: a dim_head other than 32/64/96/128, a dtype code other
 // than 0/1, n not a positive multiple of 64, more (batch, head) pairs
-// than a grid dimension holds, or (float32 forward, dq and dk/dv) more
-// than 65535 tiles or an operand not 16-byte aligned.
+// than a grid dimension holds, or (float32) more than 65535 tiles of a
+// grid or an operand not 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kmask, const void* pattern,
                                    const void* visit, void* out, void* lse, int batch,

@@ -42,6 +42,11 @@ tolerances and that one TF32 pass does not. ``emulated_flash_bwd`` and
 forward, and ``matmul_3xtf32_card`` accumulates as the tensor cores do
 (each mma's result truncated toward zero to float32), with the long
 sums straight or folded in fresh partials as the kernels fold them.
+``emulated_single_block_bwd`` runs the float32 single-block backward's
+role split (its query blocks' and key blocks' delta by
+``emulated_row_delta``, the card's warp order) and
+``emulated_pair_dkdv`` the pair grid's float32 dk/dv over the halves its
+k-major walk visits (``pair_dkdv_halves``).
 
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
@@ -186,7 +191,9 @@ def flash_inputs(case: str, dtype, device, seed: int = 0):
     of 64, n 4352 = 256 text + 64 x 64 image positions), causal.
     "axial_col": b 2 of the same with the axial-column pattern of DALL-E's
     257 + 64 x 64 sequence. "one_block": b 2, 3 heads of 64, n 1280
-    (one flash block the packed kernel refuses), causal. Small shapes, b 2
+    (one flash block the packed kernel refuses), causal; "one_block_d32":
+    the flagship's b 4, 16 heads and n 1280 at dim_head 32, which the
+    packed kernel refuses too, causal. Small shapes, b 2
     and 2 heads at n 384 (one flash block): "pattern" (the axial-row
     pattern of 129 + 16 x 16), "noncausal", and "d32" / "d64" / "d96" /
     "d128", causal with a key mask that drops a fifth of row 0's keys and
@@ -212,6 +219,8 @@ def flash_inputs(case: str, dtype, device, seed: int = 0):
         opts["key_mask"] = torch.from_numpy(km).to(device)
     elif case == "one_block":
         b, h, n, d = 2, 3, 1280, 64
+    elif case == "one_block_d32":
+        b, h, n, d = 4, 16, 1280, 32
     else:
         b, h, n = 2, 2, 1152 if case == "tiled" else 384
         d = int(case[1:]) if case.startswith("d") else 64
@@ -410,14 +419,14 @@ def matmul_3xtf32_card(a: torch.Tensor, b: torch.Tensor, fold=None) -> torch.Ten
 
 
 def emulated_flash_bwd(q, k, v, o, lse, do, matmul, long_matmul=None, key_mask=None,
-                       causal: bool = True, pattern=None):
+                       causal: bool = True, pattern=None, delta=None):
     """The tiled flash backward (the dq and dk/dv passes) on q, k, v, o,
     do (b, h, n, d) and lse (b, h, n), the arithmetic of
     ``reference_flash_attention_bwd`` step by step in the inputs' dtype,
     with the products over channels (s = q.k^T, dp = do.v^T) computed by
     ``matmul`` and the sums over keys and queries (dq = ds.k, dk =
-    ds^T.q, dv = p^T.do) by ``long_matmul`` (default ``matmul``). Returns
-    (dq, dk, dv)."""
+    ds^T.q, dv = p^T.do) by ``long_matmul`` (default ``matmul``); delta
+    (b, h, n) given, or rowsum(do * o). Returns (dq, dk, dv)."""
     long_matmul = long_matmul or matmul
     n, d = q.shape[-2:]
     scale = d**-0.5
@@ -426,7 +435,8 @@ def emulated_flash_bwd(q, k, v, o, lse, do, matmul, long_matmul=None, key_mask=N
     p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - lse[..., None]), 0.0)
     del s
     dp = matmul(do, v.transpose(-1, -2))
-    ds = p * (dp - (do * o).sum(-1, keepdim=True)) * scale
+    delta = (do * o).sum(-1) if delta is None else delta
+    ds = p * (dp - delta[..., None]) * scale
     del dp
     return (long_matmul(ds, k), long_matmul(ds.transpose(-1, -2), q),
             long_matmul(p.transpose(-1, -2), do))
@@ -466,6 +476,105 @@ def emulated_flash_fwd(q, k, v, matmul, long_fold: bool = True, key_mask=None,
         m = m_new
     l_safe = torch.where(l == 0, 1.0, l)
     return o / l_safe, (m + torch.log(l_safe))[..., 0]
+
+
+def emulated_row_delta(o, do) -> torch.Tensor:
+    """delta = rowsum(o * do) of float32 (..., n, d) rows, d a multiple of
+    32, as ``tf32::row_delta`` sums a row on the card: lane l's partial
+    over channels l, l + 32, .. by FMAs (each product exact in float64,
+    added and rounded to float32), then a butterfly over the 32 lanes
+    (partial[l] + partial[l ^ s] for s = 16, 8, 4, 2, 1, float32 adds).
+    Returns (..., n) float32."""
+    o, do = o.float(), do.float()
+    part = torch.zeros(o.shape[:-1] + (32,), dtype=torch.float32)
+    for c in range(0, o.shape[-1], 32):
+        part = (o[..., c:c + 32].double() * do[..., c:c + 32].double() + part.double()).float()
+    lane = torch.arange(32)
+    for s in (16, 8, 4, 2, 1):
+        part = part + part[..., lane ^ s]
+    return part[..., 0]
+
+
+def emulated_single_block_bwd(q, k, v, o, lse, do, key_mask=None, causal: bool = True,
+                              pattern=None):
+    """The single-block backward as ``flash_bwd_fused_tf32_kernel`` runs it
+    on float32 q, k, v, o, do (b, h, n, d) and lse (b, h, n): its query
+    blocks' delta of each 64-row tile's rows and its key blocks' delta of
+    each streamed 32-row half (``emulated_row_delta`` both), then
+    ``emulated_flash_bwd`` with the products over channels as split 3xTF32
+    (``matmul_3xtf32``) and the long sums folded per 32-row half on the
+    card's truncating accumulation (``matmul_3xtf32_card``, fold 32), on
+    the key blocks' delta (which the query blocks' equals bit for bit, as
+    the tests check). Halves the kernel passes over add exact zeros, so
+    every half is folded here. Returns (dq, dk, dv, the query blocks'
+    delta, the key blocks' delta)."""
+    n = q.shape[-2]
+    delta_q, delta_k = (torch.cat([emulated_row_delta(o[..., r:r + rows, :], do[..., r:r + rows, :])
+                                   for r in range(0, n, rows)], -1) for rows in (64, 32))
+    grads = emulated_flash_bwd(q, k, v, o, lse, do, matmul_3xtf32,
+                               lambda a, b: matmul_3xtf32_card(a, b, 32), key_mask, causal,
+                               pattern, delta=delta_k)
+    return (*grads, delta_q, delta_k)
+
+
+def pair_dkdv_halves(layout, k0: int):
+    """The 32-row query halves that the pair grid's float32 dk/dv
+    (``bs_dkdv_tf32_kernel``) walks for its 64-key tile at ``k0``, in its
+    order, as ``tf32::PairRun`` finds them: the k-major pair run of the
+    tile's 128-block, each pair's four halves, less class 0 pairs, halves
+    at or past n and class 1 halves whose (32, 64) tile of ``layout.mask``
+    is empty. Returns [(q0, class)]."""
+    kv = layout.kv_table
+    offsets = bs._run_offsets(kv[1], layout.nk)
+    kb = k0 // bs.DEFAULT_BLOCK
+    halves = []
+    for h in range(4 * offsets[kb], 4 * offsets[kb + 1]):
+        cls, q0 = int(kv[2, h // 4]), int(kv[0, h // 4]) * bs.DEFAULT_BLOCK + 32 * (h % 4)
+        if cls == 0 or q0 >= layout.n:
+            continue
+        if cls == 1 and not layout.mask[q0:q0 + 32, k0:k0 + 64].any():
+            continue
+        halves.append((q0, cls))
+    return halves
+
+
+def emulated_pair_dkdv(q, k, v, do, lse, delta, layout, key_mask=None):
+    """The pair grid's float32 dk/dv as ``bs_dkdv_tf32_kernel`` runs it on
+    float32 q, k, v, do (b, h, n, d), the dq pass's lse and delta (b, h, n)
+    and a 128-block layout: per 64-key tile (K and V resident, keys past n
+    zero), over the halves of ``pair_dkdv_halves`` (query rows past n zero,
+    their lse and delta 0), s^T = K.Q^T and dp^T = V.dO^T as split 3xTF32
+    (``matmul_3xtf32``), p and ds masked by the half's class (2: the key
+    mask; 1: the layout's mask tile and the key mask), dV += P^T.dO and dK
+    += dS^T.Q each a fresh partial per half on the card's truncating
+    accumulation (``_mma_steps``) folded in by a rounded add. Returns
+    (dk, dv) (b, h, n, d)."""
+    b, h, n, d = q.shape
+    scale = d**-0.5
+    pad = layout.n_pad - n
+    qp, kp, vp, dop = (F.pad(t.float(), (0, 0, 0, pad)) for t in (q, k, v, do))
+    lse_p, delta_p = (F.pad(t.float(), (0, pad)) for t in (lse, delta))
+    keys = torch.zeros(b, layout.n_pad, dtype=torch.bool)
+    keys[:, :n] = True if key_mask is None else key_mask.cpu() != 0
+    mask = torch.from_numpy(layout.mask)
+    dk = torch.zeros(b, h, layout.n_pad, d)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, n, 64):
+        kt = slice(k0, k0 + 64)
+        for q0, cls in pair_dkdv_halves(layout, k0):
+            rows = slice(q0, q0 + 32)
+            ok = keys[:, None, kt, None].expand(b, 1, 64, 32)  # (b, 1, key, query)
+            if cls == 1:
+                ok = ok & mask[rows, kt].T
+            s = (matmul_3xtf32(kp[..., kt, :], qp[..., rows, :].transpose(-1, -2)) * scale
+                 ).masked_fill(~ok, fa.NEG_INF)
+            p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - lse_p[..., None, rows]), 0.0)
+            dp = matmul_3xtf32(vp[..., kt, :], dop[..., rows, :].transpose(-1, -2))
+            ds = p * (dp - delta_p[..., None, rows]) * scale
+            zero = torch.zeros(b, h, 64, d)
+            dv[..., kt, :] += _mma_steps(zero, split_tf32(p), split_tf32(dop[..., rows, :]))
+            dk[..., kt, :] += _mma_steps(zero, split_tf32(ds), split_tf32(qp[..., rows, :]))
+    return dk[..., :n, :], dv[..., :n, :]
 
 
 def emulated_split_decode(qkv, k_cache, v_cache, idx: int, cos, sin, key_mask, heads: int,

@@ -730,6 +730,80 @@ def test_flash_f32_forward_matches_plain(cuda, case):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
+ONE_BLOCK_CASES = ["pattern", "noncausal", "d32", "d64", "d96", "d128", "one_block"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ONE_BLOCK_CASES)
+def test_flash_single_block_f32_is_the_split_chain_bitwise(cuda, case):
+    """The float32 single-block backward (``flash_bwd_fused_tf32_kernel``)
+    on every one-block case of ``flash_inputs`` (n 384: the axial_row
+    pattern, non-causal, dim_head 32/64/96/128 with a key mask that kills
+    whole rows; n 1280 at 3 heads of 64): dq, dk and dv bitwise equal to
+    ``flash_attention_dq`` then ``flash_attention_dkdv`` on dq's delta (the
+    same sweeps, each half's delta summed in the dq pass's order); each
+    within relative L2 1e-5 of the plain backward, rows with no allowed
+    key (and keys no query attends) exactly 0; two runs bitwise; one
+    launch a call."""
+    q, k, v, do, opts = flash_inputs(case, torch.float32, cuda)
+    assert fa.flash_block(q.shape[2]) == q.shape[2]
+    o, lse = fa.reference_flash_attention(q, k, v, **opts)
+    before = fa.flash_attention_bwd_fused.launches
+    fused = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts)
+    again = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts)
+    dq, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+    chain = (dq, *fa.flash_attention_dkdv(q, k, v, do, lse, delta, **opts))
+    plain = fa.reference_flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_fused.launches == before + 2
+    assert [torch.equal(a, b) for a, b in zip(fused, chain)] == [True] * 3
+    assert [torch.equal(a, b) for a, b in zip(fused, again)] == [True] * 3
+    rel, _, zeros_exact = flash_bwd_errors(fused, plain, **opts)
+    assert zeros_exact and rel <= BWD_F32_REL, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["d64", "one_block"])
+def test_flash_single_block_bf16_is_deterministic(cuda, case):
+    """The bf16 single-block backward (CUDA-core tiles): two runs give
+    bitwise the same dq, dk and dv."""
+    q, k, v, do, opts = flash_inputs(case, torch.bfloat16, cuda)
+    o, lse = fa.reference_flash_attention(q, k, v, **opts)
+    first = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts)
+    second = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BS_CASES)
+def test_block_sparse_f32_dkdv_matches_plain(cuda, case):
+    """The pair grid's float32 dk/dv on split-3xTF32 tiles
+    (``bs_dkdv_tf32_kernel``) on every ``bs_inputs`` case (the flagship
+    training shape with the axial_row and conv_like layouts; n 300, a
+    ragged last block, at dim_head 32/64/128 with a key mask that kills
+    whole rows; a layout with synthetic pairs), on the plain lse and
+    delta: dk and dv each within relative L2 1e-5 of the plain dk/dv, keys
+    no query may attend exactly 0, two runs bitwise, one launch a call."""
+    q, k, v, do, layout, km = bs_inputs(case, torch.float32, cuda)
+    o, lse = bs.reference_block_sparse(q, k, v, layout, km)
+    _, delta = bs.reference_block_sparse_dq(q, k, v, o, lse, do, layout, km)
+    before = bs.block_sparse_dkdv.launches
+    got = bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout, km)
+    again = bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout, km)
+    plain = bs.reference_block_sparse_dkdv(q, k, v, do, lse, delta, layout, km)
+    torch.cuda.synchronize()
+    assert bs.block_sparse_dkdv.launches == before + 2
+    assert all(torch.isfinite(t).all() for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rel = [((g - p).norm() / p.norm()).item() for g, p in zip(got, plain)]
+    assert max(rel) <= BWD_F32_REL, rel
+    b, n = q.shape[0], q.shape[2]
+    dead = ~bs.may_attend(layout, n, q.device, km)[:, 0].expand(b, n, n).any(dim=1)
+    assert all(bool((g.transpose(1, 2)[dead] == 0).all()) for g in got)
+    if case == "d64":  # row 1 of the key mask drops every key
+        assert dead[1].all()
+
+
 @pytest.mark.gpu
 def test_flash_kernels_reject_what_they_cannot_take(cuda):
     q = torch.zeros(1, 2, 256, 64, device=cuda)
