@@ -44,8 +44,9 @@ line):
    page budget below its batch's demand (unquantized and int8) preempts,
    completes every request and replays tokens bit-identical to the
    unpressured run.
-5. engine: the flagship DALLE (depth 12, dim 1024, 16 heads of 64, 256
-   text + 32x32 image tokens, bf16, seeded random weights) served by the
+5. engine: the flagship DALLE at full width and depth cut to 6 of 12
+   (``SERVE_MODEL``: dim 1024, 16 heads of 64, 256 text + 32x32 image
+   tokens, bf16, seeded random weights) served by the
    fused engine (max_batch 8, prefill chunk 16) with post-decode stages:
    the flagship DiscreteVAE, then CLIP at the reference's widths (text
    and visual depth 6, dim 512, 8 heads of 64, 256 text tokens, 256-pixel
@@ -69,21 +70,21 @@ line):
    phase 7, int8, int8, then bf16 again (phase 7's came first), each with
    the host's time by operator.
 5c. serve sparse: the sparse configuration (phase 10's layers) at the
-   flagship width, bf16, int8 pages, 4 requests of 256 tokens: every
-   outcome COMPLETED, the int8 ragged instance launched depth / 4 x
-   dispatched iterations times (the full layers).
+   flagship width and phase 5's depth, bf16, int8 pages, 4 requests of
+   256 tokens: every outcome COMPLETED, the int8 ragged instance launched
+   (full layers) x dispatched iterations times.
 5d. generate: the flagship of phase 5 generating outside the engine
    (``models/sampling.py``), each run counted: (a) batch 1 on the "4d"
    cache with ``fused_decode=True`` and ``window_seg=0``, 1024 tokens in
-   range, the decode kernel launched exactly 12 x 1023 times; (b) the
+   range, the decode kernel launched exactly depth x 1023 times; (b) the
    same caption with ``fused_decode=False`` (the unfused chain) and the
    default window, token
    agreement printed, and (a)'s tokens teacher-forced through both paths
    (the prompt and 256 decode steps), image logits within
    ``testing.DECODE_LOGITS_REL``; (c) batch 8 on the
    "flat" cache, ``generate_images`` with phase 5's VAE and CLIP, 8
-   finite images and scores, the decode kernel 12 x 1023 times; (d)
-   batch 4 on pages with default arguments, the ragged kernel 12 x 1024
+   finite images and scores, the decode kernel depth x 1023 times; (d)
+   batch 4 on pages with default arguments, the ragged kernel depth x 1024
    times (its prompt block of 257 columns included), the decode kernel
    never. Each prints wall seconds, ms per token and tokens/s; then
    torch.profiler over 20 decode steps of (a).
@@ -226,6 +227,11 @@ HOST_COVER_CYCLES = 1_000_000
 FLAGSHIP = dict(dim=1024, depth=12, heads=16, dim_head=64,
                 num_text_tokens=10000, text_seq_len=256,
                 num_image_tokens=8192, image_fmap_size=32)
+# the serve and generate phases' model: the flagship at full width, depth
+# cut to 6 of its 12 layers; those phases are bound by the host's
+# launches, which scale with depth, and at 12 they took ~470 s of the
+# script's 1,200 s limit on a slow host (PERF.md, section 6)
+SERVE_MODEL = dict(FLAGSHIP, depth=6)
 FLAGSHIP_VAE = dict(image_size=256, num_tokens=8192, codebook_dim=512,
                     num_layers=3, num_resnet_blocks=2, hidden_dim=256)
 # train_clip.py's defaults; the SimpleTokenizer vocabulary
@@ -757,14 +763,15 @@ def pair_work(q, allowed, extra_bytes: int) -> dict:
 
 def bs_bounds(q, layout, key_mask):
     """{kernel: ``packed_bounds``} of the three block-sparse kernels on
-    these inputs (``pair_work``), the layout's mask, table and offsets and
-    the key mask as passed: float32 at the split-3xTF32 rate with the
-    CUDA-core bound beside."""
+    these inputs (``pair_work``), the layout's mask, tables, offsets,
+    class map and tile order and the key mask as passed: float32 at the
+    split-3xTF32 rate with the CUDA-core bound beside."""
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
 
     b, _, n, _ = q.shape
     dl = bs.device_layout(layout, q.device)
-    extra = sum(t.numel() * t.element_size() for t in dl) + (0 if key_mask is None else b * n)
+    extra = (sum(t.numel() * t.element_size() for t in dl if t is not None)
+             + (0 if key_mask is None else b * n))
     work = pair_work(q, bs.may_attend(layout, n, q.device, key_mask), extra)
     return {name: packed_bounds(*work[role], q.dtype)
             for name, role in zip(BS_TPU_KERNELS, ("fwd", "dq", "dkdv"))}
@@ -1482,9 +1489,10 @@ def log_ptxas_report(procs: dict, markers) -> None:
 # entry functions of the split-3xTF32 float32 instances in each library
 # (``log_sass_report``): packed forward at dim_head 32/64/128, packed dq
 # and dk/dv at the same, tiled forward, dq, dk/dv and single-block
-# backward at 32/64/96/128, the pair grid's dk/dv at 32/64/128
+# backward at 32/64/96/128, the pair grid's forward, dq and dk/dv at
+# 32/64/128
 TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash_attention": 16,
-                  "block_sparse_attention": 3}
+                  "block_sparse_attention": 9}
 TF32_HMMA = "HMMA.1688.F32.TF32"
 
 
@@ -1642,7 +1650,7 @@ def serve_flagship():
     t0 = time.perf_counter()
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
     bf16 = dict(device="cuda", dtype=torch.bfloat16)
-    model = DALLE(**FLAGSHIP, **bf16).init_weights(gen(0))
+    model = DALLE(**SERVE_MODEL, **bf16).init_weights(gen(0))
     vae = DiscreteVAE(**FLAGSHIP_VAE, **bf16).init_weights(gen(1))
     clip = CLIP(**FLAGSHIP_CLIP, **bf16).init_weights(gen(2))
     engine = Engine(model, EngineConfig(
@@ -1652,7 +1660,8 @@ def serve_flagship():
     for request in serve_requests(N_REQUESTS, MAX_NEW):
         assert engine.submit(request) is None
     torch.cuda.synchronize()
-    log(f"engine: flagship DALLE, VAE and CLIP built in {time.perf_counter() - t0:.1f} s")
+    log(f"engine: flagship DALLE (depth {SERVE_MODEL['depth']}), VAE and CLIP built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     zero_counts()
     t0 = time.perf_counter()
@@ -1674,7 +1683,7 @@ def serve_flagship():
             raise AssertionError(f"request r{i}: rerank score {r.rerank_score}")
     pipe = engine.postdecode
     rerank_dispatches = pipe.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
-    expected = {"ragged_attention": FLAGSHIP["depth"] * engine.dispatches,
+    expected = {"ragged_attention": SERVE_MODEL["depth"] * engine.dispatches,
                 "ragged_attention_int8": 0,
                 "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
     stage_s = ", ".join(f"{k} {v:.3f} s" for k, v in sorted(pipe.seconds.items()))
@@ -1753,7 +1762,7 @@ def serve_int8(model, bf16_results, bf16_engine) -> dict:
     (1024 + 16 x 4) / 2048 = 68/128 of the bf16 engine's; position-wise
     token agreement with the bf16 engine printed, not asserted (random
     weights diverge after the first near-tie). Returns the launches."""
-    depth = FLAGSHIP["depth"]
+    depth = SERVE_MODEL["depth"]
     engine, results, launches = serve_counted(
         model, "serve int8", MAX_BATCH, MAX_NEW, {"ragged_attention_int8": depth},
         kv_quant="int8")
@@ -1793,13 +1802,14 @@ def check_int8_logits(model) -> None:
 
 def serve_sparse_int8() -> dict:
     """Phase 5c: the sparse configuration (layers cycling full, axial_row,
-    axial_col, conv_like) at the flagship width, bf16, int8 pages, 4
-    requests of 256 tokens: the 3 full layers through the int8 ragged
-    instance, the others over the gathered view. Returns the launches."""
+    axial_col, conv_like) at the flagship width and the serve phases'
+    depth, bf16, int8 pages, 4 requests of 256 tokens: the full layers
+    through the int8 ragged instance, the others over the gathered view.
+    Returns the launches."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
 
     types = tuple(SPARSE_TYPES.split(","))
-    model = DALLE(**FLAGSHIP, attn_types=types, device="cuda", dtype=torch.bfloat16)
+    model = DALLE(**SERVE_MODEL, attn_types=types, device="cuda", dtype=torch.bfloat16)
     model.init_weights(torch.Generator(device="cuda").manual_seed(4))
     full = sum(t == "full" for t in model.transformer.attn_types)
     _, _, launches = serve_counted(model, "serve sparse int8", 4, 256,
@@ -1913,11 +1923,12 @@ def check_image_tokens(label: str, tokens, b: int) -> None:
 
 
 def generate_flagship() -> dict:
-    """Generation outside the engine at the flagship (bf16, seeded random
-    weights; ``models/sampling.py``), each run counted:
+    """Generation outside the engine at the flagship's width and the serve
+    phases' depth (``SERVE_MODEL``; bf16, seeded random weights;
+    ``models/sampling.py``), each run counted, L below its depth:
     (a) batch 1 (the policy's "4d" cache), ``fused_decode=True``,
         ``window_seg=0``: ``generate_image_tokens`` of one seeded caption,
-        1024 tokens in range, the decode kernel launched exactly 12 x 1023
+        1024 tokens in range, the decode kernel launched exactly L x 1023
         times (the 257-position prompt is one prefill block, then 1023
         decode steps) and no other kernel;
     (b) the same caption with ``fused_decode=False`` and the default
@@ -1929,14 +1940,14 @@ def generate_flagship() -> dict:
     (c) batch 8 (the policy's "flat" cache), ``fused_decode=True``,
         ``window_seg=0``: ``generate_images`` with the serve phase's VAE
         and CLIP, 8 finite (256, 256, 3) images and 8 finite scores, the
-        decode kernel launched 12 x 1023 times and CLIP's text encoder the
+        decode kernel launched L x 1023 times and CLIP's text encoder the
         packed-qkv kernel once a layer;
     (d) batch 4 (the policy's "paged" cache), default arguments: the ragged
-        kernel launched 12 x 1024 times (the prompt block, then every
+        kernel launched L x 1024 times (the prompt block, then every
         decode step), the decode kernel never;
     (e) batch 1 with default arguments (the "4d" cache, the default
         window, ``fused_decode=None``: the card's route), the decode kernel
-        launched exactly 12 x 1023 times, ms a token printed beside (a)'s
+        launched exactly L x 1023 times, ms a token printed beside (a)'s
         and (b)'s.
     Then torch.profiler over 20 decode steps of (a). Returns the launches
     of each run."""
@@ -1949,8 +1960,8 @@ def generate_flagship() -> dict:
 
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
     bf16 = dict(device="cuda", dtype=torch.bfloat16)
-    model = DALLE(**FLAGSHIP, **bf16).init_weights(gen(0))
-    depth, T = FLAGSHIP["depth"], model.text_len_internal
+    model = DALLE(**SERVE_MODEL, **bf16).init_weights(gen(0))
+    depth, T = SERVE_MODEL["depth"], model.text_len_internal
     steps = MAX_NEW - 1
     captions = torch.from_numpy(np.random.RandomState(13).randint(
         1, FLAGSHIP["num_text_tokens"], size=(8, FLAGSHIP["text_seq_len"]))).cuda()
@@ -2211,7 +2222,8 @@ def train_512(text):
 def profile_train(trainer, batch, steps: int = 3, label: str = "train profile") -> None:
     """Where a flagship train step's time goes: torch.profiler over a few
     steps after the counted run: wall and device-busy time per step,
-    launches per step, the largest device-time kernels."""
+    launches per step, the largest device-time kernels and the pair
+    grid's wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2220,7 +2232,8 @@ def profile_train(trainer, batch, steps: int = 3, label: str = "train profile") 
             trainer.train_step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    log_device_profile(prof.key_averages(), label, "steps", "step", steps, wall_ms, 16)
+    log_device_profile(prof.key_averages(), label, "steps", "step", steps, wall_ms, 16,
+                       watch=("::bs_",))
 
 
 def main() -> int:
@@ -2376,13 +2389,15 @@ def alternate(calls: dict, use, rounds: int, iters: int) -> dict:
     return ms
 
 
-def pair_text(this, other) -> str:
-    """Two trees' alternating times as a log phrase, with whether this
-    tree is faster in every adjacent pair of the order other, this, this,
-    other."""
-    return ("other " + ", ".join(f"{t:.4f}" for t in other) + f" (mean {np.mean(other):.4f} "
-            f"ms); this " + ", ".join(f"{t:.4f}" for t in this) + f" (mean {np.mean(this):.4f} "
-            f"ms); this / other {np.mean(this) / np.mean(other):.4f}; this faster in every pair "
+def pair_text(this, other, names=("other", "this")) -> str:
+    """Two trees' (or variants', ``names`` other first) alternating times
+    as a log phrase, with whether this one is faster in every adjacent
+    pair of the order other, this, this, other."""
+    o_name, t_name = names
+    return (f"{o_name} " + ", ".join(f"{t:.4f}" for t in other) + f" (mean "
+            f"{np.mean(other):.4f} ms); {t_name} " + ", ".join(f"{t:.4f}" for t in this)
+            + f" (mean {np.mean(this):.4f} ms); {t_name} / {o_name} "
+            f"{np.mean(this) / np.mean(other):.4f}; {t_name} faster in every pair "
             f"{all(t < o for t, o in zip(this, other))}")
 
 
@@ -2500,22 +2515,18 @@ def compare_packed_sources(other_dir: str, rounds: int = 2) -> None:
 
 
 def build_other_library(name: str, source: Path, label: str, signatures=None) -> ctypes.CDLL:
-    """``source`` (another commit's ``<name>.cu``) built alone under
-    another library name, with this checkout's csrc headers (the file is
-    copied to a directory of its own first, so that its neighbours are not
-    on the include path), and bound with ``signatures`` (default
-    ``cuda_build.SIGNATURES[name]``)."""
-    import shutil
-
+    """``source`` (another commit's ``<name>.cu``) built under another
+    library name with the headers beside it (another commit's csrc: its
+    own), or this checkout's csrc headers where it has none, and bound
+    with ``signatures`` (default ``cuda_build.SIGNATURES[name]``)."""
     from dalle_pytorch_tpu_torch.ops import cuda_build
 
     out_dir = cuda_build.BUILD_DIR / "compare" / label
     out_dir.mkdir(parents=True, exist_ok=True)
-    copy = out_dir / f"{name}.cu"
-    shutil.copyfile(source, copy)
     lib_path = out_dir / f"lib{name}-{label}.so"
+    # a quoted include looks beside the source first, then in -I
     proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
-                           "-o", str(lib_path), str(copy)],
+                           "-o", str(lib_path), str(source)],
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
@@ -2535,9 +2546,10 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
     allowed key exactly 0 with lse -1e30) and its float32 single-block
     backward on the plain forward's o and lse (each of dq, dk, dv within
     ``testing.BWD_F32_REL``, dead rows exactly 0), with max |this - other|
-    printed; every other output (the bfloat16 forward and single-block
-    backward; dq, delta, dk and dv on the plain forward's o and lse, in
-    both types) must be bitwise equal across the trees. Then the float32
+    and whether each is bitwise the other tree's printed; every other
+    output (the bfloat16 forward and single-block backward; dq, delta, dk
+    and dv on the plain forward's o and lse, in both types) must be
+    bitwise equal across the trees. Then the float32
     forward, dq and dk/dv at the 512 px training shape
     (``flash_inputs("train")``, seed 1) and the single-block backward at
     ``flash_inputs("one_block")`` timed in the order other, this, this,
@@ -2577,7 +2589,8 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
                 if not all(same):
                     raise AssertionError(f"{label}: outputs differ from the other tree's")
                 continue
-            log(f"{label}: dq, delta, dk, dv bitwise equal to the other tree's: {same[2:6]}")
+            log(f"{label}: dq, delta, dk, dv bitwise equal to the other tree's: {same[2:6]}; o, "
+                f"lse {same[:2]}, single-block dq, dk, dv {same[6:]}")
             if not all(same[2:6]):
                 raise AssertionError(f"{label}: backward outputs differ from the other tree's")
             plain = fa.reference_flash_attention_bwd(q, k, v, po, plse, do, **opts)
@@ -2631,31 +2644,53 @@ def compare_tiled_sources(other_dir: str, rounds: int = 2) -> None:
 def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
     """The pair-grid kernels of this checkout against
     ``block_sparse_attention.cu`` of ``other_dir`` (another commit's csrc,
-    built by ``build_other_library``), in one process with one timer
-    (cold L2). First, on ``testing.bs_inputs``' "axial_row", "conv_like",
-    "d64" (n 300, a ragged last block, a key mask that kills whole rows)
-    and "synthetic" cases, each kernel on the plain forward's o and lse
-    and the plain delta: the forward, dq and delta in both types and the
-    bfloat16 dk/dv must be bitwise equal across the trees; each tree's
-    float32 dk/dv is held against the plain version (each of dk, dv within
-    ``testing.BWD_F32_REL``, keys no query attends exactly 0), with max
-    |this - other| printed. Then the float32 dk/dv at the flagship
-    training shape with the axial_row and conv_like layouts
-    (``bs_inputs``, seed 1) timed in the order other, this, this, other,
-    ``rounds`` times, with sdpa backward with the boolean mask and the
-    bounds beside; raises on a failed check."""
+    built by ``build_other_library``; a source whose forward and dq take
+    no class map and tile order is bound with its shorter signatures), in
+    one process with one timer (cold L2). First, on every
+    ``testing.bs_inputs`` case, each kernel on the plain forward's o and
+    lse and the plain delta: each tree's float32 o and lse held against the
+    plain forward (``testing.BS_F32_ATOL``, rows with no allowed key
+    exactly 0 with lse -1e30), its dq against the plain dq
+    (``testing.BWD_F32_REL``, dead rows exactly 0) and its delta against
+    the plain delta (within 1e-4 of its largest entry), with max |this -
+    other| printed; the float32 dk/dv and every bfloat16 output must be
+    bitwise equal across the trees. Then at the flagship training shape
+    with the axial_row and conv_like layouts (``bs_inputs``, seed 1): the
+    float32 forward, dq and dk/dv timed in the order other, this, this,
+    other, ``rounds`` times, with sdpa forward / backward with the boolean
+    mask and the bounds beside; and this tree's forward and dq with the
+    layout's tile order (longest row first) against launch order,
+    alternated the same way. Raises on a failed check."""
+    import types
+
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
     from dalle_pytorch_tpu_torch.ops import cuda_build
-    from dalle_pytorch_tpu_torch.testing import BWD_F32_REL, bs_bwd_errors, bs_inputs
+    from dalle_pytorch_tpu_torch.testing import (
+        BS_F32_ATOL, BWD_F32_REL, bs_bwd_errors, bs_fwd_errors, bs_inputs)
 
     name = "block_sparse_attention"
-    libs = {"this": cuda_build.load_library(name),
-            "other": build_other_library(name, Path(other_dir) / f"{name}.cu", "sparse_other")}
+    source = Path(other_dir) / f"{name}.cu"
+    signatures = dict(cuda_build.SIGNATURES[name])
+    # where the forward's and dq's class map and tile order sit in the
+    # pointers the wrappers pass
+    cut = {"block_sparse_attention_fwd": 7, "block_sparse_attention_dq": 10}
+    takes_map = "const void* halves" in source.read_text()
+    if not takes_map:
+        for fn, at in cut.items():
+            argtypes, restype = signatures[fn]
+            signatures[fn] = (argtypes[:at] + argtypes[at + 2:], restype)
+    other = build_other_library(name, source, "sparse_other", signatures)
+    if not takes_map:
+        other = types.SimpleNamespace(
+            block_sparse_attention_dkdv=other.block_sparse_attention_dkdv,
+            **{fn: (lambda f, at: lambda *args: f(*args[:at], *args[at + 2:]))(
+                getattr(other, fn), at) for fn, at in cut.items()})
+    libs = {"this": cuda_build.load_library(name), "other": other}
 
     def use(src: str) -> None:  # the wrappers load their library through this cache
         cuda_build._LOADED[name] = libs[src]
 
-    for case in ("axial_row", "conv_like", "d64", "synthetic"):
+    for case in ("axial_row", "conv_like", "d32", "d64", "d128", "synthetic"):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, layout, km = bs_inputs(case, dtype, "cuda")
             po, plse = bs.reference_block_sparse(q, k, v, layout, km)
@@ -2671,43 +2706,70 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
             pairs = list(zip(outs["this"], outs["other"]))
             same = [torch.equal(a, b) for a, b in pairs]
             label = f"compare sparse {case} {dtype}"
-            kept = same if dtype == torch.bfloat16 else same[:4]
-            log(f"{label}: o, lse, dq, delta" + (", dk, dv" if dtype == torch.bfloat16 else "")
-                + f" bitwise equal to the other tree's: {kept}")
-            if not all(kept):
-                raise AssertionError(f"{label}: outputs differ from the other tree's")
             if dtype == torch.bfloat16:
+                log(f"{label}: o, lse, dq, delta, dk, dv bitwise equal to the other tree's: {same}")
+                if not all(same):
+                    raise AssertionError(f"{label}: outputs differ from the other tree's")
                 continue
+            log(f"{label}: dk, dv bitwise equal to the other tree's: {same[4:]}")
+            if not all(same[4:]):
+                raise AssertionError(f"{label}: dk/dv differ from the other tree's")
             pdk, pdv = bs.reference_block_sparse_dkdv(q, k, v, do, plse, pdelta, layout, km)
             ok = True
-            for src, (*_, dk, dv) in outs.items():
-                rel, _, zeros_exact = bs_bwd_errors((pdq, dk, dv), (pdq, pdk, pdv), layout, km)
-                ok &= rel <= BWD_F32_REL and zeros_exact
-                log(f"{label}, {src}: dk/dv relative L2 {rel:.3e} (tolerance "
-                    f"{BWD_F32_REL:.0e}), dead rows exactly 0 {zeros_exact}")
-            log(f"{label}: max |this - other| dk {(pairs[4][0] - pairs[4][1]).abs().max():.3e}, "
-                f"dv {(pairs[5][0] - pairs[5][1]).abs().max():.3e}")
+            for src, (o, lse, dq, delta, *_) in outs.items():
+                err, _, _, dead_exact = bs_fwd_errors(o, lse, po, plse, layout, km)
+                rel, _, zeros_exact = bs_bwd_errors((dq, pdk, pdv), (pdq, pdk, pdv), layout, km)
+                delta_err = (delta - pdelta).abs().max().item()
+                delta_ok = delta_err <= 1e-4 * pdelta.abs().max().item()
+                ok &= (err <= BS_F32_ATOL and dead_exact and rel <= BWD_F32_REL and zeros_exact
+                       and delta_ok)
+                log(f"{label}, {src}: forward max abs (o, lse) {err:.3e} (tolerance "
+                    f"{BS_F32_ATOL:.0e}), dead rows exactly 0 {dead_exact}; dq relative L2 "
+                    f"{rel:.3e} (tolerance {BWD_F32_REL:.0e}), dead rows exactly 0 "
+                    f"{zeros_exact}; delta max abs {delta_err:.3e} (within 1e-4 of its largest "
+                    f"{delta_ok})")
+            diff = [(a - b).abs().max().item() for a, b in pairs[:4]]
+            log(f"{label}: max |this - other| o {diff[0]:.3e}, lse {diff[1]:.3e}, dq "
+                f"{diff[2]:.3e}, delta {diff[3]:.3e}")
             if not ok:
-                raise AssertionError(f"{label}: a tree's dk/dv misses the plain version")
+                raise AssertionError(f"{label}: a tree's forward or dq misses the plain version")
             del outs, pairs
 
     for case in ("axial_row", "conv_like"):
         q, k, v, do, layout, _ = bs_inputs(case, torch.float32, "cuda", seed=1)
         o, lse = bs.block_sparse_attention(q, k, v, layout)
         _, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout)
-        calls = {"block_sparse_dkdv": lambda: bs.block_sparse_dkdv(q, k, v, do, lse, delta,
+        calls = {"block_sparse_attention": lambda: bs.block_sparse_attention(q, k, v, layout),
+                 "block_sparse_dq": lambda: bs.block_sparse_dq(q, k, v, o, lse, do, layout),
+                 "block_sparse_dkdv": lambda: bs.block_sparse_dkdv(q, k, v, do, lse, delta,
                                                                    layout)}
         ms = alternate(calls, use, rounds, iters=20)
+        allowed = bs.may_attend(layout, layout.n, q.device)
+        sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=allowed), iters=20)
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        out = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, attn_mask=bs.may_attend(layout, layout.n, q.device))
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=allowed)
         sdpa_bwd_ms = cuda_time_ms(
             lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=20)
-        log(f"compare block_sparse_dkdv float32 {case} (b 4, 16 x 64, n 1280, "
-            f"{layout.n_pairs} block pairs), cold L2: "
-            f"{pair_text(ms['block_sparse_dkdv', 'this'], ms['block_sparse_dkdv', 'other'])}; "
-            f"sdpa backward with the mask {sdpa_bwd_ms:.4f} ms; "
-            f"{bound_text(bs_bounds(q, layout, None)['block_sparse_dkdv'])}")
+        bounds = bs_bounds(q, layout, None)
+        shape = f"b 4, 16 x 64, n 1280, {layout.n_pairs} block pairs"
+        for key in calls:
+            sdpa = (f"sdpa forward with the mask {sdpa_ms:.4f}" if key == "block_sparse_attention"
+                    else f"sdpa backward with the mask {sdpa_bwd_ms:.4f}")
+            log(f"compare {key} float32 {case} ({shape}), cold L2: "
+                f"{pair_text(ms[key, 'this'], ms[key, 'other'])}; {sdpa} ms; "
+                f"{bound_text(bounds[key])}")
+        dl = bs.device_layout(layout, q.device)
+
+        def order(src: str) -> None:  # "this": the tile order, "other": launch order
+            layout._on_device[q.device] = dl if src == "this" else dl._replace(order=None)
+
+        rows = {key: calls[key] for key in ("block_sparse_attention", "block_sparse_dq")}
+        ms = alternate(rows, order, rounds, iters=20)
+        for key in rows:
+            log(f"compare {key} float32 {case} ({shape}), longest row first against launch "
+                f"order, cold L2: "
+                f"{pair_text(ms[key, 'this'], ms[key, 'other'], ('launch order', 'longest first'))}")
 
 
 def compare_decode_sources(other_dir: str, rounds: int = 2) -> None:

@@ -13,7 +13,11 @@
 // whose rows are q block, k block, class (0 synthetic, 1 partial,
 // 2 dense), first, last, and the (blocks + 1) offsets of each block's
 // contiguous run in it (q-major for the forward and dq, k-major for
-// dk/dv). Optional (b, n) uint8 key mask. Scores q.k^T accumulate in
+// dk/dv); for the float32 forward and dq also the int8 (n_pad / 64,
+// n_pad / 32) per-half class map of ops/block_sparse_attention.py:
+// half_classes (0 pass over, 1 the mask decides, 2 dense) and an int32
+// order of the 64-row query tiles (longest row first; NULL: in order).
+// Optional (b, n) uint8 key mask. Scores q.k^T accumulate in
 // float32 and are scaled afterwards; a class 2 pair skips the mask, a
 // class 1 pair applies it, a class 0 pair masks everything, and the key
 // mask applies on top. Disallowed scores are NEG_INF = -1e30 and
@@ -43,19 +47,29 @@
 // atomics: the dk/dv pass owns its key rows and walks the k-major table,
 // so two runs give bit-identical gradients.
 //
-// Two designs. The forward, dq and the bfloat16 dk/dv run float32 FMAs
-// on the CUDA cores from shared memory: one block of 256 threads per
-// (64-row half of a 128-block, b*h), the forward and dq walking the q
-// block's run, dk/dv the k block's, in 64 x 64 sub-tiles of
-// attention_tiles.cuh, shared with flash_attention.cu. The float32 dk/dv
-// (bs_dkdv_tf32_kernel) is the key-major split-3xTF32 sweep of
-// tf32_sweeps.cuh that the tiled flash dk/dv runs: blocks of 4 warps, the
-// 64-key half of a 128-key block resident (K and V), the 32-row query
-// halves of its k-major pair run streamed through a 2-stage cp.async ring
-// (rows past n zero-filled, nothing read), each class 1 half's (32, 64)
-// tile of the int8 mask loaded and tested before its half is issued, dV
-// += P^T.dO and dK += dS^T.Q folded per half (tf32::fold_product); grid
-// (b*h, n_pad / 64).
+// Two designs. The bfloat16 instances run float32 FMAs on the CUDA cores
+// from shared memory: one block of 256 threads per (64-row half of a
+// 128-block, b*h), the forward and dq walking the q block's run, dk/dv
+// the k block's, in 64 x 64 sub-tiles of attention_tiles.cuh, shared
+// with flash_attention.cu. The float32 instances run every product as
+// split 3xTF32 mma.sync on the tensor cores, in the sweeps of
+// tf32_sweeps.cuh that the tiled flash kernels run: blocks of 4 warps,
+// grid (b*h, n_pad / 64).
+//  - forward and dq (bs_fwd_tf32_kernel, bs_dq_tf32_kernel): a 64-row
+//    query tile resident (Q, and dO for dq), the 32-key halves of its row
+//    of the class map streamed through a 2-stage cp.async ring (keys past
+//    n zero-filled, nothing read), a class 1 half's (64, 32) tile of the
+//    int8 mask fetched by cp.async with it; empty halves are passed over
+//    by a warp ballot on the map, with no load and no barrier. The
+//    forward's online softmax runs on the score accumulators, O = O *
+//    corr + P.V and dQ += dS.K fold a fresh partial per half
+//    (tf32::fold_product), since the tensor cores truncate as they
+//    accumulate; query tiles start longest row first.
+//  - dk/dv (bs_dkdv_tf32_kernel): the 64-key half of a 128-key block
+//    resident (K and V), the 32-row query halves of its k-major pair run
+//    streamed, each class 1 half's (32, 64) tile of the int8 mask loaded
+//    and tested before its half is issued, dV += P^T.dO and dK += dS^T.Q
+//    folded per half.
 
 #include <type_traits>
 
@@ -282,6 +296,57 @@ __global__ void __launch_bounds__(THREADS) bs_dkdv_kernel(
   store_rows<T, D>(dv_acc, dv + head, k0, n);
 }
 
+// The query tile of launch row y: order[y], or y without an order
+__device__ __forceinline__ int tile_of(const int* __restrict__ order, int y) {
+  return order == nullptr ? y : order[y];
+}
+
+// o and lse in float32 of query tile tile_of(order, blockIdx.y) of head
+// blockIdx.x: tf32::fwd_sweep over its row of the class map
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1) bs_fwd_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ kmask, const int8_t* __restrict__ mask,
+    const int8_t* __restrict__ halves, const int* __restrict__ order, float* __restrict__ out,
+    float* __restrict__ lse, int heads, int n, int n_pad, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bh = blockIdx.x, qt = tile_of(order, blockIdx.y), q0 = qt * TILE;
+  if (q0 >= n) return;  // padding rows only
+  const int64_t head = (int64_t)bh * n * D;
+  tf32::Head a{};
+  a.q = q + head, a.k = k + head, a.v = v + head;
+  a.km = kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n;
+  a.out = out + head, a.lse_out = lse + (int64_t)bh * n;
+  a.n = n, a.scale = scale;
+  const tf32::HalfRow walk{halves + (int64_t)qt * (n_pad / tf32::SROWS), mask, n, n_pad, q0};
+  tf32::fwd_sweep<D>(a, walk, smem_raw);
+}
+
+// dq in float32 of query tile tile_of(order, blockIdx.y) of head
+// blockIdx.x: tf32::dq_sweep over its row of the class map; delta from do
+// and o, written for the dk/dv pass
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1) bs_dq_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ dout,
+    const float* __restrict__ lse, const uint8_t* __restrict__ kmask,
+    const int8_t* __restrict__ mask, const int8_t* __restrict__ halves,
+    const int* __restrict__ order, float* __restrict__ dq, float* __restrict__ delta,
+    int heads, int n, int n_pad, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bh = blockIdx.x, qt = tile_of(order, blockIdx.y), q0 = qt * TILE;
+  if (q0 >= n) return;  // padding rows only
+  const int64_t head = (int64_t)bh * n * D, rows = (int64_t)bh * n;
+  tf32::Head a{};
+  a.q = q + head, a.k = k + head, a.v = v + head, a.o = o + head, a.dout = dout + head;
+  a.lse = lse + rows;
+  a.km = kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n;
+  a.dq = dq + head, a.delta_out = delta + rows;
+  a.n = n, a.scale = scale;
+  const tf32::HalfRow walk{halves + (int64_t)qt * (n_pad / tf32::SROWS), mask, n, n_pad, q0};
+  tf32::dq_sweep<D>(a, walk, smem_raw);
+}
+
 // dk and dv in float32 of the 64-key half blockIdx.y of a 128-key block
 // of head blockIdx.x: tf32::dkdv_sweep over the block's k-major pair run,
 // each q block's 32-row halves below n whose mask tile is not empty, on
@@ -322,40 +387,72 @@ dim3 grid_of(int batch, int heads, int n_pad) {
   return dim3(n_pad / TILE, batch * heads);
 }
 
+// The float32 instances' grid: (b*h, n_pad / TILE), as the tiled kernels'
+dim3 tf32_grid_of(int batch, int heads, int n_pad) {
+  static_assert(TILE == tf32::ROWS && BLOCK == tf32::PairRun::BLOCK, "the sweeps' tiles");
+  return dim3(batch * heads, n_pad / TILE);
+}
+
+// float32: the split-3xTF32 kernel on the class map (the table and
+// offsets are the bf16 instance's); -1 without a class map or for an
+// operand not 16-byte aligned
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, const void* kmask,
-        const void* mask, const void* table, const void* offsets, void* out,
-        void* lse, int batch, int heads, int n, int n_pad, int n_pairs,
-        float scale, cudaStream_t stream) {
-  constexpr int smem = fwd_smem_bytes<D>();
-  int err = allow_smem(bs_fwd_kernel<T, D>, smem);
-  if (err != 0) return err;
-  bs_fwd_kernel<T, D><<<grid_of(batch, heads, n_pad), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kmask,
-      (const int8_t*)mask, (const int*)table, (const int*)offsets, (T*)out,
-      (float*)lse, heads, n, n_pad, n_pairs, scale);
+        const void* mask, const void* table, const void* offsets, const void* halves,
+        const void* order, void* out, void* lse, int batch, int heads, int n, int n_pad,
+        int n_pairs, float scale, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (halves == nullptr || !tc::aligned16({q, k, v, mask, out})) return -1;
+    constexpr int smem = tf32::fwd_sweep_smem_bytes(D, true);
+    int err = allow_smem(bs_fwd_tf32_kernel<D>, smem);
+    if (err != 0) return err;
+    bs_fwd_tf32_kernel<D><<<tf32_grid_of(batch, heads, n_pad), tc::THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const uint8_t*)kmask,
+        (const int8_t*)mask, (const int8_t*)halves, (const int*)order, (float*)out,
+        (float*)lse, heads, n, n_pad, scale);
+  } else {
+    constexpr int smem = fwd_smem_bytes<D>();
+    int err = allow_smem(bs_fwd_kernel<T, D>, smem);
+    if (err != 0) return err;
+    bs_fwd_kernel<T, D><<<grid_of(batch, heads, n_pad), THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kmask,
+        (const int8_t*)mask, (const int*)table, (const int*)offsets, (T*)out,
+        (float*)lse, heads, n, n_pad, n_pairs, scale);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* o,
        const void* dout, const void* lse, const void* kmask, const void* mask,
-       const void* table, const void* offsets, void* dq_out, void* delta,
-       int batch, int heads, int n, int n_pad, int n_pairs, float scale,
-       cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<D>();
-  int err = allow_smem(bs_dq_kernel<T, D>, smem);
-  if (err != 0) return err;
-  bs_dq_kernel<T, D><<<grid_of(batch, heads, n_pad), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-      (const float*)lse, (const uint8_t*)kmask, (const int8_t*)mask,
-      (const int*)table, (const int*)offsets, (T*)dq_out, (float*)delta,
-      heads, n, n_pad, n_pairs, scale);
+       const void* table, const void* offsets, const void* halves, const void* order,
+       void* dq_out, void* delta, int batch, int heads, int n, int n_pad, int n_pairs,
+       float scale, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (halves == nullptr || !tc::aligned16({q, k, v, o, dout, mask, dq_out})) return -1;
+    constexpr int smem = tf32::dq_sweep_smem_bytes(D, true);
+    int err = allow_smem(bs_dq_tf32_kernel<D>, smem);
+    if (err != 0) return err;
+    bs_dq_tf32_kernel<D><<<tf32_grid_of(batch, heads, n_pad), tc::THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+        (const float*)dout, (const float*)lse, (const uint8_t*)kmask, (const int8_t*)mask,
+        (const int8_t*)halves, (const int*)order, (float*)dq_out, (float*)delta, heads, n,
+        n_pad, scale);
+  } else {
+    constexpr int smem = dq_smem_bytes<D>();
+    int err = allow_smem(bs_dq_kernel<T, D>, smem);
+    if (err != 0) return err;
+    bs_dq_kernel<T, D><<<grid_of(batch, heads, n_pad), THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
+        (const float*)lse, (const uint8_t*)kmask, (const int8_t*)mask,
+        (const int*)table, (const int*)offsets, (T*)dq_out, (float*)delta,
+        heads, n, n_pad, n_pairs, scale);
+  }
   return (int)cudaGetLastError();
 }
 
-// float32: the split-3xTF32 kernel, grid (b*h, n_pad / TILE) as the
-// tiled kernels'; -1 for an operand not 16-byte aligned
+// float32: the split-3xTF32 kernel; -1 for an operand not 16-byte
+// aligned
 template <typename T, int D>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, const void* kmask, const void* mask,
@@ -363,12 +460,11 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
          int heads, int n, int n_pad, int n_pairs, float scale,
          cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
-    static_assert(TILE == tf32::ROWS && BLOCK == tf32::PairRun::BLOCK, "the sweep's tiles");
     if (!tc::aligned16({q, k, v, dout, mask, dk, dv})) return -1;
     constexpr int smem = tf32::dkdv_sweep_smem_bytes(D, true, false);
     int err = allow_smem(bs_dkdv_tf32_kernel<D>, smem);
     if (err != 0) return err;
-    bs_dkdv_tf32_kernel<D><<<dim3(batch * heads, n_pad / TILE), tc::THREADS, smem, stream>>>(
+    bs_dkdv_tf32_kernel<D><<<tf32_grid_of(batch, heads, n_pad), tc::THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
         (const float*)lse, (const float*)delta, (const uint8_t*)kmask, (const int8_t*)mask,
         (const int*)table, (const int*)offsets, (float*)dk, (float*)dv, heads, n, n_pad,
@@ -404,19 +500,22 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 // (b, h, n, dim_head) of one type; lse and delta (b, h, n) float32; kmask
 // (b, n) uint8 or NULL; mask (n_pad, n_pad) int8; table (5, n_pairs) and
 // offsets int32 (q-major with nq + 1 offsets for fwd and dq, k-major with
-// nk + 1 for dkdv). One launch on `stream`. Returns cudaGetLastError()
-// after it (0 on success), or -1 for what the kernels cannot take: a
-// dim_head other than 32/64/128, a dtype code other than 0/1, a block
-// other than 128, an empty shape, more (batch, head) pairs than a grid
-// dimension holds, or (float32 dk/dv) an operand not 16-byte aligned.
+// nk + 1 for dkdv); for fwd and dq the (n_pad / 64, n_pad / 32) int8
+// class map `halves` (read by the float32 instances) and the (n_pad / 64)
+// int32 tile order or NULL. One launch on `stream`. Returns
+// cudaGetLastError() after it (0 on success), or -1 for what the kernels
+// cannot take: a dim_head other than 32/64/128, a dtype code other than
+// 0/1, a block other than 128, an empty shape, more (batch, head) pairs
+// than a grid dimension holds, or (float32) an operand not 16-byte
+// aligned or no class map.
 extern "C" int block_sparse_attention_fwd(
     const void* q, const void* k, const void* v, const void* kmask,
-    const void* mask, const void* table, const void* offsets, void* out,
-    void* lse, int batch, int heads, int n, int n_pad, int dim_head,
-    int block, int n_pairs, float scale, int dtype, void* stream) {
+    const void* mask, const void* table, const void* offsets, const void* halves,
+    const void* order, void* out, void* lse, int batch, int heads, int n, int n_pad,
+    int dim_head, int block, int n_pairs, float scale, int dtype, void* stream) {
   if (refused(batch, heads, n, n_pad, block, n_pairs)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  BS_DISPATCH(fwd, q, k, v, kmask, mask, table, offsets, out, lse, batch,
+  BS_DISPATCH(fwd, q, k, v, kmask, mask, table, offsets, halves, order, out, lse, batch,
               heads, n, n_pad, n_pairs, scale, s)
 }
 
@@ -425,13 +524,13 @@ extern "C" int block_sparse_attention_fwd(
 extern "C" int block_sparse_attention_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* kmask, const void* mask,
-    const void* table, const void* offsets, void* dq_out, void* delta,
-    int batch, int heads, int n, int n_pad, int dim_head, int block,
-    int n_pairs, float scale, int dtype, void* stream) {
+    const void* table, const void* offsets, const void* halves, const void* order,
+    void* dq_out, void* delta, int batch, int heads, int n, int n_pad, int dim_head,
+    int block, int n_pairs, float scale, int dtype, void* stream) {
   if (refused(batch, heads, n, n_pad, block, n_pairs)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  BS_DISPATCH(dq, q, k, v, o, dout, lse, kmask, mask, table, offsets, dq_out,
-              delta, batch, heads, n, n_pad, n_pairs, scale, s)
+  BS_DISPATCH(dq, q, k, v, o, dout, lse, kmask, mask, table, offsets, halves, order,
+              dq_out, delta, batch, heads, n, n_pad, n_pairs, scale, s)
 }
 
 extern "C" int block_sparse_attention_dkdv(

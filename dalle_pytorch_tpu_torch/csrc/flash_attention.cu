@@ -66,9 +66,9 @@
 // K.Q^T, dP^T = V.dO^T) so that P^T and dS^T feed dV += P^T.dO and dK +=
 // dS^T.Q from registers; the sums over keys (o, dq) and queries (dk/dv)
 // fold a fresh partial per streamed tile in with rounded FMAs, since the
-// tensor cores truncate as they accumulate (tf32::fold_product). The dq
-// and dk/dv bodies are csrc/tf32_sweeps.cuh's, which the pair grid's dk/dv
-// shares; the single-block backward runs both in one launch, its key
+// tensor cores truncate as they accumulate (tf32::fold_product). The
+// forward, dq and dk/dv bodies are csrc/tf32_sweeps.cuh's, which the pair
+// grid's float32 kernels share; the single-block backward runs both in one launch, its key
 // blocks deriving each streamed half's delta from O and dO rows streamed
 // with it, so its gradients are the dq + dk/dv chain's bit for bit.
 
@@ -323,188 +323,13 @@ enum class Pass { kFwd, kDq, kDkdv, kFused };
 // fragments of the resident tile come by ldmatrix and are split in
 // registers, the streamed tiles are split in shared memory once (big in
 // place, small beside), p = tc::exp_diff(s, m * log2(e)) forward and
-// exp_diff(s, lse * log2(e)) backward. The dq and dk/dv bodies are the
-// sweeps of tf32_sweeps.cuh, shared with the pair grid's dk/dv. At d 64 a
+// exp_diff(s, lse * log2(e)) backward. The forward, dq and dk/dv bodies
+// are the sweeps of tf32_sweeps.cuh, shared with the pair grid. At d 64 a
 // forward block holds 70-74 KB of shared memory (three fit an H100 SM's
 // 228 KB), a dq or dk/dv block 87-91 KB and a single-block backward block
 // 105-109 KB (two fit).
 
 static_assert(TILE == tf32::ROWS, "the visit map's tile is the resident tile");
-
-constexpr int fwd_tf32_smem_bytes(int d, bool pattern) {
-  // Q, two stages of K and V, the small parts of one K and V tile, two
-  // stages of key bits (16 bytes), two of the (64, 32) pattern tile
-  return 4 * (tf32::ROWS * (d + 4) + 6 * tf32::SROWS * (d + 4)) + 16 +
-         (pattern ? 2 * tf32::ROWS * tf32::SROWS : 0);
-}
-
-// o and lse of query tile nt - 1 - blockIdx.y (longest causal rows
-// first) of head blockIdx.x: the online softmax over its visited key
-// halves, S = Q.K^T and O = O * corr + P.V on the tensor cores. The
-// thread's rows are r0 = q0 + 16w + g and r0 + 8; m, l and o live in
-// registers, l as the thread's part of the row sum (its quad's columns),
-// reduced over the quad at the end. At d <= 64 three blocks share an SM
-// (registers capped for it, no spills), which timed faster than two.
-template <int D>
-__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
-    flash_fwd_tf32_kernel(const Operands<float> a) {
-  using tf32::ROWS;
-  using tf32::SROWS;
-  constexpr int TF = tf32::tile_floats<D>(), TS = tf32::tile_floats<D, SROWS>();
-  constexpr int DS = tf32::stride<D>();
-  constexpr int PM = ROWS * SROWS;  // bytes of a pattern tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // (64, D + 4)
-  float* ks = qs + TF;                             // 2 stages of (32, D + 4)
-  float* vs = ks + 2 * TS;                         // 2 stages of (32, D + 4)
-  float* k_lo = vs + 2 * TS;                       // the small parts of the current K tile
-  float* v_lo = k_lo + TS;                         // ... and of its V tile
-  uint32_t* kbits = reinterpret_cast<uint32_t*>(v_lo + TS);  // 2 stages of 1 word (+ 2)
-  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 32)
-
-  const int n = a.n, nt = n / ROWS, halves = 2 * nt, bh = blockIdx.x;
-  const int qt = nt - 1 - (int)blockIdx.y, q0 = qt * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int64_t head = (int64_t)bh * n * D;
-  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
-  const int8_t* vrow = a.visit + (int64_t)qt * nt;  // key half h: vrow[h / 2]
-  const int r0 = q0 + 16 * warp + g;
-
-  auto issue = [&](int h, int st) {
-    const int k0 = h * SROWS;
-    tf32::load_tile_async<D, SROWS>(ks + st * TS, a.k + head, D, k0, n);
-    tf32::load_tile_async<D, SROWS>(vs + st * TS, a.v + head, D, k0, n);
-    if (a.pattern != nullptr && vrow[h >> 1] == 1)
-      tc::load_mask_tile<ROWS, SROWS>(pms + st * PM, a.pattern, q0, k0, n);
-  };
-
-  float o[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  // a half of masked keys adds p = 0 and leaves m, l and o as they are:
-  // not loaded, nor is q while every half so far was such a half
-  int h = tf32::next_live_half(vrow, km, kbits, 0, 0, halves, n), st = 0;
-  if (h < halves) {
-    tf32::load_tile_async<D>(qs, a.q + head, D, q0, n);
-    issue(h, 0);
-  }
-  tc::cp_async_commit();
-  while (h < halves) {
-    // the next live half is in flight while this one computes
-    const int nxt = tf32::next_live_half(vrow, km, kbits, h + 1, st ^ 1, halves, n);
-    if (nxt < halves) issue(nxt, st ^ 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    const int k0 = h * SROWS, cls = vrow[h >> 1];
-    float* k_s = ks + st * TS;
-    float* v_s = vs + st * TS;
-    tf32::split_tiles<D, SROWS>(k_s, k_lo, v_s, v_lo, 0, n, nullptr, nullptr);
-    __syncthreads();  // the tiles are split, once for every warp
-
-    float s[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      tf32::FragA qa;
-      tf32::load_a<D>(qa, qs, 16 * warp, 8 * kk);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        tf32::FragB kb[2];
-        tf32::load_b_rows<D>(kb, k_s, k_lo, 16 * np, 8 * kk);
-        tf32::mma3(s[2 * np], qa, kb[0]);
-        tf32::mma3(s[2 * np + 1], qa, kb[1]);
-      }
-    }
-
-    // scale and mask: element e of n-block j is row r0 + 8 * (e / 2), key
-    // column 8j + 2t + e % 2 of the half
-    const uint64_t bits = tc::key_bits<SROWS>(km != nullptr, kbits + st, k0, n);
-    const bool need_mask = cls == 1 || bits != tc::all_keys<SROWS>();
-    const bool use_pattern = cls == 1 && a.pattern != nullptr;
-    const int8_t* pm_t = pms + st * PM;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = s[j][e] * a.scale;
-        if (need_mask) {
-          const int row = r0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-          bool ok = ((bits >> c) & 1) != 0;
-          if (cls == 1)
-            ok = ok && (use_pattern ? pm_t[(row - q0) * SROWS + c] != 0 : row >= k0 + c);
-          if (!ok) v = NEG_INF;
-        }
-        s[j][e] = v;
-      }
-
-    // online softmax over the quad's 32 columns of rows r0 and r0 + 8
-    float mx[2] = {NEG_INF, NEG_INF}, corr[2], m2[2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      m2[r] = m_new * tc::LOG2E;
-      l[r] *= corr[r];
-    }
-    tf32::FragA pa[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float sv = s[j][e];
-        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, m2[e >> 1]) : 0.f;
-        l[e >> 1] += p;
-        s[j][e] = p;
-      }
-      tf32::c_to_a(pa[j], s[j]);
-    }
-
-    // O = O * corr + P.V over the half's 32 keys: a fresh partial folded
-    // in by rounded FMAs (the sum runs over up to n keys)
-    tf32::fold_product<D>(o, pa, v_s, v_lo, corr);
-    __syncthreads();  // stage st is no longer read
-    h = nxt;
-    st ^= 1;
-  }
-
-  // o / l (l = 1 where l == 0: a row with no allowed key writes exactly
-  // 0, lse -1e30) into the warp's own rows of the q tile, then 16-byte
-  // stores
-  float l_safe[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l_safe[r] = l[r] == 0.f ? 1.f : l[r];
-  }
-  float* ow = qs + 16 * warp * DS;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(ow + (g + 8 * r) * DS + 8 * j + 2 * t) =
-          make_float2(o[j][2 * r] / l_safe[r], o[j][2 * r + 1] / l_safe[r]);
-  __syncwarp();
-  tf32::store_rows<D>(a.out + head, D, ow, q0 + 16 * warp, n);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + 8 * r;
-      if (row < n) a.lse_out[(int64_t)bh * n + row] = m[r] + logf(l_safe[r]);
-    }
-  }
-}
 
 // One head's operands of the entry point's (b*h, n, d) tensors
 template <int D>
@@ -519,6 +344,32 @@ __device__ __forceinline__ tf32::Head head_of(const Operands<float>& a, int bh) 
           at(a.delta_out, rows), a.n,               a.scale};
 }
 
+// The key halves of visit-map row qt
+__device__ __forceinline__ tf32::VisitRow row_of(const Operands<float>& a, int qt) {
+  return {a.visit + (int64_t)qt * (a.n / TILE), a.pattern, a.n, qt * TILE};
+}
+
+// o and lse of query tile nt - 1 - blockIdx.y (longest causal rows
+// first) of head blockIdx.x: the online softmax over its visited key
+// halves (tf32::fwd_sweep). At d <= 64 three blocks share an SM
+// (registers capped for it, no spills), which timed faster than two.
+// The head's pointers are offsets of the launch's operands, without
+// head_of's NULL tests, so that the compiler can rederive them rather
+// than hold them in registers under that cap (PERF.md, section 6).
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
+    flash_fwd_tf32_kernel(const Operands<float> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bh = blockIdx.x;
+  const int64_t head = (int64_t)bh * a.n * D;
+  tf32::Head h{};
+  h.q = a.q + head, h.k = a.k + head, h.v = a.v + head;
+  h.km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * a.n;
+  h.out = a.out + head, h.lse_out = a.lse_out + (int64_t)bh * a.n;
+  h.n = a.n, h.scale = a.scale;
+  tf32::fwd_sweep<D>(h, row_of(a, a.n / TILE - 1 - (int)blockIdx.y), smem_raw);
+}
+
 // The key halves of visit-map column kt
 __device__ __forceinline__ tf32::VisitColumn column_of(const Operands<float>& a, int kt) {
   return {a.visit + kt, a.pattern, a.n / TILE, a.n, kt * TILE};
@@ -531,8 +382,8 @@ template <int D>
 __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
     flash_dq_tf32_kernel(const Operands<float> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  tf32::dq_sweep<D>(head_of<D>(a, blockIdx.x), a.visit, a.pattern,
-                    a.n / TILE - 1 - (int)blockIdx.y, smem_raw);
+  tf32::dq_sweep<D>(head_of<D>(a, blockIdx.x), row_of(a, a.n / TILE - 1 - (int)blockIdx.y),
+                    smem_raw);
 }
 
 // dk and dv of key tile blockIdx.y (longest causal columns first) of
@@ -562,7 +413,7 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 3 : D <= 64 ? 2 : 1)
   const int nt = a.n / TILE, y = blockIdx.y;
   const tf32::Head head = head_of<D>(a, blockIdx.x);
   if ((y & 1) == 0) {
-    tf32::dq_sweep<D>(head, a.visit, a.pattern, nt - 1 - (y >> 1), smem_raw);
+    tf32::dq_sweep<D>(head, row_of(a, nt - 1 - (y >> 1)), smem_raw);
   } else {
     const int kt = y >> 1;
     tf32::dkdv_sweep<D, true>(head, column_of(a, kt), kt * TILE, smem_raw);
@@ -583,7 +434,7 @@ int launch_tf32(Pass pass, const Operands<float>& a, int batch, cudaStream_t str
   const bool pattern = a.pattern != nullptr;
   int err = 0;
   if (pass == Pass::kFwd) {
-    const int smem = fwd_tf32_smem_bytes(D, pattern);
+    const int smem = tf32::fwd_sweep_smem_bytes(D, pattern);
     if ((err = allow_smem(flash_fwd_tf32_kernel<D>, smem)) != 0) return err;
     flash_fwd_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
   } else if (pass == Pass::kDq) {

@@ -1,27 +1,46 @@
-// The float32 attention backward sweeps on split-3xTF32 tensor-core tiles
+// The float32 attention sweeps on split-3xTF32 tensor-core tiles
 // (tf32_tiles.cuh), shared by the tiled flash kernels (flash_attention.cu:
-// dq, dk/dv and the single-block backward) and the pair grid's dk/dv
-// (block_sparse_attention.cu).
+// forward, dq, dk/dv and the single-block backward) and the pair grid's
+// float32 kernels (block_sparse_attention.cu: forward, dq and dk/dv).
 //
-// dq_sweep: a block owns one 64-row query tile of one head: Q and dO
-// resident (warp w rows 16w .. 16w + 15), the key halves of its row of the
-// tiled kernels' 64-tile visit map streamed in 32-row halves through a
-// 2-stage cp.async ring; S = Q.K^T and dP = dO.V^T, then dQ += dS.K folded
-// per half (fold_product). delta = rowsum(o * do) of its rows by
-// row_delta, written to delta_out when it is not NULL.
+// The row sweeps, fwd_sweep and dq_sweep: a block owns one 64-row query
+// tile of one head, Q (and dO for dq) resident (warp w rows 16w .. 16w +
+// 15), and streams the 32-key halves of its row that `walk` visits
+// through a 2-stage cp.async ring, each half split once when it lands.
+//  - fwd_sweep: S = Q.K^T, the online softmax on the score accumulators
+//    (m, l and o in registers), O = O * corr + P.V folded per half
+//    (fold_product); o = acc / l (l = 1 where l == 0, so a row with no
+//    allowed key writes exactly 0, lse -1e30), lse = m + log(l).
+//  - dq_sweep: S = Q.K^T and dP = dO.V^T, dQ += dS.K folded per half.
+//    delta = rowsum(o * do) of its rows by row_delta, written to
+//    delta_out when it is not NULL.
+// Two row walks, each a half's class (1: the mask decides, 2: dense; a
+// key mask applies on top) and where its mask tile comes from:
+//  - VisitRow: a row of the tiled kernels' 64-tile visit map (half h of
+//    the class of its 64-tile); a class 1 half applies its (64, 32) tile
+//    of the (n, n) pattern, fetched by cp.async with the half, or the
+//    causal rule without a pattern.
+//  - HalfRow: a row of the pair grid's per-half class map (0: passed
+//    over, ops/block_sparse_attention.py:half_classes); a class 1 half's
+//    (64, 32) tile of the (n_pad, n_pad) int8 mask is fetched by cp.async
+//    with the half, so an empty half costs neither a load nor a barrier.
+// Either walk passes over a half whose keys the key mask drops entirely
+// (tested a half, a barrier). Rows at or past n (a ragged last tile of
+// the pair grid) load as 0, their lse and delta are 0, and they are never
+// written; keys past n drop out by tc::key_bits.
 //
 // dkdv_sweep: a block owns one 64-key tile of one head, K and V resident,
 // and walks the 32-row query halves that may attend it, key-major: S^T =
 // K.Q^T and dP^T = V.dO^T, so that P^T and dS^T feed dV += P^T.dO and
 // dK += dS^T.Q from registers, folded per half. Two policies:
-//  - the walk: which query halves, in what order, each half's class (1:
-//    the mask decides, 2: dense; a key mask applies on top) and where its
-//    mask tile comes from. VisitColumn: a column of the tiled kernels'
-//    visit map, the pattern tile fetched by cp.async with the half.
-//    PairRun: a k-major run of the pair grid's 128-block pairs, each q
-//    block's four halves below n; class 0 pairs and halves whose (32, 64)
-//    tile of the int8 mask is empty are passed over (they would add p = 0),
-//    so the mask tile is loaded and tested before the half is issued.
+//  - the walk: which query halves, in what order, each half's class and
+//    where its mask tile comes from. VisitColumn: a column of the tiled
+//    kernels' visit map, the pattern tile fetched by cp.async with the
+//    half. PairRun: a k-major run of the pair grid's 128-block pairs,
+//    each q block's four halves below n; class 0 pairs and halves whose
+//    (32, 64) tile of the int8 mask is empty are passed over (they would
+//    add p = 0), so the mask tile is loaded and tested before the half is
+//    issued.
 //  - the delta source (DELTA_FROM_O): read with lse from delta_in (the dq
 //    pass's), or derived per half from O rows streamed with Q and dO (a
 //    half ahead, in the same ring, so the load hides behind the previous
@@ -39,8 +58,9 @@
 namespace tf32 {
 
 // One head's operands: rows of D floats (row r at r * D) of q, k, v, o,
-// do and the gradients, lse and delta of the head's n rows, and the batch
-// row's (n) key mask; a pointer that a sweep does not take may be NULL
+// do, the outputs and the gradients, lse and delta of the head's n rows,
+// and the batch row's (n) key mask; a pointer that a sweep does not take
+// may be NULL
 struct Head {
   const float *q, *k, *v, *o, *dout;
   const float *lse, *delta_in;
@@ -48,35 +68,77 @@ struct Head {
   float *dq, *dk, *dv, *delta_out;
   int n;
   float scale;
+  float *out, *lse_out;  // the forward's
 };
 
-// The first half tile h in [from, end) whose 64-tile is visited (class
-// v[(h / 2) * step] not 0), or end: 32 candidates a warp at a time, the
-// same answer on every warp
+// The first half tile h in [from, end) that is visited (class v[(h >>
+// SHIFT) * step] not 0: SHIFT 1 for a 64-tile map, 0 for a per-half map),
+// or end: 32 candidates a warp at a time, the same answer on every warp
+template <int SHIFT = 1>
 __device__ __forceinline__ int first_visited(const int8_t* __restrict__ v, int64_t step,
                                              int from, int end) {
   const int lane = threadIdx.x % 32;
   for (; from < end; from += 32) {
     const int h = from + lane;
-    const unsigned live = __ballot_sync(0xffffffffu, h < end && v[(h >> 1) * step] != 0);
+    const unsigned live = __ballot_sync(0xffffffffu, h < end && v[(h >> SHIFT) * step] != 0);
     if (live != 0) return from + __ffs(live) - 1;
   }
   return end;
 }
 
-// The first visited key half at or after h of the query tile whose
-// visit-map row is vrow, with a key the key mask keeps (its bits into
-// kbits[st]), or `halves`; a barrier with a key mask
-__device__ __forceinline__ int next_live_half(const int8_t* __restrict__ vrow,
+// The first visited key half at or after h of a row map (`halves` of
+// them, SHIFT as first_visited's) with a key the key mask keeps (its bits
+// into kbits), or `halves`; a barrier with a key mask
+template <int SHIFT>
+__device__ __forceinline__ int next_live_half(const int8_t* __restrict__ row,
                                               const uint8_t* __restrict__ km, uint32_t* kbits,
-                                              int h, int st, int halves, int n) {
+                                              int h, int halves, int n) {
   for (;; ++h) {
-    h = first_visited(vrow, 1, h, halves);
-    if (h >= halves || km == nullptr ||
-        tc::tile_keys<SROWS>(km, h * SROWS, n, kbits + st))
+    h = first_visited<SHIFT>(row, 1, h, halves);
+    if (h >= halves || km == nullptr || tc::tile_keys<SROWS>(km, h * SROWS, n, kbits))
       return h;
   }
 }
+
+// The key halves of row vrow of the tiled kernels' (n / 64, n / 64) visit
+// map, query tile q0: half h is keys 32h .., of the class of its 64-tile
+struct VisitRow {
+  const int8_t* vrow;
+  const int8_t* pattern;  // (n, n) or NULL
+  int n, q0;
+
+  __device__ int halves() const { return 2 * (n / ROWS); }
+  __device__ int next(int h, const uint8_t* km, uint32_t* kbits) const {
+    return next_live_half<1>(vrow, km, kbits, h, halves(), n);
+  }
+  __device__ bool live(int h) const { return h < halves(); }
+  __device__ int cls(int h) const { return vrow[h >> 1]; }
+  __device__ bool use_pattern(int cls) const { return cls == 1 && pattern != nullptr; }
+  __device__ void fetch_mask(int h, int8_t* pm) const {
+    if (pattern != nullptr && cls(h) == 1)
+      tc::load_mask_tile<ROWS, SROWS>(pm, pattern, q0, h * SROWS, n);
+  }
+};
+
+// The key halves of row hrow of the pair grid's (n_pad / 64, n_pad / 32)
+// class map, query tile q0: half h is keys 32h .. of class hrow[h]; a
+// class 1 half's (64, 32) tile of the (n_pad, n_pad) mask is fetched by
+// cp.async with the half (rows n_pad bytes apart)
+struct HalfRow {
+  const int8_t* hrow;
+  const int8_t* mask;
+  int n, n_pad, q0;
+
+  __device__ int next(int h, const uint8_t* km, uint32_t* kbits) const {
+    return next_live_half<0>(hrow, km, kbits, h, n_pad / SROWS, n);
+  }
+  __device__ bool live(int h) const { return h < n_pad / SROWS; }
+  __device__ int cls(int h) const { return hrow[h]; }
+  __device__ bool use_pattern(int cls) const { return cls == 1; }
+  __device__ void fetch_mask(int h, int8_t* pm) const {
+    if (cls(h) == 1) tc::load_mask_tile<ROWS, SROWS>(pm, mask, q0, h * SROWS, n_pad);
+  }
+};
 
 // rowsum(o * do) of one row of D channels in float32, as a warp sums it:
 // lane l's partial over channels l, l + 32, .. by rounded FMAs, then a
@@ -94,6 +156,12 @@ __device__ __forceinline__ float row_delta(const float* o, const float* dout) {
 }
 
 // Bytes of dynamic shared memory of each sweep at dim_head d
+constexpr int fwd_sweep_smem_bytes(int d, bool pattern) {
+  // Q, two stages of K and V, the small parts of one K and V tile, two
+  // stages of key bits (16 bytes), two of the (64, 32) pattern tile
+  return 4 * (ROWS * (d + 4) + 6 * SROWS * (d + 4)) + 16 + (pattern ? 2 * ROWS * SROWS : 0);
+}
+
 constexpr int dq_sweep_smem_bytes(int d, bool pattern) {
   // Q, dO, two stages of K and V, the small parts of one K and V tile,
   // two stages of key bits (16 bytes), two of the (64, 32) pattern tile
@@ -108,17 +176,173 @@ constexpr int dkdv_sweep_smem_bytes(int d, bool pattern, bool delta_from_o) {
          (pattern ? 2 * SROWS * ROWS : 0);
 }
 
-// dq of query tile qt of a head (its row of the (n / 64, n / 64) visit
-// map and the (n, n) pattern or NULL): the key halves the row visits
-// whose keys the key mask keeps, S = Q.K^T and dP = dO.V^T on the tensor
+// o and lse of query tile walk.q0 of a head over the key halves of
+// `walk`: S = Q.K^T and O = O * corr + P.V on the tensor cores. The
+// thread's rows are r0 = q0 + 16w + g and r0 + 8; m, l and o live in
+// registers, l as the thread's part of the row sum (its quad's columns),
+// reduced over the quad at the end.
+template <int D, class Walk>
+__device__ __forceinline__ void fwd_sweep(const Head& a, const Walk& walk,
+                                          unsigned char* smem_raw) {
+  constexpr int TF = tile_floats<D>(), TS = tile_floats<D, SROWS>(), DS = stride<D>();
+  constexpr int PM = ROWS * SROWS;  // bytes of a mask tile
+  float* qs = reinterpret_cast<float*>(smem_raw);  // (64, D + 4)
+  float* ks = qs + TF;                             // 2 stages of (32, D + 4)
+  float* vs = ks + 2 * TS;                         // 2 stages of (32, D + 4)
+  float* k_lo = vs + 2 * TS;                       // the small parts of the current K tile
+  float* v_lo = k_lo + TS;                         // ... and of its V tile
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(v_lo + TS);  // 2 stages of 1 word (+ 2)
+  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 32)
+
+  const int n = a.n, q0 = walk.q0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const uint8_t* km = a.km;
+  const int r0 = q0 + 16 * warp + g;
+
+  auto issue = [&](int h, int st) {
+    const int k0 = h * SROWS;
+    load_tile_async<D, SROWS>(ks + st * TS, a.k, D, k0, n);
+    load_tile_async<D, SROWS>(vs + st * TS, a.v, D, k0, n);
+    walk.fetch_mask(h, pms + st * PM);
+  };
+
+  float o[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  // a half of masked keys adds p = 0 and leaves m, l and o as they are:
+  // not loaded, nor is q while every half so far was such a half
+  int h = walk.next(0, km, kbits), st = 0;
+  if (walk.live(h)) {
+    load_tile_async<D>(qs, a.q, D, q0, n);
+    issue(h, 0);
+  }
+  tc::cp_async_commit();
+  while (walk.live(h)) {
+    // the next live half is in flight while this one computes
+    const int nxt = walk.next(h + 1, km, kbits + (st ^ 1));
+    if (walk.live(nxt)) issue(nxt, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = h * SROWS, cls = walk.cls(h);
+    float* k_s = ks + st * TS;
+    float* v_s = vs + st * TS;
+    split_tiles<D, SROWS>(k_s, k_lo, v_s, v_lo, 0, n, nullptr, nullptr);
+    __syncthreads();  // the tiles are split, once for every warp
+
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      FragA qa;
+      load_a<D>(qa, qs, 16 * warp, 8 * kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        FragB kb[2];
+        load_b_rows<D>(kb, k_s, k_lo, 16 * np, 8 * kk);
+        mma3(s[2 * np], qa, kb[0]);
+        mma3(s[2 * np + 1], qa, kb[1]);
+      }
+    }
+
+    // scale and mask: element e of n-block j is row r0 + 8 * (e / 2), key
+    // column 8j + 2t + e % 2 of the half
+    const uint64_t bits = tc::key_bits<SROWS>(km != nullptr, kbits + st, k0, n);
+    const bool need_mask = cls == 1 || bits != tc::all_keys<SROWS>();
+    const bool use_pattern = walk.use_pattern(cls);
+    const int8_t* pm_t = pms + st * PM;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[j][e] * a.scale;
+        if (need_mask) {
+          const int row = r0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          bool ok = ((bits >> c) & 1) != 0;
+          if (cls == 1)
+            ok = ok && (use_pattern ? pm_t[(row - q0) * SROWS + c] != 0 : row >= k0 + c);
+          if (!ok) v = NEG_INF;
+        }
+        s[j][e] = v;
+      }
+
+    // online softmax over the quad's 32 columns of rows r0 and r0 + 8
+    float mx[2] = {NEG_INF, NEG_INF}, corr[2], m2[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      m2[r] = m_new * tc::LOG2E;
+      l[r] *= corr[r];
+    }
+    FragA pa[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = s[j][e];
+        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, m2[e >> 1]) : 0.f;
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+      c_to_a(pa[j], s[j]);
+    }
+
+    // O = O * corr + P.V over the half's 32 keys: a fresh partial folded
+    // in by rounded FMAs (the sum runs over up to n keys)
+    fold_product<D>(o, pa, v_s, v_lo, corr);
+    __syncthreads();  // stage st is no longer read
+    h = nxt;
+    st ^= 1;
+  }
+
+  // o / l (l = 1 where l == 0: a row with no allowed key writes exactly
+  // 0, lse -1e30) into the warp's own rows of the q tile, then 16-byte
+  // stores
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+  }
+  float* ow = qs + 16 * warp * DS;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(ow + (g + 8 * r) * DS + 8 * j + 2 * t) =
+          make_float2(o[j][2 * r] / l_safe[r], o[j][2 * r + 1] / l_safe[r]);
+  __syncwarp();
+  store_rows<D>(a.out, D, ow, q0 + 16 * warp, n);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < n) a.lse_out[row] = m[r] + logf(l_safe[r]);
+    }
+  }
+}
+
+// dq of query tile walk.q0 of a head over the key halves of `walk` whose
+// keys the key mask keeps: S = Q.K^T and dP = dO.V^T on the tensor
 // cores, dQ += dS.K folded per half. The thread's rows are r0 = q0 + 16w
 // + g and r0 + 8.
-template <int D>
-__device__ __forceinline__ void dq_sweep(const Head& a, const int8_t* __restrict__ visit,
-                                         const int8_t* __restrict__ pattern, int qt,
+template <int D, class Walk>
+__device__ __forceinline__ void dq_sweep(const Head& a, const Walk& walk,
                                          unsigned char* smem_raw) {
   constexpr int TF = tile_floats<D>(), TS = tile_floats<D, SROWS>();
-  constexpr int PM = ROWS * SROWS;  // bytes of a pattern tile
+  constexpr int PM = ROWS * SROWS;  // bytes of a mask tile
   float* qs = reinterpret_cast<float*>(smem_raw);  // (64, D + 4)
   float* dos = qs + TF;                            // (64, D + 4)
   float* ks = dos + TF;                            // 2 stages of (32, D + 4)
@@ -128,52 +352,51 @@ __device__ __forceinline__ void dq_sweep(const Head& a, const int8_t* __restrict
   uint32_t* kbits = reinterpret_cast<uint32_t*>(v_lo + TS);  // 2 stages of 1 word (+ 2)
   int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);         // 2 stages of (64, 32)
 
-  const int n = a.n, nt = n / ROWS, halves = 2 * nt, q0 = qt * ROWS;
+  const int n = a.n, q0 = walk.q0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const uint8_t* km = a.km;
-  const int8_t* vrow = visit + (int64_t)qt * nt;  // key half h: vrow[h / 2]
-  const int r0 = q0 + 16 * warp + g;              // the thread's rows r0, r0 + 8
+  const int r0 = q0 + 16 * warp + g;  // the thread's rows r0, r0 + 8
 
   // delta of the warp's 16 rows (row_delta), written when delta_out is
   // given; delta and lse (times log2(e), for exp_diff) of the thread's
-  // rows kept in registers
+  // rows kept in registers. Rows at or past n (a ragged last tile) are
+  // not read: their delta and lse are 0.
   float lse_r[2], del_r[2];
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int64_t row = q0 + 16 * warp + i;
-    const float sum = row_delta<D>(a.o + row * D, a.dout + row * D);
-    if (lane == 0 && a.delta_out != nullptr) a.delta_out[row] = sum;
+    const int64_t row = q0 + 16 * warp + i;  // the same on every lane
+    const float sum = row < n ? row_delta<D>(a.o + row * D, a.dout + row * D) : 0.f;
+    if (lane == 0 && a.delta_out != nullptr && row < n) a.delta_out[row] = sum;
     if (g == (i & 7)) del_r[i >> 3] = sum;
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) lse_r[i] = a.lse[r0 + 8 * i] * tc::LOG2E;
+  for (int i = 0; i < 2; ++i) lse_r[i] = r0 + 8 * i < n ? a.lse[r0 + 8 * i] * tc::LOG2E : 0.f;
 
   auto issue = [&](int h, int st) {
     const int k0 = h * SROWS;
     load_tile_async<D, SROWS>(ks + st * TS, a.k, D, k0, n);
     load_tile_async<D, SROWS>(vs + st * TS, a.v, D, k0, n);
-    if (pattern != nullptr && vrow[h >> 1] == 1)
-      tc::load_mask_tile<ROWS, SROWS>(pms + st * PM, pattern, q0, k0, n);
+    walk.fetch_mask(h, pms + st * PM);
   };
 
   float dq[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
-  int h = next_live_half(vrow, km, kbits, 0, 0, halves, n), st = 0;
-  if (h < halves) {
+  int h = walk.next(0, km, kbits), st = 0;
+  if (walk.live(h)) {
     load_tile_async<D>(qs, a.q, D, q0, n);
     load_tile_async<D>(dos, a.dout, D, q0, n);
     issue(h, 0);
   }
   tc::cp_async_commit();
-  while (h < halves) {
-    const int nxt = next_live_half(vrow, km, kbits, h + 1, st ^ 1, halves, n);
-    if (nxt < halves) issue(nxt, st ^ 1);
+  while (walk.live(h)) {
+    const int nxt = walk.next(h + 1, km, kbits + (st ^ 1));
+    if (walk.live(nxt)) issue(nxt, st ^ 1);
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
     __syncthreads();
-    const int k0 = h * SROWS, cls = vrow[h >> 1];
+    const int k0 = h * SROWS, cls = walk.cls(h);
     float* k_s = ks + st * TS;
     float* v_s = vs + st * TS;
     split_tiles<D, SROWS>(k_s, k_lo, v_s, v_lo, 0, n, nullptr, nullptr);
@@ -181,7 +404,7 @@ __device__ __forceinline__ void dq_sweep(const Head& a, const int8_t* __restrict
 
     const uint64_t bits = tc::key_bits<SROWS>(km != nullptr, kbits + st, k0, n);
     const bool need_mask = cls == 1 || bits != tc::all_keys<SROWS>();
-    const bool use_pattern = cls == 1 && pattern != nullptr;
+    const bool use_pattern = walk.use_pattern(cls);
     const int8_t* pm_t = pms + st * PM;
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -246,8 +469,8 @@ struct VisitColumn {
   const int8_t* pattern;  // (n, n) or NULL
   int nt, n, k0;
 
-  __device__ int first(int8_t*) const { return first_visited(vcol, nt, 0, 2 * nt); }
-  __device__ int next(int h, int8_t*) const { return first_visited(vcol, nt, h + 1, 2 * nt); }
+  __device__ int first(int8_t*) const { return first_visited<1>(vcol, nt, 0, 2 * nt); }
+  __device__ int next(int h, int8_t*) const { return first_visited<1>(vcol, nt, h + 1, 2 * nt); }
   __device__ bool live(int h) const { return h < 2 * nt; }
   __device__ int q0(int h) const { return h * SROWS; }
   __device__ int cls(int h) const { return vcol[(int64_t)(h >> 1) * nt]; }

@@ -9,7 +9,10 @@ for every q block (k block) that has none, so its rows are written as
 exact zeros. The compiler (``_pair_lists``, ``_table``,
 ``compile_block_layout``) is a numpy copy of JAX's; its tables come out
 identical. ``device_layout`` puts a layout's int8 mask, tables and
-per-block run offsets on a device once per layout.
+per-block run offsets on a device once per layout, and for a 128-block
+layout the float32 forward's and dq's walk: the per-half class map
+(``half_classes``) and the query tiles longest row first
+(``tile_order``).
 
 - ``reference_block_sparse`` (forward) and ``reference_block_sparse_dq``
   / ``reference_block_sparse_dkdv`` (their sum is
@@ -92,13 +95,18 @@ class DeviceLayout(NamedTuple):
     """A layout's operands on one device: the int8 (n_pad, n_pad) mask,
     the q-major table and its (nq + 1,) run offsets (q block i owns
     columns [offsets[i], offsets[i + 1])), the k-major table and its
-    (nk + 1,) run offsets, all int32 but the mask."""
+    (nk + 1,) run offsets, all int32 but the mask; for a 128-block layout
+    also the int8 (n_pad / 64, n_pad / 32) ``half_classes`` and the int32
+    (n_pad / 64,) ``tile_order`` (None for other blocks, which no kernel
+    takes)."""
 
     mask: torch.Tensor
     fwd_table: torch.Tensor
     fwd_offsets: torch.Tensor
     kv_table: torch.Tensor
     kv_offsets: torch.Tensor
+    halves: Optional[torch.Tensor]
+    order: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -185,18 +193,53 @@ def _run_offsets(groups: np.ndarray, n_groups: int) -> np.ndarray:
     return offsets
 
 
+# the float32 forward's and dq's walk: a block owns a TILE-row query
+# tile and walks its HALF-key halves
+TILE, HALF = 64, 32
+
+
+def half_classes(layout: BlockLayout) -> np.ndarray:
+    """(n_pad / TILE, n_pad / HALF) int8: the class of each (64-row query
+    tile, 32-key half) of a 128-block layout, as the float32 forward and
+    dq walk it. 0 (passed over) where its 128-block pair is class 0 or
+    absent, or its (64, 32) tile of ``layout.mask`` is empty (this holds
+    every half at or past n: the mask is zero there); 2 (no mask test)
+    where the pair is class 2 or the tile is full (the test would pass
+    everywhere); 1 (the mask tile decides) otherwise."""
+    assert layout.block_q == layout.block_k == DEFAULT_BLOCK, "128-block layouts only"
+    nt, nh = layout.n_pad // TILE, layout.n_pad // HALF
+    tiles = layout.mask.reshape(nt, TILE, nh, HALF)
+    some, full = tiles.any(axis=(1, 3)), tiles.all(axis=(1, 3))
+    pair = layout.visit[np.arange(nt)[:, None] * TILE // DEFAULT_BLOCK,
+                        np.arange(nh)[None, :] * HALF // DEFAULT_BLOCK]
+    return np.where((pair == 0) | ~some, 0, np.where((pair == 2) | full, 2, 1)).astype(np.int8)
+
+
+def tile_order(classes: np.ndarray) -> np.ndarray:
+    """(n_pad / TILE,) int32: the query tiles by their count of live
+    halves, most first (ties in tile order), so that a launch starts its
+    longest rows first."""
+    return np.argsort(-(classes != 0).sum(axis=1), kind="stable").astype(np.int32)
+
+
 def device_layout(layout: BlockLayout, device) -> DeviceLayout:
     """The layout's operands on ``device``, copied there once per layout."""
     device = torch.device(device)
     cached = layout._on_device.get(device)
     if cached is None:
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        halves = order = None
+        if layout.block_q == layout.block_k == DEFAULT_BLOCK:
+            classes = half_classes(layout)
+            halves, order = put(classes), put(tile_order(classes))
         cached = layout._on_device[device] = DeviceLayout(
             mask=put(layout.mask.astype(np.int8)),
             fwd_table=put(layout.fwd_table),
             fwd_offsets=put(_run_offsets(layout.fwd_table[0], layout.nq)),
             kv_table=put(layout.kv_table),
             kv_offsets=put(_run_offsets(layout.kv_table[1], layout.nk)),
+            halves=halves,
+            order=order,
         )
     return cached
 
@@ -361,7 +404,7 @@ def block_sparse_attention(q, k, v, layout: BlockLayout, key_mask=None,
     o = torch.empty_like(q)
     lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device)
     _launch("block_sparse_attention_fwd",
-            (q, k, v, km, dl.mask, dl.fwd_table, dl.fwd_offsets, o, lse),
+            (q, k, v, km, dl.mask, dl.fwd_table, dl.fwd_offsets, dl.halves, dl.order, o, lse),
             q, layout, layout.fwd_table.shape[1], _scale(d, sm_scale))
     block_sparse_attention.launches += 1
     return o, lse
@@ -384,7 +427,8 @@ def block_sparse_dq(q, k, v, o, lse, do, layout: BlockLayout, key_mask=None,
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     _launch("block_sparse_attention_dq",
-            (q, k, v, o, do, lse, km, dl.mask, dl.fwd_table, dl.fwd_offsets, dq, delta),
+            (q, k, v, o, do, lse, km, dl.mask, dl.fwd_table, dl.fwd_offsets, dl.halves, dl.order,
+             dq, delta),
             q, layout, layout.fwd_table.shape[1], _scale(q.shape[-1], sm_scale))
     block_sparse_dq.launches += 1
     return dq, delta

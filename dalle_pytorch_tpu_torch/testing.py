@@ -46,7 +46,10 @@ sums straight or folded in fresh partials as the kernels fold them.
 role split (its query blocks' and key blocks' delta by
 ``emulated_row_delta``, the card's warp order) and
 ``emulated_pair_dkdv`` the pair grid's float32 dk/dv over the halves its
-k-major walk visits (``pair_dkdv_halves``).
+k-major walk visits (``pair_dkdv_halves``); ``emulated_pair_fwd`` and
+``emulated_pair_dq`` its float32 forward and dq over the halves its row
+walk visits (``pair_row_halves``, the rows of
+``block_sparse_attention.half_classes``).
 
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
@@ -575,6 +578,108 @@ def emulated_pair_dkdv(q, k, v, do, lse, delta, layout, key_mask=None):
             dv[..., kt, :] += _mma_steps(zero, split_tf32(p), split_tf32(dop[..., rows, :]))
             dk[..., kt, :] += _mma_steps(zero, split_tf32(ds), split_tf32(qp[..., rows, :]))
     return dk[..., :n, :], dv[..., :n, :]
+
+
+def pair_row_halves(layout, q0: int):
+    """The 32-key halves that the pair grid's float32 forward and dq
+    (``bs_fwd_tf32_kernel``, ``bs_dq_tf32_kernel``) walk for the 64-row
+    query tile at ``q0``, in key order, as ``tf32::HalfRow`` finds them:
+    the nonzero entries of the tile's row of ``half_classes``. Returns
+    [(k0, class)]."""
+    row = bs.half_classes(layout)[q0 // bs.TILE]
+    return [(bs.HALF * h, int(c)) for h, c in enumerate(row) if c != 0]
+
+
+def _pair_rows(layout, key_mask, b: int, q0: int, k0: int, cls: int):
+    """(b, 1, 64, 32) bool: the (query, key) pairs of the tile at (q0, k0)
+    that the kernels let through: the key mask (keys below n), and for a
+    class 1 half the layout's mask tile."""
+    n = layout.n
+    keys = torch.zeros(b, bs.HALF, dtype=torch.bool)
+    live = slice(0, max(0, min(bs.HALF, n - k0)))
+    keys[:, live] = (True if key_mask is None
+                     else key_mask.cpu()[:, k0:k0 + bs.HALF][:, live] != 0)
+    ok = keys[:, None, None, :].expand(b, 1, bs.TILE, bs.HALF)
+    if cls == 1:
+        ok = ok & torch.from_numpy(layout.mask[q0:q0 + bs.TILE, k0:k0 + bs.HALF])
+    return ok
+
+
+def _padded(layout, *tensors):
+    """(b, h, n, d) float32 tensors padded with zero rows to n_pad."""
+    pad = layout.n_pad - layout.n
+    return [F.pad(t.float(), (0, 0, 0, pad)) for t in tensors]
+
+
+def emulated_pair_fwd(q, k, v, layout, key_mask=None):
+    """The pair grid's float32 forward as ``bs_fwd_tf32_kernel`` runs it
+    on float32 q, k, v (b, h, n, d) and a 128-block layout: per 64-row
+    query tile (rows past n zero), the online softmax over the halves of
+    ``pair_row_halves`` (keys past n zero) with s = q.k^T as split 3xTF32
+    (``matmul_3xtf32``), masked by the half's class (2: the key mask; 1:
+    the layout's mask tile and the key mask), and the value product on
+    the card's truncating accumulation (``_mma_steps``), a fresh partial
+    per half folded in as o * corr + partial with one rounding. o = acc /
+    l with l = 1 where l == 0, lse = m + log(l). Returns (o, lse (b, h,
+    n))."""
+    b, h, n, d = q.shape
+    scale = d**-0.5
+    qp, kp, vp = _padded(layout, q, k, v)
+    o = torch.zeros(b, h, layout.n_pad, d)
+    lse = torch.zeros(b, h, layout.n_pad)
+    for q0 in range(0, n, bs.TILE):
+        rows = slice(q0, q0 + bs.TILE)
+        m = torch.full((b, h, bs.TILE, 1), bs.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, bs.TILE, d)
+        for k0, cls in pair_row_halves(layout, q0):
+            keys = slice(k0, k0 + bs.HALF)
+            s = (matmul_3xtf32(qp[..., rows, :], kp[..., keys, :].transpose(-1, -2)) * scale
+                 ).masked_fill(~_pair_rows(layout, key_mask, b, q0, k0, cls), bs.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.where(s > 0.5 * bs.NEG_INF, torch.exp(s - m_new), 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            part = _mma_steps(torch.zeros_like(acc), split_tf32(p), split_tf32(vp[..., keys, :]))
+            acc = (acc.double() * corr.double() + part.double()).float()
+            m = m_new
+        l_safe = torch.where(l == 0, 1.0, l)
+        o[..., rows, :] = acc / l_safe
+        lse[..., rows] = (m + torch.log(l_safe))[..., 0]
+    return o[..., :n, :], lse[..., :n]
+
+
+def emulated_pair_dq(q, k, v, o, lse, do, layout, key_mask=None):
+    """The pair grid's float32 dq as ``bs_dq_tf32_kernel`` runs it on
+    float32 q, k, v, o, do (b, h, n, d), lse (b, h, n) and a 128-block
+    layout: per 64-row query tile, delta of its rows by
+    ``emulated_row_delta`` (0 at rows past n, which are zero here and which
+    the kernel does not read), then over the halves of ``pair_row_halves`` s = Q.K^T and dp
+    = dO.V^T as split 3xTF32 (``matmul_3xtf32``), p = exp(s - lse) masked
+    by the half's class, ds = p * (dp - delta) * scale, and dQ += dS.K a
+    fresh partial per half on the card's truncating accumulation
+    (``_mma_steps``) folded in by a rounded add. Returns (dq (b, h, n, d),
+    delta (b, h, n))."""
+    b, h, n, d = q.shape
+    scale = d**-0.5
+    qp, kp, vp, op, dop = _padded(layout, q, k, v, o, do)
+    lse_p = F.pad(lse.float(), (0, layout.n_pad - n))
+    dq = torch.zeros(b, h, layout.n_pad, d)
+    delta = torch.zeros(b, h, layout.n_pad)
+    for q0 in range(0, n, bs.TILE):
+        rows = slice(q0, q0 + bs.TILE)
+        delta[..., rows] = emulated_row_delta(op[..., rows, :], dop[..., rows, :])
+        for k0, cls in pair_row_halves(layout, q0):
+            keys = slice(k0, k0 + bs.HALF)
+            s = (matmul_3xtf32(qp[..., rows, :], kp[..., keys, :].transpose(-1, -2)) * scale
+                 ).masked_fill(~_pair_rows(layout, key_mask, b, q0, k0, cls), bs.NEG_INF)
+            p = torch.where(s > 0.5 * bs.NEG_INF, torch.exp(s - lse_p[..., rows, None]), 0.0)
+            dp = matmul_3xtf32(dop[..., rows, :], vp[..., keys, :].transpose(-1, -2))
+            ds = p * (dp - delta[..., rows, None]) * scale
+            part = _mma_steps(torch.zeros(b, h, bs.TILE, d), split_tf32(ds),
+                              split_tf32(kp[..., keys, :]))
+            dq[..., rows, :] += part
+    return dq[..., :n, :], delta[..., :n]
 
 
 def emulated_split_decode(qkv, k_cache, v_cache, idx: int, cos, sin, key_mask, heads: int,

@@ -805,6 +805,58 @@ def test_block_sparse_f32_dkdv_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", BS_CASES)
+def test_block_sparse_f32_fwd_dq_match_plain(cuda, case):
+    """The pair grid's float32 forward and dq on split-3xTF32 tiles
+    (``bs_fwd_tf32_kernel``, ``bs_dq_tf32_kernel``, walking the layout's
+    per-half class map) on every ``bs_inputs`` case (the flagship training
+    shape with the axial_row and conv_like layouts; n 300, a ragged last
+    block, at dim_head 32/64/128 with a key mask that kills whole rows; a
+    layout with synthetic pairs): o and lse within abs 1e-5 of the plain
+    forward, rows with no allowed key exactly 0 with lse -1e30; dq on the
+    plain o and lse within relative L2 1e-5 of the plain dq, dead rows
+    exactly 0, delta within 1e-4 of its largest entry; two runs bitwise;
+    one launch a call."""
+    q, k, v, do, layout, km = bs_inputs(case, torch.float32, cuda)
+    po, plse = bs.reference_block_sparse(q, k, v, layout, km)
+    pdq, pdelta = bs.reference_block_sparse_dq(q, k, v, po, plse, do, layout, km)
+    pdk, pdv = bs.reference_block_sparse_dkdv(q, k, v, do, plse, pdelta, layout, km)
+    before = [f.launches for f in (bs.block_sparse_attention, bs.block_sparse_dq)]
+    runs = [(*bs.block_sparse_attention(q, k, v, layout, km),
+             *bs.block_sparse_dq(q, k, v, po, plse, do, layout, km)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [f.launches for f in (bs.block_sparse_attention, bs.block_sparse_dq)] == [
+        c + 2 for c in before]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    o, lse, dq, delta = runs[0]
+    assert all(torch.isfinite(t).all() for t in runs[0])
+    err, _, _, dead_exact = bs_fwd_errors(o, lse, po, plse, layout, km)
+    assert err <= BS_F32_ATOL, err
+    assert dead_exact
+    rel, _, zeros_exact = bs_bwd_errors((dq, pdk, pdv), (pdq, pdk, pdv), layout, km)
+    assert rel <= BWD_F32_REL, rel
+    assert zeros_exact
+    assert (delta - pdelta).abs().max().item() <= 1e-4 * pdelta.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_block_sparse_f32_kernels_reject_unaligned_operands(cuda):
+    """The float32 forward, dq and dk/dv copy rows by 16-byte cp.async: an
+    operand that is not 16-byte aligned (a view one float into its
+    storage) is refused, not read."""
+    layout = bs.compile_block_layout(masks.causal_mask(256))
+    q = torch.zeros(1, 2, 256, 64, device=cuda)
+    shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    o, lse = bs.block_sparse_attention(q, q, q, layout)
+    with pytest.raises(ValueError):
+        bs.block_sparse_attention(shifted, q, q, layout)
+    with pytest.raises(ValueError):
+        bs.block_sparse_dq(q, q, q, shifted, lse, o, layout)
+    with pytest.raises(ValueError):
+        bs.block_sparse_dkdv(q, q, shifted, o, lse, lse, layout)
+
+
+@pytest.mark.gpu
 def test_flash_kernels_reject_what_they_cannot_take(cuda):
     q = torch.zeros(1, 2, 256, 64, device=cuda)
     with pytest.raises(ValueError):  # n not a multiple of the tile
