@@ -7,7 +7,9 @@ Phases, each of which raises on failure (exit code non-zero, no result
 line):
 
 1. device: a CUDA card is required; its name and power limit are printed.
-   Float32 matrix products and convolutions run without TF32.
+   Float32 matrix products and convolutions run without TF32, and bf16
+   matrix products accumulate in float32 to the end (cuBLAS's bf16
+   reduced-precision reduction off, as the TPU accumulates).
 2. build: every CUDA kernel of the port is compiled with nvcc (sm_90a),
    one nvcc per source, all started together.
 3. kernels: each kernel's wrapper at the serving path's shapes against its
@@ -99,6 +101,11 @@ line):
    peak memory are printed.
 9. train profile: torch.profiler over 3 more steps: device-busy share,
    launches per step, the largest device-time kernels.
+8b. train bf16: the same model, seed and batch trained in mixed
+   precision (``DalleTrainer(bf16=True)``: bfloat16 compute on float32
+   parameters and Adam moments, checked), as phase 8 (the packed
+   kernels' bf16 instances depth x (steps + retries) times each, the
+   NaN-injected step), then profiled as phase 9.
 10. train sparse: the flagship DALLE with its layers cycling "full",
    "axial_row", "axial_col", "conv_like" (BASELINE.json configs[2] at
    the flagship width), otherwise as phase 8: 10 steps on one batch,
@@ -106,13 +113,16 @@ line):
    forward, dq and dk/dv kernels (axial_row and conv_like layers) and the
    packed-qkv forward and backward (full and axial_col layers) launched
    depth / 2 x (steps + retries) times each; then profiled as phase 9.
+   Then the same in mixed precision (train sparse bf16: the bf16
+   instances of the same kernels, the same counts).
 11. train 512: the flagship DALLE at 512 px (a 64 x 64 image grid, n
    4,352 positions; the flagship VAE with image_size 512 encodes 4 seeded
    512 px images to (4, 4096) tokens), float32, otherwise as phase 8: 10
    steps on one batch, every loss finite and the last below the first,
    the tiled flash forward, dq and dk/dv kernels launched depth x (steps
    + retries) times each and no other attention kernel; then profiled as
-   phase 9.
+   phase 9. Then the same model and batch in mixed precision (train 512
+   bf16: the tiled kernels' bf16 instances, the same counts).
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -136,13 +146,18 @@ and ``scaled_dot_product_attention`` (float32 forward, dq, dk/dv and
 single-block backward on split-3xTF32 tensor-core tiles, their bounds,
 like every float32 tiled bound, at the 3xTF32 rate with the CUDA-core
 bound beside; the single-block backward at both one-block shapes with
-the split chain's time beside; the bf16 forward, dq and dk/dv beside bf16
-sdpa and their bf16 bounds). Phase 4
-also checks a small float32
-DALLE's loss and every parameter gradient, card against CPU, for the
-full model, for the four-type sparse cycle, at n 1152 (the tiled
-kernels, dq then dk/dv) and at n 384 with 3 heads (one flash block: the
-single-block backward), with exact launch counts.
+the split chain's time beside; the bf16 forward, dq, dk/dv and
+single-block backward beside bf16 sdpa and their bf16 bounds). The
+bf16 instances of the packed forward (batch 4) and of the three
+block-sparse kernels are timed at the training shape too, beside bf16
+sdpa and their bf16 bounds. Phase 4 also checks a small DALLE's loss and
+every parameter gradient, card against CPU, for the full model, for the
+four-type sparse cycle, at n 1152 (the tiled kernels, dq then dk/dv) and
+at n 384 with 3 heads (one flash block: the single-block backward), with
+exact launch counts, in float32 and in mixed precision (bf16 compute on
+float32 parameters: the card's loss and gradients within
+``testing.BF16_GAP_FACTOR`` times the CPU's bf16-to-float32 gap of the
+CPU's bf16 run).
 
 The second-to-last line is the card's ``nvidia-smi`` name and power
 limit; the line before it the kernels' JSON; the last line
@@ -604,19 +619,20 @@ def check_fused_qkv() -> dict:
                 train_errs[dtype] = (err, rel)
 
     timings = {}
-    # bf16 at the serving shapes; float32 at the training shape
-    for case, dtype in (("clip", torch.bfloat16), ("dalle", torch.bfloat16),
-                        ("train", torch.float32)):
+    # bf16 at the serving shapes; both types at the training shape
+    for key, case, dtype in (("clip", "clip", torch.bfloat16), ("dalle", "dalle", torch.bfloat16),
+                             ("train", "train", torch.float32),
+                             ("train_bf16", "train", torch.bfloat16)):
         qkv, h, d, opts = fused_inputs(case, dtype)
         (q, k, v), sdpa_kw = sdpa_args(qkv, h, d, opts)
-        timings[case] = dict(
+        timings[key] = dict(
             ms=cuda_time_ms(lambda: fa.fused_qkv_attention(qkv, h, d, **opts)),
             plain_ms=cuda_time_ms(lambda: fa.reference_fused_qkv(qkv, h, d, **opts)),
             library_ms=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, **sdpa_kw)),
         )
-        timings[case].update(fused_bound(qkv, h, d, opts))
-        t = timings[case]
+        timings[key].update(fused_bound(qkv, h, d, opts))
+        t = timings[key]
         log(f"fused_qkv {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, {bound_text(t)}")
     return {
@@ -627,6 +643,7 @@ def check_fused_qkv() -> dict:
         "max_abs_err_f32": errs[torch.float32], **timings["clip"],
         **{f"dalle_{k}": v for k, v in timings["dalle"].items()},
         **{f"train_{k}": v for k, v in timings["train"].items()},
+        **{f"train_bf16_{k}": v for k, v in timings["train_bf16"].items()},
         "train_max_abs_err_f32": train_errs[torch.float32][0],
         "train_max_rel_err_bf16": train_errs[torch.bfloat16][1],
     }
@@ -846,7 +863,8 @@ def check_block_sparse() -> list:
                    "source": "dalle_pytorch_tpu_torch/csrc/block_sparse_attention.cu",
                    "replaces": BS_TPU_KERNELS[name], "max_abs_err": worst[name]}
             for name in BS_TPU_KERNELS}
-    for case in ("axial_row", "conv_like"):  # the training path's type
+    for case in ("axial_row", "conv_like"):  # the training paths' shapes, both types
+        bs_bf16_timings(case, rows)
         q, k, v, do, layout, km = bs_inputs(case, torch.float32, "cuda", seed=1)
         o, lse = bs.block_sparse_attention(q, k, v, layout)
         dq, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout)
@@ -905,6 +923,55 @@ def check_block_sparse() -> list:
                 row["packed_pattern_ms"] = (packed_ms if name == "block_sparse_attention"
                                             else packed_bwd_ms)
     return [rows[name] for name in BS_TPU_KERNELS]
+
+
+def bs_bf16_timings(case: str, rows: dict) -> None:
+    """The three block-sparse kernels' bf16 instances timed (cold L2) at
+    the training shape with ``case``'s layout beside their plain versions,
+    their bf16 bounds and bf16 ``scaled_dot_product_attention`` forward
+    and backward with the boolean pattern mask; written into ``rows``
+    under ``ms_bf16``, ``plain_ms_bf16``, ``bound_ms_bf16``,
+    ``bound_by_bf16``, ``library_ms_bf16`` (conv_like prefixed)."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+    from dalle_pytorch_tpu_torch.testing import bs_inputs
+
+    q, k, v, do, layout, _ = bs_inputs(case, torch.bfloat16, "cuda", seed=1)
+    o, lse = bs.block_sparse_attention(q, k, v, layout)
+    dq, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout)
+    kernels = {
+        "block_sparse_attention": (
+            lambda: bs.block_sparse_attention(q, k, v, layout),
+            lambda: bs.reference_block_sparse(q, k, v, layout)),
+        "block_sparse_dq": (
+            lambda: bs.block_sparse_dq(q, k, v, o, lse, do, layout),
+            lambda: bs.reference_block_sparse_dq(q, k, v, o, lse, do, layout)),
+        "block_sparse_dkdv": (
+            lambda: bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout),
+            lambda: bs.reference_block_sparse_dkdv(q, k, v, do, lse, delta, layout)),
+    }
+    bounds = bs_bounds(q, layout, None)
+    allowed = bs.may_attend(layout, layout.n, q.device)
+    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=allowed), iters=20)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+    sdpa_bwd_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=20)
+    prefix = "" if case == "axial_row" else "conv_like_"
+    parts = []
+    for name, (kernel, plain) in kernels.items():
+        ms, plain_ms = cuda_time_ms(kernel, iters=20), cuda_time_ms(plain, iters=5)
+        rows[name].update({
+            f"{prefix}ms_bf16": ms, f"{prefix}plain_ms_bf16": plain_ms,
+            f"{prefix}bound_ms_bf16": bounds[name]["bound_ms"],
+            f"{prefix}bound_by_bf16": bounds[name]["bound_by"],
+            f"{prefix}library_ms_bf16": (sdpa_ms if name == "block_sparse_attention"
+                                         else sdpa_bwd_ms)})
+        parts.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}, {bound_text(bounds[name])})")
+    b, h, n, d = q.shape
+    log(f"block_sparse {case} bf16 timing, cold L2 (b {b}, {h} x {d}, n {n}): "
+        + "; ".join(parts) + f"; bf16 sdpa with the mask forward {sdpa_ms:.4f} / backward "
+        f"{sdpa_bwd_ms:.4f} ms")
 
 
 def flash_bounds(q, opts) -> dict:
@@ -1053,10 +1120,11 @@ def check_flash_attention() -> list:
         sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, **sdpa_flash_kw(q, opts)), iters=10)
         sdpa_bwd_ms = cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts), iters=10)
-        if dtype == torch.bfloat16:  # the kernels alone, beside the float32 path
-            for name, (kernel, _) in t.items():
+        if dtype == torch.bfloat16:  # beside the float32 path
+            for name, (kernel, plain) in t.items():
                 rows[name].update(
                     ms_bf16=cuda_time_ms(kernel, iters=10),
+                    plain_ms_bf16=cuda_time_ms(plain, warmup=1, iters=3),
                     bound_ms_bf16=bounds[name]["bound_ms"],
                     bound_by_bf16=bounds[name]["bound_by"],
                     library_ms_bf16=sdpa_ms if name == "flash_attention_fwd" else sdpa_bwd_ms)
@@ -1068,6 +1136,18 @@ def check_flash_attention() -> list:
                               else sdpa_bwd_ms)
     name = "flash_attention_bwd_fused"
     for case, prefix in (("one_block", ""), ("one_block_d32", "d32_")):
+        q, k, v, do, opts = flash_inputs(case, torch.bfloat16, "cuda", seed=1)
+        o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        bound = flash_bounds(q, opts)[name]
+        rows[name].update({
+            f"{prefix}ms_bf16": cuda_time_ms(
+                lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts), iters=20),
+            f"{prefix}plain_ms_bf16": cuda_time_ms(lambda: fa.reference_flash_attention_bwd(
+                q, k, v, o, lse, do, **opts), iters=5),
+            f"{prefix}bound_ms_bf16": bound["bound_ms"],
+            f"{prefix}bound_by_bf16": bound["bound_by"],
+            f"{prefix}library_ms_bf16": cuda_time_ms(sdpa_flash_backward(q, k, v, do, opts),
+                                                     iters=20)})
         q, k, v, do, opts = flash_inputs(case, torch.float32, "cuda", seed=1)
         o, lse = fa.flash_attention_fwd(q, k, v, **opts)
         _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
@@ -1094,9 +1174,10 @@ def check_flash_attention() -> list:
                 + bound_text({k: row[p + k] for k in ("bound_ms", "bound_by", "bound_cuda_core_ms")})
                 + (f"; the split chain (dq then dk/dv) {row[p + 'split_chain_ms']:.4f} ms"
                    if p + "split_chain_ms" in row else "")
-                + (f"; bf16 kernel {row['ms_bf16']:.4f} ms, sdpa {sdpa} "
-                   f"{row['library_ms_bf16']:.4f} ms, bound {row['bound_ms_bf16']:.4f} ms "
-                   f"({row['bound_by_bf16']})" if "ms_bf16" in row else ""))
+                + (f"; bf16 kernel {row[p + 'ms_bf16']:.4f} ms, plain "
+                   f"{row[p + 'plain_ms_bf16']:.4f} ms, sdpa {sdpa} "
+                   f"{row[p + 'library_ms_bf16']:.4f} ms, bound {row[p + 'bound_ms_bf16']:.4f} "
+                   f"ms ({row[p + 'bound_by_bf16']})" if p + "ms_bf16" in row else ""))
     return [rows[name] for name in FLASH_TPU_KERNELS]
 
 
@@ -1574,23 +1655,29 @@ TILED_SPLIT = TILED[:3]
 DECODE = ("fused_decode_attention",)
 
 
-def check_train_against_plain(variant: str = "dense") -> dict:
-    """Small float32 DALLE, identical weights on the card (kernels) and the
-    CPU (plain versions): the loss to relative 1e-5 and every parameter's
-    gradient to 1e-4 of its largest entry, and each kernel launched
-    exactly as the variant's attention path says (every other kernel
-    never). "dense": depth 2, 2 heads of 64, text 64 + an 8 x 8 grid (n
-    128; token shift, rotary), each packed kernel once per layer.
-    "sparse": depth 4 cycling the four types, text 64 + a 24 x 24 grid (n
-    640, where the axial_row and conv_like layouts visit 12 of 15 block
-    pairs and engage): the three block-sparse kernels once per axial_row
-    and conv_like layer, the packed ones once per full and axial_col
-    layer. "tiled": text 128 + a 32 x 32 grid (n 1152, 3 x 3 flash blocks
-    of 384): the tiled forward, dq and dk/dv once per layer. "one_block":
-    3 heads, text 128 + a 16 x 16 grid (n 384, one flash block the packed
-    kernel refuses): the tiled forward and the single-block backward once
-    per layer. Returns the card run's launches."""
+def check_train_against_plain(variant: str = "dense", dtype=torch.float32) -> dict:
+    """Small DALLE, identical float32 weights on the card (kernels) and
+    the CPU (plain versions), each kernel launched exactly as the
+    variant's attention path says (every other kernel never). float32:
+    the loss to relative 1e-5 and every parameter's gradient to 1e-4 of
+    its largest entry. bfloat16 (computing in bf16 on float32 parameters,
+    as ``DalleTrainer(bf16=True)`` trains, so the kernels' bf16 instances
+    run): the card's loss and every gradient within
+    ``testing.BF16_GAP_FACTOR`` times the CPU's bf16-to-float32 gap of
+    the CPU's bf16 run (``testing.gap_ratio``). "dense": depth 2, 2 heads
+    of 64, text 64 + an 8 x 8 grid (n 128; token shift, rotary), each
+    packed kernel once per layer. "sparse": depth 4 cycling the four
+    types, text 64 + a 24 x 24 grid (n 640, where the axial_row and
+    conv_like layouts visit 12 of 15 block pairs and engage): the three
+    block-sparse kernels once per axial_row and conv_like layer, the
+    packed ones once per full and axial_col layer. "tiled": text 128 + a
+    32 x 32 grid (n 1152, 3 x 3 flash blocks of 384): the tiled forward,
+    dq and dk/dv once per layer. "one_block": 3 heads, text 128 + a 16 x
+    16 grid (n 384, one flash block the packed kernel refuses): the tiled
+    forward and the single-block backward once per layer. Returns the
+    card run's launches."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.testing import BF16_GAP_FACTOR, gap_ratio
 
     cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
                text_seq_len=64, num_image_tokens=40, image_fmap_size=8)
@@ -1604,35 +1691,53 @@ def check_train_against_plain(variant: str = "dense") -> dict:
     elif variant == "one_block":
         cfg.update(heads=3, text_seq_len=128, image_fmap_size=16)
         per_layer = {"flash_attention_fwd": 1, "flash_attention_bwd_fused": 1}
-    gpu = DALLE(**cfg, device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(7))
-    cpu = DALLE(**cfg, device="cpu")
-    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    mixed = dict(dtype=dtype, param_dtype=torch.float32)
+    gpu = DALLE(**cfg, device="cuda", **mixed).init_weights(
+        torch.Generator(device="cuda").manual_seed(7))
+    cpu = DALLE(**cfg, device="cpu", **mixed)
+    models = [gpu, cpu]
+    if dtype != torch.float32:  # the CPU's float32 run: the bf16 error's scale
+        models.append(DALLE(**cfg, device="cpu"))
+    for m in models[1:]:
+        m.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
     rng = np.random.RandomState(8)
     text = rng.randint(1, 50, size=(2, cfg["text_seq_len"]))
     text[0, 40:], text[1, 9:] = 0, 0
     image = rng.randint(0, 40, size=(2, cfg["image_fmap_size"] ** 2))
-    losses, grads = {}, {}
+    losses, grads = [], []
     names = tuple(kernel_counters())
-    for m in (gpu, cpu):
+    for m in models:
         zero_counts()
         t, i = (torch.from_numpy(a).to(m.device) for a in (text, image))
         loss = m(t, i, return_loss=True)
         loss.backward()
-        losses[m] = loss.item()
-        grads[m] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+        losses.append(loss.item())
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
         if m is gpu:
             launched = read_counts(names)
-    loss_rel = abs(losses[gpu] - losses[cpu]) / abs(losses[cpu])
-    worst = max((grads[gpu][k] - g).abs().max().item() / g.abs().max().item()
-                for k, g in grads[cpu].items())
     expected = {n: int(per_layer.get(n, 0) * cfg["depth"]) for n in names}
-    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss ({variant}, n "
-        f"{gpu.total_seq_len}, {cfg['heads']} heads), relative {loss_rel:.3e}; worst gradient "
-        f"error {worst:.3e} of its largest entry; launches "
+    if dtype == torch.float32:
+        loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+        worst = max((grads[0][k] - g).abs().max().item() / g.abs().max().item()
+                    for k, g in grads[1].items())
+        ok = loss_err <= 1e-5 and worst <= 1e-4
+        what = (f"relative {loss_err:.3e}; worst gradient error {worst:.3e} of its largest "
+                f"entry")
+    else:
+        loss_err = gap_ratio(*losses)
+        worst, worst_name = max((gap_ratio(grads[0][k], g, grads[2][k]), k)
+                                for k, g in grads[1].items())
+        ok = loss_err <= BF16_GAP_FACTOR and worst <= BF16_GAP_FACTOR
+        what = (f"{loss_err:.3f} of the CPU's bf16-to-float32 gap (CPU bf16 "
+                f"{losses[1]:.6f}, float32 {losses[2]:.6f}, card {losses[0]:.6f}); worst "
+                f"gradient {worst:.3f} of its gap ({worst_name}; tolerance "
+                f"{BF16_GAP_FACTOR} of the gap)")
+    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss ({variant}, {dtype}, "
+        f"n {gpu.total_seq_len}, {cfg['heads']} heads), {what}; launches "
         f"{ {n: c for n, c in launched.items() if c or expected[n]} }")
-    if not (loss_rel <= 1e-5 and worst <= 1e-4 and launched == expected):
-        raise AssertionError(f"training path disagrees: {loss_rel}, {worst}, {launched}, "
-                             f"expected {expected}")
+    if not (ok and launched == expected):
+        raise AssertionError(f"training path disagrees ({variant}, {dtype}): {loss_err}, "
+                             f"{worst}, {launched}, expected {expected}")
     return {name: n for name, n in launched.items() if n}
 
 
@@ -2116,8 +2221,7 @@ def train_flagship():
     counted run, then the NaN-injected step. Returns (trainer, (text,
     images), launches of the counted run)."""
     from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
-    from dalle_pytorch_tpu_torch.parallel.step import make_train_step
-    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer, dalle_loss
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
 
     t0 = time.perf_counter()
     vae = DiscreteVAE(**FLAGSHIP_VAE, device="cuda").init_weights(
@@ -2143,6 +2247,16 @@ def train_flagship():
         f"images encoded to {tuple(tokens.shape)} tokens in {time.perf_counter() - t0:.1f} s")
     launches = train_run(trainer, text, images, "train",
                          {name: FLAGSHIP["depth"] for name in PACKED})
+    check_nan_guard(trainer, text, tokens, "train")
+    return trainer, (text, images), launches
+
+
+def check_nan_guard(trainer, text, tokens, label: str) -> None:
+    """One step of ``trainer``'s state with the NaN injected: every
+    parameter and Adam moment bit-identical, skipped 1; the trainer keeps
+    the new state."""
+    from dalle_pytorch_tpu_torch.parallel.step import make_train_step
+    from dalle_pytorch_tpu_torch.train_dalle import dalle_loss
 
     state = trainer.state
     snapshot = [t.clone() for part in (state.params, state.opt_state.mu, state.opt_state.nu)
@@ -2151,33 +2265,68 @@ def train_flagship():
     new, loss = inject(state, trainer.dalle, {"text": text, "image": tokens}, trainer.lr)
     after = [t for part in (new.params, new.opt_state.mu, new.opt_state.nu) for t in part.values()]
     identical = all(torch.equal(a, b) for a, b in zip(snapshot, after))
-    log(f"train: NaN injected at step {int(state.step)}: loss {loss.item()}, skipped "
-        f"{int(new.skipped)}, every parameter and Adam moment bit-identical {identical}")
-    if not (torch.isnan(loss) and int(new.skipped) == 1 and identical
+    log(f"{label}: NaN injected at step {int(state.step)}: loss {loss.item()}, skipped "
+        f"{int(new.skipped) - int(state.skipped)}, every parameter and Adam moment "
+        f"bit-identical {identical}")
+    if not (torch.isnan(loss) and int(new.skipped) == int(state.skipped) + 1 and identical
             and int(new.opt_state.count) == int(state.opt_state.count)):
-        raise AssertionError("train: the NaN guard changed the state")
+        raise AssertionError(f"{label}: the NaN guard changed the state")
     trainer.state = new
-    return trainer, (text, images), launches
 
 
-def train_sparse(vae, batch):
-    """The sparse configuration (BASELINE.json configs[2] at the flagship
-    width: layers cycling full, axial_row, axial_col, conv_like) trained
-    in float32 by ``DalleTrainer`` on the flagship batch: the counted run.
-    Returns (trainer, launches of the counted run)."""
+def train_bf16(vae, batch):
+    """The flagship DALLE of phase 8 trained in mixed precision
+    (``DalleTrainer(bf16=True)``: bfloat16 compute on float32 parameters,
+    the same seeded weights) on the same batch: the counted run, the
+    packed kernels' bf16 instances once per layer, then the NaN-injected
+    step. Returns (trainer, launches of the counted run)."""
     from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
 
+    trainer = DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0, bf16=True,
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
+        shift_tokens=True, rotary_emb=True)
+    log_mixed_precision(trainer, "train bf16")
+    launches = train_run(trainer, *batch, "train bf16",
+                         {name: FLAGSHIP["depth"] for name in PACKED})
+    check_nan_guard(trainer, batch[0], vae.get_codebook_indices(batch[1]), "train bf16")
+    return trainer, launches
+
+
+def log_mixed_precision(trainer, label: str) -> None:
+    """Check and print that ``trainer``'s DALLE computes in bfloat16 on
+    float32 parameters and float32 Adam moments."""
+    dalle, adam = trainer.dalle, trainer.state.opt_state
+    types = {t.dtype for part in (dict(dalle.named_parameters()), adam.mu, adam.nu)
+             for t in part.values()}
+    log(f"{label}: compute {dalle.dtype}, parameters and Adam moments {sorted(map(str, types))}")
+    if dalle.dtype != torch.bfloat16 or types != {torch.float32}:
+        raise AssertionError(f"{label}: not bf16 on float32 parameters: {dalle.dtype}, {types}")
+
+
+def train_sparse(vae, batch, bf16: bool = False):
+    """The sparse configuration (BASELINE.json configs[2] at the flagship
+    width: layers cycling full, axial_row, axial_col, conv_like) trained
+    by ``DalleTrainer`` on the flagship batch, in float32 or with ``bf16``
+    in mixed precision: the counted run. Returns (trainer, launches of the
+    counted run)."""
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+
+    label = "train sparse bf16" if bf16 else "train sparse"
     t0 = time.perf_counter()
     trainer = DalleTrainer(
-        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0,
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0, bf16=bf16,
         dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
         dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
         shift_tokens=True, rotary_emb=True, attn_types=SPARSE_TYPES)
     types = trainer.dalle.transformer.attn_types
     torch.cuda.synchronize()
-    log(f"train sparse: layers {types}, built in {time.perf_counter() - t0:.1f} s")
+    log(f"{label}: layers {types}, built in {time.perf_counter() - t0:.1f} s")
+    if bf16:
+        log_mixed_precision(trainer, label)
     per_kind = FLAGSHIP["depth"] // 2  # full + axial_col / axial_row + conv_like
-    launches = train_run(trainer, *batch, "train sparse",
+    launches = train_run(trainer, *batch, label,
                          {name: per_kind for name in PACKED + PAIR_GRID})
     return trainer, launches
 
@@ -2188,7 +2337,8 @@ def train_512(text):
     64 x 64 grid (n = 256 + 4096 = 4352 positions, 17 x 17 flash blocks of
     256), the flagship captions ``text``; the counted run, every layer
     through the tiled forward, dq and dk/dv kernels. Returns (trainer,
-    (text, images), launches of the counted run)."""
+    (text, images), launches of the counted run); the trainer's VAE is
+    the 512 px one."""
     from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
     from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
 
@@ -2219,6 +2369,24 @@ def train_512(text):
     return trainer, (text, images), launches
 
 
+def train_512_bf16(vae, batch):
+    """Phase 11's model and batch (``vae`` the 512 px VAE) trained in mixed
+    precision (``DalleTrainer(bf16=True)``): the counted run, every layer
+    through the tiled forward, dq and dk/dv kernels' bf16 instances.
+    Returns (trainer, launches of the counted run)."""
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+
+    trainer = DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0, bf16=True,
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
+        shift_tokens=True, rotary_emb=True)
+    log_mixed_precision(trainer, "train 512 bf16")
+    launches = train_run(trainer, *batch, "train 512 bf16",
+                         {name: FLAGSHIP["depth"] for name in TILED_SPLIT})
+    return trainer, launches
+
+
 def profile_train(trainer, batch, steps: int = 3, label: str = "train profile") -> None:
     """Where a flagship train step's time goes: torch.profiler over a few
     steps after the counted run: wall and device-busy time per step,
@@ -2246,10 +2414,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in float32 to the end, split-K partials
+    # too, as the TPU's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
-        f"TF32 cuDNN {torch.backends.cudnn.allow_tf32}")
+        f"TF32 cuDNN {torch.backends.cudnn.allow_tf32}, bf16 reduced-precision reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     t0 = time.perf_counter()
     ptxas = start_ptxas_report(PACKED + ("ragged_attention", "flash_attention",
@@ -2271,9 +2443,11 @@ def main() -> int:
     check_clip_against_plain()
     check_decode_against_plain()
     for variant in ("dense", "sparse", "tiled"):
-        check_train_against_plain(variant)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_train_against_plain(variant, dtype)
     # the one-block path: the only one that runs the single-block backward
     one_block_launches = check_train_against_plain("one_block")
+    one_block_bf16_launches = check_train_against_plain("one_block", torch.bfloat16)
     results, serve_launches, model, engine = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
@@ -2294,16 +2468,31 @@ def main() -> int:
     vae = trainer.vae
     del trainer
     release_memory()
+    trainer, bf16_launches = train_bf16(vae, batch)
+    profile_train(trainer, batch, label="train bf16 profile")
+    del trainer
+    release_memory()
     trainer, sparse_launches = train_sparse(vae, batch)
     profile_train(trainer, batch, label="train sparse profile")
+    del trainer
+    release_memory()
+    trainer, sparse_bf16_launches = train_sparse(vae, batch, bf16=True)
+    profile_train(trainer, batch, label="train sparse bf16 profile")
     del trainer, vae
     release_memory()
     trainer, batch, launches_512 = train_512(batch[0])
     profile_train(trainer, batch, label="train 512 profile")
+    vae = trainer.vae
+    del trainer
+    release_memory()
+    trainer, launches_512_bf16 = train_512_bf16(vae, batch)
+    profile_train(trainer, batch, label="train 512 bf16 profile")
     paths = (("serve", serve_launches), ("serve_int8", int8_launches),
              ("serve_sparse_int8", sparse_serve_launches), ("train", train_launches),
-             ("train_sparse", sparse_launches), ("train_512", launches_512),
-             ("train_one_block", one_block_launches), *generate_launches.items())
+             ("train_bf16", bf16_launches), ("train_sparse", sparse_launches),
+             ("train_sparse_bf16", sparse_bf16_launches), ("train_512", launches_512),
+             ("train_512_bf16", launches_512_bf16), ("train_one_block", one_block_launches),
+             ("train_one_block_bf16", one_block_bf16_launches), *generate_launches.items())
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())

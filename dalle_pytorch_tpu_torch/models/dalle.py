@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.layers import LayerNorm32, seeded_init_
+from ..ops.layers import LayerNorm32, Linear, seeded_init_
 from .transformer import Transformer
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -51,9 +51,15 @@ def top_k_filter(logits: torch.Tensor, thres: float = 0.5,
 
 class DALLE(nn.Module):
     """``num_text_tokens`` is the raw text vocab; internally it is extended
-    by ``text_seq_len`` per-position padding ids. Parameters are created on
-    ``device`` in ``dtype`` (the compute dtype), LayerNorm and LayerScale
-    parameters in float32."""
+    by ``text_seq_len`` per-position padding ids. The model computes in
+    ``dtype`` on parameters created on ``device`` in ``param_dtype``
+    (default ``dtype``), LayerNorm and LayerScale parameters in float32.
+    ``dtype=torch.bfloat16, param_dtype=torch.float32`` is mixed
+    precision as flax runs it: float32 embedding tables cast to bfloat16
+    before the transformer, every projection's weights cast to bfloat16
+    at use, LayerNorm (``final_norm`` too) in float32, and the loss's
+    logsumexp in float32. Casting float32 parameters at use computes what
+    bfloat16 parameters of the same values compute."""
 
     def __init__(self, *, dim: int, depth: int, num_text_tokens: int = 10000,
                  text_seq_len: int = 256, num_image_tokens: int = 512,
@@ -65,7 +71,7 @@ class DALLE(nn.Module):
                  reversible: bool = False, remat: bool = False,
                  sparse_layout_seed: int = 0,
                  serve_quant: bool = False, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
         for name, value in (("stable", stable), ("serve_quant", serve_quant),
                             ("rotary_emb=False", not rotary_emb)):
@@ -79,21 +85,23 @@ class DALLE(nn.Module):
         self.image_fmap_size = image_fmap_size
         self.loss_img_weight = loss_img_weight
         self.device, self.dtype = torch.device(device), dtype
+        self.param_dtype = param_dtype or dtype
 
         self.text_emb = nn.Embedding(self.num_text_tokens_ext, dim,
-                                     device=device, dtype=dtype)
+                                     device=device, dtype=self.param_dtype)
         self.image_emb = nn.Embedding(num_image_tokens, dim, device=device,
-                                      dtype=dtype)
+                                      dtype=self.param_dtype)
         self.transformer = Transformer(
             dim=dim, depth=depth, seq_len=self.total_seq_len, heads=heads,
             dim_head=dim_head, attn_types=attn_types,
             image_fmap_size=image_fmap_size, shift_tokens=shift_tokens,
             rotary_emb=rotary_emb, reversible=reversible, remat=remat,
             sparse_layout_seed=sparse_layout_seed, device=device, dtype=dtype,
+            param_dtype=self.param_dtype,
         )
         self.final_norm = LayerNorm32(dim, device=device)
-        self.to_logits = nn.Linear(dim, self.total_tokens, device=device,
-                                   dtype=dtype)
+        self.to_logits = Linear(dim, self.total_tokens, device=device, dtype=dtype,
+                                param_dtype=self.param_dtype)
 
     # ------------------------------------------------------------ derived
 
@@ -138,10 +146,10 @@ class DALLE(nn.Module):
     def _head_image(self, out: torch.Tensor) -> torch.Tensor:
         """Image-vocab-only head: the ``[ext:]`` rows of ``to_logits`` on
         the final-normed hidden states; float32 logits."""
-        ext = self.num_text_tokens_ext
-        normed = self.final_norm(out).to(self.dtype)
+        ext, dt = self.num_text_tokens_ext, self.dtype
+        normed = self.final_norm(out).to(dt)
         logits = nn.functional.linear(
-            normed, self.to_logits.weight[ext:], self.to_logits.bias[ext:]
+            normed, self.to_logits.weight[ext:].to(dt), self.to_logits.bias[ext:].to(dt)
         )
         return logits.float()
 
@@ -212,10 +220,11 @@ class DALLE(nn.Module):
         is the masked cross-entropy exactly): text positions predict
         ``text[:, 1:]`` over the ``[:ext]`` rows of ``to_logits``, image
         positions ``image`` over ``[ext:]``; logsumexp in float32; the two
-        means weighted (text + loss_img_weight * image) / (1 + weight)."""
+        means weighted (text + loss_img_weight * image) / (1 + weight). The
+        two blocks' logits are in the compute dtype, as JAX's are."""
         ext, tl = self.num_text_tokens_ext, self.text_seq_len
         h = normed.to(self.dtype)
-        w, bias = self.to_logits.weight, self.to_logits.bias
+        w, bias = (t.to(self.dtype) for t in (self.to_logits.weight, self.to_logits.bias))
 
         def segment_ll(hidden, rows, labels):
             logits = nn.functional.linear(hidden, w[rows], bias[rows])

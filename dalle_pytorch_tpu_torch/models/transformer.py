@@ -41,7 +41,10 @@ class Transformer(nn.Module):
     """``seq_len`` is the model sequence length: text + image for DALL-E
     (an image grid of ``image_fmap_size``), whose attention pattern covers
     ``seq_len + 1`` positions (<bos> included); the encoder length for
-    CLIP (``image_fmap_size=None``)."""
+    CLIP (``image_fmap_size=None``). The projections compute in ``dtype``
+    on parameters stored in ``param_dtype`` (default ``dtype``); the
+    LayerNorm and LayerScale parameters are float32, the norms run in
+    float32 and the residual stream in x's dtype."""
 
     def __init__(self, *, dim: int, depth: int, seq_len: int, heads: int = 8,
                  dim_head: int = 64, ff_mult: float = 4,
@@ -51,7 +54,7 @@ class Transformer(nn.Module):
                  reversible: bool = False, remat: bool = False,
                  sparse_layout_seed: int = 0,
                  sp_axis=None, pp_axis=None, ff_experts: int = 0,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         unsupported = {
             "reversible": reversible, "remat": remat, "sp_axis": sp_axis,
@@ -93,8 +96,9 @@ class Transformer(nn.Module):
                              attn_type=self.attn_types[ind], causal=causal,
                              image_fmap_size=image_fmap_size,
                              layout_seed=sparse_layout_seed + ind,
-                             device=device, dtype=dtype)
-            ff = FeedForward(dim, ff_mult, device=device, dtype=dtype)
+                             device=device, dtype=dtype, param_dtype=param_dtype)
+            ff = FeedForward(dim, ff_mult, device=device, dtype=dtype,
+                             param_dtype=param_dtype)
             if shift_tokens:
                 attn = PreShiftToken(attn, image_fmap_size, seq_len,
                                      pass_block=True)

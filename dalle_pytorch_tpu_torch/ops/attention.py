@@ -77,6 +77,7 @@ from .flash_attention import (
     fused_qkv_supported,
     may_attend,
 )
+from .layers import Linear
 from .rotary import apply_rotary_emb, rotate_half
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -263,13 +264,16 @@ class Attention(nn.Module):
     decode form: rotary on q, k and v at each token's position, the
     q * d**-0.5 pre-scale, the masked page append (quantized for int8
     pages), and the attention core of the module docstring. Without one it
-    attends over the whole sequence (the module docstring's dispatch)."""
+    attends over the whole sequence (the module docstring's dispatch).
+    The projections compute in ``dtype`` on parameters stored in
+    ``param_dtype`` (``layers.Linear``), so q, k and v reach the kernels
+    in ``dtype``; the route does not depend on either."""
 
     def __init__(self, dim: int, seq_len: int, heads: int = 8,
                  dim_head: int = 64, attn_type: str = "full",
                  causal: bool = True, dropout: float = 0.0,
                  image_fmap_size: Optional[int] = None, layout_seed: int = 0,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         if dropout > 0:
             raise NotImplementedError(f"attention dropout {dropout} is not ported")
@@ -284,9 +288,9 @@ class Attention(nn.Module):
         self.image_fmap_size = image_fmap_size
         self.layout_seed = layout_seed
         inner = heads * dim_head
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False, device=device,
-                                dtype=dtype)
-        self.to_out = nn.Linear(inner, dim, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.to_qkv = Linear(dim, inner * 3, bias=False, **kw)
+        self.to_out = Linear(inner, dim, **kw)
 
     def pattern_mask(self) -> np.ndarray:
         """The static (L, L) may-attend matrix defining this layer."""

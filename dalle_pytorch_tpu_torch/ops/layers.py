@@ -1,9 +1,13 @@
 """Transformer building blocks (counterpart of ``dalle_pytorch_tpu/ops/layers.py``).
 
-LayerScale, PreNorm, the GEGLU feed-forward, and the token-shift wrapper
-in both forms: over a whole sequence and the decode ring. Numerics follow the reference: LayerNorm runs in
-float32 with eps 1e-6 (flax's default, not torch's 1e-5); the GEGLU gate
-is the tanh-approximated gelu (flax ``nn.gelu``).
+The linear layer with a compute dtype apart from its parameters' (flax's
+``nn.Dense`` with ``dtype`` and ``param_dtype``), LayerScale, PreNorm,
+the GEGLU feed-forward, and the token-shift wrapper in both forms: over
+a whole sequence and the decode ring. Numerics follow the reference:
+LayerNorm runs in float32 with eps 1e-6 (flax's default, not torch's
+1e-5) on float32 parameters whatever the compute dtype; LayerScale casts
+its float32 scale to x's dtype; the GEGLU gate is the tanh-approximated
+gelu (flax ``nn.gelu``), in the compute dtype.
 """
 
 from __future__ import annotations
@@ -39,6 +43,26 @@ def layer_scale_init(depth: int) -> float:
     if depth <= 24:
         return 1e-5
     return 1e-6
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` on parameters stored in
+    ``param_dtype`` (default ``dtype``): weight, bias and input are cast
+    to ``dtype`` at use, so gradients reach the stored parameters through
+    the casts in their own dtype (flax's ``nn.Dense``: float32 master
+    params, bfloat16 compute). With the two dtypes equal the casts are
+    no-ops and this is ``nn.Linear``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 device=None, dtype=torch.float32, param_dtype=None):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -83,13 +107,14 @@ class FeedForward(nn.Module):
     """GEGLU: one projection to 2 * mult * dim, x * gelu_tanh(gates), back."""
 
     def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         if dropout > 0:
             raise NotImplementedError(f"feed-forward dropout {dropout} is not ported")
         hidden = int(dim * mult)
-        self.proj_in = nn.Linear(dim, hidden * 2, device=device, dtype=dtype)
-        self.proj_out = nn.Linear(hidden, dim, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.proj_in = Linear(dim, hidden * 2, **kw)
+        self.proj_out = Linear(hidden, dim, **kw)
 
     def forward(self, x):
         x, gates = self.proj_in(x).chunk(2, dim=-1)

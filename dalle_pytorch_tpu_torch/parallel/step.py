@@ -14,6 +14,12 @@ an unguarded one), ``skipped`` and ``consec_skipped`` count up, and the
 returned loss is NaN: the host's retry and abort key off exactly that.
 No value is read back to the host inside the step.
 
+A model that computes in bfloat16 on float32 parameters (mixed
+precision, ``DALLE(dtype=torch.bfloat16, param_dtype=torch.float32)``)
+gets float32 gradients through its casts, and the clip, Adam, the update
+and the guard run in float32 as for a float32 model; there is no loss
+scaling, as in JAX.
+
 Params, and the Adam moments, are updated in place, one tensor at a
 time, so that the step holds no second copy of the model: ``params`` maps
 names to the model's own parameters. The mesh, shardings and donation of

@@ -105,6 +105,13 @@ DECODE_F32_ATOL, DECODE_BF16_ROW_REL = 1e-5, 1e-2
 # logit, ``rel_l2``): in bf16 the chain rounds the rotated q and the
 # probabilities to bf16 where the kernel keeps float32.
 DECODE_LOGITS_REL = 5e-2
+# mixed-precision training (bfloat16 compute, float32 parameters) against
+# a reference's runs of the same weights and batch (``gap_ratio``): the
+# loss and each tensor (gradients, updates, moments) within
+# BF16_GAP_FACTOR times the reference's own bfloat16 error. bfloat16
+# rounds at every operation, so no fixed bound holds across tensors; the
+# reference's bf16-to-float32 gap sets each one's scale.
+BF16_GAP_FACTOR = 2.0
 
 
 def _part_errors(got_parts, plain_parts, dead):
@@ -761,6 +768,15 @@ def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
     """||got - ref|| / ||ref|| over every entry, in float32."""
     got, ref = got.float(), ref.float()
     return ((got - ref).norm() / ref.norm()).item()
+
+
+def gap_ratio(got, bf16, f32) -> float:
+    """How far a bfloat16 run's ``got`` lies from the reference's bfloat16
+    run ``bf16``, in units of that run's gap to the reference's float32
+    run ``f32``: ``rel_l2(got, bf16) / rel_l2(bf16, f32)`` (tensors or
+    Python floats)."""
+    got, bf16, f32 = (torch.as_tensor(t) for t in (got, bf16, f32))
+    return rel_l2(got, bf16) / rel_l2(bf16, f32)
 
 
 # (batch, width, heads, dim_head, page, pages per row, start, length) of

@@ -12,10 +12,16 @@ and ``consec_skipped`` reaching ``nan_abort_after`` raises ``NanAbort``.
 The flags keep ``train_dalle.py``'s names and defaults. The ported ones
 are in ``FLAGS``; passing any other flag of ``train_dalle.py`` raises
 ``NotImplementedError``: data loading, the tokenizer, checkpoints and
-resume, telemetry, profiling, mixed precision, dropout, gradient
-accumulation, reversible and remat execution, MoE and the mesh are not
-ported, and neither is the command line. ``attn_types`` takes every type
-but "mlp" (gMLP), which raises ``NotImplementedError``.
+resume, the pretrained VAEs, telemetry, profiling, dropout, gradient
+accumulation, reversible and remat execution, stable softmax, MoE and
+the mesh are not ported, and neither is the command line. ``attn_types``
+takes every type but "mlp" (gMLP), which raises ``NotImplementedError``.
+
+``bf16`` (``--bf16``, ``--fp16`` and ``--amp`` in ``train_dalle.py``)
+trains in mixed precision as JAX does: the DALLE computes in bfloat16 on
+float32 parameters (``DALLE(dtype=torch.bfloat16,
+param_dtype=torch.float32)``), the gradients, Adam moments and the step
+stay float32, and there is no loss scaling. The VAE stays as passed.
 """
 
 from __future__ import annotations
@@ -34,13 +40,13 @@ MODEL_FLAGS = dict(dim=512, depth=2, heads=8, dim_head=64, text_seq_len=256,
                    loss_img_weight=7, shift_tokens=False, rotary_emb=False,
                    attn_types="full")
 FLAGS = dict(MODEL_FLAGS, batch_size=4, learning_rate=3e-4, clip_grad_norm=0.5,
-             lr_decay=False, nan_abort_after=5, seed=42)
+             lr_decay=False, nan_abort_after=5, seed=42, bf16=False)
 # train_dalle.py's other flags (argparse dests)
 NOT_PORTED = (
     "vae_path", "dalle_path", "image_text_folder", "wds", "truncate_captions",
     "resize_ratio", "chinese", "hug", "bpe_path", "taming", "vqgan_model_path",
     "vqgan_config_path", "openai_enc_path", "openai_dec_path",
-    "dalle_output_file_name", "bf16", "wandb", "wandb_name", "wandb_entity",
+    "dalle_output_file_name", "wandb", "wandb_name", "wandb_entity",
     "stable_softmax", "fsdp", "tp", "sp", "pp", "pp_microbatches", "ep",
     "moe_experts", "moe_every", "moe_aux_weight", "moe_capacity_factor",
     "epochs", "save_every_n_steps", "sample_every_n_steps",
@@ -64,7 +70,9 @@ class DalleTrainer:
     is the model to train; without one the trainer builds it from the
     model flags (``num_text_tokens`` the tokenizer's vocabulary, the image
     vocabulary and grid from the VAE) with seeded random weights on
-    ``device``. ``nan_inject_step`` forces the loss to NaN at that step
+    ``device``, in bfloat16 on float32 parameters with ``bf16``; a given
+    ``dalle`` must compute in the type ``bf16`` names, on float32
+    parameters. ``nan_inject_step`` forces the loss to NaN at that step
     (the fault hook of the JAX step)."""
 
     def __init__(self, vae, dalle: Optional[DALLE] = None, *,
@@ -79,6 +87,7 @@ class DalleTrainer:
             raise TypeError(f"train_dalle.py has no flags {unknown}")
         args = {**FLAGS, **flags}
         attn_types = tuple(args["attn_types"].split(","))
+        compute_dtype = torch.bfloat16 if args["bf16"] else torch.float32
         if "mlp" in attn_types:
             raise NotImplementedError(
                 f"attn_types {args['attn_types']!r}: gMLP ('mlp') layers are not ported")
@@ -93,10 +102,15 @@ class DalleTrainer:
                 loss_img_weight=args["loss_img_weight"],
                 shift_tokens=args["shift_tokens"],
                 rotary_emb=args["rotary_emb"], device=device,
+                dtype=compute_dtype, param_dtype=torch.float32,
             ).init_weights(torch.Generator(device=device).manual_seed(args["seed"]))
         elif set(flags) & set(MODEL_FLAGS):
             raise ValueError("the model flags build the DALLE: pass them or a "
                              "dalle, not both")
+        elif (dalle.dtype, dalle.param_dtype) != (compute_dtype, torch.float32):
+            raise ValueError(f"bf16={args['bf16']} trains a DALLE computing in "
+                             f"{compute_dtype} on float32 parameters, got {dalle.dtype} "
+                             f"on {dalle.param_dtype}")
         self.vae, self.dalle = vae, dalle
         self.batch_size = args["batch_size"]
         self.nan_abort_after = args["nan_abort_after"]
