@@ -49,12 +49,12 @@
 // whose longest streams 40 halves against the shortest's 2: latency and
 // that imbalance bound it, not the rate.
 //
-// Two designs. The bfloat16 forward, dq, dk/dv and single-block backward
-// run float32 FMAs on the CUDA cores from shared memory: one block of 256
+// Three designs. The bfloat16 forward and single-block backward run
+// float32 FMAs on the CUDA cores from shared memory: one block of 256
 // threads per (TILE-row tile, b*h), in the tiles of attention_tiles.cuh
-// (dq_tile and dkdv_tile serve only these bf16 instances), shared with
-// block_sparse_attention.cu. The float32 forward, dq, dk/dv and
-// single-block backward (flash_fwd_tf32_kernel, flash_dq_tf32_kernel,
+// (dq_tile and dkdv_tile serve only the bf16 single-block backward),
+// shared with block_sparse_attention.cu. The float32 forward, dq, dk/dv
+// and single-block backward (flash_fwd_tf32_kernel, flash_dq_tf32_kernel,
 // flash_dkdv_tf32_kernel, flash_bwd_fused_tf32_kernel) run every product
 // as split 3xTF32 mma.sync.m16n8k8 on the tensor cores (csrc/tf32_tiles.cuh,
 // whose numerics keep float32's tolerances): blocks of 4 warps, each warp 16
@@ -70,12 +70,19 @@
 // forward, dq and dk/dv bodies are csrc/tf32_sweeps.cuh's, which the pair
 // grid's float32 kernels share; the single-block backward runs both in one launch, its key
 // blocks deriving each streamed half's delta from O and dO rows streamed
-// with it, so its gradients are the dq + dk/dv chain's bit for bit.
+// with it, so its gradients are the dq + dk/dv chain's bit for bit. The
+// bfloat16 dq and dk/dv (flash_dq_tc_kernel, flash_dkdv_tc_kernel) take
+// the float32 design's blocks, ring and walks with bf16 mma.sync.m16n8k16
+// products and float32 accumulation (csrc/mma_tiles.cuh): the bodies are
+// csrc/bf16_sweeps.cuh's, p and ds rounded to bf16 as they are packed into
+// the next product's A fragments. At the 512 px shape their products take
+// ~0.24 and ~0.31 ms at the tensor cores' 989 TFLOP/s bf16 rate.
 
 #include <algorithm>
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "bf16_sweeps.cuh"
 #include "tf32_sweeps.cuh"
 
 namespace {
@@ -288,18 +295,6 @@ __device__ __forceinline__ void dkdv_tile(const Operands<T>& a, unsigned char* s
   store_rows<T, D>(dv_acc, a.dv + head, k0, n);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_dq_kernel(const Operands<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  dq_tile<T, D>(a, smem_raw, a.n / TILE - 1 - (int)blockIdx.x, blockIdx.y);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_dkdv_kernel(const Operands<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  dkdv_tile<T, D>(a, smem_raw, blockIdx.x, blockIdx.y);
-}
-
 // blocks 0 .. nt - 1 compute dq (longest causal rows first), blocks
 // nt .. 2 nt - 1 dk and dv (longest causal columns first)
 template <typename T, int D>
@@ -331,9 +326,10 @@ enum class Pass { kFwd, kDq, kDkdv, kFused };
 
 static_assert(TILE == tf32::ROWS, "the visit map's tile is the resident tile");
 
-// One head's operands of the entry point's (b*h, n, d) tensors
-template <int D>
-__device__ __forceinline__ tf32::Head head_of(const Operands<float>& a, int bh) {
+// One head's operands of the entry point's (b*h, n, d) tensors, as the
+// sweeps take them (H: tf32::Head or bf16s::Head)
+template <class H, int D, typename T>
+__device__ __forceinline__ H head_of(const Operands<T>& a, int bh) {
   const int64_t head = (int64_t)bh * a.n * D, rows = (int64_t)bh * a.n;
   auto at = [](auto* p, int64_t off) { return p == nullptr ? nullptr : p + off; };
   return {at(a.q, head),       at(a.k, head),       at(a.v, head),
@@ -345,7 +341,8 @@ __device__ __forceinline__ tf32::Head head_of(const Operands<float>& a, int bh) 
 }
 
 // The key halves of visit-map row qt
-__device__ __forceinline__ tf32::VisitRow row_of(const Operands<float>& a, int qt) {
+template <typename T>
+__device__ __forceinline__ tf32::VisitRow row_of(const Operands<T>& a, int qt) {
   return {a.visit + (int64_t)qt * (a.n / TILE), a.pattern, a.n, qt * TILE};
 }
 
@@ -370,8 +367,9 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
   tf32::fwd_sweep<D>(h, row_of(a, a.n / TILE - 1 - (int)blockIdx.y), smem_raw);
 }
 
-// The key halves of visit-map column kt
-__device__ __forceinline__ tf32::VisitColumn column_of(const Operands<float>& a, int kt) {
+// The query halves of visit-map column kt
+template <typename T>
+__device__ __forceinline__ tf32::VisitColumn column_of(const Operands<T>& a, int kt) {
   return {a.visit + kt, a.pattern, a.n / TILE, a.n, kt * TILE};
 }
 
@@ -382,8 +380,8 @@ template <int D>
 __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
     flash_dq_tf32_kernel(const Operands<float> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  tf32::dq_sweep<D>(head_of<D>(a, blockIdx.x), row_of(a, a.n / TILE - 1 - (int)blockIdx.y),
-                    smem_raw);
+  tf32::dq_sweep<D>(head_of<tf32::Head, D>(a, blockIdx.x),
+                    row_of(a, a.n / TILE - 1 - (int)blockIdx.y), smem_raw);
 }
 
 // dk and dv of key tile blockIdx.y (longest causal columns first) of
@@ -393,7 +391,8 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 2 : 1)
     flash_dkdv_tf32_kernel(const Operands<float> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kt = blockIdx.y;
-  tf32::dkdv_sweep<D, false>(head_of<D>(a, blockIdx.x), column_of(a, kt), kt * TILE, smem_raw);
+  tf32::dkdv_sweep<D, false>(head_of<tf32::Head, D>(a, blockIdx.x), column_of(a, kt), kt * TILE,
+                             smem_raw);
 }
 
 // The single-block backward of head blockIdx.x in one launch: even
@@ -411,7 +410,7 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 3 : D <= 64 ? 2 : 1)
     flash_bwd_fused_tf32_kernel(const Operands<float> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nt = a.n / TILE, y = blockIdx.y;
-  const tf32::Head head = head_of<D>(a, blockIdx.x);
+  const tf32::Head head = head_of<tf32::Head, D>(a, blockIdx.x);
   if ((y & 1) == 0) {
     tf32::dq_sweep<D>(head, row_of(a, nt - 1 - (y >> 1)), smem_raw);
   } else {
@@ -454,6 +453,65 @@ int launch_tf32(Pass pass, const Operands<float>& a, int batch, cudaStream_t str
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------- bfloat16 dq and dk/dv: bf16 mma.sync
+//
+// The float32 dq and dk/dv design (a resident 64-row tile, 4 warps of 16
+// rows, 32-row halves of the visit map streamed through a cp.async ring,
+// here of 3 stages so that one barrier a half serves) on bf16
+// mma.sync.m16n8k16 with float32 accumulation: the bodies are
+// csrc/bf16_sweeps.cuh's, over the same walks. Tiles are bf16 rows padded
+// to d + 8; nothing is split, and p and ds are rounded to bf16 as they
+// are packed into the next product's A fragments. At d 64 a dq or dk/dv
+// block holds 46-52 KB of shared memory; registers, not shared memory,
+// set the blocks an SM holds.
+
+// dq of query tile nt - 1 - blockIdx.y (longest causal rows first) of
+// head blockIdx.x, over its visited key halves; delta from do and o,
+// written to a.delta_out
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 2)
+    flash_dq_tc_kernel(const Operands<tc::bf16> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16s::dq_sweep<D>(head_of<bf16s::Head, D>(a, blockIdx.x),
+                     row_of(a, a.n / TILE - 1 - (int)blockIdx.y), smem_raw);
+}
+
+// dk and dv of key tile blockIdx.y (longest causal columns first) of
+// head blockIdx.x, over its visited query halves, on a.delta_in
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 2)
+    flash_dkdv_tc_kernel(const Operands<tc::bf16> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kt = blockIdx.y;
+  bf16s::dkdv_sweep<D, false>(head_of<bf16s::Head, D>(a, blockIdx.x), column_of(a, kt), kt * TILE,
+                              smem_raw);
+}
+
+// The bf16 dq and dk/dv launches: grid (b*h, n / TILE), so that the
+// scheduler starts every head's longest tiles first. -1 for more tiles
+// than a grid dimension holds or an operand not 16-byte aligned
+// (cp.async, ldmatrix, vector stores).
+template <int D>
+int launch_bf16(Pass pass, const Operands<tc::bf16>& a, int batch, cudaStream_t stream) {
+  const int nt = a.n / TILE;
+  if (nt > 65535 ||
+      !tc::aligned16({a.q, a.k, a.v, a.o, a.dout, a.pattern, a.dq, a.dk, a.dv}))
+    return -1;
+  const dim3 grid(batch * a.heads, nt);
+  const bool pattern = a.pattern != nullptr;
+  int err = 0;
+  if (pass == Pass::kDq) {
+    const int smem = bf16s::dq_sweep_smem_bytes(D, pattern);
+    if ((err = allow_smem(flash_dq_tc_kernel<D>, smem)) != 0) return err;
+    flash_dq_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
+  } else {
+    const int smem = bf16s::dkdv_sweep_smem_bytes(D, pattern, false);
+    if ((err = allow_smem(flash_dkdv_tc_kernel<D>, smem)) != 0) return err;
+    flash_dkdv_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
 // shapes every entry point refuses (-1): an empty shape, n not a multiple
 // of TILE, more (batch, head) pairs than a grid dimension holds
 bool refused(int batch, int heads, int n) {
@@ -478,24 +536,13 @@ int launch(Pass pass, const Operands<T>& a, int batch, cudaStream_t stream) {
         flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
       }
       break;
-    case Pass::kDq:
-      if constexpr (f32) {
-        return launch_tf32<D>(pass, a, batch, stream);
-      } else {
-        smem = dq_smem_bytes<D>();
-        if ((err = allow_smem(flash_dq_kernel<T, D>, smem)) != 0) return err;
-        flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
-      }
-      break;
+    case Pass::kDq:  // float32: 3xTF32; bfloat16: bf16 mma.sync
     case Pass::kDkdv:
       if constexpr (f32) {
         return launch_tf32<D>(pass, a, batch, stream);
       } else {
-        smem = dkdv_smem_bytes<D>();
-        if ((err = allow_smem(flash_dkdv_kernel<T, D>, smem)) != 0) return err;
-        flash_dkdv_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+        return launch_bf16<D>(pass, a, batch, stream);
       }
-      break;
     case Pass::kFused:
       if constexpr (f32) {
         return launch_tf32<D>(pass, a, batch, stream);
@@ -554,8 +601,8 @@ int dispatch(Pass pass, const Pointers& p, int batch, int heads, int n, int dim_
 // cudaGetLastError() after it (0 on success), or -1 for what the kernels
 // cannot take: a dim_head other than 32/64/96/128, a dtype code other
 // than 0/1, n not a positive multiple of 64, more (batch, head) pairs
-// than a grid dimension holds, or (float32) more than 65535 tiles of a
-// grid or an operand not 16-byte aligned.
+// than a grid dimension holds, or (float32, and the bfloat16 dq and dk/dv)
+// more than 65535 tiles of a grid or an operand not 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kmask, const void* pattern,
                                    const void* visit, void* out, void* lse, int batch,

@@ -63,17 +63,17 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows row0 .. row0 + ROWS - 1 of one head's d channels (rows
-// `row_stride` elements apart in global memory) into a tile whose rows are
-// DST elements apart (padded by default), rows past n zero
-template <int D, int DST = D + 8>
+// rows row0 .. row0 + R - 1 (R = ROWS by default) of one head's d
+// channels (rows `row_stride` elements apart in global memory) into a tile
+// whose rows are DST elements apart (padded by default), rows past n zero
+template <int D, int DST = D + 8, int R = ROWS>
 __device__ __forceinline__ void load_tile_async(bf16* __restrict__ dst,
                                                 const bf16* __restrict__ src,
                                                 int64_t row_stride, int row0, int n) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
-  static_assert(ROWS * CH % THREADS == 0, "whole chunks per thread");
+  static_assert(R * CH % THREADS == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+  for (int i = 0; i < R * CH / THREADS; ++i) {
     const int x = threadIdx.x + i * THREADS;
     const int r = x / CH, c = (x % CH) * 8, row = row0 + r;
     const bool ok = row < n;

@@ -49,7 +49,11 @@ role split (its query blocks' and key blocks' delta by
 k-major walk visits (``pair_dkdv_halves``); ``emulated_pair_fwd`` and
 ``emulated_pair_dq`` its float32 forward and dq over the halves its row
 walk visits (``pair_row_halves``, the rows of
-``block_sparse_attention.half_classes``).
+``block_sparse_attention.half_classes``). The tiled bf16 dq and dk/dv
+run on bf16 tensor-core tiles: ``emulated_bf16_tiled_dq`` and
+``emulated_bf16_tiled_dkdv`` run their arithmetic (float32 sums of bf16
+products per 32-row half, p and ds rounded to bf16 where the sweeps pack
+them, delta from the bf16 o and do).
 
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
@@ -525,6 +529,65 @@ def emulated_single_block_bwd(q, k, v, o, lse, do, key_mask=None, causal: bool =
                                lambda a, b: matmul_3xtf32_card(a, b, 32), key_mask, causal,
                                pattern, delta=delta_k)
     return (*grads, delta_q, delta_k)
+
+
+def emulated_bf16_tiled_dq(q, k, v, o, lse, do, key_mask=None, causal: bool = True,
+                           pattern=None):
+    """The tiled bf16 dq as ``flash_dq_tc_kernel`` runs it (csrc/
+    bf16_sweeps.cuh), on bf16 q, k, v, o, do (b, h, n, d) and the
+    forward's lse (b, h, n): delta = rowsum(o * do) in float32 from the
+    bf16 o and do (``emulated_row_delta``, the warp's order); then over
+    the 32-key halves in the walk's order (key order; a half the walk
+    passes over adds exact zeros, so every half is taken here), s = q.k^T
+    and dp = do.v^T in float32 from the bf16 inputs, s scaled and masked,
+    p = exp(s - lse) where s > 0.5 * NEG_INF, ds = p * (dp - delta) *
+    scale rounded to bf16 (where the sweep packs it into the A fragments
+    of dS.K), and the half's ds.k added to the running float32 sum.
+    Returns (dq in bf16, delta float32)."""
+    n, d = q.shape[-2:]
+    scale = d**-0.5
+    allowed = fa.may_attend(n, q.device, key_mask, causal, pattern)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = emulated_row_delta(o, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, n, 32):
+        ks = slice(k0, k0 + 32)
+        s = (qf @ kf[..., ks, :].transpose(-1, -2) * scale).masked_fill(~allowed[..., ks],
+                                                                         fa.NEG_INF)
+        p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - lse[..., None]), 0.0)
+        dp = dof @ vf[..., ks, :].transpose(-1, -2)
+        ds = (p * (dp - delta[..., None]) * scale).bfloat16().float()
+        dq = dq + ds @ kf[..., ks, :]
+    return dq.bfloat16(), delta
+
+
+def emulated_bf16_tiled_dkdv(q, k, v, do, lse, delta, key_mask=None, causal: bool = True,
+                             pattern=None):
+    """The tiled bf16 dk/dv as ``flash_dkdv_tc_kernel`` runs it (key-major,
+    csrc/bf16_sweeps.cuh), on bf16 q, k, v, do (b, h, n, d), the forward's
+    lse and the dq pass's delta (b, h, n): over the 32-query halves in the
+    walk's order (query order; a half the walk passes over adds exact
+    zeros), s^T = k.q^T and dp^T = v.do^T in float32 from the bf16 inputs,
+    s scaled and masked, p = exp(s - lse) where s > 0.5 * NEG_INF; p
+    rounded to bf16 for dv += p^T.do and ds = p * (dp - delta) * scale (on
+    the unrounded p) rounded to bf16 for dk += ds^T.q, each half's partial
+    added to the running float32 sums. Returns (dk, dv) in bf16."""
+    n, d = q.shape[-2:]
+    scale = d**-0.5
+    allowed = fa.may_attend(n, q.device, key_mask, causal, pattern)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    dk = torch.zeros(q.shape, dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, n, 32):
+        rows = slice(q0, q0 + 32)
+        s = (kf @ qf[..., rows, :].transpose(-1, -2) * scale).masked_fill(
+            ~allowed[..., rows, :].transpose(-1, -2), fa.NEG_INF)  # (b, h, key, query)
+        p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - lse[..., None, rows]), 0.0)
+        dp = vf @ dof[..., rows, :].transpose(-1, -2)
+        ds = p * (dp - delta[..., None, rows]) * scale
+        dv = dv + p.bfloat16().float() @ dof[..., rows, :]
+        dk = dk + ds.bfloat16().float() @ qf[..., rows, :]
+    return dk.bfloat16(), dv.bfloat16()
 
 
 def pair_dkdv_halves(layout, k0: int):

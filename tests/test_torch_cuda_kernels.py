@@ -678,10 +678,12 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ["pattern", "d64", "one_block", "long", "long_axial_col"])
-def test_flash_kernels_are_deterministic(cuda, case):
-    """No float atomics: two runs give bit-identical outputs and gradients."""
-    q, k, v, do, opts = flash_inputs(case, torch.float32, cuda)
+def test_flash_kernels_are_deterministic(cuda, case, dtype):
+    """No float atomics: two runs give bit-identical outputs and gradients,
+    in both types (the bf16 dq and dk/dv on bf16 tensor-core tiles)."""
+    q, k, v, do, opts = flash_inputs(case, dtype, cuda)
     first, second = _flash_run(q, k, v, do, opts), _flash_run(q, k, v, do, opts)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
@@ -882,6 +884,17 @@ def test_flash_kernels_reject_what_they_cannot_take(cuda):
         fa.flash_attention_dkdv(q, q, q, o, lse, lse[:, :1])
     with pytest.raises(ValueError):  # o of the wrong shape
         fa.flash_attention_bwd_fused(q, q, q, o[:, :1], lse, o)
+    # the bf16 dq and dk/dv (cp.async, ldmatrix) take 16-byte aligned
+    # operands only: the wrapper raises, with no fallback
+    qb = q.bfloat16()
+    ob, lseb = fa.flash_attention_fwd(qb, qb, qb)
+    shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkdv.launches)
+    with pytest.raises(ValueError):
+        fa.flash_attention_dq(qb, qb, shifted, ob, lseb, ob)
+    with pytest.raises(ValueError):
+        fa.flash_attention_dkdv(qb, shifted, qb, ob, lseb, lseb)
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkdv.launches) == before
 
 
 @pytest.mark.gpu
