@@ -1,15 +1,11 @@
-// Tile pieces shared by the port's tiled attention kernels
-// (block_sparse_attention.cu, flash_attention.cu): the tile geometry and
+// Tile pieces of the pair grid's bf16 kernels (block_sparse_attention.cu:
+// bs_fwd_kernel, bs_dq_kernel, bs_dkdv_kernel): the tile geometry and
 // shared-memory layouts, tile loads and stores, the may-attend rule of a
 // tile, and the per-tile steps of the forward (online softmax), the dq
 // pass and the dk/dv pass. Every product is a float32 FMA from shared
-// memory. The bf16 instances left on these CUDA-core tiles: the tiled
-// flash forward and single-block backward (flash_fwd_kernel,
-// flash_bwd_fused_kernel, whose dq_tile and dkdv_tile run the dq and dk/dv
-// steps) and the pair grid's forward, dq and dk/dv (bs_fwd_kernel,
-// bs_dq_kernel, bs_dkdv_kernel). Every float32 instance and the tiled bf16
-// dq and dk/dv run on the tensor cores (tf32_sweeps.cuh, bf16_sweeps.cuh);
-// NEG_INF, TILE and allow_smem serve them too.
+// memory. Every other attention kernel runs on the tensor cores
+// (tf32_sweeps.cuh, bf16_sweeps.cuh); NEG_INF, TILE and allow_smem serve
+// them too (flash_attention.cu keeps only those).
 //
 // Layout: one block of THREADS = 256 threads per TILE-row tile. Tiles are
 // TILE x d floats in shared memory with a padded row stride of d + 1;

@@ -1,9 +1,24 @@
-// The bfloat16 attention backward sweeps on bf16 mma.sync.m16n8k16 tiles
-// with float32 accumulation (mma_tiles.cuh), the bf16 counterparts of
-// tf32_sweeps.cuh's dq_sweep and dkdv_sweep, over the same walks
-// (tf32::VisitRow, tf32::VisitColumn, and the pair grid's HalfRow and
-// PairRun, which do no float arithmetic). The tiled flash kernels'
-// bf16 dq and dk/dv (flash_attention.cu) run them.
+// The bfloat16 attention sweeps on bf16 mma.sync.m16n8k16 tiles with
+// float32 accumulation (mma_tiles.cuh), the bf16 counterparts of
+// tf32_sweeps.cuh's fwd_sweep, dq_sweep and dkdv_sweep, over the same
+// walks (tf32::VisitRow, tf32::VisitColumn, and the pair grid's HalfRow
+// and PairRun, which do no float arithmetic). The tiled flash kernels'
+// bf16 forward, dq, dk/dv and single-block backward (flash_attention.cu)
+// run them.
+//
+// fwd_sweep: a block of 4 warps owns one 64-row query tile of one head, Q
+// resident (its A fragments in registers at d <= 64), and streams the
+// 32-key halves of its row that `walk` visits through the dq sweep's
+// 3-stage cp.async ring. S = Q.K^T accumulates in float32 C fragments,
+// is scaled after the product and masked as the dq sweep masks it; the
+// online softmax runs on the C fragments (the row max over the quad, corr
+// = exp(m_prev - m_new) rescaling l and the O accumulators, p = exp(s -
+// m) only where s > 0.5 * NEG_INF, else 0, l the thread's partial sum,
+// reduced over the quad at the end); p is rounded to bf16 as it is packed
+// into the A fragments of O += P.V (V read as B by ldmatrix.trans). o =
+// acc / l (l = 1 where l == 0, so a row with no allowed key writes exactly
+// 0 and lse -1e30), lse = m + log(l) in float32; o rounds to bf16 once,
+// at the store.
 //
 // dq_sweep: a block of 4 warps owns one 64-row query tile of one head, Q
 // and dO resident (warp w rows 16w .. 16w + 15; at d <= 64 their A
@@ -32,12 +47,14 @@
 // Numerics: every product accumulates in float32 (the running sums over
 // keys or queries straight in the accumulators); p and ds are rounded to
 // bf16 exactly where the plain version rounds them (dp - delta stays
-// float32); dq, dk and dv round to bf16 once, at the store. No float
+// float32; the forward's p against the running max, as JAX's kernel
+// rounds it); o, dq, dk and dv round to bf16 once, at the store. No float
 // atomics: two runs are bitwise equal. Rows at or past n load as 0
 // (cp.async zero fill), their lse and delta are 0, and they are never
 // written; a row with no allowed key, and a key no query attends, give
 // exactly 0. A key tile whose keys the key mask drops entirely writes
-// dk = dv = 0 without loading anything.
+// dk = dv = 0 without loading anything; a key half it drops entirely is
+// passed over by the row sweeps (it would add p = 0).
 //
 // Element e of C n-block j is row (or key) 16w + g + 8 * (e / 2) and
 // column 8j + 2t + e % 2 of the streamed half (lane = 4g + t); masks are
@@ -76,6 +93,8 @@ struct Head {
   float* delta_out;
   int n;
   float scale;
+  bf16* out;  // the forward's
+  float* lse_out;
 };
 
 // rowsum(o * do) of one row of D bf16 channels in float32, as a warp sums
@@ -143,6 +162,12 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], bf16* __
 }
 
 // Bytes of dynamic shared memory of each sweep at dim_head d
+constexpr int fwd_sweep_smem_bytes(int d, bool pattern) {
+  // Q, STAGES stages of K and V (bf16 rows padded to d + 8), of key bits
+  // (16 bytes) and of the (64, 32) pattern tile
+  return 2 * (ROWS + 2 * STAGES * SROWS) * (d + 8) + 16 + (pattern ? STAGES * ROWS * SROWS : 0);
+}
+
 constexpr int dq_sweep_smem_bytes(int d, bool pattern) {
   // Q, dO, STAGES stages of K and V (bf16 rows padded to d + 8), of key
   // bits (16 bytes) and of the (64, 32) pattern tile
@@ -155,6 +180,186 @@ constexpr int dkdv_sweep_smem_bytes(int d, bool pattern, bool delta_from_o) {
   // lse and delta and of the (32, 64) mask tile
   return 2 * (2 * ROWS + (delta_from_o ? 3 : 2) * STAGES * SROWS) * (d + 8) +
          4 * 2 * STAGES * SROWS + (pattern ? STAGES * SROWS * ROWS : 0);
+}
+
+// o and lse of query tile walk.q0 of a head over the key halves of
+// `walk` whose keys the key mask keeps. The thread's rows are r0 = q0 +
+// 16w + g and r0 + 8; m, l and o live in registers, l as the thread's
+// part of the row sum (its quad's columns), reduced over the quad at the
+// end.
+template <int D, class Walk>
+__device__ __forceinline__ void fwd_sweep(const Head& a, const Walk& walk,
+                                          unsigned char* smem_raw) {
+  constexpr int TE = tc::tile_elems<D>(), DS = tc::stride<D>(), TS = SROWS * DS;
+  constexpr int PM = ROWS * SROWS;  // bytes of a mask tile
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (64, D + 8)
+  bf16* ks = qs + TE;                            // STAGES stages of (32, D + 8)
+  bf16* vs = ks + STAGES * TS;                   // STAGES stages of (32, D + 8)
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(vs + STAGES * TS);  // a word a stage (4)
+  int8_t* pms = reinterpret_cast<int8_t*>(kbits + 4);              // stages of (64, 32)
+  static_assert(STAGES <= 4, "the key bits take 16 bytes");
+
+  const int n = a.n, q0 = walk.q0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const uint8_t* km = a.km;
+  const int r0 = q0 + 16 * warp + g;  // the thread's rows r0, r0 + 8
+
+  auto issue = [&](int h, int st) {
+    const int k0 = h * SROWS;
+    tc::load_tile_async<D, D + 8, SROWS>(ks + st * TS, a.k, D, k0, n);
+    tc::load_tile_async<D, D + 8, SROWS>(vs + st * TS, a.v, D, k0, n);
+    walk.fetch_mask(h, pms + st * PM);
+  };
+
+  float o[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  // a half of masked keys adds p = 0 and leaves m, l and o as they are:
+  // not loaded, nor is Q while every half so far was such a half. The
+  // first two live halves go into stages 0 and 1, one commit group each.
+  ResidentA<D> qa(qs, 16 * warp);
+  bool resident = false;
+  int h = walk.next(0, km, kbits), st = 0;
+  if (walk.live(h)) {
+    tc::load_tile_async<D>(qs, a.q, D, q0, n);
+    issue(h, 0);
+  }
+  tc::cp_async_commit();
+  int h1 = walk.live(h) ? walk.next(h + 1, km, kbits + 1) : h;
+  if (walk.live(h1)) issue(h1, 1);
+  tc::cp_async_commit();
+  while (walk.live(h)) {
+    // the group of half h has landed (h1's may be in flight); after the
+    // barrier every warp is done with the stage read two halves ago, and
+    // the live half after h1 goes into it
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int st2 = next_stage(next_stage(st));
+    const int h2 = walk.live(h1) ? walk.next(h1 + 1, km, kbits + st2) : h1;
+    if (walk.live(h2)) issue(h2, st2);
+    tc::cp_async_commit();
+    if (!resident) {  // Q landed with the first half
+      qa.hold();
+      resident = true;
+    }
+    const int k0 = h * SROWS, cls = walk.cls(h);
+    const bf16* k_s = ks + st * TS;
+    const bf16* v_s = vs + st * TS;
+
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4];
+      qa.get(qf, kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t kb[4];
+        tc::load_b_rows<D>(kb, k_s, 16 * np, 16 * kk);
+        tc::mma(s[2 * np], qf, kb[0], kb[1]);
+        tc::mma(s[2 * np + 1], qf, kb[2], kb[3]);
+      }
+    }
+
+    // scale and mask: element e of n-block j is row r0 + 8 * (e / 2), key
+    // column c = 8j + 2t + e % 2 of the half
+    const uint64_t bits = tc::key_bits<SROWS>(km != nullptr, kbits + st, k0, n);
+    const bool need_mask = cls == 1 || bits != tc::all_keys<SROWS>();
+    const bool use_pattern = walk.use_pattern(cls);
+    const int8_t* pm_t = pms + st * PM;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+        bool ok = true;
+        if (need_mask) {
+          ok = ((bits >> c) & 1) != 0;
+          if (cls == 1)
+            ok = ok && (use_pattern ? pm_t[(row - q0) * SROWS + c] != 0 : row >= k0 + c);
+        }
+        s[j][e] = ok ? s[j][e] * a.scale : NEG_INF;
+      }
+
+    // online softmax over the quad's 32 columns of rows r0 and r0 + 8
+    float mx[2] = {NEG_INF, NEG_INF}, m2[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float corr = expf(m[r] - m_new);
+      m[r] = m_new;
+      m2[r] = m_new * tc::LOG2E;
+      l[r] *= corr;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][2 * r] *= corr;
+        o[j][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = s[j][e];
+        const float p = sv > 0.5f * NEG_INF ? tc::exp_diff(sv, m2[e >> 1]) : 0.f;
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+
+    // O += P.V over the half's 32 keys: p rounded to bf16 in the packing
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t pa[4];
+      tc::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t vb[4];
+        tc::load_b_cols<D>(vb, v_s, 16 * kk, 16 * c);
+        tc::mma(o[2 * c], pa, vb[0], vb[1]);
+        tc::mma(o[2 * c + 1], pa, vb[2], vb[3]);
+      }
+    }
+    h = h1;
+    h1 = h2;
+    st = next_stage(st);
+  }
+
+  // o / l (l = 1 where l == 0: a row with no allowed key writes exactly
+  // 0, lse -1e30) rounded to bf16 into the warp's own rows of the Q tile
+  // (every load has landed: the last wait left only empty groups in
+  // flight), then 16-byte stores
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+  }
+  bf16* ow = qs + 16 * warp * DS;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8 * r) * DS + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(o[j][2 * r] / l_safe[r], o[j][2 * r + 1] / l_safe[r]);
+  __syncwarp();
+  tc::store_rows<D>(a.out, D, ow, q0 + 16 * warp, n);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < n) a.lse_out[row] = m[r] + logf(l_safe[r]);
+    }
+  }
 }
 
 // dq of query tile walk.q0 of a head over the key halves of `walk` whose

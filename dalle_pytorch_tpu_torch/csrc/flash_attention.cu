@@ -37,10 +37,11 @@
 // H100 SXM's 67 TFLOP/s float32 rate on the CUDA cores, ~0.9, ~1.4 and
 // ~1.9 ms at its tensor cores' 495 / 3 TFLOP/s as split 3xTF32 (data
 // sheet rates, 700 W), against ~0.1 ms of bytes at its 3.35 TB/s (q, k,
-// v, o, do and the gradients once each): operations bound it. The design keeps every score on chip and, unlike the TPU
-// kernel, neither loads nor computes a class 0 tile; a tile whose keys
-// the key mask drops entirely is skipped too (it would add p = 0 and
-// leave every sum as it is). The query tiles of the causal forward and
+// v, o, do and the gradients once each): operations bound it. The
+// design keeps every score on chip and, unlike the TPU kernel, neither
+// loads nor computes a class 0 tile; a streamed half whose keys the key
+// mask drops entirely is skipped too (it would add p = 0 and leave every
+// sum as it is). The query tiles of the causal forward and
 // dq are launched longest row first. There are no float atomics: dq
 // accumulates over key tiles inside one block and dk/dv over query tiles
 // inside one block, so two runs give bit-identical results. The
@@ -49,34 +50,33 @@
 // whose longest streams 40 halves against the shortest's 2: latency and
 // that imbalance bound it, not the rate.
 //
-// Three designs. The bfloat16 forward and single-block backward run
-// float32 FMAs on the CUDA cores from shared memory: one block of 256
-// threads per (TILE-row tile, b*h), in the tiles of attention_tiles.cuh
-// (dq_tile and dkdv_tile serve only the bf16 single-block backward),
-// shared with block_sparse_attention.cu. The float32 forward, dq, dk/dv
-// and single-block backward (flash_fwd_tf32_kernel, flash_dq_tf32_kernel,
-// flash_dkdv_tf32_kernel, flash_bwd_fused_tf32_kernel) run every product
-// as split 3xTF32 mma.sync.m16n8k8 on the tensor cores (csrc/tf32_tiles.cuh,
-// whose numerics keep float32's tolerances): blocks of 4 warps, each warp 16
-// rows of a resident 64-row tile (Q for the forward, Q and dO for dq, K
-// and V for dk/dv), the other operands streamed in 32-row tiles through a
-// 2-stage cp.async ring and split into TF32 big and small parts once when
-// they land; the forward's online softmax runs on the score accumulators
-// and P feeds O += P.V from registers; the dk/dv pass is key-major (S^T =
-// K.Q^T, dP^T = V.dO^T) so that P^T and dS^T feed dV += P^T.dO and dK +=
-// dS^T.Q from registers; the sums over keys (o, dq) and queries (dk/dv)
-// fold a fresh partial per streamed tile in with rounded FMAs, since the
-// tensor cores truncate as they accumulate (tf32::fold_product). The
-// forward, dq and dk/dv bodies are csrc/tf32_sweeps.cuh's, which the pair
-// grid's float32 kernels share; the single-block backward runs both in one launch, its key
-// blocks deriving each streamed half's delta from O and dO rows streamed
-// with it, so its gradients are the dq + dk/dv chain's bit for bit. The
-// bfloat16 dq and dk/dv (flash_dq_tc_kernel, flash_dkdv_tc_kernel) take
-// the float32 design's blocks, ring and walks with bf16 mma.sync.m16n8k16
-// products and float32 accumulation (csrc/mma_tiles.cuh): the bodies are
-// csrc/bf16_sweeps.cuh's, p and ds rounded to bf16 as they are packed into
-// the next product's A fragments. At the 512 px shape their products take
-// ~0.24 and ~0.31 ms at the tensor cores' 989 TFLOP/s bf16 rate.
+// Two designs, both on the tensor cores with blocks of 4 warps, each warp
+// 16 rows of a resident 64-row tile (Q for the forward, Q and dO for dq,
+// K and V for dk/dv), the other operands streamed in 32-row halves of the
+// visit map through a cp.async ring; the forward's online softmax runs on
+// the score accumulators and P feeds O += P.V from registers; the dk/dv
+// pass is key-major (S^T = K.Q^T, dP^T = V.dO^T) so that P^T and dS^T
+// feed dV += P^T.dO and dK += dS^T.Q from registers; the single-block
+// backward runs the dq and dk/dv bodies in one launch, its key blocks
+// deriving each streamed half's delta from O and dO rows streamed with
+// it, so its gradients are the dq + dk/dv chain's bit for bit.
+//  - float32 (flash_fwd_tf32_kernel, flash_dq_tf32_kernel,
+//    flash_dkdv_tf32_kernel, flash_bwd_fused_tf32_kernel): every product
+//    as split 3xTF32 mma.sync.m16n8k8 (csrc/tf32_tiles.cuh, whose
+//    numerics keep float32's tolerances), a 2-stage ring whose tiles are
+//    split into TF32 big and small parts once when they land; the sums
+//    over keys (o, dq) and queries (dk/dv) fold a fresh partial per
+//    streamed half in with rounded FMAs, since the tensor cores truncate
+//    as they accumulate (tf32::fold_product). The bodies are
+//    csrc/tf32_sweeps.cuh's, which the pair grid's float32 kernels share.
+//  - bfloat16 (flash_fwd_tc_kernel, flash_dq_tc_kernel,
+//    flash_dkdv_tc_kernel, flash_bwd_fused_tc_kernel): bf16
+//    mma.sync.m16n8k16 products with float32 accumulation
+//    (csrc/mma_tiles.cuh) through a 3-stage ring, one barrier a half; the
+//    bodies are csrc/bf16_sweeps.cuh's, p and ds rounded to bf16 as they
+//    are packed into the next product's A fragments. At the 512 px shape
+//    the forward's, dq's and dk/dv's products take ~0.16, ~0.24 and ~0.31
+//    ms at the tensor cores' 989 TFLOP/s bf16 rate.
 
 #include <algorithm>
 #include <type_traits>
@@ -100,212 +100,6 @@ struct Operands {
   int heads, n;
   float scale;
 };
-
-// Prepares the tile at (q0, k0) of class cls: the key flags and, for a
-// class 1 tile with a pattern, its bits. False (on every thread) when no
-// pair of the tile may attend, so the caller skips it.
-__device__ __forceinline__ bool load_tile_masks(float* __restrict__ kok,
-                                                uint8_t* __restrict__ msk,
-                                                const uint8_t* __restrict__ kmask_b,
-                                                const int8_t* __restrict__ pattern,
-                                                int cls, int q0, int k0, int n) {
-  if (!load_key_flags(kok, kmask_b, k0, n)) return false;
-  if (cls == 1 && pattern != nullptr) return load_mask_tile(msk, pattern, q0, k0, n);
-  return true;
-}
-
-// delta = rowsum(do * o) in float32 of rows q0 .. q0 + TILE - 1 into del_s,
-// one warp a row, and their lse into lse_s; with delta_out also into it
-template <typename T, int D>
-__device__ __forceinline__ void row_stats_from_o(float* __restrict__ lse_s,
-                                                 float* __restrict__ del_s,
-                                                 const Operands<T>& a, int64_t head,
-                                                 int64_t row_base, int q0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < TILE; r += THREADS / 32) {
-    const int64_t row = q0 + r;
-    float sum = 0.f;
-    for (int e = lane; e < D; e += 32)
-      sum += to_f32<T>(a.o[head + row * D + e]) * to_f32<T>(a.dout[head + row * D + e]);
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, s);
-    if (lane == 0) {
-      del_s[r] = sum;
-      lse_s[r] = a.lse[row_base + row];
-      if (a.delta_out != nullptr) a.delta_out[row_base + row] = sum;
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Operands<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int CJ = D / 16;
-  uint8_t* msk = smem_raw;                                     // (TILE, TILE)
-  float* qs = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
-  float* ks = qs + tile_floats<D>();                           // (TILE, DP)
-  float* vs = ks + tile_floats<D>();                           // (TILE, DP)
-  float* ps = vs + tile_floats<D>();                           // (TILE, SP)
-  float* kok = ps + TILE * SP;                                 // (TILE)
-
-  const int n = a.n, nt = n / TILE, bh = blockIdx.y;
-  const int qt = nt - 1 - (int)blockIdx.x;  // longest causal rows first
-  const int q0 = qt * TILE;
-  const int64_t head = (int64_t)bh * n * D;
-  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
-
-  float acc[4][CJ], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-  }
-
-  bool q_loaded = false;
-  for (int kt = 0; kt < nt; ++kt) {
-    const int cls = a.visit[qt * nt + kt];
-    if (cls == 0) continue;  // no pair of the tile may attend: not loaded
-    const int k0 = kt * TILE;
-    __syncthreads();  // the previous tiles are no longer read
-    // a tile with no allowed pair adds p = 0 and leaves m, l and acc
-    // exactly as they are: it is skipped
-    if (!load_tile_masks(kok, msk, km, a.pattern, cls, q0, k0, n)) continue;
-    if (!q_loaded) {
-      load_tile<T, D>(qs, a.q + head, q0, n);
-      q_loaded = true;
-    }
-    load_tile<T, D>(ks, a.k + head, k0, n);
-    load_tile<T, D>(vs, a.v + head, k0, n);
-    __syncthreads();
-    fwd_step<T, D>(qs, ks, vs, ps, kok, msk, a.pattern != nullptr, cls, q0, k0, n, a.scale,
-                   acc, m, l);
-  }
-  fwd_finish<T, D>(acc, m, l, a.out + head, a.lse_out + (int64_t)bh * n, q0, n);
-}
-
-// dq of query tile qt of head bh, over its live key tiles; delta from do
-// and o (written to a.delta_out when it is not NULL)
-template <typename T, int D>
-__device__ __forceinline__ void dq_tile(const Operands<T>& a, unsigned char* smem_raw,
-                                        int qt, int bh) {
-  constexpr int CJ = D / 16;
-  uint8_t* msk = smem_raw;                                     // (TILE, TILE)
-  float* qs = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
-  float* dos = qs + tile_floats<D>();                          // (TILE, DP)
-  float* ks = dos + tile_floats<D>();                          // (TILE, DP)
-  float* vs = ks + tile_floats<D>();                           // (TILE, DP)
-  float* dss = vs + tile_floats<D>();                          // (TILE, SP)
-  float* lse_s = dss + TILE * SP;                              // (TILE)
-  float* del_s = lse_s + TILE;                                 // (TILE)
-  float* kok = del_s + TILE;                                   // (TILE)
-
-  const int n = a.n, nt = n / TILE, q0 = qt * TILE;
-  const int64_t head = (int64_t)bh * n * D;
-  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
-
-  row_stats_from_o<T, D>(lse_s, del_s, a, head, (int64_t)bh * n, q0);
-
-  float acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-
-  bool q_loaded = false;
-  for (int kt = 0; kt < nt; ++kt) {
-    const int cls = a.visit[qt * nt + kt];
-    if (cls == 0) continue;
-    const int k0 = kt * TILE;
-    __syncthreads();  // the previous tiles are no longer read
-    if (!load_tile_masks(kok, msk, km, a.pattern, cls, q0, k0, n)) continue;
-    if (!q_loaded) {
-      load_tile<T, D>(qs, a.q + head, q0, n);
-      load_tile<T, D>(dos, a.dout + head, q0, n);
-      q_loaded = true;
-    }
-    load_tile<T, D>(ks, a.k + head, k0, n);
-    load_tile<T, D>(vs, a.v + head, k0, n);
-    __syncthreads();
-    scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, a.pattern != nullptr, cls,
-                         nullptr, dss, q0, k0, n, a.scale);
-    __syncthreads();
-    dq_step<D>(dss, ks, acc);
-  }
-  store_rows<T, D>(acc, a.dq + head, q0, n);
-}
-
-// dk and dv of key tile kt of head bh, over its live query tiles; delta
-// from a.delta_in, or from do and o when that is NULL
-template <typename T, int D>
-__device__ __forceinline__ void dkdv_tile(const Operands<T>& a, unsigned char* smem_raw,
-                                          int kt, int bh) {
-  constexpr int CJ = D / 16;
-  uint8_t* msk = smem_raw;                                     // (TILE, TILE)
-  float* ks = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
-  float* vs = ks + tile_floats<D>();                           // (TILE, DP)
-  float* qs = vs + tile_floats<D>();                           // (TILE, DP)
-  float* dos = qs + tile_floats<D>();                          // (TILE, DP)
-  float* ps = dos + tile_floats<D>();                          // (TILE, SP)
-  float* dss = ps + TILE * SP;                                 // (TILE, SP)
-  float* lse_s = dss + TILE * SP;                              // (TILE)
-  float* del_s = lse_s + TILE;                                 // (TILE)
-  float* kok = del_s + TILE;                                   // (TILE)
-
-  const int n = a.n, nt = n / TILE, k0 = kt * TILE;
-  const int64_t head = (int64_t)bh * n * D, row_base = (int64_t)bh * n;
-  const uint8_t* km = a.kmask == nullptr ? nullptr : a.kmask + (int64_t)(bh / a.heads) * n;
-  const bool has_pattern = a.pattern != nullptr;
-
-  float dk_acc[4][CJ], dv_acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  // keys that are all masked have p = 0 for every query: dk = dv = 0
-  if (load_key_flags(kok, km, k0, n)) {
-    load_tile<T, D>(ks, a.k + head, k0, n);
-    load_tile<T, D>(vs, a.v + head, k0, n);
-    for (int qt = 0; qt < nt; ++qt) {
-      const int cls = a.visit[qt * nt + kt];
-      if (cls == 0) continue;
-      const int q0 = qt * TILE;
-      __syncthreads();  // the previous query tile is no longer read
-      if (cls == 1 && has_pattern && !load_mask_tile(msk, a.pattern, q0, k0, n)) continue;
-      load_tile<T, D>(qs, a.q + head, q0, n);
-      load_tile<T, D>(dos, a.dout + head, q0, n);
-      if (a.delta_in != nullptr) {
-        for (int r = threadIdx.x; r < TILE; r += THREADS) {
-          lse_s[r] = a.lse[row_base + q0 + r];
-          del_s[r] = a.delta_in[row_base + q0 + r];
-        }
-      } else {
-        row_stats_from_o<T, D>(lse_s, del_s, a, head, row_base, q0);
-      }
-      __syncthreads();
-      scores_to_p_ds<T, D>(qs, ks, vs, dos, lse_s, del_s, kok, msk, has_pattern, cls, ps,
-                           dss, q0, k0, n, a.scale);
-      __syncthreads();
-      dkdv_step<D>(ps, dss, dos, qs, dk_acc, dv_acc);
-    }
-  }
-  store_rows<T, D>(dk_acc, a.dk + head, k0, n);
-  store_rows<T, D>(dv_acc, a.dv + head, k0, n);
-}
-
-// blocks 0 .. nt - 1 compute dq (longest causal rows first), blocks
-// nt .. 2 nt - 1 dk and dv (longest causal columns first)
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_fused_kernel(const Operands<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nt = a.n / TILE;
-  if ((int)blockIdx.x < nt)
-    dq_tile<T, D>(a, smem_raw, nt - 1 - (int)blockIdx.x, blockIdx.y);
-  else
-    dkdv_tile<T, D>(a, smem_raw, (int)blockIdx.x - nt, blockIdx.y);
-}
 
 enum class Pass { kFwd, kDq, kDkdv, kFused };
 
@@ -453,17 +247,35 @@ int launch_tf32(Pass pass, const Operands<float>& a, int batch, cudaStream_t str
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------- bfloat16 dq and dk/dv: bf16 mma.sync
+// ----- bfloat16 forward, dq, dk/dv and single-block backward: bf16 mma.sync
 //
-// The float32 dq and dk/dv design (a resident 64-row tile, 4 warps of 16
-// rows, 32-row halves of the visit map streamed through a cp.async ring,
-// here of 3 stages so that one barrier a half serves) on bf16
-// mma.sync.m16n8k16 with float32 accumulation: the bodies are
-// csrc/bf16_sweeps.cuh's, over the same walks. Tiles are bf16 rows padded
-// to d + 8; nothing is split, and p and ds are rounded to bf16 as they
-// are packed into the next product's A fragments. At d 64 a dq or dk/dv
-// block holds 46-52 KB of shared memory; registers, not shared memory,
-// set the blocks an SM holds.
+// The float32 design (a resident 64-row tile, 4 warps of 16 rows, 32-row
+// halves of the visit map streamed through a cp.async ring, here of 3
+// stages so that one barrier a half serves) on bf16 mma.sync.m16n8k16
+// with float32 accumulation: the bodies are csrc/bf16_sweeps.cuh's, over
+// the same walks. Tiles are bf16 rows padded to d + 8; nothing is split,
+// and p and ds are rounded to bf16 as they are packed into the next
+// product's A fragments. At d 64 a forward block holds 37-43 KB of shared
+// memory, a dq or dk/dv block 46-52 KB and a single-block backward block
+// 60-66 KB; registers, not shared memory, set the blocks an SM holds.
+// The forward runs the softmax's exponentials on the SFU beside the
+// products: at d 64 a warp's half takes 32 mma.sync and 512 ex2.approx,
+// about as many SM cycles each at their peak rates.
+
+// o and lse of query tile nt - 1 - blockIdx.y (longest causal rows
+// first) of head blockIdx.x: the online softmax over its visited key
+// halves (bf16s::fwd_sweep). At d <= 64 four blocks share an SM
+// (registers capped at 128 for it, no spills), which timed 2% faster
+// than three and 5% faster than two (PERF.md, section 6).
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 4 : 2)
+    flash_fwd_tc_kernel(const Operands<tc::bf16> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16s::Head h = head_of<bf16s::Head, D>(a, blockIdx.x);
+  h.out = a.out + (int64_t)blockIdx.x * a.n * D;
+  h.lse_out = a.lse_out + (int64_t)blockIdx.x * a.n;
+  bf16s::fwd_sweep<D>(h, row_of(a, a.n / TILE - 1 - (int)blockIdx.y), smem_raw);
+}
 
 // dq of query tile nt - 1 - blockIdx.y (longest causal rows first) of
 // head blockIdx.x, over its visited key halves; delta from do and o,
@@ -487,27 +299,59 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 2)
                               smem_raw);
 }
 
-// The bf16 dq and dk/dv launches: grid (b*h, n / TILE), so that the
-// scheduler starts every head's longest tiles first. -1 for more tiles
-// than a grid dimension holds or an operand not 16-byte aligned
-// (cp.async, ldmatrix, vector stores).
+// The bf16 single-block backward of head blockIdx.x in one launch, as
+// flash_bwd_fused_tf32_kernel: even blocks y compute dq of query tile nt
+// - 1 - y / 2 as flash_dq_tc_kernel, odd blocks dk and dv of key tile y /
+// 2 as flash_dkdv_tc_kernel, deriving each half's delta from its O and dO
+// rows in the dq pass's order (bf16s::row_delta); delta is never
+// written. So dq, dk and dv are those of the two-launch chain bit for
+// bit. At d 64 two blocks share an SM (214 registers, no spills), which
+// timed 4% faster than three (168 registers, a few bytes spilled); at d
+// 32 three and two timed alike.
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 32 ? 3 : 2)
+    flash_bwd_fused_tc_kernel(const Operands<tc::bf16> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = a.n / TILE, y = blockIdx.y;
+  const bf16s::Head head = head_of<bf16s::Head, D>(a, blockIdx.x);
+  if ((y & 1) == 0) {
+    bf16s::dq_sweep<D>(head, row_of(a, nt - 1 - (y >> 1)), smem_raw);
+  } else {
+    const int kt = y >> 1;
+    bf16s::dkdv_sweep<D, true>(head, column_of(a, kt), kt * TILE, smem_raw);
+  }
+}
+
+// The bf16 launches: grid (b*h, n / TILE), or (b*h, 2 n / TILE) for the
+// single-block backward, so that the scheduler starts every head's
+// longest tiles first. -1 for more tiles than a grid dimension holds or
+// an operand not 16-byte aligned (cp.async, ldmatrix, vector stores).
 template <int D>
 int launch_bf16(Pass pass, const Operands<tc::bf16>& a, int batch, cudaStream_t stream) {
-  const int nt = a.n / TILE;
-  if (nt > 65535 ||
-      !tc::aligned16({a.q, a.k, a.v, a.o, a.dout, a.pattern, a.dq, a.dk, a.dv}))
+  const int nt = a.n / TILE, tiles = pass == Pass::kFused ? 2 * nt : nt;
+  if (tiles > 65535 ||
+      !tc::aligned16({a.q, a.k, a.v, a.o, a.dout, a.pattern, a.out, a.dq, a.dk, a.dv}))
     return -1;
-  const dim3 grid(batch * a.heads, nt);
+  const dim3 grid(batch * a.heads, tiles);
   const bool pattern = a.pattern != nullptr;
   int err = 0;
-  if (pass == Pass::kDq) {
+  if (pass == Pass::kFwd) {
+    const int smem = bf16s::fwd_sweep_smem_bytes(D, pattern);
+    if ((err = allow_smem(flash_fwd_tc_kernel<D>, smem)) != 0) return err;
+    flash_fwd_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
+  } else if (pass == Pass::kDq) {
     const int smem = bf16s::dq_sweep_smem_bytes(D, pattern);
     if ((err = allow_smem(flash_dq_tc_kernel<D>, smem)) != 0) return err;
     flash_dq_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
-  } else {
+  } else if (pass == Pass::kDkdv) {
     const int smem = bf16s::dkdv_sweep_smem_bytes(D, pattern, false);
     if ((err = allow_smem(flash_dkdv_tc_kernel<D>, smem)) != 0) return err;
     flash_dkdv_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
+  } else {  // the larger of the two roles
+    const int smem = std::max(bf16s::dq_sweep_smem_bytes(D, pattern),
+                              bf16s::dkdv_sweep_smem_bytes(D, pattern, true));
+    if ((err = allow_smem(flash_bwd_fused_tc_kernel<D>, smem)) != 0) return err;
+    flash_bwd_fused_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -517,43 +361,6 @@ int launch_bf16(Pass pass, const Operands<tc::bf16>& a, int batch, cudaStream_t 
 bool refused(int batch, int heads, int n) {
   return batch < 1 || heads < 1 || n < TILE || n % TILE != 0 ||
          (int64_t)batch * heads > 65535;
-}
-
-template <typename T, int D>
-int launch(Pass pass, const Operands<T>& a, int batch, cudaStream_t stream) {
-  static_assert(dkdv_smem_bytes<D>() >= dq_smem_bytes<D>(), "the fused launch sizes for dk/dv");
-  constexpr bool f32 = std::is_same<T, float>::value;
-  const int nt = a.n / TILE;
-  const dim3 grid(pass == Pass::kFused ? 2 * nt : nt, batch * a.heads);
-  int smem = 0, err = 0;
-  switch (pass) {
-    case Pass::kFwd:  // float32: the 3xTF32 kernel
-      if constexpr (f32) {
-        return launch_tf32<D>(pass, a, batch, stream);
-      } else {
-        smem = fwd_smem_bytes<D>();
-        if ((err = allow_smem(flash_fwd_kernel<T, D>, smem)) != 0) return err;
-        flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
-      }
-      break;
-    case Pass::kDq:  // float32: 3xTF32; bfloat16: bf16 mma.sync
-    case Pass::kDkdv:
-      if constexpr (f32) {
-        return launch_tf32<D>(pass, a, batch, stream);
-      } else {
-        return launch_bf16<D>(pass, a, batch, stream);
-      }
-    case Pass::kFused:
-      if constexpr (f32) {
-        return launch_tf32<D>(pass, a, batch, stream);
-      } else {
-        smem = dkdv_smem_bytes<D>();  // the larger of the two roles
-        if ((err = allow_smem(flash_bwd_fused_kernel<T, D>, smem)) != 0) return err;
-        flash_bwd_fused_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
-      }
-      break;
-  }
-  return (int)cudaGetLastError();
 }
 
 struct Pointers {
@@ -571,7 +378,10 @@ int run(Pass pass, const Pointers& p, int batch, int heads, int n, float scale,
                       (T*)p.out,             (T*)p.dq,             (T*)p.dk,
                       (T*)p.dv,              (float*)p.lse_out,    (float*)p.delta_out,
                       heads,                 n,                    scale};
-  return launch<T, D>(pass, a, batch, stream);
+  if constexpr (std::is_same<T, float>::value)
+    return launch_tf32<D>(pass, a, batch, stream);
+  else
+    return launch_bf16<D>(pass, a, batch, stream);
 }
 
 // Instances: dtype 0 = float32, 1 = bfloat16; dim_head 32, 64, 96, 128.
@@ -601,8 +411,8 @@ int dispatch(Pass pass, const Pointers& p, int batch, int heads, int n, int dim_
 // cudaGetLastError() after it (0 on success), or -1 for what the kernels
 // cannot take: a dim_head other than 32/64/96/128, a dtype code other
 // than 0/1, n not a positive multiple of 64, more (batch, head) pairs
-// than a grid dimension holds, or (float32, and the bfloat16 dq and dk/dv)
-// more than 65535 tiles of a grid or an operand not 16-byte aligned.
+// than a grid dimension holds, more than 65535 tiles of a grid or an
+// operand not 16-byte aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kmask, const void* pattern,
                                    const void* visit, void* out, void* lse, int batch,

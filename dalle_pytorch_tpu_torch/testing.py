@@ -53,7 +53,10 @@ walk visits (``pair_row_halves``, the rows of
 run on bf16 tensor-core tiles: ``emulated_bf16_tiled_dq`` and
 ``emulated_bf16_tiled_dkdv`` run their arithmetic (float32 sums of bf16
 products per 32-row half, p and ds rounded to bf16 where the sweeps pack
-them, delta from the bf16 o and do).
+them, delta from the bf16 o and do); so, with delta derived per half,
+does the bf16 single-block backward, and ``emulated_bf16_tiled_fwd``
+runs the bf16 forward's (the online softmax per 32-key half, p rounded
+to bf16 against the running max).
 
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
@@ -529,6 +532,39 @@ def emulated_single_block_bwd(q, k, v, o, lse, do, key_mask=None, causal: bool =
                                lambda a, b: matmul_3xtf32_card(a, b, 32), key_mask, causal,
                                pattern, delta=delta_k)
     return (*grads, delta_q, delta_k)
+
+
+def emulated_bf16_tiled_fwd(q, k, v, key_mask=None, causal: bool = True, pattern=None):
+    """The tiled bf16 forward as ``flash_fwd_tc_kernel`` runs it (csrc/
+    bf16_sweeps.cuh), on bf16 q, k, v (b, h, n, d): over the 32-key
+    halves in key order (a half the walk passes over adds p = 0 and leaves
+    every sum as it is, so every half is taken here), s = q.k^T in float32
+    from the bf16 inputs, scaled and masked; the running max m_new =
+    max(m, rowmax(s)), corr = exp(m - m_new) rescaling the float32 l and
+    o; p = exp(s - m_new) where s > 0.5 * NEG_INF, else 0, summed
+    unrounded into l and rounded to bf16 (where the sweep packs it into
+    the A fragments of P.V) for o += p.v. o = o / l (l = 1 where l == 0)
+    rounded to bf16, lse = m + log(l) in float32. Returns (o, lse) as the
+    plain forward's."""
+    n, d = q.shape[-2:]
+    scale = d**-0.5
+    allowed = fa.may_attend(n, q.device, key_mask, causal, pattern)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    m = torch.full(q.shape[:-1] + (1,), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, n, 32):
+        ks = slice(k0, k0 + 32)
+        s = (qf @ kf[..., ks, :].transpose(-1, -2) * scale).masked_fill(~allowed[..., ks],
+                                                                         fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(s > 0.5 * fa.NEG_INF, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + p.bfloat16().float() @ vf[..., ks, :]
+        m = m_new
+    l_safe = torch.where(l == 0, 1.0, l)
+    return (o / l_safe).bfloat16(), (m + torch.log(l_safe))[..., 0]
 
 
 def emulated_bf16_tiled_dq(q, k, v, o, lse, do, key_mask=None, causal: bool = True,

@@ -765,10 +765,37 @@ def test_flash_single_block_f32_is_the_split_chain_bitwise(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["d64", "one_block", "one_block_d32"])
+def test_flash_single_block_bf16_is_the_split_chain_bitwise(cuda, case):
+    """The bf16 single-block backward on bf16 tensor-core tiles
+    (``flash_bwd_fused_tc_kernel``) at n 384 with a key mask that kills
+    whole rows and at n 1280 (3 heads of 64, and 16 heads of 32): dq, dk
+    and dv bitwise equal to ``flash_attention_dq`` then
+    ``flash_attention_dkdv`` on dq's delta (the same sweeps, each half's
+    delta summed in the dq pass's order); each within the floored row
+    metric's ``BWD_BF16_ROW_REL`` of the plain backward, rows with no
+    allowed key (and keys no query attends) exactly 0; one launch a
+    call."""
+    q, k, v, do, opts = flash_inputs(case, torch.bfloat16, cuda)
+    assert fa.flash_block(q.shape[2]) == q.shape[2]
+    o, lse = fa.reference_flash_attention(q, k, v, **opts)
+    before = fa.flash_attention_bwd_fused.launches
+    fused = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts)
+    dq, delta = fa.flash_attention_dq(q, k, v, o, lse, do, **opts)
+    chain = (dq, *fa.flash_attention_dkdv(q, k, v, do, lse, delta, **opts))
+    plain = fa.reference_flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_fused.launches == before + 1
+    assert [torch.equal(a, b) for a, b in zip(fused, chain)] == [True] * 3
+    _, row_rel, zeros_exact = flash_bwd_errors(fused, plain, **opts)
+    assert zeros_exact and row_rel <= BWD_BF16_ROW_REL, row_rel
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["d64", "one_block"])
 def test_flash_single_block_bf16_is_deterministic(cuda, case):
-    """The bf16 single-block backward (CUDA-core tiles): two runs give
-    bitwise the same dq, dk and dv."""
+    """The bf16 single-block backward (bf16 tensor-core tiles): two runs
+    give bitwise the same dq, dk and dv."""
     q, k, v, do, opts = flash_inputs(case, torch.bfloat16, cuda)
     o, lse = fa.reference_flash_attention(q, k, v, **opts)
     first = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, **opts)
@@ -884,17 +911,21 @@ def test_flash_kernels_reject_what_they_cannot_take(cuda):
         fa.flash_attention_dkdv(q, q, q, o, lse, lse[:, :1])
     with pytest.raises(ValueError):  # o of the wrong shape
         fa.flash_attention_bwd_fused(q, q, q, o[:, :1], lse, o)
-    # the bf16 dq and dk/dv (cp.async, ldmatrix) take 16-byte aligned
-    # operands only: the wrapper raises, with no fallback
+    # the bf16 kernels (cp.async, ldmatrix) take 16-byte aligned operands
+    # only: the wrapper raises, with no fallback
     qb = q.bfloat16()
     ob, lseb = fa.flash_attention_fwd(qb, qb, qb)
     shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)
-    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkdv.launches)
+    before = [f.launches for f in FLASH_KERNELS]
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(qb, shifted, qb)
     with pytest.raises(ValueError):
         fa.flash_attention_dq(qb, qb, shifted, ob, lseb, ob)
     with pytest.raises(ValueError):
         fa.flash_attention_dkdv(qb, shifted, qb, ob, lseb, lseb)
-    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkdv.launches) == before
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_fused(qb, qb, qb, shifted, lseb, ob)
+    assert [f.launches for f in FLASH_KERNELS] == before
 
 
 @pytest.mark.gpu
