@@ -131,12 +131,14 @@ Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
 text shape and DALL-E's shape with the axial-row and axial-column
 pattern masks (timed at the training shape in both types), and the
-three block-sparse kernels (forward, dq, dk/dv; the float32 dk/dv on
-split-3xTF32 tensor-core tiles) at the flagship training shape with the
-axial_row and conv_like layouts and at a ragged n with a key mask that
-kills whole rows (dim_head 32, 64, 128), each timed beside its plain
-version, its bound (at the 3xTF32 rate, the CUDA-core bound beside), the
-packed kernel with the same pattern, and ``scaled_dot_product_attention``;
+three block-sparse kernels (forward, dq, dk/dv; every float32 one on
+split-3xTF32 tensor-core tiles, the bf16 dq and dk/dv on bf16 ones) at
+the flagship training shape with the axial_row and conv_like layouts and
+at a ragged n with a key mask that kills whole rows (dim_head 32, 64,
+128), each timed beside its plain version, its bound (float32 at the
+3xTF32 rate, the CUDA-core bound beside), the packed kernel with the
+same pattern, and ``scaled_dot_product_attention`` with the mask under
+each backend that takes one (the fastest is the library's time);
 and the four
 tiled flash kernels (forward, dq, dk/dv, single-block backward) on
 ``testing.flash_inputs``: the 512 px training shape (b 4, 16 heads of
@@ -171,13 +173,13 @@ Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
 spills) for the packed-qkv kernels' tensor-core instances (bf16, and
 float32 as split 3xTF32), for the tiled flash forward, dq, dk/dv and
 single-block backward in both types (float32 as split 3xTF32, bf16 on
-bf16 ``mma.sync``) and the pair grid's float32 forward, dq and dk/dv,
-for every instance of the ragged kernel and of the decode kernel, and
-counts the HMMA instructions of each packed, tiled and pair-grid
-tensor-core instance in the built libraries (``cuobjdump -sass``),
-failing unless every float32 instance (3 + 6 + 16 + 9) holds
-``HMMA.1688.F32.TF32`` and every tiled bf16 one (16)
-``HMMA.16816.F32.BF16``.
+bf16 ``mma.sync``), the pair grid's float32 forward, dq and dk/dv and
+its bf16 dq and dk/dv, for every instance of the ragged kernel and of
+the decode kernel, and counts the HMMA instructions of each packed,
+tiled and pair-grid tensor-core instance in the built libraries
+(``cuobjdump -sass``), failing unless every float32 instance (3 + 6 +
+16 + 9) holds ``HMMA.1688.F32.TF32`` and every tiled and pair-grid bf16
+one (16 + 6) ``HMMA.16816.F32.BF16``.
 
 Paired comparisons, one card, none of the phases above:
 
@@ -208,11 +210,15 @@ the trees, and times both trees' forward, dq and dk/dv in both types at
 the 512 px shape and the single-block backward at one block of 1280
 (and, in bf16, at 16 heads of 32) alternating, sdpa and the bounds
 beside; the fourth does the same for
-another commit's ``block_sparse_attention.cu``: the forward, dq and delta
-in both types and the bf16 dk/dv bitwise equal across the trees, each
-tree's float32 dk/dv held against the plain version, then the float32
-dk/dv timed alternating at the axial_row and conv_like layouts beside
-sdpa backward with the mask; the fifth builds another commit's
+another commit's ``block_sparse_attention.cu`` (bound with its shorter
+signatures where it takes no class map): each tree's float32 o, lse, dq
+and delta and bf16 dq, delta, dk and dv held against the plain versions
+with max |this - other| printed, the float32 dk/dv and the bf16 o and
+lse bitwise equal across the trees, then the float32 forward, dq and
+dk/dv and the bf16 dq and dk/dv timed alternating at the axial_row and
+conv_like layouts beside sdpa with the mask under each backend that
+takes one, and this tree's tile order against launch order; the fifth
+builds another commit's
 ``decode_attention.cu``, holds each tree's out against the plain version
 at the generate shape (b 1 and 8), checks the k/v rows bitwise equal
 across the trees, and times both alternating; the sixth times generation
@@ -801,6 +807,52 @@ def bs_bounds(q, layout, key_mask):
             for name, role in zip(BS_TPU_KERNELS, ("fwd", "dq", "dkdv"))}
 
 
+# the backends of scaled_dot_product_attention that may take a boolean
+# mask (the flash backend takes none), by their SDPBackend names
+SDPA_MASK_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_mask_times(q, k, v, allowed, do, iters: int = 20) -> dict:
+    """{"forward" | "backward": {backend: ms or None}} of
+    ``scaled_dot_product_attention`` with the boolean mask ``allowed``,
+    pinned to each backend of ``SDPA_MASK_BACKENDS`` in turn by
+    ``torch.nn.attention.sdpa_kernel`` (None where the backend refuses
+    these inputs), cold L2; the backward is ``torch.autograd.grad`` of q,
+    k and v with ``do``. ``sdpa_fastest`` reads the fastest."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {"forward": {}, "backward": {}}
+    for name in SDPA_MASK_BACKENDS:
+        fwd = bwd = None
+        backend = getattr(SDPBackend, name, None)
+        if backend is not None:
+            try:
+                with sdpa_kernel(backend):
+                    fwd = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=allowed), iters=iters)
+                    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                    out = sdpa(*leaves, attn_mask=allowed)
+                    bwd = cuda_time_ms(
+                        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                        iters=iters)
+                    del out, leaves
+            except RuntimeError:  # this backend takes no such inputs
+                pass
+        times["forward"][name.lower()], times["backward"][name.lower()] = fwd, bwd
+    return times
+
+
+def sdpa_fastest(by_backend: dict) -> float:
+    """The least time of ``sdpa_mask_times``' backends that ran."""
+    return min(t for t in by_backend.values() if t is not None)
+
+
+def sdpa_text(by_backend: dict) -> str:
+    """Each backend's time by name, "refused" where it took no such inputs."""
+    return ", ".join(f"{name} " + ("refused" if t is None else f"{t:.4f}")
+                     for name, t in by_backend.items())
+
+
 def check_block_sparse() -> list:
     """The three block-sparse kernels against their plain versions on
     ``testing.bs_inputs`` (flagship training shape with the axial_row and
@@ -811,7 +863,10 @@ def check_block_sparse() -> list:
     float32: each kernel, its plain version, the bound, the packed-qkv
     kernels with the same pattern operand on the packed projection (the
     alternative path), and ``scaled_dot_product_attention`` forward and
-    backward with the boolean pattern mask on the same split heads."""
+    backward with the boolean pattern mask on the same split heads under
+    each backend that takes one (``sdpa_mask_times``; the fastest is the
+    row's library time); the bf16 instances the same way
+    (``bs_bf16_timings``)."""
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
@@ -889,15 +944,11 @@ def check_block_sparse() -> list:
         bounds = bs_bounds(q, layout, None)
         times = {name: (cuda_time_ms(kernel, iters=20), cuda_time_ms(plain, iters=5))
                  for name, (kernel, plain) in t.items()}
-        # yardsticks: sdpa with the boolean pattern mask on the same heads
+        # yardsticks: sdpa with the boolean pattern mask on the same heads,
+        # under each backend that takes one; the fastest is the library's
         allowed = bs.may_attend(layout, layout.n, q.device)  # (1, 1, n, n)
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, attn_mask=allowed)
-        sdpa_ms = cuda_time_ms(sdpa, iters=20)
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-        sdpa_bwd_ms = cuda_time_ms(
-            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=20)
+        sdpa_times = sdpa_mask_times(q, k, v, allowed, do)
+        sdpa_ms, sdpa_bwd_ms = (sdpa_fastest(sdpa_times[way]) for way in ("forward", "backward"))
         # the alternative path: the packed kernels with the same pattern
         # operand, rotary in-kernel, on the packed projection
         b, h, n, d = q.shape
@@ -916,7 +967,9 @@ def check_block_sparse() -> list:
             f"{layout.n_pairs} block pairs): " + "; ".join(
                 f"{name} {times[name][0]:.4f} ms (plain {times[name][1]:.4f}, "
                 f"{bound_text(bounds[name])})" for name in t)
-            + f"; sdpa with the mask forward {sdpa_ms:.4f} / backward {sdpa_bwd_ms:.4f} ms; "
+            + f"; sdpa with the mask forward {sdpa_ms:.4f} / backward {sdpa_bwd_ms:.4f} ms, the "
+            f"fastest of forward {sdpa_text(sdpa_times['forward'])}, backward "
+            f"{sdpa_text(sdpa_times['backward'])}; "
             f"packed-qkv with the pattern forward {packed_ms:.4f} / backward "
             f"{packed_bwd_ms:.4f} ms against the pair grid's {fwd:.4f} / {bwd:.4f} ms")
         for name in t:
@@ -936,7 +989,8 @@ def bs_bf16_timings(case: str, rows: dict) -> None:
     """The three block-sparse kernels' bf16 instances timed (cold L2) at
     the training shape with ``case``'s layout beside their plain versions,
     their bf16 bounds and bf16 ``scaled_dot_product_attention`` forward
-    and backward with the boolean pattern mask; written into ``rows``
+    and backward with the boolean pattern mask (each backend that takes
+    one logged by name, the fastest the library's); written into ``rows``
     under ``ms_bf16``, ``plain_ms_bf16``, ``bound_ms_bf16``,
     ``bound_by_bf16``, ``library_ms_bf16`` (conv_like prefixed)."""
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
@@ -958,12 +1012,8 @@ def bs_bf16_timings(case: str, rows: dict) -> None:
     }
     bounds = bs_bounds(q, layout, None)
     allowed = bs.may_attend(layout, layout.n, q.device)
-    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=allowed), iters=20)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-    sdpa_bwd_ms = cuda_time_ms(
-        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=20)
+    sdpa_times = sdpa_mask_times(q, k, v, allowed, do)
+    sdpa_ms, sdpa_bwd_ms = (sdpa_fastest(sdpa_times[way]) for way in ("forward", "backward"))
     prefix = "" if case == "axial_row" else "conv_like_"
     parts = []
     for name, (kernel, plain) in kernels.items():
@@ -978,7 +1028,8 @@ def bs_bf16_timings(case: str, rows: dict) -> None:
     b, h, n, d = q.shape
     log(f"block_sparse {case} bf16 timing, cold L2 (b {b}, {h} x {d}, n {n}): "
         + "; ".join(parts) + f"; bf16 sdpa with the mask forward {sdpa_ms:.4f} / backward "
-        f"{sdpa_bwd_ms:.4f} ms")
+        f"{sdpa_bwd_ms:.4f} ms, the fastest of forward {sdpa_text(sdpa_times['forward'])}, "
+        f"backward {sdpa_text(sdpa_times['backward'])}")
 
 
 def flash_bounds(q, opts) -> dict:
@@ -1587,8 +1638,9 @@ TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash
                   "block_sparse_attention": 9}
 TF32_HMMA = "HMMA.1688.F32.TF32"
 # entry functions of the bf16 tensor-core instances checked the same way:
-# the tiled forward, dq, dk/dv and single-block backward at 32/64/96/128
-BF16_INSTANCES = {"flash_attention": 16}
+# the tiled forward, dq, dk/dv and single-block backward at 32/64/96/128,
+# the pair grid's dq and dk/dv at 32/64/128
+BF16_INSTANCES = {"flash_attention": 16, "block_sparse_attention": 6}
 BF16_HMMA = "HMMA.16816.F32.BF16"
 
 
@@ -2412,13 +2464,23 @@ def train_512_bf16(vae, batch):
 
 # the tiled flash kernels of the 512 px training shape by device function:
 # (the kernel phase's row, its key of the ms a launch)
-TILED_PROFILE_ROWS = {
+# {kernel function: (kernel phase row, key of its time)} of the kernels
+# whose profiled ms a step ``profile_train`` holds against the kernel
+# phase's: the tiled ones (timed at the 512 px shape) and the pair grid's
+# (timed at the training shape with the axial_row layout)
+PROFILE_ROWS = {
     "flash_fwd_tf32_kernel": ("flash_attention_fwd", "ms"),
     "flash_dq_tf32_kernel": ("flash_attention_dq", "ms"),
     "flash_dkdv_tf32_kernel": ("flash_attention_dkdv", "ms"),
     "flash_fwd_tc_kernel": ("flash_attention_fwd", "ms_bf16"),
     "flash_dq_tc_kernel": ("flash_attention_dq", "ms_bf16"),
     "flash_dkdv_tc_kernel": ("flash_attention_dkdv", "ms_bf16"),
+    "bs_fwd_tf32_kernel": ("block_sparse_attention", "ms"),
+    "bs_dq_tf32_kernel": ("block_sparse_dq", "ms"),
+    "bs_dkdv_tf32_kernel": ("block_sparse_dkdv", "ms"),
+    "bs_fwd_kernel": ("block_sparse_attention", "ms_bf16"),
+    "bs_dq_tc_kernel": ("block_sparse_dq", "ms_bf16"),
+    "bs_dkdv_tc_kernel": ("block_sparse_dkdv", "ms_bf16"),
 }
 
 
@@ -2428,11 +2490,12 @@ def profile_train(trainer, batch, steps: int = 3, label: str = "train profile",
     steps after the counted run: wall and device-busy time per step,
     launches per step, the largest device-time kernels, the pair grid's
     and the tiled flash kernels' wherever they rank, and the tiled flash
-    kernels' ms per step together. With ``kernel_rows`` (the kernel
-    phase's rows, timed at the 512 px training shape), each tiled kernel
-    of ``TILED_PROFILE_ROWS`` that ran: its profiled ms a step beside the
-    kernel phase's ms a launch times its launches a step, a gap over 25%
-    flagged (not failed)."""
+    kernels' and the pair grid's ms per step together. With
+    ``kernel_rows`` (the kernel phase's rows), each kernel of
+    ``PROFILE_ROWS`` that ran: its profiled ms a step beside the kernel
+    phase's ms a launch times its launches a step, a gap over 25% flagged
+    (not failed; the pair grid's layers mix layouts that the kernel phase
+    times apart)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2445,11 +2508,13 @@ def profile_train(trainer, batch, steps: int = 3, label: str = "train profile",
     log_device_profile(averages, label, "steps", "step", steps, wall_ms, 16,
                        watch=("::bs_", "flash_"))
     device = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
-    tiled_us = sum(e.self_device_time_total for e in device if "flash_" in e.key)
-    if tiled_us:
-        log(f"{label}: the tiled flash kernels {tiled_us / 1e3 / steps:.3f} ms/step together")
+    for what, marker in (("the tiled flash kernels", "flash_"),
+                         ("the pair grid's kernels", "::bs_")):
+        us = sum(e.self_device_time_total for e in device if marker in e.key)
+        if us:
+            log(f"{label}: {what} {us / 1e3 / steps:.3f} ms/step together")
     rows = {row["name"]: row for row in kernel_rows}
-    for fn, (name, key) in TILED_PROFILE_ROWS.items():
+    for fn, (name, key) in PROFILE_ROWS.items():
         events = [e for e in device if fn in e.key]
         if not events or key not in rows.get(name, {}):
             continue
@@ -2533,11 +2598,11 @@ def main() -> int:
     del trainer
     release_memory()
     trainer, sparse_launches = train_sparse(vae, batch)
-    profile_train(trainer, batch, label="train sparse profile")
+    profile_train(trainer, batch, label="train sparse profile", kernel_rows=kernels)
     del trainer
     release_memory()
     trainer, sparse_bf16_launches = train_sparse(vae, batch, bf16=True)
-    profile_train(trainer, batch, label="train sparse bf16 profile")
+    profile_train(trainer, batch, label="train sparse bf16 profile", kernel_rows=kernels)
     del trainer, vae
     release_memory()
     trainer, batch, launches_512 = train_512(batch[0])
@@ -2916,46 +2981,55 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
     """The pair-grid kernels of this checkout against
     ``block_sparse_attention.cu`` of ``other_dir`` (another commit's csrc,
     built by ``build_other_library``; a source whose forward and dq take
-    no class map and tile order is bound with its shorter signatures), in
-    one process with one timer (cold L2). First, on every
-    ``testing.bs_inputs`` case, each kernel on the plain forward's o and
-    lse and the plain delta: each tree's float32 o and lse held against the
-    plain forward (``testing.BS_F32_ATOL``, rows with no allowed key
-    exactly 0 with lse -1e30), its dq against the plain dq
-    (``testing.BWD_F32_REL``, dead rows exactly 0) and its delta against
-    the plain delta (within 1e-4 of its largest entry), with max |this -
-    other| printed; the float32 dk/dv and every bfloat16 output must be
-    bitwise equal across the trees. Then at the flagship training shape
-    with the axial_row and conv_like layouts (``bs_inputs``, seed 1): the
-    float32 forward, dq and dk/dv timed in the order other, this, this,
+    no class map and tile order, or whose dk/dv takes no k-major class
+    map, is bound with its shorter signatures), in one process with one
+    timer (cold L2). First, on every ``testing.bs_inputs`` case, each
+    kernel on the plain forward's o and lse and the plain delta: each
+    tree's o and lse held against the plain forward (float32:
+    ``testing.BS_F32_ATOL``; rows with no allowed key exactly 0 with lse
+    -1e30), its dq against the plain dq and, in bfloat16, its dk and dv
+    against the plain ones (float32 ``testing.BWD_F32_REL``, bfloat16 the
+    floored row metric within ``testing.BWD_BF16_ROW_REL``; dead rows and
+    keys exactly 0), its delta against the plain delta (within 1e-4 of
+    its largest entry), with max |this - other| printed; the float32 dk/dv
+    and the bfloat16 o and lse must be bitwise equal across the trees.
+    Then at the flagship training shape with the axial_row and conv_like
+    layouts (``bs_inputs``, seed 1): the float32 forward, dq and dk/dv
+    and the bfloat16 dq and dk/dv timed in the order other, this, this,
     other, ``rounds`` times, with sdpa forward / backward with the boolean
-    mask and the bounds beside; and this tree's forward and dq with the
-    layout's tile order (longest row first) against launch order,
-    alternated the same way. Raises on a failed check."""
+    mask in the same type (each backend that takes one, by name) and the
+    bounds beside; and this tree's forward and dq (float32) and dq
+    (bfloat16) with the layout's tile order (longest row first) against
+    launch order, alternated the same way. Raises on a failed check."""
     import types
 
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
     from dalle_pytorch_tpu_torch.ops import cuda_build
     from dalle_pytorch_tpu_torch.testing import (
-        BS_F32_ATOL, BWD_F32_REL, bs_bwd_errors, bs_fwd_errors, bs_inputs)
+        BS_F32_ATOL, BWD_BF16_ROW_REL, BWD_F32_REL, bs_bwd_errors, bs_fwd_errors, bs_inputs)
 
     name = "block_sparse_attention"
     source = Path(other_dir) / f"{name}.cu"
+    text = source.read_text()
     signatures = dict(cuda_build.SIGNATURES[name])
-    # where the forward's and dq's class map and tile order sit in the
-    # pointers the wrappers pass
-    cut = {"block_sparse_attention_fwd": 7, "block_sparse_attention_dq": 10}
-    takes_map = "const void* halves" in source.read_text()
-    if not takes_map:
-        for fn, at in cut.items():
-            argtypes, restype = signatures[fn]
-            signatures[fn] = (argtypes[:at] + argtypes[at + 2:], restype)
+    # {entry point: (where the maps it does not take sit in the pointers
+    # the wrappers pass, how many)}: the forward's and dq's class map and
+    # tile order, dk/dv's k-major class map
+    cut = {}
+    if "const void* halves" not in text:
+        cut.update(block_sparse_attention_fwd=(7, 2), block_sparse_attention_dq=(10, 2))
+    if "const void* columns" not in text:
+        cut["block_sparse_attention_dkdv"] = (10, 1)
+    for fn, (at, count) in cut.items():
+        argtypes, restype = signatures[fn]
+        signatures[fn] = (argtypes[:at] + argtypes[at + count:], restype)
     other = build_other_library(name, source, "sparse_other", signatures)
-    if not takes_map:
-        other = types.SimpleNamespace(
-            block_sparse_attention_dkdv=other.block_sparse_attention_dkdv,
-            **{fn: (lambda f, at: lambda *args: f(*args[:at], *args[at + 2:]))(
-                getattr(other, fn), at) for fn, at in cut.items()})
+    if cut:
+        other = types.SimpleNamespace(**{
+            fn: getattr(other, fn) if fn not in cut else (
+                lambda f, at, count: lambda *args: f(*args[:at], *args[at + count:]))(
+                    getattr(other, fn), *cut[fn])
+            for fn in signatures})
     libs = {"this": cuda_build.load_library(name), "other": other}
 
     def use(src: str) -> None:  # the wrappers load their library through this cache
@@ -2966,6 +3040,7 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
             q, k, v, do, layout, km = bs_inputs(case, dtype, "cuda")
             po, plse = bs.reference_block_sparse(q, k, v, layout, km)
             pdq, pdelta = bs.reference_block_sparse_dq(q, k, v, po, plse, do, layout, km)
+            pdk, pdv = bs.reference_block_sparse_dkdv(q, k, v, do, plse, pdelta, layout, km)
             outs = {}
             for src in libs:
                 use(src)
@@ -2977,69 +3052,90 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
             pairs = list(zip(outs["this"], outs["other"]))
             same = [torch.equal(a, b) for a, b in pairs]
             label = f"compare sparse {case} {dtype}"
-            if dtype == torch.bfloat16:
-                log(f"{label}: o, lse, dq, delta, dk, dv bitwise equal to the other tree's: {same}")
-                if not all(same):
-                    raise AssertionError(f"{label}: outputs differ from the other tree's")
-                continue
-            log(f"{label}: dk, dv bitwise equal to the other tree's: {same[4:]}")
-            if not all(same[4:]):
-                raise AssertionError(f"{label}: dk/dv differ from the other tree's")
-            pdk, pdv = bs.reference_block_sparse_dkdv(q, k, v, do, plse, pdelta, layout, km)
+            bf16 = dtype == torch.bfloat16
+            # bitwise across the trees: the kernels this comparison holds
+            # unchanged (bf16 o, lse; float32 dk, dv)
+            held = slice(0, 2) if bf16 else slice(4, 6)
+            log(f"{label}: o, lse, dq, delta, dk, dv bitwise equal to the other tree's: {same}")
+            if not all(same[held]):
+                raise AssertionError(f"{label}: {'o, lse' if bf16 else 'dk, dv'} differ from "
+                                     "the other tree's")
             ok = True
-            for src, (o, lse, dq, delta, *_) in outs.items():
-                err, _, _, dead_exact = bs_fwd_errors(o, lse, po, plse, layout, km)
-                rel, _, zeros_exact = bs_bwd_errors((dq, pdk, pdv), (pdq, pdk, pdv), layout, km)
+            for src, (o, lse, dq, delta, dk, dv) in outs.items():
+                err, row, lse_err, dead_exact = bs_fwd_errors(o, lse, po, plse, layout, km)
+                grads = (dq, dk, dv) if bf16 else (dq, pdk, pdv)
+                rel, grad_row, zeros_exact = bs_bwd_errors(grads, (pdq, pdk, pdv), layout, km)
                 delta_err = (delta - pdelta).abs().max().item()
                 delta_ok = delta_err <= 1e-4 * pdelta.abs().max().item()
-                ok &= (err <= BS_F32_ATOL and dead_exact and rel <= BWD_F32_REL and zeros_exact
-                       and delta_ok)
-                log(f"{label}, {src}: forward max abs (o, lse) {err:.3e} (tolerance "
-                    f"{BS_F32_ATOL:.0e}), dead rows exactly 0 {dead_exact}; dq relative L2 "
-                    f"{rel:.3e} (tolerance {BWD_F32_REL:.0e}), dead rows exactly 0 "
-                    f"{zeros_exact}; delta max abs {delta_err:.3e} (within 1e-4 of its largest "
-                    f"{delta_ok})")
-            diff = [(a - b).abs().max().item() for a, b in pairs[:4]]
-            log(f"{label}: max |this - other| o {diff[0]:.3e}, lse {diff[1]:.3e}, dq "
-                f"{diff[2]:.3e}, delta {diff[3]:.3e}")
+                if bf16:
+                    ok &= grad_row <= BWD_BF16_ROW_REL and zeros_exact and delta_ok
+                    log(f"{label}, {src}: forward row {row:.3e}, lse {lse_err:.3e}; dq, dk, dv "
+                        f"floored row {grad_row:.3e}, relative L2 {rel:.3e} (tolerance "
+                        f"{BWD_BF16_ROW_REL:.0e} floored row), dead rows and keys exactly 0 "
+                        f"{zeros_exact}; delta max abs {delta_err:.3e} (within 1e-4 of its "
+                        f"largest {delta_ok})")
+                else:
+                    ok &= (err <= BS_F32_ATOL and dead_exact and rel <= BWD_F32_REL
+                           and zeros_exact and delta_ok)
+                    log(f"{label}, {src}: forward max abs (o, lse) {err:.3e} (tolerance "
+                        f"{BS_F32_ATOL:.0e}), dead rows exactly 0 {dead_exact}; dq relative L2 "
+                        f"{rel:.3e} (tolerance {BWD_F32_REL:.0e}), dead rows exactly 0 "
+                        f"{zeros_exact}; delta max abs {delta_err:.3e} (within 1e-4 of its "
+                        f"largest {delta_ok})")
+            diff = [(a.float() - b.float()).abs().max().item() for a, b in pairs]
+            log(f"{label}: max |this - other| " + ", ".join(
+                f"{what} {d:.3e}" for what, d in zip(("o", "lse", "dq", "delta", "dk", "dv"),
+                                                     diff)))
             if not ok:
-                raise AssertionError(f"{label}: a tree's forward or dq misses the plain version")
+                raise AssertionError(f"{label}: a tree's kernels miss the plain versions")
             del outs, pairs
 
     for case in ("axial_row", "conv_like"):
-        q, k, v, do, layout, _ = bs_inputs(case, torch.float32, "cuda", seed=1)
-        o, lse = bs.block_sparse_attention(q, k, v, layout)
-        _, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout)
-        calls = {"block_sparse_attention": lambda: bs.block_sparse_attention(q, k, v, layout),
-                 "block_sparse_dq": lambda: bs.block_sparse_dq(q, k, v, o, lse, do, layout),
-                 "block_sparse_dkdv": lambda: bs.block_sparse_dkdv(q, k, v, do, lse, delta,
-                                                                   layout)}
+        calls, about = {}, {}  # about: (sdpa phrase, bounds) of each call
+        placed = []  # (layout, its device operands) of each type
+        for dtype in (torch.float32, torch.bfloat16):
+            type_name = str(dtype).split(".")[1]
+            q, k, v, do, layout, _ = bs_inputs(case, dtype, "cuda", seed=1)
+            placed.append((layout, bs.device_layout(layout, q.device)))
+            o, lse = bs.block_sparse_attention(q, k, v, layout)
+            _, delta = bs.block_sparse_dq(q, k, v, o, lse, do, layout)
+            fns = {"block_sparse_attention": lambda q=q, k=k, v=v, layout=layout:
+                   bs.block_sparse_attention(q, k, v, layout),
+                   "block_sparse_dq": lambda q=q, k=k, v=v, o=o, lse=lse, do=do, layout=layout:
+                   bs.block_sparse_dq(q, k, v, o, lse, do, layout),
+                   "block_sparse_dkdv": lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta,
+                   layout=layout: bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout)}
+            if dtype == torch.bfloat16:  # the bf16 forward is held bitwise above
+                del fns["block_sparse_attention"]
+            times = sdpa_mask_times(q, k, v, bs.may_attend(layout, layout.n, q.device), do)
+            bounds = bs_bounds(q, layout, None)
+            for key, fn in fns.items():
+                way = "forward" if key == "block_sparse_attention" else "backward"
+                calls[f"{key} {type_name}"] = fn
+                about[f"{key} {type_name}"] = (
+                    f"{type_name} sdpa {way} with the mask {sdpa_fastest(times[way]):.4f} ms "
+                    f"({sdpa_text(times[way])})", bounds[key])
+            if dtype == torch.bfloat16:
+                bf16_dq = fns["block_sparse_dq"]
+            else:
+                f32_rows = {f"{key} float32": fns[key] for key in ("block_sparse_attention",
+                                                                   "block_sparse_dq")}
         ms = alternate(calls, use, rounds, iters=20)
-        allowed = bs.may_attend(layout, layout.n, q.device)
-        sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=allowed), iters=20)
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-        sdpa_bwd_ms = cuda_time_ms(
-            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=20)
-        bounds = bs_bounds(q, layout, None)
         shape = f"b 4, 16 x 64, n 1280, {layout.n_pairs} block pairs"
         for key in calls:
-            sdpa = (f"sdpa forward with the mask {sdpa_ms:.4f}" if key == "block_sparse_attention"
-                    else f"sdpa backward with the mask {sdpa_bwd_ms:.4f}")
-            log(f"compare {key} float32 {case} ({shape}), cold L2: "
-                f"{pair_text(ms[key, 'this'], ms[key, 'other'])}; {sdpa} ms; "
-                f"{bound_text(bounds[key])}")
-        dl = bs.device_layout(layout, q.device)
+            sdpa, bound = about[key]
+            log(f"compare {key} {case} ({shape}), cold L2: "
+                f"{pair_text(ms[key, 'this'], ms[key, 'other'])}; {sdpa}; {bound_text(bound)}")
 
         def order(src: str) -> None:  # "this": the tile order, "other": launch order
-            layout._on_device[q.device] = dl if src == "this" else dl._replace(order=None)
+            for lay, dl in placed:
+                lay._on_device[q.device] = dl if src == "this" else dl._replace(order=None)
 
-        rows = {key: calls[key] for key in ("block_sparse_attention", "block_sparse_dq")}
+        rows = {**f32_rows, "block_sparse_dq bfloat16": bf16_dq}
         ms = alternate(rows, order, rounds, iters=20)
         for key in rows:
-            log(f"compare {key} float32 {case} ({shape}), longest row first against launch "
-                f"order, cold L2: "
+            log(f"compare {key} {case} ({shape}), longest row first against launch order, "
+                f"cold L2: "
                 f"{pair_text(ms[key, 'this'], ms[key, 'other'], ('launch order', 'longest first'))}")
 
 

@@ -1,11 +1,10 @@
-// Tile pieces of the pair grid's bf16 kernels (block_sparse_attention.cu:
-// bs_fwd_kernel, bs_dq_kernel, bs_dkdv_kernel): the tile geometry and
-// shared-memory layouts, tile loads and stores, the may-attend rule of a
-// tile, and the per-tile steps of the forward (online softmax), the dq
-// pass and the dk/dv pass. Every product is a float32 FMA from shared
-// memory. Every other attention kernel runs on the tensor cores
-// (tf32_sweeps.cuh, bf16_sweeps.cuh); NEG_INF, TILE and allow_smem serve
-// them too (flash_attention.cu keeps only those).
+// Tile pieces of the pair grid's bf16 forward (block_sparse_attention.cu:
+// bs_fwd_kernel), the last CUDA-core attention kernel: the tile geometry
+// and shared-memory layout, tile loads and stores, the may-attend rule of
+// a tile and the forward's per-tile step (online softmax). Every product
+// is a float32 FMA from shared memory. Every other attention kernel runs
+// on the tensor cores (tf32_sweeps.cuh, bf16_sweeps.cuh); NEG_INF, TILE
+// and allow_smem serve them too (flash_attention.cu keeps only those).
 //
 // Layout: one block of THREADS = 256 threads per TILE-row tile. Tiles are
 // TILE x d floats in shared memory with a padded row stride of d + 1;
@@ -56,20 +55,10 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 template <int D>
 __host__ __device__ constexpr int tile_floats() { return TILE * (D + 1); }
 
-// shared memory of each pass (the layouts its kernels carve)
+// shared memory of the forward (the layout its kernel carves)
 template <int D>
 __host__ __device__ constexpr int fwd_smem_bytes() {
   return MASK_BYTES + 4 * (3 * tile_floats<D>() + TILE * SP + TILE);
-}
-
-template <int D>
-__host__ __device__ constexpr int dq_smem_bytes() {
-  return MASK_BYTES + 4 * (4 * tile_floats<D>() + TILE * SP + 3 * TILE);
-}
-
-template <int D>
-__host__ __device__ constexpr int dkdv_smem_bytes() {
-  return MASK_BYTES + 4 * (4 * tile_floats<D>() + 2 * TILE * SP + 3 * TILE);
 }
 
 // rows row0 .. row0 + TILE - 1 of one head's contiguous (n, D) rows into a
@@ -197,115 +186,6 @@ __device__ __forceinline__ void fwd_step(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int c = 0; c < CJ; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-  }
-}
-
-// Scores s and dp = do . v^T of the thread's 4 x 4 (query, key) pairs of
-// the current tiles, then p = exp(s - lse) and ds = p * (dp - delta) *
-// scale into the shared (TILE, SP) tiles: p rounded to the storage type
-// into p_out (when given), ds rounded to the storage type into ds_out.
-template <typename T, int D>
-__device__ __forceinline__ void scores_to_p_ds(
-    const float* __restrict__ qs, const float* __restrict__ ks,
-    const float* __restrict__ vs, const float* __restrict__ dos,
-    const float* __restrict__ lse_s, const float* __restrict__ del_s,
-    const float* __restrict__ kok, const uint8_t* __restrict__ msk, bool has_mask,
-    int cls, float* __restrict__ p_out, float* __restrict__ ds_out, int q0, int k0,
-    int n, float scale) {
-  constexpr int DP = D + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int e = 0; e < D; ++e) {
-    float qv[4], kv[4], dov[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = qs[(ty + 16 * i) * DP + e];
-      dov[i] = dos[(ty + 16 * i) * DP + e];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = ks[(tx + 16 * j) * DP + e];
-      vv[j] = vs[(tx + 16 * j) * DP + e];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const float sv =
-          allowed(kok, msk, has_mask, cls, r, c, q0, k0, n) ? s[i][j] * scale : NEG_INF;
-      const float p = sv > 0.5f * NEG_INF ? expf(sv - lse_s[r]) : 0.f;
-      if (p_out != nullptr) p_out[r * SP + c] = round_to<T>(p);
-      ds_out[r * SP + c] = round_to<T>(p * (dp[i][j] - del_s[r]) * scale);
-    }
-  }
-}
-
-// acc += ds . k for the thread's query rows (dq pass)
-template <int D>
-__device__ __forceinline__ void dq_step(const float* __restrict__ dss,
-                                        const float* __restrict__ ks,
-                                        float (&acc)[4][D / 16]) {
-  constexpr int DP = D + 1, CJ = D / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int j = 0; j < TILE; ++j) {
-    float dsv[4], kv[CJ];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) dsv[a] = dss[(ty + 16 * a) * SP + j];
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) kv[c] = ks[j * DP + tx + 16 * c];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) acc[a][c] = fmaf(dsv[a], kv[c], acc[a][c]);
-  }
-}
-
-// dv += p^T . do and dk += ds^T . q for the thread's key rows (dk/dv pass)
-template <int D>
-__device__ __forceinline__ void dkdv_step(const float* __restrict__ ps,
-                                          const float* __restrict__ dss,
-                                          const float* __restrict__ dos,
-                                          const float* __restrict__ qs,
-                                          float (&dk_acc)[4][D / 16],
-                                          float (&dv_acc)[4][D / 16]) {
-  constexpr int DP = D + 1, CJ = D / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int i = 0; i < TILE; ++i) {
-    float pv[4], dsv[4], dov[CJ], qv[CJ];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      pv[a] = ps[i * SP + ty + 16 * a];
-      dsv[a] = dss[i * SP + ty + 16 * a];
-    }
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) {
-      dov[c] = dos[i * DP + tx + 16 * c];
-      qv[c] = qs[i * DP + tx + 16 * c];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        dv_acc[a][c] = fmaf(pv[a], dov[c], dv_acc[a][c]);
-        dk_acc[a][c] = fmaf(dsv[a], qv[c], dk_acc[a][c]);
-      }
   }
 }
 

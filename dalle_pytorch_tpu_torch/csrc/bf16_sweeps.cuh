@@ -2,9 +2,10 @@
 // float32 accumulation (mma_tiles.cuh), the bf16 counterparts of
 // tf32_sweeps.cuh's fwd_sweep, dq_sweep and dkdv_sweep, over the same
 // walks (tf32::VisitRow, tf32::VisitColumn, and the pair grid's HalfRow
-// and PairRun, which do no float arithmetic). The tiled flash kernels'
+// and HalfColumn, which do no float arithmetic). The tiled flash kernels'
 // bf16 forward, dq, dk/dv and single-block backward (flash_attention.cu)
-// run them.
+// and the pair grid's bf16 dq and dk/dv (block_sparse_attention.cu) run
+// them.
 //
 // fwd_sweep: a block of 4 warps owns one 64-row query tile of one head, Q
 // resident (its A fragments in registers at d <= 64), and streams the

@@ -40,7 +40,13 @@
 //    each q block's four halves below n; class 0 pairs and halves whose
 //    (32, 64) tile of the int8 mask is empty are passed over (they would
 //    add p = 0), so the mask tile is loaded and tested before the half is
-//    issued.
+//    issued. HalfColumn: a key tile's row of the pair grid's k-major
+//    per-half class map (ops/block_sparse_attention.py:half_columns),
+//    empty halves passed over by a ballot on the map and a class 1
+//    half's mask tile fetched by cp.async with the half, as HalfRow does
+//    for the row sweeps.
+// The walks do no float arithmetic: bf16_sweeps.cuh's sweeps take them
+// as they are.
 //  - the delta source (DELTA_FROM_O): read with lse from delta_in (the dq
 //    pass's), or derived per half from O rows streamed with Q and dO (a
 //    half ahead, in the same ring, so the load hides behind the previous
@@ -520,6 +526,30 @@ struct PairRun {
     const int4 bits = *reinterpret_cast<const int4*>(mask + (int64_t)(row0 + r) * n_pad + k0 + c);
     *reinterpret_cast<int4*>(pm + r * ROWS + c) = bits;
     return __syncthreads_or((bits.x | bits.y | bits.z | bits.w) != 0) != 0;
+  }
+};
+
+// The query halves of key tile k0 in the pair grid's k-major (n_pad /
+// 64, n_pad / 32) class map (hcol = its row k0 / 64,
+// ops/block_sparse_attention.py:half_columns): half h is query rows 32h
+// .. of class hcol[h] (0: passed over by a ballot, with no load and no
+// barrier); a class 1 half's (32, 64) tile of the (n_pad, n_pad) int8
+// mask is fetched by cp.async with the half's Q and dO, into the stage
+// where it will run. Halves are visited in ascending query order.
+struct HalfColumn {
+  const int8_t* hcol;
+  const int8_t* mask;
+  int n_pad, k0;
+
+  __device__ int halves() const { return n_pad / SROWS; }
+  __device__ int first(int8_t*) const { return first_visited<0>(hcol, 1, 0, halves()); }
+  __device__ int next(int h, int8_t*) const { return first_visited<0>(hcol, 1, h + 1, halves()); }
+  __device__ bool live(int h) const { return h < halves(); }
+  __device__ int q0(int h) const { return h * SROWS; }
+  __device__ int cls(int h) const { return hcol[h]; }
+  __device__ bool use_pattern(int cls) const { return cls == 1; }
+  __device__ void fetch_mask(int h, int8_t* pm) const {
+    if (cls(h) == 1) tc::load_mask_tile<SROWS, ROWS>(pm, mask, q0(h), k0, n_pad);
   }
 };
 

@@ -10,9 +10,10 @@ exact zeros. The compiler (``_pair_lists``, ``_table``,
 ``compile_block_layout``) is a numpy copy of JAX's; its tables come out
 identical. ``device_layout`` puts a layout's int8 mask, tables and
 per-block run offsets on a device once per layout, and for a 128-block
-layout the float32 forward's and dq's walk: the per-half class map
-(``half_classes``) and the query tiles longest row first
-(``tile_order``).
+layout the tensor-core kernels' walks: the q-major per-half class map of
+the forward and dq (``half_classes``) with the query tiles longest row
+first (``tile_order``), and the k-major one of the bf16 dk/dv
+(``half_columns``).
 
 - ``reference_block_sparse`` (forward) and ``reference_block_sparse_dq``
   / ``reference_block_sparse_dkdv`` (their sum is
@@ -96,9 +97,9 @@ class DeviceLayout(NamedTuple):
     the q-major table and its (nq + 1,) run offsets (q block i owns
     columns [offsets[i], offsets[i + 1])), the k-major table and its
     (nk + 1,) run offsets, all int32 but the mask; for a 128-block layout
-    also the int8 (n_pad / 64, n_pad / 32) ``half_classes`` and the int32
-    (n_pad / 64,) ``tile_order`` (None for other blocks, which no kernel
-    takes)."""
+    also the int8 (n_pad / 64, n_pad / 32) ``half_classes`` and
+    ``half_columns`` and the int32 (n_pad / 64,) ``tile_order`` (None for
+    other blocks, which no kernel takes)."""
 
     mask: torch.Tensor
     fwd_table: torch.Tensor
@@ -107,6 +108,7 @@ class DeviceLayout(NamedTuple):
     kv_offsets: torch.Tensor
     halves: Optional[torch.Tensor]
     order: Optional[torch.Tensor]
+    columns: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -193,26 +195,41 @@ def _run_offsets(groups: np.ndarray, n_groups: int) -> np.ndarray:
     return offsets
 
 
-# the float32 forward's and dq's walk: a block owns a TILE-row query
-# tile and walks its HALF-key halves
+# the tensor-core kernels' walks: a block owns a TILE-row query tile and
+# walks its HALF-key halves (forward, dq), or a TILE-key tile and walks
+# its HALF-row query halves (dk/dv)
 TILE, HALF = 64, 32
+
+
+def _tile_classes(layout: BlockLayout, rows: int, cols: int) -> np.ndarray:
+    """(n_pad / rows, n_pad / cols) int8: the class of each (rows, cols)
+    tile of ``layout.mask`` of a 128-block layout. 0 (passed over) where
+    its 128-block pair is class 0 or absent, or the tile is empty (this
+    holds every tile at or past n: the mask is zero there); 2 (no mask
+    test) where the pair is class 2 or the tile is full (the test would
+    pass everywhere); 1 (the mask tile decides) otherwise."""
+    assert layout.block_q == layout.block_k == DEFAULT_BLOCK, "128-block layouts only"
+    nr, nc = layout.n_pad // rows, layout.n_pad // cols
+    tiles = layout.mask.reshape(nr, rows, nc, cols)
+    some, full = tiles.any(axis=(1, 3)), tiles.all(axis=(1, 3))
+    pair = layout.visit[np.arange(nr)[:, None] * rows // DEFAULT_BLOCK,
+                        np.arange(nc)[None, :] * cols // DEFAULT_BLOCK]
+    return np.where((pair == 0) | ~some, 0, np.where((pair == 2) | full, 2, 1)).astype(np.int8)
 
 
 def half_classes(layout: BlockLayout) -> np.ndarray:
     """(n_pad / TILE, n_pad / HALF) int8: the class of each (64-row query
-    tile, 32-key half) of a 128-block layout, as the float32 forward and
-    dq walk it. 0 (passed over) where its 128-block pair is class 0 or
-    absent, or its (64, 32) tile of ``layout.mask`` is empty (this holds
-    every half at or past n: the mask is zero there); 2 (no mask test)
-    where the pair is class 2 or the tile is full (the test would pass
-    everywhere); 1 (the mask tile decides) otherwise."""
-    assert layout.block_q == layout.block_k == DEFAULT_BLOCK, "128-block layouts only"
-    nt, nh = layout.n_pad // TILE, layout.n_pad // HALF
-    tiles = layout.mask.reshape(nt, TILE, nh, HALF)
-    some, full = tiles.any(axis=(1, 3)), tiles.all(axis=(1, 3))
-    pair = layout.visit[np.arange(nt)[:, None] * TILE // DEFAULT_BLOCK,
-                        np.arange(nh)[None, :] * HALF // DEFAULT_BLOCK]
-    return np.where((pair == 0) | ~some, 0, np.where((pair == 2) | full, 2, 1)).astype(np.int8)
+    tile, 32-key half) of a 128-block layout (``_tile_classes``), as the
+    forward and the dq walk it (``tf32::HalfRow``)."""
+    return _tile_classes(layout, TILE, HALF)
+
+
+def half_columns(layout: BlockLayout) -> np.ndarray:
+    """(n_pad / TILE, n_pad / HALF) int8, k-major: entry [kt, qh] is the
+    class of the tile of query rows HALF * qh .. against keys TILE * kt
+    .. of a 128-block layout (``_tile_classes``), as the bf16 dk/dv walks
+    it (``tf32::HalfColumn``)."""
+    return np.ascontiguousarray(_tile_classes(layout, HALF, TILE).T)
 
 
 def tile_order(classes: np.ndarray) -> np.ndarray:
@@ -228,10 +245,11 @@ def device_layout(layout: BlockLayout, device) -> DeviceLayout:
     cached = layout._on_device.get(device)
     if cached is None:
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-        halves = order = None
+        halves = order = columns = None
         if layout.block_q == layout.block_k == DEFAULT_BLOCK:
             classes = half_classes(layout)
             halves, order = put(classes), put(tile_order(classes))
+            columns = put(half_columns(layout))
         cached = layout._on_device[device] = DeviceLayout(
             mask=put(layout.mask.astype(np.int8)),
             fwd_table=put(layout.fwd_table),
@@ -240,6 +258,7 @@ def device_layout(layout: BlockLayout, device) -> DeviceLayout:
             kv_offsets=put(_run_offsets(layout.kv_table[1], layout.nk)),
             halves=halves,
             order=order,
+            columns=columns,
         )
     return cached
 
@@ -418,7 +437,10 @@ def block_sparse_dq(q, k, v, o, lse, do, layout: BlockLayout, key_mask=None,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dq pass: (dq (b, h, n, d), delta (b, h, n) float32); arguments as
     ``reference_block_sparse_dq``. The kernel computes delta from o and
-    do for its own query rows and writes it for ``block_sparse_dkdv``."""
+    do for its own query rows and writes it for ``block_sparse_dkdv``.
+    Both types run on the tensor cores over the layout's ``half_classes``
+    and copy rows by 16-byte ``cp.async``: an operand that is not 16-byte
+    aligned raises ValueError, with no fallback."""
     if not q.is_cuda:
         return reference_block_sparse_dq(q, k, v, o, lse, do, layout, key_mask,
                                          sm_scale)
@@ -441,7 +463,10 @@ def block_sparse_dkdv(q, k, v, do, lse, delta, layout: BlockLayout,
                       key_mask=None, sm_scale: Optional[float] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk/dv pass: (dk, dv), each (b, h, n, d); arguments as
-    ``reference_block_sparse_dkdv``."""
+    ``reference_block_sparse_dkdv``. Both types run on the tensor cores
+    (float32 over the k-major pair table, bfloat16 over the layout's
+    ``half_columns``): an operand that is not 16-byte aligned raises
+    ValueError, with no fallback."""
     if not q.is_cuda:
         return reference_block_sparse_dkdv(q, k, v, do, lse, delta, layout,
                                            key_mask, sm_scale)
@@ -449,7 +474,8 @@ def block_sparse_dkdv(q, k, v, do, lse, delta, layout: BlockLayout,
     lse, delta = _row_stats(lse, q), _row_stats(delta, q, "delta")
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _launch("block_sparse_attention_dkdv",
-            (q, k, v, do, lse, delta, km, dl.mask, dl.kv_table, dl.kv_offsets, dk, dv),
+            (q, k, v, do, lse, delta, km, dl.mask, dl.kv_table, dl.kv_offsets, dl.columns,
+             dk, dv),
             q, layout, layout.kv_table.shape[1], _scale(q.shape[-1], sm_scale))
     block_sparse_dkdv.launches += 1
     return dk, dv

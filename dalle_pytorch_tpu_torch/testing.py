@@ -56,7 +56,12 @@ products per 32-row half, p and ds rounded to bf16 where the sweeps pack
 them, delta from the bf16 o and do); so, with delta derived per half,
 does the bf16 single-block backward, and ``emulated_bf16_tiled_fwd``
 runs the bf16 forward's (the online softmax per 32-key half, p rounded
-to bf16 against the running max).
+to bf16 against the running max). The pair grid's bf16 dq and dk/dv run
+the same sweeps over its class maps: ``emulated_bf16_pair_dq`` over the
+halves of its row walk (``pair_row_halves``) and
+``emulated_bf16_pair_dkdv`` over those of its column walk
+(``pair_column_halves``, the rows of
+``block_sparse_attention.half_columns``).
 
 The fused decode kernel is held on ``decode_inputs`` by ``decode_errors``:
 float32 out within abs ``DECODE_F32_ATOL``, bfloat16 each batch row's out
@@ -696,18 +701,19 @@ def pair_row_halves(layout, q0: int):
     return [(bs.HALF * h, int(c)) for h, c in enumerate(row) if c != 0]
 
 
-def _pair_rows(layout, key_mask, b: int, q0: int, k0: int, cls: int):
-    """(b, 1, 64, 32) bool: the (query, key) pairs of the tile at (q0, k0)
-    that the kernels let through: the key mask (keys below n), and for a
-    class 1 half the layout's mask tile."""
+def _pair_rows(layout, key_mask, b: int, q0: int, k0: int, cls: int, rows: int = bs.TILE,
+               cols: int = bs.HALF):
+    """(b, 1, rows, cols) bool: the (query, key) pairs of the tile of
+    query rows q0 .. and keys k0 .. that the kernels let through: the key
+    mask (keys below n), and for a class 1 half the layout's mask tile."""
     n = layout.n
-    keys = torch.zeros(b, bs.HALF, dtype=torch.bool)
-    live = slice(0, max(0, min(bs.HALF, n - k0)))
+    keys = torch.zeros(b, cols, dtype=torch.bool)
+    live = slice(0, max(0, min(cols, n - k0)))
     keys[:, live] = (True if key_mask is None
-                     else key_mask.cpu()[:, k0:k0 + bs.HALF][:, live] != 0)
-    ok = keys[:, None, None, :].expand(b, 1, bs.TILE, bs.HALF)
+                     else key_mask.cpu()[:, k0:k0 + cols][:, live] != 0)
+    ok = keys[:, None, None, :].expand(b, 1, rows, cols)
     if cls == 1:
-        ok = ok & torch.from_numpy(layout.mask[q0:q0 + bs.TILE, k0:k0 + bs.HALF])
+        ok = ok & torch.from_numpy(layout.mask[q0:q0 + rows, k0:k0 + cols])
     return ok
 
 
@@ -786,6 +792,82 @@ def emulated_pair_dq(q, k, v, o, lse, do, layout, key_mask=None):
                               split_tf32(kp[..., keys, :]))
             dq[..., rows, :] += part
     return dq[..., :n, :], delta[..., :n]
+
+
+def pair_column_halves(layout, k0: int):
+    """The 32-row query halves that the pair grid's bf16 dk/dv
+    (``bs_dkdv_tc_kernel``) walks for the 64-key tile at ``k0``, in query
+    order, as ``tf32::HalfColumn`` finds them: the nonzero entries of the
+    tile's row of ``block_sparse_attention.half_columns``. Returns
+    [(q0, class)]."""
+    row = bs.half_columns(layout)[k0 // bs.TILE]
+    return [(bs.HALF * h, int(c)) for h, c in enumerate(row) if c != 0]
+
+
+def emulated_bf16_pair_dq(q, k, v, o, lse, do, layout, key_mask=None):
+    """The pair grid's bf16 dq as ``bs_dq_tc_kernel`` runs it (csrc/
+    bf16_sweeps.cuh over ``tf32::HalfRow``) on bf16 q, k, v, o, do (b, h,
+    n, d), the forward's lse (b, h, n) and a 128-block layout: per 64-row
+    query tile, delta of its rows by ``emulated_row_delta`` from the bf16
+    o and do (0 at rows past n, which the kernel does not read), then over
+    the halves of ``pair_row_halves`` s = q.k^T and dp = do.v^T in float32
+    from the bf16 inputs, s scaled and masked by the half's class (2: the
+    key mask; 1: the layout's mask tile and the key mask), p = exp(s -
+    lse) where s > 0.5 * NEG_INF, ds = p * (dp - delta) * scale rounded to
+    bf16 (where the sweep packs it into the A fragments of dS.K), and the
+    half's ds.k added to the running float32 sum. Returns (dq in bf16,
+    delta (b, h, n) float32)."""
+    b, h, n, d = q.shape
+    scale = d**-0.5
+    qp, kp, vp, op, dop = _padded(layout, q, k, v, o, do)
+    lse_p = F.pad(lse.float(), (0, layout.n_pad - n))
+    dq = torch.zeros(b, h, layout.n_pad, d)
+    delta = torch.zeros(b, h, layout.n_pad)
+    for q0 in range(0, n, bs.TILE):
+        rows = slice(q0, q0 + bs.TILE)
+        delta[..., rows] = emulated_row_delta(op[..., rows, :], dop[..., rows, :])
+        for k0, cls in pair_row_halves(layout, q0):
+            keys = slice(k0, k0 + bs.HALF)
+            s = (qp[..., rows, :] @ kp[..., keys, :].transpose(-1, -2) * scale).masked_fill(
+                ~_pair_rows(layout, key_mask, b, q0, k0, cls), bs.NEG_INF)
+            p = torch.where(s > 0.5 * bs.NEG_INF, torch.exp(s - lse_p[..., rows, None]), 0.0)
+            dp = dop[..., rows, :] @ vp[..., keys, :].transpose(-1, -2)
+            ds = (p * (dp - delta[..., rows, None]) * scale).bfloat16().float()
+            dq[..., rows, :] += ds @ kp[..., keys, :]
+    return dq[..., :n, :].bfloat16(), delta[..., :n]
+
+
+def emulated_bf16_pair_dkdv(q, k, v, do, lse, delta, layout, key_mask=None):
+    """The pair grid's bf16 dk/dv as ``bs_dkdv_tc_kernel`` runs it (the
+    key-major sweep of csrc/bf16_sweeps.cuh over ``tf32::HalfColumn``) on
+    bf16 q, k, v, do (b, h, n, d), the forward's lse and the dq pass's
+    delta (b, h, n) and a 128-block layout: per 64-key tile, over the
+    halves of ``pair_column_halves`` (query rows past n zero, their lse
+    and delta 0), s^T = k.q^T and dp^T = v.do^T in float32 from the bf16
+    inputs, s scaled and masked by the half's class, p = exp(s - lse)
+    where s > 0.5 * NEG_INF; p rounded to bf16 for dv += p^T.do and ds = p
+    * (dp - delta) * scale (on the unrounded p) rounded to bf16 for dk +=
+    ds^T.q, each half's partial added to the running float32 sums.
+    Returns (dk, dv) in bf16."""
+    b, h, n, d = q.shape
+    scale = d**-0.5
+    qp, kp, vp, dop = _padded(layout, q, k, v, do)
+    lse_p, delta_p = (F.pad(t.float(), (0, layout.n_pad - n)) for t in (lse, delta))
+    dk = torch.zeros(b, h, layout.n_pad, d)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, n, bs.TILE):
+        kt = slice(k0, k0 + bs.TILE)
+        for q0, cls in pair_column_halves(layout, k0):
+            rows = slice(q0, q0 + bs.HALF)
+            s = (kp[..., kt, :] @ qp[..., rows, :].transpose(-1, -2) * scale).masked_fill(
+                ~_pair_rows(layout, key_mask, b, q0, k0, cls, bs.HALF, bs.TILE).transpose(-1, -2),
+                bs.NEG_INF)
+            p = torch.where(s > 0.5 * bs.NEG_INF, torch.exp(s - lse_p[..., None, rows]), 0.0)
+            dp = vp[..., kt, :] @ dop[..., rows, :].transpose(-1, -2)
+            ds = p * (dp - delta_p[..., None, rows]) * scale
+            dv[..., kt, :] += p.bfloat16().float() @ dop[..., rows, :]
+            dk[..., kt, :] += ds.bfloat16().float() @ qp[..., rows, :]
+    return dk[..., :n, :].bfloat16(), dv[..., :n, :].bfloat16()
 
 
 def emulated_split_decode(qkv, k_cache, v_cache, idx: int, cos, sin, key_mask, heads: int,

@@ -574,6 +574,17 @@ def test_block_sparse_kernels_are_deterministic(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["axial_row", "d64", "synthetic"])
+def test_block_sparse_bf16_kernels_are_deterministic(cuda, case):
+    """No float atomics in the bf16 instances either (the dq and dk/dv on
+    bf16 tensor-core tiles, each owning its rows): two runs give
+    bit-identical outputs and gradients."""
+    inputs = bs_inputs(case, torch.bfloat16, cuda)
+    first, second = _bs_run(*inputs), _bs_run(*inputs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
 def test_block_sparse_function_gradients_on_card(cuda):
     """BlockSparseAttention on the card (three kernels) against torch
     autograd of the plain forward on the same float32 inputs: each of dq,
@@ -883,6 +894,62 @@ def test_block_sparse_f32_kernels_reject_unaligned_operands(cuda):
         bs.block_sparse_dq(q, q, q, shifted, lse, o, layout)
     with pytest.raises(ValueError):
         bs.block_sparse_dkdv(q, q, shifted, o, lse, lse, layout)
+
+
+@pytest.mark.gpu
+def test_block_sparse_bf16_kernels_reject_unaligned_operands(cuda):
+    """The bf16 dq and dk/dv copy rows by 16-byte cp.async and read them
+    by ldmatrix: an operand that is not 16-byte aligned (a view one
+    element into its storage) is refused with a ValueError, not read and
+    not counted as a launch; there is no fallback."""
+    layout = bs.compile_block_layout(masks.causal_mask(256))
+    q = torch.zeros(1, 2, 256, 64, dtype=torch.bfloat16, device=cuda)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(q.shape)
+    o, lse = bs.block_sparse_attention(q, q, q, layout)
+    before = [f.launches for f in (bs.block_sparse_dq, bs.block_sparse_dkdv)]
+    with pytest.raises(ValueError):
+        bs.block_sparse_dq(q, shifted, q, o, lse, o, layout)
+    with pytest.raises(ValueError):
+        bs.block_sparse_dq(q, q, q, o, lse, shifted, layout)
+    with pytest.raises(ValueError):
+        bs.block_sparse_dkdv(q, q, shifted, o, lse, lse, layout)
+    with pytest.raises(ValueError):
+        bs.block_sparse_dkdv(shifted, q, q, o, lse, lse, layout)
+    assert [f.launches for f in (bs.block_sparse_dq, bs.block_sparse_dkdv)] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_block_sparse_wrappers_count_no_refused_launch(cuda, dtype):
+    """A kernel that refuses its operands launches nothing, and its
+    wrapper counts nothing: with the layout's class maps taken off the
+    card the tensor-core kernels that walk them (float32 forward and dq,
+    bf16 dq and dk/dv) raise ValueError and every count stays as it was;
+    the maps put back, each call counts one launch."""
+    layout = bs.compile_block_layout(masks.causal_mask(256))
+    q = torch.randn(1, 2, 256, 64, device=cuda).to(dtype)
+    o, lse = bs.block_sparse_attention(q, q, q, layout)
+    _, delta = bs.block_sparse_dq(q, q, q, o, lse, o, layout)
+    wrappers = (bs.block_sparse_attention, bs.block_sparse_dq, bs.block_sparse_dkdv)
+    dl = bs.device_layout(layout, q.device)
+    layout._on_device[q.device] = dl._replace(halves=None, order=None, columns=None)
+    try:
+        before = [f.launches for f in wrappers]
+        refused = {torch.float32: ("fwd", "dq"), torch.bfloat16: ("dq", "dkdv")}[dtype]
+        calls = {"fwd": lambda: bs.block_sparse_attention(q, q, q, layout),
+                 "dq": lambda: bs.block_sparse_dq(q, q, q, o, lse, o, layout),
+                 "dkdv": lambda: bs.block_sparse_dkdv(q, q, q, o, lse, delta, layout)}
+        for name in refused:
+            with pytest.raises(ValueError):
+                calls[name]()
+        torch.cuda.synchronize()
+        assert [f.launches for f in wrappers] == before
+    finally:
+        layout._on_device[q.device] = dl
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [c + 1 for c in before]
 
 
 @pytest.mark.gpu
