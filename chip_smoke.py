@@ -132,7 +132,7 @@ version (float32 and bfloat16) at the flagship training shape, CLIP's
 text shape and DALL-E's shape with the axial-row and axial-column
 pattern masks (timed at the training shape in both types), and the
 three block-sparse kernels (forward, dq, dk/dv; every float32 one on
-split-3xTF32 tensor-core tiles, the bf16 dq and dk/dv on bf16 ones) at
+split-3xTF32 tensor-core tiles, every bf16 one on bf16 ones) at
 the flagship training shape with the axial_row and conv_like layouts and
 at a ragged n with a key mask that kills whole rows (dim_head 32, 64,
 128), each timed beside its plain version, its bound (float32 at the
@@ -173,13 +173,13 @@ Phase 2 also prints what ``ptxas -v`` reports (registers, shared memory,
 spills) for the packed-qkv kernels' tensor-core instances (bf16, and
 float32 as split 3xTF32), for the tiled flash forward, dq, dk/dv and
 single-block backward in both types (float32 as split 3xTF32, bf16 on
-bf16 ``mma.sync``), the pair grid's float32 forward, dq and dk/dv and
-its bf16 dq and dk/dv, for every instance of the ragged kernel and of
-the decode kernel, and counts the HMMA instructions of each packed,
-tiled and pair-grid tensor-core instance in the built libraries
-(``cuobjdump -sass``), failing unless every float32 instance (3 + 6 +
-16 + 9) holds ``HMMA.1688.F32.TF32`` and every tiled and pair-grid bf16
-one (16 + 6) ``HMMA.16816.F32.BF16``.
+bf16 ``mma.sync``), the pair grid's forward, dq and dk/dv in both types,
+for every instance of the ragged kernel and of the decode kernel, and
+counts the HMMA instructions of each packed, tiled and pair-grid
+tensor-core instance in the built libraries (``cuobjdump -sass``),
+failing unless every float32 instance (3 + 6 + 16 + 9) holds
+``HMMA.1688.F32.TF32`` and every tiled and pair-grid bf16 one (16 + 9)
+``HMMA.16816.F32.BF16``.
 
 Paired comparisons, one card, none of the phases above:
 
@@ -211,13 +211,13 @@ the 512 px shape and the single-block backward at one block of 1280
 (and, in bf16, at 16 heads of 32) alternating, sdpa and the bounds
 beside; the fourth does the same for
 another commit's ``block_sparse_attention.cu`` (bound with its shorter
-signatures where it takes no class map): each tree's float32 o, lse, dq
-and delta and bf16 dq, delta, dk and dv held against the plain versions
-with max |this - other| printed, the float32 dk/dv and the bf16 o and
-lse bitwise equal across the trees, then the float32 forward, dq and
-dk/dv and the bf16 dq and dk/dv timed alternating at the axial_row and
-conv_like layouts beside sdpa with the mask under each backend that
-takes one, and this tree's tile order against launch order; the fifth
+signatures where it takes no class map): each tree's o and lse, dq and
+delta and, in bf16, dk and dv held against the plain versions with max
+|this - other| printed, every float32 output and the bf16 dq, delta, dk
+and dv bitwise equal across the trees, then the forward, dq and dk/dv
+of both types timed alternating at the axial_row and conv_like layouts
+beside sdpa with the mask under each backend that takes one, and this
+tree's tile order against launch order; the fifth
 builds another commit's
 ``decode_attention.cu``, holds each tree's out against the plain version
 at the generate shape (b 1 and 8), checks the k/v rows bitwise equal
@@ -791,19 +791,47 @@ def pair_work(q, allowed, extra_bytes: int) -> dict:
             for name, (nbytes, products) in work.items()}
 
 
+def bs_layout_bytes(q, layout) -> dict:
+    """{pass: bytes} of a 128-block layout's device operands that each
+    pair-grid kernel reads at q's type, each byte once. The forward and
+    dq: the q-major class map ``halves``, the tile order and the (64, 32)
+    mask tile of each class 1 half. The bf16 dk/dv: the k-major map
+    ``columns`` and the (32, 64) mask tile of each class 1 entry. The
+    float32 dk/dv: the k-major table's q-block and class rows, its offsets
+    and, for each class 1 pair of it, the (32, 64) mask tiles that
+    ``tf32::PairRun`` loads to test, the pair's query halves below n
+    against its key tiles below n."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+
+    n = q.shape[2]
+    dl = bs.device_layout(layout, q.device)
+    tile = bs.TILE * bs.HALF  # bytes of one int8 mask tile
+    fwd = (dl.halves.numel() + 4 * dl.order.numel()
+           + tile * int((dl.halves == 1).sum()))
+    if q.dtype == torch.float32:
+        kv = layout.kv_table
+        qb, kb = kv[0, kv[2] == 1], kv[1, kv[2] == 1]
+        halves = np.clip(-(-(n - qb * bs.DEFAULT_BLOCK) // bs.HALF), 0, 4)
+        key_tiles = np.clip(-(-(n - kb * bs.DEFAULT_BLOCK) // bs.TILE), 0, 2)
+        dkdv = (4 * 2 * kv.shape[1] + 4 * dl.kv_offsets.numel()
+                + tile * int((halves * key_tiles).sum()))
+    else:
+        dkdv = dl.columns.numel() + tile * int((dl.columns == 1).sum())
+    return {"fwd": fwd, "dq": fwd, "dkdv": dkdv}
+
+
 def bs_bounds(q, layout, key_mask):
     """{kernel: ``packed_bounds``} of the three block-sparse kernels on
-    these inputs (``pair_work``), the layout's mask, tables, offsets,
-    class map and tile order and the key mask as passed: float32 at the
+    these inputs (``pair_work``), each with the layout bytes it reads
+    (``bs_layout_bytes``) and the key mask as passed: float32 at the
     split-3xTF32 rate with the CUDA-core bound beside."""
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
 
     b, _, n, _ = q.shape
-    dl = bs.device_layout(layout, q.device)
-    extra = (sum(t.numel() * t.element_size() for t in dl if t is not None)
-             + (0 if key_mask is None else b * n))
-    work = pair_work(q, bs.may_attend(layout, n, q.device, key_mask), extra)
-    return {name: packed_bounds(*work[role], q.dtype)
+    work = pair_work(q, bs.may_attend(layout, n, q.device, key_mask),
+                     0 if key_mask is None else b * n)
+    extra = bs_layout_bytes(q, layout)
+    return {name: packed_bounds(work[role][0] + extra[role], work[role][1], q.dtype)
             for name, role in zip(BS_TPU_KERNELS, ("fwd", "dq", "dkdv"))}
 
 
@@ -1639,8 +1667,8 @@ TF32_INSTANCES = {"fused_qkv_attention": 3, "fused_qkv_attention_bwd": 6, "flash
 TF32_HMMA = "HMMA.1688.F32.TF32"
 # entry functions of the bf16 tensor-core instances checked the same way:
 # the tiled forward, dq, dk/dv and single-block backward at 32/64/96/128,
-# the pair grid's dq and dk/dv at 32/64/128
-BF16_INSTANCES = {"flash_attention": 16, "block_sparse_attention": 6}
+# the pair grid's forward, dq and dk/dv at 32/64/128
+BF16_INSTANCES = {"flash_attention": 16, "block_sparse_attention": 9}
 BF16_HMMA = "HMMA.16816.F32.BF16"
 
 
@@ -1651,7 +1679,8 @@ def log_sass_report(names) -> None:
     mnemonic. Raises unless each library has its ``TF32_INSTANCES``
     "_tf32_kernel" functions (the float32 instances) and every one holds
     ``TF32_HMMA``, and, for the libraries of ``BF16_INSTANCES``, that
-    many "_tc_kernel" functions, every one holding ``BF16_HMMA``."""
+    many "_tc_kernel" functions (16 tiled + 9 pair-grid), every one
+    holding ``BF16_HMMA``."""
     from dalle_pytorch_tpu_torch.ops import cuda_build
 
     cuobjdump = Path(cuda_build.nvcc()).parent / "cuobjdump"
@@ -1730,7 +1759,8 @@ TILED_SPLIT = TILED[:3]
 DECODE = ("fused_decode_attention",)
 
 
-def check_train_against_plain(variant: str = "dense", dtype=torch.float32) -> dict:
+def check_train_against_plain(variant: str = "dense", dtype=torch.float32,
+                              seed: int = 7) -> tuple:
     """Small DALLE, identical float32 weights on the card (kernels) and
     the CPU (plain versions), each kernel launched exactly as the
     variant's attention path says (every other kernel never). float32:
@@ -1749,8 +1779,9 @@ def check_train_against_plain(variant: str = "dense", dtype=torch.float32) -> di
     32 x 32 grid (n 1152, 3 x 3 flash blocks of 384): the tiled forward,
     dq and dk/dv once per layer. "one_block": 3 heads, text 128 + a 16 x
     16 grid (n 384, one flash block the packed kernel refuses): the tiled
-    forward and the single-block backward once per layer. Returns the
-    card run's launches."""
+    forward and the single-block backward once per layer. The weights
+    come from ``seed``, the tokens from ``seed + 1``. Returns the card
+    run's launches and (loss error, worst gradient error) as checked."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
     from dalle_pytorch_tpu_torch.testing import BF16_GAP_FACTOR, gap_ratio
 
@@ -1768,14 +1799,14 @@ def check_train_against_plain(variant: str = "dense", dtype=torch.float32) -> di
         per_layer = {"flash_attention_fwd": 1, "flash_attention_bwd_fused": 1}
     mixed = dict(dtype=dtype, param_dtype=torch.float32)
     gpu = DALLE(**cfg, device="cuda", **mixed).init_weights(
-        torch.Generator(device="cuda").manual_seed(7))
+        torch.Generator(device="cuda").manual_seed(seed))
     cpu = DALLE(**cfg, device="cpu", **mixed)
     models = [gpu, cpu]
     if dtype != torch.float32:  # the CPU's float32 run: the bf16 error's scale
         models.append(DALLE(**cfg, device="cpu"))
     for m in models[1:]:
         m.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
-    rng = np.random.RandomState(8)
+    rng = np.random.RandomState(seed + 1)
     text = rng.randint(1, 50, size=(2, cfg["text_seq_len"]))
     text[0, 40:], text[1, 9:] = 0, 0
     image = rng.randint(0, 40, size=(2, cfg["image_fmap_size"] ** 2))
@@ -1813,7 +1844,7 @@ def check_train_against_plain(variant: str = "dense", dtype=torch.float32) -> di
     if not (ok and launched == expected):
         raise AssertionError(f"training path disagrees ({variant}, {dtype}): {loss_err}, "
                              f"{worst}, {launched}, expected {expected}")
-    return {name: n for name, n in launched.items() if n}
+    return {name: n for name, n in launched.items() if n}, (loss_err, worst)
 
 
 # --------------------------------------------------------------- engine
@@ -2478,7 +2509,7 @@ PROFILE_ROWS = {
     "bs_fwd_tf32_kernel": ("block_sparse_attention", "ms"),
     "bs_dq_tf32_kernel": ("block_sparse_dq", "ms"),
     "bs_dkdv_tf32_kernel": ("block_sparse_dkdv", "ms"),
-    "bs_fwd_kernel": ("block_sparse_attention", "ms_bf16"),
+    "bs_fwd_tc_kernel": ("block_sparse_attention", "ms_bf16"),
     "bs_dq_tc_kernel": ("block_sparse_dq", "ms_bf16"),
     "bs_dkdv_tc_kernel": ("block_sparse_dkdv", "ms_bf16"),
 }
@@ -2571,8 +2602,8 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             check_train_against_plain(variant, dtype)
     # the one-block path: the only one that runs the single-block backward
-    one_block_launches = check_train_against_plain("one_block")
-    one_block_bf16_launches = check_train_against_plain("one_block", torch.bfloat16)
+    one_block_launches = check_train_against_plain("one_block")[0]
+    one_block_bf16_launches = check_train_against_plain("one_block", torch.bfloat16)[0]
     results, serve_launches, model, engine = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
@@ -2981,59 +3012,112 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
     """The pair-grid kernels of this checkout against
     ``block_sparse_attention.cu`` of ``other_dir`` (another commit's csrc,
     built by ``build_other_library``; a source whose forward and dq take
-    no class map and tile order, or whose dk/dv takes no k-major class
-    map, is bound with its shorter signatures), in one process with one
-    timer (cold L2). First, on every ``testing.bs_inputs`` case, each
+    the q-major pair table and offsets gets them on the card, in front of
+    the class map, or in its and the tile order's place where it takes
+    none; one whose dk/dv takes no k-major class map is bound without
+    it), in one process with one timer (cold L2). First, on every ``testing.bs_inputs`` case, each
     kernel on the plain forward's o and lse and the plain delta: each
     tree's o and lse held against the plain forward (float32:
-    ``testing.BS_F32_ATOL``; rows with no allowed key exactly 0 with lse
-    -1e30), its dq against the plain dq and, in bfloat16, its dk and dv
-    against the plain ones (float32 ``testing.BWD_F32_REL``, bfloat16 the
-    floored row metric within ``testing.BWD_BF16_ROW_REL``; dead rows and
-    keys exactly 0), its delta against the plain delta (within 1e-4 of
-    its largest entry), with max |this - other| printed; the float32 dk/dv
-    and the bfloat16 o and lse must be bitwise equal across the trees.
-    Then at the flagship training shape with the axial_row and conv_like
-    layouts (``bs_inputs``, seed 1): the float32 forward, dq and dk/dv
-    and the bfloat16 dq and dk/dv timed in the order other, this, this,
+    ``testing.BS_F32_ATOL``; bfloat16: the row metric and lse within
+    ``testing.BS_BF16_ROW_REL``; rows with no allowed key exactly 0 with
+    lse -1e30), its dq against the plain dq and, in bfloat16, its dk and
+    dv against the plain ones (float32 ``testing.BWD_F32_REL``, bfloat16
+    the floored row metric within ``testing.BWD_BF16_ROW_REL``; dead rows
+    and keys exactly 0), its delta against the plain delta (within 1e-4 of
+    its largest entry), with max |this - other| printed; every float32
+    output and the bfloat16 dq, delta, dk and dv must be bitwise equal
+    across the trees. Then at the flagship training shape with the
+    axial_row and conv_like layouts (``bs_inputs``, seed 1): the forward,
+    dq and dk/dv of both types timed in the order other, this, this,
     other, ``rounds`` times, with sdpa forward / backward with the boolean
     mask in the same type (each backend that takes one, by name) and the
-    bounds beside; and this tree's forward and dq (float32) and dq
-    (bfloat16) with the layout's tile order (longest row first) against
-    launch order, alternated the same way. Raises on a failed check."""
+    bounds beside; and this tree's forward and dq of both types with the
+    layout's tile order (longest row first) against launch order,
+    alternated the same way. Last, the sparse bf16 path check
+    (``check_train_against_plain("sparse", torch.bfloat16, seed)``) on
+    both trees at seeds 7, 17 and 27, with the card settings of ``main``,
+    its gap ratios printed side by side. Raises on a failed check."""
     import types
 
     from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
     from dalle_pytorch_tpu_torch.ops import cuda_build
-    from dalle_pytorch_tpu_torch.testing import (
-        BS_F32_ATOL, BWD_BF16_ROW_REL, BWD_F32_REL, bs_bwd_errors, bs_fwd_errors, bs_inputs)
 
     name = "block_sparse_attention"
     source = Path(other_dir) / f"{name}.cu"
     text = source.read_text()
     signatures = dict(cuda_build.SIGNATURES[name])
-    # {entry point: (where the maps it does not take sit in the pointers
-    # the wrappers pass, how many)}: the forward's and dq's class map and
-    # tile order, dk/dv's k-major class map
-    cut = {}
-    if "const void* halves" not in text:
-        cut.update(block_sparse_attention_fwd=(7, 2), block_sparse_attention_dq=(10, 2))
+    fwd_decl = text[text.index("int block_sparse_attention_fwd("):]
+    fwd_decl = fwd_decl[:fwd_decl.index("{")]
+    # {entry point: (where the class map sits in the pointers the wrappers
+    # pass, the mask's place there, whether the other tree takes the map
+    # and tile order)}: a forward and dq that take the q-major table and
+    # offsets get them in front of the map, in place of the map and tile
+    # order where they take none
+    table_at = {}
+    if "const void* table" in fwd_decl:
+        maps = "const void* halves" in fwd_decl
+        table_at = {"block_sparse_attention_fwd": (5, 4, maps),
+                    "block_sparse_attention_dq": (8, 7, maps)}
+    for fn, (_, _, maps) in table_at.items():
+        argtypes, restype = signatures[fn]
+        signatures[fn] = ([ctypes.c_void_p] * (2 * maps) + argtypes, restype)
+    cut = {}  # {entry point: (where the map it does not take sits, how many)}
     if "const void* columns" not in text:
         cut["block_sparse_attention_dkdv"] = (10, 1)
     for fn, (at, count) in cut.items():
         argtypes, restype = signatures[fn]
         signatures[fn] = (argtypes[:at] + argtypes[at + count:], restype)
     other = build_other_library(name, source, "sparse_other", signatures)
-    if cut:
+    q_major = {}  # the mask's address: (layout, q-major table, offsets) on the card
+    placed_by = bs.device_layout
+
+    def device_layout(layout, device):  # the wrappers' layouts, with their q-major tables
+        dl = placed_by(layout, device)
+        if table_at and dl.mask.data_ptr() not in q_major:
+            offsets = np.searchsorted(layout.fwd_table[0], np.arange(layout.nq + 1))
+            q_major[dl.mask.data_ptr()] = (layout, *(
+                torch.from_numpy(a.astype(np.int32)).to(device)
+                for a in (layout.fwd_table, offsets)))
+        return dl
+
+    def with_table(f, at, mask_at, maps):
+        def call(*args):
+            _, table, offsets = q_major[args[mask_at].value]
+            rest = args[at:] if maps else args[at + 2:]
+            return f(*args[:at], ctypes.c_void_p(table.data_ptr()),
+                     ctypes.c_void_p(offsets.data_ptr()), *rest)
+        return call
+
+    def without(f, at, count):
+        return lambda *args: f(*args[:at], *args[at + count:])
+
+    if table_at or cut:
         other = types.SimpleNamespace(**{
-            fn: getattr(other, fn) if fn not in cut else (
-                lambda f, at, count: lambda *args: f(*args[:at], *args[at + count:]))(
-                    getattr(other, fn), *cut[fn])
+            fn: (with_table(getattr(other, fn), *table_at[fn]) if fn in table_at
+                 else without(getattr(other, fn), *cut[fn]) if fn in cut
+                 else getattr(other, fn))
             for fn in signatures})
     libs = {"this": cuda_build.load_library(name), "other": other}
 
     def use(src: str) -> None:  # the wrappers load their library through this cache
         cuda_build._LOADED[name] = libs[src]
+
+    bs.device_layout = device_layout
+    try:
+        compare_sparse_trees(use, rounds)
+    finally:
+        bs.device_layout = placed_by
+
+
+def compare_sparse_trees(use, rounds: int) -> None:
+    """``compare_sparse_sources``' checks and timings, with ``use(src)``
+    choosing the tree ("this" or "other") that the wrappers launch."""
+    from dalle_pytorch_tpu_torch.ops import block_sparse_attention as bs
+    from dalle_pytorch_tpu_torch.testing import (
+        BS_BF16_ROW_REL, BS_F32_ATOL, BWD_BF16_ROW_REL, BWD_F32_REL, bs_bwd_errors, bs_fwd_errors,
+        bs_inputs)
+
+    libs = ("this", "other")
 
     for case in ("axial_row", "conv_like", "d32", "d64", "d128", "synthetic"):
         for dtype in (torch.float32, torch.bfloat16):
@@ -3054,12 +3138,12 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
             label = f"compare sparse {case} {dtype}"
             bf16 = dtype == torch.bfloat16
             # bitwise across the trees: the kernels this comparison holds
-            # unchanged (bf16 o, lse; float32 dk, dv)
-            held = slice(0, 2) if bf16 else slice(4, 6)
+            # unchanged (every float32 one; bf16 dq, delta, dk, dv)
+            held = slice(2, 6) if bf16 else slice(0, 6)
             log(f"{label}: o, lse, dq, delta, dk, dv bitwise equal to the other tree's: {same}")
             if not all(same[held]):
-                raise AssertionError(f"{label}: {'o, lse' if bf16 else 'dk, dv'} differ from "
-                                     "the other tree's")
+                raise AssertionError(f"{label}: {'dq, delta, dk, dv' if bf16 else 'outputs'} "
+                                     "differ from the other tree's")
             ok = True
             for src, (o, lse, dq, delta, dk, dv) in outs.items():
                 err, row, lse_err, dead_exact = bs_fwd_errors(o, lse, po, plse, layout, km)
@@ -3068,9 +3152,11 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
                 delta_err = (delta - pdelta).abs().max().item()
                 delta_ok = delta_err <= 1e-4 * pdelta.abs().max().item()
                 if bf16:
-                    ok &= grad_row <= BWD_BF16_ROW_REL and zeros_exact and delta_ok
-                    log(f"{label}, {src}: forward row {row:.3e}, lse {lse_err:.3e}; dq, dk, dv "
-                        f"floored row {grad_row:.3e}, relative L2 {rel:.3e} (tolerance "
+                    ok &= (row <= BS_BF16_ROW_REL and lse_err <= BS_BF16_ROW_REL and dead_exact
+                           and grad_row <= BWD_BF16_ROW_REL and zeros_exact and delta_ok)
+                    log(f"{label}, {src}: forward row {row:.3e}, lse {lse_err:.3e} (tolerance "
+                        f"{BS_BF16_ROW_REL:.0e} each), dead rows exactly 0 {dead_exact}; dq, dk, "
+                        f"dv floored row {grad_row:.3e}, relative L2 {rel:.3e} (tolerance "
                         f"{BWD_BF16_ROW_REL:.0e} floored row), dead rows and keys exactly 0 "
                         f"{zeros_exact}; delta max abs {delta_err:.3e} (within 1e-4 of its "
                         f"largest {delta_ok})")
@@ -3092,6 +3178,7 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
 
     for case in ("axial_row", "conv_like"):
         calls, about = {}, {}  # about: (sdpa phrase, bounds) of each call
+        rows = {}  # the forward and dq of each type, timed by tile order below
         placed = []  # (layout, its device operands) of each type
         for dtype in (torch.float32, torch.bfloat16):
             type_name = str(dtype).split(".")[1]
@@ -3105,8 +3192,6 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
                    bs.block_sparse_dq(q, k, v, o, lse, do, layout),
                    "block_sparse_dkdv": lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta,
                    layout=layout: bs.block_sparse_dkdv(q, k, v, do, lse, delta, layout)}
-            if dtype == torch.bfloat16:  # the bf16 forward is held bitwise above
-                del fns["block_sparse_attention"]
             times = sdpa_mask_times(q, k, v, bs.may_attend(layout, layout.n, q.device), do)
             bounds = bs_bounds(q, layout, None)
             for key, fn in fns.items():
@@ -3115,11 +3200,8 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
                 about[f"{key} {type_name}"] = (
                     f"{type_name} sdpa {way} with the mask {sdpa_fastest(times[way]):.4f} ms "
                     f"({sdpa_text(times[way])})", bounds[key])
-            if dtype == torch.bfloat16:
-                bf16_dq = fns["block_sparse_dq"]
-            else:
-                f32_rows = {f"{key} float32": fns[key] for key in ("block_sparse_attention",
-                                                                   "block_sparse_dq")}
+            for key in ("block_sparse_attention", "block_sparse_dq"):
+                rows[f"{key} {type_name}"] = fns[key]
         ms = alternate(calls, use, rounds, iters=20)
         shape = f"b 4, 16 x 64, n 1280, {layout.n_pairs} block pairs"
         for key in calls:
@@ -3131,12 +3213,31 @@ def compare_sparse_sources(other_dir: str, rounds: int = 2) -> None:
             for lay, dl in placed:
                 lay._on_device[q.device] = dl if src == "this" else dl._replace(order=None)
 
-        rows = {**f32_rows, "block_sparse_dq bfloat16": bf16_dq}
         ms = alternate(rows, order, rounds, iters=20)
         for key in rows:
             log(f"compare {key} {case} ({shape}), longest row first against launch order, "
                 f"cold L2: "
                 f"{pair_text(ms[key, 'this'], ms[key, 'other'], ('launch order', 'longest first'))}")
+
+    # the sparse bf16 path check on both trees and three seeds, with main's
+    # settings: its gap ratios' spread
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gaps = {src: [] for src in libs}
+    try:
+        for seed in (7, 17, 27):
+            for src in libs:
+                use(src)
+                gaps[src].append(check_train_against_plain("sparse", torch.bfloat16, seed)[1])
+    finally:
+        use("this")
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = flags
+    log("compare sparse bf16 path check, seeds 7, 17, 27, (loss, worst gradient) gap ratios: "
+        + "; ".join(f"{src} " + ", ".join(f"({a:.3f}, {b:.3f})" for a, b in gaps[src])
+                    for src in libs))
 
 
 def compare_decode_sources(other_dir: str, rounds: int = 2) -> None:

@@ -4,8 +4,8 @@
 // walks (tf32::VisitRow, tf32::VisitColumn, and the pair grid's HalfRow
 // and HalfColumn, which do no float arithmetic). The tiled flash kernels'
 // bf16 forward, dq, dk/dv and single-block backward (flash_attention.cu)
-// and the pair grid's bf16 dq and dk/dv (block_sparse_attention.cu) run
-// them.
+// and the pair grid's bf16 forward, dq and dk/dv
+// (block_sparse_attention.cu) run them.
 //
 // fwd_sweep: a block of 4 warps owns one 64-row query tile of one head, Q
 // resident (its A fragments in registers at d <= 64), and streams the
@@ -71,7 +71,6 @@ namespace bf16s {
 
 using tc::bf16;
 using tc::ROWS;  // rows of a resident tile: 4 warps of 16
-using tc::THREADS;  // 128, not attention_tiles.cuh's 256
 using tf32::SROWS;  // rows of a streamed half: keys, or queries
 
 constexpr int KEEP_A_MAX_D = 64;  // resident A fragments held in registers up to this d

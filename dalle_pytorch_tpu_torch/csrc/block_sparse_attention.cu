@@ -9,11 +9,11 @@
 //
 // What it computes. q, k, v, o, do contiguous (b, h, n, d); a layout of
 // 128 x 128 blocks over n_pad = 128 * ceil(n / 128) rows: the int8
-// (n_pad, n_pad) may-attend mask (zero past n), a (5, P) int32 pair table
-// whose rows are q block, k block, class (0 synthetic, 1 partial,
-// 2 dense), first, last, and the (blocks + 1) offsets of each block's
-// contiguous run in it (q-major for the forward and dq, k-major for
-// dk/dv); the int8 (n_pad / 64, n_pad / 32) per-half class maps of
+// (n_pad, n_pad) may-attend mask (zero past n), the k-major (5, P) int32
+// pair table of the float32 dk/dv, whose rows are q block, k block,
+// class (0 synthetic, 1 partial, 2 dense), first, last, and the (nk + 1)
+// offsets of each key block's contiguous run in it; the int8
+// (n_pad / 64, n_pad / 32) per-half class maps of
 // ops/block_sparse_attention.py, q-major for the forward and dq
 // (half_classes: a 64-row query tile against 32-key halves) and k-major
 // for dk/dv (half_columns: a 64-key tile against 32-row query halves),
@@ -49,21 +49,23 @@
 // are no float atomics: the dk/dv pass owns its key rows, so two runs
 // give bit-identical gradients.
 //
-// The tensor-core kernels: blocks of 4 warps, grid (b*h, n_pad / 64),
-// their bodies the sweeps that the tiled flash kernels run.
+// Every kernel runs on the tensor cores: blocks of 4 warps, grid (b*h,
+// n_pad / 64), their bodies the sweeps that the tiled flash kernels run.
 //  - forward and dq, float32 (bs_fwd_tf32_kernel, bs_dq_tf32_kernel:
-//    tf32_sweeps.cuh, every product split 3xTF32) and dq, bf16
-//    (bs_dq_tc_kernel: bf16_sweeps.cuh, bf16 mma.sync.m16n8k16 with
-//    float32 accumulation): a 64-row query tile resident (Q, and dO for
-//    dq), the 32-key halves of its row of the q-major class map (HalfRow)
-//    streamed through a cp.async ring (2 stages float32, 3 bf16; keys past
-//    n zero-filled, nothing read), a class 1 half's (64, 32) tile of the
-//    int8 mask fetched by cp.async with it; empty halves are passed over
-//    by a warp ballot on the map, with no load and no barrier. Float32
-//    folds a fresh partial per half into O and dQ (tf32::fold_product),
-//    since the tensor cores truncate as they accumulate; bf16 rounds ds
-//    to bf16 as it packs it into the A fragments of dQ += dS.K. Query
-//    tiles start longest row first.
+//    tf32_sweeps.cuh, every product split 3xTF32) and bf16
+//    (bs_fwd_tc_kernel, bs_dq_tc_kernel: bf16_sweeps.cuh, bf16
+//    mma.sync.m16n8k16 with float32 accumulation): a 64-row query tile
+//    resident (Q, and dO for dq), the 32-key halves of its row of the
+//    q-major class map (HalfRow) streamed through a cp.async ring (2
+//    stages float32, 3 bf16; keys past n zero-filled, nothing read), a
+//    class 1 half's (64, 32) tile of the int8 mask fetched by cp.async
+//    with it; empty halves are passed over by a warp ballot on the map,
+//    with no load and no barrier. The forward's online softmax rescales
+//    once a half. Float32 folds a fresh partial per half into O and dQ
+//    (tf32::fold_product), since the tensor cores truncate as they
+//    accumulate; bf16 rounds p (forward) and ds (dq) to bf16 as it packs
+//    them into the A fragments of O += P.V and dQ += dS.K. Query tiles
+//    start longest row first.
 //  - dk/dv (bs_dkdv_tf32_kernel, bs_dkdv_tc_kernel): the 64-key tile
 //    resident (K and V), its 32-row query halves streamed, key-major.
 //    Float32 walks the k-major pair run (PairRun: each class 1 half's
@@ -73,10 +75,6 @@
 //    halves passed over by a ballot, a class 1 half's mask tile fetched
 //    by cp.async with its Q and dO, the 3-stage ring), p and ds rounded to
 //    bf16 as they are packed into the A fragments.
-// The bf16 forward (bs_fwd_kernel) runs float32 FMAs on the CUDA cores
-// from shared memory: one block of 256 threads per (64-row half of a
-// 128-block, b*h), walking the q block's run in 64 x 64 sub-tiles of
-// attention_tiles.cuh.
 
 #include <type_traits>
 
@@ -86,66 +84,7 @@
 
 namespace {
 
-constexpr int BLOCK = 128;        // the layout's block edge
-constexpr int SUB = BLOCK / TILE; // sub-tiles per block edge
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) bs_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ kmask, const int8_t* __restrict__ mask,
-    const int* __restrict__ table, const int* __restrict__ offsets,
-    T* __restrict__ out, float* __restrict__ lse, int heads, int n, int n_pad,
-    int n_pairs, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int CJ = D / 16;
-  uint8_t* msk = smem_raw;                                   // (TILE, TILE)
-  float* qs = reinterpret_cast<float*>(smem_raw + MASK_BYTES); // (TILE, DP)
-  float* ks = qs + tile_floats<D>();                         // (TILE, DP)
-  float* vs = ks + tile_floats<D>();                         // (TILE, DP)
-  float* ps = vs + tile_floats<D>();                         // (TILE, SP)
-  float* kok = ps + TILE * SP;                               // (TILE)
-
-  const int q0 = blockIdx.x * TILE, bh = blockIdx.y;
-  if (q0 >= n) return;  // padding rows only
-  const int qb = q0 / BLOCK;
-  const int64_t head = (int64_t)bh * n * D;
-  const uint8_t* km = kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n;
-
-  float acc[4][CJ], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-  }
-
-  bool q_loaded = false;
-  const int p_end = offsets[qb + 1];
-  for (int p = offsets[qb]; p < p_end; ++p) {
-    const int cls = table[2 * n_pairs + p];
-    if (cls == 0) continue;  // synthetic: every score masked, nothing changes
-    const int kb = table[n_pairs + p];
-    for (int sub = 0; sub < SUB; ++sub) {
-      const int k0 = kb * BLOCK + sub * TILE;
-      if (k0 >= n) break;
-      __syncthreads();  // the previous tiles are no longer read
-      // a sub-tile with no allowed pair adds p = 0 and leaves m, l and acc
-      // exactly as they are: it is skipped
-      if (!load_key_flags(kok, km, k0, n)) continue;
-      if (cls == 1 && !load_mask_tile(msk, mask, q0, k0, n_pad)) continue;
-      if (!q_loaded) {
-        load_tile<T, D>(qs, q + head, q0, n);
-        q_loaded = true;
-      }
-      load_tile<T, D>(ks, k + head, k0, n);
-      load_tile<T, D>(vs, v + head, k0, n);
-      __syncthreads();
-      fwd_step<T, D>(qs, ks, vs, ps, kok, msk, true, cls, q0, k0, n, scale, acc, m, l);
-    }
-  }
-  fwd_finish<T, D>(acc, m, l, out + head, lse + (int64_t)bh * n, q0, n);
-}
+constexpr int BLOCK = 128;  // the layout's block edge
 
 // The query tile of launch row y: order[y], or y without an order
 __device__ __forceinline__ int tile_of(const int* __restrict__ order, int y) {
@@ -171,6 +110,32 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1) bs_fwd_tf32_kern
   a.n = n, a.scale = scale;
   const tf32::HalfRow walk{halves + (int64_t)qt * (n_pad / tf32::SROWS), mask, n, n_pad, q0};
   tf32::fwd_sweep<D>(a, walk, smem_raw);
+}
+
+// o and lse in bf16 of query tile tile_of(order, blockIdx.y) of head
+// blockIdx.x: bf16s::fwd_sweep over its row of the q-major class map. At
+// d <= 64 four blocks share an SM (128 registers and 43,024 bytes of
+// shared memory a block at d 64, no spills): at the training shape they
+// took 0.86-0.91 of three's time and 0.86-0.90 of two's, with bitwise
+// equal results (PERF.md, section 6).
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 4 : 2) bs_fwd_tc_kernel(
+    const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
+    const tc::bf16* __restrict__ v, const uint8_t* __restrict__ kmask,
+    const int8_t* __restrict__ mask, const int8_t* __restrict__ halves,
+    const int* __restrict__ order, tc::bf16* __restrict__ out, float* __restrict__ lse,
+    int heads, int n, int n_pad, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bh = blockIdx.x, qt = tile_of(order, blockIdx.y), q0 = qt * TILE;
+  if (q0 >= n) return;  // padding rows only
+  const int64_t head = (int64_t)bh * n * D;
+  bf16s::Head a{};
+  a.q = q + head, a.k = k + head, a.v = v + head;
+  a.km = kmask == nullptr ? nullptr : kmask + (int64_t)(bh / heads) * n;
+  a.out = out + head, a.lse_out = lse + (int64_t)bh * n;
+  a.n = n, a.scale = scale;
+  const tf32::HalfRow walk{halves + (int64_t)qt * (n_pad / tf32::SROWS), mask, n, n_pad, q0};
+  bf16s::fwd_sweep<D>(a, walk, smem_raw);
 }
 
 // dq in float32 of query tile tile_of(order, blockIdx.y) of head
@@ -284,16 +249,12 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 2) bs_dkdv_tc_kerne
 }
 
 // shapes every entry point refuses (-1): an empty shape, a block other
-// than 128, n_pad that is not ceil(n / 128) * 128, more rows of b*h than
-// a grid dimension holds
+// than 128, n_pad that is not ceil(n / 128) * 128, more (batch, head)
+// pairs than grid x holds
 bool refused(int batch, int heads, int n, int n_pad, int block, int n_pairs) {
   return batch < 1 || heads < 1 || n < 1 || n_pairs < 1 || block != BLOCK ||
          n_pad != (n + BLOCK - 1) / BLOCK * BLOCK ||
-         (int64_t)batch * heads > 65535;
-}
-
-dim3 grid_of(int batch, int heads, int n_pad) {
-  return dim3(n_pad / TILE, batch * heads);
+         (int64_t)batch * heads > 0x7fffffff;
 }
 
 // The tensor-core instances' grid: (b*h, n_pad / TILE), as the tiled
@@ -311,30 +272,30 @@ bool tc_refused(const void* map, int n_pad, std::initializer_list<const void*> o
   return map == nullptr || n_pad / TILE > 65535 || !tc::aligned16(operands);
 }
 
-// float32: the split-3xTF32 kernel on the class map; bf16: the CUDA-core
-// kernel on the q-major table and offsets
+// both types on the q-major class map: float32 split 3xTF32, bf16
+// bf16 mma.sync
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, const void* kmask,
-        const void* mask, const void* table, const void* offsets, const void* halves,
-        const void* order, void* out, void* lse, int batch, int heads, int n, int n_pad,
-        int n_pairs, float scale, cudaStream_t stream) {
+        const void* mask, const void* halves, const void* order, void* out, void* lse,
+        int batch, int heads, int n, int n_pad, float scale, cudaStream_t stream) {
+  if (tc_refused(halves, n_pad, {q, k, v, mask, out})) return -1;
+  const dim3 grid = tc_grid_of(batch, heads, n_pad);
   if constexpr (std::is_same<T, float>::value) {
-    if (tc_refused(halves, n_pad, {q, k, v, mask, out})) return -1;
     constexpr int smem = tf32::fwd_sweep_smem_bytes(D, true);
     int err = allow_smem(bs_fwd_tf32_kernel<D>, smem);
     if (err != 0) return err;
-    bs_fwd_tf32_kernel<D><<<tc_grid_of(batch, heads, n_pad), tc::THREADS, smem, stream>>>(
+    bs_fwd_tf32_kernel<D><<<grid, tc::THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const uint8_t*)kmask,
         (const int8_t*)mask, (const int8_t*)halves, (const int*)order, (float*)out,
         (float*)lse, heads, n, n_pad, scale);
   } else {
-    constexpr int smem = fwd_smem_bytes<D>();
-    int err = allow_smem(bs_fwd_kernel<T, D>, smem);
+    constexpr int smem = bf16s::fwd_sweep_smem_bytes(D, true);
+    int err = allow_smem(bs_fwd_tc_kernel<D>, smem);
     if (err != 0) return err;
-    bs_fwd_kernel<T, D><<<grid_of(batch, heads, n_pad), THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kmask,
-        (const int8_t*)mask, (const int*)table, (const int*)offsets, (T*)out,
-        (float*)lse, heads, n, n_pad, n_pairs, scale);
+    bs_fwd_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(
+        (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v, (const uint8_t*)kmask,
+        (const int8_t*)mask, (const int8_t*)halves, (const int*)order, (tc::bf16*)out,
+        (float*)lse, heads, n, n_pad, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -418,27 +379,27 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 
 // Every entry point: q, k, v (and o, do, dq, dk, dv) contiguous
 // (b, h, n, dim_head) of one type; lse and delta (b, h, n) float32; kmask
-// (b, n) uint8 or NULL; mask (n_pad, n_pad) int8; table (5, n_pairs) and
-// offsets int32 (q-major with nq + 1 offsets for fwd and dq, k-major with
-// nk + 1 for dkdv; read by the bf16 forward and the float32 dk/dv); for
-// fwd and dq the q-major (n_pad / 64, n_pad / 32) int8 class map
-// `halves` (half_classes) and the (n_pad / 64) int32 tile order or NULL,
-// for dkdv the k-major class map `columns` (half_columns, read by the
-// bf16 instance). One launch on `stream`. Returns cudaGetLastError()
-// after it (0 on success), or -1 for what the kernels cannot take: a
-// dim_head other than 32/64/128, a dtype code other than 0/1, a block
-// other than 128, an empty shape, more (batch, head) pairs or tiles than
-// a grid dimension holds, or (the tensor-core instances: every one but
-// the bf16 forward) an operand not 16-byte aligned or no class map.
+// (b, n) uint8 or NULL; mask (n_pad, n_pad) int8; for fwd and dq the
+// q-major (n_pad / 64, n_pad / 32) int8 class map `halves`
+// (half_classes) and the (n_pad / 64) int32 tile order or NULL; for dkdv
+// the k-major table (5, n_pairs) and its nk + 1 offsets, int32, read by
+// the float32 instance, and the k-major class map `columns`
+// (half_columns), read by the bf16 instance. n_pairs is the layout's
+// pair count (q-major for fwd and dq, where only the refusal reads it).
+// One launch on `stream`. Returns cudaGetLastError() after it (0 on
+// success), or -1 for what the kernels cannot take: a dim_head other
+// than 32/64/128, a dtype code other than 0/1, a block other than 128,
+// an empty shape, more (batch, head) pairs or tiles than a grid
+// dimension holds, an operand not 16-byte aligned, or no class map.
 extern "C" int block_sparse_attention_fwd(
     const void* q, const void* k, const void* v, const void* kmask,
-    const void* mask, const void* table, const void* offsets, const void* halves,
-    const void* order, void* out, void* lse, int batch, int heads, int n, int n_pad,
-    int dim_head, int block, int n_pairs, float scale, int dtype, void* stream) {
+    const void* mask, const void* halves, const void* order, void* out, void* lse,
+    int batch, int heads, int n, int n_pad, int dim_head, int block, int n_pairs,
+    float scale, int dtype, void* stream) {
   if (refused(batch, heads, n, n_pad, block, n_pairs)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  BS_DISPATCH(fwd, q, k, v, kmask, mask, table, offsets, halves, order, out, lse, batch,
-              heads, n, n_pad, n_pairs, scale, s)
+  BS_DISPATCH(fwd, q, k, v, kmask, mask, halves, order, out, lse, batch, heads, n, n_pad,
+              scale, s)
 }
 
 // delta is written here (rowsum(do * o) per row and head) for
@@ -446,13 +407,11 @@ extern "C" int block_sparse_attention_fwd(
 extern "C" int block_sparse_attention_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* kmask, const void* mask,
-    const void* table, const void* offsets, const void* halves, const void* order,
-    void* dq_out, void* delta, int batch, int heads, int n, int n_pad, int dim_head,
-    int block, int n_pairs, float scale, int dtype, void* stream) {
+    const void* halves, const void* order, void* dq_out, void* delta, int batch, int heads,
+    int n, int n_pad, int dim_head, int block, int n_pairs, float scale, int dtype,
+    void* stream) {
   if (refused(batch, heads, n, n_pad, block, n_pairs)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  (void)table;  // the class map replaces the table and offsets
-  (void)offsets;
   BS_DISPATCH(dq, q, k, v, o, dout, lse, kmask, mask, halves, order, dq_out, delta, batch,
               heads, n, n_pad, scale, s)
 }

@@ -8,12 +8,17 @@ the forward and dq, k-major for dk/dv, with a synthetic all-masked pair
 for every q block (k block) that has none, so its rows are written as
 exact zeros. The compiler (``_pair_lists``, ``_table``,
 ``compile_block_layout``) is a numpy copy of JAX's; its tables come out
-identical. ``device_layout`` puts a layout's int8 mask, tables and
-per-block run offsets on a device once per layout, and for a 128-block
-layout the tensor-core kernels' walks: the q-major per-half class map of
-the forward and dq (``half_classes``) with the query tiles longest row
-first (``tile_order``), and the k-major one of the bf16 dk/dv
-(``half_columns``).
+identical. ``device_layout`` puts on a device, once per layout, what the
+kernels read: the int8 mask, the k-major table and its per-block run
+offsets, and for a 128-block layout the tensor-core kernels' walks: the
+q-major per-half class map of the forward and dq (``half_classes``) with
+the query tiles longest row first (``tile_order``), and the k-major one
+of the bf16 dk/dv (``half_columns``). Every kernel runs on the tensor
+cores, float32 as split 3xTF32 and bfloat16 on bf16 ``mma.sync``: the
+forward and dq of both types walk ``half_classes``, the float32 dk/dv
+the k-major table, the bf16 dk/dv ``half_columns``. They copy rows by
+16-byte ``cp.async``: an operand that is not 16-byte aligned, or a
+missing class map, raises ValueError, with no fallback.
 
 - ``reference_block_sparse`` (forward) and ``reference_block_sparse_dq``
   / ``reference_block_sparse_dkdv`` (their sum is
@@ -94,16 +99,15 @@ def _table(q_idx, k_idx, kclass, first, last) -> np.ndarray:
 
 class DeviceLayout(NamedTuple):
     """A layout's operands on one device: the int8 (n_pad, n_pad) mask,
-    the q-major table and its (nq + 1,) run offsets (q block i owns
-    columns [offsets[i], offsets[i + 1])), the k-major table and its
-    (nk + 1,) run offsets, all int32 but the mask; for a 128-block layout
-    also the int8 (n_pad / 64, n_pad / 32) ``half_classes`` and
-    ``half_columns`` and the int32 (n_pad / 64,) ``tile_order`` (None for
-    other blocks, which no kernel takes)."""
+    the int32 k-major table and its (nk + 1,) run offsets (k block i owns
+    columns [offsets[i], offsets[i + 1])) of the float32 dk/dv; for a
+    128-block layout also the int8 (n_pad / 64, n_pad / 32)
+    ``half_classes`` (forward and dq) and ``half_columns`` (bf16 dk/dv)
+    and the int32 (n_pad / 64,) ``tile_order`` (None for other blocks,
+    which no kernel takes). The q-major table stays on the host: no
+    kernel reads it."""
 
     mask: torch.Tensor
-    fwd_table: torch.Tensor
-    fwd_offsets: torch.Tensor
     kv_table: torch.Tensor
     kv_offsets: torch.Tensor
     halves: Optional[torch.Tensor]
@@ -252,8 +256,6 @@ def device_layout(layout: BlockLayout, device) -> DeviceLayout:
             columns = put(half_columns(layout))
         cached = layout._on_device[device] = DeviceLayout(
             mask=put(layout.mask.astype(np.int8)),
-            fwd_table=put(layout.fwd_table),
-            fwd_offsets=put(_run_offsets(layout.fwd_table[0], layout.nq)),
             kv_table=put(layout.kv_table),
             kv_offsets=put(_run_offsets(layout.kv_table[1], layout.nk)),
             halves=halves,
@@ -415,7 +417,10 @@ def block_sparse_attention(q, k, v, layout: BlockLayout, key_mask=None,
     """Forward: (o (b, h, n, d), lse (b, h, n) float32); arguments as
     ``reference_block_sparse``. CPU tensors run the plain version; CUDA
     tensors launch the kernel, which takes float32 or bfloat16, dim_head
-    32/64/128 and a 128-block layout for this n."""
+    32/64/128 and a 128-block layout for this n. Both types run on the
+    tensor cores over the layout's ``half_classes`` and copy rows by
+    16-byte ``cp.async``: an operand that is not 16-byte aligned raises
+    ValueError, with no fallback."""
     if not q.is_cuda:
         return reference_block_sparse(q, k, v, layout, key_mask, sm_scale)
     (q, k, v), km, dl = _operands(q, k, v, layout, key_mask)
@@ -423,7 +428,7 @@ def block_sparse_attention(q, k, v, layout: BlockLayout, key_mask=None,
     o = torch.empty_like(q)
     lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device)
     _launch("block_sparse_attention_fwd",
-            (q, k, v, km, dl.mask, dl.fwd_table, dl.fwd_offsets, dl.halves, dl.order, o, lse),
+            (q, k, v, km, dl.mask, dl.halves, dl.order, o, lse),
             q, layout, layout.fwd_table.shape[1], _scale(d, sm_scale))
     block_sparse_attention.launches += 1
     return o, lse
@@ -449,8 +454,7 @@ def block_sparse_dq(q, k, v, o, lse, do, layout: BlockLayout, key_mask=None,
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     _launch("block_sparse_attention_dq",
-            (q, k, v, o, do, lse, km, dl.mask, dl.fwd_table, dl.fwd_offsets, dl.halves, dl.order,
-             dq, delta),
+            (q, k, v, o, do, lse, km, dl.mask, dl.halves, dl.order, dq, delta),
             q, layout, layout.fwd_table.shape[1], _scale(q.shape[-1], sm_scale))
     block_sparse_dq.launches += 1
     return dq, delta

@@ -41,8 +41,8 @@ SIGNATURES = {
         "fused_qkv_attention_bwd": ([_P] * 11 + [_I] * 5 + [_F, _I, _P], _I),
     },
     "block_sparse_attention": {
-        "block_sparse_attention_fwd": ([_P] * 11 + [_I] * 7 + [_F, _I, _P], _I),
-        "block_sparse_attention_dq": ([_P] * 14 + [_I] * 7 + [_F, _I, _P], _I),
+        "block_sparse_attention_fwd": ([_P] * 9 + [_I] * 7 + [_F, _I, _P], _I),
+        "block_sparse_attention_dq": ([_P] * 12 + [_I] * 7 + [_F, _I, _P], _I),
         "block_sparse_attention_dkdv": ([_P] * 13 + [_I] * 7 + [_F, _I, _P], _I),
     },
     "decode_attention": {

@@ -56,9 +56,10 @@ products per 32-row half, p and ds rounded to bf16 where the sweeps pack
 them, delta from the bf16 o and do); so, with delta derived per half,
 does the bf16 single-block backward, and ``emulated_bf16_tiled_fwd``
 runs the bf16 forward's (the online softmax per 32-key half, p rounded
-to bf16 against the running max). The pair grid's bf16 dq and dk/dv run
-the same sweeps over its class maps: ``emulated_bf16_pair_dq`` over the
-halves of its row walk (``pair_row_halves``) and
+to bf16 against the running max). The pair grid's bf16 forward, dq and
+dk/dv run the same sweeps over its class maps: ``emulated_bf16_pair_fwd``
+and ``emulated_bf16_pair_dq`` over the halves of its row walk
+(``pair_row_halves``) and
 ``emulated_bf16_pair_dkdv`` over those of its column walk
 (``pair_column_halves``, the rows of
 ``block_sparse_attention.half_columns``).
@@ -692,8 +693,9 @@ def emulated_pair_dkdv(q, k, v, do, lse, delta, layout, key_mask=None):
 
 
 def pair_row_halves(layout, q0: int):
-    """The 32-key halves that the pair grid's float32 forward and dq
-    (``bs_fwd_tf32_kernel``, ``bs_dq_tf32_kernel``) walk for the 64-row
+    """The 32-key halves that the pair grid's forward and dq (both types:
+    ``bs_fwd_tf32_kernel``, ``bs_dq_tf32_kernel``, ``bs_fwd_tc_kernel``,
+    ``bs_dq_tc_kernel``) walk for the 64-row
     query tile at ``q0``, in key order, as ``tf32::HalfRow`` finds them:
     the nonzero entries of the tile's row of ``half_classes``. Returns
     [(k0, class)]."""
@@ -802,6 +804,46 @@ def pair_column_halves(layout, k0: int):
     [(q0, class)]."""
     row = bs.half_columns(layout)[k0 // bs.TILE]
     return [(bs.HALF * h, int(c)) for h, c in enumerate(row) if c != 0]
+
+
+def emulated_bf16_pair_fwd(q, k, v, layout, key_mask=None):
+    """The pair grid's bf16 forward as ``bs_fwd_tc_kernel`` runs it (the
+    ``fwd_sweep`` of csrc/bf16_sweeps.cuh over ``tf32::HalfRow``) on bf16
+    q, k, v (b, h, n, d) and a 128-block layout: per 64-row query tile
+    (rows past n zero), the online softmax over the halves of
+    ``pair_row_halves`` (keys past n zero): s = q.k^T in float32 from the
+    bf16 inputs, scaled and masked by the half's class (2: the key mask;
+    1: the layout's mask tile and the key mask); the running max m_new =
+    max(m, rowmax(s)), corr = exp(m - m_new) rescaling the float32 l and
+    o; p = exp(s - m_new) where s > 0.5 * NEG_INF, else 0, summed
+    unrounded into l and rounded to bf16 (where the sweep packs it into
+    the A fragments of P.V) for o += p.v. o = o / l (l = 1 where l == 0)
+    rounded to bf16 once, lse = m + log(l) in float32. Returns (o, lse)
+    as the plain forward's."""
+    b, h, n, d = q.shape
+    scale = d**-0.5
+    qp, kp, vp = _padded(layout, q, k, v)
+    o = torch.zeros(b, h, layout.n_pad, d)
+    lse = torch.zeros(b, h, layout.n_pad)
+    for q0 in range(0, n, bs.TILE):
+        rows = slice(q0, q0 + bs.TILE)
+        m = torch.full((b, h, bs.TILE, 1), bs.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, bs.TILE, d)
+        for k0, cls in pair_row_halves(layout, q0):
+            keys = slice(k0, k0 + bs.HALF)
+            s = (qp[..., rows, :] @ kp[..., keys, :].transpose(-1, -2) * scale).masked_fill(
+                ~_pair_rows(layout, key_mask, b, q0, k0, cls), bs.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.where(s > 0.5 * bs.NEG_INF, torch.exp(s - m_new), 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.bfloat16().float() @ vp[..., keys, :]
+            m = m_new
+        l_safe = torch.where(l == 0, 1.0, l)
+        o[..., rows, :] = acc / l_safe
+        lse[..., rows] = (m + torch.log(l_safe))[..., 0]
+    return o[..., :n, :].bfloat16(), lse[..., :n]
 
 
 def emulated_bf16_pair_dq(q, k, v, o, lse, do, layout, key_mask=None):

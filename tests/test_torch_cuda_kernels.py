@@ -576,8 +576,8 @@ def test_block_sparse_kernels_are_deterministic(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["axial_row", "d64", "synthetic"])
 def test_block_sparse_bf16_kernels_are_deterministic(cuda, case):
-    """No float atomics in the bf16 instances either (the dq and dk/dv on
-    bf16 tensor-core tiles, each owning its rows): two runs give
+    """No float atomics in the bf16 instances either (the forward, dq and
+    dk/dv on bf16 tensor-core tiles, each owning its rows): two runs give
     bit-identical outputs and gradients."""
     inputs = bs_inputs(case, torch.bfloat16, cuda)
     first, second = _bs_run(*inputs), _bs_run(*inputs)
@@ -898,15 +898,20 @@ def test_block_sparse_f32_kernels_reject_unaligned_operands(cuda):
 
 @pytest.mark.gpu
 def test_block_sparse_bf16_kernels_reject_unaligned_operands(cuda):
-    """The bf16 dq and dk/dv copy rows by 16-byte cp.async and read them
-    by ldmatrix: an operand that is not 16-byte aligned (a view one
-    element into its storage) is refused with a ValueError, not read and
-    not counted as a launch; there is no fallback."""
+    """The bf16 forward, dq and dk/dv copy rows by 16-byte cp.async and
+    read them by ldmatrix: an operand that is not 16-byte aligned (a view
+    one element into its storage) is refused with a ValueError, not read
+    and not counted as a launch; there is no fallback."""
     layout = bs.compile_block_layout(masks.causal_mask(256))
     q = torch.zeros(1, 2, 256, 64, dtype=torch.bfloat16, device=cuda)
     shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(q.shape)
     o, lse = bs.block_sparse_attention(q, q, q, layout)
-    before = [f.launches for f in (bs.block_sparse_dq, bs.block_sparse_dkdv)]
+    wrappers = (bs.block_sparse_attention, bs.block_sparse_dq, bs.block_sparse_dkdv)
+    before = [f.launches for f in wrappers]
+    with pytest.raises(ValueError):
+        bs.block_sparse_attention(shifted, q, q, layout)
+    with pytest.raises(ValueError):
+        bs.block_sparse_attention(q, q, shifted, layout)
     with pytest.raises(ValueError):
         bs.block_sparse_dq(q, shifted, q, o, lse, o, layout)
     with pytest.raises(ValueError):
@@ -915,7 +920,27 @@ def test_block_sparse_bf16_kernels_reject_unaligned_operands(cuda):
         bs.block_sparse_dkdv(q, q, shifted, o, lse, lse, layout)
     with pytest.raises(ValueError):
         bs.block_sparse_dkdv(shifted, q, q, o, lse, lse, layout)
-    assert [f.launches for f in (bs.block_sparse_dq, bs.block_sparse_dkdv)] == before
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before
+
+
+@pytest.mark.gpu
+def test_block_sparse_bf16_forward_is_the_tiled_forward_on_the_causal_layout(cuda):
+    """On ``compile_block_layout(causal_mask(1280))`` at b 2, 16 heads of
+    64, the bf16 pair-grid forward (``bf16s::fwd_sweep`` over ``HalfRow``)
+    is bitwise the bf16 tiled forward (the same sweep over ``VisitRow``):
+    both walk the same 32-key halves of each query tile in key order with
+    the same allowed bits, and a tile's result does not depend on the
+    order the tiles start in."""
+    layout = bs.compile_block_layout(masks.causal_mask(1280))
+    rng = np.random.RandomState(19)
+    q, k, v = (torch.from_numpy(rng.randn(2, 16, 1280, 64).astype(np.float32)).to(
+        cuda, torch.bfloat16) for _ in range(3))
+    o, lse = bs.block_sparse_attention(q, k, v, layout)
+    to, tlse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, to), (o.float() - to.float()).abs().max().item()
+    assert torch.equal(lse, tlse), (lse - tlse).abs().max().item()
 
 
 @pytest.mark.gpu
@@ -924,8 +949,8 @@ def test_block_sparse_wrappers_count_no_refused_launch(cuda, dtype):
     """A kernel that refuses its operands launches nothing, and its
     wrapper counts nothing: with the layout's class maps taken off the
     card the tensor-core kernels that walk them (float32 forward and dq,
-    bf16 dq and dk/dv) raise ValueError and every count stays as it was;
-    the maps put back, each call counts one launch."""
+    bf16 forward, dq and dk/dv) raise ValueError and every count stays as
+    it was; the maps put back, each call counts one launch."""
     layout = bs.compile_block_layout(masks.causal_mask(256))
     q = torch.randn(1, 2, 256, 64, device=cuda).to(dtype)
     o, lse = bs.block_sparse_attention(q, q, q, layout)
@@ -935,7 +960,7 @@ def test_block_sparse_wrappers_count_no_refused_launch(cuda, dtype):
     layout._on_device[q.device] = dl._replace(halves=None, order=None, columns=None)
     try:
         before = [f.launches for f in wrappers]
-        refused = {torch.float32: ("fwd", "dq"), torch.bfloat16: ("dq", "dkdv")}[dtype]
+        refused = {torch.float32: ("fwd", "dq"), torch.bfloat16: ("fwd", "dq", "dkdv")}[dtype]
         calls = {"fwd": lambda: bs.block_sparse_attention(q, q, q, layout),
                  "dq": lambda: bs.block_sparse_dq(q, q, q, o, lse, o, layout),
                  "dkdv": lambda: bs.block_sparse_dkdv(q, q, q, o, lse, delta, layout)}
