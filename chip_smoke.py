@@ -45,7 +45,16 @@ line):
    model never launches the decode kernel. Preemption on the card: a small DALLE under a
    page budget below its batch's demand (unquantized and int8) preempts,
    completes every request and replays tokens bit-identical to the
-   unpressured run.
+   unpressured run. The split engine on the card (``fused_iteration``
+   off): a small float32 DALLE, greedy, unquantized and int8 pages,
+   chunks of 4 (a 1-token tail merged) and monolithic prefill,
+   lookahead on and off: tokens identical to the CPU's, the ragged
+   kernel launched depth x dispatches times; ``prefill_chunk``
+   chunkings against ``prefill_step`` and the vector ``decode_step`` at
+   mixed per-row positions against the CPU within
+   ``testing.LOGITS_F32_ATOL``; ``prefill_fail`` once (retried, tokens
+   unchanged), twice (PREFILL_FAILED, the pool empty) and
+   ``page_exhaust`` (a preemption, the replay bit-identical).
 5. engine: the flagship DALLE at full width and depth cut to 6 of 12
    (``SERVE_MODEL``: dim 1024, 16 heads of 64, 256 text + 32x32 image
    tokens, bf16, seeded random weights) served by the
@@ -71,6 +80,16 @@ line):
    ``testing.INT8_LOGITS_REL``, and profiles of 15 iterations as in
    phase 7, int8, int8, then bf16 again (phase 7's came first), each with
    the host's time by operator.
+5e. serve split: the flagship of phase 5 served by the split engine
+   (batch-1 chunks of 16, then the vector decode step of 8 rows), with
+   phase 5's VAE and CLIP, its first 8 requests: every outcome COMPLETED
+   with 1024 tokens in range, a finite image and a finite score, the
+   ragged kernel launched depth x (decode steps + chunks) times, the
+   int8 instance never, the packed-qkv kernel as in phase 5; token
+   agreement with phase 5 printed, wall and tokens/s. Then 2 requests
+   of 64 tokens with monolithic prefill (one 257-column prompt block a
+   layer each), counted the same way, and a profile of 15 split
+   iterations as in phase 7.
 5c. serve sparse: the sparse configuration (phase 10's layers) at the
    flagship width and phase 5's depth, bf16, int8 pages, 4 requests of
    256 tokens: every outcome COMPLETED, the int8 ragged instance launched
@@ -189,6 +208,7 @@ Paired comparisons, one card, none of the phases above:
     python3 chip_smoke.py --sparse-source OTHER/csrc
     python3 chip_smoke.py --decode-source OTHER/csrc
     python3 chip_smoke.py --generate-pairs 3
+    python3 chip_smoke.py --serve-pairs 2
 
 the first times this checkout's ragged kernel against the same file of
 another commit (or of each of several, the flag repeated), alternating
@@ -222,7 +242,9 @@ builds another commit's
 ``decode_attention.cu``, holds each tree's out against the plain version
 at the generate shape (b 1 and 8), checks the k/v rows bitwise equal
 across the trees, and times both alternating; the sixth times generation
-(a) against (b) in alternating pairs.
+(a) against (b) in alternating pairs; the seventh times the split engine
+against the fused one at steady decode (8 rows of phase 5's flagship,
+decode-only iterations) in alternating pairs, then profiles each.
 """
 
 from __future__ import annotations
@@ -270,6 +292,8 @@ FLAGSHIP_CLIP = dict(dim_text=512, dim_image=512, dim_latent=512,
                      visual_patch_size=32)
 MAX_BATCH, CHUNK, PAGE = 8, 16, 128
 N_REQUESTS, MAX_NEW = 10, 1024
+# phase 5e's requests: the first of phase 5's
+SPLIT_REQUESTS = 8
 STAGE_BATCH = 8
 # packed-qkv forward vs plain in bfloat16: each row's o error norm over
 # h*d relative to the plain row's (two bf16 roundings of the output are
@@ -1461,7 +1485,8 @@ def check_preemption_on_card() -> None:
     for kv_quant in (None, "int8"):
         runs = {}
         for budget in (None, 12):
-            engine = Engine(model, EngineConfig(max_batch=3, prefill_chunk=4, page_size=4,
+            engine = Engine(model, EngineConfig(max_batch=3, fused_iteration=True, prefill_chunk=4,
+                                                page_size=4,
                                                 page_budget=budget, kv_quant=kv_quant,
                                                 filter_thres=0.5), device="cuda")
             for i in range(4):
@@ -1479,6 +1504,176 @@ def check_preemption_on_card() -> None:
             f"{same}")
         if not (done and same and sum(preempted.values()) >= 1):
             raise AssertionError(f"preemption on the card ({kv_quant}) failed")
+
+
+SPLIT_CFG = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50, text_seq_len=8,
+                 num_image_tokens=40, image_fmap_size=4)
+
+
+def card_and_cpu(cfg: dict, seed: int):
+    """A small float32 DALLE with seeded weights on the card and the same
+    weights on the CPU."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+
+    gpu = DALLE(**cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(seed))
+    cpu = DALLE(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    return gpu, cpu
+
+
+def serve_small(model, prompts, faults=None, **config):
+    """``prompts`` (one request each, 16 tokens, seed 20 + i) through a
+    fresh engine (max_batch 3, page 4, ``config``) on the model's device;
+    returns (engine, results)."""
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.types import Request
+
+    engine = Engine(model, EngineConfig(max_batch=3, page_size=4, **config),
+                    device=model.device.type, faults=faults)
+    for i, prompt in enumerate(prompts):
+        assert engine.submit(Request(f"q{i}", prompt, 16, seed=20 + i)) is None
+    return engine, engine.run(max_steps=2000)
+
+
+def split_prompts() -> np.ndarray:
+    """The split checks' 4 prompts (text 8, ragged zero tails)."""
+    prompts = np.random.RandomState(10).randint(1, 50, size=(4, 8))
+    for i in range(4):
+        prompts[i, 8 - 2 * i:] = 0
+    return prompts
+
+
+def check_split_engine_on_card() -> None:
+    """The split engine on the card (``fused_iteration=False``): a small
+    float32 DALLE (``SPLIT_CFG``: prompt 9 positions, 16 image tokens,
+    page 4), identical weights on the card (kernels) and the CPU (plain
+    versions), 4 requests at max_batch 3, greedy. For unquantized and
+    int8 pages, chunks of 4 (4-5: the 1-token tail merged) and monolithic
+    prefill, lookahead on and off: every outcome COMPLETED, the tokens
+    identical on the card and the CPU, the ragged instance of the pages'
+    format launched depth x dispatches (prefills, chunks and decode
+    steps) times and the other never. Then ``check_split_model_on_card``
+    and ``check_split_faults_on_card``."""
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    gpu, cpu = card_and_cpu(SPLIT_CFG, 9)
+    prompts = split_prompts()
+    depth = SPLIT_CFG["depth"]
+    for kv_quant in (None, "int8"):
+        for chunk in (4, None):
+            for lookahead in (True, False):
+                config = dict(prefill_chunk=chunk, decode_lookahead=lookahead,
+                              kv_quant=kv_quant, filter_thres=0.99)
+                zero_counts()
+                engine, on_card = serve_small(gpu, prompts, **config)
+                launched = read_counts(RAGGED)
+                _, on_cpu = serve_small(cpu, prompts, **config)
+                done = all(r.outcome is Outcome.COMPLETED and len(r.tokens) == 16
+                           for run in (on_card, on_cpu) for r in run.values())
+                same = all(np.array_equal(on_card[r].tokens, on_cpu[r].tokens)
+                           for r in on_card)
+                want = {n: depth * engine.dispatches
+                        if n.endswith("int8") == (kv_quant == "int8") else 0 for n in RAGGED}
+                log(f"split engine on the card, pages {kv_quant or 'none'}, "
+                    f"{'chunk 4' if chunk else 'monolithic'}, lookahead {lookahead}: every "
+                    f"outcome COMPLETED {done}, tokens card = CPU {same}; "
+                    f"{engine.dispatches} dispatches ({engine.prefill_dispatches} prefill), "
+                    f"launches {launched} (expected {want})")
+                if not (done and same and launched == want):
+                    raise AssertionError(f"split engine on the card failed: {config}")
+    check_split_model_on_card(gpu, cpu)
+    check_split_faults_on_card(gpu, prompts)
+
+
+def check_split_model_on_card(gpu, cpu) -> None:
+    """The split path's model calls, card (kernels) against CPU (plain),
+    ``testing.LOGITS_F32_ATOL``: each chunking the engine makes of the
+    9-position prompt (2-2-2-3, 3-3-3, 4-5) against one ``prefill_step``
+    on the same device, both devices; then 3 rows prefilled alone to 5, 9
+    and 7 positions, landed in one batched cache, and 8 vector
+    ``decode_step`` calls at the rows' own positions (text and image
+    positions mixed, teacher-forced), logits card against CPU; the
+    ragged kernel launched depth x calls times."""
+    from dalle_pytorch_tpu_torch.models.sampling import init_decode_cache, insert_decode_cache
+    from dalle_pytorch_tpu_torch.testing import LOGITS_F32_ATOL
+
+    rng = np.random.RandomState(16)
+    text = torch.from_numpy(rng.randint(1, 50, size=(3, 8)))
+    text[2, 6:] = 0
+    ids = torch.cat((gpu.remap_text(text), torch.from_numpy(rng.randint(0, 40, size=(3, 16)))), 1)
+    T = gpu.text_len_internal
+    chunkings = ((2, 2, 2, 3), (3, 3, 3), (4, 5))
+    worst_chunk, logits = 0.0, {}
+    zero_counts()
+    for m in (gpu, cpu):
+        x = ids.to(m.device)
+        ref = m.prefill_step(x[:2, :T], init_decode_cache(m, 2, "paged", page_size=4))
+        for widths in chunkings:
+            cache, start = init_decode_cache(m, 2, "paged", page_size=4), 0
+            for c in widths:
+                got = m.prefill_chunk(x[:2, start:start + c], start, cache)
+                start += c
+            worst_chunk = max(worst_chunk, (got - ref).abs().max().item())
+        cache = init_decode_cache(m, 3, "paged", page_size=4)
+        starts = torch.tensor([5, T, 7], dtype=torch.int32)
+        for r, n in enumerate(starts.tolist()):
+            row = init_decode_cache(m, 1, "paged", page_size=4)
+            m.prefill_chunk(x[r:r + 1, :n], 0, row, return_logits=False)
+            insert_decode_cache(cache, row, r)
+        steps = []
+        for k in range(8):
+            pos = starts + k
+            steps.append(m.decode_step(x[torch.arange(3), pos.long()], pos.to(m.device), cache))
+        logits[m] = torch.stack(steps, 1).cpu()
+        if m is gpu:
+            launched = read_counts(RAGGED)["ragged_attention"]
+    calls = 1 + sum(len(w) for w in chunkings) + 3 + 8
+    worst = (logits[gpu] - logits[cpu]).abs().max().item()
+    log(f"split model on the card: prefill_chunk chunkings against prefill_step, max abs "
+        f"logit diff {worst_chunk:.3e} (card and CPU); vector decode_step at rows 5/9/7 + k, "
+        f"card vs CPU, max abs diff {worst:.3e} (tolerance {LOGITS_F32_ATOL:.0e}); ragged "
+        f"launches {launched} (expected {SPLIT_CFG['depth'] * calls})")
+    if not (worst_chunk <= LOGITS_F32_ATOL and worst <= LOGITS_F32_ATOL
+            and launched == SPLIT_CFG["depth"] * calls):
+        raise AssertionError(f"split model calls disagree: {worst_chunk} {worst} {launched}")
+
+
+def check_split_faults_on_card(gpu, prompts) -> None:
+    """Faults on the card's split engine (chunks of 4, top-k sampling
+    with the seeded noise): ``prefill_fail`` once retries its request,
+    whose tokens are the unfaulted run's; armed ``prefill_attempts`` (2)
+    times it ends q0 PREFILL_FAILED with the pool empty and the other
+    requests unchanged; ``page_exhaust`` preempts, and the replay is
+    bit-identical to the unfaulted run."""
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+    from dalle_pytorch_tpu_torch.utils.faults import FaultRegistry
+
+    config = dict(prefill_chunk=4, filter_thres=0.5)
+    _, clean = serve_small(gpu, prompts, **config)
+    tokens = lambda run, r: None if run[r].tokens is None else run[r].tokens.tolist()  # noqa: E731
+    report = []
+    for site, count in (("prefill_fail", 1), ("prefill_fail", 2), ("page_exhaust", 1)):
+        faults = FaultRegistry()
+        faults.arm(site, count)
+        engine, run = serve_small(gpu, prompts, faults=faults, **config)
+        failed = [r for r, x in run.items() if x.outcome is Outcome.PREFILL_FAILED]
+        ok = all(tokens(run, r) == tokens(clean, r) for r in run if r not in failed)
+        ok = ok and engine.pool.used == 0 and not any(engine.slots)
+        ok = ok and faults.fired == {site: count}
+        if site == "page_exhaust":
+            ok = ok and sum(x.preempt_count for x in run.values()) == 1 and not failed
+        elif count == 1:
+            ok = ok and not failed and run["q0"].prefill_attempts == 1
+        else:
+            ok = ok and failed == ["q0"] and run["q0"].tokens is None
+        report.append(f"{site} x{count}: outcomes "
+                      f"{sorted({x.outcome.value for x in run.values()})}, attempts "
+                      f"{[x.prefill_attempts for x in run.values()]}, preempts "
+                      f"{[x.preempt_count for x in run.values()]}, passed {ok}")
+        if not ok:
+            raise AssertionError(f"split faults on the card: {report[-1]}")
+    log("split faults on the card: " + "; ".join(report))
 
 
 def check_clip_against_plain() -> None:
@@ -1865,7 +2060,7 @@ def serve_flagship():
     vae = DiscreteVAE(**FLAGSHIP_VAE, **bf16).init_weights(gen(1))
     clip = CLIP(**FLAGSHIP_CLIP, **bf16).init_weights(gen(2))
     engine = Engine(model, EngineConfig(
-        max_batch=MAX_BATCH, prefill_chunk=CHUNK,
+        max_batch=MAX_BATCH, fused_iteration=True, prefill_chunk=CHUNK,
     ), device="cuda", stages=StageSpec(vae, clip, config=StageConfig(
         batch=STAGE_BATCH, queue_limit=N_REQUESTS)))
     for request in serve_requests(N_REQUESTS, MAX_NEW):
@@ -1941,7 +2136,8 @@ def serve_counted(model, label: str, n: int, max_new: int, expected_per_dispatch
     from dalle_pytorch_tpu_torch.serving.types import Outcome
 
     torch.cuda.reset_peak_memory_stats()
-    engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK, **config),
+    engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, fused_iteration=True,
+                                        prefill_chunk=CHUNK, **config),
                     device="cuda")
     for request in serve_requests(n, max_new):
         assert engine.submit(request) is None
@@ -2028,6 +2224,81 @@ def serve_sparse_int8() -> dict:
     return launches
 
 
+def serve_split(model, stages, fused_results) -> tuple:
+    """Phase 5e: the flagship of phase 5 served by the split engine
+    (``fused_iteration=False``, max_batch 8, chunks of 16: batch-1 chunks,
+    then the vector decode step) with phase 5's VAE and CLIP stages, its
+    first ``SPLIT_REQUESTS`` requests: every outcome COMPLETED with 1024
+    tokens in range, a finite image and a finite score; the ragged kernel
+    launched depth x dispatches (decode steps and chunks) times, the int8
+    instance never, the packed-qkv kernel text depth x rerank dispatches
+    times; token agreement with phase 5's fused results printed, not
+    asserted (bf16, products of other shapes). Then 2 requests of 64
+    tokens with monolithic prefill, no stages: 2 prefill dispatches (one
+    prompt block of 257 columns a layer each) and the decode steps, the
+    ragged kernel depth x dispatches times. Returns the two runs'
+    launches."""
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    depth = SERVE_MODEL["depth"]
+    engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK), device="cuda",
+                    stages=StageSpec(stages.vae, stages.clip, config=StageConfig(
+                        batch=STAGE_BATCH, queue_limit=SPLIT_REQUESTS)))
+    for request in serve_requests(SPLIT_REQUESTS, MAX_NEW):
+        assert engine.submit(request) is None
+    zero_counts()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts((*RAGGED, "fused_qkv_attention"))
+    for rid, r in results.items():
+        if r.outcome is not Outcome.COMPLETED or len(r.tokens) != MAX_NEW:
+            raise AssertionError(f"serve split: request {rid}: {r.outcome} {r.detail!r}")
+        if not ((r.tokens >= 0) & (r.tokens < FLAGSHIP["num_image_tokens"])).all():
+            raise AssertionError(f"serve split: request {rid}: token out of the image vocab")
+        if r.image is None or r.image.shape != (256, 256, 3) or not np.isfinite(r.image).all():
+            raise AssertionError(f"serve split: request {rid}: no finite (256, 256, 3) image")
+        if r.rerank_score is None or not np.isfinite(r.rerank_score):
+            raise AssertionError(f"serve split: request {rid}: rerank score {r.rerank_score}")
+    rerank_dispatches = engine.postdecode.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
+    expected = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
+                "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
+    agree = [float(np.mean(results[r].tokens == fused_results[r].tokens)) for r in results]
+    log(f"serve split: {SPLIT_REQUESTS} requests of {MAX_NEW} tokens (VAE and CLIP stages), "
+        f"{engine.iterations} iterations, {engine.dispatches} dispatches "
+        f"({engine.dispatches - engine.prefill_dispatches} decode steps, "
+        f"{engine.prefill_dispatches} chunks), {wall:.2f} s wall, "
+        f"{SPLIT_REQUESTS * MAX_NEW / wall:.1f} generated tokens/s; launches {launches} "
+        f"(expected {expected}); position-wise token agreement with the fused engine per "
+        f"request " + ", ".join(f"{a:.4f}" for a in agree))
+    if launches != expected:
+        raise AssertionError(f"serve split: kernel launches {launches}, expected {expected}")
+
+    mono = Engine(model, EngineConfig(max_batch=MAX_BATCH), device="cuda")
+    for request in serve_requests(2, 64):
+        assert mono.submit(request) is None
+    zero_counts()
+    t0 = time.perf_counter()
+    mono_results = mono.run()
+    torch.cuda.synchronize()
+    mono_wall = time.perf_counter() - t0
+    mono_launches = read_counts(RAGGED)
+    mono_expected = {"ragged_attention": depth * mono.dispatches, "ragged_attention_int8": 0}
+    done = all(r.outcome is Outcome.COMPLETED and len(r.tokens) == 64
+               for r in mono_results.values())
+    log(f"serve split monolithic: 2 requests of 64 tokens, {mono.prefill_dispatches} prompt "
+        f"blocks of {model.text_len_internal} columns, {mono.dispatches} dispatches, "
+        f"{mono_wall:.2f} s wall; every outcome COMPLETED {done}; launches {mono_launches} "
+        f"(expected {mono_expected})")
+    if not (done and mono.prefill_dispatches == 2 and mono_launches == mono_expected):
+        raise AssertionError(f"serve split monolithic: {done} {mono.prefill_dispatches} "
+                             f"{mono_launches}")
+    return launches, mono_launches
+
+
 def log_device_profile(averages, label: str, what: str, unit: str, count: int,
                        wall_ms: float, top: int, watch=()) -> None:
     """Print a profiled window of ``count`` ``unit``s from its
@@ -2048,22 +2319,24 @@ def log_device_profile(averages, label: str, what: str, unit: str, count: int,
                 f"x{e.count // count} (#{rank}) {e.key[:90]}")
 
 
-def profile_iterations(model, warmup: int = 10, window: int = 15, kv_quant=None) -> None:
+def profile_iterations(model, warmup: int = 10, window: int = 15, kv_quant=None,
+                       split: bool = False) -> None:
     """Where an engine iteration's time goes: torch.profiler over a window
     of a fresh mixed prefill/decode batch (8 requests at once, so one row
     decodes while the others prefill chunk by chunk), with ``kv_quant``
-    pages. Prints wall time and device-busy time per iteration, launches
-    per iteration, the largest device-time kernels and the ragged
-    kernel's. Runs after the counted main path."""
+    pages, on the fused path or with ``split`` the split one. Prints wall
+    time and device-busy time per iteration, launches per iteration, the
+    largest device-time kernels and the ragged kernel's. Runs after the
+    counted main path."""
     from torch.profiler import ProfilerActivity, profile
 
     from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
     from dalle_pytorch_tpu_torch.serving.types import Request
 
     engine = Engine(model, EngineConfig(
-        max_batch=MAX_BATCH, prefill_chunk=CHUNK, kv_quant=kv_quant,
+        max_batch=MAX_BATCH, fused_iteration=not split, prefill_chunk=CHUNK, kv_quant=kv_quant,
     ), device="cuda")
-    label = "profile" if kv_quant is None else f"profile {kv_quant}"
+    label = ("profile split" if split else "profile") + (f" {kv_quant}" if kv_quant else "")
     prompts = np.random.RandomState(1).randint(
         1, FLAGSHIP["num_text_tokens"], size=(MAX_BATCH, FLAGSHIP["text_seq_len"]))
     for i in range(MAX_BATCH):
@@ -2596,6 +2869,7 @@ def main() -> int:
                                  ("int8", sparse_types)):
         check_path_against_plain(kv_quant, attn_types)
     check_preemption_on_card()
+    check_split_engine_on_card()
     check_clip_against_plain()
     check_decode_against_plain()
     for variant in ("dense", "sparse", "tiled"):
@@ -2611,6 +2885,8 @@ def main() -> int:
     check_int8_logits(model)
     for kv_quant in ("int8", "int8", None):  # phase 7's bf16 profile came first
         profile_iterations(model, kv_quant=kv_quant)
+    split_launches, split_mono_launches = serve_split(model, engine.postdecode.spec, results)
+    profile_iterations(model, split=True)
     # the staged engine and its pipeline refer to each other: only the
     # cyclic collector frees their pools before the next phase's peak
     del model, results, engine
@@ -2644,6 +2920,7 @@ def main() -> int:
     trainer, launches_512_bf16 = train_512_bf16(vae, batch)
     profile_train(trainer, batch, label="train 512 bf16 profile", kernel_rows=kernels)
     paths = (("serve", serve_launches), ("serve_int8", int8_launches),
+             ("serve_split", split_launches), ("serve_split_monolithic", split_mono_launches),
              ("serve_sparse_int8", sparse_serve_launches), ("train", train_launches),
              ("train_bf16", bf16_launches), ("train_sparse", sparse_launches),
              ("train_sparse_bf16", sparse_bf16_launches), ("train_512", launches_512),
@@ -3361,6 +3638,64 @@ def compare_generate(pairs: int = 3) -> None:
         f"{r:.4f}" for r in ratios) + f" (min {min(ratios):.4f}, max {max(ratios):.4f})")
 
 
+def compare_serve(pairs: int = 2, window: int = 64) -> None:
+    """The split engine against the fused one at steady decode: the serve
+    phases' flagship (bf16, depth 6), 8 of their requests of 1024 tokens
+    at max_batch 8 and chunks of 16 through a fresh engine of each path,
+    stepped until every slot decodes, then ``window`` decode-only
+    iterations timed by the host clock, in ``pairs`` pairs alternating
+    split, fused, fused, split, ...; then torch.profiler over 15 more
+    iterations of each. Prints every run's ms an iteration, each pair's
+    ratio split / fused, and each profile's wall, busy share, launches
+    an iteration and top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+
+    model = DALLE(**SERVE_MODEL, device="cuda", dtype=torch.bfloat16).init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+    requests = serve_requests(MAX_BATCH, MAX_NEW)
+
+    def steady(fused: bool):
+        engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK,
+                                            fused_iteration=fused), device="cuda")
+        for request in requests:
+            assert engine.submit(request) is None
+        while not all(s is not None and s.phase == "decode" for s in engine.slots):
+            engine.step()
+        for _ in range(4):
+            engine.step()
+        torch.cuda.synchronize()
+        return engine
+
+    ms = {False: [], True: []}
+    for p in range(pairs):
+        for fused in ((False, True) if p % 2 == 0 else (True, False)):
+            engine = steady(fused)
+            t0 = time.perf_counter()
+            for _ in range(window):
+                engine.step()
+            torch.cuda.synchronize()
+            ms[fused].append(1e3 * (time.perf_counter() - t0) / window)
+    ratios = [s / f for s, f in zip(ms[False], ms[True])]
+    log(f"compare serve, {window} decode-only iterations of 8 rows, ms an iteration: split "
+        + ", ".join(f"{t:.3f}" for t in ms[False]) + "; fused "
+        + ", ".join(f"{t:.3f}" for t in ms[True]) + "; pair ratios split / fused "
+        + ", ".join(f"{r:.4f}" for r in ratios))
+    for fused in (False, True):
+        engine = steady(fused)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(15):
+                engine.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 15
+        log_device_profile(prof.key_averages(), "compare serve " + ("fused" if fused else "split"),
+                           "decode-only iterations", "iteration", 15, wall_ms, 6,
+                           watch=("ragged",))
+
+
 def check_bf16_default_reduction() -> None:
     """The bf16 path checks (``check_train_against_plain(variant,
     torch.bfloat16)`` for "dense", "sparse" and "tiled") with cuBLAS's
@@ -3389,8 +3724,9 @@ def check_bf16_default_reduction() -> None:
 def compare(argv) -> int:
     """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR``,
     ``--tiled-source DIR``, ``--sparse-source DIR``, ``--decode-source DIR``,
-    ``--generate-pairs N`` and/or ``--bf16-default-reduction``: only the
-    paired comparisons (and that check), on one card."""
+    ``--generate-pairs N``, ``--serve-pairs N`` and/or
+    ``--bf16-default-reduction``: only the paired comparisons (and that
+    check), on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -3406,6 +3742,8 @@ def compare(argv) -> int:
     parser.add_argument("--decode-source",
                         help="csrc directory of another commit (its decode_attention.cu)")
     parser.add_argument("--generate-pairs", type=int, default=0)
+    parser.add_argument("--serve-pairs", type=int, default=0,
+                        help="pairs of the split and the fused engine at steady decode")
     parser.add_argument("--bf16-default-reduction", action="store_true",
                         help="the bf16 path checks with cuBLAS's bf16 reduced-precision "
                              "reduction at PyTorch's default")
@@ -3427,6 +3765,8 @@ def compare(argv) -> int:
         compare_decode_sources(args.decode_source)
     if args.generate_pairs:
         compare_generate(args.generate_pairs)
+    if args.serve_pairs:
+        compare_serve(args.serve_pairs)
     if args.bf16_default_reduction:
         check_bf16_default_reduction()
     return 0

@@ -68,7 +68,8 @@ def _sync(device) -> None:
 
 
 def _engine(model, kv_quant, cfg, device):
-    engine = Engine(model, EngineConfig(max_batch=8, prefill_chunk=16, kv_quant=kv_quant),
+    engine = Engine(model, EngineConfig(max_batch=8, fused_iteration=True, prefill_chunk=16,
+                                        kv_quant=kv_quant),
                     device=device)
     prompts = np.random.RandomState(1).randint(
         1, cfg["num_text_tokens"], size=(8, cfg["text_seq_len"]))

@@ -14,11 +14,13 @@ Two forms, both rotary and causal:
   iteration through the cached transformer; image-only logits at each
   row's last valid column. Every layer type decodes ("full" through the
   ragged kernel, the others through the gathered cache view).
-- ``prefill_step`` / ``decode_step`` (generation outside the engine,
-  ``models/sampling.py``): the first T text positions in one parallel
-  pass, then one position at a time for the whole batch, over a paged or
-  dense decode cache; logits with the logits mask's row, or the
-  image-vocab head alone.
+- ``prefill_step`` / ``prefill_chunk`` / ``decode_step`` (generation
+  outside the engine, ``models/sampling.py``, and the engine's split
+  path): the first T text positions in one parallel pass or in chunks,
+  then one position at a time for the whole batch, over a paged or
+  dense decode cache (the engine's rows each at their own position, on
+  pages); logits with the logits mask's row, or the image-vocab head
+  alone.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.attention import PagedKV
 from ..ops.layers import LayerNorm32, Linear, seeded_init_
 from .transformer import Transformer
 
@@ -167,6 +170,14 @@ class DALLE(nn.Module):
             return logit < ext
         return logit >= ext
 
+    def logits_mask_rows(self, pos: torch.Tensor) -> torch.Tensor:
+        """``logits_mask_row`` at each row's position ``pos`` (b,):
+        (b, total_tokens) bool."""
+        ext = self.num_text_tokens_ext
+        logit = torch.arange(self.total_tokens, device=pos.device)[None]
+        is_image = (pos.clamp(max=self.total_seq_len - 1) >= self.text_seq_len)[:, None]
+        return torch.where(is_image, logit < ext, logit >= ext)
+
     def logits_mask(self, n: int) -> torch.Tensor:
         """(n, total_tokens) bool, True = forbidden: text positions may
         only predict text tokens, image positions image tokens."""
@@ -275,14 +286,19 @@ class DALLE(nn.Module):
         )[:, 0]
         return torch.where(final[:, None], rowwise, batched)
 
-    def _decode_block(self, emb, pos: int, cache, mask, fused_decode: Optional[bool] = None):
-        """emb (b, n, dim): n tokens at positions pos + j for the whole
-        batch through the cached transformer (the cache's key mask is
-        ``mask`` widened to every position)."""
+    def _decode_block(self, emb, pos, cache, mask, fused_decode: Optional[bool] = None):
+        """emb (b, n, dim): n tokens at positions pos + j through the
+        cached transformer, ``pos`` a Python int (the whole batch at one
+        position) or a (b,) tensor of each row's position (the cache's key
+        mask is ``mask`` widened to every position)."""
         b, n, _ = emb.shape
-        full = lambda v: torch.full((b,), v, dtype=torch.int32, device=emb.device)  # noqa: E731
+        if torch.is_tensor(pos):
+            start = pos.to(device=emb.device, dtype=torch.int32)
+        else:
+            start = torch.full((b,), pos, dtype=torch.int32, device=emb.device)
+        length = torch.full((b,), n, dtype=torch.int32, device=emb.device)
         return self.transformer(
-            emb.to(self.dtype), cache, block_len=full(n), block_start=full(pos),
+            emb.to(self.dtype), cache, block_len=length, block_start=start,
             mask=self._full_key_mask(mask, self.transformer.attn_seq_len),
             fused_decode=fused_decode)
 
@@ -301,34 +317,72 @@ class DALLE(nn.Module):
         if T > self.text_len_internal:
             raise ValueError(f"prefill covers text positions only, got {T} > "
                              f"{self.text_len_internal}")
-        out = self._decode_block(self.text_emb(tokens), 0, cache, mask)
-        if image_only:
-            if T != self.text_len_internal:
-                raise ValueError("image_only prefill needs the whole prompt: position T "
-                                 "must be the first image position")
-            return self._head_image(out[:, -1:])[:, 0]
-        logits = self._head(out[:, -1:])[:, 0]
-        return logits.masked_fill(self.logits_mask_row(T - 1), NEG_INF)
+        if image_only and T != self.text_len_internal:
+            raise ValueError("image_only prefill needs the whole prompt: position T "
+                             "must be the first image position")
+        return self.prefill_chunk(tokens, 0, cache, mask, image_only=image_only)
 
     @torch.no_grad()
-    def decode_step(self, token, pos: int, cache, mask=None, image_only: bool = False,
+    def prefill_chunk(self, tokens, start: int, cache, mask=None, return_logits: bool = True,
+                      image_only: bool = False) -> Optional[torch.Tensor]:
+        """Text positions [start, start + c) of the prompt over the
+        already-written cache (one budget-bounded slice of a prefill, so a
+        serving loop can interleave prompt work with decode steps):
+        tokens (b, c) remapped text ids, ``start`` a Python int. Chunks
+        covering [0, T) fill the cache as one ``prefill_step`` over the
+        same tokens does. Returns the float32 logits predicting position
+        start + c: (b, total_tokens) with the logits mask's row
+        start + c - 1, or with ``image_only`` (the chunk must end the
+        prompt) the (b, num_image_tokens) image-vocab head; None with
+        ``return_logits=False`` (an intermediate chunk skips the head)."""
+        b, c = tokens.shape
+        end = start + c
+        if not 0 <= start < end <= self.text_len_internal:
+            raise ValueError(f"prefill chunks cover text positions only, got "
+                             f"[{start}, {end}) of {self.text_len_internal}")
+        out = self._decode_block(self.text_emb(tokens), start, cache, mask)
+        if image_only:
+            if end != self.text_len_internal:
+                raise ValueError("an image_only chunk must end the prompt: position "
+                                 f"{end} is not the first image position")
+            return self._head_image(out[:, -1:])[:, 0]
+        if not return_logits:
+            return None
+        logits = self._head(out[:, -1:])[:, 0]
+        return logits.masked_fill(self.logits_mask_row(end - 1), NEG_INF)
+
+    @torch.no_grad()
+    def decode_step(self, token, pos, cache, mask=None, image_only: bool = False,
                     fused_decode: Optional[bool] = None) -> torch.Tensor:
         """One cached decode step for the whole batch: token (b,) the id
-        at internal position ``pos`` (a Python int), a remapped text id
-        below text_len_internal, else an image id; the embedding is chosen
-        by the position. Returns the float32 logits predicting pos + 1:
-        (b, total_tokens) with the logits mask's row ``pos``, or with
+        at internal position ``pos``, a remapped text id below
+        text_len_internal, else an image id; the embedding is chosen by
+        the position. ``pos`` is a Python int (every row at one position)
+        or a (b,) tensor of each row's position (rows of a serving batch;
+        the paged cache only, its rows written at their own positions).
+        Returns the float32 logits predicting pos + 1: (b, total_tokens)
+        with the logits mask's row at each row's ``pos``, or with
         ``image_only`` (pos + 1 an image position) the image-vocab head.
         ``fused_decode`` chooses the dense cache's causal "full" layers'
         route: None (default) the fused decode kernel on the card and the
         unfused chain on the CPU, True the kernel (on the CPU under JAX's
         gate), False the unfused chain (``Attention.uses_decode_kernel``)."""
-        if pos < self.text_len_internal:
-            emb = self.text_emb(token.clamp(0, self.num_text_tokens_ext - 1))
+        text_emb = lambda: self.text_emb(token.clamp(0, self.num_text_tokens_ext - 1))  # noqa: E731
+        image_emb = lambda: self.image_emb(token.clamp(0, self.num_image_tokens - 1))  # noqa: E731
+        ragged = torch.is_tensor(pos)
+        if ragged:
+            if not all(isinstance(kv, PagedKV) for kv in cache.kv):
+                raise ValueError("per-row decode positions need the paged cache format "
+                                 '(init_decode_cache(..., cache_format="paged"))')
+            pos = pos.to(token.device)
+            is_text = (pos < self.text_len_internal)[:, None]
+            emb = torch.where(is_text, text_emb(), image_emb())
         else:
-            emb = self.image_emb(token.clamp(0, self.num_image_tokens - 1))
+            emb = text_emb() if pos < self.text_len_internal else image_emb()
         out = self._decode_block(emb[:, None], pos, cache, mask, fused_decode)
         if image_only:
             return self._head_image(out)[:, 0]
         logits = self._head(out)[:, 0]
+        if ragged:
+            return logits.masked_fill(self.logits_mask_rows(pos), NEG_INF)
         return logits.masked_fill(self.logits_mask_row(pos), NEG_INF)

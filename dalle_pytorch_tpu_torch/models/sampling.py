@@ -10,8 +10,10 @@ layer's contiguous K/V buffers with one scalar write index
 (``ops.attention.DenseKV``). With token shift the cache also holds the
 attention- and feed-forward-side shift rings with their per-row indices
 (``ops.layers.ShiftRing``). The paged indices are per row from the start
-(the reference's ``set_decode_offsets`` has nothing to convert), so rows
-at different positions share one engine step.
+(``set_decode_offsets`` only sets them), so rows at different positions
+share one engine step. ``insert_decode_cache`` lands a batch-1 cache in
+one row of a batched one (the split engine's admission) and
+``merge_decode_caches`` stacks caches.
 
 Generation outside the engine: ``decode_tokens`` runs ``DALLE.prefill_step``
 over a prompt block, then one ``DALLE.decode_step`` per position,
@@ -35,6 +37,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..ops import kv_policy, paged_kv
@@ -148,6 +151,96 @@ def _paged_layers(dalle, batch_size: int, int8: bool, page: int):
         for _ in range(dalle.depth)
     ]
     return kv, n_p
+
+
+def _paged_only(cache: DecodeCache, what: str) -> None:
+    if not all(isinstance(kv, PagedKV) for kv in cache.kv):
+        raise ValueError(f"{what} needs the paged cache format "
+                         '(init_decode_cache(..., cache_format="paged"))')
+
+
+def _rows(cache: DecodeCache) -> int:
+    return cache.kv[0].table.shape[0]
+
+
+def set_decode_offsets(cache: DecodeCache, offsets: torch.Tensor) -> DecodeCache:
+    """Place each row of a paged cache at its own position ``offsets``
+    (b,): every layer's write index and every shift ring's index, in
+    place; returns the cache. The caller owns the contents: each row must
+    hold exactly its positions below its offset. The port's indices are
+    per row from the start (``init_decode_cache``), so unlike the
+    reference's this converts nothing; it only sets them."""
+    _paged_only(cache, "set_decode_offsets")
+    if offsets.shape != (_rows(cache),):
+        raise ValueError(f"offsets of shape {tuple(offsets.shape)} for a cache of "
+                         f"{_rows(cache)} rows")
+    for holder in [*cache.kv, *(cache.attn_rings or []), *(cache.ff_rings or [])]:
+        holder.index = offsets.to(device=holder.index.device, dtype=torch.int32).clone()
+    return cache
+
+
+def merge_decode_caches(caches: List[DecodeCache]) -> DecodeCache:
+    """Stack paged caches (each at its own offsets, any rows) into one
+    batched cache, row order preserved: pools' real pages concatenated
+    (one sink page after them), tables rebased to the merged pool's
+    global ids (a cache landing at row offset r shifts its ids by
+    r * n_pages), indices and rings concatenated."""
+    for c in caches:
+        _paged_only(c, "merge_decode_caches")
+    n_p = caches[0].n_pages
+    if any(c.n_pages != n_p for c in caches):
+        raise ValueError("merge_decode_caches: caches of different page counts")
+    offsets = np.cumsum([0] + [_rows(c) for c in caches])[:-1]
+    cat = lambda ts: torch.cat(list(ts))  # noqa: E731
+
+    def pool(pools):
+        real = [paged_kv.pool_view(t, _rows(c)).flatten(0, 1) for t, c in zip(pools, caches)]
+        return torch.cat(real + [torch.zeros_like(pools[0][-1:])])
+
+    kv = []
+    for layer in zip(*(c.kv for c in caches)):
+        scaled = layer[0].k_scale is not None
+        kv.append(PagedKV(
+            k=pool([x.k for x in layer]), v=pool([x.v for x in layer]),
+            table=cat(x.table + int(o) * n_p for x, o in zip(layer, offsets)),
+            index=cat(x.index for x in layer),
+            k_scale=pool([x.k_scale for x in layer]) if scaled else None,
+            v_scale=pool([x.v_scale for x in layer]) if scaled else None,
+        ))
+
+    def rings(side):
+        if getattr(caches[0], side) is None:
+            return None
+        return [ShiftRing(hist=cat(r.hist for r in layer), index=cat(r.index for r in layer))
+                for layer in zip(*(getattr(c, side) for c in caches))]
+
+    return DecodeCache(kv, rings("attn_rings"), rings("ff_rings"), n_p)
+
+
+def insert_decode_cache(batched: DecodeCache, sub: DecodeCache, slot: int) -> DecodeCache:
+    """Land a batch-1 paged cache in row ``slot`` of a batched one, in
+    place (the serving engine's admission of a prefilled request): every
+    pool's row pages (K, V and, for int8 pages, their scale pools), the
+    table row rebased to the slot's global ids, the write index, and both
+    shift rings' history and index. The row's previous tenant is
+    overwritten entirely. Returns ``batched``."""
+    _paged_only(batched, "insert_decode_cache")
+    _paged_only(sub, "insert_decode_cache")
+    if _rows(sub) != 1 or sub.n_pages != batched.n_pages:
+        raise ValueError("insert_decode_cache takes a batch-1 cache of the batched "
+                         "cache's page count")
+    rows, n_p = _rows(batched), batched.n_pages
+    for b_kv, s_kv in zip(batched.kv, sub.kv, strict=True):
+        for b_pool, s_pool in zip(b_kv.pools(), s_kv.pools(), strict=True):
+            paged_kv.pool_view(b_pool, rows)[slot] = paged_kv.pool_view(s_pool, 1)[0]
+        b_kv.table[slot] = s_kv.table[0] + slot * n_p
+        b_kv.index[slot] = s_kv.index[0]
+    for side in ("attn_rings", "ff_rings"):
+        for b_ring, s_ring in zip(getattr(batched, side) or [], getattr(sub, side) or [],
+                                  strict=True):
+            b_ring.hist[slot] = s_ring.hist[0]
+            b_ring.index[slot] = s_ring.index[0]
+    return batched
 
 
 _M32 = 0xFFFFFFFF

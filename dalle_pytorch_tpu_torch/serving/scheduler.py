@@ -28,10 +28,12 @@ def pages_for(n_positions: int, page_size: int) -> int:
 class TokenBudget:
     """Per-iteration token budget shared between decode tokens and prefill
     chunks. Decode is charged first (one token per active slot); the rest
-    goes to in-progress prefills head-of-line in scheduling order, one
-    chunk per prefilling row per iteration. The head prefill is always
-    granted (forward progress); granting stops at the first chunk that
-    does not fit. ``budget=None`` grants every prefill."""
+    goes to in-progress prefills head-of-line in scheduling order: on the
+    fused path one chunk per prefilling row per iteration
+    (``plan_iteration``), on the split path as many chunks as fit
+    (``plan``). The head prefill is always granted (forward progress);
+    granting stops at the first chunk that does not fit. ``budget=None``
+    grants every prefill."""
 
     budget: Optional[int]
     chunk: int
@@ -39,6 +41,32 @@ class TokenBudget:
     def __post_init__(self):
         assert self.chunk >= 1, self.chunk
         assert self.budget is None or self.budget >= 1, self.budget
+
+    def plan(self, n_decode: int, prefill_remaining: Sequence[int]) -> List[int]:
+        """Token grants of the split path, one per in-progress prefill
+        (``prefill_remaining``: its unprocessed prompt tokens, in
+        scheduling order). Grants are whole chunks but for a smaller
+        final tail; the head prefill always gets at least one chunk, and
+        granting stops at the first chunk that does not fit. The engine
+        may widen a granted last chunk by one token (its 1-token-tail
+        merge): the budget bounds the scheduling, it is not a meter."""
+        grants = [0] * len(prefill_remaining)
+        if not prefill_remaining:
+            return grants
+        if self.budget is None:
+            return list(prefill_remaining)
+        left = self.budget - n_decode
+        granted_any = False
+        for i, rem in enumerate(prefill_remaining):
+            while rem > 0:
+                c = min(self.chunk, rem)
+                if left < c and granted_any:
+                    return grants
+                grants[i] += c
+                rem -= c
+                left -= c
+                granted_any = True
+        return grants
 
     def plan_iteration(self, decode_tokens: int,
                        next_chunks: Sequence[int]) -> List[bool]:
@@ -103,6 +131,7 @@ class Entry:
     submit_time: float
     seq: int                      # submission order; FIFO tiebreak
     preempt_count: int = 0
+    prefill_attempts: int = 0     # failed prefill attempts
     # set at admission: the budget this residency generates, clamped by
     # watermark degradation
     effective_max_new: int = 0

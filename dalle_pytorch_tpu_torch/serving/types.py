@@ -4,7 +4,8 @@
 Every submitted request ends in exactly ONE ``RequestResult`` whose
 ``outcome`` is an ``Outcome``: overload and failure are values, not
 exceptions. The clock is injectable so deadlines are deterministic in
-tests: the engine calls ``tick()`` once per iteration.
+tests: the engine calls ``tick()`` once per iteration and ``advance()``
+when a stall is injected.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ class Outcome(str, Enum):
     # evicted under page pressure more than EngineConfig.max_preemptions
     # times
     PREEMPT_CAP = "preempt_cap"
+    # every prefill attempt failed (EngineConfig.prefill_attempts)
+    PREFILL_FAILED = "prefill_failed"
     # typed-degraded completions from the post-decode pipeline
     # (serving/postdecode.py): the token work succeeded but a stage was
     # shed by retry exhaustion, backlog or occupancy past the stage
@@ -69,6 +72,9 @@ class RequestResult:
     tokens: Optional[np.ndarray] = None
     reject_reason: Optional[RejectReason] = None
     preempt_count: int = 0
+    # prefill attempts that failed; the request ends PREFILL_FAILED when
+    # they reach EngineConfig.prefill_attempts
+    prefill_attempts: int = 0
     # set when watermark degradation clamped the request's budget: the
     # response carries the clamp instead of silently generating less
     clamped_max_new_tokens: Optional[int] = None
@@ -89,7 +95,8 @@ class RequestResult:
 
 class Clock:
     """Engine time source: ``now()`` is monotonic, ``tick()`` is called
-    once per engine iteration."""
+    once per engine iteration, ``advance(dt)`` jumps time forward (the
+    ``decode_stall`` fault)."""
 
     def now(self) -> float:
         return time.monotonic()
@@ -97,10 +104,15 @@ class Clock:
     def tick(self) -> None:
         pass
 
+    def advance(self, dt: float) -> None:
+        # real time cannot jump: a stall on the real clock is a sleep
+        time.sleep(dt)
+
 
 @dataclass
 class FakeClock(Clock):
-    """Deterministic virtual clock: every iteration costs ``step_dt``."""
+    """Deterministic virtual clock: every iteration costs ``step_dt``;
+    ``advance`` jumps at once."""
 
     t: float = 0.0
     step_dt: float = 0.0
@@ -110,3 +122,6 @@ class FakeClock(Clock):
 
     def tick(self) -> None:
         self.t += self.step_dt
+
+    def advance(self, dt: float) -> None:
+        self.t += dt

@@ -100,6 +100,10 @@ FLASH_F32_ATOL, FLASH_BF16_ROW_REL = BS_F32_ATOL, BS_BF16_ROW_REL
 # moves a column by 10% or more). The int8 instance's plain version
 # applies the same dequant formula, so quantization error does not enter.
 RAGGED_F32_ATOL, RAGGED_BF16_RTOL = 1e-5, 1e-2
+# float32 logits of a small DALLE (chip_smoke.py's split checks): the
+# card's kernels against the CPU's plain versions, or chunkings of one
+# prompt against one prefill_step; max abs error
+LOGITS_F32_ATOL = 1e-4
 # teacher-forced image logits through int8 pages against the same model's
 # unquantized pages, relative L2 error over every logit (``rel_l2``).
 # Measured on the CPU (``teacher_forced_logits``, 16-token chunks, seeded

@@ -1,14 +1,17 @@
 """The port's fused serving engine against the JAX package's fused engine
 on the CPU: the tiny DALLE of test_torch_dalle.py on converted weights,
-EngineConfig(prefill_chunk=2, max_batch=2), three
+EngineConfig(fused_iteration=True, prefill_chunk=2, max_batch=2), three
 requests with different budgets (one queues behind the other two). With
 ``filter_thres`` set so that top-k keeps one logit, sampling is greedy and
 no longer depends on either framework's random bits, so the token lists
 must be IDENTICAL. Port-only checks: the same seeds replay the same
-tokens, deadlines and cancellation end typed, and the JAX engine's options
-that have no field here are a TypeError. Int8 pages, page pressure and
-the sparse configuration are held by test_torch_kv_quant.py,
-test_torch_preemption.py and test_torch_sparse_serve.py."""
+tokens, deadlines and cancellation end typed, the JAX engine's options
+that have no field here are a TypeError, and the fused iteration without
+chunks is a ValueError, as in JAX. Int8 pages, page pressure and the
+sparse configuration are held by test_torch_kv_quant.py,
+test_torch_preemption.py and test_torch_sparse_serve.py; the split path
+by test_torch_split_engine.py, faults and retries by
+test_torch_engine_faults.py."""
 
 import numpy as np
 import pytest
@@ -37,7 +40,7 @@ def _prompt(i):
 
 def _run_port(model, filter_thres, lookahead=True, seeds=(0, 1, 2)):
     eng = Engine(model, EngineConfig(
-        max_batch=2, prefill_chunk=2, page_size=PAGE,
+        max_batch=2, fused_iteration=True, prefill_chunk=2, page_size=PAGE,
         filter_thres=filter_thres, decode_lookahead=lookahead,
     ), clock=FakeClock(step_dt=1.0), device="cpu")
     for i, n in enumerate(BUDGETS):
@@ -80,7 +83,7 @@ def test_same_seeds_replay_same_tokens():
 def test_deadline_and_cancel_end_typed():
     _, _, model = tiny_models()
     eng = Engine(model, EngineConfig(
-        max_batch=2, prefill_chunk=2, page_size=PAGE,
+        max_batch=2, fused_iteration=True, prefill_chunk=2, page_size=PAGE,
     ), clock=FakeClock(step_dt=1.0), device="cpu")
     eng.submit(Request("late", _prompt(0), 16, deadline=6.0))
     eng.submit(Request("gone", _prompt(1), 16))
@@ -99,11 +102,13 @@ def test_deadline_and_cancel_end_typed():
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(fused_iteration=False), TypeError), (dict(spec_decode=True), TypeError),
+    (dict(cost_ledger=True), TypeError), (dict(spec_decode=True), TypeError),
     (dict(prefix_cache=True), TypeError), (dict(vitals=True), TypeError),
-], ids=["fused_iteration", "spec_decode", "prefix_cache", "vitals"])
+    (dict(prefill_chunk=None), ValueError), (dict(prefill_chunk=1), ValueError),
+], ids=["cost_ledger", "spec_decode", "prefix_cache", "vitals", "fused_unchunked",
+        "chunk_of_one"])
 def test_unported_engine_options_raise(kwargs, error):
     _, _, model = tiny_models()
     with pytest.raises(error):
-        Engine(model, EngineConfig(prefill_chunk=2, page_size=PAGE, **kwargs),
-               device="cpu")
+        Engine(model, EngineConfig(**{"fused_iteration": True, "prefill_chunk": 2,
+                                      "page_size": PAGE, **kwargs}), device="cpu")

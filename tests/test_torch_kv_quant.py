@@ -61,7 +61,8 @@ def test_invalid_kv_quant_is_a_typed_error(where):
     _, _, model = tiny_models()
     with pytest.raises(kv_policy.InvalidKVFormatError) as err:
         if where == "engine":
-            Engine(model, EngineConfig(prefill_chunk=2, page_size=PAGE, kv_quant="fp8"),
+            Engine(model, EngineConfig(fused_iteration=True, prefill_chunk=2, page_size=PAGE,
+                                            kv_quant="fp8"),
                    device="cpu")
         else:
             init_decode_cache(model, 2, page_size=PAGE, kv_quant="fp8")
@@ -260,8 +261,9 @@ def test_int8_permuted_table_streams_scales_too():
 
 
 def _port_tokens(model, kv_quant, filter_thres=GREEDY):
-    eng = Engine(model, EngineConfig(max_batch=2, prefill_chunk=2, page_size=PAGE,
-                                     filter_thres=filter_thres, kv_quant=kv_quant),
+    eng = Engine(model, EngineConfig(max_batch=2, fused_iteration=True, prefill_chunk=2,
+                                     page_size=PAGE, filter_thres=filter_thres,
+                                     kv_quant=kv_quant),
                  clock=FakeClock(step_dt=1.0), device="cpu")
     for i, n in enumerate(BUDGETS):
         assert eng.submit(Request(f"r{i}", _prompt(i), n, seed=i)) is None
@@ -304,8 +306,8 @@ def test_kv_bytes_per_slot_equal_jax(monkeypatch):
     jmodel, params, model = tiny_models()
     got = {}
     for quant in ("none", "int8"):
-        eng = Engine(model, EngineConfig(max_batch=2, prefill_chunk=2, page_size=PAGE,
-                                         kv_quant=quant), device="cpu")
+        eng = Engine(model, EngineConfig(max_batch=2, fused_iteration=True, prefill_chunk=2,
+                                         page_size=PAGE, kv_quant=quant), device="cpu")
         got[quant] = eng.kv_bytes_per_slot
         assert got[quant] == _jax_engine(jmodel, params, quant).kv_bytes_per_slot, quant
     # per slot: pages x page x (h*d content + 4-byte scale per head) x 2 x depth

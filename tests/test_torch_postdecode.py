@@ -2,9 +2,11 @@
 rerank) against the JAX package's staged engine on the CPU: the canonical
 tiny DALLE, VAE and CLIP of tools/serve_smoke.py, converted, served greedy
 (top-k keeps one logit, so sampling no longer depends on either
-framework's random bits) by ``Engine(prefill_chunk=2, max_batch=2)`` with
-``stages``. Tokens are identical; images and rerank scores agree to atol
-1e-5; every outcome is COMPLETED.
+framework's random bits) by the fused engine
+(``EngineConfig(fused_iteration=True, prefill_chunk=2, max_batch=2)``)
+with ``stages`` (the split path's: test_torch_split_engine.py). Tokens
+are identical; images and rerank scores agree to atol 1e-5; every
+outcome is COMPLETED.
 
 Port-only, mirroring tests/test_postdecode.py where the port has the
 feature: rerank off completes unscored, backlog and watermark degrade at
@@ -55,6 +57,10 @@ BUDGETS = (4, 4, 4)
 
 @pytest.fixture(scope="module")
 def models():
+    return staged_models()
+
+
+def staged_models():
     """(JAX dalle, params, JAX StageSpec, port DALLE, port VAE, port CLIP)."""
     jdalle, params = build_tiny_model()
     jstages = build_tiny_stages()
@@ -80,6 +86,7 @@ def port_engine(models, config=None, **cfg):
     _, _, _, dalle, vae, clip = models
     spec = StageSpec(vae, clip, **({} if config is None else {"config": config}))
     cfg.setdefault("max_batch", 2)
+    cfg.setdefault("fused_iteration", True)
     cfg.setdefault("prefill_chunk", 2)
     return Engine(dalle, EngineConfig(**cfg), clock=FakeClock(step_dt=0.05),
                   device="cpu", stages=spec)

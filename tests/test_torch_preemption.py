@@ -55,7 +55,7 @@ def _config(**kw):
 
 
 def _port(model, requests, **kw):
-    eng = Engine(model, EngineConfig(page_size=PAGE, **_config(**kw)),
+    eng = Engine(model, EngineConfig(page_size=PAGE, fused_iteration=True, **_config(**kw)),
                  clock=FakeClock(step_dt=1.0), device="cpu")
     for rid, n, prio in requests:
         assert eng.submit(Request(rid, _prompt(int(rid[1:])), n, priority=prio,

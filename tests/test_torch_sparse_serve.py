@@ -50,8 +50,8 @@ def test_sparse_engine_greedy_tokens_identical_to_jax(monkeypatch, kv_quant):
         max_batch=2, fused_iteration=True, prefill_chunk=2, filter_thres=GREEDY,
         kv_quant=kv_quant,
     ), clock=JFakeClock(step_dt=1.0))
-    eng = Engine(model, EngineConfig(max_batch=2, prefill_chunk=2, page_size=PAGE,
-                                     filter_thres=GREEDY, kv_quant=kv_quant),
+    eng = Engine(model, EngineConfig(max_batch=2, fused_iteration=True, prefill_chunk=2,
+                                     page_size=PAGE, filter_thres=GREEDY, kv_quant=kv_quant),
                  clock=FakeClock(step_dt=1.0), device="cpu")
     for i, n in enumerate(BUDGETS):
         assert jeng.submit(JRequest(f"r{i}", _prompt(i), n, seed=i)) is None
