@@ -24,14 +24,16 @@ line):
    block (4 rows of 257 columns, five query tiles, short, late and idle
    rows). The packed-qkv kernel is held at CLIP's text shape (the rerank
    stage's), at DALL-E's causal rotary shape, with and without a pattern
-   mask, and at the training shape (batch 4), and timed in bf16 at
-   CLIP's and DALL-E's shapes and in float32 at the training shape (both
-   instances on the tensor cores; float32's bound at the split-3xTF32
-   rate, its CUDA-core bound beside). The fused decode kernel is held at
-   the flagship's decode shapes (b 1 and 8, 16 heads of 64, L 1281,
-   positions 0 to 1279, rotary and key mask on and off, a masked own
-   key, dim_head 32 and 128; its k/v rows bitwise) and timed at b 1 and
-   8.
+   mask, and at the training shape (batch 4) with the rotary table and
+   without it (learned positions), and timed in bf16 at CLIP's and
+   DALL-E's shapes and in both types at the training shape, with and
+   without the rotary table (both instances on the tensor cores;
+   float32's bound at the split-3xTF32 rate, its CUDA-core bound beside).
+   The fused decode kernel is held at the flagship's decode shapes (b 1
+   and 8, 16 heads of 64, L 1281, positions 0 to 1279, rotary and key
+   mask on and off, a masked own key, dim_head 32 and 128; its k/v rows
+   bitwise) and timed at b 1 and 8, with the rotary tables and without
+   them.
 4. path check: a small float32 DALLE (dense and the four-type sparse
    cycle, each with unquantized and with int8 pages), and a small float32
    CLIP whose text length takes the packed-qkv kernel, each with the same
@@ -54,7 +56,13 @@ line):
    mixed per-row positions against the CPU within
    ``testing.LOGITS_F32_ATOL``; ``prefill_fail`` once (retried, tokens
    unchanged), twice (PREFILL_FAILED, the pool empty) and
-   ``page_exhaust`` (a preemption, the replay bit-identical).
+   ``page_exhaust`` (a preemption, the replay bit-identical). Learned
+   positions on the card (``LEARNED_POS``, train_dalle.py's defaults):
+   the split check's model with learned positions, then with
+   ``stable``: greedy tokens card = CPU on the split path (chunks of 4,
+   monolithic) and the fused path, the ragged kernel launched depth x
+   dispatches times; ``generate_image_tokens`` on "4d" with the decode
+   kernel's no-rotary instance, tokens card = CPU, depth x 15 launches.
 5. engine: the flagship DALLE at full width and depth cut to 6 of 12
    (``SERVE_MODEL``: dim 1024, 16 heads of 64, 256 text + 32x32 image
    tokens, bf16, seeded random weights) served by the
@@ -90,6 +98,16 @@ line):
    of 64 tokens with monolithic prefill (one 257-column prompt block a
    layer each), counted the same way, and a profile of 15 split
    iterations as in phase 7.
+5f. serve learned_pos: phase 5's model with learned positions and no
+   token shift (train_dalle.py's defaults), bf16, served by
+   ``EngineConfig()`` (the split path, monolithic prefill, max_batch 4)
+   with phase 5's VAE and CLIP, 4 requests of 1024 tokens: every outcome
+   COMPLETED with a finite image and score, the ragged kernel depth x
+   dispatches times, CLIP's packed-qkv kernel as in phase 5; tokens/s
+   and launches per dispatch printed.
+5g. generate learned_pos: the same model, batch 1 on the "4d" cache,
+   256 tokens with the decode kernel's no-rotary instance, window 0,
+   the kernel launched depth x 255 times; ms per token printed.
 5c. serve sparse: the sparse configuration (phase 10's layers) at the
    flagship width and phase 5's depth, bf16, int8 pages, 4 requests of
    256 tokens: every outcome COMPLETED, the int8 ragged instance launched
@@ -120,6 +138,11 @@ line):
    peak memory are printed.
 9. train profile: torch.profiler over 3 more steps: device-busy share,
    launches per step, the largest device-time kernels.
+8c. train learned_pos: ``DalleTrainer(vae)`` at the flagship's widths
+   with every other flag train_dalle.py's default (learned positions,
+   no token shift, "full", float32, batch 4) on phase 8's VAE and batch:
+   10 steps as phase 8 (the packed kernels' no-rotary instances depth x
+   (steps + retries) times each), then profiled as phase 9.
 8b. train bf16: the same model, seed and batch trained in mixed
    precision (``DalleTrainer(bf16=True)``: bfloat16 compute on float32
    parameters and Adam moments, checked), as phase 8 (the packed
@@ -178,7 +201,9 @@ block-sparse kernels are timed at the training shape too, beside bf16
 sdpa and their bf16 bounds. Phase 4 also checks a small DALLE's loss and
 every parameter gradient, card against CPU, for the full model, for the
 four-type sparse cycle, at n 1152 (the tiled kernels, dq then dk/dv) and
-at n 384 with 3 heads (one flash block: the single-block backward), with
+at n 384 with 3 heads (one flash block: the single-block backward), and
+with learned positions and with ``stable`` (3 clipped-Adam steps, each
+checked, the card's parameters copied to the CPU after each step), with
 exact launch counts, in float32 and in mixed precision (bf16 compute on
 float32 parameters: the card's loss and gradients within
 ``testing.BF16_GAP_FACTOR`` times the CPU's bf16-to-float32 gap of the
@@ -294,6 +319,8 @@ MAX_BATCH, CHUNK, PAGE = 8, 16, 128
 N_REQUESTS, MAX_NEW = 10, 1024
 # phase 5e's requests: the first of phase 5's
 SPLIT_REQUESTS = 8
+# the learned-position phases: requests served (5f) and tokens generated (5g)
+LEARNED_POS_REQUESTS, LEARNED_POS_TOKENS = 4, 256
 STAGE_BATCH = 8
 # packed-qkv forward vs plain in bfloat16: each row's o error norm over
 # h*d relative to the plain row's (two bf16 roundings of the output are
@@ -522,7 +549,8 @@ def fused_inputs(case: str, dtype, seed: int = 0):
     "dalle_pattern" adds the static axial-row pattern mask and
     "dalle_axial_col" the axial-column one (the mask the sparse
     configuration's axial_col layers give this kernel); "train" is "dalle"
-    at the training batch of 4."""
+    at the training batch of 4, and "train_norot" is "train" without the
+    rotary table (learned positions, train_dalle.py's default)."""
     from dalle_pytorch_tpu_torch.ops import masks
     from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 
@@ -533,11 +561,13 @@ def fused_inputs(case: str, dtype, seed: int = 0):
         opts = dict(key_mask=torch.arange(n, device="cuda")[None] < lengths[:, None],
                     causal=False)
     else:
-        b = TRAIN_BATCH if case == "train" else 2
+        b = TRAIN_BATCH if case.startswith("train") else 2
         n, h, d = 1280, FLAGSHIP["heads"], FLAGSHIP["dim_head"]
         text_len = FLAGSHIP["text_seq_len"] + 1
         table = dalle_rotary_table(d, text_len, FLAGSHIP["image_fmap_size"])
         opts = dict(causal=True, rot=rot_tables(torch.from_numpy(table).cuda(), n, d, dtype))
+        if case == "train_norot":
+            opts["rot"] = None
         if case in ("dalle_pattern", "dalle_axial_col"):
             axis = int(case == "dalle_axial_col")
             pattern = masks.axial_mask(text_len, FLAGSHIP["image_fmap_size"], axis)[:n, :n]
@@ -619,7 +649,7 @@ def check_fused_qkv() -> dict:
     from dalle_pytorch_tpu_torch.testing import F32_ATOL
 
     errs, rel_errs, train_errs = {}, {}, {}
-    for case in ("clip", "dalle", "dalle_pattern", "dalle_axial_col", "train"):
+    for case in ("clip", "dalle", "dalle_pattern", "dalle_axial_col", "train", "train_norot"):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, h, d, opts = fused_inputs(case, dtype)
             o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
@@ -652,14 +682,17 @@ def check_fused_qkv() -> dict:
                 raise AssertionError(f"fused_qkv kernel disagrees with plain: {err}, {rel}")
             errs[dtype] = max(errs.get(dtype, 0.0), err)
             rel_errs[dtype] = max(rel_errs.get(dtype, 0.0), rel)
-            if case == "train":
-                train_errs[dtype] = (err, rel)
+            if case.startswith("train"):
+                train_errs[case, dtype] = (err, rel)
 
     timings = {}
-    # bf16 at the serving shapes; both types at the training shape
+    # bf16 at the serving shapes; both types at the training shape, with
+    # the rotary table and without it (learned positions)
     for key, case, dtype in (("clip", "clip", torch.bfloat16), ("dalle", "dalle", torch.bfloat16),
                              ("train", "train", torch.float32),
-                             ("train_bf16", "train", torch.bfloat16)):
+                             ("train_bf16", "train", torch.bfloat16),
+                             ("train_norot", "train_norot", torch.float32),
+                             ("train_norot_bf16", "train_norot", torch.bfloat16)):
         qkv, h, d, opts = fused_inputs(case, dtype)
         (q, k, v), sdpa_kw = sdpa_args(qkv, h, d, opts)
         timings[key] = dict(
@@ -681,8 +714,12 @@ def check_fused_qkv() -> dict:
         **{f"dalle_{k}": v for k, v in timings["dalle"].items()},
         **{f"train_{k}": v for k, v in timings["train"].items()},
         **{f"train_bf16_{k}": v for k, v in timings["train_bf16"].items()},
-        "train_max_abs_err_f32": train_errs[torch.float32][0],
-        "train_max_rel_err_bf16": train_errs[torch.bfloat16][1],
+        **{f"train_norot_{k}": v for k, v in timings["train_norot"].items()},
+        **{f"train_norot_bf16_{k}": v for k, v in timings["train_norot_bf16"].items()},
+        "train_max_abs_err_f32": train_errs["train", torch.float32][0],
+        "train_max_rel_err_bf16": train_errs["train", torch.bfloat16][1],
+        "train_norot_max_abs_err_f32": train_errs["train_norot", torch.float32][0],
+        "train_norot_max_rel_err_bf16": train_errs["train_norot", torch.bfloat16][1],
     }
 
 
@@ -725,7 +762,8 @@ def check_fused_qkv_bwd() -> dict:
     from dalle_pytorch_tpu_torch.testing import BWD_BF16_ROW_REL, BWD_F32_REL, bwd_errors
 
     worst_rel = worst_row = 0.0
-    for case in ("train", "clip", "dalle_pattern", "dalle_axial_col"):
+    train_abs = {}
+    for case in ("train", "train_norot", "clip", "dalle_pattern", "dalle_axial_col"):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
             g = torch.Generator(device="cuda").manual_seed(2)
@@ -756,14 +794,14 @@ def check_fused_qkv_bwd() -> dict:
                 raise AssertionError(f"fused_qkv_bwd kernel disagrees with plain: {case} {dtype}")
             if dtype == torch.float32:
                 worst_rel = max(worst_rel, rel)
-                if case == "train":
-                    train_abs = abs_err
+                train_abs[case] = abs_err
             else:
                 worst_row = max(worst_row, row_rel)
 
     timings = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        qkv, h, d, opts = fused_inputs("train", dtype, seed=1)
+    for case, dtype in (("train", torch.float32), ("train", torch.bfloat16),
+                        ("train_norot", torch.float32), ("train_norot", torch.bfloat16)):
+        qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
         do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, device="cuda").to(dtype)
         o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
         t = dict(
@@ -774,16 +812,19 @@ def check_fused_qkv_bwd() -> dict:
             library_ms=cuda_time_ms(sdpa_backward(qkv, h, d, opts, do), iters=20),
         )
         t.update(fused_bwd_bound(qkv, h, d, opts))
-        timings[dtype] = t
-        log(f"fused_qkv_bwd train {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
+        timings[case, dtype] = t
+        log(f"fused_qkv_bwd {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, {bound_text(t)}")
     return {
         "name": "fused_qkv_attention_bwd", "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
-        "replaces": FUSED_BWD_TPU_KERNEL, "max_abs_err": train_abs,
+        "replaces": FUSED_BWD_TPU_KERNEL, "max_abs_err": train_abs["train"],
+        "norot_max_abs_err": train_abs["train_norot"],
         "max_rel_err_f32": worst_rel, "max_row_rel_err_bf16": worst_row,
-        **timings[torch.float32],  # the training path's type
-        **{f"bf16_{k}": v for k, v in timings[torch.bfloat16].items()},
+        **timings["train", torch.float32],  # the training path's type
+        **{f"bf16_{k}": v for k, v in timings["train", torch.bfloat16].items()},
+        **{f"norot_{k}": v for k, v in timings["train_norot", torch.float32].items()},
+        **{f"norot_bf16_{k}": v for k, v in timings["train_norot", torch.bfloat16].items()},
     }
 
 
@@ -1295,15 +1336,16 @@ def check_flash_attention() -> list:
     return [rows[name] for name in FLASH_TPU_KERNELS]
 
 
-def decode_bound(b: int, L: int, h: int, d: int, idx: int, dtype, masked: bool = False):
+def decode_bound(b: int, L: int, h: int, d: int, idx: int, dtype, masked: bool = False,
+                 rotary: bool = True):
     """(bound_ms, bound_by) of one fused decode step: bytes = the K and V
-    rows [0, idx) of every head, the qkv row, one cos and one sin row, the
-    key mask's rows [0, idx] when given, and out, k_row and v_row, each
-    once; operations = 2 * 2 * d per (head, live key) of the idx + 1 keys
-    (scores and value products)."""
+    rows [0, idx) of every head, the qkv row, one cos and one sin row (with
+    ``rotary``), the key mask's rows [0, idx] when given, and out, k_row
+    and v_row, each once; operations = 2 * 2 * d per (head, live key) of
+    the idx + 1 keys (scores and value products)."""
     item = torch.tensor([], dtype=dtype).element_size()
     hd = h * d
-    nbytes = (2 * idx * hd + 3 * hd + 3 * hd) * b * item + 2 * d * item
+    nbytes = (2 * idx * hd + 3 * hd + 3 * hd) * b * item + (2 * d * item if rotary else 0)
     nbytes += 4 * b * (idx + 1) if masked else 0
     ops = 4 * b * h * (idx + 1) * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
@@ -1391,24 +1433,30 @@ def check_decode_attention() -> dict:
     for b in (1, 8):
         qkv, kc, vc, cos, sin, _ = decode_inputs(b, L, h, 64, idx, torch.bfloat16, "cuda",
                                                  seed=1)
-        args = (qkv, kc, vc, idx, cos, sin, None)
-        splits = da.decode_splits(b * h, idx)
-        kernel_ms = cuda_time_ms(lambda: da.fused_decode_attention(*args, heads=h))
-        plain_ms = cuda_time_ms(lambda: da.reference_fused_decode(*args, h))
         q = qkv[..., :h * 64].view(b, 1, h, 64).transpose(1, 2)
         kv = [t.view(b, L, h, 64)[:, :idx + 1].transpose(1, 2) for t in (kc, vc)]
-        library_ms = cuda_time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, *kv))
-        bound_ms, bound_by = decode_bound(b, L, h, 64, idx, torch.bfloat16)
-        by_split = {s: cuda_time_ms(lambda: da.fused_decode_attention(*args, heads=h, splits=s))
-                    for s in da.DECODE_SPLITS}
-        log(f"fused_decode_attention bf16 timing, cold L2 (b {b}, 16 x 64, idx {idx}, L {L}, "
-            f"rotary): kernel {kernel_ms:.4f} ms at S {splits}, plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel by S "
-            + ", ".join(f"{s}: {t:.4f}" for s, t in by_split.items()))
-        timing = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by, "splits": splits}
-        row.update(timing if b == 1 else {f"{k}_b8": v for k, v in timing.items()})
+        splits = da.decode_splits(b * h, idx)
+        # with the rotary tables (generate's rotary flagship) and without
+        # them (learned positions: the tables null, nothing rotated)
+        for rot in (True, False):
+            args = (qkv, kc, vc, idx, *((cos, sin) if rot else (None, None)), None)
+            kernel_ms = cuda_time_ms(lambda: da.fused_decode_attention(*args, heads=h))
+            plain_ms = cuda_time_ms(lambda: da.reference_fused_decode(*args, h))
+            library_ms = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, *kv))
+            bound_ms, bound_by = decode_bound(b, L, h, 64, idx, torch.bfloat16, rotary=rot)
+            by_split = {s: cuda_time_ms(
+                lambda: da.fused_decode_attention(*args, heads=h, splits=s))
+                for s in da.DECODE_SPLITS} if rot else {}
+            log(f"fused_decode_attention bf16 timing, cold L2 (b {b}, 16 x 64, idx {idx}, L {L}, "
+                f"{'rotary' if rot else 'no rotary'}): kernel {kernel_ms:.4f} ms at S {splits}, "
+                f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})" + ("; kernel by S " if by_split else "")
+                + ", ".join(f"{s}: {t:.4f}" for s, t in by_split.items()))
+            timing = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "splits": splits}
+            suffix = ("" if b == 1 else "_b8") + ("" if rot else "_norot")
+            row.update({f"{k}{suffix}": v for k, v in timing.items()})
     return row
 
 
@@ -1508,6 +1556,8 @@ def check_preemption_on_card() -> None:
 
 SPLIT_CFG = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50, text_seq_len=8,
                  num_image_tokens=40, image_fmap_size=4)
+# train_dalle.py's default positions: learned, without token shift
+LEARNED_POS = dict(rotary_emb=False, shift_tokens=False)
 
 
 def card_and_cpu(cfg: dict, seed: int):
@@ -1584,6 +1634,67 @@ def check_split_engine_on_card() -> None:
                     raise AssertionError(f"split engine on the card failed: {config}")
     check_split_model_on_card(gpu, cpu)
     check_split_faults_on_card(gpu, prompts)
+
+
+def check_learned_pos_on_card() -> None:
+    """Serving and generating with learned positions on the card:
+    ``SPLIT_CFG`` with ``LEARNED_POS`` (train_dalle.py's defaults), then
+    the same with ``stable``, identical float32 weights on the card
+    (kernels) and the CPU (plain versions), greedy. The split engine with
+    chunks of 4 and with monolithic prefill, and the fused iteration
+    (chunk 4), 4 requests at max_batch 3: every outcome COMPLETED, tokens
+    card = CPU, the ragged kernel launched depth x dispatches times and
+    its int8 instance never. Then ``generate_image_tokens`` of 2 captions
+    on the "4d" cache with the decode kernel (no rotary tables), window
+    0: tokens card = CPU (the CPU's ``fused_decode=True`` runs the
+    kernel's plain version), the decode kernel launched depth x (image
+    positions - 1) times and no other kernel."""
+    from dalle_pytorch_tpu_torch.models.sampling import generate_image_tokens
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    prompts = split_prompts()
+    depth = SPLIT_CFG["depth"]
+    names = tuple(kernel_counters())
+    for label, extra in (("learned positions", {}), ("learned positions, stable",
+                                                     dict(stable=True))):
+        gpu, cpu = card_and_cpu({**SPLIT_CFG, **LEARNED_POS, **extra}, 9)
+        report = []
+        for path, config in (("split chunk 4", dict(prefill_chunk=4)),
+                             ("split monolithic", dict(prefill_chunk=None)),
+                             ("fused chunk 4", dict(fused_iteration=True, prefill_chunk=4))):
+            zero_counts()
+            engine, on_card = serve_small(gpu, prompts, filter_thres=0.99, **config)
+            launched = read_counts(names)
+            _, on_cpu = serve_small(cpu, prompts, filter_thres=0.99, **config)
+            done = all(r.outcome is Outcome.COMPLETED and len(r.tokens) == 16
+                       for run in (on_card, on_cpu) for r in run.values())
+            same = all(np.array_equal(on_card[r].tokens, on_cpu[r].tokens) for r in on_card)
+            want = {n: depth * engine.dispatches if n == "ragged_attention" else 0
+                    for n in names}
+            report.append(f"{path}: COMPLETED {done}, tokens card = CPU {same}, "
+                          f"{engine.dispatches} dispatches, ragged launches "
+                          f"{launched['ragged_attention']} (expected "
+                          f"{want['ragged_attention']})")
+            if not (done and same and launched == want):
+                raise AssertionError(f"{label} on the card, {path}: {report[-1]}; {launched}")
+        text = torch.from_numpy(prompts[:2])
+        tokens = {}
+        for m in (gpu, cpu):
+            zero_counts()
+            tokens[m] = generate_image_tokens(m, text.to(m.device), 0, filter_thres=0.99,
+                                              cache_format="4d", fused_decode=True,
+                                              window_seg=0).cpu()
+            if m is gpu:
+                launched = read_counts(names)
+        want = {n: depth * (gpu.image_seq_len - 1) if n == "fused_decode_attention" else 0
+                for n in names}
+        same = torch.equal(tokens[gpu], tokens[cpu])
+        report.append(f"generate 4d with the decode kernel: tokens card = CPU {same}, decode "
+                      f"launches {launched['fused_decode_attention']} (expected "
+                      f"{want['fused_decode_attention']})")
+        log(f"{label} on the card (SPLIT_CFG, float32, greedy): " + "; ".join(report))
+        if not (same and launched == want):
+            raise AssertionError(f"{label} on the card: {report[-1]}; {launched}")
 
 
 def check_split_model_on_card(gpu, cpu) -> None:
@@ -1955,7 +2066,7 @@ DECODE = ("fused_decode_attention",)
 
 
 def check_train_against_plain(variant: str = "dense", dtype=torch.float32,
-                              seed: int = 7) -> tuple:
+                              seed: int = 7, steps: int = 1) -> tuple:
     """Small DALLE, identical float32 weights on the card (kernels) and
     the CPU (plain versions), each kernel launched exactly as the
     variant's attention path says (every other kernel never). float32:
@@ -1974,11 +2085,19 @@ def check_train_against_plain(variant: str = "dense", dtype=torch.float32,
     32 x 32 grid (n 1152, 3 x 3 flash blocks of 384): the tiled forward,
     dq and dk/dv once per layer. "one_block": 3 heads, text 128 + a 16 x
     16 grid (n 384, one flash block the packed kernel refuses): the tiled
-    forward and the single-block backward once per layer. The weights
-    come from ``seed``, the tokens from ``seed + 1``. Returns the card
-    run's launches and (loss error, worst gradient error) as checked."""
+    forward and the single-block backward once per layer. "learned_pos":
+    "dense" with learned positions (``rotary_emb=False``, no token shift:
+    train_dalle.py's defaults), each packed kernel's no-rotary instance
+    once per layer; "stable": the same with ``stable``. The weights come
+    from ``seed``, the tokens from ``seed + 1``. With ``steps`` > 1 the
+    card's model then takes a clipped-Adam step (``make_train_step``, lr
+    3e-4), its parameters are copied to the CPU's models, and the check
+    repeats, ``steps`` checks in all. Returns the card run's launches (of
+    one check) and the worst (loss error, gradient error) checked."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.parallel.step import create_train_state, make_train_step
     from dalle_pytorch_tpu_torch.testing import BF16_GAP_FACTOR, gap_ratio
+    from dalle_pytorch_tpu_torch.train_dalle import dalle_loss
 
     cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_text_tokens=50,
                text_seq_len=64, num_image_tokens=40, image_fmap_size=8)
@@ -1992,6 +2111,8 @@ def check_train_against_plain(variant: str = "dense", dtype=torch.float32,
     elif variant == "one_block":
         cfg.update(heads=3, text_seq_len=128, image_fmap_size=16)
         per_layer = {"flash_attention_fwd": 1, "flash_attention_bwd_fused": 1}
+    elif variant in ("learned_pos", "stable"):
+        cfg.update(LEARNED_POS, stable=variant == "stable")
     mixed = dict(dtype=dtype, param_dtype=torch.float32)
     gpu = DALLE(**cfg, device="cuda", **mixed).init_weights(
         torch.Generator(device="cuda").manual_seed(seed))
@@ -2005,41 +2126,52 @@ def check_train_against_plain(variant: str = "dense", dtype=torch.float32,
     text = rng.randint(1, 50, size=(2, cfg["text_seq_len"]))
     text[0, 40:], text[1, 9:] = 0, 0
     image = rng.randint(0, 40, size=(2, cfg["image_fmap_size"] ** 2))
-    losses, grads = [], []
     names = tuple(kernel_counters())
-    for m in models:
-        zero_counts()
-        t, i = (torch.from_numpy(a).to(m.device) for a in (text, image))
-        loss = m(t, i, return_loss=True)
-        loss.backward()
-        losses.append(loss.item())
-        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
-        if m is gpu:
-            launched = read_counts(names)
     expected = {n: int(per_layer.get(n, 0) * cfg["depth"]) for n in names}
-    if dtype == torch.float32:
-        loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
-        worst = max((grads[0][k] - g).abs().max().item() / g.abs().max().item()
-                    for k, g in grads[1].items())
-        ok = loss_err <= 1e-5 and worst <= 1e-4
-        what = (f"relative {loss_err:.3e}; worst gradient error {worst:.3e} of its largest "
-                f"entry")
-    else:
-        loss_err = gap_ratio(*losses)
-        worst, worst_name = max((gap_ratio(grads[0][k], g, grads[2][k]), k)
-                                for k, g in grads[1].items())
-        ok = loss_err <= BF16_GAP_FACTOR and worst <= BF16_GAP_FACTOR
-        what = (f"{loss_err:.3f} of the CPU's bf16-to-float32 gap (CPU bf16 "
-                f"{losses[1]:.6f}, float32 {losses[2]:.6f}, card {losses[0]:.6f}); worst "
-                f"gradient {worst:.3f} of its gap ({worst_name}; tolerance "
-                f"{BF16_GAP_FACTOR} of the gap)")
-    log(f"path check: card (kernels) vs CPU (plain) DALLE training loss ({variant}, {dtype}, "
-        f"n {gpu.total_seq_len}, {cfg['heads']} heads), {what}; launches "
-        f"{ {n: c for n, c in launched.items() if c or expected[n]} }")
-    if not (ok and launched == expected):
-        raise AssertionError(f"training path disagrees ({variant}, {dtype}): {loss_err}, "
-                             f"{worst}, {launched}, expected {expected}")
-    return {name: n for name, n in launched.items() if n}, (loss_err, worst)
+    batch = {"text": torch.from_numpy(text).cuda(), "image": torch.from_numpy(image).cuda()}
+    state, step_fn = create_train_state(gpu), make_train_step(dalle_loss, 0.5)
+    worst_loss = worst_grad = 0.0
+    for step in range(steps):
+        losses, grads = [], []
+        for m in models:
+            m.zero_grad(set_to_none=True)
+            zero_counts()
+            t, i = (torch.from_numpy(a).to(m.device) for a in (text, image))
+            loss = m(t, i, return_loss=True)
+            loss.backward()
+            losses.append(loss.item())
+            grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+            if m is gpu:
+                launched = read_counts(names)
+        if dtype == torch.float32:
+            loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+            worst = max((grads[0][k] - g).abs().max().item() / g.abs().max().item()
+                        for k, g in grads[1].items())
+            ok = loss_err <= 1e-5 and worst <= 1e-4
+            what = (f"relative {loss_err:.3e}; worst gradient error {worst:.3e} of its largest "
+                    f"entry")
+        else:
+            loss_err = gap_ratio(*losses)
+            worst, worst_name = max((gap_ratio(grads[0][k], g, grads[2][k]), k)
+                                    for k, g in grads[1].items())
+            ok = loss_err <= BF16_GAP_FACTOR and worst <= BF16_GAP_FACTOR
+            what = (f"{loss_err:.3f} of the CPU's bf16-to-float32 gap (CPU bf16 "
+                    f"{losses[1]:.6f}, float32 {losses[2]:.6f}, card {losses[0]:.6f}); worst "
+                    f"gradient {worst:.3f} of its gap ({worst_name}; tolerance "
+                    f"{BF16_GAP_FACTOR} of the gap)")
+        at = f", step {step}" if steps > 1 else ""
+        log(f"path check: card (kernels) vs CPU (plain) DALLE training loss ({variant}, "
+            f"{dtype}, n {gpu.total_seq_len}, {cfg['heads']} heads{at}), {what}; launches "
+            f"{ {n: c for n, c in launched.items() if c or expected[n]} }")
+        if not (ok and launched == expected):
+            raise AssertionError(f"training path disagrees ({variant}, {dtype}{at}): "
+                                 f"{loss_err}, {worst}, {launched}, expected {expected}")
+        worst_loss, worst_grad = max(worst_loss, loss_err), max(worst_grad, worst)
+        if step + 1 < steps:
+            state, _ = step_fn(state, gpu, batch, 3e-4)
+            for m in models[1:]:
+                m.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    return {name: n for name, n in launched.items() if n}, (worst_loss, worst_grad)
 
 
 # --------------------------------------------------------------- engine
@@ -2297,6 +2429,101 @@ def serve_split(model, stages, fused_results) -> tuple:
         raise AssertionError(f"serve split monolithic: {done} {mono.prefill_dispatches} "
                              f"{mono_launches}")
     return launches, mono_launches
+
+
+def learned_pos_model():
+    """``SERVE_MODEL`` with train_dalle.py's default positions
+    (``LEARNED_POS``), bf16, seeded random weights (the axial grid's
+    tables N(0, 1), as flax draws them)."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+
+    return DALLE(**SERVE_MODEL, **LEARNED_POS, device="cuda", dtype=torch.bfloat16).init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+
+
+def serve_learned_pos(stages) -> tuple:
+    """Phase 5f: ``learned_pos_model()`` served by ``EngineConfig()`` (the
+    split path with monolithic prefill, max_batch 4, the reference's
+    defaults) with phase 5's VAE and CLIP stages, ``LEARNED_POS_REQUESTS``
+    requests of 1024 tokens: every outcome COMPLETED with 1024 tokens in
+    range, a finite image and a finite score; the ragged kernel launched
+    depth x dispatches (prompt blocks and decode steps) times, its int8
+    instance never, the packed-qkv kernel CLIP's text depth x rerank
+    dispatches times. Prints wall, tokens/s and launches per dispatch.
+    Returns (the model, the launches)."""
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    depth = SERVE_MODEL["depth"]
+    model = learned_pos_model()
+    engine = Engine(model, EngineConfig(), device="cuda",
+                    stages=StageSpec(stages.vae, stages.clip, config=StageConfig(
+                        batch=STAGE_BATCH, queue_limit=LEARNED_POS_REQUESTS)))
+    for request in serve_requests(LEARNED_POS_REQUESTS, MAX_NEW):
+        assert engine.submit(request) is None
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts((*RAGGED, "fused_qkv_attention"))
+    for rid, r in results.items():
+        if r.outcome is not Outcome.COMPLETED or len(r.tokens) != MAX_NEW:
+            raise AssertionError(f"serve learned_pos: request {rid}: {r.outcome} {r.detail!r}")
+        if not ((r.tokens >= 0) & (r.tokens < FLAGSHIP["num_image_tokens"])).all():
+            raise AssertionError(f"serve learned_pos: request {rid}: token out of the image vocab")
+        if r.image is None or r.image.shape != (256, 256, 3) or not np.isfinite(r.image).all():
+            raise AssertionError(f"serve learned_pos: request {rid}: no finite (256, 256, 3) "
+                                 "image")
+        if r.rerank_score is None or not np.isfinite(r.rerank_score):
+            raise AssertionError(f"serve learned_pos: request {rid}: rerank score "
+                                 f"{r.rerank_score}")
+    rerank_dispatches = engine.postdecode.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
+    expected = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
+                "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
+    log(f"serve learned_pos: {LEARNED_POS_REQUESTS} requests of {MAX_NEW} tokens, "
+        f"EngineConfig() (split, monolithic prefill, max_batch {engine.config.max_batch}; VAE "
+        f"and CLIP stages), {engine.iterations} iterations, {engine.dispatches} dispatches "
+        f"({engine.prefill_dispatches} prompt blocks of {model.text_len_internal} columns, "
+        f"{engine.dispatches - engine.prefill_dispatches} decode steps), {wall:.2f} s wall, "
+        f"{LEARNED_POS_REQUESTS * MAX_NEW / wall:.1f} generated tokens/s; launches {launches} "
+        f"(expected {expected}), ragged launches per dispatch "
+        f"{launches['ragged_attention'] / engine.dispatches:.1f}; rerank scores "
+        + ", ".join(f"{results[r].rerank_score:.4f}" for r in sorted(results)))
+    if launches != expected:
+        raise AssertionError(f"serve learned_pos: kernel launches {launches}, expected "
+                             f"{expected}")
+    return model, launches
+
+
+def generate_learned_pos(model) -> dict:
+    """Phase 5g: ``learned_pos_model()`` generating outside the engine,
+    batch 1 on the "4d" cache with the decode kernel (no rotary tables),
+    window 0: the prompt's prefill, then ``LEARNED_POS_TOKENS`` - 1 decode
+    steps (``decode_tokens(num_steps=...)``): ``LEARNED_POS_TOKENS`` image
+    tokens in range, the decode kernel launched depth x (tokens - 1)
+    times and no other kernel; ms per token printed. Returns the
+    launches."""
+    from dalle_pytorch_tpu_torch.models.sampling import decode_tokens
+
+    T = model.text_len_internal
+    caption = torch.from_numpy(np.random.RandomState(13).randint(
+        1, FLAGSHIP["num_text_tokens"], size=(1, FLAGSHIP["text_seq_len"]))).cuda()
+    buf = torch.zeros((1, T + model.image_seq_len), dtype=torch.int32, device="cuda")
+    buf[:, :T] = model.remap_text(caption)
+    steps = LEARNED_POS_TOKENS - 1
+    out, launches = generate_counted(
+        f"generate learned_pos, batch 1, cache 4d, decode kernel without rotary, window 0, "
+        f"{LEARNED_POS_TOKENS} tokens",
+        lambda: decode_tokens(model, buf, T, 0, num_steps=T + steps, prefill_len=T,
+                              cache_format="4d", fused_decode=True, window_seg=0),
+        {"fused_decode_attention": SERVE_MODEL["depth"] * steps}, LEARNED_POS_TOKENS)
+    tokens = out[:, T:T + LEARNED_POS_TOKENS]
+    if not ((tokens >= 0) & (tokens < FLAGSHIP["num_image_tokens"])).all():
+        raise AssertionError("generate learned_pos: a token out of the image vocab")
+    return launches
 
 
 def log_device_profile(averages, label: str, what: str, unit: str, count: int,
@@ -2630,6 +2857,33 @@ def train_flagship():
     return trainer, (text, images), launches
 
 
+def train_defaults(vae, batch):
+    """Phase 8c: the flagship's widths (dim 1024, depth 12, 16 heads of
+    64, text 256) with every other flag train_dalle.py's default: learned
+    positions (``rotary_emb=False``), no token shift, "full" layers,
+    float32, batch 4, lr 3e-4, clip 0.5; ``DalleTrainer(vae)`` on phase
+    8's VAE and batch, the counted run as phase 8 (the packed kernels'
+    no-rotary instances depth x (steps + retries) times each). Returns
+    (trainer, launches)."""
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+
+    trainer = DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda",
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"])
+    dalle = trainer.dalle
+    if dalle.rotary_emb or dalle.stable or dalle.transformer.shift_tokens or (
+            dalle.dtype != torch.float32):
+        raise AssertionError("train learned_pos: the trainer's defaults did not build a float32 "
+                             "DALLE with learned positions and no token shift")
+    log(f"train learned_pos: DalleTrainer(vae) with train_dalle.py's defaults at the flagship's "
+        f"widths ({sum(p.numel() for p in dalle.parameters()):,} parameters, learned positions, "
+        f"no token shift, float32, batch {trainer.batch_size})")
+    launches = train_run(trainer, *batch, "train learned_pos",
+                         {name: FLAGSHIP["depth"] for name in PACKED})
+    return trainer, launches
+
+
 def check_nan_guard(trainer, text, tokens, label: str) -> None:
     """One step of ``trainer``'s state with the NaN injected: every
     parameter and Adam moment bit-identical, skipped 1; the trainer keeps
@@ -2870,6 +3124,7 @@ def main() -> int:
         check_path_against_plain(kv_quant, attn_types)
     check_preemption_on_card()
     check_split_engine_on_card()
+    check_learned_pos_on_card()
     check_clip_against_plain()
     check_decode_against_plain()
     for variant in ("dense", "sparse", "tiled"):
@@ -2878,6 +3133,9 @@ def main() -> int:
     # the one-block path: the only one that runs the single-block backward
     one_block_launches = check_train_against_plain("one_block")[0]
     one_block_bf16_launches = check_train_against_plain("one_block", torch.bfloat16)[0]
+    for variant in ("learned_pos", "stable"):  # the packed kernels' no-rotary instances
+        for dtype in (torch.float32, torch.bfloat16):
+            check_train_against_plain(variant, dtype, steps=3)
     results, serve_launches, model, engine = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
@@ -2887,9 +3145,11 @@ def main() -> int:
         profile_iterations(model, kv_quant=kv_quant)
     split_launches, split_mono_launches = serve_split(model, engine.postdecode.spec, results)
     profile_iterations(model, split=True)
+    learned_model, learned_serve_launches = serve_learned_pos(engine.postdecode.spec)
+    learned_generate_launches = generate_learned_pos(learned_model)
     # the staged engine and its pipeline refer to each other: only the
     # cyclic collector frees their pools before the next phase's peak
-    del model, results, engine
+    del model, results, engine, learned_model
     release_memory()
     sparse_serve_launches = serve_sparse_int8()
     release_memory()
@@ -2898,6 +3158,10 @@ def main() -> int:
     trainer, batch, train_launches = train_flagship()
     profile_train(trainer, batch)
     vae = trainer.vae
+    del trainer
+    release_memory()
+    trainer, learned_train_launches = train_defaults(vae, batch)
+    profile_train(trainer, batch, label="train learned_pos profile")
     del trainer
     release_memory()
     trainer, bf16_launches = train_bf16(vae, batch)
@@ -2925,7 +3189,10 @@ def main() -> int:
              ("train_bf16", bf16_launches), ("train_sparse", sparse_launches),
              ("train_sparse_bf16", sparse_bf16_launches), ("train_512", launches_512),
              ("train_512_bf16", launches_512_bf16), ("train_one_block", one_block_launches),
-             ("train_one_block_bf16", one_block_bf16_launches), *generate_launches.items())
+             ("train_one_block_bf16", one_block_bf16_launches),
+             ("train_learned_pos", learned_train_launches),
+             ("serve_learned_pos", learned_serve_launches),
+             ("generate_learned_pos", learned_generate_launches), *generate_launches.items())
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())

@@ -39,11 +39,17 @@ def _norm(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 
 
 def dalle_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for ``DALLE`` from the JAX ``DALLE``'s params."""
+    """State dict for ``DALLE`` from the JAX ``DALLE``'s params; a model
+    with learned positions (``rotary_emb=False``) brings its text table
+    and the image grid's ``row_emb`` / ``col_emb`` as they are."""
     out: Dict[str, torch.Tensor] = {
         "text_emb.weight": _t(params["text_emb"]["embedding"]),
         "image_emb.weight": _t(params["image_emb"]["embedding"]),
     }
+    if "text_pos_emb" in params:
+        out["text_pos_emb.weight"] = _t(params["text_pos_emb"]["embedding"])
+        for name in ("row_emb", "col_emb"):
+            out[f"image_pos_emb.{name}"] = _t(params["image_pos_emb"][name])
     _norm(params["final_norm"], "final_norm", out)
     _dense(params["to_logits"], "to_logits", out)
     _transformer(params["transformer"], "transformer", out)

@@ -3,7 +3,14 @@
 
 The vocabulary is [text | per-position text pads | image]: ``remap_text``
 gives each padding-0 text position its own id and prepends <bos> = 0.
-Two forms, both rotary and causal:
+Positions are rotary (``rotary_emb=True``, in every attention layer) or
+learned (``rotary_emb=False``, train_dalle.py's default): a table of the
+text positions (<bos> included) and the image grid's axial embedding,
+added to the token embeddings in the parameters' dtype before the cast
+to the compute dtype. ``stable`` divides the transformer's output by its
+per-position max before the final norm; its attention is the plain one
+(``ops.attention.Attention``: on float32 scores JAX's stable softmax is
+bitwise the plain softmax). Two forms, both causal:
 
 - ``forward`` (training): the whole [<bos>, text, image] sequence minus
   its trailing token through the transformer, whose layers cycle
@@ -31,7 +38,8 @@ import torch
 from torch import nn
 
 from ..ops.attention import PagedKV
-from ..ops.layers import LayerNorm32, Linear, seeded_init_
+from ..ops.layers import (AxialPositionalEmbedding, LayerNorm32, Linear, divide_max,
+                          seeded_init_)
 from .transformer import Transformer
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -76,10 +84,8 @@ class DALLE(nn.Module):
                  serve_quant: bool = False, device="cuda",
                  dtype=torch.float32, param_dtype=None):
         super().__init__()
-        for name, value in (("stable", stable), ("serve_quant", serve_quant),
-                            ("rotary_emb=False", not rotary_emb)):
-            if value:
-                raise NotImplementedError(f"DALLE({name}) is not ported")
+        if serve_quant:
+            raise NotImplementedError("DALLE(serve_quant) is not ported")
         self.dim, self.depth = dim, depth
         self.heads, self.dim_head = heads, dim_head
         self.num_text_tokens = num_text_tokens
@@ -87,6 +93,7 @@ class DALLE(nn.Module):
         self.num_image_tokens = num_image_tokens
         self.image_fmap_size = image_fmap_size
         self.loss_img_weight = loss_img_weight
+        self.stable, self.rotary_emb = stable, rotary_emb
         self.device, self.dtype = torch.device(device), dtype
         self.param_dtype = param_dtype or dtype
 
@@ -94,6 +101,12 @@ class DALLE(nn.Module):
                                      device=device, dtype=self.param_dtype)
         self.image_emb = nn.Embedding(num_image_tokens, dim, device=device,
                                       dtype=self.param_dtype)
+        if not rotary_emb:
+            self.text_pos_emb = nn.Embedding(self.text_len_internal, dim, device=device,
+                                             dtype=self.param_dtype)
+            self.image_pos_emb = AxialPositionalEmbedding(
+                dim, (image_fmap_size, image_fmap_size), device=device,
+                param_dtype=self.param_dtype)
         self.transformer = Transformer(
             dim=dim, depth=depth, seq_len=self.total_seq_len, heads=heads,
             dim_head=dim_head, attn_types=attn_types,
@@ -146,11 +159,25 @@ class DALLE(nn.Module):
         text = torch.where(text == 0, text_range, text)
         return nn.functional.pad(text, (1, 0))
 
+    def _pos_emb(self, pos) -> torch.Tensor:
+        """Learned positions at internal positions ``pos``, in the
+        parameters' dtype: a Python int gives one row (dim,), an int
+        tensor (..., dim). One gather from the text table followed by the
+        image grid (text positions come first), at ``pos`` clipped to it
+        as JAX clips each table's index."""
+        table = torch.cat((self.text_pos_emb.weight, self.image_pos_emb.grid()))
+        last = table.shape[0] - 1
+        return table[pos.clamp(0, last) if torch.is_tensor(pos) else min(max(pos, 0), last)]
+
+    def _final_norm(self, out: torch.Tensor) -> torch.Tensor:
+        """The final norm (float32), after ``divide_max`` with ``stable``."""
+        return self.final_norm(divide_max(out) if self.stable else out)
+
     def _head_image(self, out: torch.Tensor) -> torch.Tensor:
         """Image-vocab-only head: the ``[ext:]`` rows of ``to_logits`` on
         the final-normed hidden states; float32 logits."""
         ext, dt = self.num_text_tokens_ext, self.dtype
-        normed = self.final_norm(out).to(dt)
+        normed = self._final_norm(out).to(dt)
         logits = nn.functional.linear(
             normed, self.to_logits.weight[ext:].to(dt), self.to_logits.bias[ext:].to(dt)
         )
@@ -159,7 +186,7 @@ class DALLE(nn.Module):
     def _head(self, out: torch.Tensor) -> torch.Tensor:
         """The full-vocab head on the final-normed hidden states; float32
         logits."""
-        return self.to_logits(self.final_norm(out).to(self.dtype)).float()
+        return self.to_logits(self._final_norm(out).to(self.dtype)).float()
 
     def logits_mask_row(self, pos: int) -> torch.Tensor:
         """``logits_mask``'s row at position ``pos`` (clipped to the last
@@ -210,13 +237,18 @@ class DALLE(nn.Module):
                              f"{self.text_seq_len}")
         text = self.remap_text(text)
         tokens = self.text_emb(text)
+        if not self.rotary_emb:
+            tokens = tokens + self.text_pos_emb.weight[None]
         if image is not None and image.shape[1] > 0:
-            tokens = torch.cat((tokens, self.image_emb(image)), dim=1)
+            image_tokens = self.image_emb(image)
+            if not self.rotary_emb:
+                image_tokens = image_tokens + self.image_pos_emb(image.shape[1])
+            tokens = torch.cat((tokens, image_tokens), dim=1)
         tokens = tokens[:, :self.total_seq_len]  # the last token predicts nothing
         n = tokens.shape[1]
         out = self.transformer(tokens.to(self.dtype),
                                mask=self._full_key_mask(mask, n))
-        normed = self.final_norm(out)
+        normed = self._final_norm(out)
         if not return_loss:
             logits = self.to_logits(normed.to(self.dtype)).float()
             return logits.masked_fill(self.logits_mask(n), NEG_INF)
@@ -274,6 +306,8 @@ class DALLE(nn.Module):
             self.text_emb(tokens.clamp(0, self.num_text_tokens_ext - 1)),
             self.image_emb(tokens.clamp(0, self.num_image_tokens - 1)),
         )
+        if not self.rotary_emb:
+            emb = emb + self._pos_emb(pos)
         out = self.transformer(emb.to(self.dtype), cache, block_len=length,
                                block_start=start)
         last = (length.long() - 1).clamp(0, n - 1)
@@ -340,7 +374,10 @@ class DALLE(nn.Module):
         if not 0 <= start < end <= self.text_len_internal:
             raise ValueError(f"prefill chunks cover text positions only, got "
                              f"[{start}, {end}) of {self.text_len_internal}")
-        out = self._decode_block(self.text_emb(tokens), start, cache, mask)
+        emb = self.text_emb(tokens)
+        if not self.rotary_emb:
+            emb = emb + self.text_pos_emb.weight[start:end]
+        out = self._decode_block(emb, start, cache, mask)
         if image_only:
             if end != self.text_len_internal:
                 raise ValueError("an image_only chunk must end the prompt: position "
@@ -379,6 +416,8 @@ class DALLE(nn.Module):
             emb = torch.where(is_text, text_emb(), image_emb())
         else:
             emb = text_emb() if pos < self.text_len_internal else image_emb()
+        if not self.rotary_emb:
+            emb = emb + self._pos_emb(pos)
         out = self._decode_block(emb[:, None], pos, cache, mask, fused_decode)
         if image_only:
             return self._head_image(out)[:, 0]

@@ -8,16 +8,19 @@ same around the GEGLU feed-forward; layer i's attention has the type
 sequential execution:
 
 - the DALL-E decode form (``image_fmap_size`` set, the DALL-E rotary
-  table, every layer by its type): one block over a decode cache, either
-  ragged over the paged format (``PagedKV`` layers) or the whole batch at
-  one position over the dense "flat" / "4d" format (``DenseKV`` layers,
+  table or none with learned positions, every layer by its type): one
+  block over a decode cache, either ragged over the paged format
+  (``PagedKV`` layers) or the whole batch at one position over the
+  dense "flat" / "4d" format (``DenseKV`` layers,
   where ``fused_decode`` chooses the causal "full" layers' route:
   ``Attention.uses_decode_kernel``, the fused decode kernel by default
   on the card, the unfused chain by default on the CPU);
 - the full-sequence form (``forward(x, mask=...)`` with no cache), every
   attention type but gMLP: the DALL-E training forward (causal, rotary,
   token shift over the whole sequence) and CLIP's encoders
-  (``image_fmap_size=None``, no rotary, non-causal, "full").
+  (``image_fmap_size=None``, no rotary, non-causal, "full"). Without
+  rotary (``rotary_emb=False``) the DALLE adds learned positions to its
+  embeddings and the layers rotate nothing.
 
 Reversible and remat execution, pipeline and sequence parallelism, MoE,
 gMLP ("mlp" layers) and the 1-D rotary table (rotary without an image

@@ -267,7 +267,10 @@ class Attention(nn.Module):
     attends over the whole sequence (the module docstring's dispatch).
     The projections compute in ``dtype`` on parameters stored in
     ``param_dtype`` (``layers.Linear``), so q, k and v reach the kernels
-    in ``dtype``; the route does not depend on either."""
+    in ``dtype``; the route does not depend on either. A ``stable`` DALLE
+    needs nothing here: every einsum path scores in float32, where JAX's
+    stable softmax is bitwise the plain one (scaling by 2**10 is exact),
+    and the kernels take no ``stable``, as JAX's do not."""
 
     def __init__(self, dim: int, seq_len: int, heads: int = 8,
                  dim_head: int = 64, attn_type: str = "full",

@@ -2,12 +2,14 @@
 
 The linear layer with a compute dtype apart from its parameters' (flax's
 ``nn.Dense`` with ``dtype`` and ``param_dtype``), LayerScale, PreNorm,
-the GEGLU feed-forward, and the token-shift wrapper in both forms: over
-a whole sequence and the decode ring. Numerics follow the reference:
-LayerNorm runs in float32 with eps 1e-6 (flax's default, not torch's
-1e-5) on float32 parameters whatever the compute dtype; LayerScale casts
-its float32 scale to x's dtype; the GEGLU gate is the tanh-approximated
-gelu (flax ``nn.gelu``), in the compute dtype.
+the GEGLU feed-forward, the token-shift wrapper in both forms (over a
+whole sequence and the decode ring), the axial positional embedding of
+the image grid, and the ``stable`` model's ``divide_max``.
+Numerics follow the reference: LayerNorm runs in float32 with eps 1e-6
+(flax's default, not torch's 1e-5) on float32 parameters whatever the
+compute dtype; LayerScale casts its float32 scale to x's dtype; the
+GEGLU gate is the tanh-approximated gelu (flax ``nn.gelu``), in the
+compute dtype.
 """
 
 from __future__ import annotations
@@ -22,17 +24,27 @@ from torch import nn
 LN_EPS = 1e-6
 
 
+def divide_max(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """x divided by its max along ``dim`` (the ``stable`` model's
+    transformer output, before the final norm)."""
+    return x / x.amax(dim=dim, keepdim=True)
+
+
 @torch.no_grad()
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights for a model built without a checkpoint:
-    every linear and embedding weight N(0, 0.02), biases 0; LayerNorm,
-    LayerScale and other parameters keep their init. ``generator`` lives
-    on the model's device."""
+    every linear and embedding weight N(0, 0.02), biases 0; the axial
+    positional embedding's two tables N(0, 1), as flax draws them;
+    LayerNorm, LayerScale and other parameters keep their init.
+    ``generator`` lives on the model's device."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
             nn.init.normal_(m.weight, std=0.02, generator=generator)
             if getattr(m, "bias", None) is not None:
                 nn.init.zeros_(m.bias)
+        elif isinstance(m, AxialPositionalEmbedding):
+            for p in (m.row_emb, m.col_emb):
+                nn.init.normal_(p, std=1.0, generator=generator)
 
 
 def layer_scale_init(depth: int) -> float:
@@ -101,6 +113,27 @@ class PreNorm(nn.Module):
 
     def forward(self, x, **kwargs):
         return self.fn(self.norm(x).to(x.dtype), **kwargs)
+
+
+class AxialPositionalEmbedding(nn.Module):
+    """Learned positions of the image grid, factorized: ``row_emb``
+    (rows, 1, dim) and ``col_emb`` (1, cols, dim) in ``param_dtype``,
+    whose broadcast sum covers the grid row-major."""
+
+    def __init__(self, dim: int, shape, device=None, param_dtype=torch.float32):
+        super().__init__()
+        rows, cols = shape
+        kw = dict(device=device, dtype=param_dtype)
+        self.row_emb = nn.Parameter(torch.randn(rows, 1, dim, **kw))
+        self.col_emb = nn.Parameter(torch.randn(1, cols, dim, **kw))
+
+    def grid(self) -> torch.Tensor:
+        """Every grid position's embedding, (rows * cols, dim)."""
+        return (self.row_emb + self.col_emb).reshape(-1, self.row_emb.shape[-1])
+
+    def forward(self, n: int) -> torch.Tensor:
+        """The first n positions' embeddings, (1, n, dim)."""
+        return self.grid()[None, :n]
 
 
 class FeedForward(nn.Module):

@@ -13,8 +13,8 @@ The flags keep ``train_dalle.py``'s names and defaults. The ported ones
 are in ``FLAGS``; passing any other flag of ``train_dalle.py`` raises
 ``NotImplementedError``: data loading, the tokenizer, checkpoints and
 resume, the pretrained VAEs, telemetry, profiling, dropout, gradient
-accumulation, reversible and remat execution, stable softmax, MoE and
-the mesh are not ported, and neither is the command line. ``attn_types``
+accumulation, reversible and remat execution, MoE and the mesh are not
+ported, and neither is the command line. ``attn_types``
 takes every type but "mlp" (gMLP), which raises ``NotImplementedError``.
 
 ``bf16`` (``--bf16``, ``--fp16`` and ``--amp`` in ``train_dalle.py``)
@@ -38,7 +38,7 @@ from .utils.schedules import ConstantLR, ReduceLROnPlateau
 # train_dalle.py's flags that the trainer takes, with their defaults
 MODEL_FLAGS = dict(dim=512, depth=2, heads=8, dim_head=64, text_seq_len=256,
                    loss_img_weight=7, shift_tokens=False, rotary_emb=False,
-                   attn_types="full")
+                   stable_softmax=False, attn_types="full")
 FLAGS = dict(MODEL_FLAGS, batch_size=4, learning_rate=3e-4, clip_grad_norm=0.5,
              lr_decay=False, nan_abort_after=5, seed=42, bf16=False)
 # train_dalle.py's other flags (argparse dests)
@@ -46,8 +46,8 @@ NOT_PORTED = (
     "vae_path", "dalle_path", "image_text_folder", "wds", "truncate_captions",
     "resize_ratio", "chinese", "hug", "bpe_path", "taming", "vqgan_model_path",
     "vqgan_config_path", "openai_enc_path", "openai_dec_path",
-    "dalle_output_file_name", "wandb", "wandb_name", "wandb_entity",
-    "stable_softmax", "fsdp", "tp", "sp", "pp", "pp_microbatches", "ep",
+    "dalle_output_file_name", "wandb", "wandb_name", "wandb_entity", "fsdp",
+    "tp", "sp", "pp", "pp_microbatches", "ep",
     "moe_experts", "moe_every", "moe_aux_weight", "moe_capacity_factor",
     "epochs", "save_every_n_steps", "sample_every_n_steps",
     "keep_n_checkpoints", "ga_steps", "sharded_ckpt", "auto_resume",
@@ -101,7 +101,8 @@ class DalleTrainer:
                 attn_types=attn_types,
                 loss_img_weight=args["loss_img_weight"],
                 shift_tokens=args["shift_tokens"],
-                rotary_emb=args["rotary_emb"], device=device,
+                rotary_emb=args["rotary_emb"], stable=args["stable_softmax"],
+                device=device,
                 dtype=compute_dtype, param_dtype=torch.float32,
             ).init_weights(torch.Generator(device=device).manual_seed(args["seed"]))
         elif set(flags) & set(MODEL_FLAGS):

@@ -130,7 +130,9 @@ def test_split_logits_near_fused_logits(models):
     """Why the tokens above agree without bitwise logits: a prompt's first
     image logits and the next decode step's, through the split path's
     shapes (batch-1 chunk 2-2-3, then a 2-row vector decode step) and
-    the fused path's (2 x 2 ragged blocks), within 1e-5."""
+    the fused path's (2 x 2 ragged blocks), within 1e-5.
+    test_torch_split_bits.py shows where the two part and why they cannot
+    be bitwise equal on torch's CPU GEMM."""
     model = models[2]
     prompts = torch.from_numpy(np.stack([model.remap_text(torch.from_numpy(_prompt(i))[None])[0]
                                          .numpy() for i in range(2)]))
