@@ -63,7 +63,7 @@ line):
    monolithic) and the fused path, the ragged kernel launched depth x
    dispatches times; ``generate_image_tokens`` on "4d" with the decode
    kernel's no-rotary instance, tokens card = CPU, depth x 15 launches.
-5. engine: the flagship DALLE at full width and depth cut to 6 of 12
+5. engine: the flagship DALLE at full width and depth cut to 4 of 12
    (``SERVE_MODEL``: dim 1024, 16 heads of 64, 256 text + 32x32 image
    tokens, bf16, seeded random weights) served by the
    fused engine (max_batch 8, prefill chunk 16) with post-decode stages:
@@ -167,7 +167,34 @@ line):
    phase's ms a launch times its launches a step (a gap over 25% is
    flagged in the log, not failed). Then the same model and batch in
    mixed precision (train 512 bf16: the tiled kernels' bf16 instances,
-   the same counts, the same profile).
+   the same counts, the same profile). Between the two, train 512 plain:
+   the float32 model of the same seed takes the same 10 steps on the same
+   batch with the tiled flash kernels' plain versions in their place (no
+   kernel launched, checked); both loss sequences are printed side by
+   side with the first step where they part by more than phase 4's
+   float32 loss tolerance (relative 1e-5), if any; the plain run's wall
+   is printed and kept out of every timing.
+12. train CLI: the trainer's command line (``train_dalle.main``, called
+   in this process on a temporary directory under ``build/``, removed at
+   the end) at the flagship widths with train_dalle.py's other defaults
+   (batch 4, learned positions, "full", float32): 16 seeded 256 px PNGs
+   with one caption each (``testing.write_caption_folder``), phase 8's
+   VAE saved by ``models.factory.save_vae_checkpoint``; ``--epochs 1
+   --sharded_ckpt --keep_n_checkpoints 1 --sample_every_n_steps 3
+   --truncate_captions``: four steps, a sample at step 3, the pre-flight
+   ``.ckpt``, then the epoch's ``.ckpt`` and step directory. Then the
+   same command with ``--epochs 2`` (and no sample): it resumes from the
+   verified step directory and takes four more steps. Every loss finite;
+   the packed kernels' no-rotary instances depth x dispatches times each
+   and the sample's decode kernel depth x 1023 times, counted exactly; one
+   finite sample PNG; the step directory verifies; the relaunch prints
+   ``resuming from ... step 4`` and its Adam count goes on from 4 to 8;
+   one ``.ckpt`` and one step directory on disk after the rotation. The
+   CLI's step as users run it (the wall between consecutive loss
+   verdicts of one epoch, no sample between them, nothing synchronised
+   beyond what the CLI does) and tokens/s beside phase 8c's
+   ``train_step``, the loader's seconds a batch, each save's bytes and
+   seconds, the phase's wall.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -277,6 +304,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -303,10 +331,11 @@ FLAGSHIP = dict(dim=1024, depth=12, heads=16, dim_head=64,
                 num_text_tokens=10000, text_seq_len=256,
                 num_image_tokens=8192, image_fmap_size=32)
 # the serve and generate phases' model: the flagship at full width, depth
-# cut to 6 of its 12 layers; those phases are bound by the host's
-# launches, which scale with depth, and at 12 they took ~470 s of the
-# script's 1,200 s limit on a slow host (PERF.md, section 6)
-SERVE_MODEL = dict(FLAGSHIP, depth=6)
+# cut to 4 of its 12 layers (the sparse cycle's four types once each);
+# those phases are bound by the host's launches, which scale with depth:
+# at 12 they took ~470 s of the script's 1,200 s limit on a slow host,
+# and at 6 ~410 s once the train CLI phase was added (PERF.md, section 6)
+SERVE_MODEL = dict(FLAGSHIP, depth=4)
 FLAGSHIP_VAE = dict(image_size=256, num_tokens=8192, codebook_dim=512,
                     num_layers=3, num_resnet_blocks=2, hidden_dim=256)
 # train_clip.py's defaults; the SimpleTokenizer vocabulary
@@ -356,6 +385,12 @@ TEACHER_FORCED_STEPS = 256
 # (one fully masked row: its output must be exactly 0, its lse -1e30)
 CLIP_TEXT_LENGTHS = (256, 200, 131, 64, 17, 1, 0, 240)
 
+
+# train_run's (losses, median step wall s, training tokens/s) by label
+TRAIN_RECORDS = {}
+# phase 12's command line: the flagship widths, train_dalle.py's other defaults
+CLI_DIR = ROOT / "build" / "train_cli"
+CLI_IMAGES, CLI_IMAGE_SIZE = 16, 256
 
 _T0 = time.perf_counter()
 
@@ -2809,6 +2844,7 @@ def train_run(trainer, text, images, label: str, expected: dict) -> dict:
     launches = {name: n for name, n in counts.items() if n or name in want}
     steady = float(np.median(walls[1:]))
     tokens_per_step = TRAIN_BATCH * trainer.dalle.total_seq_len
+    TRAIN_RECORDS[label] = (losses, steady, tokens_per_step / steady)
     log(f"{label}: {trainer.steps} steps, {trainer.retries} retries, losses "
         + ", ".join(f"{x:.4f}" for x in losses))
     log(f"{label}: step wall first {walls[0]:.3f} s, median of the rest {steady:.4f} s "
@@ -3020,6 +3056,236 @@ def train_512_bf16(vae, batch):
     return trainer, launches
 
 
+def train_512_plain(vae, batch) -> None:
+    """Phase 11's float32 model (the same seed and flags) trained for the
+    same ``TRAIN_STEPS`` steps on the same batch with the tiled flash
+    kernels' plain versions in their place (``reference_flash_attention``
+    and its dq and dk/dv passes, on the card): no kernel launched
+    (checked). Prints both loss sequences side by side and the first step
+    where they part by more than phase 4's float32 loss tolerance
+    (relative 1e-5), or that they agree; the plain run's wall is printed
+    and enters no timing."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+
+    plain = {"flash_attention_fwd": fa.reference_flash_attention,
+             "flash_attention_dq": fa.reference_flash_attention_dq,
+             "flash_attention_dkdv": fa.reference_flash_attention_dkdv,
+             "flash_attention_bwd_fused": fa.reference_flash_attention_bwd}
+    saved = {name: getattr(fa, name) for name in plain}
+    trainer = DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0,
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
+        shift_tokens=True, rotary_emb=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    try:
+        for name, fn in plain.items():
+            setattr(fa, name, fn)
+        for _ in range(TRAIN_STEPS):
+            losses.append(trainer.train_step(*batch))
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+    wall = time.perf_counter() - t0
+    launched = {n: c for n, c in read_counts(tuple(kernel_counters())).items() if c}
+    kernel_losses = TRAIN_RECORDS["train 512"][0]
+    gaps = [abs(k - p) / abs(p) for k, p in zip(kernel_losses, losses)]
+    log(f"train 512 plain: {trainer.steps} steps, {trainer.retries} retries on the plain "
+        f"tiled attention in {wall:.1f} s (kept out of every timing), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launched}")
+    log("train 512 losses, step: kernels / plain (relative gap): " + "; ".join(
+        f"{i + 1}: {k:.6f} / {p:.6f} ({g:.2e})"
+        for i, (k, p, g) in enumerate(zip(kernel_losses, losses, gaps))))
+    parted = next((i for i, g in enumerate(gaps) if g > 1e-5), None)
+    log("train 512 plain: " + (
+        f"the sequences agree within 1e-5 through step {len(gaps)}" if parted is None else
+        f"the sequences part at step {parted + 1} by {gaps[parted]:.3e} (tolerance 1e-5)"))
+    if launched:
+        raise AssertionError(f"train 512 plain: kernels launched {launched}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train 512 plain: losses {losses}")
+
+
+def train_cli(vae):
+    """Phase 12: the trainer's command line (``train_dalle.main``) in this
+    process at the flagship widths on ``vae`` (phase 8's), with
+    train_dalle.py's other defaults, on ``CLI_IMAGES`` seeded 256 px PNGs
+    under ``CLI_DIR`` (removed at the end): ``--epochs 1`` (four steps, a
+    sample at step 3, three saves), then ``--epochs 2`` without a sample,
+    which resumes from the verified step directory for four more steps.
+    The step is timed as the CLI runs it, with no synchronisation added:
+    the wall between consecutive loss verdicts of one run (each run is
+    one epoch) with no sample between them; each such wall holds the
+    batch's copy, the VAE encode, the dispatch and the device's step,
+    with the next batch's loading overlapped. Returns the launches of
+    both runs."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from dalle_pytorch_tpu_torch import train_dalle
+    from dalle_pytorch_tpu_torch.data import loader as data_loader
+    from dalle_pytorch_tpu_torch.data.image_io import read_png
+    from dalle_pytorch_tpu_torch.models.factory import restore_opt_state, save_vae_checkpoint
+    from dalle_pytorch_tpu_torch.testing import write_caption_folder
+    from dalle_pytorch_tpu_torch.utils.checkpoint import latest_verified_step, verify_step_dir
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(CLI_DIR).free
+    write_caption_folder(CLI_DIR / "data", CLI_IMAGES, CLI_IMAGE_SIZE, seed=21)
+    save_vae_checkpoint(CLI_DIR / "vae.ckpt", vae)
+    depth = FLAGSHIP["depth"]
+    argv = ["--image_text_folder", str(CLI_DIR / "data"), "--vae_path",
+            str(CLI_DIR / "vae.ckpt"), "--dim", str(FLAGSHIP["dim"]), "--depth", str(depth),
+            "--heads", str(FLAGSHIP["heads"]), "--dim_head", str(FLAGSHIP["dim_head"]),
+            "--sharded_ckpt", "--keep_n_checkpoints", "1", "--truncate_captions",
+            "--dalle_output_file_name", str(CLI_DIR / "dalle")]
+    log(f"train CLI: {CLI_IMAGES} PNGs of {CLI_IMAGE_SIZE} px and the VAE written under "
+        f"{CLI_DIR} ({free / 2**30:.0f} GiB free)")
+
+    from dalle_pytorch_tpu_torch.models import sampling
+
+    losses, counts, item_s, sample_finite = [], [], [], []
+    events = []  # ("verdict" or "sample", run, perf_counter) in order
+    generate = sampling.generate_images
+    verdict = train_dalle.DalleTrainer.verdict
+    getitem = data_loader.TextImageDataset.__getitem__
+
+    def recorded_verdict(self, loss):
+        losses.append(verdict(self, loss))  # reads the loss: the CLI's own sync
+        events.append(("verdict", run_no[0], time.perf_counter()))
+        counts.append(int(self.state.opt_state.count))
+        return losses[-1]
+
+    def checked_generate(*a, **kw):
+        images = generate(*a, **kw)
+        sample_finite.append(bool(torch.isfinite(images).all()))
+        events.append(("sample", run_no[0], time.perf_counter()))
+        return images
+
+    def timed_getitem(self, ind):
+        t0 = time.perf_counter()
+        out = getitem(self, ind)
+        item_s.append(time.perf_counter() - t0)
+        return out
+
+    class Tee(io.StringIO):
+        """Keeps what the command line prints and logs each line as it
+        comes (its config line left out)."""
+
+        def __init__(self, label):
+            super().__init__()
+            self.label, self.line, self.real = label, "", sys.stdout
+
+        def write(self, text):
+            self.line += text
+            *done, self.line = self.line.split("\n")
+            with contextlib.redirect_stdout(self.real):
+                for line in done:
+                    if not line.startswith("config:"):
+                        log(f"{self.label} | {line}")
+            return super().write(text)
+
+    run_no = [0]
+
+    def run(extra, label):
+        run_no[0] += 1
+        out = Tee(label)
+        names = tuple(kernel_counters())
+        cwd = os.getcwd()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(CLI_DIR)  # dalle_samples/ lands here
+            with contextlib.redirect_stdout(out):
+                train_dalle.main([*argv, *extra])
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        return out.getvalue(), {n: c for n, c in read_counts(names).items() if c}, wall
+
+    train_dalle.DalleTrainer.verdict = recorded_verdict
+    data_loader.TextImageDataset.__getitem__ = timed_getitem
+    sampling.generate_images = checked_generate
+    try:
+        text1, launched1, wall1 = run(["--epochs", "1", "--sample_every_n_steps", "3"],
+                                      "train CLI run 1")
+        n1, counts1 = len(losses), list(counts)
+        text2, launched2, wall2 = run(["--epochs", "2", "--sample_every_n_steps", "1000"],
+                                      "train CLI run 2")
+    finally:
+        train_dalle.DalleTrainer.verdict = verdict
+        data_loader.TextImageDataset.__getitem__ = getitem
+        sampling.generate_images = generate
+    n2 = len(losses) - n1
+    # the walls between consecutive verdicts of one run with no sample between
+    walls = [b[2] - a[2] for a, b in zip(events, events[1:])
+             if a[0] == b[0] == "verdict" and a[1] == b[1]]
+    steps = vae.fmap_size**2 - 1  # the sample's decode steps: the image tokens after the first
+    want1 = {"fused_qkv_attention": depth * n1, "fused_qkv_attention_bwd": depth * n1,
+             "fused_decode_attention": depth * steps}
+    want2 = {"fused_qkv_attention": depth * n2, "fused_qkv_attention_bwd": depth * n2}
+    samples = sorted((CLI_DIR / "dalle_samples").glob("*.png"))
+    pixels = read_png(samples[0].read_bytes()).pixels if samples else None
+    cp = CLI_DIR / "dalle-cp"
+    step_dirs = sorted(p.name for p in cp.glob("step_*"))
+    verified = latest_verified_step(cp)
+    adam = restore_opt_state(CLI_DIR / "dalle.ckpt", device="cpu")
+    ckpt_bytes = (CLI_DIR / "dalle.ckpt").stat().st_size
+    on_disk = sorted(p.name for p in CLI_DIR.iterdir())
+    tokens_per_step = TRAIN_BATCH * (FLAGSHIP["text_seq_len"] + vae.fmap_size**2)
+    steady = float(np.median(walls)) if walls else float("nan")
+    ref = TRAIN_RECORDS.get("train learned_pos")
+    log(f"train CLI: run 1 {n1} dispatches, run 2 {n2}; losses {[round(x, 4) for x in losses]}; "
+        f"Adam counts {counts}; walls between verdicts {[round(w, 4) for w in walls]} s")
+    log(f"train CLI: step as the CLI runs it (wall between verdicts, median of {len(walls)}) "
+        f"{steady:.4f} s, {tokens_per_step / steady:.1f} training tokens/s" + (
+            f" (phase 8c, DalleTrainer(vae).train_step, encode, dispatch and verdict in "
+            f"turn: {ref[1]:.4f} s, {ref[2]:.1f} tokens/s)" if ref else ""))
+    log(f"train CLI: loader {sum(item_s) / max(1, len(item_s)) * TRAIN_BATCH:.4f} s a batch "
+        f"({len(item_s)} samples read, PNG decode, crop and resize in numpy)")
+    log(f"train CLI: run 1 {wall1:.1f} s, run 2 {wall2:.1f} s; launches run 1 {launched1} "
+        f"(expected {want1}), run 2 {launched2} (expected {want2})")
+    log(f"train CLI: sample {[p.name for p in samples]} {None if pixels is None else pixels.shape}, "
+        f"finite {sample_finite}; "
+        f"step directories {step_dirs}, newest verified {verified} "
+        f"({verify_step_dir(cp / f'step_{verified:08d}') if verified is not None else None}); "
+        f"final .ckpt {ckpt_bytes:,} bytes, Adam count {int(adam.count)}; on disk {on_disk}")
+    problems = []
+    if not all(math.isfinite(x) for x in losses) or (n1, n2) != (4, 4) or len(walls) != 5:
+        problems.append(f"losses {losses} over {n1} + {n2} dispatches")
+    if launched1 != want1 or launched2 != want2:
+        problems.append(f"launches {launched1} / {launched2}, expected {want1} / {want2}")
+    if (len(samples) != 1 or pixels.shape != (CLI_IMAGE_SIZE, CLI_IMAGE_SIZE, 3)
+            or sample_finite != [True]):
+        problems.append(f"samples {samples}, finite {sample_finite}")
+    if f"resuming from {cp} step 4" not in text2:
+        problems.append("the relaunch did not resume from step 4")
+    if counts1 != [1, 2, 3, 4] or counts[n1:] != [5, 6, 7, 8] or int(adam.count) != 8:
+        problems.append(f"Adam counts {counts}, final {int(adam.count)}")
+    if step_dirs != ["step_00000008"] or verified != 8 or verify_step_dir(
+            cp / "step_00000008") != (True, "ok"):
+        problems.append(f"step directories {step_dirs}, verified {verified}")
+    if on_disk != ["dalle-cp", "dalle.ckpt", "dalle.ckpt.manifest.json", "dalle_samples",
+                   "data", "vae.ckpt", "vae.ckpt.manifest.json"]:
+        problems.append(f"files on disk {on_disk}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    log(f"train CLI: phase wall {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise AssertionError("train CLI: " + "; ".join(problems))
+    return {n: launched1.get(n, 0) + launched2.get(n, 0) for n in {*launched1, *launched2}}
+
+
 # the tiled flash kernels of the 512 px training shape by device function:
 # (the kernel phase's row, its key of the ms a launch)
 # {kernel function: (kernel phase row, key of its time)} of the kernels
@@ -3164,6 +3430,8 @@ def main() -> int:
     profile_train(trainer, batch, label="train learned_pos profile")
     del trainer
     release_memory()
+    cli_launches = train_cli(vae)
+    release_memory()
     trainer, bf16_launches = train_bf16(vae, batch)
     profile_train(trainer, batch, label="train bf16 profile")
     del trainer
@@ -3181,6 +3449,8 @@ def main() -> int:
     vae = trainer.vae
     del trainer
     release_memory()
+    train_512_plain(vae, batch)
+    release_memory()
     trainer, launches_512_bf16 = train_512_bf16(vae, batch)
     profile_train(trainer, batch, label="train 512 bf16 profile", kernel_rows=kernels)
     paths = (("serve", serve_launches), ("serve_int8", int8_launches),
@@ -3190,7 +3460,7 @@ def main() -> int:
              ("train_sparse_bf16", sparse_bf16_launches), ("train_512", launches_512),
              ("train_512_bf16", launches_512_bf16), ("train_one_block", one_block_launches),
              ("train_one_block_bf16", one_block_bf16_launches),
-             ("train_learned_pos", learned_train_launches),
+             ("train_learned_pos", learned_train_launches), ("train_cli", cli_launches),
              ("serve_learned_pos", learned_serve_launches),
              ("generate_learned_pos", learned_generate_launches), *generate_launches.items())
     for k in kernels:
@@ -3907,7 +4177,7 @@ def compare_generate(pairs: int = 3) -> None:
 
 def compare_serve(pairs: int = 2, window: int = 64) -> None:
     """The split engine against the fused one at steady decode: the serve
-    phases' flagship (bf16, depth 6), 8 of their requests of 1024 tokens
+    phases' flagship (bf16, ``SERVE_MODEL``), 8 of their requests of 1024 tokens
     at max_batch 8 and chunks of 16 through a fresh engine of each path,
     stepped until every slot decodes, then ``window`` decode-only
     iterations timed by the host clock, in ``pairs`` pairs alternating

@@ -1,9 +1,15 @@
-"""flax parameter trees -> the port's state dicts.
+"""flax parameter trees <-> the port's state dicts.
 
 Input is a nested dict of numpy arrays (the JAX package's ``params``
-collection after ``jax.device_get``); output is a ``state_dict`` for
-``models.dalle.DALLE``, ``models.vae.DiscreteVAE`` or ``models.clip.CLIP``.
-Rules:
+collection after ``jax.device_get``, or a checkpoint's tree of tensors);
+output is a ``state_dict`` for ``models.dalle.DALLE``,
+``models.vae.DiscreteVAE`` or ``models.clip.CLIP``. ``dalle_params`` and
+``vae_params`` go the other way, to the tree the JAX module's ``init``
+gives (float32 numpy arrays), and ``optax_adam_state`` / ``adam_from_optax``
+carry the train step's ``AdamState`` to and from optax's
+``chain(clip_by_global_norm, scale_by_adam)`` state as flax serializes it,
+``{"0": {}, "1": {"count", "mu", "nu"}}``. A flax -> torch -> flax round
+trip is bitwise. Rules:
 
 - Dense kernels are (in, out); ``nn.Linear.weight`` is (out, in).
 - The attention ``to_qkv`` columns are ``[q | k | v]``, each (h, d)-major,
@@ -126,3 +132,125 @@ def vae_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             i += 1
         _conv(params[f"{kind}_out"], f"{kind}_out", out)
     return out
+
+
+# ------------------------------------------------- torch -> flax (inverse)
+
+
+def _a(t, perm=None, flip=()) -> np.ndarray:
+    """A float32 C-order copy of ``t`` with its axes permuted by ``perm``
+    and ``flip`` reversed; a tensor is laid out on its own device first,
+    so a card's tensor crosses to the host once, in its final layout."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().float()
+        if perm is not None:
+            t = t.permute(*perm)
+        if flip:
+            t = t.flip(flip)
+        return t.contiguous().to("cpu", copy=True).numpy()
+    a = np.asarray(t, dtype=np.float32)
+    if perm is not None:
+        a = a.transpose(perm)
+    if flip:
+        a = np.flip(a, flip)
+    return np.array(a, order="C")
+
+
+def _dense_inv(sd: Mapping, prefix: str) -> dict:
+    out = {"kernel": _a(sd[f"{prefix}.weight"], (1, 0))}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _a(sd[f"{prefix}.bias"])
+    return out
+
+
+def _norm_inv(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _a(sd[f"{prefix}.weight"]), "bias": _a(sd[f"{prefix}.bias"])}
+
+
+def dalle_params(sd: Mapping) -> dict:
+    """The JAX ``DALLE``'s params from the port's state dict (the inverse
+    of ``dalle_state_dict``); token shift shows in the parameter names."""
+    out = {
+        "text_emb": {"embedding": _a(sd["text_emb.weight"])},
+        "image_emb": {"embedding": _a(sd["image_emb.weight"])},
+    }
+    if "text_pos_emb.weight" in sd:
+        out["text_pos_emb"] = {"embedding": _a(sd["text_pos_emb.weight"])}
+        out["image_pos_emb"] = {name: _a(sd[f"image_pos_emb.{name}"])
+                                for name in ("row_emb", "col_emb")}
+    out["final_norm"] = _norm_inv(sd, "final_norm")
+    out["to_logits"] = _dense_inv(sd, "to_logits")
+    out["transformer"] = _transformer_inv(sd, "transformer")
+    return out
+
+
+def _transformer_inv(sd: Mapping, prefix: str) -> dict:
+    out = {}
+    i = 0
+    while f"{prefix}.attn_blocks.{i}.scale" in sd:
+        for kind, names in (("attn", ("to_qkv", "to_out")), ("ff", ("Dense_0", "Dense_1"))):
+            pre = f"{prefix}.{kind}_blocks.{i}"
+            torch_names = ("to_qkv", "to_out") if kind == "attn" else ("proj_in", "proj_out")
+            shift = f"{pre}.fn.fn.fn.{torch_names[0]}.weight" in sd
+            base = f"{pre}.fn.fn.fn" if shift else f"{pre}.fn.fn"
+            inner = {name: _dense_inv(sd, f"{base}.{tname}")
+                     for name, tname in zip(names, torch_names)}
+            out[f"{kind}_{i}"] = {
+                "fn": {"LayerNorm_0": _norm_inv(sd, f"{pre}.fn.norm"),
+                       "fn": {"fn": inner} if shift else inner},
+                "scale": _a(sd[f"{pre}.scale"]),
+            }
+        i += 1
+    return out
+
+
+def _conv_inv(sd: Mapping, prefix: str) -> dict:
+    return {"kernel": _a(sd[f"{prefix}.weight"], (2, 3, 1, 0)), "bias": _a(sd[f"{prefix}.bias"])}
+
+
+def _conv_transpose_inv(sd: Mapping, prefix: str) -> dict:
+    return {"kernel": _a(sd[f"{prefix}.weight"], (2, 3, 0, 1), flip=(0, 1)),
+            "bias": _a(sd[f"{prefix}.bias"])}
+
+
+def vae_params(sd: Mapping) -> dict:
+    """The JAX ``DiscreteVAE``'s params from the port's state dict (the
+    inverse of ``vae_state_dict``)."""
+    out = {"codebook": {"embedding": _a(sd["codebook.weight"])}}
+    kinds = ("enc", "dec") if "enc_out.weight" in sd else ("dec",)
+    for kind in kinds:
+        if f"{kind}_in.weight" in sd:
+            out[f"{kind}_in"] = _conv_inv(sd, f"{kind}_in")
+        i = 0
+        while f"{kind}_res.{i}.conv0.weight" in sd:
+            out[f"{kind}_res_{i}"] = {f"Conv_{j}": _conv_inv(sd, f"{kind}_res.{i}.conv{j}")
+                                      for j in range(3)}
+            i += 1
+        i = 0
+        convert = _conv_inv if kind == "enc" else _conv_transpose_inv
+        while f"{kind}_convs.{i}.weight" in sd:
+            out[f"{kind}_convs_{i}"] = convert(sd, f"{kind}_convs.{i}")
+            i += 1
+        out[f"{kind}_out"] = _conv_inv(sd, f"{kind}_out")
+    return out
+
+
+def optax_adam_state(adam) -> dict:
+    """optax's ``chain(clip_by_global_norm, scale_by_adam)`` state, as
+    flax serializes it, of a DALLE train step's ``AdamState``."""
+    return {"0": {}, "1": {
+        "count": np.asarray(adam.count.detach().cpu().numpy(), dtype=np.int32),
+        "mu": dalle_params(adam.mu), "nu": dalle_params(adam.nu)}}
+
+
+def adam_from_optax(tree: Mapping, device=None):
+    """The DALLE train step's ``AdamState`` of optax's chain state
+    (``optax_adam_state``'s form): the count a () int32 tensor, the
+    moments float32 tensors keyed by parameter name, on ``device``."""
+    from .parallel.step import AdamState
+
+    adam = tree["1"]
+    count = torch.as_tensor(np.asarray(adam["count"]), dtype=torch.int32).reshape(())
+    return AdamState(count.to(device),
+                     {k: v.to(device) for k, v in dalle_state_dict(adam["mu"]).items()},
+                     {k: v.to(device) for k, v in dalle_state_dict(adam["nu"]).items()})

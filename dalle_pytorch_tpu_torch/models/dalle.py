@@ -94,6 +94,8 @@ class DALLE(nn.Module):
         self.image_fmap_size = image_fmap_size
         self.loss_img_weight = loss_img_weight
         self.stable, self.rotary_emb = stable, rotary_emb
+        self.attn_types = None if attn_types is None else tuple(attn_types)
+        self.shift_tokens, self.sparse_layout_seed = shift_tokens, sparse_layout_seed
         self.device, self.dtype = torch.device(device), dtype
         self.param_dtype = param_dtype or dtype
 

@@ -1,0 +1,212 @@
+"""Models from checkpoints and back (counterpart of
+``dalle_pytorch_tpu/models/factory.py``).
+
+A checkpoint is the plain format of ``utils/checkpoint.py``: its meta
+carries the model class and JAX's constructor fields under JAX's names and
+values (``config``, and for a DALLE also ``vae_class`` / ``vae_config``),
+its state the params as the JAX module's tree (``convert.dalle_params``,
+``convert.vae_params``), the optimizer state as optax's
+(``convert.optax_adam_state``) and the step. Fields the port does not
+model are written at JAX's defaults (``reversible: false``,
+``ff_experts: 0``, ``sp_axis: null``, ...), so JAX's
+``dalle_from_checkpoint`` rebuilds the same module, and this one reads
+JAX's files.
+
+On load, a config value the port does not run raises
+``NotImplementedError``: reversible or remat execution, experts, dropout
+above 0, gMLP ("mlp") layers, ``serve_quant``, a float16 model, a VAE
+class other than ``DiscreteVAE`` (the OpenAI dVAE and the VQGAN are
+ROADMAP.md queue 1 item 6) and a VAE normalization other than the
+default. ``sp_axis`` / ``pp_axis`` are a run's layout, not the model's:
+the port runs on one card and ignores them, as JAX's command line
+re-clones them per run.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..convert import (
+    adam_from_optax,
+    dalle_params,
+    dalle_state_dict,
+    optax_adam_state,
+    vae_params,
+    vae_state_dict,
+)
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from .dalle import DALLE
+from .vae import NORMALIZATION, DiscreteVAE
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+
+# JAX's DALLE fields in declaration order, at their defaults
+DALLE_FIELDS = dict(
+    dim=None, depth=None, num_text_tokens=10000, text_seq_len=256, num_image_tokens=512,
+    image_fmap_size=32, heads=8, dim_head=64, reversible=False, attn_dropout=0.0,
+    ff_dropout=0.0, attn_types=None, loss_img_weight=7.0, stable=False, shift_tokens=True,
+    shift_pad=0, rotary_emb=True, remat=False, sparse_layout_seed=0, use_flash=True,
+    sp_axis=None, pp_axis=None, pp_microbatches=4, ff_experts=0, moe_every=2,
+    moe_capacity_factor=1.25, serve_quant=False, dtype="float32", param_dtype="float32",
+)
+# JAX's DiscreteVAE fields in declaration order, at their defaults
+VAE_FIELDS = dict(
+    image_size=256, num_tokens=512, codebook_dim=512, num_layers=3, num_resnet_blocks=0,
+    hidden_dim=64, channels=3, smooth_l1_loss=False, temperature=0.9, straight_through=False,
+    kl_div_loss_weight=0.0, normalization=[list(t) for t in NORMALIZATION],
+    dtype="float32", param_dtype="float32",
+)
+
+
+def _dtype_name(dtype) -> str:
+    if dtype not in _DTYPE_NAMES:
+        raise NotImplementedError(f"dtype {dtype} is not ported")
+    return _DTYPE_NAMES[dtype]
+
+
+def dalle_config(dalle: DALLE) -> dict:
+    """JAX's constructor fields of the JAX ``DALLE`` equal to ``dalle``."""
+    cfg = dict(DALLE_FIELDS)
+    cfg.update(
+        dim=dalle.dim, depth=dalle.depth, num_text_tokens=dalle.num_text_tokens,
+        text_seq_len=dalle.text_seq_len, num_image_tokens=dalle.num_image_tokens,
+        image_fmap_size=dalle.image_fmap_size, heads=dalle.heads, dim_head=dalle.dim_head,
+        attn_types=None if dalle.attn_types is None else list(dalle.attn_types),
+        loss_img_weight=dalle.loss_img_weight, stable=dalle.stable,
+        shift_tokens=dalle.shift_tokens, rotary_emb=dalle.rotary_emb,
+        sparse_layout_seed=dalle.sparse_layout_seed, dtype=_dtype_name(dalle.dtype),
+        param_dtype=_dtype_name(dalle.param_dtype))
+    return cfg
+
+
+def vae_config(vae: DiscreteVAE) -> dict:
+    """JAX's constructor fields of the JAX ``DiscreteVAE`` equal to ``vae``."""
+    cfg = dict(VAE_FIELDS)
+    dtype = _dtype_name(vae.codebook.weight.dtype)
+    cfg.update(image_size=vae.image_size, num_tokens=vae.num_tokens,
+               codebook_dim=vae.codebook_dim, num_layers=vae.num_layers,
+               num_resnet_blocks=vae.num_resnet_blocks, hidden_dim=vae.hidden_dim,
+               channels=vae.channels, dtype=dtype, param_dtype=dtype)
+    return cfg
+
+
+def _refuse(what: str, value, where: str) -> None:
+    raise NotImplementedError(f"{where}: {what}={value!r} is not ported")
+
+
+def build_dalle(config: dict, device="cuda") -> DALLE:
+    """The port's DALLE of JAX's constructor fields ``config`` (random
+    weights): refuses what the port does not run."""
+    cfg = {**DALLE_FIELDS, **config}
+    for name, off in (("reversible", False), ("remat", False), ("ff_experts", 0),
+                      ("attn_dropout", 0.0), ("ff_dropout", 0.0), ("serve_quant", False)):
+        if cfg[name] != off:
+            _refuse(name, cfg[name], "DALLE checkpoint")
+    types = None if cfg["attn_types"] is None else tuple(cfg["attn_types"])
+    if types is not None and "mlp" in types:
+        _refuse("attn_types", types, "DALLE checkpoint (gMLP)")
+    for name in ("dtype", "param_dtype"):
+        if cfg[name] not in _DTYPES:
+            _refuse(name, cfg[name], "DALLE checkpoint")
+    return DALLE(
+        dim=cfg["dim"], depth=cfg["depth"], num_text_tokens=cfg["num_text_tokens"],
+        text_seq_len=cfg["text_seq_len"], num_image_tokens=cfg["num_image_tokens"],
+        image_fmap_size=cfg["image_fmap_size"], heads=cfg["heads"], dim_head=cfg["dim_head"],
+        attn_types=types, shift_tokens=cfg["shift_tokens"], rotary_emb=cfg["rotary_emb"],
+        loss_img_weight=cfg["loss_img_weight"], stable=cfg["stable"],
+        sparse_layout_seed=cfg["sparse_layout_seed"], device=device,
+        dtype=_DTYPES[cfg["dtype"]], param_dtype=_DTYPES[cfg["param_dtype"]])
+
+
+def build_vae(vae_class: Optional[str], config: dict, device="cuda") -> DiscreteVAE:
+    """The port's DiscreteVAE of JAX's constructor fields ``config``."""
+    if vae_class != "DiscreteVAE":
+        raise NotImplementedError(
+            f"VAE class {vae_class!r} is not ported (only DiscreteVAE; the OpenAI dVAE "
+            "and the VQGAN are ROADMAP.md queue 1 item 6)")
+    cfg = {**VAE_FIELDS, **config}
+    norm = [list(t) for t in cfg["normalization"]] if cfg["normalization"] else None
+    if norm != VAE_FIELDS["normalization"]:
+        _refuse("normalization", cfg["normalization"], "DiscreteVAE checkpoint")
+    if cfg["dtype"] not in _DTYPES or cfg["param_dtype"] != cfg["dtype"]:
+        _refuse("dtype", (cfg["dtype"], cfg["param_dtype"]), "DiscreteVAE checkpoint")
+    return DiscreteVAE(
+        image_size=cfg["image_size"], num_tokens=cfg["num_tokens"],
+        codebook_dim=cfg["codebook_dim"], num_layers=cfg["num_layers"],
+        num_resnet_blocks=cfg["num_resnet_blocks"], hidden_dim=cfg["hidden_dim"],
+        channels=cfg["channels"], device=device, dtype=_DTYPES[cfg["dtype"]])
+
+
+def _load_into(module, sd) -> None:
+    own = module.state_dict()
+    module.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
+
+
+# ------------------------------------------------------------------- VAE
+
+
+def save_vae_checkpoint(path, vae: DiscreteVAE, extra: Optional[dict] = None) -> None:
+    meta = {"model_class": "DiscreteVAE", "config": vae_config(vae), **(extra or {})}
+    save_checkpoint(path, {"params": vae_params(vae.state_dict())}, meta)
+
+
+def vae_from_checkpoint(path, device="cuda") -> Tuple[DiscreteVAE, dict]:
+    """-> (vae with its weights, meta)."""
+    state, meta = load_checkpoint(path)
+    if meta.get("model_class") not in ("DiscreteVAE", "OpenAIDiscreteVAE", "VQGanVAE"):
+        raise ValueError(f"not a VAE checkpoint: {meta.get('model_class')}")
+    vae = build_vae(meta["model_class"], meta["config"], device)
+    _load_into(vae, vae_state_dict(state["params"]))
+    return vae, meta
+
+
+# ------------------------------------------------------------------ DALLE
+
+
+def save_dalle_checkpoint(path, dalle: DALLE, vae: Optional[DiscreteVAE] = None,
+                          extra: Optional[dict] = None, opt_state=None,
+                          step: Optional[int] = None) -> None:
+    """The plain DALLE checkpoint JAX's command line writes: the params,
+    the bundled VAE, the optimizer state (an ``AdamState``) and the step."""
+    meta = {"model_class": "DALLE", "config": dalle_config(dalle), **(extra or {})}
+    state = {"params": dalle_params(dalle.state_dict())}
+    if vae is not None:
+        meta["vae_class"] = "DiscreteVAE"
+        meta["vae_config"] = vae_config(vae)
+        state["vae_params"] = vae_params(vae.state_dict())
+    if opt_state is not None:
+        state["opt_state"] = optax_adam_state(opt_state)
+        meta["has_opt_state"] = True
+    if step is not None:
+        state["step"] = int(step)
+    save_checkpoint(path, state, meta)
+
+
+def dalle_from_checkpoint(path, device="cuda", loaded=None):
+    """-> (dalle, vae, meta) with their weights; vae is None when the
+    checkpoint carries none. ``loaded``: ``load_checkpoint(path)``'s
+    result, when the caller has read the file already."""
+    state, meta = loaded if loaded is not None else load_checkpoint(path)
+    if meta.get("model_class") != "DALLE":
+        raise ValueError(f"not a DALLE checkpoint: {meta.get('model_class')}")
+    dalle = build_dalle(meta["config"], device)
+    _load_into(dalle, dalle_state_dict(state["params"]))
+    vae = None
+    if "vae_config" in meta:
+        vae = build_vae(meta.get("vae_class"), meta["vae_config"], device)
+        if "vae_params" not in state:
+            raise ValueError(f"{path}: the checkpoint names a VAE but carries no weights")
+        _load_into(vae, vae_state_dict(state["vae_params"]))
+    return dalle, vae, meta
+
+
+def restore_opt_state(path, device="cuda", loaded=None):
+    """The ``AdamState`` saved by ``save_dalle_checkpoint`` (or JAX's), None
+    when the checkpoint carries none."""
+    state, meta = loaded if loaded is not None else load_checkpoint(path)
+    if not meta.get("has_opt_state"):
+        return None
+    return adam_from_optax(state["opt_state"], device=device)

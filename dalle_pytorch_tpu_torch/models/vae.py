@@ -70,6 +70,8 @@ class DiscreteVAE(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.image_size, self.num_layers = image_size, num_layers
         self.num_tokens = num_tokens
+        self.num_resnet_blocks, self.hidden_dim = num_resnet_blocks, hidden_dim
+        self.channels = channels
         self.codebook_dim = codebook_dim
         self.codebook = nn.Embedding(num_tokens, codebook_dim, **kw)
         self.enc_convs = nn.ModuleList(

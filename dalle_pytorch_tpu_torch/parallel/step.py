@@ -134,3 +134,35 @@ def make_train_step(loss_fn: Callable[[nn.Module, dict], torch.Tensor],
         return new_state, loss
 
     return train_step
+
+
+def train_state_tree(state: TrainState) -> dict:
+    """The state as a checkpoint tree: the counters, the params and the
+    Adam state keyed by parameter name."""
+    adam = state.opt_state
+    return {"step": state.step, "params": dict(state.params),
+            "opt_state": {"count": adam.count, "mu": dict(adam.mu), "nu": dict(adam.nu)},
+            "skipped": state.skipped, "consec_skipped": state.consec_skipped}
+
+
+@torch.no_grad()
+def load_train_state(state: TrainState, tree: dict) -> TrainState:
+    """``state`` with the values of a ``train_state_tree``: params and
+    moments copied into its own tensors (the model's parameters), the
+    counters new tensors on their device. The names must match."""
+    adam, saved = state.opt_state, tree["opt_state"]
+    for own, new in ((state.params, tree["params"]), (adam.mu, saved["mu"]),
+                     (adam.nu, saved["nu"])):
+        if set(own) != set(new):
+            raise ValueError(f"checkpoint names differ from the model's: "
+                             f"{sorted(set(own) ^ set(new))[:4]}")
+        for name, t in own.items():
+            t.copy_(new[name])
+    dev = state.step.device
+
+    def counter(x):
+        return torch.as_tensor(x, dtype=torch.int32).reshape(()).to(dev)
+
+    return TrainState(counter(tree["step"]), state.params,
+                      AdamState(counter(saved["count"]), adam.mu, adam.nu),
+                      counter(tree["skipped"]), counter(tree["consec_skipped"]))

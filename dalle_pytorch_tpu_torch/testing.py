@@ -1149,3 +1149,29 @@ def decode_errors(got, plain, key_mask=None, idx: int = 0):
 def decode_ok(dtype, err: float, rel: float, rows_equal: bool, dead_zero: bool) -> bool:
     tol_ok = err <= DECODE_F32_ATOL if dtype == torch.float32 else rel <= DECODE_BF16_ROW_REL
     return tol_ok and rows_equal and dead_zero
+
+
+# the trainer command line's folders: seeded square PNGs, one caption each
+CAPTION_WORDS = ("a", "red", "green", "blue", "small", "large", "square", "circle", "on",
+                 "the", "left", "right", "of", "two", "striped", "cat's", "café", "3")
+
+
+def write_caption_folder(root, n: int, size: int, seed: int = 0, prefix: str = "sample"):
+    """``n`` seeded RGB PNGs of ``size`` x ``size`` (the port's PNG
+    writer: no Pillow) under ``root``, each with a same-stem ``.txt`` of
+    one seeded caption; returns the captions."""
+    from pathlib import Path
+
+    from .data.image_io import write_png
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    captions = []
+    for i in range(n):
+        write_png(root / f"{prefix}_{i:03d}.png",
+                  rng.randint(0, 256, size=(size, size, 3)).astype(np.uint8))
+        words = rng.choice(CAPTION_WORDS, size=rng.randint(3, 9))
+        captions.append(" ".join(words))
+        (root / f"{prefix}_{i:03d}.txt").write_text(captions[-1] + "\n", encoding="utf8")
+    return captions

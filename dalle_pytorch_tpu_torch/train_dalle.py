@@ -1,59 +1,118 @@
-"""DALL-E training loop (counterpart of the step loop of the repository's
-``train_dalle.py``).
+"""DALL-E training: the trainer and its command line (counterpart of the
+repository's ``train_dalle.py``).
+
+    python -m dalle_pytorch_tpu_torch.train_dalle \\
+        --image_text_folder DIR --vae_path VAE.ckpt [train_dalle.py's flags]
 
 ``DalleTrainer(vae, dalle, **flags)`` builds the train state, the step
 (``parallel.step.make_train_step`` with the clipped Adam and the NaN
-guard) and the learning-rate controller; ``train_step(text, images)``
-encodes the images to tokens with the VAE under ``no_grad``, takes one
-step, and steps the controller on a finite loss. A step the device
-rejected (non-finite loss or gradients) is retried on the same batch,
-and ``consec_skipped`` reaching ``nan_abort_after`` raises ``NanAbort``.
+guard) and the learning-rate controller. ``dispatch(text, image_tokens)``
+takes one step without reading its loss; ``verdict(loss)`` reads it and
+steps the controller on a finite one; ``train_step(text, images)``
+encodes the images with the VAE, dispatches, and retries a step the
+device rejected (non-finite loss or gradients) on the same batch until
+``consec_skipped`` reaches ``nan_abort_after`` (``NanAbort``).
 
-The flags keep ``train_dalle.py``'s names and defaults. The ported ones
-are in ``FLAGS``; passing any other flag of ``train_dalle.py`` raises
-``NotImplementedError``: data loading, the tokenizer, checkpoints and
-resume, the pretrained VAEs, telemetry, profiling, dropout, gradient
-accumulation, reversible and remat execution, MoE and the mesh are not
-ported, and neither is the command line. ``attn_types``
-takes every type but "mlp" (gMLP), which raises ``NotImplementedError``.
+``main(argv, device="cuda")`` is ``train_dalle.py``'s ``main()`` on one
+card, with its flags (``build_parser()`` is JAX's, action by action): the
+VAE from ``--vae_path`` (a DiscreteVAE checkpoint), or the DALLE, its VAE,
+the epoch, the scheduler state and the Adam moments from ``--dalle_path``;
+the folder dataset (``data.loader``) with the CLIP BPE tokenizer
+(``data.tokenizers``, ``--bpe_path`` a merges file); the pre-flight save;
+a ``.ckpt`` (``models.factory``, the format JAX reads) every epoch and
+every ``--save_every_n_steps``, with a step directory under
+``<name>-cp/`` beside it with ``--sharded_ckpt`` (``--keep_n_checkpoints``
+rotates them); the resume probe, which restores the newest verified step
+directory and skips the batches it had consumed (off with
+``--no_auto_resume``); the NaN retry and, after ``--nan_abort_after``
+consecutive rejections, an emergency step directory and ``SystemExit``;
+SIGTERM / SIGINT (``PreemptionHandler``): the step in flight finishes, an
+emergency step directory is written, exit 0; a sample every
+``--sample_every_n_steps`` through ``models.sampling.generate_images``,
+written as PNG to ``dalle_samples/``; ``torch.profiler`` over three steps
+from ``--profile_step`` into ``--profile_trace_dir`` (a Chrome trace).
+``global_step`` counts dispatches, as JAX's does: a rejected step and its
+retry are two. ``DALLE_TPU_FAULTS`` arms ``nan_at_step`` and
+``ckpt_corrupt`` (``utils.faults``).
 
-``bf16`` (``--bf16``, ``--fp16`` and ``--amp`` in ``train_dalle.py``)
-trains in mixed precision as JAX does: the DALLE computes in bfloat16 on
-float32 parameters (``DALLE(dtype=torch.bfloat16,
-param_dtype=torch.float32)``), the gradients, Adam moments and the step
-stay float32, and there is no loss scaling. The VAE stays as passed.
+The flags in ``NOT_PORTED`` raise ``NotImplementedError`` (with their
+ROADMAP.md queue item) when set to anything but their default, before any
+model or file is built: the HugTokenizer, Chinese and tar (webdataset)
+inputs, the OpenAI dVAE and the VQGAN (also the default that names
+neither ``--vae_path`` nor ``--dalle_path``), Weights & Biases, the mesh
+and MoE flags, gradient accumulation, dropout, reversible and remat
+execution, and telemetry. ``--bpe_path`` to a ``.json`` or ``.model``
+file (the HugTokenizer and YTTM) is refused too.
+
+``bf16`` (``--bf16``, ``--fp16`` and ``--amp``) trains in mixed precision
+as JAX does: the DALLE computes in bfloat16 on float32 parameters, the
+gradients, Adam moments and the step stay float32, and there is no loss
+scaling. A DALLE read from ``--dalle_path`` keeps its checkpoint's type,
+as in JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
+import os
+import sys
+import time
+from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .models.dalle import DALLE
-from .parallel.step import create_train_state, make_train_step
+from .parallel.step import (
+    AdamState,
+    create_train_state,
+    load_train_state,
+    make_train_step,
+    train_state_tree,
+)
 from .utils.schedules import ConstantLR, ReduceLROnPlateau
 
-# train_dalle.py's flags that the trainer takes, with their defaults
+# train_dalle.py's flags that DalleTrainer takes, with their defaults
 MODEL_FLAGS = dict(dim=512, depth=2, heads=8, dim_head=64, text_seq_len=256,
                    loss_img_weight=7, shift_tokens=False, rotary_emb=False,
                    stable_softmax=False, attn_types="full")
-FLAGS = dict(MODEL_FLAGS, batch_size=4, learning_rate=3e-4, clip_grad_norm=0.5,
-             lr_decay=False, nan_abort_after=5, seed=42, bf16=False)
-# train_dalle.py's other flags (argparse dests)
-NOT_PORTED = (
-    "vae_path", "dalle_path", "image_text_folder", "wds", "truncate_captions",
-    "resize_ratio", "chinese", "hug", "bpe_path", "taming", "vqgan_model_path",
-    "vqgan_config_path", "openai_enc_path", "openai_dec_path",
-    "dalle_output_file_name", "wandb", "wandb_name", "wandb_entity", "fsdp",
-    "tp", "sp", "pp", "pp_microbatches", "ep",
-    "moe_experts", "moe_every", "moe_aux_weight", "moe_capacity_factor",
-    "epochs", "save_every_n_steps", "sample_every_n_steps",
-    "keep_n_checkpoints", "ga_steps", "sharded_ckpt", "auto_resume",
-    "profile_trace_dir", "profile_step", "telemetry", "telemetry_dir",
-    "metrics_port", "ff_dropout", "attn_dropout", "reversible", "remat",
-)
+TRAINER_FLAGS = dict(MODEL_FLAGS, batch_size=4, learning_rate=3e-4, clip_grad_norm=0.5,
+                     lr_decay=False, nan_abort_after=5, seed=42, bf16=False)
+# the flags only the command line takes
+CLI_FLAGS = dict(vae_path=None, dalle_path=None, image_text_folder=None,
+                 truncate_captions=False, resize_ratio=0.75, bpe_path=None,
+                 dalle_output_file_name="dalle", epochs=20, save_every_n_steps=1000,
+                 sample_every_n_steps=1000, keep_n_checkpoints=None, sharded_ckpt=False,
+                 auto_resume=True, profile_trace_dir=None, profile_step=200)
+FLAGS = {**TRAINER_FLAGS, **CLI_FLAGS}
+# train_dalle.py's other flags (argparse dests), each with its ROADMAP.md item
+_MESH = "queue 1 item 6 (torch.distributed mesh)"
+_MOE = "queue 1 item 6 (ops/moe.py)"
+_WANDB = "not queued: Weights & Biases needs the network"
+_TELEMETRY = "queue 1 item 5 (utils/telemetry.py)"
+NOT_PORTED = {
+    "wds": "queue 1 item 6 (data/webdata.py)",
+    "chinese": "not queued: ChineseTokenizer downloads its vocabulary",
+    "hug": "queue 1 item 2(b) (HugTokenizer)",
+    "taming": "queue 1 item 6 (models/vqgan.py)",
+    "vqgan_model_path": "queue 1 item 6 (models/vqgan.py)",
+    "vqgan_config_path": "queue 1 item 6 (models/vqgan.py)",
+    "openai_enc_path": "queue 1 item 6 (models/pretrained.py)",
+    "openai_dec_path": "queue 1 item 6 (models/pretrained.py)",
+    "wandb": _WANDB, "wandb_name": _WANDB, "wandb_entity": _WANDB,
+    "fsdp": _MESH, "tp": _MESH, "sp": _MESH, "pp": _MESH, "pp_microbatches": _MESH,
+    "ep": _MESH,
+    "moe_experts": _MOE, "moe_every": _MOE, "moe_aux_weight": _MOE,
+    "moe_capacity_factor": _MOE,
+    "ga_steps": "queue 1 item 2(d) (gradient accumulation)",
+    "ff_dropout": "queue 1 item 2(c) (dropout)",
+    "attn_dropout": "queue 1 item 2(c) (dropout)",
+    "reversible": "queue 1 item 2(e) (reversible execution)",
+    "remat": "queue 1 item 2(e) (remat)",
+    "telemetry": _TELEMETRY, "telemetry_dir": _TELEMETRY, "metrics_port": _TELEMETRY,
+}
 
 
 class NanAbort(RuntimeError):
@@ -81,11 +140,15 @@ class DalleTrainer:
         lacking = sorted(set(flags) & set(NOT_PORTED))
         if lacking:
             raise NotImplementedError(
-                f"train_dalle.py flags {lacking} are not ported")
-        unknown = sorted(set(flags) - set(FLAGS))
+                f"train_dalle.py flags {lacking} are not ported "
+                f"({'; '.join(NOT_PORTED[f] for f in lacking)})")
+        cli = sorted(set(flags) & set(CLI_FLAGS))
+        if cli:
+            raise TypeError(f"{cli} are flags of the command line (main()), not of the trainer")
+        unknown = sorted(set(flags) - set(TRAINER_FLAGS))
         if unknown:
             raise TypeError(f"train_dalle.py has no flags {unknown}")
-        args = {**FLAGS, **flags}
+        args = {**TRAINER_FLAGS, **flags}
         attn_types = tuple(args["attn_types"].split(","))
         compute_dtype = torch.bfloat16 if args["bf16"] else torch.float32
         if "mlp" in attn_types:
@@ -124,6 +187,26 @@ class DalleTrainer:
         self.steps = 0    # applied (finite) steps
         self.retries = 0  # dispatches the device rejected
 
+    def dispatch(self, text: torch.Tensor, image_tokens: torch.Tensor) -> torch.Tensor:
+        """One step on text (b, text_seq_len) raw ids and image token ids
+        (b, image_seq_len): the state moves on and the loss comes back
+        unread, a () tensor that is NaN for a step the device rejected."""
+        self.state, loss = self.step_fn(self.state, self.dalle,
+                                        {"text": text, "image": image_tokens}, self.lr)
+        return loss
+
+    def verdict(self, loss: torch.Tensor) -> float:
+        """Read a dispatched step's loss: a finite one counts the step and
+        steps the learning-rate controller; a rejected one counts a
+        retry. Returns the loss as a float."""
+        loss = float(loss)
+        if math.isfinite(loss):
+            self.steps += 1
+            self.lr = self.sched.step(loss)
+        else:
+            self.retries += 1
+        return loss
+
     def train_step(self, text: torch.Tensor, images: torch.Tensor) -> float:
         """One applied step on the batch: text (b, text_seq_len) raw ids,
         images (b, h, w, c) in [0, 1] on the model's device. Returns the
@@ -131,15 +214,412 @@ class DalleTrainer:
         ``NanAbort`` once ``consec_skipped`` reaches ``nan_abort_after``."""
         if text.shape[0] != self.batch_size:
             raise ValueError(f"batch of {text.shape[0]}, batch_size is {self.batch_size}")
-        batch = {"text": text, "image": self.vae.get_codebook_indices(images)}
+        tokens = self.vae.get_codebook_indices(images)
         while True:
-            self.state, loss = self.step_fn(self.state, self.dalle, batch, self.lr)
-            loss = float(loss)
+            loss = self.verdict(self.dispatch(text, tokens))
             if math.isfinite(loss):
-                self.steps += 1
-                self.lr = self.sched.step(loss)
                 return loss
-            self.retries += 1
             consec = int(self.state.consec_skipped)
             if consec >= self.nan_abort_after:
                 raise NanAbort(f"{consec} consecutive non-finite steps")
+
+
+# ------------------------------------------------------------ command line
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``train_dalle.py``'s parser: the same option strings, dests, types,
+    defaults, nargs, consts and mutually exclusive group."""
+    parser = argparse.ArgumentParser(description="Train DALL-E (PyTorch port, one CUDA card)")
+    group = parser.add_mutually_exclusive_group(required=False)
+    group.add_argument("--vae_path", type=str, help="path to a trained DiscreteVAE checkpoint")
+    group.add_argument("--dalle_path", type=str,
+                       help="path to a partially trained DALL-E to resume")
+    parser.add_argument("--image_text_folder", type=str, required=True,
+                        help="folder of images + same-stem .txt captions")
+    parser.add_argument("--wds", type=str, nargs="?", const="auto", default="",
+                        help="webdataset tar shards (not ported)")
+    parser.add_argument("--truncate_captions", action="store_true")
+    parser.add_argument("--random_resize_crop_lower_ratio", dest="resize_ratio",
+                        type=float, default=0.75)
+    parser.add_argument("--chinese", action="store_true", help="not ported")
+    parser.add_argument("--hug", action="store_true", help="not ported")
+    parser.add_argument("--bpe_path", type=str, default=None,
+                        help="a BPE merges file for the CLIP tokenizer (plain or gzip)")
+    parser.add_argument("--taming", action="store_true", help="not ported")
+    parser.add_argument("--vqgan_model_path", type=str, default=None, help="not ported")
+    parser.add_argument("--vqgan_config_path", type=str, default=None, help="not ported")
+    parser.add_argument("--openai_enc_path", type=str, default=None, help="not ported")
+    parser.add_argument("--openai_dec_path", type=str, default=None, help="not ported")
+    parser.add_argument("--dalle_output_file_name", type=str, default="dalle")
+    parser.add_argument("--fp16", "--bf16", dest="bf16", action="store_true",
+                        help="bfloat16 compute on float32 parameters")
+    parser.add_argument("--amp", dest="bf16", action="store_true")
+    parser.add_argument("--wandb", action="store_true", help="not ported")
+    parser.add_argument("--wandb_name", default="dalle_train_transformer", help="not ported")
+    parser.add_argument("--wandb_entity", default=None, help="not ported")
+    parser.add_argument("--stable_softmax", action="store_true")
+    parser.add_argument("--seed", type=int, default=42)
+
+    mesh_group = parser.add_argument_group("Mesh settings (not ported: one card)")
+    mesh_group.add_argument("--fsdp", type=int, default=1)
+    mesh_group.add_argument("--tp", type=int, default=1)
+    mesh_group.add_argument("--sp", type=int, default=1)
+    mesh_group.add_argument("--pp", type=int, default=1)
+    mesh_group.add_argument("--pp_microbatches", type=int, default=4)
+    mesh_group.add_argument("--ep", type=int, default=1)
+
+    moe_group = parser.add_argument_group("Mixture-of-experts settings (not ported)")
+    moe_group.add_argument("--moe_experts", type=int, default=0)
+    moe_group.add_argument("--moe_every", type=int, default=2)
+    moe_group.add_argument("--moe_aux_weight", type=float, default=1e-2)
+    moe_group.add_argument("--moe_capacity_factor", type=float, default=1.25)
+
+    train_group = parser.add_argument_group("Training settings")
+    train_group.add_argument("--epochs", default=20, type=int)
+    train_group.add_argument("--save_every_n_steps", default=1000, type=int)
+    train_group.add_argument("--sample_every_n_steps", default=1000, type=int)
+    train_group.add_argument("--keep_n_checkpoints", default=None, type=int)
+    train_group.add_argument("--batch_size", default=4, type=int)
+    train_group.add_argument("--ga_steps", default=1, type=int, help="not ported")
+    train_group.add_argument("--learning_rate", default=3e-4, type=float)
+    train_group.add_argument("--clip_grad_norm", default=0.5, type=float)
+    train_group.add_argument("--lr_decay", action="store_true")
+    train_group.add_argument("--sharded_ckpt", action="store_true",
+                             help="also write verified step directories under <name>-cp/")
+    train_group.add_argument("--no_auto_resume", dest="auto_resume", action="store_false",
+                             help="don't resume from a verified <name>-cp step directory")
+    train_group.add_argument("--nan_abort_after", default=5, type=int,
+                             help="abort after this many consecutive non-finite steps")
+    train_group.add_argument("--profile_trace_dir", default=None, type=str,
+                             help="write a torch.profiler Chrome trace of 3 steps here")
+    train_group.add_argument("--profile_step", default=200, type=int,
+                             help="global step at which the trace starts")
+    train_group.add_argument("--telemetry", action="store_true", help="not ported")
+    train_group.add_argument("--telemetry_dir", default=None, type=str, help="not ported")
+    train_group.add_argument("--metrics_port", default=None, type=int, help="not ported")
+
+    model_group = parser.add_argument_group("Model settings")
+    model_group.add_argument("--dim", default=512, type=int)
+    model_group.add_argument("--text_seq_len", default=256, type=int)
+    model_group.add_argument("--depth", default=2, type=int)
+    model_group.add_argument("--heads", default=8, type=int)
+    model_group.add_argument("--dim_head", default=64, type=int)
+    model_group.add_argument("--ff_dropout", default=0.0, type=float, help="not ported")
+    model_group.add_argument("--attn_dropout", default=0.0, type=float, help="not ported")
+    model_group.add_argument("--reversible", action="store_true", help="not ported")
+    model_group.add_argument("--remat", action="store_true", help="not ported")
+    model_group.add_argument("--loss_img_weight", default=7, type=int)
+    model_group.add_argument("--attn_types", default="full", type=str,
+                             help="comma-separated: full, sparse, axial_row, axial_col, "
+                                  "conv_like")
+    model_group.add_argument("--shift_tokens", action="store_true")
+    model_group.add_argument("--rotary_emb", action="store_true")
+    return parser
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """``NotImplementedError`` for every flag the port does not run, set
+    to anything but its default, and for the inputs it does not read."""
+    defaults = build_parser().parse_args(["--image_text_folder", "."])
+    for flag, item in NOT_PORTED.items():
+        if getattr(args, flag) != getattr(defaults, flag):
+            raise NotImplementedError(f"--{flag} is not ported (ROADMAP.md {item})")
+    if args.image_text_folder.endswith(".tar"):
+        raise NotImplementedError("tar shards as --image_text_folder are not ported "
+                                  "(ROADMAP.md queue 1 item 6, data/webdata.py)")
+    if not (args.vae_path or args.dalle_path):
+        raise NotImplementedError("training without --vae_path or --dalle_path uses the OpenAI "
+                                  "dVAE, which is not ported (ROADMAP.md queue 1 item 6)")
+
+
+def pick_tokenizer(args):
+    """The CLIP BPE tokenizer, on ``--bpe_path``'s merges when given."""
+    from .data.tokenizers import SimpleTokenizer
+
+    if args.bpe_path is not None and args.bpe_path.endswith((".json", ".model")):
+        kind = "HugTokenizer" if args.bpe_path.endswith(".json") else "YttmTokenizer"
+        raise NotImplementedError(f"--bpe_path {args.bpe_path}: the {kind} is not ported "
+                                  "(ROADMAP.md queue 1 item 2(b))")
+    return SimpleTokenizer(args.bpe_path)
+
+
+def main(argv=None, *, device="cuda") -> None:
+    """``train_dalle.py``'s ``main()`` on ``device`` (a Python argument,
+    not a flag: the tests run on the CPU)."""
+    from .data.image_io import write_png
+    from .data.loader import DataLoader, TextImageDataset
+    from .models.factory import (
+        dalle_from_checkpoint,
+        restore_opt_state,
+        save_dalle_checkpoint,
+        vae_from_checkpoint,
+    )
+    from .models.sampling import generate_images
+    from .models.vae import denormalize
+    from .utils.checkpoint import (
+        check_checkpoint_file,
+        latest_verified_step,
+        load_checkpoint,
+        load_sharded_checkpoint,
+        save_sharded_checkpoint,
+    )
+    from .utils.faults import FaultRegistry
+    from .utils.metrics import Counters, MetricsLogger, Throughput
+    from .utils.resilience import PreemptionHandler
+
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    faults = FaultRegistry.from_env()
+    tokenizer = pick_tokenizer(args)
+    counters = Counters()
+
+    # ---- VAE and DALLE (resume | vae_path) --------------------------------
+    start_epoch, sched_state, opt_state, dalle = 0, None, None, None
+    if args.dalle_path:
+        check_checkpoint_file(args.dalle_path)
+        loaded = load_checkpoint(args.dalle_path)
+        dalle, vae, meta = dalle_from_checkpoint(args.dalle_path, device, loaded=loaded)
+        if vae is None:
+            raise ValueError(f"{args.dalle_path}: the resume checkpoint carries no VAE")
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        sched_state = meta.get("scheduler_state")
+        opt_state = restore_opt_state(args.dalle_path, device, loaded=loaded)
+        del loaded
+    else:
+        check_checkpoint_file(args.vae_path)
+        vae, _ = vae_from_checkpoint(args.vae_path, device)
+
+    # ---- data ---------------------------------------------------------------
+    text_seq_len = dalle.text_seq_len if dalle is not None else args.text_seq_len
+    dataset = TextImageDataset(
+        args.image_text_folder, text_len=text_seq_len, image_size=vae.image_size,
+        truncate_captions=args.truncate_captions, resize_ratio=args.resize_ratio,
+        tokenizer=tokenizer, shuffle=True, seed=args.seed)
+    if len(dataset) == 0:
+        raise ValueError(f"no image-text pairs found at {args.image_text_folder}")
+    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
+    logger = MetricsLogger(config=vars(args))
+
+    # ---- state, step ----------------------------------------------------------
+    run_flags = {k: getattr(args, k) for k in TRAINER_FLAGS if k not in MODEL_FLAGS}
+    if dalle is not None:
+        run_flags["bf16"] = dalle.dtype == torch.bfloat16  # the checkpoint's type
+    else:
+        run_flags.update({k: getattr(args, k) for k in MODEL_FLAGS})
+    trainer = DalleTrainer(vae, dalle, num_text_tokens=tokenizer.vocab_size, device=device,
+                           nan_inject_step=faults.value("nan_at_step"), **run_flags)
+    dalle = trainer.dalle
+    if opt_state is not None:  # keep the Adam moments across a resume
+        adam = trainer.state.opt_state
+        with torch.no_grad():
+            for name in adam.mu:
+                adam.mu[name].copy_(opt_state.mu[name])
+                adam.nu[name].copy_(opt_state.nu[name])
+        trainer.state = trainer.state._replace(opt_state=AdamState(
+            opt_state.count.to(trainer.state.step.device), adam.mu, adam.nu))
+    del opt_state
+    sched = trainer.sched
+    if sched_state:
+        sched.load_state_dict(sched_state)
+        trainer.lr = sched.lr
+    n_params = sum(p.numel() for p in dalle.parameters())
+    logger.log_text(f"DALLE {n_params:,} params | seq {dalle.total_seq_len} | "
+                    f"device {torch.device(device)}")
+
+    ckpt_path = f"{args.dalle_output_file_name}.ckpt"
+    sharded_dir = f"{args.dalle_output_file_name}-cp"
+
+    # ---- step-granular resume -------------------------------------------------
+    resume_epoch = resume_iter = -1
+    global_step = 0
+    verified = latest_verified_step(sharded_dir) if args.auto_resume else None
+    if verified is not None:
+        tree, smeta, global_step = load_sharded_checkpoint(sharded_dir, step=verified,
+                                                           verify=False)
+        trainer.state = load_train_state(trainer.state, tree)
+        del tree
+        resume_epoch = int(smeta.get("epoch", -1))
+        resume_iter = int(smeta.get("iter", -1))
+        if smeta.get("scheduler_state"):
+            sched.load_state_dict(smeta["scheduler_state"])
+            trainer.lr = sched.lr
+        if resume_epoch >= 0:
+            start_epoch = resume_epoch
+        logger.log_text(f"resuming from {sharded_dir} step {global_step} "
+                        f"(epoch {resume_epoch}, iter {resume_iter})")
+
+    def save(epoch):
+        t0 = time.perf_counter()
+        save_dalle_checkpoint(ckpt_path, dalle, vae,
+                              extra={"epoch": epoch, "scheduler_state": sched.state_dict()},
+                              opt_state=trainer.state.opt_state, step=int(trainer.state.step))
+        logger.log_text(f"saved {ckpt_path}: {os.path.getsize(ckpt_path):,} bytes in "
+                        f"{time.perf_counter() - t0:.2f} s")
+
+    def save_sharded(step, epoch, it, emergency=False):
+        t0 = time.perf_counter()
+        target = save_sharded_checkpoint(
+            sharded_dir, step, train_state_tree(trainer.state),
+            meta={"epoch": epoch, "iter": it, "scheduler_state": sched.state_dict(),
+                  "emergency": emergency},
+            keep_n=args.keep_n_checkpoints, faults=faults)
+        size = sum(p.stat().st_size for p in Path(target).rglob("*") if p.is_file())
+        logger.log_text(f"saved {target}: {size:,} bytes in {time.perf_counter() - t0:.2f} s")
+
+    save(start_epoch - 1)  # pre-flight: a misconfigured run fails before training
+
+    throughput = Throughput(window=10)
+    prev_loss = None
+    prof = None
+    nan_run = 0
+    last_fed = None  # (i, batch) of the latest dispatch, for a retry
+    retry_batch = None
+    epoch = start_epoch
+
+    def process_verdict():
+        """Read the dispatched step's loss (a sync with the device): step
+        the scheduler on a finite one, or set the batch up for a retry,
+        and abort after ``nan_abort_after`` rejections in a row."""
+        nonlocal prev_loss, nan_run, retry_batch
+        if prev_loss is None:
+            return
+        loss_val = trainer.verdict(prev_loss)
+        prev_loss = None
+        if math.isfinite(loss_val):
+            nan_run = 0
+            return
+        nan_run = int(trainer.state.consec_skipped)
+        counters.inc("train.nan_skips")
+        logger.log_text(f"step {global_step - 1}: non-finite loss — update skipped on device, "
+                        f"retrying batch ({nan_run}/{args.nan_abort_after})")
+        if nan_run >= args.nan_abort_after:
+            # the rejected batch's update is not in the state: record its
+            # predecessor so a resume replays it
+            save_sharded(int(trainer.state.step), epoch, last_fed[0] - 1, emergency=True)
+            raise SystemExit(f"{nan_run} consecutive non-finite steps — aborting (state saved "
+                             f"for post-mortem at {sharded_dir})")
+        retry_batch = last_fed
+
+    def to_device(batch):
+        text = torch.from_numpy(batch["text"]).long().to(device)
+        return text, torch.from_numpy(batch["image"]).to(device)
+
+    with PreemptionHandler() as preempt:
+        for epoch in range(start_epoch, args.epochs):
+            loader.epoch = epoch  # the shuffle order of this epoch, on a resume too
+            retry_batch = None
+            nxt = None
+            exhausted = False
+            batches = enumerate(loader)
+            while True:
+                # take the next batch before the verdict, so the host's
+                # batch work overlaps the step in flight
+                while nxt is None and not exhausted:
+                    try:
+                        cand = next(batches)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    if epoch == resume_epoch and cand[0] <= resume_iter:
+                        continue  # consumed before the preemption
+                    nxt = cand
+
+                process_verdict()
+
+                if retry_batch is not None:
+                    i, batch = retry_batch
+                    retry_batch = None
+                elif nxt is not None:
+                    i, batch = nxt
+                    nxt = None
+                else:
+                    break
+                last_fed = (i, batch)
+
+                text, images = to_device(batch)
+                if args.profile_trace_dir is not None:
+                    if global_step == args.profile_step:
+                        _synchronize(device)
+                        prof = _start_profiler(device)
+                    elif global_step == args.profile_step + 3 and prof is not None:
+                        _stop_profiler(prof, device, args.profile_trace_dir, logger,
+                                       args.profile_step)
+                        prof = None
+
+                prev_loss = trainer.dispatch(text, vae.get_codebook_indices(images))
+
+                if global_step % 10 == 0:
+                    logger.log({"loss": float(prev_loss), "epoch": epoch, "iter": i,
+                                "lr": trainer.lr, "nan_skips": counters.get("train.nan_skips")},
+                               step=global_step)
+                rate = throughput.update(args.batch_size)
+                if rate is not None:
+                    logger.log({"sample_per_sec": rate}, step=global_step)
+
+                if global_step > 0 and global_step % args.save_every_n_steps == 0:
+                    # the saved scheduler state must include the step in
+                    # flight, and a rejected batch is not in the state
+                    process_verdict()
+                    save(epoch)
+                    if args.sharded_ckpt:
+                        it = i - 1 if retry_batch is not None else i
+                        save_sharded(int(trainer.state.step), epoch, it)
+
+                if global_step > 0 and global_step % args.sample_every_n_steps == 0:
+                    pixels = denormalize(generate_images(dalle, vae, text[:1], global_step))
+                    out = Path("dalle_samples")
+                    out.mkdir(exist_ok=True)
+                    arr = (pixels[0].float().cpu().numpy() * 255).astype(np.uint8)
+                    write_png(out / f"sample_{global_step:07d}.png", arr)
+
+                global_step += 1
+
+                if preempt.triggered:
+                    # the step in flight is done: write the emergency step
+                    # directory and exit; the next launch resumes from it
+                    if prof is not None:
+                        _stop_profiler(prof, device, args.profile_trace_dir, logger,
+                                       args.profile_step)
+                        prof = None
+                    process_verdict()
+                    it = i - 1 if retry_batch is not None else i
+                    save_sharded(int(trainer.state.step), epoch, it, emergency=True)
+                    logger.log_text(f"emergency checkpoint at step {global_step} (epoch {epoch}, "
+                                    f"iter {i}) written to {sharded_dir}; exiting")
+                    sys.exit(0)
+
+            save(epoch)
+            if args.sharded_ckpt:  # the epoch is consumed: a resume starts the next
+                save_sharded(int(trainer.state.step), epoch + 1, -1)
+            logger.log_text(f"epoch {epoch} complete")
+
+    if prof is not None:  # training ended inside the trace window
+        _stop_profiler(prof, device, args.profile_trace_dir, logger, args.profile_step)
+
+
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _start_profiler(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device, trace_dir: str, logger, first: int) -> None:
+    _synchronize(device)
+    prof.stop()
+    Path(trace_dir).mkdir(parents=True, exist_ok=True)
+    path = Path(trace_dir) / f"trace_steps_{first}-{first + 2}.json"
+    prof.export_chrome_trace(str(path))
+    logger.log_text(f"profiler trace for steps {first}..{first + 2} written to {path}")
+
+
+if __name__ == "__main__":
+    main()

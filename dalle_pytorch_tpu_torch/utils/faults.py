@@ -1,12 +1,16 @@
-"""Deterministic fault injection for the serving engine (counterpart of
-``dalle_pytorch_tpu/utils/faults.py``'s registry, serving sites only).
+"""Deterministic fault injection (counterpart of
+``dalle_pytorch_tpu/utils/faults.py``'s registry: the serving engine's
+sites and the trainer's).
 
-A fault site is a named counter: the engine asks the registry at the
-site whether to fail, the registry counts one down, and once the armed
-count is spent the site behaves normally, the shape of a transient
-production fault. There is no process-wide registry and no environment
-variable: a caller builds a ``FaultRegistry``, arms it, and hands it to
-``Engine(..., faults=registry)``.
+A fault site is a named counter: the code asks the registry at the site
+whether to fail, the registry counts one down, and once the armed count
+is spent the site behaves normally, the shape of a transient production
+fault. There is no process-wide registry. The engine's caller builds a
+``FaultRegistry``, arms it, and hands it to ``Engine(..., faults=registry)``;
+the trainer's command line reads its sites from ``DALLE_TPU_FAULTS``
+(``FaultRegistry.from_env()``, the JAX package's format, e.g.
+``DALLE_TPU_FAULTS="nan_at_step=5,ckpt_corrupt=1"``), so that a relaunched
+process is armed without any plumbing.
 
 Sites:
 
@@ -21,14 +25,25 @@ Sites:
                    ``EngineConfig.stall_penalty_s``
 ``request_cancel`` the youngest running request is cancelled (a client
                    disconnecting)
+``nan_at_step``    the train step forces the loss to NaN at step K (a
+                   value site: the armed number is K, ``take`` never
+                   consumes it)
+``ckpt_corrupt``   after a step directory commits, 64 bytes of its largest
+                   payload file are flipped (bit rot that only the
+                   checksums catch)
 ================== ======================================================
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
-SITES = ("prefill_fail", "page_exhaust", "decode_stall", "request_cancel")
+ENV_VAR = "DALLE_TPU_FAULTS"
+SITES = ("prefill_fail", "page_exhaust", "decode_stall", "request_cancel",
+         "nan_at_step", "ckpt_corrupt")
+# sites whose armed number is a parameter (a step index), not a count
+VALUE_SITES = frozenset({"nan_at_step"})
 
 
 class FaultRegistry:
@@ -38,6 +53,19 @@ class FaultRegistry:
     def __init__(self):
         self._armed: Dict[str, int] = {}
         self.fired: Dict[str, int] = {}
+
+    @classmethod
+    def from_env(cls, environ=None) -> "FaultRegistry":
+        """A registry armed from ``DALLE_TPU_FAULTS`` (``site=count,...``);
+        an unknown site or an entry without ``=`` raises ``ValueError``."""
+        registry = cls()
+        spec = (os.environ if environ is None else environ).get(ENV_VAR, "")
+        for part in filter(None, (p.strip() for p in spec.split(","))):
+            if "=" not in part:
+                raise ValueError(f"bad {ENV_VAR} entry {part!r}: want site=count")
+            site, _, count = part.partition("=")
+            registry.arm(site.strip(), int(count))
+        return registry
 
     def arm(self, site: str, count: int = 1) -> None:
         """Fail the next ``count`` visits to ``site``."""
@@ -58,7 +86,7 @@ class FaultRegistry:
         """Consume one armed failure at ``site``: True exactly ``count``
         times after ``arm(site, count)``, then False."""
         remaining = self._armed.get(site, 0)
-        if remaining <= 0:
+        if site in VALUE_SITES or remaining <= 0:
             return False
         self._armed[site] = remaining - 1
         self.fired[site] = self.fired.get(site, 0) + 1

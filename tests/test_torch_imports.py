@@ -2,9 +2,13 @@
 and nothing in chip_smoke.py imports jax, flax, optax or the JAX package
 (an AST walk), and the port's engine, post-decode stages, CLIP and
 trainer import and run (a CPU fused_step, a CLIP similarity, a train
-step) in a process where importing jax fails."""
+step) in a process where importing jax fails. The trainer's command line
+also runs (one epoch of two steps on a PNG folder, to a checkpoint) where
+none of the card's missing host packages can be imported either: PIL,
+regex, msgpack, tokenizers and ftfy."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -74,3 +78,37 @@ print("ok")
         timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_train_cli_runs_without_the_missing_host_packages(tmp_path):
+    code = """
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "dalle_pytorch_tpu", "PIL", "regex", "msgpack",
+           "tokenizers", "ftfy")
+for name in BLOCKED:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from dalle_pytorch_tpu_torch.models.factory import save_vae_checkpoint
+from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+from dalle_pytorch_tpu_torch.testing import write_caption_folder
+from dalle_pytorch_tpu_torch.train_dalle import main
+from dalle_pytorch_tpu_torch.utils.checkpoint import check_checkpoint_file
+write_caption_folder("data", 8, 16, seed=1)
+vae = DiscreteVAE(image_size=16, num_layers=1, hidden_dim=4, num_tokens=12, codebook_dim=4,
+                  device="cpu").init_weights(torch.Generator().manual_seed(0))
+save_vae_checkpoint("vae.ckpt", vae)
+main(["--image_text_folder", "data", "--vae_path", "vae.ckpt", "--dim", "32", "--depth", "1",
+      "--heads", "2", "--dim_head", "16", "--text_seq_len", "8", "--truncate_captions",
+      "--epochs", "1", "--sharded_ckpt"], device="cpu")
+check_checkpoint_file("dalle.ckpt", require_manifest=True)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+    assert (tmp_path / "dalle.ckpt").exists() and (tmp_path / "dalle-cp" / "step_00000002").is_dir()
