@@ -195,6 +195,26 @@ line):
    beyond what the CLI does) and tokens/s beside phase 8c's
    ``train_step``, the loader's seconds a batch, each save's bytes and
    seconds, the phase's wall.
+12b. train CLI ga: the command line with the rest of train_dalle.py's
+   single-card flags at the same widths on phase 8's VAE
+   (``train_cli_ga``): four tar shards of 4 samples written by the
+   script (PNG and JPEG members named ``.img``, captions ``.cap``, one
+   JPEG cut short), ``--wds img,cap``, ``--bpe_path`` a tokenizer JSON
+   trained on the captions (the HugTokenizer), ``--attn_dropout 0.1
+   --ff_dropout 0.1 --ga_steps 2 --epochs 1``: run 1 is SIGTERM'd at its
+   third micro-step (an emergency step directory mid-accumulation), the
+   relaunch resumes, replays epoch 0 from its start (logged) and ends
+   it. Checked: the packed kernels depth x 6 micro-steps each way, Adam's
+   count 3, ``mini_step`` 1 and the accumulator restored bitwise, one
+   decode error a run; on the card the same micro-batch and generator
+   key give a bitwise equal loss and another key another, layer 0's
+   attention mask keeps within 4 binomial standard deviations of 0.9,
+   and the dropout is bitwise ``where(mask, x / 0.9, 0)`` on the CPU;
+   ``get_tokenizer()`` is the native BPE engine (built by ``g++`` from
+   the port's sources into ``build/native/``), byte-equal to
+   ``SimpleTokenizer`` on the captions and 10,000 seeded strings.
+   Printed: both tokenizers' encode rates, the tar loader's seconds a
+   batch, the micro-step as the CLI runs it and its tokens/s.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -391,6 +411,8 @@ TRAIN_RECORDS = {}
 # phase 12's command line: the flagship widths, train_dalle.py's other defaults
 CLI_DIR = ROOT / "build" / "train_cli"
 CLI_IMAGES, CLI_IMAGE_SIZE = 16, 256
+# phase 12b's command line: tar shards, the HugTokenizer, dropout, accumulation
+CLI_GA_DIR = ROOT / "build" / "train_cli_ga"
 
 _T0 = time.perf_counter()
 
@@ -3286,6 +3308,284 @@ def train_cli(vae):
     return {n: launched1.get(n, 0) + launched2.get(n, 0) for n in {*launched1, *launched2}}
 
 
+def seeded_strings(n: int, seed: int = 0) -> list:
+    """``n`` seeded strings of 1-60 code points drawn from ASCII, Latin,
+    Greek, CJK, emoji, spaces, quotes, digits and the case-closure traps
+    (long s, U+0345), as the native engine's tests draw them."""
+    rng = np.random.RandomState(seed)
+    pools = [list(range(0x20, 0x7F)), list(range(0xA0, 0x250)), list(range(0x370, 0x400)),
+             list(range(0x4E00, 0x4E80)), [0x1F600 + i for i in range(40)],
+             [0x20, 0x27, 0x2E, 0x31, 0x32], [0x27, 0x73, 0x17F, 0x345, 0x6C, 0x74],
+             list(range(0x2000, 0x2030))]
+    out = []
+    for _ in range(n):
+        k = rng.randint(1, 61)
+        pool = pools[rng.randint(len(pools))]
+        out.append("".join(chr(int(c)) for c in rng.choice(pool, size=k)))
+    return out
+
+
+def check_native_tokenizer(captions) -> None:
+    """The native BPE engine on the card's host: built by g++ from the
+    port's sources into build/native/, chosen by ``get_tokenizer()``, and
+    byte-equal to ``SimpleTokenizer`` on ``captions`` and 10,000 seeded
+    strings; each tokenizer's encode rate over those strings printed."""
+    from dalle_pytorch_tpu_torch.data import native_bpe, tokenizers
+    from dalle_pytorch_tpu_torch.native import build
+
+    t0 = time.perf_counter()
+    so = build.build()
+    built_s = time.perf_counter() - t0
+    tokenizers._default = None
+    native = tokenizers.get_tokenizer()
+    plain = tokenizers.SimpleTokenizer()
+    texts = list(captions) + seeded_strings(10_000)
+    rates = {}
+    for label, tok in (("native", native), ("python", plain)):
+        tok.encode("warm up")
+        t0 = time.perf_counter()
+        ids = [tok.encode(t) for t in texts]
+        rates[label] = (len(texts) / (time.perf_counter() - t0), ids)
+    chars = sum(len(t) for t in texts)
+    bad = [t for t, a, b in zip(texts, rates["native"][1], rates["python"][1]) if a != b]
+    decoded = all(native.decode(ids) == plain.decode(ids) for ids in rates["python"][1][:500])
+    log(f"native BPE: {so} (built or found in {built_s:.1f} s); get_tokenizer() is "
+        f"{type(native).__name__}; {len(texts):,} strings ({chars:,} code points): "
+        f"{len(bad)} encodings differ from SimpleTokenizer's, decode equal {decoded}; encode "
+        f"rate native {rates['native'][0]:,.0f} strings/s, SimpleTokenizer "
+        f"{rates['python'][0]:,.0f} strings/s ({rates['native'][0] / rates['python'][0]:.1f}x; "
+        f"{card_line()})")
+    if (not isinstance(native, native_bpe.NativeSimpleTokenizer) or so is None
+            or not str(so).startswith(str(ROOT / "build" / "native")) or bad or not decoded):
+        raise AssertionError(f"native BPE: {type(native).__name__} from {so}, {len(bad)} "
+                             f"encodings differ (first {bad[:2]!r}), decode equal {decoded}")
+
+
+def check_dropout_on_card(trainer, text, tokens) -> None:
+    """The dropout of a training forward on the card: the same micro-batch
+    and generator key give a bitwise equal loss, another key another loss;
+    the first layer's attention mask keeps within 4 binomial standard
+    deviations of 0.9; and the dropout's output equals ``where(mask, x /
+    0.9, 0)`` computed on the CPU from the same mask, bit for bit."""
+    from dalle_pytorch_tpu_torch.ops import layers
+    from dalle_pytorch_tpu_torch.testing import dropout_masks
+    from dalle_pytorch_tpu_torch.train_dalle import dalle_loss
+
+    batch = {"text": text, "image": tokens}
+    dev = trainer.dalle.device
+    losses = []
+    with torch.no_grad(), dropout_masks() as drawn:
+        for seed in (5, 5, 6):
+            losses.append(dalle_loss(trainer.dalle, batch,
+                                     torch.Generator(device=dev).manual_seed(seed)))
+    depth = trainer.dalle.depth
+    mask = drawn[0]
+    kept = mask.float().mean().item()
+    sd = math.sqrt(0.9 * 0.1 / mask.numel())
+    x = torch.randn(mask.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    with dropout_masks() as redrawn:
+        got = layers.dropout(x, 0.1, torch.Generator(device=dev).manual_seed(2))
+    m = redrawn[0].cpu()
+    want = torch.where(m, x.cpu() / torch.tensor(0.9), torch.zeros(()))
+    formula = torch.equal(got.cpu(), want)
+    log(f"dropout on the card: losses key 5, 5, 6 {[round(x.item(), 6) for x in losses]}; "
+        f"{len(drawn)} masks over 3 forwards (depth {depth}: attention and feed-forward); layer "
+        f"0's attention mask {tuple(mask.shape)} keeps {kept:.6f} (0.9 +- 4 x {sd:.2e}); "
+        f"where(mask, x / 0.9, 0) bitwise the CPU's {formula}")
+    if (not torch.equal(losses[0], losses[1]) or torch.equal(losses[0], losses[2])
+            or len(drawn) != 3 * 2 * depth or abs(kept - 0.9) > 4 * sd or not formula):
+        raise AssertionError("dropout on the card: same-key losses, other-key loss, mask count, "
+                             "kept share or formula failed")
+
+
+def train_cli_ga(vae):
+    """Phase 12b: the trainer's command line with this slice's flags at the
+    flagship widths on ``vae`` (phase 8's), train_dalle.py's other
+    defaults (batch 4, learned positions, "full", float32), in this
+    process on ``CLI_GA_DIR`` (removed at the end): four tar shards of 4
+    samples written here (PNG and JPEG members named ``.img``, captions
+    ``.cap``; one JPEG cut short), ``--wds img,cap``, ``--bpe_path`` a
+    tokenizer JSON trained here on the captions (the HugTokenizer),
+    ``--attn_dropout 0.1 --ff_dropout 0.1 --ga_steps 2 --epochs 1``. The
+    15 samples that decode make 3 micro-batches an epoch. Run 1 is
+    preempted by SIGTERM at its third micro-step (an emergency step
+    directory mid-accumulation); the relaunch resumes from it, replays
+    epoch 0 from its start (a tar stream's order is not reproducible) and
+    ends it: 6 micro-steps, 3 Adam steps. Run 3 is the same-size control:
+    the same command line, data and tokenizer with both rates 0 and
+    ``--ga_steps 1`` (3 steps), so that the micro-step's wall is held
+    against a step of the same model in the same call. Also the native
+    BPE engine (``check_native_tokenizer``), the loader's seconds a batch
+    and the dropout's checks (``check_dropout_on_card``). Returns the
+    launches of the three runs."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import signal
+
+    from dalle_pytorch_tpu_torch import train_dalle
+    from dalle_pytorch_tpu_torch.data import webdata
+    from dalle_pytorch_tpu_torch.data.tokenizers import HugTokenizer
+    from dalle_pytorch_tpu_torch.models.factory import restore_opt_state, save_vae_checkpoint
+    from dalle_pytorch_tpu_torch.testing import train_tokenizer_json, write_tar_shards
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_GA_DIR, ignore_errors=True)
+    CLI_GA_DIR.mkdir(parents=True)
+    spec, captions = write_tar_shards(CLI_GA_DIR / "data", 4, 4, CLI_IMAGE_SIZE, seed=23,
+                                      corrupt=(5,), image_ext="img", caption_ext="cap")
+    train_tokenizer_json(CLI_GA_DIR / "tokenizer.json", captions)
+    check_native_tokenizer(captions)
+    hug = HugTokenizer(str(CLI_GA_DIR / "tokenizer.json"))
+    t0 = time.perf_counter()
+    loaded = list(webdata.TarLoader(webdata.TarImageTextDataset(
+        spec, text_len=FLAGSHIP["text_seq_len"], image_size=CLI_IMAGE_SIZE, tokenizer=hug,
+        truncate_captions=True, image_key="img", caption_key="cap"), TRAIN_BATCH))
+    loader_s = (time.perf_counter() - t0) / max(1, len(loaded))
+    save_vae_checkpoint(CLI_GA_DIR / "vae.ckpt", vae)
+    depth = FLAGSHIP["depth"]
+    common = ["--image_text_folder", spec, "--wds", "img,cap", "--vae_path",
+              str(CLI_GA_DIR / "vae.ckpt"), "--bpe_path", str(CLI_GA_DIR / "tokenizer.json"),
+              "--dim", str(FLAGSHIP["dim"]), "--depth", str(depth), "--heads",
+              str(FLAGSHIP["heads"]), "--dim_head", str(FLAGSHIP["dim_head"]),
+              "--truncate_captions", "--epochs", "1"]
+    argv = [*common, "--attn_dropout", "0.1", "--ff_dropout", "0.1", "--ga_steps", "2",
+            "--dalle_output_file_name", str(CLI_GA_DIR / "dalle")]
+    control_argv = [*common, "--attn_dropout", "0", "--ff_dropout", "0", "--ga_steps", "1",
+                    "--dalle_output_file_name", str(CLI_GA_DIR / "control")]
+    log(f"train CLI ga: 4 tar shards of 4 samples at {CLI_IMAGE_SIZE} px (one JPEG cut short), "
+        f"the tokenizer JSON ({hug.vocab_size} tokens) and the VAE under {CLI_GA_DIR}; loader "
+        f"{loader_s:.4f} s a batch ({len(loaded)} batches of {TRAIN_BATCH}: tar read, Pillow "
+        f"decode, crop and resize; {card_line()})")
+
+    dispatch, verdict = train_dalle.DalleTrainer.dispatch, train_dalle.DalleTrainer.verdict
+    tree_of, dataset_init = train_dalle.train_state_tree, webdata.TarImageTextDataset.__init__
+    events, datasets, trainers, saved, resumed, losses, batches = [], [], [], [], [], [], []
+    emits = []  # by dispatch: whether it ended an optimizer step
+
+    def counted_dispatch(self, text, image_tokens):
+        if run_no[0] == 2 and not resumed:  # the relaunch's state before its first step
+            opt = self.state.opt_state
+            resumed.append((int(opt.mini_step), all(
+                torch.equal(opt.acc[n], saved[0][1][n]) for n in opt.acc)))
+        if run_no[0] < 3:
+            trainers[:] = [self]
+            batches[:] = [(text, image_tokens)]
+        emits.append(self._mini_step == self.ga_steps - 1)
+        loss = dispatch(self, text, image_tokens)
+        if run_no[0] == 1 and int(self.state.step) == 3:
+            os.kill(os.getpid(), signal.SIGTERM)  # the step in flight finishes first
+        return loss
+
+    def recorded_verdict(self, loss):
+        losses.append(verdict(self, loss))
+        events.append((run_no[0], time.perf_counter()))
+        return losses[-1]
+
+    def recorded_tree(state):
+        tree = tree_of(state)
+        opt = tree["opt_state"]
+        saved[:] = [(int(opt["mini_step"]), {n: a.clone() for n, a in opt["acc"].items()})]
+        return tree
+
+    def recorded_dataset(self, *a, **kw):
+        dataset_init(self, *a, **kw)
+        datasets.append(self)
+
+    run_no = [0]
+
+    def run(label, args):
+        run_no[0] += 1
+        out = io.StringIO()
+        names = tuple(kernel_counters())
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                train_dalle.main(args)
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise
+        torch.cuda.synchronize()
+        for line in out.getvalue().splitlines():
+            if not line.startswith("config:"):
+                log(f"{label} | {line}")
+        return out.getvalue(), {n: c for n, c in read_counts(names).items() if c}, (
+            time.perf_counter() - t0)
+
+    train_dalle.DalleTrainer.dispatch = counted_dispatch
+    train_dalle.DalleTrainer.verdict = recorded_verdict
+    train_dalle.train_state_tree = recorded_tree
+    webdata.TarImageTextDataset.__init__ = recorded_dataset
+    try:
+        text1, launched1, wall1 = run("train CLI ga run 1", argv)
+        n1 = len(losses)
+        text2, launched2, wall2 = run("train CLI ga run 2", argv)
+        n2 = len(losses) - n1
+        _, launched3, wall3 = run("train CLI ga control", control_argv)
+    finally:
+        train_dalle.DalleTrainer.dispatch, train_dalle.DalleTrainer.verdict = dispatch, verdict
+        train_dalle.train_state_tree = tree_of
+        webdata.TarImageTextDataset.__init__ = dataset_init
+    micro = n1 + n2
+    n3 = len(losses) - micro
+    trainer = trainers[0]
+    check_dropout_on_card(trainer, *batches[0])
+    # the wall between consecutive verdicts of one run covers the later
+    # dispatch: (run, whether that dispatch emitted, wall)
+    walls = [(a[0], emits[j + 1], b[1] - a[1])
+             for j, (a, b) in enumerate(zip(events, events[1:])) if a[0] == b[0]]
+    ga_walls = [w for r, _, w in walls if r < 3]
+    by_emit = {e: [w for r, x, w in walls if r < 3 and x == e] for e in (True, False)}
+    control_walls = [w for r, _, w in walls if r == 3]
+    steady = float(np.median(ga_walls)) if ga_walls else float("nan")
+    control = float(np.median(control_walls)) if control_walls else float("nan")
+    tokens_per_step = TRAIN_BATCH * (FLAGSHIP["text_seq_len"] + vae.fmap_size**2)
+    opt = restore_opt_state(CLI_GA_DIR / "dalle.ckpt", device="cpu")
+    decode_errors = [d.counters.get("webdata.decode_errors") for d in datasets]
+    want = {name: depth * (micro + n3) for name in PACKED}
+    runs = (launched1, launched2, launched3)
+    launched = {n: sum(r.get(n, 0) for r in runs) for n in set().union(*runs)}
+    replayed = ("tar-stream loader has no reproducible epoch order: replaying epoch 0 from its "
+                "start" in text2)
+    log(f"train CLI ga: run 1 {n1} micro-steps (SIGTERM at the third), run 2 {n2}; losses "
+        f"{[round(x, 4) for x in losses]}; emergency save mini_step {saved[0][0] if saved else None}"
+        f", restored mini_step and accumulator bitwise {resumed}; tar replay logged {replayed}; "
+        f"decode errors by run {decode_errors}; final Adam count {int(opt.inner.count)}, "
+        f"mini_step {int(opt.mini_step)}, gradient_step {int(opt.gradient_step)}")
+    log(f"train CLI ga: micro-step as the CLI runs it (wall between verdicts, median of "
+        f"{len(ga_walls)}: {[round(w, 4) for w in ga_walls]}) {steady:.4f} s, "
+        f"{tokens_per_step / steady:.1f} training tokens/s; emitting micro-steps "
+        f"{[round(w, 4) for w in by_emit[True]]} s, the others "
+        f"{[round(w, 4) for w in by_emit[False]]} s; the same-size control (both rates 0, "
+        f"ga_steps 1, {n3} steps) {[round(w, 4) for w in control_walls]}, median "
+        f"{control:.4f} s; micro-step / control step {steady / control:.4f}; run 1 "
+        f"{wall1:.1f} s, run 2 {wall2:.1f} s, control {wall3:.1f} s; launches {launched} "
+        f"(expected {want}); {card_line()}")
+    problems = []
+    if not all(math.isfinite(x) for x in losses) or (n1, n2, n3) != (3, 3, 3):
+        problems.append(f"losses {losses} over {n1} + {n2} micro-steps and {n3} control steps")
+    if launched != want:
+        problems.append(f"launches {launched}, expected {want}")
+    if (int(opt.inner.count), int(opt.mini_step), int(opt.gradient_step)) != (micro // 2, 0,
+                                                                               micro // 2):
+        problems.append(f"Adam count {int(opt.inner.count)}, mini_step {int(opt.mini_step)}")
+    if not saved or saved[0][0] != 1 or resumed != [(1, True)]:
+        problems.append(f"saved mini_step {saved[0][0] if saved else None}, restored {resumed}")
+    if decode_errors != [1, 1, 1] or not replayed:
+        problems.append(f"decode errors {decode_errors}, tar replay logged {replayed}")
+    if f"resuming from {CLI_GA_DIR / 'dalle-cp'} step 3 (epoch 0, iter 2)" not in text2:
+        problems.append("the relaunch did not resume from step 3")
+    del trainer, trainers[:], batches[:], saved[:]
+    shutil.rmtree(CLI_GA_DIR, ignore_errors=True)
+    log(f"train CLI ga: phase wall {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise AssertionError("train CLI ga: " + "; ".join(problems))
+    return launched
+
+
 # the tiled flash kernels of the 512 px training shape by device function:
 # (the kernel phase's row, its key of the ms a launch)
 # {kernel function: (kernel phase row, key of its time)} of the kernels
@@ -3432,6 +3732,8 @@ def main() -> int:
     release_memory()
     cli_launches = train_cli(vae)
     release_memory()
+    cli_ga_launches = train_cli_ga(vae)
+    release_memory()
     trainer, bf16_launches = train_bf16(vae, batch)
     profile_train(trainer, batch, label="train bf16 profile")
     del trainer
@@ -3461,6 +3763,7 @@ def main() -> int:
              ("train_512_bf16", launches_512_bf16), ("train_one_block", one_block_launches),
              ("train_one_block_bf16", one_block_bf16_launches),
              ("train_learned_pos", learned_train_launches), ("train_cli", cli_launches),
+             ("train_cli_ga", cli_ga_launches),
              ("serve_learned_pos", learned_serve_launches),
              ("generate_learned_pos", learned_generate_launches), *generate_launches.items())
     for k in kernels:
@@ -4258,12 +4561,91 @@ def check_bf16_default_reduction() -> None:
     log("bf16 default reduction: every bf16 path check within its tolerance")
 
 
+def compare_ga_step_sources(other: str, pairs: int = 2, micro: int = 6) -> None:
+    """The micro-step of ``--ga_steps 2`` with both dropout rates 0.1 at
+    the flagship widths (float32, batch 4, learned positions, the CLIP
+    BPE vocabulary of 49,408 text tokens, 8192 image tokens at 32 x 32),
+    this checkout's ``parallel/step.py`` against another's (``other``: a
+    checkout's root) on the same DALLE, in ``pairs`` pairs alternating
+    other, this, this, other; each run ``micro`` micro-steps from
+    ``mini_step`` 0 on its own fresh optimizer state, each timed by the
+    host clock from the dispatch to the loss read back (the trainer's
+    verdict), as the trainer runs them: this checkout's step told whether
+    each micro-step emits. Prints each run's emitting and other
+    micro-steps' ms, the means and this / other."""
+    import importlib.util
+
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+    from dalle_pytorch_tpu_torch.parallel import step as this_step
+    from dalle_pytorch_tpu_torch.train_dalle import dalle_loss
+
+    path = Path(other) / "dalle_pytorch_tpu_torch" / "parallel" / "step.py"
+    spec = importlib.util.spec_from_file_location("other_parallel_step", path)
+    other_step = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = other_step  # the dataclasses look their module up
+    spec.loader.exec_module(other_step)
+    cuda_build.build(list(PACKED))
+    model = DALLE(**{**FLAGSHIP, "num_text_tokens": 49408}, attn_dropout=0.1, ff_dropout=0.1,
+                  rotary_emb=False, shift_tokens=False,
+                  device="cuda").init_weights(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(17)
+    batches = [{"text": torch.from_numpy(rng.randint(1, 49408, size=(TRAIN_BATCH, 256))).cuda(),
+                "image": torch.from_numpy(rng.randint(0, 8192, size=(TRAIN_BATCH, 1024))).cuda()}
+               for _ in range(micro)]
+    versions = {}
+    for label, mod in (("other", other_step), ("this", this_step)):
+        versions[label] = [mod.make_train_step(dalle_loss, 0.5, ga_steps=2),
+                           mod.create_train_state(model, ga_steps=2), label == "this"]
+
+    def run(label):
+        step, state, tell = versions[label]
+        times = {True: [], False: []}
+        for i in range(micro):
+            emit = i % 2 == 1
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            kw = {"emit": emit} if tell else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, model, batches[i], 3e-4, gen, **kw)
+            loss = float(loss)
+            times[emit].append(1e3 * (time.perf_counter() - t0))
+            if not math.isfinite(loss):
+                raise AssertionError(f"ga step {label}: micro-step {i} loss {loss}")
+        torch.cuda.synchronize()
+        versions[label][1] = state
+        if int(state.opt_state.mini_step) != 0:
+            raise AssertionError(f"ga step {label}: mini_step {int(state.opt_state.mini_step)}")
+        return times
+
+    n_params = sum(p.numel() for p in model.parameters())
+    run("other"), run("this")  # warm-up
+    ms = {"this": {True: [], False: []}, "other": {True: [], False: []}}
+    for p in range(pairs):
+        for label in (("other", "this", "this", "other") if p % 2 == 0
+                      else ("this", "other", "other", "this")):
+            times = run(label)
+            for emit in (True, False):
+                ms[label][emit].extend(times[emit])
+    means = {label: {e: float(np.mean(ms[label][e])) for e in (True, False)} for label in ms}
+    whole = {label: float(np.mean(ms[label][True] + ms[label][False])) for label in ms}
+    for label in ("other", "this"):
+        log(f"compare ga step {label} ({n_params:,} params, micro-steps of ga_steps 2, "
+            f"dropout 0.1 / 0.1): emitting " + ", ".join(f"{t:.2f}" for t in ms[label][True])
+            + f" ms (mean {means[label][True]:.2f}); the others " + ", ".join(
+                f"{t:.2f}" for t in ms[label][False]) + f" ms (mean {means[label][False]:.2f}); "
+            f"a micro-step {whole[label]:.2f} ms")
+    log(f"compare ga step: this / other, emitting {means['this'][True] / means['other'][True]:.4f}"
+        f", the others {means['this'][False] / means['other'][False]:.4f}, a micro-step "
+        f"{whole['this'] / whole['other']:.4f}; {card_line()}")
+
+
 def compare(argv) -> int:
     """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR``,
     ``--tiled-source DIR``, ``--sparse-source DIR``, ``--decode-source DIR``,
-    ``--generate-pairs N``, ``--serve-pairs N`` and/or
-    ``--bf16-default-reduction``: only the paired comparisons (and that
-    check), on one card."""
+    ``--generate-pairs N``, ``--serve-pairs N``, ``--ga-step-source DIR``,
+    ``--train-cli-ga`` and/or ``--bf16-default-reduction``: only the
+    paired comparisons (and those phases), on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -4281,6 +4663,12 @@ def compare(argv) -> int:
     parser.add_argument("--generate-pairs", type=int, default=0)
     parser.add_argument("--serve-pairs", type=int, default=0,
                         help="pairs of the split and the fused engine at steady decode")
+    parser.add_argument("--ga-step-source",
+                        help="root of another checkout (its parallel/step.py): the micro-step "
+                             "of ga_steps 2 with dropout, paired with this checkout's")
+    parser.add_argument("--train-cli-ga", action="store_true",
+                        help="phase 12b alone (the train CLI's tar, tokenizer, dropout and "
+                             "ga_steps run, with its same-size control) on a fresh VAE")
     parser.add_argument("--bf16-default-reduction", action="store_true",
                         help="the bf16 path checks with cuBLAS's bf16 reduced-precision "
                              "reduction at PyTorch's default")
@@ -4304,6 +4692,19 @@ def compare(argv) -> int:
         compare_generate(args.generate_pairs)
     if args.serve_pairs:
         compare_serve(args.serve_pairs)
+    if args.ga_step_source or args.train_cli_ga:
+        torch.backends.cuda.matmul.allow_tf32 = False  # as main() runs the trainer
+        torch.backends.cudnn.allow_tf32 = False
+    if args.ga_step_source:
+        compare_ga_step_sources(args.ga_step_source)
+    if args.train_cli_ga:
+        from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+        from dalle_pytorch_tpu_torch.ops import cuda_build
+
+        cuda_build.build(list(PACKED))
+        vae = DiscreteVAE(**FLAGSHIP_VAE, device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(11))
+        log(f"train CLI ga alone: launches {train_cli_ga(vae)}")
     if args.bf16_default_reduction:
         check_bf16_default_reduction()
     return 0

@@ -8,8 +8,11 @@ output is a ``state_dict`` for ``models.dalle.DALLE``,
 gives (float32 numpy arrays), and ``optax_adam_state`` / ``adam_from_optax``
 carry the train step's ``AdamState`` to and from optax's
 ``chain(clip_by_global_norm, scale_by_adam)`` state as flax serializes it,
-``{"0": {}, "1": {"count", "mu", "nu"}}``. A flax -> torch -> flax round
-trip is bitwise. Rules:
+``{"0": {}, "1": {"count", "mu", "nu"}}``, and its ``MultiStepsState``
+(gradient accumulation) to and from ``optax.MultiSteps``' around it,
+``{"mini_step", "gradient_step", "inner_opt_state": <the chain's>,
+"acc_grads": <a params tree>, "skip_state": {}}``. A flax -> torch ->
+flax round trip is bitwise. Rules:
 
 - Dense kernels are (in, out); ``nn.Linear.weight`` is (out, in).
 - The attention ``to_qkv`` columns are ``[q | k | v]``, each (h, d)-major,
@@ -235,22 +238,45 @@ def vae_params(sd: Mapping) -> dict:
     return out
 
 
-def optax_adam_state(adam) -> dict:
-    """optax's ``chain(clip_by_global_norm, scale_by_adam)`` state, as
-    flax serializes it, of a DALLE train step's ``AdamState``."""
-    return {"0": {}, "1": {
-        "count": np.asarray(adam.count.detach().cpu().numpy(), dtype=np.int32),
-        "mu": dalle_params(adam.mu), "nu": dalle_params(adam.nu)}}
+def _int32(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu().numpy(), dtype=np.int32)
+
+
+def optax_adam_state(opt) -> dict:
+    """optax's state, as flax serializes it, of a DALLE train step's
+    optimizer state: ``chain(clip_by_global_norm, scale_by_adam)``'s of an
+    ``AdamState``, ``MultiSteps``' around it of a ``MultiStepsState``."""
+    from .parallel.step import MultiStepsState
+
+    if isinstance(opt, MultiStepsState):
+        return {"mini_step": _int32(opt.mini_step), "gradient_step": _int32(opt.gradient_step),
+                "inner_opt_state": optax_adam_state(opt.inner),
+                "acc_grads": dalle_params(opt.acc), "skip_state": {}}
+    return {"0": {}, "1": {"count": _int32(opt.count), "mu": dalle_params(opt.mu),
+                           "nu": dalle_params(opt.nu)}}
+
+
+def _counter(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x), dtype=torch.int32).reshape(()).to(device)
+
+
+def _named(tree: Mapping, device) -> Dict[str, torch.Tensor]:
+    return {k: v.to(device) for k, v in dalle_state_dict(tree).items()}
 
 
 def adam_from_optax(tree: Mapping, device=None):
-    """The DALLE train step's ``AdamState`` of optax's chain state
-    (``optax_adam_state``'s form): the count a () int32 tensor, the
-    moments float32 tensors keyed by parameter name, on ``device``."""
-    from .parallel.step import AdamState
+    """The DALLE train step's optimizer state of optax's
+    (``optax_adam_state``'s form): an ``AdamState``, or a
+    ``MultiStepsState`` for ``MultiSteps``' state; counters () int32
+    tensors, moments and accumulator float32 tensors keyed by parameter
+    name, on ``device``."""
+    from .parallel.step import AdamState, MultiStepsState
 
+    if "mini_step" in tree:
+        return MultiStepsState(_counter(tree["mini_step"], device),
+                               _counter(tree["gradient_step"], device),
+                               adam_from_optax(tree["inner_opt_state"], device),
+                               _named(tree["acc_grads"], device))
     adam = tree["1"]
-    count = torch.as_tensor(np.asarray(adam["count"]), dtype=torch.int32).reshape(())
-    return AdamState(count.to(device),
-                     {k: v.to(device) for k, v in dalle_state_dict(adam["mu"]).items()},
-                     {k: v.to(device) for k, v in dalle_state_dict(adam["nu"]).items()})
+    return AdamState(_counter(adam["count"], device), _named(adam["mu"], device),
+                     _named(adam["nu"], device))

@@ -22,11 +22,14 @@ and ``convert("RGB")`` follow Pillow's (12.x) arithmetic:
 Other images (JPEG, BMP, 16-bit or interlaced PNG) are not read here:
 ``open_image`` hands them to Pillow, imported when such a file is opened
 (``MissingDecoderError`` names the file and the package when it is not
-installed).
+installed). ``pillow_image`` opens bytes with Pillow alone, lazily as
+``PIL.Image.open`` does (the tar-shard loader's members, as JAX decodes
+them).
 """
 
 from __future__ import annotations
 
+import io
 import math
 import struct
 import zlib
@@ -196,18 +199,22 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def write_png(path, pixels: np.ndarray) -> None:
-    """Write (h, w) or (h, w, 1 / 2 / 3 / 4) uint8 ``pixels`` as an 8-bit
-    PNG (L, LA, RGB or RGBA), every row unfiltered."""
+def png_bytes(pixels: np.ndarray) -> bytes:
+    """(h, w) or (h, w, 1 / 2 / 3 / 4) uint8 ``pixels`` as an 8-bit PNG
+    (L, LA, RGB or RGBA), every row unfiltered."""
     pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
     if pixels.ndim == 2:
         pixels = pixels[..., None]
     h, w, bands = pixels.shape
     color = {1: 0, 2: 4, 3: 2, 4: 6}[bands]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), pixels.reshape(h, w * bands)], axis=1)
-    Path(path).write_bytes(
-        PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+    return (PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path, pixels: np.ndarray) -> None:
+    """``png_bytes(pixels)`` written to ``path``."""
+    Path(path).write_bytes(png_bytes(pixels))
 
 
 # ---------------------------------------------------------------- resize
@@ -310,6 +317,17 @@ def _unpremultiply(p: np.ndarray) -> np.ndarray:
 # ------------------------------------------------------------------ open
 
 
+def pillow_image(data: bytes, name: str = "<bytes>"):
+    """``PIL.Image.open`` on ``data``: the header is read now, the pixels
+    when first used (``MissingDecoderError`` naming ``name`` without
+    Pillow)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise MissingDecoderError(name) from None
+    return Image.open(io.BytesIO(data))
+
+
 def open_image(path):
     """An ``Image8`` for a PNG the reader takes; otherwise Pillow's image
     (``MissingDecoderError`` without Pillow). Bytes that are no image
@@ -322,10 +340,6 @@ def open_image(path):
             pass
     elif not (data[:3] == b"\xff\xd8\xff" or data[:2] == b"BM"):
         raise ValueError(f"{path}: not a PNG, JPEG or BMP file")
-    try:
-        from PIL import Image
-    except ImportError:
-        raise MissingDecoderError(path) from None
-    with Image.open(path) as img:
+    with pillow_image(data, str(path)) as img:
         img.load()
         return img

@@ -1,6 +1,9 @@
-"""The CLIP byte-level BPE tokenizer (counterpart of
-``dalle_pytorch_tpu/data/tokenizers.py``'s ``SimpleTokenizer`` and its
-``tokenize`` contract), on the standard library alone.
+"""The tokenizers (counterpart of ``dalle_pytorch_tpu/data/tokenizers.py``):
+the CLIP byte-level BPE ``SimpleTokenizer`` on the standard library alone,
+with its ``tokenize`` contract; ``HugTokenizer`` (a HuggingFace
+``tokenizers`` JSON file) and ``YttmTokenizer`` (a youtokentome model),
+each importing its package when built; and ``get_tokenizer``, the module
+default, which prefers the native engine (``data/native_bpe.py``).
 
 JAX splits text with the ``regex`` package's pattern
 ``<\\|startoftext\\|>|<\\|endoftext\\|>|'s|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+``
@@ -9,8 +12,11 @@ point whose ``unicodedata`` category starts with "L", ``\\p{N}`` one whose
 category starts with "N" (not ``str.isalnum`` / ``isnumeric``, which hold
 for CJK ideographs such as 一, category "Lo"), ``\\s`` Unicode's
 White_Space set (``WHITESPACE``, which leaves out U+001C-U+001F where
-``str.isspace`` takes them), and the literals match case-insensitively as
-``regex`` folds them (``'s`` also as ``'ſ``). The categories are Python's
+``str.isspace`` takes them), U+0345 (``UNMATCHED``) matches no
+alternative (under IGNORECASE ``regex`` closes the classes over case,
+and the combining ypogegrammeni falls out of all three: ``findall``
+skips it), and the literals match case-insensitively as ``regex`` folds
+them (``'s`` also as ``'ſ``). The categories are Python's
 own tables; ``regex`` may carry a newer Unicode, so the two agree on the
 code points Python's tables assign (category not "Cn").
 
@@ -38,6 +44,8 @@ PACKAGED_BPE = Path(__file__).parent / (_BPE_FILENAME + ".gz")
 WHITESPACE = frozenset(map(chr, (
     0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20, 0x85, 0xA0, 0x1680, *range(0x2000, 0x200B),
     0x2028, 0x2029, 0x202F, 0x205F, 0x3000)))
+# code points that match none of the pattern's classes (see above)
+UNMATCHED = frozenset("\u0345")
 _SPECIALS = ("<|startoftext|>", "<|endoftext|>")
 _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
 
@@ -98,8 +106,9 @@ def whitespace_clean(text: str) -> str:
 
 
 def _kind(ch: str) -> str:
-    """"L" (letter), "N" (number), "S" (White_Space) or "O" (other)."""
-    if ch in WHITESPACE:
+    """"L" (letter), "N" (number), "S" (White_Space or ``UNMATCHED``:
+    skipped) or "O" (other)."""
+    if ch in WHITESPACE or ch in UNMATCHED:
         return "S"
     cat = unicodedata.category(ch)[0]
     return cat if cat in "LN" else "O"
@@ -234,3 +243,72 @@ class SimpleTokenizer(_TokenizeMixin):
                        if int(t) not in pad_tokens and int(t) != 0)
         return (bytearray(self.byte_decoder[c] for c in text)
                 .decode("utf-8", errors="replace").replace("</w>", " "))
+
+
+class HugTokenizer(_TokenizeMixin):
+    """A byte-level BPE from a HuggingFace ``tokenizers`` JSON file; the
+    package is imported when one is built."""
+
+    def __init__(self, bpe_path: str):
+        from tokenizers import Tokenizer
+
+        assert Path(bpe_path).exists(), f"BPE json path {bpe_path} does not exist"
+        self.tokenizer = Tokenizer.from_file(str(bpe_path))
+        self.vocab_size = self.tokenizer.get_vocab_size()
+
+    def encode(self, text: str) -> List[int]:
+        return self.tokenizer.encode(text).ids
+
+    def decode(self, tokens: Iterable[int], pad_tokens: set = frozenset()) -> str:
+        """ids -> text, dropping ``pad_tokens``, 0s and special tokens."""
+        ids = [int(t) for t in tokens if int(t) not in pad_tokens and int(t) != 0]
+        return self.tokenizer.decode(ids, skip_special_tokens=True)
+
+
+class YttmTokenizer(_TokenizeMixin):
+    """A youtokentome BPE model; the package is imported when one is built
+    (``ImportError`` without it)."""
+
+    def __init__(self, bpe_path: str):
+        assert Path(bpe_path).exists(), f"BPE model path {bpe_path} does not exist"
+        try:
+            import youtokentome as yttm
+        except ImportError as e:
+            raise ImportError("YttmTokenizer requires the youtokentome package") from e
+        self.tokenizer = yttm.BPE(model=str(bpe_path))
+        self.vocab_size = self.tokenizer.vocab_size()
+
+    def encode(self, text: str) -> List[int]:
+        import youtokentome as yttm
+
+        return self.tokenizer.encode([text], output_type=yttm.OutputType.ID)[0]
+
+    def decode(self, tokens: Iterable[int], pad_tokens: set = frozenset()) -> str:
+        return self.tokenizer.decode([[int(t) for t in tokens]],
+                                     ignore_ids=list(pad_tokens) + [0])[0]
+
+
+_default: Optional[_TokenizeMixin] = None
+
+
+def get_tokenizer() -> _TokenizeMixin:
+    """The module default, built at first call: the native engine
+    (``native_bpe.NativeSimpleTokenizer``, byte-exact with
+    ``SimpleTokenizer``), or, with ``DALLE_TPU_NO_NATIVE=1`` or when the
+    engine cannot be built (a warning says why), ``SimpleTokenizer``."""
+    global _default
+    if _default is None:
+        if os.environ.get("DALLE_TPU_NO_NATIVE", "") in ("", "0"):
+            try:
+                from .native_bpe import NativeSimpleTokenizer
+
+                _default = NativeSimpleTokenizer()
+            except Exception as e:
+                import warnings
+
+                warnings.warn(f"native BPE engine unavailable ({e!r}); falling back to the "
+                              "pure-Python tokenizer (slower). Set DALLE_TPU_NO_NATIVE=1 to "
+                              "silence this.")
+        if _default is None:
+            _default = SimpleTokenizer()
+    return _default

@@ -15,8 +15,9 @@ bitwise the plain softmax). Two forms, both causal:
 - ``forward`` (training): the whole [<bos>, text, image] sequence minus
   its trailing token through the transformer, whose layers cycle
   ``attn_types`` ("full", "axial_row", "axial_col", "conv_like",
-  "sparse"); the float32 logits with the block-diagonal logits mask, or
-  the weighted split cross-entropy.
+  "sparse"), with dropout (``attn_dropout``, ``ff_dropout``) when the
+  call has a generator; the float32 logits with the block-diagonal
+  logits mask, or the weighted split cross-entropy.
 - ``fused_step`` (serving): one ragged block of a mixed prefill+decode
   iteration through the cached transformer; image-only logits at each
   row's last valid column. Every layer type decodes ("full" through the
@@ -75,7 +76,7 @@ class DALLE(nn.Module):
     def __init__(self, *, dim: int, depth: int, num_text_tokens: int = 10000,
                  text_seq_len: int = 256, num_image_tokens: int = 512,
                  image_fmap_size: int = 32, heads: int = 8,
-                 dim_head: int = 64,
+                 dim_head: int = 64, attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  attn_types: Optional[Tuple[str, ...]] = None,
                  shift_tokens: bool = True, rotary_emb: bool = True,
                  loss_img_weight: float = 7.0, stable: bool = False,
@@ -88,6 +89,7 @@ class DALLE(nn.Module):
             raise NotImplementedError("DALLE(serve_quant) is not ported")
         self.dim, self.depth = dim, depth
         self.heads, self.dim_head = heads, dim_head
+        self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
         self.num_text_tokens = num_text_tokens
         self.text_seq_len = text_seq_len
         self.num_image_tokens = num_image_tokens
@@ -112,7 +114,8 @@ class DALLE(nn.Module):
         self.transformer = Transformer(
             dim=dim, depth=depth, seq_len=self.total_seq_len, heads=heads,
             dim_head=dim_head, attn_types=attn_types,
-            image_fmap_size=image_fmap_size, shift_tokens=shift_tokens,
+            image_fmap_size=image_fmap_size, attn_dropout=attn_dropout,
+            ff_dropout=ff_dropout, shift_tokens=shift_tokens,
             rotary_emb=rotary_emb, reversible=reversible, remat=remat,
             sparse_layout_seed=sparse_layout_seed, device=device, dtype=dtype,
             param_dtype=self.param_dtype,
@@ -227,13 +230,15 @@ class DALLE(nn.Module):
     # ------------------------------------------------------------ training
 
     def forward(self, text: torch.Tensor, image: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None,
-                return_loss: bool = False) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, return_loss: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """text (b, text_seq_len) raw ids; image (b, <= image_seq_len)
         token ids; mask the optional (b, text_seq_len) text key mask.
         Returns the float32 logits (b, n, total_tokens) with the logits
         mask set to NEG_INF, or with ``return_loss`` (the full image
-        sequence needed) the weighted split cross-entropy."""
+        sequence needed) the weighted split cross-entropy. A call with a
+        ``generator`` (on the model's device) drops out with masks drawn
+        from it; one without is deterministic."""
         if text.shape[-1] != self.text_seq_len:
             raise ValueError(f"text length {text.shape[-1]} != text_seq_len "
                              f"{self.text_seq_len}")
@@ -249,7 +254,7 @@ class DALLE(nn.Module):
         tokens = tokens[:, :self.total_seq_len]  # the last token predicts nothing
         n = tokens.shape[1]
         out = self.transformer(tokens.to(self.dtype),
-                               mask=self._full_key_mask(mask, n))
+                               mask=self._full_key_mask(mask, n), generator=generator)
         normed = self._final_norm(out)
         if not return_loss:
             logits = self.to_logits(normed.to(self.dtype)).float()

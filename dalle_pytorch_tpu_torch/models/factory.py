@@ -6,15 +6,16 @@ carries the model class and JAX's constructor fields under JAX's names and
 values (``config``, and for a DALLE also ``vae_class`` / ``vae_config``),
 its state the params as the JAX module's tree (``convert.dalle_params``,
 ``convert.vae_params``), the optimizer state as optax's
-(``convert.optax_adam_state``) and the step. Fields the port does not
+(``convert.optax_adam_state``: the clipped Adam's, or ``MultiSteps``'
+around it with gradient accumulation) and the step. Fields the port does not
 model are written at JAX's defaults (``reversible: false``,
 ``ff_experts: 0``, ``sp_axis: null``, ...), so JAX's
 ``dalle_from_checkpoint`` rebuilds the same module, and this one reads
 JAX's files.
 
 On load, a config value the port does not run raises
-``NotImplementedError``: reversible or remat execution, experts, dropout
-above 0, gMLP ("mlp") layers, ``serve_quant``, a float16 model, a VAE
+``NotImplementedError``: reversible or remat execution, experts, gMLP
+("mlp") layers, ``serve_quant``, a float16 model, a VAE
 class other than ``DiscreteVAE`` (the OpenAI dVAE and the VQGAN are
 ROADMAP.md queue 1 item 6) and a VAE normalization other than the
 default. ``sp_axis`` / ``pp_axis`` are a run's layout, not the model's:
@@ -74,6 +75,7 @@ def dalle_config(dalle: DALLE) -> dict:
         dim=dalle.dim, depth=dalle.depth, num_text_tokens=dalle.num_text_tokens,
         text_seq_len=dalle.text_seq_len, num_image_tokens=dalle.num_image_tokens,
         image_fmap_size=dalle.image_fmap_size, heads=dalle.heads, dim_head=dalle.dim_head,
+        attn_dropout=dalle.attn_dropout, ff_dropout=dalle.ff_dropout,
         attn_types=None if dalle.attn_types is None else list(dalle.attn_types),
         loss_img_weight=dalle.loss_img_weight, stable=dalle.stable,
         shift_tokens=dalle.shift_tokens, rotary_emb=dalle.rotary_emb,
@@ -102,7 +104,7 @@ def build_dalle(config: dict, device="cuda") -> DALLE:
     weights): refuses what the port does not run."""
     cfg = {**DALLE_FIELDS, **config}
     for name, off in (("reversible", False), ("remat", False), ("ff_experts", 0),
-                      ("attn_dropout", 0.0), ("ff_dropout", 0.0), ("serve_quant", False)):
+                      ("serve_quant", False)):
         if cfg[name] != off:
             _refuse(name, cfg[name], "DALLE checkpoint")
     types = None if cfg["attn_types"] is None else tuple(cfg["attn_types"])
@@ -115,7 +117,8 @@ def build_dalle(config: dict, device="cuda") -> DALLE:
         dim=cfg["dim"], depth=cfg["depth"], num_text_tokens=cfg["num_text_tokens"],
         text_seq_len=cfg["text_seq_len"], num_image_tokens=cfg["num_image_tokens"],
         image_fmap_size=cfg["image_fmap_size"], heads=cfg["heads"], dim_head=cfg["dim_head"],
-        attn_types=types, shift_tokens=cfg["shift_tokens"], rotary_emb=cfg["rotary_emb"],
+        attn_dropout=cfg["attn_dropout"], ff_dropout=cfg["ff_dropout"], attn_types=types,
+        shift_tokens=cfg["shift_tokens"], rotary_emb=cfg["rotary_emb"],
         loss_img_weight=cfg["loss_img_weight"], stable=cfg["stable"],
         sparse_layout_seed=cfg["sparse_layout_seed"], device=device,
         dtype=_DTYPES[cfg["dtype"]], param_dtype=_DTYPES[cfg["param_dtype"]])
@@ -170,7 +173,8 @@ def save_dalle_checkpoint(path, dalle: DALLE, vae: Optional[DiscreteVAE] = None,
                           extra: Optional[dict] = None, opt_state=None,
                           step: Optional[int] = None) -> None:
     """The plain DALLE checkpoint JAX's command line writes: the params,
-    the bundled VAE, the optimizer state (an ``AdamState``) and the step."""
+    the bundled VAE, the optimizer state (an ``AdamState`` or a
+    ``MultiStepsState``) and the step."""
     meta = {"model_class": "DALLE", "config": dalle_config(dalle), **(extra or {})}
     state = {"params": dalle_params(dalle.state_dict())}
     if vae is not None:
@@ -204,8 +208,9 @@ def dalle_from_checkpoint(path, device="cuda", loaded=None):
 
 
 def restore_opt_state(path, device="cuda", loaded=None):
-    """The ``AdamState`` saved by ``save_dalle_checkpoint`` (or JAX's), None
-    when the checkpoint carries none."""
+    """The optimizer state saved by ``save_dalle_checkpoint`` (or JAX's):
+    an ``AdamState``, a ``MultiStepsState`` for ``MultiSteps``' state, or
+    None when the checkpoint carries none."""
     state, meta = loaded if loaded is not None else load_checkpoint(path)
     if not meta.get("has_opt_state"):
         return None

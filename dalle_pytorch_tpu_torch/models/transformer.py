@@ -22,10 +22,13 @@ sequential execution:
   rotary (``rotary_emb=False``) the DALLE adds learned positions to its
   embeddings and the layers rotate nothing.
 
-Reversible and remat execution, pipeline and sequence parallelism, MoE,
-gMLP ("mlp" layers) and the 1-D rotary table (rotary without an image
-grid) raise; dropout is not ported (the attention and feed-forward
-layers raise for a rate above 0).
+Dropout (``attn_dropout`` after each attention's ``to_out``,
+``ff_dropout`` after each feed-forward's gate) runs in the full-sequence
+form when it is given a generator, layer by layer in JAX's order
+(attention, then feed-forward); the decode form never drops. Reversible
+and remat execution, pipeline and sequence parallelism, MoE, gMLP
+("mlp" layers) and the 1-D rotary table (rotary without an image grid)
+raise.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ class Transformer(nn.Module):
                  dim_head: int = 64, ff_mult: float = 4,
                  attn_types: Optional[Tuple[str, ...]] = None,
                  image_fmap_size: Optional[int] = None, causal: bool = True,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  shift_tokens: bool = False, rotary_emb: bool = True,
                  reversible: bool = False, remat: bool = False,
                  sparse_layout_seed: int = 0,
@@ -98,9 +102,9 @@ class Transformer(nn.Module):
             attn = Attention(dim, self.attn_seq_len, heads, dim_head,
                              attn_type=self.attn_types[ind], causal=causal,
                              image_fmap_size=image_fmap_size,
-                             layout_seed=sparse_layout_seed + ind,
+                             dropout=attn_dropout, layout_seed=sparse_layout_seed + ind,
                              device=device, dtype=dtype, param_dtype=param_dtype)
-            ff = FeedForward(dim, ff_mult, device=device, dtype=dtype,
+            ff = FeedForward(dim, ff_mult, dropout=ff_dropout, device=device, dtype=dtype,
                              param_dtype=param_dtype)
             if shift_tokens:
                 attn = PreShiftToken(attn, image_fmap_size, seq_len,
@@ -126,22 +130,24 @@ class Transformer(nn.Module):
         return self._decode_cs[key]
 
     def forward(self, x, cache=None, block_len=None, block_start=None,
-                mask=None, fused_decode: Optional[bool] = None):
+                mask=None, fused_decode: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None):
         """With ``cache`` (``models.sampling.DecodeCache``): one block
         through every layer (row b's tokens at positions block_start[b] +
         j, the valid ones [0, block_len[b])), the cache updated in place;
         ``mask`` the optional (b, L) key mask; ``fused_decode`` (None,
         True or False) chooses the dense layers' decode route
         (``Attention.uses_decode_kernel``). Without: the whole sequence
-        x (b, n, dim), ``mask`` the optional (b, n) key mask; the rotary
-        cos/sin tables are built once for all layers."""
+        x (b, n, dim), ``mask`` the optional (b, n) key mask, dropout
+        drawn from ``generator`` when one is given; the rotary cos/sin
+        tables are built once for all layers."""
         if cache is None:
             rot = None
             if self.rotary is not None:
                 rot = rot_tables(self.rotary, x.shape[1], self.dim_head, x.dtype)
             for ind in range(self.depth):
-                x = x + self.attn_blocks[ind](x, rotary=rot, mask=mask)
-                x = x + self.ff_blocks[ind](x)
+                x = x + self.attn_blocks[ind](x, rotary=rot, mask=mask, generator=generator)
+                x = x + self.ff_blocks[ind](x, generator=generator)
             return x
         rotary_cs = None
         if self.rotary is not None and (fused_decode or (fused_decode is None and x.is_cuda)):

@@ -77,7 +77,7 @@ from .flash_attention import (
     fused_qkv_supported,
     may_attend,
 )
-from .layers import Linear
+from .layers import Linear, dropout
 from .rotary import apply_rotary_emb, rotate_half
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -278,8 +278,6 @@ class Attention(nn.Module):
                  image_fmap_size: Optional[int] = None, layout_seed: int = 0,
                  device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        if dropout > 0:
-            raise NotImplementedError(f"attention dropout {dropout} is not ported")
         if attn_type not in ATTN_TYPES:
             raise ValueError(f"attention type {attn_type!r} is not one of {ATTN_TYPES}")
         if attn_type != "full" and image_fmap_size is None:
@@ -290,6 +288,7 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.image_fmap_size = image_fmap_size
         self.layout_seed = layout_seed
+        self.dropout = dropout
         inner = heads * dim_head
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.to_qkv = Linear(dim, inner * 3, bias=False, **kw)
@@ -354,7 +353,8 @@ class Attention(nn.Module):
                 and self.block_layout(n).visited_block_frac <= ENGAGE_FRAC)
 
     def forward(self, x, kv=None, rotary=None, block_len=None, block_start=None,
-                mask=None, fused_decode: Optional[bool] = None, rotary_cs=None):
+                mask=None, fused_decode: Optional[bool] = None, rotary_cs=None,
+                generator: Optional[torch.Generator] = None):
         """Decode form (``kv`` a ``PagedKV``): x (b, n, dim), row b's valid
         tokens are columns [0, block_len[b]) at positions block_start[b] +
         j; writes their K/V into ``kv`` and advances its index for rows
@@ -365,7 +365,10 @@ class Attention(nn.Module):
         ``rotary_cs`` (the (cos, sin) pair of ``rotary.rot_tables`` over
         the whole angle table) for the fused path. Full-sequence form (no
         ``kv``): ``mask`` is the optional (b, n) key mask, ``rotary`` the
-        (cos, sin) pair of ``rotary.rot_tables``."""
+        (cos, sin) pair of ``rotary.rot_tables``; with a ``generator`` the
+        output of ``to_out`` goes through dropout at rate ``dropout`` (on
+        every route: JAX drops after ``to_out``). The decode forms never
+        drop."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         if isinstance(kv, DenseKV):
@@ -378,7 +381,7 @@ class Attention(nn.Module):
             else:
                 pattern = None if self.attn_type == "full" else self.pattern(n, x.device)
                 out = full_attend(qkv, h, d, mask, self.causal, rotary, pattern)
-            return self.to_out(out)
+            return dropout(self.to_out(out), self.dropout, generator)
         q, k, v = (
             t.reshape(b, n, h, d) for t in self.to_qkv(x).chunk(3, dim=-1)
         )

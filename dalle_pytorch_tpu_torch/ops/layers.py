@@ -2,9 +2,10 @@
 
 The linear layer with a compute dtype apart from its parameters' (flax's
 ``nn.Dense`` with ``dtype`` and ``param_dtype``), LayerScale, PreNorm,
-the GEGLU feed-forward, the token-shift wrapper in both forms (over a
-whole sequence and the decode ring), the axial positional embedding of
-the image grid, and the ``stable`` model's ``divide_max``.
+dropout (flax's ``nn.Dropout``), the GEGLU feed-forward, the token-shift
+wrapper in both forms (over a whole sequence and the decode ring), the
+axial positional embedding of the image grid, and the ``stable`` model's
+``divide_max``.
 Numerics follow the reference: LayerNorm runs in float32 with eps 1e-6
 (flax's default, not torch's 1e-5) on float32 parameters whatever the
 compute dtype; LayerScale casts its float32 scale to x's dtype; the
@@ -55,6 +56,32 @@ def layer_scale_init(depth: int) -> float:
     if depth <= 24:
         return 1e-5
     return 1e-6
+
+
+def keep_mask(generator: torch.Generator, shape, keep_prob: float, device) -> torch.Tensor:
+    """A bool mask of ``shape``, each entry True with probability
+    ``keep_prob``: uniform draws from ``generator`` (on ``device``) below
+    it."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``nn.Dropout``, a generator standing for flax's "dropout"
+    rng and its absence for a deterministic call: x itself, with nothing
+    drawn, without a generator or for rate 0; zeros for rate 1; else
+    ``select(mask, x / keep_prob, 0)`` with the mask from ``keep_mask``
+    and the division in x's dtype (keep_prob rounded to it, as flax's
+    weakly typed scalar is; a divide, not a product with the
+    reciprocal)."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = keep_mask(generator, x.shape, keep, x.device)
+    divisor = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / divisor, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Linear(nn.Linear):
@@ -137,21 +164,22 @@ class AxialPositionalEmbedding(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU: one projection to 2 * mult * dim, x * gelu_tanh(gates), back."""
+    """GEGLU: one projection to 2 * mult * dim, x * gelu_tanh(gates),
+    dropout at rate ``dropout`` when called with a generator, back."""
 
     def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0,
                  device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        if dropout > 0:
-            raise NotImplementedError(f"feed-forward dropout {dropout} is not ported")
+        self.dropout = dropout
         hidden = int(dim * mult)
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.proj_in = Linear(dim, hidden * 2, **kw)
         self.proj_out = Linear(hidden, dim, **kw)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         x, gates = self.proj_in(x).chunk(2, dim=-1)
-        return self.proj_out(x * F.gelu(gates, approximate="tanh"))
+        return self.proj_out(dropout(x * F.gelu(gates, approximate="tanh"), self.dropout,
+                                     generator))
 
 
 @dataclass

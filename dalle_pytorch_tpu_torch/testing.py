@@ -73,9 +73,17 @@ slices of ``decode_attention.decode_slices``, a partial softmax each,
 merged in rank order with the fresh token. Generation through the
 kernel against the unfused chain is a different rounding of the same
 function: teacher-forced logits within ``DECODE_LOGITS_REL``.
+
+The trainer's inputs: ``write_caption_folder`` (a PNG folder),
+``write_tar_shards`` (tar shards of PNG and JPEG members, some cut
+short), ``train_tokenizer_json`` (a HuggingFace tokenizer JSON trained on
+captions), and ``dropout_masks``, which records the dropout masks the
+port draws or feeds it given ones (JAX's, in the tests).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -1175,3 +1183,91 @@ def write_caption_folder(root, n: int, size: int, seed: int = 0, prefix: str = "
         captions.append(" ".join(words))
         (root / f"{prefix}_{i:03d}.txt").write_text(captions[-1] + "\n", encoding="utf8")
     return captions
+
+
+def write_tar_shards(root, shards: int, per_shard: int, size: int, seed: int = 0,
+                     corrupt=(), prefix: str = "shard", image_ext=None, caption_ext="txt"):
+    """``shards`` tar files ``<prefix>-0000.tar``... under ``root``, each
+    of ``per_shard`` samples: a seeded RGB image of ``size`` x ``size``
+    (even samples PNG by the port's writer, odd ones JPEG by Pillow;
+    members ``.png`` / ``.jpg``, or all ``.<image_ext>``) and a
+    ``.<caption_ext>`` of one seeded caption. The image of each global
+    sample index in ``corrupt`` is a JPEG cut after its first quarter (its
+    header reads, its pixels do not). Returns (shard spec
+    ``<prefix>-{0000..N}.tar``, captions)."""
+    import io
+    import tarfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from .data.image_io import png_bytes
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    captions = []
+    for s in range(shards):
+        with tarfile.open(root / f"{prefix}-{s:04d}.tar", "w") as tf:
+            for j in range(per_shard):
+                k = s * per_shard + j
+                pixels = rng.randint(0, 256, size=(size, size, 3)).astype(np.uint8)
+                if k % 2 == 0 and k not in corrupt:
+                    name, data = "png", png_bytes(pixels)
+                else:
+                    buf = io.BytesIO()
+                    Image.fromarray(pixels).save(buf, format="JPEG", quality=90)
+                    name, data = "jpg", buf.getvalue()
+                    if k in corrupt:
+                        data = data[:len(data) // 4]
+                captions.append(" ".join(rng.choice(CAPTION_WORDS, size=rng.randint(3, 9))))
+                for ext, body in ((image_ext or name, data),
+                                  (caption_ext, captions[-1].encode("utf8"))):
+                    info = tarfile.TarInfo(f"sample{k:05d}.{ext}")
+                    info.size = len(body)
+                    tf.addfile(info, io.BytesIO(body))
+    return str(root / f"{prefix}-{{0000..{shards - 1:04d}}}.tar"), captions
+
+
+def train_tokenizer_json(path, captions, vocab_size: int = 300) -> None:
+    """A byte-level BPE tokenizer JSON trained by HuggingFace
+    ``tokenizers`` on ``captions``, written to ``path``."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    trainer = trainers.BpeTrainer(vocab_size=vocab_size, special_tokens=["<pad>", "<eos>"],
+                                  initial_alphabet=pre_tokenizers.ByteLevel.alphabet())
+    tok.train_from_iterator(list(captions), trainer)
+    tok.save(str(path))
+
+
+@contextlib.contextmanager
+def dropout_masks(replay=None):
+    """Every dropout keep mask the port draws inside the block, appended in
+    draw order to the list the block gets (attention, then feed-forward,
+    layer by layer: JAX's module order). With ``replay`` (masks in that
+    order, bool arrays or tensors) each draw takes the next of them
+    instead (the seam that feeds JAX's masks to the port)."""
+    from .ops import layers
+
+    drawn = []
+    pending = None if replay is None else list(replay)
+    draw = layers.keep_mask
+
+    def keep(generator, shape, keep_prob, device):
+        if pending is None:
+            mask = draw(generator, shape, keep_prob, device)
+        else:
+            mask = torch.as_tensor(np.asarray(pending.pop(0)), dtype=torch.bool).to(device)
+            if tuple(mask.shape) != tuple(shape):
+                raise ValueError(f"replayed mask {tuple(mask.shape)} for a draw of {shape}")
+        drawn.append(mask)
+        return mask
+
+    layers.keep_mask = keep
+    try:
+        yield drawn
+    finally:
+        layers.keep_mask = draw

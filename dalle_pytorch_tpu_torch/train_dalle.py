@@ -5,20 +5,38 @@ repository's ``train_dalle.py``).
         --image_text_folder DIR --vae_path VAE.ckpt [train_dalle.py's flags]
 
 ``DalleTrainer(vae, dalle, **flags)`` builds the train state, the step
-(``parallel.step.make_train_step`` with the clipped Adam and the NaN
-guard) and the learning-rate controller. ``dispatch(text, image_tokens)``
-takes one step without reading its loss; ``verdict(loss)`` reads it and
-steps the controller on a finite one; ``train_step(text, images)``
-encodes the images with the VAE, dispatches, and retries a step the
-device rejected (non-finite loss or gradients) on the same batch until
-``consec_skipped`` reaches ``nan_abort_after`` (``NanAbort``).
+(``parallel.step.make_train_step`` with the clipped Adam, optax's
+``MultiSteps`` around it with ``ga_steps`` above 1, and the NaN guard)
+and the learning-rate controller. ``dispatch(text, image_tokens)`` takes
+one step without reading its loss; ``verdict(loss)`` reads it and steps
+the controller on a finite one. With ``ga_steps`` above 1 the trainer
+keeps ``mini_step`` on the host, counted by the verdicts (a rejected
+micro-step keeps it) and read from the device only when a state is set
+from outside (``trainer.state = ...``), and tells each dispatch whether
+it emits: a verdict is read before the next dispatch, which raises
+otherwise. ``train_step(text, images)`` encodes the
+images with the VAE, dispatches, and retries a step the device rejected
+(non-finite loss or gradients) on the same batch until
+``consec_skipped`` reaches ``nan_abort_after`` (``NanAbort``). With
+``attn_dropout`` or ``ff_dropout`` above 0 the step is not deterministic
+(JAX's rule: deterministic only when both are 0) and each dispatch draws
+its dropout masks from a ``torch.Generator`` on the model's device seeded
+with the applied steps so far, as JAX keys its dropout rng: a retried
+batch draws the masks it drew before, and a resumed run the masks an
+uninterrupted one draws. A card's generator and the CPU's give different
+streams.
 
 ``main(argv, device="cuda")`` is ``train_dalle.py``'s ``main()`` on one
 card, with its flags (``build_parser()`` is JAX's, action by action): the
 VAE from ``--vae_path`` (a DiscreteVAE checkpoint), or the DALLE, its VAE,
-the epoch, the scheduler state and the Adam moments from ``--dalle_path``;
-the folder dataset (``data.loader``) with the CLIP BPE tokenizer
-(``data.tokenizers``, ``--bpe_path`` a merges file); the pre-flight save;
+the epoch, the scheduler state and the optimizer state from
+``--dalle_path``; the folder dataset (``data.loader``), or tar shards
+(``data.webdata``, with ``--wds [img,cap]`` or an ``--image_text_folder``
+ending in ``.tar``; a resume replays a partial epoch of a tar stream from
+its start, and says so); the tokenizer (``pick_tokenizer``: the
+HugTokenizer for ``--hug`` or a ``.json`` ``--bpe_path``, the
+YttmTokenizer for a ``.model`` one, else the CLIP BPE of
+``data.tokenizers`` on ``--bpe_path``'s merges); the pre-flight save;
 a ``.ckpt`` (``models.factory``, the format JAX reads) every epoch and
 every ``--save_every_n_steps``, with a step directory under
 ``<name>-cp/`` beside it with ``--sharded_ckpt`` (``--keep_n_checkpoints``
@@ -31,18 +49,18 @@ emergency step directory is written, exit 0; a sample every
 ``--sample_every_n_steps`` through ``models.sampling.generate_images``,
 written as PNG to ``dalle_samples/``; ``torch.profiler`` over three steps
 from ``--profile_step`` into ``--profile_trace_dir`` (a Chrome trace).
-``global_step`` counts dispatches, as JAX's does: a rejected step and its
-retry are two. ``DALLE_TPU_FAULTS`` arms ``nan_at_step`` and
-``ckpt_corrupt`` (``utils.faults``).
+``global_step`` counts dispatches (micro-steps with ``--ga_steps``), as
+JAX's does: a rejected step and its retry are two. ``DALLE_TPU_FAULTS``
+arms ``nan_at_step``, ``ckpt_corrupt``, ``shard_open`` and ``shard_read``
+(``utils.faults``); the tar loader's ``webdata.*`` counters are logged
+every 100 steps.
 
 The flags in ``NOT_PORTED`` raise ``NotImplementedError`` (with their
 ROADMAP.md queue item) when set to anything but their default, before any
-model or file is built: the HugTokenizer, Chinese and tar (webdataset)
-inputs, the OpenAI dVAE and the VQGAN (also the default that names
-neither ``--vae_path`` nor ``--dalle_path``), Weights & Biases, the mesh
-and MoE flags, gradient accumulation, dropout, reversible and remat
-execution, and telemetry. ``--bpe_path`` to a ``.json`` or ``.model``
-file (the HugTokenizer and YTTM) is refused too.
+model or file is built: the Chinese tokenizer, the OpenAI dVAE and the
+VQGAN (also the default that names neither ``--vae_path`` nor
+``--dalle_path``), Weights & Biases, the mesh and MoE flags, reversible
+and remat execution, and telemetry.
 
 ``bf16`` (``--bf16``, ``--fp16`` and ``--amp``) trains in mixed precision
 as JAX does: the DALLE computes in bfloat16 on float32 parameters, the
@@ -66,8 +84,10 @@ import torch
 
 from .models.dalle import DALLE
 from .parallel.step import (
-    AdamState,
+    MultiStepsState,
+    TrainState,
     create_train_state,
+    load_opt_state,
     load_train_state,
     make_train_step,
     train_state_tree,
@@ -78,11 +98,14 @@ from .utils.schedules import ConstantLR, ReduceLROnPlateau
 MODEL_FLAGS = dict(dim=512, depth=2, heads=8, dim_head=64, text_seq_len=256,
                    loss_img_weight=7, shift_tokens=False, rotary_emb=False,
                    stable_softmax=False, attn_types="full")
+# the dropout rates also build the DALLE, and with a given one (a resume)
+# they decide only whether the step is deterministic, as in JAX
 TRAINER_FLAGS = dict(MODEL_FLAGS, batch_size=4, learning_rate=3e-4, clip_grad_norm=0.5,
-                     lr_decay=False, nan_abort_after=5, seed=42, bf16=False)
+                     lr_decay=False, nan_abort_after=5, seed=42, bf16=False, ga_steps=1,
+                     attn_dropout=0.0, ff_dropout=0.0)
 # the flags only the command line takes
-CLI_FLAGS = dict(vae_path=None, dalle_path=None, image_text_folder=None,
-                 truncate_captions=False, resize_ratio=0.75, bpe_path=None,
+CLI_FLAGS = dict(vae_path=None, dalle_path=None, image_text_folder=None, wds="",
+                 truncate_captions=False, resize_ratio=0.75, hug=False, bpe_path=None,
                  dalle_output_file_name="dalle", epochs=20, save_every_n_steps=1000,
                  sample_every_n_steps=1000, keep_n_checkpoints=None, sharded_ckpt=False,
                  auto_resume=True, profile_trace_dir=None, profile_step=200)
@@ -93,9 +116,7 @@ _MOE = "queue 1 item 6 (ops/moe.py)"
 _WANDB = "not queued: Weights & Biases needs the network"
 _TELEMETRY = "queue 1 item 5 (utils/telemetry.py)"
 NOT_PORTED = {
-    "wds": "queue 1 item 6 (data/webdata.py)",
     "chinese": "not queued: ChineseTokenizer downloads its vocabulary",
-    "hug": "queue 1 item 2(b) (HugTokenizer)",
     "taming": "queue 1 item 6 (models/vqgan.py)",
     "vqgan_model_path": "queue 1 item 6 (models/vqgan.py)",
     "vqgan_config_path": "queue 1 item 6 (models/vqgan.py)",
@@ -106,9 +127,6 @@ NOT_PORTED = {
     "ep": _MESH,
     "moe_experts": _MOE, "moe_every": _MOE, "moe_aux_weight": _MOE,
     "moe_capacity_factor": _MOE,
-    "ga_steps": "queue 1 item 2(d) (gradient accumulation)",
-    "ff_dropout": "queue 1 item 2(c) (dropout)",
-    "attn_dropout": "queue 1 item 2(c) (dropout)",
     "reversible": "queue 1 item 2(e) (reversible execution)",
     "remat": "queue 1 item 2(e) (remat)",
     "telemetry": _TELEMETRY, "telemetry_dir": _TELEMETRY, "metrics_port": _TELEMETRY,
@@ -119,20 +137,23 @@ class NanAbort(RuntimeError):
     """``nan_abort_after`` consecutive steps were rejected as non-finite."""
 
 
-def dalle_loss(model: DALLE, batch: dict) -> torch.Tensor:
-    """The training loss of a batch {"text", "image"} (image token ids)."""
-    return model(batch["text"], batch["image"], return_loss=True)
+def dalle_loss(model: DALLE, batch: dict,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The training loss of a batch {"text", "image"} (image token ids);
+    with a ``generator``, not deterministic (dropout drawn from it)."""
+    return model(batch["text"], batch["image"], return_loss=True, generator=generator)
 
 
 class DalleTrainer:
     """``vae`` encodes images (b, h, w, c) in [0, 1] to tokens. ``dalle``
     is the model to train; without one the trainer builds it from the
-    model flags (``num_text_tokens`` the tokenizer's vocabulary, the image
-    vocabulary and grid from the VAE) with seeded random weights on
-    ``device``, in bfloat16 on float32 parameters with ``bf16``; a given
-    ``dalle`` must compute in the type ``bf16`` names, on float32
-    parameters. ``nan_inject_step`` forces the loss to NaN at that step
-    (the fault hook of the JAX step)."""
+    model flags and the dropout rates (``num_text_tokens`` the tokenizer's
+    vocabulary, the image vocabulary and grid from the VAE) with seeded
+    random weights on ``device``, in bfloat16 on float32 parameters with
+    ``bf16``; a given ``dalle`` must compute in the type ``bf16`` names,
+    on float32 parameters, and keeps its own rates. ``nan_inject_step``
+    forces the loss to NaN at that step (the fault hook of the JAX
+    step)."""
 
     def __init__(self, vae, dalle: Optional[DALLE] = None, *,
                  num_text_tokens: int = 10000, device="cuda",
@@ -161,6 +182,7 @@ class DalleTrainer:
                 text_seq_len=args["text_seq_len"],
                 num_image_tokens=vae.num_tokens, image_fmap_size=vae.fmap_size,
                 heads=args["heads"], dim_head=args["dim_head"],
+                attn_dropout=args["attn_dropout"], ff_dropout=args["ff_dropout"],
                 attn_types=attn_types,
                 loss_img_weight=args["loss_img_weight"],
                 shift_tokens=args["shift_tokens"],
@@ -178,21 +200,51 @@ class DalleTrainer:
         self.vae, self.dalle = vae, dalle
         self.batch_size = args["batch_size"]
         self.nan_abort_after = args["nan_abort_after"]
-        self.state = create_train_state(dalle)
+        self.deterministic = args["attn_dropout"] == 0 and args["ff_dropout"] == 0
+        self.ga_steps = args["ga_steps"]
+        self._unread = False  # a dispatch whose verdict is not read yet
+        self.state = create_train_state(dalle, ga_steps=self.ga_steps)
         self.step_fn = make_train_step(dalle_loss, args["clip_grad_norm"],
-                                       nan_inject_step=nan_inject_step)
+                                       nan_inject_step=nan_inject_step,
+                                       ga_steps=args["ga_steps"])
         lr = args["learning_rate"]
         self.sched = ReduceLROnPlateau(lr) if args["lr_decay"] else ConstantLR(lr)
         self.lr = self.sched.lr
         self.steps = 0    # applied (finite) steps
         self.retries = 0  # dispatches the device rejected
 
+    @property
+    def state(self) -> TrainState:
+        return self._state
+
+    @state.setter
+    def state(self, state: TrainState) -> None:
+        """A state set from outside (a fresh or a restored one): the host's
+        ``mini_step`` is read from it."""
+        self._state = state
+        self._mini_step = (int(state.opt_state.mini_step)
+                           if isinstance(state.opt_state, MultiStepsState) else 0)
+
+    def generator(self) -> Optional[torch.Generator]:
+        """The next dispatch's dropout generator, seeded with the applied
+        steps so far; None when the step is deterministic."""
+        if self.deterministic:
+            return None
+        return torch.Generator(device=self.dalle.device).manual_seed(self.steps)
+
     def dispatch(self, text: torch.Tensor, image_tokens: torch.Tensor) -> torch.Tensor:
         """One step on text (b, text_seq_len) raw ids and image token ids
         (b, image_seq_len): the state moves on and the loss comes back
-        unread, a () tensor that is NaN for a step the device rejected."""
-        self.state, loss = self.step_fn(self.state, self.dalle,
-                                        {"text": text, "image": image_tokens}, self.lr)
+        unread, a () tensor that is NaN for a step the device rejected.
+        With ``ga_steps`` above 1 the previous dispatch's verdict must have
+        been read (the host's ``mini_step`` follows the verdicts)."""
+        if self._unread and self.ga_steps > 1:
+            raise RuntimeError("ga_steps > 1: read the previous dispatch's verdict first")
+        self._state, loss = self.step_fn(self._state, self.dalle,
+                                         {"text": text, "image": image_tokens}, self.lr,
+                                         self.generator(),
+                                         emit=self._mini_step == self.ga_steps - 1)
+        self._unread = True
         return loss
 
     def verdict(self, loss: torch.Tensor) -> float:
@@ -200,8 +252,10 @@ class DalleTrainer:
         steps the learning-rate controller; a rejected one counts a
         retry. Returns the loss as a float."""
         loss = float(loss)
+        self._unread = False
         if math.isfinite(loss):
             self.steps += 1
+            self._mini_step = (self._mini_step + 1) % self.ga_steps
             self.lr = self.sched.step(loss)
         else:
             self.retries += 1
@@ -238,14 +292,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--image_text_folder", type=str, required=True,
                         help="folder of images + same-stem .txt captions")
     parser.add_argument("--wds", type=str, nargs="?", const="auto", default="",
-                        help="webdataset tar shards (not ported)")
+                        help="tar shards (the folder is a shard spec); optional "
+                             "img,cap member names")
     parser.add_argument("--truncate_captions", action="store_true")
     parser.add_argument("--random_resize_crop_lower_ratio", dest="resize_ratio",
                         type=float, default=0.75)
     parser.add_argument("--chinese", action="store_true", help="not ported")
-    parser.add_argument("--hug", action="store_true", help="not ported")
+    parser.add_argument("--hug", action="store_true",
+                        help="a HuggingFace tokenizer JSON at --bpe_path")
     parser.add_argument("--bpe_path", type=str, default=None,
-                        help="a BPE merges file for the CLIP tokenizer (plain or gzip)")
+                        help="a BPE merges file for the CLIP tokenizer (plain or gzip), "
+                             "a tokenizer .json or a youtokentome .model")
     parser.add_argument("--taming", action="store_true", help="not ported")
     parser.add_argument("--vqgan_model_path", type=str, default=None, help="not ported")
     parser.add_argument("--vqgan_config_path", type=str, default=None, help="not ported")
@@ -281,7 +338,8 @@ def build_parser() -> argparse.ArgumentParser:
     train_group.add_argument("--sample_every_n_steps", default=1000, type=int)
     train_group.add_argument("--keep_n_checkpoints", default=None, type=int)
     train_group.add_argument("--batch_size", default=4, type=int)
-    train_group.add_argument("--ga_steps", default=1, type=int, help="not ported")
+    train_group.add_argument("--ga_steps", default=1, type=int,
+                             help="micro-steps accumulated into each optimizer step")
     train_group.add_argument("--learning_rate", default=3e-4, type=float)
     train_group.add_argument("--clip_grad_norm", default=0.5, type=float)
     train_group.add_argument("--lr_decay", action="store_true")
@@ -305,8 +363,8 @@ def build_parser() -> argparse.ArgumentParser:
     model_group.add_argument("--depth", default=2, type=int)
     model_group.add_argument("--heads", default=8, type=int)
     model_group.add_argument("--dim_head", default=64, type=int)
-    model_group.add_argument("--ff_dropout", default=0.0, type=float, help="not ported")
-    model_group.add_argument("--attn_dropout", default=0.0, type=float, help="not ported")
+    model_group.add_argument("--ff_dropout", default=0.0, type=float)
+    model_group.add_argument("--attn_dropout", default=0.0, type=float)
     model_group.add_argument("--reversible", action="store_true", help="not ported")
     model_group.add_argument("--remat", action="store_true", help="not ported")
     model_group.add_argument("--loss_img_weight", default=7, type=int)
@@ -320,27 +378,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """``NotImplementedError`` for every flag the port does not run, set
-    to anything but its default, and for the inputs it does not read."""
+    to anything but its default, and for the VAE it does not read."""
     defaults = build_parser().parse_args(["--image_text_folder", "."])
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag) != getattr(defaults, flag):
             raise NotImplementedError(f"--{flag} is not ported (ROADMAP.md {item})")
-    if args.image_text_folder.endswith(".tar"):
-        raise NotImplementedError("tar shards as --image_text_folder are not ported "
-                                  "(ROADMAP.md queue 1 item 6, data/webdata.py)")
     if not (args.vae_path or args.dalle_path):
         raise NotImplementedError("training without --vae_path or --dalle_path uses the OpenAI "
                                   "dVAE, which is not ported (ROADMAP.md queue 1 item 6)")
 
 
 def pick_tokenizer(args):
-    """The CLIP BPE tokenizer, on ``--bpe_path``'s merges when given."""
-    from .data.tokenizers import SimpleTokenizer
+    """JAX's rules: ``--hug`` (which needs ``--bpe_path``) or a ``.json``
+    ``--bpe_path`` the HugTokenizer, a ``.model`` one the YttmTokenizer,
+    else the CLIP BPE tokenizer on ``--bpe_path``'s merges when given
+    (``--chinese`` is refused before this)."""
+    from .data.tokenizers import HugTokenizer, SimpleTokenizer, YttmTokenizer
 
-    if args.bpe_path is not None and args.bpe_path.endswith((".json", ".model")):
-        kind = "HugTokenizer" if args.bpe_path.endswith(".json") else "YttmTokenizer"
-        raise NotImplementedError(f"--bpe_path {args.bpe_path}: the {kind} is not ported "
-                                  "(ROADMAP.md queue 1 item 2(b))")
+    if args.hug:
+        assert args.bpe_path is not None, "--hug requires --bpe_path (tokenizer json)"
+        return HugTokenizer(args.bpe_path)
+    if args.bpe_path is not None:
+        if args.bpe_path.endswith(".json"):
+            return HugTokenizer(args.bpe_path)
+        if args.bpe_path.endswith(".model"):
+            return YttmTokenizer(args.bpe_path)
     return SimpleTokenizer(args.bpe_path)
 
 
@@ -349,6 +411,7 @@ def main(argv=None, *, device="cuda") -> None:
     not a flag: the tests run on the CPU)."""
     from .data.image_io import write_png
     from .data.loader import DataLoader, TextImageDataset
+    from .data.webdata import TarImageTextDataset, TarLoader
     from .models.factory import (
         dalle_from_checkpoint,
         restore_opt_state,
@@ -392,13 +455,24 @@ def main(argv=None, *, device="cuda") -> None:
 
     # ---- data ---------------------------------------------------------------
     text_seq_len = dalle.text_seq_len if dalle is not None else args.text_seq_len
-    dataset = TextImageDataset(
-        args.image_text_folder, text_len=text_seq_len, image_size=vae.image_size,
-        truncate_captions=args.truncate_captions, resize_ratio=args.resize_ratio,
-        tokenizer=tokenizer, shuffle=True, seed=args.seed)
-    if len(dataset) == 0:
-        raise ValueError(f"no image-text pairs found at {args.image_text_folder}")
-    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
+    data = dict(text_len=text_seq_len, image_size=vae.image_size,
+                truncate_captions=args.truncate_captions, resize_ratio=args.resize_ratio,
+                tokenizer=tokenizer)
+    if args.wds or args.image_text_folder.endswith(".tar"):
+        cols = [c.strip() for c in ("" if args.wds == "auto" else args.wds).split(",")
+                if c.strip()]
+        if cols and len(cols) != 2:
+            raise SystemExit(f"--wds wants 2 comma-separated column names (img,cap); "
+                             f"got {args.wds!r}")
+        dataset = TarImageTextDataset(
+            args.image_text_folder, **data, image_key=cols[0] if cols else None,
+            caption_key=cols[1] if cols else None, counters=counters, faults=faults)
+        loader = TarLoader(dataset, args.batch_size)
+    else:
+        dataset = TextImageDataset(args.image_text_folder, **data, shuffle=True, seed=args.seed)
+        if len(dataset) == 0:
+            raise ValueError(f"no image-text pairs found at {args.image_text_folder}")
+        loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
     logger = MetricsLogger(config=vars(args))
 
     # ---- state, step ----------------------------------------------------------
@@ -410,14 +484,8 @@ def main(argv=None, *, device="cuda") -> None:
     trainer = DalleTrainer(vae, dalle, num_text_tokens=tokenizer.vocab_size, device=device,
                            nan_inject_step=faults.value("nan_at_step"), **run_flags)
     dalle = trainer.dalle
-    if opt_state is not None:  # keep the Adam moments across a resume
-        adam = trainer.state.opt_state
-        with torch.no_grad():
-            for name in adam.mu:
-                adam.mu[name].copy_(opt_state.mu[name])
-                adam.nu[name].copy_(opt_state.nu[name])
-        trainer.state = trainer.state._replace(opt_state=AdamState(
-            opt_state.count.to(trainer.state.step.device), adam.mu, adam.nu))
+    if opt_state is not None:  # keep the optimizer state across a resume
+        trainer.state = load_opt_state(trainer.state, opt_state)
     del opt_state
     sched = trainer.sched
     if sched_state:
@@ -448,6 +516,17 @@ def main(argv=None, *, device="cuda") -> None:
             start_epoch = resume_epoch
         logger.log_text(f"resuming from {sharded_dir} step {global_step} "
                         f"(epoch {resume_epoch}, iter {resume_iter})")
+        # the folder loader's epoch order is reproducible in a new process
+        # (seed + epoch); a tar stream's is not, so skipping batches would
+        # drop or repeat samples: replay the partial epoch from its start
+        if resume_iter >= 0 and not hasattr(loader, "epoch"):
+            logger.log_text(f"tar-stream loader has no reproducible epoch order: replaying "
+                            f"epoch {resume_epoch} from its start (up to {resume_iter + 1} "
+                            f"batches re-seen)")
+            resume_iter = -1
+    # the dropout generator's key: the applied steps (dispatches less
+    # rejections), as JAX keys its rng
+    trainer.steps = global_step - int(trainer.state.skipped)
 
     def save(epoch):
         t0 = time.perf_counter()
@@ -507,7 +586,8 @@ def main(argv=None, *, device="cuda") -> None:
 
     with PreemptionHandler() as preempt:
         for epoch in range(start_epoch, args.epochs):
-            loader.epoch = epoch  # the shuffle order of this epoch, on a resume too
+            if hasattr(loader, "epoch"):
+                loader.epoch = epoch  # the shuffle order of this epoch, on a resume too
             retry_batch = None
             nxt = None
             exhausted = False
@@ -553,6 +633,8 @@ def main(argv=None, *, device="cuda") -> None:
                     logger.log({"loss": float(prev_loss), "epoch": epoch, "iter": i,
                                 "lr": trainer.lr, "nan_skips": counters.get("train.nan_skips")},
                                step=global_step)
+                if global_step % 100 == 0:
+                    logger.log_counters(counters, step=global_step, prefix="webdata.")
                 rate = throughput.update(args.batch_size)
                 if rate is not None:
                     logger.log({"sample_per_sec": rate}, step=global_step)

@@ -1,6 +1,6 @@
 """Deterministic fault injection (counterpart of
 ``dalle_pytorch_tpu/utils/faults.py``'s registry: the serving engine's
-sites and the trainer's).
+sites, the trainer's and the tar-shard loader's).
 
 A fault site is a named counter: the code asks the registry at the site
 whether to fail, the registry counts one down, and once the armed count
@@ -31,6 +31,10 @@ Sites:
 ``ckpt_corrupt``   after a step directory commits, 64 bytes of its largest
                    payload file are flipped (bit rot that only the
                    checksums catch)
+``shard_open``     opening a tar shard raises ``OSError`` (retried, and
+                   the shard quarantined once the retries are spent)
+``shard_read``     reading the next sample of a tar shard raises
+                   ``tarfile.TarError`` (the rest of the shard is dropped)
 ================== ======================================================
 """
 
@@ -41,7 +45,7 @@ from typing import Dict, Optional
 
 ENV_VAR = "DALLE_TPU_FAULTS"
 SITES = ("prefill_fail", "page_exhaust", "decode_stall", "request_cancel",
-         "nan_at_step", "ckpt_corrupt")
+         "nan_at_step", "ckpt_corrupt", "shard_open", "shard_read")
 # sites whose armed number is a parameter (a step index), not a count
 VALUE_SITES = frozenset({"nan_at_step"})
 
@@ -91,3 +95,8 @@ class FaultRegistry:
         self._armed[site] = remaining - 1
         self.fired[site] = self.fired.get(site, 0) + 1
         return True
+
+    def maybe_raise(self, site: str, exc: BaseException) -> None:
+        """Raise ``exc`` when a failure is armed at ``site`` (consuming it)."""
+        if self.take(site):
+            raise exc

@@ -1,7 +1,9 @@
 """The trainer's metrics (counterpart of the part of
 ``dalle_pytorch_tpu/utils/metrics.py`` that ``train_dalle.py`` uses):
 named counters, the samples-per-second window and the console logger,
-whose lines are JAX's (``step N: loss=... epoch=...``). One card is one
+whose lines are JAX's (``step N: loss=... epoch=...``). There is no
+process-wide ``Counters``: the command line makes one and hands it to
+the tar-shard loader. One card is one
 process, the root; there is no Weights & Biases sink (``--wandb`` is
 refused).
 """
@@ -16,7 +18,7 @@ from typing import Dict, Optional
 
 class Counters:
     """Thread-safe named counters for fault accounting: the trainer counts
-    ``train.nan_skips`` here."""
+    ``train.nan_skips`` here, the tar-shard loader ``webdata.*``."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -30,6 +32,11 @@ class Counters:
     def get(self, name: str) -> int:
         with self._lock:
             return self._counts.get(name, 0)
+
+    def snapshot(self, prefix: str = "") -> Dict[str, int]:
+        """The counters whose names start with ``prefix``."""
+        with self._lock:
+            return {k: v for k, v in sorted(self._counts.items()) if k.startswith(prefix)}
 
 
 class MetricsLogger:
@@ -47,6 +54,13 @@ class MetricsLogger:
 
     def log_text(self, text: str) -> None:
         print(text, flush=True)
+
+    def log_counters(self, counters: Counters, step: Optional[int] = None,
+                     prefix: str = "") -> None:
+        """Log ``counters``' nonzero values under ``prefix`` as metrics."""
+        snap = {k: v for k, v in counters.snapshot(prefix).items() if v}
+        if snap:
+            self.log(snap, step=step)
 
 
 class Throughput:

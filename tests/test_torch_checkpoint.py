@@ -341,8 +341,8 @@ def test_fault_registry_reads_the_jax_format():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("reversible", True), ("remat", True), ("ff_experts", 4), ("attn_dropout", 0.1),
-    ("ff_dropout", 0.1), ("serve_quant", True), ("attn_types", ["full", "mlp"]),
+    ("reversible", True), ("remat", True), ("ff_experts", 4),
+    ("serve_quant", True), ("attn_types", ["full", "mlp"]),
     ("dtype", "float16"),
 ])
 def test_refused_dalle_configs_raise(field, value):

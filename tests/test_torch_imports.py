@@ -5,7 +5,11 @@ trainer import and run (a CPU fused_step, a CLIP similarity, a train
 step) in a process where importing jax fails. The trainer's command line
 also runs (one epoch of two steps on a PNG folder, to a checkpoint) where
 none of the card's missing host packages can be imported either: PIL,
-regex, msgpack, tokenizers and ftfy."""
+regex, msgpack, tokenizers and ftfy. The tar-shard loader
+(``data/webdata.py``), the native engine's binding
+(``data/native_bpe.py``) and its build (``native/``) import and run where
+jax and the JAX package cannot be imported, and name no path of the JAX
+package's ``native/``."""
 
 import ast
 import os
@@ -112,3 +116,39 @@ print("ok")
     )
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
     assert (tmp_path / "dalle.ckpt").exists() and (tmp_path / "dalle-cp" / "step_00000002").is_dir()
+
+
+NEW_MODULES = ("data/webdata.py", "data/native_bpe.py", "native/build.py",
+               "native/gen_unicode_tables.py", "native/bpe_tokenizer.cc")
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_data_and_native_sources_name_no_jax_native_path(name):
+    text = (REPO / "dalle_pytorch_tpu_torch" / name).read_text()
+    assert "dalle_pytorch_tpu/native" not in text and "dalle_pytorch_tpu.native" not in text
+    assert ".cache" not in text
+
+
+def test_data_and_native_modules_run_with_jax_unimportable(tmp_path):
+    code = f"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "dalle_pytorch_tpu"):
+    sys.modules[name] = None
+from dalle_pytorch_tpu_torch.data.native_bpe import NativeSimpleTokenizer
+from dalle_pytorch_tpu_torch.data.webdata import TarImageTextDataset, TarLoader
+from dalle_pytorch_tpu_torch.native import build, gen_unicode_tables
+from dalle_pytorch_tpu_torch.testing import write_tar_shards
+spec, _ = write_tar_shards({str(tmp_path)!r}, 2, 2, 16, seed=1)
+tok = NativeSimpleTokenizer()
+batches = list(TarLoader(TarImageTextDataset(spec, text_len=8, image_size=8, tokenizer=tok,
+                                             truncate_captions=True), 2))
+assert len(batches) == 2 and batches[0]["image"].shape == (2, 8, 8, 3)
+assert str(build.library_path()).startswith(str(build.BUILD_DIR))
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "dalle_pytorch_tpu")
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr

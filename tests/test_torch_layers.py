@@ -163,9 +163,20 @@ def test_preshift_full_sequence_form_matches_reference():
 
 
 def test_dropout_raises():
+    """Dropout is ported (tests/test_torch_dropout.py), so nothing raises
+    any more: the layers build at a rate above 0, and a call without a
+    generator (flax's deterministic call) is the identity."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
     from dalle_pytorch_tpu_torch.ops.attention import Attention
 
-    with pytest.raises(NotImplementedError):
-        layers.FeedForward(8, dropout=0.1)
-    with pytest.raises(NotImplementedError):
-        Attention(8, 4, heads=2, dim_head=4, dropout=0.1)
+    x = torch.randn(2, 4, 8)
+    assert layers.dropout(x, 0.1, None) is x
+    ff = layers.FeedForward(8, dropout=0.1)
+    attn = Attention(8, 4, heads=2, dim_head=4, dropout=0.1)
+    assert (ff.dropout, attn.dropout) == (0.1, 0.1)
+    assert torch.equal(ff(x), ff(x, generator=None))
+    model = DALLE(dim=16, depth=1, num_text_tokens=10, text_seq_len=4, num_image_tokens=6,
+                  image_fmap_size=2, heads=2, dim_head=8, attn_dropout=0.1, device="cpu")
+    text, image = torch.ones(1, 4, dtype=torch.long), torch.zeros(1, 4, dtype=torch.long)
+    torch.testing.assert_close(model(text, image), model(text, image, generator=None),
+                               rtol=0, atol=0)

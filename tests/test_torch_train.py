@@ -308,14 +308,14 @@ def test_trainer_flags_are_train_dalle_flags():
     defaults = {a.dest: a.default for a in j_train_dalle.build_parser()._actions}
     assert {k: defaults[k] for k in train_dalle.FLAGS} == train_dalle.FLAGS
     vae = _vae()
-    with pytest.raises(NotImplementedError, match="ga_steps"):
-        train_dalle.DalleTrainer(vae, device="cpu", ga_steps=2)
+    with pytest.raises(NotImplementedError, match="reversible"):
+        train_dalle.DalleTrainer(vae, device="cpu", reversible=True)
     with pytest.raises(TypeError):
         train_dalle.DalleTrainer(vae, device="cpu", no_such_flag=1)
     with pytest.raises(ValueError):
         train_dalle.DalleTrainer(vae, _port_small(), device="cpu", dim=64)
-    with pytest.raises(NotImplementedError, match="ff_dropout"):  # not ported
-        train_dalle.DalleTrainer(vae, device="cpu", ff_dropout=0.1)
+    with pytest.raises(NotImplementedError, match="remat"):  # not ported
+        train_dalle.DalleTrainer(vae, device="cpu", remat=True)
 
 
 def _port_small():

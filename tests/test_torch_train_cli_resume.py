@@ -20,7 +20,10 @@ the CPU (the port alone).
   relaunch's are the uninterrupted run's.
 - ``--nan_abort_after`` aborts with an emergency step directory.
 - Every refused flag raises ``NotImplementedError`` naming its ROADMAP.md
-  queue item, before any file is written.
+  queue item, before any file is written; so does training without a
+  VAE (the OpenAI dVAE). Tar shards and the HugTokenizer / YttmTokenizer
+  ``--bpe_path`` files are read (``tests/test_torch_webdata.py``,
+  ``tests/test_torch_hug_tokenizer.py``).
 """
 
 import argparse
@@ -218,12 +221,7 @@ def test_refused_flag_raises_before_any_file(flag, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--image_text_folder", "shards.tar", "--vae_path", "v.ckpt"], "tar shards"),
     (["--image_text_folder", "data"], "OpenAI dVAE"),
-    (["--image_text_folder", "data", "--vae_path", "v.ckpt", "--bpe_path", "t.json"],
-     "HugTokenizer"),
-    (["--image_text_folder", "data", "--vae_path", "v.ckpt", "--bpe_path", "t.model"],
-     "YttmTokenizer"),
 ])
 def test_refused_inputs_raise_before_any_file(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
