@@ -63,7 +63,7 @@ line):
    monolithic) and the fused path, the ragged kernel launched depth x
    dispatches times; ``generate_image_tokens`` on "4d" with the decode
    kernel's no-rotary instance, tokens card = CPU, depth x 15 launches.
-5. engine: the flagship DALLE at full width and depth cut to 4 of 12
+5. engine: the flagship DALLE at full width and depth cut to 2 of 12
    (``SERVE_MODEL``: dim 1024, 16 heads of 64, 256 text + 32x32 image
    tokens, bf16, seeded random weights) served by the
    fused engine (max_batch 8, prefill chunk 16) with post-decode stages:
@@ -108,8 +108,16 @@ line):
 5g. generate learned_pos: the same model, batch 1 on the "4d" cache,
    256 tokens with the decode kernel's no-rotary instance, window 0,
    the kernel launched depth x 255 times; ms per token printed.
+5h. serve reversible: ``SERVE_MODEL`` with ``reversible=True`` (the
+   decode form's direct reversible wiring), float32, seeded weights on
+   the card and the same on the CPU, greedy: 2 requests of 16 tokens
+   through the split path (monolithic prefill) and the fused iteration
+   (chunks of 16), tokens card = CPU, the ragged kernel depth x
+   dispatches times; then ``decode_tokens`` of 2 captions on the "flat"
+   cache with the decode kernel, 16 tokens card = CPU, the decode kernel
+   depth x 15 times.
 5c. serve sparse: the sparse configuration (phase 10's layers) at the
-   flagship width and phase 5's depth, bf16, int8 pages, 4 requests of
+   flagship width and depth 4 (each type once), bf16, int8 pages, 4 requests of
    256 tokens: every outcome COMPLETED, the int8 ragged instance launched
    (full layers) x dispatched iterations times.
 5d. generate: the flagship of phase 5 generating outside the engine
@@ -143,6 +151,19 @@ line):
    no token shift, "full", float32, batch 4) on phase 8's VAE and batch:
    10 steps as phase 8 (the packed kernels' no-rotary instances depth x
    (steps + retries) times each), then profiled as phase 9.
+8d. train reversible: phase 8's model, seed, VAE and batch with
+   ``reversible=True``, float32 then bf16: one forward and backward with
+   the packed kernels against their plain versions on the card (phase
+   4's tolerances: the loss and every gradient), then ``REV_STEPS`` steps
+   each of the sequential, reversible (kernels), reversible (plain
+   versions, nothing launched) and remat trainers of the same seed,
+   counted: the packed forward 2 x depth and its backward depth x
+   dispatches (sequential depth and depth); reversible's losses within
+   phase 4's tolerances of its plain run's, and its peak memory below
+   sequential's. Each run's step walls and peak memory are printed.
+8e. train remat (in the same phase): ``remat=True``, the same counts
+   as reversible, its loss sequence bitwise sequential's, its peak
+   memory below sequential's.
 8b. train bf16: the same model, seed and batch trained in mixed
    precision (``DalleTrainer(bf16=True)``: bfloat16 compute on float32
    parameters and Adam moments, checked), as phase 8 (the packed
@@ -215,6 +236,37 @@ line):
    ``SimpleTokenizer`` on the captions and 10,000 seeded strings.
    Printed: both tokenizers' encode rates, the tar loader's seconds a
    batch, the micro-step as the CLI runs it and its tokens/s.
+13. train VAE CLI: ``python -m dalle_pytorch_tpu_torch.train_vae``
+   (``train_vae.main`` in this process on a directory under ``build/``,
+   removed at the end) at BASELINE.json configs[0] (256 px, 8192 tokens,
+   3 layers, emb 512, hidden 256, 2 ResBlocks, batch 8), float32, on 128
+   seeded 256 px PNGs for 7 epochs (112 steps): every loss finite, the
+   step-100 log (codebook usage, a reconstruction grid) and every
+   epoch's checkpoint written, the last read back by
+   ``models.factory.vae_from_checkpoint`` bitwise equal to the trained
+   state; no attention kernel launched. Step wall, images/s and peak
+   memory printed.
+14. train CLIP CLI: first one forward and backward of the trainer's
+   loss (``train_clip.clip_loss``) at train_clip.py's defaults (dims
+   512, 6 + 6 layers of 8 heads of 64, text 256 with a key mask of
+   seeded lengths, 256 px in 32 px patches, batch 32), the packed kernels
+   against their plain versions on the card: float32 the loss within
+   relative 1e-5, the similarity logits and every gradient within 1e-4
+   of its largest entry; bf16 the logits and every gradient of more
+   than one entry within ``BF16_GAP_FACTOR`` times the plain
+   bf16-to-float32 gap, the loss and the temperature's gradient within
+   it times the gap of what each sums (as tests/test_torch_clip_train.py
+   holds them). Then
+   ``python -m dalle_pytorch_tpu_torch.train_clip`` in the same way as
+   phase 13 at those defaults on 64 seeded 256 px PNGs with three
+   captions each (2 steps an epoch): float32 and ``--bf16`` with the
+   packed kernels and with their plain versions (the text encoder's
+   packed forward and backward, non-causal with the key mask, text depth
+   x steps each), the losses within phase 4's tolerances; a one-epoch
+   run resumed from ``--clip_path`` for a second, its losses and final
+   checkpoint bitwise the uninterrupted two-epoch run's (the checkpoint
+   carries the dataset's caption and crop stream). Samples/s and peak
+   memory printed.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -321,8 +373,10 @@ decode-only iterations) in alternating pairs, then profiles each.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
+import io
 import json
 import math
 import subprocess
@@ -356,6 +410,8 @@ FLAGSHIP = dict(dim=1024, depth=12, heads=16, dim_head=64,
 # at 12 they took ~470 s of the script's 1,200 s limit on a slow host,
 # and at 6 ~410 s once the train CLI phase was added (PERF.md, section 6)
 SERVE_MODEL = dict(FLAGSHIP, depth=4)
+# the sparse serving phase keeps the four types of the cycle once each
+SPARSE_SERVE_MODEL = dict(FLAGSHIP, depth=4)
 FLAGSHIP_VAE = dict(image_size=256, num_tokens=8192, codebook_dim=512,
                     num_layers=3, num_resnet_blocks=2, hidden_dim=256)
 # train_clip.py's defaults; the SimpleTokenizer vocabulary
@@ -413,6 +469,16 @@ CLI_DIR = ROOT / "build" / "train_cli"
 CLI_IMAGES, CLI_IMAGE_SIZE = 16, 256
 # phase 12b's command line: tar shards, the HugTokenizer, dropout, accumulation
 CLI_GA_DIR = ROOT / "build" / "train_cli_ga"
+# phases 8d and 8e: steps of each sequential, reversible and remat run
+REV_STEPS = 3
+# phase 5h: tokens each request and generation makes
+REV_SERVE_TOKENS = 16
+# phase 13: train_vae.py at configs[0], 16 steps an epoch, 112 steps in all
+VAE_CLI_DIR = ROOT / "build" / "train_vae_cli"
+VAE_CLI_IMAGES, VAE_CLI_EPOCHS = 128, 7
+# phase 14: train_clip.py's defaults, batch 32: 2 steps an epoch
+CLIP_CLI_DIR = ROOT / "build" / "train_clip_cli"
+CLIP_CLI_IMAGES = 64
 
 _T0 = time.perf_counter()
 
@@ -420,6 +486,24 @@ _T0 = time.perf_counter()
 def log(msg: str) -> None:
     """Print ``msg`` after the seconds since the script started."""
     print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
+
+
+class Tee(io.StringIO):
+    """Keeps what a command line prints and logs each line as it comes
+    under ``label`` (its config line left out)."""
+
+    def __init__(self, label):
+        super().__init__()
+        self.label, self.line, self.real = label, "", sys.stdout
+
+    def write(self, text):
+        self.line += text
+        *done, self.line = self.line.split("\n")
+        with contextlib.redirect_stdout(self.real):
+            for line in done:
+                if not line.startswith("config:"):
+                    log(f"{self.label} | {line}")
+        return super().write(text)
 
 
 def card_line() -> str:
@@ -2398,14 +2482,15 @@ def check_int8_logits(model) -> None:
 
 def serve_sparse_int8() -> dict:
     """Phase 5c: the sparse configuration (layers cycling full, axial_row,
-    axial_col, conv_like) at the flagship width and the serve phases'
-    depth, bf16, int8 pages, 4 requests of 256 tokens: the full layers
+    axial_col, conv_like) at the flagship width, depth 4 (each type once,
+    ``SPARSE_SERVE_MODEL``), bf16, int8 pages, 4 requests of 256 tokens:
+    the full layers
     through the int8 ragged instance, the others over the gathered view.
     Returns the launches."""
     from dalle_pytorch_tpu_torch.models.dalle import DALLE
 
     types = tuple(SPARSE_TYPES.split(","))
-    model = DALLE(**SERVE_MODEL, attn_types=types, device="cuda", dtype=torch.bfloat16)
+    model = DALLE(**SPARSE_SERVE_MODEL, attn_types=types, device="cuda", dtype=torch.bfloat16)
     model.init_weights(torch.Generator(device="cuda").manual_seed(4))
     full = sum(t == "full" for t in model.transformer.attn_types)
     _, _, launches = serve_counted(model, "serve sparse int8", 4, 256,
@@ -3146,8 +3231,6 @@ def train_cli(vae):
     batch's copy, the VAE encode, the dispatch and the device's step,
     with the next batch's loading overlapped. Returns the launches of
     both runs."""
-    import contextlib
-    import io
     import os
     import shutil
 
@@ -3198,23 +3281,6 @@ def train_cli(vae):
         out = getitem(self, ind)
         item_s.append(time.perf_counter() - t0)
         return out
-
-    class Tee(io.StringIO):
-        """Keeps what the command line prints and logs each line as it
-        comes (its config line left out)."""
-
-        def __init__(self, label):
-            super().__init__()
-            self.label, self.line, self.real = label, "", sys.stdout
-
-        def write(self, text):
-            self.line += text
-            *done, self.line = self.line.split("\n")
-            with contextlib.redirect_stdout(self.real):
-                for line in done:
-                    if not line.startswith("config:"):
-                        log(f"{self.label} | {line}")
-            return super().write(text)
 
     run_no = [0]
 
@@ -3592,6 +3658,578 @@ def train_cli_ga(vae):
 # whose profiled ms a step ``profile_train`` holds against the kernel
 # phase's: the tiled ones (timed at the 512 px shape) and the pair grid's
 # (timed at the training shape with the axial_row layout)
+# ------------------------------------- reversible, remat, VAE and CLIP trainers
+
+
+def flagship_trainer(vae, **flags):
+    """``DalleTrainer`` of phase 8's flagship (seed 0, token shift,
+    rotary) on ``vae`` with ``flags`` (``bf16``, ``reversible``,
+    ``remat``)."""
+    from dalle_pytorch_tpu_torch.train_dalle import DalleTrainer
+
+    return DalleTrainer(
+        vae, num_text_tokens=FLAGSHIP["num_text_tokens"], device="cuda", seed=0,
+        dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], heads=FLAGSHIP["heads"],
+        dim_head=FLAGSHIP["dim_head"], text_seq_len=FLAGSHIP["text_seq_len"],
+        shift_tokens=True, rotary_emb=True, **flags)
+
+
+@contextlib.contextmanager
+def plain_packed():
+    """The packed-qkv kernels' plain versions in their wrappers' place
+    (on the card; nothing counted while it lasts)."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    saved = fa.fused_qkv_attention, fa.fused_qkv_attention_bwd
+    fa.fused_qkv_attention, fa.fused_qkv_attention_bwd = (fa.reference_fused_qkv,
+                                                          fa.reference_fused_qkv_bwd)
+    try:
+        yield
+    finally:
+        fa.fused_qkv_attention, fa.fused_qkv_attention_bwd = saved
+
+
+def timed_steps(trainer, batch, steps: int) -> dict:
+    """``steps`` of ``trainer.train_step`` on ``batch``, each synchronised:
+    {"losses", "walls" (s), "peak" (GiB since just before)}."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(*batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {"losses": losses, "walls": walls,
+            "peak": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def model_grads(dalle, text, tokens):
+    """(loss, every parameter's gradient) of one forward and backward."""
+    loss = dalle(text, tokens, return_loss=True)
+    grads = torch.autograd.grad(loss, list(dalle.parameters()))
+    return loss.item(), [g.detach() for g in grads]
+
+
+def train_reversible(vae, batch) -> dict:
+    """Phases 8d and 8e: reversible and remat execution at the flagship's
+    widths (phase 8's model, seed, batch and VAE), float32 and mixed
+    precision. For each type: a reversible DALLE's loss and every
+    gradient with the packed kernels against the same with their plain
+    versions on the card (phase 4's tolerances: float32 loss relative
+    1e-5, each gradient 1e-4 of its largest entry; bf16 within
+    ``BF16_GAP_FACTOR`` times the plain bf16-to-float32 gap); then
+    ``REV_STEPS`` steps each of the sequential, reversible (kernels),
+    reversible (plain versions: nothing launched) and remat trainers of
+    the same seed, each counted: sequential the packed forward and
+    backward depth x dispatches each, reversible and remat the forward 2 x
+    depth x dispatches and the backward depth x dispatches. Reversible's
+    losses against its plain run's at phase 4's tolerances; remat's loss
+    sequence bitwise sequential's; reversible's and remat's peak memory
+    below sequential's. Prints each run's step walls, losses and peak
+    memory. Returns the launches by path."""
+    from dalle_pytorch_tpu_torch.testing import BF16_GAP_FACTOR, gap_ratio
+
+    depth = FLAGSHIP["depth"]
+    text, images = batch
+    tokens = vae.get_codebook_indices(images)
+    paths, f32_plain = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tag = " bf16" if bf16 else ""
+        trainer = flagship_trainer(vae, bf16=bf16, reversible=True)
+        zero_counts()
+        loss_k, grads_k = model_grads(trainer.dalle, text, tokens)
+        launched = read_counts(PACKED)
+        with plain_packed():
+            loss_p, grads_p = model_grads(trainer.dalle, text, tokens)
+        names = [k for k, _ in trainer.dalle.named_parameters()]
+        if not bf16:
+            f32_plain["loss"], f32_plain["grads"] = loss_p, [g.cpu() for g in grads_p]
+            loss_err = abs(loss_k - loss_p) / abs(loss_p)
+            worst = max(((gk - gp).abs().max().item() / gp.abs().max().item(), n)
+                        for gk, gp, n in zip(grads_k, grads_p, names))
+            ok = loss_err <= 1e-5 and worst[0] <= 1e-4
+        else:
+            loss_err = gap_ratio(loss_k, loss_p, f32_plain["loss"])
+            worst = max((gap_ratio(gk.cpu(), gp.cpu(), gf), n) for gk, gp, gf, n in
+                        zip(grads_k, grads_p, f32_plain["grads"], names))
+            ok = loss_err <= BF16_GAP_FACTOR and worst[0] <= BF16_GAP_FACTOR
+        want = {"fused_qkv_attention": 2 * depth, "fused_qkv_attention_bwd": depth}
+        log(f"train reversible{tag}: one forward and backward, kernels vs plain versions on "
+            f"the card: loss {loss_k:.6f} / {loss_p:.6f} "
+            f"({'relative' if not bf16 else 'of the bf16-to-float32 gap'} {loss_err:.3e}), "
+            f"worst gradient {worst[0]:.3e} ({worst[1]}); launches {launched} (expected {want})")
+        if not ok or launched != want:
+            raise AssertionError(f"train reversible{tag}: kernels vs plain {loss_err}, {worst}, "
+                                 f"launches {launched}")
+        del trainer, grads_k, grads_p
+        release_memory()
+
+        runs = {}
+        for mode in ("sequential", "reversible", "reversible plain", "remat"):
+            flags = {} if mode == "sequential" else {mode.split()[0]: True}
+            trainer = flagship_trainer(vae, bf16=bf16, **flags)
+            zero_counts()
+            if mode.endswith("plain"):
+                with plain_packed():
+                    runs[mode] = timed_steps(trainer, batch, REV_STEPS)
+            else:
+                runs[mode] = timed_steps(trainer, batch, REV_STEPS)
+            counts = read_counts(PACKED)
+            n = trainer.steps + trainer.retries
+            fwd = {"sequential": depth, "reversible plain": 0}.get(mode, 2 * depth)
+            want = {"fused_qkv_attention": fwd * n,
+                    "fused_qkv_attention_bwd": (0 if mode.endswith("plain") else depth) * n}
+            r = runs[mode]
+            log(f"train {mode}{tag}: {trainer.steps} steps, {trainer.retries} retries, losses "
+                + ", ".join(f"{x:.6f}" for x in r["losses"]) + "; step walls "
+                + ", ".join(f"{w:.4f}" for w in r["walls"])
+                + f" s; peak memory {r['peak']:.2f} GiB; launches {counts} (expected {want})")
+            if counts != want or not all(np.isfinite(r["losses"])):
+                raise AssertionError(f"train {mode}{tag}: launches {counts}, expected {want}; "
+                                     f"losses {r['losses']}")
+            if mode in ("reversible", "remat"):
+                paths[f"train_{mode}{tag.replace(' ', '_')}"] = counts
+            del trainer
+            release_memory()
+        seq, rev, plain, remat = (runs[m] for m in ("sequential", "reversible",
+                                                    "reversible plain", "remat"))
+        if not bf16:
+            f32_plain["steps"] = plain["losses"]
+            rev_gap = max(abs(k - p) / abs(p) for k, p in zip(rev["losses"], plain["losses"]))
+            rev_ok = rev_gap <= 1e-5
+        else:
+            rev_gap = gap_ratio(rev["losses"], plain["losses"], f32_plain["steps"])
+            rev_ok = rev_gap <= BF16_GAP_FACTOR
+        steady = {m: float(np.median(r["walls"][1:])) for m, r in runs.items()}
+        log(f"train reversible/remat{tag} ({REV_STEPS} steps, batch {TRAIN_BATCH}, median step "
+            f"wall of steps 2-{REV_STEPS}): sequential {steady['sequential']:.4f} s "
+            f"{seq['peak']:.2f} GiB; reversible {steady['reversible']:.4f} s "
+            f"{rev['peak']:.2f} GiB; remat {steady['remat']:.4f} s {remat['peak']:.2f} GiB; "
+            f"reversible losses vs plain {rev_gap:.3e}; remat losses bitwise sequential "
+            f"{remat['losses'] == seq['losses']}")
+        problems = []
+        if not rev_ok:
+            problems.append(f"reversible's losses part from the plain run's: {rev_gap}")
+        if remat["losses"] != seq["losses"]:
+            problems.append(f"remat's losses {remat['losses']} are not sequential's "
+                            f"{seq['losses']}")
+        for mode in ("reversible", "remat"):
+            if not runs[mode]["peak"] < seq["peak"]:
+                problems.append(f"{mode}'s peak memory {runs[mode]['peak']:.3f} GiB is not below "
+                                f"sequential's {seq['peak']:.3f} GiB")
+        if problems:
+            raise AssertionError(f"train reversible/remat{tag}: " + "; ".join(problems))
+    return paths
+
+
+def serve_reversible() -> dict:
+    """Phase 5h: a reversible DALLE served and generating: ``SERVE_MODEL``
+    with ``reversible=True``, float32, seeded weights on the card and the
+    same on the CPU, greedy (``filter_thres`` 0.99). 2 requests of 16
+    tokens (full-length prompts with zero tails) through the split path
+    (``EngineConfig``'s defaults, monolithic prefill) and the fused
+    iteration (chunks of 16), max_batch 2: every outcome COMPLETED, the
+    tokens on the card equal to the CPU's (plain versions), the ragged
+    kernel launched depth x dispatches times and no other kernel. Then
+    ``decode_tokens`` of 2 captions on the "flat" cache with the decode
+    kernel, window 0, 16 tokens: tokens card = CPU, the decode kernel
+    launched depth x 15 times. Returns the launches by path."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.sampling import decode_tokens
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.types import Outcome, Request
+
+    t0 = time.perf_counter()
+    depth, new = SERVE_MODEL["depth"], REV_SERVE_TOKENS
+    gpu = DALLE(**SERVE_MODEL, reversible=True, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(3))
+    cpu = DALLE(**SERVE_MODEL, reversible=True, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    rng = np.random.RandomState(31)
+    prompts = rng.randint(1, FLAGSHIP["num_text_tokens"], size=(2, FLAGSHIP["text_seq_len"]))
+    prompts[0, 200:], prompts[1, 90:] = 0, 0
+    names = tuple(kernel_counters())
+    paths, report = {}, []
+    for path, config in (("split", {}), ("fused", dict(fused_iteration=True, prefill_chunk=16))):
+        results = {}
+        for model in (gpu, cpu):
+            engine = Engine(model, EngineConfig(max_batch=2, filter_thres=0.99, **config),
+                            device=model.device.type)
+            for i, prompt in enumerate(prompts):
+                assert engine.submit(Request(f"r{i}", prompt, new, seed=40 + i)) is None
+            zero_counts()
+            results[model] = engine.run(max_steps=2000)
+            if model is gpu:
+                launched = {n: c for n, c in read_counts(names).items() if c}
+                want = {"ragged_attention": depth * engine.dispatches}
+        done = all(r.outcome is Outcome.COMPLETED and len(r.tokens) == new
+                   for run in results.values() for r in run.values())
+        same = all(np.array_equal(results[gpu][r].tokens, results[cpu][r].tokens)
+                   for r in results[gpu])
+        report.append(f"{path}: COMPLETED {done}, tokens card = CPU {same}, launches "
+                      f"{launched} (expected {want})")
+        if not (done and same and launched == want):
+            raise AssertionError(f"serve reversible, {path}: {report[-1]}")
+        paths[f"serve_reversible_{path}"] = launched
+    T = gpu.text_len_internal
+    text = torch.from_numpy(prompts)
+    tokens = {}
+    for model in (gpu, cpu):
+        buf = torch.zeros((2, T + gpu.image_seq_len), dtype=torch.int32, device=model.device)
+        buf[:, :T] = model.remap_text(text.to(model.device))
+        zero_counts()
+        out = decode_tokens(model, buf, T, 0, num_steps=T + new - 1, prefill_len=T,
+                            cache_format="flat", fused_decode=True, window_seg=0,
+                            filter_thres=0.99)
+        tokens[model] = out[:, T:T + new].cpu()
+        if model is gpu:
+            launched = {n: c for n, c in read_counts(names).items() if c}
+    want = {"fused_decode_attention": depth * (new - 1)}
+    same = torch.equal(tokens[gpu], tokens[cpu])
+    report.append(f"generate flat with the decode kernel: tokens card = CPU {same}, launches "
+                  f"{launched} (expected {want})")
+    log(f"serve reversible (SERVE_MODEL, float32, greedy, {new} tokens a request) in "
+        f"{time.perf_counter() - t0:.1f} s: " + "; ".join(report))
+    if not same or launched != want:
+        raise AssertionError(f"generate reversible: {report[-1]}")
+    paths["generate_reversible"] = launched
+    return paths
+
+
+def run_cli(main, argv, label: str, cwd) -> tuple:
+    """``main(argv, device="cuda")`` in ``cwd``, its output logged:
+    (output, launches, wall s, peak GiB)."""
+    import os
+
+    out = Tee(label)
+    names = tuple(kernel_counters())
+    here = os.getcwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(out):
+            main(argv, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(here)
+    return (out.getvalue(), {n: c for n, c in read_counts(names).items() if c},
+            time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30)
+
+
+def recorded_steps(module, sink: list):
+    """Patch ``module.make_train_step`` so that every step is synchronised
+    and appends (loss, its wall s from the call to the card's end) to
+    ``sink``; returns the restorer."""
+    make = module.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            sink.append((float(out[1]), time.perf_counter() - t0))
+            return out
+        return run
+
+    module.make_train_step = recording
+    return lambda: setattr(module, "make_train_step", make)
+
+
+def train_vae_cli() -> None:
+    """Phase 13: ``python -m dalle_pytorch_tpu_torch.train_vae`` in this
+    process at BASELINE.json configs[0] (256 px, ``--num_tokens 8192
+    --num_layers 3 --emb_dim 512 --hidden_dim 256 --num_resnet_blocks 2
+    --batch_size 8``) on ``VAE_CLI_IMAGES`` seeded 256 px PNGs under
+    ``VAE_CLI_DIR`` (removed at the end), ``--epochs VAE_CLI_EPOCHS``: 16
+    steps an epoch, 112 in all, so that the run crosses the step-100 log
+    (loss, codebook usage, a reconstruction grid) and epoch ends. Every
+    loss finite; the last epoch's checkpoint read back through
+    ``models.factory.vae_from_checkpoint`` bitwise equal to the trained
+    state; two grids (steps 0 and 100) of (512, 1024, 3); no attention
+    kernel launched. Prints the step wall (each step synchronised), steps
+    and images a second, the phase's peak memory and wall."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch import train_vae
+    from dalle_pytorch_tpu_torch.data.image_io import read_png
+    from dalle_pytorch_tpu_torch.models import factory
+    from dalle_pytorch_tpu_torch.parallel import step as step_module
+    from dalle_pytorch_tpu_torch.testing import write_caption_folder
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(VAE_CLI_DIR, ignore_errors=True)
+    write_caption_folder(VAE_CLI_DIR / "images", VAE_CLI_IMAGES, 256, seed=41)
+    argv = ["--image_folder", str(VAE_CLI_DIR / "images"), "--image_size", "256",
+            "--num_tokens", "8192", "--num_layers", "3", "--emb_dim", "512",
+            "--hidden_dim", "256", "--num_resnet_blocks", "2", "--batch_size", "8",
+            "--epochs", str(VAE_CLI_EPOCHS), "--output_file_name", str(VAE_CLI_DIR / "vae.ckpt"),
+            "--samples_dir", str(VAE_CLI_DIR / "samples")]
+    steps, saved = [], []
+    save = factory.save_vae_checkpoint
+
+    def keep_state(path, vae, extra=None):
+        save(path, vae, extra)
+        saved.append({k: t.detach().clone() for k, t in vae.state_dict().items()})
+
+    restore = recorded_steps(step_module, steps)
+    factory.save_vae_checkpoint = keep_state
+    try:
+        text, launched, wall, peak = run_cli(train_vae.main, argv, "train VAE CLI", VAE_CLI_DIR)
+    finally:
+        restore()
+        factory.save_vae_checkpoint = save
+    losses = [loss for loss, _ in steps]
+    back, meta = factory.vae_from_checkpoint(VAE_CLI_DIR / "vae.ckpt", device="cuda")
+    same = sorted(back.state_dict()) == sorted(saved[-1]) and all(
+        torch.equal(back.state_dict()[k], t) for k, t in saved[-1].items())
+    grids = sorted((VAE_CLI_DIR / "samples").glob("*.png"))
+    shapes = [read_png(p.read_bytes()).pixels.shape for p in grids]
+    step_s = float(np.median([w for _, w in steps[1:]]))
+    log(f"train VAE CLI (configs[0]: 256 px, 8192 tokens, 3 layers, 2 ResBlocks, batch 8): "
+        f"{len(losses)} steps over {VAE_CLI_EPOCHS} epochs, losses first {losses[0]:.5f} "
+        f"last {losses[-1]:.5f}; step wall (synchronised, median of steps 2-{len(steps)}) "
+        f"{step_s:.4f} s, {1 / step_s:.2f} steps/s, {8 / step_s:.1f} images/s; peak memory "
+        f"{peak:.2f} GiB; run {wall:.1f} s; checkpoint epoch "
+        f"{meta['epoch']}, read back bitwise {same}; grids {[p.name for p in grids]} {shapes}; "
+        f"launches {launched}")
+    shutil.rmtree(VAE_CLI_DIR, ignore_errors=True)
+    log(f"train VAE CLI: phase wall {time.perf_counter() - t_phase:.1f} s")
+    steps_want = VAE_CLI_EPOCHS * (VAE_CLI_IMAGES // 8)
+    problems = []
+    if len(losses) != steps_want or not all(np.isfinite(losses)):
+        problems.append(f"{len(losses)} losses (expected {steps_want}), finite "
+                        f"{all(np.isfinite(losses))}")
+    if not same or meta["epoch"] != VAE_CLI_EPOCHS - 1 or len(saved) != VAE_CLI_EPOCHS:
+        problems.append(f"checkpoint read back bitwise {same}, epoch {meta['epoch']}, "
+                        f"{len(saved)} saves")
+    if [p.name for p in grids] != ["recon_0000000.png", "recon_0000100.png"] or any(
+            s != (512, 1024, 3) for s in shapes):
+        problems.append(f"grids {grids} {shapes}")
+    if "codebook_indices histogram" not in text or launched:
+        problems.append(f"no codebook histogram logged, or kernels launched {launched}")
+    if problems:
+        raise AssertionError("train VAE CLI: " + "; ".join(problems))
+
+
+def clip_loss_parts(logits):
+    """(the 2b cross-entropy terms whose mean is CLIP's loss, the (b, b)
+    summands ``dloss/dlogits * logits`` whose sum is the loss's gradient
+    with respect to the temperature) of (b, b) logits, float64, as
+    tests/test_torch_clip_train.py computes them."""
+    logits = logits.double()
+    b = logits.shape[0]
+    log_p, log_q = torch.log_softmax(logits, -1), torch.log_softmax(logits.t(), -1)
+    terms = -torch.cat([log_p.diagonal(), log_q.diagonal()])
+    eye = torch.eye(b, dtype=torch.float64)
+    dlogits = (log_p.exp() - eye) / (2 * b) + (log_q.exp() - eye).t() / (2 * b)
+    return terms, dlogits * logits
+
+
+def check_clip_loss_against_plain() -> None:
+    """Phase 14's first check: one forward and backward of
+    ``train_clip.clip_loss`` at ``FLAGSHIP_CLIP`` (batch 32, seeded text
+    of lengths 1-256 zero-padded, so the key mask differs by row, and
+    seeded pixels), with the packed kernels and with their plain versions
+    on the card, float32 and then bf16 compute on float32 parameters. The
+    similarity logits (``latents``, times ``exp(temperature)``) come from
+    one more forward of each run. Float32: the loss within relative 1e-5,
+    the logits and every gradient within 1e-4 of their largest entry.
+    bf16, as tests/test_torch_clip_train.py holds it: the logits and every
+    gradient of more than one entry within ``BF16_GAP_FACTOR`` times the
+    plain bf16-to-float32 gap (``gap_ratio``); the two scalars, whose own
+    gap is one draw in which the text and image sides' errors can cancel,
+    on what they sum: the loss's relative error within the factor times
+    the relative gap of its 2b cross-entropy terms, the temperature's
+    gradient's within the factor times that of its (b, b) summands
+    (``clip_loss_parts``, whose sum is checked against the plain run's
+    gradient). The kernel runs launch the packed forward twice the text
+    depth and its backward the text depth, the plain runs nothing
+    (comparison launches: no path counts them)."""
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.testing import BF16_GAP_FACTOR, gap_ratio, rel_l2
+    from dalle_pytorch_tpu_torch.train_clip import clip_loss
+
+    depth, n = FLAGSHIP_CLIP["text_enc_depth"], FLAGSHIP_CLIP["text_seq_len"]
+    size = FLAGSHIP_CLIP["visual_image_size"]
+    rng = np.random.RandomState(45)
+    text = rng.randint(1, FLAGSHIP_CLIP["num_text_tokens"], size=(32, n))
+    for i, length in enumerate(rng.randint(1, n + 1, size=32)):
+        text[i, length:] = 0
+    text = torch.from_numpy(text).cuda()
+    pixels = torch.from_numpy(rng.rand(32, size, size, 3).astype(np.float32)).cuda()
+    f32 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        clip = CLIP(**FLAGSHIP_CLIP, device="cuda", dtype=dtype, param_dtype=torch.float32
+                    ).init_weights(torch.Generator(device="cuda").manual_seed(44))
+        names = [k for k, _ in clip.named_parameters()]
+        batch = {"text": text, "image": pixels.to(dtype)}
+        runs = {}
+        for plain in (False, True):
+            zero_counts()
+            with plain_packed() if plain else contextlib.nullcontext():
+                loss = clip_loss(clip, batch)
+                grads = torch.autograd.grad(loss, list(clip.parameters()))
+                with torch.no_grad():
+                    tl, il = clip.latents(text, batch["image"], text != 0)
+                    logits = tl @ il.t() * clip.temperature.float().exp()
+            runs[plain] = (loss.item(), logits.cpu(),
+                           {name: g.cpu() for name, g in zip(names, grads)},
+                           read_counts(PACKED))
+            del loss, grads
+        (loss_k, logits_k, grads_k, launched), (loss_p, logits_p, grads_p, plain_launched) = (
+            runs[False], runs[True])
+        if dtype == torch.float32:
+            f32 = {"logits": logits_p, "grads": grads_p}
+            loss_err = abs(loss_k - loss_p) / abs(loss_p)
+            logits_err = ((logits_k - logits_p).abs().max() / logits_p.abs().max()).item()
+            worst = max(((grads_k[k] - g).abs().max().item() / g.abs().max().item(), k)
+                        for k, g in grads_p.items())
+            ok = loss_err <= 1e-5 and logits_err <= 1e-4 and worst[0] <= 1e-4
+            what = f"loss relative {loss_err:.3e}, logits {logits_err:.3e} of the largest"
+        else:
+            logits_err = gap_ratio(logits_k, logits_p, f32["logits"])
+            worst = max((gap_ratio(grads_k[k], g, f32["grads"][k]), k)
+                        for k, g in grads_p.items() if g.numel() > 1)
+            (terms_p, summands_p), (terms_f, summands_f) = (
+                clip_loss_parts(x) for x in (logits_p, f32["logits"]))
+            loss_err = (rel_l2(torch.tensor(loss_k), torch.tensor(loss_p))
+                        / rel_l2(terms_p, terms_f))
+            temp_k, temp_p = grads_k["temperature"], grads_p["temperature"]
+            temp_err = rel_l2(temp_k, temp_p) / rel_l2(summands_p, summands_f)
+            summed = abs(summands_p.sum().item() - temp_p.item()) / abs(temp_p.item())
+            ok = (logits_err <= BF16_GAP_FACTOR and worst[0] <= BF16_GAP_FACTOR
+                  and loss_err <= BF16_GAP_FACTOR and temp_err <= BF16_GAP_FACTOR
+                  and summed <= 1e-4)
+            what = (f"loss {loss_k:.6f} / {loss_p:.6f} ({loss_err:.3f} of its terms' gap), "
+                    f"temperature gradient {temp_err:.3f} of its summands' gap (their sum "
+                    f"within {summed:.1e} of the plain gradient), logits {logits_err:.3f} of "
+                    f"the plain bf16-to-float32 gap")
+        want = {"fused_qkv_attention": 2 * depth, "fused_qkv_attention_bwd": depth}
+        tag = "float32" if dtype == torch.float32 else "bf16"
+        log(f"train CLIP loss {tag}: one forward and backward, kernels vs plain versions on the "
+            f"card: {what}, worst gradient {worst[0]:.3e} ({worst[1]}); launches {launched} "
+            f"(expected {want}), plain {plain_launched}")
+        if not ok or launched != want or any(plain_launched.values()):
+            raise AssertionError(f"train CLIP loss {tag}: kernels vs plain {what}, {worst}; "
+                                 f"launches {launched}, plain {plain_launched}")
+        del clip, runs, grads_k, grads_p
+        release_memory()
+
+
+def train_clip_cli() -> dict:
+    """Phase 14: ``check_clip_loss_against_plain``, then ``python -m
+    dalle_pytorch_tpu_torch.train_clip`` in this process at
+    ``train_clip.py``'s defaults (dims 512, 6 + 6 layers of 8 heads, text
+    256, 256 px in 32 px patches, batch 32, lr 3e-4, clip 0.5) on
+    ``CLIP_CLI_IMAGES`` seeded 256 px PNGs with three captions each under
+    ``CLIP_CLI_DIR`` (removed at the end): 2 steps an epoch. Runs:
+    float32 ``--epochs 2`` with the kernels (counted: the packed forward
+    and backward each text depth x steps), the same with the packed
+    kernels' plain versions (``--epochs 1``: its losses within relative
+    1e-5 of the kernel run's), ``--bf16`` with the kernels and with the
+    plain versions (``--epochs 1``: within ``BF16_GAP_FACTOR`` times the
+    plain bf16-to-float32 gap); and a resume from ``--clip_path`` the
+    first float32 run's checkpoint at its first epoch's end (copied as it
+    is written; it carries the dataset's caption and crop stream) to
+    ``--epochs 2``: the resumed losses bitwise the uninterrupted run's
+    second epoch, and its final checkpoint's params and Adam state
+    bitwise the uninterrupted run's. Prints samples/s (each step
+    synchronised). Returns the kernel runs' launches."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch import train_clip
+    from dalle_pytorch_tpu_torch.models import factory
+    from dalle_pytorch_tpu_torch.parallel import step as step_module
+    from dalle_pytorch_tpu_torch.testing import BF16_GAP_FACTOR, gap_ratio, write_caption_folder
+    from dalle_pytorch_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    check_clip_loss_against_plain()
+    shutil.rmtree(CLIP_CLI_DIR, ignore_errors=True)
+    write_caption_folder(CLIP_CLI_DIR / "data", CLIP_CLI_IMAGES, 256, seed=43, lines=3)
+    depth = FLAGSHIP_CLIP["text_enc_depth"]
+
+    save = factory.save_clip_checkpoint
+
+    def keep_first_epoch(path, clip, extra=None, opt_state=None):
+        """Each save, and a copy of the first epoch's end (the resume's
+        start)."""
+        save(path, clip, extra, opt_state)
+        if extra["epoch"] == 0:
+            shutil.copyfile(path, CLIP_CLI_DIR / "epoch0.ckpt")
+
+    def run(label, *extra, plain=False, keep_epoch0=False):
+        steps = []
+        argv = ["--image_text_folder", str(CLIP_CLI_DIR / "data"), "--truncate_captions",
+                "--clip_output_file_name", str(CLIP_CLI_DIR / label.replace(" ", "_")), *extra]
+        restore = recorded_steps(step_module, steps)
+        if keep_epoch0:
+            factory.save_clip_checkpoint = keep_first_epoch
+        try:
+            with plain_packed() if plain else contextlib.nullcontext():
+                _, launched, wall, peak = run_cli(train_clip.main, argv, f"train CLIP CLI {label}",
+                                                  CLIP_CLI_DIR)
+        finally:
+            restore()
+            factory.save_clip_checkpoint = save
+        step_s = float(np.median([w for _, w in steps[1:]]))
+        losses = [loss for loss, _ in steps]
+        log(f"train CLIP CLI {label}: losses {losses}; step wall (synchronised, median of "
+            f"steps 2-{len(steps)}) {step_s:.4f} s, {32 / step_s:.1f} samples/s; peak memory "
+            f"{peak:.2f} GiB; run {wall:.1f} s; launches {launched}")
+        return losses, launched
+
+    kernel, launched = run("f32", "--epochs", "2", keep_epoch0=True)
+    resumed, _ = run("resumed", "--epochs", "2", "--clip_path", str(CLIP_CLI_DIR / "epoch0.ckpt"))
+    plain, plain_launched = run("f32 plain", "--epochs", "1", plain=True)
+    kernel16, launched16 = run("bf16", "--epochs", "1", "--bf16")
+    plain16, plain_launched16 = run("bf16 plain", "--epochs", "1", "--bf16", plain=True)
+    whole_state, _ = load_checkpoint(CLIP_CLI_DIR / "f32.ckpt")
+    resumed_state, _ = load_checkpoint(CLIP_CLI_DIR / "resumed.ckpt")
+
+    def flat(tree, prefix=""):
+        items = {}
+        for k, v in tree.items():
+            items.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+        return items
+
+    fa_, fb_ = flat(whole_state), flat(resumed_state)
+    bitwise = fa_.keys() == fb_.keys() and all(
+        np.array_equal(np.asarray(fa_[k]), np.asarray(fb_[k])) for k in fa_)
+    f32_gap = max(abs(k - p) / abs(p) for k, p in zip(kernel, plain))
+    bf16_gap = gap_ratio(kernel16, plain16, plain)
+    per_epoch = CLIP_CLI_IMAGES // 32
+    want = {n: depth * 2 * per_epoch for n in PACKED}
+    want16 = {n: depth * per_epoch for n in PACKED}
+    log(f"train CLIP CLI: float32 kernels vs plain relative {f32_gap:.3e} (tolerance 1e-5); "
+        f"bf16 {bf16_gap:.3f} of the plain bf16-to-float32 gap (tolerance {BF16_GAP_FACTOR}); "
+        f"resumed losses {resumed} vs the uninterrupted second epoch {kernel[per_epoch:]}, final "
+        f"checkpoint bitwise {bitwise}; launches {launched} / {launched16} (expected {want} / "
+        f"{want16}), plain runs {plain_launched} / {plain_launched16}")
+    shutil.rmtree(CLIP_CLI_DIR, ignore_errors=True)
+    log(f"train CLIP CLI: phase wall {time.perf_counter() - t_phase:.1f} s")
+    problems = []
+    if not all(np.isfinite(kernel + plain + kernel16 + plain16 + resumed)):
+        problems.append("a loss is not finite")
+    if len(kernel) != 2 * per_epoch or f32_gap > 1e-5 or bf16_gap > BF16_GAP_FACTOR:
+        problems.append(f"kernels vs plain: {f32_gap}, {bf16_gap}")
+    if resumed != kernel[per_epoch:] or not bitwise:
+        problems.append(f"the resume is not the uninterrupted run: {resumed} {kernel}, "
+                        f"checkpoint bitwise {bitwise}")
+    if launched != want or launched16 != want16 or plain_launched or plain_launched16:
+        problems.append(f"launches {launched} {launched16} {plain_launched} {plain_launched16}")
+    if problems:
+        raise AssertionError("train CLIP CLI: " + "; ".join(problems))
+    return {"train_clip_cli": launched, "train_clip_cli_bf16": launched16}
+
+
 PROFILE_ROWS = {
     "flash_fwd_tf32_kernel": ("flash_attention_fwd", "ms"),
     "flash_dq_tf32_kernel": ("flash_attention_dq", "ms"),
@@ -3719,6 +4357,8 @@ def main() -> int:
     release_memory()
     sparse_serve_launches = serve_sparse_int8()
     release_memory()
+    reversible_serve_launches = serve_reversible()
+    release_memory()
     generate_launches = generate_flagship()
     release_memory()
     trainer, batch, train_launches = train_flagship()
@@ -3729,6 +4369,8 @@ def main() -> int:
     trainer, learned_train_launches = train_defaults(vae, batch)
     profile_train(trainer, batch, label="train learned_pos profile")
     del trainer
+    release_memory()
+    reversible_launches = train_reversible(vae, batch)
     release_memory()
     cli_launches = train_cli(vae)
     release_memory()
@@ -3755,6 +4397,11 @@ def main() -> int:
     release_memory()
     trainer, launches_512_bf16 = train_512_bf16(vae, batch)
     profile_train(trainer, batch, label="train 512 bf16 profile", kernel_rows=kernels)
+    del trainer, vae
+    release_memory()
+    train_vae_cli()
+    release_memory()
+    clip_cli_launches = train_clip_cli()
     paths = (("serve", serve_launches), ("serve_int8", int8_launches),
              ("serve_split", split_launches), ("serve_split_monolithic", split_mono_launches),
              ("serve_sparse_int8", sparse_serve_launches), ("train", train_launches),
@@ -3765,7 +4412,9 @@ def main() -> int:
              ("train_learned_pos", learned_train_launches), ("train_cli", cli_launches),
              ("train_cli_ga", cli_ga_launches),
              ("serve_learned_pos", learned_serve_launches),
-             ("generate_learned_pos", learned_generate_launches), *generate_launches.items())
+             ("generate_learned_pos", learned_generate_launches), *generate_launches.items(),
+             *reversible_launches.items(), *reversible_serve_launches.items(),
+             *clip_cli_launches.items())
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())

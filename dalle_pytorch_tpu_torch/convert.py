@@ -3,16 +3,20 @@
 Input is a nested dict of numpy arrays (the JAX package's ``params``
 collection after ``jax.device_get``, or a checkpoint's tree of tensors);
 output is a ``state_dict`` for ``models.dalle.DALLE``,
-``models.vae.DiscreteVAE`` or ``models.clip.CLIP``. ``dalle_params`` and
-``vae_params`` go the other way, to the tree the JAX module's ``init``
-gives (float32 numpy arrays), and ``optax_adam_state`` / ``adam_from_optax``
-carry the train step's ``AdamState`` to and from optax's
-``chain(clip_by_global_norm, scale_by_adam)`` state as flax serializes it,
-``{"0": {}, "1": {"count", "mu", "nu"}}``, and its ``MultiStepsState``
-(gradient accumulation) to and from ``optax.MultiSteps``' around it,
-``{"mini_step", "gradient_step", "inner_opt_state": <the chain's>,
-"acc_grads": <a params tree>, "skip_state": {}}``. A flax -> torch ->
-flax round trip is bitwise. Rules:
+``models.vae.DiscreteVAE`` or ``models.clip.CLIP``. ``dalle_params``,
+``vae_params`` and ``clip_params`` go the other way, to the tree the JAX
+module's ``init`` gives (float32 numpy arrays), and ``optax_adam_state`` /
+``adam_from_optax`` carry the train step's ``AdamState`` to and from
+optax's ``chain(clip_by_global_norm, scale_by_adam)`` state as flax
+serializes it, ``{"0": {}, "1": {"count", "mu", "nu"}}`` (the DALLE
+trainer's), or ``chain(clip_by_global_norm, adam(lr))``'s, ``{"0": {},
+"1": {"0": {"count", "mu", "nu"}, "1": {}}}`` (the CLIP trainer's,
+``scaled``), and its ``MultiStepsState`` (gradient accumulation) to and
+from ``optax.MultiSteps``' around the first, ``{"mini_step",
+"gradient_step", "inner_opt_state": <the chain's>, "acc_grads": <a params
+tree>, "skip_state": {}}``; the moments' trees are a DALLE's, or with
+``clip_params`` / ``clip_state_dict`` a CLIP's. A flax -> torch -> flax
+round trip is bitwise. Rules:
 
 - Dense kernels are (in, out); ``nn.Linear.weight`` is (out, in).
 - The attention ``to_qkv`` columns are ``[q | k | v]``, each (h, d)-major,
@@ -207,6 +211,19 @@ def _transformer_inv(sd: Mapping, prefix: str) -> dict:
     return out
 
 
+def clip_params(sd: Mapping) -> dict:
+    """The JAX ``CLIP``'s params from the port's state dict (the inverse
+    of ``clip_state_dict``)."""
+    out = {name: {"embedding": _a(sd[f"{name}.weight"])}
+           for name in ("text_emb", "text_pos_emb", "visual_pos_emb")}
+    for name in ("to_visual_embedding", "to_text_latent", "to_visual_latent"):
+        out[name] = _dense_inv(sd, name)
+    for name in ("text_transformer", "visual_transformer"):
+        out[name] = _transformer_inv(sd, name)
+    out["temperature"] = _a(sd["temperature"])
+    return out
+
+
 def _conv_inv(sd: Mapping, prefix: str) -> dict:
     return {"kernel": _a(sd[f"{prefix}.weight"], (2, 3, 1, 0)), "bias": _a(sd[f"{prefix}.bias"])}
 
@@ -242,41 +259,41 @@ def _int32(t) -> np.ndarray:
     return np.asarray(t.detach().cpu().numpy(), dtype=np.int32)
 
 
-def optax_adam_state(opt) -> dict:
-    """optax's state, as flax serializes it, of a DALLE train step's
-    optimizer state: ``chain(clip_by_global_norm, scale_by_adam)``'s of an
-    ``AdamState``, ``MultiSteps``' around it of a ``MultiStepsState``."""
+def optax_adam_state(opt, to_flax=dalle_params, scaled: bool = False) -> dict:
+    """optax's state, as flax serializes it, of a train step's optimizer
+    state: ``chain(clip_by_global_norm, scale_by_adam)``'s of an
+    ``AdamState`` (``chain(clip_by_global_norm, adam(lr))``'s with
+    ``scaled``), ``MultiSteps``' around it of a ``MultiStepsState``; the
+    moments' trees by ``to_flax`` (``dalle_params``, ``clip_params``)."""
     from .parallel.step import MultiStepsState
 
     if isinstance(opt, MultiStepsState):
         return {"mini_step": _int32(opt.mini_step), "gradient_step": _int32(opt.gradient_step),
-                "inner_opt_state": optax_adam_state(opt.inner),
-                "acc_grads": dalle_params(opt.acc), "skip_state": {}}
-    return {"0": {}, "1": {"count": _int32(opt.count), "mu": dalle_params(opt.mu),
-                           "nu": dalle_params(opt.nu)}}
+                "inner_opt_state": optax_adam_state(opt.inner, to_flax, scaled),
+                "acc_grads": to_flax(opt.acc), "skip_state": {}}
+    adam = {"count": _int32(opt.count), "mu": to_flax(opt.mu), "nu": to_flax(opt.nu)}
+    return {"0": {}, "1": {"0": adam, "1": {}} if scaled else adam}
 
 
 def _counter(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.int32).reshape(()).to(device)
 
 
-def _named(tree: Mapping, device) -> Dict[str, torch.Tensor]:
-    return {k: v.to(device) for k, v in dalle_state_dict(tree).items()}
-
-
-def adam_from_optax(tree: Mapping, device=None):
-    """The DALLE train step's optimizer state of optax's
-    (``optax_adam_state``'s form): an ``AdamState``, or a
-    ``MultiStepsState`` for ``MultiSteps``' state; counters () int32
-    tensors, moments and accumulator float32 tensors keyed by parameter
-    name, on ``device``."""
+def adam_from_optax(tree: Mapping, device=None, to_torch=dalle_state_dict):
+    """The train step's optimizer state of optax's (``optax_adam_state``'s
+    forms, either chain): an ``AdamState``, or a ``MultiStepsState`` for
+    ``MultiSteps``' state; counters () int32 tensors, moments and
+    accumulator float32 tensors keyed by parameter name (``to_torch``:
+    ``dalle_state_dict``, ``clip_state_dict``), on ``device``."""
     from .parallel.step import AdamState, MultiStepsState
+
+    def named(t):
+        return {k: v.to(device) for k, v in to_torch(t).items()}
 
     if "mini_step" in tree:
         return MultiStepsState(_counter(tree["mini_step"], device),
                                _counter(tree["gradient_step"], device),
-                               adam_from_optax(tree["inner_opt_state"], device),
-                               _named(tree["acc_grads"], device))
-    adam = tree["1"]
-    return AdamState(_counter(adam["count"], device), _named(adam["mu"], device),
-                     _named(adam["nu"], device))
+                               adam_from_optax(tree["inner_opt_state"], device, to_torch),
+                               named(tree["acc_grads"]))
+    adam = tree["1"] if "count" in tree["1"] else tree["1"]["0"]
+    return AdamState(_counter(adam["count"], device), named(adam["mu"]), named(adam["nu"]))

@@ -10,16 +10,25 @@ imported when one is opened: without Pillow the constructor raises
 file is never skipped as corrupt. Samples are numpy: tokens (text_len,)
 int32, images (h, w, 3) float32 in [0, 1].
 
+``ImageFolderDataset``: the VAE trainer's label-free images, every image
+file under a folder in sorted order, each a square random crop of at
+least 0.75 of its area resized to ``image_size``; a file that cannot be
+read is replaced by the next one. Samples (image, 0); its ``collate``
+makes ``{"image": (b, h, w, 3) float32}`` batches.
+
 ``DataLoader``: one process's ``seed + epoch`` shuffle, the last partial
 batch dropped, two batches made ahead on a background thread; batches
-``{"text": (b, text_len) int32, "image": (b, h, w, 3) float32}``. Its
+``{"text": (b, text_len) int32, "image": (b, h, w, 3) float32}``, or
+what a given ``collate_fn`` makes of a list of samples. Its
 ``epoch`` attribute picks the order, so a resumed run sees the same
 batches. JAX's per-host sharding (``process_index``/``process_count``)
 comes with the multi-device trainer.
 
 The random draws (``random.Random(seed)``: the caption choice, then the
 crop's ``uniform`` and ``randint``) are JAX's, call for call, so on the
-same folder and seed both give the same tokens and the same pixels.
+same folder and seed both give the same tokens and the same pixels. The
+stream runs on across epochs; ``TextImageDataset.rng_state`` /
+``set_rng_state`` carry it across a resume at an epoch's end.
 """
 
 from __future__ import annotations
@@ -101,6 +110,17 @@ class TextImageDataset:
     def __len__(self) -> int:
         return len(self.keys)
 
+    def rng_state(self) -> list:
+        """The caption and crop stream's state, as JSON lists: a
+        checkpoint written at an epoch's end carries it, so that a run
+        resumed there draws what the uninterrupted run draws."""
+        version, internal, gauss = self._rng.getstate()
+        return [version, list(internal), gauss]
+
+    def set_rng_state(self, state: list) -> None:
+        version, internal, gauss = state
+        self._rng.setstate((version, tuple(internal), gauss))
+
     def random_sample(self):
         return self[self._rng.randint(0, len(self) - 1)]
 
@@ -131,16 +151,54 @@ class TextImageDataset:
         return tokens, image
 
 
+class ImageFolderDataset:
+    """Every image file under ``folder`` (sorted), each a random square
+    crop resized to ``image_size``; the random draws are JAX's."""
+
+    def __init__(self, folder: str, image_size: int, seed: int = 0):
+        path = Path(folder)
+        self.files = sorted(p for ext in IMAGE_EXTS for p in path.glob(f"**/*{ext}"))
+        if not self.files:
+            raise ValueError(f"no images found at {folder}")
+        needs_pillow = [p for p in self.files if p.suffix in PILLOW_EXTS]
+        if needs_pillow and not pillow_available():
+            raise MissingDecoderError(needs_pillow[0])
+        self.image_size = image_size
+        self._rng = random.Random(seed)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, ind: int) -> Tuple[np.ndarray, np.ndarray]:
+        try:
+            img = random_resized_crop(open_image(self.files[ind]), self.image_size,
+                                      self._rng, 0.75)
+            arr = image_to_array(img)
+        except MissingDecoderError:
+            raise
+        except (OSError, ValueError):  # undecodable bytes: the next file
+            return self[(ind + 1) % len(self)]
+        return arr, np.zeros((), np.int32)
+
+    @staticmethod
+    def collate(batch):
+        return {"image": np.stack([b[0] for b in batch])}
+
+
 class DataLoader:
     """Batches of ``dataset`` with the per-epoch ``seed + epoch`` shuffle,
     the last partial batch dropped and ``PREFETCH`` batches made ahead on
-    a background thread. ``epoch`` counts up after each pass; set it to
+    a background thread, each ``collate_fn`` of its samples (default the
+    text-image batch). ``epoch`` counts up after each pass; set it to
     replay an epoch's order."""
 
     PREFETCH = 2
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 collate_fn=None):
         assert batch_size >= 1
+        if collate_fn is not None:
+            self._collate = collate_fn
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

@@ -4,11 +4,21 @@
 A text transformer and a ViT-style patch image transformer, both
 non-causal without rotary; masked-mean (text) and mean (image) pooling,
 bias-free latent projections, float32 L2-normalised latents and a learned
-temperature used as ``exp(temperature)``. Only the similarity
-(``return_loss=False``) is ported; the InfoNCE loss comes with training.
-At the reference's widths (text_seq_len 256, 8 heads of 64) every text
-layer runs the packed-qkv kernel; the image encoder (64 patches) runs
-the dense path.
+temperature used as ``exp(temperature)``. The forward returns each
+pair's similarity, or with ``return_loss`` the symmetric InfoNCE loss of
+the batch: the (b, b) similarities of every text with every image times
+``exp(temperature)``, and the mean of the cross-entropies of its rows and
+of its columns against the diagonal. At the reference's widths
+(text_seq_len 256, 8 heads of 64) every text layer runs the packed-qkv
+kernel, forward and backward, non-causal with the key mask; the image
+encoder (64 patches) runs the dense path.
+
+Mixed precision is flax's: ``dtype`` the compute type, ``param_dtype``
+the parameters' (default ``dtype``). The text tokens (embedding plus
+positions, in the parameters' type) are cast to ``dtype`` before the
+text encoder; the image tokens are the patch projection (in ``dtype``)
+plus the positions (in the parameters' type), whose sum takes the wider
+type, as JAX's promotion does.
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.layers import seeded_init_
+from ..ops.layers import Linear, seeded_init_
 from .transformer import Transformer
 
 
@@ -29,10 +39,12 @@ def masked_mean(t: torch.Tensor, mask: torch.Tensor, dim: int = 1) -> torch.Tens
 
 
 class CLIP(nn.Module):
-    """Parameters are created on ``device`` in ``dtype`` (the compute
-    dtype), LayerNorm, LayerScale and the temperature in float32.
-    ``num_visual_tokens`` is accepted so the reference's configurations
-    construct this model; like the reference, nothing uses it."""
+    """Parameters are created on ``device`` in ``param_dtype`` (default
+    ``dtype``, the compute dtype), LayerNorm, LayerScale and the
+    temperature in float32. ``num_visual_tokens`` is accepted so the
+    reference's configurations construct this model; like the reference,
+    nothing uses it. The constructor's arguments are kept as attributes
+    of the same names (``models.factory.clip_config`` reads them)."""
 
     def __init__(self, *, dim_text: int = 512, dim_image: int = 512,
                  dim_latent: int = 512, num_text_tokens: int = 10000,
@@ -41,35 +53,41 @@ class CLIP(nn.Module):
                  num_visual_tokens: int = 512, visual_enc_depth: int = 6,
                  visual_heads: int = 8, visual_dim_head: int = 64,
                  visual_image_size: int = 256, visual_patch_size: int = 32,
-                 channels: int = 3, device="cuda", dtype=torch.float32):
+                 channels: int = 3, device="cuda", dtype=torch.float32, param_dtype=None):
         super().__init__()
         if visual_image_size % visual_patch_size != 0:
             raise ValueError("Image dimensions must be divisible by the patch size.")
-        kw = dict(device=device, dtype=dtype)
-        self.text_seq_len = text_seq_len
+        self.dim_text, self.dim_image, self.dim_latent = dim_text, dim_image, dim_latent
+        self.num_text_tokens, self.text_enc_depth = num_text_tokens, text_enc_depth
+        self.text_seq_len, self.text_heads, self.text_dim_head = (
+            text_seq_len, text_heads, text_dim_head)
+        self.num_visual_tokens, self.visual_enc_depth = num_visual_tokens, visual_enc_depth
+        self.visual_heads, self.visual_dim_head = visual_heads, visual_dim_head
         self.visual_image_size = visual_image_size
         self.visual_patch_size = visual_patch_size
-        self.dtype = dtype
+        self.channels = channels
+        self.dtype, self.param_dtype = dtype, param_dtype or dtype
         self.num_patches = (visual_image_size // visual_patch_size) ** 2
+        emb = dict(device=device, dtype=self.param_dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=self.param_dtype)
 
-        self.text_emb = nn.Embedding(num_text_tokens, dim_text, **kw)
-        self.text_pos_emb = nn.Embedding(text_seq_len, dim_text, **kw)
+        self.text_emb = nn.Embedding(num_text_tokens, dim_text, **emb)
+        self.text_pos_emb = nn.Embedding(text_seq_len, dim_text, **emb)
         self.text_transformer = Transformer(
             dim=dim_text, depth=text_enc_depth, seq_len=text_seq_len,
             causal=False, heads=text_heads, dim_head=text_dim_head,
             rotary_emb=False, **kw,
         )
-        self.to_text_latent = nn.Linear(dim_text, dim_latent, bias=False, **kw)
+        self.to_text_latent = Linear(dim_text, dim_latent, bias=False, **kw)
 
-        self.to_visual_embedding = nn.Linear(
-            channels * visual_patch_size**2, dim_image, **kw)
-        self.visual_pos_emb = nn.Embedding(self.num_patches, dim_image, **kw)
+        self.to_visual_embedding = Linear(channels * visual_patch_size**2, dim_image, **kw)
+        self.visual_pos_emb = nn.Embedding(self.num_patches, dim_image, **emb)
         self.visual_transformer = Transformer(
             dim=dim_image, depth=visual_enc_depth, seq_len=self.num_patches,
             causal=False, heads=visual_heads, dim_head=visual_dim_head,
             rotary_emb=False, **kw,
         )
-        self.to_visual_latent = nn.Linear(dim_image, dim_latent, bias=False, **kw)
+        self.to_visual_latent = Linear(dim_image, dim_latent, bias=False, **kw)
         self.temperature = nn.Parameter(
             torch.ones((), dtype=torch.float32, device=device))
 
@@ -88,13 +106,29 @@ class CLIP(nn.Module):
         return image.permute(0, 1, 3, 2, 4, 5).reshape(b, (h // p) * (w // p), p * p * c)
 
     def forward(self, text: torch.Tensor, image: torch.Tensor,
-                text_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                text_mask: Optional[torch.Tensor] = None,
+                return_loss: bool = False) -> torch.Tensor:
         """text (b, text_seq_len) int ids, image (b, h, w, c) pixels,
         text_mask (b, text_seq_len) bool. Returns the per-pair similarity
-        (b,) float32."""
+        (b,) float32, or with ``return_loss`` the symmetric InfoNCE loss
+        of the batch (float32)."""
+        text_latents, image_latents = self.latents(text, image, text_mask)
+        temp = self.temperature.float().exp()
+        if not return_loss:
+            return (text_latents * image_latents).sum(dim=-1) * temp
+        sim = text_latents @ image_latents.t() * temp
+        labels = torch.arange(sim.shape[0], device=sim.device)[:, None]
+        loss_t = -torch.log_softmax(sim, dim=-1).gather(-1, labels).mean()
+        loss_i = -torch.log_softmax(sim.t(), dim=-1).gather(-1, labels).mean()
+        return (loss_t + loss_i) / 2
+
+    def latents(self, text: torch.Tensor, image: torch.Tensor,
+                text_mask: Optional[torch.Tensor] = None):
+        """The L2-normalised float32 (text, image) latents, (b, dim_latent)
+        each, of ``forward``'s inputs."""
         n = text.shape[1]
         pos = torch.arange(n, device=text.device)
-        text_tokens = self.text_emb(text) + self.text_pos_emb(pos)[None]
+        text_tokens = (self.text_emb(text) + self.text_pos_emb(pos)[None]).to(self.dtype)
 
         patches = self.patchify(image.to(self.dtype))
         image_tokens = self.to_visual_embedding(patches)
@@ -114,4 +148,4 @@ class CLIP(nn.Module):
         image_latents = self.to_visual_latent(image_latents).float()
         text_latents = text_latents / text_latents.norm(dim=-1, keepdim=True)
         image_latents = image_latents / image_latents.norm(dim=-1, keepdim=True)
-        return (text_latents * image_latents).sum(dim=-1) * self.temperature.exp()
+        return text_latents, image_latents

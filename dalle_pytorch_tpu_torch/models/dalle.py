@@ -16,8 +16,10 @@ bitwise the plain softmax). Two forms, both causal:
   its trailing token through the transformer, whose layers cycle
   ``attn_types`` ("full", "axial_row", "axial_col", "conv_like",
   "sparse"), with dropout (``attn_dropout``, ``ff_dropout``) when the
-  call has a generator; the float32 logits with the block-diagonal
-  logits mask, or the weighted split cross-entropy.
+  call has a generator, in the stack's execution (sequential,
+  ``reversible`` or ``remat``: ``models/transformer.py``); the float32
+  logits with the block-diagonal logits mask, or the weighted split
+  cross-entropy.
 - ``fused_step`` (serving): one ragged block of a mixed prefill+decode
   iteration through the cached transformer; image-only logits at each
   row's last valid column. Every layer type decodes ("full" through the
@@ -98,6 +100,7 @@ class DALLE(nn.Module):
         self.stable, self.rotary_emb = stable, rotary_emb
         self.attn_types = None if attn_types is None else tuple(attn_types)
         self.shift_tokens, self.sparse_layout_seed = shift_tokens, sparse_layout_seed
+        self.reversible, self.remat = reversible, remat
         self.device, self.dtype = torch.device(device), dtype
         self.param_dtype = param_dtype or dtype
 

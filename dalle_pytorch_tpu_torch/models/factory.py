@@ -5,17 +5,18 @@ A checkpoint is the plain format of ``utils/checkpoint.py``: its meta
 carries the model class and JAX's constructor fields under JAX's names and
 values (``config``, and for a DALLE also ``vae_class`` / ``vae_config``),
 its state the params as the JAX module's tree (``convert.dalle_params``,
-``convert.vae_params``), the optimizer state as optax's
-(``convert.optax_adam_state``: the clipped Adam's, or ``MultiSteps``'
-around it with gradient accumulation) and the step. Fields the port does not
-model are written at JAX's defaults (``reversible: false``,
-``ff_experts: 0``, ``sp_axis: null``, ...), so JAX's
+``convert.vae_params``, ``convert.clip_params``), the optimizer state as
+optax's (``convert.optax_adam_state``: the clipped Adam's, or
+``MultiSteps``' around it with gradient accumulation; a CLIP's the clipped
+``optax.adam``'s) and the step. Fields the port does not
+model are written at JAX's defaults (``ff_experts: 0``,
+``sp_axis: null``, ...), so JAX's
 ``dalle_from_checkpoint`` rebuilds the same module, and this one reads
 JAX's files.
 
 On load, a config value the port does not run raises
-``NotImplementedError``: reversible or remat execution, experts, gMLP
-("mlp") layers, ``serve_quant``, a float16 model, a VAE
+``NotImplementedError``: experts, gMLP ("mlp") layers, ``serve_quant``,
+a float16 model, a VAE
 class other than ``DiscreteVAE`` (the OpenAI dVAE and the VQGAN are
 ROADMAP.md queue 1 item 6) and a VAE normalization other than the
 default. ``sp_axis`` / ``pp_axis`` are a run's layout, not the model's:
@@ -31,6 +32,8 @@ import torch
 
 from ..convert import (
     adam_from_optax,
+    clip_params,
+    clip_state_dict,
     dalle_params,
     dalle_state_dict,
     optax_adam_state,
@@ -38,6 +41,7 @@ from ..convert import (
     vae_state_dict,
 )
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from .clip import CLIP
 from .dalle import DALLE
 from .vae import NORMALIZATION, DiscreteVAE
 
@@ -60,6 +64,13 @@ VAE_FIELDS = dict(
     kl_div_loss_weight=0.0, normalization=[list(t) for t in NORMALIZATION],
     dtype="float32", param_dtype="float32",
 )
+# JAX's CLIP fields in declaration order, at their defaults
+CLIP_FIELDS = dict(
+    dim_text=512, dim_image=512, dim_latent=512, num_text_tokens=10000, text_enc_depth=6,
+    text_seq_len=256, text_heads=8, text_dim_head=64, num_visual_tokens=512,
+    visual_enc_depth=6, visual_heads=8, visual_dim_head=64, visual_image_size=256,
+    visual_patch_size=32, channels=3, dtype="float32", param_dtype="float32",
+)
 
 
 def _dtype_name(dtype) -> str:
@@ -79,6 +90,7 @@ def dalle_config(dalle: DALLE) -> dict:
         attn_types=None if dalle.attn_types is None else list(dalle.attn_types),
         loss_img_weight=dalle.loss_img_weight, stable=dalle.stable,
         shift_tokens=dalle.shift_tokens, rotary_emb=dalle.rotary_emb,
+        reversible=dalle.reversible, remat=dalle.remat,
         sparse_layout_seed=dalle.sparse_layout_seed, dtype=_dtype_name(dalle.dtype),
         param_dtype=_dtype_name(dalle.param_dtype))
     return cfg
@@ -91,8 +103,16 @@ def vae_config(vae: DiscreteVAE) -> dict:
     cfg.update(image_size=vae.image_size, num_tokens=vae.num_tokens,
                codebook_dim=vae.codebook_dim, num_layers=vae.num_layers,
                num_resnet_blocks=vae.num_resnet_blocks, hidden_dim=vae.hidden_dim,
-               channels=vae.channels, dtype=dtype, param_dtype=dtype)
+               channels=vae.channels, smooth_l1_loss=vae.smooth_l1_loss,
+               temperature=vae.temperature, straight_through=vae.straight_through,
+               kl_div_loss_weight=vae.kl_div_loss_weight, dtype=dtype, param_dtype=dtype)
     return cfg
+
+
+def clip_config(clip: CLIP) -> dict:
+    """JAX's constructor fields of the JAX ``CLIP`` equal to ``clip``."""
+    cfg = {k: getattr(clip, k) for k in CLIP_FIELDS if k not in ("dtype", "param_dtype")}
+    return {**cfg, "dtype": _dtype_name(clip.dtype), "param_dtype": _dtype_name(clip.param_dtype)}
 
 
 def _refuse(what: str, value, where: str) -> None:
@@ -103,8 +123,7 @@ def build_dalle(config: dict, device="cuda") -> DALLE:
     """The port's DALLE of JAX's constructor fields ``config`` (random
     weights): refuses what the port does not run."""
     cfg = {**DALLE_FIELDS, **config}
-    for name, off in (("reversible", False), ("remat", False), ("ff_experts", 0),
-                      ("serve_quant", False)):
+    for name, off in (("ff_experts", 0), ("serve_quant", False)):
         if cfg[name] != off:
             _refuse(name, cfg[name], "DALLE checkpoint")
     types = None if cfg["attn_types"] is None else tuple(cfg["attn_types"])
@@ -120,6 +139,7 @@ def build_dalle(config: dict, device="cuda") -> DALLE:
         attn_dropout=cfg["attn_dropout"], ff_dropout=cfg["ff_dropout"], attn_types=types,
         shift_tokens=cfg["shift_tokens"], rotary_emb=cfg["rotary_emb"],
         loss_img_weight=cfg["loss_img_weight"], stable=cfg["stable"],
+        reversible=bool(cfg["reversible"]), remat=bool(cfg["remat"]),
         sparse_layout_seed=cfg["sparse_layout_seed"], device=device,
         dtype=_DTYPES[cfg["dtype"]], param_dtype=_DTYPES[cfg["param_dtype"]])
 
@@ -140,7 +160,22 @@ def build_vae(vae_class: Optional[str], config: dict, device="cuda") -> Discrete
         image_size=cfg["image_size"], num_tokens=cfg["num_tokens"],
         codebook_dim=cfg["codebook_dim"], num_layers=cfg["num_layers"],
         num_resnet_blocks=cfg["num_resnet_blocks"], hidden_dim=cfg["hidden_dim"],
-        channels=cfg["channels"], device=device, dtype=_DTYPES[cfg["dtype"]])
+        channels=cfg["channels"], smooth_l1_loss=cfg["smooth_l1_loss"],
+        temperature=cfg["temperature"], straight_through=cfg["straight_through"],
+        kl_div_loss_weight=cfg["kl_div_loss_weight"], device=device,
+        dtype=_DTYPES[cfg["dtype"]])
+
+
+def build_clip(config: dict, device="cuda", dtype=None) -> CLIP:
+    """The port's CLIP of JAX's constructor fields ``config`` (random
+    weights), computing in ``dtype`` when given, else in the config's."""
+    cfg = {**CLIP_FIELDS, **config}
+    for name in ("dtype", "param_dtype"):
+        if cfg[name] not in _DTYPES:
+            _refuse(name, cfg[name], "CLIP checkpoint")
+    fields = {k: cfg[k] for k in CLIP_FIELDS if k not in ("dtype", "param_dtype")}
+    return CLIP(**fields, device=device, dtype=dtype or _DTYPES[cfg["dtype"]],
+                param_dtype=_DTYPES[cfg["param_dtype"]])
 
 
 def _load_into(module, sd) -> None:
@@ -208,10 +243,40 @@ def dalle_from_checkpoint(path, device="cuda", loaded=None):
 
 
 def restore_opt_state(path, device="cuda", loaded=None):
-    """The optimizer state saved by ``save_dalle_checkpoint`` (or JAX's):
-    an ``AdamState``, a ``MultiStepsState`` for ``MultiSteps``' state, or
-    None when the checkpoint carries none."""
+    """The optimizer state saved by ``save_dalle_checkpoint`` or
+    ``save_clip_checkpoint`` (or JAX's): an ``AdamState``, a
+    ``MultiStepsState`` for ``MultiSteps``' state, or None when the
+    checkpoint carries none."""
     state, meta = loaded if loaded is not None else load_checkpoint(path)
     if not meta.get("has_opt_state"):
         return None
-    return adam_from_optax(state["opt_state"], device=device)
+    to_torch = clip_state_dict if meta.get("model_class") == "CLIP" else dalle_state_dict
+    return adam_from_optax(state["opt_state"], device=device, to_torch=to_torch)
+
+
+# ------------------------------------------------------------------- CLIP
+
+
+def save_clip_checkpoint(path, clip: CLIP, extra: Optional[dict] = None,
+                         opt_state=None) -> None:
+    """The plain CLIP checkpoint JAX's ``train_clip.py`` writes: the
+    params and, when given, the optimizer state (an ``AdamState``) as
+    ``chain(clip_by_global_norm, adam(lr))``'s."""
+    meta = {"model_class": "CLIP", "config": clip_config(clip), **(extra or {})}
+    state = {"params": clip_params(clip.state_dict())}
+    if opt_state is not None:
+        state["opt_state"] = optax_adam_state(opt_state, clip_params, scaled=True)
+        meta["has_opt_state"] = True
+    save_checkpoint(path, state, meta)
+
+
+def clip_from_checkpoint(path, device="cuda", dtype=None, loaded=None) -> Tuple[CLIP, dict]:
+    """-> (clip with its weights, meta); ``dtype`` overrides the compute
+    type the checkpoint names (its parameters keep theirs), as JAX's
+    ``train_clip.py`` re-clones a resumed CLIP."""
+    state, meta = loaded if loaded is not None else load_checkpoint(path)
+    if meta.get("model_class") != "CLIP":
+        raise ValueError(f"not a CLIP checkpoint: {meta.get('model_class')}")
+    clip = build_clip(meta["config"], device, dtype)
+    _load_into(clip, clip_state_dict(state["params"]))
+    return clip, meta

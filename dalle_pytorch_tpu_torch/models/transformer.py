@@ -4,8 +4,7 @@
 Each layer is LayerScale(PreNorm([PreShiftToken](attention))) then the
 same around the GEGLU feed-forward; layer i's attention has the type
 ``attn_types[i % len(attn_types)]`` and the layout seed
-``sparse_layout_seed + i``, as in JAX. Two forms are ported, in
-sequential execution:
+``sparse_layout_seed + i``, as in JAX. Two forms are ported:
 
 - the DALL-E decode form (``image_fmap_size`` set, the DALL-E rotary
   table or none with learned positions, every layer by its type): one
@@ -25,10 +24,25 @@ sequential execution:
 Dropout (``attn_dropout`` after each attention's ``to_out``,
 ``ff_dropout`` after each feed-forward's gate) runs in the full-sequence
 form when it is given a generator, layer by layer in JAX's order
-(attention, then feed-forward); the decode form never drops. Reversible
-and remat execution, pipeline and sequence parallelism, MoE, gMLP
-("mlp" layers) and the 1-D rotary table (rotary without an image grid)
-raise.
+(attention, then feed-forward); the decode form never drops.
+
+Three executions of the full-sequence form, as in JAX:
+
+- sequential (the default): ``x += attn(x)``, then ``x += ff(x)``;
+- ``reversible``: the attention and feed-forward blocks as the (f, g)
+  pairs of ``ops.reversible`` over the streams (x, x), returning
+  ``(y1 + y2) / 2``; ``reversible_sequence`` when a gradient is taken,
+  the direct wiring otherwise. The decode form runs the direct wiring;
+- ``remat``: sequential, with each attention and each feed-forward block
+  recomputed in the backward (``torch.utils.checkpoint``), its dropout
+  drawn again from a generator restored to the state the forward drew
+  from. With ``reversible`` as well, reversible runs; the decode form and
+  a call without a gradient run sequentially.
+
+Every execution draws the same dropout masks in the same order from the
+caller's generator and leaves it in the same state. Pipeline and
+sequence parallelism, MoE, gMLP ("mlp" layers) and the 1-D rotary table
+(rotary without an image grid) raise.
 """
 
 from __future__ import annotations
@@ -37,9 +51,11 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import Attention
 from ..ops.layers import FeedForward, LayerScale, PreNorm, PreShiftToken
+from ..ops.reversible import restored, reversible_forward_only, reversible_sequence
 from ..ops.rotary import dalle_rotary_table, rot_tables
 
 
@@ -63,15 +79,11 @@ class Transformer(nn.Module):
                  sp_axis=None, pp_axis=None, ff_experts: int = 0,
                  device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        unsupported = {
-            "reversible": reversible, "remat": remat, "sp_axis": sp_axis,
-            "pp_axis": pp_axis, "ff_experts": ff_experts,
-        }
+        unsupported = {"sp_axis": sp_axis, "pp_axis": pp_axis, "ff_experts": ff_experts}
         for name, value in unsupported.items():
             if value:
                 raise NotImplementedError(
-                    f"Transformer({name}={value!r}) is not ported; only "
-                    "sequential execution is"
+                    f"Transformer({name}={value!r}) is not ported; only one card is"
                 )
         types = tuple(attn_types or ("full",))
         if "mlp" in types:
@@ -84,6 +96,7 @@ class Transformer(nn.Module):
             raise ValueError("token shift needs an image grid (image_fmap_size)")
         self.depth = depth
         self.dim_head = dim_head
+        self.reversible, self.remat = reversible, remat
         self.attn_types = tuple(types[i % len(types)] for i in range(depth))
         self.shift_tokens = shift_tokens
         self.attn_seq_len = seq_len + (image_fmap_size is not None)
@@ -142,17 +155,12 @@ class Transformer(nn.Module):
         drawn from ``generator`` when one is given; the rotary cos/sin
         tables are built once for all layers."""
         if cache is None:
-            rot = None
-            if self.rotary is not None:
-                rot = rot_tables(self.rotary, x.shape[1], self.dim_head, x.dtype)
-            for ind in range(self.depth):
-                x = x + self.attn_blocks[ind](x, rotary=rot, mask=mask, generator=generator)
-                x = x + self.ff_blocks[ind](x, generator=generator)
-            return x
+            return self._forward_full(x, mask, generator)
         rotary_cs = None
         if self.rotary is not None and (fused_decode or (fused_decode is None and x.is_cuda)):
             rotary_cs = self.decode_tables(x.dtype)
-        for ind in range(self.depth):
+
+        def layer(ind):
             akw = dict(kv=cache.kv[ind], rotary=self.rotary, mask=mask,
                        fused_decode=fused_decode, rotary_cs=rotary_cs)
             fkw = {}
@@ -163,6 +171,69 @@ class Transformer(nn.Module):
                            block_start=block_start)
             else:
                 akw.update(block_len=block_len, block_start=block_start)
-            x = x + self.attn_blocks[ind](x, **akw)
-            x = x + self.ff_blocks[ind](x, **fkw)
+            return (lambda t, gen: self.attn_blocks[ind](t, **akw),
+                    lambda t, gen: self.ff_blocks[ind](t, **fkw))
+
+        blocks = [layer(i) for i in range(self.depth)]
+        if self.reversible:
+            y1, y2 = reversible_forward_only(blocks, x, x)
+            return (y1 + y2) / 2
+        for f, g in blocks:
+            x = x + f(x, None)
+            x = x + g(x, None)
         return x
+
+    def _forward_full(self, x, mask, generator):
+        """The full-sequence form in this stack's execution (see the
+        module docstring); the rotary cos/sin tables are built once for
+        all layers."""
+        rot = None
+        if self.rotary is not None:
+            rot = rot_tables(self.rotary, x.shape[1], self.dim_head, x.dtype)
+
+        def attn(ind):
+            return lambda t, gen: self.attn_blocks[ind](t, rotary=rot, mask=mask, generator=gen)
+
+        def ff(ind):
+            return lambda t, gen: self.ff_blocks[ind](t, generator=gen)
+
+        blocks = [(attn(i), ff(i)) for i in range(self.depth)]
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if self.reversible:
+            if grad:
+                params = [(list(self.attn_blocks[i].parameters()),
+                           list(self.ff_blocks[i].parameters())) for i in range(self.depth)]
+                y1, y2 = reversible_sequence(blocks, x, x, params, generator)
+            else:
+                y1, y2 = reversible_forward_only(blocks, x, x, generator)
+            return (y1 + y2) / 2
+        for f, g in blocks:
+            if self.remat and grad:
+                x = x + _recomputed(f, x, generator)
+                x = x + _recomputed(g, x, generator)
+            else:
+                x = x + f(x, generator)
+                x = x + g(x, generator)
+        return x
+
+
+def _recomputed(block, x, generator):
+    """``block(x, generator)`` whose activations are recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant). Both runs draw
+    from a generator at the state ``generator`` has now, and
+    ``generator`` then moves on as the block's own call would move it."""
+    if generator is None:
+        return checkpoint(block, x, None, use_reentrant=False, preserve_rng_state=False)
+    state = generator.get_state()
+    ended = []
+
+    def run(t):
+        fork = restored(generator, state)
+        out = block(t, fork)
+        ended.append(fork.get_state())
+        return out
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(ended[0])
+    return out

@@ -7,8 +7,17 @@ stride-2 4x4 convs (padding 1, flax's ``padding=1``) + ReLU ->
 Decode: token ids -> codebook features -> [1x1 conv + ResBlocks] ->
 ``num_layers`` stride-2 transposed convs + ReLU -> 1x1 conv to pixels.
 The public functions keep the reference's NHWC layout; the convolutions
-run NCHW inside. The Gumbel relaxation and the VAE loss come with the
-VAE trainer.
+run NCHW inside.
+
+Training (``forward``, JAX's ``__call__``): the encoder's logits, a
+Gumbel-softmax relaxation of them (``gumbel_softmax``; straight-through
+with ``straight_through``) at temperature ``temp``, its product with the
+codebook (one (b·f·f, num_tokens) x (num_tokens, d) matrix product), the
+decoder, and the loss: the reconstruction error against ``norm(img)``
+in float32 (MSE, or ``smooth_l1_loss``) plus ``kl_div_loss_weight``
+times the KL divergence of the code distribution from the uniform one,
+with the reference's "batchmean" over an input of size 1: the total sum.
+The Gumbel noise is drawn from an explicit generator, or given.
 
 The reference's flax ``ConvTranspose(4, strides=2, padding="SAME")`` is a
 correlation of the stride-dilated input, padded by 2 on each side, with
@@ -20,6 +29,7 @@ the same correlation with the kernel flipped, so the converter
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +38,36 @@ from torch import nn
 
 # the reference's channel (means, stds)
 NORMALIZATION = ((0.5,) * 3, (0.5,) * 3)
+
+
+def gumbel_noise(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """Standard Gumbel noise, float32: ``-log(-log(u))`` of uniform draws
+    from ``generator`` (on ``device``) clipped to the smallest normal
+    float32 above 0, as ``jax.random.gumbel`` draws it."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device).clamp(min=tiny)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_softmax(logits: torch.Tensor, gumbels: torch.Tensor, temperature: float,
+                   hard: bool = False, dim: int = -1) -> torch.Tensor:
+    """A relaxed one-hot sample of ``logits`` along ``dim`` given its
+    Gumbel noise ``gumbels`` (float32, ``logits``' shape): the softmax of
+    ``(logits + gumbels) / temperature`` in float32. ``hard`` is the
+    straight-through estimator: the one-hot of its argmax forward, the
+    soft sample's gradient backward. In ``logits``' dtype."""
+    y_soft = torch.softmax((logits.float() + gumbels) / temperature, dim=dim)
+    if not hard:
+        return y_soft.to(logits.dtype)
+    index = y_soft.argmax(dim=dim, keepdim=True)
+    y_hard = torch.zeros_like(y_soft).scatter_(dim, index, 1.0)
+    return (y_hard + y_soft - y_soft.detach()).to(logits.dtype)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Huber / smooth-L1 with torch's default beta 1, mean reduction."""
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff**2 / beta, diff - 0.5 * beta).mean()
 
 
 def denormalize(images: torch.Tensor, normalization=NORMALIZATION) -> torch.Tensor:
@@ -56,12 +96,16 @@ class ResBlock(nn.Module):
 
 class DiscreteVAE(nn.Module):
     """The Gumbel-softmax discrete VAE over NHWC images: the hard-argmax
-    encoder that DALL-E training feeds on, and the decoder."""
+    encoder that DALL-E training feeds on, the decoder, and the training
+    forward. ``smooth_l1_loss``, ``temperature`` (the default ``temp``),
+    ``straight_through`` and ``kl_div_loss_weight`` are JAX's fields."""
 
     def __init__(self, *, image_size: int = 256, num_tokens: int = 512,
                  codebook_dim: int = 512, num_layers: int = 3,
                  num_resnet_blocks: int = 0, hidden_dim: int = 64,
-                 channels: int = 3, device="cuda", dtype=torch.float32):
+                 channels: int = 3, smooth_l1_loss: bool = False,
+                 temperature: float = 0.9, straight_through: bool = False,
+                 kl_div_loss_weight: float = 0.0, device="cuda", dtype=torch.float32):
         super().__init__()
         if not math.log2(image_size).is_integer():
             raise ValueError(f"image size must be a power of 2, got {image_size}")
@@ -73,6 +117,8 @@ class DiscreteVAE(nn.Module):
         self.num_resnet_blocks, self.hidden_dim = num_resnet_blocks, hidden_dim
         self.channels = channels
         self.codebook_dim = codebook_dim
+        self.smooth_l1_loss, self.temperature = smooth_l1_loss, temperature
+        self.straight_through, self.kl_div_loss_weight = straight_through, kl_div_loss_weight
         self.codebook = nn.Embedding(num_tokens, codebook_dim, **kw)
         self.enc_convs = nn.ModuleList(
             nn.Conv2d(channels if i == 0 else hidden_dim, hidden_dim, 4,
@@ -144,8 +190,11 @@ class DiscreteVAE(nn.Module):
         """Token ids (b, n) -> pixels (b, h, w, c), normalized space."""
         b, n = img_seq.shape
         f = math.isqrt(n)
-        x = self.codebook(img_seq).reshape(b, f, f, self.codebook_dim)
-        x = x.permute(0, 3, 1, 2)
+        return self._decode_embeds(self.codebook(img_seq).reshape(b, f, f, self.codebook_dim))
+
+    def _decode_embeds(self, embeds: torch.Tensor) -> torch.Tensor:
+        """Codebook features (b, f, f, codebook_dim) -> pixels (b, h, w, c)."""
+        x = embeds.to(self.dec_out.weight.dtype).permute(0, 3, 1, 2)
         if self.dec_in is not None:
             x = self.dec_in(x)
         for block in self.dec_res:
@@ -153,3 +202,39 @@ class DiscreteVAE(nn.Module):
         for conv in self.dec_convs:
             x = F.relu(conv(x))
         return self.dec_out(x).permute(0, 2, 3, 1)
+
+    def forward(self, img: torch.Tensor, return_loss: bool = False,
+                return_recons: bool = False, return_logits: bool = False,
+                temp: Optional[float] = None, generator: Optional[torch.Generator] = None,
+                gumbels: Optional[torch.Tensor] = None):
+        """img (b, h, w, c) in [0, 1]. Returns the encoder's logits with
+        ``return_logits``; else the reconstruction (b, h, w, c) in
+        normalized space through a Gumbel-softmax sample at ``temp``
+        (default ``temperature``), the noise ``gumbels`` or drawn from
+        ``generator``; with ``return_loss`` the loss instead, and with
+        ``return_recons`` too (loss, reconstruction)."""
+        if img.shape[1] != self.image_size or img.shape[2] != self.image_size:
+            raise ValueError(f"input must have the correct image size {self.image_size}")
+        logits = self.encode_logits(img)
+        if return_logits:
+            return logits
+        if gumbels is None:
+            if generator is None:
+                raise ValueError("the Gumbel sample needs a generator or given noise")
+            gumbels = gumbel_noise(logits.shape, generator, logits.device)
+        temp = self.temperature if temp is None else temp
+        soft_one_hot = gumbel_softmax(logits, gumbels.to(logits.device), temp,
+                                      hard=self.straight_through)
+        sampled = torch.einsum("bhwn,nd->bhwd", soft_one_hot,
+                               self.codebook.weight.to(soft_one_hot.dtype))
+        out = self._decode_embeds(sampled)
+        if not return_loss:
+            return out
+        target = self.norm(img).float()
+        recon = (smooth_l1_loss(out.float(), target) if self.smooth_l1_loss
+                 else ((out.float() - target) ** 2).mean())
+        log_qy = torch.log_softmax(logits.float(), dim=-1)
+        log_uniform = -torch.tensor(float(self.num_tokens), device=logits.device).log()
+        kl_div = (log_qy.exp() * (log_qy - log_uniform)).sum()
+        loss = recon + kl_div * self.kl_div_loss_weight
+        return (loss, out) if return_recons else loss

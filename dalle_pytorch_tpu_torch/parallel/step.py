@@ -34,8 +34,11 @@ A non-emitting micro-step checks on the device that ``mini_step`` is not
 k - 1 (``torch._assert_async``).
 
 A ``generator`` given to the step reaches the loss function (the
-dropout masks' draws); without one the loss function is called as
-``loss_fn(model, batch)``.
+dropout masks' or the Gumbel noise's draws); without one the loss
+function is called as ``loss_fn(model, batch)``. ``max_grad_norm=None``
+leaves out the clip: optax's ``scale_by_adam`` alone (the VAE trainer's
+chain), the NaN guard as it is. ``has_aux`` is JAX's: the loss function
+returns (loss, aux) and the step (state, loss, aux), aux detached.
 
 Params, and the Adam moments, are updated in place, one tensor at a
 time, so that the step holds no second copy of the model: ``params`` maps
@@ -126,8 +129,9 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 
 def make_train_step(loss_fn: Callable[..., torch.Tensor],
-                    max_grad_norm: float, nan_guard: bool = True,
-                    nan_inject_step: Optional[int] = None, ga_steps: int = 1):
+                    max_grad_norm: Optional[float], nan_guard: bool = True,
+                    nan_inject_step: Optional[int] = None, ga_steps: int = 1,
+                    has_aux: bool = False):
     """``(state, model, batch, lr, generator=None) -> (state, loss)``.
     ``loss_fn(model, batch)`` (``loss_fn(model, batch, generator)`` when
     the step is given a generator) returns the scalar loss; ``lr`` is a
@@ -138,13 +142,19 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
     above 1 accumulates as optax's ``MultiSteps`` (the state from
     ``create_train_state(model, ga_steps)``); ``emit`` then says whether
     the state's ``mini_step`` is ``ga_steps - 1``, so that this micro-step
-    ends an optimizer step (with ``ga_steps`` 1 every step does)."""
+    ends an optimizer step (with ``ga_steps`` 1 every step does).
+    ``max_grad_norm`` None steps without the clip; ``has_aux``: the loss
+    function returns (loss, aux) and the step (state, loss, aux)."""
 
     def train_step(state: TrainState, model: nn.Module, batch, lr: float,
                    generator: Optional[torch.Generator] = None, emit: bool = True):
         names = list(state.params)
         params = [state.params[k] for k in names]
         loss = loss_fn(model, batch) if generator is None else loss_fn(model, batch, generator)
+        aux = None
+        if has_aux:
+            loss, aux = loss
+            aux = aux.detach()
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -160,10 +170,11 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
                 multi = _multi_step if emit else _accumulate
                 opt = multi(names, params, grads, state.opt_state, finite, lr, max_grad_norm,
                             ga_steps, nan_guard)
-                return _counted(state, opt, finite, loss, nan, nan_guard)
+                return _counted(state, opt, finite, loss, nan, nan_guard) + (
+                    (aux,) if has_aux else ())
             adam = state.opt_state
             count = _safe_increment(adam.count)
-            clip, bc = g_norm < max_grad_norm, _bias_corrections(count)
+            clip, bc = _clip_test(g_norm, max_grad_norm), _bias_corrections(count)
             for name, p, g in zip(names, params, grads):
                 mu, nu = adam.mu[name], adam.nu[name]
                 mu_new, nu_new, direction = _clipped_adam(g, g_norm, clip, max_grad_norm,
@@ -178,9 +189,14 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
             if nan_guard:
                 count = torch.where(finite, count, adam.count)
             return _counted(state, AdamState(count, adam.mu, adam.nu), finite, loss, nan,
-                            nan_guard)
+                            nan_guard) + ((aux,) if has_aux else ())
 
     return train_step
+
+
+def _clip_test(g_norm, max_grad_norm: Optional[float]):
+    """Whether the norm is below the limit (None without a clip)."""
+    return None if max_grad_norm is None else g_norm < max_grad_norm
 
 
 def _counted(state: TrainState, opt: OptState, finite, loss, nan, nan_guard: bool):
@@ -199,12 +215,13 @@ def _bias_corrections(count: torch.Tensor):
     return 1 - ADAM_B1 ** count.float(), 1 - ADAM_B2 ** count.float()
 
 
-def _clipped_adam(g, g_norm, clip, max_grad_norm: float, mu, nu, bc):
+def _clipped_adam(g, g_norm, clip, max_grad_norm: Optional[float], mu, nu, bc):
     """One tensor of optax's ``clip_by_global_norm`` (``clip``: the norm
-    is below the limit) then ``scale_by_adam`` (``bc``:
-    ``_bias_corrections``), in optax's order of operations: (new mu, new
-    nu, the update direction)."""
-    g = torch.where(clip, g, (g / g_norm) * max_grad_norm)
+    is below the limit; no clip with ``max_grad_norm`` None) then
+    ``scale_by_adam`` (``bc``: ``_bias_corrections``), in optax's order of
+    operations: (new mu, new nu, the update direction)."""
+    if max_grad_norm is not None:
+        g = torch.where(clip, g, (g / g_norm) * max_grad_norm)
     mu_new = (1 - ADAM_B1) * g + ADAM_B1 * mu
     nu_new = (1 - ADAM_B2) * g**2 + ADAM_B2 * nu
     direction = (mu_new / bc[0]) / (torch.sqrt(nu_new / bc[1]) + ADAM_EPS)
@@ -243,7 +260,7 @@ def _multi_step(names, params, grads, opt: MultiStepsState, finite, lr: float,
     emit = mini == k - 1
     apply = emit & finite if nan_guard else emit
     count = _safe_increment(adam.count)
-    clip, bc = a_norm < max_grad_norm, _bias_corrections(count)
+    clip, bc = _clip_test(a_norm, max_grad_norm), _bias_corrections(count)
     for name, p, a in zip(names, params, acc):
         mu, nu = adam.mu[name], adam.nu[name]
         mu_new, nu_new, direction = _clipped_adam(a, a_norm, clip, max_grad_norm, mu, nu, bc)

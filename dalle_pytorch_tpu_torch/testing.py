@@ -1164,10 +1164,12 @@ CAPTION_WORDS = ("a", "red", "green", "blue", "small", "large", "square", "circl
                  "the", "left", "right", "of", "two", "striped", "cat's", "café", "3")
 
 
-def write_caption_folder(root, n: int, size: int, seed: int = 0, prefix: str = "sample"):
+def write_caption_folder(root, n: int, size: int, seed: int = 0, prefix: str = "sample",
+                         lines: int = 1):
     """``n`` seeded RGB PNGs of ``size`` x ``size`` (the port's PNG
     writer: no Pillow) under ``root``, each with a same-stem ``.txt`` of
-    one seeded caption; returns the captions."""
+    ``lines`` seeded captions, one a line; returns the first caption of
+    each."""
     from pathlib import Path
 
     from .data.image_io import write_png
@@ -1179,9 +1181,10 @@ def write_caption_folder(root, n: int, size: int, seed: int = 0, prefix: str = "
     for i in range(n):
         write_png(root / f"{prefix}_{i:03d}.png",
                   rng.randint(0, 256, size=(size, size, 3)).astype(np.uint8))
-        words = rng.choice(CAPTION_WORDS, size=rng.randint(3, 9))
-        captions.append(" ".join(words))
-        (root / f"{prefix}_{i:03d}.txt").write_text(captions[-1] + "\n", encoding="utf8")
+        text = [" ".join(rng.choice(CAPTION_WORDS, size=rng.randint(3, 9)))
+                for _ in range(lines)]
+        captions.append(text[0])
+        (root / f"{prefix}_{i:03d}.txt").write_text("\n".join(text) + "\n", encoding="utf8")
     return captions
 
 

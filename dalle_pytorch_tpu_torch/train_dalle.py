@@ -59,8 +59,10 @@ The flags in ``NOT_PORTED`` raise ``NotImplementedError`` (with their
 ROADMAP.md queue item) when set to anything but their default, before any
 model or file is built: the Chinese tokenizer, the OpenAI dVAE and the
 VQGAN (also the default that names neither ``--vae_path`` nor
-``--dalle_path``), Weights & Biases, the mesh and MoE flags, reversible
-and remat execution, and telemetry.
+``--dalle_path``), Weights & Biases, the mesh and MoE flags, and
+telemetry. ``--reversible`` and ``--remat`` build the DALLE in those
+executions (``models/transformer.py``); a DALLE read from
+``--dalle_path`` keeps its checkpoint's, as in JAX.
 
 ``bf16`` (``--bf16``, ``--fp16`` and ``--amp``) trains in mixed precision
 as JAX does: the DALLE computes in bfloat16 on float32 parameters, the
@@ -97,7 +99,7 @@ from .utils.schedules import ConstantLR, ReduceLROnPlateau
 # train_dalle.py's flags that DalleTrainer takes, with their defaults
 MODEL_FLAGS = dict(dim=512, depth=2, heads=8, dim_head=64, text_seq_len=256,
                    loss_img_weight=7, shift_tokens=False, rotary_emb=False,
-                   stable_softmax=False, attn_types="full")
+                   stable_softmax=False, attn_types="full", reversible=False, remat=False)
 # the dropout rates also build the DALLE, and with a given one (a resume)
 # they decide only whether the step is deterministic, as in JAX
 TRAINER_FLAGS = dict(MODEL_FLAGS, batch_size=4, learning_rate=3e-4, clip_grad_norm=0.5,
@@ -127,8 +129,6 @@ NOT_PORTED = {
     "ep": _MESH,
     "moe_experts": _MOE, "moe_every": _MOE, "moe_aux_weight": _MOE,
     "moe_capacity_factor": _MOE,
-    "reversible": "queue 1 item 2(e) (reversible execution)",
-    "remat": "queue 1 item 2(e) (remat)",
     "telemetry": _TELEMETRY, "telemetry_dir": _TELEMETRY, "metrics_port": _TELEMETRY,
 }
 
@@ -187,7 +187,7 @@ class DalleTrainer:
                 loss_img_weight=args["loss_img_weight"],
                 shift_tokens=args["shift_tokens"],
                 rotary_emb=args["rotary_emb"], stable=args["stable_softmax"],
-                device=device,
+                reversible=args["reversible"], remat=args["remat"], device=device,
                 dtype=compute_dtype, param_dtype=torch.float32,
             ).init_weights(torch.Generator(device=device).manual_seed(args["seed"]))
         elif set(flags) & set(MODEL_FLAGS):
@@ -365,8 +365,9 @@ def build_parser() -> argparse.ArgumentParser:
     model_group.add_argument("--dim_head", default=64, type=int)
     model_group.add_argument("--ff_dropout", default=0.0, type=float)
     model_group.add_argument("--attn_dropout", default=0.0, type=float)
-    model_group.add_argument("--reversible", action="store_true", help="not ported")
-    model_group.add_argument("--remat", action="store_true", help="not ported")
+    model_group.add_argument("--reversible", action="store_true")
+    model_group.add_argument("--remat", action="store_true",
+                             help="recompute each block's activations in the backward")
     model_group.add_argument("--loss_img_weight", default=7, type=int)
     model_group.add_argument("--attn_types", default="full", type=str,
                              help="comma-separated: full, sparse, axial_row, axial_col, "

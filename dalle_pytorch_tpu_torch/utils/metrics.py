@@ -1,5 +1,6 @@
-"""The trainer's metrics (counterpart of the part of
-``dalle_pytorch_tpu/utils/metrics.py`` that ``train_dalle.py`` uses):
+"""The trainers' metrics (counterpart of the part of
+``dalle_pytorch_tpu/utils/metrics.py`` that ``train_dalle.py``,
+``train_vae.py`` and ``train_clip.py`` use):
 named counters, the samples-per-second window and the console logger,
 whose lines are JAX's (``step N: loss=... epoch=...``). There is no
 process-wide ``Counters``: the command line makes one and hands it to
@@ -54,6 +55,17 @@ class MetricsLogger:
 
     def log_text(self, text: str) -> None:
         print(text, flush=True)
+
+    def log_histogram(self, name: str, values, step: Optional[int] = None) -> None:
+        """A compact summary of ``values``' distribution (the VAE trainer's
+        codebook-usage monitor): its size, quantiles and unique count."""
+        import numpy as np
+
+        flat = np.asarray(values).reshape(-1)
+        qs = np.percentile(flat, [0, 25, 50, 75, 100])
+        self.log_text(f"step {step}: {name} histogram n={flat.size} "
+                      f"min/q25/med/q75/max={'/'.join(f'{q:g}' for q in qs)} "
+                      f"unique={np.unique(flat).size}")
 
     def log_counters(self, counters: Counters, step: Optional[int] = None,
                      prefix: str = "") -> None:

@@ -341,7 +341,7 @@ def test_fault_registry_reads_the_jax_format():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("reversible", True), ("remat", True), ("ff_experts", 4),
+    ("ff_experts", 4),
     ("serve_quant", True), ("attn_types", ["full", "mlp"]),
     ("dtype", "float16"),
 ])

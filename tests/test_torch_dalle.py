@@ -140,8 +140,7 @@ def test_remap_text_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(reversible=True), dict(remat=True), dict(attn_types=("mlp",)),
-    dict(serve_quant=True),
+    dict(attn_types=("mlp",)), dict(serve_quant=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):

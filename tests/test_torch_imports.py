@@ -1,11 +1,13 @@
 """The PyTorch port stands alone: no module of dalle_pytorch_tpu_torch/
-and nothing in chip_smoke.py imports jax, flax, optax or the JAX package
-(an AST walk), and the port's engine, post-decode stages, CLIP and
-trainer import and run (a CPU fused_step, a CLIP similarity, a train
-step) in a process where importing jax fails. The trainer's command line
-also runs (one epoch of two steps on a PNG folder, to a checkpoint) where
-none of the card's missing host packages can be imported either: PIL,
-regex, msgpack, tokenizers and ftfy. The tar-shard loader
+(``ops/reversible.py``, ``train_vae.py`` and ``train_clip.py`` among
+them) and nothing in chip_smoke.py imports jax, flax, optax or the JAX
+package (an AST walk), and the port's engine, post-decode stages, CLIP
+and trainer import and run (a CPU fused_step, a CLIP similarity, a train
+step) in a process where importing jax fails. The trainers' command
+lines (DALLE, VAE and CLIP) also run (an epoch on a PNG folder, to a
+checkpoint), and reversible and remat DALLE steps too, where none of the
+card's missing host packages can be imported either: PIL, regex,
+msgpack, tokenizers and ftfy. The tar-shard loader
 (``data/webdata.py``), the native engine's binding
 (``data/native_bpe.py``) and its build (``native/``) import and run where
 jax and the JAX package cannot be imported, and name no path of the JAX
@@ -30,6 +32,12 @@ def _imported(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+
+
+def test_the_guard_covers_the_new_modules():
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert {f"dalle_pytorch_tpu_torch/{m}" for m in (
+        "ops/reversible.py", "train_vae.py", "train_clip.py")} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -116,6 +124,51 @@ print("ok")
     )
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
     assert (tmp_path / "dalle.ckpt").exists() and (tmp_path / "dalle-cp" / "step_00000002").is_dir()
+
+
+def test_vae_and_clip_trainers_run_without_the_missing_host_packages(tmp_path):
+    """``train_vae.main`` and ``train_clip.main`` (and reversible and remat
+    DALLE steps) where jax, the JAX package and the card's missing host
+    packages cannot be imported."""
+    code = """
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "dalle_pytorch_tpu", "PIL", "regex", "msgpack",
+           "tokenizers", "ftfy")
+for name in BLOCKED:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from dalle_pytorch_tpu_torch import train_clip, train_vae
+from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.ops import reversible
+from dalle_pytorch_tpu_torch.testing import write_caption_folder
+from dalle_pytorch_tpu_torch.utils.checkpoint import check_checkpoint_file
+write_caption_folder("data", 4, 16, seed=1)
+train_vae.main(["--image_folder", "data", "--image_size", "16", "--num_layers", "1",
+                "--num_resnet_blocks", "0", "--hidden_dim", "4", "--num_tokens", "12",
+                "--emb_dim", "4", "--batch_size", "2", "--epochs", "1"], device="cpu")
+check_checkpoint_file("vae.ckpt")
+train_clip.main(["--image_text_folder", "data", "--dim_text", "16", "--dim_image", "16",
+                 "--dim_latent", "8", "--text_enc_depth", "1", "--text_seq_len", "8",
+                 "--text_heads", "2", "--visual_enc_depth", "1", "--visual_heads", "2",
+                 "--visual_image_size", "16", "--visual_patch_size", "8", "--batch_size", "2",
+                 "--epochs", "1", "--truncate_captions"], device="cpu")
+check_checkpoint_file("clip.ckpt")
+for flag in ("reversible", "remat"):
+    model = DALLE(dim=32, depth=2, num_text_tokens=16, text_seq_len=4, num_image_tokens=12,
+                  image_fmap_size=2, heads=2, dim_head=16, device="cpu", **{flag: True})
+    loss = model(torch.tensor([[1, 2, 0, 0]]), torch.tensor([[1, 2, 3, 4]]), return_loss=True)
+    loss.backward()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+    assert (tmp_path / "vae_samples" / "recon_0000000.png").exists()
 
 
 NEW_MODULES = ("data/webdata.py", "data/native_bpe.py", "native/build.py",

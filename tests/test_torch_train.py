@@ -308,14 +308,17 @@ def test_trainer_flags_are_train_dalle_flags():
     defaults = {a.dest: a.default for a in j_train_dalle.build_parser()._actions}
     assert {k: defaults[k] for k in train_dalle.FLAGS} == train_dalle.FLAGS
     vae = _vae()
-    with pytest.raises(NotImplementedError, match="reversible"):
-        train_dalle.DalleTrainer(vae, device="cpu", reversible=True)
     with pytest.raises(TypeError):
         train_dalle.DalleTrainer(vae, device="cpu", no_such_flag=1)
     with pytest.raises(ValueError):
         train_dalle.DalleTrainer(vae, _port_small(), device="cpu", dim=64)
-    with pytest.raises(NotImplementedError, match="remat"):  # not ported
-        train_dalle.DalleTrainer(vae, device="cpu", remat=True)
+    text, _ = _batch(9)
+    for flag in ("reversible", "remat"):  # both build their DALLE and take a step
+        trainer = train_dalle.DalleTrainer(
+            vae, num_text_tokens=50, device="cpu", dim=64, depth=1, heads=2, dim_head=64,
+            text_seq_len=64, batch_size=2, **{flag: True})
+        assert getattr(trainer.dalle.transformer, flag)
+        assert math.isfinite(trainer.train_step(torch.from_numpy(text).long(), _images(9)))
 
 
 def _port_small():
