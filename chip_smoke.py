@@ -116,6 +116,23 @@ line):
    dispatches times; then ``decode_tokens`` of 2 captions on the "flat"
    cache with the decode kernel, 16 tokens card = CPU, the decode kernel
    depth x 15 times.
+5i. serve prefix and spec (``serve_prefix_spec``): ``SERVE_MODEL``
+   (bf16, phase 5's seed), max_batch 8, chunks of 16, pages of 128 (T =
+   257: a prompt's last page holds one row). The prefix cache on the
+   fused path and the split path with chunks, bf16 and int8 pages: a
+   publisher, three partial hits on its first page, then the four
+   prompts again as full hits (8 requests of 64 tokens): every outcome
+   COMPLETED, warm tokens bitwise the cold engine's, the prefix
+   counters equal a CPU engine's on the same rounds (a small model of the
+   same sequence geometry), the ragged kernel depth x model dispatches
+   times, the engine's invariants at the drain; the ``prefix_hash_
+   collide`` and ``prefix_publish_fail`` drills once each; TTFT cold,
+   partial and full printed. Speculative decode (fused, spec_k 3, 4
+   requests of 64 tokens): the exact drafter, the exact drafter with one
+   ``spec_verify_abort``, the 2-layer drafter and the exact drafter with
+   a warm prefix hit, tokens bitwise a plain fused engine's, the ragged
+   kernel depth x dispatches + draft depth x draft steps times; accept
+   rates, wall and tokens/s against plain printed.
 5c. serve sparse: the sparse configuration (phase 10's layers) at the
    flagship width and depth 4 (each type once), bf16, int8 pages, 4 requests of
    256 tokens: every outcome COMPLETED, the int8 ragged instance launched
@@ -375,6 +392,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import io
 import json
@@ -3898,6 +3916,288 @@ def serve_reversible() -> dict:
     return paths
 
 
+# phase 5i: requests of the prefix and speculative runs, their tokens,
+# the spec run's draft depth and width, and the prefix runs' token
+# budget (every prefilling row's chunk in each iteration)
+PREFIX_NEW, SPEC_NEW, SPEC_K, SPEC_DRAFT_DEPTH = 64, 64, 3, 2
+PREFIX_BUDGET = MAX_BATCH * (CHUNK + 1)
+
+
+def prefix_prompts(n: int = 4) -> np.ndarray:
+    """Phase 5i's prompts: full-length seeded captions, the first 127
+    tokens (with <bos>, the first 128 internal positions: one page)
+    shared by all, the rest each its own."""
+    rng = np.random.RandomState(55)
+    L = FLAGSHIP["text_seq_len"]
+    prompts = rng.randint(1, FLAGSHIP["num_text_tokens"], size=(n, L))
+    prompts[1:, :PAGE - 1] = prompts[0, :PAGE - 1]
+    return prompts
+
+
+def prefix_rounds():
+    """(round name, [(request id, prompt index)]): a publisher, three
+    partial hits on its first page, then the four prompts again (full
+    hits, each copying its one-row terminal page)."""
+    return (("cold", [("r0", 0)]), ("partial", [(f"r{i}", i) for i in (1, 2, 3)]),
+            ("full", [(f"r{i}w", i) for i in range(4)]))
+
+
+def run_rounds(engine, prompts, rounds, max_new: int) -> dict:
+    """Submit and run each round in turn; the results by request id."""
+    from dalle_pytorch_tpu_torch.serving.types import Request
+
+    for _, reqs in rounds:
+        for rid, i in reqs:
+            assert engine.submit(Request(rid, prompts[i], max_new, seed=i)) is None
+        engine.run(max_steps=20000)
+    return engine.results
+
+
+PREFIX_COUNTERS = ("hits", "misses", "pages_hit", "cow_copies", "published", "pages_deduped",
+                   "publish_skips", "evictions")
+
+
+def prefix_counts(engine) -> dict:
+    return {k: engine.counters.get(f"serve.prefix.{k}") for k in PREFIX_COUNTERS}
+
+
+def engine_launches(engine, names) -> tuple:
+    """(launches read now, the ones the engine's counted model calls
+    imply: depth x model dispatches (a full hit's draw is a dispatch that
+    launches nothing) plus the drafter's depth x its steps, on the
+    instance of the engine's pages)."""
+    depth = SERVE_MODEL["depth"]
+    draft = engine.config.spec_draft_depth or depth
+    name = "ragged_attention_int8" if engine.kv_quant == "int8" else "ragged_attention"
+    want = {n: 0 for n in names}
+    want[name] = depth * (engine.dispatches - engine.cached_draws) + draft * engine.draft_steps
+    return read_counts(names), want
+
+
+def ttft_by_class(results, classes: dict) -> str:
+    out = []
+    for cls, rids in classes.items():
+        t = [results[r].ttft_s * 1e3 for r in rids]
+        out.append(f"{cls} {np.median(t):.1f} ms (median of {len(t)}: "
+                   + ", ".join(f"{x:.1f}" for x in t) + ")")
+    return "; ".join(out)
+
+
+def spy_draft_gaps(engine) -> dict:
+    """Record, on a speculative engine, the largest |drafter logits -
+    verify logits| at each verify row's positions whose input tokens the
+    two passes share (the accepted drafts and the first rejected one),
+    and at the rejected positions alone. Patches the engine's model and
+    its readback; returns the dict the records fill."""
+    gaps = {"compared": 0.0, "rejected": []}
+    calls = []
+    model = engine.dalle
+    fused_step = type(model).fused_step
+
+    def spy(*args, **kw):
+        out = fused_step(model, *args, **kw)
+        calls.append(out)
+        return out
+
+    readback = engine._spec_readback
+
+    def spied(out, entries, K):
+        drafts, (cols, _) = calls[:-1], calls[-1]
+        calls.clear()
+        samples, drafted = out[:, :K], out[:, K:2 * K - 1]
+        for s, kind, k in entries:
+            if kind != "decode" or engine.slots[s.index] is not s:
+                continue
+            m = 0
+            while m < k - 1 and drafted[s.index, m] == samples[s.index, m]:
+                m += 1
+            for i in range(min(m + 1, k - 1)):
+                gap = (drafts[i][s.index] - cols[s.index, i]).abs().max().item()
+                gaps["compared"] = max(gaps["compared"], gap)
+                if i == m:
+                    gaps["rejected"].append(gap)
+        return readback(out, entries, K)
+
+    model.fused_step = spy
+    engine._spec_readback = spied
+    return gaps
+
+
+def serve_prefix_spec() -> dict:
+    """Phase 5i: the prefix cache and speculative decode through the
+    engine at ``SERVE_MODEL`` (bf16, phase 5's seed), max_batch 8, chunks
+    of 16, pages of 128 (T = 257: a prompt fills two pages and one row of
+    a third). Returns the launches by path.
+
+    Prefix cache, on the fused path and on the split path with chunks,
+    with bf16 and with int8 pages (token budget ``PREFIX_BUDGET``): the
+    rounds of ``prefix_rounds`` (8 requests of 64 tokens: a publisher,
+    three partial hits on its first page, the four prompts again as full
+    hits) through an engine with the cache, and the four prompts through
+    one without: every outcome COMPLETED, every warm request's tokens
+    bitwise the cold engine's, the hit, miss, copy-on-write and other
+    prefix counters equal those of a CPU engine with a small model of the
+    same sequence geometry on the same rounds, the ragged kernel launched
+    depth x model dispatches times, ``verify_invariants(idle=True)``; on
+    the fused bf16 engine also a ``prefix_hash_collide`` round (cold
+    fallback, tokens unchanged) and a ``prefix_publish_fail`` round (the
+    request completes, the publish skipped). TTFT cold, partial and full
+    on the real clock printed.
+
+    Speculative decode on the fused path, spec_k 3, 4 of ``serve_
+    requests`` of 64 tokens: a plain fused engine, then the exact drafter
+    (every layer), the exact drafter with one ``spec_verify_abort``, the
+    drafter of ``SPEC_DRAFT_DEPTH`` layers, and the exact drafter with the
+    prefix cache over two rounds of the same requests (full hits): tokens
+    bitwise the plain engine's (the warm round's the cold round's), the
+    ragged kernel launched depth x dispatches + draft depth x draft steps
+    times. Accept rates, and wall and tokens/s of spec against plain
+    printed."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = DALLE(**SERVE_MODEL, device="cuda", dtype=torch.bfloat16).init_weights(gen)
+    # the CPU engine's model: the serve model's sequence geometry at a
+    # small width (the counters are host logic)
+    small = DALLE(**dict(SERVE_MODEL, dim=64, depth=1, heads=1), device="cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    prompts = prefix_prompts()
+    rounds = prefix_rounds()
+    paths, report = {}, []
+    paths_cfg = {"fused": dict(fused_iteration=True), "split": {}}
+    cpu_counts = {}
+    for path, cfg in paths_cfg.items():
+        cpu = Engine(small, EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK,
+                                         token_budget=PREFIX_BUDGET, prefix_cache=True, **cfg),
+                     device="cpu")
+        run_rounds(cpu, prompts, rounds, PREFIX_NEW)
+        cpu_counts[path] = prefix_counts(cpu)
+    for kv_quant in (None, "int8"):
+        for path, cfg in paths_cfg.items():
+            label = f"serve prefix {path} {kv_quant or 'bf16'}"
+            config = dict(max_batch=MAX_BATCH, prefill_chunk=CHUNK, token_budget=PREFIX_BUDGET,
+                          kv_quant=kv_quant, **cfg)
+            cold = Engine(model, EngineConfig(**config), device="cuda")
+            cold_results = run_rounds(cold, prompts, [("cold", [(f"r{i}", i) for i in range(4)])],
+                                      PREFIX_NEW)
+            engine = Engine(model, EngineConfig(prefix_cache=True, **config), device="cuda")
+            zero_counts()
+            t0 = time.perf_counter()
+            results = run_rounds(engine, prompts, rounds, PREFIX_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched, want = engine_launches(engine, RAGGED)
+            for rid, r in results.items():
+                if r.outcome is not Outcome.COMPLETED or len(r.tokens) != PREFIX_NEW:
+                    raise AssertionError(f"{label}: {rid} {r.outcome} {r.detail!r}")
+                if not np.array_equal(r.tokens, cold_results[rid.rstrip("w")].tokens):
+                    raise AssertionError(f"{label}: {rid}'s tokens are not the cold run's")
+            counts = prefix_counts(engine)
+            engine.verify_invariants(idle=True)
+            line = (f"{label}: 8 requests in {wall:.2f} s, {engine.dispatches} dispatches "
+                    f"({engine.cached_draws} cached draws); counters {counts} (CPU engine "
+                    f"{cpu_counts[path]}); launches {launched} (expected {want}); TTFT "
+                    + ttft_by_class(results, {"cold": ["r0"], "partial": ["r1", "r2", "r3"],
+                                              "full": [f"r{i}w" for i in range(4)]}))
+            log(line)
+            if counts != cpu_counts[path] or launched != want:
+                raise AssertionError(line)
+            if counts["hits"] != 7 or counts["cow_copies"] != 4:
+                raise AssertionError(f"{label}: expected 7 hits and 4 copies, {counts}")
+            paths[f"serve_prefix_{path}" + ("_int8" if kv_quant else "")] = launched
+            if path == "fused" and kv_quant is None:
+                from dalle_pytorch_tpu_torch.serving.types import Request
+
+                engine.faults.arm("prefix_hash_collide", 1)
+                assert engine.submit(Request("c0", prompts[0], PREFIX_NEW, seed=0)) is None
+                engine.run(max_steps=20000)
+                engine.faults.arm("prefix_publish_fail", 1)
+                assert engine.submit(Request("f1", prompts[1], PREFIX_NEW, seed=1)) is None
+                engine.run(max_steps=20000)
+                c0, f1 = engine.results["c0"], engine.results["f1"]
+                drill = (f"collide fired {engine.faults.fired.get('prefix_hash_collide')}, "
+                         f"collisions {engine.prefix.stats.collisions}, tokens = cold "
+                         f"{np.array_equal(c0.tokens, cold_results['r0'].tokens)}; publish "
+                         f"fail fired {engine.faults.fired.get('prefix_publish_fail')}, "
+                         f"{f1.outcome.value}, skips {engine.counters.get('serve.prefix.publish_skips')}")
+                log(f"{label} drills: {drill}")
+                engine.verify_invariants(idle=True)
+                if not (engine.prefix.stats.collisions == 1
+                        and np.array_equal(c0.tokens, cold_results["r0"].tokens)
+                        and f1.outcome is Outcome.COMPLETED
+                        and engine.counters.get("serve.prefix.publish_skips") == 1):
+                    raise AssertionError(f"{label} drills: {drill}")
+            del engine, cold
+
+    requests = lambda: serve_requests(4, SPEC_NEW)  # noqa: E731
+    runs = {}
+    spec = dict(spec_decode=True, spec_k=SPEC_K)
+    for name, cfg, arm in (("plain", {}, None), ("spec", spec, None),
+                           ("spec_abort", spec, "spec_verify_abort"),
+                           (f"spec_depth{SPEC_DRAFT_DEPTH}",
+                            dict(spec, spec_draft_depth=SPEC_DRAFT_DEPTH), None),
+                           ("spec_prefix", dict(spec, prefix_cache=True), None)):
+        engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, fused_iteration=True,
+                                            prefill_chunk=CHUNK, **cfg), device="cuda")
+        if arm:
+            engine.faults.arm(arm, 1)
+        gaps = spy_draft_gaps(engine) if name == "spec" else None
+        reqs = requests()
+        for r in reqs:
+            assert engine.submit(r) is None
+        zero_counts()
+        t0 = time.perf_counter()
+        results = dict(engine.run(max_steps=20000))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched, want = engine_launches(engine, RAGGED)
+        if name == "spec_prefix":
+            for r in requests():
+                assert engine.submit(dataclasses.replace(r, request_id=r.request_id + "w")) is None
+            engine.run(max_steps=20000)
+            launched, want = engine_launches(engine, RAGGED)
+            results = engine.results
+        engine.verify_invariants(idle=True)
+        bad = [rid for rid, r in results.items()
+               if r.outcome is not Outcome.COMPLETED or len(r.tokens) != SPEC_NEW]
+        if bad:
+            raise AssertionError(f"serve {name}: {bad} not COMPLETED")
+        ref = runs["plain"]["results"] if name != "plain" else results
+        same = all(np.array_equal(r.tokens, ref[rid.rstrip("w")].tokens)
+                   for rid, r in results.items())
+        rate = (engine._spec_accepted / engine._spec_drafted) if engine._spec_drafted else None
+        runs[name] = dict(results=results, wall=wall, rate=rate)
+        line = (f"serve {name}: {len(results)} requests, {engine.dispatches} dispatches, "
+                f"{engine.draft_steps} draft steps, {wall:.2f} s wall, "
+                f"{4 * SPEC_NEW / wall:.1f} tokens/s; drafted {engine._spec_drafted}, accepted "
+                f"{engine._spec_accepted} (rate {rate}); fallbacks "
+                f"{engine.counters.get('serve.spec.fallbacks')}; tokens = plain {same}; "
+                f"launches {launched} (expected {want})")
+        if gaps is not None:
+            line += (f"; |draft - verify| logits at shared inputs max {gaps['compared']:.4g}, "
+                     f"at the {len(gaps['rejected'])} rejections "
+                     + ", ".join(f"{g:.4g}" for g in gaps["rejected"]))
+        log(line)
+        if not same or launched != want or (arm and engine.counters.get(
+                "serve.spec.fallbacks") != 1):
+            raise AssertionError(line)
+        if name != "plain":
+            paths[f"serve_{name}"] = launched
+        del engine
+    plain, exact = runs["plain"]["wall"], runs["spec"]["wall"]
+    log(f"serve spec against plain ({card_line()}): spec_k {SPEC_K}, accept rates exact "
+        f"{runs['spec']['rate']}, depth {SPEC_DRAFT_DEPTH} "
+        f"{runs[f'spec_depth{SPEC_DRAFT_DEPTH}']['rate']}; wall plain {plain:.2f} s "
+        f"({4 * SPEC_NEW / plain:.1f} tokens/s), exact {exact:.2f} s "
+        f"({4 * SPEC_NEW / exact:.1f} tokens/s), depth {SPEC_DRAFT_DEPTH} "
+        f"{runs[f'spec_depth{SPEC_DRAFT_DEPTH}']['wall']:.2f} s; phase 5i in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def run_cli(main, argv, label: str, cwd) -> tuple:
     """``main(argv, device="cuda")`` in ``cwd``, its output logged:
     (output, launches, wall s, peak GiB)."""
@@ -4359,6 +4659,8 @@ def main() -> int:
     release_memory()
     reversible_serve_launches = serve_reversible()
     release_memory()
+    prefix_spec_launches = serve_prefix_spec()
+    release_memory()
     generate_launches = generate_flagship()
     release_memory()
     trainer, batch, train_launches = train_flagship()
@@ -4414,7 +4716,7 @@ def main() -> int:
              ("serve_learned_pos", learned_serve_launches),
              ("generate_learned_pos", learned_generate_launches), *generate_launches.items(),
              *reversible_launches.items(), *reversible_serve_launches.items(),
-             *clip_cli_launches.items())
+             *prefix_spec_launches.items(), *clip_cli_launches.items())
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())
@@ -5293,8 +5595,9 @@ def compare(argv) -> int:
     """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR``,
     ``--tiled-source DIR``, ``--sparse-source DIR``, ``--decode-source DIR``,
     ``--generate-pairs N``, ``--serve-pairs N``, ``--ga-step-source DIR``,
-    ``--train-cli-ga`` and/or ``--bf16-default-reduction``: only the
-    paired comparisons (and those phases), on one card."""
+    ``--train-cli-ga``, ``--serve-prefix-spec`` and/or
+    ``--bf16-default-reduction``: only the paired comparisons (and those
+    phases), on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -5318,6 +5621,9 @@ def compare(argv) -> int:
     parser.add_argument("--train-cli-ga", action="store_true",
                         help="phase 12b alone (the train CLI's tar, tokenizer, dropout and "
                              "ga_steps run, with its same-size control) on a fresh VAE")
+    parser.add_argument("--serve-prefix-spec", action="store_true",
+                        help="phase 5i alone (the prefix cache and speculative decode through "
+                             "the engine), after building the ragged kernel")
     parser.add_argument("--bf16-default-reduction", action="store_true",
                         help="the bf16 path checks with cuBLAS's bf16 reduced-precision "
                              "reduction at PyTorch's default")
@@ -5354,6 +5660,11 @@ def compare(argv) -> int:
         vae = DiscreteVAE(**FLAGSHIP_VAE, device="cuda").init_weights(
             torch.Generator(device="cuda").manual_seed(11))
         log(f"train CLI ga alone: launches {train_cli_ga(vae)}")
+    if args.serve_prefix_spec:
+        from dalle_pytorch_tpu_torch.ops import cuda_build
+
+        cuda_build.build(["ragged_attention"])
+        log(f"serve prefix and spec alone: launches {serve_prefix_spec()}")
     if args.bf16_default_reduction:
         check_bf16_default_reduction()
     return 0

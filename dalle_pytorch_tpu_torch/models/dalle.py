@@ -83,7 +83,7 @@ class DALLE(nn.Module):
                  shift_tokens: bool = True, rotary_emb: bool = True,
                  loss_img_weight: float = 7.0, stable: bool = False,
                  reversible: bool = False, remat: bool = False,
-                 sparse_layout_seed: int = 0,
+                 sparse_layout_seed: int = 0, shift_pad: int = 0,
                  serve_quant: bool = False, device="cuda",
                  dtype=torch.float32, param_dtype=None):
         super().__init__()
@@ -100,6 +100,9 @@ class DALLE(nn.Module):
         self.stable, self.rotary_emb = stable, rotary_emb
         self.attn_types = None if attn_types is None else tuple(attn_types)
         self.shift_tokens, self.sparse_layout_seed = shift_tokens, sparse_layout_seed
+        # extra shift-ring rows of a decode cache built for this model
+        # (the speculative engine's rollback slack; models/sampling.py)
+        self.shift_pad = shift_pad
         self.reversible, self.remat = reversible, remat
         self.device, self.dtype = torch.device(device), dtype
         self.param_dtype = param_dtype or dtype
@@ -294,7 +297,8 @@ class DALLE(nn.Module):
 
     @torch.no_grad()
     def fused_step(self, tokens, start, length, final, cache,
-                   rowwise_head: bool = True) -> torch.Tensor:
+                   rowwise_head: bool = True, depth_limit: Optional[int] = None,
+                   verify_cols: Optional[int] = None):
         """One RAGGED block step of a mixed prefill+decode iteration.
 
         tokens (b, W): row b's valid tokens are columns [0, length[b]) at
@@ -307,7 +311,19 @@ class DALLE(nn.Module):
         marks rows whose sample is a prefill's first image token; with
         ``rowwise_head`` those rows take their logits from a per-row
         M=1 head (the reference's split-prefill head shape), the others
-        from the batched head."""
+        from the batched head.
+
+        Speculative decode (``serving/engine.py``): ``depth_limit`` runs
+        only the first that many layers (the early-exit drafter; the
+        final norm and head apply to that layer's output).
+        ``verify_cols`` = k also returns the image logits at each of the
+        block's first k columns, (b, k, num_image_tokens), as the pair
+        (columns, last-column logits): a verify row's column j predicts
+        position start + j + 1. Each column's head is its own (b, dim)
+        product, the shape the batched head has, so a verify column's
+        logits are those a plain decode step at that position computes
+        (JAX's ``all_logits`` runs one (b * W)-row product, which torch's
+        CPU GEMM would part from the b-row one in the last bits)."""
         b, n = tokens.shape
         pos = start.long()[:, None] + torch.arange(n, device=tokens.device)
         is_text = pos < self.text_len_internal
@@ -319,16 +335,20 @@ class DALLE(nn.Module):
         if not self.rotary_emb:
             emb = emb + self._pos_emb(pos)
         out = self.transformer(emb.to(self.dtype), cache, block_len=length,
-                               block_start=start)
+                               block_start=start, depth_limit=depth_limit)
         last = (length.long() - 1).clamp(0, n - 1)
         h_last = out.gather(1, last[:, None, None].expand(b, 1, self.dim))
-        batched = self._head_image(h_last)[:, 0]
-        if b == 1 or not rowwise_head:
-            return batched
-        rowwise = torch.cat(
-            [self._head_image(h_last[i:i + 1]) for i in range(b)]
-        )[:, 0]
-        return torch.where(final[:, None], rowwise, batched)
+        logits = self._head_image(h_last)[:, 0]
+        if b > 1 and rowwise_head:
+            rowwise = torch.cat(
+                [self._head_image(h_last[i:i + 1]) for i in range(b)]
+            )[:, 0]
+            logits = torch.where(final[:, None], rowwise, logits)
+        if verify_cols is None:
+            return logits
+        cols = torch.stack([self._head_image(out[:, j:j + 1].contiguous())[:, 0]
+                            for j in range(verify_cols)], dim=1)
+        return cols, logits
 
     def _decode_block(self, emb, pos, cache, mask, fused_decode: Optional[bool] = None):
         """emb (b, n, dim): n tokens at positions pos + j through the

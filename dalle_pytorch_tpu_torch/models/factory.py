@@ -89,8 +89,8 @@ def dalle_config(dalle: DALLE) -> dict:
         attn_dropout=dalle.attn_dropout, ff_dropout=dalle.ff_dropout,
         attn_types=None if dalle.attn_types is None else list(dalle.attn_types),
         loss_img_weight=dalle.loss_img_weight, stable=dalle.stable,
-        shift_tokens=dalle.shift_tokens, rotary_emb=dalle.rotary_emb,
-        reversible=dalle.reversible, remat=dalle.remat,
+        shift_tokens=dalle.shift_tokens, shift_pad=dalle.shift_pad,
+        rotary_emb=dalle.rotary_emb, reversible=dalle.reversible, remat=dalle.remat,
         sparse_layout_seed=dalle.sparse_layout_seed, dtype=_dtype_name(dalle.dtype),
         param_dtype=_dtype_name(dalle.param_dtype))
     return cfg
@@ -137,8 +137,8 @@ def build_dalle(config: dict, device="cuda") -> DALLE:
         text_seq_len=cfg["text_seq_len"], num_image_tokens=cfg["num_image_tokens"],
         image_fmap_size=cfg["image_fmap_size"], heads=cfg["heads"], dim_head=cfg["dim_head"],
         attn_dropout=cfg["attn_dropout"], ff_dropout=cfg["ff_dropout"], attn_types=types,
-        shift_tokens=cfg["shift_tokens"], rotary_emb=cfg["rotary_emb"],
-        loss_img_weight=cfg["loss_img_weight"], stable=cfg["stable"],
+        shift_tokens=cfg["shift_tokens"], shift_pad=cfg["shift_pad"],
+        rotary_emb=cfg["rotary_emb"], loss_img_weight=cfg["loss_img_weight"], stable=cfg["stable"],
         reversible=bool(cfg["reversible"]), remat=bool(cfg["remat"]),
         sparse_layout_seed=cfg["sparse_layout_seed"], device=device,
         dtype=_DTYPES[cfg["dtype"]], param_dtype=_DTYPES[cfg["param_dtype"]])

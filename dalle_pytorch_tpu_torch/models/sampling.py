@@ -84,14 +84,20 @@ class DecodeCache:
 
 def init_decode_cache(dalle, batch_size: int, cache_format: Optional[str] = None,
                       kv_quant: Optional[str] = None,
-                      page_size: Optional[int] = None) -> DecodeCache:
+                      page_size: Optional[int] = None,
+                      arena_rows: int = 0) -> DecodeCache:
     """Zeroed decode cache for ``batch_size`` rows on the model's device,
     every row at position 0. ``cache_format`` (``kv_policy.FORMATS``;
     None = ``kv_policy.choose_cache_format(batch_size)``): "paged" pools
     with identity tables, or the "flat" / "4d" dense buffers. ``kv_quant``
     (``kv_policy.QUANTS``; None = "none"): "int8" allocates int8 K/V pools
     and their float32 (rows * n_pages + 1, page, heads) scale pools; paged
-    only. ``page_size`` (paged only): rows a page."""
+    only. ``page_size`` (paged only): rows a page. ``arena_rows`` (paged
+    only): storage rows appended after the ``batch_size`` slot rows of
+    every pool (the serving prefix cache's arena, ``ops/paged_kv.py``);
+    tables, indices and rings stay ``batch_size`` rows. The shift rings
+    hold ``image_fmap_size + 1 + dalle.shift_pad`` rows (the speculative
+    engine's rollback slack, ``serving.engine.spec_model``)."""
     int8 = kv_policy.resolve_quant(kv_quant) == "int8"
     fmt = kv_policy.resolve_format(cache_format, batch_size)
     if int8 and fmt != "paged":
@@ -99,8 +105,11 @@ def init_decode_cache(dalle, batch_size: int, cache_format: Optional[str] = None
     tr = dalle.transformer
     device, dtype = dalle.device, dalle.dtype
     hd = dalle.heads * dalle.dim_head
+    if arena_rows and fmt != "paged":
+        raise ValueError(f"arena rows need the paged format, not {fmt!r}")
     if fmt == "paged":
-        kv, n_p = _paged_layers(dalle, batch_size, int8, kv_policy.page_size(page_size))
+        kv, n_p = _paged_layers(dalle, batch_size, int8, kv_policy.page_size(page_size),
+                                arena_rows)
     else:
         shape = (batch_size, tr.attn_seq_len, hd)
         kv, n_p = [DenseKV(torch.zeros(shape, dtype=dtype, device=device),
@@ -108,7 +117,7 @@ def init_decode_cache(dalle, batch_size: int, cache_format: Optional[str] = None
                    for _ in range(dalle.depth)], 0
     rings = None, None
     if tr.shift_tokens:
-        R = dalle.image_fmap_size + 1
+        R = dalle.image_fmap_size + 1 + dalle.shift_pad
         rings = tuple(
             [
                 ShiftRing(
@@ -127,14 +136,15 @@ def _zeros_index(batch_size: int, device) -> torch.Tensor:
     return torch.zeros((batch_size,), dtype=torch.int32, device=device)
 
 
-def _paged_layers(dalle, batch_size: int, int8: bool, page: int):
-    """(every layer's zeroed ``PagedKV``, pages a row)."""
+def _paged_layers(dalle, batch_size: int, int8: bool, page: int, arena_rows: int = 0):
+    """(every layer's zeroed ``PagedKV``, pages a row); the pools hold
+    ``arena_rows`` storage rows after the slot rows."""
     device, dtype = dalle.device, dalle.dtype
     n_p = paged_kv.num_pages(dalle.transformer.attn_seq_len, page)
     hd = dalle.heads * dalle.dim_head
 
     def pool(feat, pool_dtype):
-        return paged_kv.alloc(batch_size, n_p, page, feat, pool_dtype, device)
+        return paged_kv.alloc(batch_size + arena_rows, n_p, page, feat, pool_dtype, device)
 
     def scales():
         return pool(dalle.heads, paged_kv.SCALE_DTYPE) if int8 else None
@@ -229,9 +239,10 @@ def insert_decode_cache(batched: DecodeCache, sub: DecodeCache, slot: int) -> De
     if _rows(sub) != 1 or sub.n_pages != batched.n_pages:
         raise ValueError("insert_decode_cache takes a batch-1 cache of the batched "
                          "cache's page count")
-    rows, n_p = _rows(batched), batched.n_pages
+    n_p = batched.n_pages
     for b_kv, s_kv in zip(batched.kv, sub.kv, strict=True):
         for b_pool, s_pool in zip(b_kv.pools(), s_kv.pools(), strict=True):
+            rows = paged_kv.storage_rows(b_pool, n_p)
             paged_kv.pool_view(b_pool, rows)[slot] = paged_kv.pool_view(s_pool, 1)[0]
         b_kv.table[slot] = s_kv.table[0] + slot * n_p
         b_kv.index[slot] = s_kv.index[0]

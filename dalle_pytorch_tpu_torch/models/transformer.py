@@ -144,16 +144,19 @@ class Transformer(nn.Module):
 
     def forward(self, x, cache=None, block_len=None, block_start=None,
                 mask=None, fused_decode: Optional[bool] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                depth_limit: Optional[int] = None):
         """With ``cache`` (``models.sampling.DecodeCache``): one block
         through every layer (row b's tokens at positions block_start[b] +
         j, the valid ones [0, block_len[b])), the cache updated in place;
         ``mask`` the optional (b, L) key mask; ``fused_decode`` (None,
         True or False) chooses the dense layers' decode route
-        (``Attention.uses_decode_kernel``). Without: the whole sequence
-        x (b, n, dim), ``mask`` the optional (b, n) key mask, dropout
-        drawn from ``generator`` when one is given; the rotary cos/sin
-        tables are built once for all layers."""
+        (``Attention.uses_decode_kernel``); ``depth_limit`` runs only the
+        first that many layers (the speculative engine's early-exit
+        drafter; None: all). Without: the whole sequence x (b, n, dim),
+        ``mask`` the optional (b, n) key mask, dropout drawn from
+        ``generator`` when one is given; the rotary cos/sin tables are
+        built once for all layers."""
         if cache is None:
             return self._forward_full(x, mask, generator)
         rotary_cs = None
@@ -174,7 +177,8 @@ class Transformer(nn.Module):
             return (lambda t, gen: self.attn_blocks[ind](t, **akw),
                     lambda t, gen: self.ff_blocks[ind](t, **fkw))
 
-        blocks = [layer(i) for i in range(self.depth)]
+        depth = self.depth if depth_limit is None else min(max(depth_limit, 1), self.depth)
+        blocks = [layer(i) for i in range(depth)]
         if self.reversible:
             y1, y2 = reversible_forward_only(blocks, x, x)
             return (y1 + y2) / 2

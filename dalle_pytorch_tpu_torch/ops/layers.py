@@ -255,7 +255,15 @@ class PreShiftToken(nn.Module):
     R + j - image_size. ``delta`` = stored index - anchor (0 unless a
     caller re-dispatches behind the stored high-water mark) shifts every
     ring read below the anchor. The ring advances PER ROW by block_len:
-    idle rows (block_len 0) keep their ring and index."""
+    idle rows (block_len 0) keep their ring and index.
+
+    R is the ring's own width: ``image_size + 1``, plus ``pad`` rows where
+    the cache was built for a model with ``shift_pad`` (the speculative
+    engine's rollback slack, JAX's ``PreShiftToken.pad``): a verify block
+    advances the ring by its width but commits only the accepted part,
+    so the next block's anchor may lag the stored index by up to ``pad``
+    positions, and the rows it reads below the anchor must still be
+    held. With ``pad`` 0 the arithmetic is the unpadded ring's."""
 
     def __init__(self, fn: nn.Module, image_size: int, seq_len: int,
                  pass_block: bool = False):
@@ -263,7 +271,6 @@ class PreShiftToken(nn.Module):
         self.fn = fn
         self.image_size = image_size
         self.text_len = seq_len - image_size**2 + 1
-        self.ring_rows = image_size + 1
         self.pass_block = pass_block
 
     def forward(self, x, ring: Optional[ShiftRing] = None, block_len=None,
@@ -271,7 +278,7 @@ class PreShiftToken(nn.Module):
         if ring is None:
             return self.fn(shift_tokens(x, self.text_len, self.image_size), **kwargs)
         b, n, d = x.shape
-        R, f = self.ring_rows, self.image_size
+        R, f = ring.hist.shape[1], self.image_size
         dev = x.device
         j = torch.arange(n, device=dev)[None]
         pos = ring.index.long()

@@ -7,12 +7,20 @@ a table entry may point into another row's storage.
 
 Storage layout. A pool is kept FLAT, ``(rows * n_pages + 1, page, feat)``:
 the global id space the tables index plus one SINK page (id
-``rows * n_pages``) that no table ever names. Masked writes (columns past
-a row's ``limit``, positions past capacity) are redirected to the sink,
-the counterpart of the reference's scatter ``mode="drop"``; that keeps
-``append_`` free of data-dependent shapes, so it never synchronises the
-host with the device. ``pool_view`` gives the reference's
-``(rows, n_pages, page, feat)`` view of the real pages.
+``rows * n_pages``, always the last) that no table ever names. Masked
+writes (columns past a row's ``limit``, positions past capacity) are
+redirected to the sink, the counterpart of the reference's scatter
+``mode="drop"``; that keeps ``append_`` free of data-dependent shapes, so
+it never synchronises the host with the device. ``pool_view`` gives the
+reference's ``(rows, n_pages, page, feat)`` view of the real pages.
+
+Storage rows may outnumber the table's rows: the serving prefix cache
+appends ARENA rows after the slot rows (``alloc(slots + arena, ...)``,
+the sink still last). Arena pages hold shared, read-only prompt pages
+and are reached only through remapped table entries; ``reset_rows_`` is
+only ever given a slot row. ``copy_pages_`` / ``copy_pages_across_`` move
+whole pages between ids (publish into the arena, copy-on-write out of
+it, restore into a private cache).
 
 Int8 storage (``kv_policy`` "int8"): content pools hold int8 rows and a
 parallel SCALE pool per content pool holds one float32 scale per (token,
@@ -52,9 +60,16 @@ def alloc(rows: int, n_pages: int, page_size: int, feat: int,
 
 
 def pool_view(flat: torch.Tensor, rows: int) -> torch.Tensor:
-    """The (rows, n_pages, page, feat) view of a flat pool's real pages."""
+    """The (rows, n_pages, page, feat) view of a flat pool's real pages;
+    ``rows`` counts every storage row, arena rows included."""
     n_real, page, feat = flat.shape[0] - 1, flat.shape[1], flat.shape[2]
     return flat[:n_real].view(rows, n_real // rows, page, feat)
+
+
+def storage_rows(flat: torch.Tensor, n_pages: int) -> int:
+    """Storage rows of a flat pool of ``n_pages`` pages a row (the slot
+    rows plus any arena rows)."""
+    return (flat.shape[0] - 1) // n_pages
 
 
 def identity_table(batch: int, n_pages: int, device) -> torch.Tensor:
@@ -151,3 +166,28 @@ def reset_table_rows_(table: torch.Tensor, row: int) -> None:
     table[row] = row * n_p + torch.arange(
         n_p, dtype=table.dtype, device=table.device
     )
+
+
+def copy_pages_across_(dst: torch.Tensor, src: torch.Tensor, src_ids, dst_ids,
+                       valid=None) -> None:
+    """Copy whole pages ``src_ids`` (global ids of ``src``) onto pages
+    ``dst_ids`` of ``dst``, both flat pools of one geometry, in place;
+    rows at or past ``valid[i]`` (per-page row counts; None = all) are
+    written as zeros, so a published terminal page carries no decode
+    rows and a copied-on-write page none of its destination's old
+    content. Id lists are Python ints or 1-D tensors on any device."""
+    dev = dst.device
+    s_ids = torch.as_tensor(src_ids, dtype=torch.long).to(dev)
+    d_ids = torch.as_tensor(dst_ids, dtype=torch.long).to(dev)
+    content = src[s_ids]
+    if valid is not None:
+        rows = torch.arange(src.shape[1], device=dev)[None]
+        keep = rows < torch.as_tensor(valid, dtype=torch.long).to(dev)[:, None]
+        content = torch.where(keep[..., None], content, torch.zeros((), dtype=content.dtype,
+                                                                    device=dev))
+    dst[d_ids] = content
+
+
+def copy_pages_(flat: torch.Tensor, src_ids, dst_ids, valid=None) -> None:
+    """``copy_pages_across_`` within one pool."""
+    copy_pages_across_(flat, flat, src_ids, dst_ids, valid)

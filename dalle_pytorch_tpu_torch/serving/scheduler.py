@@ -1,7 +1,8 @@
 """Admission, page accounting and the priority queue (counterpart of
 ``dalle_pytorch_tpu/serving/scheduler.py``). Host-only bookkeeping.
 
-``PagePool`` is the logical page budget over the per-slot physical pools.
+``PagePool`` is the logical page budget over the per-slot physical pools
+(and the prefix cache's arena, whose pages the index holds).
 Admission charges a request's WORST-CASE demand against free pages; pages
 are allocated lazily (prompt pages at admission, one more when decode
 crosses a page boundary), so admitted requests can still exhaust a budget
@@ -72,8 +73,11 @@ class TokenBudget:
                        next_chunks: Sequence[int]) -> List[bool]:
         """Which in-progress prefills run their next chunk this iteration.
         ``next_chunks``: width of each prefill's next chunk, in
-        scheduling order. The post-decode pipeline meters its stages with
-        it too, over width-1 items (one per staged image)."""
+        scheduling order. ``decode_tokens`` is decode's charge: one token
+        per decoding row, or in a speculative iteration each row's whole
+        verify width (the tokens the dispatch computes; progress is
+        counted in accepted tokens). The post-decode pipeline meters its
+        stages with it too, over width-1 items (one per staged image)."""
         take = [False] * len(next_chunks)
         if not next_chunks:
             return take
@@ -112,12 +116,26 @@ class PagePool:
     def held(self, request_id: str) -> int:
         return self._held.get(request_id, 0)
 
+    def holders(self) -> set:
+        """The ids holding pages (the engine's invariant check)."""
+        return set(self._held)
+
     def alloc(self, request_id: str, n: int) -> bool:
         assert n >= 0, n
         if n > self.free:
             return False
         self._held[request_id] = self._held.get(request_id, 0) + n
         return True
+
+    def release(self, holder: str, n: int) -> None:
+        """Return ``n`` of a holder's pages (the prefix index gives its
+        pages back one eviction at a time)."""
+        held = self._held.get(holder, 0)
+        assert 0 <= n <= held, (holder, n, held)
+        if held == n:
+            self._held.pop(holder, None)
+        else:
+            self._held[holder] = held - n
 
     def free_all(self, request_id: str) -> int:
         return self._held.pop(request_id, 0)
@@ -142,6 +160,12 @@ class Entry:
     # whether this queue residency counts against the queue bound (True
     # for fresh submissions, False for preemption requeues)
     counted: bool = True
+    # the (T,) internal prompt row (host ints), computed at the first
+    # admission: the prefix chain's key and the publish source
+    internal_tokens: Optional[object] = None
+    # prefix-cache hit class of the admission that produced the first
+    # token ("full" | "partial"; None: cold)
+    hit_class: Optional[str] = None
 
     @property
     def request_id(self) -> str:
@@ -187,6 +211,10 @@ class Scheduler:
         client-visible reject."""
         entry.counted = False
         self._push(entry)
+
+    def ids(self) -> set:
+        """The queued request ids."""
+        return {e.request_id for (_, _, e) in self._heap}
 
     def peek(self) -> Optional[Entry]:
         return self._heap[0][2] if self._heap else None

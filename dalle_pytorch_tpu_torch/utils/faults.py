@@ -25,6 +25,14 @@ Sites:
                    ``EngineConfig.stall_penalty_s``
 ``request_cancel`` the youngest running request is cancelled (a client
                    disconnecting)
+``prefix_hash_collide`` a prefix-index lookup returns a forged chain node
+                   (a hash collision); token verification rejects it and
+                   the request prefills cold from there
+``prefix_publish_fail`` publishing a completed request's prompt pages
+                   into the prefix index fails; the request completes and
+                   its pages stay private (fail-open)
+``spec_verify_abort`` the speculative drafter fails for one iteration,
+                   which runs plain decode (verify width 1) instead
 ``nan_at_step``    the train step forces the loss to NaN at step K (a
                    value site: the armed number is K, ``take`` never
                    consumes it)
@@ -45,6 +53,7 @@ from typing import Dict, Optional
 
 ENV_VAR = "DALLE_TPU_FAULTS"
 SITES = ("prefill_fail", "page_exhaust", "decode_stall", "request_cancel",
+         "prefix_hash_collide", "prefix_publish_fail", "spec_verify_abort",
          "nan_at_step", "ckpt_corrupt", "shard_open", "shard_read")
 # sites whose armed number is a parameter (a step index), not a count
 VALUE_SITES = frozenset({"nan_at_step"})

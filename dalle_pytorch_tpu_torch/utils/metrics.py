@@ -4,7 +4,9 @@
 named counters, the samples-per-second window and the console logger,
 whose lines are JAX's (``step N: loss=... epoch=...``). There is no
 process-wide ``Counters``: the command line makes one and hands it to
-the tar-shard loader. One card is one
+the tar-shard loader, and each serving engine holds its own
+(``Engine.counters``: the ``serve.prefix.*`` and ``serve.spec.*``
+tallies). One card is one
 process, the root; there is no Weights & Biases sink (``--wandb`` is
 refused).
 """

@@ -40,6 +40,43 @@ def test_the_guard_covers_the_new_modules():
         "ops/reversible.py", "train_vae.py", "train_clip.py")} <= names
 
 
+def test_the_guard_covers_the_prefix_cache():
+    assert REPO / "dalle_pytorch_tpu_torch/serving/prefix_cache.py" in SOURCES
+
+
+def test_prefix_and_spec_engine_run_with_jax_unimportable():
+    """A speculative engine with the prefix cache serves a cold and a
+    warm round with jax and the JAX package blocked."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "dalle_pytorch_tpu"):
+    sys.modules[name] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+from dalle_pytorch_tpu_torch.serving.types import Request
+model = DALLE(dim=32, depth=2, num_text_tokens=16, text_seq_len=4,
+              num_image_tokens=12, image_fmap_size=2, heads=2, dim_head=16,
+              device="cpu")
+eng = Engine(model, EngineConfig(max_batch=2, prefill_chunk=2, fused_iteration=True,
+                                 spec_decode=True, spec_k=2, prefix_cache=True,
+                                 page_size=2), device="cpu")
+for rid in ("cold", "warm"):
+    assert eng.submit(Request(rid, np.array([3, 4, 5, 0]), 4, seed=1)) is None
+    eng.run(max_steps=200)
+eng.verify_invariants(idle=True)
+assert np.array_equal(eng.results["cold"].tokens, eng.results["warm"].tokens)
+assert eng.counters.get("serve.prefix.hits") == 1
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
