@@ -253,6 +253,13 @@ line):
    ``SimpleTokenizer`` on the captions and 10,000 seeded strings.
    Printed: both tokenizers' encode rates, the tar loader's seconds a
    batch, the micro-step as the CLI runs it and its tokens/s.
+12c. train CLI telemetry (``train_cli_telemetry``): phase 12's command
+   line at depth 2 on 12 seeded PNGs (three steps), then again with
+   ``--telemetry --telemetry_dir DIR --metrics_port PORT``: the losses
+   bitwise equal, one scrape of ``/metrics`` on 127.0.0.1 returning
+   ``train.step_s`` over three steps, the flight file valid with three
+   closed ``train.step`` spans, the packed kernels depth x 3 each way.
+   Printed: the walls between verdicts of both runs.
 13. train VAE CLI: ``python -m dalle_pytorch_tpu_torch.train_vae``
    (``train_vae.main`` in this process on a directory under ``build/``,
    removed at the end) at BASELINE.json configs[0] (256 px, 8192 tokens,
@@ -284,6 +291,23 @@ line):
    checkpoint bitwise the uninterrupted two-epoch run's (the checkpoint
    carries the dataset's caption and crop stream). Samples/s and peak
    memory printed.
+15. generate CLI (``generate_cli``, after phase 5i): ``python -m
+   dalle_pytorch_tpu_torch.generate`` (``generate.main`` in this
+   process) on a float32 checkpoint of ``SERVE_MODEL`` at depth 1
+   (``GEN_CLI_DEPTH``) over the CLIP BPE vocabulary (``GEN_CLI_MODEL``)
+   with the flagship VAE, and
+   a flagship CLIP checkpoint: ``--bf16 --clip_path``, two prompts of 4
+   images, batch 4 (the split engine with monolithic prefill and the
+   stages), telemetry off, then on (``DALLE_TPU_TELEMETRY=1`` and a
+   flight directory). Checked: 8 PNGs of 256 x 256 x 3 and two
+   captions, byte-identical in both runs; the ragged kernel depth x
+   dispatches times and the packed-qkv kernel CLIP's text depth x rerank
+   dispatches times, equal in both runs; an engine built directly from
+   the checkpoints serves the first prompt's images bitwise, best first;
+   the flight file valid, every request's span closed COMPLETED, one
+   span a stage dispatch, one decode span a decode step. Printed: both
+   walls, the telemetry percentiles from ``dump()`` and a ``--gentxt``
+   image's completion.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -350,6 +374,7 @@ Paired comparisons, one card, none of the phases above:
     python3 chip_smoke.py --decode-source OTHER/csrc
     python3 chip_smoke.py --generate-pairs 3
     python3 chip_smoke.py --serve-pairs 2
+    python3 chip_smoke.py --generate-cli 4 --serve-source OTHER
 
 the first times this checkout's ragged kernel against the same file of
 another commit (or of each of several, the flag repeated), alternating
@@ -385,7 +410,11 @@ at the generate shape (b 1 and 8), checks the k/v rows bitwise equal
 across the trees, and times both alternating; the sixth times generation
 (a) against (b) in alternating pairs; the seventh times the split engine
 against the fused one at steady decode (8 rows of phase 5's flagship,
-decode-only iterations) in alternating pairs, then profiles each.
+decode-only iterations) in alternating pairs, then profiles each; the
+eighth runs phase 15 at depth 4, telemetry off, on, on, off, and phase
+5's and phase 5e's engines of this checkout against another checkout's
+(``OTHER``: its root), each tree's own port package on the same seeded
+weights, alternating.
 """
 
 from __future__ import annotations
@@ -2379,7 +2408,7 @@ def serve_flagship():
         if r.rerank_score is None or not np.isfinite(r.rerank_score):
             raise AssertionError(f"request r{i}: rerank score {r.rerank_score}")
     pipe = engine.postdecode
-    rerank_dispatches = pipe.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
+    rerank_dispatches = pipe.dispatches[STAGE_RERANK]
     expected = {"ragged_attention": SERVE_MODEL["depth"] * engine.dispatches,
                 "ragged_attention_int8": 0,
                 "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
@@ -2387,7 +2416,7 @@ def serve_flagship():
     log(f"engine: {N_REQUESTS} requests, {engine.iterations} iterations, "
         f"{engine.dispatches} dispatches, {wall:.2f} s wall (stages included), "
         f"{N_REQUESTS * MAX_NEW / wall:.1f} generated tokens/s; stage seconds: "
-        f"{stage_s}; counters {dict(sorted(pipe.counters.items()))}")
+        f"{stage_s}; stage dispatches {pipe.dispatches}")
     log(f"engine: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
@@ -2555,7 +2584,7 @@ def serve_split(model, stages, fused_results) -> tuple:
             raise AssertionError(f"serve split: request {rid}: no finite (256, 256, 3) image")
         if r.rerank_score is None or not np.isfinite(r.rerank_score):
             raise AssertionError(f"serve split: request {rid}: rerank score {r.rerank_score}")
-    rerank_dispatches = engine.postdecode.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
+    rerank_dispatches = engine.postdecode.dispatches[STAGE_RERANK]
     expected = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
                 "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
     agree = [float(np.mean(results[r].tokens == fused_results[r].tokens)) for r in results]
@@ -2640,7 +2669,7 @@ def serve_learned_pos(stages) -> tuple:
         if r.rerank_score is None or not np.isfinite(r.rerank_score):
             raise AssertionError(f"serve learned_pos: request {rid}: rerank score "
                                  f"{r.rerank_score}")
-    rerank_dispatches = engine.postdecode.counters[f"serve.stage.dispatches.{STAGE_RERANK}"]
+    rerank_dispatches = engine.postdecode.dispatches[STAGE_RERANK]
     expected = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
                 "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
     log(f"serve learned_pos: {LEARNED_POS_REQUESTS} requests of {MAX_NEW} tokens, "
@@ -2791,6 +2820,228 @@ def check_image_tokens(label: str, tokens, b: int) -> None:
     if tokens.shape != (b, MAX_NEW) or not (
             (tokens >= 0) & (tokens < FLAGSHIP["num_image_tokens"])).all():
         raise AssertionError(f"{label}: {tuple(tokens.shape)} tokens, or one out of range")
+
+
+GEN_CLI_DIR = ROOT / "build" / "generate_cli"
+# phase 15's checkpoint: the serve model over the CLIP BPE vocabulary the
+# command line's default tokenizer encodes with, float32 on disk; depth 1
+# in the main run: at the serve phases' 4 the phase took 198 s and the
+# script 1,311 s of its 1,200 s limit on a slow host (PERF.md, section 6);
+# ``--generate-cli 4`` runs it at 4
+GEN_CLI_MODEL = dict(SERVE_MODEL, num_text_tokens=49408)
+GEN_CLI_DEPTH = 1
+GEN_CLI_PROMPTS = ("a red double-decker bus on a rainy street",
+                   "an armchair in the shape of an avocado")
+GEN_CLI_IMAGES = 4
+
+
+def saved_files(out_dir: Path) -> dict:
+    """{relative path: bytes} of every file the command line wrote."""
+    return {str(p.relative_to(out_dir)): p.read_bytes()
+            for p in sorted(out_dir.rglob("*")) if p.is_file()}
+
+
+def generate_cli(depth: int = GEN_CLI_DEPTH, order=("off", "on")) -> dict:
+    """Phase 15: the generate command line (``generate.main``) in this
+    process on the card. A float32 checkpoint of ``GEN_CLI_MODEL`` (full
+    width, ``depth`` layers, seeded) with the flagship VAE, and a flagship
+    CLIP checkpoint, written by the port's factory under ``GEN_CLI_DIR``
+    (removed at the end); then ``--bf16 --clip_path`` on two prompts,
+    ``GEN_CLI_IMAGES`` images each, batch 4, once for each entry of
+    ``order``, telemetry off or on (on: ``DALLE_TPU_TELEMETRY=1`` and a
+    flight directory, read through ``configure_from_env``), counts set to
+    0 just before each run and read just after. Checked: 8 PNGs of 256 x
+    256 x 3 uint8 and the two captions; the ragged kernel launched depth x
+    the engine's dispatches times, the packed-qkv kernel CLIP's text depth
+    x rerank dispatches times, the same in every run; every run's files
+    byte-identical to the first's; an ``Engine`` built directly from the
+    same checkpoints serving the first prompt's requests gives bitwise its
+    PNGs' pixels in descending score order; with telemetry on the flight
+    file validates, every request's ``serve.request`` span closes
+    COMPLETED, each stage dispatch is one stage span, and the decode spans
+    count the decode steps (one a dispatched step, not a token). Printed:
+    the walls in order, ``serve.ttft_s``, ``serve.request_latency_s`` and
+    the spans' percentiles from ``dump()``, and a ``--gentxt`` run of one
+    image. Returns the first run's launches."""
+    import os
+    import shutil
+
+    from dalle_pytorch_tpu_torch import generate
+    from dalle_pytorch_tpu_torch.data.image_io import read_png
+    from dalle_pytorch_tpu_torch.data.tokenizers import SimpleTokenizer
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.factory import (clip_from_checkpoint,
+                                                        dalle_from_checkpoint,
+                                                        save_clip_checkpoint,
+                                                        save_dalle_checkpoint)
+    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE, denormalize
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.postdecode import (STAGE_RERANK, STAGE_VAE, StageConfig,
+                                                            StageSpec)
+    from dalle_pytorch_tpu_torch.testing import reset_registries
+    from dalle_pytorch_tpu_torch.utils import telemetry
+    from dalle_pytorch_tpu_torch.utils.metrics import counters
+    from dalle_pytorch_tpu_torch.utils.quantize import prepare_for_serving
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(GEN_CLI_DIR, ignore_errors=True)
+    GEN_CLI_DIR.mkdir(parents=True)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    dalle = DALLE(**dict(GEN_CLI_MODEL, depth=depth), device="cuda").init_weights(gen(30))
+    vae = DiscreteVAE(**FLAGSHIP_VAE, device="cuda").init_weights(gen(31))
+    clip = CLIP(**FLAGSHIP_CLIP, device="cuda").init_weights(gen(32))
+    save_dalle_checkpoint(GEN_CLI_DIR / "dalle.ckpt", dalle, vae)
+    save_clip_checkpoint(GEN_CLI_DIR / "clip.ckpt", clip)
+    del dalle, vae, clip
+    release_memory()
+    n = len(GEN_CLI_PROMPTS) * GEN_CLI_IMAGES
+    text = "|".join(GEN_CLI_PROMPTS)
+    argv = ["--dalle_path", str(GEN_CLI_DIR / "dalle.ckpt"), "--clip_path",
+            str(GEN_CLI_DIR / "clip.ckpt"), "--bf16", "--text", text, "--num_images",
+            str(GEN_CLI_IMAGES), "--batch_size", "4"]
+    engines = []
+    engine_images = generate.engine_images
+
+    def spied(engine, *a, **k):
+        engines.append(engine)
+        return engine_images(engine, *a, **k)
+
+    def run(label: str, tele: bool) -> dict:
+        out = GEN_CLI_DIR / label
+        flight = GEN_CLI_DIR / f"{label}-flight"
+        reset_registries()
+        if tele:
+            os.environ.update({telemetry.ENV_ENABLE: "1", telemetry.ENV_DIR: str(flight)})
+            telemetry.configure_from_env(telemetry.TELEMETRY)
+        engines.clear()
+        generate.engine_images = spied
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(Tee(f"generate CLI {label}")):
+                generate.main([*argv, "--outputs_dir", str(out)])
+            torch.cuda.synchronize()
+        finally:
+            generate.engine_images = engine_images
+            for key in (telemetry.ENV_ENABLE, telemetry.ENV_DIR):
+                os.environ.pop(key, None)
+        wall = time.perf_counter() - t0
+        launched = read_counts((*RAGGED, "fused_qkv_attention"))
+        engine = engines[0]
+        assert all(e is engine for e in engines), "the command line built more than one engine"
+        pipe = engine.postdecode
+        stage_dispatches = {s: pipe.dispatches[s] for s in (STAGE_VAE, STAGE_RERANK)}
+        want = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
+                "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"]
+                * stage_dispatches[STAGE_RERANK]}
+        record = dict(wall=wall, launched=launched, want=want, files=saved_files(out),
+                      tokens={rid: r.tokens.tolist() for rid, r in engine.results.items()},
+                      dispatches=engine.dispatches, decode_steps=counters.get("serve.decode_steps"),
+                      stage_dispatches=stage_dispatches)
+        if tele:
+            record["dump"] = telemetry.TELEMETRY.dump()
+            path = telemetry.TELEMETRY.drain("phase 15")
+            record["flight"] = (telemetry.validate_flight_file(path),
+                                [json.loads(line) for line in Path(path).read_text().splitlines()])
+        reset_registries()
+        return record
+
+    labels = [f"{tele}{k}" for k, tele in enumerate(order)]
+    runs = [run(label, tele == "on") for label, tele in zip(labels, order)]
+    first = runs[0]
+    problems = []
+    pngs = sorted(k for k in first["files"] if k.endswith(".png"))
+    captions = sorted(k for k in first["files"] if k.endswith("caption.txt"))
+    arrays = {k: np.asarray(read_png(first["files"][k])) for k in pngs}
+    if len(pngs) != n or len(captions) != len(GEN_CLI_PROMPTS) or any(
+            a.shape != (256, 256, 3) or a.dtype != np.uint8 for a in arrays.values()):
+        problems.append(f"files {sorted(first['files'])}")
+    for label, r in zip(labels, runs):
+        if r["files"] != first["files"]:
+            problems.append(f"{label}: files differ from the first run's (tokens equal "
+                            f"{r['tokens'] == first['tokens']})")
+        if r["launched"] != r["want"] or r["launched"] != first["launched"]:
+            problems.append(f"{label}: launches {r['launched']}, expected {r['want']}")
+    for r in (r for r in runs if "flight" in r):
+        summary, recs = r["flight"]
+        ends = [x for x in recs if x.get("name") == "serve.request" and x["ph"] == "E"]
+        spans = {s: sum(1 for x in recs if x.get("name") == f"serve.stage.{s}" and x["ph"] == "B")
+                 for s in (STAGE_VAE, STAGE_RERANK)}
+        decode = summary["by_name"].get("serve.decode_step", 0) // 2
+        if (summary["unclosed"] or len(ends) != n
+                or {x["outcome"] for x in ends} != {"completed"} or spans != r["stage_dispatches"]
+                or decode != r["decode_steps"] or decode >= n * MAX_NEW):
+            problems.append(f"flight file: unclosed {summary['unclosed']}, {len(ends)} request "
+                            f"ends, stage spans {spans} of {r['stage_dispatches']} dispatches, "
+                            f"{decode} decode spans of {r['decode_steps']} steps")
+
+    # the command line is the engine: the same requests through an engine
+    # built here, images best first
+    dalle, vae, _ = dalle_from_checkpoint(GEN_CLI_DIR / "dalle.ckpt", "cuda")
+    clip, _ = clip_from_checkpoint(GEN_CLI_DIR / "clip.ckpt", "cuda")
+    engine = Engine(prepare_for_serving(dalle), EngineConfig(max_batch=4, queue_limit=GEN_CLI_IMAGES,
+                                                             filter_thres=0.9),
+                    device="cuda", stages=StageSpec(vae, clip, config=StageConfig(
+                        batch=4, queue_limit=GEN_CLI_IMAGES)))
+    del dalle
+    tokenizer = SimpleTokenizer()
+    scores_by_prompt = []
+    for pi, prompt in enumerate(GEN_CLI_PROMPTS[:1]):
+        row = tokenizer.tokenize([prompt], GEN_CLI_MODEL["text_seq_len"], truncate_text=True)[0]
+        images, scores = generate.engine_images(engine, row, GEN_CLI_IMAGES, f"p{pi}",
+                                                generate.request_seed(0, pi, 0))
+        best_first = np.argsort(-scores)
+        scores_by_prompt.append(scores[best_first])
+        sub = prompt.replace(" ", "_")[:100]
+        for rank, k in enumerate(best_first):
+            want = (denormalize(torch.from_numpy(images[k])).numpy() * 255).astype(np.uint8)
+            if not np.array_equal(arrays.get(f"{sub}/{rank}.png"), want):
+                problems.append(f"{sub}/{rank}.png is not the engine's image {k}")
+    del engine, vae, clip
+    release_memory()
+
+    # --gentxt, one image
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(Tee("generate CLI gentxt")) as tee:
+        generate.main(["--dalle_path", str(GEN_CLI_DIR / "dalle.ckpt"), "--bf16", "--text",
+                       GEN_CLI_PROMPTS[0], "--num_images", "1", "--batch_size", "1", "--gentxt",
+                       "--outputs_dir", str(GEN_CLI_DIR / "gentxt")])
+    gentxt_wall = time.perf_counter() - t0
+    completed = [ln for ln in tee.getvalue().splitlines() if ln.startswith("completed prompt: ")]
+    gentxt_pngs = list((GEN_CLI_DIR / "gentxt").rglob("*.png"))
+    if len(completed) != 1 or len(gentxt_pngs) != 1:
+        problems.append(f"gentxt: {completed}, {gentxt_pngs}")
+
+    def quantiles(dump: str, name: str) -> str:
+        pre = f"{name.replace('.', '_')}{{quantile="
+        qs = [ln.split(" ")[-1] for ln in dump.splitlines() if ln.startswith(pre)]
+        count = [ln.split(" ")[-1] for ln in dump.splitlines()
+                 if ln.startswith(f"{name.replace('.', '_')}_count ")]
+        return f"{name} p50/p95/p99 {'/'.join(qs)} s (count {count[0] if count else 0})"
+
+    walls = {tele: [r["wall"] for r, t in zip(runs, order) if t == tele] for tele in ("off", "on")}
+    tele_run = next(r for r in runs if "flight" in r)
+    log(f"generate CLI: depth {depth}, {n} images of 256 px ({len(GEN_CLI_PROMPTS)} prompts x "
+        f"{GEN_CLI_IMAGES}, bf16, CLIP rerank, batch 4), {first['dispatches']} dispatches "
+        f"({first['decode_steps']} decode steps), stage dispatches {first['stage_dispatches']}; "
+        f"walls in order " + ", ".join(f"{t} {r['wall']:.2f}" for r, t in zip(runs, order))
+        + f" s (telemetry on / off {np.mean(walls['on']) / np.mean(walls['off']):.4f}); "
+        f"launches {first['launched']} (expected {first['want']}); the first prompt's "
+        f"best-first scores " + "; ".join(", ".join(f"{s:.4f}" for s in sc)
+                                          for sc in scores_by_prompt))
+    log("generate CLI telemetry: " + "; ".join(quantiles(tele_run["dump"], name) for name in (
+        "serve.ttft_s", "serve.request_latency_s", "serve.decode_step_s",
+        "serve.stage.vae_decode_s", "serve.stage.clip_rerank_s"))
+        + f"; flight file {tele_run['flight'][0]['records']} records")
+    log(f"generate CLI gentxt: {completed[0] if completed else None!r}, one image, "
+        f"{gentxt_wall:.2f} s wall (the text completion, the model load and the image)")
+    shutil.rmtree(GEN_CLI_DIR, ignore_errors=True)
+    log(f"generate CLI: phase wall {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise AssertionError("generate CLI: " + "; ".join(problems))
+    return {k: v for k, v in first["launched"].items() if v}
 
 
 def generate_flagship() -> dict:
@@ -3482,6 +3733,100 @@ def check_dropout_on_card(trainer, text, tokens) -> None:
                              "kept share or formula failed")
 
 
+TELE_CLI_DIR = ROOT / "build" / "train_cli_telemetry"
+# phase 12c: three steps (12 PNGs, batch 4) at the flagship widths, depth
+# cut to 2 (each run writes two saves)
+TELE_CLI_IMAGES, TELE_CLI_DEPTH = 12, 2
+
+
+def train_cli_telemetry(vae) -> dict:
+    """Phase 12c: the trainer's command line with ``--telemetry
+    --telemetry_dir DIR --metrics_port PORT`` (a free port) against the
+    same run without them, in this process on ``vae`` (phase 8's): the
+    flagship widths at depth ``TELE_CLI_DEPTH``, ``TELE_CLI_IMAGES``
+    seeded PNGs under ``TELE_CLI_DIR`` (removed at the end), one epoch of
+    three steps. Checked: the losses bitwise those of the run without
+    telemetry; one scrape of ``http://127.0.0.1:PORT/metrics`` returns the
+    ``train.step_s`` histogram of three steps; the flight file validates
+    with three closed ``train.step`` spans; the packed kernels launched
+    depth x steps times in each run. Printed: each run's wall between
+    verdicts (no sample, no save between them). Returns the telemetry
+    run's launches."""
+    import shutil
+    import socket
+    import urllib.request
+
+    from dalle_pytorch_tpu_torch import train_dalle
+    from dalle_pytorch_tpu_torch.models.factory import save_vae_checkpoint
+    from dalle_pytorch_tpu_torch.testing import reset_registries, write_caption_folder
+    from dalle_pytorch_tpu_torch.utils.telemetry import TELEMETRY, validate_flight_file
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TELE_CLI_DIR, ignore_errors=True)
+    TELE_CLI_DIR.mkdir(parents=True)
+    write_caption_folder(TELE_CLI_DIR / "data", TELE_CLI_IMAGES, CLI_IMAGE_SIZE, seed=22)
+    save_vae_checkpoint(TELE_CLI_DIR / "vae.ckpt", vae)
+    with socket.socket() as sock:  # a free port on the loopback
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--image_text_folder", str(TELE_CLI_DIR / "data"), "--vae_path",
+            str(TELE_CLI_DIR / "vae.ckpt"), "--dim", str(FLAGSHIP["dim"]), "--depth",
+            str(TELE_CLI_DEPTH), "--heads", str(FLAGSHIP["heads"]), "--dim_head",
+            str(FLAGSHIP["dim_head"]), "--truncate_captions", "--epochs", "1"]
+    verdict = train_dalle.DalleTrainer.verdict
+    runs = {}
+
+    def run(label: str, extra) -> None:
+        losses, stamps = [], []
+
+        def recorded(self, loss):
+            losses.append(verdict(self, loss))
+            stamps.append(time.perf_counter())
+            return losses[-1]
+
+        reset_registries()
+        train_dalle.DalleTrainer.verdict = recorded
+        torch.cuda.synchronize()
+        zero_counts()
+        try:
+            with contextlib.redirect_stdout(Tee(f"train CLI {label}")):
+                train_dalle.main([*argv, "--dalle_output_file_name", str(TELE_CLI_DIR / label),
+                                  *extra])
+            torch.cuda.synchronize()
+        finally:
+            train_dalle.DalleTrainer.verdict = verdict
+        runs[label] = dict(losses=losses, walls=list(np.diff(stamps)),
+                           launched={k: v for k, v in read_counts(PACKED).items() if v})
+
+    run("plain", [])
+    flight = TELE_CLI_DIR / "flight"
+    run("telemetry", ["--telemetry", "--telemetry_dir", str(flight), "--metrics_port", str(port)])
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10).read().decode()
+    summary = validate_flight_file(TELEMETRY.drain("phase 12c"))
+    reset_registries()  # stops the /metrics thread
+    want = {k: TELE_CLI_DEPTH * 3 for k in PACKED}
+    plain, tele = runs["plain"], runs["telemetry"]
+    step_lines = [ln for ln in body.splitlines() if ln.startswith("train_step_s")]
+    line = (f"train CLI telemetry: depth {TELE_CLI_DEPTH}, 3 steps; losses plain "
+            f"{plain['losses']}, telemetry {tele['losses']} (bitwise {plain['losses'] == tele['losses']}); "
+            f"walls between verdicts plain " + ", ".join(f"{w:.4f}" for w in plain["walls"])
+            + ", telemetry " + ", ".join(f"{w:.4f}" for w in tele["walls"]) + " s; /metrics "
+            + "; ".join(ln for ln in step_lines if "quantile" in ln or "_count" in ln)
+            + f"; flight file {summary['records']} records, by name {summary['by_name']}; "
+            f"launches {plain['launched']} / {tele['launched']} (expected {want})")
+    log(line)
+    shutil.rmtree(TELE_CLI_DIR, ignore_errors=True)
+    log(f"train CLI telemetry: phase wall {time.perf_counter() - t_phase:.1f} s")
+    ok = (plain["losses"] == tele["losses"] and len(tele["losses"]) == 3
+          and all(math.isfinite(x) for x in tele["losses"])
+          and "train_step_s_count 3" in body and 'train_step_s_bucket{le="+Inf"} 3' in body
+          and summary["unclosed"] == [] and summary["by_name"].get("train.step") == 6
+          and plain["launched"] == tele["launched"] == want)
+    if not ok:
+        raise AssertionError(line)
+    return tele["launched"]
+
+
 def train_cli_ga(vae):
     """Phase 12b: the trainer's command line with this slice's flags at the
     flagship widths on ``vae`` (phase 8's), train_dalle.py's other
@@ -3512,7 +3857,9 @@ def train_cli_ga(vae):
     from dalle_pytorch_tpu_torch.data import webdata
     from dalle_pytorch_tpu_torch.data.tokenizers import HugTokenizer
     from dalle_pytorch_tpu_torch.models.factory import restore_opt_state, save_vae_checkpoint
-    from dalle_pytorch_tpu_torch.testing import train_tokenizer_json, write_tar_shards
+    from dalle_pytorch_tpu_torch.testing import (reset_registries, train_tokenizer_json,
+                                                 write_tar_shards)
+    from dalle_pytorch_tpu_torch.utils.metrics import counters as metric_counters
 
     t_phase = time.perf_counter()
     shutil.rmtree(CLI_GA_DIR, ignore_errors=True)
@@ -3579,10 +3926,15 @@ def train_cli_ga(vae):
 
     run_no = [0]
 
+    run_errors = []
+
     def run(label, args):
         run_no[0] += 1
         out = io.StringIO()
         names = tuple(kernel_counters())
+        # the loader counts into the process-wide registry, empty at the
+        # start of each run as in a new process
+        reset_registries()
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
@@ -3593,6 +3945,7 @@ def train_cli_ga(vae):
             if e.code not in (0, None):
                 raise
         torch.cuda.synchronize()
+        run_errors.append(metric_counters.get("webdata.decode_errors"))
         for line in out.getvalue().splitlines():
             if not line.startswith("config:"):
                 log(f"{label} | {line}")
@@ -3628,7 +3981,7 @@ def train_cli_ga(vae):
     control = float(np.median(control_walls)) if control_walls else float("nan")
     tokens_per_step = TRAIN_BATCH * (FLAGSHIP["text_seq_len"] + vae.fmap_size**2)
     opt = restore_opt_state(CLI_GA_DIR / "dalle.ckpt", device="cpu")
-    decode_errors = [d.counters.get("webdata.decode_errors") for d in datasets]
+    decode_errors = run_errors if all(d.counters is metric_counters for d in datasets) else None
     want = {name: depth * (micro + n3) for name in PACKED}
     runs = (launched1, launched2, launched3)
     launched = {n: sum(r.get(n, 0) for r in runs) for n in set().union(*runs)}
@@ -4070,9 +4423,10 @@ def serve_prefix_spec() -> dict:
     paths_cfg = {"fused": dict(fused_iteration=True), "split": {}}
     cpu_counts = {}
     for path, cfg in paths_cfg.items():
+        # every engine whose counters are read writes series of its own
         cpu = Engine(small, EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK,
                                          token_budget=PREFIX_BUDGET, prefix_cache=True, **cfg),
-                     device="cpu")
+                     device="cpu", metric_labels={"engine": f"cpu {path}"})
         run_rounds(cpu, prompts, rounds, PREFIX_NEW)
         cpu_counts[path] = prefix_counts(cpu)
     for kv_quant in (None, "int8"):
@@ -4083,7 +4437,8 @@ def serve_prefix_spec() -> dict:
             cold = Engine(model, EngineConfig(**config), device="cuda")
             cold_results = run_rounds(cold, prompts, [("cold", [(f"r{i}", i) for i in range(4)])],
                                       PREFIX_NEW)
-            engine = Engine(model, EngineConfig(prefix_cache=True, **config), device="cuda")
+            engine = Engine(model, EngineConfig(prefix_cache=True, **config), device="cuda",
+                            metric_labels={"engine": label})
             zero_counts()
             t0 = time.perf_counter()
             results = run_rounds(engine, prompts, rounds, PREFIX_NEW)
@@ -4141,7 +4496,8 @@ def serve_prefix_spec() -> dict:
                             dict(spec, spec_draft_depth=SPEC_DRAFT_DEPTH), None),
                            ("spec_prefix", dict(spec, prefix_cache=True), None)):
         engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, fused_iteration=True,
-                                            prefill_chunk=CHUNK, **cfg), device="cuda")
+                                            prefill_chunk=CHUNK, **cfg), device="cuda",
+                        metric_labels={"engine": name})
         if arm:
             engine.faults.arm(arm, 1)
         gaps = spy_draft_gaps(engine) if name == "spec" else None
@@ -4661,6 +5017,8 @@ def main() -> int:
     release_memory()
     prefix_spec_launches = serve_prefix_spec()
     release_memory()
+    generate_cli_launches = generate_cli()
+    release_memory()
     generate_launches = generate_flagship()
     release_memory()
     trainer, batch, train_launches = train_flagship()
@@ -4675,6 +5033,8 @@ def main() -> int:
     reversible_launches = train_reversible(vae, batch)
     release_memory()
     cli_launches = train_cli(vae)
+    release_memory()
+    cli_telemetry_launches = train_cli_telemetry(vae)
     release_memory()
     cli_ga_launches = train_cli_ga(vae)
     release_memory()
@@ -4712,7 +5072,8 @@ def main() -> int:
              ("train_512_bf16", launches_512_bf16), ("train_one_block", one_block_launches),
              ("train_one_block_bf16", one_block_bf16_launches),
              ("train_learned_pos", learned_train_launches), ("train_cli", cli_launches),
-             ("train_cli_ga", cli_ga_launches),
+             ("train_cli_telemetry", cli_telemetry_launches), ("train_cli_ga", cli_ga_launches),
+             ("generate_cli", generate_cli_launches),
              ("serve_learned_pos", learned_serve_launches),
              ("generate_learned_pos", learned_generate_launches), *generate_launches.items(),
              *reversible_launches.items(), *reversible_serve_launches.items(),
@@ -5487,6 +5848,90 @@ def compare_serve(pairs: int = 2, window: int = 64) -> None:
                            watch=("ragged",))
 
 
+def load_other_port(root: Path, alias: str):
+    """The port package of another checkout (``root``) imported under
+    ``alias`` (the package imports itself relatively only), its kernels
+    built into this checkout's ``build/`` (a library's name is the hash
+    of its sources, so an identical source is not built twice)."""
+    import importlib
+    import importlib.util
+
+    pkg = Path(root) / "dalle_pytorch_tpu_torch"
+    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    from dalle_pytorch_tpu_torch.ops import cuda_build
+
+    importlib.import_module(f"{alias}.ops.cuda_build").BUILD_DIR = cuda_build.BUILD_DIR
+    return module
+
+
+def compare_serve_sources(other: str, rounds: int = 2) -> None:
+    """The serving engine of this checkout against another's (``other``:
+    a checkout's root, its port package loaded by ``load_other_port``),
+    to time a change in ``serving/`` or ``utils/``: the serve phases'
+    flagship (bf16, ``SERVE_MODEL``) with their VAE and CLIP stages, each
+    tree's own modules on the same seeded weights, a fresh engine a run,
+    in the order other, this, this, other, ``rounds`` times, at two
+    configurations: phase 5's ("fused": ``N_REQUESTS`` requests, the fused
+    iteration) and phase 5e's ("split": the first ``SPLIT_REQUESTS``,
+    the split path), both at max_batch 8 and chunks of 16. Every run's
+    tokens bitwise the first's of its configuration. Prints each run's
+    wall, tokens/s, TTFT (median and largest) and stage seconds."""
+    import importlib
+
+    trees = {"this": "dalle_pytorch_tpu_torch",
+             "other": load_other_port(Path(other), "other_torch_port").__name__}
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    built = {}
+    for label, pkg in trees.items():
+        mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+        dalle, vae, clip = (mod("models.dalle").DALLE, mod("models.vae").DiscreteVAE,
+                            mod("models.clip").CLIP)
+        built[label] = (dalle(**SERVE_MODEL, **bf16).init_weights(gen(0)),
+                        vae(**FLAGSHIP_VAE, **bf16).init_weights(gen(1)),
+                        clip(**FLAGSHIP_CLIP, **bf16).init_weights(gen(2)),
+                        mod("serving.postdecode"), mod("serving.engine"),
+                        mod("serving.types").Request)
+    configs = {"fused": (N_REQUESTS, True), "split": (SPLIT_REQUESTS, False)}
+    for name, (n, fused) in configs.items():
+        first, rows = None, []
+        for _ in range(rounds):
+            for label in ("other", "this", "this", "other"):
+                model, vae, clip, post, engine_mod, request = built[label]
+                stages = post.StageSpec(vae, clip, config=post.StageConfig(
+                    batch=STAGE_BATCH, queue_limit=n))
+                engine = engine_mod.Engine(model, engine_mod.EngineConfig(
+                    max_batch=MAX_BATCH, fused_iteration=fused, prefill_chunk=CHUNK),
+                    device="cuda", stages=stages)
+                for r in serve_requests(n, MAX_NEW):
+                    assert engine.submit(request(r.request_id, r.prompt, r.max_new_tokens,
+                                                 seed=r.seed)) is None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results = engine.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                tokens = {rid: r.tokens.tolist() for rid, r in results.items()}
+                first = first or tokens
+                ttft = [r.ttft_s * 1e3 for r in results.values()]
+                stage_s = sum(engine.postdecode.seconds.values())
+                rows.append((label, wall, float(np.median(ttft)), max(ttft), stage_s,
+                             tokens == first))
+        walls = {label: np.mean([w for lb, w, *_ in rows if lb == label])
+                 for label in ("this", "other")}
+        log(f"compare serve sources, {name} ({n} x {MAX_NEW} tokens, stages; {card_line()}): "
+            + "; ".join(f"{label} {w:.2f} s ({n * MAX_NEW / w:.1f} tokens/s), TTFT median "
+                        f"{m:.1f} ms, largest {x:.1f} ms, stages {st:.3f} s, tokens = first "
+                        f"{same}" for label, w, m, x, st, same in rows)
+            + f"; this / other {walls['this'] / walls['other']:.4f}")
+        if not all(r[-1] for r in rows):
+            raise AssertionError(f"compare serve sources, {name}: the trees' tokens differ")
+
+
 def check_bf16_default_reduction() -> None:
     """The bf16 path checks (``check_train_against_plain(variant,
     torch.bfloat16)`` for "dense", "sparse" and "tiled") with cuBLAS's
@@ -5595,9 +6040,9 @@ def compare(argv) -> int:
     """``chip_smoke.py --ragged-source PATH``, ``--packed-source DIR``,
     ``--tiled-source DIR``, ``--sparse-source DIR``, ``--decode-source DIR``,
     ``--generate-pairs N``, ``--serve-pairs N``, ``--ga-step-source DIR``,
-    ``--train-cli-ga``, ``--serve-prefix-spec`` and/or
-    ``--bf16-default-reduction``: only the paired comparisons (and those
-    phases), on one card."""
+    ``--train-cli-ga``, ``--serve-prefix-spec``, ``--generate-cli``,
+    ``--serve-source DIR`` and/or ``--bf16-default-reduction``: only the
+    paired comparisons (and those phases), on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -5624,6 +6069,12 @@ def compare(argv) -> int:
     parser.add_argument("--serve-prefix-spec", action="store_true",
                         help="phase 5i alone (the prefix cache and speculative decode through "
                              "the engine), after building the ragged kernel")
+    parser.add_argument("--generate-cli", type=int, default=0, metavar="DEPTH",
+                        help="phase 15 alone at DEPTH layers, telemetry off, on, on, off, "
+                             "after building the ragged and packed kernels")
+    parser.add_argument("--serve-source",
+                        help="root of another checkout (its port package): phase 5's and 5e's "
+                             "engines paired with this checkout's (other, this, this, other)")
     parser.add_argument("--bf16-default-reduction", action="store_true",
                         help="the bf16 path checks with cuBLAS's bf16 reduced-precision "
                              "reduction at PyTorch's default")
@@ -5665,6 +6116,15 @@ def compare(argv) -> int:
 
         cuda_build.build(["ragged_attention"])
         log(f"serve prefix and spec alone: launches {serve_prefix_spec()}")
+    if args.generate_cli or args.serve_source:
+        from dalle_pytorch_tpu_torch.ops import cuda_build
+
+        cuda_build.build(["ragged_attention", "fused_qkv_attention"])
+    if args.generate_cli:
+        log(f"generate CLI alone: launches "
+            f"{generate_cli(args.generate_cli, ('off', 'on', 'on', 'off'))}")
+    if args.serve_source:
+        compare_serve_sources(args.serve_source)
     if args.bf16_default_reduction:
         check_bf16_default_reduction()
     return 0

@@ -18,7 +18,10 @@ does not decode is dropped; a shard that breaks mid-stream is abandoned
 for the next. Each is counted in ``counters``
 (``webdata.shard_open_retries``, ``shards_opened``,
 ``shards_quarantined``, ``quarantined_skips``, ``decode_errors``,
-``shard_aborts``), never silent. ``faults`` (a
+``shard_aborts``; a dataset made without ``counters`` keeps its own),
+never silent, and an open, a quarantine and an abort are also telemetry
+events (``data.shard_open``, ``data.shard_quarantined``,
+``data.shard_abort``) naming their counter. ``faults`` (a
 ``utils.faults.FaultRegistry``) arms the ``shard_open`` and
 ``shard_read`` sites. On the same shards the samples, their order, the
 tokens and the pixels are those of JAX's dataset for one process, no
@@ -47,6 +50,7 @@ import numpy as np
 
 from ..utils.metrics import Counters
 from ..utils.resilience import RetryPolicy, retry
+from ..utils.telemetry import TELEMETRY
 from .image_io import MissingDecoderError, pillow_image
 from .loader import image_to_array, random_resized_crop
 
@@ -186,10 +190,15 @@ class TarImageTextDataset:
         except SHARD_RETRY.retry_on as e:
             self._quarantined.add(url)
             self.counters.inc("webdata.shards_quarantined")
+            # an event names the counter it goes with, so a flight file
+            # joins the metric series
+            TELEMETRY.event("data.shard_quarantined", url=url,
+                            counter="webdata.shards_quarantined", error=str(e))
             print(f"shard {url} quarantined after {SHARD_RETRY.attempts} attempts: {e}",
                   file=sys.stderr)
             return None
         self.counters.inc("webdata.shards_opened")
+        TELEMETRY.event("data.shard_open", url=url, counter="webdata.shards_opened")
         return stream
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -209,6 +218,8 @@ class TarImageTextDataset:
             except tarfile.TarError as e:
                 # a shard broken mid-stream: keep what came, go on to the next
                 self.counters.inc("webdata.shard_aborts")
+                TELEMETRY.event("data.shard_abort", url=url, counter="webdata.shard_aborts",
+                                error=str(e))
                 print(f"shard {url} aborted: {e}", file=sys.stderr)
             finally:
                 stream.close()

@@ -28,12 +28,25 @@ the same correlation with the kernel flipped, so the converter
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block, the previous
+    setting restored after."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 # the reference's channel (means, stds)
@@ -187,10 +200,14 @@ class DiscreteVAE(nn.Module):
         return logits.argmax(dim=-1).reshape(logits.shape[0], -1)
 
     def decode(self, img_seq: torch.Tensor) -> torch.Tensor:
-        """Token ids (b, n) -> pixels (b, h, w, c), normalized space."""
+        """Token ids (b, n) -> pixels (b, h, w, c), normalized space.
+        cuDNN runs the transposed convolutions through its deterministic
+        algorithms (with TF32 off some of the others reduce with atomics),
+        so the pixels are a function of the tokens."""
         b, n = img_seq.shape
         f = math.isqrt(n)
-        return self._decode_embeds(self.codebook(img_seq).reshape(b, f, f, self.codebook_dim))
+        with cudnn_deterministic():
+            return self._decode_embeds(self.codebook(img_seq).reshape(b, f, f, self.codebook_dim))
 
     def _decode_embeds(self, embeds: torch.Tensor) -> torch.Tensor:
         """Codebook features (b, f, f, codebook_dim) -> pixels (b, h, w, c)."""

@@ -121,10 +121,33 @@ iteration to verify width 1.
 The model may have any of the ported attention types; non-"full" layers
 decode through the gathered cache view (``ops/attention.py``).
 
+Metrics and telemetry (``utils/metrics.py``, ``utils/telemetry.py``):
+``counters``, ``gauges`` and ``histograms`` are views of the process-wide
+registries with ``metric_labels`` bound (engines without labels add into
+one series): the lifecycle tallies (``serve.submitted``, ``admitted``,
+``completed``, one a typed outcome, ``dispatches``, ``decode_steps``,
+``prefill_chunks``, the fault sites'), the histograms
+``serve.queue_wait_s``, ``serve.ttft_s`` (with ``_cold_s``,
+``_partial_hit_s`` and ``_full_hit_s`` under the prefix cache),
+``serve.request_latency_s`` and ``serve.spec_accepted_per_step``, and the
+gauges every iteration publishes (occupancy, running, prefilling, queued,
+staged, the KV footprint, prefix and speculation rates). With telemetry
+on, each request is a ``serve.request`` span from submit to its typed
+outcome, with ``serve.prefill``, ``serve.prefill_chunk`` and
+``serve.slot_insert`` spans under it, one ``serve.decode_step`` (split)
+or ``serve.iteration`` (fused; ``serve.spec_verify`` inside it when
+speculative) a dispatch, and the events ``serve.admit``,
+``serve.first_token``, ``serve.evict``, ``serve.prefill_retry``,
+``serve.prefix_hit`` and ``serve.decode_stall``. Spans open and close on
+the host and add no device sync. One sync is the engine's own, as in
+JAX: the split path waits for each non-final prefill chunk before its
+span closes, which bounds the work queued behind the next decode
+readback and makes ``serve.prefill_chunk_s`` a chunk's latency.
+
 Not ported yet: prefix-cache snapshots, the journal, vitals and the
 controller (whose effective ``spec_k`` the port does not have: it runs
-``config.spec_k``), the cost ledger, and telemetry (``EngineConfig`` has
-no field for them, so asking for one is a ``TypeError``).
+``config.spec_k``) and the cost ledger (``EngineConfig`` has no field
+for them, so asking for one is a ``TypeError``).
 """
 
 from __future__ import annotations
@@ -141,7 +164,8 @@ from ..models.dalle import DALLE, top_k_filter
 from ..models.sampling import DecodeCache, init_decode_cache, insert_decode_cache, sample
 from ..ops import kv_policy, paged_kv
 from ..utils.faults import FaultRegistry
-from ..utils.metrics import Counters
+from ..utils.metrics import counters, gauges, histograms
+from ..utils.telemetry import TELEMETRY
 from .postdecode import PostDecodePipeline, StageSpec
 from .prefix_cache import PrefixCache, chain_blocks
 from .scheduler import Entry, PagePool, Scheduler, TokenBudget, pages_for
@@ -301,6 +325,10 @@ def _copy_pages_(dst: DecodeCache, src: DecodeCache, src_ids, dst_ids, valid) ->
             paged_kv.copy_pages_across_(d_pool, s_pool, src_ids, dst_ids, valid)
 
 
+class _PrefillFault(RuntimeError):
+    """A ``prefill_fail`` fault fired in a monolithic prefill."""
+
+
 class _Slot:
     """A running request bound to one cache row. Phase ``prefill``:
     ``filled`` prompt positions written so far (split path: into the
@@ -330,17 +358,21 @@ class _Slot:
         self.boundary_rings: dict = {}
         self.final_logits = None
         self.snap_from = 0
+        # the open chunked-prefill span (telemetry on)
+        self.prefill_span = None
 
 
 class Engine:
     """See the module docstring. Host-side state machine + one device
     cache. ``faults``: the fault registry whose armed sites the engine
-    fires (None: no faults)."""
+    fires (None: no faults). ``metric_labels``: the labels bound to
+    every series the engine writes (None: the unlabelled series)."""
 
     def __init__(self, dalle: DALLE, config: EngineConfig = EngineConfig(),
                  clock: Optional[Clock] = None, device="cuda",
                  stages: Optional[StageSpec] = None,
-                 faults: Optional[FaultRegistry] = None):
+                 faults: Optional[FaultRegistry] = None,
+                 metric_labels: Optional[dict] = None):
         if config.prefill_chunk is not None and config.prefill_chunk < 2:
             raise ValueError(
                 f"prefill_chunk must be >= 2 (a batch-1 width-1 chunk runs its "
@@ -376,7 +408,11 @@ class Engine:
         self.clock = clock or Clock()
         self.faults = faults if faults is not None else FaultRegistry()
 
-        self.counters = Counters()
+        self.counters = counters.child(metric_labels)
+        self.gauges = gauges.child(metric_labels)
+        self.histograms = histograms.child(metric_labels)
+        # the open serve.request span of each live request (telemetry on)
+        self._req_spans: Dict[str, Optional[int]] = {}
 
         B = config.max_batch
         self.page = kv_policy.page_size(config.page_size)
@@ -405,6 +441,7 @@ class Engine:
             self.n_pages_slot * pool[0].numel() * pool.element_size()
             for kv in self.cache.kv for pool in kv.pools()
         )
+        self._total_pool_pages = (B + self._arena_rows) * self.n_pages_slot
         # the prefix index over the arena's global page ids, its chain
         # root salted with the pools' storage format
         self.prefix: Optional[PrefixCache] = None
@@ -451,7 +488,9 @@ class Engine:
             self.postdecode = PostDecodePipeline(
                 stages, self.clock, self._finish,
                 occupancy=lambda: self.pool.occupancy,
+                counters=self.counters, histograms=self.histograms,
             )
+        self._publish_kv_gauges()
 
     # ------------------------------------------------------------ public
 
@@ -466,9 +505,13 @@ class Engine:
         if request.request_id in self.results or request.request_id in self._live:
             raise ValueError(f"duplicate request_id {request.request_id!r}")
         self._submitted += 1
+        self.counters.inc("serve.submitted")
         entry = Entry(request=request, submit_time=self.clock.now(),
                       seq=self._seq)
         self._seq += 1
+        self._req_spans[request.request_id] = TELEMETRY.begin(
+            "serve.request", request_id=request.request_id,
+            priority=request.priority, max_new_tokens=request.max_new_tokens)
         if self._worst_case_pages(request.max_new_tokens) > self.pool.total:
             return self._reject(entry, RejectReason.DEMAND_EXCEEDS_POOL)
         if not self.sched.submit(entry):
@@ -510,6 +553,7 @@ class Engine:
         if worked:
             self.iterations += 1
         self.clock.tick()
+        self._publish_gauges()
         return (worked or bool(self.sched) or any(self.slots)
                 or bool(self.postdecode))
 
@@ -531,6 +575,7 @@ class Engine:
         running = [s for s in self.slots if s]
         if running and self.faults.take("request_cancel"):
             victim = max(running, key=lambda s: s.admit_seq)
+            self.counters.inc("serve.fault_request_cancel")
             self._cancel_requested.add(victim.entry.request_id)
         for rid in list(self._cancel_requested):
             entry = self.sched.remove(rid)
@@ -585,6 +630,8 @@ class Engine:
                 return
             entry = self.sched.pop()
             entry.effective_max_new, entry.clamped = eff_max_new, clamped
+            if clamped:
+                self.counters.inc("serve.clamped")
             ok = self.pool.alloc(entry.request_id, pages_for(self.T, self.page) - hit.shared)
             assert ok, "admission checked worst-case > prompt pages"
             if hit.full:
@@ -602,7 +649,7 @@ class Engine:
         the miss boundary: fused, its pages mapped into the row's table
         read-only; split, copied into the private cache (references then
         dropped); either way with the boundary's ring seam restored."""
-        entry.admit_time = self.clock.now()
+        req_span = self._note_admit(entry, idx)
         slot = _Slot(entry, idx, self._admit_seq)
         self._admit_seq += 1
         internal = self._to_device(self._internal_tokens(entry))
@@ -622,8 +669,12 @@ class Engine:
                              list(range(len(nodes))), [self.page] * len(nodes))
                 self.prefix.release(nodes)
         slot.filled = slot.snap_from = s
+        slot.prefill_span = TELEMETRY.begin(
+            "serve.prefill", request_id=entry.request_id, parent=req_span,
+            attempt=entry.prefill_attempts, chunked=True, resumed_at=s)
         self.slots[idx] = slot
-        self._note_prefix_outcome(entry, hit)
+        self.counters.inc("serve.admitted")
+        self._note_prefix_outcome(entry, hit, idx)
 
     def _claim_full_hit_slot(self, entry: Entry, idx: int, hit: _AdmitHit) -> None:
         """A full prefix hit: no prefill. The cached prompt pages are mapped
@@ -632,7 +683,7 @@ class Engine:
         with the request's own (seed, T) draw, which is the cold run's
         token. A partial terminal page is copied into the row's own page
         first (copy-on-write): the first decode write lands inside it."""
-        entry.admit_time = self.clock.now()
+        self._note_admit(entry, idx)
         nodes = hit.nodes
         terminal = nodes[-1]
         cow = terminal.valid < self.page
@@ -649,10 +700,12 @@ class Engine:
         slot.shared_nodes = list(shared)
         slot.snap_from = self.T
         self.dispatches += 1
+        self.counters.inc("serve.dispatches")
         self.cached_draws += 1
         tok0 = self._first_token(terminal.logits, entry)
         self.slots[idx] = slot
-        self._note_prefix_outcome(entry, hit)
+        self.counters.inc("serve.admitted")
+        self._note_prefix_outcome(entry, hit, idx, cow=cow)
         self._start_decode(slot, tok0)
 
     def _prefill_monolithic(self, entry: Entry, idx: int) -> None:
@@ -662,28 +715,53 @@ class Engine:
         pages back and requeues the request (at the head of the queue, so
         the admission loop retries it at once) until its attempts run
         out."""
-        if self.faults.take("prefill_fail"):
+        req_span = self._req_spans.get(entry.request_id)
+        try:
+            with TELEMETRY.span("serve.prefill", request_id=entry.request_id,
+                                parent=req_span, attempt=entry.prefill_attempts):
+                if self.faults.take("prefill_fail"):
+                    raise _PrefillFault(entry.request_id)
+                cache1 = self._fresh_prefill_cache()
+                internal = self._to_device(self._internal_tokens(entry))[None]
+                img = self.dalle.prefill_step(internal, cache1, image_only=True)
+                self.dispatches += 1
+                self.counters.inc("serve.dispatches")
+                self.prefill_dispatches += 1
+                tok0 = self._first_token(img, entry)
+        except _PrefillFault:
             self.pool.free_all(entry.request_id)
-            if not self._prefill_failed(entry):
+            if self._prefill_retry(entry):
+                self._prefill_failed(entry)
+            else:
                 self.sched.requeue(entry)
             return
-        cache1 = self._fresh_prefill_cache()
-        internal = self._to_device(self._internal_tokens(entry))[None]
-        img = self.dalle.prefill_step(internal, cache1, image_only=True)
-        self.dispatches += 1
-        self.prefill_dispatches += 1
-        tok0 = self._first_token(img, entry)
-        entry.admit_time = self.clock.now()
         slot = _Slot(entry, idx, self._admit_seq)
         self._admit_seq += 1
         if self.prefix is not None:
             # monolithic prefill sees only the terminal boundary
             slot.boundary_rings[self.T] = _ring_snapshot(cache1, 0)
             slot.final_logits = img
-        insert_decode_cache(self.cache, cache1, idx)
+        with TELEMETRY.span("serve.slot_insert", request_id=entry.request_id,
+                            parent=req_span, slot=idx):
+            insert_decode_cache(self.cache, cache1, idx)
+        self._note_admit(entry, idx)
         self.slots[idx] = slot
-        self._note_prefix_outcome(entry, _NO_HIT)
+        self.counters.inc("serve.admitted")
+        self._note_prefix_outcome(entry, _NO_HIT, idx)
         self._start_decode(slot, tok0)
+
+    def _note_admit(self, entry: Entry, idx: int) -> Optional[int]:
+        """An admission's time, its queue wait (from the first submit: a
+        replay keeps it) and its ``serve.admit`` event; returns the
+        request's span."""
+        now = self.clock.now()
+        entry.admit_time = now
+        req_span = self._req_spans.get(entry.request_id)
+        self.histograms.observe("serve.queue_wait_s", now - entry.submit_time)
+        TELEMETRY.event("serve.admit", request_id=entry.request_id, parent=req_span,
+                        slot=idx, queue_wait_s=now - entry.submit_time,
+                        clamped=entry.clamped)
+        return req_span
 
     def _internal_tokens(self, entry: Entry) -> np.ndarray:
         """The request's (T,) remapped prompt, <bos> first; computed once
@@ -705,17 +783,24 @@ class Engine:
         d = self._to_device(np.array([[entry.request.seed], [self.T]], np.int64))
         return int(self._draw(img, d[0], d[1])[0])
 
-    def _prefill_failed(self, entry: Entry, filled: Optional[int] = None) -> bool:
-        """Count a failed prefill attempt; once the request has failed
-        ``prefill_attempts`` times it ends PREFILL_FAILED (the caller
-        frees its pages and slot). True when it ended."""
+    def _prefill_retry(self, entry: Entry, filled: Optional[int] = None) -> bool:
+        """Count a failed prefill attempt (``filled``: the chunk it failed
+        at, chunked prefill); True once the request has failed
+        ``prefill_attempts`` times, when the caller frees its pages and
+        slot and ends it (``_prefill_failed``)."""
+        self.counters.inc("serve.fault_prefill_fail")
         entry.prefill_attempts += 1
-        if entry.prefill_attempts < self.config.prefill_attempts:
-            return False
+        self.counters.inc("serve.prefill_retries")
+        where = {} if filled is None else {"chunk_start": filled}
+        TELEMETRY.event("serve.prefill_retry", request_id=entry.request_id,
+                        parent=self._req_spans.get(entry.request_id),
+                        attempt=entry.prefill_attempts, **where)
+        return entry.prefill_attempts >= self.config.prefill_attempts
+
+    def _prefill_failed(self, entry: Entry, filled: Optional[int] = None) -> None:
         where = "" if filled is None else f" ({filled}/{self.T} tokens prefilled)"
         self._finish(entry, Outcome.PREFILL_FAILED, tokens=None,
                      detail=f"prefill failed after {entry.prefill_attempts} attempts{where}")
-        return True
 
     def _clamped_budget(self, want: int) -> Tuple[int, bool]:
         """(effective max_new_tokens, clamped?) under watermark
@@ -774,7 +859,8 @@ class Engine:
         self.prefix.acquire(nodes, self.clock.now())
         return _AdmitHit(nodes=nodes, full=full, shared=shared)
 
-    def _note_prefix_outcome(self, entry: Entry, hit: _AdmitHit) -> None:
+    def _note_prefix_outcome(self, entry: Entry, hit: _AdmitHit, idx: int,
+                             cow: bool = False) -> None:
         """One hit or miss per admission (a replay counts again); the hit
         class of the admission that produces the first token."""
         if self.prefix is None:
@@ -783,6 +869,9 @@ class Engine:
             self.prefix.stats.hits += 1
             self.counters.inc("serve.prefix.hits")
             self.counters.inc("serve.prefix.pages_hit", hit.n_pages)
+            TELEMETRY.event("serve.prefix_hit", request_id=entry.request_id,
+                            parent=self._req_spans.get(entry.request_id), slot=idx,
+                            pages=hit.n_pages, kind=hit.kind, coverage=hit.coverage, cow=cow)
         else:
             self.prefix.stats.misses += 1
             self.counters.inc("serve.prefix.misses")
@@ -909,32 +998,45 @@ class Engine:
             while grant > 0 and self.slots[slot.index] is slot:
                 c = self._next_chunk(slot.filled)
                 if self.faults.take("prefill_fail"):
-                    if self._prefill_failed(slot.entry, slot.filled):
+                    if self._prefill_retry(slot.entry, slot.filled):
                         self._release_slot(slot)
+                        self._prefill_failed(slot.entry, slot.filled)
                     break
                 worked = True
+                self.counters.inc("serve.prefill_chunks")
                 start = slot.filled
                 chunk = slot.internal[:, start:start + c]
-                self.dispatches += 1
-                self.prefill_dispatches += 1
                 grant -= c
                 final = start + c >= self.T
-                img = self.dalle.prefill_chunk(chunk, start, slot.cache1,
-                                               return_logits=False, image_only=final)
+                with TELEMETRY.span("serve.prefill_chunk", request_id=slot.entry.request_id,
+                                    parent=slot.prefill_span, start=start, tokens=c):
+                    self.dispatches += 1
+                    self.counters.inc("serve.dispatches")
+                    self.prefill_dispatches += 1
+                    img = self.dalle.prefill_chunk(chunk, start, slot.cache1,
+                                                   return_logits=False, image_only=final)
+                    if final:
+                        tok0 = self._first_token(img, slot.entry)
+                    elif self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
                 slot.filled += c
                 self._maybe_snapshot(slot, slot.cache1, 0)
                 if not final:
                     continue
                 if self.prefix is not None:
                     slot.final_logits = img
-                self._finish_prefill(slot, self._first_token(img, slot.entry))
+                self._finish_prefill(slot, tok0)
                 break
         return worked
 
     def _finish_prefill(self, slot: _Slot, tok0: int) -> None:
         """The final chunk drew the first image token: land the batch-1
         cache in the slot's row and start decoding."""
-        insert_decode_cache(self.cache, slot.cache1, slot.index)
+        TELEMETRY.end(slot.prefill_span, outcome="completed")
+        slot.prefill_span = None
+        with TELEMETRY.span("serve.slot_insert", request_id=slot.entry.request_id,
+                            parent=self._req_spans.get(slot.entry.request_id), slot=slot.index):
+            insert_decode_cache(self.cache, slot.cache1, slot.index)
         slot.cache1 = slot.internal = None
         self._start_decode(slot, tok0)
 
@@ -952,10 +1054,15 @@ class Engine:
         the previous step's readback."""
         self._maybe_stall()
         dispatchable = self._grow_pages(self._decodable())
-        new_pending = None
-        if dispatchable:
-            new_pending = self._dispatch_decode(dispatchable, self._pending)
-        return self._swap_pending(new_pending) or new_pending is not None
+        if not dispatchable:
+            return self._swap_pending(None)
+        # one span a dispatched step, over its dispatch and the previous
+        # step's readback
+        with TELEMETRY.span("serve.decode_step", n_active=len(dispatchable),
+                            lookahead=self.config.decode_lookahead):
+            self.counters.inc("serve.decode_steps")
+            self._swap_pending(self._dispatch_decode(dispatchable, self._pending))
+        return True
 
     def _dispatch_decode(self, dispatchable: List[_Slot], pending):
         """One ``DALLE.decode_step`` at per-row positions over every row,
@@ -984,6 +1091,7 @@ class Engine:
                                         image_only=True)
         samples = self._draw(logits, d[1], d[0] + 1)
         self.dispatches += 1
+        self.counters.inc("serve.dispatches")
         self._advance_decoded(dispatchable)
         return samples, [(s, _DECODE) for s in dispatchable]
 
@@ -1012,8 +1120,9 @@ class Engine:
             if not take:
                 continue
             if self.faults.take("prefill_fail"):
-                if self._prefill_failed(s.entry, s.filled):
+                if self._prefill_retry(s.entry, s.filled):
                     self._release_slot(s)
+                    self._prefill_failed(s.entry, s.filled)
                 continue
             chunks.append((s, self._next_chunk_fused(s.filled)))
         return chunks
@@ -1022,10 +1131,12 @@ class Engine:
         self._maybe_stall()
         dispatchable = self._grow_pages(self._decodable())
         chunks = self._plan_fused_prefills(len(dispatchable))
-        new_pending = None
-        if dispatchable or chunks:
-            new_pending = self._dispatch_fused(dispatchable, chunks, self._pending)
-        return self._swap_pending(new_pending) or new_pending is not None
+        if not (dispatchable or chunks):
+            return self._swap_pending(None)
+        with TELEMETRY.span("serve.iteration", n_decode=len(dispatchable),
+                            n_prefill=len(chunks), lookahead=self.config.decode_lookahead):
+            self._swap_pending(self._dispatch_fused(dispatchable, chunks, self._pending))
+        return True
 
     def _dispatch_fused(self, dispatchable: List[_Slot],
                         chunks: List[Tuple[_Slot, int]], pending):
@@ -1041,6 +1152,7 @@ class Engine:
                 desc[5:, s.index] = (s.tok, 1)
             entries.append((s, _DECODE))
         for s, c in chunks:
+            self.counters.inc("serve.prefill_chunks")
             desc[:2, s.index] = (s.filled, c)
             if s.filled + c >= self.T:
                 desc[2:5, s.index] = (1, s.entry.request.seed, self.T)
@@ -1052,7 +1164,10 @@ class Engine:
         tok = torch.where(d[6].bool(), d[5].to(torch.int32), prev_tok)
         samples, logits = self._iteration(tok, start, length, final, d[3], d[4],
                                           any_final=bool(desc[2].any()))
+        if dispatchable:
+            self.counters.inc("serve.decode_steps")
         self.dispatches += 1
+        self.counters.inc("serve.dispatches")
         self._advance_decoded(dispatchable)
         self._advance_chunks(chunks, logits)
         for s, c in chunks:
@@ -1073,6 +1188,8 @@ class Engine:
             if s.filled >= self.T:
                 if self.prefix is not None:
                     s.final_logits = logits[s.index:s.index + 1].clone()
+                TELEMETRY.end(s.prefill_span, outcome="completed")
+                s.prefill_span = None
                 s.phase, s.pos, s.tok_on_device = _DECODE, self.T, False
 
     def _iteration(self, tok, start, length, final, seeds, draw_pos,
@@ -1125,7 +1242,11 @@ class Engine:
         chunks = self._plan_fused_prefills(sum(widths[id(s)] for s in dispatchable))
         if not dispatchable and not chunks:
             return False
-        self._spec_readback(*self._dispatch_spec(dispatchable, widths, chunks))
+        with TELEMETRY.span("serve.iteration", n_decode=len(dispatchable),
+                            n_prefill=len(chunks), lookahead=False, spec=spec_on):
+            with TELEMETRY.span("serve.spec_verify", n_verify=len(dispatchable),
+                                drafted=sum(widths[id(s)] - 1 for s in dispatchable)):
+                self._spec_readback(*self._dispatch_spec(dispatchable, widths, chunks))
         return True
 
     def _dispatch_spec(self, verifies: List[_Slot], widths: Dict[int, int],
@@ -1144,10 +1265,13 @@ class Engine:
             desc[:, s.index] = (s.pos, k, 0, s.entry.request.seed, s.tok)
             entries.append((s, _DECODE, k))
         for s, c in chunks:
+            self.counters.inc("serve.prefill_chunks")
             final = s.filled + c >= T
             desc[:4, s.index] = (s.filled, c, final, s.entry.request.seed)
             if final:
                 entries.append((s, _PREFILL, c))
+        if verifies:
+            self.counters.inc("serve.decode_steps")
         K = max((widths[id(s)] for s in verifies), default=1)
         d = self._to_device(desc)
         start, length = d[0].to(torch.int32), d[1].to(torch.int32)
@@ -1164,6 +1288,7 @@ class Engine:
         first = self._draw(last, seeds, torch.full_like(seeds, T))
         out = torch.cat([samples] + [t[:, None] for t in drafts] + [first[:, None]], dim=1)
         self.dispatches += 1
+        self.counters.inc("serve.dispatches")
         self._advance_chunks(chunks, last)
         return out.cpu().numpy(), entries, K
 
@@ -1216,6 +1341,7 @@ class Engine:
                 self.counters.inc("serve.spec.drafted", k - 1)
                 self.counters.inc("serve.spec.accepted", m)
                 self.counters.inc("serve.spec.rejected", k - 1 - m)
+                self.histograms.observe("serve.spec_accepted_per_step", float(m + 1))
             if len(s.entry.generated) >= s.entry.effective_max_new:
                 self._complete(s)
 
@@ -1230,6 +1356,8 @@ class Engine:
     def _maybe_stall(self) -> None:
         """The ``decode_stall`` fault: the clock jumps by the penalty."""
         if self.faults.take("decode_stall"):
+            self.counters.inc("serve.fault_decode_stall")
+            TELEMETRY.event("serve.decode_stall", penalty_s=self.config.stall_penalty_s)
             self.clock.advance(self.config.stall_penalty_s)
 
     def _decodable(self) -> List[_Slot]:
@@ -1304,9 +1432,18 @@ class Engine:
 
     def _record_first_token(self, entry: Entry) -> None:
         """The first token's time is kept across preemption: the client saw
-        the first production, the replay regenerates it."""
-        if entry.ttft_s is None:
-            entry.ttft_s = self.clock.now() - entry.submit_time
+        the first production, the replay regenerates it. Observed into
+        ``serve.ttft_s`` and, under the prefix cache, the histogram of the
+        admission's hit class."""
+        if entry.ttft_s is not None:
+            return
+        entry.ttft_s = self.clock.now() - entry.submit_time
+        self.histograms.observe("serve.ttft_s", entry.ttft_s)
+        if self.prefix is not None:
+            kind = {"full": "full_hit", "partial": "partial_hit"}.get(entry.hit_class, "cold")
+            self.histograms.observe(f"serve.ttft_{kind}_s", entry.ttft_s)
+        TELEMETRY.event("serve.first_token", request_id=entry.request_id,
+                        parent=self._req_spans.get(entry.request_id), ttft_s=entry.ttft_s)
 
     # -------------------------------------------------------- preemption
 
@@ -1317,6 +1454,8 @@ class Engine:
         False when the slot itself was the victim."""
         while True:
             blocked = self.faults.take("page_exhaust")
+            if blocked:
+                self.counters.inc("serve.fault_page_exhaust")
             if not blocked and self.pool.alloc(slot.entry.request_id, n):
                 return True
             if not blocked and self._reclaim_index_pages(1):
@@ -1342,6 +1481,11 @@ class Engine:
         self._release_slot(slot)
         entry = slot.entry
         entry.preempt_count += 1
+        self.counters.inc("serve.preempted")
+        TELEMETRY.event("serve.evict", request_id=entry.request_id,
+                        parent=self._req_spans.get(entry.request_id),
+                        preempt_count=entry.preempt_count,
+                        tokens_discarded=len(entry.generated))
         if entry.preempt_count > self.config.max_preemptions:
             self._finish(entry, Outcome.PREEMPT_CAP,
                          tokens=np.asarray(entry.generated, np.int32),
@@ -1378,9 +1522,12 @@ class Engine:
             "index and never reset here"
         )
         self.slots[slot.index] = None
-        if slot.phase == _PREFILL and not self.fused:
-            slot.cache1 = slot.internal = None
-            return
+        if slot.phase == _PREFILL:
+            TELEMETRY.end(slot.prefill_span, outcome="aborted", filled=slot.filled)
+            slot.prefill_span = None
+            if not self.fused:
+                slot.cache1 = slot.internal = None
+                return
         self.cache.reset_row_(slot.index)
 
     def _complete(self, slot: _Slot) -> None:
@@ -1395,6 +1542,11 @@ class Engine:
             self._finish(slot.entry, Outcome.COMPLETED, tokens=tokens)
 
     def _reject(self, entry: Entry, reason: RejectReason) -> RequestResult:
+        self.counters.inc("serve.rejected")
+        self.counters.inc(f"serve.rejected.{reason.value}")
+        TELEMETRY.end(self._req_spans.pop(entry.request_id, None),
+                      outcome=Outcome.REJECTED.value, reject_reason=reason.value)
+        self.histograms.observe("serve.request_latency_s", 0.0)
         result = RequestResult(
             request_id=entry.request_id, outcome=Outcome.REJECTED,
             reject_reason=reason, total_latency_s=0.0,
@@ -1407,6 +1559,14 @@ class Engine:
                 rerank_score: Optional[float] = None, detail: str = "") -> None:
         now = self.clock.now()
         self._live.discard(entry.request_id)
+        self.counters.inc(f"serve.{outcome.value}")
+        # the lifecycle span ends in the typed outcome
+        TELEMETRY.end(self._req_spans.pop(entry.request_id, None), outcome=outcome.value,
+                      n_tokens=0 if tokens is None else int(len(tokens)),
+                      preempt_count=entry.preempt_count, detail=detail)
+        self.histograms.observe("serve.request_latency_s", now - entry.submit_time)
+        if outcome is Outcome.COMPLETED:
+            self.histograms.observe("serve.completed_latency_s", now - entry.submit_time)
         self.results[entry.request_id] = RequestResult(
             request_id=entry.request_id,
             outcome=outcome,
@@ -1424,6 +1584,30 @@ class Engine:
             rerank_score=rerank_score,
             detail=detail,
         )
+
+    def _publish_kv_gauges(self) -> None:
+        self.gauges.set("serve.kv_quant.bytes_per_slot", float(self.kv_bytes_per_slot))
+        self.gauges.set("serve.kv_quant.pages", float(self._total_pool_pages))
+
+    def _publish_gauges(self) -> None:
+        """The engine's levels after an iteration."""
+        self._publish_kv_gauges()
+        self.gauges.set("serve.pool_occupancy", self.pool.occupancy)
+        self.gauges.set("serve.running", sum(bool(s) and s.phase == _DECODE for s in self.slots))
+        self.gauges.set("serve.prefilling",
+                        sum(bool(s) and s.phase == _PREFILL for s in self.slots))
+        self.gauges.set("serve.queued", len(self.sched))
+        if self.postdecode is not None:
+            self.gauges.set("serve.stage.queued", len(self.postdecode))
+        if self.spec:
+            self.gauges.set("serve.spec_accept_frac",
+                            self._spec_accepted / self._spec_drafted if self._spec_drafted
+                            else 0.0)
+        if self.prefix is not None:
+            probes = self.prefix.stats.hits + self.prefix.stats.misses
+            self.gauges.set("serve.prefix_hit_frac",
+                            self.prefix.stats.hits / probes if probes else 0.0)
+            self.gauges.set("serve.prefix_pages", float(len(self.prefix)))
 
     def verify_invariants(self, idle: bool = False) -> None:
         """Assert the engine's accounting (``AssertionError`` on a

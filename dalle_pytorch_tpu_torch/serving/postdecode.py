@@ -24,9 +24,14 @@ yet; it moves through typed stages::
 - **Cancel and deadline** reach staged requests too; the typed outcome
   carries the partial results (tokens, and the image once VAE has run).
 
-Fault injection, telemetry spans and the journal's stage hooks are not
-ported yet. The counters are a plain dict of ``serve.stage.*`` names;
-``seconds`` sums each stage's dispatch time.
+Each batched dispatch is one telemetry span, ``serve.stage.vae_decode``
+or ``serve.stage.clip_rerank`` (its ``_s`` histogram is the stage's
+latency), and a completion observes ``serve.stage.request_to_image_s``.
+The ``serve.stage.*`` tallies go to the registries ``counters`` and
+``histograms`` (the engine's views of the process-wide ones);
+``dispatches`` and ``seconds`` count each stage's batched dispatches and
+sum their time. Fault injection and the journal's stage hooks are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import numpy as np
 import torch
 
 from ..ops.image import resize_bilinear
+from ..utils.metrics import Counters, Histograms
+from ..utils.telemetry import TELEMETRY
 from .scheduler import Entry, TokenBudget
 from .types import Outcome
 
@@ -110,13 +117,17 @@ class PostDecodePipeline:
     """Host-side stage queue and batched dispatch, owned by an ``Engine``
     and driven from ``Engine.step()``. ``finish(entry, outcome, tokens,
     image=, rerank_score=, detail=)`` is the sink every staged request
-    ends in; ``occupancy()`` the pressure signal of the watermark."""
+    ends in; ``occupancy()`` the pressure signal of the watermark;
+    ``counters`` and ``histograms`` the registries (or views) the
+    ``serve.stage.*`` series go to (default: registries of its own)."""
 
     spec: StageSpec
     clock: object
     finish: Callable
     occupancy: Optional[Callable[[], float]] = None
-    counters: Dict[str, int] = field(default_factory=dict)
+    counters: Counters = field(default_factory=Counters)
+    histograms: Histograms = field(default_factory=Histograms)
+    dispatches: Dict[str, int] = field(default_factory=dict)
     seconds: Dict[str, float] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -135,15 +146,12 @@ class PostDecodePipeline:
     def __bool__(self) -> bool:
         return bool(self._staged)
 
-    def _inc(self, name: str) -> None:
-        self.counters[name] = self.counters.get(name, 0) + 1
-
     # ------------------------------------------------------------- entry
 
     def enqueue(self, entry: Entry, tokens: np.ndarray) -> None:
         """Park a tokens-complete request at VAE_DECODE."""
         now = self.clock.now()
-        self._inc("serve.stage.enqueued")
+        self.counters.inc("serve.stage.enqueued")
         st = _Staged(entry=entry, tokens=np.asarray(tokens, np.int32),
                      stage=STAGE_VAE, ready_at=now)
         occ = self.occupancy() if self.occupancy is not None else 0.0
@@ -200,32 +208,35 @@ class PostDecodePipeline:
 
     def _dispatch(self, stage: str, batch: List[_Staged], now: float) -> None:
         t0 = time.monotonic()
-        if stage == STAGE_VAE:
-            out = self.decode_images(self._pad(np.stack([s.tokens for s in batch])))
-        else:
-            texts = np.stack([self._clip_text(s.entry.request) for s in batch])
-            out = self.rerank_scores(self._pad(texts),
-                                     self._pad(np.stack([s.image for s in batch])))
+        with TELEMETRY.span(f"serve.stage.{stage}", n=len(batch)):
+            if stage == STAGE_VAE:
+                out = self.decode_images(self._pad(np.stack([s.tokens for s in batch])))
+            else:
+                texts = np.stack([self._clip_text(s.entry.request) for s in batch])
+                out = self.rerank_scores(self._pad(texts),
+                                         self._pad(np.stack([s.image for s in batch])))
         elapsed = time.monotonic() - t0
         self.seconds[stage] = self.seconds.get(stage, 0.0) + elapsed
-        self._inc(f"serve.stage.dispatches.{stage}")
+        self.dispatches[stage] = self.dispatches.get(stage, 0) + 1
         if elapsed > self.cfg.timeout_s:
-            self._inc("serve.stage.timeouts")
+            self.counters.inc("serve.stage.timeouts")
             self._retry_or_degrade(batch, now, "stage_timeout")
             return
         for i, st in enumerate(batch):
             st.attempts = 0
             if stage == STAGE_VAE:
                 st.image = out[i]
-                self._inc("serve.stage.vae_images")
+                self.counters.inc("serve.stage.vae_images")
                 if self.rerank:
                     st.stage, st.ready_at = STAGE_RERANK, now
                     continue
                 score = None
             else:
-                self._inc("serve.stage.reranked")
+                self.counters.inc("serve.stage.reranked")
                 score = float(out[i])
             self._staged.remove(st)
+            self.histograms.observe("serve.stage.request_to_image_s",
+                                    max(0.0, now - st.entry.submit_time))
             self.finish(st.entry, Outcome.COMPLETED, st.tokens, image=st.image,
                         rerank_score=score)
 
@@ -272,11 +283,11 @@ class PostDecodePipeline:
                 self._staged.remove(st)
                 self._degrade(st, why)
             else:
-                self._inc("serve.stage.retries")
+                self.counters.inc("serve.stage.retries")
                 st.ready_at = now + self.cfg.retry.delay(st.attempts - 1)
 
     def _degrade(self, st: _Staged, detail: str) -> None:
-        self._inc("serve.stage.degraded")
+        self.counters.inc("serve.stage.degraded")
         if st.image is None:
             self.finish(st.entry, Outcome.COMPLETED_TOKENS_ONLY, st.tokens,
                         detail=detail)

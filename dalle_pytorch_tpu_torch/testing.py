@@ -1274,3 +1274,16 @@ def dropout_masks(replay=None):
         yield drawn
     finally:
         layers.keep_mask = draw
+
+
+def reset_registries() -> None:
+    """The port's process-wide counters, gauges and histograms emptied
+    and ``TELEMETRY`` back to disabled (a test's engines then start from
+    zero; JAX's registries are reset by ``tests/conftest.py``)."""
+    from .utils.metrics import counters, gauges, histograms
+    from .utils.telemetry import TELEMETRY
+
+    counters.reset()
+    gauges.reset()
+    histograms.reset()
+    TELEMETRY.reset()

@@ -51,16 +51,25 @@ written as PNG to ``dalle_samples/``; ``torch.profiler`` over three steps
 from ``--profile_step`` into ``--profile_trace_dir`` (a Chrome trace).
 ``global_step`` counts dispatches (micro-steps with ``--ga_steps``), as
 JAX's does: a rejected step and its retry are two. ``DALLE_TPU_FAULTS``
-arms ``nan_at_step``, ``ckpt_corrupt``, ``shard_open`` and ``shard_read``
-(``utils.faults``); the tar loader's ``webdata.*`` counters are logged
-every 100 steps.
+arms ``nan_at_step``, ``ckpt_corrupt``, ``shard_open``, ``shard_read`` and
+``telemetry_sink_fail`` (``utils.faults``); the tar loader's
+``webdata.*`` counters (in the process-wide ``utils.metrics.counters``)
+are logged every 100 steps. ``--telemetry`` turns on ``utils.telemetry``:
+a ``train.step`` span from each dispatch to its verdict (its ``_s``
+histogram the step's latency, the device included), ``train.data_wait``
+around the wait for a batch, ``train.ckpt_save`` around every save, the
+events ``train.nan_skip``, ``train.nan_abort`` and
+``train.preempt_signal``, and a flight file under ``--telemetry_dir``
+(default ``<dalle_output_file_name>-telemetry``), drained when the ring
+fills, at exit, on the NaN abort and inside the preemption signal's
+handler; ``--metrics_port`` serves ``/metrics`` on 127.0.0.1.
 
 The flags in ``NOT_PORTED`` raise ``NotImplementedError`` (with their
 ROADMAP.md queue item) when set to anything but their default, before any
 model or file is built: the Chinese tokenizer, the OpenAI dVAE and the
 VQGAN (also the default that names neither ``--vae_path`` nor
-``--dalle_path``), Weights & Biases, the mesh and MoE flags, and
-telemetry. ``--reversible`` and ``--remat`` build the DALLE in those
+``--dalle_path``), Weights & Biases, and the mesh and MoE flags.
+``--reversible`` and ``--remat`` build the DALLE in those
 executions (``models/transformer.py``); a DALLE read from
 ``--dalle_path`` keeps its checkpoint's, as in JAX.
 
@@ -110,13 +119,13 @@ CLI_FLAGS = dict(vae_path=None, dalle_path=None, image_text_folder=None, wds="",
                  truncate_captions=False, resize_ratio=0.75, hug=False, bpe_path=None,
                  dalle_output_file_name="dalle", epochs=20, save_every_n_steps=1000,
                  sample_every_n_steps=1000, keep_n_checkpoints=None, sharded_ckpt=False,
-                 auto_resume=True, profile_trace_dir=None, profile_step=200)
+                 auto_resume=True, profile_trace_dir=None, profile_step=200, telemetry=False,
+                 telemetry_dir=None, metrics_port=None)
 FLAGS = {**TRAINER_FLAGS, **CLI_FLAGS}
 # train_dalle.py's other flags (argparse dests), each with its ROADMAP.md item
 _MESH = "queue 1 item 6 (torch.distributed mesh)"
 _MOE = "queue 1 item 6 (ops/moe.py)"
 _WANDB = "not queued: Weights & Biases needs the network"
-_TELEMETRY = "queue 1 item 5 (utils/telemetry.py)"
 NOT_PORTED = {
     "chinese": "not queued: ChineseTokenizer downloads its vocabulary",
     "taming": "queue 1 item 6 (models/vqgan.py)",
@@ -129,7 +138,6 @@ NOT_PORTED = {
     "ep": _MESH,
     "moe_experts": _MOE, "moe_every": _MOE, "moe_aux_weight": _MOE,
     "moe_capacity_factor": _MOE,
-    "telemetry": _TELEMETRY, "telemetry_dir": _TELEMETRY, "metrics_port": _TELEMETRY,
 }
 
 
@@ -429,14 +437,14 @@ def main(argv=None, *, device="cuda") -> None:
         save_sharded_checkpoint,
     )
     from .utils.faults import FaultRegistry
-    from .utils.metrics import Counters, MetricsLogger, Throughput
+    from .utils.metrics import MetricsLogger, Throughput, counters
     from .utils.resilience import PreemptionHandler
+    from .utils.telemetry import TELEMETRY
 
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     faults = FaultRegistry.from_env()
     tokenizer = pick_tokenizer(args)
-    counters = Counters()
 
     # ---- VAE and DALLE (resume | vae_path) --------------------------------
     start_epoch, sched_state, opt_state, dalle = 0, None, None, None
@@ -475,6 +483,10 @@ def main(argv=None, *, device="cuda") -> None:
             raise ValueError(f"no image-text pairs found at {args.image_text_folder}")
         loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
     logger = MetricsLogger(config=vars(args))
+    if args.telemetry:
+        TELEMETRY.configure(
+            enabled=True, flight_dir=args.telemetry_dir or f"{args.dalle_output_file_name}-telemetry",
+            metrics_port=args.metrics_port, faults=faults)
 
     # ---- state, step ----------------------------------------------------------
     run_flags = {k: getattr(args, k) for k in TRAINER_FLAGS if k not in MODEL_FLAGS}
@@ -531,19 +543,21 @@ def main(argv=None, *, device="cuda") -> None:
 
     def save(epoch):
         t0 = time.perf_counter()
-        save_dalle_checkpoint(ckpt_path, dalle, vae,
-                              extra={"epoch": epoch, "scheduler_state": sched.state_dict()},
-                              opt_state=trainer.state.opt_state, step=int(trainer.state.step))
+        with TELEMETRY.span("train.ckpt_save", kind="full", epoch=epoch):
+            save_dalle_checkpoint(ckpt_path, dalle, vae,
+                                  extra={"epoch": epoch, "scheduler_state": sched.state_dict()},
+                                  opt_state=trainer.state.opt_state, step=int(trainer.state.step))
         logger.log_text(f"saved {ckpt_path}: {os.path.getsize(ckpt_path):,} bytes in "
                         f"{time.perf_counter() - t0:.2f} s")
 
     def save_sharded(step, epoch, it, emergency=False):
         t0 = time.perf_counter()
-        target = save_sharded_checkpoint(
-            sharded_dir, step, train_state_tree(trainer.state),
-            meta={"epoch": epoch, "iter": it, "scheduler_state": sched.state_dict(),
-                  "emergency": emergency},
-            keep_n=args.keep_n_checkpoints, faults=faults)
+        with TELEMETRY.span("train.ckpt_save", kind="sharded", step=step, emergency=emergency):
+            target = save_sharded_checkpoint(
+                sharded_dir, step, train_state_tree(trainer.state),
+                meta={"epoch": epoch, "iter": it, "scheduler_state": sched.state_dict(),
+                      "emergency": emergency},
+                keep_n=args.keep_n_checkpoints, faults=faults)
         size = sum(p.stat().st_size for p in Path(target).rglob("*") if p.is_file())
         logger.log_text(f"saved {target}: {size:,} bytes in {time.perf_counter() - t0:.2f} s")
 
@@ -551,6 +565,7 @@ def main(argv=None, *, device="cuda") -> None:
 
     throughput = Throughput(window=10)
     prev_loss = None
+    step_span = None  # the open train.step span: dispatch to verdict
     prof = None
     nan_run = 0
     last_fed = None  # (i, batch) of the latest dispatch, for a retry
@@ -561,19 +576,26 @@ def main(argv=None, *, device="cuda") -> None:
         """Read the dispatched step's loss (a sync with the device): step
         the scheduler on a finite one, or set the batch up for a retry,
         and abort after ``nan_abort_after`` rejections in a row."""
-        nonlocal prev_loss, nan_run, retry_batch
+        nonlocal prev_loss, nan_run, retry_batch, step_span
         if prev_loss is None:
             return
         loss_val = trainer.verdict(prev_loss)
         prev_loss = None
+        TELEMETRY.end(step_span, loss=loss_val, finite=math.isfinite(loss_val))
+        step_span = None
         if math.isfinite(loss_val):
             nan_run = 0
             return
         nan_run = int(trainer.state.consec_skipped)
         counters.inc("train.nan_skips")
+        TELEMETRY.event("train.nan_skip", step=global_step - 1, consec=nan_run)
         logger.log_text(f"step {global_step - 1}: non-finite loss — update skipped on device, "
                         f"retrying batch ({nan_run}/{args.nan_abort_after})")
         if nan_run >= args.nan_abort_after:
+            # the flight file first: the record must reach disk even if
+            # the save hangs
+            TELEMETRY.event("train.nan_abort", step=global_step - 1, consec=nan_run)
+            TELEMETRY.drain("nan_abort")
             # the rejected batch's update is not in the state: record its
             # predecessor so a resume replays it
             save_sharded(int(trainer.state.step), epoch, last_fed[0] - 1, emergency=True)
@@ -585,7 +607,13 @@ def main(argv=None, *, device="cuda") -> None:
         text = torch.from_numpy(batch["text"]).long().to(device)
         return text, torch.from_numpy(batch["image"]).to(device)
 
-    with PreemptionHandler() as preempt:
+    def on_preempt_signal(signum):
+        # inside the signal handler: the flight file is on disk even if the
+        # step in flight or the emergency save then hangs
+        TELEMETRY.event("train.preempt_signal", signum=signum, step=global_step)
+        TELEMETRY.drain("preempt_signal")
+
+    with PreemptionHandler(on_signal=on_preempt_signal) as preempt:
         for epoch in range(start_epoch, args.epochs):
             if hasattr(loader, "epoch"):
                 loader.epoch = epoch  # the shuffle order of this epoch, on a resume too
@@ -596,15 +624,17 @@ def main(argv=None, *, device="cuda") -> None:
             while True:
                 # take the next batch before the verdict, so the host's
                 # batch work overlaps the step in flight
-                while nxt is None and not exhausted:
-                    try:
-                        cand = next(batches)
-                    except StopIteration:
-                        exhausted = True
-                        break
-                    if epoch == resume_epoch and cand[0] <= resume_iter:
-                        continue  # consumed before the preemption
-                    nxt = cand
+                if nxt is None and not exhausted:
+                    with TELEMETRY.span("train.data_wait", epoch=epoch):
+                        while nxt is None and not exhausted:
+                            try:
+                                cand = next(batches)
+                            except StopIteration:
+                                exhausted = True
+                                break
+                            if epoch == resume_epoch and cand[0] <= resume_iter:
+                                continue  # consumed before the preemption
+                            nxt = cand
 
                 process_verdict()
 
@@ -618,6 +648,9 @@ def main(argv=None, *, device="cuda") -> None:
                     break
                 last_fed = (i, batch)
 
+                # train.step runs from the dispatch (the VAE encode that
+                # feeds it included) to its verdict in process_verdict
+                step_span = TELEMETRY.begin("train.step", step=global_step, epoch=epoch)
                 text, images = to_device(batch)
                 if args.profile_trace_dir is not None:
                     if global_step == args.profile_step:

@@ -1,6 +1,6 @@
 """Deterministic fault injection (counterpart of
 ``dalle_pytorch_tpu/utils/faults.py``'s registry: the serving engine's
-sites, the trainer's and the tar-shard loader's).
+sites, the trainer's, the tar-shard loader's and the telemetry sink's).
 
 A fault site is a named counter: the code asks the registry at the site
 whether to fail, the registry counts one down, and once the armed count
@@ -43,6 +43,9 @@ Sites:
                    the shard quarantined once the retries are spent)
 ``shard_read``     reading the next sample of a tar shard raises
                    ``tarfile.TarError`` (the rest of the shard is dropped)
+``telemetry_sink_fail`` the flight recorder's drain raises ``OSError``
+                   (counted under ``telemetry.sink_errors``, never raised
+                   into the loop; armed on ``Telemetry.faults``)
 ================== ======================================================
 """
 
@@ -54,7 +57,7 @@ from typing import Dict, Optional
 ENV_VAR = "DALLE_TPU_FAULTS"
 SITES = ("prefill_fail", "page_exhaust", "decode_stall", "request_cancel",
          "prefix_hash_collide", "prefix_publish_fail", "spec_verify_abort",
-         "nan_at_step", "ckpt_corrupt", "shard_open", "shard_read")
+         "nan_at_step", "ckpt_corrupt", "shard_open", "shard_read", "telemetry_sink_fail")
 # sites whose armed number is a parameter (a step index), not a count
 VALUE_SITES = frozenset({"nan_at_step"})
 

@@ -84,10 +84,17 @@ class PreemptionHandler:
     signal sets ``triggered`` (the loop finishes its step, writes an
     emergency checkpoint and exits), a second raises ``KeyboardInterrupt``
     (a stuck save can still be stopped by hand). A context manager: the
-    previous handlers come back on exit."""
+    previous handlers come back on exit.
 
-    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+    ``on_signal(signum)`` runs inside the first signal's handler (the
+    trainer drains the flight recorder there, so its records reach disk
+    even if the step or the save then hangs); a hook that raises is
+    printed and ignored."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT),
+                 on_signal: Optional[Callable[[int], None]] = None):
         self.signals = signals
+        self.on_signal = on_signal
         self.triggered = False
         self.signum: Optional[int] = None
         self._old = {}
@@ -99,6 +106,12 @@ class PreemptionHandler:
         self.signum = signum
         print(f"signal {signum} received: finishing step, saving emergency "
               "checkpoint, exiting", file=sys.stderr)
+        if self.on_signal is not None:
+            try:
+                self.on_signal(signum)
+            except Exception as e:
+                print(f"on_signal hook failed (ignored): {type(e).__name__}: {e}",
+                      file=sys.stderr)
 
     def __enter__(self) -> "PreemptionHandler":
         for s in self.signals:

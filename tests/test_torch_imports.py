@@ -7,7 +7,8 @@ step) in a process where importing jax fails. The trainers' command
 lines (DALLE, VAE and CLIP) also run (an epoch on a PNG folder, to a
 checkpoint), and reversible and remat DALLE steps too, where none of the
 card's missing host packages can be imported either: PIL, regex,
-msgpack, tokenizers and ftfy. The tar-shard loader
+msgpack, tokenizers and ftfy; so do the generate command line (bf16,
+a CLIP rerank) and the trainer with ``--telemetry``. The tar-shard loader
 (``data/webdata.py``), the native engine's binding
 (``data/native_bpe.py``) and its build (``native/``) import and run where
 jax and the JAX package cannot be imported, and name no path of the JAX
@@ -42,6 +43,65 @@ def test_the_guard_covers_the_new_modules():
 
 def test_the_guard_covers_the_prefix_cache():
     assert REPO / "dalle_pytorch_tpu_torch/serving/prefix_cache.py" in SOURCES
+
+
+def test_the_guard_covers_the_generate_cli_and_telemetry():
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert {f"dalle_pytorch_tpu_torch/{m}" for m in (
+        "generate.py", "utils/telemetry.py", "utils/telemetry_names.py",
+        "utils/quantize.py")} <= names
+
+
+def test_generate_cli_and_telemetry_run_without_the_missing_host_packages(tmp_path):
+    """``generate.main`` (bf16, a CLIP rerank, telemetry on through the
+    environment) and the trainer with ``--telemetry`` where jax, the JAX
+    package and the card's missing host packages cannot be imported."""
+    code = """
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "dalle_pytorch_tpu", "PIL", "regex", "msgpack",
+           "tokenizers", "ftfy")
+for name in BLOCKED:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from dalle_pytorch_tpu_torch import generate, train_dalle
+from dalle_pytorch_tpu_torch.models.clip import CLIP
+from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.models.factory import save_clip_checkpoint, save_dalle_checkpoint
+from dalle_pytorch_tpu_torch.models.factory import save_vae_checkpoint
+from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+from dalle_pytorch_tpu_torch.testing import write_caption_folder
+from dalle_pytorch_tpu_torch.utils.telemetry import TELEMETRY, validate_flight_file
+assert TELEMETRY.enabled
+vae = DiscreteVAE(image_size=8, num_layers=1, hidden_dim=4, num_tokens=12, codebook_dim=4,
+                  device="cpu").init_weights(torch.Generator().manual_seed(0))
+dalle = DALLE(dim=32, depth=1, num_text_tokens=49408, text_seq_len=4, num_image_tokens=12,
+              image_fmap_size=4, heads=2, dim_head=16, device="cpu")
+save_dalle_checkpoint("dalle.ckpt", dalle.init_weights(torch.Generator().manual_seed(1)), vae)
+clip = CLIP(dim_text=16, dim_image=16, dim_latent=8, num_text_tokens=49408, text_enc_depth=1,
+            text_seq_len=4, text_heads=2, text_dim_head=8, visual_enc_depth=1, visual_heads=2,
+            visual_dim_head=8, visual_image_size=8, visual_patch_size=4, device="cpu")
+save_clip_checkpoint("clip.ckpt", clip)
+generate.main(["--dalle_path", "dalle.ckpt", "--clip_path", "clip.ckpt", "--text", "a|b",
+               "--num_images", "2", "--batch_size", "2", "--bf16"], device="cpu")
+write_caption_folder("data", 4, 8, seed=1)
+save_vae_checkpoint("vae.ckpt", vae)
+train_dalle.main(["--image_text_folder", "data", "--vae_path", "vae.ckpt", "--dim", "32",
+                  "--depth", "1", "--heads", "2", "--dim_head", "16", "--text_seq_len", "8",
+                  "--truncate_captions", "--epochs", "1", "--batch_size", "2", "--telemetry",
+                  "--telemetry_dir", "flight"], device="cpu")
+by_name = validate_flight_file(TELEMETRY.drain("end"))["by_name"]
+assert by_name["serve.request"] == 8 and by_name["train.step"] == 4, by_name
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+    env = {**os.environ, "PYTHONPATH": str(REPO), "DALLE_TPU_TELEMETRY": "1",
+           "DALLE_TPU_TELEMETRY_DIR": str(tmp_path / "flight")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+    assert sorted(p.name for p in (tmp_path / "outputs").iterdir()) == ["a", "b"]
 
 
 def test_prefix_and_spec_engine_run_with_jax_unimportable():

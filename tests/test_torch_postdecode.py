@@ -42,6 +42,7 @@ from dalle_pytorch_tpu_torch.serving.postdecode import (
 )
 from dalle_pytorch_tpu_torch.serving.scheduler import Entry
 from dalle_pytorch_tpu_torch.serving.types import FakeClock, Outcome, Request
+from dalle_pytorch_tpu_torch.testing import reset_registries
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tools"))
@@ -58,6 +59,14 @@ BUDGETS = (4, 4, 4)
 @pytest.fixture(scope="module")
 def models():
     return staged_models()
+
+
+@pytest.fixture(autouse=True)
+def _port_registries():
+    """Each test's engine counts from zero in the port's registries."""
+    reset_registries()
+    yield
+    reset_registries()
 
 
 def staged_models():
@@ -110,8 +119,8 @@ def test_staged_engine_matches_jax(models):
         np.testing.assert_allclose(g.image, r.image, atol=1e-5, rtol=0)
         assert abs(g.rerank_score - r.rerank_score) <= 1e-5
     pipe = eng.postdecode
-    assert pipe.counters["serve.stage.vae_images"] == 3
-    assert pipe.counters["serve.stage.reranked"] == 3
+    assert eng.counters.get("serve.stage.vae_images") == 3
+    assert eng.counters.get("serve.stage.reranked") == 3
     assert not pipe and not any(eng.slots) and eng.pool.used == 0
 
 
@@ -121,7 +130,7 @@ def test_rerank_off_completes_unscored(models):
     res = eng.run(max_steps=200)["r0"]
     assert res.outcome is Outcome.COMPLETED
     assert res.image is not None and res.rerank_score is None
-    assert "serve.stage.reranked" not in eng.postdecode.counters
+    assert eng.counters.get("serve.stage.reranked") == 0
 
 
 def test_timeout_exhausts_retries_to_tokens_only(models):
@@ -131,9 +140,9 @@ def test_timeout_exhausts_retries_to_tokens_only(models):
     assert res.outcome is Outcome.COMPLETED_TOKENS_ONLY
     assert res.tokens is not None and len(res.tokens) == 4 and res.image is None
     assert res.detail == "stage_timeout"
-    c = eng.postdecode.counters
-    assert c["serve.stage.timeouts"] == 3 and c["serve.stage.retries"] == 2
-    assert c["serve.stage.degraded"] == 1
+    c = eng.counters
+    assert c.get("serve.stage.timeouts") == 3 and c.get("serve.stage.retries") == 2
+    assert c.get("serve.stage.degraded") == 1
 
 
 # ------------------------------------------- pipeline-direct (no engine)
@@ -165,7 +174,7 @@ def test_backlog_degrades_at_entry(models):
     pipe.enqueue(entry(1), toks(1))
     assert len(pipe) == 1
     assert done == [("r1", Outcome.COMPLETED_TOKENS_ONLY, None, None, "stage_backlog")]
-    assert pipe.counters["serve.stage.degraded"] == 1
+    assert pipe.counters.get("serve.stage.degraded") == 1
 
 
 def test_watermark_degrades_at_entry(models):
@@ -180,7 +189,7 @@ def test_watermark_degrades_at_entry(models):
     occupancy[0] = 0.4  # back under the watermark: staged again
     pipe.enqueue(entry(2), toks(2))
     assert len(pipe) == 1 and len(done) == 2
-    assert pipe.counters["serve.stage.degraded"] == 2
+    assert pipe.counters.get("serve.stage.degraded") == 2
 
 
 def at_rerank(pipe, i, **kw):
@@ -188,7 +197,7 @@ def at_rerank(pipe, i, **kw):
     CLIP_RERANK with an image."""
     pipe.enqueue(entry(i, **kw), toks(i))
     assert pipe.step()
-    assert pipe.counters["serve.stage.vae_images"] >= 1
+    assert pipe.counters.get("serve.stage.vae_images") >= 1
 
 
 def test_cancel_and_deadline_mid_stage(models):
@@ -211,7 +220,7 @@ def test_stage_budget_bounds_dispatch(models):
     for i in range(3):
         pipe.enqueue(entry(i), toks(i))
     assert pipe.step()
-    assert pipe.counters["serve.stage.vae_images"] == 1
+    assert pipe.counters.get("serve.stage.vae_images") == 1
     assert len(pipe) == 3 and not done  # r0 moved on to rerank
 
 
@@ -222,4 +231,4 @@ def test_rerank_dispatches_before_vae(models):
     assert pipe.step()
     assert [d[0] for d in done] == ["r1"]
     assert done[0][1] is Outcome.COMPLETED and done[0][3] is not None
-    assert pipe.counters["serve.stage.vae_images"] == 1 and len(pipe) == 1
+    assert pipe.counters.get("serve.stage.vae_images") == 1 and len(pipe) == 1

@@ -36,10 +36,19 @@ from dalle_pytorch_tpu.utils.metrics import counters as jcounters
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.serving.engine import PREFIX_HOLDER, Engine, EngineConfig
 from dalle_pytorch_tpu_torch.serving.types import FakeClock, Outcome, Request
+from dalle_pytorch_tpu_torch.testing import reset_registries
 from test_torch_dalle import PAGE, tiny_models
 from test_torch_engine import GREEDY, _prompt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_registries():
+    """Each test's engines count from zero in the port's registries."""
+    reset_registries()
+    yield
+    reset_registries()
 
 MODES = {
     "split_mono": {},

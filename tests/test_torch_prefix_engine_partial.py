@@ -22,11 +22,20 @@ test_torch_prefix_engine.py for the model and modes):
 import pytest
 import torch
 
+from dalle_pytorch_tpu_torch.testing import reset_registries
 from test_torch_prefix_engine import (MODES, QUANTS, arena_bytes, check_against_jax,  # noqa: F401
                                       diverge_at, jax_pages, models, port_engine, req, run_all)
 from test_torch_engine import _prompt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_registries():
+    """Each test's engines count from zero in the port's registries."""
+    reset_registries()
+    yield
+    reset_registries()
 
 CHUNKED = ["split_chunked", "fused"]
 

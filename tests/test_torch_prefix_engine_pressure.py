@@ -29,11 +29,20 @@ from dalle_pytorch_tpu.utils.faults import FAULTS as JFAULTS
 from dalle_pytorch_tpu.utils.metrics import counters as jcounters
 from dalle_pytorch_tpu_torch.serving.engine import PREFIX_HOLDER
 from dalle_pytorch_tpu_torch.serving.types import Outcome
+from dalle_pytorch_tpu_torch.testing import reset_registries
 from test_torch_prefix_engine import (MODES, counters_of, diverge_at, jax_engine,  # noqa: F401
                                       jax_pages, models, port_engine, req, run_all, summary)
 from test_torch_engine import GREEDY, _prompt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_registries():
+    """Each test's engines count from zero in the port's registries."""
+    reset_registries()
+    yield
+    reset_registries()
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -165,7 +174,9 @@ def test_prefix_cache_off_is_inert(models):
     assert all(pool.shape[0] == 2 * eng.n_pages_slot + 1
                for kv in eng.cache.kv for pool in kv.pools())
     run_all(eng, [req(0), req(0, rid="again")])
-    assert eng.counters.snapshot("serve.") == {}
+    # the engine's lifecycle tallies run; nothing of the prefix cache does
+    assert eng.counters.get("serve.completed") == 2
+    assert not [k for k in (*eng.counters.snapshot(), *eng.gauges.snapshot()) if "prefix" in k]
     eng.verify_invariants(idle=True)
 
 

@@ -40,10 +40,19 @@ from dalle_pytorch_tpu_torch.ops.layers import PreShiftToken, ShiftRing
 from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, fused_width, spec_model
 from dalle_pytorch_tpu_torch.serving.scheduler import TokenBudget
 from dalle_pytorch_tpu_torch.serving.types import Outcome
+from dalle_pytorch_tpu_torch.testing import reset_registries
 from test_torch_prefix_engine import jax_pages, models, port_engine, req, run_all  # noqa: F401
 from test_torch_spec_decode_engine import check_jax, deep_models  # noqa: F401
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_registries():
+    """Each test's engines count from zero in the port's registries."""
+    reset_registries()
+    yield
+    reset_registries()
 
 SPEC = dict(prefill_chunk=4, fused_iteration=True, spec_decode=True)
 

@@ -27,12 +27,21 @@ import torch
 from dalle_pytorch_tpu.serving import Request as JRequest
 from dalle_pytorch_tpu.utils.metrics import counters as jcounters
 from dalle_pytorch_tpu_torch.serving.types import Outcome
+from dalle_pytorch_tpu_torch.testing import reset_registries
 from test_torch_dalle import tiny_models
 from test_torch_engine import GREEDY
 from test_torch_prefix_engine import (QUANTS, arena_bytes, jax_engine, jax_pages,  # noqa: F401
                                       models, port_engine, req, run_all, summary)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_registries():
+    """Each test's engines count from zero in the port's registries."""
+    reset_registries()
+    yield
+    reset_registries()
 
 SPEC = dict(prefill_chunk=4, fused_iteration=True, spec_decode=True)
 DEEP = dict(depth=4)

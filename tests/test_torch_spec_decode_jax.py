@@ -8,10 +8,19 @@ equal JAX's (helper ``test_torch_spec_decode_engine.check_jax``)."""
 import pytest
 import torch
 
+from dalle_pytorch_tpu_torch.testing import reset_registries
 from test_torch_prefix_engine import QUANTS, jax_pages, models  # noqa: F401
 from test_torch_spec_decode_engine import check_jax
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_registries():
+    """Each test's engines count from zero in the port's registries."""
+    reset_registries()
+    yield
+    reset_registries()
 
 
 @pytest.mark.parametrize("kv_quant", QUANTS.values(), ids=QUANTS.keys())
