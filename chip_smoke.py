@@ -63,7 +63,7 @@ line):
    monolithic) and the fused path, the ragged kernel launched depth x
    dispatches times; ``generate_image_tokens`` on "4d" with the decode
    kernel's no-rotary instance, tokens card = CPU, depth x 15 launches.
-5. engine: the flagship DALLE at full width and depth cut to 2 of 12
+5. engine: the flagship DALLE at full width and depth cut to 4 of 12
    (``SERVE_MODEL``: dim 1024, 16 heads of 64, 256 text + 32x32 image
    tokens, bf16, seeded random weights) served by the
    fused engine (max_batch 8, prefill chunk 16) with post-decode stages:
@@ -137,8 +137,9 @@ line):
    flagship width and depth 4 (each type once), bf16, int8 pages, 4 requests of
    256 tokens: every outcome COMPLETED, the int8 ragged instance launched
    (full layers) x dispatched iterations times.
-5d. generate: the flagship of phase 5 generating outside the engine
-   (``models/sampling.py``), each run counted: (a) batch 1 on the "4d"
+5d. generate: the flagship of phase 5 at depth 1 (``GENERATE_DEPTH``)
+   generating outside the engine (``models/sampling.py``), each run
+   counted: (a) batch 1 on the "4d"
    cache with ``fused_decode=True`` and ``window_seg=0``, 1024 tokens in
    range, the decode kernel launched exactly depth x 1023 times; (b) the
    same caption with ``fused_decode=False`` (the unfused chain) and the
@@ -308,6 +309,26 @@ line):
    span a stage dispatch, one decode span a decode step. Printed: both
    walls, the telemetry percentiles from ``dump()`` and a ``--gentxt``
    image's completion.
+16. serve router (``serve_router``, after phase 15): ``SERVE_MODEL``'s
+   width at depth 1 (``ROUTER_DEPTH``), bf16, phase 5's VAE and CLIP
+   stages, the fused engine with the prefix cache; four requests of 1,024
+   tokens, two sharing a prompt page. (a) One engine: the reference. (b)
+   A two-replica ``Router`` with a journal, ``replica_crash`` killing
+   replica 0 mid-decode: every result bitwise (a)'s (scores bitwise where
+   a rerank batch held the same rows, within ``ROUTER_SCORE_TOL``
+   elsewhere), the ragged kernel depth x the replicas' model dispatches
+   and the packed-qkv kernel CLIP's text depth x their rerank dispatches.
+   (c) A one-replica router abandoned with a request journaled past VAE
+   and another decoding; a fresh one replays the journal, the staged requests
+   through ``submit_staged`` (no decode), results bitwise (a)'s and best
+   first in (a)'s order. (d) ``shutdown(snapshot_dir=)``; a fresh engine
+   restores the snapshot and a request on the shared prompt takes a full
+   hit bitwise cold (warm and cold TTFT printed); ``snapshot_corrupt``
+   rejects to cold. (e) The speculative engine with vitals and the
+   controller, and with ``control_stall``: tokens bitwise the plain
+   engine's; the effective spec_k trajectory and the decision events
+   printed. Printed: walls, ``stats()``, the ``router.*`` counters and
+   the failover latency.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -375,6 +396,7 @@ Paired comparisons, one card, none of the phases above:
     python3 chip_smoke.py --generate-pairs 3
     python3 chip_smoke.py --serve-pairs 2
     python3 chip_smoke.py --generate-cli 4 --serve-source OTHER
+    python3 chip_smoke.py --serve-router 4
 
 the first times this checkout's ragged kernel against the same file of
 another commit (or of each of several, the flag repeated), alternating
@@ -414,7 +436,7 @@ decode-only iterations) in alternating pairs, then profiles each; the
 eighth runs phase 15 at depth 4, telemetry off, on, on, off, and phase
 5's and phase 5e's engines of this checkout against another checkout's
 (``OTHER``: its root), each tree's own port package on the same seeded
-weights, alternating.
+weights, alternating; the ninth runs phase 16 alone at depth 4.
 """
 
 from __future__ import annotations
@@ -457,6 +479,10 @@ FLAGSHIP = dict(dim=1024, depth=12, heads=16, dim_head=64,
 # at 12 they took ~470 s of the script's 1,200 s limit on a slow host,
 # and at 6 ~410 s once the train CLI phase was added (PERF.md, section 6)
 SERVE_MODEL = dict(FLAGSHIP, depth=4)
+# phase 5d's depth: its five host-bound runs of 1,023 steps took ~115 s of
+# a 1,231.6 s script at 4, over the 1,200 s limit (PERF.md, section 6); at
+# 1, as phases 15 and 16
+GENERATE_DEPTH = 1
 # the sparse serving phase keeps the four types of the cycle once each
 SPARSE_SERVE_MODEL = dict(FLAGSHIP, depth=4)
 FLAGSHIP_VAE = dict(image_size=256, num_tokens=8192, codebook_dim=512,
@@ -3045,9 +3071,9 @@ def generate_cli(depth: int = GEN_CLI_DEPTH, order=("off", "on")) -> dict:
 
 
 def generate_flagship() -> dict:
-    """Generation outside the engine at the flagship's width and the serve
-    phases' depth (``SERVE_MODEL``; bf16, seeded random weights;
-    ``models/sampling.py``), each run counted, L below its depth:
+    """Generation outside the engine at the flagship's width and
+    ``GENERATE_DEPTH`` layers (``SERVE_MODEL``'s width; bf16, seeded random
+    weights; ``models/sampling.py``), each run counted, L below its depth:
     (a) batch 1 (the policy's "4d" cache), ``fused_decode=True``,
         ``window_seg=0``: ``generate_image_tokens`` of one seeded caption,
         1024 tokens in range, the decode kernel launched exactly L x 1023
@@ -3082,8 +3108,8 @@ def generate_flagship() -> dict:
 
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
     bf16 = dict(device="cuda", dtype=torch.bfloat16)
-    model = DALLE(**SERVE_MODEL, **bf16).init_weights(gen(0))
-    depth, T = SERVE_MODEL["depth"], model.text_len_internal
+    model = DALLE(**dict(SERVE_MODEL, depth=GENERATE_DEPTH), **bf16).init_weights(gen(0))
+    depth, T = GENERATE_DEPTH, model.text_len_internal
     steps = MAX_NEW - 1
     captions = torch.from_numpy(np.random.RandomState(13).randint(
         1, FLAGSHIP["num_text_tokens"], size=(8, FLAGSHIP["text_seq_len"]))).cuda()
@@ -4554,6 +4580,381 @@ def serve_prefix_spec() -> dict:
     return paths
 
 
+# phase 16: the router's model depth (the flagship's width; --serve-router
+# DEPTH runs it at 4), its requests and their tokens, the snapshot phase's
+# and the control phase's tokens, and the rerank scores' tolerance where a
+# rerank batch holds other rows than the reference's (bf16 CLIP: two bf16
+# steps of a score of magnitude up to 1)
+ROUTER_DEPTH, ROUTER_REQUESTS, ROUTER_NEW = 1, 4, 1024
+ROUTER_SNAP_NEW, ROUTER_CONTROL_NEW = 64, 128
+ROUTER_SCORE_TOL = 2 * 2.0 ** -8
+ROUTER_DIR = ROOT / "build" / "serve_router"
+
+
+def router_requests():
+    """Phase 16's requests: the first four of ``serve_requests``, request 1's
+    prompt starting with request 0's first 127 tokens (with <bos>, one
+    page of 128 internal positions shared)."""
+    reqs = serve_requests(ROUTER_REQUESTS, ROUTER_NEW)
+    shared = np.array(reqs[1].prompt)
+    shared[:PAGE - 1] = reqs[0].prompt[:PAGE - 1]
+    reqs[1] = dataclasses.replace(reqs[1], prompt=shared)
+    return reqs
+
+
+def best_first(results) -> list:
+    """Request ids in descending rerank score (the generate CLI's order)."""
+    return sorted(results, key=lambda rid: -results[rid].rerank_score)
+
+
+def check_against_reference(label: str, results, ref, same_batch=()) -> float:
+    """Every result COMPLETED with tokens and image bitwise the
+    reference's; scores bitwise for ``same_batch`` ids, within
+    ``ROUTER_SCORE_TOL`` otherwise; the largest score difference."""
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    worst = 0.0
+    for rid, r in ref.items():
+        got = results[rid]
+        if got.outcome is not Outcome.COMPLETED:
+            raise AssertionError(f"{label}: {rid} {got.outcome} {got.detail!r}")
+        if not (np.array_equal(got.tokens, r.tokens) and np.array_equal(got.image, r.image)):
+            raise AssertionError(f"{label}: {rid}'s tokens or image are not the reference's")
+        diff = abs(got.rerank_score - r.rerank_score)
+        worst = max(worst, diff)
+        if diff > (0.0 if rid in same_batch else ROUTER_SCORE_TOL):
+            raise AssertionError(f"{label}: {rid} score {got.rerank_score} vs {r.rerank_score}")
+    return worst
+
+
+def record_rerank_batches(engines, batches: dict) -> None:
+    """Record, for each request an engine's pipeline reranks, the ids of
+    its rerank batch in order (``batches``: request id -> tuple)."""
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK
+
+    for e in engines:
+        pipe = e.postdecode
+        dispatch = pipe._dispatch
+
+        def spy(stage, batch, now, _d=dispatch):
+            if stage == STAGE_RERANK:
+                ids = tuple(st.entry.request_id for st in batch)
+                batches.update({rid: ids for rid in ids})
+            return _d(stage, batch, now)
+
+        pipe._dispatch = spy
+
+
+def fleet_launches(engines, names) -> tuple:
+    """(launches read now, those the engines' model calls imply: depth x
+    model dispatches on the ragged instance, CLIP's text depth x rerank
+    dispatches on the packed-qkv kernel)."""
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK
+
+    want = {n: 0 for n in names}
+    for e in engines:
+        want["ragged_attention"] += e.dalle.depth * (e.dispatches - e.cached_draws) + (
+            (e.config.spec_draft_depth or e.dalle.depth) * e.draft_steps)
+        if e.postdecode is not None:
+            want["fused_qkv_attention"] += (FLAGSHIP_CLIP["text_enc_depth"]
+                                            * e.postdecode.dispatches.get(STAGE_RERANK, 0))
+    return read_counts(names), want
+
+
+def router_counts(before: dict) -> dict:
+    from dalle_pytorch_tpu_torch.utils.metrics import counters
+
+    now = counters.snapshot("router.")
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def serve_router(depth: int = ROUTER_DEPTH) -> dict:
+    """Phase 16: the router, the journal, prefix snapshots, vitals and
+    control at ``SERVE_MODEL``'s width and ``depth`` layers (bf16, phase
+    5's seeds, its VAE and CLIP as stages, stage batch 4), every engine
+    fused with chunks of 16, max_batch 8 and the prefix cache; the four
+    ``router_requests`` of 1,024 tokens. Counts set to 0 just before each
+    run and read just after. Returns the launches by path.
+
+    (a) One ``Engine`` serves the four: the reference. (b) A ``Router`` of
+    two replicas with a journal serves them; ``replica_crash`` kills
+    replica 0 (the busiest) once a request on it has decoded 256 tokens:
+    every outcome COMPLETED, tokens and images bitwise (a)'s, the
+    ragged kernel launched depth x the model dispatches summed over the
+    replicas, the packed-qkv kernel CLIP's text depth x the rerank
+    dispatches. (c) A router crash: a fresh one-replica router (the
+    replicas' host loops run one after another, and (b) already holds
+    two) with a new journal is abandoned (its journal closed unsealed)
+    once a request is journaled past VAE decode and another still
+    decodes; a third router, one replica too, replays the journal, requests with journaled tokens through
+    ``submit_staged``: those add no decode (none reaches ``submit``),
+    tokens and images bitwise (a)'s, best first in (a)'s order, scores
+    bitwise (a)'s where the request's rerank batch held the same rows as
+    in (a) and within ``ROUTER_SCORE_TOL`` otherwise (so in (b) too). (d) Router (b)'s ``shutdown(
+    snapshot_dir=)`` writes the snapshot; a fresh engine loads it and a
+    new request on request 0's prompt takes a full hit whose tokens are
+    bitwise a cold engine's (warm and cold TTFT printed); a load under
+    ``snapshot_corrupt`` rejects, counted, the index left cold. (e) Two
+    requests through the speculative fused engine (spec_k 3) with vitals
+    and the controller (interval 8; ``spec_accept_low`` past 1 so the
+    width steps down under the exact drafter of a depth-1 model), and
+    again with ``control_stall`` once: tokens bitwise the plain fused
+    engine's, the effective spec_k trajectory and the
+    ``serve.control.decision`` events printed. Printed: walls, ``stats()``,
+    the ``router.*`` counters and the failover latency."""
+    import shutil
+
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+    from dalle_pytorch_tpu_torch.serving.control import ControlConfig
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.journal import RequestJournal, replay_unfinished
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_VAE, StageConfig, StageSpec
+    from dalle_pytorch_tpu_torch.serving.router import Router, RouterConfig
+    from dalle_pytorch_tpu_torch.serving.types import Outcome, Request
+    from dalle_pytorch_tpu_torch.utils import vitals
+    from dalle_pytorch_tpu_torch.utils.metrics import counters, histograms
+    from dalle_pytorch_tpu_torch.utils.telemetry import TELEMETRY
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ROUTER_DIR, ignore_errors=True)
+    ROUTER_DIR.mkdir(parents=True)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    model = DALLE(**dict(SERVE_MODEL, depth=depth), **bf16).init_weights(gen(0))
+    stages = StageSpec(DiscreteVAE(**FLAGSHIP_VAE, **bf16).init_weights(gen(1)),
+                       CLIP(**FLAGSHIP_CLIP, **bf16).init_weights(gen(2)),
+                       config=StageConfig(batch=ROUTER_REQUESTS, queue_limit=ROUTER_REQUESTS))
+    config = EngineConfig(max_batch=MAX_BATCH, fused_iteration=True, prefill_chunk=CHUNK,
+                          prefix_cache=True)
+    reqs = router_requests()
+    names = (*RAGGED, "fused_qkv_attention")
+    paths, walls = {}, {}
+
+    def run_counted(label, drive, engines):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = drive()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launched, want = fleet_launches(engines(), names)
+        log(f"serve router {label}: {walls[label]:.2f} s wall; launches {launched} "
+            f"(expected {want})")
+        if launched != want:
+            raise AssertionError(f"serve router {label}: launches {launched}, expected {want}")
+        paths[f"serve_router_{label}"] = launched
+        return out
+
+    # (a) the reference
+    ref_engine = Engine(model, config, device="cuda", stages=stages,
+                        metric_labels={"engine": "router reference"})
+    for r in reqs:
+        assert ref_engine.submit(r) is None
+    ref_batches = {}
+    record_rerank_batches([ref_engine], ref_batches)
+    ref = dict(run_counted("reference", ref_engine.run, lambda: [ref_engine]))
+    for rid, r in ref.items():
+        if r.outcome is not Outcome.COMPLETED or len(r.tokens) != ROUTER_NEW:
+            raise AssertionError(f"serve router reference: {rid} {r.outcome} {r.detail!r}")
+        if not ((r.tokens >= 0) & (r.tokens < FLAGSHIP["num_image_tokens"])).all():
+            raise AssertionError(f"serve router reference: {rid}: token out of the image vocab")
+        if r.image is None or r.image.shape != (256, 256, 3) or not np.isfinite(r.image).all():
+            raise AssertionError(f"serve router reference: {rid}: no finite 256 px image")
+        if r.rerank_score is None or not np.isfinite(r.rerank_score):
+            raise AssertionError(f"serve router reference: {rid}: score {r.rerank_score}")
+    order = best_first(ref)
+    log(f"serve router reference: stats {ref_engine.stats()}; best first {order}, scores "
+        + ", ".join(f"{rid} {ref[rid].rerank_score:.6f}" for rid in order))
+
+    # (b) two replicas, replica 0 killed mid-decode
+    before = counters.snapshot("router.")
+    fleet = Router(model, RouterConfig(n_replicas=2), config, stages=stages, device="cuda",
+                   journal=RequestJournal(str(ROUTER_DIR / "failover.jsonl")))
+    for r in reqs:
+        assert fleet.submit(r) is None
+    fleet_engines = [rep.engine for rep in fleet._replicas]
+    batches = {}
+    record_rerank_batches(fleet_engines, batches)
+
+    def failover():
+        armed = False
+        while fleet.step():
+            rep0 = fleet._replicas[0]
+            if not armed and any(s is not None and len(s.entry.generated) >= 256
+                                 for s in rep0.engine.slots):
+                fleet.faults.arm("replica_crash", 1)
+                armed = True
+        return fleet.results
+
+    got = run_counted("failover", failover, lambda: fleet_engines)
+    fleet.verify_invariants()
+    states = fleet.replica_states()
+    if states[0] != "dead" or fleet.stats()["replicas"][0]["death_reason"] != "crash":
+        raise AssertionError(f"serve router failover: replica 0 not crashed: {fleet.stats()}")
+    same = [rid for rid in ref if batches.get(rid) == ref_batches.get(rid)]
+    worst = check_against_reference("failover", got, ref, same_batch=same)
+    failed_over = sorted(rid for rid, r in got.items() if "failovers=1" in r.detail)
+    lat = histograms.get("router.failover_latency_s")
+    log(f"serve router failover ({card_line()}): states {states}; failed over {failed_over}; "
+        f"failover latency p50 {lat.percentile(50) * 1e3:.1f} ms, max {lat.max * 1e3:.1f} ms "
+        f"over {lat.count}; scores bitwise where the rerank batch held the same rows {same}, "
+        f"largest score difference {worst:.3g}; router counters {router_counts(before)}; "
+        f"stats {fleet.stats()}; "
+        f"replica 1 engine {fleet._replicas[1].engine.stats()}")
+    if not failed_over or lat.count < 1:
+        raise AssertionError("serve router failover: no request failed over")
+
+    # (c) a router crash and its journal's replay
+    jpath = str(ROUTER_DIR / "restart.jsonl")
+    before = counters.snapshot("router.")
+    first = Router(model, RouterConfig(n_replicas=1), config, stages=stages, device="cuda",
+                   journal=RequestJournal(jpath))
+    boundaries = []
+    append_stage = first._journal.append_stage
+    first._journal.append_stage = lambda rid, stage, payload, now: (
+        boundaries.append((rid, stage)), append_stage(rid, stage, payload, now))
+    for r in reqs:
+        assert first.submit(r) is None
+    first_engines = [rep.engine for rep in first._replicas]
+    batches = {}
+    record_rerank_batches(first_engines, batches)
+
+    def until_crash():
+        while first.step():
+            decoding = any(s is not None and s.phase == "decode"
+                           for e in first_engines for s in e.slots)
+            if decoding and any(stage == STAGE_VAE for _, stage in boundaries):
+                break
+        else:
+            raise AssertionError("serve router restart: the fleet finished before the crash")
+        first._journal.close()  # the process dies here
+        return dict(first.results)
+
+    before_crash = run_counted("restart_before", until_crash, lambda: first_engines)
+    second = Router(model, RouterConfig(n_replicas=1), config, stages=stages, device="cuda",
+                    journal=RequestJournal(jpath))
+    second_engines = [rep.engine for rep in second._replicas]
+    record_rerank_batches(second_engines, batches)
+    decoded, resumed = [], []
+    for e in second_engines:
+        submit, submit_staged = e.submit, e.submit_staged
+        e.submit = lambda r, _s=submit: (decoded.append(r.request_id), _s(r))[1]
+        e.submit_staged = lambda r, *a, _s=submit_staged, **kw: (
+            resumed.append(r.request_id), _s(r, *a, **kw))[1]
+    reconciled = {}
+    staged_ids = sorted(rid for rid, st in RequestJournal.stages(jpath).items()
+                        if "tokens" in st and rid not in RequestJournal.outcomes(jpath))
+
+    def replay():
+        replayed = replay_unfinished(jpath, second.submit, reconcile=reconciled.__setitem__,
+                                     submit_staged=second.submit_staged)
+        second.run()
+        return replayed
+
+    replayed = run_counted("restart_replay", replay, lambda: second_engines)
+    second.verify_invariants()
+    combined = {**{rid: before_crash[rid] for rid in reconciled}, **second.results}
+    if sorted(combined) != sorted(ref) or set(reconciled) & set(replayed):
+        raise AssertionError(f"serve router restart: reconciled {reconciled}, "
+                             f"replayed {replayed}")
+    if sorted(resumed) != staged_ids or set(decoded) & set(staged_ids):
+        raise AssertionError(f"serve router restart: staged {staged_ids} resumed {resumed}, "
+                             f"decoded {decoded}")
+    same = [rid for rid in ref if batches.get(rid) == ref_batches.get(rid)]
+    worst = check_against_reference("restart", combined, ref, same_batch=same)
+    if best_first(combined) != order:
+        raise AssertionError(f"serve router restart: order {best_first(combined)} vs {order}")
+    log(f"serve router restart: crash with {sorted(before_crash)} finished, journaled "
+        f"boundaries {boundaries}; replayed {replayed} ({len(resumed)} staged: {resumed}; "
+        f"decoded {decoded}); best first {best_first(combined)} = reference; scores bitwise "
+        f"where the rerank batch held the same rows {same}, largest difference {worst:.3g} "
+        f"(tolerance {ROUTER_SCORE_TOL:.3g} elsewhere); router counters {router_counts(before)}; stats {second.stats()}")
+
+    # (d) the snapshot
+    snap = str(ROUTER_DIR / "snapshot")
+    fleet.shutdown(snapshot_dir=snap)
+    warm_req = Request("warm", reqs[0].prompt, ROUTER_SNAP_NEW, seed=77)
+    cold = Engine(model, dataclasses.replace(config, prefix_cache=False), device="cuda")
+    warm = Engine(model, config, device="cuda", metric_labels={"engine": "router warm"})
+    if not warm.load_prefix_snapshot(snap):
+        raise AssertionError("serve router snapshot: the snapshot did not restore")
+
+    def serve_two():
+        for e in (cold, warm):
+            assert e.submit(warm_req) is None
+            e.run()
+        return cold.results["warm"], warm.results["warm"]
+
+    cold_res, warm_res = run_counted("snapshot", serve_two, lambda: [cold, warm])
+    if not (warm.cached_draws == 1 and warm.prefix.stats.hits == 1
+            and np.array_equal(warm_res.tokens, cold_res.tokens)):
+        raise AssertionError(f"serve router snapshot: full hit {warm.cached_draws}, tokens "
+                             f"{np.array_equal(warm_res.tokens, cold_res.tokens)}")
+    corrupt = Engine(model, config, device="cuda", metric_labels={"engine": "router corrupt"})
+    corrupt.faults.arm("snapshot_corrupt", 1)
+    if (corrupt.load_prefix_snapshot(snap) or len(corrupt.prefix)
+            or corrupt.counters.get("serve.snapshot.rejected") != 1):
+        raise AssertionError("serve router snapshot: snapshot_corrupt did not reject")
+    log(f"serve router snapshot: {len(warm.prefix)} nodes restored; warm TTFT "
+        f"{warm_res.ttft_s * 1e3:.1f} ms (full hit), cold {cold_res.ttft_s * 1e3:.1f} ms; "
+        f"snapshot_corrupt rejected, index cold; journal sealed "
+        f"{RequestJournal.verify(str(ROUTER_DIR / 'failover.jsonl'))}")
+    del fleet, first, second, ref_engine, cold, warm, corrupt
+
+    # (e) vitals and control
+    spec = dataclasses.replace(config, prefix_cache=False, spec_decode=True, spec_k=SPEC_K)
+    control = ControlConfig(interval=8, spec_accept_low=1.01)
+    two = [Request(r.request_id, r.prompt, ROUTER_CONTROL_NEW, seed=r.seed) for r in reqs[:2]]
+    runs, decisions = {}, []
+    event = TELEMETRY.event
+    TELEMETRY.event = lambda name, **kw: (decisions.append(kw) if name ==
+                                          "serve.control.decision" else None, event(name, **kw))
+    try:
+        for name, cfg, arm in (
+                ("plain", dataclasses.replace(spec, spec_decode=False), None),
+                ("control", dataclasses.replace(spec, controller=True, control=control), None),
+                ("control_stall", dataclasses.replace(spec, controller=True, control=control),
+                 "control_stall")):
+            e = Engine(model, cfg, device="cuda", metric_labels={"engine": f"router {name}"})
+            if arm:
+                e.faults.arm(arm, 1)
+            trajectory = []
+            step = e.step
+            e.step = lambda _s=step, _e=e: (trajectory.append(_e._eff_spec_k), _s())[1]
+            for r in two:
+                assert e.submit(r) is None
+            decisions.clear()
+            res = run_counted(name, e.run, lambda: [e])
+            runs[name] = res
+            same = all(np.array_equal(res[r.request_id].tokens, runs["plain"][r.request_id].tokens)
+                       for r in two)
+            if not same or any(r.outcome is not Outcome.COMPLETED for r in res.values()):
+                raise AssertionError(f"serve router {name}: tokens differ from plain")
+            if e.controller is not None:
+                changes = [(i, k) for i, k in enumerate(trajectory)
+                           if i == 0 or k != trajectory[i - 1]]
+                stalls = e.counters.get("serve.control.stalls")
+                log(f"serve router {name}: effective spec_k by step {changes} (ceiling "
+                    f"{SPEC_K}); {len(decisions)} serve.control.decision events, "
+                    f"{len(e.controller.log)} decisions, stalls {stalls}; vitals "
+                    f"{e.vitals.snapshot()}; peaks for {torch.cuda.get_device_name(0)!r}: "
+                    f"{vitals.peaks_for(torch.cuda.get_device_name(0))}; tokens = plain")
+                if len(decisions) != len(e.controller.log) or not decisions:
+                    raise AssertionError(f"serve router {name}: decision events")
+                if arm and stalls != 1:
+                    raise AssertionError(f"serve router {name}: stalls {stalls}")
+                if not arm and min(trajectory) >= SPEC_K:
+                    raise AssertionError(f"serve router {name}: spec_k never stepped down")
+    finally:
+        TELEMETRY.event = event
+    shutil.rmtree(ROUTER_DIR, ignore_errors=True)
+    log(f"serve router ({card_line()}): walls " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; phase 16 at depth {depth} in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def run_cli(main, argv, label: str, cwd) -> tuple:
     """``main(argv, device="cuda")`` in ``cwd``, its output logged:
     (output, launches, wall s, peak GiB)."""
@@ -5019,6 +5420,8 @@ def main() -> int:
     release_memory()
     generate_cli_launches = generate_cli()
     release_memory()
+    router_launches = serve_router()
+    release_memory()
     generate_launches = generate_flagship()
     release_memory()
     trainer, batch, train_launches = train_flagship()
@@ -5077,7 +5480,8 @@ def main() -> int:
              ("serve_learned_pos", learned_serve_launches),
              ("generate_learned_pos", learned_generate_launches), *generate_launches.items(),
              *reversible_launches.items(), *reversible_serve_launches.items(),
-             *prefix_spec_launches.items(), *clip_cli_launches.items())
+             *prefix_spec_launches.items(), *router_launches.items(),
+             *clip_cli_launches.items())
     for k in kernels:
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())
@@ -6041,8 +6445,9 @@ def compare(argv) -> int:
     ``--tiled-source DIR``, ``--sparse-source DIR``, ``--decode-source DIR``,
     ``--generate-pairs N``, ``--serve-pairs N``, ``--ga-step-source DIR``,
     ``--train-cli-ga``, ``--serve-prefix-spec``, ``--generate-cli``,
-    ``--serve-source DIR`` and/or ``--bf16-default-reduction``: only the
-    paired comparisons (and those phases), on one card."""
+    ``--serve-router``, ``--serve-source DIR`` and/or
+    ``--bf16-default-reduction``: only the paired comparisons (and those
+    phases), on one card."""
     import argparse
 
     parser = argparse.ArgumentParser(description=compare.__doc__)
@@ -6072,6 +6477,9 @@ def compare(argv) -> int:
     parser.add_argument("--generate-cli", type=int, default=0, metavar="DEPTH",
                         help="phase 15 alone at DEPTH layers, telemetry off, on, on, off, "
                              "after building the ragged and packed kernels")
+    parser.add_argument("--serve-router", type=int, default=0, metavar="DEPTH",
+                        help="phase 16 alone at DEPTH layers, after building the ragged and "
+                             "packed kernels")
     parser.add_argument("--serve-source",
                         help="root of another checkout (its port package): phase 5's and 5e's "
                              "engines paired with this checkout's (other, this, this, other)")
@@ -6116,10 +6524,12 @@ def compare(argv) -> int:
 
         cuda_build.build(["ragged_attention"])
         log(f"serve prefix and spec alone: launches {serve_prefix_spec()}")
-    if args.generate_cli or args.serve_source:
+    if args.generate_cli or args.serve_source or args.serve_router:
         from dalle_pytorch_tpu_torch.ops import cuda_build
 
         cuda_build.build(["ragged_attention", "fused_qkv_attention"])
+    if args.serve_router:
+        log(f"serve router alone: launches {serve_router(args.serve_router)}")
     if args.generate_cli:
         log(f"generate CLI alone: launches "
             f"{generate_cli(args.generate_cli, ('off', 'on', 'on', 'off'))}")

@@ -144,16 +144,44 @@ JAX: the split path waits for each non-final prefill chunk before its
 span closes, which bounds the work queued behind the next decode
 readback and makes ``serve.prefill_chunk_s`` a chunk's latency.
 
-Not ported yet: prefix-cache snapshots, the journal, vitals and the
-controller (whose effective ``spec_k`` the port does not have: it runs
-``config.spec_k``) and the cost ledger (``EngineConfig`` has no field
-for them, so asking for one is a ``TypeError``).
+Request export and resume (the router's surface): ``stats()``;
+``live_requests()``, every request still owed an outcome (queued, then
+running, then staged); ``submit_staged(request, tokens, image=None)``, a
+request whose token work is done entering the post-decode pipeline (at
+VAE decode, or with its image at the rerank), as a journal replay or a
+failover resumes it; ``fleet_occupancy``, a router's aggregate occupancy,
+which then drives the watermark clamp, the stages' watermark and the
+backoff hint of a ``queue_full`` reject.
+
+Prefix snapshots: ``save_prefix_snapshot(dir)`` writes the index and its
+arena pages (``index.json``, ``arrays.npz``, the committed manifest last,
+built aside and swapped in), ``load_prefix_snapshot(dir)`` restores them
+into an empty index after a layered verification; any failure rejects
+the whole snapshot, counted (``serve.snapshot.rejected``), and the
+engine stays cold.
+
+Vitals and control (``vitals``, ``controller``; ``utils/vitals.py``,
+``serving/control.py``): after each worked iteration the engine pushes
+its numbers into the vitals windows (``serve.vitals.*``) and every
+``control.interval`` iterations the controller moves the effective
+knobs: the speculative verify width (at most ``spec_k``), the token
+budget, the clamp watermark and the prefix arena's share, each logged as
+a ``serve.control.decision`` event. The ``control_stall`` fault resets
+the knobs to the configuration's.
+
+Refused: ``cost_ledger=True`` (``NotImplementedError``). The JAX engine
+charges each dispatch with XLA's ``cost_analysis()``; torch has no such
+report, so the vitals' roofline gauge reads 0.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
+import shutil
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -163,11 +191,14 @@ import torch.nn.functional as F
 from ..models.dalle import DALLE, top_k_filter
 from ..models.sampling import DecodeCache, init_decode_cache, insert_decode_cache, sample
 from ..ops import kv_policy, paged_kv
+from ..utils import vitals as vitals_mod
 from ..utils.faults import FaultRegistry
 from ..utils.metrics import counters, gauges, histograms
+from ..utils.resilience import retry_after_hint, verify_dir_manifest, write_dir_manifest
 from ..utils.telemetry import TELEMETRY
+from .control import ControlConfig, Controller
 from .postdecode import PostDecodePipeline, StageSpec
-from .prefix_cache import PrefixCache, chain_blocks
+from .prefix_cache import PrefixCache, chain_blocks, snapshot_records, verify_snapshot_records
 from .scheduler import Entry, PagePool, Scheduler, TokenBudget, pages_for
 from .types import Clock, Outcome, RejectReason, Request, RequestResult
 
@@ -220,6 +251,16 @@ class EngineConfig:
     # rounded up to whole storage rows (None: four prompts' worth)
     prefix_cache: bool = False
     prefix_cache_pages: Optional[int] = None
+    # sliding-window vitals published as serve.vitals.* (utils/vitals.py),
+    # over vitals_window worked iterations
+    vitals: bool = False
+    vitals_window: int = 32
+    # refused: the JAX engine's per-dispatch XLA cost charge
+    cost_ledger: bool = False
+    # the adaptive controller (serving/control.py; implies vitals) and its
+    # thresholds (None: ControlConfig())
+    controller: bool = False
+    control: Optional[ControlConfig] = None
 
 
 _PREFILL = "prefill"
@@ -258,6 +299,39 @@ class _AdmitHit:
 
 
 _NO_HIT = _AdmitHit(nodes=())
+
+SNAPSHOT_INDEX = "index.json"
+SNAPSHOT_ARRAYS = "arrays.npz"
+
+
+def _snap_pack(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A tensor as host uint8 bytes (its last axis times the item size)
+    and its dtype name: npz has no bfloat16, and bytes round-trip every
+    dtype exactly."""
+    t = t.detach().contiguous().cpu()
+    return t.view(torch.uint8).numpy(), str(t.dtype).replace("torch.", "")
+
+
+def _snap_unpack(packed: np.ndarray, dtype_name: str, device) -> torch.Tensor:
+    raw = torch.from_numpy(np.ascontiguousarray(packed))
+    return raw.view(getattr(torch, dtype_name)).to(device)
+
+
+def _node_content_digest(arrays: Dict[str, np.ndarray], i: int, n_leaves: int,
+                         n_ring: int, rec: dict) -> str:
+    """sha256 over node ``i``'s persisted bytes: its page in every pool
+    leaf (scale pools included), its ring seams, its terminal logits.
+    The chain digest covers the node's tokens; this covers what is
+    stored, so bytes changed behind a rewritten manifest fail on load."""
+    hasher = hashlib.sha256()
+    for j in range(n_leaves):
+        hasher.update(np.ascontiguousarray(arrays[f"pages_l{j}"][i]))
+    if rec.get("has_ring"):
+        for k in range(n_ring):
+            hasher.update(np.ascontiguousarray(arrays[f"ring{i}_{k}"]))
+    if rec.get("has_logits"):
+        hasher.update(np.ascontiguousarray(arrays[f"logits{i}"]))
+    return hasher.hexdigest()
 
 
 def spec_model(dalle: DALLE, spec_k: int) -> DALLE:
@@ -366,13 +440,22 @@ class Engine:
     """See the module docstring. Host-side state machine + one device
     cache. ``faults``: the fault registry whose armed sites the engine
     fires (None: no faults). ``metric_labels``: the labels bound to
-    every series the engine writes (None: the unlabelled series)."""
+    every series the engine writes (None: the unlabelled series).
+    ``fleet_occupancy``: a callable giving the occupancy the watermarks
+    compare (a router's fleet aggregate; None: this engine's pool)."""
 
     def __init__(self, dalle: DALLE, config: EngineConfig = EngineConfig(),
                  clock: Optional[Clock] = None, device="cuda",
                  stages: Optional[StageSpec] = None,
                  faults: Optional[FaultRegistry] = None,
-                 metric_labels: Optional[dict] = None):
+                 metric_labels: Optional[dict] = None,
+                 fleet_occupancy=None):
+        if config.cost_ledger:
+            raise NotImplementedError(
+                "cost_ledger charges each dispatch with XLA's cost_analysis(), which "
+                "torch has no counterpart of; utils/vitals.CostLedger awaits a charge "
+                "from the port's own count"
+            )
         if config.prefill_chunk is not None and config.prefill_chunk < 2:
             raise ValueError(
                 f"prefill_chunk must be >= 2 (a batch-1 width-1 chunk runs its "
@@ -407,6 +490,7 @@ class Engine:
         self.config = config
         self.clock = clock or Clock()
         self.faults = faults if faults is not None else FaultRegistry()
+        self._fleet_occupancy = fleet_occupancy
 
         self.counters = counters.child(metric_labels)
         self.gauges = gauges.child(metric_labels)
@@ -460,6 +544,7 @@ class Engine:
 
         self.slots: List[Optional[_Slot]] = [None] * B
         self.results: Dict[str, RequestResult] = {}
+        self._outcome_counts: Dict[Outcome, int] = {o: 0 for o in Outcome}
         self._live: set = set()
         self._cancel_requested: set = set()
         self._seq = 0
@@ -486,9 +571,28 @@ class Engine:
         self.postdecode: Optional[PostDecodePipeline] = None
         if stages is not None:
             self.postdecode = PostDecodePipeline(
-                stages, self.clock, self._finish,
-                occupancy=lambda: self.pool.occupancy,
-                counters=self.counters, histograms=self.histograms,
+                stages, self.clock, self._finish, occupancy=self._occupancy,
+                counters=self.counters, histograms=self.histograms, faults=self.faults,
+            )
+        # the effective knobs: the configuration's until a controller
+        # moves them (the verify width within spec_k, the ceiling the
+        # block width and the shift rings were sized for)
+        self._eff_spec_k = config.spec_k
+        self._eff_watermark = config.high_watermark
+        self.vitals: Optional[vitals_mod.Vitals] = None
+        self.controller: Optional[Controller] = None
+        self._control_interval = 0
+        if config.vitals or config.controller:
+            self.vitals = vitals_mod.Vitals(window=config.vitals_window)
+        if config.controller:
+            cc = config.control if config.control is not None else ControlConfig()
+            self._control_interval = cc.interval
+            self.controller = Controller(
+                cc, spec_k_ceiling=config.spec_k if self.spec else None,
+                budget_default=self.budget.budget if self.budget is not None else None,
+                chunk=self.budget.chunk if self.budget is not None else 1,
+                watermark_default=config.high_watermark,
+                prefix_enabled=self.prefix is not None, faults=self.faults,
             )
         self._publish_kv_gauges()
 
@@ -519,9 +623,64 @@ class Engine:
         self._live.add(request.request_id)
         return None
 
+    def submit_staged(self, request: Request, tokens, image=None) -> Optional[RequestResult]:
+        """Admit a request whose token work is done straight into the
+        post-decode pipeline: ``tokens`` its image tokens, ``image`` (when
+        its VAE had run) its decoded image, so it resumes at VAE decode or
+        at the rerank. The journal's replay and the router's failover
+        resume through this; the boundaries are not announced again.
+        ``submit``'s contract (None, the result landing in ``results``)."""
+        if self.postdecode is None:
+            raise ValueError("engine built without stages=StageSpec(...)")
+        if request.request_id in self.results or request.request_id in self._live:
+            raise ValueError(f"duplicate request_id {request.request_id!r}")
+        self._submitted += 1
+        self.counters.inc("serve.submitted")
+        entry = Entry(request=request, submit_time=self.clock.now(), seq=self._seq)
+        self._seq += 1
+        entry.generated = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        self._req_spans[request.request_id] = TELEMETRY.begin(
+            "serve.request", request_id=request.request_id,
+            priority=request.priority, max_new_tokens=request.max_new_tokens)
+        self._live.add(request.request_id)
+        self.postdecode.enqueue(entry, np.asarray(tokens, np.int32), image=image,
+                                announce=False)
+        return None
+
+    def can_admit_staged(self, request: Request) -> bool:
+        """Whether a tokens-complete request can be dispatched here (the
+        router's gate for staged work): the engine runs the stages;
+        pipeline pressure degrades typed at entry."""
+        return self.postdecode is not None
+
     def cancel(self, request_id: str) -> None:
         """Request cancellation; takes effect at the next iteration."""
         self._cancel_requested.add(request_id)
+
+    def stats(self) -> dict:
+        return {
+            "submitted": self._submitted,
+            "running": sum(bool(s) and s.phase == _DECODE for s in self.slots),
+            "prefilling": sum(bool(s) and s.phase == _PREFILL for s in self.slots),
+            "queued": len(self.sched),
+            "staged": 0 if self.postdecode is None else len(self.postdecode),
+            "pool_total": self.pool.total,
+            "pool_used": self.pool.used,
+            "pool_occupancy": self.pool.occupancy,
+            "outcomes": {o.value: n for o, n in self._outcome_counts.items()},
+        }
+
+    def live_requests(self) -> List[Request]:
+        """Every request still owed a terminal outcome: queued (in
+        submission order), then running (in admission order), then
+        staged. Replaying them on a fresh engine reproduces their tokens
+        (the sampling contract)."""
+        queued = [e.request for e in self.sched.entries()]
+        running = [s.entry.request
+                   for s in sorted((s for s in self.slots if s), key=lambda s: s.admit_seq)]
+        staged = ([] if self.postdecode is None
+                  else [st.entry.request for st in self.postdecode._staged])
+        return queued + running + staged
 
     def can_admit(self, request: Request) -> bool:
         """Whether ``submit(request)`` now would be admitted at the next
@@ -553,6 +712,10 @@ class Engine:
         if worked:
             self.iterations += 1
         self.clock.tick()
+        if self.vitals is not None and worked:
+            self._observe_vitals()
+            if self.controller is not None and self.iterations % self._control_interval == 0:
+                self._run_controller()
         self._publish_gauges()
         return (worked or bool(self.sched) or any(self.slots)
                 or bool(self.postdecode))
@@ -802,13 +965,20 @@ class Engine:
         self._finish(entry, Outcome.PREFILL_FAILED, tokens=None,
                      detail=f"prefill failed after {entry.prefill_attempts} attempts{where}")
 
+    def _occupancy(self) -> float:
+        """The occupancy the watermarks compare: the fleet's when a router
+        injected it, else this engine's pool."""
+        if self._fleet_occupancy is not None:
+            return self._fleet_occupancy()
+        return self.pool.occupancy
+
     def _clamped_budget(self, want: int) -> Tuple[int, bool]:
         """(effective max_new_tokens, clamped?) under watermark
-        degradation: clamped while the pool's occupancy is above
-        ``high_watermark``."""
+        degradation: clamped while the occupancy is above the effective
+        watermark (``high_watermark`` unless the controller moved it)."""
         cfg = self.config
         if (cfg.degraded_max_new_tokens is not None
-                and self.pool.occupancy > cfg.high_watermark
+                and self._occupancy() > self._eff_watermark
                 and want > cfg.degraded_max_new_tokens):
             return cfg.degraded_max_new_tokens, True
         return want, False
@@ -970,6 +1140,200 @@ class Engine:
     def _publish_skip(self) -> None:
         self.prefix.stats.publish_skips += 1
         self.counters.inc("serve.prefix.publish_skips")
+
+    # ------------------------------------------------ prefix snapshots
+
+    def _pool_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        """(name, flat pool) of every K/V pool leaf of the batched cache:
+        layer l's ``kv.{l}.k_pages`` and ``v_pages`` (the model's dtype, or
+        int8), then with int8 pages its ``k_scale_pages`` and
+        ``v_scale_pages`` (float32, one scale a token and head). A page of
+        global id g is row g of each flat pool. The JAX package's leaves
+        are named by its flax tree paths, so a snapshot it wrote is
+        refused here as a foreign format (cache leaf paths differ)."""
+        out = []
+        for l, kv in enumerate(self.cache.kv):
+            for name in ("k", "v", "k_scale", "v_scale"):
+                pool = getattr(kv, name)
+                if pool is not None:
+                    out.append((f"kv.{l}.{name}_pages", pool))
+        return out
+
+    def _ring_paths(self) -> List[str]:
+        """Names of the ring seam's tensors, in ``_ring_snapshot``'s order."""
+        c = self.cache
+        return ([f"attn_ring.{i}" for i in range(len(c.attn_rings or []))]
+                + [f"ff_ring.{i}" for i in range(len(c.ff_rings or []))])
+
+    def save_prefix_snapshot(self, dirpath: str) -> int:
+        """Persist the prefix index and its arena pages to ``dirpath``:
+        ``index.json`` (``snapshot_records``, each with its content
+        digest, and the format: page size, T, the KV format tag, leaf
+        names, dtypes) and ``arrays.npz`` (each node's page of every pool
+        leaf, ring seams and terminal logits, as bytes), then the
+        committed manifest (``write_dir_manifest``) last. The snapshot is
+        built in ``dirpath + ".tmp"`` and swapped in, so a crash leaves
+        the previous one intact. Returns the nodes written. Off the hot
+        path: one device read per leaf."""
+        assert self.prefix is not None, "save_prefix_snapshot needs prefix_cache"
+        final = Path(dirpath)
+        root = Path(str(final) + ".tmp")
+        if root.exists():
+            shutil.rmtree(root)
+        root.mkdir(parents=True, exist_ok=True)
+        records = snapshot_records(self.prefix)
+        nodes = {n.digest.hex(): n for n in self.prefix.nodes()}
+        leaves = self._pool_leaves()
+        ids = torch.tensor([rec["page_id"] for rec in records], dtype=torch.long)
+        arrays: Dict[str, np.ndarray] = {}
+        dtypes: Dict[str, str] = {}
+        for j, (_, pool) in enumerate(leaves):
+            key = f"pages_l{j}"
+            arrays[key], dtypes[key] = _snap_pack(pool[ids.to(pool.device)])
+        ring_paths = self._ring_paths()
+        for i, rec in enumerate(records):
+            node = nodes[rec["digest"]]
+            if node.ring is not None:
+                assert len(node.ring) == len(ring_paths), "ring seam of another model"
+                for k, hist in enumerate(node.ring):
+                    key = f"ring{i}_{k}"
+                    arrays[key], dtypes[key] = _snap_pack(hist)
+            if node.logits is not None:
+                arrays[f"logits{i}"], dtypes[f"logits{i}"] = _snap_pack(node.logits)
+        for i, rec in enumerate(records):
+            rec["content_sha256"] = _node_content_digest(arrays, i, len(leaves),
+                                                         len(ring_paths), rec)
+        index = {
+            "format": 1,
+            "page_size": self.page,
+            "T": self.T,
+            "n_pages_slot": self.n_pages_slot,
+            "kv_format": self._kv_format_tag().decode(),
+            "leaf_paths": [name for name, _ in leaves],
+            "ring_paths": ring_paths,
+            "dtypes": dtypes,
+            "nodes": records,
+        }
+        np.savez(root / SNAPSHOT_ARRAYS, **arrays)
+        (root / SNAPSHOT_INDEX).write_text(json.dumps(index, sort_keys=True))
+        write_dir_manifest(str(root), extra={"meta": {"kind": "prefix_snapshot",
+                                                      "nodes": len(records)}})
+        old = Path(str(final) + ".old")
+        if old.exists():
+            shutil.rmtree(old)
+        if final.exists():
+            final.rename(old)
+        root.rename(final)
+        if old.exists():
+            shutil.rmtree(old)
+        self.counters.inc("serve.snapshot.saved")
+        return len(records)
+
+    def _reject_snapshot(self, reason: str) -> bool:
+        self.counters.inc("serve.snapshot.rejected")
+        TELEMETRY.event("serve.snapshot_reject", reason=reason[:200])
+        return False
+
+    def load_prefix_snapshot(self, dirpath: str) -> bool:
+        """Restore a snapshot into this engine's empty index (the warm
+        restart). Verification, in order: the committed manifest; the
+        format, page size, T, KV format tag, leaf names and every leaf's
+        dtype against this engine's cache; every record's chain digest
+        recomputed (``verify_snapshot_records``; the ``snapshot_corrupt``
+        fault changes a token of the first block first); every payload
+        present with its length; every node's content digest; room in the
+        arena and the budget. Any failure rejects the whole snapshot
+        (``serve.snapshot.rejected``, a ``serve.snapshot_reject`` event)
+        and leaves the index cold. True when restored."""
+        assert self.prefix is not None, "load_prefix_snapshot needs prefix_cache"
+        assert len(self.prefix) == 0, "a snapshot restores into an empty index"
+        ok, reason = verify_dir_manifest(dirpath)
+        if not ok:
+            return self._reject_snapshot(f"manifest: {reason}")
+        root = Path(dirpath)
+        try:
+            index = json.loads((root / SNAPSHOT_INDEX).read_text())
+            with np.load(root / SNAPSHOT_ARRAYS) as z:
+                arrays = {k: z[k] for k in z.files}
+        except (OSError, ValueError, KeyError) as e:
+            return self._reject_snapshot(f"unreadable: {e}")
+        if index.get("format") != 1:
+            return self._reject_snapshot(f"unknown format {index.get('format')!r}")
+        records = list(index.get("nodes", []))
+        if records and self.faults.take("snapshot_corrupt"):
+            self.counters.inc("serve.fault_snapshot_corrupt")
+            records[0] = dict(records[0], tokens=[int(t) + 1 for t in records[0]["tokens"]])
+        leaves = self._pool_leaves()
+        dtypes = index.get("dtypes", {})
+        ring_paths = index.get("ring_paths", [])
+        if index.get("page_size") != self.page or index.get("T") != self.T:
+            return self._reject_snapshot(
+                f"shape mismatch: snapshot (page={index.get('page_size')}, T={index.get('T')}) "
+                f"vs engine (page={self.page}, T={self.T})")
+        tag = self._kv_format_tag().decode()
+        if index.get("kv_format", "") != tag:
+            return self._reject_snapshot(
+                f"kv format mismatch: snapshot {index.get('kv_format', '')!r} vs engine {tag!r}")
+        if index.get("leaf_paths") != [name for name, _ in leaves]:
+            return self._reject_snapshot("cache leaf paths differ")
+        if ring_paths != self._ring_paths():
+            return self._reject_snapshot("ring seam paths differ")
+        for j, (name, pool) in enumerate(leaves):
+            have = str(pool.dtype).replace("torch.", "")
+            if dtypes.get(f"pages_l{j}") != have:
+                return self._reject_snapshot(
+                    f"cache dtype mismatch at {name}: snapshot {dtypes.get(f'pages_l{j}')} "
+                    f"vs engine {have}")
+        ok, reason = verify_snapshot_records(records, self.page, format_tag=self._kv_format_tag())
+        if not ok:
+            return self._reject_snapshot(reason)
+        for j, (_, pool) in enumerate(leaves):
+            stack = arrays.get(f"pages_l{j}")
+            want = (len(records),) + tuple(pool.shape[1:-1]) + (pool.shape[-1] * pool.element_size(),)
+            if stack is None or stack.shape != want:
+                return self._reject_snapshot(f"page array pages_l{j} missing or wrong length")
+        for i, rec in enumerate(records):
+            if rec["has_ring"] and any(f"ring{i}_{k}" not in arrays or f"ring{i}_{k}" not in dtypes
+                                       for k in range(len(ring_paths))):
+                return self._reject_snapshot(f"record {i}: ring payload missing from arrays")
+            if rec["has_logits"] and (f"logits{i}" not in arrays or f"logits{i}" not in dtypes):
+                return self._reject_snapshot(f"record {i}: logits payload missing from arrays")
+        for i, rec in enumerate(records):
+            if rec.get("content_sha256") != _node_content_digest(arrays, i, len(leaves),
+                                                                 len(ring_paths), rec):
+                return self._reject_snapshot(
+                    f"record {i}: page content digest mismatch (tampered or missing payload bytes)")
+        if len(records) > self.prefix.free_arena_pages:
+            return self._reject_snapshot(
+                f"{len(records)} nodes exceed the {self.prefix.free_arena_pages}-page arena")
+        if not self.pool.alloc(PREFIX_HOLDER, len(records)):
+            return self._reject_snapshot(f"{len(records)} pages exceed the free page budget")
+        now = self.clock.now()
+        by_digest: Dict[str, object] = {}
+        gids: List[int] = []
+        for i, rec in enumerate(records):
+            page_id = self.prefix.alloc_page()
+            assert page_id is not None, "free_arena_pages said it fits"
+            parent = None if rec["parent"] is None else by_digest[rec["parent"]]
+            ring = None
+            if rec["has_ring"]:
+                ring = [_snap_unpack(arrays[f"ring{i}_{k}"], dtypes[f"ring{i}_{k}"], self.device)
+                        for k in range(len(ring_paths))]
+            logits = None
+            if rec["has_logits"]:
+                logits = _snap_unpack(arrays[f"logits{i}"], dtypes[f"logits{i}"], self.device)
+            node = self.prefix.insert(parent, np.asarray(rec["tokens"], np.int64),
+                                      start=int(rec["start"]), page_id=page_id, now=now,
+                                      ring=ring, logits=logits)
+            by_digest[rec["digest"]] = node
+            gids.append(page_id)
+        if gids:
+            ids = torch.tensor(gids, dtype=torch.long, device=self.device)
+            for j, (_, pool) in enumerate(leaves):
+                pool[ids] = _snap_unpack(arrays[f"pages_l{j}"], dtypes[f"pages_l{j}"],
+                                         self.device)
+        self.counters.inc("serve.snapshot.restored")
+        return True
 
     # ------------------------------------------------------- split path
 
@@ -1217,8 +1581,9 @@ class Engine:
     def _spec_iteration(self) -> bool:
         """One speculative iteration: the fused iteration's descriptors,
         with every decoding row a verify row of width
-        1 + min(spec_k, remaining - 1) (capped so the last position
-        written never passes plain decode's), its pages grown to cover the
+        1 + min(k, remaining - 1), k the effective ``spec_k`` (the
+        controller's, at most the configured ceiling; capped so the last
+        position written never passes plain decode's), its pages grown to cover the
         whole row, and the token budget charged the verify widths. The
         ``spec_verify_abort`` fault (consulted only when a row decodes)
         runs the iteration at width 1. Synchronous: the accepted counts
@@ -1237,7 +1602,7 @@ class Engine:
         widths: Dict[int, int] = {}
         for s in dispatchable:
             remaining = s.entry.effective_max_new - len(s.entry.generated)
-            widths[id(s)] = min(self.config.spec_k + 1, remaining) if spec_on else 1
+            widths[id(s)] = min(self._eff_spec_k + 1, remaining) if spec_on else 1
         dispatchable = self._grow_pages(dispatchable, widths)
         chunks = self._plan_fused_prefills(sum(widths[id(s)] for s in dispatchable))
         if not dispatchable and not chunks:
@@ -1547,11 +1912,15 @@ class Engine:
         TELEMETRY.end(self._req_spans.pop(entry.request_id, None),
                       outcome=Outcome.REJECTED.value, reject_reason=reason.value)
         self.histograms.observe("serve.request_latency_s", 0.0)
+        # a load-typed reject carries a backoff hint scaled by the
+        # occupancy; a demand that can never fit gets none
+        hint = retry_after_hint(self._occupancy()) if reason is RejectReason.QUEUE_FULL else None
         result = RequestResult(
             request_id=entry.request_id, outcome=Outcome.REJECTED,
-            reject_reason=reason, total_latency_s=0.0,
+            reject_reason=reason, total_latency_s=0.0, retry_after_s=hint,
         )
         self.results[entry.request_id] = result
+        self._outcome_counts[Outcome.REJECTED] += 1
         return result
 
     def _finish(self, entry: Entry, outcome: Outcome,
@@ -1567,6 +1936,7 @@ class Engine:
         self.histograms.observe("serve.request_latency_s", now - entry.submit_time)
         if outcome is Outcome.COMPLETED:
             self.histograms.observe("serve.completed_latency_s", now - entry.submit_time)
+        self._outcome_counts[outcome] += 1
         self.results[entry.request_id] = RequestResult(
             request_id=entry.request_id,
             outcome=outcome,
@@ -1592,6 +1962,8 @@ class Engine:
     def _publish_gauges(self) -> None:
         """The engine's levels after an iteration."""
         self._publish_kv_gauges()
+        if self.vitals is not None:
+            self.vitals.publish(self.gauges)
         self.gauges.set("serve.pool_occupancy", self.pool.occupancy)
         self.gauges.set("serve.running", sum(bool(s) and s.phase == _DECODE for s in self.slots))
         self.gauges.set("serve.prefilling",
@@ -1608,6 +1980,68 @@ class Engine:
             self.gauges.set("serve.prefix_hit_frac",
                             self.prefix.stats.hits / probes if probes else 0.0)
             self.gauges.set("serve.prefix_pages", float(len(self.prefix)))
+
+    # ------------------------------------------------ vitals and control
+
+    def _observe_vitals(self) -> None:
+        """One worked iteration's numbers into the vitals windows."""
+        prefix = self.prefix.stats if self.prefix is not None else None
+        self.vitals.observe_iteration(
+            now=self.clock.now(),
+            occupancy=self._occupancy(),
+            stage_queued=0.0 if self.postdecode is None else len(self.postdecode),
+            spec_drafted=self._spec_drafted,
+            spec_accepted=self._spec_accepted,
+            prefix_hits=0 if prefix is None else prefix.hits,
+            prefix_misses=0 if prefix is None else prefix.misses,
+            deadline_misses=self._outcome_counts[Outcome.DEADLINE_EXCEEDED],
+            terminations=sum(self._outcome_counts.values()),
+        )
+
+    def _run_controller(self) -> None:
+        """One evaluation between iterations: the vitals window in, the
+        effective knobs out, the decision a ``serve.control.decision``
+        event. A raising controller (the ``control_stall`` fault) resets
+        every knob to its default, typed and counted."""
+        snap = self.vitals.snapshot()
+        self.counters.inc("serve.control.decisions")
+        try:
+            decision = self.controller.evaluate(self.iterations, snap)
+        except Exception:
+            self.counters.inc("serve.fault_control_stall")
+            self.counters.inc("serve.control.stalls")
+            self.controller.reset()
+            decision = self.controller.record_stall(self.iterations, snap)
+        if decision.changed:
+            self.counters.inc("serve.control.adjustments")
+        self._apply_knobs(decision)
+        TELEMETRY.event("serve.control.decision", iteration=decision.iteration,
+                        changed=decision.changed, stalled=decision.stalled,
+                        reasons=list(decision.reasons), vitals=dict(decision.vitals),
+                        knobs=dict(decision.knobs))
+
+    def _apply_knobs(self, decision) -> None:
+        """Apply a decision's knobs (the channels of ``serving/control.py``)
+        and publish the effective levels as ``serve.control.*``."""
+        k = decision.knobs
+        if self.spec and k.get("spec_k") is not None:
+            self._eff_spec_k = min(max(1, int(k["spec_k"])), self.config.spec_k)
+        self._eff_watermark = float(k["watermark"])
+        if self.budget is not None and k.get("budget") is not None:
+            b = max(1, int(k["budget"]))
+            if b != self.budget.budget:
+                self.budget = TokenBudget(budget=b, chunk=self.budget.chunk)
+        tgt = k.get("prefix_pages_target")
+        if tgt is not None and self.prefix is not None:
+            excess = len(self.prefix) - max(0, int(tgt))
+            if excess > 0:
+                self._reclaim_index_pages(min(excess, self.prefix.reclaimable_pages()))
+        self.gauges.set("serve.control.spec_k", float(self._eff_spec_k))
+        self.gauges.set("serve.control.budget",
+                        float(self.budget.budget)
+                        if self.budget is not None and self.budget.budget is not None else -1.0)
+        self.gauges.set("serve.control.watermark", self._eff_watermark)
+        self.gauges.set("serve.control.prefix_pages_target", -1.0 if tgt is None else float(tgt))
 
     def verify_invariants(self, idle: bool = False) -> None:
         """Assert the engine's accounting (``AssertionError`` on a

@@ -30,8 +30,22 @@ latency), and a completion observes ``serve.stage.request_to_image_s``.
 The ``serve.stage.*`` tallies go to the registries ``counters`` and
 ``histograms`` (the engine's views of the process-wide ones);
 ``dispatches`` and ``seconds`` count each stage's batched dispatches and
-sum their time. Fault injection and the journal's stage hooks are not
-ported yet.
+sum their time.
+
+Stage boundaries and resume. ``on_stage(request_id, stage, payload)`` is
+called at each completed boundary: ``STAGE_TOKENS`` with
+``{"tokens": [ids]}`` when a request enters the pipeline, ``STAGE_VAE``
+with ``{"image": ndarray}`` when its image is decoded. A router binds it
+to its journal and to its failover state. ``stream_preview(request_id,
+stage, value)`` receives the image and then the score as they land.
+``enqueue(..., image=, announce=False)`` is the resume path: a request
+journaled past VAE enters at CLIP_RERANK with its image, and its
+boundaries, already durable, are not announced again.
+
+Faults (``utils.faults``, on the registry ``faults``): ``vae_decode_fail``
+and ``rerank_fail`` fail one dispatch of their stage, ``stage_timeout``
+one dispatch of either; the batch then takes the retry and degrade path
+above (a timeout also counts under ``serve.stage.timeouts``).
 """
 
 from __future__ import annotations
@@ -44,11 +58,13 @@ import numpy as np
 import torch
 
 from ..ops.image import resize_bilinear
+from ..utils.faults import FaultRegistry
 from ..utils.metrics import Counters, Histograms
 from ..utils.telemetry import TELEMETRY
 from .scheduler import Entry, TokenBudget
 from .types import Outcome
 
+STAGE_TOKENS = "tokens"
 STAGE_VAE = "vae_decode"
 STAGE_RERANK = "clip_rerank"
 
@@ -119,7 +135,9 @@ class PostDecodePipeline:
     image=, rerank_score=, detail=)`` is the sink every staged request
     ends in; ``occupancy()`` the pressure signal of the watermark;
     ``counters`` and ``histograms`` the registries (or views) the
-    ``serve.stage.*`` series go to (default: registries of its own)."""
+    ``serve.stage.*`` series go to (default: registries of its own);
+    ``faults`` the registry of the stage fault sites; ``on_stage`` and
+    ``stream_preview`` the boundary hooks (the module docstring)."""
 
     spec: StageSpec
     clock: object
@@ -129,6 +147,9 @@ class PostDecodePipeline:
     histograms: Histograms = field(default_factory=Histograms)
     dispatches: Dict[str, int] = field(default_factory=dict)
     seconds: Dict[str, float] = field(default_factory=dict)
+    faults: FaultRegistry = field(default_factory=FaultRegistry)
+    on_stage: Optional[Callable[[str, str, dict], None]] = None
+    stream_preview: Optional[Callable[[str, str, object], None]] = None
 
     def __post_init__(self):
         self.cfg = self.spec.config
@@ -148,17 +169,27 @@ class PostDecodePipeline:
 
     # ------------------------------------------------------------- entry
 
-    def enqueue(self, entry: Entry, tokens: np.ndarray) -> None:
-        """Park a tokens-complete request at VAE_DECODE."""
+    def enqueue(self, entry: Entry, tokens: np.ndarray, image: Optional[np.ndarray] = None,
+                announce: bool = True) -> None:
+        """Park a tokens-complete request at VAE_DECODE, or with ``image``
+        (a resumed request whose VAE had run) at CLIP_RERANK;
+        ``announce=False`` keeps ``on_stage`` quiet (a resumed request's
+        boundaries are already durable)."""
         now = self.clock.now()
+        tokens = np.asarray(tokens, np.int32)
         self.counters.inc("serve.stage.enqueued")
-        st = _Staged(entry=entry, tokens=np.asarray(tokens, np.int32),
-                     stage=STAGE_VAE, ready_at=now)
+        if announce and self.on_stage is not None:
+            self.on_stage(entry.request_id, STAGE_TOKENS, {"tokens": [int(t) for t in tokens]})
+        st = _Staged(entry=entry, tokens=tokens,
+                     stage=STAGE_VAE if image is None else STAGE_RERANK,
+                     image=image, ready_at=now)
         occ = self.occupancy() if self.occupancy is not None else 0.0
         if len(self._staged) >= self.cfg.queue_limit:
             self._degrade(st, "stage_backlog")
         elif occ > self.cfg.high_watermark:
             self._degrade(st, "stage_watermark")
+        elif st.stage == STAGE_RERANK and not self.rerank:
+            self._complete(st, None, now)  # resumed past VAE, nothing left
         else:
             self._staged.append(st)
 
@@ -207,6 +238,16 @@ class PostDecodePipeline:
         return worked
 
     def _dispatch(self, stage: str, batch: List[_Staged], now: float) -> None:
+        site = "vae_decode_fail" if stage == STAGE_VAE else "rerank_fail"
+        if self.faults.take(site):
+            self.counters.inc(f"serve.fault_{site}")
+            self._retry_or_degrade(batch, now, site)
+            return
+        if self.faults.take("stage_timeout"):
+            self.counters.inc("serve.fault_stage_timeout")
+            self.counters.inc("serve.stage.timeouts")
+            self._retry_or_degrade(batch, now, "stage_timeout")
+            return
         t0 = time.monotonic()
         with TELEMETRY.span(f"serve.stage.{stage}", n=len(batch)):
             if stage == STAGE_VAE:
@@ -224,9 +265,14 @@ class PostDecodePipeline:
             return
         for i, st in enumerate(batch):
             st.attempts = 0
+            rid = st.entry.request_id
             if stage == STAGE_VAE:
                 st.image = out[i]
                 self.counters.inc("serve.stage.vae_images")
+                if self.on_stage is not None:
+                    self.on_stage(rid, STAGE_VAE, {"image": st.image})
+                if self.stream_preview is not None:
+                    self.stream_preview(rid, STAGE_VAE, st.image)
                 if self.rerank:
                     st.stage, st.ready_at = STAGE_RERANK, now
                     continue
@@ -234,11 +280,16 @@ class PostDecodePipeline:
             else:
                 self.counters.inc("serve.stage.reranked")
                 score = float(out[i])
+                if self.stream_preview is not None:
+                    self.stream_preview(rid, STAGE_RERANK, score)
             self._staged.remove(st)
-            self.histograms.observe("serve.stage.request_to_image_s",
-                                    max(0.0, now - st.entry.submit_time))
-            self.finish(st.entry, Outcome.COMPLETED, st.tokens, image=st.image,
-                        rerank_score=score)
+            self._complete(st, score, now)
+
+    def _complete(self, st: _Staged, score: Optional[float], now: float) -> None:
+        self.histograms.observe("serve.stage.request_to_image_s",
+                                max(0.0, now - st.entry.submit_time))
+        self.finish(st.entry, Outcome.COMPLETED, st.tokens, image=st.image,
+                    rerank_score=score)
 
     @torch.no_grad()
     def decode_images(self, tokens: np.ndarray) -> np.ndarray:

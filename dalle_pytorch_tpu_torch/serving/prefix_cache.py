@@ -31,15 +31,18 @@ leaf-first (an interior node's would orphan its descendants) and LRU by
 ``last_hit``. The index is its own eviction tier: unreferenced pages are
 dropped to free budget before any running request is preempted.
 
-Not ported yet: the snapshot helpers (``snapshot_records``,
-``verify_snapshot_records``), which the router's recovery path uses.
+Snapshots: ``snapshot_records`` gives the index's structure as JSON
+records (the engine persists page bytes and payloads beside them,
+``Engine.save_prefix_snapshot``), and ``verify_snapshot_records`` is the
+mandatory check on load: every digest recomputed from its parent and its
+stored tokens.
 """
 
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -76,6 +79,67 @@ def chain_digest(parent: Optional[bytes], block: np.ndarray,
     """A node's digest from its parent's (None: the chain root, salted by
     ``format_tag``) and its token block."""
     return _digest(chain_root(format_tag) if parent is None else parent, block)
+
+
+def snapshot_records(cache: "PrefixCache") -> List[dict]:
+    """The index's JSON-able structure, parents before children (a
+    parent's ``start`` is smaller, so a ``start`` sort is topological).
+    The payloads (ring seams, terminal logits) are not here: the engine
+    persists them beside the page bytes."""
+    nodes = sorted(cache.nodes(), key=lambda n: (n.start, n.digest))
+    return [
+        {
+            "digest": n.digest.hex(),
+            "parent": None if n.parent is None else n.parent.hex(),
+            "tokens": [int(t) for t in np.asarray(n.tokens).reshape(-1)],
+            "start": int(n.start),
+            "page_id": int(n.page_id),
+            "has_ring": n.ring is not None,
+            "has_logits": n.logits is not None,
+        }
+        for n in nodes
+    ]
+
+
+def verify_snapshot_records(records: List[dict], page_size: int,
+                            format_tag: bytes = b"") -> Tuple[bool, str]:
+    """Verify-on-load of persisted records: every digest recomputes from
+    its parent's and its stored tokens, parents precede children, blocks
+    fit the page, coverage continues the parent's, no node repeats.
+    (ok, reason); any failure rejects the whole snapshot."""
+    seen: Dict[str, dict] = {}
+    for i, rec in enumerate(records):
+        try:
+            tokens = np.asarray(rec["tokens"], np.int64)
+            start = int(rec["start"])
+            digest = bytes.fromhex(rec["digest"])
+            parent_hex = rec["parent"]
+        except (KeyError, TypeError, ValueError) as e:
+            return False, f"record {i}: malformed ({e})"
+        if rec["digest"] in seen:
+            return False, (f"record {i}: duplicate chain node (dedup-on-insert "
+                           "would be violated at restore)")
+        if not (0 < len(tokens) <= page_size):
+            return False, (f"record {i}: block of {len(tokens)} tokens does not fit "
+                           f"page size {page_size}")
+        if parent_hex is None:
+            parent_bytes = None
+            if start != 0:
+                return False, f"record {i}: root block at start {start}"
+        else:
+            parent = seen.get(parent_hex)
+            if parent is None:
+                return False, f"record {i}: parent {parent_hex[:12]} missing or out of order"
+            parent_bytes = bytes.fromhex(parent_hex)
+            expect = int(parent["start"]) + len(parent["tokens"])
+            if start != expect:
+                return False, (f"record {i}: start {start} not contiguous with parent "
+                               f"coverage {expect}")
+        if chain_digest(parent_bytes, tokens, format_tag) != digest:
+            return False, (f"record {i}: stored digest does not recompute from its tokens "
+                           "(corrupt block or forged address)")
+        seen[rec["digest"]] = rec
+    return True, "ok"
 
 
 @dataclass

@@ -216,6 +216,11 @@ class Scheduler:
         """The queued request ids."""
         return {e.request_id for (_, _, e) in self._heap}
 
+    def entries(self) -> List[Entry]:
+        """The queued entries in submission order (the engine's
+        ``live_requests`` export)."""
+        return sorted((e for (_, _, e) in self._heap), key=lambda e: e.seq)
+
     def peek(self) -> Optional[Entry]:
         return self._heap[0][2] if self._heap else None
 

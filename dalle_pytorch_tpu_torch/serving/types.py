@@ -42,6 +42,9 @@ class Outcome(str, Enum):
 class RejectReason(str, Enum):
     DEMAND_EXCEEDS_POOL = "demand_exceeds_pool"  # can never fit, even idle
     QUEUE_FULL = "queue_full"                    # bounded admission queue
+    # a router's fleet has no live replica: its queue is flushed with this
+    # reason rather than left waiting
+    NO_REPLICA = "no_replica"
 
 
 @dataclass(frozen=True)
@@ -83,6 +86,10 @@ class RequestResult:
     # keeps its first production's (the replay regenerates the token)
     ttft_s: Optional[float] = None
     total_latency_s: Optional[float] = None
+    # backoff hint on a load-typed rejection (QUEUE_FULL, NO_REPLICA): how
+    # long to wait before retrying, from the occupancy or the earliest
+    # pending respawn; None otherwise (DEMAND_EXCEEDS_POOL never fits)
+    retry_after_s: Optional[float] = None
     # post-decode pipeline results: the decoded image (H, W, C float32,
     # the VAE's normalized space; ``models.vae.denormalize`` for display)
     # on COMPLETED and COMPLETED_UNRANKED (and on a mid-stage cancel or

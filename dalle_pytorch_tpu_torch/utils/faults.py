@@ -46,7 +46,38 @@ Sites:
 ``telemetry_sink_fail`` the flight recorder's drain raises ``OSError``
                    (counted under ``telemetry.sink_errors``, never raised
                    into the loop; armed on ``Telemetry.faults``)
+``vae_decode_fail`` one VAE_DECODE stage dispatch fails; the batch is
+                   retried after its backoff, and exhaustion completes the
+                   requests ``COMPLETED_TOKENS_ONLY``
+``rerank_fail``    one CLIP_RERANK stage dispatch fails; exhaustion
+                   completes the requests ``COMPLETED_UNRANKED``
+``stage_timeout``  one stage dispatch overruns its time budget: the same
+                   retry-then-degrade path, counted under
+                   ``serve.stage.timeouts``
+``journal_torn``   the request journal's tail record is read truncated (a
+                   crash tore the last append): the loader drops and counts
+                   it (``serve.journal.torn``); armed on the registry passed
+                   to ``RequestJournal.load``
+``snapshot_corrupt`` a prefix snapshot's first chain block reads with one
+                   token changed: verify-on-load rejects the whole snapshot
+                   and the engine stays cold
+``replica_crash``  the busiest live replica of a ``Router`` dies: its
+                   engine is abandoned and its in-flight requests fail over
+``replica_stall``  the busiest live replica skips one scheduling step per
+                   armed count (a hung dispatch; past ``stall_timeout_s``
+                   the heartbeat declares it dead)
+``health_flap``    the health check spuriously opens the breaker of a
+                   healthy replica
+``replica_respawn_fail`` a scheduled replica respawn fails; the router
+                   backs off and retries, retiring the replica after
+                   ``max_respawns`` failures
+``control_stall``  one controller evaluation raises ``ControlStall``; the
+                   engine resets every effective knob to its default
 ================== ======================================================
+
+A ``Router`` hands its one registry to every replica it builds and
+rebuilds, so a schedule armed on it reaches the router's sites and every
+engine's.
 """
 
 from __future__ import annotations
@@ -57,7 +88,10 @@ from typing import Dict, Optional
 ENV_VAR = "DALLE_TPU_FAULTS"
 SITES = ("prefill_fail", "page_exhaust", "decode_stall", "request_cancel",
          "prefix_hash_collide", "prefix_publish_fail", "spec_verify_abort",
-         "nan_at_step", "ckpt_corrupt", "shard_open", "shard_read", "telemetry_sink_fail")
+         "nan_at_step", "ckpt_corrupt", "shard_open", "shard_read", "telemetry_sink_fail",
+         "vae_decode_fail", "rerank_fail", "stage_timeout", "journal_torn",
+         "snapshot_corrupt", "replica_crash", "replica_stall", "health_flap",
+         "replica_respawn_fail", "control_stall")
 # sites whose armed number is a parameter (a step index), not a count
 VALUE_SITES = frozenset({"nan_at_step"})
 

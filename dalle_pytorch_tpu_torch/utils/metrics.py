@@ -11,7 +11,8 @@ trainer counts ``train.nan_skips`` here and hands ``counters`` to the
 tar-shard loader; ``utils/telemetry.py`` observes every span's duration
 into a ``<span>_s`` histogram and renders all three registries as
 Prometheus text. ``GaugeRing`` and ``HistogramCheckpoint`` are the
-windowed readers (nothing in the port reads them yet).
+windowed readers (``utils/vitals.py`` windows the engine's vitals over
+``GaugeRing``).
 
 The console logger prints JAX's lines (``step N: loss=... epoch=...``);
 one card is one process, the root, and there is no Weights & Biases sink

@@ -46,6 +46,16 @@ class RetryPolicy:
         return d
 
 
+def retry_after_hint(occupancy: float, base_delay: float = 0.5,
+                     max_delay: float = 30.0) -> float:
+    """Backoff hint for a load-typed rejection
+    (``RequestResult.retry_after_s``): ``base_delay * (1 + 4 * occupancy)``,
+    occupancy clamped to [0, 1], at most ``max_delay``; an idle fleet says
+    come right back, a saturated one about one rung of the ladder."""
+    occ = min(1.0, max(0.0, occupancy))
+    return min(max_delay, base_delay * (1.0 + 4.0 * occ))
+
+
 def retry(fn: Callable, policy: RetryPolicy = RetryPolicy(), describe: str = "",
           on_retry: Optional[Callable[[int, BaseException], None]] = None,
           sleep: Callable[[float], None] = time.sleep,

@@ -6,9 +6,10 @@ against them).
 Every counter, gauge, histogram, span and event name is declared here
 under its kind, one dot-separated namespace a subsystem: ``serve.*`` the
 engine and its post-decode stages, ``train.*`` the trainer, ``data.*`` /
-``webdata.*`` the tar loader, ``telemetry.*`` the layer itself (and the
-JAX package's ``router.*``, ``download.*`` and control-loop names, which
-the port does not emit yet). Names built from an enum value
+``webdata.*`` the tar loader, ``telemetry.*`` the layer itself,
+``router.*`` the replicated front door, ``serve.vitals.*`` and
+``serve.control.*`` the vitals and the controller (and the JAX package's
+``download.*`` names, which the port does not emit). Names built from an enum value
 (``f"serve.{outcome.value}"``) are registered by their expansions. A
 span's duration histogram ``<span>_s`` (observed by
 ``utils/telemetry.py``) is derived: ``SPAN_DURATION_HISTOGRAMS``.

@@ -194,5 +194,5 @@ def test_registry_counts_down_and_refuses_unknown_sites():
     assert faults.fired == {"page_exhaust": 2} and faults.value("page_exhaust") == 0
     faults.reset()
     assert faults.fired == {} and faults.value("page_exhaust") is None
-    with pytest.raises(ValueError):
-        faults.arm("replica_crash")
+    with pytest.raises(ValueError):  # JAX's download site: the port fetches nothing
+        faults.arm("download")

@@ -302,3 +302,63 @@ print("ok")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr
+
+
+RECOVERY_MODULES = ("serving/journal.py", "serving/router.py", "serving/control.py",
+                    "utils/vitals.py")
+
+
+@pytest.mark.parametrize("name", RECOVERY_MODULES)
+def test_the_guard_covers_the_router_and_recovery(name):
+    assert REPO / "dalle_pytorch_tpu_torch" / name in SOURCES
+
+
+def test_router_journal_snapshot_and_control_run_with_jax_unimportable(tmp_path):
+    """A two-replica router with a journal loses a replica mid-decode,
+    shuts down into a prefix snapshot, and a fresh engine restores it; a
+    speculative engine runs its controller: all where jax and the JAX
+    package cannot be imported."""
+    code = f"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "dalle_pytorch_tpu"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.serving.control import ControlConfig
+from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+from dalle_pytorch_tpu_torch.serving.journal import RequestJournal
+from dalle_pytorch_tpu_torch.serving.router import Router, RouterConfig
+from dalle_pytorch_tpu_torch.serving.types import FakeClock, Request
+dalle = DALLE(dim=32, depth=2, num_text_tokens=16, text_seq_len=4, num_image_tokens=12,
+              image_fmap_size=2, heads=2, dim_head=8, device="cpu").init_weights(
+                  torch.Generator().manual_seed(0))
+cfg = EngineConfig(max_batch=2, prefill_chunk=2, page_size=2, prefix_cache=True)
+router = Router(dalle, RouterConfig(n_replicas=2), cfg, clock=FakeClock(step_dt=0.1),
+                journal=RequestJournal({str(tmp_path / "j.jsonl")!r}), device="cpu")
+for i in range(3):
+    assert router.submit(Request(f"r{{i}}", np.arange(1, 5, dtype=np.int32), 4, seed=i)) is None
+for _ in range(3):
+    router.step()
+router.faults.arm("replica_crash", 1)
+router.run(max_steps=500)
+router.shutdown(snapshot_dir={str(tmp_path / "snap")!r})
+assert all(r.outcome.value == "completed" for r in router.results.values())
+assert RequestJournal.verify({str(tmp_path / "j.jsonl")!r}) == (True, "ok")
+eng = Engine(dalle, cfg, device="cpu")
+assert eng.load_prefix_snapshot({str(tmp_path / "snap")!r})
+spec = Engine(dalle, EngineConfig(max_batch=2, prefill_chunk=2, page_size=2, fused_iteration=True,
+                                  spec_decode=True, controller=True,
+                                  control=ControlConfig(interval=2)), device="cpu")
+spec.submit(Request("s", np.arange(1, 5, dtype=np.int32), 4))
+spec.run(max_steps=200)
+assert spec.controller.log
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "dalle_pytorch_tpu")
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr
