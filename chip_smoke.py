@@ -79,22 +79,24 @@ line):
 7. profile: torch.profiler over 15 iterations of a fresh mixed batch:
    wall and device-busy time per iteration, launches per iteration, the
    largest device-time kernels (after the counted run).
-5b. serve int8: the flagship of phase 5 with int8 KV pages, 8 of its
-   requests, no stages: every outcome COMPLETED with 1024 tokens in
-   range, the int8 ragged instance launched depth x dispatched iterations
-   times and the unquantized one never, KV bytes per slot exactly 68/128
-   of the bf16 engine's; token agreement with phase 5 printed. Then the
+5b. serve int8: phase 5's width and seed at ``GENERATE_DEPTH`` layers
+   (``shallow_serve_model``: the checks do not depend on depth, the
+   host-bound wall does) with int8 KV pages, 8 of phase 5's requests, no
+   stages: every outcome COMPLETED with 1024 tokens in range, the int8
+   ragged instance launched depth x dispatched iterations times and the
+   unquantized one never, KV bytes per slot exactly 68/128 of a bf16
+   engine's on the same model. Then the
    teacher-forced flagship logits through int8 against bf16 pages within
    ``testing.INT8_LOGITS_REL``, and profiles of 15 iterations as in
    phase 7, int8, int8, then bf16 again (phase 7's came first), each with
    the host's time by operator.
-5e. serve split: the flagship of phase 5 served by the split engine
+5e. serve split: phase 5b's model (depth 1) served by the split engine
    (batch-1 chunks of 16, then the vector decode step of 8 rows), with
    phase 5's VAE and CLIP, its first 8 requests: every outcome COMPLETED
    with 1024 tokens in range, a finite image and a finite score, the
    ragged kernel launched depth x (decode steps + chunks) times, the
-   int8 instance never, the packed-qkv kernel as in phase 5; token
-   agreement with phase 5 printed, wall and tokens/s. Then 2 requests
+   int8 instance never, the packed-qkv kernel as in phase 5; wall and
+   tokens/s. Then 2 requests
    of 64 tokens with monolithic prefill (one 257-column prompt block a
    layer each), counted the same way, and a profile of 15 split
    iterations as in phase 7.
@@ -117,7 +119,8 @@ line):
    cache with the decode kernel, 16 tokens card = CPU, the decode kernel
    depth x 15 times.
 5i. serve prefix and spec (``serve_prefix_spec``): ``SERVE_MODEL``
-   (bf16, phase 5's seed), max_batch 8, chunks of 16, pages of 128 (T =
+   (bf16, phase 5's seed; the prefix rounds at ``GENERATE_DEPTH``
+   layers), max_batch 8, chunks of 16, pages of 128 (T =
    257: a prompt's last page holds one row). The prefix cache on the
    fused path and the split path with chunks, bf16 and int8 pages: a
    publisher, three partial hits on its first page, then the four
@@ -329,6 +332,38 @@ line):
    engine's; the effective spec_k trajectory and the decision events
    printed. Printed: walls, ``stats()``, the ``router.*`` counters and
    the failover latency.
+17. pretrained VAEs (``pretrained_vaes``, after phase 16): (a) the
+   OpenAI dVAE and the f=16 VQGAN at the published sizes with seeded
+   weights, checked key for key and shape for shape against the port's
+   manifests (``models/ckpt_manifests/``), written as the published
+   files' kinds (OpenAI's whole-module pickles whose classes are then
+   gone, taming's ``model.yaml`` and ``last.ckpt``) and read back through
+   ``load_openai_vae`` / ``load_vqgan_vae`` onto the card and the CPU.
+   (b) Each VAE on 4 seeded 256 px images, float32, card against CPU:
+   the code scores within ``PRETRAINED_SCORE_REL`` of their largest
+   magnitude, the ids equal wherever the top-two margin is above that,
+   the decode within ``PRETRAINED_PIXEL_ATOL`` and in [0, 1]; encode and
+   decode timed at batch 4 and 8; run alone, also the decode with cuDNN
+   free of its deterministic algorithms and the 3 kernels that take most
+   of each at batch 4 (torch.profiler). (c) ``SERVE_MODEL``'s width at
+   ``GENERATE_DEPTH`` layers, bf16, with each VAE's geometry and its
+   decode and CLIP as the stages: the VQGAN's 4 x 256 tokens through the
+   split path (``EngineConfig()``) and the fused one, the dVAE's 2 x
+   1,024 through the split path; every outcome COMPLETED with a finite
+   image in [0, 1] and a finite score, the ragged kernel depth x
+   dispatches and the packed-qkv kernel CLIP's text depth x rerank
+   dispatches times. (d) The packed-qkv forward and backward at the
+   VQGAN DALLE's training shape (b 4, 16 x 64, n 512, causal, with and
+   without rotary) in both types against their plain versions at phase
+   3's tolerances, timed beside sdpa with their bounds (the kernel rows'
+   ``n512_*`` fields without rotary, as the trainer runs them,
+   ``n512_rotary_*`` with it). (e) The trainer's command line with ``--taming``
+   and the local files at the flagship's widths and ``PRETRAINED_CLI_DEPTH``,
+   8 PNGs at batch 4: two steps, the packed kernels depth x dispatches
+   times each, a ``.ckpt`` naming ``VQGanVAE`` without its weights; then
+   the generate command line on it with ``--vqgan_*`` and a CLIP: two
+   PNGs best first, the decode's pixels, the ragged and packed-qkv
+   kernels counted as in phase 15.
 
 Phase 3 also holds the packed-qkv backward kernel against its plain
 version (float32 and bfloat16) at the flagship training shape, CLIP's
@@ -397,6 +432,7 @@ Paired comparisons, one card, none of the phases above:
     python3 chip_smoke.py --serve-pairs 2
     python3 chip_smoke.py --generate-cli 4 --serve-source OTHER
     python3 chip_smoke.py --serve-router 4
+    python3 chip_smoke.py --pretrained-vae 1
 
 the first times this checkout's ragged kernel against the same file of
 another commit (or of each of several, the flag repeated), alternating
@@ -436,7 +472,9 @@ decode-only iterations) in alternating pairs, then profiles each; the
 eighth runs phase 15 at depth 4, telemetry off, on, on, off, and phase
 5's and phase 5e's engines of this checkout against another checkout's
 (``OTHER``: its root), each tree's own port package on the same seeded
-weights, alternating; the ninth runs phase 16 alone at depth 4.
+weights, alternating; the ninth runs phase 16 alone at depth 4; the
+tenth runs phase 17 alone (its serve models at depth 1, as in the main
+run) and profiles the VAEs' encode and decode.
 """
 
 from __future__ import annotations
@@ -552,6 +590,19 @@ VAE_CLI_IMAGES, VAE_CLI_EPOCHS = 128, 7
 # phase 14: train_clip.py's defaults, batch 32: 2 steps an epoch
 CLIP_CLI_DIR = ROOT / "build" / "train_clip_cli"
 CLIP_CLI_IMAGES = 64
+# phase 17: the pretrained VAEs at their published sizes, their files
+# under PRETRAINED_DIR (removed at the end); its serve models at the
+# flagship's width and GENERATE_DEPTH layers, its command lines' at
+# PRETRAINED_CLI_DEPTH (``--pretrained-vae DEPTH`` runs it alone, the
+# serve models at DEPTH)
+PRETRAINED_DIR = ROOT / "build" / "pretrained_vae"
+PRETRAINED_CLI_DEPTH = 2
+PRETRAINED_IMAGES, PRETRAINED_CLI_IMAGES = 4, 8
+# the f=16 VQGAN's grid at 256 px: 256 image tokens, the DALLE's n 512
+VQGAN_FMAP = 16
+# the VAEs card against CPU in float32: code scores within this fraction
+# of their largest magnitude, pixels (in [0, 1]) within this
+PRETRAINED_SCORE_REL, PRETRAINED_PIXEL_ATOL = 1e-4, 1e-4
 
 _T0 = time.perf_counter()
 
@@ -764,7 +815,8 @@ def fused_inputs(case: str, dtype, seed: int = 0):
     "dalle_axial_col" the axial-column one (the mask the sparse
     configuration's axial_col layers give this kernel); "train" is "dalle"
     at the training batch of 4, and "train_norot" is "train" without the
-    rotary table (learned positions, train_dalle.py's default)."""
+    rotary table (learned positions, train_dalle.py's default); "vqgan"
+    and "vqgan_norot" are those at the f=16 VQGAN's 16 x 16 grid, n 512."""
     from dalle_pytorch_tpu_torch.ops import masks
     from dalle_pytorch_tpu_torch.ops.rotary import dalle_rotary_table, rot_tables
 
@@ -775,12 +827,14 @@ def fused_inputs(case: str, dtype, seed: int = 0):
         opts = dict(key_mask=torch.arange(n, device="cuda")[None] < lengths[:, None],
                     causal=False)
     else:
-        b = TRAIN_BATCH if case.startswith("train") else 2
-        n, h, d = 1280, FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+        b = TRAIN_BATCH if case.startswith(("train", "vqgan")) else 2
+        h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+        fmap = VQGAN_FMAP if case.startswith("vqgan") else FLAGSHIP["image_fmap_size"]
         text_len = FLAGSHIP["text_seq_len"] + 1
-        table = dalle_rotary_table(d, text_len, FLAGSHIP["image_fmap_size"])
+        n = text_len + fmap**2 - 1
+        table = dalle_rotary_table(d, text_len, fmap)
         opts = dict(causal=True, rot=rot_tables(torch.from_numpy(table).cuda(), n, d, dtype))
-        if case == "train_norot":
+        if case.endswith("_norot"):
             opts["rot"] = None
         if case in ("dalle_pattern", "dalle_axial_col"):
             axis = int(case == "dalle_axial_col")
@@ -858,67 +912,84 @@ def sdpa_args(qkv, h, d, opts):
     return (q, k, v), kw
 
 
-def check_fused_qkv() -> dict:
+def hold_fused_fwd(case: str, dtype) -> tuple:
+    """The packed-qkv forward on ``fused_inputs(case, dtype)`` against its
+    plain version: float32 o and lse within abs ``testing.F32_ATOL``,
+    bf16 each row's o within ``BF16_RTOL`` of the plain row and lse
+    within ``BF16_RTOL``; a fully masked row exactly 0, lse -1e30. Logs
+    and returns (max abs error, max row-relative error); raises on a
+    miss."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.testing import F32_ATOL
 
+    qkv, h, d, opts = fused_inputs(case, dtype)
+    o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
+    plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, d, **opts)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"fused_qkv kernel: non-finite output ({case}, {dtype})")
+    rows = torch.ones(qkv.shape[0], dtype=torch.bool, device="cuda")
+    if case == "clip":
+        empty = CLIP_TEXT_LENGTHS.index(0)
+        if not ((o[empty] == 0).all() and (lse[empty] == fa.NEG_INF).all()):
+            raise AssertionError("fused_qkv kernel: a fully masked row is not 0 / -1e30")
+        rows[empty] = False
+    b, n, _ = qkv.shape
+    diff = (o.float() - plain_o.float())[rows]
+    err = max(diff.abs().max().item(),
+              (lse - plain_lse)[rows].abs().max().item())
+    per_row = diff.reshape(-1, n, h * d).norm(dim=-1)
+    ref_norm = plain_o.float()[rows].reshape(-1, n, h * d).norm(dim=-1)
+    rel = (per_row / ref_norm).max().item()
+    lse_err = (lse - plain_lse)[rows].abs().max().item()
+    ok = (err <= F32_ATOL if dtype == torch.float32
+          else rel <= BF16_RTOL and lse_err <= BF16_RTOL)
+    log(f"fused_qkv {case} {dtype}: max |kernel - plain| over o and lse "
+        f"= {err:.3e}, max row-relative L2 error of o = {rel:.3e}, "
+        f"lse {lse_err:.3e} (tolerance: " + (
+            f"abs {F32_ATOL:.0e})" if dtype == torch.float32 else
+            f"row-relative {BF16_RTOL:.0e} on o, abs {BF16_RTOL:.0e} on lse)"))
+    if not ok:
+        raise AssertionError(f"fused_qkv kernel disagrees with plain: {err}, {rel}")
+    return err, rel
+
+
+def time_fused_fwd(case: str, dtype) -> dict:
+    """The packed-qkv forward on ``fused_inputs(case, dtype)`` timed cold
+    beside its plain version and sdpa, with ``fused_bound``."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    qkv, h, d, opts = fused_inputs(case, dtype)
+    (q, k, v), sdpa_kw = sdpa_args(qkv, h, d, opts)
+    t = dict(
+        ms=cuda_time_ms(lambda: fa.fused_qkv_attention(qkv, h, d, **opts)),
+        plain_ms=cuda_time_ms(lambda: fa.reference_fused_qkv(qkv, h, d, **opts)),
+        library_ms=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, **sdpa_kw)),
+    )
+    t.update(fused_bound(qkv, h, d, opts))
+    log(f"fused_qkv {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, {bound_text(t)}")
+    return t
+
+
+def check_fused_qkv() -> dict:
     errs, rel_errs, train_errs = {}, {}, {}
     for case in ("clip", "dalle", "dalle_pattern", "dalle_axial_col", "train", "train_norot"):
         for dtype in (torch.float32, torch.bfloat16):
-            qkv, h, d, opts = fused_inputs(case, dtype)
-            o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
-            plain_o, plain_lse = fa.reference_fused_qkv(qkv, h, d, **opts)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
-                raise AssertionError(f"fused_qkv kernel: non-finite output ({case}, {dtype})")
-            rows = torch.ones(qkv.shape[0], dtype=torch.bool, device="cuda")
-            if case == "clip":
-                empty = CLIP_TEXT_LENGTHS.index(0)
-                if not ((o[empty] == 0).all() and (lse[empty] == fa.NEG_INF).all()):
-                    raise AssertionError("fused_qkv kernel: a fully masked row is not 0 / -1e30")
-                rows[empty] = False
-            b, n, _ = qkv.shape
-            diff = (o.float() - plain_o.float())[rows]
-            err = max(diff.abs().max().item(),
-                      (lse - plain_lse)[rows].abs().max().item())
-            per_row = diff.reshape(-1, n, h * d).norm(dim=-1)
-            ref_norm = plain_o.float()[rows].reshape(-1, n, h * d).norm(dim=-1)
-            rel = (per_row / ref_norm).max().item()
-            lse_err = (lse - plain_lse)[rows].abs().max().item()
-            ok = (err <= F32_ATOL if dtype == torch.float32
-                  else rel <= BF16_RTOL and lse_err <= BF16_RTOL)
-            log(f"fused_qkv {case} {dtype}: max |kernel - plain| over o and lse "
-                f"= {err:.3e}, max row-relative L2 error of o = {rel:.3e}, "
-                f"lse {lse_err:.3e} (tolerance: " + (
-                    f"abs {F32_ATOL:.0e})" if dtype == torch.float32 else
-                    f"row-relative {BF16_RTOL:.0e} on o, abs {BF16_RTOL:.0e} on lse)"))
-            if not ok:
-                raise AssertionError(f"fused_qkv kernel disagrees with plain: {err}, {rel}")
+            err, rel = hold_fused_fwd(case, dtype)
             errs[dtype] = max(errs.get(dtype, 0.0), err)
             rel_errs[dtype] = max(rel_errs.get(dtype, 0.0), rel)
             if case.startswith("train"):
                 train_errs[case, dtype] = (err, rel)
 
-    timings = {}
     # bf16 at the serving shapes; both types at the training shape, with
     # the rotary table and without it (learned positions)
-    for key, case, dtype in (("clip", "clip", torch.bfloat16), ("dalle", "dalle", torch.bfloat16),
-                             ("train", "train", torch.float32),
-                             ("train_bf16", "train", torch.bfloat16),
-                             ("train_norot", "train_norot", torch.float32),
-                             ("train_norot_bf16", "train_norot", torch.bfloat16)):
-        qkv, h, d, opts = fused_inputs(case, dtype)
-        (q, k, v), sdpa_kw = sdpa_args(qkv, h, d, opts)
-        timings[key] = dict(
-            ms=cuda_time_ms(lambda: fa.fused_qkv_attention(qkv, h, d, **opts)),
-            plain_ms=cuda_time_ms(lambda: fa.reference_fused_qkv(qkv, h, d, **opts)),
-            library_ms=cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, **sdpa_kw)),
-        )
-        timings[key].update(fused_bound(qkv, h, d, opts))
-        t = timings[key]
-        log(f"fused_qkv {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, {bound_text(t)}")
+    timings = {key: time_fused_fwd(case, dtype) for key, case, dtype in (
+        ("clip", "clip", torch.bfloat16), ("dalle", "dalle", torch.bfloat16),
+        ("train", "train", torch.float32), ("train_bf16", "train", torch.bfloat16),
+        ("train_norot", "train_norot", torch.float32),
+        ("train_norot_bf16", "train_norot", torch.bfloat16))}
     return {
         "name": "fused_qkv_attention", "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention.cu",
@@ -971,64 +1042,83 @@ def sdpa_backward(qkv, h, d, opts, do):
     return lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
 
 
-def check_fused_qkv_bwd() -> dict:
+def hold_fused_bwd(case: str, dtype) -> tuple:
+    """The packed-qkv backward on ``fused_inputs(case, dtype, seed=1)``,
+    a seeded do and the plain forward's o and lse, against its plain
+    version: float32 each part of dqkv within ``testing.BWD_F32_REL``,
+    bf16 within ``BWD_BF16_ROW_REL`` (floored row-relative); masked rows
+    exactly 0, two runs bitwise equal. Logs and returns (relative L2,
+    floored row-relative, max abs error); raises on a miss."""
     from dalle_pytorch_tpu_torch.ops import flash_attention as fa
     from dalle_pytorch_tpu_torch.testing import BWD_BF16_ROW_REL, BWD_F32_REL, bwd_errors
 
+    qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, generator=g,
+                     device="cuda").to(dtype)
+    o, lse = fa.reference_fused_qkv(qkv, h, d, **opts)
+    got = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+    again = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
+    plain = fa.reference_fused_qkv_bwd(qkv, o, lse, do, h, d, **opts)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"fused_qkv_bwd kernel: non-finite output ({case}, {dtype})")
+    rel, row_rel, zeros_exact = bwd_errors(got, plain, h, d, opts)
+    abs_err = (got.float() - plain.float()).abs().max().item()
+    differ = int((got != plain).sum())
+    same = torch.equal(got, again)
+    if case == "clip":
+        zeros_exact &= bool((got[CLIP_TEXT_LENGTHS.index(0)] == 0).all())
+    ok = (rel <= BWD_F32_REL if dtype == torch.float32
+          else row_rel <= BWD_BF16_ROW_REL)
+    log(f"fused_qkv_bwd {case} {dtype}: relative L2 error {rel:.3e}, floored "
+        f"row-relative {row_rel:.3e}, max abs {abs_err:.3e}, {differ} of "
+        f"{got.numel()} elements differ, masked rows exactly 0 "
+        f"{zeros_exact}, two runs identical {same} (tolerance: "
+        + (f"relative {BWD_F32_REL:.0e})" if dtype == torch.float32
+           else f"row-relative {BWD_BF16_ROW_REL:.0e})"))
+    if not (ok and zeros_exact and same):
+        raise AssertionError(f"fused_qkv_bwd kernel disagrees with plain: {case} {dtype}")
+    return rel, row_rel, abs_err
+
+
+def time_fused_bwd(case: str, dtype) -> dict:
+    """The packed-qkv backward on ``fused_inputs(case, dtype, seed=1)``
+    timed cold beside its plain version and sdpa's backward, with
+    ``fused_bwd_bound``."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as fa
+
+    qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
+    do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, device="cuda").to(dtype)
+    o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
+    t = dict(
+        ms=cuda_time_ms(lambda: fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts),
+                        iters=20),
+        plain_ms=cuda_time_ms(lambda: fa.reference_fused_qkv_bwd(qkv, o, lse, do, h, d,
+                                                                 **opts), iters=10),
+        library_ms=cuda_time_ms(sdpa_backward(qkv, h, d, opts, do), iters=20),
+    )
+    t.update(fused_bwd_bound(qkv, h, d, opts))
+    log(f"fused_qkv_bwd {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, {bound_text(t)}")
+    return t
+
+
+def check_fused_qkv_bwd() -> dict:
     worst_rel = worst_row = 0.0
     train_abs = {}
     for case in ("train", "train_norot", "clip", "dalle_pattern", "dalle_axial_col"):
         for dtype in (torch.float32, torch.bfloat16):
-            qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
-            g = torch.Generator(device="cuda").manual_seed(2)
-            do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, generator=g,
-                             device="cuda").to(dtype)
-            o, lse = fa.reference_fused_qkv(qkv, h, d, **opts)
-            got = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
-            again = fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts)
-            plain = fa.reference_fused_qkv_bwd(qkv, o, lse, do, h, d, **opts)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"fused_qkv_bwd kernel: non-finite output ({case}, {dtype})")
-            rel, row_rel, zeros_exact = bwd_errors(got, plain, h, d, opts)
-            abs_err = (got.float() - plain.float()).abs().max().item()
-            differ = int((got != plain).sum())
-            same = torch.equal(got, again)
-            if case == "clip":
-                zeros_exact &= bool((got[CLIP_TEXT_LENGTHS.index(0)] == 0).all())
-            ok = (rel <= BWD_F32_REL if dtype == torch.float32
-                  else row_rel <= BWD_BF16_ROW_REL)
-            log(f"fused_qkv_bwd {case} {dtype}: relative L2 error {rel:.3e}, floored "
-                f"row-relative {row_rel:.3e}, max abs {abs_err:.3e}, {differ} of "
-                f"{got.numel()} elements differ, masked rows exactly 0 "
-                f"{zeros_exact}, two runs identical {same} (tolerance: "
-                + (f"relative {BWD_F32_REL:.0e})" if dtype == torch.float32
-                   else f"row-relative {BWD_BF16_ROW_REL:.0e})"))
-            if not (ok and zeros_exact and same):
-                raise AssertionError(f"fused_qkv_bwd kernel disagrees with plain: {case} {dtype}")
+            rel, row_rel, abs_err = hold_fused_bwd(case, dtype)
             if dtype == torch.float32:
                 worst_rel = max(worst_rel, rel)
                 train_abs[case] = abs_err
             else:
                 worst_row = max(worst_row, row_rel)
 
-    timings = {}
-    for case, dtype in (("train", torch.float32), ("train", torch.bfloat16),
-                        ("train_norot", torch.float32), ("train_norot", torch.bfloat16)):
-        qkv, h, d, opts = fused_inputs(case, dtype, seed=1)
-        do = torch.randn(qkv.shape[0], qkv.shape[1], h * d, device="cuda").to(dtype)
-        o, lse = fa.fused_qkv_attention(qkv, h, d, **opts)
-        t = dict(
-            ms=cuda_time_ms(lambda: fa.fused_qkv_attention_bwd(qkv, o, lse, do, h, d, **opts),
-                            iters=20),
-            plain_ms=cuda_time_ms(lambda: fa.reference_fused_qkv_bwd(qkv, o, lse, do, h, d,
-                                                                     **opts), iters=10),
-            library_ms=cuda_time_ms(sdpa_backward(qkv, h, d, opts, do), iters=20),
-        )
-        t.update(fused_bwd_bound(qkv, h, d, opts))
-        timings[case, dtype] = t
-        log(f"fused_qkv_bwd {case} {dtype} timing, cold L2: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa backward {t['library_ms']:.4f} ms, {bound_text(t)}")
+    timings = {(case, dtype): time_fused_bwd(case, dtype) for case, dtype in (
+        ("train", torch.float32), ("train", torch.bfloat16),
+        ("train_norot", torch.float32), ("train_norot", torch.bfloat16))}
     return {
         "name": "fused_qkv_attention_bwd", "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
@@ -2508,23 +2598,33 @@ def serve_counted(model, label: str, n: int, max_new: int, expected_per_dispatch
     return engine, results, launches
 
 
-def serve_int8(model, bf16_results, bf16_engine) -> dict:
-    """Phase 5b: the flagship served with int8 pages, 8 of phase 5's
-    requests without stages; every layer's ragged attention through the
-    int8 instance, the unquantized one never. KV bytes per slot exactly
-    (1024 + 16 x 4) / 2048 = 68/128 of the bf16 engine's; position-wise
-    token agreement with the bf16 engine printed, not asserted (random
-    weights diverge after the first near-tie). Returns the launches."""
-    depth = SERVE_MODEL["depth"]
+def shallow_serve_model():
+    """``SERVE_MODEL``'s width and seed at ``GENERATE_DEPTH`` layers, bf16:
+    the model of the serve phases whose checks do not depend on depth
+    (5b, 5e)."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+
+    return DALLE(**dict(SERVE_MODEL, depth=GENERATE_DEPTH), device="cuda",
+                 dtype=torch.bfloat16).init_weights(torch.Generator(device="cuda").manual_seed(0))
+
+
+def serve_int8(model) -> dict:
+    """Phase 5b: ``model`` (``shallow_serve_model()``) served with int8
+    pages, 8 of phase 5's requests without stages; every layer's ragged
+    attention through the int8 instance, the unquantized one never. KV
+    bytes per slot exactly (1024 + 16 x 4) / 2048 = 68/128 of a bf16
+    engine's on the same model. Returns the launches."""
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+
     engine, results, launches = serve_counted(
-        model, "serve int8", MAX_BATCH, MAX_NEW, {"ragged_attention_int8": depth},
+        model, "serve int8", MAX_BATCH, MAX_NEW, {"ragged_attention_int8": model.depth},
         kv_quant="int8")
+    bf16_engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, fused_iteration=True,
+                                             prefill_chunk=CHUNK), device="cuda")
     int8_b, bf16_b = engine.kv_bytes_per_slot, bf16_engine.kv_bytes_per_slot
-    agree = [float(np.mean(results[r].tokens == bf16_results[r].tokens)) for r in results]
-    log(f"serve int8: KV bytes per slot {int8_b:,} against bf16's {bf16_b:,} (ratio "
-        f"{int8_b / bf16_b:.5f}); KV pools {pool_bytes(engine) / 1e6:.1f} MB against "
-        f"{pool_bytes(bf16_engine) / 1e6:.1f} MB; position-wise token agreement with the "
-        f"bf16 engine per request " + ", ".join(f"{a:.4f}" for a in agree))
+    log(f"serve int8: depth {model.depth}, KV bytes per slot {int8_b:,} against bf16's "
+        f"{bf16_b:,} (ratio {int8_b / bf16_b:.5f}); KV pools {pool_bytes(engine) / 1e6:.1f} MB "
+        f"against {pool_bytes(bf16_engine) / 1e6:.1f} MB")
     if int8_b * 128 != bf16_b * 68:
         raise AssertionError(f"serve int8: KV bytes per slot {int8_b} is not 68/128 of {bf16_b}")
     return launches
@@ -2571,25 +2671,23 @@ def serve_sparse_int8() -> dict:
     return launches
 
 
-def serve_split(model, stages, fused_results) -> tuple:
-    """Phase 5e: the flagship of phase 5 served by the split engine
-    (``fused_iteration=False``, max_batch 8, chunks of 16: batch-1 chunks,
-    then the vector decode step) with phase 5's VAE and CLIP stages, its
-    first ``SPLIT_REQUESTS`` requests: every outcome COMPLETED with 1024
-    tokens in range, a finite image and a finite score; the ragged kernel
-    launched depth x dispatches (decode steps and chunks) times, the int8
-    instance never, the packed-qkv kernel text depth x rerank dispatches
-    times; token agreement with phase 5's fused results printed, not
-    asserted (bf16, products of other shapes). Then 2 requests of 64
-    tokens with monolithic prefill, no stages: 2 prefill dispatches (one
-    prompt block of 257 columns a layer each) and the decode steps, the
-    ragged kernel depth x dispatches times. Returns the two runs'
-    launches."""
+def serve_split(model, stages) -> tuple:
+    """Phase 5e: ``model`` (``shallow_serve_model()``) served by the split
+    engine (``fused_iteration=False``, max_batch 8, chunks of 16: batch-1
+    chunks, then the vector decode step) with phase 5's VAE and CLIP
+    stages, its first ``SPLIT_REQUESTS`` requests: every outcome
+    COMPLETED with 1024 tokens in range, a finite image and a finite
+    score; the ragged kernel launched depth x dispatches (decode steps and
+    chunks) times, the int8 instance never, the packed-qkv kernel text
+    depth x rerank dispatches times. Then 2 requests of 64 tokens with
+    monolithic prefill, no stages: 2 prefill dispatches (one prompt block
+    of 257 columns a layer each) and the decode steps, the ragged kernel
+    depth x dispatches times. Returns the two runs' launches."""
     from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
     from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
     from dalle_pytorch_tpu_torch.serving.types import Outcome
 
-    depth = SERVE_MODEL["depth"]
+    depth = model.depth
     engine = Engine(model, EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK), device="cuda",
                     stages=StageSpec(stages.vae, stages.clip, config=StageConfig(
                         batch=STAGE_BATCH, queue_limit=SPLIT_REQUESTS)))
@@ -2613,14 +2711,12 @@ def serve_split(model, stages, fused_results) -> tuple:
     rerank_dispatches = engine.postdecode.dispatches[STAGE_RERANK]
     expected = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
                 "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"] * rerank_dispatches}
-    agree = [float(np.mean(results[r].tokens == fused_results[r].tokens)) for r in results]
-    log(f"serve split: {SPLIT_REQUESTS} requests of {MAX_NEW} tokens (VAE and CLIP stages), "
-        f"{engine.iterations} iterations, {engine.dispatches} dispatches "
+    log(f"serve split: depth {depth}, {SPLIT_REQUESTS} requests of {MAX_NEW} tokens (VAE and "
+        f"CLIP stages), {engine.iterations} iterations, {engine.dispatches} dispatches "
         f"({engine.dispatches - engine.prefill_dispatches} decode steps, "
         f"{engine.prefill_dispatches} chunks), {wall:.2f} s wall, "
         f"{SPLIT_REQUESTS * MAX_NEW / wall:.1f} generated tokens/s; launches {launches} "
-        f"(expected {expected}); position-wise token agreement with the fused engine per "
-        f"request " + ", ".join(f"{a:.4f}" for a in agree))
+        f"(expected {expected})")
     if launches != expected:
         raise AssertionError(f"serve split: kernel launches {launches}, expected {expected}")
 
@@ -2670,8 +2766,8 @@ def serve_learned_pos(stages) -> tuple:
     from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
     from dalle_pytorch_tpu_torch.serving.types import Outcome
 
-    depth = SERVE_MODEL["depth"]
     model = learned_pos_model()
+    depth = model.depth
     engine = Engine(model, EngineConfig(), device="cuda",
                     stages=StageSpec(stages.vae, stages.clip, config=StageConfig(
                         batch=STAGE_BATCH, queue_limit=LEARNED_POS_REQUESTS)))
@@ -2734,7 +2830,7 @@ def generate_learned_pos(model) -> dict:
         f"{LEARNED_POS_TOKENS} tokens",
         lambda: decode_tokens(model, buf, T, 0, num_steps=T + steps, prefill_len=T,
                               cache_format="4d", fused_decode=True, window_seg=0),
-        {"fused_decode_attention": SERVE_MODEL["depth"] * steps}, LEARNED_POS_TOKENS)
+        {"fused_decode_attention": model.depth * steps}, LEARNED_POS_TOKENS)
     tokens = out[:, T:T + LEARNED_POS_TOKENS]
     if not ((tokens >= 0) & (tokens < FLAGSHIP["num_image_tokens"])).all():
         raise AssertionError("generate learned_pos: a token out of the image vocab")
@@ -4345,7 +4441,7 @@ def engine_launches(engine, names) -> tuple:
     imply: depth x model dispatches (a full hit's draw is a dispatch that
     launches nothing) plus the drafter's depth x its steps, on the
     instance of the engine's pages)."""
-    depth = SERVE_MODEL["depth"]
+    depth = engine.dalle.depth
     draft = engine.config.spec_draft_depth or depth
     name = "ragged_attention_int8" if engine.kv_quant == "int8" else "ragged_attention"
     want = {n: 0 for n in names}
@@ -4404,9 +4500,12 @@ def spy_draft_gaps(engine) -> dict:
 
 def serve_prefix_spec() -> dict:
     """Phase 5i: the prefix cache and speculative decode through the
-    engine at ``SERVE_MODEL`` (bf16, phase 5's seed), max_batch 8, chunks
-    of 16, pages of 128 (T = 257: a prompt fills two pages and one row of
-    a third). Returns the launches by path.
+    engine at ``SERVE_MODEL``'s width (bf16, phase 5's seed; the prefix
+    rounds at ``GENERATE_DEPTH`` layers, ``shallow_serve_model()``, the
+    speculative runs at ``SERVE_MODEL``'s depth, which the drafter of
+    ``SPEC_DRAFT_DEPTH`` layers needs), max_batch 8, chunks of 16, pages
+    of 128 (T = 257: a prompt fills two pages and one row of a third).
+    Returns the launches by path.
 
     Prefix cache, on the fused path and on the split path with chunks,
     with bf16 and with int8 pages (token budget ``PREFIX_BUDGET``): the
@@ -4439,6 +4538,9 @@ def serve_prefix_spec() -> dict:
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = DALLE(**SERVE_MODEL, device="cuda", dtype=torch.bfloat16).init_weights(gen)
+    # the prefix rounds' checks do not depend on depth, their host-bound
+    # wall does: they run the serve model's width and seed at depth 1
+    prefix_model = shallow_serve_model()
     # the CPU engine's model: the serve model's sequence geometry at a
     # small width (the counters are host logic)
     small = DALLE(**dict(SERVE_MODEL, dim=64, depth=1, heads=1), device="cpu").init_weights(
@@ -4460,11 +4562,11 @@ def serve_prefix_spec() -> dict:
             label = f"serve prefix {path} {kv_quant or 'bf16'}"
             config = dict(max_batch=MAX_BATCH, prefill_chunk=CHUNK, token_budget=PREFIX_BUDGET,
                           kv_quant=kv_quant, **cfg)
-            cold = Engine(model, EngineConfig(**config), device="cuda")
+            cold = Engine(prefix_model, EngineConfig(**config), device="cuda")
             cold_results = run_rounds(cold, prompts, [("cold", [(f"r{i}", i) for i in range(4)])],
                                       PREFIX_NEW)
-            engine = Engine(model, EngineConfig(prefix_cache=True, **config), device="cuda",
-                            metric_labels={"engine": label})
+            engine = Engine(prefix_model, EngineConfig(prefix_cache=True, **config),
+                            device="cuda", metric_labels={"engine": label})
             zero_counts()
             t0 = time.perf_counter()
             results = run_rounds(engine, prompts, rounds, PREFIX_NEW)
@@ -5348,6 +5450,384 @@ def profile_train(trainer, batch, steps: int = 3, label: str = "train profile",
                else ""))
 
 
+# ------------------------------------------------- phase 17: pretrained VAEs
+
+
+def pretrained_weights(gen) -> tuple:
+    """Phase 17 (a): the OpenAI dVAE and the f=16 VQGAN at the published
+    sizes with seeded weights, their state dicts checked against the
+    port's manifests (every key, every shape), written as the published
+    files' kinds under ``PRETRAINED_DIR`` (OpenAI's whole-module pickles
+    whose classes are then gone; taming's ``model.yaml`` and a
+    ``{"state_dict": ...}`` ``last.ckpt``) and read back through the
+    port's loaders onto the card and the CPU, the card's bitwise the
+    written weights. Returns ({name: weight paths}, {name: card VAE},
+    {name: CPU VAE})."""
+    from dalle_pytorch_tpu_torch.models.pretrained import OpenAIDiscreteVAE, load_openai_vae
+    from dalle_pytorch_tpu_torch.models.vqgan import VQGanVAE, load_vqgan_vae
+    from dalle_pytorch_tpu_torch.testing import manifest, write_pretrained_files
+
+    t0 = time.perf_counter()
+    made = {"dvae": OpenAIDiscreteVAE(device="cuda").init_weights(gen(40)),
+            "vqgan": VQGanVAE(device="cuda").init_weights(gen(41))}
+    with torch.no_grad():  # pixels spread over [0, 1] rather than at 0.5 or the clamp
+        made["dvae"].dec.blocks.output.conv.w.mul_(50.0)
+        made["vqgan"].decoder.conv_out.weight.mul_(0.2)
+    inventories = {
+        "dvae": {**{f"enc.{k}": v for k, v in manifest("openai_dvae_encoder").items()},
+                 **{f"dec.{k}": v for k, v in manifest("openai_dvae_decoder").items()}},
+        "vqgan": manifest("vqgan_f16_1024")["state_dict"]}
+    loaders = {"dvae": lambda p, dev: load_openai_vae(p["openai_enc_path"], p["openai_dec_path"],
+                                                      device=dev),
+               "vqgan": lambda p, dev: load_vqgan_vae(p["vqgan_config_path"],
+                                                      p["vqgan_model_path"], device=dev)}
+    paths, card, cpu = {}, {}, {}
+    for name, vae in made.items():
+        shapes = {k: list(v.shape) for k, v in vae.state_dict().items()}
+        if shapes != {k: spec["shape"] for k, spec in inventories[name].items()}:
+            raise AssertionError(f"pretrained {name}: its state dict is not the manifest's")
+        paths[name] = write_pretrained_files(PRETRAINED_DIR / name, vae)
+        card[name] = loaders[name](paths[name], "cuda")
+        cpu[name] = loaders[name](paths[name], "cpu")
+        if not all(torch.equal(card[name].state_dict()[k], v)
+                   for k, v in vae.state_dict().items()):
+            raise AssertionError(f"pretrained {name}: the loaded weights are not the written ones")
+    nbytes = sum(Path(p).stat().st_size for ps in paths.values() for p in ps.values())
+    log(f"pretrained VAEs: the dVAE ({sum(p.numel() for p in made['dvae'].parameters()):,} "
+        f"params) and the VQGAN ({sum(p.numel() for p in made['vqgan'].parameters()):,}) in "
+        f"their manifests' shapes, written as the published files ({nbytes / 1e6:.1f} MB) and "
+        f"loaded on the card and the CPU in {time.perf_counter() - t0:.1f} s")
+    return paths, card, cpu
+
+
+def pretrained_card_vs_cpu(card, cpu, profile: bool) -> list:
+    """Phase 17 (b): each full-size VAE on ``PRETRAINED_IMAGES`` seeded
+    256 px images, float32 (TF32 off), card against CPU: the code scores
+    (the dVAE's logits, the VQGAN's negated distances) within
+    ``PRETRAINED_SCORE_REL`` of their largest magnitude; the ids equal
+    wherever the CPU's top-two margin is above that tolerance (how many
+    differ is printed); the card ids' decode within
+    ``PRETRAINED_PIXEL_ATOL``, finite and in [0, 1]. Then
+    ``pretrained_vae_times``. Returns the problems."""
+    rng = np.random.RandomState(42)
+    images = torch.from_numpy(rng.rand(PRETRAINED_IMAGES, 256, 256, 3).astype(np.float32))
+    problems = []
+    for name in ("dvae", "vqgan"):
+        vae, ref = card[name], cpu[name]
+        scores = vae.code_scores(images.cuda()).float().cpu()
+        t_cpu = time.perf_counter()
+        plain = ref.code_scores(images).float()
+        cpu_s = time.perf_counter() - t_cpu
+        tol = PRETRAINED_SCORE_REL * plain.abs().max().item()
+        err = (scores - plain).abs().max().item()
+        ids, plain_ids = scores.argmax(-1), plain.argmax(-1)
+        top2 = plain.topk(2, dim=-1).values
+        differ = ids != plain_ids
+        unexplained = int((differ & (top2[..., 0] - top2[..., 1] > tol)).sum())
+        pixels = vae.decode(ids.cuda()).cpu()
+        t_cpu = time.perf_counter()
+        pix_err = (pixels - ref.decode(ids)).abs().max().item()
+        cpu_s += time.perf_counter() - t_cpu
+        sane = (pixels.shape == (PRETRAINED_IMAGES, 256, 256, 3)
+                and ids.shape == (PRETRAINED_IMAGES, vae.image_seq_len)
+                and bool(torch.isfinite(pixels).all()) and pixels.min() >= 0 and pixels.max() <= 1)
+        line = (f"pretrained {name} card vs CPU, float32, {PRETRAINED_IMAGES} images of 256 px: "
+                f"{vae.image_seq_len} codes an image of {vae.num_tokens}; max |card - CPU| of "
+                f"the code scores {err:.3e} (tolerance {tol:.3e}: {PRETRAINED_SCORE_REL:.0e} of "
+                f"the largest), {int(differ.sum())} ids differ, {unexplained} of them above the "
+                f"tolerance in top-two margin; pixels max |card - CPU| {pix_err:.3e} (tolerance "
+                f"{PRETRAINED_PIXEL_ATOL:.0e}), in [{pixels.min():.4f}, {pixels.max():.4f}]; "
+                f"the CPU's encode and decode {cpu_s:.1f} s")
+        log(line)
+        if err > tol or unexplained or pix_err > PRETRAINED_PIXEL_ATOL or not sane:
+            problems.append(line)
+        pretrained_vae_times(vae, name, rng, profile)
+    return problems
+
+
+def pretrained_vae_times(vae, name: str, rng, profile: bool) -> None:
+    """Phase 17 (b)'s times: ``vae``'s encode and decode at batch 4 and 8
+    on seeded 256 px images, each after 2 warm-up calls. With
+    ``profile``, also the decode with cuDNN free to choose (not under
+    its deterministic algorithms, as served) and torch.profiler over one
+    call of each at batch 4: the 3 kernels that take the most device time
+    (a call of cuDNN's FFT convolutions profiles 33,000 launches, 10-20
+    s)."""
+    from unittest import mock
+
+    from torch import profiler
+
+    from dalle_pytorch_tpu_torch.models import pretrained, vqgan
+
+    def free(fn):  # the decode without its cudnn_deterministic block
+        def call():
+            with mock.patch.object(pretrained, "cudnn_deterministic", contextlib.nullcontext), \
+                    mock.patch.object(vqgan, "cudnn_deterministic", contextlib.nullcontext):
+                return fn()
+        return call
+
+    times = []
+    for b in (4, 8):
+        x = torch.from_numpy(rng.rand(b, 256, 256, 3).astype(np.float32)).cuda()
+        seq = vae.get_codebook_indices(x)
+        calls = {"encode": lambda: vae.get_codebook_indices(x),
+                 "decode": lambda: vae.decode(seq)}
+        if profile:
+            calls["decode, cuDNN free"] = free(calls["decode"])
+        ms = {what: cuda_time_ms(fn, warmup=2, iters=3) for what, fn in calls.items()}
+        times.append(f"batch {b} " + ", ".join(f"{what} {t:.3f} ms" for what, t in ms.items()))
+        for what, fn in calls.items() if profile and b == 4 else ():
+            torch.cuda.synchronize()
+            activities = [profiler.ProfilerActivity.CPU, profiler.ProfilerActivity.CUDA]
+            with profiler.profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            log_device_profile(prof.key_averages(), f"pretrained {name} {what} profile",
+                               "call at batch 4", "call", 1, wall_ms, 3)
+    log(f"pretrained {name} times, float32, cold L2: " + "; ".join(times))
+
+
+def pretrained_serve(card, depth: int, gen) -> tuple:
+    """Phase 17 (c): ``SERVE_MODEL``'s width at ``depth`` layers, bf16,
+    with each VAE's vocabulary and grid, served with the VAE's decode and
+    phase 5's CLIP as the stages: the VQGAN's 256 tokens through
+    ``EngineConfig()``'s split path and the fused iteration (chunks of
+    16), 4 requests each; the dVAE's 1,024 through the split path, 2
+    requests. Every outcome COMPLETED with the VAE's tokens in its
+    vocabulary, a finite (256, 256, 3) image in [0, 1] and a finite score;
+    the ragged kernel launched depth x dispatches times and the packed-qkv
+    kernel CLIP's text depth x rerank dispatches times. Returns
+    ({path: launches}, problems)."""
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.serving.engine import Engine, EngineConfig
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK, StageConfig, StageSpec
+    from dalle_pytorch_tpu_torch.serving.types import Outcome
+
+    clip = CLIP(**FLAGSHIP_CLIP, device="cuda", dtype=torch.bfloat16).init_weights(gen(2))
+    launches, problems = {}, []
+    for name, runs in (("vqgan", (("split", 4), ("fused", 4))), ("dvae", (("split", 2),))):
+        vae = card[name]
+        model = DALLE(**dict(SERVE_MODEL, depth=depth, num_image_tokens=vae.num_tokens,
+                             image_fmap_size=vae.fmap_size),
+                      device="cuda", dtype=torch.bfloat16).init_weights(gen(0))
+        max_new = vae.image_seq_len
+        for path, n in runs:
+            config = (EngineConfig(max_batch=MAX_BATCH) if path == "split" else
+                      EngineConfig(max_batch=MAX_BATCH, fused_iteration=True, prefill_chunk=CHUNK))
+            engine = Engine(model, config, device="cuda", stages=StageSpec(
+                vae, clip, config=StageConfig(batch=STAGE_BATCH, queue_limit=n)))
+            for request in serve_requests(n, max_new):
+                assert engine.submit(request) is None
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            results = engine.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = read_counts((*RAGGED, "fused_qkv_attention"))
+            want = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
+                    "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"]
+                    * engine.postdecode.dispatches[STAGE_RERANK]}
+            bad = [rid for rid, r in results.items() if not (
+                r.outcome is Outcome.COMPLETED and len(r.tokens) == max_new
+                and ((r.tokens >= 0) & (r.tokens < vae.num_tokens)).all()
+                and r.image is not None and r.image.shape == (256, 256, 3)
+                and np.isfinite(r.image).all() and r.image.min() >= 0 and r.image.max() <= 1
+                and r.rerank_score is not None and np.isfinite(r.rerank_score))]
+            line = (f"pretrained serve {name} {path}: depth {depth}, {n} requests of {max_new} "
+                    f"tokens, {engine.dispatches} dispatches, {wall:.2f} s wall (stages "
+                    f"included), {n * max_new / wall:.1f} generated tokens/s; stage seconds "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in sorted(engine.postdecode.seconds.items()))
+                    + f"; scores " + ", ".join(f"{results[r].rerank_score:.4f}" for r in sorted(results))
+                    + f"; launches {launched} (expected {want}); failed {bad}")
+            log(line)
+            if bad or launched != want or len(results) != n:
+                problems.append(line)
+            launches[f"pretrained_serve_{name}_{path}"] = {k: v for k, v in launched.items() if v}
+            del engine, results
+        del model
+        release_memory()
+    return launches, problems
+
+
+def pretrained_kernels_at_n512() -> dict:
+    """Phase 17 (d): the packed-qkv forward and backward at the VQGAN
+    DALLE's training shape (b 4, 16 x 64, n 512 = 257 text + 16 x 16 image
+    tokens less one, causal; with the rotary table and without it) in both
+    types against their plain versions at phase 3's tolerances, then timed
+    beside sdpa with the bounds. Returns the kernel rows' extra fields:
+    ``n512_*`` without the rotary table (the trainer's command line, as in
+    (e)), ``n512_rotary_*`` with it."""
+    cases = {"vqgan_norot": "n512", "vqgan": "n512_rotary"}
+    dtypes = {torch.float32: "", torch.bfloat16: "_bf16"}
+    fwd = {(case, dtype): hold_fused_fwd(case, dtype) for case in cases for dtype in dtypes}
+    bwd = {(case, dtype): hold_fused_bwd(case, dtype) for case in cases for dtype in dtypes}
+    fields = {
+        "fused_qkv_attention": {
+            "n512_max_abs_err_f32": max(fwd[c, torch.float32][0] for c in cases),
+            "n512_max_rel_err_bf16": max(fwd[c, torch.bfloat16][1] for c in cases)},
+        "fused_qkv_attention_bwd": {
+            "n512_max_rel_err_f32": max(bwd[c, torch.float32][0] for c in cases),
+            "n512_max_row_rel_err_bf16": max(bwd[c, torch.bfloat16][1] for c in cases)},
+    }
+    for case, prefix in cases.items():
+        for dtype, suffix in dtypes.items():
+            for kernel, timed in (("fused_qkv_attention", time_fused_fwd),
+                                  ("fused_qkv_attention_bwd", time_fused_bwd)):
+                fields[kernel].update({f"{prefix}{suffix}_{k}": v
+                                       for k, v in timed(case, dtype).items()})
+    return fields
+
+
+def pretrained_clis(paths, depth: int, gen) -> tuple:
+    """Phase 17 (e): the trainer's command line with ``--taming`` and the
+    VQGAN's local files (``train_dalle.main`` in this process) at the
+    flagship's widths, ``depth`` layers, train_dalle.py's other defaults
+    (learned positions, "full", float32), on 8 seeded 256 px PNGs at
+    batch 4: two steps, the packed kernels' no-rotary instances launched
+    depth x dispatches times each (dispatches = verdicts, retries
+    included), every loss finite; its ``.ckpt`` names ``VQGanVAE`` and
+    its config and carries no VAE weights. Then the generate command line
+    on that checkpoint with ``--vqgan_config_path`` /
+    ``--vqgan_model_path`` and a flagship CLIP checkpoint: one prompt, 2
+    images, batch 2; the ragged kernel depth x dispatches times and the
+    packed-qkv kernel CLIP's text depth x rerank dispatches times; two
+    256 x 256 x 3 PNGs, best first by the engine's rerank scores, each
+    the decode's pixels (no DiscreteVAE denormalization). Returns
+    ({path: launches}, problems)."""
+    from dalle_pytorch_tpu_torch import generate, train_dalle
+    from dalle_pytorch_tpu_torch.data.image_io import read_png
+    from dalle_pytorch_tpu_torch.models.clip import CLIP
+    from dalle_pytorch_tpu_torch.models.factory import save_clip_checkpoint
+    from dalle_pytorch_tpu_torch.serving.postdecode import STAGE_RERANK
+    from dalle_pytorch_tpu_torch.testing import reset_registries, write_caption_folder
+    from dalle_pytorch_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cli = PRETRAINED_DIR / "cli"
+    write_caption_folder(cli / "data", PRETRAINED_CLI_IMAGES, 256, seed=43)
+    vq = ["--vqgan_config_path", paths["vqgan_config_path"],
+          "--vqgan_model_path", paths["vqgan_model_path"]]
+    losses, problems = [], []
+    verdict = train_dalle.DalleTrainer.verdict
+
+    def recorded(self, loss):
+        losses.append(verdict(self, loss))
+        return losses[-1]
+
+    reset_registries()
+    train_dalle.DalleTrainer.verdict = recorded
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(Tee("pretrained train CLI")):
+            train_dalle.main(["--image_text_folder", str(cli / "data"), "--taming", *vq,
+                              "--dim", str(FLAGSHIP["dim"]), "--depth", str(depth), "--heads",
+                              str(FLAGSHIP["heads"]), "--dim_head", str(FLAGSHIP["dim_head"]),
+                              "--truncate_captions", "--epochs", "1", "--batch_size", "4",
+                              "--dalle_output_file_name", str(cli / "dalle")])
+        torch.cuda.synchronize()
+    finally:
+        train_dalle.DalleTrainer.verdict = verdict
+    train_wall = time.perf_counter() - t0
+    train_launched = read_counts(PACKED)
+    train_want = {k: depth * len(losses) for k in PACKED}
+    state, meta = load_checkpoint(cli / "dalle.ckpt")
+    line = (f"pretrained train CLI: --taming at the flagship's widths, depth {depth}, "
+            f"{PRETRAINED_CLI_IMAGES} PNGs at batch 4: losses {losses}, {train_wall:.2f} s wall "
+            f"(two saves included); checkpoint vae_class {meta.get('vae_class')}, vae_config "
+            f"{meta.get('vae_config')}, VAE weights stored {'vae_params' in state}; launches "
+            f"{train_launched} (expected {train_want})")
+    log(line)
+    if not (len(losses) == PRETRAINED_CLI_IMAGES // 4 and all(math.isfinite(x) for x in losses)
+            and train_launched == train_want and meta.get("vae_class") == "VQGanVAE"
+            and meta["vae_config"]["ch_mult"] == [1, 1, 2, 2, 4] and "vae_params" not in state):
+        problems.append(line)
+    del state
+
+    save_clip_checkpoint(cli / "clip.ckpt", CLIP(**FLAGSHIP_CLIP, device="cuda").init_weights(gen(44)))
+    served = []
+    engine_images = generate.engine_images
+
+    def spied(engine, *a, **k):
+        out = engine_images(engine, *a, **k)
+        served.append((engine, *out))
+        return out
+
+    reset_registries()
+    generate.engine_images = spied
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(Tee("pretrained generate CLI")):
+            generate.main(["--dalle_path", str(cli / "dalle.ckpt"), "--clip_path",
+                           str(cli / "clip.ckpt"), "--text", GEN_CLI_PROMPTS[0], "--num_images",
+                           "2", "--batch_size", "2", *vq, "--outputs_dir", str(cli / "out")])
+        torch.cuda.synchronize()
+    finally:
+        generate.engine_images = engine_images
+    gen_wall = time.perf_counter() - t0
+    gen_launched = read_counts((*RAGGED, "fused_qkv_attention"))
+    engine, images, scores = served[0]
+    gen_want = {"ragged_attention": depth * engine.dispatches, "ragged_attention_int8": 0,
+                "fused_qkv_attention": FLAGSHIP_CLIP["text_enc_depth"]
+                * engine.postdecode.dispatches[STAGE_RERANK]}
+    pngs = sorted((cli / "out").rglob("*.png"))
+    arrays = [np.asarray(read_png(p.read_bytes())) for p in pngs]
+    best_first = [(np.clip(images[k], 0, 1) * 255).astype(np.uint8) for k in np.argsort(-scores)]
+    ok = (len(arrays) == 2 and all(a.shape == (256, 256, 3) for a in arrays)
+          and all(np.array_equal(a, b) for a, b in zip(arrays, best_first)))
+    line = (f"pretrained generate CLI: --vqgan_* on the trainer's checkpoint, 2 images, "
+            f"{engine.dispatches} dispatches, {gen_wall:.2f} s wall (loads included); scores "
+            + ", ".join(f"{s:.4f}" for s in scores) + f"; PNGs {[p.name for p in pngs]} best "
+            f"first and the decode's pixels {ok}; launches {gen_launched} (expected {gen_want})")
+    log(line)
+    if not ok or gen_launched != gen_want:
+        problems.append(line)
+    reset_registries()
+    return ({"pretrained_train_cli": {k: v for k, v in train_launched.items() if v},
+             "pretrained_generate_cli": {k: v for k, v in gen_launched.items() if v}}, problems)
+
+
+def pretrained_vaes(serve_depth: int = GENERATE_DEPTH, profile: bool = False) -> tuple:
+    """Phase 17: the pretrained VAEs through the port, (a) to (e) above,
+    the serve models at ``serve_depth`` layers and the command lines' at
+    ``PRETRAINED_CLI_DEPTH``, in a directory under ``build/`` removed at
+    the end; ``profile``: (b)'s profiles (the run of phase 17 alone).
+    Returns ({path: launches}, the packed kernels' n 512 fields)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    marks = [("start", time.perf_counter())]
+    paths, card, cpu = pretrained_weights(gen)
+    marks.append(("weights", time.perf_counter()))
+    problems = pretrained_card_vs_cpu(card, cpu, profile)
+    del cpu
+    marks.append(("card vs CPU", time.perf_counter()))
+    launches, serve_problems = pretrained_serve(card, serve_depth, gen)
+    del card
+    release_memory()
+    marks.append(("serve", time.perf_counter()))
+    n512 = pretrained_kernels_at_n512()
+    marks.append(("kernels at n 512", time.perf_counter()))
+    cli_launches, cli_problems = pretrained_clis(paths["vqgan"], PRETRAINED_CLI_DEPTH, gen)
+    marks.append(("CLIs", time.perf_counter()))
+    shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    log(f"pretrained VAEs: phase wall {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{label} {t - marks[i][1]:.1f} s" for i, (label, t) in enumerate(marks[1:]))
+        + ")")
+    problems += serve_problems + cli_problems
+    if problems:
+        raise AssertionError("pretrained VAEs: " + " | ".join(problems))
+    return {**launches, **cli_launches}, n512
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5400,11 +5880,13 @@ def main() -> int:
     results, serve_launches, model, engine = serve_flagship()
     check_pixels(results)
     profile_iterations(model)
-    int8_launches = serve_int8(model, results, engine)
+    shallow = shallow_serve_model()
+    int8_launches = serve_int8(shallow)
     check_int8_logits(model)
     for kv_quant in ("int8", "int8", None):  # phase 7's bf16 profile came first
         profile_iterations(model, kv_quant=kv_quant)
-    split_launches, split_mono_launches = serve_split(model, engine.postdecode.spec, results)
+    split_launches, split_mono_launches = serve_split(shallow, engine.postdecode.spec)
+    del shallow
     profile_iterations(model, split=True)
     learned_model, learned_serve_launches = serve_learned_pos(engine.postdecode.spec)
     learned_generate_launches = generate_learned_pos(learned_model)
@@ -5421,6 +5903,8 @@ def main() -> int:
     generate_cli_launches = generate_cli()
     release_memory()
     router_launches = serve_router()
+    release_memory()
+    pretrained_launches, n512 = pretrained_vaes()
     release_memory()
     generate_launches = generate_flagship()
     release_memory()
@@ -5481,8 +5965,9 @@ def main() -> int:
              ("generate_learned_pos", learned_generate_launches), *generate_launches.items(),
              *reversible_launches.items(), *reversible_serve_launches.items(),
              *prefix_spec_launches.items(), *router_launches.items(),
-             *clip_cli_launches.items())
+             *pretrained_launches.items(), *clip_cli_launches.items())
     for k in kernels:
+        k.update(n512.get(k["name"], {}))
         by_path = {path: counts[k["name"]] for path, counts in paths if k["name"] in counts}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
@@ -6483,6 +6968,9 @@ def compare(argv) -> int:
     parser.add_argument("--serve-source",
                         help="root of another checkout (its port package): phase 5's and 5e's "
                              "engines paired with this checkout's (other, this, this, other)")
+    parser.add_argument("--pretrained-vae", type=int, default=0, metavar="DEPTH",
+                        help="phase 17 (the pretrained VAEs) alone, its serve models at DEPTH "
+                             "layers, with the VAEs' profiles")
     parser.add_argument("--bf16-default-reduction", action="store_true",
                         help="the bf16 path checks with cuBLAS's bf16 reduced-precision "
                              "reduction at PyTorch's default")
@@ -6537,6 +7025,15 @@ def compare(argv) -> int:
         compare_serve_sources(args.serve_source)
     if args.bf16_default_reduction:
         check_bf16_default_reduction()
+    if args.pretrained_vae:
+        from dalle_pytorch_tpu_torch.ops import cuda_build
+
+        torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        cuda_build.build(["ragged_attention", "fused_qkv_attention", "fused_qkv_attention_bwd"])
+        launches, n512 = pretrained_vaes(args.pretrained_vae, profile=True)
+        log(f"pretrained VAEs alone: launches {launches}; the packed kernels at n 512 {n512}")
     return 0
 
 

@@ -3,8 +3,11 @@
 Input is a nested dict of numpy arrays (the JAX package's ``params``
 collection after ``jax.device_get``, or a checkpoint's tree of tensors);
 output is a ``state_dict`` for ``models.dalle.DALLE``,
-``models.vae.DiscreteVAE`` or ``models.clip.CLIP``. ``dalle_params``,
-``vae_params`` and ``clip_params`` go the other way, to the tree the JAX
+``models.vae.DiscreteVAE``, ``models.clip.CLIP``,
+``models.pretrained.OpenAIDiscreteVAE`` (``openai_vae_state_dict``) or
+``models.vqgan.VQGanVAE`` (``vqgan_state_dict``). ``dalle_params``,
+``vae_params``, ``clip_params``, ``openai_vae_params`` and
+``vqgan_params`` go the other way, to the tree the JAX
 module's ``init`` gives (float32 numpy arrays), and ``optax_adam_state`` /
 ``adam_from_optax`` carry the train step's ``AdamState`` to and from
 optax's ``chain(clip_by_global_norm, scale_by_adam)`` state as flax
@@ -30,6 +33,7 @@ round trip is bitwise. Rules:
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -252,6 +256,133 @@ def vae_params(sd: Mapping) -> dict:
             out[f"{kind}_convs_{i}"] = convert(sd, f"{kind}_convs.{i}")
             i += 1
         out[f"{kind}_out"] = _conv_inv(sd, f"{kind}_out")
+    return out
+
+
+# ------------------------------------------------ the pretrained VAEs
+
+
+def _oihw(kernel) -> torch.Tensor:
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _openai_torch_name(name: str) -> str:
+    """A flax child of JAX's ``OpenAIEncoder`` / ``OpenAIDecoder``
+    (``input``, ``output_conv``, ``group_<g>_block_<i>/id_path``,
+    ``group_<g>_block_<i>/res_conv_<k>``) -> its ``dall_e`` module path."""
+    if name == "input":
+        return "blocks.input"
+    if name == "output_conv":
+        return "blocks.output.conv"
+    block, sub = name.split("/")
+    group, index = re.fullmatch(r"(group_\d+)_(block_\d+)", block).groups()
+    path = "id_path" if sub == "id_path" else f"res_path.{sub[len('res_'):]}"
+    return f"blocks.{group}.{index}.{path}"
+
+
+def openai_vae_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``OpenAIDiscreteVAE`` from JAX's params (``enc`` /
+    ``dec``, each an ``OpenAIEncoder`` / ``OpenAIDecoder`` tree whose
+    convs hold ``w`` HWIO and ``b``); a tree with one of the two gives
+    that one's entries."""
+    out: Dict[str, torch.Tensor] = {}
+    for part in ("enc", "dec"):
+        for name, node in params.get(part, {}).items():
+            convs = ({name: node} if "w" in node
+                     else {f"{name}/{sub}": leaf for sub, leaf in node.items()})
+            for flax_name, conv in convs.items():
+                base = f"{part}.{_openai_torch_name(flax_name)}"
+                out[f"{base}.w"] = _oihw(conv["w"])
+                out[f"{base}.b"] = _t(conv["b"])
+    return out
+
+
+def openai_vae_params(sd: Mapping) -> dict:
+    """JAX's ``OpenAIDiscreteVAE`` params from the port's state dict (the
+    inverse of ``openai_vae_state_dict``)."""
+    out: dict = {}
+    for key in sd:
+        part, rest = key.split(".", 1)
+        if not rest.endswith(".w"):
+            continue
+        base = rest[:-2]
+        conv = {"w": _a(sd[key], (2, 3, 1, 0)), "b": _a(sd[f"{part}.{base}.b"])}
+        tree = out.setdefault(part, {})
+        if base == "blocks.input":
+            tree["input"] = conv
+        elif base == "blocks.output.conv":
+            tree["output_conv"] = conv
+        else:
+            _, group, block, *sub = base.split(".")
+            name = "id_path" if sub == ["id_path"] else f"res_{sub[1]}"
+            tree.setdefault(f"{group}_{block}", {})[name] = conv
+    return out
+
+
+def _taming_torch_name(flat: str) -> str:
+    """JAX's flat child name inside the VQGAN's encoder / decoder
+    (taming's dotted path with the dots as underscores) -> the dotted
+    path."""
+    m = re.fullmatch(r"mid_((?:block|attn)_\d+)_(.+)", flat)
+    if m:
+        return f"mid.{m[1]}.{m[2]}"
+    m = re.fullmatch(r"(down|up)_(\d+)_(block|attn)_(\d+)_(.+)", flat)
+    if m:
+        return f"{m[1]}.{m[2]}.{m[3]}.{m[4]}.{m[5]}"
+    m = re.fullmatch(r"(down|up)_(\d+)_(downsample|upsample)_conv", flat)
+    if m:
+        return f"{m[1]}.{m[2]}.{m[3]}.conv"
+    return flat  # conv_in, conv_out, norm_out
+
+
+def _conv_or_norm(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _oihw(p["kernel"]) if "kernel" in p else _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def vqgan_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``VQGanVAE`` (taming's names) from JAX's params:
+    ``encoder`` / ``decoder`` with flat children, ``quant_conv``,
+    ``post_quant_conv`` and ``quantize`` (``embedding``, or ``proj`` and
+    ``embed``, tables kept (n_embed, embed_dim))."""
+    out: Dict[str, torch.Tensor] = {}
+    for top in ("encoder", "decoder"):
+        for flat, p in params.get(top, {}).items():
+            _conv_or_norm(p, f"{top}.{_taming_torch_name(flat)}", out)
+    for top in ("quant_conv", "post_quant_conv"):
+        if top in params:
+            _conv_or_norm(params[top], top, out)
+    quantize = params.get("quantize", {})
+    for table in ("embedding", "embed"):
+        if table in quantize:
+            out[f"quantize.{table}.weight"] = _t(quantize[table])
+    if "proj" in quantize:
+        _conv_or_norm(quantize["proj"], "quantize.proj", out)
+    return out
+
+
+def vqgan_params(sd: Mapping) -> dict:
+    """JAX's ``VQGanVAE`` params from the port's state dict (the inverse
+    of ``vqgan_state_dict``)."""
+    out: dict = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        top, leaf = parts[0], parts[-1]
+        if top == "quantize" and parts[1] in ("embedding", "embed"):
+            out.setdefault("quantize", {})[parts[1]] = _a(value)
+            continue
+        if leaf == "weight":
+            leaf, value = ("kernel", _a(value, (2, 3, 1, 0))) if len(value.shape) == 4 \
+                else ("scale", _a(value))
+        else:
+            value = _a(value)
+        if top in ("encoder", "decoder"):
+            node = out.setdefault(top, {}).setdefault("_".join(parts[1:-1]), {})
+        elif top == "quantize":
+            node = out.setdefault("quantize", {}).setdefault("proj", {})
+        else:
+            node = out.setdefault(top, {})
+        node[leaf] = value
     return out
 
 

@@ -25,11 +25,20 @@ its encoded tokens. JAX splits a threefry key a prompt; the port draws
 with the seed ``text_seed(seed, prompt)`` instead, so only a greedy
 completion (``--top_k 1.0``) equals JAX's.
 
+A checkpoint whose VAE is a frozen pretrained one (the OpenAI dVAE, the
+VQGAN) names it by class and config; its weights come from the local
+files of ``--openai_enc_path`` / ``--openai_dec_path`` or
+``--vqgan_config_path`` / ``--vqgan_model_path``, and a missing one is
+refused with ``models.pretrained.MissingWeights``, never downloaded. The
+decoded images are denormalized with the VAE's own ``normalization``
+(None for the pretrained ones, whose pixels are already in [0, 1]), as
+JAX's command line does.
+
 Refused with ``NotImplementedError`` (naming their ROADMAP.md item)
-before any file is read or any directory made: ``--int8``,
-``--chinese``, and the VQGAN and OpenAI dVAE weight paths. A gMLP
-checkpoint fails with the factory's typed error, so JAX's fused-scan
-fallback for models the engine cannot serve is not needed here.
+before any file is read or any directory made: ``--int8`` and
+``--chinese``. A gMLP checkpoint fails with the factory's typed error, so
+JAX's fused-scan fallback for models the engine cannot serve is not
+needed here.
 """
 
 from __future__ import annotations
@@ -44,10 +53,6 @@ import numpy as np
 NOT_PORTED = {
     "int8": "queue 1 item 6 (int8 serving, utils/quantize.py)",
     "chinese": "not queued: ChineseTokenizer downloads its vocabulary",
-    "vqgan_model_path": "queue 1 item 6 (models/vqgan.py)",
-    "vqgan_config_path": "queue 1 item 6 (models/vqgan.py)",
-    "openai_enc_path": "queue 1 item 6 (models/pretrained.py)",
-    "openai_dec_path": "queue 1 item 6 (models/pretrained.py)",
 }
 
 
@@ -102,7 +107,7 @@ def text_seed(seed: int, prompt: int) -> int:
 def engine_images(engine, prompt_row: np.ndarray, num_images: int, tag: str, seed: int):
     """``num_images`` images of one prompt through ``engine`` (one request
     each, ids ``{tag}-img{i}``, seeds ``seed + i``) -> (images (N, H, W, C)
-    float32 in the VAE's normalized space, rerank scores (N,) or None).
+    float32 as the VAE decodes them, rerank scores (N,) or None).
     Any outcome but COMPLETED raises ``RuntimeError``."""
     from .serving.types import Outcome, Request
 
@@ -134,7 +139,7 @@ def main(argv=None, *, device="cuda") -> None:
 
     from .data.image_io import write_png
     from .data.tokenizers import HugTokenizer, SimpleTokenizer
-    from .models.factory import clip_from_checkpoint, dalle_from_checkpoint
+    from .models.factory import VAE_WEIGHT_KEYS, clip_from_checkpoint, dalle_from_checkpoint
     from .models.sampling import generate_texts
     from .models.vae import denormalize
     from .serving.engine import Engine, EngineConfig
@@ -148,7 +153,9 @@ def main(argv=None, *, device="cuda") -> None:
         print("refusing to load an unverifiable checkpoint; regenerate it or "
               "restore from a verified save", file=sys.stderr)
         sys.exit(2)
-    dalle, vae, _ = dalle_from_checkpoint(args.dalle_path, device)
+    dalle, vae, _ = dalle_from_checkpoint(
+        args.dalle_path, device,
+        vae_weight_paths={k: getattr(args, k) for k in VAE_WEIGHT_KEYS})
     assert vae is not None, "checkpoint carries no VAE — cannot decode images"
     if args.bf16:
         from .utils.quantize import prepare_for_serving
@@ -186,7 +193,7 @@ def main(argv=None, *, device="cuda") -> None:
                                                    truncate_text=True))[0]
         images, scores = engine_images(engine, prompt_row, args.num_images, tag=f"p{pi}",
                                        seed=request_seed(args.seed, pi, 0))
-        images = denormalize(torch.from_numpy(images)).numpy()
+        images = denormalize(torch.from_numpy(images), vae.normalization).numpy()
         if scores is not None:
             # best first; the scores are the engine's rerank stage's
             images = images[np.argsort(-scores)]

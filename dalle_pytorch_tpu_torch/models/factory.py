@@ -14,11 +14,19 @@ model are written at JAX's defaults (``ff_experts: 0``,
 ``dalle_from_checkpoint`` rebuilds the same module, and this one reads
 JAX's files.
 
+The VAE of a checkpoint is one of ``vae_classes()``: the trainable
+``DiscreteVAE``, bundled with its weights, or a frozen pretrained one
+(``OpenAIDiscreteVAE``, ``VQGanVAE``), which a DALLE checkpoint stores by
+class and config only, as JAX does: ``dalle_from_checkpoint`` reads its
+weights from the local files of ``vae_weight_paths`` (JAX's keys
+``openai_enc_path``, ``openai_dec_path``, ``vqgan_config_path``,
+``vqgan_model_path``) and never downloads them
+(``pretrained.MissingWeights``).
+
 On load, a config value the port does not run raises
 ``NotImplementedError``: experts, gMLP ("mlp") layers, ``serve_quant``,
-a float16 model, a VAE
-class other than ``DiscreteVAE`` (the OpenAI dVAE and the VQGAN are
-ROADMAP.md queue 1 item 6) and a VAE normalization other than the
+a float16 model, parameters in another type than float32 for a
+pretrained VAE, and a ``DiscreteVAE`` normalization other than the
 default. ``sp_axis`` / ``pp_axis`` are a run's layout, not the model's:
 the port runs on one card and ignores them, as JAX's command line
 re-clones them per run.
@@ -26,7 +34,8 @@ re-clones them per run.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -36,14 +45,20 @@ from ..convert import (
     clip_state_dict,
     dalle_params,
     dalle_state_dict,
+    openai_vae_params,
+    openai_vae_state_dict,
     optax_adam_state,
     vae_params,
     vae_state_dict,
+    vqgan_params,
+    vqgan_state_dict,
 )
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .clip import CLIP
 from .dalle import DALLE
+from .pretrained import OpenAIDiscreteVAE, load_openai_vae
 from .vae import NORMALIZATION, DiscreteVAE
+from .vqgan import VQGanVAE, load_vqgan_vae
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
@@ -63,6 +78,15 @@ VAE_FIELDS = dict(
     hidden_dim=64, channels=3, smooth_l1_loss=False, temperature=0.9, straight_through=False,
     kl_div_loss_weight=0.0, normalization=[list(t) for t in NORMALIZATION],
     dtype="float32", param_dtype="float32",
+)
+# JAX's OpenAIDiscreteVAE fields in declaration order, at their defaults
+OPENAI_VAE_FIELDS = dict(image_size=256, num_layers=3, num_tokens=8192, n_hid=256,
+                         dtype="float32", param_dtype="float32")
+# JAX's VQGanVAE fields in declaration order, at their defaults
+VQGAN_FIELDS = dict(
+    image_size=256, ch=128, ch_mult=[1, 1, 2, 2, 4], num_res_blocks=2, attn_resolutions=[16],
+    z_channels=256, n_embed=1024, embed_dim=256, gumbel=False, dtype="float32",
+    param_dtype="float32",
 )
 # JAX's CLIP fields in declaration order, at their defaults
 CLIP_FIELDS = dict(
@@ -96,17 +120,27 @@ def dalle_config(dalle: DALLE) -> dict:
     return cfg
 
 
-def vae_config(vae: DiscreteVAE) -> dict:
-    """JAX's constructor fields of the JAX ``DiscreteVAE`` equal to ``vae``."""
-    cfg = dict(VAE_FIELDS)
+def _discrete_config(vae: DiscreteVAE) -> dict:
     dtype = _dtype_name(vae.codebook.weight.dtype)
-    cfg.update(image_size=vae.image_size, num_tokens=vae.num_tokens,
-               codebook_dim=vae.codebook_dim, num_layers=vae.num_layers,
-               num_resnet_blocks=vae.num_resnet_blocks, hidden_dim=vae.hidden_dim,
-               channels=vae.channels, smooth_l1_loss=vae.smooth_l1_loss,
-               temperature=vae.temperature, straight_through=vae.straight_through,
-               kl_div_loss_weight=vae.kl_div_loss_weight, dtype=dtype, param_dtype=dtype)
-    return cfg
+    return dict(VAE_FIELDS, image_size=vae.image_size, num_tokens=vae.num_tokens,
+                codebook_dim=vae.codebook_dim, num_layers=vae.num_layers,
+                num_resnet_blocks=vae.num_resnet_blocks, hidden_dim=vae.hidden_dim,
+                channels=vae.channels, smooth_l1_loss=vae.smooth_l1_loss,
+                temperature=vae.temperature, straight_through=vae.straight_through,
+                kl_div_loss_weight=vae.kl_div_loss_weight, dtype=dtype, param_dtype=dtype)
+
+
+def _openai_config(vae: OpenAIDiscreteVAE) -> dict:
+    return dict(OPENAI_VAE_FIELDS, image_size=vae.image_size, num_layers=vae.num_layers,
+                num_tokens=vae.num_tokens, n_hid=vae.n_hid, dtype=_dtype_name(vae.dtype))
+
+
+def _vqgan_config(vae: VQGanVAE) -> dict:
+    return dict(VQGAN_FIELDS, image_size=vae.image_size, ch=vae.ch,
+                ch_mult=list(vae.ch_mult), num_res_blocks=vae.num_res_blocks,
+                attn_resolutions=list(vae.attn_resolutions), z_channels=vae.z_channels,
+                n_embed=vae.n_embed, embed_dim=vae.embed_dim, gumbel=vae.gumbel,
+                dtype=_dtype_name(vae.dtype))
 
 
 def clip_config(clip: CLIP) -> dict:
@@ -144,12 +178,14 @@ def build_dalle(config: dict, device="cuda") -> DALLE:
         dtype=_DTYPES[cfg["dtype"]], param_dtype=_DTYPES[cfg["param_dtype"]])
 
 
-def build_vae(vae_class: Optional[str], config: dict, device="cuda") -> DiscreteVAE:
-    """The port's DiscreteVAE of JAX's constructor fields ``config``."""
-    if vae_class != "DiscreteVAE":
-        raise NotImplementedError(
-            f"VAE class {vae_class!r} is not ported (only DiscreteVAE; the OpenAI dVAE "
-            "and the VQGAN are ROADMAP.md queue 1 item 6)")
+def _pretrained_config(fields: dict, config: dict, what: str) -> dict:
+    cfg = {**fields, **config}
+    if cfg["dtype"] not in _DTYPES or cfg["param_dtype"] != "float32":
+        _refuse("dtype", (cfg["dtype"], cfg["param_dtype"]), what)
+    return cfg
+
+
+def _build_discrete(config: dict, device) -> DiscreteVAE:
     cfg = {**VAE_FIELDS, **config}
     norm = [list(t) for t in cfg["normalization"]] if cfg["normalization"] else None
     if norm != VAE_FIELDS["normalization"]:
@@ -164,6 +200,78 @@ def build_vae(vae_class: Optional[str], config: dict, device="cuda") -> Discrete
         temperature=cfg["temperature"], straight_through=cfg["straight_through"],
         kl_div_loss_weight=cfg["kl_div_loss_weight"], device=device,
         dtype=_DTYPES[cfg["dtype"]])
+
+
+def _build_openai(config: dict, device) -> OpenAIDiscreteVAE:
+    cfg = _pretrained_config(OPENAI_VAE_FIELDS, config, "OpenAIDiscreteVAE checkpoint")
+    return OpenAIDiscreteVAE(image_size=cfg["image_size"], num_layers=cfg["num_layers"],
+                             num_tokens=cfg["num_tokens"], n_hid=cfg["n_hid"],
+                             device=device, dtype=_DTYPES[cfg["dtype"]])
+
+
+def _build_vqgan(config: dict, device) -> VQGanVAE:
+    cfg = _pretrained_config(VQGAN_FIELDS, config, "VQGanVAE checkpoint")
+    return VQGanVAE(image_size=cfg["image_size"], ch=cfg["ch"], ch_mult=tuple(cfg["ch_mult"]),
+                    num_res_blocks=cfg["num_res_blocks"],
+                    attn_resolutions=tuple(cfg["attn_resolutions"]),
+                    z_channels=cfg["z_channels"], n_embed=cfg["n_embed"],
+                    embed_dim=cfg["embed_dim"], gumbel=cfg["gumbel"], device=device,
+                    dtype=_DTYPES[cfg["dtype"]])
+
+
+def _load_openai(wp: dict, dtype, device) -> OpenAIDiscreteVAE:
+    return load_openai_vae(wp.get("openai_enc_path"), wp.get("openai_dec_path"),
+                           dtype=dtype, device=device)
+
+
+def _load_vqgan(wp: dict, dtype, device) -> VQGanVAE:
+    return load_vqgan_vae(wp.get("vqgan_config_path"), wp.get("vqgan_model_path"),
+                          dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class _VaeKind:
+    """What the factory knows of one VAE class: JAX's fields at their
+    defaults, its config and build, its converters, and for a frozen
+    pretrained VAE the reader of its local files (None: the weights go
+    into the checkpoint)."""
+    cls: type
+    fields: dict
+    config: Callable
+    build: Callable
+    to_torch: Callable
+    to_jax: Callable
+    load_local: Optional[Callable] = None
+
+
+_VAES = {
+    "DiscreteVAE": _VaeKind(DiscreteVAE, VAE_FIELDS, _discrete_config, _build_discrete,
+                            vae_state_dict, vae_params),
+    "OpenAIDiscreteVAE": _VaeKind(OpenAIDiscreteVAE, OPENAI_VAE_FIELDS, _openai_config,
+                                  _build_openai, openai_vae_state_dict, openai_vae_params,
+                                  _load_openai),
+    "VQGanVAE": _VaeKind(VQGanVAE, VQGAN_FIELDS, _vqgan_config, _build_vqgan,
+                         vqgan_state_dict, vqgan_params, _load_vqgan),
+}
+
+
+def vae_classes() -> dict:
+    """Name -> class of every VAE a checkpoint may carry."""
+    return {name: kind.cls for name, kind in _VAES.items()}
+
+
+def vae_config(vae) -> dict:
+    """JAX's constructor fields of the JAX VAE equal to ``vae`` (any of
+    ``vae_classes()``)."""
+    return _VAES[type(vae).__name__].config(vae)
+
+
+def build_vae(vae_class: Optional[str], config: dict, device="cuda"):
+    """The port's VAE of class ``vae_class`` (a name of ``vae_classes()``)
+    and JAX's constructor fields ``config`` (random weights)."""
+    if vae_class not in _VAES:
+        raise ValueError(f"unknown VAE class {vae_class!r}")
+    return _VAES[vae_class].build(config, device)
 
 
 def build_clip(config: dict, device="cuda", dtype=None) -> CLIP:
@@ -186,36 +294,59 @@ def _load_into(module, sd) -> None:
 # ------------------------------------------------------------------- VAE
 
 
-def save_vae_checkpoint(path, vae: DiscreteVAE, extra: Optional[dict] = None) -> None:
-    meta = {"model_class": "DiscreteVAE", "config": vae_config(vae), **(extra or {})}
-    save_checkpoint(path, {"params": vae_params(vae.state_dict())}, meta)
+# the keys of ``vae_weight_paths``: the command lines' flags (dests) that
+# name a pretrained VAE's local files
+VAE_WEIGHT_KEYS = ("openai_enc_path", "openai_dec_path", "vqgan_config_path",
+                   "vqgan_model_path")
 
 
-def vae_from_checkpoint(path, device="cuda") -> Tuple[DiscreteVAE, dict]:
+def save_vae_checkpoint(path, vae, extra: Optional[dict] = None) -> None:
+    """A VAE checkpoint (any of ``vae_classes()``) with its weights, as
+    JAX's ``save_vae_checkpoint`` writes it."""
+    name = type(vae).__name__
+    meta = {"model_class": name, "config": vae_config(vae), **(extra or {})}
+    save_checkpoint(path, {"params": _VAES[name].to_jax(vae.state_dict())}, meta)
+
+
+def vae_from_checkpoint(path, device="cuda"):
     """-> (vae with its weights, meta)."""
     state, meta = load_checkpoint(path)
-    if meta.get("model_class") not in ("DiscreteVAE", "OpenAIDiscreteVAE", "VQGanVAE"):
+    if meta.get("model_class") not in vae_classes():
         raise ValueError(f"not a VAE checkpoint: {meta.get('model_class')}")
     vae = build_vae(meta["model_class"], meta["config"], device)
-    _load_into(vae, vae_state_dict(state["params"]))
+    _load_into(vae, _VAES[meta["model_class"]].to_torch(state["params"]))
     return vae, meta
+
+
+def load_pretrained_vae(vae_class: str, vae_weight_paths: Optional[dict], dtype,
+                        device="cuda"):
+    """The frozen ``vae_class`` (``OpenAIDiscreteVAE`` or ``VQGanVAE``)
+    computing in ``dtype``, from the local files of ``vae_weight_paths``
+    (JAX's keys); ``MissingWeights`` names the flag of a missing one."""
+    kind = _VAES.get(vae_class)
+    if kind is None or kind.load_local is None:
+        raise ValueError(f"{vae_class!r} is not a pretrained VAE")
+    return kind.load_local(vae_weight_paths or {}, dtype, device)
 
 
 # ------------------------------------------------------------------ DALLE
 
 
-def save_dalle_checkpoint(path, dalle: DALLE, vae: Optional[DiscreteVAE] = None,
+def save_dalle_checkpoint(path, dalle: DALLE, vae=None,
                           extra: Optional[dict] = None, opt_state=None,
                           step: Optional[int] = None) -> None:
     """The plain DALLE checkpoint JAX's command line writes: the params,
-    the bundled VAE, the optimizer state (an ``AdamState`` or a
-    ``MultiStepsState``) and the step."""
+    the VAE (a ``DiscreteVAE`` with its weights; a frozen pretrained one
+    by class and config only), the optimizer state (an ``AdamState`` or
+    a ``MultiStepsState``) and the step."""
     meta = {"model_class": "DALLE", "config": dalle_config(dalle), **(extra or {})}
     state = {"params": dalle_params(dalle.state_dict())}
     if vae is not None:
-        meta["vae_class"] = "DiscreteVAE"
-        meta["vae_config"] = vae_config(vae)
-        state["vae_params"] = vae_params(vae.state_dict())
+        kind = _VAES[type(vae).__name__]
+        meta["vae_class"] = type(vae).__name__
+        meta["vae_config"] = kind.config(vae)
+        if kind.load_local is None:
+            state["vae_params"] = kind.to_jax(vae.state_dict())
     if opt_state is not None:
         state["opt_state"] = optax_adam_state(opt_state)
         meta["has_opt_state"] = True
@@ -224,10 +355,13 @@ def save_dalle_checkpoint(path, dalle: DALLE, vae: Optional[DiscreteVAE] = None,
     save_checkpoint(path, state, meta)
 
 
-def dalle_from_checkpoint(path, device="cuda", loaded=None):
+def dalle_from_checkpoint(path, device="cuda", loaded=None,
+                          vae_weight_paths: Optional[dict] = None):
     """-> (dalle, vae, meta) with their weights; vae is None when the
-    checkpoint carries none. ``loaded``: ``load_checkpoint(path)``'s
-    result, when the caller has read the file already."""
+    checkpoint carries none. A frozen pretrained VAE stored by class and
+    config is read from ``vae_weight_paths``' local files, computing in
+    its config's type. ``loaded``: ``load_checkpoint(path)``'s result,
+    when the caller has read the file already."""
     state, meta = loaded if loaded is not None else load_checkpoint(path)
     if meta.get("model_class") != "DALLE":
         raise ValueError(f"not a DALLE checkpoint: {meta.get('model_class')}")
@@ -235,10 +369,17 @@ def dalle_from_checkpoint(path, device="cuda", loaded=None):
     _load_into(dalle, dalle_state_dict(state["params"]))
     vae = None
     if "vae_config" in meta:
-        vae = build_vae(meta.get("vae_class"), meta["vae_config"], device)
-        if "vae_params" not in state:
+        vae_class = meta.get("vae_class")
+        kind = _VAES.get(vae_class)
+        if "vae_params" in state:
+            vae = build_vae(vae_class, meta["vae_config"], device)
+            _load_into(vae, kind.to_torch(state["vae_params"]))
+        elif kind is not None and kind.load_local is not None:
+            cfg = _pretrained_config(kind.fields, meta["vae_config"], f"{vae_class} checkpoint")
+            vae = kind.load_local(vae_weight_paths or {}, _DTYPES[cfg["dtype"]], device)
+        else:
+            build_vae(vae_class, meta["vae_config"], "meta")  # refuses an unknown class
             raise ValueError(f"{path}: the checkpoint names a VAE but carries no weights")
-        _load_into(vae, vae_state_dict(state["vae_params"]))
     return dalle, vae, meta
 
 

@@ -397,8 +397,10 @@ def generate_images(dalle, vae, text: torch.Tensor, seed: int, *, clip=None, mas
     (b, H, W, C) the VAE's first ``int(0.4375 * image_seq_len)`` tokens
     (or ``num_init_img_tokens``) prime the image, then
     ``generate_image_tokens``, then the VAE decode to (b, H, W, C) pixels
-    in the VAE's normalized space; with ``clip`` also the CLIP scores of
-    (text, images), returned as (images, scores)."""
+    as the VAE gives them (a ``DiscreteVAE``'s normalized space, the
+    pretrained VAEs' [0, 1]: ``denormalize(pixels, vae.normalization)``
+    displays either); with ``clip`` also the CLIP scores of (text,
+    images), returned as (images, scores)."""
     text = text[:, :dalle.text_seq_len]
     prime = None
     if img is not None:

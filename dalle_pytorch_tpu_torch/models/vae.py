@@ -84,11 +84,15 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) 
 
 
 def denormalize(images: torch.Tensor, normalization=NORMALIZATION) -> torch.Tensor:
-    """Invert the VAE's channel normalization for display: x * std + mean
-    over NHWC channels, clipped to [0, 1]."""
-    means, stds = (torch.tensor(t, dtype=images.dtype, device=images.device)
-                   for t in normalization)
-    return (images * stds + means).clamp(0.0, 1.0)
+    """Invert a VAE's channel normalization for display: x * std + mean
+    over NHWC channels, clipped to [0, 1]. ``normalization`` is the VAE's
+    (``vae.normalization``): None for the pretrained VAEs, whose decode is
+    already in [0, 1], leaves the pixels and clips them."""
+    if normalization is not None:
+        means, stds = (torch.tensor(t, dtype=images.dtype, device=images.device)
+                       for t in normalization)
+        images = images * stds + means
+    return images.clamp(0.0, 1.0)
 
 
 class ResBlock(nn.Module):
@@ -111,7 +115,10 @@ class DiscreteVAE(nn.Module):
     """The Gumbel-softmax discrete VAE over NHWC images: the hard-argmax
     encoder that DALL-E training feeds on, the decoder, and the training
     forward. ``smooth_l1_loss``, ``temperature`` (the default ``temp``),
-    ``straight_through`` and ``kl_div_loss_weight`` are JAX's fields."""
+    ``straight_through`` and ``kl_div_loss_weight`` are JAX's fields;
+    ``normalization`` is JAX's default (the only one the port runs)."""
+
+    normalization = NORMALIZATION
 
     def __init__(self, *, image_size: int = 256, num_tokens: int = 512,
                  codebook_dim: int = 512, num_layers: int = 3,

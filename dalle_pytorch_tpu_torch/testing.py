@@ -84,6 +84,7 @@ port draws or feeds it given ones (JAX's, in the tests).
 from __future__ import annotations
 
 import contextlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1287,3 +1288,114 @@ def reset_registries() -> None:
     gauges.reset()
     histograms.reset()
     TELEMETRY.reset()
+
+
+# ------------------------------------------------ the pretrained VAEs' files
+
+MANIFESTS = ("openai_dvae_encoder", "openai_dvae_decoder", "vqgan_f16_1024")
+
+
+def manifest(name: str) -> dict:
+    """The port's copy of a published checkpoint's key -> {shape, dtype}
+    inventory (``models/ckpt_manifests/<name>.json``); the VQGAN's also
+    carries its ``config`` (taming's ``model.yaml`` params)."""
+    import importlib.resources
+    import json
+
+    files = importlib.resources.files("dalle_pytorch_tpu_torch.models") / "ckpt_manifests"
+    return json.loads((files / f"{name}.json").read_text())
+
+
+def manifest_state_dict(inventory: dict, seed: int = 0) -> dict:
+    """Seeded float32 tensors 0.02 * N(0, 1) in the shapes of a manifest's
+    state dict (numpy's ``RandomState(seed)``, key order)."""
+    rng = np.random.RandomState(seed)
+    return {k: torch.from_numpy(rng.randn(*spec["shape"]).astype(spec["dtype"]) * 0.02)
+            for k, spec in inventory.items()}
+
+
+def write_module_pickle(module: torch.nn.Module, path) -> None:
+    """``torch.save`` of the whole ``module``, as OpenAI published the
+    dVAE: every class outside torch is pickled as ``dall_e.<name>``, a
+    package that exists only while the file is written, so a reader has
+    no class to import (``pretrained.load_torch_checkpoint`` reads it
+    through stand-ins)."""
+    import sys
+    import types
+
+    package = "dall_e"
+    fake = types.ModuleType(package)
+    swapped = []
+    sys.modules[package] = fake
+    try:
+        for m in module.modules():
+            cls = type(m)
+            if cls.__module__.split(".")[0] == "torch":
+                continue
+            stand = getattr(fake, cls.__name__, None)
+            if stand is None:
+                stand = type(cls.__name__, (cls,), {"__module__": package})
+                setattr(fake, cls.__name__, stand)
+            swapped.append((m, cls))
+            m.__class__ = stand
+        torch.save(module, str(path))
+    finally:
+        for m, cls in swapped:
+            m.__class__ = cls
+        del sys.modules[package]
+
+
+def write_model_yaml(path, vae) -> None:
+    """taming's ``model.yaml`` of a port ``VQGanVAE``'s configuration."""
+    target = ("taming.models.vqgan.GumbelVQ" if vae.gumbel
+              else "taming.models.vqgan.VQModel")
+    text = f"""model:
+  base_learning_rate: 4.5e-06
+  target: {target}
+  params:
+    embed_dim: {vae.embed_dim}
+    n_embed: {vae.n_embed}
+    ddconfig:
+      double_z: false
+      z_channels: {vae.z_channels}
+      resolution: {vae.image_size}
+      in_channels: 3
+      out_ch: 3
+      ch: {vae.ch}
+      ch_mult: [{', '.join(str(m) for m in vae.ch_mult)}]
+      num_res_blocks: {vae.num_res_blocks}
+      attn_resolutions: [{', '.join(str(r) for r in vae.attn_resolutions)}]
+      dropout: 0.0
+    lossconfig:
+      target: taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator
+      params:
+        disc_conditional: false
+        disc_in_channels: 3
+        disc_start: 250001
+"""
+    Path(path).write_text(text)
+
+
+def write_pretrained_files(directory, vae) -> dict:
+    """A port pretrained VAE's weights as the published files' kinds, in
+    ``directory``: the OpenAI dVAE's ``encoder.pkl`` / ``decoder.pkl``
+    (whole-module pickles, ``write_module_pickle``), the VQGAN's
+    ``model.yaml`` and ``last.ckpt`` (``{"state_dict": ...}``, as taming's
+    trainer saves it). Returns the weight paths under JAX's keys
+    (``openai_enc_path``, ... ``vqgan_model_path``)."""
+    from .models.pretrained import OpenAIDiscreteVAE
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    if isinstance(vae, OpenAIDiscreteVAE):
+        paths = {"openai_enc_path": directory / "encoder.pkl",
+                 "openai_dec_path": directory / "decoder.pkl"}
+        write_module_pickle(vae.enc, paths["openai_enc_path"])
+        write_module_pickle(vae.dec, paths["openai_dec_path"])
+    else:
+        paths = {"vqgan_config_path": directory / "model.yaml",
+                 "vqgan_model_path": directory / "last.ckpt"}
+        write_model_yaml(paths["vqgan_config_path"], vae)
+        torch.save({"state_dict": vae.state_dict(), "global_step": 0},
+                   str(paths["vqgan_model_path"]))
+    return {k: str(v) for k, v in paths.items()}

@@ -28,9 +28,15 @@ streams.
 
 ``main(argv, device="cuda")`` is ``train_dalle.py``'s ``main()`` on one
 card, with its flags (``build_parser()`` is JAX's, action by action): the
-VAE from ``--vae_path`` (a DiscreteVAE checkpoint), or the DALLE, its VAE,
-the epoch, the scheduler state and the optimizer state from
-``--dalle_path``; the folder dataset (``data.loader``), or tar shards
+DALLE, its VAE, the epoch, the scheduler state and the optimizer state
+from ``--dalle_path`` (a frozen pretrained VAE's weights from the local
+files its flags name), or else the VAE in JAX's order: ``--vae_path`` (a
+VAE checkpoint), ``--taming`` (the VQGAN of ``--vqgan_config_path`` and
+``--vqgan_model_path``), else the OpenAI dVAE of ``--openai_enc_path``
+and ``--openai_dec_path``; a pretrained VAE computes in bfloat16 under
+``--bf16``, as JAX's loaders are handed the type, and a missing weight
+file is refused with ``models.pretrained.MissingWeights``, naming its
+flag, never downloaded; the folder dataset (``data.loader``), or tar shards
 (``data.webdata``, with ``--wds [img,cap]`` or an ``--image_text_folder``
 ending in ``.tar``; a resume replays a partial epoch of a tar stream from
 its start, and says so); the tokenizer (``pick_tokenizer``: the
@@ -47,7 +53,8 @@ consecutive rejections, an emergency step directory and ``SystemExit``;
 SIGTERM / SIGINT (``PreemptionHandler``): the step in flight finishes, an
 emergency step directory is written, exit 0; a sample every
 ``--sample_every_n_steps`` through ``models.sampling.generate_images``,
-written as PNG to ``dalle_samples/``; ``torch.profiler`` over three steps
+denormalized with the VAE's ``normalization`` and written as PNG to
+``dalle_samples/``; ``torch.profiler`` over three steps
 from ``--profile_step`` into ``--profile_trace_dir`` (a Chrome trace).
 ``global_step`` counts dispatches (micro-steps with ``--ga_steps``), as
 JAX's does: a rejected step and its retry are two. ``DALLE_TPU_FAULTS``
@@ -66,9 +73,8 @@ handler; ``--metrics_port`` serves ``/metrics`` on 127.0.0.1.
 
 The flags in ``NOT_PORTED`` raise ``NotImplementedError`` (with their
 ROADMAP.md queue item) when set to anything but their default, before any
-model or file is built: the Chinese tokenizer, the OpenAI dVAE and the
-VQGAN (also the default that names neither ``--vae_path`` nor
-``--dalle_path``), Weights & Biases, and the mesh and MoE flags.
+model or file is built: the Chinese tokenizer, Weights & Biases, and the
+mesh and MoE flags.
 ``--reversible`` and ``--remat`` build the DALLE in those
 executions (``models/transformer.py``); a DALLE read from
 ``--dalle_path`` keeps its checkpoint's, as in JAX.
@@ -120,7 +126,8 @@ CLI_FLAGS = dict(vae_path=None, dalle_path=None, image_text_folder=None, wds="",
                  dalle_output_file_name="dalle", epochs=20, save_every_n_steps=1000,
                  sample_every_n_steps=1000, keep_n_checkpoints=None, sharded_ckpt=False,
                  auto_resume=True, profile_trace_dir=None, profile_step=200, telemetry=False,
-                 telemetry_dir=None, metrics_port=None)
+                 telemetry_dir=None, metrics_port=None, taming=False, vqgan_model_path=None,
+                 vqgan_config_path=None, openai_enc_path=None, openai_dec_path=None)
 FLAGS = {**TRAINER_FLAGS, **CLI_FLAGS}
 # train_dalle.py's other flags (argparse dests), each with its ROADMAP.md item
 _MESH = "queue 1 item 6 (torch.distributed mesh)"
@@ -128,11 +135,6 @@ _MOE = "queue 1 item 6 (ops/moe.py)"
 _WANDB = "not queued: Weights & Biases needs the network"
 NOT_PORTED = {
     "chinese": "not queued: ChineseTokenizer downloads its vocabulary",
-    "taming": "queue 1 item 6 (models/vqgan.py)",
-    "vqgan_model_path": "queue 1 item 6 (models/vqgan.py)",
-    "vqgan_config_path": "queue 1 item 6 (models/vqgan.py)",
-    "openai_enc_path": "queue 1 item 6 (models/pretrained.py)",
-    "openai_dec_path": "queue 1 item 6 (models/pretrained.py)",
     "wandb": _WANDB, "wandb_name": _WANDB, "wandb_entity": _WANDB,
     "fsdp": _MESH, "tp": _MESH, "sp": _MESH, "pp": _MESH, "pp_microbatches": _MESH,
     "ep": _MESH,
@@ -387,14 +389,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """``NotImplementedError`` for every flag the port does not run, set
-    to anything but its default, and for the VAE it does not read."""
+    to anything but its default."""
     defaults = build_parser().parse_args(["--image_text_folder", "."])
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag) != getattr(defaults, flag):
             raise NotImplementedError(f"--{flag} is not ported (ROADMAP.md {item})")
-    if not (args.vae_path or args.dalle_path):
-        raise NotImplementedError("training without --vae_path or --dalle_path uses the OpenAI "
-                                  "dVAE, which is not ported (ROADMAP.md queue 1 item 6)")
 
 
 def pick_tokenizer(args):
@@ -422,7 +421,9 @@ def main(argv=None, *, device="cuda") -> None:
     from .data.loader import DataLoader, TextImageDataset
     from .data.webdata import TarImageTextDataset, TarLoader
     from .models.factory import (
+        VAE_WEIGHT_KEYS,
         dalle_from_checkpoint,
+        load_pretrained_vae,
         restore_opt_state,
         save_dalle_checkpoint,
         vae_from_checkpoint,
@@ -446,21 +447,30 @@ def main(argv=None, *, device="cuda") -> None:
     faults = FaultRegistry.from_env()
     tokenizer = pick_tokenizer(args)
 
-    # ---- VAE and DALLE (resume | vae_path) --------------------------------
+    # ---- VAE and DALLE (resume | vae_path | taming | OpenAI dVAE) ----------
     start_epoch, sched_state, opt_state, dalle = 0, None, None, None
+    weight_paths = {k: getattr(args, k) for k in VAE_WEIGHT_KEYS}
     if args.dalle_path:
         check_checkpoint_file(args.dalle_path)
         loaded = load_checkpoint(args.dalle_path)
-        dalle, vae, meta = dalle_from_checkpoint(args.dalle_path, device, loaded=loaded)
+        dalle, vae, meta = dalle_from_checkpoint(args.dalle_path, device, loaded=loaded,
+                                                 vae_weight_paths=weight_paths)
         if vae is None:
             raise ValueError(f"{args.dalle_path}: the resume checkpoint carries no VAE")
         start_epoch = int(meta.get("epoch", -1)) + 1
         sched_state = meta.get("scheduler_state")
         opt_state = restore_opt_state(args.dalle_path, device, loaded=loaded)
         del loaded
-    else:
+    elif args.vae_path:
         check_checkpoint_file(args.vae_path)
         vae, _ = vae_from_checkpoint(args.vae_path, device)
+    else:
+        vae_dtype = torch.bfloat16 if args.bf16 else torch.float32
+        if args.taming:
+            vae = load_pretrained_vae("VQGanVAE", weight_paths, vae_dtype, device)
+        else:
+            print("using OpenAI's pretrained VAE for encoding images to tokens")
+            vae = load_pretrained_vae("OpenAIDiscreteVAE", weight_paths, vae_dtype, device)
 
     # ---- data ---------------------------------------------------------------
     text_seq_len = dalle.text_seq_len if dalle is not None else args.text_seq_len
@@ -683,7 +693,8 @@ def main(argv=None, *, device="cuda") -> None:
                         save_sharded(int(trainer.state.step), epoch, it)
 
                 if global_step > 0 and global_step % args.sample_every_n_steps == 0:
-                    pixels = denormalize(generate_images(dalle, vae, text[:1], global_step))
+                    pixels = denormalize(generate_images(dalle, vae, text[:1], global_step),
+                                         vae.normalization)
                     out = Path("dalle_samples")
                     out.mkdir(exist_ok=True)
                     arr = (pixels[0].float().cpu().numpy() * 255).astype(np.uint8)

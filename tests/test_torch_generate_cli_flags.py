@@ -4,9 +4,12 @@ VAE and CLIP):
 
 - the flag surface equals ``generate.py``'s action by action (option
   strings, dest, type, default, nargs, const, action kind, required);
-- ``--int8``, ``--chinese`` and the VQGAN and OpenAI dVAE paths raise
-  ``NotImplementedError`` naming their ROADMAP.md item before any file
-  is read (the checkpoint named does not exist) or any directory made;
+- ``--int8`` and ``--chinese`` raise ``NotImplementedError`` naming
+  their ROADMAP.md item before any file is read (the checkpoint named
+  does not exist) or any directory made; the VQGAN and OpenAI dVAE paths
+  are taken, and a missing file one of them names, for a checkpoint
+  whose VAE is that pretrained one, raises ``MissingWeights`` naming
+  the flag before any directory is made;
 - a checkpoint that does not verify against its manifest exits 2 with
   JAX's two lines, and a gMLP checkpoint fails with the factory's typed
   error, neither making ``--outputs_dir``;
@@ -79,12 +82,58 @@ REFUSED = {"int8": ["--int8"], "chinese": ["--chinese"],
            "openai_dec_path": ["--openai_dec_path", "dec.pkl"]}
 
 
+# the pretrained VAE weight paths: the class whose checkpoint takes the
+# flag, and the flag given an existing file with it
+VAE_PATHS = {"vqgan_model_path": ("VQGanVAE", "vqgan_config_path"),
+             "vqgan_config_path": ("VQGanVAE", "vqgan_model_path"),
+             "openai_enc_path": ("OpenAIDiscreteVAE", "openai_dec_path"),
+             "openai_dec_path": ("OpenAIDiscreteVAE", "openai_enc_path")}
+
+
+@pytest.fixture(scope="module")
+def pretrained_checkpoints(tmp_path_factory):
+    """{VAE class: a DALLE checkpoint naming that pretrained VAE}, and an
+    existing (empty) file for the partner flag."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+    from dalle_pytorch_tpu_torch.models.factory import save_dalle_checkpoint
+    from dalle_pytorch_tpu_torch.models.pretrained import OpenAIDiscreteVAE
+    from dalle_pytorch_tpu_torch.models.vqgan import VQGanVAE
+
+    work = tmp_path_factory.mktemp("pretrained_ckpts")
+    vaes = {"VQGanVAE": VQGanVAE(image_size=16, ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                                 attn_resolutions=(8,), z_channels=64, n_embed=24,
+                                 embed_dim=64, device="meta"),
+            "OpenAIDiscreteVAE": OpenAIDiscreteVAE(image_size=16, num_tokens=16, n_hid=8,
+                                                   device="meta")}
+    out = {}
+    for name, vae in vaes.items():
+        dalle = DALLE(dim=32, depth=1, num_text_tokens=49408, text_seq_len=8,
+                      num_image_tokens=vae.num_tokens, image_fmap_size=vae.fmap_size, heads=2,
+                      dim_head=16, device="cpu").init_weights(torch.Generator().manual_seed(0))
+        out[name] = work / f"{name}.ckpt"
+        save_dalle_checkpoint(out[name], dalle, vae)
+    (work / "there").write_bytes(b"")
+    return out, work / "there"
+
+
 @pytest.mark.parametrize("flag", sorted(REFUSED))
-def test_refused_flag_raises_before_any_file(flag, tmp_path, monkeypatch):
+def test_refused_flag_raises_before_any_file(flag, tmp_path, monkeypatch, pretrained_checkpoints):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"--{flag} .*ROADMAP.md (queue|not queued)"):
-        generate.main(["--dalle_path", "missing.ckpt", "--text", "x", "--outputs_dir", "out",
-                       *REFUSED[flag]], device="cpu")
+    if flag in VAE_PATHS:  # taken now: a missing file it names is refused
+        from dalle_pytorch_tpu_torch.models.pretrained import MissingWeights
+
+        assert flag not in generate.NOT_PORTED
+        vae_class, partner = VAE_PATHS[flag]
+        ckpts, there = pretrained_checkpoints
+        with pytest.raises(MissingWeights, match=f"--{flag}.*never downloaded"):
+            generate.main(["--dalle_path", str(ckpts[vae_class]), "--text", "x",
+                           "--outputs_dir", "out", *REFUSED[flag], f"--{partner}", str(there)],
+                          device="cpu")
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"--{flag} .*ROADMAP.md (queue|not queued)"):
+            generate.main(["--dalle_path", "missing.ckpt", "--text", "x", "--outputs_dir", "out",
+                           *REFUSED[flag]], device="cpu")
     assert list(tmp_path.iterdir()) == []
 
 

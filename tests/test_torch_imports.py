@@ -38,7 +38,8 @@ def _imported(path: Path):
 def test_the_guard_covers_the_new_modules():
     names = {str(p.relative_to(REPO)) for p in SOURCES}
     assert {f"dalle_pytorch_tpu_torch/{m}" for m in (
-        "ops/reversible.py", "train_vae.py", "train_clip.py")} <= names
+        "ops/reversible.py", "train_vae.py", "train_clip.py", "models/pretrained.py",
+        "models/vqgan.py")} <= names
 
 
 def test_the_guard_covers_the_prefix_cache():
@@ -362,3 +363,48 @@ print("ok")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr
+
+
+def test_pretrained_vae_trainer_epoch_runs_with_jax_unimportable(tmp_path):
+    """An epoch of the trainer command line with ``--taming`` on a
+    VQGAN's ``model.yaml`` and ``last.ckpt``, and the OpenAI dVAE's
+    loader on whole-module pickles whose classes are gone, where jax, the
+    JAX package and the card's missing host packages cannot be
+    imported."""
+    code = """
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "dalle_pytorch_tpu", "PIL", "regex", "msgpack",
+           "tokenizers", "ftfy")
+for name in BLOCKED:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from dalle_pytorch_tpu_torch.models.pretrained import OpenAIDiscreteVAE, load_torch_checkpoint
+from dalle_pytorch_tpu_torch.models.vqgan import VQGanVAE
+from dalle_pytorch_tpu_torch.testing import write_caption_folder, write_pretrained_files
+from dalle_pytorch_tpu_torch.train_dalle import main
+from dalle_pytorch_tpu_torch.utils.checkpoint import load_checkpoint
+write_caption_folder("data", 4, 16, seed=1)
+vae = VQGanVAE(image_size=16, ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+               z_channels=64, n_embed=24, embed_dim=64, device="cpu").init_weights(
+                   torch.Generator().manual_seed(0))
+paths = write_pretrained_files("vqgan", vae)
+main(["--image_text_folder", "data", "--taming", "--vqgan_config_path",
+      paths["vqgan_config_path"], "--vqgan_model_path", paths["vqgan_model_path"], "--dim", "32",
+      "--depth", "1", "--heads", "2", "--dim_head", "16", "--text_seq_len", "8",
+      "--truncate_captions", "--epochs", "1", "--batch_size", "2"], device="cpu")
+state, meta = load_checkpoint("dalle.ckpt")
+assert meta["vae_class"] == "VQGanVAE" and "vae_params" not in state
+dvae = OpenAIDiscreteVAE(image_size=16, num_tokens=16, n_hid=8, device="cpu")
+dpaths = write_pretrained_files("dvae", dvae.init_weights(torch.Generator().manual_seed(1)))
+sd = load_torch_checkpoint(dpaths["openai_enc_path"])
+assert all(torch.equal(sd[k], v) for k, v in dvae.enc.state_dict().items())
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m])
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr

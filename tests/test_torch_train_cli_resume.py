@@ -20,8 +20,11 @@ the CPU (the port alone).
   relaunch's are the uninterrupted run's.
 - ``--nan_abort_after`` aborts with an emergency step directory.
 - Every refused flag raises ``NotImplementedError`` naming its ROADMAP.md
-  queue item, before any file is written; so does training without a
-  VAE (the OpenAI dVAE). Tar shards and the HugTokenizer / YttmTokenizer
+  queue item, before any file is written. The pretrained VAEs' flags
+  (``--taming``, the VQGAN and OpenAI dVAE paths) are taken: a weight
+  file they leave out or name but do not hold is refused with
+  ``MissingWeights`` naming its flag, before any file is written; so is
+  training without a VAE (the OpenAI dVAE, JAX's default). Tar shards and the HugTokenizer / YttmTokenizer
   ``--bpe_path`` files are read (``tests/test_torch_webdata.py``,
   ``tests/test_torch_hug_tokenizer.py``).
 """
@@ -209,14 +212,35 @@ def _non_default(action: argparse.Action):
 
 REFUSED = {a.dest: _non_default(a) for a in train_dalle.build_parser()._actions
            if a.dest in train_dalle.NOT_PORTED}
+# the pretrained VAEs' flags, taken since they were ported: each one's
+# arguments (``THERE`` an existing file) and the flag the refusal names
+THERE = __file__
+PRETRAINED = {
+    "taming": (["--taming"], "--vqgan_config_path"),
+    "vqgan_config_path": (["--taming", "--vqgan_config_path", "x"], "--vqgan_config_path"),
+    "vqgan_model_path": (["--taming", "--vqgan_model_path", "x", "--vqgan_config_path", THERE],
+                         "--vqgan_model_path"),
+    "openai_enc_path": (["--openai_enc_path", "x"], "--openai_enc_path"),
+    "openai_dec_path": (["--openai_dec_path", "x", "--openai_enc_path", THERE],
+                        "--openai_dec_path"),
+}
 
 
-@pytest.mark.parametrize("flag", sorted(REFUSED))
+@pytest.mark.parametrize("flag", sorted({**REFUSED, **PRETRAINED}))
 def test_refused_flag_raises_before_any_file(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    argv = ["--image_text_folder", "data", "--vae_path", "missing.ckpt", *REFUSED[flag]]
-    with pytest.raises(NotImplementedError, match=f"--{flag} .*ROADMAP.md (queue|not queued)"):
-        train_dalle.main(argv, device="cpu")
+    if flag in PRETRAINED:
+        from dalle_pytorch_tpu_torch.models.pretrained import MissingWeights
+
+        assert flag not in train_dalle.NOT_PORTED and flag in train_dalle.CLI_FLAGS
+        extra, named = PRETRAINED[flag]
+        with pytest.raises(MissingWeights, match=f"{named}.*never downloaded"):
+            train_dalle.main(["--image_text_folder", "data", *extra], device="cpu")
+    else:
+        argv = ["--image_text_folder", "data", "--vae_path", "missing.ckpt", *REFUSED[flag]]
+        with pytest.raises(NotImplementedError,
+                           match=f"--{flag} .*ROADMAP.md (queue|not queued)"):
+            train_dalle.main(argv, device="cpu")
     assert list(tmp_path.iterdir()) == []
 
 
@@ -224,7 +248,11 @@ def test_refused_flag_raises_before_any_file(flag, tmp_path, monkeypatch):
     (["--image_text_folder", "data"], "OpenAI dVAE"),
 ])
 def test_refused_inputs_raise_before_any_file(argv, match, tmp_path, monkeypatch):
+    """Without a VAE the trainer takes JAX's default, the OpenAI dVAE,
+    whose files it must be given (JAX would download them)."""
+    from dalle_pytorch_tpu_torch.models.pretrained import MissingWeights
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(MissingWeights, match=f"{match}.*--openai_enc_path"):
         train_dalle.main(argv, device="cpu")
     assert list(tmp_path.iterdir()) == []

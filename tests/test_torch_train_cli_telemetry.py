@@ -29,6 +29,7 @@ import torch
 from dalle_pytorch_tpu.models import DiscreteVAE as JVAE
 from dalle_pytorch_tpu.models.factory import save_vae_checkpoint as j_save_vae
 from dalle_pytorch_tpu.utils.telemetry import TELEMETRY as JTELEMETRY
+from dalle_pytorch_tpu.utils.telemetry import Telemetry as JTelemetry
 from dalle_pytorch_tpu.utils.telemetry import validate_flight_file as j_validate
 from dalle_pytorch_tpu_torch import train_dalle
 from dalle_pytorch_tpu_torch.testing import reset_registries, write_caption_folder
@@ -53,7 +54,13 @@ def data(tmp_path_factory):
 
 @pytest.fixture(autouse=True)
 def _registries():
+    """Both packages' registries as a new process has them. JAX's
+    ``Telemetry.reset`` keeps the ring size, and a JAX test that ran
+    earlier in the same worker (``tests/test_telemetry.py``'s sink-fault
+    case sets 8) would make JAX's trainer drain every 8 records: one
+    ``telemetry.drain`` record more than the port's run."""
     reset_registries()
+    JTELEMETRY.ring_size = JTelemetry().ring_size
     yield
     reset_registries()
 
